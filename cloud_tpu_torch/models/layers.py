@@ -1,0 +1,65 @@
+"""Functional layers over parameter dicts (port of ``cloud_tpu/models/layers.py``).
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts (dense kernels ``[in, out]``).  Compute runs in the dtype of the
+activations; a weight is cast to it where it is used, as in the JAX
+package, so f32 master weights and weights stored once in the compute
+dtype give the same numbers.  Full-precision leaves only: int8
+(``*_q``) weights come with the quantization slice of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _no_int8(params, name: str) -> None:
+    if f"{name}_q" in params:
+        raise NotImplementedError(
+            f"int8 weight {name}_q: weight-only quantization comes with the "
+            "quantization slice of the port (ROADMAP.md)"
+        )
+
+
+def dense_apply(params, x, *, dtype=None):
+    _no_int8(params, "kernel")
+    dtype = dtype or x.dtype
+    y = torch.matmul(x.to(dtype), params["kernel"].to(dtype))
+    if "bias" in params:
+        y = y + params["bias"].to(dtype)
+    return y
+
+
+def embedding_apply(params, token_ids, *, dtype=torch.float32):
+    """Table lookup; rows are gathered first and cast after (the same
+    numbers as casting the whole table, without touching all of it)."""
+    _no_int8(params, "table")
+    return params["table"][token_ids.long()].to(dtype)
+
+
+def rmsnorm_apply(params, x, *, eps: float = 1e-6):
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def rotary_embedding(x, positions, *, base: float = 10000.0):
+    """RoPE applied to ``[..., T, H, D]`` with positions ``[..., T]``."""
+    dim = x.shape[-1]
+    half = dim // 2
+    freqs = base ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    angles = positions[..., :, None].float() * freqs  # [..., T, half]
+    angles = angles[..., None, :]  # broadcast over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_block_apply(params, x):
+    """Gated (SwiGLU) MLP."""
+    h = F.silu(dense_apply(params["wi"], x)) * dense_apply(params["wg"], x)
+    return dense_apply(params["wo"], h)

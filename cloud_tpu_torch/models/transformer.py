@@ -1,0 +1,142 @@
+"""CloudLM, the decoder-only transformer (port of ``cloud_tpu/models/transformer.py``).
+
+Pre-RMSNorm, RoPE, SwiGLU MLP, optional tied head.  Parameters are the
+dict that :mod:`cloud_tpu_torch.bridge` builds: the JAX package's names,
+with the stacked layer axis split into a Python list ``params["layers"]``
+that the forward pass walks in a plain loop.  Causal attention goes
+through :func:`cloud_tpu_torch.ops.flash_attention.flash_attention`.
+
+The port serves one card: the JAX package's mesh layouts (tp/sp/pp,
+zig-zag and Ulysses sequence parallelism) have no counterpart here, and
+MoE layers come with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from cloud_tpu_torch._device import resolve_device
+from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.ops import flash_attention as flash_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    num_layers: int = 12
+    dim: int = 768
+    num_heads: int = 12
+    head_dim: int = 64
+    mlp_hidden: int = 3072
+    max_seq_len: int = 2048
+    #: Mixture-of-experts MLP; only ``None`` (dense SwiGLU) in this slice.
+    moe: Optional[Any] = None
+    dtype: torch.dtype = torch.bfloat16
+    rope_base: float = 10000.0
+    #: Tie the LM head to the token embedding (logits = x @ table^T).
+    tied_embeddings: bool = False
+
+    def scaled(self, **kw) -> "TransformerConfig":
+        return dataclasses.replace(self, **kw)
+
+
+#: Tiny config for tests.
+TINY = TransformerConfig(
+    vocab_size=256, num_layers=4, dim=64, num_heads=4, head_dim=16,
+    mlp_hidden=128, max_seq_len=128,
+)
+
+#: ~124M-parameter single-chip config (GPT-2-small shape).
+SMALL = TransformerConfig(
+    vocab_size=32000, num_layers=12, dim=768, num_heads=12, head_dim=64,
+    mlp_hidden=3072, max_seq_len=1024,
+)
+
+
+def check_supported(config: TransformerConfig) -> None:
+    if config.moe is not None:
+        raise NotImplementedError(
+            "MoE layers come with a later slice of the port (ROADMAP.md)"
+        )
+
+
+def qkv_project(att_params, x, positions, config: TransformerConfig):
+    """RoPE'd q/k and v projections ``[B, T, H, hd]``, shared by the
+    forward pass and generation's prefill/decode."""
+    b, t, _ = x.shape
+    h, hd = config.num_heads, config.head_dim
+
+    def proj(p):
+        return layers.dense_apply(p, x).reshape(b, t, h, hd)
+
+    q = layers.rotary_embedding(proj(att_params["q"]), positions,
+                                base=config.rope_base)
+    k = layers.rotary_embedding(proj(att_params["k"]), positions,
+                                base=config.rope_base)
+    v = proj(att_params["v"])
+    return q, k, v
+
+
+def _layer_compute(layer_params, x, *, config, positions):
+    b, t, _ = x.shape
+    y = layers.rmsnorm_apply(layer_params["ln1"], x)
+    q, k, v = qkv_project(layer_params["att"], y, positions, config)
+    attended = flash_lib.flash_attention(q, k, v, causal=True)
+    x = x + layers.dense_apply(layer_params["att"]["out"],
+                               attended.reshape(b, t, -1))
+    y = layers.rmsnorm_apply(layer_params["ln2"], x)
+    return x + layers.mlp_block_apply(layer_params["mlp"], y)
+
+
+def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
+    """Forward pass up to the final norm: tokens ``[B, T]`` -> hidden
+    ``[B, T, D]``."""
+    check_supported(config)
+    device = resolve_device(device)
+    tokens = torch.as_tensor(tokens, device=device)
+    b, t = tokens.shape
+    x = layers.embedding_apply(params["embed"], tokens, dtype=config.dtype)
+    x = x * math.sqrt(config.dim)  # stays in config.dtype, as in JAX
+    positions = torch.arange(t, device=device).expand(b, t)
+    for layer_params in params["layers"]:
+        x = _layer_compute(layer_params, x, config=config,
+                           positions=positions)
+    return layers.rmsnorm_apply(params["ln_f"], x)
+
+
+def apply(params, tokens, config: TransformerConfig, *, device=None):
+    """Forward pass: tokens ``[B, T]`` -> ``(logits [B, T, V] f32, aux)``;
+    ``aux`` is the MoE auxiliary loss, zero for the dense MLP."""
+    x = apply_hidden(params, tokens, config, device=device)
+    return lm_logits(params, x, config), torch.zeros((), device=x.device)
+
+
+def head_table(params, config: TransformerConfig):
+    """``(table, layout)`` of the vocabulary projection: ``"vd"`` is the
+    tied embedding table ``[V, D]``, ``"dv"`` the dense head ``[D, V]``."""
+    if config.tied_embeddings:
+        layers._no_int8(params["embed"], "table")
+        return params["embed"]["table"], "vd"
+    head = params["head"]
+    layers._no_int8(head, "kernel")
+    extra = set(head) - {"kernel"}
+    if extra:
+        raise NotImplementedError(
+            f"head has params beyond 'kernel' ({sorted(extra)}); "
+            "bias-free heads only"
+        )
+    return head["kernel"], "dv"
+
+
+def lm_logits(params, x, config: TransformerConfig):
+    """Final vocabulary projection in f32."""
+    x = x.float()
+    table, layout = head_table(params, config)
+    table = table.float()
+    if layout == "vd":
+        return torch.matmul(x, table.t())
+    return torch.matmul(x, table)

@@ -1,0 +1,66 @@
+"""Shared rig for the PyTorch port's parity tests (``tests/test_torch_*.py``).
+
+The JAX package's own ``init`` makes the weights; ``cloud_tpu_torch.bridge``
+carries them across, so both sides compute with the same numbers.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from cloud_tpu.models import generation as jax_gen
+from cloud_tpu.models import transformer as jax_tf
+from cloud_tpu_torch import bridge
+from cloud_tpu_torch.models import transformer
+
+#: Smallest top-2 logit gap along a greedy path for it to count as
+#: tie-free: below it, f32 summation order alone could flip an argmax.
+TIE_GAP = 1e-3
+
+
+def port_config(jax_cfg, dtype=torch.float32):
+    fields = ("vocab_size", "num_layers", "dim", "num_heads", "head_dim",
+              "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings")
+    return transformer.TransformerConfig(
+        dtype=dtype, **{f: getattr(jax_cfg, f) for f in fields})
+
+
+def tiny_models(seed=0, num_layers=2):
+    """(jax_cfg, jax_params, port_cfg, port_params): TINY in f32."""
+    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=num_layers)
+    params = jax_tf.init(jax.random.PRNGKey(seed), jax_cfg)
+    cfg = port_config(jax_cfg)
+    return jax_cfg, params, cfg, bridge.to_torch(params, cfg, device="cpu")
+
+
+def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
+    """The smallest top-2 logit gap at every greedy step of JAX
+    ``generate`` on these prompts (re-scored by a full forward pass)."""
+    out = jax_gen.generate(params, jnp.asarray(prompts), jnp.asarray(lens),
+                           jax_cfg, max_new_tokens=max_new_tokens)
+    seqs = np.asarray(out["sequences"])
+    logits, _ = jax_tf.apply(params, jnp.asarray(seqs), jax_cfg)
+    logits = np.asarray(logits)
+    gaps = []
+    for row, n in enumerate(lens):
+        for pos in range(n - 1, n - 1 + max_new_tokens):
+            top2 = np.sort(logits[row, pos])[-2:]
+            gaps.append(top2[1] - top2[0])
+    return float(min(gaps)), np.asarray(out["tokens"])
+
+
+def tie_free_prompts(jax_cfg, params, *, batch, max_len, max_new_tokens,
+                     seed=0, tries=50, min_len=1):
+    """Seeded random prompts whose JAX greedy path is tie-free; returns
+    ``(prompts [B, max_len], lens [B], jax_tokens [B, N])``."""
+    for attempt in range(tries):
+        rng = np.random.default_rng(seed + attempt)
+        lens = rng.integers(min_len, max_len + 1, batch).astype(np.int32)
+        prompts = rng.integers(1, jax_cfg.vocab_size,
+                               (batch, max_len)).astype(np.int32)
+        gap, tokens = min_greedy_gap(jax_cfg, params, prompts, lens,
+                                     max_new_tokens)
+        if gap > TIE_GAP:
+            return prompts, lens, tokens
+    raise AssertionError("no tie-free prompt set found")
