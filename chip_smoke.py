@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and ResNet training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,33 @@ Run from the root of a checkout on a host with one CUDA card, ``nvcc``
 and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
 
 1. prints the card's name and power limit, then builds every CUDA kernel
-   from ``cloud_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
+   library from ``cloud_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
    parallel) and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (f32 within 1e-4 absolute, bf16 within 2e-2),
-   and times the kernel, the plain version and one PyTorch library call
-   computing the same function (a yardstick only: the port never calls
-   it);
+2. holds each kernel against its plain PyTorch version on the card at its
+   path's shapes (tolerances at ``check_close``: f32 within 1e-4 absolute;
+   bf16 within 2e-2 + 2^-7 |ref|, one bf16 ulp relative plus the absolute
+   term; float32 statistics and per-sample sums within 1e-4 of
+   max(1, max |ref|)), and times the kernel, the plain version and one
+   PyTorch library call computing the same function (a yardstick only:
+   the port never calls it): K5 and K8 at the serving shapes (CUDA events
+   around back-to-back launches), K1-K4 (GroupNorm) at every shape of a
+   ResNet-50 CIFAR b256 step and at two 224 b128 shapes (device time
+   from torch.profiler's kernel rows: a GroupNorm call is shorter than
+   its host launch cost);
 3. serves 16 staggered requests of mixed lengths through
    ``ServingEngine`` with CloudLM SMALL in bf16 (random weights from a
    seed), checks that every request resolves with valid tokens and that
-   the main path launched both kernels, and checks greedy parity with the
-   port's own ``generate()`` at SMALL width in f32; then times one
-   decode chunk and splits its device time by kernel (torch.profiler);
-4. prints one JSON line describing every kernel, then, as its last line,
+   the path launched K5 and K8, and checks greedy parity with the port's
+   own ``generate()`` at SMALL width in f32; then splits one decode
+   chunk's device time by kernel (torch.profiler);
+4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
+   with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
+   16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
+   card (batch 8, through the kernels) against the same step on the CPU;
+   splits one step's device time (GroupNorm, convolution, idle);
+5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
+   the same launch checks and breakdown;
+6. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a nonzero exit and no result line.
@@ -40,12 +53,17 @@ import numpy as np
 #: Published H100 SXM peaks (NVIDIA data sheet) for the bound column.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: Kernel against plain version.  f32: absolute.  bf16: |a - b| <= ATOL +
+#: RTOL |b|, one bf16 ulp relative (2^-7) plus the absolute term, so an
+#: output of magnitude 4 or more is not held to less than its own ulp.
+TOL_F32 = 1e-4
+BF16_ATOL, BF16_RTOL = 2e-2, 2.0 ** -7
 
 #: The serving path's shapes: bench.py's churn probe on CloudLM SMALL.
 NUM_SLOTS, MAX_NEW, CHUNK = 8, 64, 8
 BUCKETS = (32, 128, 512)
 HEADS, HEAD_DIM = 12, 64
+SERVING_KERNELS = ("flash_fwd", "paged_attention")
 
 
 def fail(msg: str) -> int:
@@ -69,6 +87,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed durations of the CUDA
+    kernels it launches (torch.profiler kernel rows), without the host's
+    launch gaps that an event pair around back-to-back small launches
+    would include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _kernel_rows(prof)) / 1e3 / iters
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -77,6 +112,33 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def check_close(what: str, out, ref, dtype_name: str, *, sums=False,
+                input_scale=0.0) -> float:
+    """Raise unless ``out`` is within the stated tolerance of ``ref``;
+    return the largest absolute difference.  ``sums=True`` marks float32
+    statistics and sums, held to 1e-4 of max(1, max |ref|) whatever the
+    activations' type: their rounding grows with their magnitude.
+    ``input_scale`` (GroupNorm: max |x| times max rstd) adds 8 float32 ulps
+    of it to the f32 limit: where |mean| >> std, two correct orders of the
+    same sums differ by a few ulps of the mean, which the normalisation
+    scales by rstd."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if sums:
+        ok = err <= TOL_F32 * max(1.0, float(ref.float().abs().max()))
+    elif dtype_name == "bfloat16":
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+    else:
+        ok = err <= TOL_F32 + 8 * 2.0 ** -23 * input_scale
+    ok = ok and bool(torch.isfinite(out.float()).all())
+    if not ok:
+        raise AssertionError(f"{what}: max_abs_err {err:.3e} outside the "
+                             f"tolerance ({dtype_name})")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -109,14 +171,10 @@ def check_flash(device, card):
                 ref_out, ref_lse = fa._reference_with_lse(
                     q, k, v, causal=True, mask=mask)
                 torch.cuda.synchronize()
-                err = max(max_err(out, ref_out), max_err(lse, ref_lse))
-                ok = err <= TOL[name] and bool(torch.isfinite(out).all())
-                print(f"  K5 flash_fwd {name} T={t} mask={masked}: "
-                      f"max_abs_err={err:.3e} (tol {TOL[name]:g}) "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"flash_fwd {name} T={t} mask={masked}"
-                                         f" err {err}")
+                what = f"K5 flash_fwd {name} T={t} mask={masked}"
+                err = max(check_close(what, out, ref_out, name),
+                          check_close(what + " lse", lse, ref_lse, name))
+                print(f"  {what}: max_abs_err={err:.3e} ok")
                 worst[name] = max(worst[name], err)
                 if name == "bfloat16" and t == 128 and masked:
                     report = (q, k, v, mask)
@@ -193,14 +251,9 @@ def check_paged(device, card):
                 out = pa._paged_kernel(q, slot, cur_len, pool_l, table)
                 ref = pa._reference(q, slot, cur_len, pool_l, table)
                 torch.cuda.synchronize()
-                err = max_err(out, ref)
-                ok = err <= TOL[name] and bool(torch.isfinite(out).all())
-                print(f"  K8 paged_attention {name} Tq={tq} pool={pool}: "
-                      f"max_abs_err={err:.3e} (tol {TOL[name]:g}) "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"paged_attention {name} Tq={tq} "
-                                         f"pool={pool} err {err}")
+                what = f"K8 paged_attention {name} Tq={tq} pool={pool}"
+                err = check_close(what, out, ref, name)
+                print(f"  {what}: max_abs_err={err:.3e} ok")
                 worst[name] = max(worst[name], err)
     # Timing at the engine's decode step: bf16, Tq=1, every row live at a
     # length drawn across the slot row.
@@ -236,6 +289,448 @@ def check_paged(device, card):
             "ms": kernel, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library,
             "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={HEADS} D={HEAD_DIM} bf16"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: GroupNorm K1-K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+GN_KERNELS = ("gn_fwd", "gn_fwd_res", "gn_bwd", "gn_bwd_res")
+GN_REPLACES = {"gn_fwd": "cloud_tpu/ops/group_norm.py:96",
+               "gn_fwd_res": "cloud_tpu/ops/group_norm.py:113",
+               "gn_bwd": "cloud_tpu/ops/group_norm.py:146",
+               "gn_bwd_res": "cloud_tpu/ops/group_norm.py:172"}
+GN_GROUPS, GN_EPS = 32, 1e-5
+#: Launches of each GroupNorm kernel in one ResNet-50 step: 37 calls
+#: without a residual (stem, gn1 and gn2 of 16 blocks, 4 projections) and
+#: 16 with one (gn3 of each block), forward and backward.
+GN_PER_STEP = {"gn_fwd": 37, "gn_fwd_res": 16, "gn_bwd": 37, "gn_bwd_res": 16}
+RESNET50_STAGES, RESNET50_WIDTH = (3, 4, 6, 3), 64
+CIFAR_BATCH, IMAGENET_BATCH = 256, 128
+
+
+def gn_calls(batch: int, image_hw: int):
+    """``(shape, residual, relu)`` of every GroupNorm call of one ResNet-50
+    forward pass, in order (``cloud_tpu_torch/models/resnet.py``)."""
+    calls = []
+    hw = -(-image_hw // 2)  # stem, stride 2
+    calls.append(((batch, hw, hw, RESNET50_WIDTH), False, True))
+    hw = -(-hw // 2)  # max-pool, stride 2
+    cin = RESNET50_WIDTH
+    for stage, blocks in enumerate(RESNET50_STAGES):
+        cmid = RESNET50_WIDTH * 2 ** stage
+        cout = 4 * cmid
+        for block in range(blocks):
+            stride = 2 if (block == 0 and stage > 0) else 1
+            out = -(-hw // stride)
+            calls.append(((batch, hw, hw, cmid), False, True))    # gn1
+            calls.append(((batch, out, out, cmid), False, True))  # gn2
+            if stride != 1 or cin != cout:
+                calls.append(((batch, out, out, cout), False, False))
+            calls.append(((batch, out, out, cout), True, True))   # gn3
+            hw, cin = out, cout
+    return calls
+
+
+def _gn_kernel_calls(name, calls):
+    """The step's calls that launch kernel ``name``: K1/K3 take every call
+    without a residual, K2/K4 every call with one."""
+    res = name in ("gn_fwd_res", "gn_bwd_res")
+    return [(shape, relu) for shape, r, relu in calls if r == res]
+
+
+def _gn_inputs(shape, dtype, gen, *, residual, mean=0.0):
+    import torch
+
+    device = gen.device
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=device) + mean).to(dtype)
+    scale = 1.0 + 0.3 * torch.randn((c,), generator=gen, device=device)
+    bias = 0.2 * torch.randn((c,), generator=gen, device=device)
+    res = (torch.randn(shape, generator=gen, device=device).to(dtype)
+           if residual else None)
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return x, scale, bias, res, dy
+
+
+def _check_gn_case(gn, shape, dtype, gen, *, residual, relu, mean=0.0):
+    """K1/K2 then K3/K4 against the plain versions on the same inputs (the
+    backward on the forward kernel's own statistics, so both recompute the
+    same relu gate).  Returns {kernel: max_abs_err}."""
+    import torch
+
+    name = str(dtype).split(".")[1]
+    x, scale, bias, res, dy = _gn_inputs(shape, dtype, gen,
+                                         residual=residual, mean=mean)
+    y, m, r = gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+    ry, rm, rr = gn._fwd_plain(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+    fwd = "gn_fwd_res" if residual else "gn_fwd"
+    what = f"{fwd} {name} {shape} relu={relu} mean={mean:g}"
+    scale_in = float(x.float().abs().max() * rr.max())
+    errs = {fwd: max(check_close(what + " y", y, ry, name,
+                                 input_scale=scale_in),
+                     check_close(what + " mean", m, rm, name, sums=True),
+                     check_close(what + " rstd", r, rr, name, sums=True))}
+    dx, ds, db, dres = gn._bwd_kernel(x, dy, m, r, scale, bias, res,
+                                      GN_GROUPS, relu)
+    rdx, rds, rdb, rdres = gn._bwd_plain(x, dy, m, r, scale, bias, res,
+                                         GN_GROUPS, relu)
+    bwd = "gn_bwd_res" if residual else "gn_bwd"
+    what = f"{bwd} {name} {shape} relu={relu} mean={mean:g}"
+    err = max(check_close(what + " dx", dx, rdx, name, input_scale=scale_in),
+              check_close(what + " ds", ds, rds, name, sums=True),
+              check_close(what + " db", db, rdb, name, sums=True))
+    if residual:
+        err = max(err, check_close(what + " dres", dres, rdres, name))
+    errs[bwd] = err
+    torch.cuda.synchronize()
+    return errs
+
+
+def _gn_bytes_ops(name, shape, dtype_bytes):
+    """Bytes one call must move (each input read once, each output written
+    once) and its float32 operations, from its shape."""
+    b, h, w, c = shape
+    n = b * h * w * c
+    stats = 2 * b * GN_GROUPS * 4  # mean, rstd
+    affine = 2 * c * 4             # scale, bias
+    if name == "gn_fwd":
+        return 2 * n * dtype_bytes + affine + stats, 8 * n
+    if name == "gn_fwd_res":
+        return 3 * n * dtype_bytes + affine + stats, 9 * n
+    partials = 2 * b * c * 4       # ds, db
+    if name == "gn_bwd":
+        return 3 * n * dtype_bytes + affine + stats + partials, 14 * n
+    return 5 * n * dtype_bytes + affine + stats + partials, 15 * n
+
+
+def _time_gn(gn, name, calls, gen):
+    """Kernel, plain and ``F.group_norm`` (+ add and relu; autograd for the
+    backward) times of the given calls run back to back, and their bound."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = torch.bfloat16
+    fwd = name.startswith("gn_fwd")
+    residual = name.endswith("_res")
+    setups, nbytes, ops = [], 0.0, 0.0
+    for shape, relu in calls:
+        x, scale, bias, res, dy = _gn_inputs(shape, dtype, gen,
+                                             residual=residual)
+        _, m, r = gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS,
+                                 relu)
+        setups.append((x, scale, bias, res, dy, m, r, relu))
+        by, op = _gn_bytes_ops(name, shape, 2)
+        nbytes, ops = nbytes + by, ops + op
+
+    def kernel():
+        for x, scale, bias, res, dy, m, r, relu in setups:
+            if fwd:
+                gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+            else:
+                gn._bwd_kernel(x, dy, m, r, scale, bias, res, GN_GROUPS,
+                               relu)
+
+    def plain():
+        for x, scale, bias, res, dy, m, r, relu in setups:
+            if fwd:
+                gn._fwd_plain(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+            else:
+                gn._bwd_plain(x, dy, m, r, scale, bias, res, GN_GROUPS,
+                              relu)
+
+    graphs = []
+    for x, scale, bias, res, dy, m, r, relu in setups:
+        leaves = [t.detach().requires_grad_(not fwd)
+                  for t in (x, scale.to(dtype), bias.to(dtype))]
+        if res is not None:
+            leaves.append(res.detach().requires_grad_(not fwd))
+        graphs.append((leaves, relu, dy))
+
+    def library_fwd(leaves, relu):
+        y = F.group_norm(leaves[0].permute(0, 3, 1, 2), GN_GROUPS,
+                         leaves[1], leaves[2], GN_EPS)
+        if len(leaves) == 4:
+            y = y + leaves[3].permute(0, 3, 1, 2)
+        return F.relu(y) if relu else y
+
+    if fwd:
+        def library():
+            with torch.no_grad():
+                for leaves, relu, _ in graphs:
+                    library_fwd(leaves, relu)
+    else:
+        built = [(library_fwd(leaves, relu), leaves, dy.permute(0, 3, 1, 2))
+                 for leaves, relu, dy in graphs]
+
+        def library():
+            for y, leaves, dy in built:
+                torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    with torch.no_grad():
+        times = {"kernel": (device_ms(kernel), time_ms(kernel)),
+                 "plain": (device_ms(plain, iters=3), time_ms(plain, iters=5))}
+    times["library"] = (device_ms(library, iters=3),
+                        time_ms(library, iters=5))
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return times, b_ms, b_by
+
+
+def check_group_norm(device, card):
+    """K1-K4 at every GroupNorm shape of a ResNet-50 CIFAR b256 step and at
+    two 224 b128 shapes; f32 and bf16, relu and residual on and off, and
+    one input with mean 1e3 and std 1.  Times the 37 or 16 calls of one
+    CIFAR step back to back per kernel, and one 224 call."""
+    import torch
+
+    from cloud_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    cifar = gn_calls(CIFAR_BATCH, 32)
+    big = [(IMAGENET_BATCH, 112, 112, 64), (IMAGENET_BATCH, 56, 56, 256)]
+    shapes = sorted({shape for shape, _, _ in cifar}) + big
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in GN_KERNELS}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for shape in shapes:
+            for residual in (False, True):
+                for relu in (False, True):
+                    errs = _check_gn_case(gn, shape, dtype, gen,
+                                          residual=residual, relu=relu)
+                    cases += 1
+                    for k, e in errs.items():
+                        worst[k][dname] = max(worst[k][dname], e)
+        errs = _check_gn_case(gn, (CIFAR_BATCH, 8, 8, 256), dtype, gen,
+                              residual=True, relu=True, mean=1e3)
+        errs.update(_check_gn_case(gn, (CIFAR_BATCH, 8, 8, 256), dtype, gen,
+                                   residual=False, relu=False, mean=1e3))
+        cases += 2
+        for k, e in errs.items():
+            worst[k][dname] = max(worst[k][dname], e)
+        print(f"  K1-K4 group_norm {dname}: {len(shapes)} shapes x relu x "
+              f"residual + mean 1e3 ok; max_abs_err " + ", ".join(
+                  f"{k} {worst[k][dname]:.3e}" for k in GN_KERNELS))
+    entries = []
+    for name in GN_KERNELS:
+        calls = _gn_kernel_calls(name, cifar)
+        times, b_ms, b_by = _time_gn(gn, name, calls, gen)
+        shape_224 = big[1] if name.endswith("_res") else big[0]
+        t224, b224, _ = _time_gn(gn, name, [(shape_224, True)], gen)
+        print(f"  {name} bf16, its {len(calls)} calls of one CIFAR b256 step,"
+              f" device ms: kernel {times['kernel'][0]:.4f}, plain "
+              f"{times['plain'][0]:.4f}, F.group_norm "
+              f"{times['library'][0]:.4f}, bound {b_ms:.5f} ({b_by}); "
+              f"back to back (events): kernel {times['kernel'][1]:.4f}, "
+              f"plain {times['plain'][1]:.4f}, F.group_norm "
+              f"{times['library'][1]:.4f} [{card}]")
+        print(f"  {name} bf16, one call at {shape_224}, device ms: kernel "
+              f"{t224['kernel'][0]:.4f}, plain {t224['plain'][0]:.4f}, "
+              f"F.group_norm {t224['library'][0]:.4f}, bound {b224:.5f} "
+              f"[{card}]")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "cloud_tpu_torch/ops/csrc/group_norm.cu",
+            "replaces": GN_REPLACES[name],
+            "max_abs_err": worst[name]["bfloat16"],
+            "max_abs_err_f32": worst[name]["float32"],
+            "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": times["library"][0],
+            "event_ms": {k: v[1] for k, v in times.items()},
+            "shape": f"its {len(calls)} calls of one ResNet-50 CIFAR b256 "
+                     f"bf16 step (device time summed)",
+            "at_224": {"shape": list(shape_224), "bound_ms": b224,
+                       **{f"{k}_ms": v[0] for k, v in t224.items()}}})
+    print(f"  group_norm: {cases} cases per kernel pair checked")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: ResNet-50 training
+# ---------------------------------------------------------------------------
+
+
+def run_training(device, card, *, imagenet: bool, warmup: int, iters: int):
+    """Train ResNet-50 through ``resnet_train_setup`` and
+    ``chain_then_read_throughput``; check finite metrics and the GroupNorm
+    launches per step.  Returns the result and ``(step, state, batch)``."""
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils import benchmarking
+
+    batch_size = IMAGENET_BATCH if imagenet else CIFAR_BATCH
+    step, state, batch = benchmarking.resnet_train_setup(
+        imagenet_shape=imagenet, batch_size=batch_size, device=device)
+    last = {}
+
+    def tracked(st, b):
+        st, metrics = step(st, b)
+        last.update(metrics)
+        return st, metrics
+
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    rate = benchmarking.chain_then_read_throughput(tracked, state, batch,
+                                                   warmup=warmup, iters=iters)
+    launches = dispatch.launch_counts(GN_KERNELS)
+    steps = warmup + iters
+    want = {k: n * steps for k, n in GN_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"GroupNorm launches {launches} != {want} "
+                             f"({steps} steps)")
+    values = {k: float(v) for k, v in last.items()}
+    if not all(np.isfinite(values[k]) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"non-finite training metrics {values}")
+    hw = 224 if imagenet else 32
+    print(f"  ResNet-50 {hw}x{hw} b{batch_size} bf16: {warmup} + {iters} "
+          f"steps, {rate:.3f} steps/s = {rate * batch_size:.1f} images/s, "
+          f"{1e3 / rate:.2f} ms/step; final loss {values['loss']:.4f}, "
+          f"grad_norm {values['grad_norm']:.4f}; launches {launches} "
+          f"= per step {GN_PER_STEP} [{card}]")
+    result = {"steps_per_s": rate, "images_per_s": rate * batch_size,
+              "ms_per_step": 1e3 / rate, "final_loss": values["loss"],
+              "final_grad_norm": values["grad_norm"], "launches": launches}
+    return result, (step, state, batch)
+
+
+def check_train_parity(device, card):
+    """One f32 step of ResNet-50 CIFAR at batch 8 on the card (through
+    K1-K4) against the same step on the CPU from the same params and batch
+    (TF32 off): loss and grad_norm within 1e-4 relative, every updated
+    parameter within 1e-4 of max(1, max |p|) of its leaf."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.training import optimizers, train
+
+    cfg = dataclasses.replace(resnet.RESNET50_CIFAR, dtype=torch.float32)
+    params = bridge.init_resnet(cfg, torch.Generator().manual_seed(3),
+                                device="cpu")
+    rng = np.random.default_rng(4)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, 8))
+    images = torch.from_numpy(
+        rng.normal(size=(8, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", device):
+        tx = optimizers.sgd(0.1, momentum=0.9)
+        state = train.create_sharded_state(
+            None, lambda _: bridge.map_leaves(params, torch.clone), tx,
+            device=dev)
+        step = train.make_train_step(
+            lambda p, b: resnet.loss_fn(p, b, cfg, device=dev), tx)
+        state, metrics = step(state, {"image": images.to(dev),
+                                      "label": labels.to(dev)})
+        out[str(dev)] = (state, {k: float(v) for k, v in metrics.items()})
+    (cpu_state, cpu_m), (gpu_state, gpu_m) = out["cpu"], out[str(device)]
+    errs = {}
+    for key in ("loss", "grad_norm"):
+        rel = abs(gpu_m[key] - cpu_m[key]) / abs(cpu_m[key])
+        errs[key] = rel
+        if not rel <= 1e-4:
+            raise AssertionError(f"f32 step {key}: card {gpu_m[key]} vs CPU "
+                                 f"{cpu_m[key]} (rel {rel:.2e})")
+    worst = 0.0
+    for a, b in zip(bridge.leaves(gpu_state.params),
+                    bridge.leaves(cpu_state.params)):
+        worst = max(worst, check_close("f32 step params", a.detach().cpu(),
+                                       b.detach(), "float32", sums=True))
+    errs["params_max_abs"] = worst
+    print(f"  f32 step, ResNet-50 CIFAR b8, card vs CPU: loss "
+          f"{gpu_m['loss']:.6f} vs {cpu_m['loss']:.6f}, grad_norm "
+          f"{gpu_m['grad_norm']:.5f} vs {cpu_m['grad_norm']:.5f}, params "
+          f"max_abs_err {worst:.3e} (tol 1e-4 x max(1, max|p|)) ok [{card}]")
+    return errs
+
+
+def _kernel_rows(prof):
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
+            rows.append((dev_us, evt.count, evt.key))
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sorted(rows, reverse=True)
+
+
+#: Substrings of the cuDNN and CUTLASS kernel names convolutions run as.
+CONV_KEYS = ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad", "fprop",
+             "cutlass", "nchw", "nhwc")
+
+
+def _is_gn(key: str) -> bool:
+    return "gn_fwd_" in key or "gn_bwd_" in key
+
+
+def profile_train_step(card, step, state, batch):
+    """Where one ResNet-50 training step's time goes: kernel rows of
+    torch.profiler split into GroupNorm (K1-K4), convolution (cuDNN and
+    CUTLASS kernels) and the rest, against the wall time of an unprofiled
+    step; the host's busiest operators; and every copy of an activation
+    (an ``aten::copy_`` or ``aten::contiguous`` of a four-dim tensor led
+    by the batch that is not a conv weight: the explicit SAME pads and the
+    image cast are expected, a layout copy is not)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cloud_tpu_torch.bridge import leaves
+
+    batch_size, hw = batch["image"].shape[:2]
+    weights = {(k.shape[3], k.shape[2], k.shape[0], k.shape[1])
+               for k in leaves(state.params) if k.dim() == 4}
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step(state, batch)
+    float(metrics["loss"])
+    wall_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    rows = _kernel_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    gn = sum(r[0] for r in rows if _is_gn(r[2])) / 1e3
+    conv = sum(r[0] for r in rows if not _is_gn(r[2]) and any(
+        k in r[2].lower() for k in CONV_KEYS)) / 1e3
+    print(f"  ResNet-50 {hw}x{hw} b{batch_size} step: wall {wall_ms:.3f} ms,"
+          f" device "
+          f"kernels {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
+          f"GroupNorm {gn:.3f} ms ({gn / busy:.3f} of device time), "
+          f"convolution {conv:.3f} ms ({conv / busy:.3f}) [{card}]")
+    for dev_us, count, key in rows[:20]:
+        print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    print("  host: busiest operators by self CPU time")
+    for cpu_us, count, key in host[:8]:
+        print(f"    {cpu_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    copies = []
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key not in ("aten::copy_", "aten::contiguous"):
+            continue
+        shape = list(evt.input_shapes[0]) if evt.input_shapes else []
+        if (len(shape) == 4 and shape[0] == batch_size
+                and tuple(shape) not in weights):
+            copies.append((evt.key, shape, evt.count))
+    print(f"  activation copies in the step: {sum(c[2] for c in copies)}"
+          + "".join(f"\n    {k} {s} x{n}" for k, s, n in copies))
+    return {"step_wall_ms": wall_ms, "step_device_busy_ms": busy,
+            "step_idle_share": 1 - busy / wall_ms,
+            "gn_ms": gn, "gn_share": gn / busy,
+            "conv_ms": conv, "conv_share": conv / busy,
+            "activation_copies": [[k, s, n] for k, s, n in copies]}
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +774,7 @@ def run_engine(device, card):
             time.sleep(0.002)  # staggered arrivals
         results = [f.result(timeout=600) for f in futures]
         wall = time.perf_counter() - start
-        launches = dispatch.launch_counts()
+        launches = dispatch.launch_counts(SERVING_KERNELS)
         stats = engine.stats()
     for (prompt, budget), res in zip(requests, results):
         if res.tokens.shape != (budget,) or res.num_generated != budget:
@@ -290,7 +785,7 @@ def run_engine(device, card):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path (count {count})")
+                                 f"serving path (count {count})")
     tokens = sum(r.num_generated for r in results)
     lat = np.array([r.latency_seconds for r in results])
     chunks = stats["chunks"] - stats0["chunks"]
@@ -332,10 +827,8 @@ def run_engine(device, card):
 def profile_decode_chunk(device, card):
     """Where a decode step's time goes: one chunk of the slot grid at the
     engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
-    Informational: prints "not measured" if the profiler sees no device
-    time."""
+    Fails if the profiler sees no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cloud_tpu_torch.models import generation
@@ -370,17 +863,8 @@ def profile_decode_chunk(device, card):
                              ProfilerActivity.CUDA]) as prof:
         chunk().cpu()
     # Kernel rows only: an operator row carries its kernels' time again.
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
-            rows.append((dev_us, evt.count, evt.key))
+    rows = _kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    if busy_ms <= 0:
-        print("  decode chunk breakdown: not measured (no device time)")
-        return {}
-    rows.sort(reverse=True)
     print(f"  decode chunk ({CHUNK} steps, {NUM_SLOTS} active slots): wall "
           f"{wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} [{card}]")
@@ -430,35 +914,72 @@ def main() -> int:
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
               f"{spills} with spills")
 
+    # f32 convolutions and matmuls in full f32 (the parity checks need it).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phases = [
+        ("phase 2: K5 and K8 against their plain versions", "kernel check",
+         lambda: [check_flash(device, card), check_paged(device, card)],
+         True),
+        ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
+         "group_norm check", lambda: check_group_norm(device, card), False),
+        ("phase 3: ServingEngine, CloudLM SMALL, 16 requests", "engine",
+         lambda: run_engine(device, card), False),
+        ("phase 3b: one decode chunk under torch.profiler",
+         "decode breakdown", lambda: profile_decode_chunk(device, card),
+         True),
+        ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
+         "CIFAR training", lambda: run_training(
+             device, card, imagenet=False, warmup=3, iters=20), False),
+        ("phase 4b: one f32 step, card against CPU", "f32 step parity",
+         lambda: check_train_parity(device, card), False),
+    ]
+    results = {}
+    for title, what, fn, no_grad in phases:
+        print(title)
+        try:
+            if no_grad:
+                with torch.no_grad():
+                    results[what] = fn()
+            else:
+                results[what] = fn()
+        except Exception as exc:  # noqa: BLE001 — reported, exit nonzero
+            return fail(f"{what}: {exc!r}")
+    cifar, cifar_run = results.pop("CIFAR training")
     try:
-        print("phase 2: kernels against their plain versions")
-        with torch.no_grad():
-            kernels = [check_flash(device, card), check_paged(device, card)]
+        print("phase 4c: one ResNet-50 CIFAR step under torch.profiler")
+        cifar.update(profile_train_step(card, *cifar_run))
+        del cifar_run
+        torch.cuda.empty_cache()
+        print("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
+              "one step under torch.profiler")
+        at_224, run_224 = run_training(device, card, imagenet=True,
+                                       warmup=3, iters=5)
+        at_224.update(profile_train_step(card, *run_224))
     except Exception as exc:  # noqa: BLE001
-        return fail(f"kernel check: {exc!r}")
-    try:
-        print("phase 3: ServingEngine, CloudLM SMALL, 16 requests")
-        engine = run_engine(device, card)
-    except Exception as exc:  # noqa: BLE001
-        return fail(f"engine: {exc!r}")
-    try:
-        with torch.no_grad():
-            engine.update(profile_decode_chunk(device, card))
-    except Exception as exc:  # noqa: BLE001 — a breakdown, not a check
-        print(f"  decode chunk breakdown: not measured ({exc!r})")
+        return fail(f"ResNet training: {exc!r}")
+
+    engine = results["engine"]
+    engine.update(results["decode breakdown"])
+    kernels = results["kernel check"] + results["group_norm check"]
     for entry in kernels:
-        entry["launches"] = engine["launches"][entry["name"]]
+        phase = engine if entry["name"] in SERVING_KERNELS else cifar
+        entry["launches"] = phase["launches"][entry["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels],
-                      "card": card,
-                      "shapes": {e["name"]: e["shape"] for e in kernels},
-                      "max_abs_err_f32": {e["name"]: e["max_abs_err_f32"]
-                                          for e in kernels},
-                      "engine": {k: v for k, v in engine.items()
-                                 if k != "launches"}}))
+    print(json.dumps({
+        "kernels": [{k: e[k] for k in keys} for e in kernels],
+        "card": card,
+        "shapes": {e["name"]: e["shape"] for e in kernels},
+        "max_abs_err_f32": {e["name"]: e["max_abs_err_f32"] for e in kernels},
+        "group_norm_at_224": {e["name"]: e["at_224"] for e in kernels
+                              if "at_224" in e},
+        "engine": {k: v for k, v in engine.items() if k != "launches"},
+        "resnet50_cifar_b256": {k: v for k, v in cifar.items()
+                                if k != "launches"},
+        "resnet50_224_b128": {k: v for k, v in at_224.items()
+                              if k != "launches"},
+        "f32_step_parity": results["f32 step parity"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,17 +12,23 @@ forward pass walks in a loop.
 - :func:`init` makes fresh random params with the JAX package's
   distributions from a ``torch.Generator`` (for runs that need weights of
   the right shape and scale, not the JAX package's exact numbers).
+
+ResNet's params are one dict with the same names and layouts on both
+sides (HWIO conv kernels, ``{"scale", "bias"}`` GroupNorm leaves, a dense
+``head``): :func:`resnet_to_torch`, :func:`resnet_to_numpy` and
+:func:`init_resnet` are their counterparts.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from cloud_tpu_torch._device import resolve_device
+from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.models.resnet import ResNetConfig
 from cloud_tpu_torch.models.transformer import TransformerConfig, check_supported
 
 
@@ -33,6 +39,27 @@ def map_leaves(tree, fn):
     if isinstance(tree, (list, tuple)):
         return [map_leaves(v, fn) for v in tree]
     return fn(tree)
+
+
+def leaves(tree) -> List[Any]:
+    """The tensor leaves of nested dicts and lists, dict keys sorted (the
+    order ``jax.tree_util`` flattens them in)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in leaves(v)]
+    return [tree]
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
 
 
 def _unstack(tree, index: int):
@@ -48,10 +75,7 @@ def to_torch(params, config: TransformerConfig, *, device=None
     device = resolve_device(device)
 
     def convert(leaf):
-        arr = np.asarray(leaf)
-        if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
-            arr = arr.astype(np.float32)
-        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+        return _tensor(leaf, device)
 
     out = {k: map_leaves(v, convert) for k, v in params.items()
            if k != "layers"}
@@ -62,12 +86,9 @@ def to_torch(params, config: TransformerConfig, *, device=None
 
 def to_numpy(params) -> Dict[str, Any]:
     """The port's params -> JAX-layout numpy pytree (layers restacked)."""
-    def convert(t):
-        return t.detach().float().cpu().numpy()
-
-    out = {k: map_leaves(v, convert) for k, v in params.items()
+    out = {k: map_leaves(v, _to_numpy) for k, v in params.items()
            if k != "layers"}
-    per_layer = [map_leaves(layer, convert) for layer in params["layers"]]
+    per_layer = [map_leaves(layer, _to_numpy) for layer in params["layers"]]
 
     def stack(*leaves):
         if isinstance(leaves[0], dict):
@@ -79,9 +100,7 @@ def to_numpy(params) -> Dict[str, Any]:
 
 
 def _dense(gen, in_dim: int, out_dim: int):
-    w = torch.empty((in_dim, out_dim), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return {"kernel": w * (1.0 / math.sqrt(in_dim))}
+    return layers.dense_init(gen, in_dim, out_dim, use_bias=False)
 
 
 def init(config: TransformerConfig, generator: torch.Generator, *,
@@ -114,4 +133,62 @@ def init(config: TransformerConfig, generator: torch.Generator, *,
         })
     if not config.tied_embeddings:
         params["head"] = _dense(gen, d, config.vocab_size)
+    return map_leaves(params, lambda t: t.to(device))
+
+
+def resnet_to_torch(params, *, device=None) -> Dict[str, Any]:
+    """JAX ResNet params (numpy-like leaves) -> the port's, as float32."""
+    device = resolve_device(device)
+    return map_leaves(params, lambda leaf: _tensor(leaf, device))
+
+
+def resnet_to_numpy(params) -> Dict[str, Any]:
+    """The port's ResNet params -> a numpy pytree for the JAX package."""
+    return map_leaves(params, _to_numpy)
+
+
+def _conv_init(gen, kh: int, kw: int, cin: int, cout: int):
+    w = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
+                    device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return {"kernel": w * (2.0 / (kh * kw * cin)) ** 0.5}
+
+
+def _gn_init(c: int, device):
+    return {"scale": torch.ones((c,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((c,), dtype=torch.float32, device=device)}
+
+
+def init_resnet(config: ResNetConfig, generator: torch.Generator, *,
+                device=None) -> Dict[str, Any]:
+    """Random float32 ResNet params with the JAX package's distributions
+    and tree: conv kernels HWIO, truncated normal in [-2, 2] times
+    sqrt(2 / fan_in); GroupNorm scale one, bias zero; the dense head as
+    ``layers.dense_init``."""
+    device = resolve_device(device)
+    gen = generator
+    params: Dict[str, Any] = {
+        "stem": _conv_init(gen, 7, 7, 3, config.width),
+        "gn_stem": _gn_init(config.width, gen.device),
+    }
+    cin = config.width
+    for stage, num_blocks in enumerate(config.stage_sizes):
+        cmid = config.width * (2 ** stage)
+        cout = cmid * 4
+        for block in range(num_blocks):
+            stride = 2 if (block == 0 and stage > 0) else 1
+            p = {
+                "conv1": _conv_init(gen, 1, 1, cin, cmid),
+                "gn1": _gn_init(cmid, gen.device),
+                "conv2": _conv_init(gen, 3, 3, cmid, cmid),
+                "gn2": _gn_init(cmid, gen.device),
+                "conv3": _conv_init(gen, 1, 1, cmid, cout),
+                "gn3": _gn_init(cout, gen.device),
+            }
+            if stride != 1 or cin != cout:
+                p["proj"] = _conv_init(gen, 1, 1, cin, cout)
+                p["gn_proj"] = _gn_init(cout, gen.device)
+            params[f"stage{stage}_block{block}"] = p
+            cin = cout
+    params["head"] = layers.dense_init(gen, cin, config.num_classes)
     return map_leaves(params, lambda t: t.to(device))

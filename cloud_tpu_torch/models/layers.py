@@ -10,6 +10,8 @@ dtype give the same numbers.  Full-precision leaves only: int8
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +22,21 @@ def _no_int8(params, name: str) -> None:
             f"int8 weight {name}_q: weight-only quantization comes with the "
             "quantization slice of the port (ROADMAP.md)"
         )
+
+
+def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
+               use_bias: bool = True):
+    """Kernel ``[in, out]``, truncated normal in [-2, 2] scaled by
+    1/sqrt(in), and a zero bias, as ``cloud_tpu/models/layers.py``'s
+    ``dense_init``; on the generator's device."""
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32,
+                    device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    params = {"kernel": w * (1.0 / math.sqrt(in_dim))}
+    if use_bias:
+        params["bias"] = torch.zeros((out_dim,), dtype=torch.float32,
+                                     device=generator.device)
+    return params
 
 
 def dense_apply(params, x, *, dtype=None):

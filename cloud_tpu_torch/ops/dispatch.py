@@ -12,10 +12,12 @@ an exception.
 Nothing here runs at import time: importing the package on a host with
 no ``nvcc`` and no card touches neither.
 
-The launch counters live here too.  A kernel wrapper calls
+The launch counters live here too, one per kernel (a library may hold
+several: ``group_norm`` holds K1-K4).  A kernel wrapper calls
 :func:`count_launch` exactly where it launches its kernel (never on the
 plain CPU path), so a run can show that its main path went through the
-kernels: reset the counts, drive the path, read them.
+kernels: reset the counts, drive the path, read the counts of the
+kernels that path runs.
 """
 
 from __future__ import annotations
@@ -38,7 +40,13 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "paged_attention": "paged_attention.cu",
+    "group_norm": "group_norm.cu",
 }
+
+#: Kernel names, one launch counter each: K5 and K8 in their own
+#: libraries, K1-K4 (GroupNorm) all in ``group_norm``.
+KERNELS = ("flash_fwd", "paged_attention",
+           "gn_fwd", "gn_fwd_res", "gn_bwd", "gn_bwd_res")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,7 +56,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Seconds each library took to build (0.0 when reused from the cache).
 build_seconds: Dict[str, float] = {}
 #: ``nvcc`` output of the last build of each library (``-Xptxas -v``).
@@ -133,11 +141,16 @@ def check(name: str, code: int) -> None:
 
 
 def count_launch(name: str) -> None:
+    """One more launch of kernel ``name`` (one of :data:`KERNELS`)."""
     _counts[name] += 1
 
 
-def launch_counts() -> Dict[str, int]:
-    return dict(_counts)
+def launch_counts(names: Optional[Iterable[str]] = None) -> Dict[str, int]:
+    """Launches per kernel since the last reset: of every kernel, or only
+    of ``names`` (an unknown name raises ``KeyError``)."""
+    if names is None:
+        return dict(_counts)
+    return {name: _counts[name] for name in names}
 
 
 def reset_launch_counts() -> None:

@@ -4,15 +4,19 @@ The JAX package's own ``init`` makes the weights; ``cloud_tpu_torch.bridge``
 carries them across, so both sides compute with the same numbers.
 """
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from cloud_tpu.models import generation as jax_gen
+from cloud_tpu.models import resnet as jax_resnet
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
-from cloud_tpu_torch.models import transformer
+from cloud_tpu_torch.models import resnet, transformer
 
 #: Smallest top-2 logit gap along a greedy path for it to count as
 #: tie-free: below it, f32 summation order alone could flip an argmax.
@@ -64,3 +68,34 @@ def tie_free_prompts(jax_cfg, params, *, batch, max_len, max_new_tokens,
         if gap > TIE_GAP:
             return prompts, lens, tokens
     raise AssertionError("no tie-free prompt set found")
+
+
+def resnet_port_config(jax_cfg, dtype=torch.float32):
+    return resnet.ResNetConfig(
+        stage_sizes=tuple(jax_cfg.stage_sizes), width=jax_cfg.width,
+        num_classes=jax_cfg.num_classes, num_groups=jax_cfg.num_groups,
+        dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_resnet8(seed):
+    jax_cfg = dataclasses.replace(jax_resnet.RESNET8_CIFAR, dtype=jnp.float32)
+    params = jax.jit(jax_resnet.init, static_argnums=1)(
+        jax.random.PRNGKey(seed), jax_cfg)
+    return jax_cfg, jax.tree_util.tree_map(np.asarray, params)
+
+
+def resnet8_models(seed=0):
+    """(jax_cfg, jax_params, port_cfg, port_params): RESNET8_CIFAR in f32,
+    fresh port params on the CPU (the JAX side is made once per seed)."""
+    jax_cfg, params = _jax_resnet8(seed)
+    return (jax_cfg, params, resnet_port_config(jax_cfg),
+            bridge.resnet_to_torch(params, device="cpu"))
+
+
+def image_batch(batch, hw, num_classes, seed=0):
+    """Synthetic f32 NHWC images and int labels from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, batch).astype(np.int32)
+    images = rng.standard_normal((batch, hw, hw, 3)).astype(np.float32)
+    return images, labels

@@ -74,8 +74,9 @@ def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device resolves")
     from cloud_tpu_torch import bridge
-    from cloud_tpu_torch.models import generation, transformer
+    from cloud_tpu_torch.models import generation, resnet, transformer
     from cloud_tpu_torch.serving import ServingEngine
+    from cloud_tpu_torch.training import optimizers, train
     from cloud_tpu_torch.utils import benchmarking
 
     cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)
@@ -90,6 +91,12 @@ def test_entry_points_refuse_missing_cuda():
         lambda: generation.init_slot_cache(cfg, 2, 8),
         lambda: ServingEngine(params, cfg, start=False),
         lambda: benchmarking.decode_setup(),
+        lambda: bridge.init_resnet(resnet.RESNET8_CIFAR, torch.Generator()),
+        lambda: resnet.apply({}, torch.zeros((1, 32, 32, 3)),
+                             resnet.RESNET8_CIFAR),
+        lambda: train.create_sharded_state(None, dict, optimizers.sgd(0.1)),
+        lambda: benchmarking.resnet_train_setup(imagenet_shape=False,
+                                                batch_size=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
