@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and ResNet training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, ResNet and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,13 +13,19 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    path's shapes (tolerances at ``check_close``: f32 within 1e-4 absolute;
    bf16 within 2e-2 + 2^-7 |ref|, one bf16 ulp relative plus the absolute
    term; float32 statistics and per-sample sums within 1e-4 of
-   max(1, max |ref|)), and times the kernel, the plain version and one
-   PyTorch library call computing the same function (a yardstick only:
-   the port never calls it): K5 and K8 at the serving shapes (CUDA events
-   around back-to-back launches), K1-K4 (GroupNorm) at every shape of a
-   ResNet-50 CIFAR b256 step and at two 224 b128 shapes (device time
-   from torch.profiler's kernel rows: a GroupNorm call is shorter than
-   its host launch cost);
+   max(1, max |ref|); gradients of the flash backward, sums over up to
+   1024 keys, with both limits scaled by s = max(1, max |ref|): f32
+   within 1e-4 s, bf16 within 2e-2 s + 2^-7 |ref|), and times the kernel, the
+   plain version and one PyTorch library call computing the same function
+   (a yardstick only: the port never calls it): K5 and K8 at the serving
+   shapes (CUDA events around back-to-back launches), K1-K4 (GroupNorm)
+   at every shape of a ResNet-50 CIFAR b256 step and at two 224 b128
+   shapes (device time from torch.profiler's kernel rows: a GroupNorm
+   call is shorter than its host launch cost), K6/K7 (flash backward) in
+   32 cases per type at both training shapes plus a ragged T, then K5,
+   K6 and K7 timed at the LM (B=4, T=1024, causal) and BERT (B=32,
+   T=128) shapes against ``scaled_dot_product_attention``'s forward and
+   backward;
 3. serves 16 staggered requests of mixed lengths through
    ``ServingEngine`` with CloudLM SMALL in bf16 (random weights from a
    seed), checks that every request resolves with valid tokens and that
@@ -33,7 +39,17 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    splits one step's device time (GroupNorm, convolution, idle);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
-6. prints one JSON line describing every kernel, then, as its last line,
+6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
+   (bf16 on f32 master weights, remat "full", ``adamw(1e-4)``) for 3 + 10
+   steps with the plain CE and 3 + 5 with ``fused_ce`` (steps/s and peak
+   memory of each arm), checking finite metrics and exactly 24 K5, 12 K6
+   and 12 K7 launches per step; splits one plain step's device time (K5,
+   K6, K7, matrix products, idle); holds f32 gradients of SMALL at 2
+   layers (b2 x T256) on the card against the CPU, and one AdamW update
+   on identical gradients;
+7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
+   exactly 12 K5, 12 K6 and 12 K7 launches per step;
+8. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a nonzero exit and no result line.
@@ -115,11 +131,14 @@ def max_err(a, b) -> float:
 
 
 def check_close(what: str, out, ref, dtype_name: str, *, sums=False,
-                input_scale=0.0) -> float:
+                scaled=False, input_scale=0.0) -> float:
     """Raise unless ``out`` is within the stated tolerance of ``ref``;
     return the largest absolute difference.  ``sums=True`` marks float32
     statistics and sums, held to 1e-4 of max(1, max |ref|) whatever the
     activations' type: their rounding grows with their magnitude.
+    ``scaled=True`` (the flash backward's gradients, sums over up to T
+    keys or queries) multiplies both absolute limits by s = max(1,
+    max |ref|): f32 1e-4 s, bf16 2e-2 s + 2^-7 |ref|.
     ``input_scale`` (GroupNorm: max |x| times max rstd) adds 8 float32 ulps
     of it to the f32 limit: where |mean| >> std, two correct orders of the
     same sums differ by a few ulps of the mean, which the normalisation
@@ -128,12 +147,14 @@ def check_close(what: str, out, ref, dtype_name: str, *, sums=False,
 
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max()) if diff.numel() else 0.0
+    s = max(1.0, float(ref.float().abs().max())) if sums or scaled else 1.0
     if sums:
-        ok = err <= TOL_F32 * max(1.0, float(ref.float().abs().max()))
+        ok = err <= TOL_F32 * s
     elif dtype_name == "bfloat16":
-        ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+        ok = bool((diff <= BF16_ATOL * s + BF16_RTOL * ref.float().abs())
+                  .all())
     else:
-        ok = err <= TOL_F32 + 8 * 2.0 ** -23 * input_scale
+        ok = err <= TOL_F32 * s + 8 * 2.0 ** -23 * input_scale
     ok = ok and bool(torch.isfinite(out.float()).all())
     if not ok:
         raise AssertionError(f"{what}: max_abs_err {err:.3e} outside the "
@@ -547,22 +568,210 @@ def check_group_norm(device, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: flash backward K6/K7 against their plain version
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+FLASH_BWD_REPLACES = {"flash_bwd_dq": "cloud_tpu/ops/flash_attention.py:280",
+                      "flash_bwd_dkv": "cloud_tpu/ops/flash_attention.py:338"}
+TRAIN_ATTN_KERNELS = ("flash_fwd",) + FLASH_BWD_KERNELS
+#: The two transformer-training paths: (batch, T, causal).  K5 runs twice
+#: per layer in the LM step (forward, and remat's recompute), once in
+#: BERT's (no remat); K6 and K7 once per layer in both.
+LM_BATCH, LM_SEQ, BERT_BATCH, BERT_SEQ = 4, 1024, 32, 128
+TRAIN_SHAPES = {"LM": (LM_BATCH, LM_SEQ, True),
+                "BERT": (BERT_BATCH, BERT_SEQ, False)}
+LM_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+BERT_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+
+
+def _attn_inputs(b, t, dtype, gen, *, mask_kind):
+    import torch
+
+    device = gen.device
+    q, k, v, do = (torch.randn((b, t, HEADS, HEAD_DIM), generator=gen,
+                               device=device).to(dtype) for _ in range(4))
+    mask = None
+    if mask_kind == "tail":  # right padding, every sample keeps a key
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device=device)
+        lens[0] = t
+        mask = (torch.arange(t, device=device)[None] < lens[:, None]).to(
+            torch.int32)
+    elif mask_kind == "empty":  # sample 0 has no valid key at all
+        mask = torch.ones((b, t), dtype=torch.int32, device=device)
+        mask[0] = 0
+        mask[1:, t // 2:] = 0
+    return q, k, v, do, mask
+
+
+def _bwd_case(fa, b, t, causal, dtype, gen, *, mask_kind, glse):
+    """K5 forward, then K6/K7 and the plain version on its out and lse;
+    returns {kernel: max_abs_err}."""
+    import torch
+
+    name = str(dtype).split(".")[1]
+    q, k, v, do, mask = _attn_inputs(b, t, dtype, gen, mask_kind=mask_kind)
+    out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=mask)
+    g_lse = (torch.randn((b, HEADS, t), generator=gen, device=gen.device)
+             if glse else None)
+    got = fa._bwd_kernels(q, k, v, mask, do, out, lse, causal=causal,
+                          g_lse=g_lse)
+    ref = fa._bwd_reference(q, k, v, mask, do, out, lse, causal=causal,
+                            g_lse=g_lse)
+    torch.cuda.synchronize()
+    what = (f"{name} B={b} T={t} causal={causal} mask={mask_kind} "
+            f"g_lse={glse}")
+    errs = {"flash_bwd_dq": check_close(f"K6 dq {what}", got[0], ref[0],
+                                        name, scaled=True)}
+    errs["flash_bwd_dkv"] = max(
+        check_close(f"K7 dk {what}", got[1], ref[1], name, scaled=True),
+        check_close(f"K7 dv {what}", got[2], ref[2], name, scaled=True))
+    return errs
+
+
+def _attn_bound(kernel, b, t, causal):
+    """(bound_ms, bound_by) of one bf16 call at [b, t, 12, 64]: each input
+    read once and each output written once; 2 B*H*D operations per
+    (query, key) pair a product visits (the causal half only under the
+    causal skip), times the kernel's products: K5 2, K6 3, K7 4."""
+    elems = b * t * HEADS * HEAD_DIM
+    rows = b * HEADS * t * 4  # one [B, H, T] f32 vector
+    pairs = t * (t + 1) // 2 if causal else t * t
+    per_product = 2 * b * HEADS * HEAD_DIM * pairs
+    if kernel == "flash_fwd":  # q, k, v -> out, lse
+        return bound_ms(4 * elems * 2 + rows, 2 * per_product, "bfloat16")
+    if kernel == "flash_bwd_dq":  # q, k, v, dO, lse, rowterm -> dq
+        return bound_ms(5 * elems * 2 + 2 * rows, 3 * per_product,
+                        "bfloat16")
+    # q, k, v, dO, lse, rowterm -> dk, dv
+    return bound_ms(6 * elems * 2 + 2 * rows, 4 * per_product, "bfloat16")
+
+
+def _time_attention(fa, path, card, gen):
+    """Kernel, plain and library times of K5, K6 and K7 (bf16, no mask) at
+    one training path's shape, with their bounds.  The library yardstick
+    is ``F.scaled_dot_product_attention``: its forward for K5, its
+    backward (forward plus backward, less the forward) for K6 and K7."""
+    import torch
+    import torch.nn.functional as F
+
+    b, t, causal = TRAIN_SHAPES[path]
+    q, k, v, do, _ = _attn_inputs(b, t, torch.bfloat16, gen, mask_kind=None)
+    with torch.no_grad():
+        out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=None)
+        row = fa._row_term(do, out, None)
+        times = {
+            "flash_fwd": (
+                time_ms(lambda: fa._flash_kernel(q, k, v, causal=causal,
+                                                 mask=None)),
+                time_ms(lambda: fa._reference_with_lse(
+                    q, k, v, causal=causal, mask=None), iters=5)),
+            "flash_bwd_dq": (
+                time_ms(lambda: fa._bwd_launch(
+                    "flash_bwd_dq", q, k, v, None, do, lse, row,
+                    causal=causal)), None),
+            "flash_bwd_dkv": (
+                time_ms(lambda: fa._bwd_launch(
+                    "flash_bwd_dkv", q, k, v, None, do, lse, row,
+                    causal=causal)), None),
+        }
+        plain_bwd = time_ms(lambda: fa._bwd_reference(
+            q, k, v, None, do, out, lse, causal=causal), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    sdpa_fwd = time_ms(sdpa)
+    sdpa_both = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                    dot))
+    entries = {}
+    for name, (kernel, plain) in times.items():
+        fwd = name == "flash_fwd"
+        b_ms, b_by = _attn_bound(name, b, t, causal)
+        entries[name] = {
+            "shape": f"B={b} T={t} H={HEADS} D={HEAD_DIM} bf16 "
+                     f"{'causal' if causal else 'non-causal'}, no mask",
+            "ms": kernel, "plain_ms": plain if fwd else plain_bwd,
+            "library_ms": sdpa_fwd if fwd else sdpa_both - sdpa_fwd,
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  {name} {path} {entries[name]['shape']}: kernel "
+              f"{kernel:.4f} ms, plain {entries[name]['plain_ms']:.4f} ms"
+              f"{'' if fwd else ' (dq, dk, dv together)'}, sdpa "
+              f"{'forward' if fwd else 'backward'} "
+              f"{entries[name]['library_ms']:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}) [{card}]")
+    return entries
+
+
+def check_flash_bwd(device, card):
+    """K6 and K7 against ``_bwd_reference`` at both training shapes (LM
+    B=4 T=1024, BERT B=32 T=128), causal and not x no mask or a padded
+    tail x g_lse None or random, f32 and bf16; a ragged T (200) causal
+    with a mask, and non-causal with a sample whose keys are all masked.
+    Then times K5, K6 and K7 at both shapes."""
+    import torch
+
+    from cloud_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in FLASH_BWD_KERNELS}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        runs = [(b, t, causal, mask_kind, glse)
+                for b, t, _ in TRAIN_SHAPES.values()
+                for causal in (True, False)
+                for mask_kind in (None, "tail")
+                for glse in (False, True)]
+        runs += [(2, 200, True, "tail", True), (3, 200, False, "empty", True)]
+        for b, t, causal, mask_kind, glse in runs:
+            errs = _bwd_case(fa, b, t, causal, dtype, gen,
+                             mask_kind=mask_kind, glse=glse)
+            cases += 1
+            for k_, e in errs.items():
+                worst[k_][dname] = max(worst[k_][dname], e)
+        print(f"  K6/K7 flash_bwd {dname}: {len(runs)} cases ok; max_abs_err"
+              f" dq {worst['flash_bwd_dq'][dname]:.3e}, dk/dv "
+              f"{worst['flash_bwd_dkv'][dname]:.3e} [{card}]")
+    timed = {path: _time_attention(fa, path, card, gen)
+             for path in TRAIN_SHAPES}
+    entries = []
+    for name in FLASH_BWD_KERNELS:
+        lm = timed["LM"][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "cloud_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": FLASH_BWD_REPLACES[name],
+            "max_abs_err": worst[name]["bfloat16"],
+            "max_abs_err_f32": worst[name]["float32"],
+            **{k: lm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "shape")},
+            "at_bert": timed["BERT"][name]})
+    print(f"  flash_bwd: {cases} cases checked")
+    return entries, {path: timed[path]["flash_fwd"] for path in TRAIN_SHAPES}
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 and 5: ResNet-50 training
 # ---------------------------------------------------------------------------
 
 
-def run_training(device, card, *, imagenet: bool, warmup: int, iters: int):
-    """Train ResNet-50 through ``resnet_train_setup`` and
-    ``chain_then_read_throughput``; check finite metrics and the GroupNorm
-    launches per step.  Returns the result and ``(step, state, batch)``."""
+def run_steps(card, what, setup, per_step, items_per_step, unit, *,
+              warmup, iters):
+    """Chain ``warmup + iters`` steps of ``setup() -> (step, state, batch)``
+    through ``chain_then_read_throughput``; check finite loss and grad
+    norm and exactly ``per_step`` launches of each kernel per step.
+    Returns the result (rates, ``{unit}_per_s``, peak memory, launches)
+    and ``(step, state, batch)``."""
     import torch
 
     from cloud_tpu_torch.ops import dispatch
     from cloud_tpu_torch.utils import benchmarking
 
-    batch_size = IMAGENET_BATCH if imagenet else CIFAR_BATCH
-    step, state, batch = benchmarking.resnet_train_setup(
-        imagenet_shape=imagenet, batch_size=batch_size, device=device)
+    step, state, batch = setup()
     last = {}
 
     def tracked(st, b):
@@ -571,28 +780,45 @@ def run_training(device, card, *, imagenet: bool, warmup: int, iters: int):
         return st, metrics
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     rate = benchmarking.chain_then_read_throughput(tracked, state, batch,
                                                    warmup=warmup, iters=iters)
-    launches = dispatch.launch_counts(GN_KERNELS)
+    launches = dispatch.launch_counts(per_step)
+    peak = torch.cuda.max_memory_allocated()
     steps = warmup + iters
-    want = {k: n * steps for k, n in GN_PER_STEP.items()}
+    want = {k: n * steps for k, n in per_step.items()}
     if launches != want:
-        raise AssertionError(f"GroupNorm launches {launches} != {want} "
+        raise AssertionError(f"{what}: launches {launches} != {want} "
                              f"({steps} steps)")
     values = {k: float(v) for k, v in last.items()}
     if not all(np.isfinite(values[k]) for k in ("loss", "grad_norm")):
-        raise AssertionError(f"non-finite training metrics {values}")
-    hw = 224 if imagenet else 32
-    print(f"  ResNet-50 {hw}x{hw} b{batch_size} bf16: {warmup} + {iters} "
-          f"steps, {rate:.3f} steps/s = {rate * batch_size:.1f} images/s, "
-          f"{1e3 / rate:.2f} ms/step; final loss {values['loss']:.4f}, "
-          f"grad_norm {values['grad_norm']:.4f}; launches {launches} "
-          f"= per step {GN_PER_STEP} [{card}]")
-    result = {"steps_per_s": rate, "images_per_s": rate * batch_size,
-              "ms_per_step": 1e3 / rate, "final_loss": values["loss"],
+        raise AssertionError(f"{what}: non-finite metrics {values}")
+    print(f"  {what}: {warmup} + {iters} steps, {rate:.3f} steps/s = "
+          f"{rate * items_per_step:.1f} {unit}/s, {1e3 / rate:.2f} ms/step;"
+          f" peak memory {peak / 2**30:.3f} GiB; final loss "
+          f"{values['loss']:.4f}, grad_norm {values['grad_norm']:.4f}; "
+          f"launches {launches} = per step {per_step} [{card}]")
+    result = {"steps_per_s": rate, f"{unit}_per_s": rate * items_per_step,
+              "ms_per_step": 1e3 / rate, "max_memory_allocated": peak,
+              "final_loss": values["loss"],
               "final_grad_norm": values["grad_norm"], "launches": launches}
     return result, (step, state, batch)
+
+
+def run_training(device, card, *, imagenet: bool, warmup: int, iters: int):
+    """Train ResNet-50 through ``resnet_train_setup`` and
+    ``run_steps``: finite metrics and the GroupNorm launches per step.
+    Returns the result and ``(step, state, batch)``."""
+    from cloud_tpu_torch.utils import benchmarking
+
+    batch_size = IMAGENET_BATCH if imagenet else CIFAR_BATCH
+    hw = 224 if imagenet else 32
+    return run_steps(
+        card, f"ResNet-50 {hw}x{hw} b{batch_size} bf16",
+        lambda: benchmarking.resnet_train_setup(
+            imagenet_shape=imagenet, batch_size=batch_size, device=device),
+        GN_PER_STEP, batch_size, "images", warmup=warmup, iters=iters)
 
 
 def check_train_parity(device, card):
@@ -670,6 +896,27 @@ def _is_gn(key: str) -> bool:
     return "gn_fwd_" in key or "gn_bwd_" in key
 
 
+def _profiled_step(step, state, batch, *, record_shapes=False):
+    """Two warm-up steps, the wall time of one unprofiled step (to the
+    host read of its loss), then one step under torch.profiler (CPU and
+    CUDA activity).  Returns ``(wall_ms, prof)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step(state, batch)
+    float(metrics["loss"])
+    wall_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+    return wall_ms, prof
+
+
 def profile_train_step(card, step, state, batch):
     """Where one ResNet-50 training step's time goes: kernel rows of
     torch.profiler split into GroupNorm (K1-K4), convolution (cuDNN and
@@ -679,24 +926,13 @@ def profile_train_step(card, step, state, batch):
     by the batch that is not a conv weight: the explicit SAME pads and the
     image cast are expected, a layout copy is not)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cloud_tpu_torch.bridge import leaves
 
     batch_size, hw = batch["image"].shape[:2]
     weights = {(k.shape[3], k.shape[2], k.shape[0], k.shape[1])
                for k in leaves(state.params) if k.dim() == 4}
-    for _ in range(2):
-        state, metrics = step(state, batch)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    state, metrics = step(state, batch)
-    float(metrics["loss"])
-    wall_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        state, metrics = step(state, batch)
-        float(metrics["loss"])
+    wall_ms, prof = _profiled_step(step, state, batch, record_shapes=True)
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
     gn = sum(r[0] for r in rows if _is_gn(r[2])) / 1e3
@@ -731,6 +967,146 @@ def profile_train_step(card, step, state, batch):
             "gn_ms": gn, "gn_share": gn / busy,
             "conv_ms": conv, "conv_share": conv / busy,
             "activation_copies": [[k, s, n] for k, s, n in copies]}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: transformer training (CloudLM SMALL, BERT-base)
+# ---------------------------------------------------------------------------
+
+
+def run_lm_training(device, card, *, fused_ce: bool, warmup: int,
+                    iters: int):
+    """CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024, bf16
+    compute on f32 master weights, remat "full", ``adamw(1e-4)`` with f32
+    moments: one arm of the JAX package's fused-CE A/B."""
+    from cloud_tpu_torch.utils import benchmarking
+
+    arm = "fused_ce" if fused_ce else "plain CE"
+    return run_steps(
+        card, f"CloudLM SMALL b{LM_BATCH}xT{LM_SEQ} bf16, {arm}",
+        lambda: benchmarking.lm_train_setup(
+            batch_size=LM_BATCH, seq_len=LM_SEQ, fused_ce=fused_ce,
+            device=device),
+        LM_PER_STEP, LM_BATCH * LM_SEQ, "tokens", warmup=warmup,
+        iters=iters)
+
+
+def run_bert_training(device, card, *, warmup: int, iters: int):
+    """BERT-base at b32 x T128, bf16 compute on f32 master weights,
+    ``adamw(2e-5)`` with f32 moments, no dropout, no attention mask."""
+    from cloud_tpu_torch.utils import benchmarking
+
+    result, _ = run_steps(
+        card, f"BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16",
+        lambda: benchmarking.bert_train_setup(
+            batch_size=BERT_BATCH, seq_len=BERT_SEQ, device=device),
+        BERT_PER_STEP, BERT_BATCH * BERT_SEQ, "tokens", warmup=warmup,
+        iters=iters)
+    return result
+
+
+def check_lm_grad_parity(device, card):
+    """CloudLM SMALL at full width, 2 layers, f32, b2 x T256 (tied head,
+    remat on): loss, grad_norm and every gradient on the card (through K5,
+    K6 and K7) against the CPU from the same params and batch (TF32 off):
+    loss and grad_norm within 1e-4 relative, each gradient leaf within
+    1e-4 of max(1, max |g|).  Gradients, not parameters after an AdamW
+    step: AdamW's first update is about lr * sign(g), so a gradient near
+    zero that flips sign moves a parameter by 2 lr with no fault.  The
+    optimizer is held on its own: one ``adamw(1e-4)`` update from the same
+    params and the CPU's gradients on both devices, within 1e-6 of
+    max(1, max |p|)."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import optimizers, train
+
+    cfg = transformer.SMALL.scaled(tied_embeddings=True, num_layers=2,
+                                   dtype=torch.float32)
+    params = bridge.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    tokens = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 256))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    out = {}
+    for dev in ("cpu", device):
+        leaves = bridge.map_leaves(
+            params, lambda t: t.to(dev).requires_grad_(True))
+        dispatch.reset_launch_counts()
+        loss, _ = transformer.loss_fn(
+            leaves, {"tokens": batch["tokens"].to(dev)}, cfg, device=dev)
+        grads = torch.autograd.grad(loss, bridge.leaves(leaves))
+        out[str(dev)] = (float(loss.detach()),
+                         float(train.global_norm(grads)),
+                         [g.detach().cpu() for g in grads],
+                         dispatch.launch_counts(TRAIN_ATTN_KERNELS))
+    (cpu_loss, cpu_norm, cpu_g, _), (loss, norm, gpu_g, launches) = (
+        out["cpu"], out[str(device)])
+    want = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    if launches != want:
+        raise AssertionError(f"f32 parity: launches {launches} != {want}")
+    errs = {}
+    for key, a, b in (("loss", loss, cpu_loss), ("grad_norm", norm,
+                                                 cpu_norm)):
+        errs[key] = abs(a - b) / abs(b)
+        if not errs[key] <= 1e-4:
+            raise AssertionError(f"f32 parity {key}: card {a} vs CPU {b}")
+    errs["grads_max_abs"] = max(
+        check_close("f32 gradient", a, b, "float32", sums=True)
+        for a, b in zip(gpu_g, cpu_g))
+    updated = []
+    for dev in ("cpu", device):
+        tx = optimizers.adamw(1e-4, mu_dtype=None)
+        p = [t.detach().to(dev).clone() for t in bridge.leaves(params)]
+        tx.update_(p, [g.to(dev) for g in cpu_g], tx.init(p))
+        updated.append([t.cpu() for t in p])
+    errs["adamw_params_max_abs"] = 0.0
+    for a, b in zip(updated[1], updated[0]):
+        err = float((a - b).abs().max())
+        if not err <= 1e-6 * max(1.0, float(b.abs().max())):
+            raise AssertionError(f"adamw update on identical gradients: card"
+                                 f" vs CPU max_abs_err {err:.3e}")
+        errs["adamw_params_max_abs"] = max(errs["adamw_params_max_abs"], err)
+    print(f"  f32 SMALL 2 layers b2xT256, card vs CPU: loss {loss:.6f} vs "
+          f"{cpu_loss:.6f}, grad_norm {norm:.5f} vs {cpu_norm:.5f}, "
+          f"gradients max_abs_err {errs['grads_max_abs']:.3e} (tol 1e-4 x "
+          f"max(1, max|g|)); adamw on identical gradients max_abs_err "
+          f"{errs['adamw_params_max_abs']:.3e}; launches {launches} ok "
+          f"[{card}]")
+    return errs
+
+
+#: Substrings of the cuBLAS/cuBLASLt/CUTLASS kernel names matrix products
+#: run as (``nvjet`` is cuBLASLt's Hopper GEMM family).
+MATMUL_KEYS = ("gemm", "cutlass", "xmma", "matmul", "nvjet", "cublas")
+ATTN_ROWS = {"flash_fwd": "flash_fwd_kernel",
+             "flash_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def profile_lm_step(card, step, state, batch):
+    """Where one LM training step's device time goes: torch.profiler's
+    kernel rows split into K5, K6, K7, matrix products and the rest, and
+    the idle share against the wall time of an unprofiled step."""
+    wall_ms, prof = _profiled_step(step, state, batch)
+    rows = _kernel_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    split = {name: sum(r[0] for r in rows if key in r[2]) / 1e3
+             for name, key in ATTN_ROWS.items()}
+    split["matmul"] = sum(
+        r[0] for r in rows if not any(k in r[2] for k in ATTN_ROWS.values())
+        and any(k in r[2].lower() for k in MATMUL_KEYS)) / 1e3
+    split["rest"] = busy - sum(split.values())
+    print(f"  LM step b{LM_BATCH}xT{LM_SEQ}: wall {wall_ms:.3f} ms, device "
+          f"kernels {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
+          + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
+                      for k, v in split.items()) + f" [{card}]")
+    for dev_us, count, key in rows[:15]:
+        print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return {"step_wall_ms": wall_ms, "step_device_busy_ms": busy,
+            "step_idle_share": 1 - busy / wall_ms,
+            "device_ms": split,
+            "device_share": {k: v / busy for k, v in split.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +1299,9 @@ def main() -> int:
          True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
+        ("phase 2c: K6/K7 (flash backward) against their plain version; "
+         "K5, K6, K7 timed at the training shapes", "flash_bwd check",
+         lambda: check_flash_bwd(device, card), False),
         ("phase 3: ServingEngine, CloudLM SMALL, 16 requests", "engine",
          lambda: run_engine(device, card), False),
         ("phase 3b: one decode chunk under torch.profiler",
@@ -956,14 +1335,43 @@ def main() -> int:
         at_224, run_224 = run_training(device, card, imagenet=True,
                                        warmup=3, iters=5)
         at_224.update(profile_train_step(card, *run_224))
+        del run_224
+        torch.cuda.empty_cache()
     except Exception as exc:  # noqa: BLE001
         return fail(f"ResNet training: {exc!r}")
+    try:
+        print(f"phase 6: train CloudLM SMALL b{LM_BATCH}xT{LM_SEQ} bf16, "
+              f"plain CE, 3 + 10 steps")
+        lm, lm_run = run_lm_training(device, card, fused_ce=False, warmup=3,
+                                     iters=10)
+        print("phase 6c: one LM step (plain CE) under torch.profiler")
+        lm.update(profile_lm_step(card, *lm_run))
+        del lm_run
+        torch.cuda.empty_cache()
+        print("phase 6 (A/B): the same with fused_ce, 3 + 5 steps")
+        lm_fused, _ = run_lm_training(device, card, fused_ce=True, warmup=3,
+                                      iters=5)
+        torch.cuda.empty_cache()
+        print(f"  fused-CE A/B: plain {lm['steps_per_s']:.3f} steps/s, "
+              f"{lm['max_memory_allocated'] / 2**30:.3f} GiB; fused_ce "
+              f"{lm_fused['steps_per_s']:.3f} steps/s, "
+              f"{lm_fused['max_memory_allocated'] / 2**30:.3f} GiB [{card}]")
+        print("phase 6b: f32 gradients of SMALL (2 layers), card against CPU")
+        lm_parity = check_lm_grad_parity(device, card)
+        print(f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
+              f"3 + 10 steps")
+        bert_run = run_bert_training(device, card, warmup=3, iters=10)
+    except Exception as exc:  # noqa: BLE001
+        return fail(f"transformer training: {exc!r}")
 
     engine = results["engine"]
     engine.update(results["decode breakdown"])
-    kernels = results["kernel check"] + results["group_norm check"]
+    flash_bwd, k5_training = results["flash_bwd check"]
+    kernels = (results["kernel check"] + flash_bwd
+               + results["group_norm check"])
     for entry in kernels:
-        phase = engine if entry["name"] in SERVING_KERNELS else cifar
+        phase = (engine if entry["name"] in SERVING_KERNELS
+                 else lm if entry["name"] in FLASH_BWD_KERNELS else cifar)
         entry["launches"] = phase["launches"][entry["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -979,7 +1387,12 @@ def main() -> int:
                                 if k != "launches"},
         "resnet50_224_b128": {k: v for k, v in at_224.items()
                               if k != "launches"},
-        "f32_step_parity": results["f32 step parity"]}))
+        "f32_step_parity": results["f32 step parity"],
+        "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
+        "flash_fwd_at_training": k5_training,
+        "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},
+        "lm_f32_grad_parity": lm_parity,
+        "bert_base_b32xT128": bert_run}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

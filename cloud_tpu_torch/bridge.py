@@ -16,7 +16,9 @@ forward pass walks in a loop.
 ResNet's params are one dict with the same names and layouts on both
 sides (HWIO conv kernels, ``{"scale", "bias"}`` GroupNorm leaves, a dense
 ``head``): :func:`resnet_to_torch`, :func:`resnet_to_numpy` and
-:func:`init_resnet` are their counterparts.
+:func:`init_resnet` are their counterparts.  BERT's are stacked on ``L``
+like CloudLM's: :func:`bert_to_torch`, :func:`bert_to_numpy` and
+:func:`init_bert`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.models.bert import BertConfig
 from cloud_tpu_torch.models.resnet import ResNetConfig
 from cloud_tpu_torch.models.transformer import TransformerConfig, check_supported
 
@@ -68,10 +71,9 @@ def _unstack(tree, index: int):
     return tree[index]
 
 
-def to_torch(params, config: TransformerConfig, *, device=None
-             ) -> Dict[str, Any]:
-    """JAX-layout params (layers stacked on axis 0) -> the port's params."""
-    check_supported(config)
+def _split_layers(params, num_layers: int, device) -> Dict[str, Any]:
+    """Numpy-like leaves to tensors on ``device``, the stacked
+    ``params["layers"]`` split into a list of ``num_layers`` dicts."""
     device = resolve_device(device)
 
     def convert(leaf):
@@ -80,8 +82,15 @@ def to_torch(params, config: TransformerConfig, *, device=None
     out = {k: map_leaves(v, convert) for k, v in params.items()
            if k != "layers"}
     out["layers"] = [map_leaves(_unstack(params["layers"], i), convert)
-                     for i in range(config.num_layers)]
+                     for i in range(num_layers)]
     return out
+
+
+def to_torch(params, config: TransformerConfig, *, device=None
+             ) -> Dict[str, Any]:
+    """JAX-layout params (layers stacked on axis 0) -> the port's params."""
+    check_supported(config)
+    return _split_layers(params, config.num_layers, device)
 
 
 def to_numpy(params) -> Dict[str, Any]:
@@ -191,4 +200,57 @@ def init_resnet(config: ResNetConfig, generator: torch.Generator, *,
             params[f"stage{stage}_block{block}"] = p
             cin = cout
     params["head"] = layers.dense_init(gen, cin, config.num_classes)
+    return map_leaves(params, lambda t: t.to(device))
+
+
+def bert_to_torch(params, config: BertConfig, *, device=None
+                  ) -> Dict[str, Any]:
+    """JAX BERT params (layers stacked on axis 0) -> the port's params."""
+    return _split_layers(params, config.num_layers, device)
+
+
+def bert_to_numpy(params) -> Dict[str, Any]:
+    """The port's BERT params -> the JAX layout (layers restacked)."""
+    return to_numpy(params)
+
+
+def _embedding(gen, rows: int, dim: int):
+    table = torch.empty((rows, dim), dtype=torch.float32, device=gen.device)
+    table.normal_(0.0, 1.0, generator=gen)
+    return {"table": table * 0.02}
+
+
+def _ln_init(dim: int, device):
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def init_bert(config: BertConfig, generator: torch.Generator, *,
+              device=None) -> Dict[str, Any]:
+    """Random f32 BERT params with the JAX package's distributions and
+    tree: embeddings N(0, 0.02^2); attention projections without bias,
+    ``wi``/``wo``, pooler and classifier with a zero bias, all kernels
+    truncated-normal in [-2, 2] scaled by 1/sqrt(fan_in); LayerNorm scale
+    one, bias zero."""
+    device = resolve_device(device)
+    gen = generator
+    d, f = config.dim, config.mlp_hidden
+    params: Dict[str, Any] = {
+        "tok": _embedding(gen, config.vocab_size, d),
+        "pos": _embedding(gen, config.max_seq_len, d),
+        "seg": _embedding(gen, 2, d),
+        "ln_embed": _ln_init(d, gen.device),
+        "layers": [],
+    }
+    for _ in range(config.num_layers):
+        params["layers"].append({
+            "att": {"q": _dense(gen, d, d), "k": _dense(gen, d, d),
+                    "v": _dense(gen, d, d), "out": _dense(gen, d, d)},
+            "ln1": _ln_init(d, gen.device),
+            "wi": layers.dense_init(gen, d, f),
+            "wo": layers.dense_init(gen, f, d),
+            "ln2": _ln_init(d, gen.device),
+        })
+    params["pooler"] = layers.dense_init(gen, d, d)
+    params["classifier"] = layers.dense_init(gen, d, config.num_classes)
     return map_leaves(params, lambda t: t.to(device))

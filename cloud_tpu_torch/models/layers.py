@@ -14,6 +14,38 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+#: Remat policies of the JAX package's layer stacks; "dots" (save the
+#: matmul outputs) has no port yet.
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def remat_wrap(body, enabled: bool = True, policy: str = "full"):
+    """Wrap a layer body with the named remat policy, as
+    ``cloud_tpu/models/layers.py``'s ``remat_wrap``: "full" keeps only the
+    layer's inputs and recomputes the layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); "none" (or ``enabled``
+    False) keeps every activation.  Numbers are the same either way.
+    Without autograd (serving, ``torch.no_grad()``) the body runs plain."""
+    if not enabled or policy == "none":
+        return body
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat policy 'dots' (save matmul outputs) is not ported yet "
+            "(ROADMAP.md A.3)"
+        )
+    if policy != "full":
+        raise ValueError(
+            f"remat policy must be one of {REMAT_POLICIES}, got {policy!r}"
+        )
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return body(*args, **kwargs)
+        return checkpoint(body, *args, use_reentrant=False, **kwargs)
+
+    return wrapped
 
 
 def _no_int8(params, name: str) -> None:
@@ -53,6 +85,21 @@ def embedding_apply(params, token_ids, *, dtype=torch.float32):
     numbers as casting the whole table, without touching all of it)."""
     _no_int8(params, "table")
     return params["table"][token_ids.long()].to(dtype)
+
+
+def layernorm_apply(params, x, *, eps: float = 1e-6):
+    """LayerNorm with f32 statistics (population variance, as ``jnp.var``)
+    whatever the activations' type."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rmsnorm_apply(params, x, *, eps: float = 1e-6):

@@ -3,8 +3,12 @@
 Pre-RMSNorm, RoPE, SwiGLU MLP, optional tied head.  Parameters are the
 dict that :mod:`cloud_tpu_torch.bridge` builds: the JAX package's names,
 with the stacked layer axis split into a Python list ``params["layers"]``
-that the forward pass walks in a plain loop.  Causal attention goes
-through :func:`cloud_tpu_torch.ops.flash_attention.flash_attention`.
+that the forward pass walks in a plain loop, each layer wrapped in the
+config's remat policy.  Causal attention goes through
+:func:`cloud_tpu_torch.ops.flash_attention.flash_attention`, differentiable
+through the flash backward kernels.  :func:`loss_fn` is the next-token
+cross-entropy of training, with the plain and the fused (chunked-vocab)
+branch.
 
 The port serves one card: the JAX package's mesh layouts (tp/sp/pp,
 zig-zag and Ulysses sequence parallelism) have no counterpart here, and
@@ -15,13 +19,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.ops import flash_attention as flash_lib
+from cloud_tpu_torch.ops.fused_cross_entropy import fused_linear_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +45,12 @@ class TransformerConfig:
     rope_base: float = 10000.0
     #: Tie the LM head to the token embedding (logits = x @ table^T).
     tied_embeddings: bool = False
+    #: Recompute each layer in the backward pass (``layers.remat_wrap``).
+    remat: bool = True
+    remat_policy: str = "full"
+    #: Training loss through ``ops.fused_cross_entropy``: the [B, T, V]
+    #: logits are never materialized.
+    fused_ce: bool = False
 
     def scaled(self, **kw) -> "TransformerConfig":
         return dataclasses.replace(self, **kw)
@@ -47,7 +59,7 @@ class TransformerConfig:
 #: Tiny config for tests.
 TINY = TransformerConfig(
     vocab_size=256, num_layers=4, dim=64, num_heads=4, head_dim=16,
-    mlp_hidden=128, max_seq_len=128,
+    mlp_hidden=128, max_seq_len=128, remat=False,
 )
 
 #: ~124M-parameter single-chip config (GPT-2-small shape).
@@ -102,9 +114,10 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
     x = layers.embedding_apply(params["embed"], tokens, dtype=config.dtype)
     x = x * math.sqrt(config.dim)  # stays in config.dtype, as in JAX
     positions = torch.arange(t, device=device).expand(b, t)
+    body = layers.remat_wrap(_layer_compute, config.remat,
+                             config.remat_policy)
     for layer_params in params["layers"]:
-        x = _layer_compute(layer_params, x, config=config,
-                           positions=positions)
+        x = body(layer_params, x, config=config, positions=positions)
     return layers.rmsnorm_apply(params["ln_f"], x)
 
 
@@ -140,3 +153,37 @@ def lm_logits(params, x, config: TransformerConfig):
     if layout == "vd":
         return torch.matmul(x, table.t())
     return torch.matmul(x, table)
+
+
+def loss_fn(params, batch: Dict[str, Any], config: TransformerConfig, *,
+            device=None):
+    """Next-token cross-entropy; ``batch = {"tokens": [B, T]}``, optionally
+    ``"loss_mask"`` [B, T] gating the loss at each target position.
+    Returns ``(loss, {"loss", "ce", "aux"})``."""
+    device = resolve_device(device)
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    if config.fused_ce:
+        hidden = apply_hidden(params, tokens, config, device=device)
+        aux = torch.zeros((), device=device)
+    else:
+        logits, aux = apply(params, tokens, config, device=device)
+    t = tokens.shape[1]
+    pos = torch.arange(t, device=device)
+    target_idx = torch.clamp(pos + 1, max=t - 1)
+    targets = tokens[:, target_idx].long()
+    weights = (pos < t - 1).float()[None, :]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).float()
+        weights = weights * mask[:, target_idx]
+    if config.fused_ce:
+        table, layout = head_table(params, config)
+        ce = fused_linear_cross_entropy(hidden, table, targets,
+                                        table_layout=layout, weights=weights)
+    else:
+        log_probs = F.log_softmax(logits, dim=-1)
+        nll = -log_probs.gather(-1, targets[..., None])[..., 0]
+        weights = weights.expand(nll.shape)
+        ce = (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}

@@ -1,0 +1,370 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface: K6 (dq)
+// and K7 (dk, dv).
+//
+// Replaces the TPU kernels cloud_tpu/ops/flash_attention.py::_bwd_dq_kernel
+// and ::_bwd_dkv_kernel (both pallas_calls in _bwd_pallas).  Same function,
+// the recompute scheme: with the forward's lse and rowterm = delta - g_lse
+// (delta = rowsum(dO * O), both [B, H, T] f32, computed by the caller),
+//   s  = scale * q k^T, then NEG_INF where causal (q_pos < k_pos) or where
+//        the [B, T] key-padding mask is zero,
+//   p  = exp(s - lse),  dp = dO v^T,  ds = p * (dp - rowterm),
+//   dq = scale * ds k,  dk = scale * ds^T q,  dv = p^T dO,
+// with p and ds rounded to the input type before their products, as the TPU
+// kernel casts them before its MXU dots; sums are f32 and the outputs are
+// written in the input type.  q/k/v/dO are read through their strides in
+// the [B, T, H, D] layout, so no transpose copy is made.
+//
+// Translation.  The TPU carried dq across the sequential key axis of its
+// grid, and dk/dv across the query axis, in VMEM scratch.  Here a K6 block
+// owns a (b, h, 64-row query tile) and loops over 32-key tiles; a K7 block
+// owns a (b, h, 64-key tile) and loops over 32-row query tiles.  Each block
+// writes only its own rows, so there are no atomics and the result does not
+// depend on scheduling.  The causal tile skip carries over: K6 stops after
+// the tile that holds its last row's diagonal, K7 starts at the query tile
+// of its first key; inside a tile the mask compares global positions.
+// Ragged T is masked in the kernel: keys past T are no keys (p = 0), query
+// rows past T contribute nothing and are not written.
+//
+// Four threads share a row; thread g holds dims 4 (g + 4 j) .. +3 of its row
+// (q and dO for K6, k and v for K7) and of its accumulators in registers,
+// so a dot product is a partial sum over those dims plus two shuffles, and
+// the staged tile is read as float4 broadcast across the warp's rows.
+//
+// Rows with no valid key.  The forward leaves lse = NEG_INF exactly there
+// (-1e30 + log T rounds back to -1e30 in f32), so p = exp(NEG_INF - lse) =
+// 1 for every masked key, as in the TPU kernel, not the forward's 1/T.
+// Without causal masking this is every key, as the plain version computes.
+// With causal masking the TPU kernel's answer depends on its tiles (keys
+// above the diagonal in a visited tile count, skipped tiles do not); this
+// kernel does the same with its own tiles.  The causal LM never has such
+// rows: position 0 always sees itself.
+//
+// What bounds it on H100.  At head_dim 64, K6 does 3 and K7 4 products of
+// B*H*T*T*D multiply-adds (half of them under the causal skip): at the LM
+// training shape (B=4, T=1024, H=12) that is 9.7 and 12.9 GFLOP against
+// ~32 and ~38 MB, operation-bound on the tensor cores; at BERT's (B=32,
+// T=128) the bytes bound it.  This first version does its products on the
+// CUDA cores in f32 out of shared memory, so it sits far above the tensor-
+// core bound at the LM shape; mma/wgmma tiles and TMA are later work.  The
+// design keeps what does not depend on that: one read of each K/V (K6) or
+// Q/dO (K7) tile per block, no [T, T] intermediate in device memory, the
+// causal half skipped, and 768 blocks at both training shapes.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 256;        // 4 threads per row
+constexpr int kRows = kThreads / 4;  // rows a block owns: queries (K6), keys (K7)
+constexpr int kTile = 32;            // rows staged per loop step
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;      // [B, H, T]
+  const float* rowterm;  // [B, H, T]: delta - g_lse
+  const int32_t* mask;   // [B, T] or nullptr
+  void* dq;              // [B, T, H, D] contiguous
+  void* dk;
+  void* dv;
+  int B, T, H;
+  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
+  int causal;
+  float scale;
+};
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// The value as the TPU kernel feeds it to a dot: rounded to the input type.
+template <typename T> __device__ __forceinline__ float in_type(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// Load this thread's dims (4 (g + 4 j) + u) of one [D] row into regs.
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* src, bool ok, int g,
+                                         float (&dst)[D / 4]) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int d = 4 * (g + 4 * j) + u;
+      dst[4 * j + u] = ok ? to_f<T>(src[d]) : 0.f;
+    }
+  }
+}
+
+// Stage rows [r0, r0 + kTile) of two [B, T, H, D] tensors as f32, zero past T.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* sa, float* sb, const T* a,
+                                      const T* b, long long a0, long long sat,
+                                      long long b0, long long sbt, int r0,
+                                      int T_) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i % D, pos = r0 + r;
+    float x = 0.f, y = 0.f;
+    if (pos < T_) {
+      x = to_f<T>(a[a0 + pos * sat + d]);
+      y = to_f<T>(b[b0 + pos * sbt + d]);
+    }
+    sa[i] = x;
+    sb[i] = y;
+  }
+}
+
+// Partial dots of regs x, y with staged rows ra, rb over this thread's dims.
+template <int D>
+__device__ __forceinline__ void dots(const float (&x)[D / 4],
+                                     const float (&y)[D / 4], const float* ra,
+                                     const float* rb, int g, float& sx,
+                                     float& sy) {
+  const float4* a4 = reinterpret_cast<const float4*>(ra);
+  const float4* b4 = reinterpret_cast<const float4*>(rb);
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const float4 a = a4[g + 4 * j];
+    const float4 b = b4[g + 4 * j];
+    sx += x[4 * j] * a.x + x[4 * j + 1] * a.y + x[4 * j + 2] * a.z + x[4 * j + 3] * a.w;
+    sy += y[4 * j] * b.x + y[4 * j + 1] * b.y + y[4 * j + 2] * b.z + y[4 * j + 3] * b.w;
+  }
+}
+
+// acc += w * staged row, over this thread's dims.
+template <int D>
+__device__ __forceinline__ void axpy(float (&acc)[D / 4], float w,
+                                     const float* row, int g) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    const float4 a = r4[g + 4 * j];
+    acc[4 * j] += w * a.x;
+    acc[4 * j + 1] += w * a.y;
+    acc[4 * j + 2] += w * a.z;
+    acc[4 * j + 3] += w * a.w;
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(void* dst, long long base, int g,
+                                          const float (&x)[D / 4], float mul) {
+  T* out = static_cast<T*>(dst) + base;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) out[4 * (g + 4 * j) + u] = from_f<T>(mul * x[4 * j + u]);
+  }
+}
+
+// K6: dq for one (b, h, 64-row query tile), looping over key tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  __shared__ __align__(16) float sK[kTile * D];
+  __shared__ __align__(16) float sV[kTile * D];
+  __shared__ int sValid[kTile];  // 1 valid key, 0 masked, -1 past T
+
+  const int tid = threadIdx.x, r = tid >> 2, g = tid & 3;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int qpos = q0 + r;
+  const bool row_ok = qpos < p.T;
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* dout = static_cast<const T*>(p.dout);
+
+  float qr[D / 4], dor[D / 4], acc[D / 4];
+  load_row<T, D>(q + b * p.sqb + qpos * p.sqt + h * p.sqh, row_ok, g, qr);
+  load_row<T, D>(dout + b * p.sob + qpos * p.sot + h * p.soh, row_ok, g, dor);
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.T + qpos;
+  const float lse = row_ok ? p.lse[row] : 0.f;
+  const float rt = row_ok ? p.rowterm[row] : 0.f;
+
+  // Causal tile skip: no row of this tile sees a key at or past q0 + kRows.
+  const int k_end = p.causal ? min(p.T, q0 + kRows) : p.T;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done
+    stage<T, D>(sK, sV, k, v, b * p.skb + h * p.skh, p.skt,
+                b * p.svb + h * p.svh, p.svt, k0, p.T);
+    if (tid < kTile) {
+      const int pos = k0 + tid;
+      sValid[tid] = pos >= p.T ? -1
+                  : (p.mask == nullptr || p.mask[b * p.T + pos] != 0) ? 1 : 0;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int c = 0; c < kTile; ++c) {
+      float s = 0.f, dp = 0.f;
+      dots<D>(qr, dor, sK + c * D, sV + c * D, g, s, dp);
+      s = quad_sum(s);
+      dp = quad_sum(dp);
+      const int valid = sValid[c];
+      float ds = 0.f;
+      if (row_ok && valid >= 0) {
+        s *= p.scale;
+        if (valid == 0 || (p.causal && k0 + c > qpos)) s = kNegInf;
+        ds = in_type<T>(expf(s - lse) * (dp - rt));
+      }
+      axpy<D>(acc, ds, sK + c * D, g);
+    }
+  }
+  if (!row_ok) return;
+  store_row<T, D>(p.dq, ((static_cast<long long>(b) * p.T + qpos) * p.H + h) * D,
+                  g, acc, p.scale);
+}
+
+// K7: dk and dv for one (b, h, 64-key tile), looping over query tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+  __shared__ __align__(16) float sQ[kTile * D];
+  __shared__ __align__(16) float sO[kTile * D];
+  __shared__ float sLse[kTile];
+  __shared__ float sRt[kTile];
+  __shared__ int sRowOk[kTile];
+
+  const int tid = threadIdx.x, c = tid >> 2, g = tid & 3;
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int kpos = k0 + c;
+  const bool key_ok = kpos < p.T;
+  // The mask entry of this block's own key rows.
+  const bool key_valid =
+      key_ok && (p.mask == nullptr || p.mask[b * p.T + kpos] != 0);
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* dout = static_cast<const T*>(p.dout);
+
+  float kr[D / 4], vr[D / 4], dk[D / 4], dv[D / 4];
+  load_row<T, D>(k + b * p.skb + kpos * p.skt + h * p.skh, key_ok, g, kr);
+  load_row<T, D>(v + b * p.svb + kpos * p.svt + h * p.svh, key_ok, g, vr);
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+  const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
+
+  // Causal tile skip: query rows before k0 see none of this key tile.
+  const int q_begin = p.causal ? k0 : 0;
+  for (int q0 = q_begin; q0 < p.T; q0 += kTile) {
+    __syncthreads();
+    stage<T, D>(sQ, sO, q, dout, b * p.sqb + h * p.sqh, p.sqt,
+                b * p.sob + h * p.soh, p.sot, q0, p.T);
+    if (tid < kTile) {
+      const int pos = q0 + tid;
+      const bool ok = pos < p.T;
+      sRowOk[tid] = ok;
+      sLse[tid] = ok ? p.lse[rows + pos] : 0.f;
+      sRt[tid] = ok ? p.rowterm[rows + pos] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int r = 0; r < kTile; ++r) {
+      float s = 0.f, dp = 0.f;
+      dots<D>(kr, vr, sQ + r * D, sO + r * D, g, s, dp);
+      s = quad_sum(s);
+      dp = quad_sum(dp);
+      float pc = 0.f, ds = 0.f;
+      if (key_ok && sRowOk[r]) {
+        s *= p.scale;
+        if (!key_valid || (p.causal && kpos > q0 + r)) s = kNegInf;
+        const float pr = expf(s - sLse[r]);
+        pc = in_type<T>(pr);
+        ds = in_type<T>(pr * (dp - sRt[r]));
+      }
+      axpy<D>(dv, pc, sO + r * D, g);
+      axpy<D>(dk, ds, sQ + r * D, g);
+    }
+  }
+  if (!key_ok) return;
+  const long long base = ((static_cast<long long>(b) * p.T + kpos) * p.H + h) * D;
+  store_row<T, D>(p.dk, base, g, dk, p.scale);
+  store_row<T, D>(p.dv, base, g, dv, 1.f);
+}
+
+template <typename T, int D>
+cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
+  dim3 grid((p.T + kRows - 1) / kRows, p.H, p.B);
+  if (dkv) {
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const Params& p, int d, bool dkv, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<T, 16>(p, dkv, stream);
+    case 32: return launch<T, 32>(p, dkv, stream);
+    case 64: return launch<T, 64>(p, dkv, stream);
+    case 128: return launch<T, 128>(p, dkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(bool dkv, const void* q, const void* k, const void* v,
+        const void* dout, const void* lse, const void* rowterm,
+        const void* mask, void* dq, void* dk, void* dv, int B, int T, int H,
+        int D, long long sqb, long long sqt, long long sqh, long long skb,
+        long long skt, long long skh, long long svb, long long svt,
+        long long svh, long long sob, long long sot, long long soh,
+        int causal, float scale, int is_bf16, int device, void* stream) {
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  Params p{q, k, v, dout,
+           static_cast<const float*>(lse), static_cast<const float*>(rowterm),
+           static_cast<const int32_t*>(mask), dq, dk, dv, B, T, H,
+           sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
+           causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = is_bf16 ? launch_d<__nv_bfloat16>(p, D, dkv, st)
+                          : launch_d<float>(p, D, dkv, st);
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Both entry points take the same arguments; K6 writes dq only, K7 dk and dv.
+#define FLASH_BWD_ARGS                                                        \
+  const void *q, const void *k, const void *v, const void *dout,              \
+      const void *lse, const void *rowterm, const void *mask, void *dq,       \
+      void *dk, void *dv, int B, int T, int H, int D, long long sqb,          \
+      long long sqt, long long sqh, long long skb, long long skt,             \
+      long long skh, long long svb, long long svt, long long svh,             \
+      long long sob, long long sot, long long soh, int causal, float scale,   \
+      int is_bf16, int device, void *stream
+#define FLASH_BWD_PASS                                                        \
+  q, k, v, dout, lse, rowterm, mask, dq, dk, dv, B, T, H, D, sqb, sqt, sqh,   \
+      skb, skt, skh, svb, svt, svh, sob, sot, soh, causal, scale, is_bf16,    \
+      device, stream
+
+extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) { return run(false, FLASH_BWD_PASS); }
+
+extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) { return run(true, FLASH_BWD_PASS); }
+
+extern "C" const char* flash_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,15 +1,22 @@
-"""Flash attention forward: a hand-written CUDA kernel plus its plain version.
+"""Flash attention, differentiable: hand-written CUDA kernels plus their plain versions.
 
-Port of ``cloud_tpu/ops/flash_attention.py`` (forward only).  The public
-layout is the JAX package's: q/k/v ``[B, T, H, D]``, an optional
-``[B, T_k]`` key-padding mask (nonzero = attend), out ``[B, T, H, D]`` and
-lse ``[B, H, T]``.
+Port of ``cloud_tpu/ops/flash_attention.py``.  The public layout is the
+JAX package's: q/k/v ``[B, T, H, D]``, an optional ``[B, T_k]``
+key-padding mask (nonzero = attend), out ``[B, T, H, D]`` and lse
+``[B, H, T]``.  Both entry points are differentiable in q, k and v
+through one ``torch.autograd.Function`` (the JAX package's
+``custom_vjp``): the forward saves (q, k, v, mask, out, lse), the
+backward recomputes the scores from the lse.  ``flash_attention_with_lse``
+takes the lse's cotangent too (``g_lse``); the mask gets no gradient.
 
-Dispatch is by device alone.  A tensor on the CPU takes
-:func:`_reference_with_lse`, a term-for-term port of the jnp reference;
-a CUDA tensor launches ``csrc/flash_fwd.cu`` (see its header for the
-design and what bounds it) or raises.  The JAX package's TPU crossover
-thresholds do not apply here and are not carried over.
+Dispatch is by device alone.  A tensor on the CPU takes the plain
+versions, :func:`_reference_with_lse` (a term-for-term port of the jnp
+reference) and :func:`_bwd_reference` (what the TPU backward kernels
+compute, on whole score matrices); a CUDA tensor launches
+``csrc/flash_fwd.cu`` (K5) and ``csrc/flash_bwd.cu`` (K6, K7), see their
+headers for the design and what bounds them, or raises.  The JAX
+package's TPU crossover thresholds and tile-divisibility rule do not
+apply here and are not carried over.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from cloud_tpu_torch.ops import dispatch
 
 NEG_INF = -1e30  # finite: fully-masked rows softmax to uniform, not NaN
 
-#: Head dims the kernel is compiled for.
+#: Head dims the kernels are compiled for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -51,24 +58,63 @@ def _reference_with_lse(q, k, v, *, causal, mask):
     return out, lse
 
 
-_fn = None
+def _row_term(do, out, g_lse):
+    """``delta - g_lse`` ``[B, H, T]`` f32, with ``delta = rowsum(dO * O)``
+    (computed outside the kernels, as the JAX package leaves it to XLA)."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    return delta if g_lse is None else delta - g_lse.float()
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = dispatch.load("flash_fwd").flash_fwd
+def _bwd_reference(q, k, v, mask, do, out, lse, *, causal, g_lse=None):
+    """What the TPU backward kernels (``_bwd_dq_kernel``,
+    ``_bwd_dkv_kernel``) compute, on whole ``[B, H, T, T]`` score matrices:
+    ``p = exp(s - lse)``, ``ds = p * (dp - (delta - g_lse))``, with ``p``
+    and ``ds`` rounded to the input type before their products and the
+    products summed in f32.  Returns (dq, dk, dv) in the input type."""
+    dtype = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    t = q.shape[1]
+    if causal:
+        tril = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(tril, s, NEG_INF)
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :] != 0, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - _row_term(do, out, g_lse)[..., None])
+    ds = ds.to(dtype).float()
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), dof)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+_fns = {}
+
+
+def _kernel_fn(name):
+    """The C entry point ``name`` of the flash libraries, typed."""
+    fn = _fns.get(name)
+    if fn is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       i, ctypes.c_float, i, i, p]
+        if name == "flash_fwd":
+            fn = dispatch.load("flash_fwd").flash_fwd
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                           ll, ll, ll, ll, ll, ll, ll, ll, ll,
+                           i, ctypes.c_float, i, i, p]
+        else:  # flash_bwd_dq, flash_bwd_dkv: one signature
+            fn = getattr(dispatch.load("flash_bwd"), name)
+            fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 12 + [
+                i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def _flash_kernel(q, k, v, *, causal, mask):
-    """Launch ``flash_fwd.cu`` on CUDA tensors; returns (out, lse)."""
+def _check_qkv(q, k, v):
+    """Validate the kernels' q/k/v; returns them with unit last stride."""
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(
             "the flash kernel takes self-attention q/k/v of one [B, T, H, D] "
@@ -82,21 +128,30 @@ def _flash_kernel(q, k, v, *, causal, mask):
         )
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in {KERNEL_HEAD_DIMS}")
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+
+
+def _mask_i32(mask, b, t, device):
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (b, t):
+        raise ValueError(
+            f"mask must be [B, T] = {(b, t)}, got {tuple(mask.shape)}"
+        )
+    return mask.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _flash_kernel(q, k, v, *, causal, mask):
+    """Launch ``flash_fwd.cu`` on CUDA tensors; returns (out, lse)."""
+    q, k, v = _check_qkv(q, k, v)
     b, t, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
-    mask_i32 = None
-    if mask is not None:
-        if tuple(mask.shape) != (b, t):
-            raise ValueError(
-                f"mask must be [B, T] = {(b, t)}, got {tuple(mask.shape)}"
-            )
-        mask_i32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    mask_i32 = _mask_i32(mask, b, t, q.device)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = _kernel_fn("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask_i32 is None else mask_i32.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, t, h, d,
@@ -109,26 +164,94 @@ def _flash_kernel(q, k, v, *, causal, mask):
     return out, lse
 
 
-def _dispatch(q, k, v, *, causal, mask):
+def _bwd_launch(name, q, k, v, mask, do, lse, row_term, *, causal):
+    """Launch K6 (``flash_bwd_dq``) or K7 (``flash_bwd_dkv``) on CUDA
+    tensors; returns ``(dq,)`` or ``(dk, dv)``."""
+    q, k, v = _check_qkv(q, k, v)
+    b, t, h, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"dO must match q: got {tuple(do.shape)} {do.dtype} {do.device}")
+    do = do if do.stride(-1) == 1 else do.contiguous()
+    mask_i32 = _mask_i32(mask, b, t, q.device)
+    lse, row_term = (x.to(device=q.device, dtype=torch.float32).contiguous()
+                     for x in (lse, row_term))
+    if lse.shape != (b, h, t) or row_term.shape != (b, h, t):
+        raise ValueError(f"lse and row terms must be [B, H, T] = {(b, h, t)}")
+    is_dq = name == "flash_bwd_dq"
+    outs = [torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+            for _ in range(1 if is_dq else 2)]
+    ptrs = [o.data_ptr() for o in outs]
+    ptrs = ptrs + [None, None] if is_dq else [None] + ptrs  # dq, dk, dv
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _kernel_fn(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), row_term.data_ptr(),
+        None if mask_i32 is None else mask_i32.data_ptr(), *ptrs,
+        b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], int(causal), 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16), q.device.index, stream,
+    )
+    dispatch.check("flash_bwd", rc)
+    dispatch.count_launch(name)
+    return tuple(outs)
+
+
+def _bwd_kernels(q, k, v, mask, do, out, lse, *, causal, g_lse=None):
+    """K6 then K7 on CUDA tensors; returns (dq, dk, dv)."""
+    row_term = _row_term(do, out, g_lse)
+    (dq,) = _bwd_launch("flash_bwd_dq", q, k, v, mask, do, lse, row_term,
+                        causal=causal)
+    dk, dv = _bwd_launch("flash_bwd_dkv", q, k, v, mask, do, lse, row_term,
+                         causal=causal)
+    return dq, dk, dv
+
+
+def _by_device(q, cpu, cuda):
     if q.device.type == "cpu":
-        return _reference_with_lse(q, k, v, causal=causal, mask=mask)
+        return cpu
     if q.device.type == "cuda":
-        return _flash_kernel(q, k, v, causal=causal, mask=mask)
+        return cuda
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) with the JAX package's custom VJP: grads for q, k, v
+    from the saved (q, k, v, mask, out, lse); none for the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        fwd = _by_device(q, _reference_with_lse, _flash_kernel)
+        out, lse = fwd(q, k, v, causal=causal, mask=mask)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        if g_out is None:  # only the lse was used
+            g_out = torch.zeros_like(out)
+        bwd = _by_device(q, _bwd_reference, _bwd_kernels)
+        dq, dk, dv = bwd(q, k, v, mask, g_out, out, lse, causal=ctx.causal,
+                         g_lse=g_lse)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              mask: Optional[torch.Tensor] = None):
-    """Like :func:`flash_attention` but also returns lse ``[B, H, T]``."""
-    return _dispatch(q, k, v, causal=causal, mask=mask)
+    """Like :func:`flash_attention` but also returns lse ``[B, H, T]``,
+    differentiable in both outputs."""
+    return _FlashAttention.apply(q, k, v, mask, causal)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over ``[B, T, H, D]`` tensors (forward only).
+    """Attention over ``[B, T, H, D]`` tensors, differentiable in q/k/v.
 
     ``mask`` is a ``[B, T_k]`` valid-token padding mask applied key-side;
     a query row with no valid key gets the finite-NEG_INF answer (uniform
     weights), as in the JAX reference.
     """
-    return _dispatch(q, k, v, causal=causal, mask=mask)[0]
+    return _FlashAttention.apply(q, k, v, mask, causal)[0]

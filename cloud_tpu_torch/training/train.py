@@ -86,8 +86,10 @@ def make_train_step(
         params = leaves(state.params)
         with torch.enable_grad():
             loss, metrics = loss_fn(state.params, batch)
-            grads = torch.autograd.grad(loss, params)
-        metrics = dict(metrics)
+            # A leaf the loss does not read gets a zero gradient, as in JAX.
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         optimizer.update_(params, grads, state.opt_state)
         return TrainState(step=state.step + 1, params=state.params,

@@ -10,7 +10,7 @@ import torch
 
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import resnet, transformer
+from cloud_tpu_torch.models import bert, resnet, transformer
 from cloud_tpu_torch.training import optimizers, train
 
 
@@ -80,4 +80,52 @@ def resnet_train_setup(*, imagenet_shape: bool, batch_size: int,
     image = rng.normal(size=(batch_size, image_hw, image_hw, 3))
     batch = {"image": torch.from_numpy(image.astype(np.float32)).to(device),
              "label": torch.from_numpy(label).to(device)}
+    return train.make_train_step(loss, tx), state, batch
+
+
+def lm_train_setup(*, batch_size: int = 4, seq_len: int = 1024,
+                   fused_ce: bool = False, config=None, device=None,
+                   seed: int = 0):
+    """The CloudLM training workload of the JAX package's fused-CE A/B:
+    ``SMALL.scaled(tied_embeddings=True)`` (or ``config``) with
+    ``fused_ce`` set, f32 master weights random from ``seed``,
+    ``adamw(1e-4)`` with f32 moments (``optax.adamw(1e-4)``), and one
+    batch of tokens in [1, V) from a numpy generator seeded with 0.
+    Returns ``(step, state, batch)``."""
+    device = resolve_device(device)
+    cfg = config or transformer.SMALL.scaled(tied_embeddings=True)
+    cfg = cfg.scaled(fused_ce=fused_ce)
+    tx = optimizers.adamw(1e-4, mu_dtype=None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = train.create_sharded_state(
+        gen, lambda g: bridge.init(cfg, g, device=device), tx, device=device)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (batch_size, seq_len))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    loss = functools.partial(transformer.loss_fn, config=cfg, device=device)
+    return train.make_train_step(loss, tx), state, batch
+
+
+def bert_train_setup(*, batch_size: int = 32, seq_len: int = 128,
+                     config=None, device=None, seed: int = 0):
+    """The BERT fine-tune workload of the JAX package's bench:
+    ``BERT_BASE`` (or ``config``), f32 master weights random from
+    ``seed``, ``adamw(2e-5)`` with f32 moments, and one batch of tokens
+    in [0, V) and labels in {0, 1} from a numpy generator seeded with 0,
+    with no attention mask.  Returns ``(step, state, batch)``."""
+    device = resolve_device(device)
+    cfg = config or bert.BERT_BASE
+    tx = optimizers.adamw(2e-5, mu_dtype=None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = train.create_sharded_state(
+        gen, lambda g: bridge.init_bert(cfg, g, device=device), tx,
+        device=device)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len))
+    label = rng.integers(0, 2, batch_size)
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
+             "label": torch.from_numpy(label.astype(np.int64)).to(device)}
+    loss = functools.partial(bert.loss_fn, cfg=cfg, device=device)
     return train.make_train_step(loss, tx), state, batch

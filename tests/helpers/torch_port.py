@@ -12,11 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from cloud_tpu.models import bert as jax_bert
 from cloud_tpu.models import generation as jax_gen
 from cloud_tpu.models import resnet as jax_resnet
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
-from cloud_tpu_torch.models import resnet, transformer
+from cloud_tpu_torch.models import bert, resnet, transformer
 
 #: Smallest top-2 logit gap along a greedy path for it to count as
 #: tie-free: below it, f32 summation order alone could flip an argmax.
@@ -25,7 +26,8 @@ TIE_GAP = 1e-3
 
 def port_config(jax_cfg, dtype=torch.float32):
     fields = ("vocab_size", "num_layers", "dim", "num_heads", "head_dim",
-              "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings")
+              "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings",
+              "remat", "remat_policy", "fused_ce")
     return transformer.TransformerConfig(
         dtype=dtype, **{f: getattr(jax_cfg, f) for f in fields})
 
@@ -99,3 +101,23 @@ def image_batch(batch, hw, num_classes, seed=0):
     labels = rng.integers(0, num_classes, batch).astype(np.int32)
     images = rng.standard_normal((batch, hw, hw, 3)).astype(np.float32)
     return images, labels
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bert_tiny(seed):
+    jax_cfg = dataclasses.replace(jax_bert.TINY, dtype=jnp.float32)
+    params = jax.jit(jax_bert.init, static_argnums=1)(
+        jax.random.PRNGKey(seed), jax_cfg)
+    return jax_cfg, jax.tree_util.tree_map(np.asarray, params)
+
+
+def bert_tiny_models(seed=0):
+    """(jax_cfg, jax_params, port_cfg, port_params): BERT TINY in f32,
+    fresh port params on the CPU (the JAX side is made once per seed)."""
+    jax_cfg, params = _jax_bert_tiny(seed)
+    fields = ("vocab_size", "num_layers", "dim", "num_heads", "mlp_hidden",
+              "max_seq_len", "num_classes", "dropout_rate", "remat")
+    cfg = bert.BertConfig(dtype=torch.float32,
+                          **{f: getattr(jax_cfg, f) for f in fields})
+    return (jax_cfg, params, cfg,
+            bridge.bert_to_torch(params, cfg, device="cpu"))

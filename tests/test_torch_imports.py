@@ -28,7 +28,7 @@ def _port_modules():
 
 def test_every_module_imports_with_jax_blocked():
     modules = list(_port_modules())
-    assert len(modules) >= 12
+    assert len(modules) >= 14
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -74,7 +74,7 @@ def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device resolves")
     from cloud_tpu_torch import bridge
-    from cloud_tpu_torch.models import generation, resnet, transformer
+    from cloud_tpu_torch.models import bert, generation, resnet, transformer
     from cloud_tpu_torch.serving import ServingEngine
     from cloud_tpu_torch.training import optimizers, train
     from cloud_tpu_torch.utils import benchmarking
@@ -97,6 +97,14 @@ def test_entry_points_refuse_missing_cuda():
         lambda: train.create_sharded_state(None, dict, optimizers.sgd(0.1)),
         lambda: benchmarking.resnet_train_setup(imagenet_shape=False,
                                                 batch_size=2),
+        lambda: transformer.loss_fn(params, {"tokens": torch.ones((1, 4))},
+                                    cfg),
+        lambda: benchmarking.lm_train_setup(batch_size=1, seq_len=4,
+                                            config=cfg),
+        lambda: bridge.init_bert(bert.TINY, torch.Generator()),
+        lambda: bert.apply({}, torch.ones((1, 4)), bert.TINY),
+        lambda: benchmarking.bert_train_setup(batch_size=1, seq_len=4,
+                                              config=bert.TINY),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
