@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, ResNet and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (full precision and int8), ResNet and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,10 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    within 1e-4 s, bf16 within 2e-2 s + 2^-7 |ref|), and times the kernel, the
    plain version and one PyTorch library call computing the same function
    (a yardstick only: the port never calls it): K5 and K8 at the serving
-   shapes (CUDA events around back-to-back launches), K1-K4 (GroupNorm)
+   shapes (CUDA events around back-to-back launches), K8q (int8 K/V, with
+   and without an int8 pool, Tq 1 and 4, q in bf16 and f32) timed at
+   B=8 with S=576 and S=4096 beside K8 on bf16 K/V at the same lengths
+   and SDPA on K/V dequantized beforehand, K1-K4 (GroupNorm)
    at every shape of a ResNet-50 CIFAR b256 step and at two 224 b128
    shapes (device time from torch.profiler's kernel rows: a GroupNorm
    call is shorter than its host launch cost), K6/K7 (flash backward) in
@@ -31,7 +34,15 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    seed), checks that every request resolves with valid tokens and that
    the path launched K5 and K8, and checks greedy parity with the port's
    own ``generate()`` at SMALL width in f32; then splits one decode
-   chunk's device time by kernel (torch.profiler);
+   chunk's device time by kernel (torch.profiler); then the quantized
+   path: the same 16 requests with ``quantize_params`` weights and
+   ``kv_quant=True`` (exactly 12 K5 launches per insert, 12 K8q per
+   decode step, no K8), f32 greedy parity of that engine with
+   ``generate(kv_quant=True)`` on four prompts whose quantized greedy path
+   keeps a top-2 logit gap of 1e-2, the decode A/B of
+   ``scripts/bench_daemon.py`` (bf16, int8, int8 + kv_quant weights at b4,
+   prompt 128, 128 new tokens) and ``beam_search`` (int8 + kv_quant, b4,
+   4 beams, 32 new tokens, 12 K8q launches per step);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -310,6 +321,105 @@ def check_paged(device, card):
             "ms": kernel, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library,
             "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={HEADS} D={HEAD_DIM} bf16"}
+
+
+def _quantize_leaves(tree):
+    """int8 K/V with per-(position, head) f32 scales, as the kv_quant cache
+    stores them."""
+    from cloud_tpu_torch.models import quantization
+
+    out = {}
+    for name in ("k", "v"):
+        out[name], out[f"{name}_scale"] = quantization.quantize_unchecked(
+            tree[name], axis=-1)
+    return out
+
+
+def _time_paged_int8(pa, device, card, gen, s):
+    """K8q at B=8 and slot rows of S positions (Tq=1, every row live at a
+    length drawn across the row), beside K8 on bf16 K/V at the same
+    lengths, the plain version, and SDPA on K/V dequantized to bf16
+    beforehand (the dequant is outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+
+    slot = {n: torch.randn((NUM_SLOTS, s, HEADS, HEAD_DIM), generator=gen,
+                           device=device).to(torch.bfloat16)
+            for n in ("k", "v")}
+    qslot = _quantize_leaves(slot)
+    table = torch.full((NUM_SLOTS, -(-s // 16)), -1, dtype=torch.int32,
+                       device=device)
+    lens = np.random.default_rng(0).integers(33, s + 1, NUM_SLOTS)
+    cur_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    q = torch.randn((NUM_SLOTS, 1, HEADS, HEAD_DIM), generator=gen,
+                    device=device).to(torch.bfloat16)
+    kernel = time_ms(lambda: pa._paged_kernel(q, qslot, cur_len, None, table),
+                     iters=50)
+    bf16 = time_ms(lambda: pa._paged_kernel(q, slot, cur_len, None, table),
+                   iters=50)
+    plain = time_ms(lambda: pa._reference(q, qslot, cur_len, None, table))
+    deq = {n: (qslot[n].float() * qslot[f"{n}_scale"]).to(torch.bfloat16)
+           .transpose(1, 2) for n in ("k", "v")}
+    valid = (torch.arange(s, device=device)[None, :]
+             < cur_len[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    library = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, deq["k"], deq["v"], attn_mask=valid), iters=50)
+    keys = int(lens.sum())
+    # Per live (key, head): 2 * hd int8 and two f32 scales.
+    nbytes = (keys * HEADS * (2 * HEAD_DIM + 8) + 2 * q.numel() * 2
+              + NUM_SLOTS * 4 + table.numel() * 4)
+    flops = 4 * keys * HEADS * HEAD_DIM
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    print(f"  K8q paged_attention_int8 B={NUM_SLOTS} S={s} Tq=1 live keys "
+          f"{keys}: kernel {kernel:.4f} ms, K8 on bf16 K/V {bf16:.4f} ms, "
+          f"plain {plain:.4f} ms, sdpa on dequantized bf16 {library:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+    return {"ms": kernel, "bf16_k8_ms": bf16, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+            "live_keys": keys,
+            "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={HEADS} D={HEAD_DIM} "
+                     f"int8 K/V, bf16 q"}
+
+
+def check_paged_int8(device, card):
+    """K8q for Tq in {1, 4}, q in bf16 and f32, int8 slot leaves with and
+    without an int8 pool; timed at the engine's decode shape (8 slots,
+    S=576) and at S=4096."""
+    import torch
+
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for tq in (1, 4):
+            for pool in (True, False):
+                slot, pool_l, table, cur_len = _paged_inputs(
+                    device, dtype, tq, gen, pool=pool)
+                slot = _quantize_leaves(slot)
+                if pool_l is not None:
+                    pool_l = _quantize_leaves(pool_l)
+                q = torch.randn((NUM_SLOTS, tq, HEADS, HEAD_DIM),
+                                generator=gen, device=device).to(dtype)
+                out = pa._paged_kernel(q, slot, cur_len, pool_l, table)
+                ref = pa._reference(q, slot, cur_len, pool_l, table)
+                torch.cuda.synchronize()
+                what = f"K8q paged_attention_int8 {name} Tq={tq} pool={pool}"
+                err = check_close(what, out, ref, name)
+                print(f"  {what}: max_abs_err={err:.3e} ok")
+                worst[name] = max(worst[name], err)
+    engine_shape = _time_paged_int8(pa, device, card, gen,
+                                    BUCKETS[-1] + MAX_NEW)
+    long_rows = _time_paged_int8(pa, device, card, gen, 4096)
+    entry = {"name": "paged_attention_int8", "route": "cuda",
+             "source": "cloud_tpu_torch/ops/csrc/paged_attention.cu",
+             "replaces": "cloud_tpu/ops/paged_attention.py:181 (quantized)",
+             "max_abs_err": worst["bfloat16"],
+             "max_abs_err_f32": worst["float32"], "at_4096": long_rows}
+    entry.update(engine_shape)
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -1250,6 +1360,236 @@ def profile_decode_chunk(device, card):
             "chunk_idle_share": 1 - busy_ms / wall_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3q/3d/3e: the quantized inference path (int8 weights, int8 KV cache)
+# ---------------------------------------------------------------------------
+
+QUANT_SERVING_KERNELS = ("flash_fwd", "paged_attention",
+                         "paged_attention_int8")
+#: Smallest top-2 logit gap along the quantized greedy path for a parity
+#: prompt: an ulp between an 8-row and a 1-row product can flip one int8
+#: rounding of the cache, which moves logits by far more than 1e-3.
+QUANT_TIE_GAP = 1e-2
+QUANT_PARITY_BUDGET = 16
+DECODE_AB = {"batch": 4, "prompt": 128, "new": 128, "warmup": 1, "iters": 2}
+BEAM = {"batch": 4, "prompt": 128, "beams": 4, "new": 32}
+
+
+def _grid_bytes(cache) -> int:
+    return sum(leaf.numel() * leaf.element_size() for leaf in cache.values())
+
+
+def _quantized_greedy_gaps(generation, params, prompt, budget, cfg, device):
+    """Top-2 logit gap at each greedy step of ``generate(kv_quant=True)``,
+    read off its own path (``_prefill`` and ``_decode_step`` on an int8
+    cache), and the tokens of that path."""
+    import torch
+
+    tokens = torch.from_numpy(prompt)[None].to(device)
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    cache, logits = generation._prefill(params, tokens, lens, cfg,
+                                        len(prompt) + budget, kv_quant=True)
+    gaps, out = [], []
+    cur_len = lens
+    for step in range(budget):
+        top2 = torch.topk(logits[0], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(int(token[0]))
+        if step + 1 < budget:
+            cache, logits = generation._decode_step(params, cache, token,
+                                                    cur_len, cfg)
+            cur_len = cur_len + 1
+    return gaps, out
+
+
+def run_engine_quant(device, card):
+    """16 staggered requests at SMALL width with int8 weights and an int8
+    grid; then f32 greedy parity of the engine with the port's quantized
+    ``generate`` on four prompts tie-free under quantization."""
+    import torch
+
+    from cloud_tpu_torch.models import generation, quantization
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    qparams = quantization.quantize_params(params)
+    serve = ServeConfig(max_new_tokens=MAX_NEW, prompt_buckets=BUCKETS,
+                        num_slots=NUM_SLOTS, chunk_tokens=CHUNK,
+                        kv_quant=True)
+    requests = _requests(cfg.vocab_size, 16, seed=1)
+    with ServingEngine(qparams, cfg, serve, device=device) as engine:
+        engine.submit(requests[0][0], max_new_tokens=4).result(timeout=300)
+        torch.cuda.synchronize()
+        grid_bytes = _grid_bytes(engine._grid_cache)
+        dispatch.reset_launch_counts()
+        stats0 = engine.stats()
+        start = time.perf_counter()
+        futures = []
+        for prompt, budget in requests:
+            futures.append(engine.submit(prompt, max_new_tokens=budget))
+            time.sleep(0.002)  # staggered arrivals
+        results = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - start
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        stats = engine.stats()
+    for (prompt, budget), res in zip(requests, results):
+        if res.tokens.shape != (budget,) or res.num_generated != budget:
+            raise AssertionError(f"bad result shape {res.tokens.shape} / "
+                                 f"{res.num_generated} for budget {budget}")
+        if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+            raise AssertionError("token id outside the vocabulary")
+    chunks = stats["chunks"] - stats0["chunks"]
+    inserts = stats["inserts"] - stats0["inserts"]
+    layers_n = cfg.num_layers
+    want = {"flash_fwd": layers_n * inserts, "paged_attention": 0,
+            "paged_attention_int8": layers_n * CHUNK * chunks}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} "
+                             f"({inserts} inserts, {chunks} chunks)")
+    bf16_grid = 2 * layers_n * NUM_SLOTS * (BUCKETS[-1] + MAX_NEW) * \
+        HEADS * HEAD_DIM * 2
+    tokens = sum(r.num_generated for r in results)
+    lat = np.array([r.latency_seconds for r in results])
+    chunk_s = stats["chunk_seconds"] - stats0["chunk_seconds"]
+    step_ms = chunk_s / max(chunks * CHUNK, 1) * 1e3
+    print(f"  engine SMALL int8 weights + kv_quant: 16/16 requests, {tokens} "
+          f"tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; latency p50 "
+          f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s;"
+          f" decode step {step_ms:.3f} ms (host wall, {chunks} chunks); "
+          f"launches {launches} = 12 x {inserts} inserts (K5), "
+          f"12 x {CHUNK} x {chunks} chunks (K8q); grid {grid_bytes} bytes "
+          f"against {bf16_grid} for bf16 ({grid_bytes / bf16_grid:.4f}) "
+          f"[{card}]")
+
+    # Greedy parity on the card in f32, on prompts whose quantized greedy
+    # path keeps a top-2 gap of QUANT_TIE_GAP at every step.
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    qparams32 = generation.prepare_params(qparams, cfg32)
+    picks = []
+    with torch.no_grad():
+        for prompt, budget in _requests(cfg.vocab_size, 40, seed=3):
+            budget = min(budget, QUANT_PARITY_BUDGET)
+            gaps, path = _quantized_greedy_gaps(generation, qparams32, prompt,
+                                                budget, cfg32, device)
+            if min(gaps) >= QUANT_TIE_GAP:
+                picks.append((prompt, budget, gaps, path))
+            if len(picks) == 4:
+                break
+    if len(picks) < 4:
+        raise AssertionError(f"only {len(picks)} of 40 prompts are tie-free "
+                             f"at {QUANT_TIE_GAP} under quantization")
+    with ServingEngine(qparams, cfg32, serve, device=device) as engine:
+        futures = [engine.submit(p, max_new_tokens=b) for p, b, _, _ in picks]
+        served = [f.result(timeout=600) for f in futures]
+    for (prompt, budget, gaps, path), res in zip(picks, served):
+        want_toks = generation.generate(
+            qparams, torch.from_numpy(prompt)[None],
+            torch.tensor([len(prompt)]), cfg32, max_new_tokens=budget,
+            kv_quant=True, device=device)["tokens"][0].cpu().numpy()
+        for name, other in (("engine", res.tokens), ("gap path", path)):
+            if not np.array_equal(want_toks, other):
+                step = int(np.flatnonzero(want_toks != np.asarray(other))[0])
+                raise AssertionError(
+                    f"{name} != generate(kv_quant=True) for a {len(prompt)}-"
+                    f"token prompt at step {step} (top-2 gap there "
+                    f"{gaps[step]:.4g})")
+    print(f"  engine == generate(kv_quant=True): 4/4 requests "
+          f"token-identical (SMALL f32, int8 weights, budgets "
+          f"{[b for _, b, _, _ in picks]}, smallest gap "
+          f"{min(min(g) for _, _, g, _ in picks):.4g})")
+    return {"tokens_per_s": tokens / wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)),
+            "decode_step_ms": step_ms, "grid_bytes": grid_bytes,
+            "bf16_grid_bytes": bf16_grid, "launches": launches}
+
+
+def run_decode_ab(device, card):
+    """``bench_daemon.py``'s decode_quant_ab on the card: greedy
+    ``generate`` at SMALL b4, prompt 128, 128 new tokens, with bf16
+    weights, int8 weights, and int8 weights plus an int8 KV cache."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import quantization
+    from cloud_tpu_torch.utils.benchmarking import (
+        decode_setup,
+        decode_tokens_per_sec,
+    )
+
+    cfg, params, prompts, lens = decode_setup(
+        batch_size=DECODE_AB["batch"], prompt_len=DECODE_AB["prompt"],
+        device=device, seed=0)
+    qparams = quantization.quantize_params(params)
+    variants = {
+        "bf16": (bridge.map_leaves(params, lambda w: w.to(torch.bfloat16)),
+                 False),
+        "int8": (qparams, False),
+        "int8_kv": (qparams, True),
+    }
+    out = {}
+    for name, (p, kv_quant) in variants.items():
+        rate = decode_tokens_per_sec(
+            p, cfg, prompts, lens, max_new_tokens=DECODE_AB["new"],
+            warmup=DECODE_AB["warmup"], iters=DECODE_AB["iters"],
+            kv_quant=kv_quant, device=device)
+        out[name] = {"tokens_per_sec": rate,
+                     "param_bytes": quantization.param_bytes(p)}
+        print(f"  decode A/B {name}: {rate:.1f} tokens/s, param_bytes "
+              f"{out[name]['param_bytes']} (SMALL b{DECODE_AB['batch']} "
+              f"prompt {DECODE_AB['prompt']} new {DECODE_AB['new']}, "
+              f"{DECODE_AB['warmup']} + {DECODE_AB['iters']} calls) [{card}]")
+    return out
+
+
+def run_beam_search(device, card):
+    """``beam_search`` with int8 weights and an int8 cache at SMALL b4,
+    prompt 128, 4 beams, 32 new tokens: K5 once per layer, K8q once per
+    layer and step, finite scores."""
+    import torch
+
+    from cloud_tpu_torch.models import generation, quantization
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    cfg, params, prompts, lens = decode_setup(
+        batch_size=BEAM["batch"], prompt_len=BEAM["prompt"], device=device,
+        seed=0)
+    qparams = quantization.quantize_params(params)
+
+    def run():
+        return generation.beam_search(
+            qparams, prompts, lens, cfg, num_beams=BEAM["beams"],
+            max_new_tokens=BEAM["new"], kv_quant=True, device=device)
+
+    run()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    start = time.perf_counter()
+    out = run()
+    scores = out["scores"].cpu()
+    wall = time.perf_counter() - start
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    want = {"flash_fwd": cfg.num_layers, "paged_attention": 0,
+            "paged_attention_int8": cfg.num_layers * (BEAM["new"] - 1)}
+    if launches != want:
+        raise AssertionError(f"beam launches {launches}, expected {want}")
+    if not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"non-finite beam scores {scores.tolist()}")
+    toks = out["tokens"].cpu()
+    if out["tokens"].shape != (BEAM["batch"], BEAM["new"]) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("beam tokens outside the vocabulary or shape")
+    print(f"  beam_search SMALL int8 + kv_quant b{BEAM['batch']} x "
+          f"{BEAM['beams']} beams, {BEAM['new']} new: {wall:.3f} s, scores "
+          f"{[round(float(x), 4) for x in scores]}, launches {launches} "
+          f"[{card}]")
+    return {"seconds": wall, "scores": scores.tolist(), "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1294,8 +1634,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = [
-        ("phase 2: K5 and K8 against their plain versions", "kernel check",
-         lambda: [check_flash(device, card), check_paged(device, card)],
+        ("phase 2: K5, K8 and K8q against their plain versions",
+         "kernel check",
+         lambda: [check_flash(device, card), check_paged(device, card),
+                  check_paged_int8(device, card)],
          True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
@@ -1307,6 +1649,13 @@ def main() -> int:
         ("phase 3b: one decode chunk under torch.profiler",
          "decode breakdown", lambda: profile_decode_chunk(device, card),
          True),
+        ("phase 3q: ServingEngine, CloudLM SMALL, int8 weights and "
+         "kv_quant, 16 requests", "quantized engine",
+         lambda: run_engine_quant(device, card), True),
+        ("phase 3d: decode A/B, bf16 / int8 / int8_kv weights",
+         "decode A/B", lambda: run_decode_ab(device, card), True),
+        ("phase 3e: beam_search, int8 weights and kv_quant", "beam search",
+         lambda: run_beam_search(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -1369,10 +1718,13 @@ def main() -> int:
     flash_bwd, k5_training = results["flash_bwd check"]
     kernels = (results["kernel check"] + flash_bwd
                + results["group_norm check"])
+    engine_q = results["quantized engine"]
     for entry in kernels:
-        phase = (engine if entry["name"] in SERVING_KERNELS
+        phase = (engine_q if entry["name"] == "paged_attention_int8"
+                 else engine if entry["name"] in SERVING_KERNELS
                  else lm if entry["name"] in FLASH_BWD_KERNELS else cifar)
         entry["launches"] = phase["launches"][entry["name"]]
+    k8q = next(e for e in kernels if e["name"] == "paged_attention_int8")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({
@@ -1382,7 +1734,13 @@ def main() -> int:
         "max_abs_err_f32": {e["name"]: e["max_abs_err_f32"] for e in kernels},
         "group_norm_at_224": {e["name"]: e["at_224"] for e in kernels
                               if "at_224" in e},
+        "paged_attention_int8_bf16_k8_ms": {
+            "S=576": k8q["bf16_k8_ms"], "S=4096": k8q["at_4096"]["bf16_k8_ms"]},
+        "paged_attention_int8_at_4096": k8q["at_4096"],
         "engine": {k: v for k, v in engine.items() if k != "launches"},
+        "engine_int8_kv_quant": engine_q,
+        "decode_quant_ab": results["decode A/B"],
+        "beam_search_int8_kv_quant": results["beam search"],
         "resnet50_cifar_b256": {k: v for k, v in cifar.items()
                                 if k != "launches"},
         "resnet50_224_b128": {k: v for k, v in at_224.items()

@@ -13,6 +13,10 @@ forward pass walks in a loop.
   distributions from a ``torch.Generator`` (for runs that need weights of
   the right shape and scale, not the JAX package's exact numbers).
 
+Weight-only int8 trees (``quantize_params``) cross both ways: ``*_q``
+leaves stay int8, and a stacked ``*_scale`` ``[L, 1, out]`` splits into a
+layer's ``[1, out]`` like any other stacked leaf.
+
 ResNet's params are one dict with the same names and layouts on both
 sides (HWIO conv kernels, ``{"scale", "bias"}`` GroupNorm leaves, a dense
 ``head``): :func:`resnet_to_torch`, :func:`resnet_to_numpy` and
@@ -62,7 +66,10 @@ def _tensor(leaf, device) -> torch.Tensor:
 
 
 def _to_numpy(t) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """f32 for floating leaves (bf16 has no numpy type); int8 ``*_q``
+    leaves and other integer leaves keep their type."""
+    t = t.detach()
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
 def _unstack(tree, index: int):

@@ -11,6 +11,14 @@ writer here stores into the cache tensors it was given and returns them.
 The slot-grid programs (:func:`insert_slot_program`,
 :func:`decode_chunk_program`) are the continuous-batching engine's
 device work.  Greedy outputs are token-identical to :func:`generate`.
+:func:`beam_search` decodes the same cache with a live and a finished
+hypothesis set.
+
+``kv_quant=True`` stores the cache as int8 with per-(position, head) f32
+scales (``k_scale``/``v_scale`` ``[L, B, S, H, 1]``), quantized where it is
+written; every reader folds the scales in with the post-scale algebra
+(the int8 kernel K8q on the card).  Weight-only int8 params
+(``models/quantization.py``) run through every entry point as they are.
 
 Randomness comes from an explicit ``torch.Generator``; the JAX package's
 ``jax.random`` bits are not reproduced, so sampled runs agree with it in
@@ -26,7 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import layers, transformer
+from cloud_tpu_torch.models import layers, quantization, transformer
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops import paged_attention as paged_lib
 
@@ -94,36 +102,63 @@ def sample_logits(logits, sample: SampleConfig, *, generator=None, seen=None,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _check_kv_quant(kv_quant: bool) -> None:
-    if kv_quant:
-        raise NotImplementedError(
-            "kv_quant (int8 KV cache) comes with the kv_quant slice of the "
-            "port (ROADMAP.md)"
-        )
-
-
 def _init_cache(config, b: int, s: int, device, kv_quant: bool = False):
-    """Zeroed KV cache ``{"k", "v"}`` of ``[L, B, S, H, hd]``."""
-    _check_kv_quant(kv_quant)
+    """Zeroed KV cache ``{"k", "v"}`` of ``[L, B, S, H, hd]``; with
+    ``kv_quant`` the K/V are int8 and ``k_scale``/``v_scale`` (ones, f32)
+    ``[L, B, S, H, 1]`` ride beside them."""
     shape = (config.num_layers, b, s, config.num_heads, config.head_dim)
-    return {"k": torch.zeros(shape, dtype=config.dtype, device=device),
-            "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+    if not kv_quant:
+        return {"k": torch.zeros(shape, dtype=config.dtype, device=device),
+                "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+    scale_shape = shape[:-1] + (1,)
+    return {
+        "k": torch.zeros(shape, dtype=torch.int8, device=device),
+        "k_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
+        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v_scale": torch.ones(scale_shape, dtype=torch.float32, device=device),
+    }
+
+
+def _quantize_kv(x):
+    """Per-(..., head) vector int8: ``(q, scale [..., 1])``.  No host
+    sync, so it can sit on the decode path."""
+    return quantization.quantize_unchecked(x, axis=-1)
+
+
+def _kv_leaf_updates(k_raw, v_raw, config, quantized: bool):
+    """Cache-leaf values for raw k/v activations: ``{"k", "v"}`` in the
+    cache dtype, or int8 plus per-(position, head) scales for a quantized
+    cache.  The one spelling shared by every cache writer."""
+    if quantized:
+        k_q, k_sc = _quantize_kv(k_raw)
+        v_q, v_sc = _quantize_kv(v_raw)
+        return {"k": k_q, "k_scale": k_sc, "v": v_q, "v_scale": v_sc}
+    return {"k": k_raw.to(config.dtype), "v": v_raw.to(config.dtype)}
 
 
 def _cache_attention(q, cache_l, cur_len, *, chunk_causal: bool = False):
     """Plain attention of ``q [B, Tq, H, hd]`` over a layer cache
     ``[B, S, H, hd]``: key j of row i is valid iff ``j < cur_len[i]``
-    (``+ t`` for query t with ``chunk_causal``).  CPU tensors only: on
-    the card every cache read goes through the paged kernel."""
+    (``+ t`` for query t with ``chunk_causal``).  An int8 cache folds
+    ``k_scale`` into the scores and ``v_scale`` into the softmax weights
+    (post-scale).  CPU tensors only: on the card every cache read goes
+    through the paged kernels."""
     if q.device.type != "cpu":
         raise RuntimeError(
             "_cache_attention is the plain CPU version; CUDA tensors read "
             "the cache through ops.paged_attention"
         )
+
+    def fold(scores_like, kv_scale):
+        # [B, S, H, 1] -> [B, H, 1, S] broadcast over the query dim.
+        return scores_like * kv_scale.permute(0, 2, 3, 1)
+
     k_cache, v_cache = cache_l["k"], cache_l["v"]
     s = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    if "k_scale" in cache_l:
+        scores = fold(scores, cache_l["k_scale"])
     cur_len = cur_len.long()
     pos = torch.arange(s, device=q.device)
     if chunk_causal:
@@ -136,6 +171,8 @@ def _cache_attention(q, cache_l, cur_len, *, chunk_causal: bool = False):
         valid = pos[None, :] < cur_len[:, None]
         scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
+    if "v_scale" in cache_l:
+        weights = fold(weights, cache_l["v_scale"])
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v_cache.float())
     return out.to(q.dtype)
 
@@ -143,9 +180,11 @@ def _cache_attention(q, cache_l, cur_len, *, chunk_causal: bool = False):
 def prepare_params(params, config):
     """The params with every layer matrix stored once in the compute dtype
     (``dense_apply`` would cast it on every call; the numbers are the
-    same).  Norm scales, the embedding and the head keep their type."""
+    same).  int8 ``*_q`` leaves stay int8.  Norm scales, the embedding and
+    the head keep their type."""
     def cast(dense):
-        return {k: v.to(config.dtype) for k, v in dense.items()}
+        return {k: v if k.endswith("_q") else v.to(config.dtype)
+                for k, v in dense.items()}
 
     out = dict(params)
     out["layers"] = [
@@ -173,9 +212,10 @@ def _write_rows(leaf, rows, write_pos, values):
 def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
                   paged=None):
     """One block on a single-token slice ``x [B, 1, D]``: writes this
-    step's k/v at ``cur_len`` (or ``write_pos``; out-of-range suppresses
-    the row's write) into the cache in place, then attends over the valid
-    prefix through the paged kernel."""
+    step's k/v (int8 and scales for a quantized cache) at ``cur_len`` (or
+    ``write_pos``; out-of-range suppresses the row's write) into the cache
+    in place, then attends over the valid prefix through the paged
+    kernel."""
     b = x.shape[0]
     y = layers.rmsnorm_apply(layer_params["ln1"], x)
     q, k_new, v_new = transformer.qkv_project(
@@ -183,8 +223,10 @@ def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
     )
     rows = torch.arange(b, device=x.device)
     wp = cur_len if write_pos is None else write_pos
-    _write_rows(cache_l["k"], rows, wp, k_new[:, 0])
-    _write_rows(cache_l["v"], rows, wp, v_new[:, 0])
+    updates = _kv_leaf_updates(k_new[:, 0], v_new[:, 0], config,
+                               "k_scale" in cache_l)
+    for name, value in updates.items():
+        _write_rows(cache_l[name], rows, wp, value)
     paged = paged or {}
     attended = paged_lib.paged_decode_attention(
         q, cache_l, cur_len + 1, pool_l=paged.get("pool_l"),
@@ -240,17 +282,20 @@ def _prefill_forward(params, prompt_tokens, prompt_lens, config):
 
 def _write_prefill(cache, k_pref, v_pref, row0: int, config):
     """Store a prefill's per-layer k/v into ``cache`` rows ``[row0,
-    row0 + B)`` at positions ``[0, T)``, in place."""
+    row0 + B)`` at positions ``[0, T)``, in place (quantized first when
+    the cache is int8)."""
+    quantized = "k_scale" in cache
     for layer, (k, v) in enumerate(zip(k_pref, v_pref)):
         b, t = k.shape[:2]
-        cache["k"][layer, row0:row0 + b, :t] = k.to(config.dtype)
-        cache["v"][layer, row0:row0 + b, :t] = v.to(config.dtype)
+        for name, value in _kv_leaf_updates(k, v, config, quantized).items():
+            cache[name][layer, row0:row0 + b, :t] = value
     return cache
 
 
-def _prefill(params, prompt_tokens, prompt_lens, config, s):
+def _prefill(params, prompt_tokens, prompt_lens, config, s,
+             kv_quant: bool = False):
     b = prompt_tokens.shape[0]
-    cache = _init_cache(config, b, s, prompt_tokens.device)
+    cache = _init_cache(config, b, s, prompt_tokens.device, kv_quant=kv_quant)
     k_pref, v_pref, logits0 = _prefill_forward(params, prompt_tokens,
                                                prompt_lens, config)
     return _write_prefill(cache, k_pref, v_pref, 0, config), logits0
@@ -265,10 +310,11 @@ def _decode_step(params, cache, token, cur_len, config, write_pos=None,
                                dtype=config.dtype)
     x = x * math.sqrt(config.dim)
     for layer, layer_params in enumerate(params["layers"]):
-        cache_l = {"k": cache["k"][layer], "v": cache["v"][layer]}
+        cache_l = {name: leaf[layer] for name, leaf in cache.items()}
         paged = {"block_table": block_table}
         if pool is not None:
-            paged["pool_l"] = {"k": pool["k"][layer], "v": pool["v"][layer]}
+            paged["pool_l"] = {name: leaf[layer]
+                               for name, leaf in pool.items()}
         x = _decode_layer(layer_params, x, cache_l, cur_len, config,
                           write_pos=write_pos, paged=paged)
     return cache, _final_logits(params, x, config)[:, 0]
@@ -326,13 +372,13 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
 
     ``prompt_tokens`` ``[B, T_prompt]`` left-aligned ids, ``prompt_lens``
     ``[B]`` true lengths (clamped to ``[1, T_prompt]``); ``generator``
-    is required unless greedy.  Returns ``tokens [B, N]``, ``sequences
+    is required unless greedy; ``kv_quant`` stores the cache int8.
+    Returns ``tokens [B, N]``, ``sequences
     [B, T_prompt + N]`` (prompt and generation stitched at each row's
     true length) and ``num_generated [B]`` (eos included), as int32
     tensors on ``device``.
     """
     transformer.check_supported(config)
-    _check_kv_quant(kv_quant)
     device = resolve_device(device)
     if sample.temperature != 0.0 and generator is None:
         raise ValueError("non-greedy sampling needs a torch.Generator")
@@ -352,7 +398,8 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
                                              device=device)}
     with torch.no_grad():
         cache, logits0 = _prefill(params, prompt_tokens, prompt_lens, config,
-                                  t_prompt + max_new_tokens)
+                                  t_prompt + max_new_tokens,
+                                  kv_quant=kv_quant)
         tokens, num_generated = _decode_tokens(
             params, cache, logits0, prompt_lens, config,
             max_new_tokens=max_new_tokens, sample=sample, generator=generator,
@@ -380,7 +427,8 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
 def init_slot_cache(config, num_slots: int, max_len: int, *, device=None,
                     kv_quant: bool = False):
     """The persistent decode grid: zeroed ``[L, num_slots, max_len, H,
-    hd]`` K/V, allocated once and updated in place by every program."""
+    hd]`` K/V (int8 plus scales with ``kv_quant``), allocated once and
+    updated in place by every program; the programs follow its type."""
     return _init_cache(config, num_slots, max_len, resolve_device(device),
                        kv_quant=kv_quant)
 
@@ -524,3 +572,127 @@ def decode_chunk_program(params, cache, state, config, *, chunk_size: int,
             torch.int32)
         return cache, state, toks, valid, summary
     return cache, state, toks, valid
+
+
+# --------------------------------------------------------------------------
+# Beam search.
+
+
+def _top_k(x, k: int):
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, in
+    descending order, ties broken towards the lower index."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def beam_search(params, prompt_tokens, prompt_lens, config, *,
+                num_beams: int, max_new_tokens: int,
+                length_penalty: float = 1.0, eos_id: Optional[int] = None,
+                pad_id: int = 0, kv_quant: bool = False,
+                device=None) -> Dict[str, Any]:
+    """Beam decoding: the highest-scoring continuation per prompt.
+
+    Prefill runs once per prompt; the cache is tiled to ``B * K`` rows
+    (beam-major within each prompt) and reordered along the beam
+    dimension, in place and scales included, after every step.  Two
+    hypothesis sets, as in the JAX package: live beams advance at raw
+    summed log-prob; a beam that samples ``eos_id`` moves to a finished
+    set scored ``sum_logprob / num_tokens ** length_penalty``.  Each step
+    expands ``2K`` candidates so the live set stays full when ``K`` of
+    them finish at once; the answer is the best penalized hypothesis of
+    both sets.
+
+    Returns ``tokens [B, max_new_tokens]`` (the best hypothesis, pad after
+    eos), ``scores [B]`` (its length-penalized log-prob) and
+    ``num_generated [B]`` (eos included), on ``device``.
+    """
+    transformer.check_supported(config)
+    device = resolve_device(device)
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    if max_new_tokens < 1:
+        raise ValueError("beam_search needs max_new_tokens >= 1")
+    prompt_tokens = torch.as_tensor(prompt_tokens, device=device).to(
+        torch.int32)
+    b, t_prompt = prompt_tokens.shape
+    k = num_beams
+    vocab = config.vocab_size
+    prompt_lens = torch.as_tensor(prompt_lens, device=device).to(
+        torch.int32).clamp(1, t_prompt)
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=device)
+
+    def penalize(sum_logprob, n):
+        return sum_logprob / torch.clamp(n.float(), min=1.0) ** length_penalty
+
+    def take(x, idx):  # take_along_axis on dim 1, trailing dims kept
+        return torch.gather(
+            x, 1, idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand(
+                *idx.shape, *x.shape[2:]))
+
+    with torch.no_grad():
+        cache, logits0 = _prefill(params, prompt_tokens, prompt_lens, config,
+                                  t_prompt + max_new_tokens,
+                                  kv_quant=kv_quant)
+        cache = {name: leaf.repeat_interleave(k, dim=1)
+                 for name, leaf in cache.items()}  # [L, B*K, S, H, ...]
+        cur_len = prompt_lens.repeat_interleave(k)
+
+        scores_l, tok0 = _top_k(torch.log_softmax(logits0, dim=-1), k)
+        token = tok0.to(torch.int32)
+        hist_l = torch.full((b, k, max_new_tokens), pad_id, dtype=torch.int32,
+                            device=device)
+        hist_l[:, :, 0] = token
+        n_l = torch.ones((b, k), dtype=torch.int32, device=device)
+        hist_f = torch.full_like(hist_l, pad_id)
+        scores_f = neg_inf.expand(b, k).clone()
+        n_f = torch.zeros_like(n_l)
+        if eos_id is not None:
+            seed_eos = token == eos_id
+            scores_f = torch.where(seed_eos, penalize(scores_l, n_l),
+                                   scores_f)
+            hist_f = torch.where(seed_eos[:, :, None], hist_l, hist_f)
+            n_f = torch.where(seed_eos, n_l, n_f)
+            scores_l = torch.where(seed_eos, neg_inf, scores_l)
+
+        rows = torch.arange(b, device=device)[:, None] * k
+        for i in range(max_new_tokens - 1):
+            cache, step_logits = _decode_step(
+                params, cache, token.reshape(b * k), cur_len, config)
+            logprobs = torch.log_softmax(step_logits, dim=-1).reshape(
+                b, k, vocab)
+            total = scores_l[:, :, None] + logprobs  # [B, K, V]
+            cand_scores, flat_idx = _top_k(total.reshape(b, k * vocab),
+                                           2 * k)
+            cand_parent = flat_idx // vocab  # [B, 2K]
+            cand_tok = (flat_idx % vocab).to(torch.int32)
+            cand_hist = take(hist_l, cand_parent).clone()
+            cand_hist[:, :, i + 1] = cand_tok
+            cand_n = torch.gather(n_l, 1, cand_parent) + 1
+            if eos_id is not None:
+                cand_eos = cand_tok == eos_id
+                merged_scores = torch.cat([
+                    scores_f,
+                    torch.where(cand_eos, penalize(cand_scores, cand_n),
+                                neg_inf),
+                ], dim=1)  # [B, K + 2K]
+                scores_f, f_idx = _top_k(merged_scores, k)
+                hist_f = take(torch.cat([hist_f, cand_hist], dim=1), f_idx)
+                n_f = torch.gather(torch.cat([n_f, cand_n], dim=1), 1, f_idx)
+                cand_scores = torch.where(cand_eos, neg_inf, cand_scores)
+            scores_l, l_idx = _top_k(cand_scores, k)  # [B, K]
+            token = torch.gather(cand_tok, 1, l_idx)
+            hist_l = take(cand_hist, l_idx)
+            n_l = torch.gather(cand_n, 1, l_idx)
+            flat_parent = (rows + torch.gather(cand_parent, 1, l_idx)
+                           ).reshape(b * k)
+            for leaf in cache.values():
+                leaf.copy_(leaf.index_select(1, flat_parent))
+            cur_len = cur_len[flat_parent] + 1
+
+        all_scores = torch.cat([scores_f, penalize(scores_l, n_l)], dim=1)
+        all_hist = torch.cat([hist_f, hist_l], dim=1)
+        all_n = torch.cat([n_f, n_l], dim=1)
+        best = torch.argmax(all_scores, dim=-1)[:, None]  # [B, 1]
+    return {"tokens": take(all_hist, best)[:, 0],
+            "scores": torch.gather(all_scores, 1, best)[:, 0],
+            "num_generated": torch.gather(all_n, 1, best)[:, 0]}

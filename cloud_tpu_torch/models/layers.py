@@ -4,8 +4,10 @@ Parameters are plain dicts of tensors with the JAX package's names and
 layouts (dense kernels ``[in, out]``).  Compute runs in the dtype of the
 activations; a weight is cast to it where it is used, as in the JAX
 package, so f32 master weights and weights stored once in the compute
-dtype give the same numbers.  Full-precision leaves only: int8
-(``*_q``) weights come with the quantization slice of the port.
+dtype give the same numbers.  Weight-only int8 leaves (``kernel_q`` /
+``table_q`` with their ``*_scale``, ``models/quantization.py``) take the
+JAX package's post-scale route: the int8 matrix feeds the product and the
+per-channel scale applies to its small output.
 """
 
 from __future__ import annotations
@@ -48,14 +50,6 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
     return wrapped
 
 
-def _no_int8(params, name: str) -> None:
-    if f"{name}_q" in params:
-        raise NotImplementedError(
-            f"int8 weight {name}_q: weight-only quantization comes with the "
-            "quantization slice of the port (ROADMAP.md)"
-        )
-
-
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
                use_bias: bool = True):
     """Kernel ``[in, out]``, truncated normal in [-2, 2] scaled by
@@ -71,10 +65,26 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
     return params
 
 
+def materialize_matrix(params, name: str, dtype):
+    """The (possibly int8-quantized) matrix ``name`` at compute width:
+    ``{name}_q * {name}_scale`` for a quantized leaf."""
+    if f"{name}_q" in params:
+        return (params[f"{name}_q"].to(dtype)
+                * params[f"{name}_scale"].to(dtype))
+    return params[name].to(dtype)
+
+
 def dense_apply(params, x, *, dtype=None):
-    _no_int8(params, "kernel")
+    """``x @ kernel (+ bias)`` in ``dtype`` (default: x's).  An int8 kernel
+    takes the post-scale route, ``(x @ q) * scale``, with the per-output
+    scale ``[1, out]`` applied to the product."""
     dtype = dtype or x.dtype
-    y = torch.matmul(x.to(dtype), params["kernel"].to(dtype))
+    if "kernel_q" in params:
+        q = params["kernel_q"].to(dtype)
+        scale = params["kernel_scale"].squeeze(-2).to(dtype)
+        y = torch.matmul(x.to(dtype), q) * scale
+    else:
+        y = torch.matmul(x.to(dtype), params["kernel"].to(dtype))
     if "bias" in params:
         y = y + params["bias"].to(dtype)
     return y
@@ -82,9 +92,13 @@ def dense_apply(params, x, *, dtype=None):
 
 def embedding_apply(params, token_ids, *, dtype=torch.float32):
     """Table lookup; rows are gathered first and cast after (the same
-    numbers as casting the whole table, without touching all of it)."""
-    _no_int8(params, "table")
-    return params["table"][token_ids.long()].to(dtype)
+    numbers as casting the whole table, without touching all of it).  An
+    int8 table gathers int8 rows and scales them by their per-row scale."""
+    ids = token_ids.long()
+    if "table_q" in params:
+        rows = params["table_q"][ids].to(dtype)
+        return rows * params["table_scale"][ids].to(dtype)
+    return params["table"][ids].to(dtype)
 
 
 def layernorm_apply(params, x, *, eps: float = 1e-6):

@@ -130,24 +130,43 @@ def apply(params, tokens, config: TransformerConfig, *, device=None):
 
 def head_table(params, config: TransformerConfig):
     """``(table, layout)`` of the vocabulary projection: ``"vd"`` is the
-    tied embedding table ``[V, D]``, ``"dv"`` the dense head ``[D, V]``."""
+    tied embedding table ``[V, D]``, ``"dv"`` the dense head ``[D, V]``.
+    An int8 leaf comes back materialized in f32 (the fused-CE consumer);
+    :func:`lm_logits` takes the post-scale route instead."""
     if config.tied_embeddings:
-        layers._no_int8(params["embed"], "table")
-        return params["embed"]["table"], "vd"
+        embed = params["embed"]
+        if "table_q" in embed:
+            return layers.materialize_matrix(embed, "table", torch.float32), "vd"
+        return embed["table"], "vd"
     head = params["head"]
-    layers._no_int8(head, "kernel")
-    extra = set(head) - {"kernel"}
+    extra = set(head) - {"kernel", "kernel_q", "kernel_scale"}
     if extra:
         raise NotImplementedError(
             f"head has params beyond 'kernel' ({sorted(extra)}); "
             "bias-free heads only"
         )
+    if "kernel_q" in head:
+        return layers.materialize_matrix(head, "kernel", torch.float32), "dv"
     return head["kernel"], "dv"
 
 
 def lm_logits(params, x, config: TransformerConfig):
-    """Final vocabulary projection in f32."""
+    """Final vocabulary projection in f32.  An int8 head or tied table
+    takes the post-scale route, ``(x @ q) * scale``, in f32."""
     x = x.float()
+    if config.tied_embeddings and "table_q" in params["embed"]:
+        embed = params["embed"]
+        logits = torch.matmul(x, embed["table_q"].float().t())
+        return logits * embed["table_scale"][:, 0].float()
+    if not config.tied_embeddings and "kernel_q" in params["head"]:
+        head = params["head"]
+        extra = set(head) - {"kernel_q", "kernel_scale"}
+        if extra:
+            raise NotImplementedError(
+                f"quantized head has extra params {sorted(extra)}"
+            )
+        logits = torch.matmul(x, head["kernel_q"].float())
+        return logits * head["kernel_scale"][0].float()
     table, layout = head_table(params, config)
     table = table.float()
     if layout == "vd":

@@ -13,11 +13,12 @@ Nothing here runs at import time: importing the package on a host with
 no ``nvcc`` and no card touches neither.
 
 The launch counters live here too, one per kernel (a library may hold
-several: ``group_norm`` holds K1-K4, ``flash_bwd`` K6 and K7).  A kernel
-wrapper calls :func:`count_launch` exactly where it launches its kernel
-(never on the plain CPU path), so a run can show that its main path went
-through the kernels: reset the counts, drive the path, read the counts
-of the kernels that path runs.
+several: ``group_norm`` holds K1-K4, ``flash_bwd`` K6 and K7,
+``paged_attention`` K8 and K8q).  A kernel wrapper calls
+:func:`count_launch` exactly where it launches its kernel (never on the
+plain CPU path), so a run can show that its main path went through the
+kernels: reset the counts, drive the path, read the counts of the
+kernels that path runs.
 """
 
 from __future__ import annotations
@@ -44,11 +45,13 @@ SOURCES = {
     "group_norm": "group_norm.cu",
 }
 
-#: Kernel names, one launch counter each: K5 and K8 in their own
-#: libraries, K6/K7 (flash backward) both in ``flash_bwd``, K1-K4
-#: (GroupNorm) all in ``group_norm``.
+#: Kernel names, one launch counter each: K5 in its own library, K8 and
+#: its int8 variant K8q both in ``paged_attention``, K6/K7 (flash
+#: backward) both in ``flash_bwd``, K1-K4 (GroupNorm) all in
+#: ``group_norm``.
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention",
-           "gn_fwd", "gn_fwd_res", "gn_bwd", "gn_bwd_res")
+           "paged_attention_int8", "gn_fwd", "gn_fwd_res", "gn_bwd",
+           "gn_bwd_res")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,4 +1,4 @@
-"""Paged decode attention: a hand-written CUDA kernel plus its plain version.
+"""Paged decode attention: hand-written CUDA kernels plus their plain version.
 
 Port of ``cloud_tpu/ops/paged_attention.py``.  Queries ``q [B, Tq, H, hd]``
 attend over KV read in place through a per-row block table: page ``p`` of
@@ -7,12 +7,15 @@ row ``b`` (positions ``[p*bt, (p+1)*bt)``) reads prefix-pool block
 is ``-1``.  Key ``j`` is valid for query ``t`` iff ``j < cur_len[b] + t``.
 
 ``cache_l`` / ``pool_l`` are KV-leaf dicts ``{"k": ..., "v": ...}`` shaped
-``[B, S, H, hd]`` / ``[NB, bt, H, hd]``, exactly as in the JAX package.
+``[B, S, H, hd]`` / ``[NB, bt, H, hd]``, exactly as in the JAX package.  A
+``kv_quant`` cache stores ``k``/``v`` as int8 with f32 ``k_scale``/``v_scale``
+leaves ``[B, S, H, 1]`` (pool ``[NB, bt, H, 1]``); slot and pool must agree.
 
 Dispatch is by device alone: CPU tensors take :func:`_reference` (a
-term-for-term port of the jnp reference), CUDA tensors launch
-``csrc/paged_attention.cu`` (see its header for the design and what bounds
-it) or raise.  int8 (``kv_quant``) leaves are not supported yet and raise.
+term-for-term port of the jnp reference, post-scale int8 algebra included),
+CUDA tensors launch ``csrc/paged_attention.cu`` (see its header for the
+design and what bounds it) or raise: K8 (``paged_attention``) for K/V of
+q's type, K8q (``paged_attention_int8``) for int8 K/V.
 """
 
 from __future__ import annotations
@@ -61,18 +64,26 @@ def _gather_paged(slot_leaf, pool_leaf, block_table):
 
 def _reference(q, cache_l, cur_len, pool_l, block_table):
     """The plain version: f32 scores and softmax over the block-table
-    gather, chunk-causal mask with the finite NEG_INF."""
-    k_cache = _gather_paged(
-        cache_l["k"], None if pool_l is None else pool_l["k"], block_table
-    )
-    v_cache = _gather_paged(
-        cache_l["v"], None if pool_l is None else pool_l["v"], block_table
-    )
+    gather, chunk-causal mask with the finite NEG_INF; int8 leaves fold
+    ``k_scale`` into the scores before the mask and ``v_scale`` into the
+    softmax weights."""
+    def gather(name):
+        return _gather_paged(
+            cache_l[name], None if pool_l is None else pool_l[name],
+            block_table)
+
+    def fold(scores_like, kv_scale):
+        # [B, S, H, 1] -> [B, H, 1, S] broadcast over the query dim.
+        return scores_like * kv_scale.permute(0, 2, 3, 1)
+
+    k_cache, v_cache = gather("k"), gather("v")
     s = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum(
         "bqhd,bkhd->bhqk", q.float(), k_cache.float()
     ) * scale
+    if "k_scale" in cache_l:
+        scores = fold(scores, gather("k_scale"))
     cur_len = cur_len.to(device=q.device, dtype=torch.long)
     valid = torch.arange(s, device=q.device)[None, None, :] < (
         cur_len[:, None, None]
@@ -80,8 +91,30 @@ def _reference(q, cache_l, cur_len, pool_l, block_table):
     )
     scores = torch.where(valid[:, None, :, :], scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
+    if "v_scale" in cache_l:
+        weights = fold(weights, gather("v_scale"))
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v_cache.float())
     return out.to(q.dtype)
+
+
+def _check_precision(cache_l, pool_l) -> bool:
+    """Whether the K/V are int8 (``kv_quant``); raise if the slot leaves
+    and the pool's disagree, or int8 leaves come without their scales."""
+    quantized = "k_scale" in cache_l
+    for where, leaves in (("slot", cache_l), ("pool", pool_l)):
+        if leaves is None:
+            continue
+        has_scales = "k_scale" in leaves and "v_scale" in leaves
+        is_int8 = leaves["k"].dtype == torch.int8
+        if has_scales != quantized or is_int8 != quantized:
+            raise TypeError(
+                f"paged attention: {where} leaves "
+                f"{'are' if is_int8 else 'are not'} int8 "
+                f"{'with' if has_scales else 'without'} k_scale/v_scale, "
+                f"but the slot row is {'int8' if quantized else 'full precision'}"
+                f": slot and pool must both be int8 with scales, or neither"
+            )
+    return quantized
 
 
 def _fit_page(s: int, bt: Optional[int]) -> Optional[int]:
@@ -94,28 +127,27 @@ def _fit_page(s: int, bt: Optional[int]) -> Optional[int]:
     return fitted if fitted >= 8 else None
 
 
-_fn = None
+_fns = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = dispatch.load("paged_attention").paged_attention
+def _kernel_fn(name):
+    """The typed C entry point ``name`` of the paged library: K8
+    (``paged_attention``) or K8q (``paged_attention_int8``)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(dispatch.load("paged_attention"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        pointers = 8 if name == "paged_attention" else 12
+        fn.argtypes = [p] * pointers + [i] * 7 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
-    """Launch ``paged_attention.cu`` on CUDA tensors."""
-    if "k_scale" in cache_l or cache_l["k"].dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 (kv_quant) K/V in the paged kernel comes with the kv_quant "
-            "slice of the port (ROADMAP.md)"
-        )
+    """Launch ``paged_attention.cu`` on CUDA tensors: K8, or K8q when the
+    K/V are int8."""
+    quantized = _check_precision(cache_l, pool_l)
     slot_k, slot_v = cache_l["k"], cache_l["v"]
     b, tq, h, d = q.shape
     s = slot_k.shape[1]
@@ -128,30 +160,46 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
         raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if tq > KERNEL_MAX_TQ:
         raise ValueError(f"Tq {tq} above the kernel's {KERNEL_MAX_TQ}")
+    kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            q.dtype == slot_k.dtype == slot_v.dtype):
+            kv_dtype == slot_k.dtype == slot_v.dtype):
         raise TypeError(
-            f"paged kernel takes float32 or bfloat16 q and K/V of one type; "
-            f"got {q.dtype}, {slot_k.dtype}, {slot_v.dtype}"
+            f"paged kernel takes float32 or bfloat16 q and K/V of q's type "
+            f"or int8; got {q.dtype}, {slot_k.dtype}, {slot_v.dtype}"
         )
-    tensors = [q, slot_k, slot_v]
-    pool_k = pool_v = None
+    names = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
+    slot = [cache_l[n] for n in names]
+    if quantized:
+        for x in slot[2:]:
+            if x.dtype != torch.float32 or x.shape != (b, s, h, 1):
+                raise TypeError(
+                    f"slot scales must be float32 [B, S, H, 1] = "
+                    f"{(b, s, h, 1)}; got {x.dtype} {tuple(x.shape)}")
+    pool = None
     bt = None
     if pool_l is not None:
-        pool_k, pool_v = pool_l["k"], pool_l["v"]
-        if pool_k.dtype != q.dtype or pool_k.shape[2:] != (h, d):
+        pool = [pool_l[n] for n in names]
+        nb, bt = pool[0].shape[:2]
+        if (pool[0].dtype != kv_dtype or pool[0].shape[2:] != (h, d)
+                or pool[1].shape != pool[0].shape):
             raise ValueError(
-                f"pool leaves must be [NB, bt, {h}, {d}] of {q.dtype}; got "
-                f"{tuple(pool_k.shape)} of {pool_k.dtype}"
+                f"pool leaves must be [NB, bt, {h}, {d}] of {kv_dtype}; got "
+                f"{tuple(pool[0].shape)} of {pool[0].dtype}"
             )
-        bt = pool_k.shape[1]
-        tensors += [pool_k, pool_v]
+        if quantized and any(x.dtype != torch.float32
+                             or x.shape != (nb, bt, h, 1) for x in pool[2:]):
+            raise TypeError(f"pool scales must be float32 [NB, bt, H, 1] = "
+                            f"{(nb, bt, h, 1)}")
     bt = _fit_page(s, bt) or s
+    tensors = [q] + slot + (pool or [])
     if any(x.device != q.device for x in tensors):
         raise ValueError("q, cache and pool must lie on one device")
-    q, slot_k, slot_v = (x.contiguous() for x in (q, slot_k, slot_v))
-    if pool_k is not None:
-        pool_k, pool_v = pool_k.contiguous(), pool_v.contiguous()
+    q = q.contiguous()
+    slot = [x.contiguous() for x in slot]
+    pool = None if pool is None else [x.contiguous() for x in pool]
+    if quantized and any(x.data_ptr() % 4 for x in slot[:2] + (pool or [])[:2]):
+        raise ValueError("int8 K/V must start on a 4-byte boundary (char4 "
+                         "loads)")
     table = None
     n_tab = 0
     if block_table is not None:
@@ -160,27 +208,24 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
     lens = cur_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel_fn()(
-        q.data_ptr(), slot_k.data_ptr(), slot_v.data_ptr(),
-        None if pool_k is None else pool_k.data_ptr(),
-        None if pool_v is None else pool_v.data_ptr(),
+    pool_ptrs = ([None] * len(names) if pool is None
+                 else [x.data_ptr() for x in pool])
+    name = "paged_attention_int8" if quantized else "paged_attention"
+    rc = _kernel_fn(name)(
+        q.data_ptr(), *(x.data_ptr() for x in slot), *pool_ptrs,
         None if table is None else table.data_ptr(),
         lens.data_ptr(), out.data_ptr(),
         b, tq, h, d, s, bt, n_tab, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), q.device.index, stream,
     )
     dispatch.check("paged_attention", rc)
-    dispatch.count_launch("paged_attention")
+    dispatch.count_launch(name)
     return out
 
 
 def _paged(q, cache_l, cur_len, *, pool_l, block_table):
     if q.device.type == "cpu":
-        if "k_scale" in cache_l:
-            raise NotImplementedError(
-                "int8 (kv_quant) K/V comes with the kv_quant slice of the "
-                "port (ROADMAP.md)"
-            )
+        _check_precision(cache_l, pool_l)
         return _reference(q, cache_l, cur_len, pool_l, block_table)
     if q.device.type == "cuda":
         return _paged_kernel(q, cache_l, cur_len, pool_l, block_table)

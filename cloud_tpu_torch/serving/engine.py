@@ -13,13 +13,20 @@ slot by up to ``chunk_tokens`` tokens, reading the cache through the
 paged-attention kernel with a block table of all ``-1`` (every page reads
 the slot row: this slice has no prefix pool).
 
+``ServeConfig(kv_quant=True)`` keeps the grid int8 with per-(position,
+head) scales: inserts quantize the prompt's K/V, every decode step
+quantizes its own, and the decode attention runs the int8 kernel K8q.
+Weight-only int8 params (``models/quantization.quantize_params``) are
+served as they are.
+
 The host synchronises with the card once per insert (its first token) and
 once per chunk (the chunk's emissions), never per token.  Greedy outputs
 are token-identical to a direct ``generation.generate`` call per request.
 
-This slice ports the continuous scheduler with depth 1 and one-shot
-inserts.  Every other ``ServeConfig`` feature of the JAX engine raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+The port has the continuous scheduler with depth 1, one-shot inserts,
+``kv_quant`` and int8 weights.  Every other ``ServeConfig`` feature of the
+JAX engine raises ``NotImplementedError`` naming the ROADMAP.md item that
+brings it.
 """
 
 from __future__ import annotations
@@ -192,9 +199,6 @@ class ServeConfig:
                          "paged kernel with Tq > 1)", "4b")
         if self.draft is not None:
             raise _later("draft= (speculative decoding)", "4c")
-        if self.kv_quant:
-            raise _later("kv_quant (int8 KV cache and the int8 paged "
-                         "kernel)", "4d")
         if self.qos is not None:
             raise _later("qos= (priority scheduling)", "4e")
         if self.pipeline_depth != 1:
@@ -245,16 +249,23 @@ class _Slot:
     first_token_ts: Optional[float] = None
 
 
-def _check_full_precision(tree, path="params"):
+def _check_quantized_leaves(tree, path="params"):
+    """Every ``*_q`` leaf is int8 with its ``*_scale`` beside it: a
+    malformed tree fails here, not in the scheduler thread."""
     if isinstance(tree, dict):
         for key, value in tree.items():
-            if key.endswith("_q"):
-                raise _later(f"int8 weight {path}/{key} (weight-only "
-                             "quantization)", "4d")
-            _check_full_precision(value, f"{path}/{key}")
+            if key.endswith("_q") and isinstance(value, torch.Tensor):
+                scale = tree.get(f"{key[:-2]}_scale")
+                if value.dtype != torch.int8 or scale is None:
+                    raise ValueError(
+                        f"{path}/{key}: an int8 weight needs dtype int8 and "
+                        f"its {key[:-2]}_scale leaf (quantize_params makes "
+                        f"both); got {value.dtype}"
+                        f"{'' if scale is not None else ' and no scale'}")
+            _check_quantized_leaves(value, f"{path}/{key}")
     elif isinstance(tree, (list, tuple)):
         for i, value in enumerate(tree):
-            _check_full_precision(value, f"{path}/{i}")
+            _check_quantized_leaves(value, f"{path}/{i}")
 
 
 class ServingEngine:
@@ -266,7 +277,7 @@ class ServingEngine:
                  *, device=None, start: bool = True):
         self.device = resolve_device(device)
         transformer.check_supported(config)
-        _check_full_precision(params)
+        _check_quantized_leaves(params)
         self.config = config
         self.serve_config = cfg = serve_config or ServeConfig()
         self.params = generation.prepare_params(
@@ -302,7 +313,8 @@ class ServingEngine:
         # The grid is updated in place by every insert and chunk (the JAX
         # engine donates it through each dispatch to the same effect).
         self._grid_cache = generation.init_slot_cache(
-            config, cfg.num_slots, self._max_len, device=self.device)
+            config, cfg.num_slots, self._max_len, device=self.device,
+            kv_quant=cfg.kv_quant)
         self._slot_state = generation.init_slot_state(
             config, cfg.num_slots, sample=cfg.sample, device=self.device)
         #: Every page of every slot reads the slot row (no prefix pool in

@@ -10,7 +10,7 @@ import torch
 
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import bert, resnet, transformer
+from cloud_tpu_torch.models import bert, generation, resnet, transformer
 from cloud_tpu_torch.training import optimizers, train
 
 
@@ -33,6 +33,30 @@ def decode_setup(*, batch_size: int = 4, prompt_len: int = 128, params=None,
     lens = torch.full((batch_size,), prompt_len, dtype=torch.int32,
                       device=device)
     return cfg, params, prompts, lens
+
+
+def decode_tokens_per_sec(params, cfg, prompts, lens, *, max_new_tokens,
+                          warmup: int = 1, iters: int = 4,
+                          kv_quant: bool = False, device=None) -> float:
+    """Greedy KV-cache decode throughput of ``generation.generate``:
+    ``warmup`` calls, then ``iters`` timed calls, each ending in a host read
+    of its sequences (which waits for the device), as the JAX package
+    times it.  Returns generated tokens per second."""
+    device = resolve_device(device)
+
+    def run():
+        out = generation.generate(params, prompts, lens, cfg,
+                                  max_new_tokens=max_new_tokens,
+                                  kv_quant=kv_quant, device=device)
+        float(out["sequences"].float().sum())
+
+    for _ in range(warmup):
+        run()
+    start = time.perf_counter()
+    for _ in range(iters):
+        run()
+    elapsed = time.perf_counter() - start
+    return iters * prompts.shape[0] * max_new_tokens / elapsed
 
 
 def chain_then_read_throughput(step, state, batch, *, warmup=3, iters=20):

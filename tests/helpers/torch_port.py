@@ -14,6 +14,7 @@ import torch
 
 from cloud_tpu.models import bert as jax_bert
 from cloud_tpu.models import generation as jax_gen
+from cloud_tpu.models import quantization as jax_quant
 from cloud_tpu.models import resnet as jax_resnet
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
@@ -32,10 +33,13 @@ def port_config(jax_cfg, dtype=torch.float32):
         dtype=dtype, **{f: getattr(jax_cfg, f) for f in fields})
 
 
-def tiny_models(seed=0, num_layers=2):
-    """(jax_cfg, jax_params, port_cfg, port_params): TINY in f32."""
+def tiny_models(seed=0, num_layers=2, quantized=False):
+    """(jax_cfg, jax_params, port_cfg, port_params): TINY in f32; with
+    ``quantized``, the JAX ``quantize_params`` tree on both sides."""
     jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=num_layers)
     params = jax_tf.init(jax.random.PRNGKey(seed), jax_cfg)
+    if quantized:
+        params = jax_quant.quantize_params(params)
     cfg = port_config(jax_cfg)
     return jax_cfg, params, cfg, bridge.to_torch(params, cfg, device="cpu")
 
@@ -56,17 +60,44 @@ def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
     return float(min(gaps)), np.asarray(out["tokens"])
 
 
+def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
+                             max_new_tokens):
+    """The smallest top-2 logit gap at every greedy step of JAX
+    ``generate(..., kv_quant=True)``, read off its own decode path (the
+    int8 cache changes the logits, so a full forward pass cannot re-score
+    it): its ``_prefill`` and ``_decode_step``, step by step."""
+    from cloud_tpu.parallel.sharding import DEFAULT_RULES
+
+    cache, logits = jax_gen._prefill(
+        params, jnp.asarray(prompts), jnp.asarray(lens), jax_cfg,
+        prompts.shape[1] + max_new_tokens, DEFAULT_RULES, None,
+        kv_quant=True)
+    cur_len = jnp.asarray(lens)
+    gaps, tokens = [], []
+    for step in range(max_new_tokens):
+        top2 = np.sort(np.asarray(logits), axis=-1)[:, -2:]
+        gaps.append(top2[:, 1] - top2[:, 0])
+        token = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        tokens.append(np.asarray(token))
+        if step + 1 < max_new_tokens:
+            cache, logits = jax_gen._decode_step(
+                params, cache, token, cur_len, jax_cfg, DEFAULT_RULES, None)
+            cur_len = cur_len + 1
+    return float(np.min(gaps)), np.stack(tokens, axis=1)
+
+
 def tie_free_prompts(jax_cfg, params, *, batch, max_len, max_new_tokens,
-                     seed=0, tries=50, min_len=1):
-    """Seeded random prompts whose JAX greedy path is tie-free; returns
-    ``(prompts [B, max_len], lens [B], jax_tokens [B, N])``."""
+                     seed=0, tries=50, min_len=1, kv_quant=False):
+    """Seeded random prompts whose JAX greedy path (with an int8 KV cache
+    for ``kv_quant``) is tie-free; returns ``(prompts [B, max_len], lens
+    [B], jax_tokens [B, N])``."""
+    gap_fn = min_quantized_greedy_gap if kv_quant else min_greedy_gap
     for attempt in range(tries):
         rng = np.random.default_rng(seed + attempt)
         lens = rng.integers(min_len, max_len + 1, batch).astype(np.int32)
         prompts = rng.integers(1, jax_cfg.vocab_size,
                                (batch, max_len)).astype(np.int32)
-        gap, tokens = min_greedy_gap(jax_cfg, params, prompts, lens,
-                                     max_new_tokens)
+        gap, tokens = gap_fn(jax_cfg, params, prompts, lens, max_new_tokens)
         if gap > TIE_GAP:
             return prompts, lens, tokens
     raise AssertionError("no tie-free prompt set found")

@@ -89,6 +89,13 @@ def test_entry_points_refuse_missing_cuda():
                                     torch.tensor([4]), cfg,
                                     max_new_tokens=2),
         lambda: generation.init_slot_cache(cfg, 2, 8),
+        lambda: generation.init_slot_cache(cfg, 2, 8, kv_quant=True),
+        lambda: generation.beam_search(params, torch.ones((1, 4)),
+                                       torch.tensor([4]), cfg, num_beams=2,
+                                       max_new_tokens=2),
+        lambda: benchmarking.decode_tokens_per_sec(
+            params, cfg, torch.ones((1, 4)), torch.tensor([4]),
+            max_new_tokens=2),
         lambda: ServingEngine(params, cfg, start=False),
         lambda: benchmarking.decode_setup(),
         lambda: bridge.init_resnet(resnet.RESNET8_CIFAR, torch.Generator()),

@@ -2,7 +2,9 @@
 
 Weights come from the JAX package's own ``init`` and cross through
 ``cloud_tpu_torch.bridge``; inputs are numpy arrays from a seed.  f32
-throughout: layers at atol 1e-5, logits at atol 1e-4.
+throughout: layers at atol 1e-5, logits at atol 1e-4.  Weight-only int8
+trees (JAX ``quantize_params``) go through the same layers, heads and
+forward pass.
 """
 
 import jax
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from cloud_tpu.models import layers as jax_layers
+from cloud_tpu.models import quantization as jax_quant
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch.models import layers, transformer
@@ -66,10 +69,70 @@ def test_embedding_rmsnorm_rotary_match_jax():
 
 
 def test_int8_weights_raise():
-    with pytest.raises(NotImplementedError, match="quantization"):
-        layers.dense_apply({"kernel_q": torch.zeros((2, 2), dtype=torch.int8),
-                            "kernel_scale": torch.ones((1, 2))},
-                           torch.zeros((1, 2)))
+    """A quantized head with anything beyond ``kernel_q``/``kernel_scale``
+    raises, as in JAX, rather than dropping the extra leaf."""
+    cfg = transformer.TINY.scaled(dtype=torch.float32)
+    head = {"kernel_q": torch.zeros((cfg.dim, 8), dtype=torch.int8),
+            "kernel_scale": torch.ones((1, 8)), "bias": torch.zeros(8)}
+    with pytest.raises(NotImplementedError, match="extra params"):
+        transformer.lm_logits({"head": head, "embed": {}},
+                              torch.zeros((1, cfg.dim)), cfg)
+    with pytest.raises(NotImplementedError, match="bias-free"):
+        transformer.head_table({"head": head}, cfg)
+
+
+def _int8(tree):
+    q, scale = jax_quant.quantize_array(jnp.asarray(tree), axis=-2)
+    return {"kernel_q": np.array(q), "kernel_scale": np.array(scale)}
+
+
+def test_int8_dense_and_embedding_match_jax():
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 5, 12)).astype(np.float32)
+    dense = dict(_int8(rng.standard_normal((12, 7)).astype(np.float32)),
+                 bias=rng.standard_normal((7,)).astype(np.float32))
+    np.testing.assert_allclose(
+        layers.dense_apply({k: _t(v) for k, v in dense.items()}, _t(x)).numpy(),
+        np.asarray(jax_layers.dense_apply(dense, x)), atol=1e-5)
+    q, scale = jax_quant.quantize_array(
+        jnp.asarray(rng.standard_normal((50, 8)).astype(np.float32)), axis=-1)
+    table = {"table_q": np.array(q), "table_scale": np.array(scale)}
+    ids = rng.integers(0, 50, (3, 4)).astype(np.int32)
+    np.testing.assert_allclose(
+        layers.embedding_apply({k: _t(v) for k, v in table.items()},
+                               _t(ids)).numpy(),
+        np.asarray(jax_layers.embedding_apply(table, ids)), atol=1e-5)
+    np.testing.assert_allclose(
+        layers.materialize_matrix({k: _t(v) for k, v in dense.items()},
+                                  "kernel", torch.float32).numpy(),
+        np.asarray(jax_layers.materialize_matrix(dense, "kernel",
+                                                 jnp.float32)), atol=1e-6)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_int8_lm_logits_and_apply_match_jax(tied):
+    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, tied_embeddings=tied)
+    params = jax.tree_util.tree_map(np.asarray, jax_quant.quantize_params(
+        jax_tf.init(jax.random.PRNGKey(6), jax_cfg)))
+    cfg = _port_config(jax_cfg)
+    port = bridge.to_torch(params, cfg, device="cpu")
+    head = port["embed"] if tied else port["head"]
+    assert head["table_q" if tied else "kernel_q"].dtype == torch.int8
+    x = np.random.default_rng(7).standard_normal((2, 3, cfg.dim)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        transformer.lm_logits(port, _t(x), cfg).numpy(),
+        np.asarray(jax_tf.lm_logits(params, x, jax_cfg)), atol=1e-5)
+    table, layout = transformer.head_table(port, cfg)
+    want_table, want_layout = jax_tf.head_table(params, jax_cfg)
+    assert layout == want_layout
+    np.testing.assert_allclose(table.numpy(), np.asarray(want_table),
+                               atol=1e-6)
+    tokens = np.random.default_rng(8).integers(
+        0, jax_cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = jax_tf.apply(params, tokens, jax_cfg)
+    got, _ = transformer.apply(port, _t(tokens), cfg, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -5,7 +5,9 @@ these are held against the JAX package's functions on the same numpy
 inputs, in f32 at atol 1e-5: the flash forward against
 ``flash_attention(..., use_pallas=False)`` and ``_reference_with_lse``,
 the paged attention against the Pallas kernel in interpret mode and
-against its jnp reference.  The CUDA kernels themselves are held against
+against its jnp reference, with full-precision and with int8 (``kv_quant``)
+K/V, whose post-scale algebra must also equal attention over the
+explicitly dequantized K/V.  The CUDA kernels themselves are held against
 these plain versions on the card by ``chip_smoke.py``.
 """
 
@@ -16,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from cloud_tpu_torch.models import quantization
 from cloud_tpu_torch.ops import flash_attention as port_flash
 from cloud_tpu_torch.ops import paged_attention as port_paged
 
 jax_flash = importlib.import_module("cloud_tpu.ops.flash_attention")
 jax_paged = importlib.import_module("cloud_tpu.ops.paged_attention")
+jax_gen = importlib.import_module("cloud_tpu.models.generation")
 
 torch.set_num_threads(2)
 
@@ -162,7 +166,85 @@ def test_fit_page_matches_jax(s, want):
     assert port_paged._fit_page(s, 16) == 16
 
 
+def _quantized(tree):
+    """int8 K/V with per-(position, head) f32 scales, made by the JAX
+    package's own quantizer (numpy leaves)."""
+    out = {}
+    for name in ("k", "v"):
+        q, scale = jax_gen._quantize_kv(jnp.asarray(tree[name]))
+        out[name], out[f"{name}_scale"] = np.array(q), np.array(scale)
+    return out
+
+
+@pytest.mark.parametrize("tq", [1, 4])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_paged_int8_plain_matches_jax(tq, with_pool):
+    """K8q's plain version against the JAX quantized branch: the Pallas
+    kernel in interpret mode and its jnp reference."""
+    rng = np.random.default_rng(20 + 10 * tq + with_pool)
+    leaves, pool, table = _paged_case(rng)
+    leaves, pool = _quantized(leaves), _quantized(pool)
+    assert leaves["k"].dtype == np.int8
+    s = leaves["k"].shape[1]
+    q = rng.standard_normal((3, tq, 2, 16)).astype(np.float32)
+    cur_len = np.array([3, 21, s - tq + 1], np.int32)
+    port_fn = (port_paged.paged_decode_attention if tq == 1
+               else port_paged.paged_chunk_attention)
+    jax_fn = (jax_paged.paged_decode_attention if tq == 1
+              else jax_paged.paged_chunk_attention)
+    got = port_fn(
+        torch.from_numpy(q), _to_torch(leaves), torch.from_numpy(cur_len),
+        pool_l=_to_torch(pool) if with_pool else None,
+        block_table=torch.from_numpy(table) if with_pool else None,
+    )
+    for use_pallas in (True, False):
+        want = jax_fn(
+            jnp.asarray(q), {k: jnp.asarray(v) for k, v in leaves.items()},
+            jnp.asarray(cur_len),
+            pool_l=({k: jnp.asarray(v) for k, v in pool.items()}
+                    if with_pool else None),
+            block_table=jnp.asarray(table) if with_pool else None,
+            use_pallas=use_pallas,
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_paged_int8_post_scale_equals_dequantized(with_pool):
+    """Folding k_scale into the scores and v_scale into the weights is
+    attention over ``q * scale`` K/V, up to f32 rounding."""
+    rng = np.random.default_rng(9)
+    raw, raw_pool, table = _paged_case(rng)
+    cur_len = torch.tensor([16, 11, 40], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((3, 1, 2, 16)).astype(
+        np.float32))
+
+    def quant(tree):
+        out = {}
+        for name in ("k", "v"):
+            out[name], out[f"{name}_scale"] = quantization.quantize_unchecked(
+                torch.from_numpy(tree[name]), axis=-1)
+        return out
+
+    def dequant(tree):
+        return {n: tree[n].float() * tree[f"{n}_scale"] for n in ("k", "v")}
+
+    cache, pool = quant(raw), quant(raw_pool)
+    extra = dict(pool_l=pool, block_table=torch.from_numpy(table)
+                 ) if with_pool else {}
+    got = port_paged.paged_decode_attention(q, cache, cur_len, **extra)
+    if with_pool:
+        extra["pool_l"] = dequant(pool)
+    want = port_paged.paged_decode_attention(q, dequant(cache), cur_len,
+                                             **extra)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_wrappers_refuse_other_devices_and_int8():
+    """Other devices raise; so does a slot row and a pool of different
+    precision (int8 with scales against full precision, either way)."""
     q = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         port_flash.flash_attention(q, q, q)
@@ -175,6 +257,12 @@ def test_wrappers_refuse_other_devices_and_int8():
             "k_scale": torch.ones((1, 8, 2, 1)),
             "v": torch.zeros((1, 8, 2, 16), dtype=torch.int8),
             "v_scale": torch.ones((1, 8, 2, 1))}
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        port_paged.paged_decode_attention(torch.zeros((1, 1, 2, 16)), int8,
-                                          torch.ones(1, dtype=torch.int32))
+    full = {"k": torch.zeros((1, 8, 2, 16)), "v": torch.zeros((1, 8, 2, 16))}
+    table = torch.full((1, 1), -1, dtype=torch.int32)
+    for slot, pool in ((int8, full), (full, int8),
+                       ({"k": int8["k"], "v": int8["v"]}, None)):
+        with pytest.raises(TypeError, match="int8"):
+            port_paged.paged_decode_attention(
+                torch.zeros((1, 1, 2, 16)), slot,
+                torch.ones(1, dtype=torch.int32), pool_l=pool,
+                block_table=None if pool is None else table)

@@ -5,7 +5,8 @@ must be token-identical to the JAX package's greedy ``generate`` on the
 same weights (TINY, f32, tie-free prompts).  Around that: eos retirement
 with an eos id that cannot collide with an earlier greedy token, typed
 admission errors, a clean close, and ``NotImplementedError`` for every
-``ServeConfig`` feature outside this slice.
+``ServeConfig`` feature the port does not have yet.  ``kv_quant`` with
+int8 weights is held against the quantized JAX ``generate``.
 """
 
 import threading
@@ -183,7 +184,6 @@ def test_submit_validation(models):
     dict(layout="auto"),
     dict(pipeline_depth=2),
     dict(role="decode"),
-    dict(kv_quant=True),
 ], ids=lambda kw: "-".join(kw))
 def test_out_of_slice_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -191,16 +191,50 @@ def test_out_of_slice_options_raise(kw):
 
 
 def test_int8_params_and_moe_raise(models):
+    """An int8 leaf without its scale, or not int8, fails at construction
+    (not in the scheduler thread); MoE layers are not ported."""
     _, _, cfg, tparams = models
-    quantized = dict(tparams, head={"kernel_q": torch.zeros(
-        (cfg.dim, cfg.vocab_size), dtype=torch.int8),
-        "kernel_scale": torch.ones((1, cfg.vocab_size))})
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine(quantized, cfg, ServeConfig(), device="cpu",
-                      start=False)
+    no_scale = dict(tparams, head={"kernel_q": torch.zeros(
+        (cfg.dim, cfg.vocab_size), dtype=torch.int8)})
+    not_int8 = dict(tparams, head={"kernel_q": torch.zeros(
+        (cfg.dim, cfg.vocab_size)), "kernel_scale": torch.ones(
+            (1, cfg.vocab_size))})
+    for params in (no_scale, not_int8):
+        with pytest.raises(ValueError, match="int8"):
+            ServingEngine(params, cfg, ServeConfig(), device="cpu",
+                          start=False)
     with pytest.raises(NotImplementedError, match="MoE"):
         ServingEngine(tparams, cfg.scaled(moe=object()), ServeConfig(),
                       device="cpu", start=False)
+
+
+@pytest.fixture(scope="module")
+def qmodels():
+    return tiny_models(seed=4, num_layers=2, quantized=True)
+
+
+def test_kv_quant_int8_weights_token_identical_to_jax(qmodels):
+    """int8 weights served from an int8 grid: every request equals JAX's
+    quantized ``generate`` (its oracle, as in the JAX engine's tests: the
+    int8 cache rounds differently from the f32 one), under slot churn."""
+    jax_cfg, params, cfg, tparams = qmodels
+    toks, lens, jax_tokens = tie_free_prompts(
+        jax_cfg, params, batch=4, max_len=14, max_new_tokens=MAX_NEW,
+        seed=400, kv_quant=True)
+    budgets = [MAX_NEW, 3, 6, MAX_NEW]
+    with _engine(tparams, cfg, kv_quant=True) as engine:
+        assert engine._grid_cache["k"].dtype == torch.int8
+        assert "v_scale" in engine._grid_cache
+        futures = [engine.submit(toks[i, :lens[i]], max_new_tokens=b)
+                   for i, b in enumerate(budgets)]
+        results = [f.result(timeout=120) for f in futures]
+        stats = engine.stats()
+    for i, (res, budget) in enumerate(zip(results, budgets)):
+        np.testing.assert_array_equal(res.tokens, jax_tokens[i, :budget])
+    assert stats["completed"] == 4
+    want = jax_gen.generate(params, jnp.asarray(toks), jnp.asarray(lens),
+                            jax_cfg, max_new_tokens=MAX_NEW, kv_quant=True)
+    np.testing.assert_array_equal(np.asarray(want["tokens"]), jax_tokens)
 
 
 @pytest.mark.parametrize("kw", [
