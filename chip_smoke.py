@@ -8,27 +8,33 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
 
 1. prints the card's name and power limit, then builds every CUDA kernel
    library from ``cloud_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
-   parallel) and prints the build time;
+   parallel) and prints the build time, and counts the tensor-core
+   instructions (HMMA, HGMMA) of each flash kernel in ``cuobjdump -sass``:
+   every instantiation of the bf16 K5 and K7 must have some;
 2. holds each kernel against its plain PyTorch version on the card at its
    path's shapes (tolerances at ``check_close``: f32 within 1e-4 absolute;
    bf16 within 2e-2 + 2^-7 |ref|, one bf16 ulp relative plus the absolute
    term; float32 statistics and per-sample sums within 1e-4 of
    max(1, max |ref|); gradients of the flash backward, sums over up to
    1024 keys, with both limits scaled by s = max(1, max |ref|): f32
-   within 1e-4 s, bf16 within 2e-2 s + 2^-7 |ref|), and times the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (a yardstick only: the port never calls it): K5 and K8 at the serving
-   shapes (CUDA events around back-to-back launches), K8q (int8 K/V, with
+   within 1e-4 s, bf16 within 2e-2 s + 2^-7 |ref|; K5's f32 lse also
+   within 1e-4 max(1, |lse|) of an lse from f32 scores), and times the
+   kernel, the plain version and one PyTorch library call computing the
+   same function (a yardstick only: the port never calls it): K5 and K8
+   at the serving shape (CUDA events around back-to-back launches; K5
+   also in device time, torch.profiler's kernel rows), K8q (int8 K/V, with
    and without an int8 pool, Tq 1 and 4, q in bf16 and f32) timed at
    B=8 with S=576 and S=4096 beside K8 on bf16 K/V at the same lengths
    and SDPA on K/V dequantized beforehand, K1-K4 (GroupNorm)
    at every shape of a ResNet-50 CIFAR b256 step and at two 224 b128
    shapes (device time from torch.profiler's kernel rows: a GroupNorm
-   call is shorter than its host launch cost), K6/K7 (flash backward) in
-   32 cases per type at both training shapes plus a ragged T, then K5,
-   K6 and K7 timed at the LM (B=4, T=1024, causal) and BERT (B=32,
-   T=128) shapes against ``scaled_dot_product_attention``'s forward and
-   backward;
+   call is shorter than its host launch cost), K5 and K6/K7 (flash
+   backward, on K5's out and lse) in 20 cases per type at both training
+   shapes plus ragged T (200, 1000), and in bf16 at every head dim the
+   kernels take, then K5, K6 and K7 timed at the LM (B=4, T=1024,
+   causal) and BERT (B=32, T=128) shapes against
+   ``scaled_dot_product_attention``'s forward and backward, in event and
+   device time;
 3. serves 16 staggered requests of mixed lengths through
    ``ServingEngine`` with CloudLM SMALL in bf16 (random weights from a
    seed), checks that every request resolves with valid tokens and that
@@ -55,11 +61,13 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    steps with the plain CE and 3 + 5 with ``fused_ce`` (steps/s and peak
    memory of each arm), checking finite metrics and exactly 24 K5, 12 K6
    and 12 K7 launches per step; splits one plain step's device time (K5,
-   K6, K7, matrix products, idle); holds f32 gradients of SMALL at 2
+   K6, K7, matrix products, idle; it fails if the profiler's rows of K5,
+   K6 or K7 do not hold the step's launches); holds f32 gradients of SMALL at 2
    layers (b2 x T256) on the card against the CPU, and one AdamW update
    on identical gradients;
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
-   exactly 12 K5, 12 K6 and 12 K7 launches per step;
+   exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
+   device time as phase 6 does;
 8. prints one JSON line describing every kernel, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -71,6 +79,7 @@ exits nonzero before doing any work.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -120,15 +129,46 @@ def device_ms(fn, iters: int = 10) -> float:
     launch gaps that an event pair around back-to-back small launches
     would include."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r[0] for r in _kernel_rows(prof)) / 1e3 / iters
+
+    _, rows = profiled(run)
+    return sum(r[0] for r in rows) / 1e3 / iters
+
+
+def profiled(run, *, cpu=False, record_shapes=False):
+    """``run()`` under torch.profiler (CUDA activity, and CPU's if
+    ``cpu``); returns ``(prof, kernel rows)``.  Now and then a session
+    records no kernel at all: such a session is run again, three sessions
+    in all, before :func:`_kernel_rows` raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    for attempt in range(3):
+        with profile(activities=activities,
+                     record_shapes=record_shapes) as prof:
+            run()
+        try:
+            return prof, _kernel_rows(prof)
+        except AssertionError:
+            if attempt == 2:
+                raise
+
+
+def event_and_device_ms(fn, iters: int = 20):
+    """(event ms, device ms) of one call of ``fn``.  The first is
+    :func:`time_ms`, CUDA events around back-to-back calls, the measure of
+    every kernel's ``ms``: where a call's host cost exceeds its kernels'
+    time it reads the host.  The second is :func:`device_ms`, the
+    kernels' own time."""
+    return time_ms(fn, iters=iters), device_ms(fn, iters=min(iters, 10))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -173,6 +213,24 @@ def check_close(what: str, out, ref, dtype_name: str, *, sums=False,
     return err
 
 
+def check_lse_f32(what: str, lse, ref) -> float:
+    """Raise unless K5's f32 ``lse`` is within 1e-4 max(1, |ref|) of
+    ``ref`` elementwise, where ``ref`` comes from f32 scores; return the
+    largest absolute difference.  The kernel's scores are f32 sums of
+    exact products, so its lse meets an f32 limit whatever the inputs'
+    type (K6 and K7 consume it)."""
+    import torch
+
+    diff = (lse - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = bool((diff <= TOL_F32 * ref.abs().clamp(min=1.0)).all()
+              and torch.isfinite(lse).all())
+    if not ok:
+        raise AssertionError(f"{what}: max_abs_err {err:.3e} outside "
+                             f"1e-4 max(1, |lse|)")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -181,7 +239,6 @@ def check_close(what: str, out, ref, dtype_name: str, *, sums=False,
 def check_flash(device, card):
     """K5 at SMALL's H=12, D=64 for every prompt bucket and a ragged T."""
     import torch
-    import torch.nn.functional as F
 
     from cloud_tpu_torch.ops import flash_attention as fa
 
@@ -210,31 +267,41 @@ def check_flash(device, card):
                 worst[name] = max(worst[name], err)
                 if name == "bfloat16" and t == 128 and masked:
                     report = (q, k, v, mask)
-    # Timing at the insert shape of the middle bucket (bf16, masked).
-    q, k, v, mask = report
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "cloud_tpu_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "cloud_tpu/ops/flash_attention.py:109",
+            "max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"],
+            **time_flash_serving(fa, *report, card)}
+
+
+def time_flash_serving(fa, q, k, v, mask, card):
+    """K5 at the insert shape of a prompt bucket (bf16, causal, masked):
+    the kernel, its plain version and SDPA, each in event and device time
+    (:func:`event_and_device_ms`), with the bound."""
+    import torch
+    import torch.nn.functional as F
+
     t = q.shape[1]
-    kernel = time_ms(lambda: fa._flash_kernel(q, k, v, causal=True,
-                                              mask=mask))
-    plain = time_ms(lambda: fa._reference_with_lse(q, k, v, causal=True,
-                                                   mask=mask))
-    allowed = (torch.ones((t, t), dtype=torch.bool, device=device).tril()
+    kernel, kernel_dev = event_and_device_ms(
+        lambda: fa._flash_kernel(q, k, v, causal=True, mask=mask))
+    plain, plain_dev = event_and_device_ms(
+        lambda: fa._reference_with_lse(q, k, v, causal=True, mask=mask))
+    allowed = (torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
                & (mask[:, None, None, :] != 0))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=allowed))
+    library, library_dev = event_and_device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed))
     elems = q.numel()
     nbytes = 4 * elems * 2 + mask.numel() * 4 + HEADS * t * 4
     flops = 4 * HEADS * HEAD_DIM * t * (t + 1) / 2  # causal half, QK and PV
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     print(f"  K5 flash_fwd bf16 B=1 T={t} H={HEADS} D={HEAD_DIM}: kernel "
-          f"{kernel:.4f} ms, plain {plain:.4f} ms, sdpa {library:.4f} ms, "
+          f"{kernel:.4f} ms (device {kernel_dev:.4f}), plain {plain:.4f} "
+          f"({plain_dev:.4f}), sdpa {library:.4f} ({library_dev:.4f}), "
           f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "cloud_tpu_torch/ops/csrc/flash_fwd.cu",
-            "replaces": "cloud_tpu/ops/flash_attention.py:109",
-            "max_abs_err": worst["bfloat16"], "max_abs_err_f32": worst["float32"],
-            "ms": kernel, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library,
+    return {"ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "library_device_ms": library_dev,
             "shape": f"B=1 T={t} H={HEADS} D={HEAD_DIM} bf16 masked"}
 
 
@@ -695,11 +762,11 @@ LM_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
 BERT_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
 
 
-def _attn_inputs(b, t, dtype, gen, *, mask_kind):
+def _attn_inputs(b, t, dtype, gen, *, mask_kind, h=HEADS, d=HEAD_DIM):
     import torch
 
     device = gen.device
-    q, k, v, do = (torch.randn((b, t, HEADS, HEAD_DIM), generator=gen,
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen,
                                device=device).to(dtype) for _ in range(4))
     mask = None
     if mask_kind == "tail":  # right padding, every sample keeps a key
@@ -714,25 +781,40 @@ def _attn_inputs(b, t, dtype, gen, *, mask_kind):
     return q, k, v, do, mask
 
 
-def _bwd_case(fa, b, t, causal, dtype, gen, *, mask_kind, glse):
-    """K5 forward, then K6/K7 and the plain version on its out and lse;
-    returns {kernel: max_abs_err}."""
+def _bwd_case(fa, b, t, causal, dtype, gen, *, mask_kind, glse,
+              h=HEADS, d=HEAD_DIM):
+    """K5 forward against ``_reference_with_lse`` (out and lse; lse also
+    against f32 scores), then K6/K7 and the plain version on K5's out and
+    lse; returns {kernel: max_abs_err}, and the lse's error against f32
+    scores under "flash_fwd lse"."""
     import torch
 
     name = str(dtype).split(".")[1]
-    q, k, v, do, mask = _attn_inputs(b, t, dtype, gen, mask_kind=mask_kind)
+    q, k, v, do, mask = _attn_inputs(b, t, dtype, gen, mask_kind=mask_kind,
+                                     h=h, d=d)
     out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=mask)
-    g_lse = (torch.randn((b, HEADS, t), generator=gen, device=gen.device)
+    ref_out, ref_lse = fa._reference_with_lse(q, k, v, causal=causal,
+                                              mask=mask)
+    # The plain version rounds bf16 scores to bf16, which bounds the lse
+    # check above at bf16's limit; these scores are f32.
+    _, lse32 = fa._reference_with_lse(q.float(), k.float(), v.float(),
+                                      causal=causal, mask=mask)
+    g_lse = (torch.randn((b, h, t), generator=gen, device=gen.device)
              if glse else None)
     got = fa._bwd_kernels(q, k, v, mask, do, out, lse, causal=causal,
                           g_lse=g_lse)
     ref = fa._bwd_reference(q, k, v, mask, do, out, lse, causal=causal,
                             g_lse=g_lse)
     torch.cuda.synchronize()
-    what = (f"{name} B={b} T={t} causal={causal} mask={mask_kind} "
-            f"g_lse={glse}")
-    errs = {"flash_bwd_dq": check_close(f"K6 dq {what}", got[0], ref[0],
-                                        name, scaled=True)}
+    what = (f"{name} B={b} T={t} H={h} D={d} causal={causal} "
+            f"mask={mask_kind} g_lse={glse}")
+    errs = {"flash_fwd": max(
+        check_close(f"K5 out {what}", out, ref_out, name),
+        check_close(f"K5 lse {what}", lse, ref_lse, name))}
+    errs["flash_fwd lse"] = check_lse_f32(f"K5 lse (f32 scores) {what}", lse,
+                                          lse32)
+    errs["flash_bwd_dq"] = check_close(f"K6 dq {what}", got[0], ref[0],
+                                       name, scaled=True)
     errs["flash_bwd_dkv"] = max(
         check_close(f"K7 dk {what}", got[1], ref[1], name, scaled=True),
         check_close(f"K7 dv {what}", got[2], ref[2], name, scaled=True))
@@ -759,9 +841,10 @@ def _attn_bound(kernel, b, t, causal):
 
 def _time_attention(fa, path, card, gen):
     """Kernel, plain and library times of K5, K6 and K7 (bf16, no mask) at
-    one training path's shape, with their bounds.  The library yardstick
-    is ``F.scaled_dot_product_attention``: its forward for K5, its
-    backward (forward plus backward, less the forward) for K6 and K7."""
+    one training path's shape, with their bounds, each in event and device
+    time (:func:`event_and_device_ms`).  The library yardstick is
+    ``F.scaled_dot_product_attention``: its forward for K5, its backward
+    (forward plus backward, less the forward) for K6 and K7."""
     import torch
     import torch.nn.functional as F
 
@@ -770,22 +853,18 @@ def _time_attention(fa, path, card, gen):
     with torch.no_grad():
         out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=None)
         row = fa._row_term(do, out, None)
-        times = {
-            "flash_fwd": (
-                time_ms(lambda: fa._flash_kernel(q, k, v, causal=causal,
-                                                 mask=None)),
-                time_ms(lambda: fa._reference_with_lse(
-                    q, k, v, causal=causal, mask=None), iters=5)),
-            "flash_bwd_dq": (
-                time_ms(lambda: fa._bwd_launch(
-                    "flash_bwd_dq", q, k, v, None, do, lse, row,
-                    causal=causal)), None),
-            "flash_bwd_dkv": (
-                time_ms(lambda: fa._bwd_launch(
-                    "flash_bwd_dkv", q, k, v, None, do, lse, row,
-                    causal=causal)), None),
+        calls = {
+            "flash_fwd": lambda: fa._flash_kernel(q, k, v, causal=causal,
+                                                  mask=None),
+            "flash_bwd_dq": lambda: fa._bwd_launch(
+                "flash_bwd_dq", q, k, v, None, do, lse, row, causal=causal),
+            "flash_bwd_dkv": lambda: fa._bwd_launch(
+                "flash_bwd_dkv", q, k, v, None, do, lse, row, causal=causal),
         }
-        plain_bwd = time_ms(lambda: fa._bwd_reference(
+        times = {name: event_and_device_ms(fn) for name, fn in calls.items()}
+        plain_fwd = event_and_device_ms(lambda: fa._reference_with_lse(
+            q, k, v, causal=causal, mask=None), iters=5)
+        plain_bwd = event_and_device_ms(lambda: fa._bwd_reference(
             q, k, v, None, do, out, lse, causal=causal), iters=5)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
@@ -794,57 +873,75 @@ def _time_attention(fa, path, card, gen):
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
-    sdpa_fwd = time_ms(sdpa)
-    sdpa_both = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
-                                                    dot))
+    sdpa_fwd = event_and_device_ms(sdpa)
+    sdpa_both = event_and_device_ms(
+        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+    sdpa_bwd = tuple(x - y for x, y in zip(sdpa_both, sdpa_fwd))
     entries = {}
-    for name, (kernel, plain) in times.items():
+    for name, (kernel, kernel_dev) in times.items():
         fwd = name == "flash_fwd"
+        plain, plain_dev = plain_fwd if fwd else plain_bwd
+        library, library_dev = sdpa_fwd if fwd else sdpa_bwd
         b_ms, b_by = _attn_bound(name, b, t, causal)
         entries[name] = {
             "shape": f"B={b} T={t} H={HEADS} D={HEAD_DIM} bf16 "
                      f"{'causal' if causal else 'non-causal'}, no mask",
-            "ms": kernel, "plain_ms": plain if fwd else plain_bwd,
-            "library_ms": sdpa_fwd if fwd else sdpa_both - sdpa_fwd,
+            "ms": kernel, "device_ms": kernel_dev,
+            "plain_ms": plain, "plain_device_ms": plain_dev,
+            "library_ms": library, "library_device_ms": library_dev,
             "bound_ms": b_ms, "bound_by": b_by}
         print(f"  {name} {path} {entries[name]['shape']}: kernel "
-              f"{kernel:.4f} ms, plain {entries[name]['plain_ms']:.4f} ms"
+              f"{kernel:.4f} ms (device {kernel_dev:.4f}), plain "
+              f"{plain:.4f} ({plain_dev:.4f})"
               f"{'' if fwd else ' (dq, dk, dv together)'}, sdpa "
-              f"{'forward' if fwd else 'backward'} "
-              f"{entries[name]['library_ms']:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}) [{card}]")
+              f"{'forward' if fwd else 'backward'} {library:.4f} "
+              f"({library_dev:.4f}), bound {b_ms:.5f} ms ({b_by}) [{card}]")
     return entries
 
 
 def check_flash_bwd(device, card):
-    """K6 and K7 against ``_bwd_reference`` at both training shapes (LM
+    """K5 against ``_reference_with_lse``, and K6 and K7 against
+    ``_bwd_reference`` on K5's out and lse, at both training shapes (LM
     B=4 T=1024, BERT B=32 T=128), causal and not x no mask or a padded
-    tail x g_lse None or random, f32 and bf16; a ragged T (200) causal
-    with a mask, and non-causal with a sample whose keys are all masked.
-    Then times K5, K6 and K7 at both shapes."""
+    tail x g_lse None or random, f32 and bf16; ragged T (200, 1000)
+    causal with a mask, and non-causal with a sample whose keys are all
+    masked; in bf16 also at every head dim the kernels take (H=4, T=200
+    causal with a mask, T=130 non-causal).  Then times K5, K6 and K7 at
+    both shapes.  Returns the K6/K7 entries, K5's timings at both shapes
+    and K5's worst errors here."""
     import torch
 
     from cloud_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(6)
-    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in FLASH_BWD_KERNELS}
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0}
+             for k in TRAIN_ATTN_KERNELS + ("flash_fwd lse",)}
     cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        runs = [(b, t, causal, mask_kind, glse)
+        runs = [(b, t, causal, mask_kind, glse, HEADS, HEAD_DIM)
                 for b, t, _ in TRAIN_SHAPES.values()
                 for causal in (True, False)
                 for mask_kind in (None, "tail")
                 for glse in (False, True)]
-        runs += [(2, 200, True, "tail", True), (3, 200, False, "empty", True)]
-        for b, t, causal, mask_kind, glse in runs:
+        runs += [(2, 200, True, "tail", True, HEADS, HEAD_DIM),
+                 (3, 200, False, "empty", True, HEADS, HEAD_DIM),
+                 (2, 1000, True, "tail", True, HEADS, HEAD_DIM),
+                 (2, 1000, False, None, False, HEADS, HEAD_DIM)]
+        if dtype == torch.bfloat16:
+            runs += [case for d in fa.KERNEL_HEAD_DIMS
+                     for case in ((2, 200, True, "tail", True, 4, d),
+                                  (2, 130, False, None, False, 4, d))]
+        for b, t, causal, mask_kind, glse, h, d in runs:
             errs = _bwd_case(fa, b, t, causal, dtype, gen,
-                             mask_kind=mask_kind, glse=glse)
+                             mask_kind=mask_kind, glse=glse, h=h, d=d)
             cases += 1
             for k_, e in errs.items():
                 worst[k_][dname] = max(worst[k_][dname], e)
-        print(f"  K6/K7 flash_bwd {dname}: {len(runs)} cases ok; max_abs_err"
-              f" dq {worst['flash_bwd_dq'][dname]:.3e}, dk/dv "
+        print(f"  K5/K6/K7 {dname}: {len(runs)} cases ok; max_abs_err out/lse"
+              f" {worst['flash_fwd'][dname]:.3e} (lse against f32 scores "
+              f"{worst['flash_fwd lse'][dname]:.3e}), dq "
+              f"{worst['flash_bwd_dq'][dname]:.3e}, dk/dv "
               f"{worst['flash_bwd_dkv'][dname]:.3e} [{card}]")
     timed = {path: _time_attention(fa, path, card, gen)
              for path in TRAIN_SHAPES}
@@ -857,11 +954,11 @@ def check_flash_bwd(device, card):
             "replaces": FLASH_BWD_REPLACES[name],
             "max_abs_err": worst[name]["bfloat16"],
             "max_abs_err_f32": worst[name]["float32"],
-            **{k: lm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "shape")},
+            **lm,
             "at_bert": timed["BERT"][name]})
-    print(f"  flash_bwd: {cases} cases checked")
-    return entries, {path: timed[path]["flash_fwd"] for path in TRAIN_SHAPES}
+    print(f"  flash: {cases} cases checked")
+    return (entries, {path: timed[path]["flash_fwd"] for path in TRAIN_SHAPES},
+            worst["flash_fwd"])
 
 
 # ---------------------------------------------------------------------------
@@ -1008,23 +1105,27 @@ def _is_gn(key: str) -> bool:
 
 def _profiled_step(step, state, batch, *, record_shapes=False):
     """Two warm-up steps, the wall time of one unprofiled step (to the
-    host read of its loss), then one step under torch.profiler (CPU and
-    CUDA activity).  Returns ``(wall_ms, prof)``."""
+    host read of its loss) and the host's time to enqueue it (the step
+    itself never waits for the device), then one step under torch.profiler
+    (CPU and CUDA activity).  Returns ``(wall_ms, enqueue_ms, prof)``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         state, metrics = step(state, batch)
     torch.cuda.synchronize()
     start = time.perf_counter()
     state, metrics = step(state, batch)
+    enqueue_ms = (time.perf_counter() - start) * 1e3
     float(metrics["loss"])
     wall_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes) as prof:
+
+    def run():
+        nonlocal state
         state, metrics = step(state, batch)
         float(metrics["loss"])
-    return wall_ms, prof
+
+    prof, _ = profiled(run, cpu=True, record_shapes=record_shapes)
+    return wall_ms, enqueue_ms, prof
 
 
 def profile_train_step(card, step, state, batch):
@@ -1042,14 +1143,15 @@ def profile_train_step(card, step, state, batch):
     batch_size, hw = batch["image"].shape[:2]
     weights = {(k.shape[3], k.shape[2], k.shape[0], k.shape[1])
                for k in leaves(state.params) if k.dim() == 4}
-    wall_ms, prof = _profiled_step(step, state, batch, record_shapes=True)
+    wall_ms, enqueue_ms, prof = _profiled_step(step, state, batch,
+                                               record_shapes=True)
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
     gn = sum(r[0] for r in rows if _is_gn(r[2])) / 1e3
     conv = sum(r[0] for r in rows if not _is_gn(r[2]) and any(
         k in r[2].lower() for k in CONV_KEYS)) / 1e3
     print(f"  ResNet-50 {hw}x{hw} b{batch_size} step: wall {wall_ms:.3f} ms,"
-          f" device "
+          f" host enqueue {enqueue_ms:.3f} ms, device "
           f"kernels {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
           f"GroupNorm {gn:.3f} ms ({gn / busy:.3f} of device time), "
           f"convolution {conv:.3f} ms ({conv / busy:.3f}) [{card}]")
@@ -1072,7 +1174,8 @@ def profile_train_step(card, step, state, batch):
             copies.append((evt.key, shape, evt.count))
     print(f"  activation copies in the step: {sum(c[2] for c in copies)}"
           + "".join(f"\n    {k} {s} x{n}" for k, s, n in copies))
-    return {"step_wall_ms": wall_ms, "step_device_busy_ms": busy,
+    return {"step_wall_ms": wall_ms, "step_enqueue_ms": enqueue_ms,
+            "step_device_busy_ms": busy,
             "step_idle_share": 1 - busy / wall_ms,
             "gn_ms": gn, "gn_share": gn / busy,
             "conv_ms": conv, "conv_share": conv / busy,
@@ -1103,16 +1206,16 @@ def run_lm_training(device, card, *, fused_ce: bool, warmup: int,
 
 def run_bert_training(device, card, *, warmup: int, iters: int):
     """BERT-base at b32 x T128, bf16 compute on f32 master weights,
-    ``adamw(2e-5)`` with f32 moments, no dropout, no attention mask."""
+    ``adamw(2e-5)`` with f32 moments, no dropout, no attention mask.
+    Returns the result and ``(step, state, batch)``."""
     from cloud_tpu_torch.utils import benchmarking
 
-    result, _ = run_steps(
+    return run_steps(
         card, f"BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16",
         lambda: benchmarking.bert_train_setup(
             batch_size=BERT_BATCH, seq_len=BERT_SEQ, device=device),
         BERT_PER_STEP, BERT_BATCH * BERT_SEQ, "tokens", warmup=warmup,
         iters=iters)
-    return result
 
 
 def check_lm_grad_parity(device, card):
@@ -1189,31 +1292,47 @@ def check_lm_grad_parity(device, card):
 #: Substrings of the cuBLAS/cuBLASLt/CUTLASS kernel names matrix products
 #: run as (``nvjet`` is cuBLASLt's Hopper GEMM family).
 MATMUL_KEYS = ("gemm", "cutlass", "xmma", "matmul", "nvjet", "cublas")
+#: Substring of each attention kernel's symbol in the profiler's rows
+#: (both instantiations: ``flash_fwd_kernel`` and ``flash_fwd_kernel_tc``).
 ATTN_ROWS = {"flash_fwd": "flash_fwd_kernel",
              "flash_bwd_dq": "flash_bwd_dq_kernel",
              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
 
-def profile_lm_step(card, step, state, batch):
-    """Where one LM training step's device time goes: torch.profiler's
-    kernel rows split into K5, K6, K7, matrix products and the rest, and
-    the idle share against the wall time of an unprofiled step."""
-    wall_ms, prof = _profiled_step(step, state, batch)
+def profile_attn_step(card, what, per_step, step, state, batch):
+    """Where one transformer training step's device time goes:
+    torch.profiler's kernel rows split into K5, K6, K7, matrix products
+    and the rest, and the idle share against the wall time of an
+    unprofiled step.  Fails if the rows of K5, K6 or K7 do not hold
+    exactly the step's ``per_step`` launches with nonzero time: a kernel
+    whose symbol no longer matches ``ATTN_ROWS`` would move its time into
+    "rest" unseen."""
+    wall_ms, enqueue_ms, prof = _profiled_step(step, state, batch)
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
-    split = {name: sum(r[0] for r in rows if key in r[2]) / 1e3
-             for name, key in ATTN_ROWS.items()}
+    split = {}
+    for name, key in ATTN_ROWS.items():
+        mine = [r for r in rows if key in r[2]]
+        split[name] = sum(r[0] for r in mine) / 1e3
+        seen = sum(r[1] for r in mine)
+        if seen != per_step[name] or not split[name] > 0:
+            raise AssertionError(
+                f"{what}: profiler rows matching {key!r} hold {seen} "
+                f"launches and {split[name]} ms; the step launched "
+                f"{per_step[name]}")
     split["matmul"] = sum(
         r[0] for r in rows if not any(k in r[2] for k in ATTN_ROWS.values())
         and any(k in r[2].lower() for k in MATMUL_KEYS)) / 1e3
     split["rest"] = busy - sum(split.values())
-    print(f"  LM step b{LM_BATCH}xT{LM_SEQ}: wall {wall_ms:.3f} ms, device "
+    print(f"  {what} step: wall {wall_ms:.3f} ms, host enqueue "
+          f"{enqueue_ms:.3f} ms, device "
           f"kernels {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
           + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
                       for k, v in split.items()) + f" [{card}]")
     for dev_us, count, key in rows[:15]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
-    return {"step_wall_ms": wall_ms, "step_device_busy_ms": busy,
+    return {"step_wall_ms": wall_ms, "step_enqueue_ms": enqueue_ms,
+            "step_device_busy_ms": busy,
             "step_idle_share": 1 - busy / wall_ms,
             "device_ms": split,
             "device_share": {k: v / busy for k, v in split.items()}}
@@ -1315,7 +1434,6 @@ def profile_decode_chunk(device, card):
     engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
     Fails if the profiler sees no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cloud_tpu_torch.models import generation
     from cloud_tpu_torch.utils.benchmarking import decode_setup
@@ -1345,11 +1463,8 @@ def profile_decode_chunk(device, card):
     start = time.perf_counter()  # wall time without the profiler's cost
     chunk().cpu()
     wall_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        chunk().cpu()
     # Kernel rows only: an operator row carries its kernels' time again.
-    rows = _kernel_rows(prof)
+    prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"  decode chunk ({CHUNK} steps, {NUM_SLOTS} active slots): wall "
           f"{wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, idle share "
@@ -1590,6 +1705,37 @@ def run_beam_search(device, card):
     return {"seconds": wall, "scores": scores.tolist(), "launches": launches}
 
 
+#: Kernels whose bf16 instantiations must run on the tensor cores.
+TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_kernel_tc",
+                       "flash_bwd": "flash_bwd_dkv_kernel_tc"}
+
+
+def tensor_core_sass(dispatch):
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
+    flash libraries, read from ``cuobjdump -sass``; raises unless every
+    instantiation of each ``TENSOR_CORE_KERNELS`` symbol has some.
+    Returns {symbol: count} for the kernels of those libraries."""
+    tool = os.path.join(os.path.dirname(dispatch.nvcc_path()), "cuobjdump")
+    counts = {}
+    for lib, symbol in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", dispatch.library_path(lib)],
+                              capture_output=True, text=True, check=True)
+        func = None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :")[1].strip()
+                counts[func] = 0
+            elif func is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[func] += 1
+        mine = {f: n for f, n in counts.items() if symbol in f}
+        if not mine or not all(mine.values()):
+            raise AssertionError(f"{lib}: {symbol} has no tensor-core "
+                                 f"instructions in its SASS: {mine}")
+    print("  SASS tensor-core instructions per kernel: " + ", ".join(
+        f"{f} {n}" for f, n in sorted(counts.items())))
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1629,6 +1775,10 @@ def main() -> int:
         print(f"  ptxas {name}: {len(regs)} instantiations, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
               f"{spills} with spills")
+    try:
+        sass = tensor_core_sass(dispatch)
+    except Exception as exc:  # noqa: BLE001
+        return fail(f"SASS check: {exc}")
 
     # f32 convolutions and matmuls in full f32 (the parity checks need it).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1641,8 +1791,9 @@ def main() -> int:
          True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
-        ("phase 2c: K6/K7 (flash backward) against their plain version; "
-         "K5, K6, K7 timed at the training shapes", "flash_bwd check",
+        ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
+         "versions; K5, K6, K7 timed at the training shapes",
+         "flash_bwd check",
          lambda: check_flash_bwd(device, card), False),
         ("phase 3: ServingEngine, CloudLM SMALL, 16 requests", "engine",
          lambda: run_engine(device, card), False),
@@ -1694,7 +1845,8 @@ def main() -> int:
         lm, lm_run = run_lm_training(device, card, fused_ce=False, warmup=3,
                                      iters=10)
         print("phase 6c: one LM step (plain CE) under torch.profiler")
-        lm.update(profile_lm_step(card, *lm_run))
+        lm.update(profile_attn_step(card, f"LM b{LM_BATCH}xT{LM_SEQ}",
+                                    LM_PER_STEP, *lm_run))
         del lm_run
         torch.cuda.empty_cache()
         print("phase 6 (A/B): the same with fused_ce, 3 + 5 steps")
@@ -1708,16 +1860,24 @@ def main() -> int:
         print("phase 6b: f32 gradients of SMALL (2 layers), card against CPU")
         lm_parity = check_lm_grad_parity(device, card)
         print(f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
-              f"3 + 10 steps")
-        bert_run = run_bert_training(device, card, warmup=3, iters=10)
+              f"3 + 10 steps, then one step under torch.profiler")
+        bert_run, bert_steps = run_bert_training(device, card, warmup=3,
+                                                 iters=10)
+        bert_run.update(profile_attn_step(
+            card, f"BERT b{BERT_BATCH}xT{BERT_SEQ}", BERT_PER_STEP,
+            *bert_steps))
+        del bert_steps
     except Exception as exc:  # noqa: BLE001
         return fail(f"transformer training: {exc!r}")
 
     engine = results["engine"]
     engine.update(results["decode breakdown"])
-    flash_bwd, k5_training = results["flash_bwd check"]
+    flash_bwd, k5_training, k5_worst = results["flash_bwd check"]
     kernels = (results["kernel check"] + flash_bwd
                + results["group_norm check"])
+    k5 = next(e for e in kernels if e["name"] == "flash_fwd")
+    k5["max_abs_err"] = max(k5["max_abs_err"], k5_worst["bfloat16"])
+    k5["max_abs_err_f32"] = max(k5["max_abs_err_f32"], k5_worst["float32"])
     engine_q = results["quantized engine"]
     for entry in kernels:
         phase = (engine_q if entry["name"] == "paged_attention_int8"
@@ -1750,7 +1910,8 @@ def main() -> int:
         "flash_fwd_at_training": k5_training,
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},
         "lm_f32_grad_parity": lm_parity,
-        "bert_base_b32xT128": bert_run}))
+        "bert_base_b32xT128": bert_run,
+        "tensor_core_sass": sass}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

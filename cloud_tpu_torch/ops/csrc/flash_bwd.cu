@@ -17,7 +17,8 @@
 // Translation.  The TPU carried dq across the sequential key axis of its
 // grid, and dk/dv across the query axis, in VMEM scratch.  Here a K6 block
 // owns a (b, h, 64-row query tile) and loops over 32-key tiles; a K7 block
-// owns a (b, h, 64-key tile) and loops over 32-row query tiles.  Each block
+// owns a (b, h, 64-key tile) and loops over query tiles (32 rows in f32;
+// 64, or 32 at D=128, in bf16).  Each block
 // writes only its own rows, so there are no atomics and the result does not
 // depend on scheduling.  The causal tile skip carries over: K6 stops after
 // the tile that holds its last row's diagonal, K7 starts at the query tile
@@ -25,35 +26,66 @@
 // Ragged T is masked in the kernel: keys past T are no keys (p = 0), query
 // rows past T contribute nothing and are not written.
 //
-// Four threads share a row; thread g holds dims 4 (g + 4 j) .. +3 of its row
-// (q and dO for K6, k and v for K7) and of its accumulators in registers,
-// so a dot product is a partial sum over those dims plus two shuffles, and
-// the staged tile is read as float4 broadcast across the warp's rows.
+// K6 (both types), and K7 in float32 (flash_bwd_dkv_kernel, an f32-only
+// kernel): four threads share a row; thread g
+// holds dims 4 (g + 4 j) .. +3 of its row (q and dO for K6, k and v for
+// K7) and of its accumulators in registers, so a dot product is a partial
+// sum over those dims plus two shuffles, and the staged tile is read as
+// float4 broadcast across the warp's rows.  Products on the CUDA cores in
+// f32 (TF32 tensor cores would not hold the f32 parity checks' 1e-4).
+//
+// K7 in bfloat16 (every main path) runs flash_bwd_dkv_kernel_tc on the
+// tensor cores.  Route: mma.sync m16n8k16 with ldmatrix, as K5 (see
+// flash_fwd.cu for why not wgmma); helpers in mma_bf16.cuh.
+//   - 4 warps, a block owns a (b, h, 64-key tile), each warp 16 keys.  K
+//     and V are copied once into shared memory and read as A fragments.
+//     The block walks query tiles of 64 rows (32 at D=128, where 64 would
+//     not fit the registers): Q, dO, lse and rowterm arrive by cp.async in
+//     a 2-stage ring, tile i + 1 in flight while tile i is computed, rows
+//     padded to D + 8 elements for conflict-free ldmatrix, zero past T.
+//   - Per query tile: S^T = K Q^T and dP^T = V dO^T on tensor cores (f32
+//     accumulators); per element, owned by one thread, so one exp a (key,
+//     query) pair: scale, mask, p = exp(s - lse), ds = p (dp - rowterm).
+//     P^T and dS^T are rounded to bf16 in registers (the TPU kernel's
+//     casts before its MXU dots) and are the A operands of dV += P^T dO
+//     and dK += dS^T Q, with dO's and Q's B fragments from ldmatrix.trans.
+//   - dK is scaled by `scale` at the end; dK and dV are written in bf16 by
+//     the block that owns the keys.  No atomics.
+//   - Grid: B * H * ceil(T / 64) blocks of 128 threads, key tile slowest,
+//     so under the causal skip the longest blocks (the first keys, which
+//     every later query sees) are scheduled first: 768 blocks at both
+//     training shapes.  Shared memory 55 KB at D=64, 70 KB at D=128.
 //
 // Rows with no valid key.  The forward leaves lse = NEG_INF exactly there
 // (-1e30 + log T rounds back to -1e30 in f32), so p = exp(NEG_INF - lse) =
 // 1 for every masked key, as in the TPU kernel, not the forward's 1/T.
 // Without causal masking this is every key, as the plain version computes.
 // With causal masking the TPU kernel's answer depends on its tiles (keys
-// above the diagonal in a visited tile count, skipped tiles do not); this
-// kernel does the same with its own tiles.  The causal LM never has such
+// above the diagonal in a visited tile count, skipped tiles do not); each
+// kernel here does the same with its own tiles.  K7 (both types): such a
+// row gets p = 1 from every key of its own 64-key block and the blocks
+// before it, 0 from later blocks.  K6 visits 32-key tiles up to its
+// 64-row query tile's end, the same set.  The causal LM never has such
 // rows: position 0 always sees itself.
 //
 // What bounds it on H100.  At head_dim 64, K6 does 3 and K7 4 products of
 // B*H*T*T*D multiply-adds (half of them under the causal skip): at the LM
 // training shape (B=4, T=1024, H=12) that is 9.7 and 12.9 GFLOP against
 // ~32 and ~38 MB, operation-bound on the tensor cores; at BERT's (B=32,
-// T=128) the bytes bound it.  This first version does its products on the
-// CUDA cores in f32 out of shared memory, so it sits far above the tensor-
-// core bound at the LM shape; mma/wgmma tiles and TMA are later work.  The
-// design keeps what does not depend on that: one read of each K/V (K6) or
-// Q/dO (K7) tile per block, no [T, T] intermediate in device memory, the
-// causal half skipped, and 768 blocks at both training shapes.
+// T=128) the bytes bound it.  K6 still does its products on the CUDA
+// cores in f32 out of shared memory, far above the tensor-core bound at
+// the LM shape; its tensor-core redesign reuses K7's tile work.  Both
+// keep one read of each K/V (K6) or Q/dO (K7) tile per block, no [T, T]
+// intermediate in device memory, and the causal half skipped.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -233,8 +265,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
                   g, acc, p.scale);
 }
 
-// K7: dk and dv for one (b, h, 64-key tile), looping over query tiles.
-template <typename T, int D>
+// K7 in float32 (the bf16 K7 is flash_bwd_dkv_kernel_tc below): dk and dv
+// for one (b, h, 64-key tile), looping over query tiles.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   __shared__ __align__(16) float sQ[kTile * D];
   __shared__ __align__(16) float sO[kTile * D];
@@ -249,14 +282,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   // The mask entry of this block's own key rows.
   const bool key_valid =
       key_ok && (p.mask == nullptr || p.mask[b * p.T + kpos] != 0);
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
 
   float kr[D / 4], vr[D / 4], dk[D / 4], dv[D / 4];
-  load_row<T, D>(k + b * p.skb + kpos * p.skt + h * p.skh, key_ok, g, kr);
-  load_row<T, D>(v + b * p.svb + kpos * p.svt + h * p.svh, key_ok, g, vr);
+  load_row<float, D>(k + b * p.skb + kpos * p.skt + h * p.skh, key_ok, g, kr);
+  load_row<float, D>(v + b * p.svb + kpos * p.svt + h * p.svh, key_ok, g, vr);
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
   const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
@@ -265,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const int q_begin = p.causal ? k0 : 0;
   for (int q0 = q_begin; q0 < p.T; q0 += kTile) {
     __syncthreads();
-    stage<T, D>(sQ, sO, q, dout, b * p.sqb + h * p.sqh, p.sqt,
+    stage<float, D>(sQ, sO, q, dout, b * p.sqb + h * p.sqh, p.sqt,
                 b * p.sob + h * p.soh, p.sot, q0, p.T);
     if (tid < kTile) {
       const int pos = q0 + tid;
@@ -285,9 +318,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       if (key_ok && sRowOk[r]) {
         s *= p.scale;
         if (!key_valid || (p.causal && kpos > q0 + r)) s = kNegInf;
-        const float pr = expf(s - sLse[r]);
-        pc = in_type<T>(pr);
-        ds = in_type<T>(pr * (dp - sRt[r]));
+        pc = expf(s - sLse[r]);  // f32: the input type needs no rounding
+        ds = pc * (dp - sRt[r]);
       }
       axpy<D>(dv, pc, sO + r * D, g);
       axpy<D>(dk, ds, sQ + r * D, g);
@@ -295,15 +327,227 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
   if (!key_ok) return;
   const long long base = ((static_cast<long long>(b) * p.T + kpos) * p.H + h) * D;
-  store_row<T, D>(p.dk, base, g, dk, p.scale);
-  store_row<T, D>(p.dv, base, g, dv, 1.f);
+  store_row<float, D>(p.dk, base, g, dk, p.scale);
+  store_row<float, D>(p.dv, base, g, dv, 1.f);
+}
+
+constexpr int kTcKeys = 64;      // keys a K7 block owns, 16 per warp
+constexpr int kTcThreads = 128;  // 4 warps
+
+// Query rows per staged tile of the bf16 K7: 64, or 32 at D=128, where
+// S^T, dP^T, dK and dV at 64 rows would not fit in the registers.
+template <int D> __host__ __device__ constexpr int tc_q_rows() {
+  return D == 128 ? 32 : 64;
+}
+
+template <int D> constexpr size_t tc_dkv_smem() {
+  return sizeof(__nv_bfloat16) * (2 * kTcKeys + 4 * tc_q_rows<D>()) * (D + 8) +
+         sizeof(float) * 4 * tc_q_rows<D>();
+}
+
+// K7 in bf16 on the tensor cores: dk and dv for one (b, h, 64-key tile).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_kernel_tc(Params p) {
+  constexpr int kQ = tc_q_rows<D>();
+  constexpr int kStride = D + 8;  // padded row, in elements
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* sV = sK + kTcKeys * kStride;
+  __nv_bfloat16* sQ = sV + kTcKeys * kStride;  // [2][kQ][kStride]
+  __nv_bfloat16* sO = sQ + 2 * kQ * kStride;   // [2][kQ][kStride]
+  float* sLse = reinterpret_cast<float*>(sO + 2 * kQ * kStride);  // [2][kQ]
+  float* sRt = sLse + 2 * kQ;                                     // [2][kQ]
+
+  // Key tile slowest in the block index: the first keys, which under the
+  // causal skip walk the most query tiles, are scheduled first.
+  const int bh = blockIdx.x % (p.B * p.H);
+  const int k0 = (blockIdx.x / (p.B * p.H)) * kTcKeys;
+  const int b = bh / p.H, h = bh % p.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + h * p.skh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + h * p.svh;
+  const __nv_bfloat16* dout =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.sob + h * p.soh;
+  const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
+  const float* lse = p.lse + rows;
+  const float* rowterm = p.rowterm + rows;
+  bool key_ok[2], key_valid[2];  // inside T; and not masked out
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    key_ok[r] = key < p.T;
+    key_valid[r] =
+        key_ok[r] && (p.mask == nullptr || p.mask[b * p.T + key] != 0);
+  }
+
+  // Stage query tile i (rows q0 .. q0 + kQ) into ring slot i & 1.
+  auto issue = [&](int slot, int q0) {
+    tc::load_rows<D, kQ, kTcThreads>(sQ + slot * kQ * kStride, q, p.sqt, q0,
+                                     p.T);
+    tc::load_rows<D, kQ, kTcThreads>(sO + slot * kQ * kStride, dout, p.sot,
+                                     q0, p.T);
+    if (threadIdx.x < kQ) {
+      const int pos = q0 + threadIdx.x;
+      const bool ok = pos < p.T;
+      tc::cp_async4(sLse + slot * kQ + threadIdx.x, lse + (ok ? pos : 0), ok);
+      tc::cp_async4(sRt + slot * kQ + threadIdx.x, rowterm + (ok ? pos : 0),
+                    ok);
+    }
+  };
+
+  // Causal tile skip: query rows before k0 see none of this key tile.
+  const int q_begin = p.causal ? k0 : 0;
+  const int n_q = (p.T - q_begin + kQ - 1) / kQ;
+  tc::load_rows<D, kTcKeys, kTcThreads>(sK, k, p.skt, k0, p.T);
+  tc::load_rows<D, kTcKeys, kTcThreads>(sV, v, p.svt, k0, p.T);
+  issue(0, q_begin);
+  tc::cp_async_commit();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_q; ++it) {
+    const int slot = it & 1;
+    const int q0 = q_begin + it * kQ;
+    if (it + 1 < n_q) issue(slot ^ 1, q0 + kQ);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile it (and K, V) landed: this thread's
+    __syncthreads();         // ... and everyone's copies
+    const __nv_bfloat16* tQ = sQ + slot * kQ * kStride;
+    const __nv_bfloat16* tO = sO + slot * kQ * kStride;
+    const float* tLse = sLse + slot * kQ;
+    const float* tRt = sRt + slot * kQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x kQ queries.
+    float s[kQ / 8][4], dp[kQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < kQ / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int a_off = (warp * 16 + tc::a_lane_row(lane)) * kStride +
+                        kk * 16 + tc::a_lane_col(lane);
+      tc::ldsm_x4(ka, sK + a_off);
+      tc::ldsm_x4(va, sV + a_off);
+#pragma unroll
+      for (int np = 0; np < kQ / 16; ++np) {
+        const int b_off = (np * 16 + tc::b_lane_row(lane)) * kStride +
+                          kk * 16 + tc::b_lane_col(lane);
+        uint32_t rq[4], ro[4];
+        tc::ldsm_x4(rq, tQ + b_off);
+        tc::ldsm_x4(ro, tO + b_off);
+        tc::mma(s[2 * np], ka, rq[0], rq[1]);
+        tc::mma(s[2 * np + 1], ka, rq[2], rq[3]);
+        tc::mma(dp[2 * np], va, ro[0], ro[1]);
+        tc::mma(dp[2 * np + 1], va, ro[2], ro[3]);
+      }
+    }
+
+    // One exp a (key, query) pair: s becomes p, dp becomes ds.  Only tiles
+    // on the diagonal, at the ragged end or under a mask test each pair.
+    const bool full = p.mask == nullptr && k0 + kTcKeys <= p.T &&
+                      q0 + kQ <= p.T && !(p.causal && q0 < k0 + kTcKeys);
+#pragma unroll
+    for (int i = 0; i < kQ / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * i + 2 * t4 + (e & 1);
+        const int r = e >> 1;
+        float x = s[i][e] * p.scale;
+        float pr = 0.f;
+        if (full) {
+          pr = __expf(x - tLse[qi]);
+        } else if (key_ok[r] && q0 + qi < p.T) {
+          if (!key_valid[r] || (p.causal && key0 + 8 * r > q0 + qi)) {
+            x = kNegInf;
+          }
+          pr = __expf(x - tLse[qi]);
+        }
+        s[i][e] = pr;
+        dp[i][e] = pr * (dp[i][e] - tRt[qi]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in
+    // registers as the A operands.
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      tc::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      tc::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        const int bt_off = (kk * 16 + tc::bt_lane_row(lane)) * kStride +
+                           dn * 16 + tc::bt_lane_col(lane);
+        uint32_t ro[4], rq[4];
+        tc::ldsm_x4_t(ro, tO + bt_off);
+        tc::ldsm_x4_t(rq, tQ + bt_off);
+        tc::mma(dv[2 * dn], pa, ro[0], ro[1]);
+        tc::mma(dv[2 * dn + 1], pa, ro[2], ro[3]);
+        tc::mma(dk[2 * dn], da, rq[0], rq[1]);
+        tc::mma(dk[2 * dn + 1], da, rq[2], rq[3]);
+      }
+    }
+    __syncthreads();  // slot it & 1 is free for tile it + 2
+  }
+
+  __nv_bfloat16* gdk = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* gdv = static_cast<__nv_bfloat16*>(p.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!key_ok[r]) continue;
+    const long long base =
+        ((static_cast<long long>(b) * p.T + key0 + 8 * r) * p.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int d = 8 * i + 2 * t4;
+      *reinterpret_cast<uint32_t*>(gdk + base + d) =
+          tc::pack(p.scale * dk[i][2 * r], p.scale * dk[i][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(gdv + base + d) =
+          tc::pack(dv[i][2 * r], dv[i][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tc_dkv_smem<D>()));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int blocks = p.B * p.H * ((p.T + kTcKeys - 1) / kTcKeys);
+  flash_bwd_dkv_kernel_tc<D>
+      <<<blocks, kTcThreads, tc_dkv_smem<D>(), stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
   dim3 grid((p.T + kRows - 1) / kRows, p.H, p.B);
   if (dkv) {
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      return launch_dkv_bf16<D>(p, stream);
+    } else {
+      flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    }
   } else {
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
   }

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every kernel source under ``ops/csrc/`` is a self-contained ``.cu`` file
-with a plain C interface.  At first use it is compiled by ``nvcc`` for
-``sm_90a`` into a shared library under ``cloud_tpu_torch/build/`` (named
-by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused) and loaded with ``ctypes``.  Pointers and the
+Every kernel library is one ``.cu`` file under ``ops/csrc/`` with a plain
+C interface (it may include the ``.cuh`` headers beside it).  At first
+use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``cloud_tpu_torch/build/`` (named by a hash of the source, the headers
+and the flags, so an edited source or header rebuilds and an unchanged
+one is reused) and loaded with ``ctypes``.  Pointers and the
 stream cross the boundary as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into
 an exception.
@@ -78,17 +79,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> str:
-    path = os.path.join(CSRC_DIR, SOURCES[name])
+def library_path(name: str) -> str:
+    """Where library ``name`` is (or will be) built."""
     digest = hashlib.sha256()
-    with open(path, "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def _build(name: str) -> str:
-    out = _library_path(name)
+    out = library_path(name)
     if os.path.exists(out):
         build_seconds[name] = 0.0
         return out

@@ -114,7 +114,7 @@ def _kernel_fn(name):
 
 
 def _check_qkv(q, k, v):
-    """Validate the kernels' q/k/v; returns them with unit last stride."""
+    """Validate the kernels' q/k/v; returns them with aligned rows."""
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(
             "the flash kernel takes self-attention q/k/v of one [B, T, H, D] "
@@ -130,7 +130,24 @@ def _check_qkv(q, k, v):
         raise ValueError("q, k and v must lie on one device")
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[-1]} not in {KERNEL_HEAD_DIMS}")
-    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    return tuple(_aligned_rows(x) for x in (q, k, v))
+
+
+def _aligned_rows(x):
+    """``x`` itself if the kernels can read it, else a contiguous copy.
+    The bf16 kernels copy each row in 16-byte ``cp.async`` pieces, so
+    their rows must be contiguous and start on 16-byte boundaries; the f32
+    kernels read element by element and need a unit last stride only."""
+    if x.dtype != torch.bfloat16:
+        return x if x.stride(-1) == 1 else x.contiguous()
+    # Contiguous rows of a head dim in KERNEL_HEAD_DIMS (multiples of 8
+    # elements) keep every row on 16 bytes: the common case, tested first
+    # because this runs on every call.
+    if x.data_ptr() % 16 == 0 and (x.is_contiguous() or (
+            x.stride(-1) == 1
+            and all(s % 8 == 0 for s in x.stride()[:-1]))):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _mask_i32(mask, b, t, device):
@@ -172,7 +189,7 @@ def _bwd_launch(name, q, k, v, mask, do, lse, row_term, *, causal):
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(
             f"dO must match q: got {tuple(do.shape)} {do.dtype} {do.device}")
-    do = do if do.stride(-1) == 1 else do.contiguous()
+    do = _aligned_rows(do)
     mask_i32 = _mask_i32(mask, b, t, q.device)
     lse, row_term = (x.to(device=q.device, dtype=torch.float32).contiguous()
                      for x in (lse, row_term))

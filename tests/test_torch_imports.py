@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port.
 
 Every module of ``cloud_tpu_torch`` imports with JAX blocked; no module of
-the port, nor ``chip_smoke.py``, imports ``jax`` or the JAX package; and
+the port, nor ``chip_smoke.py`` or ``flash_ab.py``, imports ``jax`` or the
+JAX package; and
 an entry point called without ``device="cpu"`` on a host with no card
 raises instead of quietly running on the CPU.
 """
@@ -61,7 +62,8 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "flash_ab.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     for name in _imported_names(path):

@@ -84,6 +84,47 @@ def test_flash_plain_non_causal():
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("view", ["offset", "strided"])
+def test_flash_kernel_rows_are_aligned(view):
+    """The bf16 kernels copy rows in 16-byte pieces: ``_check_qkv`` (and
+    ``_bwd_launch``'s dO) pass an aligned tensor through untouched and
+    copy a view whose rows start off a 16-byte boundary or are not
+    contiguous.  A CPU tensor still takes the plain version and counts no
+    launch."""
+    from cloud_tpu_torch.ops import dispatch
+
+    b, t, h, d = 2, 8, 3, 16
+    n = b * t * h * d
+    if view == "offset":  # one bf16 element (2 bytes) past an aligned base
+        x = torch.randn(n + 1).to(torch.bfloat16)[1:].view(b, t, h, d)
+    else:  # every other head dim
+        x = torch.randn(b, t, h, 2 * d).to(torch.bfloat16)[..., ::2]
+    assert not (x.is_contiguous() and x.data_ptr() % 16 == 0)
+    aligned = torch.randn(b, t, h, d).to(torch.bfloat16)
+    got = port_flash._check_qkv(x, aligned, aligned)
+    assert got[0].is_contiguous() and got[0].data_ptr() % 16 == 0
+    assert torch.equal(got[0], x)
+    assert got[1] is aligned and got[2] is aligned
+    dispatch.reset_launch_counts()
+    out = port_flash.flash_attention(x, x, x)
+    want, _ = port_flash._reference_with_lse(x, x, x, causal=True, mask=None)
+    assert torch.equal(out, want)
+    assert all(n == 0 for n in dispatch.launch_counts().values())
+
+
+def test_flash_f32_rows_need_unit_stride_only():
+    """The f32 kernels read element by element: ``_check_qkv`` passes an
+    f32 view whose rows start off a 16-byte boundary untouched and copies
+    only a view whose last stride is not 1."""
+    b, t, h, d = 2, 8, 3, 16
+    offset = torch.randn(b * t * h * d + 1)[1:].view(b, t, h, d)
+    assert offset.data_ptr() % 16 != 0
+    strided = torch.randn(b, t, h, 2 * d)[..., ::2]
+    got = port_flash._check_qkv(offset, offset, strided)
+    assert got[0] is offset and got[1] is offset
+    assert got[2].stride(-1) == 1 and torch.equal(got[2], strided)
+
+
 def _paged_case(rng, *, b=3, s=40, h=2, hd=16, nb=5, bt=8):
     leaves = {n: rng.standard_normal((b, s, h, hd)).astype(np.float32)
               for n in ("k", "v")}
