@@ -10,7 +10,7 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    library from ``cloud_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
    parallel) and prints the build time, and counts the tensor-core
    instructions (HMMA, HGMMA) of each flash kernel in ``cuobjdump -sass``:
-   every instantiation of the bf16 K5 and K7 must have some;
+   every instantiation of the bf16 K5, K6 and K7 must have some;
 2. holds each kernel against its plain PyTorch version on the card at its
    path's shapes (tolerances at ``check_close``: f32 within 1e-4 absolute;
    bf16 within 2e-2 + 2^-7 |ref|, one bf16 ulp relative plus the absolute
@@ -20,18 +20,21 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    within 1e-4 s, bf16 within 2e-2 s + 2^-7 |ref|; K5's f32 lse also
    within 1e-4 max(1, |lse|) of an lse from f32 scores), and times the
    kernel, the plain version and one PyTorch library call computing the
-   same function (a yardstick only: the port never calls it): K5 and K8
-   at the serving shape (CUDA events around back-to-back launches; K5
-   also in device time, torch.profiler's kernel rows), K8q (int8 K/V, with
-   and without an int8 pool, Tq 1 and 4, q in bf16 and f32) timed at
-   B=8 with S=576 and S=4096 beside K8 on bf16 K/V at the same lengths
-   and SDPA on K/V dequantized beforehand, K1-K4 (GroupNorm)
+   same function (a yardstick only: the port never calls it): K5 at the
+   serving shape (CUDA events around back-to-back launches, and device
+   time, torch.profiler's kernel rows), K8 and K8q (bf16 or int8 K/V,
+   with and without a pool, Tq 1 and 4, q in bf16 and f32, slot rows of
+   S=576 and 4096 with lengths from 1 to S) timed at B=8 with S=576 and
+   S=4096 (K8q beside K8 on bf16 K/V at the same lengths and SDPA on K/V
+   dequantized beforehand), in event and device time, K1-K4 (GroupNorm)
    at every shape of a ResNet-50 CIFAR b256 step and at two 224 b128
    shapes (device time from torch.profiler's kernel rows: a GroupNorm
    call is shorter than its host launch cost), K5 and K6/K7 (flash
    backward, on K5's out and lse) in 20 cases per type at both training
    shapes plus ragged T (200, 1000), and in bf16 at every head dim the
-   kernels take, then K5, K6 and K7 timed at the LM (B=4, T=1024,
+   kernels take; bf16 K6 and K7 also against their f32 kernels where
+   causal rows have no valid key (the plain version's answer differs
+   there by design), then K5, K6 and K7 timed at the LM (B=4, T=1024,
    causal) and BERT (B=32, T=128) shapes against
    ``scaled_dot_product_attention``'s forward and backward, in event and
    device time;
@@ -40,7 +43,9 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    seed), checks that every request resolves with valid tokens and that
    the path launched K5 and K8, and checks greedy parity with the port's
    own ``generate()`` at SMALL width in f32; then splits one decode
-   chunk's device time by kernel (torch.profiler); then the quantized
+   chunk's device time by kernel (torch.profiler; the rows of K8's split
+   pass and of its combine hold one launch a layer a step); then the
+   quantized
    path: the same 16 requests with ``quantize_params`` weights and
    ``kv_quant=True`` (exactly 12 K5 launches per insert, 12 K8q per
    decode step, no K8), f32 greedy parity of that engine with
@@ -305,10 +310,17 @@ def time_flash_serving(fa, q, k, v, mask, card):
             "shape": f"B=1 T={t} H={HEADS} D={HEAD_DIM} bf16 masked"}
 
 
-def _paged_inputs(device, dtype, tq, gen, *, pool: bool):
+#: Slot-row lengths of the paged checks: the engine's (a 512 prompt bucket
+#: plus 64 new tokens) and a long row.
+PAGED_LENGTHS = (BUCKETS[-1] + MAX_NEW, 4096)
+
+
+def _paged_inputs(device, dtype, s, gen, *, pool: bool):
+    """Slot rows of ``s`` positions, ``cur_len`` from 1 to ``s``, and a
+    table of all -1 or, with ``pool``, pool pages leading some rows and
+    one between slot pages."""
     import torch
 
-    s = BUCKETS[-1] + MAX_NEW
     b = NUM_SLOTS
     slot = {n: torch.randn((b, s, HEADS, HEAD_DIM), generator=gen,
                            device=device).to(dtype) for n in ("k", "v")}
@@ -329,64 +341,103 @@ def _paged_inputs(device, dtype, tq, gen, *, pool: bool):
     return slot, pool_l, table, cur_len
 
 
-def check_paged(device, card):
-    """K8 for Tq in {1, 4} with a pool and a mixed table, and at the
-    engine's decode shape (8 slots, S=576, table of all -1)."""
+def _check_paged_cases(pa, device, gen, what, quantize):
+    """K8 (or K8q with ``quantize``) against its plain version for slot
+    rows of every ``PAGED_LENGTHS`` length, Tq 1 and 4, with and without a
+    pool, q in bf16 and f32; returns the worst error per type."""
     import torch
-    import torch.nn.functional as F
 
-    from cloud_tpu_torch.ops import paged_attention as pa
-
-    gen = torch.Generator(device=device).manual_seed(8)
     worst = {"bfloat16": 0.0, "float32": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        for tq in (1, 4):
-            for pool in (True, False):
-                slot, pool_l, table, cur_len = _paged_inputs(
-                    device, dtype, tq, gen, pool=pool)
-                q = torch.randn((NUM_SLOTS, tq, HEADS, HEAD_DIM),
-                                generator=gen, device=device).to(dtype)
-                out = pa._paged_kernel(q, slot, cur_len, pool_l, table)
-                ref = pa._reference(q, slot, cur_len, pool_l, table)
-                torch.cuda.synchronize()
-                what = f"K8 paged_attention {name} Tq={tq} pool={pool}"
-                err = check_close(what, out, ref, name)
-                print(f"  {what}: max_abs_err={err:.3e} ok")
-                worst[name] = max(worst[name], err)
-    # Timing at the engine's decode step: bf16, Tq=1, every row live at a
-    # length drawn across the slot row.
-    s = BUCKETS[-1] + MAX_NEW
-    slot, _, table, _ = _paged_inputs(device, torch.bfloat16, 1, gen,
-                                      pool=False)
+        for s in PAGED_LENGTHS:
+            for tq in (1, 4):
+                for pool in (True, False):
+                    slot, pool_l, table, cur_len = _paged_inputs(
+                        device, dtype, s, gen, pool=pool)
+                    if quantize:
+                        slot = _quantize_leaves(slot)
+                        if pool_l is not None:
+                            pool_l = _quantize_leaves(pool_l)
+                    q = torch.randn((NUM_SLOTS, tq, HEADS, HEAD_DIM),
+                                    generator=gen, device=device).to(dtype)
+                    out = pa._paged_kernel(q, slot, cur_len, pool_l, table)
+                    ref = pa._reference(q, slot, cur_len, pool_l, table)
+                    torch.cuda.synchronize()
+                    case = f"{what} {name} S={s} Tq={tq} pool={pool}"
+                    err = check_close(case, out, ref, name)
+                    print(f"  {case}: max_abs_err={err:.3e} ok")
+                    worst[name] = max(worst[name], err)
+    return worst
+
+
+def _decode_rows(device, gen, s):
+    """The engine's decode step at slot rows of ``s`` positions: bf16 K/V,
+    a table of all -1, every row live at a length drawn across the row, Tq
+    = 1; returns (slot, table, cur_len, live keys, q)."""
+    import torch
+
+    slot = {n: torch.randn((NUM_SLOTS, s, HEADS, HEAD_DIM), generator=gen,
+                           device=device).to(torch.bfloat16)
+            for n in ("k", "v")}
+    table = torch.full((NUM_SLOTS, -(-s // 16)), -1, dtype=torch.int32,
+                       device=device)
     lens = np.random.default_rng(0).integers(33, s + 1, NUM_SLOTS)
     cur_len = torch.tensor(lens, dtype=torch.int32, device=device)
     q = torch.randn((NUM_SLOTS, 1, HEADS, HEAD_DIM), generator=gen,
                     device=device).to(torch.bfloat16)
-    kernel = time_ms(lambda: pa._paged_kernel(q, slot, cur_len, None, table),
-                     iters=50)
-    plain = time_ms(lambda: pa._reference(q, slot, cur_len, None, table))
-    valid = (torch.arange(s, device=device)[None, :]
+    return slot, table, cur_len, int(lens.sum()), q
+
+
+def _sdpa_decode(q, k, v, cur_len):
+    """SDPA over whole slot rows under the decode mask: the library
+    yardstick of K8 and K8q."""
+    import torch
+    import torch.nn.functional as F
+
+    s = k.shape[1]
+    valid = (torch.arange(s, device=q.device)[None, :]
              < cur_len[:, None])[:, None, None, :]
-    qt, kt, vt = q.transpose(1, 2), slot["k"].transpose(1, 2), \
-        slot["v"].transpose(1, 2)
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=valid), iters=50)
-    keys = int(lens.sum())
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid)
+
+
+def check_paged(device, card):
+    """K8 against its plain version (``_check_paged_cases``), then timed at
+    the engine's decode shape (8 slots, S=576, bf16, Tq=1): the kernel
+    (split and combine), its plain version and SDPA, in event and device
+    time."""
+    import torch
+
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    worst = _check_paged_cases(pa, device, gen, "K8 paged_attention", False)
+    s = PAGED_LENGTHS[0]
+    slot, table, cur_len, keys, q = _decode_rows(device, gen, s)
+    kernel, kernel_dev = event_and_device_ms(
+        lambda: pa._paged_kernel(q, slot, cur_len, None, table), iters=50)
+    plain, plain_dev = event_and_device_ms(
+        lambda: pa._reference(q, slot, cur_len, None, table))
+    library, library_dev = event_and_device_ms(
+        _sdpa_decode(q, slot["k"], slot["v"], cur_len), iters=50)
     nbytes = (2 * keys * HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2
               + NUM_SLOTS * 4 + table.numel() * 4)
     flops = 4 * keys * HEADS * HEAD_DIM
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     print(f"  K8 paged_attention bf16 B={NUM_SLOTS} S={s} Tq=1 live keys "
-          f"{keys}: kernel {kernel:.4f} ms, plain {plain:.4f} ms, sdpa "
-          f"{library:.4f} ms, bound {b_ms:.5f} ms ({b_by}) [{card}]")
+          f"{keys}: kernel {kernel:.4f} ms (device {kernel_dev:.4f}), plain "
+          f"{plain:.4f} ({plain_dev:.4f}), sdpa {library:.4f} "
+          f"({library_dev:.4f}), bound {b_ms:.5f} ms ({b_by}) [{card}]")
     return {"name": "paged_attention", "route": "cuda",
             "source": "cloud_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "cloud_tpu/ops/paged_attention.py:181",
             "max_abs_err": worst["bfloat16"],
             "max_abs_err_f32": worst["float32"],
-            "ms": kernel, "plain_ms": plain, "bound_ms": b_ms,
+            "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library,
+            "library_device_ms": library_dev, "live_keys": keys,
             "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={HEADS} D={HEAD_DIM} bf16"}
 
 
@@ -403,83 +454,56 @@ def _quantize_leaves(tree):
 
 
 def _time_paged_int8(pa, device, card, gen, s):
-    """K8q at B=8 and slot rows of S positions (Tq=1, every row live at a
-    length drawn across the row), beside K8 on bf16 K/V at the same
-    lengths, the plain version, and SDPA on K/V dequantized to bf16
-    beforehand (the dequant is outside the timed region)."""
+    """K8q at B=8 and slot rows of S positions (``_decode_rows``), beside
+    K8 on the bf16 K/V it was quantized from, the plain version, and SDPA
+    on K/V dequantized to bf16 beforehand (the dequant is outside the
+    timed region), each in event and device time."""
     import torch
-    import torch.nn.functional as F
 
-    slot = {n: torch.randn((NUM_SLOTS, s, HEADS, HEAD_DIM), generator=gen,
-                           device=device).to(torch.bfloat16)
-            for n in ("k", "v")}
+    slot, table, cur_len, keys, q = _decode_rows(device, gen, s)
     qslot = _quantize_leaves(slot)
-    table = torch.full((NUM_SLOTS, -(-s // 16)), -1, dtype=torch.int32,
-                       device=device)
-    lens = np.random.default_rng(0).integers(33, s + 1, NUM_SLOTS)
-    cur_len = torch.tensor(lens, dtype=torch.int32, device=device)
-    q = torch.randn((NUM_SLOTS, 1, HEADS, HEAD_DIM), generator=gen,
-                    device=device).to(torch.bfloat16)
-    kernel = time_ms(lambda: pa._paged_kernel(q, qslot, cur_len, None, table),
-                     iters=50)
-    bf16 = time_ms(lambda: pa._paged_kernel(q, slot, cur_len, None, table),
-                   iters=50)
-    plain = time_ms(lambda: pa._reference(q, qslot, cur_len, None, table))
+    kernel, kernel_dev = event_and_device_ms(
+        lambda: pa._paged_kernel(q, qslot, cur_len, None, table), iters=50)
+    bf16, bf16_dev = event_and_device_ms(
+        lambda: pa._paged_kernel(q, slot, cur_len, None, table), iters=50)
+    plain, plain_dev = event_and_device_ms(
+        lambda: pa._reference(q, qslot, cur_len, None, table))
     deq = {n: (qslot[n].float() * qslot[f"{n}_scale"]).to(torch.bfloat16)
-           .transpose(1, 2) for n in ("k", "v")}
-    valid = (torch.arange(s, device=device)[None, :]
-             < cur_len[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, deq["k"], deq["v"], attn_mask=valid), iters=50)
-    keys = int(lens.sum())
+           for n in ("k", "v")}
+    library, library_dev = event_and_device_ms(
+        _sdpa_decode(q, deq["k"], deq["v"], cur_len), iters=50)
     # Per live (key, head): 2 * hd int8 and two f32 scales.
     nbytes = (keys * HEADS * (2 * HEAD_DIM + 8) + 2 * q.numel() * 2
               + NUM_SLOTS * 4 + table.numel() * 4)
     flops = 4 * keys * HEADS * HEAD_DIM
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
     print(f"  K8q paged_attention_int8 B={NUM_SLOTS} S={s} Tq=1 live keys "
-          f"{keys}: kernel {kernel:.4f} ms, K8 on bf16 K/V {bf16:.4f} ms, "
-          f"plain {plain:.4f} ms, sdpa on dequantized bf16 {library:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
-    return {"ms": kernel, "bf16_k8_ms": bf16, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+          f"{keys}: kernel {kernel:.4f} ms (device {kernel_dev:.4f}), K8 on "
+          f"bf16 K/V {bf16:.4f} ({bf16_dev:.4f}), plain {plain:.4f} "
+          f"({plain_dev:.4f}), sdpa on dequantized bf16 {library:.4f} "
+          f"({library_dev:.4f}), bound {b_ms:.5f} ms ({b_by}) [{card}]")
+    return {"ms": kernel, "device_ms": kernel_dev, "bf16_k8_ms": bf16,
+            "bf16_k8_device_ms": bf16_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "library_device_ms": library_dev,
             "live_keys": keys,
             "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={HEADS} D={HEAD_DIM} "
                      f"int8 K/V, bf16 q"}
 
 
 def check_paged_int8(device, card):
-    """K8q for Tq in {1, 4}, q in bf16 and f32, int8 slot leaves with and
-    without an int8 pool; timed at the engine's decode shape (8 slots,
-    S=576) and at S=4096."""
+    """K8q against its plain version (``_check_paged_cases`` on int8 K/V
+    and pool); timed at the engine's decode shape (8 slots, S=576) and at
+    S=4096."""
     import torch
 
     from cloud_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device=device).manual_seed(18)
-    worst = {"bfloat16": 0.0, "float32": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        for tq in (1, 4):
-            for pool in (True, False):
-                slot, pool_l, table, cur_len = _paged_inputs(
-                    device, dtype, tq, gen, pool=pool)
-                slot = _quantize_leaves(slot)
-                if pool_l is not None:
-                    pool_l = _quantize_leaves(pool_l)
-                q = torch.randn((NUM_SLOTS, tq, HEADS, HEAD_DIM),
-                                generator=gen, device=device).to(dtype)
-                out = pa._paged_kernel(q, slot, cur_len, pool_l, table)
-                ref = pa._reference(q, slot, cur_len, pool_l, table)
-                torch.cuda.synchronize()
-                what = f"K8q paged_attention_int8 {name} Tq={tq} pool={pool}"
-                err = check_close(what, out, ref, name)
-                print(f"  {what}: max_abs_err={err:.3e} ok")
-                worst[name] = max(worst[name], err)
-    engine_shape = _time_paged_int8(pa, device, card, gen,
-                                    BUCKETS[-1] + MAX_NEW)
-    long_rows = _time_paged_int8(pa, device, card, gen, 4096)
+    worst = _check_paged_cases(pa, device, gen, "K8q paged_attention_int8",
+                               True)
+    engine_shape = _time_paged_int8(pa, device, card, gen, PAGED_LENGTHS[0])
+    long_rows = _time_paged_int8(pa, device, card, gen, PAGED_LENGTHS[1])
     entry = {"name": "paged_attention_int8", "route": "cuda",
              "source": "cloud_tpu_torch/ops/csrc/paged_attention.cu",
              "replaces": "cloud_tpu/ops/paged_attention.py:181 (quantized)",
@@ -821,6 +845,42 @@ def _bwd_case(fa, b, t, causal, dtype, gen, *, mask_kind, glse,
     return errs
 
 
+def _no_valid_key_case(fa, gen, *, h, d):
+    """bf16 K6 and K7 against their f32 kernels where causal rows have no
+    valid key (left padding: sample 0's first 37 rows, sample 1's first
+    150), on the same inputs upcast and the same lse and row terms.  The
+    plain version gives such rows p = 1 from all T keys, the kernels from
+    the keys of the tiles they walk (``flash_bwd.cu``): the bf16 and f32
+    kernels walk one set.  Returns {kernel: max_abs_err}."""
+    import torch
+
+    b, t = 2, 200
+    q, k, v, do, _ = _attn_inputs(b, t, torch.bfloat16, gen, mask_kind=None,
+                                  h=h, d=d)
+    mask = torch.ones((b, t), dtype=torch.int32, device=gen.device)
+    mask[0, :37] = 0
+    mask[1, :150] = 0
+    out, lse = fa._flash_kernel(q, k, v, causal=True, mask=mask)
+    row = fa._row_term(do, out, None)
+    up = [x.float() for x in (q, k, v, do)]
+    got, want = {}, {}
+    for name in FLASH_BWD_KERNELS:
+        got[name] = fa._bwd_launch(name, q, k, v, mask, do, lse, row,
+                                   causal=True)
+        want[name] = fa._bwd_launch(name, *up[:3], mask, up[3], lse, row,
+                                    causal=True)
+    torch.cuda.synchronize()
+    if not bool((lse[0, :, :37] <= fa.NEG_INF).all()):
+        raise AssertionError("K5 lse of rows with no valid key is not "
+                             "NEG_INF")
+    what = (f"bf16 against the f32 kernel, B={b} T={t} H={h} D={d} causal, "
+            f"rows with no valid key")
+    return {name: max(check_close(f"{name} {what}", x, y, "bfloat16",
+                                  scaled=True)
+                      for x, y in zip(got[name], want[name]))
+            for name in FLASH_BWD_KERNELS}
+
+
 def _attn_bound(kernel, b, t, causal):
     """(bound_ms, bound_by) of one bf16 call at [b, t, 12, 64]: each input
     read once and each output written once; 2 B*H*D operations per
@@ -943,6 +1003,14 @@ def check_flash_bwd(device, card):
               f"{worst['flash_fwd lse'][dname]:.3e}), dq "
               f"{worst['flash_bwd_dq'][dname]:.3e}, dk/dv "
               f"{worst['flash_bwd_dkv'][dname]:.3e} [{card}]")
+    no_valid = {name: 0.0 for name in FLASH_BWD_KERNELS}
+    for d in fa.KERNEL_HEAD_DIMS:
+        for name, e in _no_valid_key_case(fa, gen, h=4, d=d).items():
+            no_valid[name] = max(no_valid[name], e)
+        cases += 1
+    print(f"  K6/K7 bf16 against f32 kernels, causal rows with no valid key, "
+          f"every head dim: max_abs_err dq {no_valid['flash_bwd_dq']:.3e}, "
+          f"dk/dv {no_valid['flash_bwd_dkv']:.3e} ok [{card}]")
     timed = {path: _time_attention(fa, path, card, gen)
              for path in TRAIN_SHAPES}
     entries = []
@@ -954,6 +1022,7 @@ def check_flash_bwd(device, card):
             "replaces": FLASH_BWD_REPLACES[name],
             "max_abs_err": worst[name]["bfloat16"],
             "max_abs_err_f32": worst[name]["float32"],
+            "max_abs_err_no_valid_key": no_valid[name],
             **lm,
             "at_bert": timed["BERT"][name]})
     print(f"  flash: {cases} cases checked")
@@ -1429,10 +1498,16 @@ def run_engine(device, card):
             "decode_step_ms": step_ms, "launches": launches}
 
 
+#: Substrings of K8's two kernels in the profiler's rows: the split pass
+#: (both instantiations, K8 and K8q) and the combine.
+PAGED_ROWS_KEYS = ("paged_attention_kernel", "paged_attention_combine")
+
+
 def profile_decode_chunk(device, card):
     """Where a decode step's time goes: one chunk of the slot grid at the
     engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
-    Fails if the profiler sees no device time."""
+    Fails if the profiler sees no device time, or if the rows of K8's split
+    pass or of its combine do not hold one launch a layer a step."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -1466,13 +1541,24 @@ def profile_decode_chunk(device, card):
     # Kernel rows only: an operator row carries its kernels' time again.
     prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    paged_ms = {}
+    for key in PAGED_ROWS_KEYS:
+        mine = [r for r in rows if key in r[2]]
+        seen = sum(r[1] for r in mine)
+        paged_ms[key] = sum(r[0] for r in mine) / 1e3
+        if seen != cfg.num_layers * CHUNK:
+            raise AssertionError(
+                f"decode chunk: profiler rows matching {key!r} hold {seen} "
+                f"launches; the chunk launched {cfg.num_layers * CHUNK}")
     print(f"  decode chunk ({CHUNK} steps, {NUM_SLOTS} active slots): wall "
           f"{wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f} [{card}]")
+          f"{1 - busy_ms / wall_ms:.3f}; K8 split {paged_ms[PAGED_ROWS_KEYS[0]]:.3f}"
+          f" ms, combine {paged_ms[PAGED_ROWS_KEYS[1]]:.3f} ms [{card}]")
     for dev_us, count, key in rows[:8]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
     return {"chunk_wall_ms": wall_ms, "chunk_device_busy_ms": busy_ms,
-            "chunk_idle_share": 1 - busy_ms / wall_ms}
+            "chunk_idle_share": 1 - busy_ms / wall_ms,
+            "chunk_paged_device_ms": paged_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1705,9 +1791,11 @@ def run_beam_search(device, card):
     return {"seconds": wall, "scores": scores.tolist(), "launches": launches}
 
 
-#: Kernels whose bf16 instantiations must run on the tensor cores.
-TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_kernel_tc",
-                       "flash_bwd": "flash_bwd_dkv_kernel_tc"}
+#: Kernels whose bf16 instantiations must run on the tensor cores, by
+#: library.
+TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
+                       "flash_bwd": ["flash_bwd_dq_kernel_tc",
+                                     "flash_bwd_dkv_kernel_tc"]}
 
 
 def tensor_core_sass(dispatch):
@@ -1717,7 +1805,7 @@ def tensor_core_sass(dispatch):
     Returns {symbol: count} for the kernels of those libraries."""
     tool = os.path.join(os.path.dirname(dispatch.nvcc_path()), "cuobjdump")
     counts = {}
-    for lib, symbol in TENSOR_CORE_KERNELS.items():
+    for lib, symbols in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([tool, "-sass", dispatch.library_path(lib)],
                               capture_output=True, text=True, check=True)
         func = None
@@ -1727,10 +1815,11 @@ def tensor_core_sass(dispatch):
                 counts[func] = 0
             elif func is not None and ("HMMA" in line or "HGMMA" in line):
                 counts[func] += 1
-        mine = {f: n for f, n in counts.items() if symbol in f}
-        if not mine or not all(mine.values()):
-            raise AssertionError(f"{lib}: {symbol} has no tensor-core "
-                                 f"instructions in its SASS: {mine}")
+        for symbol in symbols:
+            mine = {f: n for f, n in counts.items() if symbol in f}
+            if not mine or not all(mine.values()):
+                raise AssertionError(f"{lib}: {symbol} has no tensor-core "
+                                     f"instructions in its SASS: {mine}")
     print("  SASS tensor-core instructions per kernel: " + ", ".join(
         f"{f} {n}" for f, n in sorted(counts.items())))
     return counts
@@ -1894,8 +1983,15 @@ def main() -> int:
         "max_abs_err_f32": {e["name"]: e["max_abs_err_f32"] for e in kernels},
         "group_norm_at_224": {e["name"]: e["at_224"] for e in kernels
                               if "at_224" in e},
+        "device_ms": {e["name"]: e["device_ms"] for e in kernels
+                      if "device_ms" in e},
+        "library_device_ms": {e["name"]: e["library_device_ms"]
+                              for e in kernels if "library_device_ms" in e},
         "paged_attention_int8_bf16_k8_ms": {
             "S=576": k8q["bf16_k8_ms"], "S=4096": k8q["at_4096"]["bf16_k8_ms"]},
+        "paged_attention_int8_bf16_k8_device_ms": {
+            "S=576": k8q["bf16_k8_device_ms"],
+            "S=4096": k8q["at_4096"]["bf16_k8_device_ms"]},
         "paged_attention_int8_at_4096": k8q["at_4096"],
         "engine": {k: v for k, v in engine.items() if k != "launches"},
         "engine_int8_kv_quant": engine_q,

@@ -16,27 +16,54 @@
 //
 // Translation.  The TPU carried dq across the sequential key axis of its
 // grid, and dk/dv across the query axis, in VMEM scratch.  Here a K6 block
-// owns a (b, h, 64-row query tile) and loops over 32-key tiles; a K7 block
-// owns a (b, h, 64-key tile) and loops over query tiles (32 rows in f32;
-// 64, or 32 at D=128, in bf16).  Each block
+// owns a (b, h, 64-row query tile) and loops over key tiles; a K7 block
+// owns a (b, h, 64-key tile) and loops over query tiles.  Each block
 // writes only its own rows, so there are no atomics and the result does not
 // depend on scheduling.  The causal tile skip carries over: K6 stops after
-// the tile that holds its last row's diagonal, K7 starts at the query tile
-// of its first key; inside a tile the mask compares global positions.
-// Ragged T is masked in the kernel: keys past T are no keys (p = 0), query
-// rows past T contribute nothing and are not written.
+// the 64-key block that holds its last row's diagonal, K7 starts at the
+// query tile of its first key; inside a tile the mask compares global
+// positions.  Ragged T is masked in the kernel: keys past T are no keys
+// (p = 0), query rows past T contribute nothing and are not written.
 //
-// K6 (both types), and K7 in float32 (flash_bwd_dkv_kernel, an f32-only
-// kernel): four threads share a row; thread g
-// holds dims 4 (g + 4 j) .. +3 of its row (q and dO for K6, k and v for
-// K7) and of its accumulators in registers, so a dot product is a partial
-// sum over those dims plus two shuffles, and the staged tile is read as
-// float4 broadcast across the warp's rows.  Products on the CUDA cores in
-// f32 (TF32 tensor cores would not hold the f32 parity checks' 1e-4).
+// In float32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): four threads
+// share a row; thread g holds dims 4 (g + 4 j) .. +3 of its row (q and dO
+// for K6, k and v for K7) and of its accumulators in registers, so a dot
+// product is a partial sum over those dims plus two shuffles, and the
+// staged 32-row tile is read as float4 broadcast across the warp's rows.
+// Products on the CUDA cores in f32 (TF32 tensor cores would not hold the
+// f32 parity checks' 1e-4).
 //
-// K7 in bfloat16 (every main path) runs flash_bwd_dkv_kernel_tc on the
-// tensor cores.  Route: mma.sync m16n8k16 with ldmatrix, as K5 (see
-// flash_fwd.cu for why not wgmma); helpers in mma_bf16.cuh.
+// In bfloat16 (every main path) K6 runs flash_bwd_dq_kernel_tc and K7
+// flash_bwd_dkv_kernel_tc, both on the tensor cores.  Route: mma.sync
+// m16n8k16 with ldmatrix, as K5 (see flash_fwd.cu for why not wgmma);
+// helpers and fragment layouts in mma_bf16.cuh.
+//
+// K6 in bf16 (flash_bwd_dq_kernel_tc):
+//   - 4 warps, a block owns a (b, h, 64-row query tile), each warp 16
+//     rows.  Q and dO are copied once and held as A fragments in
+//     registers for the whole walk, beside the rows' lse and rowterm.
+//   - The block walks key tiles of 32 keys: K and V arrive by cp.async in
+//     a 2-stage ring, tile j + 1 in flight while tile j is computed, rows
+//     padded to D + 8 elements for conflict-free ldmatrix, zero past T.
+//     32 keys, not 64, because the kernel is latency-bound: S and dP of
+//     32 keys fit a cap of 128 registers, so 4 blocks (16 warps) share an
+//     SM, where 64-key tiles took 176 registers and left 2.
+//   - Per key tile: S = Q K^T and dP = dO V^T on tensor cores (f32
+//     accumulators; K and V row-major are the B operand through
+//     ldmatrix); per element, owned by one thread, so one exp a (query,
+//     key) pair: scale, mask, p = exp(s - lse), ds = p (dp - rowterm).  dS
+//     is rounded to bf16 in registers (the TPU kernel's cast before its
+//     MXU dot) and is the A operand of dQ += dS K, K's B fragments from
+//     ldmatrix.trans: the C fragments of two 8-key tiles are the A
+//     fragment of 16 keys (mma_bf16.cuh).
+//   - dQ is scaled by `scale` at the end and written in bf16 by the
+//     block that owns the rows.  No atomics.
+//   - Grid: B * H * ceil(T / 64) blocks of 128 threads, query tile
+//     slowest and, under causal masking, counted from the last tile, so
+//     the longest blocks are scheduled first: 768 at both training
+//     shapes.  Shared memory 37 KB at D=64, 70 KB at D=128.
+//
+// K7 in bf16 (flash_bwd_dkv_kernel_tc):
 //   - 4 warps, a block owns a (b, h, 64-key tile), each warp 16 keys.  K
 //     and V are copied once into shared memory and read as A fragments.
 //     The block walks query tiles of 64 rows (32 at D=128, where 64 would
@@ -62,21 +89,22 @@
 // Without causal masking this is every key, as the plain version computes.
 // With causal masking the TPU kernel's answer depends on its tiles (keys
 // above the diagonal in a visited tile count, skipped tiles do not); each
-// kernel here does the same with its own tiles.  K7 (both types): such a
-// row gets p = 1 from every key of its own 64-key block and the blocks
-// before it, 0 from later blocks.  K6 visits 32-key tiles up to its
-// 64-row query tile's end, the same set.  The causal LM never has such
-// rows: position 0 always sees itself.
+// kernel here does the same with its own tiles, and all of them visit one
+// set.  K7 (both types): such a row gets p = 1 from every key of its own
+// 64-key block and the blocks before it, 0 from later blocks.  K6 (both
+// types) walks its key tiles, 32 keys wide, up to min(T, q0 + 64) for its
+// 64-row query tile at q0: the end of the 64-key block that holds the
+// tile's last diagonal, the same set (the bf16 K6 also drops a row's keys
+// past its own 64-key block, so a taller query tile would keep it).  The
+// causal LM never has such rows: position 0 always sees itself.
 //
 // What bounds it on H100.  At head_dim 64, K6 does 3 and K7 4 products of
 // B*H*T*T*D multiply-adds (half of them under the causal skip): at the LM
 // training shape (B=4, T=1024, H=12) that is 9.7 and 12.9 GFLOP against
 // ~32 and ~38 MB, operation-bound on the tensor cores; at BERT's (B=32,
-// T=128) the bytes bound it.  K6 still does its products on the CUDA
-// cores in f32 out of shared memory, far above the tensor-core bound at
-// the LM shape; its tensor-core redesign reuses K7's tile work.  Both
-// keep one read of each K/V (K6) or Q/dO (K7) tile per block, no [T, T]
-// intermediate in device memory, and the causal half skipped.
+// T=128) the bytes bound it.  Both keep one read of each K/V (K6) or
+// Q/dO (K7) tile per block, no [T, T] intermediate in device memory, and
+// the causal half skipped.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -111,21 +139,6 @@ struct Params {
   float scale;
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// The value as the TPU kernel feeds it to a dot: rounded to the input type.
-template <typename T> __device__ __forceinline__ float in_type(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
@@ -133,31 +146,31 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Load this thread's dims (4 (g + 4 j) + u) of one [D] row into regs.
-template <typename T, int D>
-__device__ __forceinline__ void load_row(const T* src, bool ok, int g,
+template <int D>
+__device__ __forceinline__ void load_row(const float* src, bool ok, int g,
                                          float (&dst)[D / 4]) {
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int d = 4 * (g + 4 * j) + u;
-      dst[4 * j + u] = ok ? to_f<T>(src[d]) : 0.f;
+      dst[4 * j + u] = ok ? src[d] : 0.f;
     }
   }
 }
 
-// Stage rows [r0, r0 + kTile) of two [B, T, H, D] tensors as f32, zero past T.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* sa, float* sb, const T* a,
-                                      const T* b, long long a0, long long sat,
+// Stage rows [r0, r0 + kTile) of two [B, T, H, D] tensors, zero past T.
+template <int D>
+__device__ __forceinline__ void stage(float* sa, float* sb, const float* a,
+                                      const float* b, long long a0, long long sat,
                                       long long b0, long long sbt, int r0,
                                       int T_) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D, pos = r0 + r;
     float x = 0.f, y = 0.f;
     if (pos < T_) {
-      x = to_f<T>(a[a0 + pos * sat + d]);
-      y = to_f<T>(b[b0 + pos * sbt + d]);
+      x = a[a0 + pos * sat + d];
+      y = b[b0 + pos * sbt + d];
     }
     sa[i] = x;
     sb[i] = y;
@@ -196,19 +209,20 @@ __device__ __forceinline__ void axpy(float (&acc)[D / 4], float w,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_row(void* dst, long long base, int g,
                                           const float (&x)[D / 4], float mul) {
-  T* out = static_cast<T*>(dst) + base;
+  float* out = static_cast<float*>(dst) + base;
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) out[4 * (g + 4 * j) + u] = from_f<T>(mul * x[4 * j + u]);
+    for (int u = 0; u < 4; ++u) out[4 * (g + 4 * j) + u] = mul * x[4 * j + u];
   }
 }
 
-// K6: dq for one (b, h, 64-row query tile), looping over key tiles.
-template <typename T, int D>
+// K6 in float32 (the bf16 K6 is flash_bwd_dq_kernel_tc below): dq for one
+// (b, h, 64-row query tile), looping over 32-key tiles.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   __shared__ __align__(16) float sK[kTile * D];
   __shared__ __align__(16) float sV[kTile * D];
@@ -218,14 +232,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int qpos = q0 + r;
   const bool row_ok = qpos < p.T;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
 
   float qr[D / 4], dor[D / 4], acc[D / 4];
-  load_row<T, D>(q + b * p.sqb + qpos * p.sqt + h * p.sqh, row_ok, g, qr);
-  load_row<T, D>(dout + b * p.sob + qpos * p.sot + h * p.soh, row_ok, g, dor);
+  load_row<D>(q + b * p.sqb + qpos * p.sqt + h * p.sqh, row_ok, g, qr);
+  load_row<D>(dout + b * p.sob + qpos * p.sot + h * p.soh, row_ok, g, dor);
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
   const long long row = (static_cast<long long>(b) * p.H + h) * p.T + qpos;
@@ -236,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const int k_end = p.causal ? min(p.T, q0 + kRows) : p.T;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(sK, sV, k, v, b * p.skb + h * p.skh, p.skt,
-                b * p.svb + h * p.svh, p.svt, k0, p.T);
+    stage<D>(sK, sV, k, v, b * p.skb + h * p.skh, p.skt,
+             b * p.svb + h * p.svh, p.svt, k0, p.T);
     if (tid < kTile) {
       const int pos = k0 + tid;
       sValid[tid] = pos >= p.T ? -1
@@ -255,14 +269,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
       if (row_ok && valid >= 0) {
         s *= p.scale;
         if (valid == 0 || (p.causal && k0 + c > qpos)) s = kNegInf;
-        ds = in_type<T>(expf(s - lse) * (dp - rt));
+        ds = expf(s - lse) * (dp - rt);  // f32: no rounding to the type
       }
       axpy<D>(acc, ds, sK + c * D, g);
     }
   }
   if (!row_ok) return;
-  store_row<T, D>(p.dq, ((static_cast<long long>(b) * p.T + qpos) * p.H + h) * D,
-                  g, acc, p.scale);
+  store_row<D>(p.dq, ((static_cast<long long>(b) * p.T + qpos) * p.H + h) * D,
+               g, acc, p.scale);
 }
 
 // K7 in float32 (the bf16 K7 is flash_bwd_dkv_kernel_tc below): dk and dv
@@ -288,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const float* dout = static_cast<const float*>(p.dout);
 
   float kr[D / 4], vr[D / 4], dk[D / 4], dv[D / 4];
-  load_row<float, D>(k + b * p.skb + kpos * p.skt + h * p.skh, key_ok, g, kr);
-  load_row<float, D>(v + b * p.svb + kpos * p.svt + h * p.svh, key_ok, g, vr);
+  load_row<D>(k + b * p.skb + kpos * p.skt + h * p.skh, key_ok, g, kr);
+  load_row<D>(v + b * p.svb + kpos * p.svt + h * p.svh, key_ok, g, vr);
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
   const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
@@ -298,8 +312,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const int q_begin = p.causal ? k0 : 0;
   for (int q0 = q_begin; q0 < p.T; q0 += kTile) {
     __syncthreads();
-    stage<float, D>(sQ, sO, q, dout, b * p.sqb + h * p.sqh, p.sqt,
-                b * p.sob + h * p.soh, p.sot, q0, p.T);
+    stage<D>(sQ, sO, q, dout, b * p.sqb + h * p.sqh, p.sqt,
+             b * p.sob + h * p.soh, p.sot, q0, p.T);
     if (tid < kTile) {
       const int pos = q0 + tid;
       const bool ok = pos < p.T;
@@ -327,8 +341,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
   if (!key_ok) return;
   const long long base = ((static_cast<long long>(b) * p.T + kpos) * p.H + h) * D;
-  store_row<float, D>(p.dk, base, g, dk, p.scale);
-  store_row<float, D>(p.dv, base, g, dv, 1.f);
+  store_row<D>(p.dk, base, g, dk, p.scale);
+  store_row<D>(p.dv, base, g, dv, 1.f);
 }
 
 constexpr int kTcKeys = 64;      // keys a K7 block owns, 16 per warp
@@ -523,6 +537,207 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_kernel_tc(Params p) 
   }
 }
 
+constexpr int kDqWarps = 4;                // bf16 K6: warps a block
+constexpr int kDqThreads = 32 * kDqWarps;
+constexpr int kDqRows = 16 * kDqWarps;     // query rows a block owns
+static_assert(kDqRows % 64 == 0, "K6 query tiles hold whole 64-key blocks");
+
+// Keys per staged tile of the bf16 K6.  32, not 64: S and dP of 32 keys
+// leave room under a 128-register cap, so four blocks share an SM.
+constexpr int kDqKeys = 32;
+
+// Blocks of the bf16 K6 an SM holds at once: 4 (a cap of 128 registers a
+// thread) up to D=64; at D=128 the fragments alone take ~200 registers.
+template <int D> __host__ __device__ constexpr int tc_dq_min_blocks() {
+  return D == 128 ? 1 : 4;
+}
+
+template <int D> constexpr size_t tc_dq_smem() {
+  return sizeof(__nv_bfloat16) * (2 * kDqRows + 4 * kDqKeys) * (D + 8);
+}
+
+// K6 in bf16 on the tensor cores: dq for one (b, h, kDqRows-row query
+// tile).
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, tc_dq_min_blocks<D>())
+    flash_bwd_dq_kernel_tc(Params p) {
+  constexpr int kN = kDqKeys;
+  constexpr int kStride = D + 8;  // padded row, in elements
+  constexpr int kTile = kN * kStride;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* sO = sQ + kDqRows * kStride;
+  __nv_bfloat16* sK = sO + kDqRows * kStride;  // [2][kN][kStride]
+  __nv_bfloat16* sV = sK + 2 * kTile;          // [2][kN][kStride]
+
+  // Longest first: the slowest part of the block index is the query tile,
+  // from the last tile when causal.
+  const int n_tiles = (p.T + kDqRows - 1) / kDqRows;
+  const int bh = blockIdx.x % (p.B * p.H);
+  const int order = blockIdx.x / (p.B * p.H);
+  const int qt = p.causal ? n_tiles - 1 - order : order;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * kDqRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + h * p.skh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + h * p.svh;
+  const __nv_bfloat16* dout =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.sob + h * p.soh;
+  const int32_t* mask = p.mask == nullptr ? nullptr : p.mask + b * p.T;
+  const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
+  float lse[2], rt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < p.T ? p.lse[rows + row] : 0.f;
+    rt[r] = row < p.T ? p.rowterm[rows + row] : 0.f;
+  }
+
+  // Causal tile skip: keys up to the end of the 64-key block that holds
+  // this tile's last diagonal, whatever kN; inside, a row's keys past its
+  // own 64-key block are no keys (the set K7 visits, header).
+  const int k_end = p.causal ? min(p.T, q0 + kDqRows) : p.T;
+  const int n_k = (k_end + kN - 1) / kN;
+  tc::load_rows<D, kDqRows, kDqThreads>(sQ, q, p.sqt, q0, p.T);
+  tc::load_rows<D, kDqRows, kDqThreads>(sO, dout, p.sot, q0, p.T);
+  tc::load_rows<D, kN, kDqThreads>(sK, k, p.skt, 0, p.T);
+  tc::load_rows<D, kN, kDqThreads>(sV, v, p.svt, 0, p.T);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4], of[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int a_off = (warp * 16 + tc::a_lane_row(lane)) * kStride +
+                      kk * 16 + tc::a_lane_col(lane);
+    tc::ldsm_x4(qf[kk], sQ + a_off);
+    tc::ldsm_x4(of[kk], sO + a_off);
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  for (int j = 0; j < n_k; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_k) {  // tile j + 1 into the other stage, in flight
+      const int next = (j + 1) * kN;
+      tc::load_rows<D, kN, kDqThreads>(sK + (stage ^ 1) * kTile, k, p.skt,
+                                       next, p.T);
+      tc::load_rows<D, kN, kDqThreads>(sV + (stage ^ 1) * kTile, v, p.svt,
+                                       next, p.T);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile j has landed (this thread's copies)
+    __syncthreads();         // ... and everyone's
+    const __nv_bfloat16* tK = sK + stage * kTile;
+    const __nv_bfloat16* tV = sV + stage * kTile;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x kN keys.
+    float s[kN / 8][4], dp[kN / 8][4];
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kN / 16; ++np) {
+        const int b_off = (np * 16 + tc::b_lane_row(lane)) * kStride +
+                          kk * 16 + tc::b_lane_col(lane);
+        uint32_t rk[4], rv[4];
+        tc::ldsm_x4(rk, tK + b_off);
+        tc::ldsm_x4(rv, tV + b_off);
+        tc::mma(s[2 * np], qf[kk], rk[0], rk[1]);
+        tc::mma(s[2 * np + 1], qf[kk], rk[2], rk[3]);
+        tc::mma(dp[2 * np], of[kk], rv[0], rv[1]);
+        tc::mma(dp[2 * np + 1], of[kk], rv[2], rv[3]);
+      }
+    }
+
+    // One exp a (query, key) pair: dp becomes ds.  Only tiles on the
+    // diagonal block, at the ragged end or under a mask test each pair.
+    const int k0 = j * kN;
+    const bool full = mask == nullptr && k0 + kN <= p.T &&
+                      q0 + kDqRows <= p.T && !(p.causal && k0 + kN > q0);
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * i + 2 * t4 + (e & 1);
+        const int r = e >> 1, row = row0 + 8 * r;
+        float x = s[i][e] * p.scale;
+        float pr = 0.f;
+        if (full) {
+          pr = __expf(x - lse[r]);
+        } else if (key < p.T && row < p.T &&
+                   !(p.causal && key >= (row | 63) + 1)) {
+          if ((mask != nullptr && mask[key] == 0) ||
+              (p.causal && key > row)) {
+            x = kNegInf;
+          }
+          pr = __expf(x - lse[r]);
+        }
+        dp[i][e] = pr * (dp[i][e] - rt[r]);
+      }
+    }
+
+    // dQ += dS K, dS rounded to bf16 in registers as the A operand.
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      uint32_t da[4];
+      tc::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t rk[4];
+        tc::ldsm_x4_t(rk, tK + (kk * 16 + tc::bt_lane_row(lane)) * kStride +
+                              dn * 16 + tc::bt_lane_col(lane));
+        tc::mma(dq[2 * dn], da, rk[0], rk[1]);
+        tc::mma(dq[2 * dn + 1], da, rk[2], rk[3]);
+      }
+    }
+    __syncthreads();  // stage j & 1 is free for tile j + 2
+  }
+
+  __nv_bfloat16* gdq = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.T) continue;
+    const long long base =
+        ((static_cast<long long>(b) * p.T + row) * p.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<uint32_t*>(gdq + base + 8 * i + 2 * t4) =
+          tc::pack(p.scale * dq[i][2 * r], p.scale * dq[i][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tc_dq_smem<D>()));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int blocks = p.B * p.H * ((p.T + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel_tc<D>
+      <<<blocks, kDqThreads, tc_dq_smem<D>(), stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   static bool configured = false;
@@ -541,17 +756,17 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, bool dkv, cudaStream_t stream) {
-  dim3 grid((p.T + kRows - 1) / kRows, p.H, p.B);
-  if (dkv) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      return launch_dkv_bf16<D>(p, stream);
-    } else {
-      flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, stream>>>(p);
-    }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return dkv ? launch_dkv_bf16<D>(p, stream) : launch_dq_bf16<D>(p, stream);
   } else {
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+    dim3 grid((p.T + kRows - 1) / kRows, p.H, p.B);
+    if (dkv) {
+      flash_bwd_dkv_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    } else {
+      flash_bwd_dq_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

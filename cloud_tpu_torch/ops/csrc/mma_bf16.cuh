@@ -1,7 +1,7 @@
 // bf16 tensor-core building blocks shared by the flash kernels (sm_80 and
 // later, used here on sm_90a): 16-byte cp.async copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 mma.sync product with f32
-// accumulators, all as inline PTX.
+// accumulators, all as inline PTX.  The paged kernel uses the copies.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (lane = 4 * g + t4):
 //   A (16 x 16, row major), 4 regs of 2 bf16: a0 (row g, cols 2 t4 + {0, 1}),

@@ -149,8 +149,10 @@ def check(name: str, code: int) -> None:
 
 
 def count_launch(name: str) -> None:
-    """One more launch of kernel ``name`` (one of :data:`KERNELS`)."""
-    _counts[name] += 1
+    """One more launch of kernel ``name`` (one of :data:`KERNELS`).  Under
+    a lock: the engine's warmup worker launches beside its scheduler."""
+    with _lock:
+        _counts[name] += 1
 
 
 def launch_counts(names: Optional[Iterable[str]] = None) -> Dict[str, int]:

@@ -15,14 +15,18 @@ Dispatch is by device alone: CPU tensors take :func:`_reference` (a
 term-for-term port of the jnp reference, post-scale int8 algebra included),
 CUDA tensors launch ``csrc/paged_attention.cu`` (see its header for the
 design and what bounds it) or raise: K8 (``paged_attention``) for K/V of
-q's type, K8q (``paged_attention_int8``) for int8 K/V.
+q's type, K8q (``paged_attention_int8``) for int8 K/V.  Each call splits a
+row's live pages across :func:`plan_splits` blocks (flash-decoding) and
+merges their partials in a second, small kernel: two kernels a call, one
+launch counted.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +40,32 @@ DEFAULT_PAGE_TOKENS = 128
 #: Head dims and the largest query count the kernel is compiled for.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_MAX_TQ = 64
+
+#: Blocks per SM the split aims for, and the most splits a row takes.
+SPLIT_BLOCKS_PER_SM = 4
+MAX_SPLITS = 64
+
+
+def plan_splits(b: int, h: int, s: int, bt: int, sms: int) -> int:
+    """How many blocks share a (row, head)'s pages: enough that
+    ``b * h * n`` blocks give every one of ``sms`` SMs
+    :data:`SPLIT_BLOCKS_PER_SM`, but no more than the ``ceil(s / bt)``
+    pages of a row (no split narrower than a page) or :data:`MAX_SPLITS`.
+    Static shapes only: the lengths live on the card and are never read
+    here."""
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * h))
+    return max(1, min(want, -(-s // bt), MAX_SPLITS))
+
+
+def split_pages(n_live: int, n_split: int, split: int) -> Tuple[int, int]:
+    """Pages ``[first, end)`` of split ``split`` when a row has ``n_live``
+    live pages: its even share, as the kernel computes it."""
+    return split * n_live // n_split, (split + 1) * n_live // n_split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _gather_paged(slot_leaf, pool_leaf, block_table):
@@ -137,11 +167,18 @@ def _kernel_fn(name):
     if fn is None:
         fn = getattr(dispatch.load("paged_attention"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        pointers = 8 if name == "paged_attention" else 12
-        fn.argtypes = [p] * pointers + [i] * 7 + [ctypes.c_float, i, i, p]
+        pointers = 10 if name == "paged_attention" else 14
+        fn.argtypes = [p] * pointers + [i] * 8 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _aligned(x):
+    """``x`` contiguous and starting on 16 bytes (the kernel copies K/V
+    rows in 16-byte ``cp.async`` pieces): itself, or a copy."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
@@ -195,11 +232,8 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
     if any(x.device != q.device for x in tensors):
         raise ValueError("q, cache and pool must lie on one device")
     q = q.contiguous()
-    slot = [x.contiguous() for x in slot]
-    pool = None if pool is None else [x.contiguous() for x in pool]
-    if quantized and any(x.data_ptr() % 4 for x in slot[:2] + (pool or [])[:2]):
-        raise ValueError("int8 K/V must start on a 4-byte boundary (char4 "
-                         "loads)")
+    slot = [_aligned(x) for x in slot]
+    pool = None if pool is None else [_aligned(x) for x in pool]
     table = None
     n_tab = 0
     if block_table is not None:
@@ -207,6 +241,10 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
         n_tab = table.shape[1]
     lens = cur_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    n_split = plan_splits(b, h, s, bt, _sm_count(q.device.index))
+    # The splits' partials: (m, l) then acc[hd] of each, f32, one block.
+    parts = b * tq * h * n_split
+    work = torch.empty(parts * (d + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pool_ptrs = ([None] * len(names) if pool is None
                  else [x.data_ptr() for x in pool])
@@ -214,8 +252,9 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
     rc = _kernel_fn(name)(
         q.data_ptr(), *(x.data_ptr() for x in slot), *pool_ptrs,
         None if table is None else table.data_ptr(),
-        lens.data_ptr(), out.data_ptr(),
-        b, tq, h, d, s, bt, n_tab, 1.0 / math.sqrt(d),
+        lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+        work.data_ptr() + 4 * 2 * parts,
+        b, tq, h, d, s, bt, n_tab, n_split, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), q.device.index, stream,
     )
     dispatch.check("paged_attention", rc)

@@ -24,8 +24,11 @@ once per chunk (the chunk's emissions), never per token.  Greedy outputs
 are token-identical to a direct ``generation.generate`` call per request.
 
 The port has the continuous scheduler with depth 1, one-shot inserts,
-``kv_quant`` and int8 weights.  Every other ``ServeConfig`` feature of the
-JAX engine raises ``NotImplementedError`` naming the ROADMAP.md item that
+``kv_quant``, int8 weights and ``warmup`` (kernels built and one throwaway
+insert per prompt bucket and one decode chunk run on a worker thread,
+``wait_ready()`` to block on it).  The engine takes every field, keyword
+and method of the JAX engine; each value whose feature the port does not
+have yet raises ``NotImplementedError`` naming the ROADMAP.md item that
 brings it.
 """
 
@@ -45,11 +48,16 @@ import torch
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import generation, transformer
+from cloud_tpu_torch.ops import dispatch
 
 logger = logging.getLogger(__name__)
 
 #: Scheduler-thread name (prefix match in tests' thread-leak guards).
 SERVE_SCHEDULER_THREAD_NAME = "cloud-tpu-torch-serve-scheduler"
+#: Warmup worker's name (the same prefix, so the same guards see it).
+SERVE_WARMUP_THREAD_NAME = SERVE_SCHEDULER_THREAD_NAME + "-warmup"
+#: The kernel libraries the serving path launches (K5, K8/K8q).
+SERVING_LIBRARIES = ("flash_fwd", "paged_attention")
 
 
 class QueueFullError(RuntimeError):
@@ -82,11 +90,15 @@ class ServeConfig:
     ``chunk_tokens`` is the scheduling quantum.  ``decode_kernel`` keeps
     the JAX values: in this slice every setting reads the slot rows
     through the paged kernel (there is no prefix pool to attach).
+    ``warmup`` builds the kernels and runs the serving programs once at
+    construction (``ServingEngine.wait_ready``).  ``flush_deadline_s`` is
+    stored for the batch scheduler, which is not ported yet.
     """
 
     max_new_tokens: int = 32
     prompt_buckets: Tuple[int, ...] = (32, 128, 512)
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    flush_deadline_s: float = 0.01
     max_queue: int = 256
     admission: str = "block"
     scheduler: str = "continuous"
@@ -99,12 +111,16 @@ class ServeConfig:
     draft: Optional[object] = None
     sample: "generation.SampleConfig" = None  # type: ignore[assignment]
     kv_quant: bool = False
+    warmup: bool = False
     seed: int = 0
+    dispatch_timeout_s: Optional[float] = None
     mesh_shape: Optional[Tuple[int, int]] = None
     layout: str = "explicit"
+    hbm_bytes_per_chip: Optional[int] = None
     qos: Optional[object] = None
     decode_kernel: str = "xla"
     role: str = "both"
+    prefix_summary_ttl_s: Optional[float] = None
     pipeline_depth: int = 1
 
     def __post_init__(self):
@@ -165,6 +181,13 @@ class ServeConfig:
             )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.flush_deadline_s < 0:
+            raise ValueError("flush_deadline_s must be >= 0")
+        if self.dispatch_timeout_s is not None and self.dispatch_timeout_s <= 0:
+            raise ValueError(
+                f"dispatch_timeout_s must be > 0 or None, "
+                f"got {self.dispatch_timeout_s}"
+            )
         if self.decode_kernel not in ("auto", "pallas", "xla"):
             raise ValueError(
                 f"decode_kernel must be 'auto', 'pallas', or 'xla', "
@@ -175,6 +198,12 @@ class ServeConfig:
                 f"role must be 'prefill', 'decode', or 'both', "
                 f"got {self.role!r}"
             )
+        if (self.prefix_summary_ttl_s is not None
+                and self.prefix_summary_ttl_s <= 0):
+            raise ValueError(
+                f"prefix_summary_ttl_s must be > 0 or None, got "
+                f"{self.prefix_summary_ttl_s}"
+            )
         if self.pipeline_depth not in (1, 2):
             raise ValueError(
                 f"pipeline_depth must be 1 or 2, got "
@@ -183,6 +212,12 @@ class ServeConfig:
         if self.layout not in ("explicit", "auto"):
             raise ValueError(
                 f"layout must be 'explicit' or 'auto', got {self.layout!r}"
+            )
+        if (self.hbm_bytes_per_chip is not None
+                and self.hbm_bytes_per_chip < 1):
+            raise ValueError(
+                f"hbm_bytes_per_chip must be >= 1 or None, got "
+                f"{self.hbm_bytes_per_chip}"
             )
         self._refuse_later_features()
 
@@ -203,12 +238,19 @@ class ServeConfig:
             raise _later("qos= (priority scheduling)", "4e")
         if self.pipeline_depth != 1:
             raise _later("pipeline_depth=2 (pipelined scheduling)", "4f")
+        if self.dispatch_timeout_s is not None:
+            raise _later("dispatch_timeout_s (the dispatch watchdog)", "4f")
+        if self.prefix_summary_ttl_s is not None:
+            raise _later("prefix_summary_ttl_s (the prefix cache's router "
+                         "summary)", "4a/5")
         if self.role != "both":
             raise _later(f"role={self.role!r} (disaggregated serving)", "5")
         if self.layout == "auto" or (
                 self.mesh_shape is not None
                 and tuple(self.mesh_shape) != (1, 1)):
             raise _later("mesh_shape/layout='auto' (multi-card serving)", "6")
+        if self.hbm_bytes_per_chip is not None:
+            raise _later("hbm_bytes_per_chip (multi-card serving)", "6")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,10 +313,13 @@ def _check_quantized_leaves(tree, path="params"):
 class ServingEngine:
     """In-process continuous-batching server over ``generation``.
     Construct, ``submit()`` from any thread, ``close()`` when done (or use
-    as a context manager).  Runs on ``device`` (default ``cuda``)."""
+    as a context manager).  Runs on ``device`` (default ``cuda``).
+    ``rules`` and ``mesh`` (sharded serving) take ``None`` only."""
 
     def __init__(self, params, config, serve_config: Optional[ServeConfig] = None,
-                 *, device=None, start: bool = True):
+                 *, rules=None, mesh=None, device=None, start: bool = True):
+        if rules is not None or mesh is not None:
+            raise _later("rules=/mesh= (sharded serving)", "6")
         self.device = resolve_device(device)
         transformer.check_supported(config)
         _check_quantized_leaves(params)
@@ -325,6 +370,12 @@ class ServingEngine:
         self._slot_table: List[Optional[_Slot]] = [None] * cfg.num_slots
         self._free_slots = list(range(cfg.num_slots))[::-1]
         self._active_slots: set = set()
+        self._warmup_thread: Optional[threading.Thread] = None
+        if cfg.warmup:
+            self._warmup_thread = threading.Thread(
+                target=self._warmup, daemon=True,
+                name=SERVE_WARMUP_THREAD_NAME)
+            self._warmup_thread.start()
         if start:
             self.start()
 
@@ -344,11 +395,73 @@ class ServingEngine:
             self._thread.start()
         return self
 
+    def _warmup(self) -> None:
+        """Build the serving kernels, then run each program once at the
+        engine's shapes: one insert per prompt bucket and one decode chunk,
+        on a scratch grid with its own generator that are thrown away, so
+        no request's slot, cache or sampling state is touched and no token
+        changes.  A failure is logged; the programs then run cold."""
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+                dispatch.build_all(SERVING_LIBRARIES)
+            cfg = self.serve_config
+            cache = generation.init_slot_cache(
+                self.config, cfg.num_slots, self._max_len, device=self.device,
+                kv_quant=cfg.kv_quant)
+            state = generation.init_slot_state(
+                self.config, cfg.num_slots, sample=cfg.sample,
+                device=self.device)
+            generator = torch.Generator(device=self.device)
+            with torch.no_grad():
+                for bucket_len in cfg.prompt_buckets:
+                    tokens = torch.ones((1, bucket_len), dtype=torch.int32)
+                    cache, state, _ = generation.insert_slot_program(
+                        self.params, cache, state, tokens, bucket_len, 0,
+                        cfg.max_new_tokens, self.config, sample=cfg.sample,
+                        generator=generator)
+                _, _, toks, _ = generation.decode_chunk_program(
+                    self.params, cache, state, self.config,
+                    chunk_size=cfg.chunk_tokens, sample=cfg.sample,
+                    generator=generator, block_table=self._block_table)
+                toks.cpu()  # the card has run it
+        except Exception:  # noqa: BLE001 — logged; serving still works
+            logger.exception("serving warmup failed; programs run cold")
+
+    def wait_ready(self, timeout: Optional[float] = None) -> None:
+        """Block until the warmup has run (no-op without
+        ``warmup=True``)."""
+        if self._warmup_thread is not None:
+            self._warmup_thread.join(timeout)
+
+    def set_trace_lane(self, lane: Optional[int]) -> None:
+        """Timeline lanes are not ported: only ``None`` (no lane)."""
+        if lane is not None:
+            raise _later("set_trace_lane (request tracing)", "4e")
+
+    def set_role(self, role: str) -> None:
+        """Disaggregated roles are not ported: only ``"both"``."""
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'both', got {role!r}"
+            )
+        if role != "both":
+            raise _later(f"set_role({role!r}) (disaggregated serving)", "5")
+
+    @property
+    def chunk_traces(self) -> int:
+        raise _later("chunk_traces (the JAX engine's compile count)", "4c/4e")
+
+    @property
+    def verify_traces(self) -> int:
+        raise _later("verify_traces (speculative decoding)", "4c/4e")
+
     def close(self, drain: bool = True, timeout: Optional[float] = None
               ) -> None:
         """Stop the engine: no more admissions.  ``drain=True`` serves every
         admitted request first; ``drain=False`` fails waiting and in-flight
-        requests with :class:`EngineClosedError`.  Joins the scheduler."""
+        requests with :class:`EngineClosedError`.  Joins the scheduler and
+        the warmup worker."""
         with self._cond:
             self._closed = True
             self._draining = drain
@@ -359,6 +472,7 @@ class ServingEngine:
             thread = self._thread
         if thread is not None:
             thread.join(timeout)
+        self.wait_ready(timeout)
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -374,12 +488,23 @@ class ServingEngine:
         return self.serve_config.prompt_buckets[-1]
 
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None,
+               priority: Optional[str] = None, stream: bool = False,
+               on_token=None, trace=None, handoff_export: bool = False,
+               handoff: Optional[dict] = None) -> Future:
         """Enqueue one prompt (1-D token ids, length 1 ..
         ``prompt_buckets[-1]``); returns a Future of :class:`ServeResult`.
         ``max_new_tokens`` may be below the engine-wide budget.  Blocks or
         raises :class:`QueueFullError` at ``max_queue`` per the admission
-        policy; ``deadline_s`` bounds the queue wait."""
+        policy; ``deadline_s`` bounds the queue wait.  The QoS and handoff
+        keywords take their defaults only."""
+        if (priority is not None or stream or on_token is not None
+                or trace is not None):
+            raise _later("submit(priority=, stream=, on_token=, trace=) "
+                         "(QoS, streaming and request tracing)", "4e")
+        if handoff_export or handoff is not None:
+            raise _later("submit(handoff_export=, handoff=) (disaggregated "
+                         "serving)", "5")
         cfg = self.serve_config
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")

@@ -1,5 +1,5 @@
-"""Paired A/B of the flash-attention kernels between two trees of this repo,
-on one CUDA card.
+"""Paired A/B of the attention kernels (flash and paged) between two trees
+of this repo, on one CUDA card.
 
     python3 flash_ab.py --parent DIR [--out FILE]
 
@@ -7,15 +7,18 @@ on one CUDA card.
 unpacked with ``git archive`` into a git-ignored directory.  The script
 runs four child processes in the order parent, this tree, this tree,
 parent.  Each imports ``cloud_tpu_torch`` from its own tree (so it builds
-and launches that tree's ``flash_fwd.cu`` and ``flash_bwd.cu``) and the
-timing helpers from this tree's ``chip_smoke.py``, then measures, at the
-shapes ``chip_smoke.py`` uses:
+and launches that tree's ``flash_fwd.cu``, ``flash_bwd.cu`` and
+``paged_attention.cu``) and the timing helpers from this tree's
+``chip_smoke.py``, then measures, at the shapes ``chip_smoke.py`` uses:
 
 - K5 at the serving insert shape (B=1, T=128, masked), and K5, K6, K7 at
   the LM (B=4, T=1024, causal) and BERT (B=32, T=128) training shapes,
   each in CUDA-event time (``ms``: events around back-to-back calls) and
   in device time (``device_ms``: torch.profiler's kernel rows), beside
   the plain version and SDPA;
+- K8 and K8q at the engine's decode step (B=8, Tq=1, slot rows of S=576)
+  and at S=4096, in event and device time, beside SDPA on the same K/V in
+  bf16 (dequantized beforehand for K8q);
 - one CloudLM SMALL b4 x T1024 training step and one BERT-base b32 x T128
   step: steps/s over 3 + 5 chained steps, then one profiled step split
   into K5, K6, K7, matrix products and the rest.
@@ -72,8 +75,9 @@ def child(tree: str, card: str) -> dict:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     start = time.perf_counter()
-    dispatch.build_all(["flash_fwd", "flash_bwd"])
-    print(f"  built flash_fwd, flash_bwd of {tree} in "
+    libraries = ["flash_fwd", "flash_bwd", "paged_attention"]
+    dispatch.build_all(libraries)
+    print(f"  built {', '.join(libraries)} of {tree} in "
           f"{time.perf_counter() - start:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -90,6 +94,8 @@ def child(tree: str, card: str) -> dict:
             fa, q, k, v, mask, card)}}
     for path in cs.TRAIN_SHAPES:
         kernels[path] = cs._time_attention(fa, path, card, gen)
+    with torch.no_grad():
+        kernels.update(_time_paged(cs, device, card, gen))
 
     lm, lm_run = cs.run_lm_training(device, card, fused_ce=False, warmup=3,
                                     iters=5)
@@ -103,6 +109,27 @@ def child(tree: str, card: str) -> dict:
         *bert_run))
     return {"tree": tree, "kernels": kernels, "steps": {"LM": lm,
                                                         "BERT": bert}}
+
+
+def _time_paged(cs, device, card, gen) -> dict:
+    """K8 and K8q at every ``chip_smoke.PAGED_LENGTHS`` slot length, on one
+    set of decode rows a length (``chip_smoke._time_paged_int8``: K8q on
+    int8 K/V, K8 on the bf16 K/V they were quantized from); the library
+    yardstick of both is SDPA on the dequantized bf16 K/V."""
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    out = {}
+    for s in cs.PAGED_LENGTHS:
+        t = cs._time_paged_int8(pa, device, card, gen, s)
+        library = {"library_ms": t["library_ms"],
+                   "library_device_ms": t["library_device_ms"]}
+        out[f"S={s}"] = {
+            "paged_attention": {"ms": t["bf16_k8_ms"],
+                                "device_ms": t["bf16_k8_device_ms"],
+                                **library},
+            "paged_attention_int8": {"ms": t["ms"],
+                                     "device_ms": t["device_ms"], **library}}
+    return out
 
 
 def host_checks(tree: str) -> dict:
@@ -140,7 +167,7 @@ def _mean(runs, *keys):
 def report(parent_runs, change_runs, card) -> None:
     """Parent against this tree, each the mean of its runs."""
     print(f"flash A/B, mean of {len(parent_runs)} runs a side [{card}]")
-    print(f"  {'kernel':14s} {'shape':8s} {'measure':18s} "
+    print(f"  {'kernel':20s} {'shape':8s} {'measure':18s} "
           f"{'parent ms':>11s} {'this ms':>11s} {'ratio':>8s}")
     for shape, by_kernel in change_runs[0]["kernels"].items():
         for name in by_kernel:
@@ -149,7 +176,7 @@ def report(parent_runs, change_runs, card) -> None:
                 keys = ("kernels", shape, name, measure)
                 before = _mean(parent_runs, *keys)
                 after = _mean(change_runs, *keys)
-                print(f"  {name:14s} {shape:8s} {measure:18s} "
+                print(f"  {name:20s} {shape:8s} {measure:18s} "
                       f"{before:11.5f} {after:11.5f} "
                       f"{before / after if after else float('nan'):8.2f}")
     for path in ("LM", "BERT"):

@@ -307,3 +307,32 @@ def test_wrappers_refuse_other_devices_and_int8():
                 torch.zeros((1, 1, 2, 16)), slot,
                 torch.ones(1, dtype=torch.int32), pool_l=pool,
                 block_table=None if pool is None else table)
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """The engine's warmup worker and its scheduler count launches at
+    once: 8 threads, 2000 counts each, a short switch interval."""
+    import sys
+    import threading
+
+    from cloud_tpu_torch.ops import dispatch
+
+    dispatch.reset_launch_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            dispatch.count_launch("paged_attention") for _ in range(2000)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    try:
+        assert dispatch.launch_counts(["paged_attention"]) == {
+            "paged_attention": 8 * 2000}
+    finally:
+        dispatch.reset_launch_counts()

@@ -6,9 +6,13 @@ same weights (TINY, f32, tie-free prompts).  Around that: eos retirement
 with an eos id that cannot collide with an earlier greedy token, typed
 admission errors, a clean close, and ``NotImplementedError`` for every
 ``ServeConfig`` feature the port does not have yet.  ``kv_quant`` with
-int8 weights is held against the quantized JAX ``generate``.
+int8 weights is held against the quantized JAX ``generate``.  The engine's
+surface (``ServeConfig`` fields, constructor and ``submit`` keywords,
+public methods) includes the JAX engine's; ``warmup`` changes no token.
 """
 
+import dataclasses
+import inspect
 import threading
 import time
 
@@ -19,6 +23,7 @@ import torch
 
 from cloud_tpu.models import generation as jax_gen
 from cloud_tpu.serving import ServeConfig as JaxServeConfig
+from cloud_tpu.serving import ServingEngine as JaxServingEngine
 from cloud_tpu_torch.models import generation, transformer
 from cloud_tpu_torch.serving import (
     SERVE_SCHEDULER_THREAD_NAME,
@@ -248,6 +253,10 @@ def test_kv_quant_int8_weights_token_identical_to_jax(qmodels):
     dict(pipeline_depth=3),
     dict(role="router"),
     dict(max_queue=0),
+    dict(flush_deadline_s=-1.0),
+    dict(dispatch_timeout_s=0.0),
+    dict(prefix_summary_ttl_s=0.0),
+    dict(hbm_bytes_per_chip=0),
 ], ids=lambda kw: "-".join(kw))
 def test_validation_messages_match_jax(kw):
     with pytest.raises(ValueError) as want:
@@ -275,3 +284,108 @@ def test_default_device_is_cuda(models):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(tparams, cfg, ServeConfig(), start=False)
     assert transformer.TINY.dtype == torch.bfloat16
+
+
+def test_serve_config_fields_match_jax():
+    """The same fields in the same order, so positional and keyword
+    construction both carry over."""
+    assert ([f.name for f in dataclasses.fields(ServeConfig)]
+            == [f.name for f in dataclasses.fields(JaxServeConfig)])
+    port, ref = ServeConfig(), JaxServeConfig()
+    for name in ("flush_deadline_s", "warmup", "dispatch_timeout_s",
+                 "hbm_bytes_per_chip", "prefix_summary_ttl_s"):
+        assert getattr(port, name) == getattr(ref, name)
+
+
+def _keywords(fn):
+    return {name for name, p in inspect.signature(fn).parameters.items()
+            if p.kind is inspect.Parameter.KEYWORD_ONLY}
+
+
+def _public(cls):
+    return {name for name, _ in inspect.getmembers(cls)
+            if not name.startswith("_")}
+
+
+def test_engine_surface_includes_jax():
+    """Every keyword of the JAX engine's constructor and ``submit``, and
+    every public method or property, exists in the port."""
+    assert _keywords(JaxServingEngine.__init__) <= _keywords(
+        ServingEngine.__init__)
+    assert _keywords(JaxServingEngine.submit) <= _keywords(
+        ServingEngine.submit)
+    assert _public(JaxServingEngine) <= _public(ServingEngine)
+
+
+def test_warmup_then_wait_ready_changes_no_token(models, prompts):
+    """``warmup=True`` with ``mesh=None`` and ``wait_ready()``, as every
+    serving probe of the bench builds its engine: the same tokens as
+    without warmup and as JAX ``generate``."""
+    _, _, cfg, tparams = models
+    toks, lens, jax_tokens = prompts
+    served = {}
+    for warmup in (True, False):
+        serve = ServeConfig(max_new_tokens=MAX_NEW, prompt_buckets=(8, 16),
+                            num_slots=2, chunk_tokens=3, warmup=warmup)
+        with ServingEngine(tparams, cfg, serve, mesh=None,
+                           device="cpu") as engine:
+            engine.wait_ready()
+            if warmup:
+                assert not engine._warmup_thread.is_alive()
+            futures = [engine.submit(toks[i, :lens[i]]) for i in range(3)]
+            served[warmup] = [f.result(timeout=120).tokens for f in futures]
+            assert engine.stats()["inserts"] == 3
+    for i in range(3):
+        np.testing.assert_array_equal(served[True][i], jax_tokens[i])
+        np.testing.assert_array_equal(served[False][i], served[True][i])
+    assert not _scheduler_threads()
+
+
+#: Each value of the JAX engine's surface whose feature the port lacks,
+#: with the ROADMAP.md item its NotImplementedError names.
+UNPORTED = {
+    "ServeConfig-dispatch_timeout_s": (
+        "4f", lambda e: ServeConfig(dispatch_timeout_s=1.0)),
+    "ServeConfig-hbm_bytes_per_chip": (
+        "6", lambda e: ServeConfig(hbm_bytes_per_chip=2**30)),
+    "ServeConfig-prefix_summary_ttl_s": (
+        "4a/5", lambda e: ServeConfig(prefix_summary_ttl_s=60.0)),
+    "ServeConfig-flush_deadline_s-batch": (
+        "4g", lambda e: ServeConfig(scheduler="batch", flush_deadline_s=0.5)),
+    "engine-mesh": ("6", lambda e: ServingEngine(
+        e.params, e.config, e.serve_config, mesh=object(), device="cpu",
+        start=False)),
+    "engine-rules": ("6", lambda e: ServingEngine(
+        e.params, e.config, e.serve_config, rules=object(), device="cpu",
+        start=False)),
+    "submit-priority": ("4e", lambda e: e.submit([1, 2], priority="high")),
+    "submit-stream": ("4e", lambda e: e.submit([1, 2], stream=True)),
+    "submit-on_token": ("4e", lambda e: e.submit([1, 2], on_token=print)),
+    "submit-trace": ("4e", lambda e: e.submit([1, 2], trace=object())),
+    "submit-handoff_export": (
+        "5", lambda e: e.submit([1, 2], handoff_export=True)),
+    "submit-handoff": ("5", lambda e: e.submit([1, 2], handoff={})),
+    "set_trace_lane": ("4e", lambda e: e.set_trace_lane(3)),
+    "set_role": ("5", lambda e: e.set_role("decode")),
+    "chunk_traces": ("4c/4e", lambda e: e.chunk_traces),
+    "verify_traces": ("4c/4e", lambda e: e.verify_traces),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_values_name_their_item(models, case):
+    _, _, cfg, tparams = models
+    item, call = UNPORTED[case]
+    engine = ServingEngine(tparams, cfg, ServeConfig(max_new_tokens=2,
+                                                     prompt_buckets=(8,)),
+                           device="cpu", start=False)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match=f"section A, item {item}$"):
+            call(engine)
+        # The defaults are accepted and change nothing.
+        engine.set_trace_lane(None)
+        engine.set_role("both")
+        assert engine.stats()["requests"] == 0
+    finally:
+        engine.close()
