@@ -27,9 +27,13 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    S=576 and 4096 with lengths from 1 to S) timed at B=8 with S=576 and
    S=4096 (K8q beside K8 on bf16 K/V at the same lengths and SDPA on K/V
    dequantized beforehand), in event and device time, K1-K4 (GroupNorm)
-   at every shape of a ResNet-50 CIFAR b256 step and at two 224 b128
-   shapes (device time from torch.profiler's kernel rows: a GroupNorm
-   call is shorter than its host launch cost), K5 and K6/K7 (flash
+   at every shape of a ResNet-50 CIFAR b256 step and of a 224 b128 step,
+   plus 30 channels in 6 groups and a misaligned pointer (the scalar
+   route), with bit-identical repeat launches and at most two kernels a
+   call per direction (timed over a CIFAR step's calls, at two 224
+   shapes beside the plain version and at every 224 shape; device time
+   from torch.profiler's kernel rows: a GroupNorm call is shorter than its
+   host launch cost), K5 and K6/K7 (flash
    backward, on K5's out and lse) in 20 cases per type at both training
    shapes plus ragged T (200, 1000), and in bf16 at every head dim the
    kernels take; bf16 K6 and K7 also against their f32 kernels where
@@ -85,6 +89,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -132,7 +137,11 @@ def device_ms(fn, iters: int = 10) -> float:
     """Device time of one call of ``fn``: the summed durations of the CUDA
     kernels it launches (torch.profiler kernel rows), without the host's
     launch gaps that an event pair around back-to-back small launches
-    would include."""
+    would include.  Each kernel counts its mean duration times its
+    launches a call (its records over ``iters``, rounded): now and then a
+    session loses a record, which a plain sum over ``iters`` would read
+    as a faster call.  A session that lost more than a fifth of some
+    kernel's records is run again, three sessions in all."""
     import torch
 
     fn()
@@ -143,28 +152,37 @@ def device_ms(fn, iters: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
 
-    _, rows = profiled(run)
-    return sum(r[0] for r in rows) / 1e3 / iters
+    for attempt in range(3):
+        _, rows = profiled(run)
+        calls = [max(1, round(count / iters)) for _, count, _ in rows]
+        if all(abs(count - k * iters) <= iters // 5
+               for (_, count, _), k in zip(rows, calls)):
+            return sum(us / count * k for (us, count, _), k
+                       in zip(rows, calls)) / 1e3
+    raise AssertionError(f"torch.profiler lost kernel records in three "
+                         f"sessions of {iters} calls: {rows[:4]}")
 
 
 def profiled(run, *, cpu=False, record_shapes=False):
     """``run()`` under torch.profiler (CUDA activity, and CPU's if
     ``cpu``); returns ``(prof, kernel rows)``.  Now and then a session
-    records no kernel at all: such a session is run again, three sessions
-    in all, before :func:`_kernel_rows` raises."""
+    records no kernel at all, sometimes several in a row: such a session
+    is run again after a second's pause, five sessions in all, before
+    :func:`_kernel_rows` raises."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
                                             if cpu else [])
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=activities,
                      record_shapes=record_shapes) as prof:
             run()
         try:
             return prof, _kernel_rows(prof)
         except AssertionError:
-            if attempt == 2:
+            if attempt == 4:
                 raise
+            time.sleep(1.0)
 
 
 def event_and_device_ms(fn, iters: int = 20):
@@ -561,44 +579,58 @@ def _gn_kernel_calls(name, calls):
     return [(shape, relu) for shape, r, relu in calls if r == res]
 
 
-def _gn_inputs(shape, dtype, gen, *, residual, mean=0.0):
+def _gn_inputs(shape, dtype, gen, *, residual, mean=0.0, offset=0):
+    """Seeded inputs of one GroupNorm call; ``offset`` > 0 starts every
+    activation that many elements into its buffer (a pointer that is not
+    16-byte aligned, for the kernels' scalar route)."""
     import torch
 
     device = gen.device
     c = shape[-1]
-    x = (torch.randn(shape, generator=gen, device=device) + mean).to(dtype)
+    numel = int(np.prod(shape))
+
+    def act(shift=0.0):
+        flat = torch.randn((numel + offset,), generator=gen, device=device)
+        return (flat[offset:] + shift).to(dtype).view(shape)
+
+    x = act(mean)
     scale = 1.0 + 0.3 * torch.randn((c,), generator=gen, device=device)
     bias = 0.2 * torch.randn((c,), generator=gen, device=device)
-    res = (torch.randn(shape, generator=gen, device=device).to(dtype)
-           if residual else None)
-    dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+    res = act() if residual else None
+    dy = act()
     return x, scale, bias, res, dy
 
 
-def _check_gn_case(gn, shape, dtype, gen, *, residual, relu, mean=0.0):
+def _check_gn_case(gn, shape, dtype, gen, *, residual, relu, mean=0.0,
+                   groups=GN_GROUPS, offset=0):
     """K1/K2 then K3/K4 against the plain versions on the same inputs (the
     backward on the forward kernel's own statistics, so both recompute the
-    same relu gate).  Returns {kernel: max_abs_err}."""
+    same relu gate; ds and db summed over B, [C]).  Returns {kernel:
+    max_abs_err}."""
     import torch
 
     name = str(dtype).split(".")[1]
     x, scale, bias, res, dy = _gn_inputs(shape, dtype, gen,
-                                         residual=residual, mean=mean)
-    y, m, r = gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
-    ry, rm, rr = gn._fwd_plain(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+                                         residual=residual, mean=mean,
+                                         offset=offset)
+    y, m, r = gn._fwd_kernel(x, scale, bias, res, groups, GN_EPS, relu)
+    ry, rm, rr = gn._fwd_plain(x, scale, bias, res, groups, GN_EPS, relu)
     fwd = "gn_fwd_res" if residual else "gn_fwd"
-    what = f"{fwd} {name} {shape} relu={relu} mean={mean:g}"
+    what = f"{fwd} {name} {shape} relu={relu} mean={mean:g} G={groups}"
     scale_in = float(x.float().abs().max() * rr.max())
     errs = {fwd: max(check_close(what + " y", y, ry, name,
                                  input_scale=scale_in),
                      check_close(what + " mean", m, rm, name, sums=True),
                      check_close(what + " rstd", r, rr, name, sums=True))}
     dx, ds, db, dres = gn._bwd_kernel(x, dy, m, r, scale, bias, res,
-                                      GN_GROUPS, relu)
+                                      groups, relu)
     rdx, rds, rdb, rdres = gn._bwd_plain(x, dy, m, r, scale, bias, res,
-                                         GN_GROUPS, relu)
+                                         groups, relu)
     bwd = "gn_bwd_res" if residual else "gn_bwd"
-    what = f"{bwd} {name} {shape} relu={relu} mean={mean:g}"
+    what = f"{bwd} {name} {shape} relu={relu} mean={mean:g} G={groups}"
+    if ds.shape != (shape[-1],) or db.shape != (shape[-1],):
+        raise AssertionError(f"{what}: ds/db shapes {tuple(ds.shape)}, "
+                             f"{tuple(db.shape)}, not [C]")
     err = max(check_close(what + " dx", dx, rdx, name, input_scale=scale_in),
               check_close(what + " ds", ds, rds, name, sums=True),
               check_close(what + " db", db, rdb, name, sums=True))
@@ -607,6 +639,59 @@ def _check_gn_case(gn, shape, dtype, gen, *, residual, relu, mean=0.0):
     errs[bwd] = err
     torch.cuda.synchronize()
     return errs
+
+
+def _check_gn_repeat(gn, shape, gen, *, residual, relu):
+    """Two launches of K1/K2 and of K3/K4 on the same bf16 inputs give the
+    same bits (the sums over rows, CTAs and B are taken in fixed orders)."""
+    import torch
+
+    x, scale, bias, res, dy = _gn_inputs(shape, torch.bfloat16, gen,
+                                         residual=residual)
+    runs = []
+    for _ in range(2):
+        y, m, r = gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
+        dx, ds, db, dres = gn._bwd_kernel(x, dy, m, r, scale, bias, res,
+                                          GN_GROUPS, relu)
+        runs.append([y, m, r, dx, ds, db] + ([dres] if residual else []))
+    torch.cuda.synchronize()
+    names = ["y", "mean", "rstd", "dx", "ds", "db", "dres"]
+    for what, a, b in zip(names, *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"group_norm {shape} residual={residual}: "
+                                 f"two launches differ in {what}")
+
+
+def _check_gn_launches(gn, shape, gen):
+    """The profiler's kernel rows of one K2 call and of one K4 call: at
+    most two GroupNorm kernels a direction.  Returns the row names."""
+    import torch
+
+    x, scale, bias, res, dy = _gn_inputs(shape, torch.bfloat16, gen,
+                                         residual=True)
+    _, m, r = gn._fwd_kernel(x, scale, bias, res, GN_GROUPS, GN_EPS, True)
+    out = {}
+    for direction, call in (
+            ("forward", lambda: gn._fwd_kernel(x, scale, bias, res,
+                                               GN_GROUPS, GN_EPS, True)),
+            ("backward", lambda: gn._bwd_kernel(x, dy, m, r, scale, bias,
+                                                res, GN_GROUPS, True))):
+        call()
+        torch.cuda.synchronize()
+
+        def run():
+            call()
+            torch.cuda.synchronize()
+
+        _, rows = profiled(run)
+        gn_rows = [(count, key) for _, count, key in rows if _is_gn(key)]
+        launches = sum(count for count, _ in gn_rows)
+        if not 1 <= launches <= 2 or len(rows) != len(gn_rows):
+            raise AssertionError(f"one {direction} call at {shape} launched "
+                                 f"{rows} (at most two GroupNorm kernels)")
+        out[direction] = [f"{re.search(r'gn_[a-z_]+', key).group(0)} x{count}"
+                          for count, key in gn_rows]
+    return out
 
 
 def _gn_bytes_ops(name, shape, dtype_bytes):
@@ -620,15 +705,16 @@ def _gn_bytes_ops(name, shape, dtype_bytes):
         return 2 * n * dtype_bytes + affine + stats, 8 * n
     if name == "gn_fwd_res":
         return 3 * n * dtype_bytes + affine + stats, 9 * n
-    partials = 2 * b * c * 4       # ds, db
+    sums = 2 * c * 4               # ds, db (summed over B)
     if name == "gn_bwd":
-        return 3 * n * dtype_bytes + affine + stats + partials, 14 * n
-    return 5 * n * dtype_bytes + affine + stats + partials, 15 * n
+        return 3 * n * dtype_bytes + affine + stats + sums, 14 * n
+    return 5 * n * dtype_bytes + affine + stats + sums, 15 * n
 
 
-def _time_gn(gn, name, calls, gen):
-    """Kernel, plain and ``F.group_norm`` (+ add and relu; autograd for the
-    backward) times of the given calls run back to back, and their bound."""
+def _time_gn(gn, name, calls, gen, *, plain=True):
+    """Kernel, plain (unless ``plain`` is false) and ``F.group_norm`` (+
+    add and relu; autograd for the backward) times of the given calls run
+    back to back, and their bound."""
     import torch
     import torch.nn.functional as F
 
@@ -653,7 +739,7 @@ def _time_gn(gn, name, calls, gen):
                 gn._bwd_kernel(x, dy, m, r, scale, bias, res, GN_GROUPS,
                                relu)
 
-    def plain():
+    def plain_fn():
         for x, scale, bias, res, dy, m, r, relu in setups:
             if fwd:
                 gn._fwd_plain(x, scale, bias, res, GN_GROUPS, GN_EPS, relu)
@@ -690,49 +776,119 @@ def _time_gn(gn, name, calls, gen):
                 torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
     with torch.no_grad():
-        times = {"kernel": (device_ms(kernel), time_ms(kernel)),
-                 "plain": (device_ms(plain, iters=3), time_ms(plain, iters=5))}
+        times = {"kernel": (device_ms(kernel), time_ms(kernel))}
+        if plain:
+            times["plain"] = (device_ms(plain_fn, iters=3),
+                              time_ms(plain_fn, iters=5))
     times["library"] = (device_ms(library, iters=3),
                         time_ms(library, iters=5))
     b_ms, b_by = bound_ms(nbytes, ops, "float32")
     return times, b_ms, b_by
 
 
+def _gn_step_shapes(name, calls):
+    """``{(shape, relu): calls a step}`` of kernel ``name`` in ``calls``."""
+    out = {}
+    for key in _gn_kernel_calls(name, calls):
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def time_gn_224(gn, name, gen, card):
+    """Kernel ``name`` at every shape of a ResNet-50 224 b128 step, one
+    call each (device time beside ``F.group_norm``'s and the bound), and
+    the step's sum (each shape's time times its calls a step)."""
+    rows, step = [], {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (shape, relu), count in _gn_step_shapes(
+            name, gn_calls(IMAGENET_BATCH, 224)).items():
+        t, b_ms, _ = _time_gn(gn, name, [(shape, relu)], gen, plain=False)
+        row = {"shape": list(shape), "relu": relu, "calls_per_step": count,
+               "kernel_ms": t["kernel"][0], "library_ms": t["library"][0],
+               "bound_ms": b_ms, "kernel_event_ms": t["kernel"][1]}
+        rows.append(row)
+        for k in step:
+            step[k] += count * row[k]
+        print(f"    {name} {shape} relu={relu} x{count}/step, device ms: "
+              f"kernel {row['kernel_ms']:.4f}, F.group_norm "
+              f"{row['library_ms']:.4f}, bound {b_ms:.5f} "
+              f"({b_ms / row['kernel_ms']:.2f} of it) [{card}]")
+    print(f"  {name} bf16 over one 224 b128 step's calls, device ms: kernel "
+          f"{step['kernel_ms']:.4f}, F.group_norm {step['library_ms']:.4f}, "
+          f"bound {step['bound_ms']:.4f} [{card}]")
+    return rows, step
+
+
 def check_group_norm(device, card):
-    """K1-K4 at every GroupNorm shape of a ResNet-50 CIFAR b256 step and at
-    two 224 b128 shapes; f32 and bf16, relu and residual on and off, and
-    one input with mean 1e3 and std 1.  Times the 37 or 16 calls of one
-    CIFAR step back to back per kernel, and one 224 call."""
+    """K1-K4 at every GroupNorm shape of a ResNet-50 CIFAR b256 step and of
+    a 224 b128 step; f32 and bf16, relu and residual on and off, one input
+    with mean 1e3 and std 1, channels that are not a multiple of 8 and a
+    misaligned pointer (the scalar route); bit-identical repeat launches;
+    at most two kernels a call per direction in the profiler's rows.
+    Times the 37 or 16 calls of one CIFAR step back to back per kernel,
+    one call at the two largest 224 shapes (beside the plain version) and
+    every 224 shape."""
     import torch
 
     from cloud_tpu_torch.ops import group_norm as gn
 
     gen = torch.Generator(device=device).manual_seed(12)
     cifar = gn_calls(CIFAR_BATCH, 32)
+    at_224 = gn_calls(IMAGENET_BATCH, 224)
     big = [(IMAGENET_BATCH, 112, 112, 64), (IMAGENET_BATCH, 56, 56, 256)]
-    shapes = sorted({shape for shape, _, _ in cifar}) + big
+    shapes = (sorted({shape for shape, _, _ in cifar})
+              + sorted({shape for shape, _, _ in at_224}))
+    for shape in sorted({shape for shape, _, _ in at_224}):
+        fwd = gn._plan(shape, torch.bfloat16, GN_GROUPS)
+        bwd = gn._plan(shape, torch.bfloat16, GN_GROUPS, backward=True)
+        print(f"  plan bf16 {shape}: forward cluster {fwd.cluster}, rows "
+              f"{fwd.rows}, cached {fwd.cached}, threads {fwd.threads}, "
+              f"smem {fwd.smem}; backward cluster {bwd.cluster}, rows "
+              f"{bwd.rows}, cached {bwd.cached}, threads {bwd.threads}, "
+              f"smem {bwd.smem}")
     worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in GN_KERNELS}
     cases = 0
+
+    def note(errs, dname):
+        for k, e in errs.items():
+            worst[k][dname] = max(worst[k][dname], e)
+
+    odd = (CIFAR_BATCH, 14, 14, 30)  # 30 channels in 6 groups
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for shape in shapes:
             for residual in (False, True):
                 for relu in (False, True):
-                    errs = _check_gn_case(gn, shape, dtype, gen,
-                                          residual=residual, relu=relu)
+                    note(_check_gn_case(gn, shape, dtype, gen,
+                                        residual=residual, relu=relu), dname)
                     cases += 1
-                    for k, e in errs.items():
-                        worst[k][dname] = max(worst[k][dname], e)
-        errs = _check_gn_case(gn, (CIFAR_BATCH, 8, 8, 256), dtype, gen,
-                              residual=True, relu=True, mean=1e3)
-        errs.update(_check_gn_case(gn, (CIFAR_BATCH, 8, 8, 256), dtype, gen,
-                                   residual=False, relu=False, mean=1e3))
-        cases += 2
-        for k, e in errs.items():
-            worst[k][dname] = max(worst[k][dname], e)
-        print(f"  K1-K4 group_norm {dname}: {len(shapes)} shapes x relu x "
-              f"residual + mean 1e3 ok; max_abs_err " + ", ".join(
+        for residual, relu in ((True, True), (False, False)):
+            note(_check_gn_case(gn, (CIFAR_BATCH, 8, 8, 256), dtype, gen,
+                                residual=residual, relu=relu, mean=1e3),
+                 dname)
+            cases += 1
+        if gn._plan(odd, dtype, 6).vec != 1 or gn._plan(
+                (CIFAR_BATCH, 8, 8, 64), dtype, GN_GROUPS,
+                aligned=False).vec != 1:
+            raise AssertionError("the scalar route was not planned")
+        for residual in (False, True):
+            note(_check_gn_case(gn, odd, dtype, gen, residual=residual,
+                                relu=True, groups=6), dname)
+            note(_check_gn_case(gn, (CIFAR_BATCH, 8, 8, 64), dtype, gen,
+                                residual=residual, relu=True, offset=1),
+                 dname)
+            cases += 2
+        print(f"  K1-K4 group_norm {dname}: {len(shapes)} shapes (CIFAR b256"
+              f" and 224 b128) x relu x residual + mean 1e3 + scalar route "
+              f"(C=30, misaligned) ok; max_abs_err " + ", ".join(
                   f"{k} {worst[k][dname]:.3e}" for k in GN_KERNELS))
+    for shape, residual in ((big[0], False), (big[1], True),
+                            ((CIFAR_BATCH, 1, 1, 2048), True)):
+        _check_gn_repeat(gn, shape, gen, residual=residual, relu=True)
+    print("  two launches on the same inputs: y, mean, rstd, dx, ds, db, "
+          "dres bit-identical at " + ", ".join(
+              str(s) for s in (big[0], big[1], (CIFAR_BATCH, 1, 1, 2048))))
+    launch_rows = _check_gn_launches(gn, big[1], gen)
+    print(f"  one call's GroupNorm kernels (profiler rows): {launch_rows}")
     entries = []
     for name in GN_KERNELS:
         calls = _gn_kernel_calls(name, cifar)
@@ -750,6 +906,7 @@ def check_group_norm(device, card):
               f"{t224['kernel'][0]:.4f}, plain {t224['plain'][0]:.4f}, "
               f"F.group_norm {t224['library'][0]:.4f}, bound {b224:.5f} "
               f"[{card}]")
+        shapes_224, step_224 = time_gn_224(gn, name, gen, card)
         entries.append({
             "name": name, "route": "cuda",
             "source": "cloud_tpu_torch/ops/csrc/group_norm.cu",
@@ -763,7 +920,9 @@ def check_group_norm(device, card):
             "shape": f"its {len(calls)} calls of one ResNet-50 CIFAR b256 "
                      f"bf16 step (device time summed)",
             "at_224": {"shape": list(shape_224), "bound_ms": b224,
-                       **{f"{k}_ms": v[0] for k, v in t224.items()}}})
+                       **{f"{k}_ms": v[0] for k, v in t224.items()}},
+            "at_224_shapes": shapes_224, "step_224": step_224,
+            "kernel_rows": launch_rows})
     print(f"  group_norm: {cases} cases per kernel pair checked")
     return entries
 
@@ -1197,7 +1356,23 @@ def _profiled_step(step, state, batch, *, record_shapes=False):
     return wall_ms, enqueue_ms, prof
 
 
-def profile_train_step(card, step, state, batch):
+def _profile_checked(step, state, batch, complaint, *, record_shapes=False):
+    """:func:`_profiled_step` until ``complaint(rows)`` finds nothing
+    wrong with its kernel rows: now and then a session loses a kernel
+    record, so a step is profiled again, three sessions in all, before the
+    last complaint is raised.  Returns ``(wall_ms, enqueue_ms, prof,
+    rows)``."""
+    for _ in range(3):
+        wall_ms, enqueue_ms, prof = _profiled_step(
+            step, state, batch, record_shapes=record_shapes)
+        rows = _kernel_rows(prof)
+        problem = complaint(rows)
+        if problem is None:
+            return wall_ms, enqueue_ms, prof, rows
+    raise AssertionError(problem)
+
+
+def profile_train_step(card, step, state, batch, *, gn_records=None):
     """Where one ResNet-50 training step's time goes: kernel rows of
     torch.profiler split into GroupNorm (K1-K4), convolution (cuDNN and
     CUTLASS kernels) and the rest, against the wall time of an unprofiled
@@ -1212,9 +1387,19 @@ def profile_train_step(card, step, state, batch):
     batch_size, hw = batch["image"].shape[:2]
     weights = {(k.shape[3], k.shape[2], k.shape[0], k.shape[1])
                for k in leaves(state.params) if k.dim() == 4}
-    wall_ms, enqueue_ms, prof = _profiled_step(step, state, batch,
-                                               record_shapes=True)
-    rows = _kernel_rows(prof)
+    # A step launches 53 GroupNorm kernels forward and 2 x 53 backward (the
+    # kernel and its sum over B) unless ``gn_records`` says otherwise.
+    want = gn_records or 3 * sum(GN_PER_STEP[k]
+                                 for k in ("gn_fwd", "gn_fwd_res"))
+
+    def complaint(rows):
+        got = sum(count for _, count, key in rows if _is_gn(key))
+        return (None if got == want else
+                f"the profiled step holds {got} GroupNorm kernel records, "
+                f"not {want}")
+
+    wall_ms, enqueue_ms, prof, rows = _profile_checked(
+        step, state, batch, complaint, record_shapes=True)
     busy = sum(r[0] for r in rows) / 1e3
     gn = sum(r[0] for r in rows if _is_gn(r[2])) / 1e3
     conv = sum(r[0] for r in rows if not _is_gn(r[2]) and any(
@@ -1372,23 +1557,25 @@ def profile_attn_step(card, what, per_step, step, state, batch):
     """Where one transformer training step's device time goes:
     torch.profiler's kernel rows split into K5, K6, K7, matrix products
     and the rest, and the idle share against the wall time of an
-    unprofiled step.  Fails if the rows of K5, K6 or K7 do not hold
-    exactly the step's ``per_step`` launches with nonzero time: a kernel
-    whose symbol no longer matches ``ATTN_ROWS`` would move its time into
-    "rest" unseen."""
-    wall_ms, enqueue_ms, prof = _profiled_step(step, state, batch)
-    rows = _kernel_rows(prof)
+    unprofiled step.  Fails if, in three profiled steps, the rows of K5,
+    K6 or K7 never hold exactly the step's ``per_step`` launches with
+    nonzero time: a kernel whose symbol no longer matches ``ATTN_ROWS``
+    would move its time into "rest" unseen."""
+    def complaint(rows):
+        for name, key in ATTN_ROWS.items():
+            mine = [r for r in rows if key in r[2]]
+            seen, ms = sum(r[1] for r in mine), sum(r[0] for r in mine) / 1e3
+            if seen != per_step[name] or not ms > 0:
+                return (f"{what}: profiler rows matching {key!r} hold "
+                        f"{seen} launches and {ms} ms; the step launched "
+                        f"{per_step[name]}")
+        return None
+
+    wall_ms, enqueue_ms, _, rows = _profile_checked(step, state, batch,
+                                                    complaint)
     busy = sum(r[0] for r in rows) / 1e3
-    split = {}
-    for name, key in ATTN_ROWS.items():
-        mine = [r for r in rows if key in r[2]]
-        split[name] = sum(r[0] for r in mine) / 1e3
-        seen = sum(r[1] for r in mine)
-        if seen != per_step[name] or not split[name] > 0:
-            raise AssertionError(
-                f"{what}: profiler rows matching {key!r} hold {seen} "
-                f"launches and {split[name]} ms; the step launched "
-                f"{per_step[name]}")
+    split = {name: sum(r[0] for r in rows if key in r[2]) / 1e3
+             for name, key in ATTN_ROWS.items()}
     split["matmul"] = sum(
         r[0] for r in rows if not any(k in r[2] for k in ATTN_ROWS.values())
         and any(k in r[2].lower() for k in MATMUL_KEYS)) / 1e3
@@ -1506,8 +1693,9 @@ PAGED_ROWS_KEYS = ("paged_attention_kernel", "paged_attention_combine")
 def profile_decode_chunk(device, card):
     """Where a decode step's time goes: one chunk of the slot grid at the
     engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
-    Fails if the profiler sees no device time, or if the rows of K8's split
-    pass or of its combine do not hold one launch a layer a step."""
+    Fails if the profiler sees no device time, or if in three profiled
+    chunks the rows of K8's split pass or of its combine never hold one
+    launch a layer a step."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -1539,17 +1727,22 @@ def profile_decode_chunk(device, card):
     chunk().cpu()
     wall_ms = (time.perf_counter() - start) * 1e3
     # Kernel rows only: an operator row carries its kernels' time again.
-    prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    paged_ms = {}
-    for key in PAGED_ROWS_KEYS:
-        mine = [r for r in rows if key in r[2]]
-        seen = sum(r[1] for r in mine)
-        paged_ms[key] = sum(r[0] for r in mine) / 1e3
-        if seen != cfg.num_layers * CHUNK:
+    # A session that lost a record of K8 is run again (the next chunk),
+    # three sessions in all.
+    for attempt in range(3):
+        prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
+        seen = {key: sum(r[1] for r in rows if key in r[2])
+                for key in PAGED_ROWS_KEYS}
+        if all(n == cfg.num_layers * CHUNK for n in seen.values()):
+            break
+        if attempt == 2:
             raise AssertionError(
-                f"decode chunk: profiler rows matching {key!r} hold {seen} "
-                f"launches; the chunk launched {cfg.num_layers * CHUNK}")
+                f"decode chunk: profiler rows of {PAGED_ROWS_KEYS} hold "
+                f"{seen} launches; the chunk launched "
+                f"{cfg.num_layers * CHUNK} of each")
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    paged_ms = {key: sum(r[0] for r in rows if key in r[2]) / 1e3
+                for key in PAGED_ROWS_KEYS}
     print(f"  decode chunk ({CHUNK} steps, {NUM_SLOTS} active slots): wall "
           f"{wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}; K8 split {paged_ms[PAGED_ROWS_KEYS[0]]:.3f}"
@@ -1983,6 +2176,10 @@ def main() -> int:
         "max_abs_err_f32": {e["name"]: e["max_abs_err_f32"] for e in kernels},
         "group_norm_at_224": {e["name"]: e["at_224"] for e in kernels
                               if "at_224" in e},
+        "group_norm_224_step": {e["name"]: e["step_224"] for e in kernels
+                                if "step_224" in e},
+        "group_norm_224_shapes": {e["name"]: e["at_224_shapes"]
+                                  for e in kernels if "at_224_shapes" in e},
         "device_ms": {e["name"]: e["device_ms"] for e in kernels
                       if "device_ms" in e},
         "library_device_ms": {e["name"]: e["library_device_ms"]

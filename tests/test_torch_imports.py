@@ -1,10 +1,10 @@
 """Import hygiene of the PyTorch port.
 
 Every module of ``cloud_tpu_torch`` imports with JAX blocked; no module of
-the port, nor ``chip_smoke.py`` or ``flash_ab.py``, imports ``jax`` or the
-JAX package; and
-an entry point called without ``device="cpu"`` on a host with no card
-raises instead of quietly running on the CPU.
+the port, nor ``chip_smoke.py``, ``flash_ab.py`` or ``gn_ab.py``, imports
+``jax`` or the JAX package; and an entry point called without
+``device="cpu"`` on a host with no card raises instead of quietly running
+on the CPU.
 """
 
 import ast
@@ -63,7 +63,8 @@ def _imported_names(path):
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "flash_ab.py"],
+                                          REPO / "flash_ab.py",
+                                          REPO / "gn_ab.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     for name in _imported_names(path):
