@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (full precision and int8), ResNet and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, full precision and int8), ResNet and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,10 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    with and without a pool, Tq 1 and 4, q in bf16 and f32, slot rows of
    S=576 and 4096 with lengths from 1 to S) timed at B=8 with S=576 and
    S=4096 (K8q beside K8 on bf16 K/V at the same lengths and SDPA on K/V
-   dequantized beforehand), in event and device time, K1-K4 (GroupNorm)
+   dequantized beforehand), in event and device time, K8 and K8q at
+   prefill-chunk query counts (Tq 32, 128 and 512, several query tiles,
+   chunk-causal, pool pages or not, three chunk starts), each Tq timed
+   beside its bound and SDPA over the gathered K/V, K1-K4 (GroupNorm)
    at every shape of a ResNet-50 CIFAR b256 step and of a 224 b128 step,
    plus 30 channels in 6 groups and a misaligned pointer (the scalar
    route), with bit-identical repeat launches and at most two kernels a
@@ -57,7 +60,24 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    keeps a top-2 logit gap of 1e-2, the decode A/B of
    ``scripts/bench_daemon.py`` (bf16, int8, int8 + kv_quant weights at b4,
    prompt 128, 128 new tokens) and ``beam_search`` (int8 + kv_quant, b4,
-   4 beams, 32 new tokens, 12 K8q launches per step);
+   4 beams, 32 new tokens, 12 K8q launches per step); then the rest of the
+   serving engine at bench.py's configurations: the batch scheduler (3g:
+   16 requests, bucket 128, batch buckets (1, 8), ``flush_deadline_s``
+   0.05, 64 new tokens), the prefix cache with 32-token chunked prefill on
+   the copy and the attach route (3p: 24 requests on 3 system prompts, 64
+   blocks of 16 tokens) and its host-DRAM tier off and on (3t: 2 slots, 18
+   pool blocks, 0 and 64 host blocks, 6 system prompts, 12 requests).
+   Every launch check of a serving phase is derived from the engine's own
+   record of what it ran (batches and their decode steps, one-shot
+   inserts, prefill chunks, decode chunks), never from how requests
+   happened to be grouped; rates, TTFTs and hit rates are printed and
+   never asserted.  Each of 3g, 3p and 3t ends with f32 greedy parity
+   against ``generate()`` on prompts whose greedy path keeps a top-2 gap
+   of 1e-3, 3p on both routes with 32-token chunks and with whole-suffix
+   prefill at the prompt's bucket (K8 at Tq 128 and 512), 3p and 3t with
+   requests one at a time and their hit, swap-in and demotion counts equal
+   to a replay of the same requests through a fresh
+   ``PrefixCacheManager``;
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -77,10 +97,14 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does;
-8. prints one JSON line describing every kernel, then, as its last line,
-   ``{"ok": true, "device": {...}}``.
+8. prints one JSON line describing every kernel (a serving kernel's
+   launches summed over the serving phases, each counted from 0 just
+   before its run), then, as its last line, ``{"ok": true, "device":
+   {...}}``.
 
-Any failed phase ends the run with a nonzero exit and no result line.
+Each phase prints its wall time.  Any failed phase ends the run with a
+nonzero exit and no result line; the phase it stopped in and the
+traceback go to stdout.
 Without a CUDA card, or without the rest of the repository beside it, it
 exits nonzero before doing any work.
 """
@@ -93,6 +117,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -110,10 +135,23 @@ NUM_SLOTS, MAX_NEW, CHUNK = 8, 64, 8
 BUCKETS = (32, 128, 512)
 HEADS, HEAD_DIM = 12, 64
 SERVING_KERNELS = ("flash_fwd", "paged_attention")
+#: Profiler sessions: how many a check that needs every kernel record may
+#: take, and how long a session waits, synchronised and idle, before the
+#: work it measures: a session now and then misses the first kernels
+#: launched right after it starts.
+PROFILE_SESSIONS = 5
+PROFILE_SETTLE_S = 0.05
 
 
-def fail(msg: str) -> int:
+def fail(msg: str, phase: str = "") -> int:
+    """Report a failed check on stderr and, with the phase it stopped in
+    and the traceback of the exception being handled, on stdout."""
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    if phase:
+        print(f"chip_smoke: FAILED in {phase}: {msg}")
+        if sys.exc_info()[0] is not None:
+            print(traceback.format_exc())
+        sys.stdout.flush()
     return 1
 
 
@@ -141,7 +179,7 @@ def device_ms(fn, iters: int = 10) -> float:
     launches a call (its records over ``iters``, rounded): now and then a
     session loses a record, which a plain sum over ``iters`` would read
     as a faster call.  A session that lost more than a fifth of some
-    kernel's records is run again, three sessions in all."""
+    kernel's records is run again, ``PROFILE_SESSIONS`` in all."""
     import torch
 
     fn()
@@ -152,35 +190,40 @@ def device_ms(fn, iters: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
 
-    for attempt in range(3):
+    for attempt in range(PROFILE_SESSIONS):
         _, rows = profiled(run)
         calls = [max(1, round(count / iters)) for _, count, _ in rows]
         if all(abs(count - k * iters) <= iters // 5
                for (_, count, _), k in zip(rows, calls)):
             return sum(us / count * k for (us, count, _), k
                        in zip(rows, calls)) / 1e3
-    raise AssertionError(f"torch.profiler lost kernel records in three "
-                         f"sessions of {iters} calls: {rows[:4]}")
+    raise AssertionError(f"torch.profiler lost kernel records in "
+                         f"{PROFILE_SESSIONS} sessions of {iters} calls: "
+                         f"{rows[:4]}")
 
 
 def profiled(run, *, cpu=False, record_shapes=False):
     """``run()`` under torch.profiler (CUDA activity, and CPU's if
-    ``cpu``); returns ``(prof, kernel rows)``.  Now and then a session
+    ``cpu``), after the session has waited ``PROFILE_SETTLE_S`` with the
+    card idle; returns ``(prof, kernel rows)``.  Now and then a session
     records no kernel at all, sometimes several in a row: such a session
-    is run again after a second's pause, five sessions in all, before
-    :func:`_kernel_rows` raises."""
+    is run again after a second's pause, ``PROFILE_SESSIONS`` in all,
+    before :func:`_kernel_rows` raises."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
                                             if cpu else [])
-    for attempt in range(5):
+    for attempt in range(PROFILE_SESSIONS):
+        torch.cuda.synchronize()
         with profile(activities=activities,
                      record_shapes=record_shapes) as prof:
+            time.sleep(PROFILE_SETTLE_S)
             run()
         try:
             return prof, _kernel_rows(prof)
         except AssertionError:
-            if attempt == 4:
+            if attempt == PROFILE_SESSIONS - 1:
                 raise
             time.sleep(1.0)
 
@@ -796,25 +839,29 @@ def _gn_step_shapes(name, calls):
 
 def time_gn_224(gn, name, gen, card):
     """Kernel ``name`` at every shape of a ResNet-50 224 b128 step, one
-    call each (device time beside ``F.group_norm``'s and the bound), and
-    the step's sum (each shape's time times its calls a step)."""
-    rows, step = [], {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    call each (device time beside its plain version's, ``F.group_norm``'s
+    and the bound), and the step's sum (each shape's time times its calls
+    a step)."""
+    rows, step = [], {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "bound_ms": 0.0}
     for (shape, relu), count in _gn_step_shapes(
             name, gn_calls(IMAGENET_BATCH, 224)).items():
-        t, b_ms, _ = _time_gn(gn, name, [(shape, relu)], gen, plain=False)
+        t, b_ms, _ = _time_gn(gn, name, [(shape, relu)], gen)
         row = {"shape": list(shape), "relu": relu, "calls_per_step": count,
-               "kernel_ms": t["kernel"][0], "library_ms": t["library"][0],
-               "bound_ms": b_ms, "kernel_event_ms": t["kernel"][1]}
+               "kernel_ms": t["kernel"][0], "plain_ms": t["plain"][0],
+               "library_ms": t["library"][0], "bound_ms": b_ms,
+               "kernel_event_ms": t["kernel"][1]}
         rows.append(row)
         for k in step:
             step[k] += count * row[k]
         print(f"    {name} {shape} relu={relu} x{count}/step, device ms: "
-              f"kernel {row['kernel_ms']:.4f}, F.group_norm "
-              f"{row['library_ms']:.4f}, bound {b_ms:.5f} "
+              f"kernel {row['kernel_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"F.group_norm {row['library_ms']:.4f}, bound {b_ms:.5f} "
               f"({b_ms / row['kernel_ms']:.2f} of it) [{card}]")
     print(f"  {name} bf16 over one 224 b128 step's calls, device ms: kernel "
-          f"{step['kernel_ms']:.4f}, F.group_norm {step['library_ms']:.4f}, "
-          f"bound {step['bound_ms']:.4f} [{card}]")
+          f"{step['kernel_ms']:.4f}, plain {step['plain_ms']:.4f}, "
+          f"F.group_norm {step['library_ms']:.4f}, bound "
+          f"{step['bound_ms']:.4f} [{card}]")
     return rows, step
 
 
@@ -1359,10 +1406,10 @@ def _profiled_step(step, state, batch, *, record_shapes=False):
 def _profile_checked(step, state, batch, complaint, *, record_shapes=False):
     """:func:`_profiled_step` until ``complaint(rows)`` finds nothing
     wrong with its kernel rows: now and then a session loses a kernel
-    record, so a step is profiled again, three sessions in all, before the
-    last complaint is raised.  Returns ``(wall_ms, enqueue_ms, prof,
-    rows)``."""
-    for _ in range(3):
+    record, so a step is profiled again, ``PROFILE_SESSIONS`` in all,
+    before the last complaint is raised.  Returns ``(wall_ms, enqueue_ms,
+    prof, rows)``."""
+    for _ in range(PROFILE_SESSIONS):
         wall_ms, enqueue_ms, prof = _profiled_step(
             step, state, batch, record_shapes=record_shapes)
         rows = _kernel_rows(prof)
@@ -1557,10 +1604,10 @@ def profile_attn_step(card, what, per_step, step, state, batch):
     """Where one transformer training step's device time goes:
     torch.profiler's kernel rows split into K5, K6, K7, matrix products
     and the rest, and the idle share against the wall time of an
-    unprofiled step.  Fails if, in three profiled steps, the rows of K5,
-    K6 or K7 never hold exactly the step's ``per_step`` launches with
-    nonzero time: a kernel whose symbol no longer matches ``ATTN_ROWS``
-    would move its time into "rest" unseen."""
+    unprofiled step.  Fails if, in ``PROFILE_SESSIONS`` profiled steps,
+    the rows of K5, K6 or K7 never hold exactly the step's ``per_step``
+    launches with nonzero time: a kernel whose symbol no longer matches
+    ``ATTN_ROWS`` would move its time into "rest" unseen."""
     def complaint(rows):
         for name, key in ATTN_ROWS.items():
             mine = [r for r in rows if key in r[2]]
@@ -1693,9 +1740,9 @@ PAGED_ROWS_KEYS = ("paged_attention_kernel", "paged_attention_combine")
 def profile_decode_chunk(device, card):
     """Where a decode step's time goes: one chunk of the slot grid at the
     engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
-    Fails if the profiler sees no device time, or if in three profiled
-    chunks the rows of K8's split pass or of its combine never hold one
-    launch a layer a step."""
+    Fails if the profiler sees no device time, or if in
+    ``PROFILE_SESSIONS`` profiled chunks the rows of K8's split pass or of
+    its combine never hold one launch a layer a step."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -1728,14 +1775,14 @@ def profile_decode_chunk(device, card):
     wall_ms = (time.perf_counter() - start) * 1e3
     # Kernel rows only: an operator row carries its kernels' time again.
     # A session that lost a record of K8 is run again (the next chunk),
-    # three sessions in all.
-    for attempt in range(3):
+    # PROFILE_SESSIONS in all.
+    for attempt in range(PROFILE_SESSIONS):
         prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
         seen = {key: sum(r[1] for r in rows if key in r[2])
                 for key in PAGED_ROWS_KEYS}
         if all(n == cfg.num_layers * CHUNK for n in seen.values()):
             break
-        if attempt == 2:
+        if attempt == PROFILE_SESSIONS - 1:
             raise AssertionError(
                 f"decode chunk: profiler rows of {PAGED_ROWS_KEYS} hold "
                 f"{seen} launches; the chunk launched "
@@ -1773,16 +1820,18 @@ def _grid_bytes(cache) -> int:
     return sum(leaf.numel() * leaf.element_size() for leaf in cache.values())
 
 
-def _quantized_greedy_gaps(generation, params, prompt, budget, cfg, device):
-    """Top-2 logit gap at each greedy step of ``generate(kv_quant=True)``,
-    read off its own path (``_prefill`` and ``_decode_step`` on an int8
-    cache), and the tokens of that path."""
+def _greedy_gaps(generation, params, prompt, budget, cfg, device, *,
+                 kv_quant):
+    """Top-2 logit gap at each greedy step of ``generate(kv_quant=...)``,
+    read off its own path (``_prefill`` and ``_decode_step``, on an int8
+    cache with ``kv_quant``), and the tokens of that path."""
     import torch
 
     tokens = torch.from_numpy(prompt)[None].to(device)
     lens = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
     cache, logits = generation._prefill(params, tokens, lens, cfg,
-                                        len(prompt) + budget, kv_quant=True)
+                                        len(prompt) + budget,
+                                        kv_quant=kv_quant)
     gaps, out = [], []
     cur_len = lens
     for step in range(budget):
@@ -1866,8 +1915,8 @@ def run_engine_quant(device, card):
     with torch.no_grad():
         for prompt, budget in _requests(cfg.vocab_size, 40, seed=3):
             budget = min(budget, QUANT_PARITY_BUDGET)
-            gaps, path = _quantized_greedy_gaps(generation, qparams32, prompt,
-                                                budget, cfg32, device)
+            gaps, path = _greedy_gaps(generation, qparams32, prompt, budget,
+                                      cfg32, device, kv_quant=True)
             if min(gaps) >= QUANT_TIE_GAP:
                 picks.append((prompt, budget, gaps, path))
             if len(picks) == 4:
@@ -1984,6 +2033,548 @@ def run_beam_search(device, card):
     return {"seconds": wall, "scores": scores.tolist(), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (chunks), 3g, 3p, 3t: the paged kernel at prefill-chunk query
+# counts, the batch scheduler, the prefix cache and its host tier
+# ---------------------------------------------------------------------------
+
+#: (Tq, S) of the chunk checks: bench.py's 32-token prefill chunks on the
+#: slot rows of its prefix config (prompt buckets up to 128 plus 64 new
+#: tokens), and a suffix prefilled at its prompt bucket's width (128, 512)
+#: on the engine's 576-position rows.
+CHUNK_SHAPES = ((32, 192), (128, 576), (512, 576))
+#: Pool blocks (16 tokens) of the chunk checks and the hit they attach.
+CHUNK_POOL_BLOCKS, CHUNK_HIT_BLOCKS = 64, 6
+
+
+def _chunk_inputs(device, dtype, s, tq, gen, *, pool: bool, start: int):
+    """One slot row of ``s`` positions, a chunk of ``tq`` queries starting
+    at ``start`` (``cur_len = start + 1``) and, with ``pool``, a table
+    whose first ``CHUNK_HIT_BLOCKS`` pages read pool blocks."""
+    import torch
+
+    slot = {n: torch.randn((1, s, HEADS, HEAD_DIM), generator=gen,
+                           device=device).to(dtype) for n in ("k", "v")}
+    table = torch.full((1, -(-s // 16)), -1, dtype=torch.int32, device=device)
+    pool_l = None
+    if pool:
+        pool_l = {n: torch.randn((CHUNK_POOL_BLOCKS, 16, HEADS, HEAD_DIM),
+                                 generator=gen, device=device).to(dtype)
+                  for n in ("k", "v")}
+        for page in range(CHUNK_HIT_BLOCKS):
+            table[0, page] = (7 * page + 3) % CHUNK_POOL_BLOCKS
+    cur_len = torch.tensor([start + 1], dtype=torch.int32, device=device)
+    q = torch.randn((1, tq, HEADS, HEAD_DIM), generator=gen,
+                    device=device).to(dtype)
+    return q, slot, pool_l, table, cur_len
+
+
+def _sdpa_chunk(q, k, v, cur_len):
+    """SDPA of a chunk over whole K/V rows under the chunk-causal mask
+    (key j valid for query t iff j < cur_len + t): the library yardstick
+    of K8 at a prefill chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    s, tq = k.shape[1], q.shape[1]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < cur_len[0] + torch.arange(tq, device=q.device)[:, None])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=valid[None, None])
+
+
+def check_paged_chunks(device, card):
+    """K8 and K8q at prefill-chunk query counts (several query tiles):
+    Tq 32, 128 and 512, q in bf16 and f32, with and without pool pages,
+    chunks starting at 0, after a 96-token hit, and near the row's end,
+    each against the plain version; then each Tq timed in bf16 with pool
+    pages after the hit (kernel, plain version and SDPA over the gathered
+    K/V, in event and device time) beside its bound."""
+    import torch
+
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(32)
+    worst = {}
+    for name, quantize in (("paged_attention", False),
+                           ("paged_attention_int8", True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for tq, s in CHUNK_SHAPES:
+                for pool in (False, True):
+                    for start in (0, 16 * CHUNK_HIT_BLOCKS, s - tq // 2):
+                        q, slot, pool_l, table, cur_len = _chunk_inputs(
+                            device, dtype, s, tq, gen, pool=pool,
+                            start=start)
+                        if quantize:
+                            slot = _quantize_leaves(slot)
+                            if pool_l is not None:
+                                pool_l = _quantize_leaves(pool_l)
+                        out = pa._paged_kernel(q, slot, cur_len, pool_l,
+                                               table)
+                        ref = pa._reference(q, slot, cur_len, pool_l, table)
+                        torch.cuda.synchronize()
+                        err = check_close(
+                            f"{name} {dname} Tq={tq} S={s} pool={pool} "
+                            f"start={start}", out, ref, dname)
+                        key = (name, dname)
+                        worst[key] = max(worst.get(key, 0.0), err)
+            print(f"  {name} {dname}: Tq {[t for t, _ in CHUNK_SHAPES]}, "
+                  f"pool on/off, 3 starts: max_abs_err "
+                  f"{worst[(name, dname)]:.3e} ok")
+    timed = {}
+    start = 16 * CHUNK_HIT_BLOCKS
+    for name, quantize in (("paged_attention", False),
+                           ("paged_attention_int8", True)):
+        for tq, s in CHUNK_SHAPES:
+            q, slot, pool_l, table, cur_len = _chunk_inputs(
+                device, torch.bfloat16, s, tq, gen, pool=True, start=start)
+            gathered = {n: pa._gather_paged(slot[n], pool_l[n], table)
+                        for n in ("k", "v")}
+            if quantize:
+                slot, pool_l = _quantize_leaves(slot), _quantize_leaves(
+                    pool_l)
+                gathered = {n: (pa._gather_paged(slot[n], pool_l[n], table)
+                                .float() * pa._gather_paged(
+                                    slot[f"{n}_scale"], pool_l[f"{n}_scale"],
+                                    table)).to(torch.bfloat16)
+                            for n in ("k", "v")}
+            kernel, kernel_dev = event_and_device_ms(
+                lambda: pa._paged_kernel(q, slot, cur_len, pool_l, table))
+            plain, plain_dev = event_and_device_ms(
+                lambda: pa._reference(q, slot, cur_len, pool_l, table))
+            library, library_dev = event_and_device_ms(
+                _sdpa_chunk(q, gathered["k"], gathered["v"], cur_len))
+            # Keys the chunk reads (the last query's), each once per head;
+            # key-query pairs it scores (query t sees start + 1 + t).
+            keys = min(start + tq, s)
+            pairs = sum(min(start + 1 + t, s) for t in range(tq))
+            per_key = 2 * HEAD_DIM + 8 if quantize else 4 * HEAD_DIM
+            nbytes = (keys * HEADS * per_key + 2 * q.numel() * 2
+                      + table.numel() * 4 + 4)
+            b_ms, b_by = bound_ms(nbytes, 4 * pairs * HEADS * HEAD_DIM,
+                                  "bfloat16")
+            shape = (f"B=1 Tq={tq} S={s} bt=16 pool ({CHUNK_HIT_BLOCKS} "
+                     f"pages) cur_len={start + 1} H={HEADS} D={HEAD_DIM} "
+                     + ("int8 K/V, bf16 q" if quantize else "bf16"))
+            print(f"  {name} {shape}: kernel {kernel:.4f} ms (device "
+                  f"{kernel_dev:.4f}), plain {plain:.4f} ({plain_dev:.4f}), "
+                  f"sdpa {library:.4f} ({library_dev:.4f}), bound "
+                  f"{b_ms:.5f} ms ({b_by}) [{card}]")
+            timed[f"{name} Tq={tq}"] = {
+                "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+                "plain_device_ms": plain_dev, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": library,
+                "library_device_ms": library_dev, "shape": shape}
+    return {"max_abs_err": {f"{n} {d}": e for (n, d), e in worst.items()},
+            "timed": timed}
+
+
+def _check_launches(what, launches, layers_n, d0, d1):
+    """Hold a serving run's launches to the engine's own record between two
+    ``stats()`` snapshots: K5 once a layer per batch (batch scheduler) and
+    per one-shot insert; K8 once a layer per prefill chunk, per decode step
+    of a chunk and per decode step of a batch; no K8q (no ``kv_quant``)."""
+    def delta(key):
+        return d1[key] - d0[key]
+
+    expected = {
+        "flash_fwd": layers_n * (delta("batches") + delta("oneshot_inserts")),
+        "paged_attention": layers_n * (
+            delta("prefill_chunks") + CHUNK * delta("chunks")
+            + delta("batch_decode_steps")),
+        "paged_attention_int8": 0}
+    if launches != expected or not expected["paged_attention"]:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expected} from the engine's stats")
+
+
+def _tie_free(generation, params, cfg, device, candidates, n, budget):
+    """The first ``n`` candidate prompts whose f32 greedy path under
+    ``generate`` keeps a top-2 logit gap of 1e-3 at every step."""
+    picks = []
+    for prompt in candidates:
+        gaps, _ = _greedy_gaps(generation, params, prompt, budget, cfg,
+                               device, kv_quant=False)
+        if min(gaps) >= 1e-3:
+            picks.append(prompt)
+        if len(picks) == n:
+            return picks
+    raise AssertionError(f"only {len(picks)} tie-free prompts among the "
+                         f"candidates")
+
+
+def _replay_prefix(serve, prompts):
+    """The prefix counters of ``prompts`` served one after another, from a
+    fresh ``PrefixCacheManager`` driven as the engine drives it (match,
+    pin or swap in, save the new blocks, release at retire)."""
+    from cloud_tpu_torch.serving.prefix_cache import (
+        PrefixCacheManager,
+        PrefixHit,
+    )
+
+    dram = serve.prefix_dram_blocks
+    mgr = PrefixCacheManager(serve.prefix_cache_blocks,
+                             serve.prefix_block_tokens, dram_blocks=dram,
+                             demote_fn=(lambda block: block) if dram else None)
+    for prompt in prompts:
+        tokens = prompt.tolist()
+        hit = mgr.match(tokens)
+        if hit and (mgr.acquire_swapin(hit) if dram else
+                    ([] if mgr.acquire(hit) else None)) is None:
+            hit = PrefixHit(nodes=(), tokens=0)
+        held, _, _ = mgr.insert(tokens, hit)
+        mgr.release(list(hit.nodes) + held)
+    return mgr.stats()
+
+
+def _serve_in_turn(engine, prompts, budget):
+    """Each prompt submitted after the one before has resolved."""
+    return [engine.submit(p, max_new_tokens=budget).result(timeout=600)
+            for p in prompts]
+
+
+def _parity(what, generation, params, cfg, device, prompts, served, budget):
+    import torch
+
+    for prompt, res in zip(prompts, served):
+        want = generation.generate(
+            params, torch.from_numpy(prompt)[None], [len(prompt)], cfg,
+            max_new_tokens=budget, device=device)["tokens"][0].cpu().numpy()
+        if not np.array_equal(want, res.tokens):
+            first = int(np.flatnonzero(want != res.tokens)[0])
+            raise AssertionError(f"{what} != generate() for a {len(prompt)}-"
+                                 f"token prompt at token {first}")
+
+
+def _run_measured(engine, prompts, budgets, *, wave, pause):
+    """Submit ``prompts`` in waves of ``wave`` with ``pause`` seconds
+    between waves; returns (results, wall seconds)."""
+    start = time.perf_counter()
+    futures = []
+    for i, prompt in enumerate(prompts):
+        futures.append(engine.submit(prompt, max_new_tokens=budgets[i]))
+        if pause and (i + 1) % wave == 0:
+            time.sleep(pause)
+    results = [f.result(timeout=600) for f in futures]
+    return results, time.perf_counter() - start
+
+
+#: bench.py's serving configurations (SERVE_* constants there).
+BATCH_SERVE = {"requests": 16, "bucket": 128, "new": 64, "max_batch": 8}
+PREFIX_SERVE = {"requests": 24, "heads": 3, "blocks": 64, "block_tokens": 16,
+                "pchunk": 32, "buckets": (64, 128)}
+TIER_SERVE = {"heads": 6, "hbm": 18, "dram": 64, "requests": 12, "new": 8}
+PARITY_BUDGET = 16
+
+
+def run_batch_engine(device, card):
+    """3g, bench.py's ``_measure_serving``: 16 requests of 32..128 tokens
+    through ``scheduler="batch"`` (bucket 128, batch buckets (1, 8),
+    ``flush_deadline_s`` 0.05, 64 new tokens), launches checked against
+    the engine's record; then f32 greedy parity of the batch engine with
+    ``generate()`` on four tie-free prompts."""
+    import torch
+
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    b = BATCH_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    serve = ServeConfig(max_new_tokens=b["new"], prompt_buckets=(b["bucket"],),
+                        batch_buckets=(1, b["max_batch"]),
+                        flush_deadline_s=0.05, warmup=True, scheduler="batch")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(b["bucket"] // 4, b["bucket"] + 1, b["requests"])
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    with ServingEngine(params, cfg, serve, device=device) as engine:
+        engine.wait_ready()
+        engine.submit(prompts[0]).result(timeout=300)
+        torch.cuda.synchronize()
+        d0 = engine.stats()
+        dispatch.reset_launch_counts()
+        results, wall = _run_measured(engine, prompts,
+                                      [b["new"]] * len(prompts), wave=0,
+                                      pause=0)
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    d1 = engine.stats()
+    _check_launches("batch engine", launches, cfg.num_layers, d0, d1)
+    for res in results:
+        if res.tokens.shape != (b["new"],) or res.tokens.min() < 0 or \
+                res.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad batch result {res.tokens.shape}")
+    batches = d1["batches"] - d0["batches"]
+    rows = d1["real_rows"] - d0["real_rows"]
+    slots = d1["slots"] - d0["slots"]
+    tokens = sum(r.num_generated for r in results)
+    lat = sorted(r.latency_seconds for r in results)
+    print(f"  batch scheduler SMALL bf16: {len(results)} requests, {tokens} "
+          f"tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; latency p50 "
+          f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} "
+          f"s; {batches} batches, occupancy {rows / slots:.3f}; launches "
+          f"{launches} [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    picks = _tie_free(generation, params32, cfg32, device, prompts, 4,
+                      PARITY_BUDGET)
+    serve32 = ServeConfig(max_new_tokens=PARITY_BUDGET,
+                          prompt_buckets=(b["bucket"],), batch_buckets=(1, 4),
+                          flush_deadline_s=0.05, scheduler="batch")
+    with ServingEngine(params, cfg32, serve32, device=device) as engine:
+        futures = [engine.submit(p) for p in picks]
+        served = [f.result(timeout=600) for f in futures]
+    _parity("batch engine", generation, params, cfg32, device, picks, served,
+            PARITY_BUDGET)
+    print(f"  batch engine == generate(): 4/4 requests token-identical "
+          f"(SMALL f32, {PARITY_BUDGET} tokens, top-2 gap >= 1e-3)")
+    return {"tokens_per_s": tokens / wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)),
+            "batches": batches, "mean_batch_occupancy": rows / slots,
+            "launches": launches}
+
+
+def _head_prompts(rng, heads, n, *, cycle, vocab):
+    """``n`` prompts of a shared head and a 1..8-token tail: heads drawn at
+    random, or in turn with ``cycle``."""
+    out = []
+    for i in range(n):
+        tail = rng.integers(1, vocab, int(rng.integers(1, 9))).astype(
+            np.int32)
+        head = heads[i % len(heads)] if cycle else heads[
+            int(rng.integers(len(heads)))]
+        out.append(np.concatenate([head, tail]))
+    return out
+
+
+def _prefix_parity(what, generation, params, cfg32, device, serve, prompts):
+    """Serve ``prompts`` one after another through an f32 engine: every
+    request token-identical to ``generate()``, the prefix counters equal
+    to ``_replay_prefix``'s, the launches equal to the engine's record.
+    Returns the engine's stats delta."""
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServingEngine
+
+    with ServingEngine(params, cfg32, serve, device=device) as engine:
+        d0 = engine.stats()
+        dispatch.reset_launch_counts()
+        served = _serve_in_turn(engine, prompts, PARITY_BUDGET)
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    d1 = engine.stats()
+    _check_launches(what, launches, cfg32.num_layers, d0, d1)
+    _parity(what, generation, params, cfg32, device, prompts, served,
+            PARITY_BUDGET)
+    want = _replay_prefix(serve, prompts)
+    got = {"hits": d1["prefix_hits"], "hit_tokens": d1["prefix_hit_tokens"],
+           "dram_hits": d1["prefix_dram_hits"],
+           "demotions": d1["prefix_dram_demotions"]}
+    if got != {k: want[k] for k in got}:
+        raise AssertionError(f"{what}: prefix counters {got}, the replay "
+                             f"gives {want}")
+    print(f"  {what} == generate(): {len(prompts)}/{len(prompts)} requests "
+          f"token-identical (SMALL f32, {PARITY_BUDGET} tokens, top-2 gap >= "
+          f"1e-3, one at a time); prefix counters {got} as replayed; "
+          f"launches {launches}")
+    return d1, launches
+
+
+def run_prefix_engine(device, card):
+    """3p, bench.py's ``serving_prefix``: 24 requests on 3 system prompts
+    of 96 tokens, 64 blocks of 16 tokens, 32-token prefill chunks, through
+    the copy route (``decode_kernel="xla"``) and the attach route
+    (``"pallas"``), launches checked against the engine's record; then in
+    f32, one request at a time, each route with 32-token chunks and with
+    whole-suffix prefill at the prompt's bucket (Tq 128 and 512):
+    token-identical to ``generate()`` with the replayed prefix counters."""
+    import torch
+
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    p = PREFIX_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    rng = np.random.default_rng(3)
+    head_len = p["buckets"][-1] * 3 // 4
+    heads = [rng.integers(1, cfg.vocab_size, head_len).astype(np.int32)
+             for _ in range(p["heads"])]
+    prompts = _head_prompts(rng, heads, p["requests"], cycle=False,
+                            vocab=cfg.vocab_size)
+    budgets = [int(x) for x in rng.integers(MAX_NEW // 4, MAX_NEW + 1,
+                                            p["requests"])]
+    out = {"launches": {}}
+    for route in ("xla", "pallas"):
+        serve = ServeConfig(
+            max_new_tokens=MAX_NEW, prompt_buckets=p["buckets"],
+            num_slots=NUM_SLOTS, chunk_tokens=CHUNK,
+            prefix_cache_blocks=p["blocks"],
+            prefix_block_tokens=p["block_tokens"],
+            prefill_chunk_tokens=p["pchunk"], decode_kernel=route,
+            warmup=True)
+        with ServingEngine(params, cfg, serve, device=device) as engine:
+            engine.wait_ready()
+            engine.submit(prompts[0]).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = engine.stats()
+            dispatch.reset_launch_counts()
+            results, wall = _run_measured(engine, prompts, budgets, wave=4,
+                                          pause=0.02)
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        d1 = engine.stats()
+        _check_launches(f"prefix engine ({route})", launches, cfg.num_layers,
+                        d0, d1)
+        if route == "pallas" and d1["prefix_attaches"] == 0:
+            raise AssertionError("attach route attached no hit")
+        if route == "xla" and d1["prefix_attaches"]:
+            raise AssertionError("copy route attached a hit")
+        hits = d1["prefix_hits"] - d0["prefix_hits"]
+        lookups = hits + d1["prefix_misses"] - d0["prefix_misses"]
+        hit_tokens = d1["prefix_hit_tokens"] - d0["prefix_hit_tokens"]
+        ttft = sorted(r.ttft_seconds for r in results)
+        tokens = sum(r.num_generated for r in results)
+        row = {"hit_tokens_per_s": hit_tokens / wall,
+               "hit_rate": hits / lookups if lookups else 0.0,
+               "tokens_per_s": tokens / wall,
+               "ttft_p50_s": float(np.percentile(ttft, 50)),
+               "ttft_p99_s": float(np.percentile(ttft, 99)),
+               "evictions": d1["evictions"] - d0["evictions"],
+               "prefill_chunks": d1["prefill_chunks"] - d0["prefill_chunks"],
+               "decode_chunks": d1["chunks"] - d0["chunks"],
+               "hit_tokens": hit_tokens, "launches": launches}
+        out[route] = row
+        print(f"  prefix cache ({route} route) SMALL bf16: {len(results)} "
+              f"requests, {tokens} tokens in {wall:.3f} s = "
+              f"{row['tokens_per_s']:.1f} tok/s; hit tokens/s "
+              f"{row['hit_tokens_per_s']:.1f}, hit rate {row['hit_rate']:.3f};"
+              f" TTFT p50 {row['ttft_p50_s']:.4f} s p99 "
+              f"{row['ttft_p99_s']:.4f} s; evictions {row['evictions']}; "
+              f"{row['prefill_chunks']} prefill chunks, "
+              f"{row['decode_chunks']} decode chunks; launches {launches} "
+              f"[{card}]")
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    # Two prompts on a head that lands in the 128 bucket and two on one
+    # that lands in the 512 bucket, alternating.
+    pairs = [_tie_free(generation, params32, cfg32, device,
+                       _head_prompts(rng, [head], 12, cycle=True,
+                                     vocab=cfg.vocab_size), 2,
+                       PARITY_BUDGET)
+             for head in (heads[0], rng.integers(1, cfg.vocab_size, 400)
+                          .astype(np.int32))]
+    picks = [pairs[i % 2][i // 2] for i in range(4)]
+    by_width = {}
+    for route in ("xla", "pallas"):
+        for pchunk, buckets in ((p["pchunk"], p["buckets"] + (512,)),
+                                (None, BUCKETS)):
+            serve = ServeConfig(
+                max_new_tokens=PARITY_BUDGET, prompt_buckets=buckets,
+                num_slots=2, chunk_tokens=CHUNK,
+                prefix_cache_blocks=p["blocks"],
+                prefix_block_tokens=p["block_tokens"],
+                prefill_chunk_tokens=pchunk, decode_kernel=route)
+            d1, launches = _prefix_parity(
+                f"prefix engine ({route}, chunk {pchunk})", generation,
+                params, cfg32, device, serve, picks)
+            for width, n in d1["prefill_chunk_widths"].items():
+                by_width[width] = by_width.get(width, 0) + cfg.num_layers * n
+            for name, n in launches.items():
+                out["launches"][name] = out["launches"].get(name, 0) + n
+    out["paged_launches_by_tq"] = by_width
+    print(f"  K8 launches of the f32 prefix engines by prefill-chunk width: "
+          f"{dict(sorted(by_width.items()))}")
+    return out
+
+
+def run_tier_engine(device, card):
+    """3t, bench.py's ``serving_prefix_tier``: 6 system prompts of 96
+    tokens cycled through 2 slots and an 18-block pool, the host tier off
+    (0 blocks) and on (64), each head seeded once first; launches checked
+    against the engine's record.  Then in f32, tier on, one request at a
+    time: token-identical to ``generate()`` with the replayed hit,
+    swap-in and demotion counts."""
+    import torch
+
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    t = TIER_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    rng = np.random.default_rng(11)
+    bucket = PREFIX_SERVE["buckets"][-1]
+    heads = [rng.integers(1, cfg.vocab_size, bucket * 3 // 4).astype(np.int32)
+             for _ in range(t["heads"])]
+    prompts = _head_prompts(rng, heads, t["requests"], cycle=True,
+                            vocab=cfg.vocab_size)
+
+    def serve_config(dram, new, warmup):
+        return ServeConfig(
+            max_new_tokens=new, prompt_buckets=(bucket,), num_slots=2,
+            chunk_tokens=CHUNK, prefix_cache_blocks=t["hbm"],
+            prefix_block_tokens=PREFIX_SERVE["block_tokens"],
+            prefill_chunk_tokens=PREFIX_SERVE["pchunk"],
+            prefix_dram_blocks=dram, warmup=warmup)
+
+    out = {"launches": {}}
+    for arm, dram in (("off", 0), ("on", t["dram"])):
+        with ServingEngine(params, cfg, serve_config(dram, t["new"], True),
+                           device=device) as engine:
+            engine.wait_ready()
+            for head in heads:
+                engine.submit(np.concatenate([head, head[:1]]),
+                              max_new_tokens=2).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = engine.stats()
+            dispatch.reset_launch_counts()
+            results, _ = _run_measured(engine, prompts,
+                                       [t["new"]] * len(prompts), wave=4,
+                                       pause=0.02)
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        d1 = engine.stats()
+        _check_launches(f"tier {arm}", launches, cfg.num_layers, d0, d1)
+        ttft = sorted(r.ttft_seconds for r in results)
+        row = {"ttft_p50_s": float(np.percentile(ttft, 50)),
+               "ttft_p99_s": float(np.percentile(ttft, 99)),
+               "hit_tokens": d1["prefix_hit_tokens"] - d0["prefix_hit_tokens"],
+               "swapin_hits": d1["prefix_dram_hits"] - d0["prefix_dram_hits"],
+               "demotions": (d1["prefix_dram_demotions"]
+                             - d0["prefix_dram_demotions"]),
+               "launches": launches}
+        out[arm] = row
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        print(f"  host tier {arm} (dram {dram}) SMALL bf16: {len(results)} "
+              f"requests; TTFT p50 {row['ttft_p50_s']:.4f} s p99 "
+              f"{row['ttft_p99_s']:.4f} s; hit tokens {row['hit_tokens']}, "
+              f"swap-in hits {row['swapin_hits']}, demotions "
+              f"{row['demotions']}; launches {launches} [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    candidates = _head_prompts(rng, heads * 5, 30, cycle=True,
+                               vocab=cfg.vocab_size)
+    picks = _tie_free(generation, params32, cfg32, device, candidates, 9,
+                      PARITY_BUDGET)
+    d1, launches = _prefix_parity(
+        "tier engine (on)", generation, params, cfg32, device,
+        serve_config(t["dram"], PARITY_BUDGET, False), picks)
+    if not d1["prefix_dram_hits"]:
+        raise AssertionError("the f32 tier run swapped nothing in")
+    for name, n in launches.items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    return out
+
+
 #: Kernels whose bf16 instantiations must run on the tensor cores, by
 #: library.
 TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
@@ -2071,6 +2662,9 @@ def main() -> int:
          lambda: [check_flash(device, card), check_paged(device, card),
                   check_paged_int8(device, card)],
          True),
+        ("phase 2 (chunks): K8 and K8q at prefill-chunk query counts "
+         "(several query tiles)", "paged chunk check",
+         lambda: check_paged_chunks(device, card), True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -2089,6 +2683,15 @@ def main() -> int:
          "decode A/B", lambda: run_decode_ab(device, card), True),
         ("phase 3e: beam_search, int8 weights and kv_quant", "beam search",
          lambda: run_beam_search(device, card), True),
+        ("phase 3g: ServingEngine scheduler='batch', bench.py's "
+         "_measure_serving config", "batch engine",
+         lambda: run_batch_engine(device, card), True),
+        ("phase 3p: prefix cache + chunked prefill, copy and attach routes, "
+         "bench.py's serving_prefix config", "prefix engine",
+         lambda: run_prefix_engine(device, card), True),
+        ("phase 3t: the prefix cache's host-DRAM tier off and on, "
+         "bench.py's serving_prefix_tier config", "tier engine",
+         lambda: run_tier_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -2098,6 +2701,7 @@ def main() -> int:
     results = {}
     for title, what, fn, no_grad in phases:
         print(title)
+        start = time.perf_counter()
         try:
             if no_grad:
                 with torch.no_grad():
@@ -2105,33 +2709,39 @@ def main() -> int:
             else:
                 results[what] = fn()
         except Exception as exc:  # noqa: BLE001 — reported, exit nonzero
-            return fail(f"{what}: {exc!r}")
+            return fail(f"{what}: {exc!r}", title)
+        print(f"  ({what}: {time.perf_counter() - start:.1f} s wall)")
     cifar, cifar_run = results.pop("CIFAR training")
+    title = "phase 4c: one ResNet-50 CIFAR step under torch.profiler"
     try:
-        print("phase 4c: one ResNet-50 CIFAR step under torch.profiler")
+        print(title)
         cifar.update(profile_train_step(card, *cifar_run))
         del cifar_run
         torch.cuda.empty_cache()
-        print("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
-              "one step under torch.profiler")
+        title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
+                 "one step under torch.profiler")
+        print(title)
         at_224, run_224 = run_training(device, card, imagenet=True,
                                        warmup=3, iters=5)
         at_224.update(profile_train_step(card, *run_224))
         del run_224
         torch.cuda.empty_cache()
     except Exception as exc:  # noqa: BLE001
-        return fail(f"ResNet training: {exc!r}")
+        return fail(f"ResNet training: {exc!r}", title)
     try:
-        print(f"phase 6: train CloudLM SMALL b{LM_BATCH}xT{LM_SEQ} bf16, "
-              f"plain CE, 3 + 10 steps")
+        title = (f"phase 6: train CloudLM SMALL b{LM_BATCH}xT{LM_SEQ} bf16, "
+                 f"plain CE, 3 + 10 steps")
+        print(title)
         lm, lm_run = run_lm_training(device, card, fused_ce=False, warmup=3,
                                      iters=10)
-        print("phase 6c: one LM step (plain CE) under torch.profiler")
+        title = "phase 6c: one LM step (plain CE) under torch.profiler"
+        print(title)
         lm.update(profile_attn_step(card, f"LM b{LM_BATCH}xT{LM_SEQ}",
                                     LM_PER_STEP, *lm_run))
         del lm_run
         torch.cuda.empty_cache()
-        print("phase 6 (A/B): the same with fused_ce, 3 + 5 steps")
+        title = "phase 6 (A/B): the same with fused_ce, 3 + 5 steps"
+        print(title)
         lm_fused, _ = run_lm_training(device, card, fused_ce=True, warmup=3,
                                       iters=5)
         torch.cuda.empty_cache()
@@ -2139,10 +2749,12 @@ def main() -> int:
               f"{lm['max_memory_allocated'] / 2**30:.3f} GiB; fused_ce "
               f"{lm_fused['steps_per_s']:.3f} steps/s, "
               f"{lm_fused['max_memory_allocated'] / 2**30:.3f} GiB [{card}]")
-        print("phase 6b: f32 gradients of SMALL (2 layers), card against CPU")
+        title = "phase 6b: f32 gradients of SMALL (2 layers), card against CPU"
+        print(title)
         lm_parity = check_lm_grad_parity(device, card)
-        print(f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
-              f"3 + 10 steps, then one step under torch.profiler")
+        title = (f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
+                 f"3 + 10 steps, then one step under torch.profiler")
+        print(title)
         bert_run, bert_steps = run_bert_training(device, card, warmup=3,
                                                  iters=10)
         bert_run.update(profile_attn_step(
@@ -2150,7 +2762,7 @@ def main() -> int:
             *bert_steps))
         del bert_steps
     except Exception as exc:  # noqa: BLE001
-        return fail(f"transformer training: {exc!r}")
+        return fail(f"transformer training: {exc!r}", title)
 
     engine = results["engine"]
     engine.update(results["decode breakdown"])
@@ -2161,11 +2773,31 @@ def main() -> int:
     k5["max_abs_err"] = max(k5["max_abs_err"], k5_worst["bfloat16"])
     k5["max_abs_err_f32"] = max(k5["max_abs_err_f32"], k5_worst["float32"])
     engine_q = results["quantized engine"]
+    chunks = results["paged chunk check"]
     for entry in kernels:
-        phase = (engine_q if entry["name"] == "paged_attention_int8"
-                 else engine if entry["name"] in SERVING_KERNELS
-                 else lm if entry["name"] in FLASH_BWD_KERNELS else cifar)
-        entry["launches"] = phase["launches"][entry["name"]]
+        for dname, key in (("bfloat16", "max_abs_err"),
+                           ("float32", "max_abs_err_f32")):
+            err = chunks["max_abs_err"].get(f"{entry['name']} {dname}")
+            if err is not None:
+                entry[key] = max(entry[key], err)
+    # A serving kernel's launches: the sum over the serving phases, each
+    # counted from 0 just before its run and read just after.
+    serving = {"engine": engine, "quantized engine": engine_q,
+               "batch engine": results["batch engine"],
+               "prefix engine": results["prefix engine"],
+               "tier engine": results["tier engine"]}
+    by_phase = {name: {what: phase["launches"].get(name, 0)
+                       for what, phase in serving.items()}
+                for name in QUANT_SERVING_KERNELS}
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches"] = (
+            sum(by_phase[name].values()) if name in by_phase
+            else (lm if name in FLASH_BWD_KERNELS else cifar)[
+                "launches"][name])
+        if entry["launches"] <= 0:
+            return fail(f"kernel {name} was not launched on its path",
+                        "kernel line")
     k8q = next(e for e in kernels if e["name"] == "paged_attention_int8")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2190,8 +2822,13 @@ def main() -> int:
             "S=576": k8q["bf16_k8_device_ms"],
             "S=4096": k8q["at_4096"]["bf16_k8_device_ms"]},
         "paged_attention_int8_at_4096": k8q["at_4096"],
+        "serving_launches_by_phase": by_phase,
+        "paged_chunks": chunks,
         "engine": {k: v for k, v in engine.items() if k != "launches"},
         "engine_int8_kv_quant": engine_q,
+        "engine_batch": results["batch engine"],
+        "engine_prefix": results["prefix engine"],
+        "engine_prefix_tier": results["tier engine"],
         "decode_quant_ab": results["decode A/B"],
         "beam_search_int8_kv_quant": results["beam search"],
         "resnet50_cifar_b256": {k: v for k, v in cifar.items()

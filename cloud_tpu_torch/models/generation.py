@@ -8,9 +8,15 @@ becomes a Python loop over steps and layers, and its immutable cache
 threaded through the scan becomes one cache updated in place: every
 writer here stores into the cache tensors it was given and returns them.
 
-The slot-grid programs (:func:`insert_slot_program`,
-:func:`decode_chunk_program`) are the continuous-batching engine's
-device work.  Greedy outputs are token-identical to :func:`generate`.
+The batch programs (:func:`prefill_program`, :func:`decode_program`) are
+the batch scheduler's device work; the slot-grid programs
+(:func:`insert_slot_program`, :func:`decode_chunk_program`) the
+continuous scheduler's; the prefix-pool programs
+(:func:`init_prefix_pool`, :func:`copy_prefix_program`,
+:func:`save_prefix_program`, the block downloads and uploads) and the
+chunked-prefill programs (:func:`prefill_chunk_program`,
+:func:`finalize_slot_program`) serve the prefix KV cache and chunked
+prefill.  Greedy outputs are token-identical to :func:`generate`.
 :func:`beam_search` decodes the same cache with a live and a finished
 hypothesis set.
 
@@ -417,6 +423,40 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
             "num_generated": num_generated}
 
 
+def prefill_program(params, prompt_tokens, prompt_lens, config, *,
+                    max_new_tokens: int, kv_quant: bool = False):
+    """The batch scheduler's first half: prefill a padded prompt bucket
+    ``[B, bucket_len]`` (flash attention) into a fresh cache of
+    ``bucket_len + max_new_tokens`` positions.  Returns ``(cache,
+    logits0)``; feed both to :func:`decode_program`."""
+    with torch.no_grad():
+        t_prompt = prompt_tokens.shape[1]
+        device = prompt_tokens.device
+        prompt_lens = torch.as_tensor(prompt_lens, device=device).to(
+            torch.int32).clamp(1, t_prompt)
+        return _prefill(params, prompt_tokens.to(torch.int32), prompt_lens,
+                        config, t_prompt + max_new_tokens, kv_quant=kv_quant)
+
+
+def decode_program(params, cache, logits0, prompt_lens, config, *,
+                   max_new_tokens: int,
+                   sample: SampleConfig = SampleConfig(temperature=0.0),
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, Any]:
+    """The batch scheduler's second half: decode ``max_new_tokens`` from
+    a :func:`prefill_program` cache (``max_new_tokens - 1`` decode steps,
+    each through the paged kernel).  Returns ``tokens [B, N]`` and
+    ``num_generated [B]``."""
+    with torch.no_grad():
+        t_prompt = cache["k"].shape[2] - max_new_tokens
+        prompt_lens = torch.as_tensor(prompt_lens, device=logits0.device).to(
+            torch.int32).clamp(1, t_prompt)
+        tokens, num_generated = _decode_tokens(
+            params, cache, logits0, prompt_lens, config,
+            max_new_tokens=max_new_tokens, sample=sample, generator=generator)
+    return {"tokens": tokens, "num_generated": num_generated}
+
+
 # --------------------------------------------------------------------------
 # Continuous batching: the slot-grid programs.  A persistent grid of
 # ``num_slots`` decode slots over a ``max_len`` KV cache; requests are
@@ -572,6 +612,191 @@ def decode_chunk_program(params, cache, state, config, *, chunk_size: int,
             torch.int32)
         return cache, state, toks, valid, summary
     return cache, state, toks, valid
+
+
+# --------------------------------------------------------------------------
+# Prefix caching and chunked prefill.  A prompt's K/V at positions [0, n)
+# depend only on its tokens there, so requests that share a prefix can share
+# its K/V: the engine keeps a pool of K/V blocks (:func:`init_prefix_pool`)
+# keyed on the host by token prefixes (``serving/prefix_cache.py``), copies
+# the longest cached prefix into a slot row (:func:`copy_prefix_program`)
+# or hands its blocks to the paged kernel through the block table, prefills
+# only the rest in bounded chunks (:func:`prefill_chunk_program`), arms the
+# slot from the last chunk's logits (:func:`finalize_slot_program`) and
+# saves the prompt's new full blocks to the pool
+# (:func:`save_prefix_program`).  Every program updates the cache or pool it
+# is given in place and returns it.
+
+
+def init_prefix_pool(config, num_blocks: int, block_tokens: int, *,
+                     device=None, kv_quant: bool = False):
+    """The shared-prefix block pool: a zeroed cache of ``[L, num_blocks,
+    block_tokens, H, hd]`` leaves, the slot cache's structure (int8 plus
+    scales with ``kv_quant``)."""
+    return _init_cache(config, num_blocks, block_tokens,
+                       resolve_device(device), kv_quant=kv_quant)
+
+
+def copy_prefix_program(cache, pool, block_ids, slot: int):
+    """Copy pool blocks into the head of row ``slot``: block ``i`` lands at
+    positions ``[i * bt, (i + 1) * bt)``.  Ids out of range are clipped
+    (padding past a hit; the bytes it copies are overwritten by the
+    suffix prefill or masked)."""
+    with torch.no_grad():
+        for name, leaf in cache.items():
+            pool_leaf = pool[name]
+            nb, bt = pool_leaf.shape[1:3]
+            ids = torch.as_tensor(block_ids, dtype=torch.long).clamp(
+                0, nb - 1).to(pool_leaf.device)
+            gathered = pool_leaf.index_select(1, ids)  # [L, n, bt, H, w]
+            l, n = gathered.shape[:2]
+            leaf[:, int(slot), :n * bt] = gathered.reshape(
+                l, n * bt, *gathered.shape[3:])
+    return cache
+
+
+def save_prefix_program(pool, cache, slot: int, block_ids):
+    """The reverse copy: positions ``[i * bt, (i + 1) * bt)`` of row
+    ``slot`` into pool block ``block_ids[i]``.  An id out of range (the
+    ``SKIP_BLOCK`` sentinel) skips its block, so cached blocks are never
+    rewritten."""
+    with torch.no_grad():
+        ids = torch.as_tensor(block_ids, dtype=torch.long)
+        for name, pool_leaf in pool.items():
+            nb, bt = pool_leaf.shape[1:3]
+            keep = torch.nonzero((ids >= 0) & (ids < nb))[:, 0]
+            if keep.numel() == 0:
+                continue
+            leaf = cache[name]
+            n = ids.shape[0]
+            blocks = leaf[:, int(slot), :n * bt].reshape(
+                leaf.shape[0], n, bt, *leaf.shape[3:])
+            dev = pool_leaf.device
+            pool_leaf[:, ids[keep].to(dev)] = blocks[:, keep.to(dev)]
+    return pool
+
+
+def _host_buffer(like, shape):
+    """An empty host tensor for a device-to-host copy: pinned when the
+    source is on the card, so the copy runs on the stream without
+    blocking the host."""
+    return torch.empty(shape, dtype=like.dtype,
+                       pin_memory=like.device.type == "cuda")
+
+
+def download_prefix_blocks(pool, blocks):
+    """Pool rows ``blocks [N]`` as host tensors ``[N, L, bt, H, hd]`` per
+    leaf (scales too for an int8 pool), copied on the current stream into
+    pinned memory: the caller synchronises before it reads them.  Ids
+    out of range are clipped."""
+    with torch.no_grad():
+        out = {}
+        for name, leaf in pool.items():
+            ids = torch.as_tensor(blocks, dtype=torch.long).clamp(
+                0, leaf.shape[1] - 1).to(leaf.device)
+            rows = leaf.index_select(1, ids).transpose(0, 1)
+            host = _host_buffer(leaf, rows.shape)
+            host.copy_(rows, non_blocking=host.is_pinned())
+            out[name] = host
+    return out
+
+
+def download_prefix_block(pool, block: int):
+    """One pool row as host tensors ``[L, bt, H, hd]`` per leaf (see
+    :func:`download_prefix_blocks`): the payload of a block the host
+    tier demotes."""
+    return {name: leaf[0] for name, leaf in
+            download_prefix_blocks(pool, [int(block)]).items()}
+
+
+def upload_prefix_blocks(pool, payloads, blocks):
+    """Write host payloads (leaves ``[N, L, bt, H, hd]``) into pool rows
+    ``blocks [N]``, on the current stream; an id out of range is dropped.
+    Returns the pool."""
+    with torch.no_grad():
+        ids = torch.as_tensor(blocks, dtype=torch.long)
+        for name, leaf in pool.items():
+            keep = torch.nonzero((ids >= 0) & (ids < leaf.shape[1]))[:, 0]
+            if keep.numel() == 0:
+                continue
+            rows = payloads[name][keep].to(
+                leaf.device, dtype=leaf.dtype, non_blocking=True)
+            leaf[:, ids[keep].to(leaf.device)] = rows.transpose(0, 1)
+    return pool
+
+
+def upload_prefix_block(pool, payload, block: int):
+    """Write one demoted block's payload (leaves ``[L, bt, H, hd]``) back
+    into pool row ``block`` (a swap-in).  Returns the pool."""
+    with torch.no_grad():
+        for name, leaf in pool.items():
+            leaf[:, int(block)].copy_(payload[name], non_blocking=True)
+    return pool
+
+
+def prefill_chunk_program(params, cache, chunk_tokens, start: int,
+                          chunk_len: int, slot: int, config, *, pool=None,
+                          block_table=None):
+    """Prefill one bounded chunk of a prompt into row ``slot``:
+    ``chunk_tokens [1, c]`` covers prompt positions ``[start, start +
+    chunk_len)`` (padded to ``c``).  Each layer writes the chunk's K/V into
+    the row (positions past the row are dropped), then attends
+    chunk-causally over it through the paged kernel with ``Tq = c``:
+    query ``t`` sees keys below ``start + 1 + t``, the filled prefix (a
+    copied hit, earlier chunks) and the chunk itself.  With
+    ``block_table`` and ``pool`` the row's leading pages read pool blocks
+    in place (an attached hit).  Returns ``(cache, logits [1, V])``, the
+    logits at the chunk's last real token."""
+    with torch.no_grad():
+        device = cache["k"].device
+        chunk_tokens = torch.as_tensor(chunk_tokens).to(device=device,
+                                                        dtype=torch.int32)
+        c = chunk_tokens.shape[1]
+        start, slot = int(start), int(slot)
+        s = cache["k"].shape[2]
+        end = min(start + c, s)
+        positions = (start + torch.arange(c, device=device))[None, :]
+        cur_len = torch.full((1,), start + 1, dtype=torch.int32,
+                             device=device)
+        table_row = (None if block_table is None
+                     else block_table[slot:slot + 1])
+        quantized = "k_scale" in cache
+        x = layers.embedding_apply(params["embed"], chunk_tokens,
+                                   dtype=config.dtype)
+        x = x * math.sqrt(config.dim)
+        for layer, layer_params in enumerate(params["layers"]):
+            y = layers.rmsnorm_apply(layer_params["ln1"], x)
+            q, k_new, v_new = transformer.qkv_project(
+                layer_params["att"], y, positions, config)
+            updates = _kv_leaf_updates(k_new[0], v_new[0], config, quantized)
+            for name, value in updates.items():
+                cache[name][layer, slot, start:end] = value[:end - start]
+            row = {name: leaf[layer, slot:slot + 1]
+                   for name, leaf in cache.items()}
+            pool_l = (None if pool is None or table_row is None
+                      else {name: leaf[layer] for name, leaf in pool.items()})
+            attended = paged_lib.paged_chunk_attention(
+                q, row, cur_len, pool_l=pool_l, block_table=table_row)
+            x = x + layers.dense_apply(layer_params["att"]["out"],
+                                       attended.reshape(1, c, -1))
+            y = layers.rmsnorm_apply(layer_params["ln2"], x)
+            x = x + layers.mlp_block_apply(layer_params["mlp"], y)
+        last = min(max(int(chunk_len) - 1, 0), c - 1)
+        logits = _final_logits(params, x[:, last:last + 1], config)[:, 0]
+    return cache, logits
+
+
+def finalize_slot_program(state, logits0, prompt_len: int, slot: int,
+                          max_new_tokens: int, config, *,
+                          sample: SampleConfig = SampleConfig(temperature=0.0),
+                          generator: Optional[torch.Generator] = None):
+    """Arm row ``slot`` from a chunked prefill's last logits, exactly as
+    :func:`insert_slot_program` arms it after its one-shot prefill.
+    Returns ``(state, first_token)``."""
+    with torch.no_grad():
+        return _arm_slot(state, logits0, int(prompt_len), int(slot),
+                         max_new_tokens, config, sample=sample,
+                         generator=generator)
 
 
 # --------------------------------------------------------------------------

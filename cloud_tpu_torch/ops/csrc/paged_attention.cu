@@ -21,16 +21,20 @@
 //
 // Translation: split across pages (flash-decoding).  The TPU grid walked
 // (row, page) with the table and lengths scalar-prefetched and the
-// online-softmax state in VMEM scratch, one row at a time.  Here the grid
-// is (H, B, n_split): the wrapper picks n_split from static shapes only (B,
-// H, S, bt and the SM count; it never reads cur_len, which lives on the
-// card) so that B * H * n_split blocks cover the SMs several times over, and
-// no split is narrower than a page.  Each block reads cur_len[b] itself,
-// takes the row's live pages ceil((cur_len + Tq - 1) / bt) (the dead-page
-// skip) and its even share of them, split * n_live / n_split up to
-// (split + 1) * n_live / n_split, so a short row does not leave one split
-// with all the work; a split with no live page writes an empty partial and
-// exits.
+// online-softmax state in VMEM scratch, one row at a time, all Tq queries
+// at once.  Here the grid is (H, B, n_qtile * n_split): the queries come in
+// tiles of kQueryTile (a prefill chunk of 512 queries is 8 tiles; a decode
+// step is one tile of 1), and the wrapper picks n_split from static shapes
+// only (B, H, S, bt, Tq and the SM count; it never reads cur_len, which
+// lives on the card) so that B * H * n_qtile * n_split blocks cover the SMs
+// several times over, and no split is narrower than a page.  Each block
+// reads cur_len[b] itself, takes the live pages of its query tile
+// [t0, t1), ceil((cur_len + t1 - 1) / bt) (the dead-page skip: the last
+// query of the tile sees keys below cur_len + t1 - 1), and its even share
+// of them, split * n_live / n_split up to (split + 1) * n_live / n_split, so
+// a short row does not leave one split with all the work; a split with no
+// live page writes an empty partial and exits.  Query t of the tile keeps
+// its own chunk-causal mask, key j valid iff j < cur_len + t.
 //   - Loads: the split's keys arrive in tiles of 64 (32 for f32 K/V) by
 //     16-byte cp.async copies in a 2-stage ring, tile i + 1 in flight while
 //     tile i is computed, in their stored type (bf16, int8 or f32; K8q's
@@ -76,6 +80,8 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
+// Queries a block holds in shared memory; Tq above it takes several tiles.
+constexpr int kQueryTile = 64;
 
 struct Params {
   const void* q;        // [B, Tq, H, D]
@@ -93,6 +99,7 @@ struct Params {
   float* part_ml;       // [B * Tq * H, n_split, 2]: (m, l) of each split
   float* part_acc;      // [B * Tq * H, n_split, D]
   int B, Tq, H, S, bt, n_tab, n_split;
+  int n_qtile;          // ceil(Tq / kQueryTile)
   float scale;
 };
 
@@ -108,7 +115,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // Keys per staged tile: 64, or 32 for f32 K/V, whose 64-key ring at hd=128
-// beside Tq=64 queries would not fit a block's shared memory.
+// beside a 64-query tile would not fit a block's shared memory.
 template <typename KV> __host__ __device__ constexpr int tile_keys() {
   return sizeof(KV) == 4 ? 32 : 64;
 }
@@ -189,7 +196,8 @@ __device__ __forceinline__ long long key_source(const Params& p, int b, int j,
 
 // T: the type of q and out.  KV: the type of the stored K/V, T itself (K8)
 // or int8_t (K8q, with per-(position, head) scales).  One block: one (head,
-// row, split); writes that split's partial.
+// row, query tile, split); writes that split's partial of each query of the
+// tile.
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
@@ -204,24 +212,28 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   float* sKs = reinterpret_cast<float*>(sV + 2 * kTileB);  // [2][kKT]
   float* sVs = sKs + 2 * kKT;           // [2][kKT], 0 outside the split
   const int Tq = p.Tq;
-  float* sQ = sVs + 2 * kKT;            // [Tq][D]
-  float* sAcc = sQ + Tq * D;            // [Tq][D]
-  float* sW = sAcc + Tq * D;            // [Tq][kKT]: scores, then weights
-  float* sM = sW + Tq * kKT;            // [Tq]
-  float* sL = sM + Tq;                  // [Tq]
-  float* sC = sL + Tq;                  // [Tq]: this tile's correction
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qtile = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
+  // This block's queries: [t0, t0 + nq).
+  const int t0 = qtile * kQueryTile;
+  const int nq = min(kQueryTile, Tq - t0);
+  float* sQ = sVs + 2 * kKT;            // [nq][D]
+  float* sAcc = sQ + nq * D;            // [nq][D]
+  float* sW = sAcc + nq * D;            // [nq][kKT]: scores, then weights
+  float* sM = sW + nq * kKT;            // [nq]
+  float* sL = sM + nq;                  // [nq]
+  float* sC = sL + nq;                  // [nq]: this tile's correction
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int len = p.cur_len[b];
-  // Partial (b, t, h, split) is at part(t) = part0 + t * H * n_split.
+  // Partial (b, t0 + t, h, split) is at part0 + t * H * n_split.
   const long long part0 =
-      (static_cast<long long>(b) * Tq * p.H + h) * p.n_split + split;
+      ((static_cast<long long>(b) * Tq + t0) * p.H + h) * p.n_split + split;
   const long long part_t = static_cast<long long>(p.H) * p.n_split;
 
-  // This split's keys: its even share of the row's live pages.  The
-  // largest key any query of the row sees is len + Tq - 2.
-  const int limit = len + Tq - 1;
+  // This split's keys: its even share of the query tile's live pages.  The
+  // largest key a query of the tile sees is len + t0 + nq - 2.
+  const int limit = len + t0 + nq - 1;
   const int n_pages = (p.S + p.bt - 1) / p.bt;
   const int n_live =
       limit <= 0 ? 0 : min((limit + p.bt - 1) / p.bt, n_pages);
@@ -229,10 +241,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   const int j_end = min((split + 1) * n_live / p.n_split * p.bt, p.S);
 
   if (j_begin >= j_end) {  // no live page: an empty partial
-    for (int i = tid; i < Tq * D; i += kThreads) {
+    for (int i = tid; i < nq * D; i += kThreads) {
       p.part_acc[(part0 + (i / D) * part_t) * D + i % D] = 0.f;
     }
-    for (int t = tid; t < Tq; t += kThreads) {
+    for (int t = tid; t < nq; t += kThreads) {
       p.part_ml[2 * (part0 + t * part_t)] = kNegInf;
       p.part_ml[2 * (part0 + t * part_t) + 1] = 0.f;
     }
@@ -276,12 +288,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   issue(0, j_begin);
   tc::cp_async_commit();
   const T* q = static_cast<const T*>(p.q);
-  for (int i = tid; i < Tq * D; i += kThreads) {
-    const int t = i / D, d = i % D;
+  for (int i = tid; i < nq * D; i += kThreads) {
+    const int t = t0 + i / D, d = i % D;
     sQ[i] = to_f<T>(q[((static_cast<long long>(b) * Tq + t) * p.H + h) * D + d]);
     sAcc[i] = 0.f;
   }
-  for (int t = tid; t < Tq; t += kThreads) {
+  for (int t = tid; t < nq; t += kThreads) {
     sM[t] = kNegInf;
     sL[t] = 0.f;
   }
@@ -300,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
 
     // Scores: two threads a (query, key) pair, each over half of hd.  The
     // trip count is a multiple of 32 threads, so shuffles see whole warps.
-    for (int i = tid; i < Tq * kKT * 2; i += kThreads) {
+    for (int i = tid; i < nq * kKT * 2; i += kThreads) {
       const int half = i & 1, c = (i >> 1) % kKT, t = (i >> 1) / kKT;
       const float* qr = sQ + t * D + half * (D / 2);
       const unsigned char* kr = tK + c * kRowB + half * (D / 2) * sizeof(KV);
@@ -319,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
         if constexpr (kQuant) s *= tKs[c];
         if (j >= j_end) {
           s = -INFINITY;  // not a key of this split
-        } else if (j >= len + t) {
+        } else if (j >= len + t0 + t) {
           s = kNegInf;
         }
         sW[t * kKT + c] = s;
@@ -328,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
     __syncthreads();
 
     // Online softmax, a warp a query row: one exp a score.
-    for (int t = warp; t < Tq; t += kWarps) {
+    for (int t = warp; t < nq; t += kWarps) {
       float s[kKT / 32];
       float m_blk = -INFINITY;
 #pragma unroll
@@ -363,7 +375,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
 
     // acc = acc * corr + P V: four threads a (query, column pair), each over
     // a quarter of the keys.
-    for (int i = tid; i < Tq * D * 2; i += kThreads) {
+    for (int i = tid; i < nq * D * 2; i += kThreads) {
       const int kq = i & 3, d = 2 * ((i >> 2) % (D / 2)), t = (i >> 2) / (D / 2);
       const float* w = sW + t * kKT;
       float a0 = 0.f, a1 = 0.f;
@@ -386,10 +398,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
     __syncthreads();  // ring slot it & 1 and sW are free
   }
 
-  for (int i = tid; i < Tq * D; i += kThreads) {
+  for (int i = tid; i < nq * D; i += kThreads) {
     p.part_acc[(part0 + (i / D) * part_t) * D + i % D] = sAcc[i];
   }
-  for (int t = tid; t < Tq; t += kThreads) {
+  for (int t = tid; t < nq; t += kThreads) {
     p.part_ml[2 * (part0 + t * part_t)] = sM[t];
     p.part_ml[2 * (part0 + t * part_t) + 1] = sL[t];
   }
@@ -425,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename KV, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<KV, D>(p.Tq);
+  const size_t smem = smem_bytes<KV, D>(min(p.Tq, kQueryTile));
   static size_t configured = 0;
   if (smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -434,7 +446,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     configured = smem;
   }
-  dim3 grid(p.H, p.B, p.n_split);
+  dim3 grid(p.H, p.B, p.n_qtile * p.n_split);
   paged_attention_kernel<T, KV, D><<<grid, kThreads, smem, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -465,7 +477,8 @@ int run(const Params& p, int D, int is_bf16, bool quant, int device,
   }
   if (p.B <= 0 || p.Tq <= 0 || p.H <= 0) return 0;
   if (p.bt <= 0 || p.S <= 0 || p.n_split <= 0 || p.part_ml == nullptr ||
-      p.part_acc == nullptr)
+      p.part_acc == nullptr ||
+      static_cast<long long>(p.n_qtile) * p.n_split > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -495,7 +508,8 @@ extern "C" int paged_attention(const void* q, const void* slot_k,
            nullptr, static_cast<const int32_t*>(table),
            static_cast<const int32_t*>(cur_len), out,
            static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-           B, Tq, H, S, bt, n_tab, n_split, scale};
+           B, Tq, H, S, bt, n_tab, n_split,
+           (Tq + kQueryTile - 1) / kQueryTile, scale};
   return run(p, D, is_bf16, false, device, stream);
 }
 
@@ -520,7 +534,8 @@ extern "C" int paged_attention_int8(const void* q, const void* slot_k,
            static_cast<const int32_t*>(table),
            static_cast<const int32_t*>(cur_len), out,
            static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-           B, Tq, H, S, bt, n_tab, n_split, scale};
+           B, Tq, H, S, bt, n_tab, n_split,
+           (Tq + kQueryTile - 1) / kQueryTile, scale};
   return run(p, D, is_bf16, true, device, stream);
 }
 

@@ -18,7 +18,9 @@ design and what bounds it) or raise: K8 (``paged_attention``) for K/V of
 q's type, K8q (``paged_attention_int8``) for int8 K/V.  Each call splits a
 row's live pages across :func:`plan_splits` blocks (flash-decoding) and
 merges their partials in a second, small kernel: two kernels a call, one
-launch counted.
+launch counted.  Any query count runs: the kernel takes the queries in
+tiles of :data:`KERNEL_QUERY_TILE` (a 512-token prefill chunk is eight), each
+tile with its own live pages and the chunk-causal mask of its own queries.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -37,29 +39,46 @@ NEG_INF = -1e30
 #: Page size used when no prefix pool rides along.
 DEFAULT_PAGE_TOKENS = 128
 
-#: Head dims and the largest query count the kernel is compiled for.
+#: Head dims the kernel is compiled for, and the queries one block holds
+#: (``kQueryTile`` in ``paged_attention.cu``).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_MAX_TQ = 64
+KERNEL_QUERY_TILE = 64
 
 #: Blocks per SM the split aims for, and the most splits a row takes.
 SPLIT_BLOCKS_PER_SM = 4
 MAX_SPLITS = 64
 
 
-def plan_splits(b: int, h: int, s: int, bt: int, sms: int) -> int:
-    """How many blocks share a (row, head)'s pages: enough that
-    ``b * h * n`` blocks give every one of ``sms`` SMs
-    :data:`SPLIT_BLOCKS_PER_SM`, but no more than the ``ceil(s / bt)``
+def query_tiles(tq: int) -> List[Tuple[int, int]]:
+    """The queries ``[t0, t1)`` of each of the kernel's query tiles."""
+    return [(t0, min(t0 + KERNEL_QUERY_TILE, tq))
+            for t0 in range(0, tq, KERNEL_QUERY_TILE)]
+
+
+def plan_splits(b: int, h: int, s: int, bt: int, sms: int,
+                tq: int = 1) -> int:
+    """How many blocks share the pages of a (row, head, query tile):
+    enough that ``b * h * n_tiles * n`` blocks give every one of ``sms``
+    SMs :data:`SPLIT_BLOCKS_PER_SM`, but no more than the ``ceil(s / bt)``
     pages of a row (no split narrower than a page) or :data:`MAX_SPLITS`.
     Static shapes only: the lengths live on the card and are never read
     here."""
-    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * h))
+    n_tiles = len(query_tiles(tq))
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * h * n_tiles))
     return max(1, min(want, -(-s // bt), MAX_SPLITS))
 
 
+def live_pages(cur_len: int, t_end: int, s: int, bt: int) -> int:
+    """The pages a query tile ending at query ``t_end`` reads, as the
+    kernel counts them: its last query sees keys below ``cur_len + t_end -
+    1``."""
+    limit = cur_len + t_end - 1
+    return 0 if limit <= 0 else min(-(-limit // bt), -(-s // bt))
+
+
 def split_pages(n_live: int, n_split: int, split: int) -> Tuple[int, int]:
-    """Pages ``[first, end)`` of split ``split`` when a row has ``n_live``
-    live pages: its even share, as the kernel computes it."""
+    """Pages ``[first, end)`` of split ``split`` when a query tile has
+    ``n_live`` live pages: its even share, as the kernel computes it."""
     return split * n_live // n_split, (split + 1) * n_live // n_split
 
 
@@ -195,8 +214,6 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
         )
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    if tq > KERNEL_MAX_TQ:
-        raise ValueError(f"Tq {tq} above the kernel's {KERNEL_MAX_TQ}")
     kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             kv_dtype == slot_k.dtype == slot_v.dtype):
@@ -241,7 +258,7 @@ def _paged_kernel(q, cache_l, cur_len, pool_l, block_table):
         n_tab = table.shape[1]
     lens = cur_len.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    n_split = plan_splits(b, h, s, bt, _sm_count(q.device.index))
+    n_split = plan_splits(b, h, s, bt, _sm_count(q.device.index), tq)
     # The splits' partials: (m, l) then acc[hd] of each, f32, one block.
     parts = b * tq * h * n_split
     work = torch.empty(parts * (d + 2), dtype=torch.float32, device=q.device)

@@ -2,10 +2,17 @@
 
 The JAX package's own ``init`` makes the weights; ``cloud_tpu_torch.bridge``
 carries them across, so both sides compute with the same numbers.
+:func:`run_port_side` runs the port's side of a comparison in a child
+process that never imports JAX, on inputs and weights passed as numpy.
 """
 
 import dataclasses
 import functools
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -44,20 +51,28 @@ def tiny_models(seed=0, num_layers=2, quantized=False):
     return jax_cfg, params, cfg, bridge.to_torch(params, cfg, device="cpu")
 
 
-def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
-    """The smallest top-2 logit gap at every greedy step of JAX
-    ``generate`` on these prompts (re-scored by a full forward pass)."""
+def greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
+    """Each row's smallest top-2 logit gap along the greedy path of JAX
+    ``generate`` on these prompts (re-scored by a full forward pass), and
+    the tokens of that path."""
     out = jax_gen.generate(params, jnp.asarray(prompts), jnp.asarray(lens),
                            jax_cfg, max_new_tokens=max_new_tokens)
     seqs = np.asarray(out["sequences"])
     logits, _ = jax_tf.apply(params, jnp.asarray(seqs), jax_cfg)
     logits = np.asarray(logits)
-    gaps = []
+    gaps = np.empty(len(lens))
     for row, n in enumerate(lens):
-        for pos in range(n - 1, n - 1 + max_new_tokens):
-            top2 = np.sort(logits[row, pos])[-2:]
-            gaps.append(top2[1] - top2[0])
-    return float(min(gaps)), np.asarray(out["tokens"])
+        top2 = np.sort(logits[row, n - 1:n - 1 + max_new_tokens], axis=-1)
+        gaps[row] = (top2[:, -1] - top2[:, -2]).min()
+    return gaps, np.asarray(out["tokens"])
+
+
+def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
+    """The smallest top-2 logit gap at every greedy step of JAX
+    ``generate`` on these prompts, and the tokens."""
+    gaps, tokens = greedy_gaps(jax_cfg, params, prompts, lens,
+                               max_new_tokens)
+    return float(gaps.min()), tokens
 
 
 def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
@@ -152,3 +167,77 @@ def bert_tiny_models(seed=0):
                           **{f: getattr(jax_cfg, f) for f in fields})
     return (jax_cfg, params, cfg,
             bridge.bert_to_torch(params, cfg, device="cpu"))
+
+
+REPO = pathlib.Path(__file__).resolve().parents[2]
+
+#: What every child of :func:`run_port_side` runs before its script: JAX
+#: blocked, two threads, the inputs as ``IN``, the outputs to fill as
+#: ``OUT``, and ``port_model()`` for the weights :func:`model_inputs` sent.
+_PRELUDE = """
+import json
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from cloud_tpu_torch import bridge
+from cloud_tpu_torch.models import transformer
+IN = dict(np.load(sys.argv[1], allow_pickle=False))
+OUT = {}
+
+
+def tree(prefix):
+    out = {}
+    for key, value in IN.items():
+        if key.startswith(prefix + "/"):
+            node = out
+            parts = key[len(prefix) + 1:].split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = value
+    return out
+
+
+def port_model(prefix="params", dtype=torch.float32):
+    fields = json.loads(str(IN[prefix + ".config"]))
+    cfg = transformer.TransformerConfig(dtype=dtype, **fields)
+    return cfg, bridge.to_torch(tree(prefix), cfg, device="cpu")
+"""
+
+
+def _flatten(tree, prefix, out):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            _flatten(value, f"{prefix}/{key}", out)
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def model_inputs(jax_cfg, params, prefix="params"):
+    """The JAX weights and config as flat numpy inputs of
+    :func:`run_port_side` (``port_model(prefix)`` rebuilds them there)."""
+    fields = {f: getattr(jax_cfg, f) for f in (
+        "vocab_size", "num_layers", "dim", "num_heads", "head_dim",
+        "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings")}
+    out = _flatten(jax.tree_util.tree_map(np.asarray, params), prefix, {})
+    out[prefix + ".config"] = np.asarray(json.dumps(fields))
+    return out
+
+
+def run_port_side(script, inputs, workdir, *, timeout=600):
+    """Run ``script`` after :data:`_PRELUDE` in a child Python that never
+    imports JAX, on ``inputs`` (a dict of numpy arrays, ``IN`` there);
+    returns the dict the script left in ``OUT``."""
+    workdir = pathlib.Path(workdir)
+    np.savez(workdir / "in.npz", **inputs)
+    code = _PRELUDE + script + "\nnp.savez(sys.argv[2], **OUT)\n"
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(workdir / "in.npz"),
+         str(workdir / "out.npz")], cwd=str(REPO),
+        env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(workdir / "out.npz") as out:
+        return dict(out)

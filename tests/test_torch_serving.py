@@ -4,7 +4,9 @@ Two slots and mixed prompts and budgets force slot churn; every result
 must be token-identical to the JAX package's greedy ``generate`` on the
 same weights (TINY, f32, tie-free prompts).  Around that: eos retirement
 with an eos id that cannot collide with an earlier greedy token, typed
-admission errors, a clean close, and ``NotImplementedError`` for every
+admission errors, a clean close, one served request for each option the
+port took over from a refusal (the batch scheduler, the prefix cache and
+its host tier, chunked prefill), and ``NotImplementedError`` for every
 ``ServeConfig`` feature the port does not have yet.  ``kv_quant`` with
 int8 weights is held against the quantized JAX ``generate``.  The engine's
 surface (``ServeConfig`` fields, constructor and ``submit`` keywords,
@@ -178,6 +180,16 @@ def test_submit_validation(models):
         engine.close()
 
 
+#: Options that once raised here and are ported now, each with the engine
+#: counter that shows its path ran for one request.
+SERVED_OPTIONS = {
+    "scheduler": "batches",
+    "prefix_cache_blocks": "prefix_misses",
+    "prefix_cache_blocks-prefix_dram_blocks": "prefix_misses",
+    "prefill_chunk_tokens": "prefill_chunks",
+}
+
+
 @pytest.mark.parametrize("kw", [
     dict(scheduler="batch"),
     dict(prefix_cache_blocks=4),
@@ -190,9 +202,21 @@ def test_submit_validation(models):
     dict(pipeline_depth=2),
     dict(role="decode"),
 ], ids=lambda kw: "-".join(kw))
-def test_out_of_slice_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeConfig(**kw)
+def test_out_of_slice_options_raise(kw, models, prompts):
+    """Options of later slices raise naming their ROADMAP.md item; the
+    ported ones (``SERVED_OPTIONS``) build the engine and serve one
+    request, token-identical to JAX ``generate``."""
+    case = "-".join(kw)
+    if case not in SERVED_OPTIONS:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ServeConfig(**kw)
+        return
+    _, _, cfg, tparams = models
+    toks, lens, jax_tokens = prompts
+    with _engine(tparams, cfg, **kw) as engine:
+        res = engine.submit(toks[1, :lens[1]]).result(timeout=120)
+    np.testing.assert_array_equal(res.tokens, jax_tokens[1])
+    assert engine.stats()[SERVED_OPTIONS[case]] >= 1
 
 
 def test_int8_params_and_moe_raise(models):
@@ -257,6 +281,11 @@ def test_kv_quant_int8_weights_token_identical_to_jax(qmodels):
     dict(dispatch_timeout_s=0.0),
     dict(prefix_summary_ttl_s=0.0),
     dict(hbm_bytes_per_chip=0),
+    dict(prefix_dram_blocks=4),
+    dict(scheduler="batch", prefix_cache_blocks=4),
+    dict(scheduler="batch", prefill_chunk_tokens=4),
+    dict(scheduler="batch", decode_kernel="pallas"),
+    dict(scheduler="batch", pipeline_depth=2),
 ], ids=lambda kw: "-".join(kw))
 def test_validation_messages_match_jax(kw):
     with pytest.raises(ValueError) as want:
@@ -342,7 +371,8 @@ def test_warmup_then_wait_ready_changes_no_token(models, prompts):
 
 
 #: Each value of the JAX engine's surface whose feature the port lacks,
-#: with the ROADMAP.md item its NotImplementedError names.
+#: with the ROADMAP.md item its NotImplementedError names (None: ported
+#: since, and the call builds an engine that serves one request).
 UNPORTED = {
     "ServeConfig-dispatch_timeout_s": (
         "4f", lambda e: ServeConfig(dispatch_timeout_s=1.0)),
@@ -350,8 +380,12 @@ UNPORTED = {
         "6", lambda e: ServeConfig(hbm_bytes_per_chip=2**30)),
     "ServeConfig-prefix_summary_ttl_s": (
         "4a/5", lambda e: ServeConfig(prefix_summary_ttl_s=60.0)),
+    # Ported: the batch scheduler serves with its flush deadline.
     "ServeConfig-flush_deadline_s-batch": (
-        "4g", lambda e: ServeConfig(scheduler="batch", flush_deadline_s=0.5)),
+        None, lambda e: ServingEngine(
+            e.params, e.config, ServeConfig(
+                scheduler="batch", flush_deadline_s=0.5, max_new_tokens=2,
+                prompt_buckets=(8,)), device="cpu")),
     "engine-mesh": ("6", lambda e: ServingEngine(
         e.params, e.config, e.serve_config, mesh=object(), device="cpu",
         start=False)),
@@ -380,9 +414,14 @@ def test_unported_values_name_their_item(models, case):
                                                      prompt_buckets=(8,)),
                            device="cpu", start=False)
     try:
-        with pytest.raises(NotImplementedError,
-                           match=f"section A, item {item}$"):
-            call(engine)
+        if item is None:
+            with call(engine) as served:
+                res = served.submit([1, 2, 3]).result(timeout=120)
+            assert res.num_generated == 2 and served.stats()["batches"] == 1
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"section A, item {item}$"):
+                call(engine)
         # The defaults are accepted and change nothing.
         engine.set_trace_lane(None)
         engine.set_role("both")
