@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, full precision and int8), ResNet and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, full precision and int8), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,9 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    dequantized beforehand), in event and device time, K8 and K8q at
    prefill-chunk query counts (Tq 32, 128 and 512, several query tiles,
    chunk-causal, pool pages or not, three chunk starts), each Tq timed
-   beside its bound and SDPA over the gathered K/V, K1-K4 (GroupNorm)
+   beside its bound and SDPA over the gathered K/V, K8 and K8q at the
+   speculative verify shape (B=8 rows of mixed lengths, Tq 4, S=96),
+   timed the same way, K1-K4 (GroupNorm)
    at every shape of a ResNet-50 CIFAR b256 step and of a 224 b128 step,
    plus 30 channels in 6 groups and a misaligned pointer (the scalar
    route), with bit-identical repeat launches and at most two kernels a
@@ -77,12 +79,26 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    prefill at the prompt's bucket (K8 at Tq 128 and 512), 3p and 3t with
    requests one at a time and their hit, swap-in and demotion counts equal
    to a replay of the same requests through a fresh
-   ``PrefixCacheManager``;
+   ``PrefixCacheManager``; then speculative decoding at bench.py's
+   ``serving_spec`` configuration (3s: 12 staggered requests, SMALL bf16,
+   8 slots, bucket 64, spec_k 4, through three engines: no draft, a
+   3-layer draft, the target as its own draft; launches from the engine's
+   record of rounds and draft prefills; rates, acceptance and bf16
+   mismatches printed only), f32 token identity with ``generate()`` with
+   either draft, and with ``kv_quant`` (int8 grids for target and draft,
+   K8q at Tq 1 and 4, no K8) against ``generate(kv_quant=True)``;
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
    card (batch 8, through the kernels) against the same step on the CPU;
-   splits one step's device time (GroupNorm, convolution, idle);
+   splits one step's device time (GroupNorm, convolution, idle); then
+   multi-step windows (4f): a window of 4 steps replayed from one CUDA
+   graph against 4 eager steps from the same state (ResNet-50 f32 b8 with
+   SGD momentum, a padded tail ``valid=[1, 1, 0, 0]``, and SMALL at 2
+   layers with AdamW, which holds the on-device bias corrections), K1-K4
+   replayed bit for bit, and bench.py's ``_measure_fused`` (CIFAR b256,
+   windows of 4, 1 + 5 windows) with exact launches per replay, its
+   steps/s printed beside phase 4's;
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -205,10 +221,12 @@ def device_ms(fn, iters: int = 10) -> float:
 def profiled(run, *, cpu=False, record_shapes=False):
     """``run()`` under torch.profiler (CUDA activity, and CPU's if
     ``cpu``), after the session has waited ``PROFILE_SETTLE_S`` with the
-    card idle; returns ``(prof, kernel rows)``.  Now and then a session
-    records no kernel at all, sometimes several in a row: such a session
-    is run again after a second's pause, ``PROFILE_SESSIONS`` in all,
-    before :func:`_kernel_rows` raises."""
+    card idle, and until every kernel ``run`` launched has finished (a
+    kernel still running when the session stops leaves no record);
+    returns ``(prof, kernel rows)``.  Now and then a session records no
+    kernel at all, sometimes several in a row: such a session is run
+    again after a second's pause, ``PROFILE_SESSIONS`` in all, before
+    :func:`_kernel_rows` raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,6 +238,7 @@ def profiled(run, *, cpu=False, record_shapes=False):
                      record_shapes=record_shapes) as prof:
             time.sleep(PROFILE_SETTLE_S)
             run()
+            torch.cuda.synchronize()
         try:
             return prof, _kernel_rows(prof)
         except AssertionError:
@@ -1378,11 +1397,20 @@ def _is_gn(key: str) -> bool:
     return "gn_fwd_" in key or "gn_bwd_" in key
 
 
+#: The profiler range around the step a step profile measures.
+MEASURED_STEP = "chip_smoke: measured step"
+
+
 def _profiled_step(step, state, batch, *, record_shapes=False):
     """Two warm-up steps, the wall time of one unprofiled step (to the
     host read of its loss) and the host's time to enqueue it (the step
-    itself never waits for the device), then one step under torch.profiler
-    (CPU and CUDA activity).  Returns ``(wall_ms, enqueue_ms, prof)``."""
+    itself never waits for the device), then a session of torch.profiler
+    (CPU and CUDA activity) that runs a lead step, waits for it, and then
+    the measured step inside a ``MEASURED_STEP`` range.  A session now and
+    then holds no record of the first launch of one of the port's kernels
+    (seen on an H100 as the stem's GroupNorm forward missing from every
+    session of a process), so only the second step is read
+    (:func:`_measured_events`).  Returns ``(wall_ms, enqueue_ms, prof)``."""
     import torch
 
     for _ in range(2):
@@ -1398,24 +1426,62 @@ def _profiled_step(step, state, batch, *, record_shapes=False):
         nonlocal state
         state, metrics = step(state, batch)
         float(metrics["loss"])
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        with torch.profiler.record_function(MEASURED_STEP):
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
 
     prof, _ = profiled(run, cpu=True, record_shapes=record_shapes)
     return wall_ms, enqueue_ms, prof
 
 
+def _measured_events(prof):
+    """The profiler events of the measured step: everything that starts
+    after its ``MEASURED_STEP`` range does (the lead step's kernels ended
+    before it, behind a synchronisation and ``PROFILE_SETTLE_S``), the
+    range's own events left out."""
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == MEASURED_STEP)
+    return [e for e in events
+            if e.name != MEASURED_STEP and e.time_range.start >= start]
+
+
+def _event_rows(prof, events):
+    """:func:`_kernel_rows` of ``events`` of ``prof``: (device us,
+    records, kernel) per kernel, largest first.  Only kernels count: the
+    device-side copies of annotated ranges (autograd's functions) are
+    events on the card too, and :func:`_kernel_rows` leaves them out."""
+    from torch.autograd import DeviceType
+
+    kernels = {key for _, _, key in _kernel_rows(prof)} - {MEASURED_STEP}
+    totals = {}
+    for evt in events:
+        if evt.device_type == DeviceType.CUDA and evt.name in kernels:
+            us, count = totals.get(evt.name, (0.0, 0))
+            totals[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+    if not totals:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sorted(((us, count, key) for key, (us, count) in totals.items()),
+                  reverse=True)
+
+
 def _profile_checked(step, state, batch, complaint, *, record_shapes=False):
     """:func:`_profiled_step` until ``complaint(rows)`` finds nothing
-    wrong with its kernel rows: now and then a session loses a kernel
-    record, so a step is profiled again, ``PROFILE_SESSIONS`` in all,
-    before the last complaint is raised.  Returns ``(wall_ms, enqueue_ms,
-    prof, rows)``."""
+    wrong with the measured step's kernel rows: now and then a session
+    loses a kernel record, so a step is profiled again,
+    ``PROFILE_SESSIONS`` in all, before the last complaint is raised.
+    Returns ``(wall_ms, enqueue_ms, events, rows)``, the measured step's
+    events and kernel rows."""
     for _ in range(PROFILE_SESSIONS):
         wall_ms, enqueue_ms, prof = _profiled_step(
             step, state, batch, record_shapes=record_shapes)
-        rows = _kernel_rows(prof)
+        events = _measured_events(prof)
+        rows = _event_rows(prof, events)
         problem = complaint(rows)
         if problem is None:
-            return wall_ms, enqueue_ms, prof, rows
+            return wall_ms, enqueue_ms, events, rows
     raise AssertionError(problem)
 
 
@@ -1441,11 +1507,16 @@ def profile_train_step(card, step, state, batch, *, gn_records=None):
 
     def complaint(rows):
         got = sum(count for _, count, key in rows if _is_gn(key))
+        kinds = {}
+        for _, count, key in rows:
+            if _is_gn(key):
+                kind = re.search(r"gn_(?:fwd|bwd)_\w+", key).group(0)
+                kinds[kind] = kinds.get(kind, 0) + count
         return (None if got == want else
                 f"the profiled step holds {got} GroupNorm kernel records, "
-                f"not {want}")
+                f"not {want} ({kinds})")
 
-    wall_ms, enqueue_ms, prof, rows = _profile_checked(
+    wall_ms, enqueue_ms, events, rows = _profile_checked(
         step, state, batch, complaint, record_shapes=True)
     busy = sum(r[0] for r in rows) / 1e3
     gn = sum(r[0] for r in rows if _is_gn(r[2])) / 1e3
@@ -1458,21 +1529,25 @@ def profile_train_step(card, step, state, batch, *, gn_records=None):
           f"convolution {conv:.3f} ms ({conv / busy:.3f}) [{card}]")
     for dev_us, count, key in rows[:20]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
-    host = sorted(((e.self_cpu_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type != torch.autograd.DeviceType.CUDA),
-                  reverse=True)
+    host_totals, copy_counts = {}, {}
+    for evt in events:
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        us, count = host_totals.get(evt.name, (0.0, 0))
+        host_totals[evt.name] = (us + evt.self_cpu_time_total, count + 1)
+        shape = tuple(evt.input_shapes[0]) if evt.input_shapes else ()
+        if (evt.name in ("aten::copy_", "aten::contiguous")
+                and len(shape) == 4 and shape[0] == batch_size
+                and shape not in weights):
+            key = (evt.name, shape)
+            copy_counts[key] = copy_counts.get(key, 0) + 1
+    host = sorted(((us, count, key) for key, (us, count)
+                   in host_totals.items()), reverse=True)
     print("  host: busiest operators by self CPU time")
     for cpu_us, count, key in host[:8]:
         print(f"    {cpu_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
-    copies = []
-    for evt in prof.key_averages(group_by_input_shape=True):
-        if evt.key not in ("aten::copy_", "aten::contiguous"):
-            continue
-        shape = list(evt.input_shapes[0]) if evt.input_shapes else []
-        if (len(shape) == 4 and shape[0] == batch_size
-                and tuple(shape) not in weights):
-            copies.append((evt.key, shape, evt.count))
+    copies = [(key, list(shape), count)
+              for (key, shape), count in copy_counts.items()]
     print(f"  activation copies in the step: {sum(c[2] for c in copies)}"
           + "".join(f"\n    {k} {s} x{n}" for k, s, n in copies))
     return {"step_wall_ms": wall_ms, "step_enqueue_ms": enqueue_ms,
@@ -2171,21 +2246,29 @@ def check_paged_chunks(device, card):
             "timed": timed}
 
 
-def _check_launches(what, launches, layers_n, d0, d1):
+def _check_launches(what, launches, layers_n, d0, d1, *, draft_layers=0,
+                    spec_k=0, quantized=False):
     """Hold a serving run's launches to the engine's own record between two
     ``stats()`` snapshots: K5 once a layer per batch (batch scheduler) and
-    per one-shot insert; K8 once a layer per prefill chunk, per decode step
-    of a chunk and per decode step of a batch; no K8q (no ``kv_quant``)."""
+    per one-shot insert, once a draft layer per draft prefill; the paged
+    kernel once a layer per prefill chunk, per decode step of a chunk and
+    per decode step of a batch, and per speculative round once a layer
+    (the verify) plus ``spec_k`` times a draft layer (the proposals): K8q
+    with ``quantized`` (an int8 grid), K8 otherwise, the other never."""
     def delta(key):
         return d1[key] - d0[key]
 
+    paged = layers_n * (
+        delta("prefill_chunks") + CHUNK * delta("chunks")
+        + delta("batch_decode_steps")) + (
+            layers_n + draft_layers * spec_k) * delta("spec_chunks")
+    name = "paged_attention_int8" if quantized else "paged_attention"
     expected = {
-        "flash_fwd": layers_n * (delta("batches") + delta("oneshot_inserts")),
-        "paged_attention": layers_n * (
-            delta("prefill_chunks") + CHUNK * delta("chunks")
-            + delta("batch_decode_steps")),
-        "paged_attention_int8": 0}
-    if launches != expected or not expected["paged_attention"]:
+        "flash_fwd": layers_n * (delta("batches") + delta("oneshot_inserts"))
+        + draft_layers * delta("draft_prefills"),
+        "paged_attention": 0, "paged_attention_int8": 0}
+    expected[name] = paged
+    if launches != expected or not paged:
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{expected} from the engine's stats")
 
@@ -2575,6 +2658,544 @@ def run_tier_engine(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding (phases 2 (verify) and 3s) and fused training
+# windows (phase 4f)
+# ---------------------------------------------------------------------------
+
+#: bench.py's speculative-decoding configuration (SERVE_SPEC_* there): 12
+#: requests of 8..64 prompt tokens with budgets 16..32, spec_k 4, a
+#: 3-layer draft.
+SPEC_SERVE = {"requests": 12, "bucket": 64, "new": 32, "k": 4,
+              "draft_layers": 3}
+#: Filled lengths of the 3s grid's eight rows where K8 and K8q are checked
+#: and timed at the verify shape (B=8, Tq=spec_k, S=bucket+new).
+VERIFY_LENGTHS = (10, 23, 37, 50, 61, 72, 85, 92)
+
+
+def _verify_inputs(device, dtype, gen):
+    """q ``[8, spec_k, H, D]`` and the 3s grid's slot rows, filled to
+    ``VERIFY_LENGTHS``, with the engine's all-slot block table."""
+    import torch
+
+    b, tq = NUM_SLOTS, SPEC_SERVE["k"]
+    s = SPEC_SERVE["bucket"] + SPEC_SERVE["new"]
+    slot = {n: torch.randn((b, s, HEADS, HEAD_DIM), generator=gen,
+                           device=device).to(dtype) for n in ("k", "v")}
+    q = torch.randn((b, tq, HEADS, HEAD_DIM), generator=gen,
+                    device=device).to(dtype)
+    table = torch.full((b, -(-s // 16)), -1, dtype=torch.int32,
+                       device=device)
+    cur_len = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device=device)
+    return q, slot, table, cur_len
+
+
+def check_paged_verify(device, card):
+    """K8 and K8q at the speculative verify shape of phase 3s (B=8 slots,
+    Tq = spec_k = 4, S=96, rows of mixed lengths, chunk-causal), q in bf16
+    and f32, against the plain version; then each timed in bf16 (kernel,
+    plain version and SDPA over the rows, K8q's dequantized beforehand, in
+    event and device time) beside its bound."""
+    import torch
+
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    worst, timed = {}, {}
+    for name, quantize in (("paged_attention", False),
+                           ("paged_attention_int8", True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q, slot, table, cur_len = _verify_inputs(device, dtype, gen)
+            if quantize:
+                slot = _quantize_leaves(slot)
+            out = pa._paged_kernel(q, slot, cur_len, None, table)
+            ref = pa._reference(q, slot, cur_len, None, table)
+            torch.cuda.synchronize()
+            worst[f"{name} {dname}"] = check_close(
+                f"{name} {dname} verify shape", out, ref, dname)
+        q, slot, table, cur_len = _verify_inputs(device, torch.bfloat16, gen)
+        dense = slot
+        if quantize:
+            slot = _quantize_leaves(slot)
+            dense = {n: (slot[n].float() * slot[f"{n}_scale"]).to(
+                torch.bfloat16) for n in ("k", "v")}
+        kernel, kernel_dev = event_and_device_ms(
+            lambda: pa._paged_kernel(q, slot, cur_len, None, table))
+        plain, plain_dev = event_and_device_ms(
+            lambda: pa._reference(q, slot, cur_len, None, table))
+        library, library_dev = event_and_device_ms(
+            _sdpa_chunk(q, dense["k"], dense["v"], cur_len))
+        b, tq = q.shape[:2]
+        s = slot["k"].shape[1]
+        # Keys each row's window reads (its last query's), once per head;
+        # key-query pairs scored (query t of a row sees cur_len + t keys).
+        keys = sum(min(n + tq - 1, s) for n in VERIFY_LENGTHS)
+        pairs = sum(min(n + t, s) for n in VERIFY_LENGTHS
+                    for t in range(tq))
+        per_key = 2 * HEAD_DIM + 8 if quantize else 4 * HEAD_DIM
+        nbytes = (keys * HEADS * per_key + 2 * q.numel() * 2
+                  + table.numel() * 4 + 4 * b)
+        b_ms, b_by = bound_ms(nbytes, 4 * pairs * HEADS * HEAD_DIM,
+                              "bfloat16")
+        shape = (f"B={b} Tq={tq} S={s} rows {list(VERIFY_LENGTHS)} H={HEADS} "
+                 f"D={HEAD_DIM} " + ("int8 K/V, bf16 q" if quantize
+                                     else "bf16"))
+        print(f"  {name} verify {shape}: max_abs_err bf16 "
+              f"{worst[name + ' bfloat16']:.3e} f32 "
+              f"{worst[name + ' float32']:.3e} ok; kernel {kernel:.4f} ms "
+              f"(device {kernel_dev:.4f}), plain {plain:.4f} "
+              f"({plain_dev:.4f}), sdpa {library:.4f} ({library_dev:.4f}), "
+              f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+        timed[name] = {
+            "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "library_device_ms": library_dev,
+            "shape": shape}
+    return {"max_abs_err": worst, "timed": timed}
+
+
+def run_spec_engine(device, card):
+    """3s, bench.py's ``serving_spec``: the same 12 staggered requests
+    through three engines (SMALL bf16 target; no draft, a 3-layer draft
+    from its own seed, the target as its own draft; spec_k 4, 8 slots,
+    bucket 64, chunk 8, warmup): every request resolves with in-vocabulary
+    tokens and each run's launches equal what the engine's own record
+    implies (K5: 12 a one-shot insert and 3 a draft prefill; K8: 12 a
+    layer of a decode chunk's step, and 12 + 3 x spec_k a round); rates,
+    acceptance and bf16 mismatches against the run without a draft are
+    printed, never asserted.  Then in f32, on prompts whose greedy path
+    keeps a top-2 gap of 1e-3: token identity with ``generate()`` with
+    the draft and with the target as its own draft; and with
+    ``kv_quant`` (int8 grids, target and draft) on prompts tie-free at
+    1e-2 under quantization: identity with ``generate(kv_quant=True)``,
+    K8q at Tq 1 and 4, no K8."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import (
+        DraftConfig,
+        ServeConfig,
+        ServingEngine,
+    )
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    sp = SPEC_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    dcfg = cfg.scaled(num_layers=sp["draft_layers"])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    dparams = bridge.init(dcfg, gen, device=device)
+    rng = np.random.default_rng(6)
+    lengths = rng.integers(8, sp["bucket"] + 1, sp["requests"])
+    budgets = [int(x) for x in rng.integers(sp["new"] // 2, sp["new"] + 1,
+                                            sp["requests"])]
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+
+    def serve_config(draft, new, **kw):
+        return ServeConfig(max_new_tokens=new, prompt_buckets=(sp["bucket"],),
+                           num_slots=NUM_SLOTS, chunk_tokens=CHUNK,
+                           draft=draft, **kw)
+
+    def acceptance(delta):
+        return (delta["spec_accepted"] / delta["spec_proposed"]
+                if delta["spec_proposed"] else 0.0)
+
+    out = {"launches": {}, "tokens_per_s": {}, "acceptance": {},
+           "rolling_acceptance": {}}
+
+    def tally(launches):
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+
+    runs = {}
+    for label, draft in (
+            ("no draft", None),
+            ("draft", DraftConfig(config=dcfg, params=dparams,
+                                  spec_k=sp["k"])),
+            ("self", DraftConfig(config=cfg, params=params,
+                                 spec_k=sp["k"]))):
+        with ServingEngine(params, cfg, serve_config(draft, sp["new"],
+                                                     warmup=True),
+                           device=device) as engine:
+            engine.wait_ready()
+            engine.submit(prompts[0]).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = engine.stats()
+            dispatch.reset_launch_counts()
+            results, wall = _run_measured(engine, prompts, budgets,
+                                          wave=NUM_SLOTS // 2, pause=0.02)
+            launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+            d1 = engine.stats()
+            rolling = engine.health()["spec_acceptance_rate"]
+        draft_layers = 0 if draft is None else draft.config.num_layers
+        _check_launches(f"spec engine ({label})", launches, cfg.num_layers,
+                        d0, d1, draft_layers=draft_layers, spec_k=sp["k"])
+        for res, budget in zip(results, budgets):
+            if (res.tokens.shape != (budget,) or res.num_generated != budget
+                    or res.tokens.min() < 0
+                    or res.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"spec engine ({label}): bad result "
+                                     f"{res.tokens.shape} for {budget}")
+        tally(launches)
+        delta = {k: d1[k] - d0[k] for k in (
+            "spec_chunks", "spec_accepted", "spec_proposed", "spec_emitted",
+            "draft_prefills", "chunks", "oneshot_inserts")}
+        tokens = sum(r.num_generated for r in results)
+        runs[label] = results
+        out["tokens_per_s"][label] = tokens / wall
+        if draft is not None:
+            out["acceptance"][label] = acceptance(delta)
+            out["rolling_acceptance"][label] = rolling
+        print(f"  spec engine SMALL bf16, {label}: {len(results)} requests, "
+              f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s;"
+              f" {delta}; acceptance {acceptance(delta):.3f} (rolling "
+              f"{rolling:.3f}); launches {launches} [{card}]")
+    out["bf16_mismatches"] = {
+        label: sum(not np.array_equal(a.tokens, b.tokens)
+                   for a, b in zip(runs[label], runs["no draft"]))
+        for label in ("draft", "self")}
+    out["spec_vs_nonspec"] = (out["tokens_per_s"]["draft"]
+                              / out["tokens_per_s"]["no draft"])
+    print(f"  spec / no draft tokens/s {out['spec_vs_nonspec']:.3f}; "
+          f"acceptance {out['acceptance']['draft']:.3f}, self-check "
+          f"{out['acceptance']['self']:.3f}; bf16 requests whose tokens "
+          f"differ from the run without a draft {out['bf16_mismatches']} of "
+          f"{len(prompts)} (printed only) [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    dcfg32 = dcfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    candidates = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                  for n in rng.integers(8, sp["bucket"] + 1, 40)]
+    picks = _tie_free(generation, params32, cfg32, device, candidates, 4,
+                      PARITY_BUDGET)
+    for label, draft in (
+            ("draft", DraftConfig(config=dcfg32, params=dparams,
+                                  spec_k=sp["k"])),
+            ("self", DraftConfig(config=cfg32, params=params,
+                                 spec_k=sp["k"]))):
+        with ServingEngine(params, cfg32, serve_config(draft, PARITY_BUDGET),
+                           device=device) as engine:
+            futures = [engine.submit(p) for p in picks]
+            served = [f.result(timeout=600) for f in futures]
+            rounds = engine.stats()["spec_chunks"]
+        if not rounds:
+            raise AssertionError(f"f32 spec engine ({label}) ran no round")
+        _parity(f"spec engine ({label})", generation, params, cfg32, device,
+                picks, served, PARITY_BUDGET)
+        print(f"  spec engine ({label}) == generate(): 4/4 requests "
+              f"token-identical (SMALL f32, {PARITY_BUDGET} tokens, top-2 "
+              f"gap >= 1e-3, {rounds} rounds)")
+
+    qpicks = []
+    with torch.no_grad():
+        for prompt in candidates:
+            gaps, _ = _greedy_gaps(generation, params32, prompt,
+                                   PARITY_BUDGET, cfg32, device,
+                                   kv_quant=True)
+            if min(gaps) >= QUANT_TIE_GAP:
+                qpicks.append(prompt)
+            if len(qpicks) == 4:
+                break
+    if len(qpicks) < 4:
+        raise AssertionError(f"only {len(qpicks)} of {len(candidates)} "
+                             f"prompts are tie-free at {QUANT_TIE_GAP} under "
+                             f"quantization")
+    draft = DraftConfig(config=dcfg32, params=dparams, spec_k=sp["k"])
+    with ServingEngine(params, cfg32, serve_config(draft, PARITY_BUDGET,
+                                                   kv_quant=True),
+                       device=device) as engine:
+        if engine._draft_cache["k"].dtype != torch.int8:
+            raise AssertionError("kv_quant: the draft's grid is not int8")
+        d0 = engine.stats()
+        dispatch.reset_launch_counts()
+        futures = [engine.submit(p) for p in qpicks]
+        served = [f.result(timeout=600) for f in futures]
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        d1 = engine.stats()
+    _check_launches("spec engine (kv_quant)", launches, cfg.num_layers, d0,
+                    d1, draft_layers=sp["draft_layers"], spec_k=sp["k"],
+                    quantized=True)
+    tally(launches)
+    for prompt, res in zip(qpicks, served):
+        want = generation.generate(
+            params, torch.from_numpy(prompt)[None], [len(prompt)], cfg32,
+            max_new_tokens=PARITY_BUDGET, kv_quant=True,
+            device=device)["tokens"][0].cpu().numpy()
+        if not np.array_equal(want, res.tokens):
+            first = int(np.flatnonzero(want != res.tokens)[0])
+            raise AssertionError(f"spec engine (kv_quant) != generate("
+                                 f"kv_quant=True) for a {len(prompt)}-token "
+                                 f"prompt at token {first}")
+    print(f"  spec engine (kv_quant, int8 grids) == generate(kv_quant=True):"
+          f" 4/4 requests token-identical (SMALL f32, top-2 gap >= "
+          f"{QUANT_TIE_GAP}); launches {launches}")
+    return out
+
+
+#: The fused window of bench.py's _measure_fused (FUSED_* there).
+FUSED_K, FUSED_WARMUP, FUSED_MEASURE = 4, 1, 5
+#: K5, K6 and K7 launches of one step of SMALL at 2 layers (remat: K5
+#: twice a layer).
+LM2_PER_STEP = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+
+
+def _window_launches(what, launches, window, before, per_step, steps):
+    """A window's launches: its warm-up steps and ``steps`` a replay, each
+    ``per_step``; nothing for the capture."""
+    warm = window.warmup_steps - before[0]
+    replays = window.replays - before[1]
+    want = {k: n * (warm + steps * replays) for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want} ("
+                             f"{warm} warm-up steps, {replays} replays of "
+                             f"{steps} steps)")
+
+
+def _hold(what, got, want, rel):
+    """Each leaf of ``got`` within ``rel`` of max(1, max |want|) of
+    ``want``'s; returns the largest difference."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        err = max_err(a.detach(), b.detach())
+        if not err <= rel * max(1.0, float(b.detach().float().abs().max())):
+            raise AssertionError(f"{what}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_gn_graph(device):
+    """K1-K4 captured in a CUDA graph (their cluster launches included):
+    a replay's outputs and gradients equal an eager call's bit for bit,
+    at a CIFAR b256 shape, with and without residual and relu."""
+    import torch
+
+    from cloud_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    shape = (CIFAR_BATCH, 16, 16, 128)
+
+    def call(x, scale, bias, res, dy, residual):
+        y = gn.group_norm(x, scale, bias, num_groups=GN_GROUPS,
+                          activation="relu" if residual else None,
+                          residual=res if residual else None)
+        inputs = (x, scale, bias) + ((res,) if residual else ())
+        return (y,) + torch.autograd.grad(y, inputs, dy)
+
+    for residual in (False, True):
+        x, res = (torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16).requires_grad_(True) for _ in range(2))
+        dy = torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+        scale, bias = (torch.randn(shape[-1], generator=gen, device=device)
+                       .requires_grad_(True) for _ in range(2))
+        # Detached: no autograd node of the eager call may outlive it (a
+        # leaf's gradient node made on the default stream cannot join a
+        # capture).
+        eager = [t.detach() for t in call(x, scale, bias, res, dy, residual)]
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            call(x, scale, bias, res, dy, residual)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = call(x, scale, bias, res, dy, residual)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"GroupNorm replayed from a CUDA graph (residual="
+                    f"{residual}) differs from the eager call by "
+                    f"{max_err(a, b):.3e}")
+    print(f"  K1-K4 replayed from a CUDA graph == eager, bit for bit "
+          f"({shape}, bf16, with and without residual)")
+
+
+def check_fused_windows(device, card):
+    """The window's CUDA graph against eager steps from the same state,
+    on the card: (1) ResNet-50 CIFAR f32 b8, SGD momentum, a K=4 window
+    against 4 ``make_train_step`` steps, cuDNN's deterministic algorithms
+    on both sides: parameters and momentum within 1e-4 of max(1, max
+    |p|), the step count exact; (2) the same window
+    with ``valid=[1, 1, 0, 0]`` against 2 steps; (3) SMALL at 2 layers in
+    f32 (b2 x T256, remat, tied head) with ``adamw(1e-4)``: parameters and
+    both moments within 1e-6 of max(1, max |p|) (the rule of 6b's AdamW
+    check on identical gradients: graph and eager run the same kernels)
+    and the count K on both (a bias correction frozen at capture moves
+    the parameters by ~lr); each with its exact graph launches.  Then K1-K4
+    alone: a replay equals an eager call bit for bit."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet, transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import optimizers, train
+
+    k = FUSED_K
+    errs = {}
+    cfg = dataclasses.replace(resnet.RESNET50_CIFAR, dtype=torch.float32)
+    params = bridge.init_resnet(cfg, torch.Generator().manual_seed(3),
+                                device="cpu")
+    rng = np.random.default_rng(4)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, (k, 8)))
+    images = torch.from_numpy(rng.normal(size=(k, 8, 32, 32, 3)).astype(
+        np.float32))
+    batch = {"image": images.to(device), "label": labels.to(device)}
+    loss = functools.partial(resnet.loss_fn, config=cfg, device=device)
+    tx = optimizers.sgd(0.1, momentum=0.9)
+
+    def fresh(p, opt):
+        return train.create_sharded_state(
+            None, lambda _: bridge.map_leaves(p, torch.clone), opt,
+            device=device)
+
+    window = train.make_multi_step(loss, tx, steps_per_dispatch=k)
+    step = train.make_train_step(loss, tx)
+    # cuDNN's f32 convolutions are not deterministic by default: two eager
+    # runs of these steps differ by ~7e-7, which a run's relu and max-pool
+    # gates once amplified past the limit on an H100.  With deterministic
+    # algorithms the graph and the eager steps compute the same sums.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for what, valid in (("window", None), ("tail [1, 1, 0, 0]",
+                                           [1.0, 1.0, 0.0, 0.0])):
+        run = [i for i in range(k) if valid is None or valid[i] > 0]
+        before = (window.warmup_steps, window.replays)
+        dispatch.reset_launch_counts()
+        got, metrics = window(fresh(params, tx), batch, None if valid is None
+                              else torch.tensor(valid))
+        torch.cuda.synchronize()
+        _window_launches(f"f32 ResNet {what}", dispatch.launch_counts(
+            GN_KERNELS), window, before, GN_PER_STEP, len(run))
+        want = fresh(params, tx)
+        for i in run:
+            want, _ = step(want, {n: t[i] for n, t in batch.items()})
+        if not int(got.step) == int(want.step) == len(run):
+            raise AssertionError(f"f32 ResNet {what}: step {int(got.step)} "
+                                 f"!= {int(want.step)}")
+        errs[f"resnet {what} params"] = _hold(
+            f"f32 ResNet {what} params", bridge.leaves(got.params),
+            bridge.leaves(want.params), TOL_F32)
+        errs[f"resnet {what} momentum"] = _hold(
+            f"f32 ResNet {what} momentum", bridge.leaves(got.opt_state),
+            bridge.leaves(want.opt_state), TOL_F32)
+        print(f"  f32 ResNet-50 CIFAR b8 {what} (CUDA graph) vs {len(run)} "
+              f"eager steps: params max_abs_err "
+              f"{errs[f'resnet {what} params']:.3e}, momentum "
+              f"{errs[f'resnet {what} momentum']:.3e} (tol 1e-4 x max(1, "
+              f"max|p|)), step {int(got.step)}, loss "
+              f"{float(metrics['loss']):.5f} ok [{card}]")
+    torch.backends.cudnn.deterministic = deterministic
+    del window, step
+    torch.cuda.empty_cache()
+
+    lm_cfg = transformer.SMALL.scaled(tied_embeddings=True, num_layers=2,
+                                      dtype=torch.float32)
+    lm_params = bridge.init(lm_cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    tokens = np.random.default_rng(4).integers(1, lm_cfg.vocab_size,
+                                               (k, 2, 256))
+    lm_batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(
+        device)}
+    adamw = optimizers.adamw(1e-4, mu_dtype=None)
+    lm_loss = functools.partial(transformer.loss_fn, config=lm_cfg,
+                                device=device)
+    window = train.make_multi_step(lm_loss, adamw, steps_per_dispatch=k)
+    before = (window.warmup_steps, window.replays)
+    dispatch.reset_launch_counts()
+    got, _ = window(fresh(lm_params, adamw), lm_batch)
+    torch.cuda.synchronize()
+    _window_launches("f32 LM AdamW window", dispatch.launch_counts(
+        TRAIN_ATTN_KERNELS), window, before, LM2_PER_STEP, k)
+    want = fresh(lm_params, adamw)
+    step = train.make_train_step(lm_loss, adamw)
+    for i in range(k):
+        want, _ = step(want, {"tokens": lm_batch["tokens"][i]})
+    counts = (int(got.opt_state["count"]), int(want.opt_state["count"]))
+    if counts != (k, k) or int(got.step) != k:
+        raise AssertionError(f"AdamW window: count {counts}, step "
+                             f"{int(got.step)}, expected {k}")
+    for name, a, b in (("params", got.params, want.params),
+                       ("mu", got.opt_state["mu"], want.opt_state["mu"]),
+                       ("nu", got.opt_state["nu"], want.opt_state["nu"])):
+        errs[f"adamw {name}"] = _hold(f"f32 LM AdamW window {name}",
+                                      bridge.leaves(a), bridge.leaves(b),
+                                      1e-6)
+    print(f"  f32 SMALL 2 layers b2xT256 AdamW window (CUDA graph, K5/K6/K7 "
+          f"inside) vs {k} eager steps: params {errs['adamw params']:.3e}, "
+          f"mu {errs['adamw mu']:.3e}, nu {errs['adamw nu']:.3e} (tol 1e-6 "
+          f"x max(1, max|p|)), count {counts[0]} ok [{card}]")
+    del window, step, got, want
+    torch.cuda.empty_cache()
+    check_gn_graph(device)
+    return errs
+
+
+def run_fused_training(device, card, unfused):
+    """4f, bench.py's ``_measure_fused``: ResNet-50 CIFAR b256 bf16 in
+    windows of 4 steps, ``fused_throughput(warmup=1, iters=5)``: finite
+    window metrics, one capture, six replays and exactly (warm-up steps +
+    4 x replays) x (37, 16, 37, 16) K1-K4 launches.  Printed beside phase
+    4's unfused steps/s (``unfused``): fused steps/s, one replay's time on
+    the stream (CUDA events around a window call), the idle share of a
+    chained window and the host's time to issue one."""
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils import benchmarking
+
+    window, state, batch = benchmarking.resnet_train_setup(
+        imagenet_shape=False, batch_size=CIFAR_BATCH,
+        steps_per_dispatch=FUSED_K, device=device)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    rate = benchmarking.fused_throughput(
+        window, state, batch, steps_per_dispatch=FUSED_K,
+        warmup=FUSED_WARMUP, iters=FUSED_MEASURE)
+    launches = dispatch.launch_counts(GN_KERNELS)
+    replays, warm = window.replays, window.warmup_steps
+    if window.captures != 1 or replays != FUSED_WARMUP + FUSED_MEASURE:
+        raise AssertionError(f"fused: {window.captures} captures, "
+                             f"{replays} replays")
+    _window_launches("fused CIFAR b256", launches, window, (0, 0),
+                     GN_PER_STEP, FUSED_K)
+    state, metrics = window(state, batch)
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(values[k]) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"fused: non-finite window metrics {values}")
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        start = time.perf_counter()
+        state, metrics = window(state, batch)
+        host.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+    replay_ms = time_ms(lambda: window(state, batch), iters=3, warmup=1)
+    window_ms = FUSED_K / rate * 1e3
+    idle = max(0.0, 1.0 - replay_ms / window_ms)
+    out = {"steps_per_s": rate, "unfused_steps_per_s": unfused,
+           "replay_ms": replay_ms, "window_wall_ms": window_ms,
+           "idle_share": idle, "host_ms_per_window": float(np.median(host)),
+           "launches": launches, "final_metrics": values}
+    print(f"  fused ResNet-50 CIFAR b{CIFAR_BATCH} bf16, K={FUSED_K}: "
+          f"{rate:.3f} steps/s against {unfused:.3f} unfused (phase 4) = "
+          f"{rate / unfused:.2f}x; one replay {replay_ms:.3f} ms on the "
+          f"stream (CUDA events), window wall {window_ms:.3f} ms, idle "
+          f"share {idle:.3f}, host {out['host_ms_per_window']:.3f} ms to "
+          f"issue a window; launches {launches} = ({warm} warm-up + "
+          f"{FUSED_K} x {replays} replays) x {GN_PER_STEP} [{card}]")
+    return out
+
+
 #: Kernels whose bf16 instantiations must run on the tensor cores, by
 #: library.
 TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
@@ -2665,6 +3286,9 @@ def main() -> int:
         ("phase 2 (chunks): K8 and K8q at prefill-chunk query counts "
          "(several query tiles)", "paged chunk check",
          lambda: check_paged_chunks(device, card), True),
+        ("phase 2 (verify): K8 and K8q at the speculative verify shape "
+         "(B=8, Tq=4)", "paged verify check",
+         lambda: check_paged_verify(device, card), True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -2692,6 +3316,9 @@ def main() -> int:
         ("phase 3t: the prefix cache's host-DRAM tier off and on, "
          "bench.py's serving_prefix_tier config", "tier engine",
          lambda: run_tier_engine(device, card), True),
+        ("phase 3s: speculative decoding (no draft, a 3-layer draft, the "
+         "target as its own draft), bench.py's serving_spec config",
+         "spec engine", lambda: run_spec_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -2718,6 +3345,15 @@ def main() -> int:
         cifar.update(profile_train_step(card, *cifar_run))
         del cifar_run
         torch.cuda.empty_cache()
+        title = ("phase 4f: multi-step windows as CUDA graphs against eager "
+                 "steps, then ResNet-50 CIFAR b256 bf16 in windows of "
+                 f"{FUSED_K}, {FUSED_WARMUP} + {FUSED_MEASURE} windows")
+        print(title)
+        start = time.perf_counter()
+        fused_checks = check_fused_windows(device, card)
+        fused = run_fused_training(device, card, cifar["steps_per_s"])
+        torch.cuda.empty_cache()
+        print(f"  (fused windows: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
                  "one step under torch.profiler")
         print(title)
@@ -2774,18 +3410,21 @@ def main() -> int:
     k5["max_abs_err_f32"] = max(k5["max_abs_err_f32"], k5_worst["float32"])
     engine_q = results["quantized engine"]
     chunks = results["paged chunk check"]
+    verify = results["paged verify check"]
     for entry in kernels:
         for dname, key in (("bfloat16", "max_abs_err"),
                            ("float32", "max_abs_err_f32")):
-            err = chunks["max_abs_err"].get(f"{entry['name']} {dname}")
-            if err is not None:
-                entry[key] = max(entry[key], err)
+            for errs in (chunks["max_abs_err"], verify["max_abs_err"]):
+                err = errs.get(f"{entry['name']} {dname}")
+                if err is not None:
+                    entry[key] = max(entry[key], err)
     # A serving kernel's launches: the sum over the serving phases, each
     # counted from 0 just before its run and read just after.
     serving = {"engine": engine, "quantized engine": engine_q,
                "batch engine": results["batch engine"],
                "prefix engine": results["prefix engine"],
-               "tier engine": results["tier engine"]}
+               "tier engine": results["tier engine"],
+               "spec engine": results["spec engine"]}
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -2824,11 +3463,14 @@ def main() -> int:
         "paged_attention_int8_at_4096": k8q["at_4096"],
         "serving_launches_by_phase": by_phase,
         "paged_chunks": chunks,
+        "paged_verify": verify,
         "engine": {k: v for k, v in engine.items() if k != "launches"},
         "engine_int8_kv_quant": engine_q,
         "engine_batch": results["batch engine"],
         "engine_prefix": results["prefix engine"],
         "engine_prefix_tier": results["tier engine"],
+        "engine_spec": {k: v for k, v in results["spec engine"].items()
+                        if k != "launches"},
         "decode_quant_ab": results["decode A/B"],
         "beam_search_int8_kv_quant": results["beam search"],
         "resnet50_cifar_b256": {k: v for k, v in cifar.items()
@@ -2836,6 +3478,8 @@ def main() -> int:
         "resnet50_224_b128": {k: v for k, v in at_224.items()
                               if k != "launches"},
         "f32_step_parity": results["f32 step parity"],
+        "fused_cifar_b256": fused,
+        "fused_window_checks": fused_checks,
         "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
         "flash_fwd_at_training": k5_training,
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},

@@ -16,7 +16,10 @@ continuous scheduler's; the prefix-pool programs
 :func:`save_prefix_program`, the block downloads and uploads) and the
 chunked-prefill programs (:func:`prefill_chunk_program`,
 :func:`finalize_slot_program`) serve the prefix KV cache and chunked
-prefill.  Greedy outputs are token-identical to :func:`generate`.
+prefill; the speculative programs (:func:`draft_chunk_program`,
+:func:`verify_chunk_program`, :func:`draft_prefill_slot_program`) serve
+draft-and-verify decoding.  Greedy outputs are token-identical to
+:func:`generate`.
 :func:`beam_search` decodes the same cache with a live and a finished
 hypothesis set.
 
@@ -797,6 +800,181 @@ def finalize_slot_program(state, logits0, prompt_len: int, slot: int,
         return _arm_slot(state, logits0, int(prompt_len), int(slot),
                          max_new_tokens, config, sample=sample,
                          generator=generator)
+
+
+# --------------------------------------------------------------------------
+# Speculative decoding: draft and verify on the slot grid.  A small draft
+# model proposes a ``spec_k``-token window per active slot over its own slot
+# cache (:func:`draft_chunk_program`); the target scores every window
+# position in one forward, K8 at Tq = ``spec_k`` (:func:`verify_chunk_program`),
+# and commits the prefix the draft got right plus the target's own token
+# at the first miss.  Every committed token is the target's argmax, so the
+# output is token-identical to plain greedy decoding.
+
+
+def _write_window(leaf, rows, positions, active, values):
+    """``leaf[row, positions[row, t]] = values[row, t]`` in place for the
+    active rows, dropping positions out of ``[0, S)`` (JAX's drop-mode
+    scatter), without a host sync.  A dropped write rewrites the row's
+    current value at ``positions[row, 0] - 1``, which no kept write of the
+    row touches, so no index takes two different values."""
+    s = leaf.shape[1]
+    keep = active[:, None] & (positions >= 0) & (positions < s)
+    spare = (positions[:, :1] - 1).clamp(0, s - 1)
+    idx = torch.where(keep, positions, spare).long()
+    row_idx = rows[:, None].expand_as(idx)
+    old = leaf[row_idx, idx]
+    mask = keep.reshape(*keep.shape, *([1] * (values.dim() - 2)))
+    leaf[row_idx, idx] = torch.where(mask, values.to(leaf.dtype), old)
+
+
+def draft_chunk_program(params, cache, state, config, *, spec_k: int):
+    """Propose a ``spec_k``-token verify window for every slot with the
+    draft model: ``spec_k`` greedy single-token steps over the draft's own
+    slot cache (``_decode_step``, K8 at Tq 1).  Returns ``(cache,
+    window)`` with ``window [num_slots, spec_k]``: column 0 is each slot's
+    carried token (``state["tok"]``), the rest the draft's proposals.
+    Each step writes its token's K/V into the draft cache (inactive slots
+    write nothing), so after a verify commits a prefix the draft cache
+    already holds every committed position; the last step's proposal is
+    dropped (that step exists to write the last window token's K/V).
+    ``state`` is read only: the verify owns every state transition."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    s = cache["k"].shape[2]
+    active = state["active"]
+    tok, pos = state["tok"], state["pos"]
+    consumed = []
+    with torch.no_grad():
+        for _ in range(spec_k):
+            write_pos = torch.where(active, pos, s)
+            cache, logits = _decode_step(params, cache, tok, pos, config,
+                                         write_pos=write_pos)
+            consumed.append(tok)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+    return cache, torch.stack(consumed, dim=1)
+
+
+def verify_chunk_program(params, cache, state, window, config, *,
+                         sample: SampleConfig = SampleConfig(temperature=0.0),
+                         pool=None, block_table=None,
+                         with_summary: bool = False):
+    """Score a draft window for every slot in one target forward and
+    commit the accepted prefix.
+
+    ``window [num_slots, spec_k]`` is what :func:`draft_chunk_program`
+    returns.  Each layer writes the window's K/V at positions ``pos ..
+    pos + spec_k - 1`` of each active slot and attends chunk-causally over
+    the row through the paged kernel (``paged_verify_attention``, K8 or
+    K8q at Tq = ``spec_k``; with ``block_table`` and ``pool``, attached
+    prefix pages read pool blocks), so the logits after window position
+    ``i`` are those of consuming ``window[:, :i + 1]`` one token at a
+    time.  The target's greedy tokens ``g`` gate acceptance: draft token
+    ``window[:, i]`` is accepted while it equals ``g[:, i - 1]``, and the
+    committed emissions are ``g_0 .. g_a``, at least one per active slot.
+    Emissions stop at eos and at the slot's ``remaining`` budget as in
+    :func:`decode_chunk_program`; ``pos`` advances by the commit count,
+    which is the rewind: rows written past it are masked and overwritten
+    by the next window.  Greedy only (``temperature`` 0, no repetition
+    penalty).  Returns ``(cache, state, tokens, valid)`` shaped as
+    :func:`decode_chunk_program`'s, plus its ``[emitted_count,
+    active_count]`` summary with ``with_summary``.
+    """
+    if sample.temperature != 0.0 or sample.repetition_penalty != 1.0:
+        raise ValueError(
+            "speculative decoding requires greedy sampling "
+            "(temperature=0, repetition_penalty=1); token-identical "
+            "non-greedy speculation needs rejection resampling"
+        )
+    with torch.no_grad():
+        num_slots, k = window.shape
+        device = window.device
+        window = window.to(torch.int32)
+        active, pos = state["active"], state["pos"]
+        rows = torch.arange(num_slots, device=device)
+        steps = torch.arange(k, device=device)
+        positions = pos[:, None] + steps[None, :]  # [slots, k]
+        quantized = "k_scale" in cache
+        x = layers.embedding_apply(params["embed"], window, dtype=config.dtype)
+        x = x * math.sqrt(config.dim)
+        for layer, layer_params in enumerate(params["layers"]):
+            y = layers.rmsnorm_apply(layer_params["ln1"], x)
+            q, k_new, v_new = transformer.qkv_project(layer_params["att"], y,
+                                                      positions, config)
+            cache_l = {name: leaf[layer] for name, leaf in cache.items()}
+            for name, value in _kv_leaf_updates(k_new, v_new, config,
+                                                quantized).items():
+                _write_window(cache_l[name], rows, positions, active, value)
+            pool_l = (None if pool is None or block_table is None
+                      else {name: leaf[layer] for name, leaf in pool.items()})
+            attended = paged_lib.paged_verify_attention(
+                q, cache_l, pos + 1, pool_l=pool_l, block_table=block_table)
+            x = x + layers.dense_apply(layer_params["att"]["out"],
+                                       attended.reshape(num_slots, k, -1))
+            y = layers.rmsnorm_apply(layer_params["ln2"], x)
+            x = x + layers.mlp_block_apply(layer_params["mlp"], y)
+        logits = _final_logits(params, x, config)  # [slots, k, V]
+
+        # Greedy emission per window position, with the sequential path's
+        # eos gate: emission i is sampled when the slot has emitted
+        # ``emitted + i`` tokens.
+        allow = None
+        if sample.eos_id is not None and sample.min_new_tokens > 0:
+            allow = (state["emitted"][:, None] + steps[None, :]
+                     >= sample.min_new_tokens).reshape(-1)
+        g = sample_logits(logits.reshape(num_slots * k, -1), sample,
+                          allow_eos=allow).to(torch.int32).reshape(
+                              num_slots, k)
+        # Emission i commits iff every draft token before it matched the
+        # target's choice, within the budget, up to and including an eos.
+        emit_ok = torch.ones((num_slots, k), dtype=torch.bool, device=device)
+        if k > 1:
+            match = (window[:, 1:] == g[:, :-1]).to(torch.int32)
+            emit_ok[:, 1:] = torch.cumprod(match, dim=1).bool()
+        emit_ok &= steps[None, :] < state["remaining"][:, None]
+        if sample.eos_id is not None:
+            is_eos = (g == sample.eos_id).to(torch.int32)
+            emit_ok &= (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+        emit_ok &= active[:, None]
+        valid = torch.cumprod(emit_ok.to(torch.int32), dim=1).bool()
+
+        toks = torch.where(valid, g, sample.pad_id).to(torch.int32)
+        n = valid.sum(dim=1).to(torch.int32)  # commit count; 0 if inactive
+        last_tok = torch.gather(toks, 1,
+                                (n - 1).clamp(min=0)[:, None].long())[:, 0]
+        new_state = dict(state)
+        new_state["pos"] = pos + n
+        new_state["remaining"] = state["remaining"] - n
+        new_state["emitted"] = state["emitted"] + n
+        finished = new_state["remaining"] <= 0
+        if sample.eos_id is not None:
+            finished = finished | ((n > 0) & (last_tok == sample.eos_id))
+        new_state["active"] = active & ~finished
+        new_state["tok"] = torch.where(n > 0, last_tok, state["tok"])
+    if with_summary:
+        summary = torch.stack([valid.sum(), new_state["active"].sum()]).to(
+            torch.int32)
+        return cache, new_state, toks, valid, summary
+    return cache, new_state, toks, valid
+
+
+def draft_prefill_slot_program(params, cache, prompt_tokens, prompt_len,
+                               slot: int, config):
+    """Prefill one request's prompt (``[1, bucket_len]``) into row ``slot``
+    of the draft model's cache: :func:`insert_slot_program` without the
+    sampling (the first token comes from the target).  Always a one-shot
+    flash-attention prefill of the whole prompt, whatever the target side
+    did (a prefix hit, chunks).  Returns the cache."""
+    with torch.no_grad():
+        t_prompt = prompt_tokens.shape[1]
+        prompt_len = max(1, min(int(prompt_len), t_prompt))
+        device = cache["k"].device
+        prompt_tokens = prompt_tokens.to(device=device, dtype=torch.int32)
+        lens = torch.full((1,), prompt_len, dtype=torch.int32, device=device)
+        k_pref, v_pref, _ = _prefill_forward(params, prompt_tokens, lens,
+                                             config)
+        return _write_prefill(cache, k_pref, v_pref, int(slot), config)
 
 
 # --------------------------------------------------------------------------

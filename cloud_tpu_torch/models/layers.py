@@ -45,7 +45,11 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
             return body(*args, **kwargs)
-        return checkpoint(body, *args, use_reentrant=False, **kwargs)
+        # The layer bodies draw no random numbers, so the RNG state is not
+        # saved for the recomputation (reading it is not allowed inside a
+        # CUDA graph capture, ``train.make_multi_step``).
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
 
     return wrapped
 

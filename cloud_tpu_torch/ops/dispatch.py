@@ -20,10 +20,18 @@ several: ``group_norm`` holds K1-K4, ``flash_bwd`` K6 and K7,
 plain CPU path), so a run can show that its main path went through the
 kernels: reset the counts, drive the path, read the counts of the
 kernels that path runs.
+
+A CUDA graph launches nothing while it is captured and every captured
+kernel each time it replays.  So while :func:`capturing_launches` holds a
+stream, a launch made on that stream goes to the capture's own record
+instead (from any thread: autograd runs a captured backward on its own
+worker thread, on the capture stream), and :func:`replay_launches` adds
+that record once per replay (``training/train.py``'s ``make_multi_step``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -148,11 +156,50 @@ def check(name: str, code: int) -> None:
         )
 
 
+#: Capture stream (its ``cuda_stream`` handle) -> the record of the CUDA
+#: graph capture in progress on it.
+_captures: Dict[int, Dict[str, int]] = {}
+
+
+def _current_stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
 def count_launch(name: str) -> None:
     """One more launch of kernel ``name`` (one of :data:`KERNELS`).  Under
-    a lock: the engine's warmup worker launches beside its scheduler."""
+    a lock: the engine's warmup worker launches beside its scheduler.  A
+    launch on a stream under :func:`capturing_launches` goes to the
+    capture's record: the kernel runs when the graph replays."""
     with _lock:
-        _counts[name] += 1
+        record = _captures.get(_current_stream()) if _captures else None
+        if record is not None:
+            record[name] = record.get(name, 0) + 1
+        else:
+            _counts[name] += 1
+
+
+@contextlib.contextmanager
+def capturing_launches(stream: int):
+    """Around a CUDA graph capture on ``stream`` (a ``cuda_stream``
+    handle): launches on it inside the block are recorded in the yielded
+    dict (kernel -> launches a replay) and not counted."""
+    record: Dict[str, int] = {}
+    with _lock:
+        _captures[stream] = record
+    try:
+        yield record
+    finally:
+        with _lock:
+            del _captures[stream]
+
+
+def replay_launches(record: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``record``."""
+    with _lock:
+        for name, n in record.items():
+            _counts[name] += n
 
 
 def launch_counts(names: Optional[Iterable[str]] = None) -> Dict[str, int]:

@@ -3,6 +3,7 @@
 
 from cloud_tpu_torch.serving.engine import (
     DeadlineExceededError,
+    DraftConfig,
     EngineClosedError,
     QueueFullError,
     SERVE_SCHEDULER_THREAD_NAME,
@@ -13,6 +14,7 @@ from cloud_tpu_torch.serving.engine import (
 
 __all__ = [
     "DeadlineExceededError",
+    "DraftConfig",
     "EngineClosedError",
     "QueueFullError",
     "SERVE_SCHEDULER_THREAD_NAME",

@@ -37,15 +37,29 @@ in one ``generation.prefill_program`` (flash attention) and decoded to
 ``max_new_tokens`` by ``generation.decode_program`` (the paged kernel);
 every request of the batch resolves when the batch does.
 
+Speculative decoding (``draft=DraftConfig(...)``, continuous scheduler,
+greedy): each decode round, a small draft model proposes a ``spec_k``-token
+window per active slot over its own slot cache
+(``generation.draft_chunk_program``, the paged kernel at Tq 1), and the
+target scores the whole window in one forward
+(``generation.verify_chunk_program``, the paged kernel at Tq = ``spec_k``)
+and commits the accepted prefix.  Every committed token is the target's
+own argmax, so the output is the non-speculative output; the draft only
+decides how many tokens one round commits.  A slot that will decode first
+gets its prompt prefilled into the draft's cache row
+(``generation.draft_prefill_slot_program``, one-shot, whatever the target
+did).  ``stats()`` counts the rounds and the proposed and accepted
+tokens; ``health()`` carries the acceptance over the last 64 rounds.
+
 ``ServeConfig(kv_quant=True)`` keeps the grid (and pool) int8 with
 per-(position, head) scales; the decode attention then runs the int8
 kernel K8q.  Weight-only int8 params (``models/quantization
 .quantize_params``) are served as they are.
 
 The host synchronises with the card once per insert or finalize (its
-first token), once per decode chunk or batch (its emissions) and once per
-demotion burst, never per token.  Greedy outputs are token-identical to a
-direct ``generation.generate`` call per request.
+first token), once per decode chunk, speculative round or batch (its
+emissions) and once per demotion burst, never per token.  Greedy outputs
+are token-identical to a direct ``generation.generate`` call per request.
 
 The engine takes every field, keyword and method of the JAX engine; each
 value whose feature the port does not have yet raises
@@ -107,6 +121,35 @@ def _later(feature: str, item: str) -> NotImplementedError:
 
 
 @dataclasses.dataclass(frozen=True)
+class DraftConfig:
+    """The draft half of draft-and-verify speculative decoding.
+
+    ``config`` is a ``models.transformer.TransformerConfig``, typically
+    fewer layers than the target's (its vocabulary must be the target's:
+    acceptance compares token ids); ``params`` the draft's weights (port
+    tree, ``bridge``).  ``spec_k`` is the verify window: the tokens the
+    target consumes, and can commit, per round; the draft proposes
+    ``spec_k - 1`` of them.  Greedy only.
+    """
+
+    config: object
+    #: Not in the repr: a params tree in a logged config would dump whole
+    #: weight tensors.
+    params: object = dataclasses.field(repr=False, default=None)
+    spec_k: int = 4
+
+    def __post_init__(self):
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if self.params is None:
+            raise ValueError(
+                "DraftConfig needs the draft model's params — without "
+                "them the first proposal dispatch would die deep in the "
+                "scheduler thread instead of here"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine knobs, with the JAX engine's names, defaults and validation.
 
@@ -121,7 +164,8 @@ class ServeConfig:
     ``prefix_dram_blocks`` its host tier, ``prefill_chunk_tokens`` chunked
     prefill.  Every ``decode_kernel`` value reads the cache through the
     paged kernel; ``"pallas"`` and ``"auto"`` also attach prefix hits
-    through the block table instead of copying them.  ``warmup`` builds the
+    through the block table instead of copying them.  ``draft`` arms
+    speculative decoding (:class:`DraftConfig`).  ``warmup`` builds the
     kernels and runs the serving programs once at construction
     (``ServingEngine.wait_ready``).
     """
@@ -139,7 +183,7 @@ class ServeConfig:
     prefix_block_tokens: int = 16
     prefix_dram_blocks: int = 0
     prefill_chunk_tokens: Optional[int] = None
-    draft: Optional[object] = None
+    draft: Optional[DraftConfig] = None
     sample: "generation.SampleConfig" = None  # type: ignore[assignment]
     kv_quant: bool = False
     warmup: bool = False
@@ -224,6 +268,27 @@ class ServeConfig:
                 "continuous scheduler (slot-grid prefill); the batch "
                 "path has no per-slot cache rows to reuse"
             )
+        if self.draft is not None:
+            if self.scheduler != "continuous":
+                raise ValueError(
+                    "draft= (speculative decoding) needs the continuous "
+                    "scheduler — the verify program is a slot-grid "
+                    "dispatch"
+                )
+            if self.sample.temperature != 0.0:
+                raise ValueError(
+                    "draft= (speculative decoding) requires greedy "
+                    f"sampling; got temperature={self.sample.temperature}"
+                    " (token-identical non-greedy speculation needs "
+                    "rejection resampling)"
+                )
+            if self.sample.repetition_penalty != 1.0:
+                raise ValueError(
+                    "draft= (speculative decoding) does not compose with "
+                    "repetition_penalty: the verify window's emissions "
+                    "would each need the penalty state of the emissions "
+                    "before them"
+                )
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
         if self.flush_deadline_s < 0:
@@ -281,8 +346,6 @@ class ServeConfig:
         self._refuse_later_features()
 
     def _refuse_later_features(self):
-        if self.draft is not None:
-            raise _later("draft= (speculative decoding)", "4c")
         if self.qos is not None:
             raise _later("qos= (priority scheduling)", "4e")
         if self.pipeline_depth != 1:
@@ -451,6 +514,12 @@ class ServingEngine:
             "chunk_seconds": 0.0, "oneshot_inserts": 0,
             "batch_decode_steps": 0,
             "prefill_chunk_widths": {},
+            # Speculative decoding (0 with draft=None): spec_chunks are
+            # verify rounds, spec_emitted the tokens they committed,
+            # spec_proposed/spec_accepted the draft tokens offered and
+            # committed; acceptance is their quotient.
+            "spec_chunks": 0, "spec_emitted": 0,
+            "spec_proposed": 0, "spec_accepted": 0, "draft_prefills": 0,
         }
         #: Rolling dispatch->dispatch host gaps (ms) between chunks.
         self._dispatch_gaps: collections.deque = collections.deque(maxlen=512)
@@ -469,6 +538,12 @@ class ServingEngine:
         #: Prefix hits attach pool blocks through the block table
         #: (``decode_kernel`` "pallas"/"auto") instead of being copied.
         self._paged = cfg.decode_kernel != "xla"
+        #: Speculative decoding: the draft's params and slot cache, and
+        #: (accepted, proposed) of the last 64 rounds for health().
+        self._spec = cfg.draft is not None
+        self._draft_params = None
+        self._draft_cache = None
+        self._accept_window: collections.deque = collections.deque(maxlen=64)
         if self._continuous:
             self._max_len = cfg.prompt_buckets[-1] + cfg.max_new_tokens
             # The grid is updated in place by every program (the JAX
@@ -496,6 +571,8 @@ class ServingEngine:
                 self._prefix_pool = generation.init_prefix_pool(
                     config, cfg.prefix_cache_blocks, cfg.prefix_block_tokens,
                     device=self.device, kv_quant=cfg.kv_quant)
+            if self._spec:
+                self._init_draft()
         self._warmup_thread: Optional[threading.Thread] = None
         if cfg.warmup:
             self._warmup_thread = threading.Thread(
@@ -504,6 +581,28 @@ class ServingEngine:
             self._warmup_thread.start()
         if start:
             self.start()
+
+    def _init_draft(self) -> None:
+        """Arm draft-and-verify: check the draft against the target, put
+        its params on the device and give it a slot cache of the grid's
+        shape (int8 with ``kv_quant``, as the target's)."""
+        cfg = self.serve_config
+        dcfg = cfg.draft.config
+        if int(dcfg.vocab_size) != int(self.config.vocab_size):
+            raise ValueError(
+                f"draft vocab_size={dcfg.vocab_size} != target "
+                f"vocab_size={self.config.vocab_size}: acceptance "
+                "compares token ids, so the two models must share a "
+                "vocabulary"
+            )
+        transformer.check_supported(dcfg)
+        _check_quantized_leaves(cfg.draft.params, "draft.params")
+        self._draft_params = generation.prepare_params(
+            bridge.map_leaves(cfg.draft.params,
+                              lambda t: t.to(self.device)), dcfg)
+        self._draft_cache = generation.init_slot_cache(
+            dcfg, cfg.num_slots, self._max_len, device=self.device,
+            kv_quant=cfg.kv_quant)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -528,9 +627,10 @@ class ServingEngine:
         touched and no token changes.  Continuous: one insert per prompt
         bucket (without chunked prefill), one prefill chunk per chunk
         width and its finalize (with the prefix cache or chunked prefill),
-        and one decode chunk.  Batch: each batch bucket once, at the
-        largest prompt bucket.  A failure is logged; the programs then
-        run cold."""
+        and one decode chunk (with a draft: one draft prefill per prompt
+        bucket, one draft chunk and one verify instead).  Batch: each batch
+        bucket once, at the largest prompt bucket.  A failure is logged;
+        the programs then run cold."""
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
@@ -580,10 +680,27 @@ class ServingEngine:
                     state, _ = generation.finalize_slot_program(
                         state, logits, width, 0, cfg.max_new_tokens,
                         self.config, sample=cfg.sample, generator=generator)
-                _, _, toks, _ = generation.decode_chunk_program(
-                    self.params, cache, state, self.config,
-                    chunk_size=cfg.chunk_tokens, sample=cfg.sample,
-                    generator=generator, block_table=table)
+                if self._spec:
+                    dcfg = cfg.draft.config
+                    draft_cache = generation.init_slot_cache(
+                        dcfg, cfg.num_slots, self._max_len,
+                        device=self.device, kv_quant=cfg.kv_quant)
+                    for bucket_len in cfg.prompt_buckets:
+                        generation.draft_prefill_slot_program(
+                            self._draft_params, draft_cache,
+                            torch.ones((1, bucket_len), dtype=torch.int32),
+                            bucket_len, 0, dcfg)
+                    _, window = generation.draft_chunk_program(
+                        self._draft_params, draft_cache, state, dcfg,
+                        spec_k=cfg.draft.spec_k)
+                    _, _, toks, _ = generation.verify_chunk_program(
+                        self.params, cache, state, window, self.config,
+                        sample=cfg.sample, block_table=table)
+                else:
+                    _, _, toks, _ = generation.decode_chunk_program(
+                        self.params, cache, state, self.config,
+                        chunk_size=cfg.chunk_tokens, sample=cfg.sample,
+                        generator=generator, block_table=table)
                 toks.cpu()  # the card has run it
         except Exception:  # noqa: BLE001 — logged; serving still works
             logger.exception("serving warmup failed; programs run cold")
@@ -619,11 +736,12 @@ class ServingEngine:
 
     @property
     def chunk_traces(self) -> int:
-        raise _later("chunk_traces (the JAX engine's compile count)", "4c/4e")
+        raise _later("chunk_traces (the JAX engine's compile count)", "4e")
 
     @property
     def verify_traces(self) -> int:
-        raise _later("verify_traces (speculative decoding)", "4c/4e")
+        raise _later("verify_traces (the JAX engine's compile count of the "
+                     "speculative verify)", "4e")
 
     def close(self, drain: bool = True, timeout: Optional[float] = None
               ) -> None:
@@ -973,7 +1091,10 @@ class ServingEngine:
             if self._prefill_tasks:
                 self._advance_prefill()
             if self._active_slots:
-                self._dispatch_chunk()
+                if self._spec:
+                    self._dispatch_spec_chunk()
+                else:
+                    self._dispatch_chunk()
 
     def _admit_request(self, request: _Request, slot: int) -> None:
         """Route a popped request into its claimed slot.  Without the
@@ -1125,6 +1246,10 @@ class ServingEngine:
         if request.max_new_tokens == 1 or (eos is not None and tok0 == eos):
             self._retire_slot(slot)
         else:
+            if self._spec:
+                # The slot will decode: the draft needs its prompt K/V
+                # before the next proposal round.
+                self._dispatch_draft_prefill(request, slot)
             self._active_slots.add(slot)
 
     def _save_prefix_blocks(self, request: _Request, slot: int,
@@ -1209,15 +1334,28 @@ class ServingEngine:
 
     # -- decode ------------------------------------------------------------
 
-    def _dispatch_chunk(self) -> None:
-        cfg = self.serve_config
-        num_slots, chunk = cfg.num_slots, cfg.chunk_tokens
+    def _note_dispatch(self) -> float:
+        """Record the host gap since the last decode dispatch ended; returns
+        this dispatch's start."""
         start = time.perf_counter()
         if self._last_chunk_dispatch_end is not None:
             with self._stats_lock:
                 self._dispatch_gaps.append(
                     (start - self._last_chunk_dispatch_end) * 1000.0)
         self._last_dispatch_ts = start
+        return start
+
+    @staticmethod
+    def _emissions_to_host(toks, valid):
+        """A decode dispatch's one host sync: tokens and validity in one
+        copy."""
+        host = torch.stack([toks, valid.to(torch.int32)]).cpu().numpy()
+        return host[0], host[1].astype(bool)
+
+    def _dispatch_chunk(self) -> None:
+        cfg = self.serve_config
+        num_slots, chunk = cfg.num_slots, cfg.chunk_tokens
+        start = self._note_dispatch()
         self._grid_cache, self._slot_state, toks, valid = (
             generation.decode_chunk_program(
                 self.params, self._grid_cache, self._slot_state, self.config,
@@ -1226,25 +1364,82 @@ class ServingEngine:
             )
         )
         self._last_chunk_dispatch_end = time.perf_counter()
-        # The chunk's one host sync: tokens and validity in one copy.
-        host = torch.stack([toks, valid.to(torch.int32)]).cpu().numpy()
-        toks, valid = host[0], host[1].astype(bool)
+        toks, valid = self._emissions_to_host(toks, valid)
         emitted = int(valid.sum())
         with self._stats_lock:
             self._stats["chunk_seconds"] += time.perf_counter() - start
             self._stats["chunks"] += 1
             self._stats["decode_slot_steps"] += num_slots * chunk
             self._stats["useful_decode_tokens"] += emitted
-        eos = cfg.sample.eos_id
+        self._commit_emissions(toks, valid, chunk)
+
+    def _commit_emissions(self, toks, valid, width: int) -> None:
+        """Append each active slot's valid emissions (host arrays
+        ``[num_slots, width]``) and retire the slots that finished."""
+        eos = self.serve_config.sample.eos_id
         for slot in sorted(self._active_slots):
             entry = self._slot_table[slot]
-            for i in range(chunk):
+            for i in range(width):
                 if not valid[slot, i]:
                     break
                 entry.tokens.append(int(toks[slot, i]))
             hit_eos = eos is not None and entry.tokens[-1] == eos
             if hit_eos or len(entry.tokens) >= entry.request.max_new_tokens:
                 self._retire_slot(slot)
+
+    def _dispatch_spec_chunk(self) -> None:
+        """One draft-and-verify round: the draft proposes a ``spec_k``
+        window per slot over its own cache, the target scores the window
+        in one forward and commits the accepted prefix; one host copy of
+        the emissions, handled as a decode chunk's."""
+        cfg = self.serve_config
+        num_slots, k = cfg.num_slots, cfg.draft.spec_k
+        active_n = len(self._active_slots)
+        start = self._note_dispatch()
+        self._draft_cache, window = generation.draft_chunk_program(
+            self._draft_params, self._draft_cache, self._slot_state,
+            cfg.draft.config, spec_k=k)
+        self._grid_cache, self._slot_state, toks, valid = (
+            generation.verify_chunk_program(
+                self.params, self._grid_cache, self._slot_state, window,
+                self.config, sample=cfg.sample, **self._paged_kwargs()))
+        self._last_chunk_dispatch_end = time.perf_counter()
+        toks, valid = self._emissions_to_host(toks, valid)
+        emitted = int(valid.sum())
+        # Every active slot commits at least the target's token at the
+        # first miss; the surplus is accepted draft tokens.
+        accepted = max(emitted - active_n, 0)
+        proposed = active_n * (k - 1)
+        with self._stats_lock:
+            self._accept_window.append((accepted, proposed))
+            self._stats["chunk_seconds"] += time.perf_counter() - start
+            self._stats["spec_chunks"] += 1
+            self._stats["spec_emitted"] += emitted
+            self._stats["spec_accepted"] += accepted
+            self._stats["spec_proposed"] += proposed
+            self._stats["decode_slot_steps"] += num_slots * k
+            self._stats["useful_decode_tokens"] += emitted
+        self._commit_emissions(toks, valid, k)
+
+    def _dispatch_draft_prefill(self, request: _Request, slot: int) -> None:
+        """The prompt of a just-armed slot into the draft's cache row, so
+        the next proposal round attends over real context."""
+        tokens = np.zeros((1, request.bucket_len), np.int32)
+        tokens[0, :request.prompt_len] = request.prompt
+        self._last_dispatch_ts = time.perf_counter()
+        self._draft_cache = generation.draft_prefill_slot_program(
+            self._draft_params, self._draft_cache, torch.from_numpy(tokens),
+            request.prompt_len, slot, self.serve_config.draft.config)
+        with self._stats_lock:
+            self._stats["draft_prefills"] += 1
+
+    def _rolling_acceptance(self) -> float:
+        """Acceptance over the last 64 rounds (``health()``; ``stats()``
+        has the cumulative quotient)."""
+        with self._stats_lock:
+            accepted = sum(a for a, _ in self._accept_window)
+            proposed = sum(p for _, p in self._accept_window)
+        return accepted / proposed if proposed else 0.0
 
     def _retire_slot(self, slot: int, exc: Optional[BaseException] = None
                      ) -> None:
@@ -1327,6 +1522,9 @@ class ServingEngine:
                 None if last is None else time.perf_counter() - last),
             "decode_kernel": self.serve_config.decode_kernel,
             "pipeline_depth": 1,
+            "spec_acceptance_rate": (
+                self._rolling_acceptance() if self._spec else 0.0),
+            "spec_k": self.serve_config.draft.spec_k if self._spec else 0,
             "dispatch_gap_ms": self._dispatch_gap_mean(),
             "device": str(self.device),
         }
@@ -1373,6 +1571,9 @@ class ServingEngine:
             snap["useful_decode_tokens"] / snap["decode_slot_steps"]
             if snap["decode_slot_steps"] else 0.0
         )
+        snap["spec_acceptance_rate"] = (
+            snap["spec_accepted"] / snap["spec_proposed"]
+            if snap["spec_proposed"] else 0.0)
         snap["pipeline_depth"] = 1
         snap["dispatch_gap_ms_p50"] = (
             float(np.percentile(gaps, 50)) if gaps else 0.0)

@@ -16,7 +16,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from cloud_tpu_torch.bridge import leaves, map_leaves
@@ -61,8 +60,11 @@ class Adam:
     (sqrt(nu_hat) + eps) + weight_decay p``, ``p -= learning_rate u``.
     mu is updated in f32 and stored in ``mu_dtype``; as in optax, its
     decay ``b1 * mu`` is taken in the stored type (``b1`` rounded to it
-    first, JAX's weak typing).  The count is a host integer: the step
-    never waits on the device for it."""
+    first, JAX's weak typing).  The count is an int32 tensor on the
+    parameters' device and the bias corrections ``1 - b**count`` are f32
+    tensors computed there, as optax computes them: the step never waits
+    on the device, and a CUDA graph of the step advances them on every
+    replay (``train.make_multi_step``)."""
 
     learning_rate: float
     b1: float = 0.9
@@ -75,7 +77,9 @@ class Adam:
         def zeros(p, dtype=None):
             return torch.zeros_like(p, dtype=dtype, requires_grad=False)
 
-        return {"count": 0,
+        first = leaves(params)
+        device = first[0].device if first else None
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": map_leaves(params, lambda p: zeros(p, self.mu_dtype)),
                 "nu": map_leaves(params, zeros)}
 
@@ -83,11 +87,13 @@ class Adam:
     def update_(self, params, grads, opt_state) -> None:
         p, g = leaves(params), [t.float() for t in leaves(grads)]
         mu, nu = leaves(opt_state["mu"]), leaves(opt_state["nu"])
-        opt_state["count"] += 1
-        count = np.float32(opt_state["count"])
-        # f32 bias corrections, as optax computes 1 - decay**count.
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
+        count = opt_state["count"]
+        count.add_(1)
+        # f32 bias corrections on the device, as optax computes
+        # 1 - decay**count (the decay rounded to f32 first).
+        steps = count.float()
+        bc1 = 1 - torch.pow(self.b1, steps)
+        bc2 = 1 - torch.pow(self.b2, steps)
         # mu = b1 mu + (1 - b1) g; f32 moments update in place, with one
         # scratch list reused below (and the update itself): two
         # parameter-sized temporaries in all.

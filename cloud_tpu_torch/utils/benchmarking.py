@@ -74,6 +74,15 @@ def chain_then_read_throughput(step, state, batch, *, warmup=3, iters=20):
     return iters / (time.perf_counter() - start)
 
 
+def fused_throughput(multi_step, state, super_batch, *, steps_per_dispatch,
+                     warmup=1, iters=5):
+    """Steps/sec (steps, not windows) of a K-step window
+    (``train.make_multi_step``): :func:`chain_then_read_throughput` of the
+    window, times K."""
+    return steps_per_dispatch * chain_then_read_throughput(
+        multi_step, state, super_batch, warmup=warmup, iters=iters)
+
+
 def resnet_train_setup(*, imagenet_shape: bool, batch_size: int,
                        steps_per_dispatch: int = 1, device=None,
                        seed: int = 0):
@@ -81,12 +90,11 @@ def resnet_train_setup(*, imagenet_shape: bool, batch_size: int,
     the CIFAR variant at 32x32, 10 classes) in bf16 with random params from
     ``seed``, ``sgd(0.1, momentum=0.9)``, and one synthetic batch from a
     numpy generator seeded with 0 (labels drawn first, then the images, as
-    in the JAX package).  Returns ``(step, state, batch)``."""
-    if steps_per_dispatch != 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 (make_multi_step) comes with the "
-            "training slice of the port (ROADMAP.md A.6)"
-        )
+    in the JAX package).  Returns ``(step, state, batch)``.
+
+    ``steps_per_dispatch`` K > 1 returns the fused variant instead:
+    ``train.make_multi_step`` and a super-batch of K distinct batches
+    (labels ``[K, B]`` drawn first, then images ``[K, B, H, W, 3]``)."""
     device = resolve_device(device)
     if imagenet_shape:
         config, image_hw, num_classes = resnet.RESNET50, 224, 1000
@@ -100,11 +108,18 @@ def resnet_train_setup(*, imagenet_shape: bool, batch_size: int,
         device=device)
     loss = functools.partial(resnet.loss_fn, config=config, device=device)
     rng = np.random.default_rng(0)
-    label = rng.integers(0, num_classes, batch_size)
-    image = rng.normal(size=(batch_size, image_hw, image_hw, 3))
+    lead = (batch_size,)
+    if steps_per_dispatch > 1:
+        lead = (steps_per_dispatch, batch_size)
+        step = train.make_multi_step(loss, tx,
+                                     steps_per_dispatch=steps_per_dispatch)
+    else:
+        step = train.make_train_step(loss, tx)
+    label = rng.integers(0, num_classes, lead)
+    image = rng.normal(size=lead + (image_hw, image_hw, 3))
     batch = {"image": torch.from_numpy(image.astype(np.float32)).to(device),
              "label": torch.from_numpy(label).to(device)}
-    return train.make_train_step(loss, tx), state, batch
+    return step, state, batch
 
 
 def lm_train_setup(*, batch_size: int = 4, seq_len: int = 1024,

@@ -172,15 +172,19 @@ def bert_tiny_models(seed=0):
 REPO = pathlib.Path(__file__).resolve().parents[2]
 
 #: What every child of :func:`run_port_side` runs before its script: JAX
-#: blocked, two threads, the inputs as ``IN``, the outputs to fill as
+#: blocked, one intra-op thread, the inputs as ``IN``, the outputs to fill as
 #: ``OUT``, and ``port_model()`` for the weights :func:`model_inputs` sent.
+#: One thread, because with two, in a fresh process on a loaded host, the
+#: OpenMP worker's first ``exp`` after an MKL matrix product now and then
+#: came out ~1e-4 off (f32 and f64 alike, on the worker's half of the
+#: tensor only): the cause of the paged-chunk and flash-backward flakes.
 _PRELUDE = """
 import json
 import sys
 sys.modules["jax"] = None
 import numpy as np
 import torch
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch.models import transformer
 IN = dict(np.load(sys.argv[1], allow_pickle=False))

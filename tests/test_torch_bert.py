@@ -24,7 +24,7 @@ from cloud_tpu_torch.models import bert
 from cloud_tpu_torch.ops import dispatch
 from tests.helpers.torch_port import bert_tiny_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 BATCH, SEQ = 3, 24
 

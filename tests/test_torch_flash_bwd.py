@@ -33,7 +33,7 @@ jax_flash = importlib.import_module("cloud_tpu.ops.flash_attention")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 B, H, T, D = 2, 2, 64, 16
 BLOCK_Q, BLOCK_K = 32, 16
@@ -72,14 +72,15 @@ KERNEL_CASES = [(mask_kind, causal, use_glse)
                                           ("empty", False))
                 for use_glse in (False, True)]
 
-# The port's side of every case, in a process that never imports JAX: with
-# JAX's runtime in the same process and the host under load, the CPU
-# products of ``_bwd_reference`` came out off by ~1e-4 in the first
-# sample's rows now and then, on bit-identical inputs.
+# The port's side of every case, in a process that never imports JAX, on
+# one intra-op thread: with two, on a loaded host, the OpenMP worker's first
+# ``exp`` after an MKL matrix product now and then came out ~1e-4 off, so
+# ``_bwd_reference`` missed in the first case's rows on bit-identical inputs
+# (the same fault as in ``helpers/torch_port.py``'s children).
 _PORT_SIDE = """
 import sys
 import numpy as np, torch
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 from cloud_tpu_torch.ops.flash_attention import _bwd_reference
 data = dict(np.load(sys.argv[1]))
 out = {}

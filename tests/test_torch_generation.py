@@ -22,7 +22,7 @@ from cloud_tpu_torch.models import generation
 from cloud_tpu_torch.utils import benchmarking
 from helpers.torch_port import tie_free_prompts, tiny_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 N_NEW = 10
 

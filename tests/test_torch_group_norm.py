@@ -24,7 +24,7 @@ from cloud_tpu_torch.ops import group_norm as port_gn
 
 jax_gn = importlib.import_module("cloud_tpu.ops.group_norm")
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 

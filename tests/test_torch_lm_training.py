@@ -29,7 +29,7 @@ from cloud_tpu_torch.ops import fused_cross_entropy as port_fce
 from cloud_tpu_torch.training import optimizers, train
 from tests.helpers.torch_port import port_config
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 BATCH, SEQ = 2, 32
 

@@ -19,7 +19,7 @@ from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch.models import layers, transformer
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _t(x):

@@ -26,7 +26,7 @@ jax_flash = importlib.import_module("cloud_tpu.ops.flash_attention")
 jax_paged = importlib.import_module("cloud_tpu.ops.paged_attention")
 jax_gen = importlib.import_module("cloud_tpu.models.generation")
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 

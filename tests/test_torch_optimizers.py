@@ -18,7 +18,7 @@ from cloud_tpu.training import optimizers as jax_opt
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch.training import optimizers
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _tree(rng):

@@ -25,7 +25,7 @@ from cloud_tpu.ops import paged_attention as jax_paged
 from cloud_tpu_torch.ops import paged_attention as port_paged
 from helpers.torch_port import run_port_side
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 H100_SMS = 132

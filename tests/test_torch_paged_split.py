@@ -29,7 +29,7 @@ from cloud_tpu.models import generation as jax_gen
 from cloud_tpu.ops import paged_attention as jax_paged
 from cloud_tpu_torch.ops import paged_attention as port_paged
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 H100_SMS = 132

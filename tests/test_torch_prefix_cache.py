@@ -42,7 +42,7 @@ from helpers.torch_port import (
     tiny_models,
 )
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ from cloud_tpu_torch import bridge
 from cloud_tpu_torch.models import quantization
 from helpers.torch_port import tiny_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _crafted():

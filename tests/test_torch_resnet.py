@@ -20,7 +20,7 @@ from cloud_tpu_torch import bridge
 from cloud_tpu_torch.models import resnet
 from tests.helpers.torch_port import image_batch, resnet8_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 #: One XLA program per call: far quicker on the CPU than op-by-op dispatch.
 _jax_apply = jax.jit(jax_resnet.apply, static_argnums=2)

@@ -6,11 +6,12 @@ same weights (TINY, f32, tie-free prompts).  Around that: eos retirement
 with an eos id that cannot collide with an earlier greedy token, typed
 admission errors, a clean close, one served request for each option the
 port took over from a refusal (the batch scheduler, the prefix cache and
-its host tier, chunked prefill), and ``NotImplementedError`` for every
+its host tier, chunked prefill, a speculative draft), and ``NotImplementedError`` for every
 ``ServeConfig`` feature the port does not have yet.  ``kv_quant`` with
 int8 weights is held against the quantized JAX ``generate``.  The engine's
 surface (``ServeConfig`` fields, constructor and ``submit`` keywords,
-public methods) includes the JAX engine's; ``warmup`` changes no token.
+public methods) includes the JAX engine's, ``DraftConfig`` has the
+reference's signature; ``warmup`` changes no token.
 """
 
 import dataclasses
@@ -24,12 +25,14 @@ import pytest
 import torch
 
 from cloud_tpu.models import generation as jax_gen
+from cloud_tpu.serving import DraftConfig as JaxDraftConfig
 from cloud_tpu.serving import ServeConfig as JaxServeConfig
 from cloud_tpu.serving import ServingEngine as JaxServingEngine
 from cloud_tpu_torch.models import generation, transformer
 from cloud_tpu_torch.serving import (
     SERVE_SCHEDULER_THREAD_NAME,
     DeadlineExceededError,
+    DraftConfig,
     EngineClosedError,
     QueueFullError,
     ServeConfig,
@@ -37,7 +40,7 @@ from cloud_tpu_torch.serving import (
 )
 from helpers.torch_port import tie_free_prompts, tiny_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 MAX_NEW = 8
 BUDGETS = [8, 3, 5, 1, 8, 2]
@@ -187,6 +190,7 @@ SERVED_OPTIONS = {
     "prefix_cache_blocks": "prefix_misses",
     "prefix_cache_blocks-prefix_dram_blocks": "prefix_misses",
     "prefill_chunk_tokens": "prefill_chunks",
+    "draft": "spec_chunks",
 }
 
 
@@ -195,7 +199,8 @@ SERVED_OPTIONS = {
     dict(prefix_cache_blocks=4),
     dict(prefix_cache_blocks=4, prefix_dram_blocks=4),
     dict(prefill_chunk_tokens=4),
-    dict(draft=object()),
+    # Stands for a DraftConfig of the model itself (built in the test).
+    dict(draft="self"),
     dict(qos=object()),
     dict(mesh_shape=(2, 1)),
     dict(layout="auto"),
@@ -213,6 +218,8 @@ def test_out_of_slice_options_raise(kw, models, prompts):
         return
     _, _, cfg, tparams = models
     toks, lens, jax_tokens = prompts
+    if kw.get("draft") == "self":
+        kw = dict(draft=DraftConfig(config=cfg, params=tparams, spec_k=3))
     with _engine(tparams, cfg, **kw) as engine:
         res = engine.submit(toks[1, :lens[1]]).result(timeout=120)
     np.testing.assert_array_equal(res.tokens, jax_tokens[1])
@@ -344,6 +351,11 @@ def test_engine_surface_includes_jax():
     assert _keywords(JaxServingEngine.submit) <= _keywords(
         ServingEngine.submit)
     assert _public(JaxServingEngine) <= _public(ServingEngine)
+    # DraftConfig: the reference's fields, order, kinds and defaults.
+    port, ref = (inspect.signature(c).parameters
+                 for c in (DraftConfig, JaxDraftConfig))
+    assert [(n, p.kind, p.default) for n, p in port.items()] == [
+        (n, p.kind, p.default) for n, p in ref.items()]
 
 
 def test_warmup_then_wait_ready_changes_no_token(models, prompts):
@@ -401,8 +413,8 @@ UNPORTED = {
     "submit-handoff": ("5", lambda e: e.submit([1, 2], handoff={})),
     "set_trace_lane": ("4e", lambda e: e.set_trace_lane(3)),
     "set_role": ("5", lambda e: e.set_role("decode")),
-    "chunk_traces": ("4c/4e", lambda e: e.chunk_traces),
-    "verify_traces": ("4c/4e", lambda e: e.verify_traces),
+    "chunk_traces": ("4e", lambda e: e.chunk_traces),
+    "verify_traces": ("4e", lambda e: e.verify_traces),
 }
 
 

@@ -28,7 +28,7 @@ from helpers.torch_port import (
     tiny_models,
 )
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 MAX_NEW = 6
 BUCKETS = (8, 16)

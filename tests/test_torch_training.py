@@ -24,7 +24,7 @@ from cloud_tpu_torch.training import optimizers, train
 from cloud_tpu_torch.utils import benchmarking
 from tests.helpers.torch_port import image_batch, resnet8_models
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _port_step(cfg, params, lr=0.1, momentum=0.9):
@@ -123,12 +123,12 @@ def test_other_unsupported_entry_points_raise():
     with pytest.raises(ValueError, match="accum_steps"):
         train.make_train_step(lambda p, b: None, optimizers.sgd(0.1),
                               accum_steps=0)
+    # make_multi_step and resnet_train_setup(steps_per_dispatch > 1) are
+    # ported (tests/test_torch_multi_step.py); the window refuses what the
+    # step refuses.
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
-                              steps_per_dispatch=2)
+                              steps_per_dispatch=2, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
         train.create_sharded_state(None, dict, optimizers.sgd(0.1),
                                    mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        benchmarking.resnet_train_setup(imagenet_shape=False, batch_size=2,
-                                        steps_per_dispatch=4, device="cpu")
