@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, full precision and int8), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,21 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    record of rounds and draft prefills; rates, acceptance and bf16
    mismatches printed only), f32 token identity with ``generate()`` with
    either draft, and with ``kv_quant`` (int8 grids for target and draft,
-   K8q at Tq 1 and 4, no K8) against ``generate(kv_quant=True)``;
+   K8q at Tq 1 and 4, no K8) against ``generate(kv_quant=True)``; 3t also
+   serves at ``pipeline_depth=2`` (its whole-stream synchronisations
+   printed) and, in f32 one at a time, with ``kv_quant`` (int8 grid, pool
+   and host tier; K8q at the 32-token chunk width) against
+   ``generate(kv_quant=True)``; then bench.py's churn probe (24 requests,
+   buckets (64, 128), up to 64 new tokens, 8 slots, chunk 8, waves of 4):
+   ``decode_kernel`` "xla" against "auto" (3k: tokens equal, TTFT and TPOT
+   printed), ``pipeline_depth`` 1 against 2, plain, with the 3-layer draft
+   and with ``kv_quant`` (3w: tokens equal between depths, dispatch gaps,
+   host bubble and a chunk's idle share printed; f32 depth 2 against
+   ``generate()``), the spans of 3w's arms against the engines' counts
+   (3n; the plain depth-2 timeline goes to
+   ``chiprun_out/serving_pipeline_timeline.json``), and QoS classes with
+   streamed requests and ``on_token`` hooks (3o: streams and hooks equal
+   the results, f32 against ``generate()``, per-class TTFT printed);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -1814,10 +1828,11 @@ PAGED_ROWS_KEYS = ("paged_attention_kernel", "paged_attention_combine")
 
 def profile_decode_chunk(device, card):
     """Where a decode step's time goes: one chunk of the slot grid at the
-    engine's shape (8 slots all active, bf16 SMALL), under torch.profiler.
-    Fails if the profiler sees no device time, or if in
-    ``PROFILE_SESSIONS`` profiled chunks the rows of K8's split pass or of
-    its combine never hold one launch a layer a step."""
+    engine's shape (8 slots all active, bf16 SMALL), under torch.profiler,
+    read from the second chunk of a session (after a lead chunk, as the
+    step profiles do).  Fails if the profiler sees no device time, or if
+    in ``PROFILE_SESSIONS`` sessions the measured chunk's rows of K8's
+    split pass or of its combine never hold one launch a layer a step."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -1848,11 +1863,21 @@ def profile_decode_chunk(device, card):
     start = time.perf_counter()  # wall time without the profiler's cost
     chunk().cpu()
     wall_ms = (time.perf_counter() - start) * 1e3
-    # Kernel rows only: an operator row carries its kernels' time again.
-    # A session that lost a record of K8 is run again (the next chunk),
-    # PROFILE_SESSIONS in all.
+    def run():
+        # A lead chunk, waited for, then the measured one: a session now
+        # and then loses the record of its first launches (MEASURED_STEP).
+        chunk().cpu()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        with torch.profiler.record_function(MEASURED_STEP):
+            chunk().cpu()
+
+    # Kernel rows of the measured chunk only: an operator row carries its
+    # kernels' time again.  A session that lost a record of K8 is run
+    # again (the next chunks), PROFILE_SESSIONS in all.
     for attempt in range(PROFILE_SESSIONS):
-        prof, rows = profiled(lambda: chunk().cpu(), cpu=True)
+        prof, _ = profiled(run, cpu=True)
+        rows = _event_rows(prof, _measured_events(prof))
         seen = {key: sum(r[1] for r in rows if key in r[2])
                 for key in PAGED_ROWS_KEYS}
         if all(n == cfg.num_layers * CHUNK for n in seen.values()):
@@ -2318,17 +2343,38 @@ def _serve_in_turn(engine, prompts, budget):
             for p in prompts]
 
 
-def _parity(what, generation, params, cfg, device, prompts, served, budget):
+def _parity(what, generation, params, cfg, device, prompts, served, budget,
+            *, kv_quant=False):
     import torch
 
     for prompt, res in zip(prompts, served):
         want = generation.generate(
             params, torch.from_numpy(prompt)[None], [len(prompt)], cfg,
-            max_new_tokens=budget, device=device)["tokens"][0].cpu().numpy()
+            max_new_tokens=budget, kv_quant=kv_quant,
+            device=device)["tokens"][0].cpu().numpy()
         if not np.array_equal(want, res.tokens):
             first = int(np.flatnonzero(want != res.tokens)[0])
-            raise AssertionError(f"{what} != generate() for a {len(prompt)}-"
-                                 f"token prompt at token {first}")
+            raise AssertionError(f"{what} != generate(kv_quant={kv_quant}) "
+                                 f"for a {len(prompt)}-token prompt at "
+                                 f"token {first}")
+
+
+def _tie_free_quantized(generation, params, cfg, device, candidates, n,
+                        budget):
+    """The first ``n`` candidate prompts whose f32 greedy path under
+    ``generate(kv_quant=True)`` keeps a top-2 logit gap of
+    ``QUANT_TIE_GAP`` at every step."""
+    picks = []
+    for prompt in candidates:
+        gaps, _ = _greedy_gaps(generation, params, prompt, budget, cfg,
+                               device, kv_quant=True)
+        if min(gaps) >= QUANT_TIE_GAP:
+            picks.append(prompt)
+        if len(picks) == n:
+            return picks
+    raise AssertionError(f"only {len(picks)} of {len(candidates)} prompts "
+                         f"are tie-free at {QUANT_TIE_GAP} under "
+                         f"quantization")
 
 
 def _run_measured(engine, prompts, budgets, *, wave, pause):
@@ -2437,9 +2483,10 @@ def _head_prompts(rng, heads, n, *, cycle, vocab):
 
 def _prefix_parity(what, generation, params, cfg32, device, serve, prompts):
     """Serve ``prompts`` one after another through an f32 engine: every
-    request token-identical to ``generate()``, the prefix counters equal
-    to ``_replay_prefix``'s, the launches equal to the engine's record.
-    Returns the engine's stats delta."""
+    request token-identical to ``generate()`` (``generate(kv_quant=True)``
+    for an int8 grid), the prefix counters equal to ``_replay_prefix``'s,
+    the launches equal to the engine's record (K8q for an int8 grid).
+    Returns the engine's stats and the launches."""
     from cloud_tpu_torch.ops import dispatch
     from cloud_tpu_torch.serving import ServingEngine
 
@@ -2449,9 +2496,10 @@ def _prefix_parity(what, generation, params, cfg32, device, serve, prompts):
         served = _serve_in_turn(engine, prompts, PARITY_BUDGET)
     launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
     d1 = engine.stats()
-    _check_launches(what, launches, cfg32.num_layers, d0, d1)
+    _check_launches(what, launches, cfg32.num_layers, d0, d1,
+                    quantized=serve.kv_quant)
     _parity(what, generation, params, cfg32, device, prompts, served,
-            PARITY_BUDGET)
+            PARITY_BUDGET, kv_quant=serve.kv_quant)
     want = _replay_prefix(serve, prompts)
     got = {"hits": d1["prefix_hits"], "hit_tokens": d1["prefix_hit_tokens"],
            "dram_hits": d1["prefix_dram_hits"],
@@ -2459,10 +2507,11 @@ def _prefix_parity(what, generation, params, cfg32, device, serve, prompts):
     if got != {k: want[k] for k in got}:
         raise AssertionError(f"{what}: prefix counters {got}, the replay "
                              f"gives {want}")
-    print(f"  {what} == generate(): {len(prompts)}/{len(prompts)} requests "
-          f"token-identical (SMALL f32, {PARITY_BUDGET} tokens, top-2 gap >= "
-          f"1e-3, one at a time); prefix counters {got} as replayed; "
-          f"launches {launches}")
+    gap = QUANT_TIE_GAP if serve.kv_quant else 1e-3
+    print(f"  {what} == generate(kv_quant={serve.kv_quant}): "
+          f"{len(prompts)}/{len(prompts)} requests token-identical (SMALL "
+          f"f32, {PARITY_BUDGET} tokens, top-2 gap >= {gap}, one at a "
+          f"time); prefix counters {got} as replayed; launches {launches}")
     return d1, launches
 
 
@@ -2473,7 +2522,10 @@ def run_prefix_engine(device, card):
     (``"pallas"``), launches checked against the engine's record; then in
     f32, one request at a time, each route with 32-token chunks and with
     whole-suffix prefill at the prompt's bucket (Tq 128 and 512):
-    token-identical to ``generate()`` with the replayed prefix counters."""
+    token-identical to ``generate()`` with the replayed prefix counters;
+    and on the attach route with whole-suffix prefill and ``kv_quant``
+    (K8q at Tq 128 and 512) on prompts tie-free at 1e-2: token-identical
+    to ``generate(kv_quant=True)``."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -2547,12 +2599,12 @@ def run_prefix_engine(device, card):
     params32 = generation.prepare_params(params, cfg32)
     # Two prompts on a head that lands in the 128 bucket and two on one
     # that lands in the 512 bucket, alternating.
+    long_head = rng.integers(1, cfg.vocab_size, 400).astype(np.int32)
     pairs = [_tie_free(generation, params32, cfg32, device,
                        _head_prompts(rng, [head], 12, cycle=True,
                                      vocab=cfg.vocab_size), 2,
                        PARITY_BUDGET)
-             for head in (heads[0], rng.integers(1, cfg.vocab_size, 400)
-                          .astype(np.int32))]
+             for head in (heads[0], long_head)]
     picks = [pairs[i % 2][i // 2] for i in range(4)]
     by_width = {}
     for route in ("xla", "pallas"):
@@ -2574,16 +2626,44 @@ def run_prefix_engine(device, card):
     out["paged_launches_by_tq"] = by_width
     print(f"  K8 launches of the f32 prefix engines by prefill-chunk width: "
           f"{dict(sorted(by_width.items()))}")
+
+    # kv_quant on the attach route with whole-suffix prefill: K8q at the
+    # prompt buckets' widths (Tq 128 and 512), on prompts tie-free at
+    # QUANT_TIE_GAP.
+    qpairs = [_tie_free_quantized(generation, params32, cfg32, device,
+                                  _head_prompts(rng, [head], 24, cycle=True,
+                                                vocab=cfg.vocab_size), 2,
+                                  PARITY_BUDGET)
+              for head in (heads[0], long_head)]
+    serve = ServeConfig(
+        max_new_tokens=PARITY_BUDGET, prompt_buckets=BUCKETS, num_slots=2,
+        chunk_tokens=CHUNK, prefix_cache_blocks=p["blocks"],
+        prefix_block_tokens=p["block_tokens"], decode_kernel="pallas",
+        kv_quant=True)
+    d1, launches = _prefix_parity(
+        "prefix engine (pallas, whole suffix, kv_quant)", generation, params,
+        cfg32, device, serve, [qpairs[i % 2][i // 2] for i in range(4)])
+    out["k8q_launches_by_tq"] = {
+        width: cfg.num_layers * n
+        for width, n in d1["prefill_chunk_widths"].items()}
+    print(f"  K8q launches of the kv_quant prefix engine by prefill-chunk "
+          f"width: {out['k8q_launches_by_tq']}")
+    for name, n in launches.items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
     return out
 
 
 def run_tier_engine(device, card):
     """3t, bench.py's ``serving_prefix_tier``: 6 system prompts of 96
     tokens cycled through 2 slots and an 18-block pool, the host tier off
-    (0 blocks) and on (64), each head seeded once first; launches checked
-    against the engine's record.  Then in f32, tier on, one request at a
-    time: token-identical to ``generate()`` with the replayed hit,
-    swap-in and demotion counts."""
+    (0 blocks) and on (64), and on at ``pipeline_depth=2`` (its
+    whole-stream synchronisations printed), each head seeded once first;
+    launches checked against the engine's record.  Then in f32, tier on,
+    one request at a time: token-identical to ``generate()`` with the
+    replayed hit, swap-in and demotion counts; and the same with
+    ``kv_quant`` (int8 grid, pool and host payloads) on prompts tie-free
+    at 1e-2: token-identical to ``generate(kv_quant=True)``, K8q (never
+    K8) at Tq 1 and at the 32-token chunk width."""
     import torch
 
     from cloud_tpu_torch.models import generation
@@ -2600,18 +2680,20 @@ def run_tier_engine(device, card):
     prompts = _head_prompts(rng, heads, t["requests"], cycle=True,
                             vocab=cfg.vocab_size)
 
-    def serve_config(dram, new, warmup):
+    def serve_config(dram, new, warmup, **kw):
         return ServeConfig(
             max_new_tokens=new, prompt_buckets=(bucket,), num_slots=2,
             chunk_tokens=CHUNK, prefix_cache_blocks=t["hbm"],
             prefix_block_tokens=PREFIX_SERVE["block_tokens"],
             prefill_chunk_tokens=PREFIX_SERVE["pchunk"],
-            prefix_dram_blocks=dram, warmup=warmup)
+            prefix_dram_blocks=dram, warmup=warmup, **kw)
 
     out = {"launches": {}}
-    for arm, dram in (("off", 0), ("on", t["dram"])):
-        with ServingEngine(params, cfg, serve_config(dram, t["new"], True),
-                           device=device) as engine:
+    for arm, dram, depth in (("off", 0, 1), ("on", t["dram"], 1),
+                             ("on, depth 2", t["dram"], 2)):
+        with ServingEngine(params, cfg, serve_config(
+                dram, t["new"], True, pipeline_depth=depth),
+                device=device) as engine:
             engine.wait_ready()
             for head in heads:
                 engine.submit(np.concatenate([head, head[:1]]),
@@ -2632,6 +2714,8 @@ def run_tier_engine(device, card):
                "swapin_hits": d1["prefix_dram_hits"] - d0["prefix_dram_hits"],
                "demotions": (d1["prefix_dram_demotions"]
                              - d0["prefix_dram_demotions"]),
+               "stream_syncs": d1["stream_syncs"] - d0["stream_syncs"],
+               "deferred_saves": d1["prefix_deferred_saves"],
                "launches": launches}
         out[arm] = row
         for name, n in launches.items():
@@ -2640,7 +2724,9 @@ def run_tier_engine(device, card):
               f"requests; TTFT p50 {row['ttft_p50_s']:.4f} s p99 "
               f"{row['ttft_p99_s']:.4f} s; hit tokens {row['hit_tokens']}, "
               f"swap-in hits {row['swapin_hits']}, demotions "
-              f"{row['demotions']}; launches {launches} [{card}]")
+              f"{row['demotions']}, whole-stream syncs "
+              f"{row['stream_syncs']}, deferred saves "
+              f"{row['deferred_saves']}; launches {launches} [{card}]")
 
     cfg32 = cfg.scaled(dtype=torch.float32)
     params32 = generation.prepare_params(params, cfg32)
@@ -2653,6 +2739,26 @@ def run_tier_engine(device, card):
         serve_config(t["dram"], PARITY_BUDGET, False), picks)
     if not d1["prefix_dram_hits"]:
         raise AssertionError("the f32 tier run swapped nothing in")
+    for name, n in launches.items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+
+    # kv_quant: an int8 grid and an int8 pool with its host tier, one
+    # request at a time, on prompts tie-free at QUANT_TIE_GAP.
+    qpicks = _tie_free_quantized(generation, params32, cfg32, device,
+                                 candidates, 9, PARITY_BUDGET)
+    d1, launches = _prefix_parity(
+        "tier engine (on, kv_quant)", generation, params, cfg32, device,
+        serve_config(t["dram"], PARITY_BUDGET, False, kv_quant=True),
+        qpicks)
+    if not d1["prefix_dram_hits"] or not d1["prefill_chunks"]:
+        raise AssertionError(f"the kv_quant tier run swapped in "
+                             f"{d1['prefix_dram_hits']} hits over "
+                             f"{d1['prefill_chunks']} prefill chunks")
+    out["k8q_launches_by_tq"] = {
+        width: cfg.num_layers * n
+        for width, n in d1["prefill_chunk_widths"].items()}
+    print(f"  K8q launches of the kv_quant tier engine by prefill-chunk "
+          f"width: {out['k8q_launches_by_tq']}")
     for name, n in launches.items():
         out["launches"][name] = out["launches"].get(name, 0) + n
     return out
@@ -2891,20 +2997,8 @@ def run_spec_engine(device, card):
               f"token-identical (SMALL f32, {PARITY_BUDGET} tokens, top-2 "
               f"gap >= 1e-3, {rounds} rounds)")
 
-    qpicks = []
-    with torch.no_grad():
-        for prompt in candidates:
-            gaps, _ = _greedy_gaps(generation, params32, prompt,
-                                   PARITY_BUDGET, cfg32, device,
-                                   kv_quant=True)
-            if min(gaps) >= QUANT_TIE_GAP:
-                qpicks.append(prompt)
-            if len(qpicks) == 4:
-                break
-    if len(qpicks) < 4:
-        raise AssertionError(f"only {len(qpicks)} of {len(candidates)} "
-                             f"prompts are tie-free at {QUANT_TIE_GAP} under "
-                             f"quantization")
+    qpicks = _tie_free_quantized(generation, params32, cfg32, device,
+                                 candidates, 4, PARITY_BUDGET)
     draft = DraftConfig(config=dcfg32, params=dparams, spec_k=sp["k"])
     with ServingEngine(params, cfg32, serve_config(draft, PARITY_BUDGET,
                                                    kv_quant=True),
@@ -2921,19 +3015,471 @@ def run_spec_engine(device, card):
                     d1, draft_layers=sp["draft_layers"], spec_k=sp["k"],
                     quantized=True)
     tally(launches)
-    for prompt, res in zip(qpicks, served):
-        want = generation.generate(
-            params, torch.from_numpy(prompt)[None], [len(prompt)], cfg32,
-            max_new_tokens=PARITY_BUDGET, kv_quant=True,
-            device=device)["tokens"][0].cpu().numpy()
-        if not np.array_equal(want, res.tokens):
-            first = int(np.flatnonzero(want != res.tokens)[0])
-            raise AssertionError(f"spec engine (kv_quant) != generate("
-                                 f"kv_quant=True) for a {len(prompt)}-token "
-                                 f"prompt at token {first}")
+    _parity("spec engine (kv_quant)", generation, params, cfg32, device,
+            qpicks, served, PARITY_BUDGET, kv_quant=True)
     print(f"  spec engine (kv_quant, int8 grids) == generate(kv_quant=True):"
           f" 4/4 requests token-identical (SMALL f32, top-2 gap >= "
           f"{QUANT_TIE_GAP}); launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bench.py's serving_decode_kernel and serving_pipeline (phases 3k, 3w and
+# 3n) and QoS with streaming (phase 3o)
+# ---------------------------------------------------------------------------
+
+#: bench.py's churn probe (SERVE_CHURN_* and SERVE_* there): 24 requests of
+#: 8..128 prompt tokens with budgets 16..64, buckets (64, 128), 8 slots,
+#: chunk 8, in waves of 4 with 20 ms between.
+CHURN_SERVE = {"requests": 24, "bucket": 128, "new": 64, "wave": 4,
+               "pause": 0.02}
+#: Where phase 3n leaves the depth-2 arm's timeline (Chrome trace JSON).
+PIPELINE_TIMELINE = os.path.join("chiprun_out",
+                                 "serving_pipeline_timeline.json")
+#: Phase 3o's classes: an interactive tenant against a batch flood.
+QOS_SERVE = {"batch": 16, "interactive": 8}
+
+
+def _churn_workload(vocab, seed):
+    """bench.py's churn requests from ``default_rng(seed)``: lengths, then
+    budgets, then prompts.  Returns (rng, prompts, budgets)."""
+    c = CHURN_SERVE
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(8, c["bucket"] + 1, c["requests"])
+    budgets = [int(b) for b in rng.integers(c["new"] // 4, c["new"] + 1,
+                                            c["requests"])]
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+    return rng, prompts, budgets
+
+
+def _churn_config(**kw):
+    """The churn probe's engine configuration, fields of ``kw`` on top."""
+    from cloud_tpu_torch.serving import ServeConfig
+
+    c = CHURN_SERVE
+    return ServeConfig(**dict(dict(
+        max_new_tokens=c["new"], prompt_buckets=(c["bucket"] // 2,
+                                                 c["bucket"]),
+        num_slots=NUM_SLOTS, chunk_tokens=CHUNK), **kw))
+
+
+def _pct(values, q):
+    return float(np.percentile(values, q)) if len(values) else 0.0
+
+
+def _span_summary(events):
+    """Counts of the serving spans a run recorded, and the host bubble's
+    total milliseconds."""
+    names = [e["name"] for e in events]
+    return {"chunk": names.count("serve/chunk"),
+            "verify": names.count("serve/verify"),
+            "host_bubble": names.count("serve/host_bubble"),
+            "dispatch_gap": names.count("serve/dispatch_gap"),
+            "host_bubble_ms": sum(e["dur"] for e in events
+                                  if e["name"] == "serve/host_bubble") / 1e3}
+
+
+def _churn_arm(what, params, cfg, serve, prompts, budgets, device, *,
+               draft_layers=0, timeline=None):
+    """One churn arm: a warmed engine absorbs a first request, then serves
+    the workload in waves from launch counts of 0 under a span collector
+    (dumped to ``timeline`` if given); launches held to the engine's
+    record.  Returns (results, row)."""
+    import torch
+
+    from cloud_tpu_torch.monitoring import tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServingEngine
+
+    c = CHURN_SERVE
+    with ServingEngine(params, cfg, serve, device=device) as engine:
+        engine.wait_ready()
+        engine.submit(prompts[0]).result(timeout=300)
+        torch.cuda.synchronize()
+        d0 = engine.stats()
+        dispatch.reset_launch_counts()
+        with tracing.collecting() as collector:
+            results, wall = _run_measured(engine, prompts, budgets,
+                                          wave=c["wave"], pause=c["pause"])
+            if timeline is not None:
+                tracing.dump_timeline(timeline)
+        events = collector.events()
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    d1 = engine.stats()
+    _check_launches(what, launches, cfg.num_layers, d0, d1,
+                    draft_layers=draft_layers,
+                    spec_k=serve.draft.spec_k if serve.draft else 0,
+                    quantized=serve.kv_quant)
+    for res, budget in zip(results, budgets):
+        if (res.tokens.shape != (budget,) or res.tokens.min() < 0
+                or res.tokens.max() >= cfg.vocab_size):
+            raise AssertionError(f"{what}: bad result {res.tokens.shape} "
+                                 f"for budget {budget}")
+    tokens = sum(r.num_generated for r in results)
+    ttft = [r.ttft_seconds for r in results]
+    tpot = [(r.latency_seconds - r.ttft_seconds) / max(r.num_generated - 1, 1)
+            for r in results]
+    row = {"tokens_per_s": tokens / wall, "wall_s": wall,
+           "ttft_p50_s": _pct(ttft, 50), "ttft_p99_s": _pct(ttft, 99),
+           "tpot_p50_s": _pct(tpot, 50), "tpot_p99_s": _pct(tpot, 99),
+           "dispatch_gap_ms_p50": d1["dispatch_gap_ms_p50"],
+           "dispatch_gap_ms_p99": d1["dispatch_gap_ms_p99"],
+           "pipeline_depth": d1["pipeline_depth"],
+           "stream_syncs": d1["stream_syncs"] - d0["stream_syncs"],
+           "chunks": d1["chunks"] - d0["chunks"],
+           "spec_chunks": d1["spec_chunks"] - d0["spec_chunks"],
+           "spans": _span_summary(events), "launches": launches}
+    return results, row
+
+
+def _mismatches(a, b):
+    return sum(not np.array_equal(x.tokens, y.tokens)
+               or x.num_generated != y.num_generated for x, y in zip(a, b))
+
+
+def run_decode_kernel_engine(device, card):
+    """3k, bench.py's ``serving_decode_kernel``: the churn requests of
+    ``default_rng(6)`` through ``decode_kernel="xla"`` and ``"auto"``
+    (SMALL bf16, warmed): tokens equal between the arms, launches held to
+    each engine's record; tokens/s, TTFT and TPOT percentiles and
+    kernel/xla printed."""
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    _, prompts, budgets = _churn_workload(cfg.vocab_size, seed=6)
+    out = {"launches": {}}
+    runs = {}
+    for arm in ("xla", "auto"):
+        runs[arm], row = _churn_arm(
+            f"decode kernel ({arm})", params, cfg,
+            _churn_config(decode_kernel=arm, warmup=True), prompts, budgets,
+            device)
+        out[arm] = row
+        for name, n in row["launches"].items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        print(f"  decode_kernel={arm!r} SMALL bf16: {len(prompts)} requests,"
+              f" {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
+              f"{row['ttft_p50_s']:.4f} s p99 {row['ttft_p99_s']:.4f} s; "
+              f"TPOT p50 {row['tpot_p50_s'] * 1e3:.3f} ms p99 "
+              f"{row['tpot_p99_s'] * 1e3:.3f} ms; launches {row['launches']}"
+              f" [{card}]")
+    mismatches = _mismatches(runs["auto"], runs["xla"])
+    if mismatches:
+        raise AssertionError(f"decode kernel: {mismatches} requests differ "
+                             f"between the 'auto' and 'xla' arms")
+    out["kernel_vs_xla"] = (out["auto"]["tokens_per_s"]
+                            / out["xla"]["tokens_per_s"])
+    print(f"  'auto' / 'xla' tokens/s {out['kernel_vs_xla']:.3f}; tokens "
+          f"equal in all {len(prompts)} requests [{card}]")
+    return out
+
+
+#: The profiler range around the chunk interval phase 3w measures.
+CHUNK_WINDOW = "chip_smoke: one chunk interval"
+
+
+def _chunk_idle_share(engine, prompts):
+    """Device busy and idle share of one decode chunk of a full grid (8
+    requests of 64 tokens), after a lead chunk: the host wall between two
+    chunk drains, read without the profiler (its CPU tracing slows the
+    scheduler's enqueue), and the kernel time of the next chunk interval,
+    marked by a ``CHUNK_WINDOW`` range under torch.profiler and clipped to
+    it (no synchronisation inside, so the engine's pipeline keeps
+    running).  A session that recorded no kernel is run again on a fresh
+    grid of requests, ``PROFILE_SESSIONS`` in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def chunks():
+        # The counter itself: stats() computes percentiles, and polling it
+        # would take the interpreter lock from the scheduler.
+        return engine._stats["chunks"]
+
+    def wait_chunks(n, limit=120.0):
+        deadline = time.perf_counter() + limit
+        while chunks() < n:
+            if time.perf_counter() > deadline:
+                raise AssertionError("the engine ran no decode chunk")
+            time.sleep(1e-3)
+        return time.perf_counter()
+
+    for attempt in range(PROFILE_SESSIONS):
+        n0 = chunks()
+        futures = [engine.submit(p, max_new_tokens=CHURN_SERVE["new"])
+                   for p in prompts[:NUM_SLOTS]]
+        wait_chunks(n0 + 2)  # every slot filled, a lead chunk drained
+        start = wait_chunks(n0 + 3)
+        wall_ms = (wait_chunks(n0 + 4) - start) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wait_chunks(n0 + 5)
+            with torch.profiler.record_function(CHUNK_WINDOW):
+                wait_chunks(n0 + 6)
+        for future in futures:
+            future.result(timeout=600)
+        torch.cuda.synchronize()
+        try:
+            kernels = {key for _, _, key in _kernel_rows(prof)}
+        except AssertionError:  # a session that recorded no kernel
+            if attempt == PROFILE_SESSIONS - 1:
+                raise
+            time.sleep(1.0)
+            continue
+        events = prof.events()
+        window = next(e for e in events if e.name == CHUNK_WINDOW
+                      and e.device_type == DeviceType.CPU)
+        w0, w1 = window.time_range.start, window.time_range.end
+        busy_us = sum(max(0.0, min(e.time_range.end, w1)
+                          - max(e.time_range.start, w0))
+                      for e in events if e.device_type == DeviceType.CUDA
+                      and e.name in kernels - {CHUNK_WINDOW})
+        return {"chunk_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+                "profiled_window_ms": (w1 - w0) / 1e3,
+                "idle_share": 1 - busy_us / 1e3 / wall_ms}
+
+
+def run_pipeline_engine(device, card):
+    """3w, bench.py's ``serving_pipeline``: the churn requests of
+    ``default_rng(11)`` at ``pipeline_depth`` 1 and 2, plain, with phase
+    3s's 3-layer draft (spec_k 4) and with ``kv_quant`` (K8q), SMALL bf16,
+    warmed, each arm under a span collector: depth 2 token-identical to
+    depth 1 in every pair, launches held to each engine's record;
+    tokens/s, dispatch-gap p50/p99, the host bubble and the whole-stream
+    synchronisations printed, and a chunk's idle share at depth 1 and 2
+    (one profiled chunk after a lead chunk).  Then f32 at depth 2, four
+    requests at once: token-identical to ``generate()`` (top-2 gap
+    1e-3), with the f32 draft, and with ``kv_quant`` to
+    ``generate(kv_quant=True)`` (1e-2)."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import DraftConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    sp = SPEC_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    rng, prompts, budgets = _churn_workload(cfg.vocab_size, seed=11)
+    dcfg = cfg.scaled(num_layers=sp["draft_layers"])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    dparams = bridge.init(dcfg, gen, device=device)
+    arms = (("plain", {}, 0),
+            ("draft", {"draft": DraftConfig(config=dcfg, params=dparams,
+                                            spec_k=sp["k"])},
+             sp["draft_layers"]),
+            ("kv_quant", {"kv_quant": True}, 0))
+    out = {"launches": {}, "arms": {}}
+    for label, kw, draft_layers in arms:
+        runs = {}
+        for depth in (1, 2):
+            name = f"{label}, depth {depth}"
+            runs[depth], row = _churn_arm(
+                f"pipeline ({name})", params, cfg,
+                _churn_config(pipeline_depth=depth, warmup=True, **kw),
+                prompts, budgets, device, draft_layers=draft_layers,
+                timeline=(PIPELINE_TIMELINE if (label, depth) == ("plain", 2)
+                          else None))
+            out["arms"][name] = row
+            for kernel, n in row["launches"].items():
+                out["launches"][kernel] = out["launches"].get(kernel, 0) + n
+            print(f"  {name} SMALL bf16: {len(prompts)} requests, "
+                  f"{row['tokens_per_s']:.1f} tok/s; dispatch gap p50 "
+                  f"{row['dispatch_gap_ms_p50']:.3f} ms p99 "
+                  f"{row['dispatch_gap_ms_p99']:.3f} ms; host bubble "
+                  f"{row['spans']['host_bubble_ms']:.1f} ms over "
+                  f"{row['spans']['host_bubble']} drains; stream syncs "
+                  f"{row['stream_syncs']}; launches {row['launches']} "
+                  f"[{card}]")
+        mismatches = _mismatches(runs[2], runs[1])
+        if mismatches:
+            raise AssertionError(f"pipeline ({label}): {mismatches} requests"
+                                 f" differ between depth 1 and depth 2")
+        ratio = (out["arms"][f"{label}, depth 2"]["tokens_per_s"]
+                 / out["arms"][f"{label}, depth 1"]["tokens_per_s"])
+        out[f"{label}_depth2_vs_depth1"] = ratio
+        print(f"  {label}: depth 2 / depth 1 tokens/s {ratio:.3f}; tokens "
+              f"equal in all {len(prompts)} requests [{card}]")
+
+    out["idle_share"] = {}
+    for depth in (1, 2):
+        with ServingEngine(params, cfg, _churn_config(pipeline_depth=depth,
+                                                      warmup=True),
+                           device=device) as engine:
+            engine.wait_ready()
+            engine.submit(prompts[0]).result(timeout=300)
+            share = _chunk_idle_share(engine, prompts)
+        out["idle_share"][depth] = share
+        print(f"  depth {depth}: one decode chunk of 8 active slots, wall "
+              f"{share['chunk_wall_ms']:.3f} ms, device kernels "
+              f"{share['device_busy_ms']:.3f} ms (over a profiled chunk "
+              f"interval of {share['profiled_window_ms']:.3f} ms), idle "
+              f"share {share['idle_share']:.3f} [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    dcfg32 = dcfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    candidates = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                  for n in rng.integers(8, CHURN_SERVE["bucket"] + 1, 40)]
+    picks = _tie_free(generation, params32, cfg32, device, candidates, 4,
+                      PARITY_BUDGET)
+    qpicks = _tie_free_quantized(generation, params32, cfg32, device,
+                                 candidates, 4, PARITY_BUDGET)
+    for label, kw, draft_layers, chosen in (
+            ("plain", {}, 0, picks),
+            ("draft", {"draft": DraftConfig(config=dcfg32, params=dparams,
+                                            spec_k=sp["k"])},
+             sp["draft_layers"], picks),
+            ("kv_quant", {"kv_quant": True}, 0, qpicks)):
+        serve = _churn_config(pipeline_depth=2,
+                              max_new_tokens=PARITY_BUDGET, **kw)
+        with ServingEngine(params, cfg32, serve, device=device) as engine:
+            d0 = engine.stats()
+            dispatch.reset_launch_counts()
+            futures = [engine.submit(p) for p in chosen]
+            served = [f.result(timeout=600) for f in futures]
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        d1 = engine.stats()
+        _check_launches(f"pipeline f32 ({label}, depth 2)", launches,
+                        cfg.num_layers, d0, d1, draft_layers=draft_layers,
+                        spec_k=sp["k"] if draft_layers else 0,
+                        quantized=serve.kv_quant)
+        _parity(f"pipeline f32 ({label}, depth 2)", generation, params,
+                cfg32, device, chosen, served, PARITY_BUDGET,
+                kv_quant=serve.kv_quant)
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        print(f"  depth 2 ({label}) == generate(kv_quant={serve.kv_quant}): "
+              f"4/4 requests token-identical (SMALL f32, {PARITY_BUDGET} "
+              f"tokens, top-2 gap >= "
+              f"{QUANT_TIE_GAP if serve.kv_quant else 1e-3}); launches "
+              f"{launches}")
+    return out
+
+
+def check_pipeline_tracing(pipeline, card):
+    """3n, the spans of phase 3w's arms (each run under
+    ``tracing.collecting()``): ``serve/chunk`` (or ``serve/verify``) spans
+    as many as the engine's own count of chunks (rounds);
+    ``serve/host_bubble`` and ``serve/dispatch_gap`` at depth 2 only; the
+    plain depth-2 arm's timeline left at ``PIPELINE_TIMELINE``."""
+    out = {}
+    for name, row in pipeline["arms"].items():
+        spans, depth = row["spans"], row["pipeline_depth"]
+        if spans["chunk"] != row["chunks"] or \
+                spans["verify"] != row["spec_chunks"]:
+            raise AssertionError(f"{name}: {spans['chunk']} serve/chunk and "
+                                 f"{spans['verify']} serve/verify spans for "
+                                 f"{row['chunks']} chunks and "
+                                 f"{row['spec_chunks']} rounds")
+        if (spans["host_bubble"] > 0) != (depth == 2) or \
+                (spans["dispatch_gap"] > 0) != (depth == 2):
+            raise AssertionError(f"{name}: {spans['host_bubble']} host "
+                                 f"bubble and {spans['dispatch_gap']} "
+                                 f"dispatch-gap spans at depth {depth}")
+        out[name] = spans
+    if not os.path.getsize(PIPELINE_TIMELINE):
+        raise AssertionError(f"{PIPELINE_TIMELINE} is empty")
+    with open(PIPELINE_TIMELINE, encoding="utf-8") as f:
+        doc = json.load(f)
+    chunks = sum(e.get("name") == "serve/chunk" for e in doc["traceEvents"])
+    if chunks != pipeline["arms"]["plain, depth 2"]["chunks"]:
+        raise AssertionError(f"the dumped timeline holds {chunks} chunk "
+                             f"spans")
+    print(f"  spans per arm {out}; timeline of the plain depth-2 arm at "
+          f"{PIPELINE_TIMELINE} ({len(doc['traceEvents'])} events) [{card}]")
+    return out
+
+
+def run_qos_engine(device, card):
+    """3o, QoS and streaming: SMALL bf16 with ``QosConfig`` (interactive
+    weight 8, SLO 0.25 s; batch weight 1, SLO 30 s), a burst of 16 batch
+    then 8 interactive requests (churn lengths and budgets), each
+    ``stream=True`` with an ``on_token`` hook: every stream's tokens and
+    every hook's calls equal the result's row, launches held to the
+    engine's record, per-class TTFT printed (never asserted).  Then in
+    f32, four requests of both classes streamed: token-identical to
+    ``generate()`` (top-2 gap 1e-3)."""
+    import torch
+
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import (
+        PriorityClass,
+        QosConfig,
+        ServingEngine,
+    )
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    rng, prompts, budgets = _churn_workload(cfg.vocab_size, seed=12)
+    qos = QosConfig(classes={"interactive": PriorityClass(weight=8.0,
+                                                          slo_s=0.25),
+                             "batch": PriorityClass(weight=1.0, slo_s=30.0)},
+                    default_priority="batch")
+    classes = (["batch"] * QOS_SERVE["batch"]
+               + ["interactive"] * QOS_SERVE["interactive"])
+
+    def burst(engine, chosen, chosen_budgets):
+        streams, hooks = [], []
+        for prompt, budget, name in zip(chosen, chosen_budgets, classes):
+            seen = []
+            hooks.append(seen)
+            streams.append(engine.submit(
+                prompt, max_new_tokens=budget, priority=name, stream=True,
+                on_token=lambda i, t, seen=seen: seen.append((i, t))))
+        results = [s.result(timeout=600) for s in streams]
+        for stream, seen, res in zip(streams, hooks, results):
+            row = res.tokens[:res.num_generated].tolist()
+            if list(stream) != row or seen != list(enumerate(row)):
+                raise AssertionError("a stream or on_token hook differs "
+                                     "from its result's row")
+        return results
+
+    with ServingEngine(params, cfg, _churn_config(qos=qos, warmup=True),
+                       device=device) as engine:
+        engine.wait_ready()
+        engine.submit(prompts[0]).result(timeout=300)
+        torch.cuda.synchronize()
+        d0 = engine.stats()
+        dispatch.reset_launch_counts()
+        start = time.perf_counter()
+        results = burst(engine, prompts, budgets)
+        wall = time.perf_counter() - start
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    d1 = engine.stats()
+    _check_launches("qos engine", launches, cfg.num_layers, d0, d1)
+    ttft = {name: _pct([r.ttft_seconds for r, c in zip(results, classes)
+                        if c == name], 50) for name in ("interactive",
+                                                        "batch")}
+    tokens = sum(r.num_generated for r in results)
+    out = {"tokens_per_s": tokens / wall, "ttft_p50_s": ttft,
+           "class_completed": d1["class_completed"], "launches": launches}
+    print(f"  QoS SMALL bf16: {len(results)} streamed requests ("
+          f"{QOS_SERVE['batch']} batch first, then {QOS_SERVE['interactive']}"
+          f" interactive), {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tok/s; TTFT p50 interactive "
+          f"{ttft['interactive']:.4f} s, batch {ttft['batch']:.4f} s "
+          f"(printed only); streams and hooks equal the results; launches "
+          f"{launches} [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    candidates = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                  for n in rng.integers(8, CHURN_SERVE["bucket"] + 1, 40)]
+    picks = _tie_free(generation, params32, cfg32, device, candidates, 4,
+                      PARITY_BUDGET)
+    serve32 = _churn_config(qos=qos, max_new_tokens=PARITY_BUDGET)
+    classes = ["batch", "interactive", "batch", "interactive"]
+    with ServingEngine(params, cfg32, serve32, device=device) as engine:
+        served = burst(engine, picks, [PARITY_BUDGET] * 4)
+    _parity("qos engine", generation, params, cfg32, device, picks, served,
+            PARITY_BUDGET)
+    print(f"  QoS engine == generate(): 4/4 streamed requests "
+          f"token-identical (SMALL f32, {PARITY_BUDGET} tokens, top-2 gap "
+          f">= 1e-3)")
     return out
 
 
@@ -3319,6 +3865,18 @@ def main() -> int:
         ("phase 3s: speculative decoding (no draft, a 3-layer draft, the "
          "target as its own draft), bench.py's serving_spec config",
          "spec engine", lambda: run_spec_engine(device, card), True),
+        ("phase 3k: decode_kernel 'xla' against 'auto', bench.py's "
+         "serving_decode_kernel config", "decode kernel engine",
+         lambda: run_decode_kernel_engine(device, card), True),
+        ("phase 3w: pipeline_depth 1 against 2 (plain, with a 3-layer "
+         "draft, with kv_quant), bench.py's serving_pipeline config",
+         "pipeline engine", lambda: run_pipeline_engine(device, card), True),
+        ("phase 3n: the serving spans of phase 3w's arms against their "
+         "engines' counts", "pipeline tracing",
+         lambda: check_pipeline_tracing(results["pipeline engine"], card),
+         True),
+        ("phase 3o: QoS classes with streaming and on_token hooks",
+         "qos engine", lambda: run_qos_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -3424,7 +3982,10 @@ def main() -> int:
                "batch engine": results["batch engine"],
                "prefix engine": results["prefix engine"],
                "tier engine": results["tier engine"],
-               "spec engine": results["spec engine"]}
+               "spec engine": results["spec engine"],
+               "decode kernel engine": results["decode kernel engine"],
+               "pipeline engine": results["pipeline engine"],
+               "qos engine": results["qos engine"]}
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -3471,6 +4032,10 @@ def main() -> int:
         "engine_prefix_tier": results["tier engine"],
         "engine_spec": {k: v for k, v in results["spec engine"].items()
                         if k != "launches"},
+        "engine_decode_kernel": results["decode kernel engine"],
+        "engine_pipeline": results["pipeline engine"],
+        "pipeline_spans": results["pipeline tracing"],
+        "engine_qos": results["qos engine"],
         "decode_quant_ab": results["decode A/B"],
         "beam_search_int8_kv_quant": results["beam search"],
         "resnet50_cifar_b256": {k: v for k, v in cifar.items()

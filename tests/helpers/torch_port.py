@@ -30,6 +30,10 @@ from cloud_tpu_torch.models import bert, resnet, transformer
 #: Smallest top-2 logit gap along a greedy path for it to count as
 #: tie-free: below it, f32 summation order alone could flip an argmax.
 TIE_GAP = 1e-3
+#: The same under an int8 KV cache: an ulp between two products of the
+#: same row can flip one int8 rounding of the cache, which moves logits by
+#: far more than 1e-3.
+QUANT_TIE_GAP = 1e-2
 
 
 def port_config(jax_cfg, dtype=torch.float32):
@@ -75,12 +79,12 @@ def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
     return float(gaps.min()), tokens
 
 
-def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
-                             max_new_tokens):
-    """The smallest top-2 logit gap at every greedy step of JAX
+def quantized_greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
+    """Each row's smallest top-2 logit gap at every greedy step of JAX
     ``generate(..., kv_quant=True)``, read off its own decode path (the
     int8 cache changes the logits, so a full forward pass cannot re-score
-    it): its ``_prefill`` and ``_decode_step``, step by step."""
+    it): its ``_prefill`` and ``_decode_step``, step by step; and the
+    tokens."""
     from cloud_tpu.parallel.sharding import DEFAULT_RULES
 
     cache, logits = jax_gen._prefill(
@@ -98,7 +102,39 @@ def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
             cache, logits = jax_gen._decode_step(
                 params, cache, token, cur_len, jax_cfg, DEFAULT_RULES, None)
             cur_len = cur_len + 1
-    return float(np.min(gaps)), np.stack(tokens, axis=1)
+    return np.min(np.stack(gaps, axis=1), axis=1), np.stack(tokens, axis=1)
+
+
+def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
+                             max_new_tokens):
+    """The smallest top-2 logit gap at every greedy step of JAX
+    ``generate(..., kv_quant=True)`` on these prompts, and the tokens."""
+    gaps, tokens = quantized_greedy_gaps(jax_cfg, params, prompts, lens,
+                                         max_new_tokens)
+    return float(gaps.min()), tokens
+
+
+def tie_free_rows(jax_cfg, params, lens, max_new_tokens, *, seed,
+                  kv_quant=False, per_len=8, low=1):
+    """One seeded random prompt of each length in ``lens`` whose JAX
+    greedy path (with an int8 KV cache for ``kv_quant``, at
+    :data:`QUANT_TIE_GAP`) is tie-free: a list of 1-D int32 prompts."""
+    gap_fn = quantized_greedy_gaps if kv_quant else greedy_gaps
+    limit = QUANT_TIE_GAP if kv_quant else TIE_GAP
+    rng = np.random.default_rng(seed)
+    want = sorted(set(int(n) for n in lens))
+    cand_lens = np.repeat(np.asarray(want, np.int32), per_len)
+    cands = rng.integers(low, jax_cfg.vocab_size,
+                         (len(cand_lens), max(want))).astype(np.int32)
+    gaps, _ = gap_fn(jax_cfg, params, cands, cand_lens, max_new_tokens)
+    pools = {n: [cands[i, :n] for i in range(len(cand_lens))
+                 if cand_lens[i] == n and gaps[i] > limit] for n in want}
+    out = []
+    for n in lens:
+        if not pools[int(n)]:
+            raise AssertionError(f"no tie-free prompt of length {n}")
+        out.append(pools[int(n)].pop(0))
+    return out
 
 
 def tie_free_prompts(jax_cfg, params, *, batch, max_len, max_new_tokens,

@@ -2,7 +2,9 @@
 
 Every module of ``cloud_tpu_torch`` imports with JAX blocked; no module of
 the port, nor ``chip_smoke.py``, ``flash_ab.py`` or ``gn_ab.py``, imports
-``jax`` or the JAX package; and an entry point called without
+``jax`` or the JAX package; the port's copies of framework-free reference
+modules (``monitoring``, ``serving/qos.py``, ``serving/prefix_cache.py``,
+``utils/faults.py``) import only the standard library; and an entry point called without
 ``device="cpu"`` on a host with no card raises instead of quietly running
 on the CPU.
 """
@@ -71,6 +73,23 @@ def test_no_jax_or_reference_imports(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "cloud_tpu"), (
             f"{path.name} imports {name}")
+
+
+#: The port's copies of reference modules that import only the standard
+#: library (and each other): so must the copies.
+STDLIB_COPIES = ("monitoring/__init__.py", "monitoring/metrics.py",
+                 "monitoring/tracing.py", "serving/qos.py",
+                 "serving/prefix_cache.py", "utils/faults.py")
+
+
+@pytest.mark.parametrize("rel", STDLIB_COPIES)
+def test_reference_copies_import_only_the_standard_library(rel):
+    path = PORT / rel
+    for name in _imported_names(path):
+        root = name.split(".")[0]
+        assert (root in sys.stdlib_module_names or root == "__future__"
+                or name.startswith("cloud_tpu_torch.monitoring")), (
+            f"{rel} imports {name}")
 
 
 def test_entry_points_refuse_missing_cuda():

@@ -14,6 +14,12 @@ that never imports JAX): every request is token-identical to JAX
 ``generate``, and the hit, swap-in, demotion and eviction counts equal
 the JAX engine's on the same sequence.
 
+With ``kv_quant`` (int8 grid and pool, scales included): the reference's
+two-tier churn (staggered, three heads through a 3-block pool and a 3-block
+host tier, with demotions and host-tier evictions) and chunked prefill on
+both routes, token-identical to JAX ``generate(kv_quant=True)`` on prompts
+tie-free at 1e-2.
+
 Under the engine, the port's programs (the pool's save, copy, block
 downloads and uploads; chunked prefill cold and through an attached hit;
 finalize; the batch prefill and decode) are held to the JAX package's on
@@ -35,9 +41,11 @@ from cloud_tpu.serving import ServingEngine as JaxServingEngine
 from cloud_tpu.serving import prefix_cache as jax_prefix
 from cloud_tpu_torch.serving import prefix_cache as port_prefix
 from helpers.torch_port import (
+    QUANT_TIE_GAP,
     TIE_GAP,
     greedy_gaps,
     model_inputs,
+    quantized_greedy_gaps,
     run_port_side,
     tiny_models,
 )
@@ -428,3 +436,122 @@ def test_programs_match_jax(program_runs, name):
     assert got[name].shape == want[name].shape
     np.testing.assert_allclose(got[name], want[name],
                                atol=PROGRAM_OUTPUTS[name], rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# kv_quant through the prefix cache, its host tier and chunked prefill.
+
+#: The reference's two-tier churn (``test_tier_churn_parity_with_kv_quant``,
+#: ``tests/unit/test_serving_prefix.py``): three 9-token heads (two blocks
+#: each) through a 3-block pool and a 3-block host tier, int8 grids.
+QUANT_TIER_SERVE = dict(max_new_tokens=4, prompt_buckets=(16,),
+                        batch_buckets=(1, 2), num_slots=2, chunk_tokens=2,
+                        prefix_cache_blocks=3, prefix_block_tokens=4,
+                        prefix_dram_blocks=3, kv_quant=True)
+#: Chunked prefill over an int8 grid, on both routes, requests in turn.
+QUANT_CHUNK_SERVE = dict(max_new_tokens=4, prompt_buckets=(16,),
+                         num_slots=2, chunk_tokens=2, prefix_cache_blocks=6,
+                         prefix_block_tokens=4, prefill_chunk_tokens=4,
+                         kv_quant=True)
+
+_QUANT_PORT_SIDE = """
+import time
+from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+
+cfg, params = port_model()
+prompts = [IN["prompts"][i, :n] for i, n in enumerate(IN["lens"])]
+budgets = [int(b) for b in IN["budgets"]]
+for run in json.loads(str(IN["runs"])):
+    engine = ServingEngine(params, cfg, ServeConfig(**run["serve"]),
+                           device="cpu")
+    assert engine._grid_cache["k"].dtype == torch.int8
+    assert engine._prefix_pool["k_scale"].dtype == torch.float32
+    if run["staggered"]:
+        futures = []
+        for i, p in enumerate(prompts):
+            futures.append(engine.submit(p, max_new_tokens=budgets[i]))
+            if i in (2, 5):
+                time.sleep(0.05)
+        results = [f.result(timeout=300) for f in futures]
+    else:
+        results = [engine.submit(p, max_new_tokens=b).result(timeout=300)
+                   for p, b in zip(prompts, budgets)]
+    engine.close()
+    stats = engine.stats()
+    OUT[run["label"] + ".tokens"] = np.stack(
+        [np.pad(r.tokens, (0, 4 - len(r.tokens))) for r in results])
+    OUT[run["label"] + ".stats"] = np.array([
+        stats[k] for k in ("prefix_dram_demotions", "prefix_dram_evictions",
+                           "prefix_hits", "prefill_chunks", "completed",
+                           "prefix_attaches")])
+"""
+
+
+def _quant_tier_prompts(jax_cfg, params):
+    """The reference's prompts (seed 33: heads, then a 2..5-token tail per
+    prompt, then budgets of 2..4), a tail drawn again from the same
+    stream where the int8 greedy path is not tie-free at
+    ``QUANT_TIE_GAP``."""
+    rng = np.random.default_rng(33)
+    heads = [rng.integers(1, 255, 9).astype(np.int32) for _ in range(3)]
+
+    def tail():
+        return rng.integers(1, 255, int(rng.integers(2, 6))).astype(np.int32)
+
+    prompts = [np.concatenate([heads[i % 3], tail()]) for i in range(9)]
+    budgets = [int(rng.integers(2, 5)) for _ in prompts]
+    for _ in range(30):
+        batch = np.zeros((9, 14), np.int32)
+        for i, p in enumerate(prompts):
+            batch[i, :len(p)] = p
+        lens = np.array([len(p) for p in prompts], np.int32)
+        gaps, tokens = quantized_greedy_gaps(jax_cfg, params, batch, lens, 4)
+        bad = [i for i in range(9) if gaps[i] <= QUANT_TIE_GAP]
+        if not bad:
+            return batch, lens, np.array(budgets), tokens
+        for i in bad:
+            prompts[i] = np.concatenate([heads[i % 3], tail()])
+    raise AssertionError("no tie-free int8 prompt set")
+
+
+@pytest.fixture(scope="module")
+def quant_runs(tmp_path_factory):
+    jax_cfg, params, _, _ = tiny_models(seed=0, num_layers=2)
+    batch, lens, budgets, tokens = _quant_tier_prompts(jax_cfg, params)
+    # Generate's own rows (the oracle), beside the tie check's path.
+    out = jax_gen.generate(params, jnp.asarray(batch), jnp.asarray(lens),
+                           jax_cfg, max_new_tokens=4, kv_quant=True)
+    np.testing.assert_array_equal(np.asarray(out["tokens"]), tokens)
+    runs = [{"label": "tier", "serve": QUANT_TIER_SERVE, "staggered": True}]
+    runs += [{"label": f"chunks-{route}", "staggered": False,
+              "serve": dict(QUANT_CHUNK_SERVE, decode_kernel=route)}
+             for route in ("xla", "pallas")]
+    inputs = dict(model_inputs(jax_cfg, params), prompts=batch, lens=lens,
+                  budgets=budgets, runs=np.asarray(json.dumps(runs)))
+    got = run_port_side(_QUANT_PORT_SIDE, inputs,
+                        tmp_path_factory.mktemp("quant_prefix"))
+    want = np.where(np.arange(4)[None] < budgets[:, None], tokens, 0)
+    return want, got
+
+
+def test_tier_churn_parity_with_kv_quant(quant_runs):
+    """Staggered churn through the two int8 tiers: every request equals
+    JAX ``generate(kv_quant=True)``; blocks were demoted to the host tier
+    and evicted from it."""
+    want, got = quant_runs
+    np.testing.assert_array_equal(got["tier.tokens"], want)
+    demotions, dram_evictions, _, _, completed, _ = got["tier.stats"]
+    assert demotions > 0 and dram_evictions > 0
+    assert completed == len(want)
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+def test_chunked_prefill_with_kv_quant(quant_runs, route):
+    """4-token prefill chunks over an int8 grid and pool, prefix hits
+    copied (``xla``) or attached (``pallas``), one request at a time:
+    every request equals JAX ``generate(kv_quant=True)``."""
+    want, got = quant_runs
+    np.testing.assert_array_equal(got[f"chunks-{route}.tokens"], want)
+    _, _, hits, chunks, completed, attaches = got[f"chunks-{route}.stats"]
+    assert hits >= 3 and chunks >= len(want) and completed == len(want)
+    assert attaches == (hits if route == "pallas" else 0)

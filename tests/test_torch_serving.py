@@ -6,8 +6,10 @@ same weights (TINY, f32, tie-free prompts).  Around that: eos retirement
 with an eos id that cannot collide with an earlier greedy token, typed
 admission errors, a clean close, one served request for each option the
 port took over from a refusal (the batch scheduler, the prefix cache and
-its host tier, chunked prefill, a speculative draft), and ``NotImplementedError`` for every
-``ServeConfig`` feature the port does not have yet.  ``kv_quant`` with
+its host tier, chunked prefill, a speculative draft, QoS, pipelined
+scheduling, the dispatch watchdog, streaming and request tracing), and
+``NotImplementedError`` for every ``ServeConfig`` feature the port does not
+have yet.  ``kv_quant`` with
 int8 weights is held against the quantized JAX ``generate``.  The engine's
 surface (``ServeConfig`` fields, constructor and ``submit`` keywords,
 public methods) includes the JAX engine's, ``DraftConfig`` has the
@@ -29,14 +31,17 @@ from cloud_tpu.serving import DraftConfig as JaxDraftConfig
 from cloud_tpu.serving import ServeConfig as JaxServeConfig
 from cloud_tpu.serving import ServingEngine as JaxServingEngine
 from cloud_tpu_torch.models import generation, transformer
+from cloud_tpu_torch.monitoring import tracing
 from cloud_tpu_torch.serving import (
     SERVE_SCHEDULER_THREAD_NAME,
     DeadlineExceededError,
     DraftConfig,
     EngineClosedError,
+    QosConfig,
     QueueFullError,
     ServeConfig,
     ServingEngine,
+    TokenStream,
 )
 from helpers.torch_port import tie_free_prompts, tiny_models
 
@@ -191,6 +196,8 @@ SERVED_OPTIONS = {
     "prefix_cache_blocks-prefix_dram_blocks": "prefix_misses",
     "prefill_chunk_tokens": "prefill_chunks",
     "draft": "spec_chunks",
+    "qos": "completed",
+    "pipeline_depth": "chunks",
 }
 
 
@@ -201,7 +208,8 @@ SERVED_OPTIONS = {
     dict(prefill_chunk_tokens=4),
     # Stands for a DraftConfig of the model itself (built in the test).
     dict(draft="self"),
-    dict(qos=object()),
+    # Stands for the default QosConfig (built in the test).
+    dict(qos="default"),
     dict(mesh_shape=(2, 1)),
     dict(layout="auto"),
     dict(pipeline_depth=2),
@@ -220,6 +228,8 @@ def test_out_of_slice_options_raise(kw, models, prompts):
     toks, lens, jax_tokens = prompts
     if kw.get("draft") == "self":
         kw = dict(draft=DraftConfig(config=cfg, params=tparams, spec_k=3))
+    if kw.get("qos") == "default":
+        kw = dict(qos=QosConfig())
     with _engine(tparams, cfg, **kw) as engine:
         res = engine.submit(toks[1, :lens[1]]).result(timeout=120)
     np.testing.assert_array_equal(res.tokens, jax_tokens[1])
@@ -382,39 +392,108 @@ def test_warmup_then_wait_ready_changes_no_token(models, prompts):
     assert not _scheduler_threads()
 
 
-#: Each value of the JAX engine's surface whose feature the port lacks,
-#: with the ROADMAP.md item its NotImplementedError names (None: ported
-#: since, and the call builds an engine that serves one request).
+def _serve_batch(e):
+    """The batch scheduler serves with its flush deadline."""
+    with ServingEngine(e.params, e.config, ServeConfig(
+            scheduler="batch", flush_deadline_s=0.5, max_new_tokens=2,
+            prompt_buckets=(8,)), device="cpu") as served:
+        res = served.submit([1, 2, 3]).result(timeout=120)
+    assert res.num_generated == 2 and served.stats()["batches"] == 1
+
+
+def _serve_watched(e):
+    """A watched engine serves inside its budget and stays healthy."""
+    with ServingEngine(e.params, e.config, ServeConfig(
+            dispatch_timeout_s=60.0, max_new_tokens=2, prompt_buckets=(8,)),
+            device="cpu") as served:
+        res = served.submit([1, 2, 3]).result(timeout=120)
+    assert res.num_generated == 2 and served.health()["healthy"]
+    assert served.stats()["watchdog_timeouts"] == 0
+
+
+def _submitted(e, **kw):
+    """One request through the engine (started here) with ``kw``."""
+    e.start()
+    out = e.submit([1, 2, 3], **kw)
+    return out, out.result(timeout=120)
+
+
+def _priority(e):
+    _, res = _submitted(e, priority="high")  # inert without qos
+    assert res.num_generated == 2
+    assert set(e.stats()["class_completed"].values()) == {0}
+
+
+def _stream(e):
+    stream, res = _submitted(e, stream=True)
+    assert isinstance(stream, TokenStream)
+    assert list(stream) == res.tokens.tolist()
+
+
+def _on_token(e):
+    seen = []
+    _, res = _submitted(e, on_token=lambda i, t: seen.append((i, t)))
+    assert seen == list(enumerate(res.tokens.tolist()))
+
+
+def _trace(e):
+    _, res = _submitted(e, trace=tracing.TraceContext("t-1"))
+    assert res.trace_id == "t-1" and e.stats()["traced"] == 1
+
+
+def _trace_lane(e):
+    lane = tracing.register_lane("engine under test")
+    e.set_trace_lane(lane)
+    with tracing.collecting() as collector:
+        _submitted(e)
+    pids = {ev["pid"] for ev in collector.events()
+            if ev["name"] == "serve/chunk"}
+    assert pids == {lane}
+
+
+def _chunk_traces(e):
+    _submitted(e)
+    _submitted(e, max_new_tokens=1)
+    assert e.chunk_traces == 1 and e.verify_traces == 0
+
+
+def _verify_traces(e):
+    with ServingEngine(e.params, e.config, ServeConfig(
+            max_new_tokens=4, prompt_buckets=(8,), draft=DraftConfig(
+                config=e.config, params=e.params, spec_k=2)),
+            device="cpu") as served:
+        served.submit([1, 2, 3]).result(timeout=120)
+        served.submit([4, 5]).result(timeout=120)
+    assert served.verify_traces == 1 and served.chunk_traces == 0
+
+
+#: Each value of the JAX engine's surface, with the ROADMAP.md item its
+#: NotImplementedError names while the port lacks the feature, or None and
+#: a check that the ported feature works.
 UNPORTED = {
-    "ServeConfig-dispatch_timeout_s": (
-        "4f", lambda e: ServeConfig(dispatch_timeout_s=1.0)),
+    "ServeConfig-dispatch_timeout_s": (None, _serve_watched),
     "ServeConfig-hbm_bytes_per_chip": (
         "6", lambda e: ServeConfig(hbm_bytes_per_chip=2**30)),
     "ServeConfig-prefix_summary_ttl_s": (
         "4a/5", lambda e: ServeConfig(prefix_summary_ttl_s=60.0)),
-    # Ported: the batch scheduler serves with its flush deadline.
-    "ServeConfig-flush_deadline_s-batch": (
-        None, lambda e: ServingEngine(
-            e.params, e.config, ServeConfig(
-                scheduler="batch", flush_deadline_s=0.5, max_new_tokens=2,
-                prompt_buckets=(8,)), device="cpu")),
+    "ServeConfig-flush_deadline_s-batch": (None, _serve_batch),
     "engine-mesh": ("6", lambda e: ServingEngine(
         e.params, e.config, e.serve_config, mesh=object(), device="cpu",
         start=False)),
     "engine-rules": ("6", lambda e: ServingEngine(
         e.params, e.config, e.serve_config, rules=object(), device="cpu",
         start=False)),
-    "submit-priority": ("4e", lambda e: e.submit([1, 2], priority="high")),
-    "submit-stream": ("4e", lambda e: e.submit([1, 2], stream=True)),
-    "submit-on_token": ("4e", lambda e: e.submit([1, 2], on_token=print)),
-    "submit-trace": ("4e", lambda e: e.submit([1, 2], trace=object())),
+    "submit-priority": (None, _priority),
+    "submit-stream": (None, _stream),
+    "submit-on_token": (None, _on_token),
+    "submit-trace": (None, _trace),
     "submit-handoff_export": (
         "5", lambda e: e.submit([1, 2], handoff_export=True)),
     "submit-handoff": ("5", lambda e: e.submit([1, 2], handoff={})),
-    "set_trace_lane": ("4e", lambda e: e.set_trace_lane(3)),
+    "set_trace_lane": (None, _trace_lane),
     "set_role": ("5", lambda e: e.set_role("decode")),
-    "chunk_traces": ("4e", lambda e: e.chunk_traces),
-    "verify_traces": ("4e", lambda e: e.verify_traces),
+    "chunk_traces": (None, _chunk_traces),
+    "verify_traces": (None, _verify_traces),
 }
 
 
@@ -427,16 +506,14 @@ def test_unported_values_name_their_item(models, case):
                            device="cpu", start=False)
     try:
         if item is None:
-            with call(engine) as served:
-                res = served.submit([1, 2, 3]).result(timeout=120)
-            assert res.num_generated == 2 and served.stats()["batches"] == 1
+            call(engine)
         else:
             with pytest.raises(NotImplementedError,
                                match=f"section A, item {item}$"):
                 call(engine)
-        # The defaults are accepted and change nothing.
+            assert engine.stats()["requests"] == 0
+        # The defaults are accepted.
         engine.set_trace_lane(None)
         engine.set_role("both")
-        assert engine.stats()["requests"] == 0
     finally:
         engine.close()
