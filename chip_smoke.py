@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -101,6 +101,22 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    ``chiprun_out/serving_pipeline_timeline.json``), and QoS classes with
    streamed requests and ``on_token`` hooks (3o: streams and hooks equal
    the results, f32 against ``generate()``, per-class TTFT printed);
+   then the fleet (``cloud_tpu_torch.fleet``, replicas sharing the card,
+   each phase's launches held to its replicas' own records summed, and
+   no fleet or engine thread left after ``close()``): bench.py's
+   ``fleet`` (3f: the churn workload of ``default_rng(2)`` through 2
+   replicas with ``admission="reject"``; tokens/s, latency, failovers
+   and the TTFT decomposition's p99 shares printed; four f32 requests
+   one at a time equal to ``generate()``), ``fleet_qps_sweep`` (3v: open
+   loop at QPS 2, 4, 8 and 16, 12 requests of 32 tokens a point, QoS on
+   the engines and the fleet, classes alternating; every traced request
+   stitches its ``fleet/route`` and ``serve/request`` through the port's
+   ``TraceReport``) and ``fleet_disagg`` (3x: a 12-prompt flash crowd of
+   120 tokens with a 24-token shared head, colocated on 3 replicas, then
+   1 prefill / 2 decode with the KV handoff through the host pool; bf16
+   tokens equal across the arms, one handoff a request, none failed
+   over, the pool deduplicating; four f32 requests through the
+   disaggregated fleet one at a time equal to ``generate()``);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -3483,6 +3499,437 @@ def run_qos_engine(device, card):
     return out
 
 
+#: bench.py's fleet probes (FLEET_*, DISAGG_* there): ``fleet`` on the churn
+#: workload, ``fleet_qps_sweep``'s open-loop arrivals and
+#: ``fleet_disagg``'s flash crowd, colocated against 1 prefill / 2 decode.
+FLEET_SERVE = {"replicas": 2, "poll": 0.1}
+SWEEP_SERVE = {"qps": (2, 4, 8, 16), "requests": 12, "prompt": 32, "new": 16,
+               "slots": 2}
+DISAGG_SERVE = {"replicas": 3, "requests": 12, "prompt": 120, "bucket": 128,
+                "head": 24, "new": 16, "blocks": 96, "block_tokens": 8,
+                "pchunk": 32, "slots": 2}
+#: The serving-engine threads and the fleet's: none may outlive a fleet.
+FLEET_THREAD_PREFIXES = ("cloud-tpu-fleet", "cloud-tpu-torch-serve")
+
+
+def _engine_stats(fleet):
+    """Each replica's engine ``stats()``, by replica id (read while the
+    fleet is open: a closed or rebuilt engine's counters are gone)."""
+    return {r.id: r.engine.stats() for r in fleet.replicas()}
+
+
+def _summed(stats):
+    """The replicas' integer counters, summed."""
+    first = next(iter(stats.values()))
+    return {key: sum(s[key] for s in stats.values())
+            for key, value in first.items() if type(value) is int}
+
+
+def _check_fleet_launches(what, launches, layers_n, d0, d1):
+    """A fleet run's launches held to its replicas' own records: the
+    engines of the two snapshots must be the same (no restart), and the
+    launch formulas of ``_check_launches`` apply to the summed deltas."""
+    if sorted(d0) != sorted(d1):
+        raise AssertionError(f"{what}: replicas changed during the run "
+                             f"({sorted(d0)} -> {sorted(d1)})")
+    _check_launches(what, launches, layers_n, _summed(d0), _summed(d1))
+
+
+def _no_fleet_threads(what):
+    import threading
+
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(FLEET_THREAD_PREFIXES)]
+    if left:
+        raise AssertionError(f"{what}: threads outlived the fleet: {left}")
+
+
+def _check_tokens(what, results, budgets, vocab):
+    for res, budget in zip(results, budgets):
+        if (res.tokens.shape != (budget,) or res.tokens.min() < 0
+                or res.tokens.max() >= vocab):
+            raise AssertionError(f"{what}: bad result {res.tokens.shape} "
+                                 f"for budget {budget}")
+
+
+def _latency_row(results, wall):
+    ttft = [r.ttft_seconds for r in results]
+    tpot = [(r.latency_seconds - r.ttft_seconds) / max(r.num_generated - 1, 1)
+            for r in results]
+    latency = [r.latency_seconds for r in results]
+    tokens = sum(r.num_generated for r in results)
+    return {"tokens_per_s": tokens / wall, "wall_s": wall,
+            "latency_p50_s": _pct(latency, 50),
+            "latency_p99_s": _pct(latency, 99),
+            "ttft_p50_s": _pct(ttft, 50), "ttft_p99_s": _pct(ttft, 99),
+            "tpot_p50_s": _pct(tpot, 50), "tpot_p99_s": _pct(tpot, 99)}
+
+
+def _ttft_shares(what, events, results, *, gate):
+    """bench.py's ``_emit_ttft_decomposition``: the fleet TTFT's p99 share
+    of each component over this run's traced requests, read through the
+    port's ``TraceReport``.  With ``gate``, every traced request must
+    stitch a complete lifecycle with its ``fleet/route``."""
+    from cloud_tpu_torch.monitoring.report import TraceReport
+
+    trace_ids = {r.trace_id for r in results if r.trace_id}
+    if len(trace_ids) != len(results):
+        raise AssertionError(f"{what}: {len(results) - len(trace_ids)} "
+                             f"results carry no trace id")
+    report = TraceReport(events)
+    summary = report.request_summary() or {}
+    mine = {t: summary[t] for t in trace_ids if t in summary}
+    if gate:
+        incomplete = sorted(t for t in trace_ids
+                            if not mine.get(t, {}).get("complete")
+                            or not mine.get(t, {}).get("routes"))
+        if incomplete:
+            raise AssertionError(
+                f"{what}: {len(incomplete)}/{len(trace_ids)} traced requests "
+                f"did not stitch a complete lifecycle (first: "
+                f"{incomplete[0]})")
+    decomposition = report.ttft_decomposition(mine)
+    if not decomposition:
+        return {}
+    return {"shares_p99": {name: decomposition["shares"][name]["p99"]
+                          for name in TraceReport.TTFT_COMPONENTS},
+            "traced_ttft_p99_s": decomposition["ttft_p99_s"],
+            "requests": decomposition["requests"]}
+
+
+def _f32_fleet_parity(what, generation, params, cfg32, device, serve32,
+                      picks, budget, *, roles=None):
+    """``picks`` through a fleet of f32 engines, one request at a time:
+    token-identical to ``generate()``.  Returns the fleet's stats."""
+    from cloud_tpu_torch.fleet import Fleet, FleetConfig
+    from cloud_tpu_torch.serving import ServingEngine
+
+    n = len(roles) if roles else FLEET_SERVE["replicas"]
+    with Fleet(lambda: ServingEngine(params, cfg32, serve32, device=device),
+               FleetConfig(min_replicas=n, max_replicas=n,
+                           poll_interval_s=FLEET_SERVE["poll"],
+                           roles=roles)) as fleet:
+        served = [fleet.submit(p, max_new_tokens=budget).result(timeout=600)
+                  for p in picks]
+        stats = fleet.stats()
+    _no_fleet_threads(what)
+    _parity(what, generation, params, cfg32, device, picks, served, budget)
+    return stats
+
+
+def run_fleet(device, card):
+    """3f, bench.py's ``fleet``: the churn requests of ``default_rng(2)``
+    (24 requests of 8-128 tokens, budgets 16-64, waves of 4 with 0.02 s
+    pauses) through a 2-replica ``Fleet`` of SMALL bf16 engines (buckets
+    (64, 128), 8 slots, chunk 8, ``admission="reject"``, warmed), under a
+    span collector: tokens in the vocabulary, K5/K8 launches held to the
+    replicas' own records summed; tokens/s, latency p50/p99, failovers and
+    the TTFT decomposition's p99 shares printed.  Then four f32 tie-free
+    prompts through a 2-replica f32 fleet one at a time: token-identical
+    to ``generate()``."""
+    import torch
+
+    from cloud_tpu_torch.fleet import Fleet, FleetConfig
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.monitoring import tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    c = CHURN_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    rng, prompts, budgets = _churn_workload(cfg.vocab_size, seed=2)
+    serve = _churn_config(warmup=True, admission="reject",
+                          batch_buckets=(1, NUM_SLOTS))
+    n = FLEET_SERVE["replicas"]
+    with tracing.collecting() as collector:
+        with Fleet(lambda: ServingEngine(params, cfg, serve, device=device),
+                   FleetConfig(min_replicas=n, max_replicas=n,
+                               poll_interval_s=FLEET_SERVE["poll"])) as fleet:
+            fleet.wait_ready()
+            fleet.submit(prompts[0]).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = _engine_stats(fleet)
+            before = fleet.stats()
+            dispatch.reset_launch_counts()
+            results, wall = _run_measured(fleet, prompts, budgets,
+                                          wave=c["wave"], pause=c["pause"])
+            d1 = _engine_stats(fleet)
+            stats = fleet.stats()
+        events = collector.events()
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    _no_fleet_threads("fleet")
+    _check_fleet_launches("fleet", launches, cfg.num_layers, d0, d1)
+    _check_tokens("fleet", results, budgets, cfg.vocab_size)
+    out = _latency_row(results, wall)
+    routed = {rid: stats["routed"].get(rid, 0) - before["routed"].get(rid, 0)
+              for rid in d1}
+    out.update({"failovers": stats["failovers"], "routed": routed,
+                "restarts": stats["restarts"],
+                "stream_syncs": {rid: d1[rid]["stream_syncs"]
+                                 - d0[rid]["stream_syncs"] for rid in d1},
+                "ttft": _ttft_shares("fleet", events, results, gate=False),
+                "launches": launches})
+    shares = out["ttft"].get("shares_p99", {})
+    print(f"  fleet SMALL bf16, {n} replicas x {NUM_SLOTS} slots: "
+          f"{len(results)} requests, {out['tokens_per_s']:.1f} tok/s; "
+          f"latency p50 {out['latency_p50_s']:.4f} s p99 "
+          f"{out['latency_p99_s']:.4f} s; failovers {stats['failovers']}; "
+          f"routed {routed}; stream syncs {out['stream_syncs']}; TTFT p99 "
+          f"shares {', '.join(f'{k} {v:.3f}' for k, v in shares.items())}; "
+          f"launches {launches} [{card}]")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    candidates = [rng.integers(1, cfg.vocab_size, k).astype(np.int32)
+                  for k in rng.integers(8, c["bucket"] + 1, 40)]
+    picks = _tie_free(generation, params32, cfg32, device, candidates, 4,
+                      PARITY_BUDGET)
+    _f32_fleet_parity("fleet", generation, params, cfg32, device,
+                      _churn_config(max_new_tokens=PARITY_BUDGET,
+                                    admission="reject"),
+                      picks, PARITY_BUDGET)
+    print(f"  fleet == generate(): 4/4 requests one at a time "
+          f"token-identical (SMALL f32, {n} replicas, {PARITY_BUDGET} "
+          f"tokens, top-2 gap >= 1e-3)")
+    return out
+
+
+def run_fleet_qps_sweep(device, card):
+    """3v, bench.py's ``fleet_qps_sweep``: a 2-replica QoS ``Fleet`` of
+    SMALL bf16 engines (2 slots, bucket 32, 16 new tokens, chunk 8,
+    ``QosConfig()`` on the engines and the fleet, warmed); open-loop
+    arrivals of 12 requests of 32 tokens from ``default_rng(3)`` at QPS 2,
+    4, 8 and 16, classes alternating interactive and batch, under a span
+    collector: every traced request stitches one lifecycle with its
+    ``fleet/route`` and terminal ``serve/request`` (bench.py's completeness
+    gate, through the port's ``TraceReport``), launches held to the
+    replicas' records; tokens/s, TTFT and TPOT p50/p99 per point and TTFT
+    p99 per class printed."""
+    import torch
+
+    from cloud_tpu_torch.fleet import Fleet, FleetConfig
+    from cloud_tpu_torch.monitoring import tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import QosConfig, ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    s = SWEEP_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    serve = ServeConfig(max_new_tokens=s["new"], prompt_buckets=(s["prompt"],),
+                        batch_buckets=(1, s["slots"]), num_slots=s["slots"],
+                        chunk_tokens=CHUNK, warmup=True, qos=QosConfig())
+    rng = np.random.default_rng(3)
+    n = FLEET_SERVE["replicas"]
+    points = {}
+    sweep = []
+    with tracing.collecting() as collector:
+        with Fleet(lambda: ServingEngine(params, cfg, serve, device=device),
+                   FleetConfig(min_replicas=n, max_replicas=n,
+                               poll_interval_s=FLEET_SERVE["poll"],
+                               qos=QosConfig())) as fleet:
+            fleet.wait_ready()
+            fleet.submit(rng.integers(1, cfg.vocab_size, 4).astype(np.int32),
+                         max_new_tokens=2).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = _engine_stats(fleet)
+            dispatch.reset_launch_counts()
+            for qps in s["qps"]:
+                prompts = [rng.integers(1, cfg.vocab_size, s["prompt"])
+                           .astype(np.int32) for _ in range(s["requests"])]
+                classes = ["interactive" if i % 2 == 0 else "batch"
+                           for i in range(s["requests"])]
+                start = time.perf_counter()
+                futures = []
+                for i, prompt in enumerate(prompts):
+                    delay = start + i / qps - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                    futures.append(fleet.submit(
+                        prompt, max_new_tokens=s["new"], priority=classes[i]))
+                results = [f.result(timeout=600) for f in futures]
+                wall = time.perf_counter() - start
+                _check_tokens(f"fleet sweep q{qps}", results,
+                              [s["new"]] * len(results), cfg.vocab_size)
+                row = _latency_row(results, wall)
+                for name in ("interactive", "batch"):
+                    row[f"{name}_ttft_p99_s"] = _pct(
+                        [r.ttft_seconds for r, k in zip(results, classes)
+                         if k == name], 99)
+                points[qps] = row
+                sweep.extend(results)
+            d1 = _engine_stats(fleet)
+        events = collector.events()
+    launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+    _no_fleet_threads("fleet sweep")
+    _check_fleet_launches("fleet sweep", launches, cfg.num_layers, d0, d1)
+    ttft = _ttft_shares("fleet sweep", events, sweep, gate=True)
+    for qps, row in points.items():
+        print(f"  QPS {qps}: {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
+              f"{row['ttft_p50_s']:.4f} s p99 {row['ttft_p99_s']:.4f} s "
+              f"(interactive {row['interactive_ttft_p99_s']:.4f}, batch "
+              f"{row['batch_ttft_p99_s']:.4f}); TPOT p50 "
+              f"{row['tpot_p50_s'] * 1e3:.3f} ms p99 "
+              f"{row['tpot_p99_s'] * 1e3:.3f} ms [{card}]")
+    print(f"  {len(sweep)}/{len(sweep)} traced requests stitched with their "
+          f"fleet/route and serve/request; TTFT p99 shares "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in ttft['shares_p99'].items())}"
+          f"; launches {launches} [{card}]")
+    return {"points": points, "ttft": ttft, "launches": launches}
+
+
+def _disagg_prompts(rng, vocab, n=DISAGG_SERVE["requests"]):
+    """bench.py's flash crowd: ``n`` prompts of ``prompt`` tokens sharing
+    a ``head``-token head."""
+    d = DISAGG_SERVE
+    head = rng.integers(1, vocab, d["head"])
+    return [np.concatenate([head, rng.integers(1, vocab, d["prompt"]
+                                               - d["head"])]).astype(np.int32)
+            for _ in range(n)]
+
+
+def _disagg_config(**kw):
+    from cloud_tpu_torch.serving import ServeConfig
+
+    d = DISAGG_SERVE
+    return ServeConfig(**dict(dict(
+        max_new_tokens=d["new"], prompt_buckets=(d["bucket"],),
+        batch_buckets=(1, d["slots"]), num_slots=d["slots"],
+        chunk_tokens=CHUNK, prefix_cache_blocks=d["blocks"],
+        prefix_block_tokens=d["block_tokens"],
+        prefill_chunk_tokens=d["pchunk"]), **kw))
+
+
+def run_fleet_disagg(device, card):
+    """3x, bench.py's ``fleet_disagg``: 12 flash-crowd prompts of 120
+    tokens with a 24-token shared head (``default_rng(19)``), 16 new
+    tokens, through a colocated 3-replica ``Fleet`` and then through
+    ``roles=("prefill", "decode", "decode")`` with the KV handoff across
+    the host pool (SMALL bf16, 2 slots, 96 prefix blocks of 8 tokens,
+    32-token prefill chunks, warmed), each arm one burst: bf16 tokens equal
+    across the arms (bench.py's gate), the disagg arm's handoffs one per
+    request (its warm-up's too), no handoff failover, the host pool
+    deduplicating, launches held to each arm's replicas' records (K8 at
+    Tq 32 for every prefill chunk); TTFT/TPOT p50/p99, tokens/s, pool puts
+    and the import and export block counts printed.  Then four f32
+    tie-free flash-crowd prompts through a 1 prefill / 2 decode f32 fleet
+    one at a time: token-identical to ``generate()``."""
+    import torch
+
+    from cloud_tpu_torch.fleet import Fleet, FleetConfig
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.serving import ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    d = DISAGG_SERVE
+    cfg, params, _, _ = decode_setup(device=device, seed=0)
+    serve = _disagg_config(warmup=True)
+    rng = np.random.default_rng(19)
+    prompts = _disagg_prompts(rng, cfg.vocab_size)
+    disagg_roles = ("prefill", "decode", "decode")
+    out = {"launches": {}}
+    reference = None
+    for arm, roles in (("colocated", None), ("disagg", disagg_roles)):
+        with Fleet(lambda: ServingEngine(params, cfg, serve, device=device),
+                   FleetConfig(min_replicas=d["replicas"],
+                               max_replicas=d["replicas"],
+                               poll_interval_s=FLEET_SERVE["poll"],
+                               roles=roles)) as fleet:
+            fleet.wait_ready()
+            fleet.submit(rng.integers(1, cfg.vocab_size, 8).astype(np.int32),
+                         max_new_tokens=2).result(timeout=300)
+            torch.cuda.synchronize()
+            d0 = _engine_stats(fleet)
+            dispatch.reset_launch_counts()
+            start = time.perf_counter()
+            futures = [fleet.submit(p, max_new_tokens=d["new"])
+                       for p in prompts]
+            results = [f.result(timeout=600) for f in futures]
+            wall = time.perf_counter() - start
+            d1 = _engine_stats(fleet)
+            stats = fleet.stats()
+            health = fleet.health()
+        launches = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+        _no_fleet_threads(f"fleet disagg ({arm})")
+        _check_fleet_launches(f"fleet disagg ({arm})", launches,
+                              cfg.num_layers, d0, d1)
+        _check_tokens(f"fleet disagg ({arm})", results,
+                      [d["new"]] * len(results), cfg.vocab_size)
+        tokens = [r.tokens.tolist() for r in results]
+        if reference is None:
+            reference = tokens
+        else:
+            diverged = sum(a != b for a, b in zip(tokens, reference))
+            if diverged:
+                raise AssertionError(
+                    f"fleet disagg: {diverged}/{len(tokens)} requests "
+                    f"decoded different bf16 tokens in the disagg arm")
+        row = _latency_row(results, wall)
+
+        def delta(key, d0=d0, d1=d1):
+            return {rid: d1[rid][key] - d0[rid][key] for rid in d1}
+
+        widths = {rid: {w: d1[rid]["prefill_chunk_widths"].get(w, 0)
+                        - d0[rid]["prefill_chunk_widths"].get(w, 0)
+                        for w in d1[rid]["prefill_chunk_widths"]}
+                  for rid in d1}
+        row.update({"handoffs": stats["handoffs"],
+                    "handoff_failovers": stats["handoff_failovers"],
+                    "host_pool": stats["host_pool"],
+                    "roles": [s["role"] for s in health["replicas"]],
+                    "prefill_chunk_widths": widths,
+                    "prefix_hits": delta("prefix_hits"),
+                    "export_blocks": delta("handoff_export_blocks"),
+                    "import_blocks": delta("handoff_import_blocks"),
+                    "stream_syncs": delta("stream_syncs"),
+                    "launches": launches})
+        for name, count in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        out[arm] = row
+        if roles is not None:
+            want = len(prompts) + 1  # the warm-up request is handed off too
+            if stats["handoffs"] != want:
+                raise AssertionError(f"fleet disagg: {stats['handoffs']} "
+                                     f"handoffs, expected {want}")
+            if stats["handoff_failovers"]:
+                raise AssertionError(f"fleet disagg: "
+                                     f"{stats['handoff_failovers']} handoff "
+                                     f"failovers in a healthy run")
+            if stats["host_pool"]["dedup_hits"] <= 0:
+                raise AssertionError("fleet disagg: the host pool "
+                                     "deduplicated nothing")
+            if row["roles"] != list(disagg_roles):
+                raise AssertionError(f"fleet disagg: roles {row['roles']}")
+        print(f"  {arm}: {len(results)} requests, {row['tokens_per_s']:.1f} "
+              f"tok/s; TTFT p50 {row['ttft_p50_s']:.4f} s p99 "
+              f"{row['ttft_p99_s']:.4f} s; TPOT p50 "
+              f"{row['tpot_p50_s'] * 1e3:.3f} ms p99 "
+              f"{row['tpot_p99_s'] * 1e3:.3f} ms; handoffs "
+              f"{stats['handoffs']}, host pool {stats['host_pool']}; export "
+              f"blocks {row['export_blocks']}, import blocks "
+              f"{row['import_blocks']}; prefill chunk widths {widths}; "
+              f"stream syncs {row['stream_syncs']}; launches {launches} "
+              f"[{card}]")
+    print(f"  bf16 tokens equal across the arms in all {len(prompts)} "
+          f"requests")
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    params32 = generation.prepare_params(params, cfg32)
+    picks = _tie_free(generation, params32, cfg32, device,
+                      _disagg_prompts(rng, cfg.vocab_size, 40), 4, d["new"])
+    stats = _f32_fleet_parity("fleet disagg", generation, params, cfg32,
+                              device, _disagg_config(), picks, d["new"],
+                              roles=disagg_roles)
+    if stats["handoffs"] != len(picks):
+        raise AssertionError(f"fleet disagg f32: {stats['handoffs']} "
+                             f"handoffs for {len(picks)} requests")
+    print(f"  disagg fleet == generate(): 4/4 requests one at a time "
+          f"token-identical, each handed off (SMALL f32, {d['new']} tokens, "
+          f"top-2 gap >= 1e-3)")
+    return out
+
+
 #: The fused window of bench.py's _measure_fused (FUSED_* there).
 FUSED_K, FUSED_WARMUP, FUSED_MEASURE = 4, 1, 5
 #: K5, K6 and K7 launches of one step of SMALL at 2 layers (remat: K5
@@ -3877,6 +4324,14 @@ def main() -> int:
          True),
         ("phase 3o: QoS classes with streaming and on_token hooks",
          "qos engine", lambda: run_qos_engine(device, card), True),
+        ("phase 3f: a 2-replica Fleet on the churn workload, bench.py's "
+         "fleet config", "fleet", lambda: run_fleet(device, card), True),
+        ("phase 3v: open-loop QPS sweep through a 2-replica QoS Fleet, "
+         "bench.py's fleet_qps_sweep config", "fleet sweep",
+         lambda: run_fleet_qps_sweep(device, card), True),
+        ("phase 3x: colocated against disaggregated prefill/decode with the "
+         "KV handoff, bench.py's fleet_disagg config", "fleet disagg",
+         lambda: run_fleet_disagg(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -3985,7 +4440,10 @@ def main() -> int:
                "spec engine": results["spec engine"],
                "decode kernel engine": results["decode kernel engine"],
                "pipeline engine": results["pipeline engine"],
-               "qos engine": results["qos engine"]}
+               "qos engine": results["qos engine"],
+               "fleet": results["fleet"],
+               "fleet sweep": results["fleet sweep"],
+               "fleet disagg": results["fleet disagg"]}
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -4036,6 +4494,9 @@ def main() -> int:
         "engine_pipeline": results["pipeline engine"],
         "pipeline_spans": results["pipeline tracing"],
         "engine_qos": results["qos engine"],
+        "fleet": results["fleet"],
+        "fleet_qps_sweep": results["fleet sweep"],
+        "fleet_disagg": results["fleet disagg"],
         "decode_quant_ab": results["decode A/B"],
         "beam_search_int8_kv_quant": results["beam search"],
         "resnet50_cifar_b256": {k: v for k, v in cifar.items()

@@ -14,7 +14,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("bridge", "models", "monitoring", "ops", "serving", "utils")
+_SUBMODULES = ("bridge", "fleet", "models", "monitoring", "ops", "serving",
+               "utils")
 
 
 def __getattr__(name):

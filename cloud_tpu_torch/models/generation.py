@@ -687,16 +687,26 @@ def _host_buffer(like, shape):
                        pin_memory=like.device.type == "cuda")
 
 
+def _device_ids(ids: torch.Tensor, device) -> torch.Tensor:
+    """Host ids on ``device``: on the card through pinned memory, in
+    stream order (a pageable copy would synchronise the stream)."""
+    if device.type == "cuda":
+        return ids.pin_memory().to(device, non_blocking=True)
+    return ids
+
+
 def download_prefix_blocks(pool, blocks):
     """Pool rows ``blocks [N]`` as host tensors ``[N, L, bt, H, hd]`` per
     leaf (scales too for an int8 pool), copied on the current stream into
     pinned memory: the caller synchronises before it reads them.  Ids
-    out of range are clipped."""
+    out of range are clipped.  Exactly the rows asked for are gathered
+    (the reference pads a batch to one compiled shape; eager PyTorch has
+    no such need)."""
     with torch.no_grad():
         out = {}
         for name, leaf in pool.items():
-            ids = torch.as_tensor(blocks, dtype=torch.long).clamp(
-                0, leaf.shape[1] - 1).to(leaf.device)
+            ids = _device_ids(torch.as_tensor(blocks, dtype=torch.long).clamp(
+                0, leaf.shape[1] - 1), leaf.device)
             rows = leaf.index_select(1, ids).transpose(0, 1)
             host = _host_buffer(leaf, rows.shape)
             host.copy_(rows, non_blocking=host.is_pinned())
@@ -715,16 +725,20 @@ def download_prefix_block(pool, block: int):
 def upload_prefix_blocks(pool, payloads, blocks):
     """Write host payloads (leaves ``[N, L, bt, H, hd]``) into pool rows
     ``blocks [N]``, on the current stream; an id out of range is dropped.
-    Returns the pool."""
+    Rows in pinned memory (when every id is kept) reach the card in
+    stream order.  Returns the pool."""
     with torch.no_grad():
         ids = torch.as_tensor(blocks, dtype=torch.long)
         for name, leaf in pool.items():
             keep = torch.nonzero((ids >= 0) & (ids < leaf.shape[1]))[:, 0]
             if keep.numel() == 0:
                 continue
-            rows = payloads[name][keep].to(
-                leaf.device, dtype=leaf.dtype, non_blocking=True)
-            leaf[:, ids[keep].to(leaf.device)] = rows.transpose(0, 1)
+            rows = torch.as_tensor(payloads[name])
+            if keep.numel() != ids.numel():
+                rows = rows[keep]
+            rows = rows.to(leaf.device, non_blocking=True)
+            leaf[:, _device_ids(ids[keep], leaf.device)] = rows.to(
+                leaf.dtype).transpose(0, 1)
     return pool
 
 

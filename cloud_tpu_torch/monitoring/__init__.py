@@ -1,7 +1,8 @@
-"""Metrics and host-side span tracing (port of ``cloud_tpu/monitoring``'s
-``metrics`` and ``tracing``): what the serving engine records.  The
-exporter, the profiler and the report CLI are not ported yet (ROADMAP.md
-section A, items 5 and 6)."""
+"""Metrics, host-side span tracing and the timeline report (port of
+``cloud_tpu/monitoring``'s ``metrics``, ``tracing`` and ``report``): what
+the serving engine and the fleet record, and how a timeline reads back.
+The exporter and the profiler are not ported yet (ROADMAP.md section A,
+item 6)."""
 
 from cloud_tpu_torch.monitoring import tracing
 from cloud_tpu_torch.monitoring.metrics import (

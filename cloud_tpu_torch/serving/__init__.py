@@ -1,7 +1,7 @@
 """In-process continuous-batching serving on the card (port of
-``cloud_tpu/serving``).  See :mod:`cloud_tpu_torch.serving.engine` and,
-for priority classes, quotas and streaming,
-:mod:`cloud_tpu_torch.serving.qos`."""
+``cloud_tpu/serving``).  See :mod:`cloud_tpu_torch.serving.engine`; for
+priority classes, quotas and streaming, :mod:`cloud_tpu_torch.serving.qos`;
+for several engines behind one router, :mod:`cloud_tpu_torch.fleet`."""
 
 from cloud_tpu_torch.serving.engine import (
     DeadlineExceededError,
@@ -15,6 +15,12 @@ from cloud_tpu_torch.serving.engine import (
     ServeResult,
     ServingEngine,
 )
+from cloud_tpu_torch.serving.prefix_cache import (
+    AFFINITY_PREFIX_TOKENS,
+    PrefixCacheManager,
+    PrefixHit,
+    affinity_key,
+)
 from cloud_tpu_torch.serving.qos import (
     BrownoutShedError,
     PriorityClass,
@@ -27,11 +33,15 @@ from cloud_tpu_torch.serving.qos import (
 )
 
 __all__ = [
+    "AFFINITY_PREFIX_TOKENS",
+    "affinity_key",
     "BrownoutShedError",
     "DeadlineExceededError",
     "DispatchTimeoutError",
     "DraftConfig",
     "EngineClosedError",
+    "PrefixCacheManager",
+    "PrefixHit",
     "PriorityClass",
     "QosConfig",
     "QosScheduler",

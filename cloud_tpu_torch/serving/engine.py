@@ -76,6 +76,15 @@ dispatch, with the host wait for its results, runs under a deadline; a
 dispatch past it fails its requests with :class:`DispatchTimeoutError`
 and leaves the engine unhealthy.
 
+Disaggregated serving (``role="prefill"``/``"decode"``, ``set_role``,
+``submit(handoff_export=True)`` / ``submit(handoff=payload)``; the fleet's
+two-leg route, ``fleet/disagg.py``): a prefill leg exports the prompt's
+pinned prefix chain after its save (one gather of the pool rows into
+pinned host memory, waited on before the payload leaves), and a decode
+leg seeds its prefix trie with the payload's blocks, uploads the ones it
+did not hold in one pinned batch, and admits the request as an ordinary
+prefix hit.
+
 ``ServeConfig(kv_quant=True)`` keeps the grid (and pool) int8 with
 per-(position, head) scales; the decode attention then runs the int8
 kernel K8q.  Weight-only int8 params (``models/quantization
@@ -87,8 +96,8 @@ emissions) and once per demotion burst, never per token.  Greedy outputs
 are token-identical to a direct ``generation.generate`` call per request.
 
 The engine takes every field, keyword and method of the JAX engine; each
-value whose feature the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+value whose feature the port does not have yet (multi-card serving)
+raises ``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -130,6 +139,13 @@ SERVE_WARMUP_THREAD_NAME = SERVE_SCHEDULER_THREAD_NAME + "-warmup"
 SERVE_DISPATCH_THREAD_NAME = "cloud-tpu-torch-serve-dispatch"
 #: The kernel libraries the serving path launches (K5, K8/K8q).
 SERVING_LIBRARIES = ("flash_fwd", "paged_attention")
+#: The serving slice of one engine: one card (``health()``'s
+#: ``slice_shape``/``slice_chips``, what the JAX engine reports without a
+#: mesh).
+SLICE_SHAPE, SLICE_CHIPS = (1, 1), 1
+#: The KV handoff counters of ``stats()`` and ``health()``.
+HANDOFF_KEYS = ("handoff_exports", "handoff_export_blocks",
+                "handoff_imports", "handoff_import_blocks")
 
 
 class QueueFullError(RuntimeError):
@@ -208,7 +224,11 @@ class ServeConfig:
     (``ServingEngine.wait_ready``).  ``dispatch_timeout_s`` arms the
     dispatch watchdog, ``qos`` priority scheduling (a
     ``serving.qos.QosConfig``, continuous scheduler), ``pipeline_depth=2``
-    pipelined scheduling (continuous scheduler).
+    pipelined scheduling (continuous scheduler).  ``role`` is the
+    disaggregated-serving role (``"prefill"``/``"decode"`` need the
+    continuous scheduler and the prefix cache; the KV handoff moves
+    prefix-pool blocks); ``prefix_summary_ttl_s`` bounds the age of the
+    prefix cache's router summary (``health()["cached_prefixes"]``).
     """
 
     max_new_tokens: int = 32
@@ -362,6 +382,14 @@ class ServeConfig:
                 f"role must be 'prefill', 'decode', or 'both', "
                 f"got {self.role!r}"
             )
+        if self.role != "both" and (
+            self.scheduler != "continuous" or not self.prefix_cache_blocks
+        ):
+            raise ValueError(
+                "role= (disaggregated serving) needs the continuous "
+                "scheduler and prefix_cache_blocks > 0 — the KV handoff "
+                "exports/imports prefix-pool blocks"
+            )
         if (self.prefix_summary_ttl_s is not None
                 and self.prefix_summary_ttl_s <= 0):
             raise ValueError(
@@ -400,11 +428,6 @@ class ServeConfig:
         self._refuse_later_features()
 
     def _refuse_later_features(self):
-        if self.prefix_summary_ttl_s is not None:
-            raise _later("prefix_summary_ttl_s (the prefix cache's router "
-                         "summary)", "4a/5")
-        if self.role != "both":
-            raise _later(f"role={self.role!r} (disaggregated serving)", "5")
         if self.layout == "auto" or (
                 self.mesh_shape is not None
                 and tuple(self.mesh_shape) != (1, 1)):
@@ -419,7 +442,10 @@ class ServeResult:
     ``max_new_tokens`` (eos included where sampled, pad after it);
     ``num_generated`` counts real tokens; ``batch_size`` is the grid's
     ``num_slots`` (continuous) or the padded batch (batch scheduler);
-    ``trace_id`` is the request's ``TraceContext`` id, if it carried one."""
+    ``trace_id`` is the request's ``TraceContext`` id, if it carried one;
+    ``handoff`` the KV handoff payload a ``submit(handoff_export=True)``
+    request exported (``fleet/disagg.py`` describes its shape), else
+    None."""
 
     tokens: np.ndarray
     num_generated: int
@@ -428,6 +454,7 @@ class ServeResult:
     latency_seconds: float
     ttft_seconds: float = 0.0
     trace_id: Optional[str] = None
+    handoff: Optional[dict] = None
 
 
 #: eq=False: requests leave the middle of a queue by identity (QoS
@@ -448,6 +475,12 @@ class _Request:
     #: ``on_token(index, token)``, called from the scheduler thread.
     on_token: Optional[object] = None
     trace: Optional[tracing.TraceContext] = None
+    #: Disaggregated prefill leg: export the prompt's prefix chain after
+    #: its prefill (``ServeResult.handoff``).
+    handoff_export: bool = False
+    #: Disaggregated decode leg: a payload to seed the prefix trie with
+    #: before this request's own lookup.
+    handoff: Optional[dict] = None
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now >= self.deadline
@@ -478,6 +511,9 @@ class _Slot:
     prefix_nodes: List[object] = dataclasses.field(default_factory=list)
     first_token_ts: Optional[float] = None
     streamed: int = 0
+    #: The exported handoff payload (``handoff_export`` requests), carried
+    #: to ``_retire_slot``, which puts it on the result.
+    handoff: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -642,7 +678,13 @@ class ServingEngine:
             # committed; acceptance is their quotient.
             "spec_chunks": 0, "spec_emitted": 0,
             "spec_proposed": 0, "spec_accepted": 0, "draft_prefills": 0,
+            # Disaggregated serving's KV handoff (0 without handoff
+            # submits).
+            **dict.fromkeys(HANDOFF_KEYS, 0),
         }
+        #: Disaggregated-serving role, advertised in health()/stats() for
+        #: the fleet's router (a replica may restamp it: ``set_role``).
+        self._role = cfg.role
         #: QoS: None keeps admission FIFO.  Per-class counters are zeros
         #: without it.
         self._qos = cfg.qos
@@ -710,7 +752,8 @@ class ServingEngine:
                     cfg.prefix_cache_blocks, cfg.prefix_block_tokens,
                     dram_blocks=cfg.prefix_dram_blocks,
                     demote_fn=(self._demote_block if cfg.prefix_dram_blocks
-                               else None))
+                               else None),
+                    summary_ttl_s=cfg.prefix_summary_ttl_s)
                 self._prefix_pool = generation.init_prefix_pool(
                     config, cfg.prefix_cache_blocks, cfg.prefix_block_tokens,
                     device=self.device, kv_quant=cfg.kv_quant)
@@ -868,13 +911,22 @@ class ServingEngine:
         self._trace_lane = lane
 
     def set_role(self, role: str) -> None:
-        """Disaggregated roles are not ported: only ``"both"``."""
+        """Adopt a disaggregated-serving role (``"prefill"``, ``"decode"``
+        or ``"both"``), advertised through ``health()``/``stats()`` for
+        the fleet's router and validated as the ``ServeConfig`` field is.
+        The fleet's replica calls it after building the engine."""
         if role not in ("prefill", "decode", "both"):
             raise ValueError(
                 f"role must be 'prefill', 'decode' or 'both', got {role!r}"
             )
-        if role != "both":
-            raise _later(f"set_role({role!r}) (disaggregated serving)", "5")
+        if role != "both" and (not self._continuous
+                               or not self.serve_config.prefix_cache_blocks):
+            raise ValueError(
+                "role= (disaggregated serving) needs the continuous "
+                "scheduler and prefix_cache_blocks > 0 — the KV handoff "
+                "exports/imports prefix-pool blocks"
+            )
+        self._role = role
 
     @property
     def chunk_traces(self) -> int:
@@ -948,14 +1000,21 @@ class ServingEngine:
         without, it is type-checked and inert); ``on_token(index, token)``
         is called from the scheduler thread as tokens commit; ``trace``
         (a ``monitoring.tracing.TraceContext``) stamps the request's spans
-        and result with its id.  The handoff keywords take their defaults
-        only."""
-        if handoff_export or handoff is not None:
-            raise _later("submit(handoff_export=, handoff=) (disaggregated "
-                         "serving)", "5")
+        and result with its id.  ``handoff_export=True`` marks a
+        disaggregated prefill leg: the prompt's cached prefix blocks ride
+        out on ``ServeResult.handoff``; ``handoff=<payload>`` a decode leg:
+        the payload's blocks seed the prefix cache before the request's
+        lookup, which then sees an ordinary hit.  Both need the continuous
+        scheduler and the prefix cache."""
         cfg = self.serve_config
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if (handoff_export or handoff is not None) and self._prefix is None:
+            raise ValueError(
+                "handoff_export/handoff need the continuous scheduler "
+                "and prefix_cache_blocks > 0 — the KV handoff moves "
+                "prefix-pool blocks"
+            )
         if self._qos is not None:
             priority = self._qos.resolve_priority(priority)
         else:
@@ -985,7 +1044,7 @@ class ServingEngine:
             bucket_len=bucket_len, future=Future(), submitted=submitted,
             deadline=None if deadline_s is None else submitted + deadline_s,
             priority=priority, stream=token_stream, on_token=on_token,
-            trace=trace,
+            trace=trace, handoff_export=handoff_export, handoff=handoff,
         )
         if token_stream is not None:
             token_stream.trace_id = request.trace_id
@@ -1476,6 +1535,12 @@ class ServingEngine:
         cfg = self.serve_config
         use_chunks = cfg.prefill_chunk_tokens is not None
         self._set_table_row(slot, ())  # fresh claim: every page is the slot's
+        # A decode leg seeds its payload's blocks first, so the lookup
+        # below hits them; the seed's references drop once the acquire
+        # holds its own.
+        seed_held: List[object] = []
+        if request.handoff is not None and self._prefix is not None:
+            seed_held = self._import_handoff(request)
         hit = None
         held: List[object] = []
         swapin_plan = None
@@ -1509,6 +1574,8 @@ class ServingEngine:
             with self._stats_lock:
                 self._stats["prefix_hits" if hit is not None
                             else "prefix_misses"] += 1
+        if seed_held:
+            self._prefix.release(seed_held)
         if hit is None and not use_chunks:
             self._insert_request(request, slot)
             return
@@ -1641,6 +1708,7 @@ class ServingEngine:
         entry.first_token_ts = time.perf_counter()
         self._feed_entry(entry)
         self._save_prefix_blocks(request, slot, already=task.hit)
+        self._export_handoff(request, slot)
         self._activate_or_retire(slot, request, tok0)
 
     def _insert_request(self, request: _Request, slot: int) -> None:
@@ -1672,6 +1740,7 @@ class ServingEngine:
             self._stats["oneshot_inserts"] += 1
         self._feed_entry(entry)
         self._save_prefix_blocks(request, slot)
+        self._export_handoff(request, slot)
         self._activate_or_retire(slot, request, tok0)
 
     def _activate_or_retire(self, slot: int, request: _Request,
@@ -1732,6 +1801,129 @@ class ServingEngine:
                           blocks=len(created)):
             self._prefix_pool = self._supervised("serve/prefix_save", save)
         metrics.counter_inc("serve/prefix_saved_blocks", len(created))
+
+    # -- the KV handoff (disaggregated serving) ----------------------------
+
+    def _export_handoff(self, request: _Request, slot: int) -> None:
+        """Build a just-prefilled slot's handoff payload (no-op unless the
+        request asked with ``handoff_export``).  Runs right after the
+        prefix save: the slot's ``prefix_nodes`` are the prompt's whole
+        root-down chain, pinned until it retires, so the rows hold still
+        while one gather copies them into pinned host memory; the wait
+        for that copy ends the dispatch, so the payload is complete
+        before it leaves the scheduler.  One host copy per block (a
+        payload must not keep the whole gather alive once a host pool
+        keeps a few of its blocks); it rides out on
+        ``ServeResult.handoff``."""
+        if not request.handoff_export or self._prefix is None:
+            return
+        cfg = self.serve_config
+        entry = self._slot_table[slot]
+        nodes = list(entry.prefix_nodes)
+        payload = {
+            "version": 1,
+            "block_tokens": cfg.prefix_block_tokens,
+            "covered_tokens": len(nodes) * cfg.prefix_block_tokens,
+            "keys": [tuple(node.key) for node in nodes],
+            "payloads": [],
+        }
+        if nodes:
+            blocks = [int(node.block) for node in nodes]
+
+            def export():
+                host = generation.download_prefix_blocks(self._prefix_pool,
+                                                         blocks)
+                self._wait_enqueued()
+                return [{name: leaf[i].clone() for name, leaf in host.items()}
+                        for i in range(len(blocks))]
+
+            with tracing.span(
+                    "serve/kv_handoff",
+                    **_trace_attrs(request, direction="export", slot=slot,
+                                   blocks=len(nodes))):
+                payload["payloads"] = self._supervised("serve/kv_handoff",
+                                                       export)
+        entry.handoff = payload
+        with self._stats_lock:
+            self._stats["handoff_exports"] += 1
+            self._stats["handoff_export_blocks"] += len(nodes)
+        metrics.counter_inc("serve/handoff_exports")
+        metrics.counter_inc("serve/handoff_export_blocks", len(nodes))
+
+    def _import_handoff(self, request: _Request) -> List[object]:
+        """Seed the prefix trie with a handoff payload's blocks, so the
+        request's lookup (just after, in ``_admit_request``) sees an
+        ordinary hit: attached through the block table on the paged
+        route, copied otherwise.  Only the blocks the trie did not hold
+        are uploaded, stacked into one pinned buffer and copied in stream
+        order under one supervised dispatch.  Returns the seeded nodes,
+        each holding one reference the caller drops once its acquire has
+        pinned the hit.  A payload of another block size imports nothing
+        and a hole truncates it: the suffix prefill covers the rest."""
+        cfg = self.serve_config
+        payload = request.handoff
+        if int(payload.get("block_tokens") or 0) != cfg.prefix_block_tokens:
+            return []
+        keys = list(payload.get("keys") or ())
+        payloads = list(payload.get("payloads") or ())
+        usable = 0
+        for i, key in enumerate(keys):
+            if (i < len(payloads) and payloads[i] is not None
+                    and len(key) == cfg.prefix_block_tokens):
+                usable += 1
+            else:
+                break
+        if not usable:
+            return []
+        with tracing.span(
+                "serve/kv_handoff",
+                **_trace_attrs(request, direction="import",
+                               blocks=usable)) as span:
+            with self._demote_burst():
+                held, created = self._prefix.seed_blocks(keys[:usable])
+            span.set_attribute("seeded", len(held))
+            span.set_attribute("uploaded", len(created))
+            if created:
+                created_ids = {id(node) for node in created}
+                uploads = [(int(node.block), payloads[i])
+                           for i, node in enumerate(held)
+                           if id(node) in created_ids]
+
+                def upload():
+                    stacked = {
+                        name: self._stack_host([p[name] for _, p in uploads])
+                        for name in self._prefix_pool}
+                    return generation.upload_prefix_blocks(
+                        self._prefix_pool, stacked, [b for b, _ in uploads])
+
+                self._prefix_pool = self._supervised("serve/kv_handoff",
+                                                     upload)
+        with self._stats_lock:
+            self._stats["handoff_imports"] += 1
+            self._stats["handoff_import_blocks"] += len(held)
+        metrics.counter_inc("serve/handoff_imports")
+        metrics.counter_inc("serve/handoff_import_blocks", len(held))
+        return held
+
+    def _stack_host(self, rows) -> torch.Tensor:
+        """Host rows stacked into one tensor, pinned on the card (so its
+        copy to the device runs in stream order)."""
+        first = torch.as_tensor(rows[0])
+        out = torch.empty((len(rows),) + tuple(first.shape),
+                          dtype=first.dtype,
+                          pin_memory=self.device.type == "cuda")
+        for i, row in enumerate(rows):
+            out[i].copy_(torch.as_tensor(row))
+        return out
+
+    def _wait_enqueued(self) -> None:
+        """Wait for the work enqueued so far on the current stream (an
+        event recorded now: what other replicas' threads enqueue later on
+        a shared stream is not waited for)."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            event.synchronize()
 
     # -- the host tier -----------------------------------------------------
 
@@ -2253,7 +2445,7 @@ class ServingEngine:
             batch_size=cfg.num_slots,
             latency_seconds=done - request.submitted,
             ttft_seconds=first - request.submitted,
-            trace_id=request.trace_id,
+            trace_id=request.trace_id, handoff=entry.handoff,
         )
         metrics.distribution_record("serve/latency_seconds",
                                     result.latency_seconds)
@@ -2316,6 +2508,9 @@ class ServingEngine:
             "active_slots": (self.serve_config.num_slots - free_slots
                              if self._continuous else self._inflight_rows),
             "num_slots": self.serve_config.num_slots,
+            # The slice this replica spans: one card, (1, 1).
+            "slice_shape": SLICE_SHAPE,
+            "slice_chips": SLICE_CHIPS,
             "orphaned_dispatches": len(self._orphan_dispatches),
             "last_dispatch_age_s": (
                 None if last is None else time.perf_counter() - last),
@@ -2324,10 +2519,14 @@ class ServingEngine:
             "spec_k": self.serve_config.draft.spec_k if self._spec else 0,
             "class_backlog": class_backlog,
             "decode_kernel": self.serve_config.decode_kernel,
+            "role": self._role,
             "pipeline_depth": self._pipe_depth,
             "dispatch_gap_ms": self._dispatch_gap_mean(),
             "device": str(self.device),
         }
+        with self._stats_lock:
+            for key in HANDOFF_KEYS:
+                snap[key] = self._stats[key]
         snap.update(self._prefix_snapshot())
         if self._continuous:
             snap["free_slots"] = free_slots
@@ -2376,6 +2575,9 @@ class ServingEngine:
             snap["class_completed"] = dict(self._class_completed)
             snap["class_shed"] = dict(self._class_shed)
             gaps = list(self._dispatch_gaps)
+        snap["role"] = self._role
+        snap["slice_shape"] = SLICE_SHAPE
+        snap["slice_chips"] = SLICE_CHIPS
         with self._cond:
             snap["class_backlog"] = self._class_backlog_locked()
         snap["mean_batch_occupancy"] = (

@@ -7,7 +7,8 @@ with an eos id that cannot collide with an earlier greedy token, typed
 admission errors, a clean close, one served request for each option the
 port took over from a refusal (the batch scheduler, the prefix cache and
 its host tier, chunked prefill, a speculative draft, QoS, pipelined
-scheduling, the dispatch watchdog, streaming and request tracing), and
+scheduling, the dispatch watchdog, streaming and request tracing,
+disaggregated roles with the KV handoff), and
 ``NotImplementedError`` for every ``ServeConfig`` feature the port does not
 have yet.  ``kv_quant`` with
 int8 weights is held against the quantized JAX ``generate``.  The engine's
@@ -198,6 +199,7 @@ SERVED_OPTIONS = {
     "draft": "spec_chunks",
     "qos": "completed",
     "pipeline_depth": "chunks",
+    "role": "prefix_misses",
 }
 
 
@@ -230,6 +232,9 @@ def test_out_of_slice_options_raise(kw, models, prompts):
         kw = dict(draft=DraftConfig(config=cfg, params=tparams, spec_k=3))
     if kw.get("qos") == "default":
         kw = dict(qos=QosConfig())
+    if "role" in kw:
+        # A disaggregated role needs the prefix cache the handoff moves.
+        kw = dict(kw, prefix_cache_blocks=4)
     with _engine(tparams, cfg, **kw) as engine:
         res = engine.submit(toks[1, :lens[1]]).result(timeout=120)
     np.testing.assert_array_equal(res.tokens, jax_tokens[1])
@@ -451,6 +456,62 @@ def _trace_lane(e):
     assert pids == {lane}
 
 
+def _summary_ttl(e):
+    """The router summary's TTL reaches the prefix cache's manager."""
+    with ServingEngine(e.params, e.config, ServeConfig(
+            max_new_tokens=2, prompt_buckets=(8,), prefix_cache_blocks=4,
+            prefix_block_tokens=2, prefix_summary_ttl_s=60.0),
+            device="cpu") as served:
+        res = served.submit([1, 2, 3, 4, 5]).result(timeout=120)
+        assert served._prefix.summary_ttl_s == 60.0
+    assert res.num_generated == 2
+
+
+def _handoff_engine(e):
+    return ServingEngine(e.params, e.config, ServeConfig(
+        max_new_tokens=2, prompt_buckets=(8,), prefix_cache_blocks=4,
+        prefix_block_tokens=2), device="cpu")
+
+
+def _handoff_export(e):
+    """A prefill leg exports its prompt's full blocks; an engine without
+    the prefix cache refuses the keyword."""
+    with pytest.raises(ValueError, match="prefix_cache_blocks"):
+        e.submit([1, 2], handoff_export=True)
+    with _handoff_engine(e) as served:
+        res = served.submit([1, 2, 3, 4, 5], max_new_tokens=1,
+                            handoff_export=True).result(timeout=120)
+    assert res.handoff["covered_tokens"] == 4
+    assert served.stats()["handoff_export_blocks"] == 2
+
+
+def _handoff(e):
+    """A decode leg imports a payload and serves it as a prefix hit."""
+    with pytest.raises(ValueError, match="prefix_cache_blocks"):
+        e.submit([1, 2], handoff={})
+    with _handoff_engine(e) as served:
+        payload = served.submit([1, 2, 3, 4, 5], max_new_tokens=1,
+                                handoff_export=True).result(120).handoff
+    with _handoff_engine(e) as served:
+        res = served.submit([1, 2, 3, 4, 5],
+                            handoff=payload).result(timeout=120)
+    assert res.num_generated == 2
+    assert served.stats()["handoff_imports"] == 1
+    assert served.stats()["prefix_hits"] == 1
+
+
+def _set_role(e):
+    """A role needs the prefix cache; an engine with it adopts one."""
+    with pytest.raises(ValueError, match="prefix_cache_blocks"):
+        e.set_role("decode")
+    served = _handoff_engine(e)
+    try:
+        served.set_role("decode")
+        assert served.health()["role"] == served.stats()["role"] == "decode"
+    finally:
+        served.close()
+
+
 def _chunk_traces(e):
     _submitted(e)
     _submitted(e, max_new_tokens=1)
@@ -474,8 +535,7 @@ UNPORTED = {
     "ServeConfig-dispatch_timeout_s": (None, _serve_watched),
     "ServeConfig-hbm_bytes_per_chip": (
         "6", lambda e: ServeConfig(hbm_bytes_per_chip=2**30)),
-    "ServeConfig-prefix_summary_ttl_s": (
-        "4a/5", lambda e: ServeConfig(prefix_summary_ttl_s=60.0)),
+    "ServeConfig-prefix_summary_ttl_s": (None, _summary_ttl),
     "ServeConfig-flush_deadline_s-batch": (None, _serve_batch),
     "engine-mesh": ("6", lambda e: ServingEngine(
         e.params, e.config, e.serve_config, mesh=object(), device="cpu",
@@ -487,11 +547,10 @@ UNPORTED = {
     "submit-stream": (None, _stream),
     "submit-on_token": (None, _on_token),
     "submit-trace": (None, _trace),
-    "submit-handoff_export": (
-        "5", lambda e: e.submit([1, 2], handoff_export=True)),
-    "submit-handoff": ("5", lambda e: e.submit([1, 2], handoff={})),
+    "submit-handoff_export": (None, _handoff_export),
+    "submit-handoff": (None, _handoff),
     "set_trace_lane": (None, _trace_lane),
-    "set_role": ("5", lambda e: e.set_role("decode")),
+    "set_role": (None, _set_role),
     "chunk_traces": (None, _chunk_traces),
     "verify_traces": (None, _verify_traces),
 }
