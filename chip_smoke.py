@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager and in CUDA-graph windows) and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager, in CUDA-graph windows and through the Trainer with checkpoints and durable resume) and transformer training paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -128,7 +128,23 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    layers with AdamW, which holds the on-device bias corrections), K1-K4
    replayed bit for bit, and bench.py's ``_measure_fused`` (CIFAR b256,
    windows of 4, 1 + 5 windows) with exact launches per replay, its
-   steps/s printed beside phase 4's;
+   steps/s printed beside phase 4's; then the Trainer (4t:
+   ``Trainer.fit`` on CIFAR b256 bf16 with prefetch, validation and
+   ``CheckpointCallback(every_n_steps=4, max_to_keep=2)``, one step a
+   dispatch, in windows of 4 and with a 2-of-4 tail, and without
+   checkpoints: exact K1-K4 launches with the eval steps' forward ones,
+   finite History and logged metrics, the checkpointed steps, fit's
+   steps/s and the submit-to-first-step gauge printed), save ordering
+   (4s: a save followed at once by 4 steps, eager and in a window,
+   restores the state at the save bit for bit), bench.py's durability
+   probe (4d: save blocking and verified-restore seconds printed, the
+   restore equal to the saved state bit for bit) and exactly-once resume
+   (4r, f32 b8 with cuDNN's deterministic algorithms: a drain and a
+   resume with ``resume_data=True`` against the uninterrupted run, one
+   step a dispatch and in windows of 4, a restore into a window's graph
+   state, the non-finite guard bit for bit across a poisoned slot, and
+   ``python -m cloud_tpu_torch.training.check_durability --device cuda``:
+   kill -9, both corruptions, the walk-back's fallbacks and quarantine);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -144,9 +160,9 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does;
 8. prints one JSON line describing every kernel (a serving kernel's
-   launches summed over the serving phases, each counted from 0 just
-   before its run), then, as its last line, ``{"ok": true, "device":
-   {...}}``.
+   launches summed over the serving phases, K1-K4's over phases 4, 4t
+   and 4r, each counted from 0 just before its run), then, as its last
+   line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Any failed phase ends the run with a
 nonzero exit and no result line; the phase it stopped in and the
@@ -4189,6 +4205,581 @@ def run_fused_training(device, card, unfused):
     return out
 
 
+#: The Trainer phases (4t, 4r): GroupNorm launches of one eval step (the
+#: forward only), the fit arms of 4t (batches, steps a dispatch), and
+#: 4r's f32 workload (ResNet-50 CIFAR at batch 8, 6 batches an epoch).
+GN_EVAL_PER_STEP = {"gn_fwd": 37, "gn_fwd_res": 16, "gn_bwd": 0,
+                    "gn_bwd_res": 0}
+FIT_ARMS = ((12, 1, True), (12, 4, True), (10, 4, True), (12, 1, False))
+FIT_VAL_BATCHES, FIT_EVERY, FIT_KEEP = 2, 4, 2
+EXACT_BATCH, EXACT_BATCHES, EXACT_STOP = 8, 6, 4
+
+
+def _gn_sum(*counts):
+    return {k: sum(c.get(k, 0) for c in counts) for k in GN_KERNELS}
+
+
+def _gn_times(per_step, n):
+    return {k: v * n for k, v in per_step.items()}
+
+
+def _cifar_arrays(n, seed, dtype=np.float32):
+    """n CIFAR-shaped examples from a numpy seed (labels first, then the
+    images, as resnet_train_setup draws them)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, n).astype(np.int64)
+    images = rng.normal(size=(n, 32, 32, 3)).astype(dtype)
+    return {"image": images, "label": labels}
+
+
+def _state_bytes(state):
+    from cloud_tpu_torch import bridge
+
+    return sum(t.numel() * t.element_size() for t in
+               [state.step] + bridge.leaves(state.params)
+               + bridge.leaves(state.opt_state))
+
+
+def _state_equal(what, got, want):
+    """Every leaf of two states (step, params, optimizer state) equal bit
+    for bit; raises naming the first that is not."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+
+    pairs = ([("step", got.step, want.step)]
+             + [("params", a, b) for a, b in zip(
+                 bridge.leaves(got.params), bridge.leaves(want.params))]
+             + [("opt_state", a, b) for a, b in zip(
+                 bridge.leaves(got.opt_state), bridge.leaves(want.opt_state))])
+    for part, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(a.detach(), b.detach()):
+            raise AssertionError(f"{what}: {part} differs (max_abs_err "
+                                 f"{max_err(a.detach(), b.detach()):.3e})")
+    return 0.0
+
+
+def run_trainer_fit(device, card, bare_rate, fused_rate):
+    """4t: ``Trainer.fit`` on ResNet-50 CIFAR b256 bf16 with SGD momentum:
+    a shuffled ``ArrayDataset`` (numpy seed 0), ``prefetch=2``, 2
+    validation batches and ``CheckpointCallback(every_n_steps=4,
+    max_to_keep=2)``, in three arms on one Trainer: 12 batches one step a
+    dispatch, 12 batches in windows of 4, 10 batches in windows of 4 (4,
+    4 and a 2-of-4 tail, a second graph), and 12 batches one step a
+    dispatch without the checkpoint callback (what the saves cost).
+    Exact K1-K4 launches (37/16/37/16
+    a train step, 37/16 an eval step, a window's warm-up steps included),
+    finite History and logged metrics, the checkpointed steps expected;
+    fit's steps/s (train steps over the epoch's seconds) printed beside
+    phase 4's bare loop and 4f's windows, and the submit-to-first-step
+    gauge."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.monitoring import metrics, tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import data, optimizers, trainer
+    from cloud_tpu_torch.training.checkpoint import (CheckpointCallback,
+                                                     CheckpointManager)
+
+    import functools
+
+    tracing.mark_submit()
+    cfg = resnet.RESNET50_CIFAR
+    tr = trainer.Trainer(
+        functools.partial(resnet.loss_fn, config=cfg, device=device),
+        optimizers.sgd(0.1, momentum=0.9),
+        init_fn=lambda gen: bridge.init_resnet(cfg, gen, device=device),
+        device=device)
+    tr.init_state(torch.Generator(device=device).manual_seed(0))
+    arrays = _cifar_arrays(max(arm[0] for arm in FIT_ARMS) * CIFAR_BATCH, 0)
+    val = data.ArrayDataset(_cifar_arrays(FIT_VAL_BATCHES * CIFAR_BATCH, 1),
+                            CIFAR_BATCH)
+    out = {"arms": [], "launches": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        for batches, k, saving in FIT_ARMS:
+            what = (f"fit {batches} batches, steps_per_dispatch={k}"
+                    + ("" if saving else ", no checkpoints"))
+            ds = data.ArrayDataset({n: a[:batches * CIFAR_BATCH]
+                                    for n, a in arrays.items()},
+                                   CIFAR_BATCH, shuffle=True, seed=0)
+            ckpt = os.path.join(root, f"{batches}x{k}")
+            cb = CheckpointCallback(ckpt, every_n_steps=FIT_EVERY,
+                                    max_to_keep=FIT_KEEP, device=device)
+            window = tr._multi_steps.get(k)
+            before = (window.warmup_steps if window else 0)
+            start_step = int(tr.state.step)
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            start = time.perf_counter()
+            history = tr.fit(ds, epochs=1, prefetch=2, steps_per_dispatch=k,
+                             validation_data=val,
+                             callbacks=[cb] if saving else [])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = dispatch.launch_counts(GN_KERNELS)
+            steps = int(tr.state.step) - start_step
+            warm = (tr._multi_steps[k].warmup_steps - before) if k > 1 else 0
+            want = _gn_sum(_gn_times(GN_PER_STEP, steps + warm),
+                           _gn_times(GN_EVAL_PER_STEP, FIT_VAL_BATCHES))
+            if steps != batches or launches != want:
+                raise AssertionError(
+                    f"{what}: {steps} steps, launches {launches} != {want} "
+                    f"({warm} warm-up steps, {FIT_VAL_BATCHES} eval steps)")
+            logs = {key: v[-1] for key, v in history.history.items()}
+            if not all(np.isfinite(v) for v in logs.values()) or not {
+                    "loss", "grad_norm", "val_loss"} <= set(logs):
+                raise AssertionError(f"{what}: History {logs}")
+            gauges = metrics.snapshot()["gauges"]
+            logged = {key: gauges[key] for key in gauges
+                      if key.startswith("train/")}
+            if not logged or not all(np.isfinite(v) for v in logged.values()):
+                raise AssertionError(f"{what}: logged metrics {logged}")
+            end = int(tr.state.step)
+            crossings = [s for s in range(start_step + k, end + 1, k)
+                         if s // FIT_EVERY > (s - k) // FIT_EVERY]
+            want_steps = sorted(set(crossings + [end]))[-FIT_KEEP:]
+            if not saving:
+                want_steps = []
+            saved = CheckpointManager(ckpt, device=device)
+            got_steps = saved.steps()
+            if got_steps != want_steps or not all(
+                    saved.verify(s) == "verified" for s in got_steps):
+                raise AssertionError(f"{what}: checkpoints {got_steps} != "
+                                     f"{want_steps}, or not verified")
+            rate = steps / logs["epoch_seconds"]
+            captures = tr._multi_steps[k].captures if k > 1 else 0
+            arm = {"batches": batches, "steps_per_dispatch": k,
+                   "checkpoints_on": saving,
+                   "steps_per_s": rate, "wall_s": wall,
+                   "epoch_seconds": logs["epoch_seconds"],
+                   "gauge_steps_per_sec": gauges.get("train/steps_per_sec"),
+                   "checkpoints": got_steps, "captures": captures,
+                   "history": logs, "launches": launches}
+            out["arms"].append(arm)
+            out["launches"] = _gn_sum(out["launches"], launches)
+            print(f"  {what}: {rate:.3f} steps/s over the epoch "
+                  f"({logs['epoch_seconds']:.3f} s, capture and saves "
+                  f"included; fit wall {wall:.3f} s with validation), loss "
+                  f"{logs['loss']:.4f}, val_loss {logs['val_loss']:.4f}; "
+                  f"checkpoints {got_steps} verified; graphs captured "
+                  f"{captures}; launches {launches} [{card}]")
+            shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gauge = metrics.snapshot()["gauges"].get(
+        tracing.SUBMIT_TO_FIRST_STEP_GAUGE)
+    if gauge is None or not np.isfinite(gauge):
+        raise AssertionError(f"fit: no submit-to-first-step gauge ({gauge})")
+    out.update({"submit_to_first_step_seconds": gauge,
+                "bare_steps_per_s": bare_rate,
+                "fused_steps_per_s": fused_rate,
+                "state_bytes": _state_bytes(tr.state)})
+    print(f"  fit steps/s: {out['arms'][0]['steps_per_s']:.3f} (K=1), "
+          f"{out['arms'][1]['steps_per_s']:.3f} (K=4), "
+          f"{out['arms'][3]['steps_per_s']:.3f} (K=1, no checkpoints), "
+          f"beside phase 4's bare "
+          f"loop {bare_rate:.3f} and 4f's windows {fused_rate:.3f}; "
+          f"run/submit_to_first_step_seconds {gauge:.3f} (Trainer built, "
+          f"state initialised, first step dispatched); state "
+          f"{out['state_bytes'] / 2**20:.1f} MiB [{card}]")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_save_ordering(device, card):
+    """4s: a save at step N followed at once by 4 more steps, with no
+    wait: after ``wait()`` the restore into a fresh state equals, bit for
+    bit, a clone taken at step N before the save.  ResNet-50 CIFAR b256
+    bf16, once with the eager step (N=2) and once in a window of 4 (N=4,
+    the next window a replay of its graph)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training.checkpoint import CheckpointManager
+    from cloud_tpu_torch.training.trainer import _copy_state
+    from cloud_tpu_torch.utils import benchmarking
+
+    out = {"launches": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_order_")
+    try:
+        for what, k in (("eager", 1), ("window", FUSED_K)):
+            step, state, batch = benchmarking.resnet_train_setup(
+                imagenet_shape=False, batch_size=CIFAR_BATCH,
+                steps_per_dispatch=k, device=device)
+            for _ in range(2 if k == 1 else 1):
+                state, _ = step(state, batch)
+            n = int(state.step)
+            clone = _copy_state(state, device)
+            manager = CheckpointManager(os.path.join(root, what),
+                                        device=device)
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            start = time.perf_counter()
+            manager.save(n, state)
+            for _ in range(4 if k == 1 else 1):
+                state, _ = step(state, batch)
+            issue_s = time.perf_counter() - start
+            launches = dispatch.launch_counts(GN_KERNELS)
+            want = _gn_times(GN_PER_STEP, 4)
+            if launches != want or int(state.step) != n + 4:
+                raise AssertionError(f"save ordering ({what}): launches "
+                                     f"{launches} != {want} or step "
+                                     f"{int(state.step)} != {n + 4}")
+            manager.wait()
+            restored = manager.restore(n, template=clone)
+            _state_equal(f"save ordering ({what})", restored, clone)
+            if torch.equal(_first_param(state), _first_param(clone)):
+                raise AssertionError(f"save ordering ({what}): the 4 steps "
+                                     f"after the save changed nothing")
+            manager.close()
+            out[what] = {"step": n, "issue_s": issue_s}
+            print(f"  {what}: save at step {n}, then 4 steps issued in "
+                  f"{issue_s * 1e3:.1f} ms with no wait; restored == the "
+                  f"step-{n} clone bit for bit (params, momentum, step) "
+                  f"[{card}]")
+            del step, state, batch, clone, restored
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _first_param(state):
+    from cloud_tpu_torch import bridge
+
+    return bridge.leaves(state.params)[0].detach()
+
+
+def run_durability_probe(device, card):
+    """4d, bench.py's ``_measure_durability`` on the CIFAR b256 state: save
+    1 primes the pipeline, save 2 is timed (``checkpoint_save_blocking_
+    seconds``: the host's time in ``save``; also with its snapshot copies
+    finished), then ``wait`` and a verified walk-back restore into a fresh
+    state (``quarantine=False``), timed until the restored state is on the
+    card (``resume_restore_seconds``).  The restored state equals the
+    saved one bit for bit; both seconds are printed, never asserted."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+
+    from cloud_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                     resume_trainer_state)
+    from cloud_tpu_torch.training.trainer import _copy_state
+    from cloud_tpu_torch.utils import benchmarking
+
+    _, state, _ = benchmarking.resnet_train_setup(
+        imagenet_shape=False, batch_size=CIFAR_BATCH, device=device)
+    saved = _copy_state(state, device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        manager = CheckpointManager(tmp, max_to_keep=2, device=device)
+        manager.save(1, state)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        manager.save(2, state)
+        blocking = time.perf_counter() - start
+        torch.cuda.synchronize()
+        with_copies = time.perf_counter() - start
+        manager.wait()
+        manager.close()
+        holder = types.SimpleNamespace(state=state)
+        restore_manager = CheckpointManager(tmp, device=device)
+        start = time.perf_counter()
+        ok = resume_trainer_state(holder, restore_manager,
+                                  only_if_ahead=False, quarantine=False)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+        restore_manager.close()
+        if not ok:
+            raise AssertionError("durability probe: could not restore the "
+                                 "checkpoint it just wrote")
+        if holder.state is state:
+            raise AssertionError("durability probe: the state was not "
+                                 "replaced")
+        _state_equal("durability probe", holder.state, saved)
+        nbytes = _state_bytes(state)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"checkpoint_save_blocking_seconds": blocking,
+           "checkpoint_save_with_copies_seconds": with_copies,
+           "resume_restore_seconds": restore_s, "state_bytes": nbytes}
+    print(f"  CIFAR b{CIFAR_BATCH} state ({nbytes / 2**20:.1f} MiB): "
+          f"checkpoint_save_blocking_seconds {blocking:.4f} "
+          f"({with_copies:.4f} with the snapshot's copies done), "
+          f"resume_restore_seconds {restore_s:.4f}; restored == saved bit "
+          f"for bit [{card}]")
+    del state, saved, holder
+    torch.cuda.empty_cache()
+    return out
+
+
+def _exact_trainer(device, cfg, **kw):
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.training import optimizers, trainer
+
+    tr = trainer.Trainer(
+        functools.partial(resnet.loss_fn, config=cfg, device=device),
+        optimizers.sgd(0.1, momentum=0.9), device=device,
+        init_fn=lambda gen: bridge.init_resnet(cfg, gen, device=device),
+        **kw)
+    tr.init_state(torch.Generator(device=device).manual_seed(3))
+    return tr
+
+
+def _run_drill(device, card):
+    """``python -m cloud_tpu_torch.training.check_durability --device cuda
+    --model resnet50_cifar`` in a child: its phase lines, checked."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "cloud_tpu_torch.training.check_durability",
+         "--device", device.type, "--model", "resnet50_cifar"],
+        capture_output=True, text=True, timeout=600)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    phases = {p["phase"]: p for p in lines}
+    summary, corrupt = phases.get("summary", {}), phases.get("corrupt", {})
+    resume = phases.get("resume", {})
+    if proc.returncode != 0 or not (summary.get("ok")
+                                    and summary.get("digest_match")):
+        raise AssertionError(f"check_durability: exit {proc.returncode}, "
+                             f"{lines}, stderr {proc.stderr[-2000:]}")
+    # The walk-back's prediction: the garbled newest step fails its
+    # restore, the bit-flipped one its manifest, both quarantined, and
+    # the restart lands on the newest intact step.
+    damaged = sorted(f"step-{corrupt[k]}" for k in ("garbled_step",
+                                                     "bitflipped_step"))
+    quarantined = sorted(q.rsplit("-", 1)[0] for q in resume["quarantined"])
+    if (resume["fallbacks"] != 2 or quarantined != damaged
+            or resume["resumed_step"] != corrupt["expect_resume_at"]):
+        raise AssertionError(f"check_durability walk-back: {resume} against "
+                             f"{corrupt}")
+    print(f"  check_durability --device {device.type} (ResNet-50 CIFAR f32 b8, kill "
+          f"-9 at step 34, step {corrupt['garbled_step']} garbled, step "
+          f"{corrupt['bitflipped_step']} bit-flipped): ok, digest_match, "
+          f"resumed at {resume['resumed_step']}, fallbacks "
+          f"{resume['fallbacks']}, quarantined {quarantined}, max loss err "
+          f"{summary['max_loss_err']:.3e} (exact: every resumed loss equal, "
+          f"params digest equal), "
+          f"{summary['wall_seconds']:.1f} s [{card}]")
+    return {"summary": summary, "corrupt": corrupt,
+            "fallbacks": resume["fallbacks"], "quarantined": quarantined}
+
+
+def check_exactly_once(device, card):
+    """4r, f32 ResNet-50 CIFAR b8 with cuDNN's deterministic algorithms (TF32
+    is off for the whole run): (1) a drain (``preemption.request_stop``
+    from a callback at step 4) and a resume with
+    ``CheckpointCallback(resume_data=True)`` against the uninterrupted
+    run, one step a dispatch and in windows of 4 (the tails 2-of-4):
+    per-dispatch losses and final params and momentum within TOL_F32 of
+    max(1, max |p|), the error printed (expected 0); then the window arm's
+    state restored from its last checkpoint into the Trainer (its graph's
+    static buffers take the values) and one more epoch on both, equal
+    again; (2) ``check_durability --device cuda``; (3) the non-finite
+    guard: a window of 4 whose last slot has NaN images leaves params and
+    momentum bit for bit where a window of the 3 good slots leaves them,
+    with ``train/nonfinite_skips`` counting it.  Exact K1-K4 launches of
+    the in-process fits."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.monitoring import metrics
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import data, preemption, trainer
+    from cloud_tpu_torch.training.checkpoint import (CheckpointCallback,
+                                                     CheckpointManager,
+                                                     resume_trainer_state)
+
+    class _Dispatched(trainer.Callback):
+        """Trainer callback: train steps dispatched over every fit it joins
+        (the step count's advance at each dispatch, counted after a
+        restore)."""
+
+        def __init__(self):
+            self.steps = 0
+            self._prev = 0
+
+        def on_train_begin(self, trainer):
+            self._prev = int(trainer.state.step)
+
+        def on_step_end(self, step, logs, trainer):
+            self.steps += step - self._prev
+            self._prev = step
+
+    cfg = dataclasses.replace(resnet.RESNET50_CIFAR, dtype=torch.float32)
+    arrays = _cifar_arrays(EXACT_BATCHES * EXACT_BATCH, 4)
+
+    def dataset(batches=EXACT_BATCHES, src=None):
+        src = arrays if src is None else src
+        return data.ArrayDataset({n: a[:batches * EXACT_BATCH]
+                                  for n, a in src.items()}, EXACT_BATCH,
+                                 shuffle=src is arrays, seed=3)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"errors": {}}
+    trainers = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_exact_")
+    try:
+        counted = _Dispatched()
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        for k in (1, FUSED_K):
+            what = f"drain/resume K={k}"
+            losses = {"control": {}, "resumed": {}}
+
+            def spy(name):
+                return trainer.LambdaCallback(
+                    on_step_end=lambda s, logs, t: losses[name].update(
+                        {s: float(logs["loss"])}))
+
+            control = _exact_trainer(device, cfg)
+            control.fit(dataset(), epochs=2, steps_per_dispatch=k,
+                        callbacks=[spy("control"), counted])
+            ckpt = os.path.join(root, f"drain{k}")
+            preemption._reset_for_tests()
+            try:
+                first = _exact_trainer(device, cfg)
+                stopper = trainer.LambdaCallback(
+                    on_step_end=lambda s, logs, t: preemption.request_stop(
+                        "chip_smoke") if s == EXACT_STOP else None)
+                first.fit(dataset(), epochs=2, steps_per_dispatch=k,
+                          callbacks=[CheckpointCallback(
+                              ckpt, every_n_steps=100, resume_data=True,
+                              device=device), stopper, counted])
+            finally:
+                preemption._reset_for_tests()
+            if not first.drained or int(first.state.step) != EXACT_STOP:
+                raise AssertionError(f"{what}: drained {first.drained} at "
+                                     f"step {int(first.state.step)}")
+            resumed = _exact_trainer(device, cfg)
+            resumed.fit(dataset(), epochs=2, steps_per_dispatch=k,
+                        callbacks=[CheckpointCallback(
+                            ckpt, every_n_steps=100, resume_data=True,
+                            device=device), spy("resumed"), counted])
+            trainers += [control, first, resumed]
+            got = losses["resumed"]
+            if not got or min(got) != EXACT_STOP + min(k, 2) or int(
+                    resumed.state.step) != 2 * EXACT_BATCHES:
+                raise AssertionError(f"{what}: resumed steps {sorted(got)}, "
+                                     f"final {int(resumed.state.step)}")
+            loss_err = max(abs(got[s] - losses["control"][s]) for s in got)
+            if not loss_err <= TOL_F32:
+                raise AssertionError(f"{what}: loss max_abs_err "
+                                     f"{loss_err:.3e}")
+            err = max(_hold(f"{what} params",
+                            bridge.leaves(resumed.state.params),
+                            bridge.leaves(control.state.params), TOL_F32),
+                      _hold(f"{what} momentum",
+                            bridge.leaves(resumed.state.opt_state),
+                            bridge.leaves(control.state.opt_state), TOL_F32))
+            out["errors"][what] = {"loss": loss_err, "params": err}
+            print(f"  {what} (drained at step {EXACT_STOP}, resumed from "
+                  f"it): per-dispatch losses max_abs_err {loss_err:.3e}, "
+                  f"params and momentum {err:.3e} (tol {TOL_F32} x max(1, "
+                  f"max|p|)) against the uninterrupted run [{card}]")
+            if k > 1:
+                # Restore into a state a window's graph holds: the graph's
+                # static buffers (the live state, perturbed here) must
+                # take the restored values at the next replay.
+                held = resumed.state
+                with torch.no_grad():
+                    for p in bridge.leaves(held.params):
+                        p.add_(1.0)
+                manager = CheckpointManager(ckpt, device=device)
+                if not resume_trainer_state(resumed, manager,
+                                            only_if_ahead=False):
+                    raise AssertionError(f"{what}: no checkpoint to restore")
+                if resumed.state is held:
+                    raise AssertionError(f"{what}: the state was not "
+                                         f"replaced")
+                for tr in (resumed, control):
+                    tr.fit(dataset(), epochs=1, steps_per_dispatch=k,
+                           callbacks=[counted])
+                err = _hold(f"{what} after a restore into the graph's state",
+                            bridge.leaves(resumed.state.params),
+                            bridge.leaves(control.state.params), TOL_F32)
+                out["errors"][f"{what} restored into the graph"] = err
+                print(f"  the resumed Trainer restored from its step-"
+                      f"{manager.latest_step()} checkpoint (values copied "
+                      f"into the window graph's buffers), one more epoch "
+                      f"on both: params max_abs_err {err:.3e} [{card}]")
+
+        # The non-finite guard in a window of 4, the last slot poisoned,
+        # against the same window's graph of the 3 good slots (the tail
+        # graph, captured on the same stream) from the same start.
+        poisoned = {n: a[:FUSED_K * EXACT_BATCH].copy()
+                    for n, a in arrays.items()}
+        poisoned["image"][(FUSED_K - 1) * EXACT_BATCH:] = np.nan
+        before = metrics.snapshot()["counters"].get("train/nonfinite_skips",
+                                                    0)
+        guarded = _exact_trainer(device, cfg, nonfinite_guard=True)
+        start = trainer._copy_state(guarded.state, device)
+        guarded.fit(dataset(FUSED_K, poisoned), epochs=1,
+                    steps_per_dispatch=FUSED_K, callbacks=[counted])
+        skips = metrics.snapshot()["counters"].get("train/nonfinite_skips",
+                                                   0) - before
+        bad = guarded.state
+        if skips != 1 or int(bad.step) != FUSED_K:
+            raise AssertionError(f"guard: {skips} skips, step "
+                                 f"{int(bad.step)}")
+        bad = trainer._copy_state(bad, device)
+        guarded.state = start
+        guarded.fit(dataset(FUSED_K - 1, poisoned), epochs=1,
+                    steps_per_dispatch=FUSED_K, callbacks=[counted])
+        trainers.append(guarded)
+        for part in ("params", "opt_state"):
+            for a, b in zip(bridge.leaves(getattr(bad, part)),
+                            bridge.leaves(getattr(guarded.state, part))):
+                if not torch.equal(a.detach(), b.detach()):
+                    raise AssertionError(
+                        f"guard: {part} moved across the poisoned slot "
+                        f"(max_abs_err {max_err(a.detach(), b.detach()):.3e})")
+        print(f"  guard: a window of {FUSED_K} with NaN images in its last "
+              f"slot == the same window's graph of its {FUSED_K - 1} good "
+              f"slots from the same start, params and momentum bit for "
+              f"bit; train/nonfinite_skips +{skips}, step {FUSED_K} "
+              f"[{card}]")
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts(GN_KERNELS)
+        steps = counted.steps
+        warm = sum(w.warmup_steps for t in trainers
+                   for w in t._multi_steps.values())
+        want = _gn_times(GN_PER_STEP, steps + warm)
+        if launches != want:
+            raise AssertionError(f"exactly-once launches {launches} != "
+                                 f"{want} ({steps} steps, {warm} warm-up)")
+        out["launches"] = launches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    del trainers
+    torch.cuda.empty_cache()
+    out["drill"] = _run_drill(device, card)
+    return out
+
+
 #: Kernels whose bf16 instantiations must run on the tensor cores, by
 #: library.
 TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
@@ -4367,6 +4958,32 @@ def main() -> int:
         fused = run_fused_training(device, card, cifar["steps_per_s"])
         torch.cuda.empty_cache()
         print(f"  (fused windows: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4t: Trainer.fit, ResNet-50 CIFAR b256 bf16, 12 "
+                 "batches one step a dispatch, 12 and 10 in windows of "
+                 f"{FUSED_K}, with validation, prefetch and checkpoints")
+        print(title)
+        start = time.perf_counter()
+        fit = run_trainer_fit(device, card, cifar["steps_per_s"],
+                              fused["steps_per_s"])
+        print(f"  (fit: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4s: a save followed at once by 4 steps restores the "
+                 "state at the save, eager and in a window")
+        print(title)
+        start = time.perf_counter()
+        ordering = check_save_ordering(device, card)
+        print(f"  (save ordering: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4d: bench.py's durability probe on the CIFAR b256 "
+                 "state")
+        print(title)
+        start = time.perf_counter()
+        durability = run_durability_probe(device, card)
+        print(f"  (durability: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4r: exactly-once resume, the kill -9 drill and the "
+                 "non-finite guard, f32 ResNet-50 CIFAR b8")
+        print(title)
+        start = time.perf_counter()
+        exact = check_exactly_once(device, card)
+        print(f"  (exactly-once: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
                  "one step under torch.profiler")
         print(title)
@@ -4449,10 +5066,16 @@ def main() -> int:
                 for name in QUANT_SERVING_KERNELS}
     for entry in kernels:
         name = entry["name"]
-        entry["launches"] = (
-            sum(by_phase[name].values()) if name in by_phase
-            else (lm if name in FLASH_BWD_KERNELS else cifar)[
-                "launches"][name])
+        if name in by_phase:
+            entry["launches"] = sum(by_phase[name].values())
+        elif name in FLASH_BWD_KERNELS:
+            entry["launches"] = lm["launches"][name]
+        else:
+            # K1-K4: the bare loop (4), Trainer.fit (4t) and the
+            # exactly-once fits (4r), each counted from 0.
+            entry["launches"] = (cifar["launches"][name]
+                                 + fit["launches"][name]
+                                 + exact["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")
@@ -4506,6 +5129,10 @@ def main() -> int:
         "f32_step_parity": results["f32 step parity"],
         "fused_cifar_b256": fused,
         "fused_window_checks": fused_checks,
+        "trainer_fit_cifar_b256": fit,
+        "save_ordering": ordering,
+        "durability": durability,
+        "exactly_once": exact,
         "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
         "flash_fwd_at_training": k5_training,
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},

@@ -22,7 +22,8 @@ sides (HWIO conv kernels, ``{"scale", "bias"}`` GroupNorm leaves, a dense
 ``head``): :func:`resnet_to_torch`, :func:`resnet_to_numpy` and
 :func:`init_resnet` are their counterparts.  BERT's are stacked on ``L``
 like CloudLM's: :func:`bert_to_torch`, :func:`bert_to_numpy` and
-:func:`init_bert`.
+:func:`init_bert`.  MNIST's (``{"hidden", "out"}`` dense layers) are
+:func:`mnist_to_torch`, :func:`mnist_to_numpy` and :func:`init_mnist`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.models.bert import BertConfig
+from cloud_tpu_torch.models.mnist import MnistConfig
 from cloud_tpu_torch.models.resnet import ResNetConfig
 from cloud_tpu_torch.models.transformer import TransformerConfig, check_supported
 
@@ -260,4 +262,29 @@ def init_bert(config: BertConfig, generator: torch.Generator, *,
         })
     params["pooler"] = layers.dense_init(gen, d, d)
     params["classifier"] = layers.dense_init(gen, d, config.num_classes)
+    return map_leaves(params, lambda t: t.to(device))
+
+
+def mnist_to_torch(params, *, device=None) -> Dict[str, Any]:
+    """JAX MNIST params (numpy-like leaves) -> the port's, as float32."""
+    device = resolve_device(device)
+    return map_leaves(params, lambda leaf: _tensor(leaf, device))
+
+
+def mnist_to_numpy(params) -> Dict[str, Any]:
+    """The port's MNIST params -> a numpy pytree for the JAX package."""
+    return map_leaves(params, _to_numpy)
+
+
+def init_mnist(config: MnistConfig, generator: torch.Generator, *,
+               device=None) -> Dict[str, Any]:
+    """Random f32 MNIST params with the JAX package's distributions and
+    tree: two ``layers.dense_init`` layers, ``hidden`` and ``out``."""
+    device = resolve_device(device)
+    params = {
+        "hidden": layers.dense_init(generator, config.input_dim,
+                                    config.hidden_dim),
+        "out": layers.dense_init(generator, config.hidden_dim,
+                                 config.num_classes),
+    }
     return map_leaves(params, lambda t: t.to(device))

@@ -24,6 +24,7 @@ TPU profiler trace runs (its ``xprof_*`` hooks); the port leaves that out
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -32,6 +33,15 @@ import time
 from typing import Any, Dict, Iterable, List, Optional
 
 from cloud_tpu_torch.monitoring import metrics
+
+#: Wall-clock unix seconds of job submission, stamped into a launched job's
+#: environment, so the first step can compute the true submit-to-first-step
+#: latency across machines.
+ENV_SUBMIT_TS = "CLOUD_TPU_SUBMIT_TS"
+
+#: Gauge published once per submit mark by the first completed train step
+#: (``Trainer.fit``).
+SUBMIT_TO_FIRST_STEP_GAUGE = "run/submit_to_first_step_seconds"
 
 _DEFAULT_CAPACITY = 100_000
 
@@ -203,6 +213,9 @@ class TimelineCollector:
 _collector: Optional[TimelineCollector] = None
 _collector_lock = threading.Lock()
 
+_submit_perf: Optional[float] = None
+_submit_consumed = False
+
 
 class Span:
     """A live span: times itself, records on exit.  Not reentrant."""
@@ -357,6 +370,26 @@ def record_span(name: str, start: float, end: float,
     metrics.distribution_record(f"span/{name}", duration)
 
 
+def traced(fn=None, *, name: Optional[str] = None):
+    """Decorator form: ``@tracing.traced`` or ``@tracing.traced(name=...)``.
+
+    The span is named after the function (``module.qualname``) unless
+    ``name`` is given.  Disabled-mode overhead is one extra call frame.
+    """
+    if fn is None:
+        return functools.partial(traced, name=name)
+    span_name = name or f"{fn.__module__.split('.')[-1]}.{fn.__qualname__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _collector is None:
+            return fn(*args, **kwargs)
+        with span(span_name):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
 def current_span() -> Optional[Span]:
     stack = _stack()
     return stack[-1] if stack else None
@@ -475,3 +508,75 @@ def _thread_name(tid: int) -> str:
         if thread.ident == tid:
             return thread.name
     return f"thread-{tid}"
+
+
+# --- submit-to-first-step --------------------------------------------------
+
+
+def mark_submit() -> None:
+    """Record "a job was submitted now" (the JAX package's ``run()`` calls
+    it; a script can too).  Arms :func:`record_submit_to_first_step`; a
+    later mark re-arms (a new submission in the same process supersedes
+    the old pending mark)."""
+    global _submit_perf, _submit_consumed
+    _submit_perf = time.perf_counter()
+    _submit_consumed = False
+
+
+def record_submit_to_first_step() -> Optional[float]:
+    """Publish ``run/submit_to_first_step_seconds`` once per submit mark.
+
+    Called by the trainer after its first dispatched train step.  The
+    elapsed time comes from (in priority order):
+
+    1. ``CLOUD_TPU_SUBMIT_TS`` — a wall-clock submit stamp threaded
+       through the job's environment, the true cross-machine latency;
+    2. the in-process :func:`mark_submit` monotonic mark.
+
+    Returns the recorded seconds, or None when nothing is pending.
+    """
+    global _submit_consumed
+    if _submit_consumed:
+        return None
+    elapsed: Optional[float] = None
+    env_ts = os.environ.get(ENV_SUBMIT_TS)
+    if env_ts:
+        try:
+            elapsed = max(0.0, time.time() - float(env_ts))
+        except ValueError:
+            elapsed = None
+    if elapsed is None and _submit_perf is not None:
+        elapsed = time.perf_counter() - _submit_perf
+    if elapsed is None:
+        return None
+    _submit_consumed = True
+    metrics.gauge_set(SUBMIT_TO_FIRST_STEP_GAUGE, elapsed)
+    collector = _collector
+    if collector is not None:
+        collector.add(
+            {
+                "name": SUBMIT_TO_FIRST_STEP_GAUGE,
+                "ph": "X",
+                "ts": (time.perf_counter() - collector.epoch) * 1e6
+                - elapsed * 1e6,
+                "dur": elapsed * 1e6,
+                "pid": _event_pid(),
+                "tid": threading.get_ident(),
+                "args": {"span_id": collector.next_span_id(), "parent_id": 0},
+            },
+            elapsed,
+        )
+    return elapsed
+
+
+def clear_submit() -> None:
+    """Disarm a pending submit mark (a submission that failed before it
+    started must not leave a mark for a later, unrelated ``fit()`` in the
+    same process to consume)."""
+    global _submit_perf, _submit_consumed
+    _submit_perf = None
+    _submit_consumed = False
+
+
+def _reset_submit_state_for_tests() -> None:
+    clear_submit()

@@ -10,11 +10,14 @@ so, as with donation, the state passed in must not be used again.
 ``make_multi_step(..., steps_per_dispatch=K)`` fuses K steps into one
 dispatch, as the JAX package's ``lax.scan`` window does: on the card the
 K step bodies are captured once as one CUDA graph and every call replays
-it (see :func:`make_multi_step`).
+it (see :func:`make_multi_step`).  ``make_eval_step`` is the forward
+only.
 
-Only the single-card, deterministic, one-micro-batch step is ported:
-meshes, stochastic steps (dropout rngs), gradient accumulation and
-non-finite quarantine raise ``NotImplementedError`` (ROADMAP.md A.6).
+Both take gradient accumulation (``accum_steps``) and the on-device
+non-finite guard (``skip_nonfinite``).  Meshes (``mesh``,
+``logical_axes``, ``rules``) wait for ``parallel/*`` and stochastic steps
+for the step's rng chain with BERT dropout (ROADMAP.md A.6): they raise
+``NotImplementedError`` naming that.
 """
 
 from __future__ import annotations
@@ -29,7 +32,11 @@ from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import leaves, map_leaves
 from cloud_tpu_torch.ops import dispatch
 
-_LATER = "comes with the training slice of the port (ROADMAP.md A.6)"
+#: Why a mesh option raises, and why a stochastic one does.
+_MESH_LATER = ("needs parallel/* (several cards), which is not ported yet "
+              "(ROADMAP.md A.6)")
+_RNG_LATER = ("needs the step's rng chain, which comes with BERT dropout "
+             "(ROADMAP.md A.6)")
 
 
 @dataclasses.dataclass
@@ -41,10 +48,17 @@ class TrainState:
     rng: Any = None
 
 
-def _refuse(**options) -> None:
-    for name, used in options.items():
-        if used:
-            raise NotImplementedError(f"{name} {_LATER}")
+def refuse_unported(*, mesh=None, logical_axes=None, rules=None,
+                    stochastic: bool = False, train_rng=None) -> None:
+    """Raise ``NotImplementedError`` for an option of a later item."""
+    for name, value in (("mesh", mesh), ("logical_axes", logical_axes),
+                        ("rules", rules)):
+        if value is not None:
+            raise NotImplementedError(f"{name} {_MESH_LATER}")
+    if stochastic:
+        raise NotImplementedError(f"stochastic {_RNG_LATER}")
+    if train_rng is not None:
+        raise NotImplementedError(f"train_rng {_RNG_LATER}")
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -58,8 +72,8 @@ def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
                          train_rng=None, *, device=None) -> TrainState:
     """``init_fn(rng) -> params`` on ``device`` (``cuda`` by default),
     made trainable, with the optimizer's state and a step count of 0."""
-    _refuse(mesh=mesh is not None, logical_axes=logical_axes is not None,
-            rules=rules is not None, train_rng=train_rng is not None)
+    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
+                    train_rng=train_rng)
     device = resolve_device(device)
     params = map_leaves(init_fn(rng),
                         lambda t: t.detach().to(device).requires_grad_(True))
@@ -67,29 +81,98 @@ def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
                       params=params, opt_state=optimizer.init(params))
 
 
+def _grads(loss_fn, params, batch):
+    """The loss function's metrics (detached) and the gradients of its
+    loss with respect to every leaf of ``params``."""
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, batch)
+        # A leaf the loss does not read gets a zero gradient, as in JAX.
+        grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
+                                    materialize_grads=True)
+    return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
+def _accumulated_grads(loss_fn, params, batch, accum_steps: int):
+    """Mean metrics and gradients over ``accum_steps`` equal micro-batches
+    (batch dim 0 must divide), summed in f32 and the mean gradient cast to
+    each parameter's dtype, as the JAX step's ``lax.scan`` does."""
+
+    def to_micro(x):
+        if x.shape[0] % accum_steps:
+            raise ValueError(
+                f"batch dim {x.shape[0]} not divisible by "
+                f"accum_steps={accum_steps}"
+            )
+        return x.reshape((accum_steps, x.shape[0] // accum_steps)
+                         + tuple(x.shape[1:]))
+
+    micro = map_leaves(batch, to_micro)
+    sum_g = [torch.zeros_like(p, dtype=torch.float32)
+             for p in leaves(params)]
+    sum_m: Dict[str, torch.Tensor] = {}
+    for i in range(accum_steps):
+        metrics, grads = _grads(loss_fn, params, _slot(micro, i))
+        torch._foreach_add_(sum_g, [g.float() for g in grads])
+        for key, value in metrics.items():
+            value = value.float()
+            sum_m[key] = value if key not in sum_m else sum_m[key] + value
+    inv = 1.0 / accum_steps
+    grads = [(g * inv).to(p.dtype) for g, p in zip(sum_g, leaves(params))]
+    return {k: v * inv for k, v in sum_m.items()}, grads
+
+
+def _guarded_update(optimizer, params, grads, opt_state,
+                    finite: torch.Tensor) -> None:
+    """The optimizer's update where ``finite`` (a 0-d bool on the device)
+    is true; elsewhere every parameter and optimizer slot keeps its value
+    bit for bit.  A true select against a copy of the old values, the
+    counterpart of the JAX step's ``lax.cond``: an arithmetic blend would
+    spread NaN through ``0 * inf``, and a host branch would wait on the
+    device and could not be captured.  Costs one copy of the parameters
+    and the optimizer state while the step runs."""
+    state = list(params) + leaves(opt_state)
+    with torch.no_grad():
+        old = [t.clone() for t in state]
+        optimizer.update_(params, grads, opt_state)
+        for new, prev in zip(state, old):
+            new.copy_(torch.where(finite, new, prev))
+
+
 def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
                accum_steps, skip_nonfinite):
-    """The step's work, shared by the step and the window: gradients, the
-    metrics, and the optimizer's in-place update of the parameters and its
-    state.  Returns ``body(state, batch) -> metrics``; the step count is
-    the caller's."""
+    """The step's work, shared by the step and the window: gradients
+    (accumulated over micro-batches when ``accum_steps`` > 1), the metrics,
+    and the optimizer's in-place update of the parameters and its state,
+    behind the non-finite guard when ``skip_nonfinite``.  Returns
+    ``body(state, batch) -> metrics``; the step count is the caller's.
+
+    ``skip_nonfinite=True`` skips the update on the device when the grad
+    norm or the ``loss`` metric is not finite: the parameters and every
+    optimizer slot keep their values (the step count still advances, the
+    batch was consumed) and ``metrics["nonfinite"]`` is ``1.0 - finite``.
+    No host sync is added."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    _refuse(mesh=mesh is not None, logical_axes=logical_axes is not None,
-            rules=rules is not None, stochastic=stochastic,
-            **{"accum_steps > 1": accum_steps > 1},
-            skip_nonfinite=skip_nonfinite)
+    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
+                    stochastic=stochastic)
 
     def body(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        params = leaves(state.params)
-        with torch.enable_grad():
-            loss, metrics = loss_fn(state.params, batch)
-            # A leaf the loss does not read gets a zero gradient, as in JAX.
-            grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                        materialize_grads=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        if accum_steps > 1:
+            metrics, grads = _accumulated_grads(loss_fn, state.params, batch,
+                                                accum_steps)
+        else:
+            metrics, grads = _grads(loss_fn, state.params, batch)
         metrics["grad_norm"] = global_norm(grads)
-        optimizer.update_(params, grads, state.opt_state)
+        params = leaves(state.params)
+        if not skip_nonfinite:
+            optimizer.update_(params, grads, state.opt_state)
+            return metrics
+        finite = torch.isfinite(metrics["grad_norm"])
+        loss = metrics.get("loss")
+        if loss is not None:
+            finite = finite & torch.all(torch.isfinite(loss))
+        _guarded_update(optimizer, params, grads, state.opt_state, finite)
+        metrics["nonfinite"] = 1.0 - finite.float()
         return metrics
 
     return body
@@ -149,9 +232,11 @@ class _MultiStep:
     """The window ``make_multi_step`` returns (see there).  ``captures``,
     ``replays`` and ``warmup_steps`` count its graph work on the card."""
 
-    def __init__(self, body, loss_fn, steps_per_dispatch: int):
+    def __init__(self, body, loss_fn, steps_per_dispatch: int,
+                 guarded: bool):
         self._body = body
         self._loss_fn = loss_fn
+        self._guarded = guarded
         self.steps_per_dispatch = steps_per_dispatch
         #: Slots run (a tuple of indices) -> (graph, metric sums, launches).
         self._graphs: Dict[tuple, tuple] = {}
@@ -202,6 +287,8 @@ class _MultiStep:
                                            _slot(super_batch, 0))
             self._metric_shapes = {key: v.shape for key, v in metrics.items()}
             self._metric_shapes["grad_norm"] = torch.Size(())
+            if self._guarded:
+                self._metric_shapes["nonfinite"] = torch.Size(())
         return {key: torch.zeros(shape, dtype=torch.float32,
                                  device=state.step.device)
                 for key, shape in self._metric_shapes.items()}
@@ -243,7 +330,15 @@ class _MultiStep:
     def _capture(self, run) -> tuple:
         """Warm up once on a copy of the state (libraries built and loaded,
         cuBLAS and cuDNN set up on the capture stream), then capture the
-        window's step bodies on the static state as one graph."""
+        window's step bodies on the static state as one graph.
+
+        The capture is ``thread_local``: other threads of the process keep
+        working on the card while it runs (the Trainer's prefetch thread
+        allocates pinned memory and copies on its own stream, a checkpoint
+        writer waits on its snapshot's event), and under the default
+        global mode any such call from any thread invalidates the capture.
+        Autograd's backward thread launches onto the capture stream and
+        is captured as before."""
         device = self._state.step.device
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -261,7 +356,8 @@ class _MultiStep:
         graph = torch.cuda.CUDAGraph()
         try:
             with dispatch.capturing_launches(stream.cuda_stream) as launches:
-                with torch.cuda.graph(graph, stream=stream):
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
                     sums = _window(self._body, self._state, self._batch, run)
         except Exception as exc:
             raise RuntimeError(
@@ -334,4 +430,16 @@ def make_multi_step(
     body = _step_body(loss_fn, optimizer, logical_axes=logical_axes,
                       rules=rules, mesh=mesh, stochastic=stochastic,
                       accum_steps=accum_steps, skip_nonfinite=skip_nonfinite)
-    return _MultiStep(body, loss_fn, steps_per_dispatch)
+    return _MultiStep(body, loss_fn, steps_per_dispatch, skip_nonfinite)
+
+
+def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]]):
+    """``eval_step(state, batch) -> metrics``: the loss function's metrics
+    on ``state.params``, forward only (no gradients)."""
+
+    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            _, metrics = loss_fn(state.params, batch)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return eval_step

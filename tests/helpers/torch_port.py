@@ -21,11 +21,12 @@ import torch
 
 from cloud_tpu.models import bert as jax_bert
 from cloud_tpu.models import generation as jax_gen
+from cloud_tpu.models import mnist as jax_mnist
 from cloud_tpu.models import quantization as jax_quant
 from cloud_tpu.models import resnet as jax_resnet
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
-from cloud_tpu_torch.models import bert, resnet, transformer
+from cloud_tpu_torch.models import bert, mnist, resnet, transformer
 
 #: Smallest top-2 logit gap along a greedy path for it to count as
 #: tie-free: below it, f32 summation order alone could flip an argmax.
@@ -183,6 +184,16 @@ def image_batch(batch, hw, num_classes, seed=0):
     labels = rng.integers(0, num_classes, batch).astype(np.int32)
     images = rng.standard_normal((batch, hw, hw, 3)).astype(np.float32)
     return images, labels
+
+
+def mnist_models(seed=0, hidden_dim=16):
+    """(jax_cfg, jax_params, port_cfg, port_params): MNIST with a narrow
+    hidden layer, JAX's init as numpy and fresh port params on the CPU."""
+    jax_cfg = jax_mnist.MnistConfig(hidden_dim=hidden_dim)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax_mnist.init(jax.random.PRNGKey(seed), jax_cfg))
+    cfg = mnist.MnistConfig(hidden_dim=hidden_dim)
+    return jax_cfg, params, cfg, bridge.mnist_to_torch(params, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)

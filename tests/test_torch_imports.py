@@ -2,9 +2,10 @@
 
 Every module of ``cloud_tpu_torch`` imports with JAX blocked; no module of
 the port, nor ``chip_smoke.py``, ``flash_ab.py`` or ``gn_ab.py``, imports
-``jax`` or the JAX package; the port's copies of framework-free reference
-modules (``monitoring`` with ``report.py``, ``serving/qos.py``,
-``serving/prefix_cache.py``, ``utils/faults.py``, ``utils/retries.py`` and
+``jax``, ``optax``, ``orbax``, ``flax`` or the JAX package; the port's
+copies of framework-free reference modules (``monitoring`` with
+``report.py``, ``serving/qos.py``, ``serving/prefix_cache.py``,
+``utils/faults.py``, ``utils/retries.py``, ``training/preemption.py`` and
 the fleet's ``disagg.py``, ``router.py``, ``replica.py`` and
 ``autoscaler.py``) import only the standard library and the port; and an
 entry point called without ``device="cpu"`` on a host with no card raises
@@ -17,6 +18,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,7 +75,8 @@ def _imported_names(path):
 def test_no_jax_or_reference_imports(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "cloud_tpu"), (
+        assert root not in ("jax", "jaxlib", "optax", "orbax", "flax",
+                            "cloud_tpu"), (
             f"{path.name} imports {name}")
 
 
@@ -89,6 +92,7 @@ STDLIB_COPIES = {
     "serving/prefix_cache.py": "cloud_tpu_torch.monitoring",
     "utils/faults.py": "cloud_tpu_torch.monitoring",
     "utils/retries.py": "cloud_tpu_torch.monitoring",
+    "training/preemption.py": "cloud_tpu_torch.monitoring",
     "fleet/disagg.py": None,
     "fleet/autoscaler.py": None,
     "fleet/router.py": "cloud_tpu_torch.fleet",
@@ -111,9 +115,12 @@ def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device resolves")
     from cloud_tpu_torch import bridge
-    from cloud_tpu_torch.models import bert, generation, resnet, transformer
+    from cloud_tpu_torch.models import (bert, generation, mnist, resnet,
+                                        transformer)
     from cloud_tpu_torch.serving import ServingEngine
-    from cloud_tpu_torch.training import optimizers, train
+    from cloud_tpu_torch.training import (check_durability, checkpoint,
+                                          optimizers, pipeline_io, train,
+                                          trainer)
     from cloud_tpu_torch.utils import benchmarking
 
     cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)
@@ -149,6 +156,16 @@ def test_entry_points_refuse_missing_cuda():
         lambda: bert.apply({}, torch.ones((1, 4)), bert.TINY),
         lambda: benchmarking.bert_train_setup(batch_size=1, seq_len=4,
                                               config=bert.TINY),
+        lambda: bridge.init_mnist(mnist.MnistConfig(), torch.Generator()),
+        lambda: mnist.apply({}, torch.zeros((1, 784))),
+        lambda: trainer.Trainer(lambda p, b: None, optimizers.sgd(0.1)),
+        lambda: checkpoint.CheckpointManager("unused"),
+        lambda: checkpoint.CheckpointCallback("unused")._get(),
+        lambda: pipeline_io.prefetch_to_device(list),
+        lambda: pipeline_io.prefetch_windows(list, 2),
+        lambda: pipeline_io.iter_windows(list, 2),
+        lambda: pipeline_io.place_batch({"x": np.zeros(2)}),
+        lambda: check_durability.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -194,6 +194,20 @@ def test_super_batch_leading_axis_raises_as_jax():
     {"skip_nonfinite": True}, {"logical_axes": {}}, {"rules": object()},
 ], ids=lambda o: next(iter(o)))
 def test_unported_window_options_raise_as_the_step(option):
+    """The window refuses what the step refuses; ``accum_steps`` and
+    ``skip_nonfinite`` are ported (held to JAX in
+    ``tests/test_torch_trainer.py``) and build a window that runs."""
+    if next(iter(option)) in ("accum_steps", "skip_nonfinite"):
+        state = train.create_sharded_state(
+            None, lambda _: {"w": torch.ones(3)}, optimizers.sgd(0.1),
+            device="cpu")
+        window = train.make_multi_step(
+            lambda p, b: ((p["w"] * b["x"]).mean(), {}), optimizers.sgd(0.1),
+            steps_per_dispatch=2, **option)
+        state, metrics = window(state, {"x": torch.ones(2, 4, 3)})
+        assert int(state.step) == 2
+        assert all(torch.isfinite(v) for v in metrics.values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
                               steps_per_dispatch=2, **option)

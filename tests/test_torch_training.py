@@ -114,6 +114,20 @@ def test_resnet_train_setup_and_chained_throughput_on_cpu():
     {"skip_nonfinite": True}, {"logical_axes": {}},
 ])
 def test_unsupported_step_options_raise(option):
+    """Options of a later item raise naming it; ``accum_steps`` and
+    ``skip_nonfinite`` are ported (held to JAX in
+    ``tests/test_torch_trainer.py``) and build a step that runs."""
+    if next(iter(option)) in ("accum_steps", "skip_nonfinite"):
+        state = train.create_sharded_state(
+            None, lambda _: {"w": torch.ones(3)}, optimizers.sgd(0.1),
+            device="cpu")
+        step = train.make_train_step(
+            lambda p, b: ((p["w"] * b["x"]).mean(), {}), optimizers.sgd(0.1),
+            **option)
+        state, metrics = step(state, {"x": torch.ones(4, 3)})
+        assert int(state.step) == 1
+        assert all(torch.isfinite(v) for v in metrics.values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
         train.make_train_step(lambda p, b: None, optimizers.sgd(0.1),
                               **option)
