@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager, in CUDA-graph windows and through the Trainer with checkpoints and durable resume) and transformer training paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout) once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -144,7 +144,24 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    step a dispatch and in windows of 4, a restore into a window's graph
    state, the non-finite guard bit for bit across a poisoned slot, and
    ``python -m cloud_tpu_torch.training.check_durability --device cuda``:
-   kill -9, both corruptions, the walk-back's fallbacks and quarantine);
+   a stochastic run (input-noise dropout from the rng chain), kill -9,
+   both corruptions, the walk-back's fallbacks and quarantine, the
+   resumed losses and params digest equal to the control's); then
+   compile-ahead (4a: ``Trainer.fit(compile_ahead=True)`` on CIFAR b256
+   bf16 one step a dispatch, in windows of 4, again on the same Trainer
+   (a registry hit: nothing captured) and with ``batch_spec=``: no
+   ``CompileAhead.error``, every train dispatch a graph replay, exact
+   K1-K4 launches with the warm-ups and eval steps; ``compile/ahead_wait``,
+   submit-to-first-step and steps/s printed beside 4t's; then
+   ``aot_compile``'s one-step graph of f32 ResNet-50 b8 against as many
+   eager steps), the persistent kernel cache (4k: a cold and a warm child
+   process through one ``CLOUD_TPU_COMPILE_CACHE`` directory; the cold one
+   probes and builds only ``group_norm``, the warm one builds nothing;
+   their first-dispatch and submit-to-first-step seconds printed) and the
+   record pipeline (4p: CIFAR b256 as tensor records in 2 files,
+   ``fit`` over ``RecordDataset`` with exact launches, records/s decoded,
+   and a resumed run consuming exactly the uninterrupted stream's next
+   batches);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -158,10 +175,15 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    on identical gradients;
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
-   device time as phase 6 does;
+   device time as phase 6 does; then the stochastic step (7s: dropout
+   0.1 from the state's threefry key, ``adamw(2e-5, mask=...)``, 3 + 10
+   steps with the same launches, steps/s and dropout's device share
+   beside phase 7's; one f32 step at b2 on the card against the CPU,
+   masks included; a window of 4 stochastic steps against 4 eager ones);
 8. prints one JSON line describing every kernel (a serving kernel's
-   launches summed over the serving phases, K1-K4's over phases 4, 4t
-   and 4r, each counted from 0 just before its run), then, as its last
+   launches summed over the serving phases and 7s, K6/K7's over 6 and 7s,
+   K1-K4's over phases 4, 4t, 4r, 4a and 4p, each counted from 0 just
+   before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Any failed phase ends the run with a
@@ -4247,7 +4269,8 @@ def _state_equal(what, got, want):
 
     from cloud_tpu_torch import bridge
 
-    pairs = ([("step", got.step, want.step)]
+    rng = [] if want.rng is None else [("rng", got.rng, want.rng)]
+    pairs = ([("step", got.step, want.step)] + rng
              + [("params", a, b) for a, b in zip(
                  bridge.leaves(got.params), bridge.leaves(want.params))]
              + [("opt_state", a, b) for a, b in zip(
@@ -4780,6 +4803,693 @@ def check_exactly_once(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 4a, 4k, 4p: compile-ahead, the persistent kernel cache, records
+# ---------------------------------------------------------------------------
+
+#: 4a's arms: (label, steps a dispatch, batch_spec given, fresh Trainer).
+AHEAD_ARMS = (("K=1", 1, False, True), ("K=4", FUSED_K, False, False),
+              ("K=1 again (registry)", 1, False, False),
+              ("K=1 batch_spec", 1, True, True))
+AHEAD_BATCHES, ONE_STEP_GRAPH_STEPS = 12, 4
+
+
+def _span_total(events, name):
+    return sum(e["dur"] for e in events if e["name"] == name) / 1e6
+
+
+def _cifar_trainer(device, cfg=None, seed=0, **kw):
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.training import optimizers, trainer
+
+    cfg = cfg or resnet.RESNET50_CIFAR
+    tr = trainer.Trainer(
+        functools.partial(resnet.loss_fn, config=cfg, device=device),
+        optimizers.sgd(0.1, momentum=0.9),
+        init_fn=lambda gen: bridge.init_resnet(cfg, gen, device=device),
+        device=device, **kw)
+    tr.init_state(torch.Generator(device=device).manual_seed(seed))
+    return tr
+
+
+class _ArtifactCounts:
+    """The graph work of plan steps' artifacts since the last read: an
+    artifact served again from the registry carries its earlier counts."""
+
+    def __init__(self):
+        self._seen = {}
+
+    def read(self, plan, label):
+        """(warm-ups, replays, captures) of ``label``'s artifact since
+        this object last read it."""
+        compiled = plan.steps[label].compiled
+        graphed = getattr(compiled, "graphed", None) or compiled._graphed
+        now = (graphed.warmup_steps, graphed.replays, graphed.captures)
+        before = self._seen.get(id(graphed), (0, 0, 0))
+        self._seen[id(graphed)] = now
+        return tuple(a - b for a, b in zip(now, before))
+
+
+def check_one_step_graph(device, card):
+    """``compile_cache.aot_compile`` of ``make_train_step`` (f32
+    ResNet-50 CIFAR b8, SGD momentum, cuDNN deterministic) from specs:
+    4 replays of the one-step graph, each batch copied into its static
+    buffers, against 4 eager steps from the same state: params and
+    momentum within TOL_F32 of max(1, max |p|), the step count exact,
+    launches (1 warm-up + 4 replays) x 37/16/37/16."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import compile_cache, optimizers, train
+
+    n = ONE_STEP_GRAPH_STEPS
+    cfg = dataclasses.replace(resnet.RESNET50_CIFAR, dtype=torch.float32)
+    params = bridge.init_resnet(cfg, torch.Generator().manual_seed(5),
+                                device="cpu")
+    arrays = _cifar_arrays(n * 8, 6)
+    batches = [{k: torch.from_numpy(v[i * 8:(i + 1) * 8]).to(device)
+                for k, v in arrays.items()} for i in range(n)]
+    tx = optimizers.sgd(0.1, momentum=0.9)
+    loss = functools.partial(resnet.loss_fn, config=cfg, device=device)
+
+    def fresh():
+        return train.create_sharded_state(
+            None, lambda _: bridge.map_leaves(params, torch.clone), tx,
+            device=device)
+
+    step = train.make_train_step(loss, tx)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        state = fresh()
+        artifact = compile_cache.aot_compile(
+            step, compile_cache.abstract_state(state),
+            compile_cache.abstract_batch(batches[0], device=device),
+            label="train_step")
+        graphed = artifact.graphed
+        for b in batches:
+            state, _ = artifact(state, b)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts(GN_KERNELS)
+        want_launches = _gn_times(GN_PER_STEP, graphed.warmup_steps
+                                  + graphed.replays)
+        if (graphed.captures, graphed.replays) != (1, n) or (
+                launches != want_launches):
+            raise AssertionError(
+                f"one-step graph: {graphed.captures} captures, "
+                f"{graphed.replays} replays, launches {launches} != "
+                f"{want_launches}")
+        want = fresh()
+        for b in batches:
+            want, _ = step(want, b)
+        if not int(state.step) == int(want.step) == n:
+            raise AssertionError(f"one-step graph: step {int(state.step)}")
+        errs = {"launches": launches, "params": _hold("one-step graph params",
+                                bridge.leaves(state.params),
+                                bridge.leaves(want.params), TOL_F32),
+                "momentum": _hold("one-step graph momentum",
+                                  bridge.leaves(state.opt_state),
+                                  bridge.leaves(want.opt_state), TOL_F32)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"  aot_compile(make_train_step) from specs, f32 ResNet-50 CIFAR "
+          f"b8: {n} replays of the one-step graph vs {n} eager steps: "
+          f"params max_abs_err {errs['params']:.3e}, momentum "
+          f"{errs['momentum']:.3e} (tol {TOL_F32} x max(1, max|p|)), "
+          f"launches {launches} ok [{card}]")
+    del artifact, graphed, state, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_compile_ahead(device, card, fit):
+    """4a: ``Trainer.fit(compile_ahead=True)`` on ResNet-50 CIFAR b256
+    bf16 (12 shuffled batches, 2 validation batches, prefetch 2): one step
+    a dispatch, in windows of 4, one step a dispatch again on the same
+    Trainer (a registry hit: no capture, no ``compile/backend_compile``
+    span), and with ``batch_spec=`` on a fresh Trainer.  Each arm: no
+    ``CompileAhead.error``, every train dispatch a replay of the
+    artifact's graph, the eval graph attached, exact K1-K4 launches
+    ((train warm-ups + replayed steps) x 37/16/37/16, (eval warm-ups +
+    eval steps) x 37/16/0/0); ``compile/ahead_wait``, the
+    submit-to-first-step gauge and fit's steps/s printed beside 4t's
+    eager and K=4 arms (``fit``).  Then the one-step graph against eager
+    steps (:func:`check_one_step_graph`)."""
+    import torch
+
+    from cloud_tpu_torch.monitoring import metrics, tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import compile_cache, data
+
+    arrays = _cifar_arrays(AHEAD_BATCHES * CIFAR_BATCH, 0)
+    val = data.ArrayDataset(_cifar_arrays(FIT_VAL_BATCHES * CIFAR_BATCH, 1),
+                            CIFAR_BATCH)
+    spec = {"image": np.zeros((CIFAR_BATCH, 32, 32, 3), np.float32),
+            "label": np.zeros((CIFAR_BATCH,), np.int64)}
+    out = {"arms": [], "launches": {}}
+    tr = None
+    counts = _ArtifactCounts()
+    compile_cache.clear_registry()
+    for label, k, with_spec, fresh in AHEAD_ARMS:
+        if fresh:
+            tr = _cifar_trainer(device)
+        ds = data.ArrayDataset(arrays, CIFAR_BATCH, shuffle=True, seed=0)
+        counters = metrics.snapshot()["counters"]
+        hits = counters.get("compile/registry_hit", 0)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        tracing.mark_submit()
+        start_step = int(tr.state.step)
+        train_label = "train_step" if k == 1 else "multi_step"
+        with tracing.collecting() as collector:
+            history = tr.fit(ds, epochs=1, prefetch=2, steps_per_dispatch=k,
+                             validation_data=val, compile_ahead=True,
+                             batch_spec=spec if with_spec else None)
+            plan = tr.compile_plan
+            plan.wait()
+            torch.cuda.synchronize()
+        events = collector.events()
+        launches = dispatch.launch_counts(GN_KERNELS)
+        what = f"fit(compile_ahead=True) {label}"
+        if plan.error is not None:
+            raise AssertionError(f"{what}: CompileAhead.error "
+                                 f"{plan.error!r}")
+        steps = int(tr.state.step) - start_step
+        t_warm, t_replays, t_caps = counts.read(plan, train_label)
+        e_warm, e_replays, _ = counts.read(plan, "eval_step")
+        dispatches = steps // k
+        if steps != AHEAD_BATCHES or t_replays != dispatches:
+            raise AssertionError(f"{what}: {steps} steps, {t_replays} "
+                                 f"replays for {dispatches} dispatches")
+        want = _gn_sum(_gn_times(GN_PER_STEP, t_warm + steps),
+                       _gn_times(GN_EVAL_PER_STEP,
+                                 e_warm + FIT_VAL_BATCHES))
+        if launches != want:
+            raise AssertionError(
+                f"{what}: launches {launches} != {want} ({t_warm} train "
+                f"warm-ups, {steps} steps, {e_warm} eval warm-ups, "
+                f"{e_replays} eval replays)")
+        compiles = [e for e in events
+                    if e["name"] == "compile/backend_compile"]
+        new_hits = metrics.snapshot()["counters"].get(
+            "compile/registry_hit", 0) - hits
+        if "registry" in label and (compiles or t_caps or new_hits != 2):
+            raise AssertionError(f"{what}: {len(compiles)} captures, "
+                                 f"{new_hits} registry hits (want 0, 2)")
+        logs = {key: v[-1] for key, v in history.history.items()}
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"{what}: History {logs}")
+        gauge = metrics.snapshot()["gauges"].get(
+            tracing.SUBMIT_TO_FIRST_STEP_GAUGE)
+        arm = {"label": label, "steps_per_dispatch": k,
+               "batch_spec": with_spec,
+               "steps_per_s": steps / logs["epoch_seconds"],
+               "epoch_seconds": logs["epoch_seconds"],
+               "ahead_wait_s": _span_total(events, "compile/ahead_wait"),
+               "lower_s": _span_total(events, "compile/lower"),
+               "backend_compile_s": _span_total(
+                   events, "compile/backend_compile"),
+               "first_dispatch_s": _span_total(events, "step/first_compile"),
+               "submit_to_first_step_seconds": gauge,
+               "train_warmups": t_warm, "train_replays": t_replays,
+               "eval_warmups": e_warm, "eval_replays": e_replays,
+               "captures": len(compiles), "registry_hits": new_hits,
+               "launches": launches, "history": logs}
+        out["arms"].append(arm)
+        out["launches"] = _gn_sum(out["launches"], launches)
+        print(f"  {what}: {arm['steps_per_s']:.3f} steps/s over the epoch "
+              f"({logs['epoch_seconds']:.3f} s); compile/ahead_wait "
+              f"{arm['ahead_wait_s']:.4f} s, compile/lower "
+              f"{arm['lower_s']:.3f} s, compile/backend_compile "
+              f"{arm['backend_compile_s']:.3f} s, first dispatch "
+              f"{arm['first_dispatch_s']:.4f} s, submit to first step "
+              f"{gauge:.3f} s; {t_replays} train replays of {dispatches} "
+              f"dispatches, {e_replays} eval replays, captures "
+              f"{len(compiles)}, registry hits {new_hits}; launches "
+              f"{launches} ok [{card}]")
+    eager_k1 = fit["arms"][3]["steps_per_s"]
+    eager_k4 = fit["arms"][1]["steps_per_s"]
+    print(f"  fit steps/s, compile-ahead: {out['arms'][0]['steps_per_s']:.3f}"
+          f" (K=1, one-step graph), {out['arms'][1]['steps_per_s']:.3f} "
+          f"(K=4), {out['arms'][2]['steps_per_s']:.3f} (K=1, registry); 4t "
+          f"eager K=1 (no checkpoints) {eager_k1:.3f}, K=4 {eager_k4:.3f} "
+          f"[{card}]")
+    out.update({"fit_eager_k1_steps_per_s": eager_k1,
+                "fit_k4_steps_per_s": eager_k4})
+    del tr
+    compile_cache.clear_registry()
+    torch.cuda.empty_cache()
+    out["one_step_graph"] = check_one_step_graph(device, card)
+    out["launches"] = _gn_sum(out["launches"],
+                              out["one_step_graph"]["launches"])
+    return out
+
+
+#: 4k's child: a fresh process that times ResNet-50 CIFAR b256 bf16
+#: ``fit(compile_ahead=True)`` (4 batches) under the cache directory the
+#: environment names, and prints one JSON line.
+COLD_START_CHILD = r"""
+import functools, json, sys, time
+import numpy as np
+import torch
+from cloud_tpu_torch import bridge
+from cloud_tpu_torch.models import resnet
+from cloud_tpu_torch.monitoring import metrics, tracing
+from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.training import compile_cache, data, optimizers, trainer
+
+device = torch.device("cuda", 0)
+torch.cuda.set_device(device)
+cfg = resnet.RESNET50_CIFAR
+tr = trainer.Trainer(
+    functools.partial(resnet.loss_fn, config=cfg, device=device),
+    optimizers.sgd(0.1, momentum=0.9),
+    init_fn=lambda gen: bridge.init_resnet(cfg, gen, device=device),
+    device=device)
+tr.init_state(torch.Generator(device=device).manual_seed(0))
+rng = np.random.default_rng(0)
+n = 4 * 256
+ds = data.ArrayDataset({"image": rng.normal(size=(n, 32, 32, 3)).astype(
+    np.float32), "label": rng.integers(0, 10, n).astype(np.int64)}, 256)
+with tracing.collecting() as col:
+    tr.fit(ds, epochs=1, compile_ahead=True)
+    torch.cuda.synchronize()
+total = lambda name: sum(e["dur"] for e in col.events()
+                         if e["name"] == name) / 1e6
+print(json.dumps({
+    "cache_enabled": compile_cache.persistent_cache_enabled(),
+    "build_dir": dispatch.build_dir(),
+    "build_seconds": dispatch.build_seconds,
+    "libs": sorted(dispatch._libs),
+    "probe_seconds": total("compile/cache_probe"),
+    "ahead_wait_seconds": total("compile/ahead_wait"),
+    "lower_seconds": total("compile/lower"),
+    "first_dispatch_seconds": total("compile/ahead_wait")
+                              + total("step/first_compile"),
+    "submit_to_first_step_seconds": metrics.snapshot()["gauges"].get(
+        tracing.SUBMIT_TO_FIRST_STEP_GAUGE),
+    "plan_error": repr(tr.compile_plan.error),
+    "steps": int(tr.state.step)}))
+"""
+
+
+def run_cold_start(device, card):
+    """4k, the counterpart of ``scripts/check_cold_start.py``: two fresh
+    child processes share one empty ``CLOUD_TPU_COMPILE_CACHE`` directory
+    and each times a ResNet-50 CIFAR b256 ``fit(compile_ahead=True)``
+    from its submit (``CLOUD_TPU_SUBMIT_TS``, set at spawn).  The cold
+    child probes the directory (a grandchild builds K5's library there
+    and holds it to its plain version) and builds only what its step
+    needs (``group_norm``); the warm child finds the probe's marker and
+    the library and builds nothing (every ``dispatch.build_seconds`` 0).
+    First-dispatch and submit-to-first-step seconds of each printed."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cold_")
+    cache = os.path.join(root, "kernel-cache")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    try:
+        for arm in ("cold", "warm"):
+            env = dict(os.environ, CLOUD_TPU_COMPILE_CACHE=cache,
+                       CLOUD_TPU_SUBMIT_TS=repr(time.time()))
+            env["PYTHONPATH"] = os.pathsep.join(
+                [repo] + [p for p in env.get("PYTHONPATH", "").split(
+                    os.pathsep) if p])
+            start = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", COLD_START_CHILD],
+                                  capture_output=True, text=True,
+                                  timeout=400, cwd=root, env=env)
+            wall = time.perf_counter() - start
+            lines = [line for line in proc.stdout.splitlines()
+                     if line.startswith("{")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"{arm} child: exit {proc.returncode}, "
+                                     f"stderr {proc.stderr[-2000:]}")
+            got = json.loads(lines[-1])
+            got["process_wall_seconds"] = wall
+            built = sorted(k for k, v in got["build_seconds"].items() if v > 0)
+            want_built = ["group_norm"] if arm == "cold" else []
+            if (not got["cache_enabled"] or got["plan_error"] != "None"
+                    or os.path.realpath(got["build_dir"])
+                    != os.path.realpath(cache)
+                    or got["libs"] != ["group_norm"] or built != want_built
+                    or got["steps"] != 4
+                    or (arm == "warm") != (got["probe_seconds"] == 0)):
+                raise AssertionError(f"{arm} child: {got}")
+            out[arm] = got
+            print(f"  {arm} child: built {built or 'nothing'} "
+                  f"({', '.join(f'{k} {v:.1f} s' for k, v in got['build_seconds'].items())}), "
+                  f"probe {got['probe_seconds']:.2f} s, compile/ahead_wait "
+                  f"{got['ahead_wait_seconds']:.3f} s, first dispatch "
+                  f"{got['first_dispatch_seconds']:.3f} s, submit to first "
+                  f"step {got['submit_to_first_step_seconds']:.3f} s, "
+                  f"process {wall:.1f} s [{card}]")
+        libs = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+        if not (any(f.startswith("libflash_fwd_") for f in libs)
+                and any(f.startswith("libgroup_norm_") for f in libs)):
+            raise AssertionError(f"cache directory holds {libs}")
+        out["cache_files"] = libs
+        print(f"  warm against cold: first dispatch "
+              f"{out['warm']['first_dispatch_seconds']:.3f} vs "
+              f"{out['cold']['first_dispatch_seconds']:.3f} s, submit to "
+              f"first step {out['warm']['submit_to_first_step_seconds']:.3f}"
+              f" vs {out['cold']['submit_to_first_step_seconds']:.3f} s; "
+              f"cache holds {libs} [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+RECORD_FILES, RECORD_BATCHES, RECORD_STOP = 2, 12, 6
+
+
+class _Fingerprinted:
+    """A dataset wrapper that records a digest of every batch it yields,
+    in order (the resume hooks pass through)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+        self.seen = []
+
+    def state_dict(self):
+        return self.dataset.state_dict()
+
+    def load_state_dict(self, state):
+        self.dataset.load_state_dict(state)
+
+    def __call__(self):
+        import hashlib
+
+        for batch in self.dataset():
+            self.seen.append(hashlib.sha256(
+                batch["label"].tobytes() + batch["image"].tobytes()
+            ).hexdigest())
+            yield batch
+
+
+def run_records_fit(device, card, fit):
+    """4p: CIFAR b256 arrays (numpy seed 7) written as tensor records
+    into 2 files, read by ``RecordDataset`` (shuffle buffer 512, seed 3):
+    records/s decoded on the host; ``Trainer.fit`` over it with prefetch
+    (12 batches, one step a dispatch, bf16) with exact K1-K4 launches and
+    its steps/s beside 4t's in-memory arm; then a run stopped after step 6
+    with ``CheckpointCallback(every_n_steps=6, resume_data=True)`` and a
+    fresh Trainer resumed from that checkpoint: the batches the resumed
+    run consumes are exactly the uninterrupted stream's 7th to 12th
+    (sha256 of each), and it ends at step 12."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import records, trainer
+    from cloud_tpu_torch.training.checkpoint import CheckpointCallback
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    out = {}
+    try:
+        arrays = _cifar_arrays(RECORD_BATCHES * CIFAR_BATCH, 7)
+        start = time.perf_counter()
+        paths = records.write_records(
+            os.path.join(root, "cifar-{shard}.rec"),
+            ({k: v[i] for k, v in arrays.items()}
+             for i in range(len(arrays["label"]))), num_shards=RECORD_FILES)
+        write_s = time.perf_counter() - start
+
+        def dataset():
+            return records.RecordDataset(paths, batch_size=CIFAR_BATCH,
+                                         shuffle_buffer=512, seed=3,
+                                         verify=True)
+
+        start = time.perf_counter()
+        want = _Fingerprinted(dataset())
+        n = sum(len(b["label"]) for b in want())
+        decode_s = time.perf_counter() - start
+        if n != RECORD_BATCHES * CIFAR_BATCH or len(want.seen) != (
+                RECORD_BATCHES):
+            raise AssertionError(f"records: {n} examples decoded")
+        steps_total = 0
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        tr = _cifar_trainer(device)
+        history = tr.fit(dataset(), epochs=1, prefetch=2)
+        steps = int(tr.state.step)
+        logs = {k: v[-1] for k, v in history.history.items()}
+        rate = steps / logs["epoch_seconds"]
+        steps_total += steps
+        ckpt = os.path.join(root, "ckpt")
+        first = _cifar_trainer(device)
+        first_data = _Fingerprinted(dataset())
+        first.fit(first_data, epochs=1, prefetch=2, callbacks=[
+            CheckpointCallback(ckpt, every_n_steps=RECORD_STOP,
+                               resume_data=True, device=device),
+            trainer.LambdaCallback(on_step_end=lambda s, l, t: setattr(
+                t, "stop_training", s >= RECORD_STOP))])
+        steps_total += int(first.state.step)
+        resumed = _cifar_trainer(device)
+        resumed_data = _Fingerprinted(dataset())
+        resumed.fit(resumed_data, epochs=1, prefetch=2, callbacks=[
+            CheckpointCallback(ckpt, every_n_steps=100, resume_data=True,
+                               device=device)])
+        steps_total += int(resumed.state.step) - RECORD_STOP
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts(GN_KERNELS)
+        want_launches = _gn_times(GN_PER_STEP, steps_total)
+        consumed = resumed_data.seen[:RECORD_BATCHES - RECORD_STOP]
+        if (steps != RECORD_BATCHES or int(first.state.step) != RECORD_STOP
+                or int(resumed.state.step) != RECORD_BATCHES
+                or first_data.seen[:RECORD_STOP] != want.seen[:RECORD_STOP]
+                or consumed != want.seen[RECORD_STOP:]
+                or launches != want_launches):
+            raise AssertionError(
+                f"records fit: steps {steps}/{int(first.state.step)}/"
+                f"{int(resumed.state.step)}, resumed batches equal "
+                f"{[a == b for a, b in zip(consumed, want.seen[RECORD_STOP:])]}"
+                f", launches {launches} != {want_launches}")
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"records fit: History {logs}")
+        in_memory = fit["arms"][3]["steps_per_s"]
+        out = {"write_seconds": write_s,
+               "records_per_s_decoded": n / decode_s,
+               "steps_per_s": rate, "in_memory_steps_per_s": in_memory,
+               "resumed_at": RECORD_STOP, "launches": launches,
+               "files": [os.path.getsize(p) for p in paths]}
+        print(f"  {n} CIFAR records in {RECORD_FILES} files "
+              f"({sum(out['files']) / 2**20:.1f} MiB, written in "
+              f"{write_s:.2f} s): {out['records_per_s_decoded']:.0f} "
+              f"records/s read, crc-verified and decoded (shuffle buffer "
+              f"512); fit over RecordDataset {rate:.3f} steps/s against "
+              f"4t's in-memory {in_memory:.3f} (K=1, no checkpoints); a run "
+              f"stopped at step {RECORD_STOP} resumed on exactly the "
+              f"uninterrupted stream's batches {RECORD_STOP + 1}-"
+              f"{RECORD_BATCHES} (sha256); launches {launches} = "
+              f"{steps_total} steps x {GN_PER_STEP} [{card}]")
+        del tr, first, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7s: stochastic BERT-base
+# ---------------------------------------------------------------------------
+
+BERT_DROPOUT = 0.1
+STOCH_WINDOW_LAYERS = 2
+
+
+def _bert_decay_mask(params):
+    """No weight decay on biases, LayerNorm parameters or embedding
+    tables (the usual BERT fine-tune mask)."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path) for v in tree]
+        return not ({"bias", "scale", "table"} & set(path))
+    return walk(params, ())
+
+
+def _stochastic_bert(device, cfg, tx, batch_size, seq, *, seed=0):
+    """(step, state, batch): BERT ``cfg`` with dropout, f32 master weights
+    random from ``seed``, the state's key ``PRNGKey(7)``; tokens and
+    labels from numpy seed 0 (bench.py's BERT batch)."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch import random as random_lib
+    from cloud_tpu_torch.models import bert
+    from cloud_tpu_torch.training import train
+
+    params = bridge.init_bert(cfg, torch.Generator().manual_seed(seed),
+                              device="cpu")
+    state = train.create_sharded_state(
+        None, lambda _: bridge.map_leaves(params, torch.clone), tx,
+        train_rng=random_lib.PRNGKey(7), device=device)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq))
+    label = rng.integers(0, 2, batch_size)
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
+             "label": torch.from_numpy(label.astype(np.int64)).to(device)}
+    loss = functools.partial(bert.loss_fn, cfg=cfg, device=device)
+    return loss, state, batch
+
+
+def check_stochastic_bert(device, card):
+    """7s's checks: (1) one f32 stochastic step of BERT-base (12 layers)
+    at b2 x T128 on the card against the same step on the CPU (SGD 0.1,
+    the same key): loss within 1e-4 relative (another dropout mask moves
+    it far more), grad_norm within 1e-3 relative (an f32 sum of 1.1e8
+    squared gradients, reduced in another order on each device), every
+    parameter (the gradients, through the update) within TOL_F32 of
+    max(1, max |p|), the next key equal; (2) a K=4 window (CUDA graph)
+    of stochastic steps of BERT-base at 2 layers, f32, b4 x T128, masked
+    AdamW, against 4 eager stochastic steps: params and both moments
+    within 1e-6 of max(1, max |p|), the key equal, launches exact."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import bert
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import optimizers, train
+
+    out = {}
+    cfg = dataclasses.replace(bert.BERT_BASE, dtype=torch.float32,
+                              dropout_rate=BERT_DROPOUT)
+    res = {}
+    for dev in ("cpu", device):
+        tx = optimizers.sgd(0.1)
+        loss, state, batch = _stochastic_bert(dev, cfg, tx, 2, BERT_SEQ)
+        step = train.make_train_step(loss, tx, stochastic=True)
+        state, m = step(state, batch)
+        res[str(dev)] = (state, {k: float(v) for k, v in m.items()})
+    (cpu_state, cpu_m), (gpu_state, gpu_m) = res["cpu"], res[str(device)]
+    for key, tol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        rel = abs(gpu_m[key] - cpu_m[key]) / abs(cpu_m[key])
+        out[f"b2 {key} rel"] = rel
+        if not rel <= tol:
+            raise AssertionError(f"stochastic BERT b2 {key}: card "
+                                 f"{gpu_m[key]} vs CPU {cpu_m[key]}")
+    if not torch.equal(gpu_state.rng.cpu(), cpu_state.rng):
+        raise AssertionError("stochastic BERT b2: the keys differ")
+    out["b2 params"] = _hold("stochastic BERT b2 params",
+                             [p.cpu() for p in bridge.leaves(
+                                 gpu_state.params)],
+                             bridge.leaves(cpu_state.params), TOL_F32)
+    print(f"  f32 stochastic BERT-base b2xT{BERT_SEQ} (dropout "
+          f"{BERT_DROPOUT}), card vs CPU: loss {gpu_m['loss']:.6f} vs "
+          f"{cpu_m['loss']:.6f}, grad_norm {gpu_m['grad_norm']:.5f} vs "
+          f"{cpu_m['grad_norm']:.5f} (rel {out['b2 grad_norm rel']:.1e}), "
+          f"params max_abs_err "
+          f"{out['b2 params']:.3e}, next key equal ok [{card}]")
+    del res, cpu_state, gpu_state
+    torch.cuda.empty_cache()
+
+    k = FUSED_K
+    cfg2 = dataclasses.replace(cfg, num_layers=STOCH_WINDOW_LAYERS)
+    tx = optimizers.adamw(1e-4, mu_dtype=None, mask=_bert_decay_mask)
+    loss, state0, batch = _stochastic_bert(device, cfg2, tx, 4, BERT_SEQ)
+    super_batch = {n: torch.stack([t.roll(i, 0) for i in range(k)])
+                   for n, t in batch.items()}
+    window = train.make_multi_step(loss, tx, steps_per_dispatch=k,
+                                   stochastic=True)
+
+    def fresh():
+        from cloud_tpu_torch.training import trainer
+        return trainer._copy_state(state0, device)
+
+    dispatch.reset_launch_counts()
+    got, _ = window(fresh(), super_batch)
+    torch.cuda.synchronize()
+    per_step = {n: STOCH_WINDOW_LAYERS for n in TRAIN_ATTN_KERNELS}
+    _window_launches("stochastic BERT window", dispatch.launch_counts(
+        TRAIN_ATTN_KERNELS), window, (0, 0), per_step, k)
+    want = fresh()
+    step = train.make_train_step(loss, tx, stochastic=True)
+    for i in range(k):
+        want, _ = step(want, {n: t[i] for n, t in super_batch.items()})
+    if not torch.equal(got.rng, want.rng) or int(got.step) != k:
+        raise AssertionError("stochastic BERT window: the key or the step "
+                             "count differs from the eager steps'")
+    for name, a, b in (("params", got.params, want.params),
+                       ("mu", got.opt_state["mu"], want.opt_state["mu"]),
+                       ("nu", got.opt_state["nu"], want.opt_state["nu"])):
+        out[f"window {name}"] = _hold(f"stochastic BERT window {name}",
+                                      bridge.leaves(a), bridge.leaves(b),
+                                      1e-6)
+    print(f"  f32 stochastic BERT {STOCH_WINDOW_LAYERS} layers b4xT"
+          f"{BERT_SEQ}, masked AdamW: window of {k} (CUDA graph) vs {k} "
+          f"eager steps: params {out['window params']:.3e}, mu "
+          f"{out['window mu']:.3e}, nu {out['window nu']:.3e} (tol 1e-6 x "
+          f"max(1, max|p|)), key equal ok [{card}]")
+    del window, got, want, state0
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_stochastic_bert(device, card, plain):
+    """7s: BERT-base b32 x T128 bf16 with dropout 0.1, ``stochastic=True``
+    and ``adamw(2e-5, mask=...)`` for 3 + 10 steps (exactly 12 K5, 12 K6
+    and 12 K7 launches a step), steps/s beside phase 7's dropout-free arm
+    (``plain``), one step profiled (dropout's device share: the step's
+    device time over phase 7's, less one), then :func:`check_stochastic_bert`."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch.models import bert
+    from cloud_tpu_torch.training import optimizers, train
+
+    cfg = dataclasses.replace(bert.BERT_BASE, dropout_rate=BERT_DROPOUT)
+    tx = optimizers.adamw(2e-5, mu_dtype=None, mask=_bert_decay_mask)
+
+    def setup():
+        loss, state, batch = _stochastic_bert(device, cfg, tx, BERT_BATCH,
+                                              BERT_SEQ)
+        return train.make_train_step(loss, tx, stochastic=True), state, batch
+
+    result, run = run_steps(
+        card, f"stochastic BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
+        f"dropout {BERT_DROPOUT}, masked AdamW", setup, BERT_PER_STEP,
+        BERT_BATCH * BERT_SEQ, "tokens", warmup=3, iters=10)
+    result.update(profile_attn_step(
+        card, f"stochastic BERT b{BERT_BATCH}xT{BERT_SEQ}", BERT_PER_STEP,
+        *run))
+    del run
+    torch.cuda.empty_cache()
+    busy, base = result["step_device_busy_ms"], plain["step_device_busy_ms"]
+    result["dropout_device_ms"] = busy - base
+    result["dropout_device_share"] = (busy - base) / busy
+    result["plain_steps_per_s"] = plain["steps_per_s"]
+    print(f"  stochastic BERT {result['steps_per_s']:.3f} steps/s against "
+          f"phase 7's {plain['steps_per_s']:.3f} without dropout; device "
+          f"{busy:.3f} ms a step against {base:.3f}: dropout (threefry "
+          f"masks, splits, selects) {busy - base:.3f} ms, "
+          f"{result['dropout_device_share']:.3f} of the step [{card}]")
+    result["checks"] = check_stochastic_bert(device, card)
+    return result
+
+
 #: Kernels whose bf16 instantiations must run on the tensor cores, by
 #: library.
 TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
@@ -4984,6 +5694,26 @@ def main() -> int:
         start = time.perf_counter()
         exact = check_exactly_once(device, card)
         print(f"  (exactly-once: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4a: Trainer.fit(compile_ahead=True), ResNet-50 "
+                 "CIFAR b256 bf16: one step a dispatch, windows of "
+                 f"{FUSED_K}, a registry hit, batch_spec=; then a one-step "
+                 "graph against eager steps")
+        print(title)
+        start = time.perf_counter()
+        ahead = run_compile_ahead(device, card, fit)
+        print(f"  (compile-ahead: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4k: a cold and a warm process through one "
+                 "CLOUD_TPU_COMPILE_CACHE directory")
+        print(title)
+        start = time.perf_counter()
+        cold = run_cold_start(device, card)
+        print(f"  (cold start: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 4p: the record pipeline: CIFAR b256 as tensor "
+                 "records, fit over RecordDataset, exactly-once resume")
+        print(title)
+        start = time.perf_counter()
+        recs = run_records_fit(device, card, fit)
+        print(f"  (records: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
                  "one step under torch.profiler")
         print(title)
@@ -5027,6 +5757,16 @@ def main() -> int:
             card, f"BERT b{BERT_BATCH}xT{BERT_SEQ}", BERT_PER_STEP,
             *bert_steps))
         del bert_steps
+        torch.cuda.empty_cache()
+        title = (f"phase 7s: stochastic BERT-base b{BERT_BATCH}xT{BERT_SEQ} "
+                 f"bf16, dropout {BERT_DROPOUT}, masked AdamW, 3 + 10 steps "
+                 "and one profiled; card against CPU at b2, a window "
+                 "against eager steps")
+        print(title)
+        start = time.perf_counter()
+        stoch = run_stochastic_bert(device, card, bert_run)
+        print(f"  (stochastic BERT: {time.perf_counter() - start:.1f} s "
+              "wall)")
     except Exception as exc:  # noqa: BLE001
         return fail(f"transformer training: {exc!r}", title)
 
@@ -5067,15 +5807,21 @@ def main() -> int:
     for entry in kernels:
         name = entry["name"]
         if name in by_phase:
-            entry["launches"] = sum(by_phase[name].values())
+            # K5 also runs in 7s's stochastic BERT steps.
+            entry["launches"] = (sum(by_phase[name].values())
+                                 + stoch["launches"].get(name, 0))
         elif name in FLASH_BWD_KERNELS:
-            entry["launches"] = lm["launches"][name]
+            entry["launches"] = (lm["launches"][name]
+                                 + stoch["launches"][name])
         else:
-            # K1-K4: the bare loop (4), Trainer.fit (4t) and the
-            # exactly-once fits (4r), each counted from 0.
+            # K1-K4: the bare loop (4), Trainer.fit (4t), the
+            # exactly-once fits (4r), compile-ahead (4a) and the records
+            # fits (4p), each counted from 0.
             entry["launches"] = (cifar["launches"][name]
                                  + fit["launches"][name]
-                                 + exact["launches"][name])
+                                 + exact["launches"][name]
+                                 + ahead["launches"][name]
+                                 + recs["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")
@@ -5133,6 +5879,10 @@ def main() -> int:
         "save_ordering": ordering,
         "durability": durability,
         "exactly_once": exact,
+        "compile_ahead": ahead,
+        "cold_start": cold,
+        "records_fit": recs,
+        "stochastic_bert_b32xT128": stoch,
         "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
         "flash_fwd_at_training": k5_training,
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},

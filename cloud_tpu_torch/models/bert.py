@@ -10,8 +10,12 @@ Attention goes through
 :func:`cloud_tpu_torch.ops.flash_attention.flash_attention` with
 ``causal=False`` and the optional ``[B, T]`` key-padding mask.
 
-Dropout is not ported: a ``dropout_rng`` with ``dropout_rate > 0``
-raises.  Without one the JAX package's path is deterministic too.
+Dropout (``cfg.dropout_rate``) is on when a ``dropout_rng`` (a threefry
+key, ``cloud_tpu_torch.random``) is passed, the training path: on the
+embeddings, each layer's attention output and MLP output, and the pooled
+head, with the JAX package's keys (the same splits in the same order),
+so the masks equal JAX's bit for bit.  Without a key the path is
+deterministic (eval).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.ops import flash_attention as flash_lib
@@ -53,15 +58,7 @@ TINY = BertConfig(
 )
 
 
-def _check_dropout(cfg: BertConfig, dropout_rng) -> None:
-    if dropout_rng is not None and cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "BERT dropout (a dropout rng with dropout_rate > 0) is not "
-            "ported yet (ROADMAP.md A.6)"
-        )
-
-
-def _layer(lp, x, *, cfg: BertConfig, mask):
+def _layer(lp, x, *, cfg: BertConfig, mask, att_rng=None, mlp_rng=None):
     b, t, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
 
@@ -72,9 +69,11 @@ def _layer(lp, x, *, cfg: BertConfig, mask):
         proj(lp["att"]["q"]), proj(lp["att"]["k"]), proj(lp["att"]["v"]),
         causal=False, mask=mask)
     att_out = layers.dense_apply(lp["att"]["out"], attended.reshape(b, t, -1))
+    att_out = layers.dropout(att_rng, att_out, cfg.dropout_rate)
     x = layers.layernorm_apply(lp["ln1"], x + att_out)
     mlp = layers.dense_apply(
         lp["wo"], layers.gelu(layers.dense_apply(lp["wi"], x)))
+    mlp = layers.dropout(mlp_rng, mlp, cfg.dropout_rate)
     return layers.layernorm_apply(lp["ln2"], x + mlp)
 
 
@@ -82,9 +81,20 @@ def encode(params, tokens, cfg: BertConfig = BERT_BASE, *,
            attention_mask: Optional[torch.Tensor] = None,
            segment_ids: Optional[torch.Tensor] = None,
            dropout_rng=None, device=None):
-    """tokens ``[B, T]`` -> contextual embeddings ``[B, T, D]``."""
-    _check_dropout(cfg, dropout_rng)
+    """tokens ``[B, T]`` -> contextual embeddings ``[B, T, D]``.
+
+    ``dropout_rng`` switches on ``cfg.dropout_rate`` dropout (training);
+    None (the default) is the deterministic eval path."""
     device = resolve_device(device)
+    rate = cfg.dropout_rate if dropout_rng is not None else 0.0
+    embed_rng = layer_rngs = None
+    if rate > 0.0:
+        embed_rng, stack_rng = random_lib.split(dropout_rng)
+        # One key a layer, each split into its attention and MLP keys:
+        # [L, 2, 2], JAX's ``split(stack_rng, L)`` and then ``split`` of
+        # each in its layer scan.
+        layer_rngs = random_lib.split(
+            random_lib.split(stack_rng, cfg.num_layers))
     tokens = torch.as_tensor(tokens, device=device)
     t = tokens.shape[1]
     x = layers.embedding_apply(params["tok"], tokens, dtype=cfg.dtype)
@@ -94,11 +104,14 @@ def encode(params, tokens, cfg: BertConfig = BERT_BASE, *,
             params["seg"], torch.as_tensor(segment_ids, device=device),
             dtype=cfg.dtype)
     x = layers.layernorm_apply(params["ln_embed"], x)
+    x = layers.dropout(embed_rng, x, rate)
     if attention_mask is not None:
         attention_mask = torch.as_tensor(attention_mask, device=device)
     body = layers.remat_wrap(_layer, cfg.remat != "none", cfg.remat)
-    for lp in params["layers"]:
-        x = body(lp, x, cfg=cfg, mask=attention_mask)
+    for i, lp in enumerate(params["layers"]):
+        keys = {} if layer_rngs is None else {
+            "att_rng": layer_rngs[i, 0], "mlp_rng": layer_rngs[i, 1]}
+        x = body(lp, x, cfg=cfg, mask=attention_mask, **keys)
     return x
 
 
@@ -108,10 +121,14 @@ def apply(params, tokens, cfg: BertConfig = BERT_BASE, *,
           dropout_rng=None, device=None):
     """Sequence classification: tokens ``[B, T]`` -> logits
     ``[B, num_classes]`` in f32."""
+    head_rng = None
+    if dropout_rng is not None and cfg.dropout_rate > 0.0:
+        dropout_rng, head_rng = random_lib.split(dropout_rng)
     x = encode(params, tokens, cfg, attention_mask=attention_mask,
                segment_ids=segment_ids, dropout_rng=dropout_rng,
                device=device)
     pooled = torch.tanh(layers.dense_apply(params["pooler"], x[:, 0]))
+    pooled = layers.dropout(head_rng, pooled, cfg.dropout_rate)
     return layers.dense_apply(params["classifier"], pooled,
                               dtype=torch.float32)
 

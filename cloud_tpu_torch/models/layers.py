@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from cloud_tpu_torch import random as random_lib
+
 #: Remat policies of the JAX package's layer stacks; "dots" (save the
 #: matmul outputs) has no port yet.
 REMAT_POLICIES = ("none", "full", "dots")
@@ -45,9 +47,11 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
             return body(*args, **kwargs)
-        # The layer bodies draw no random numbers, so the RNG state is not
-        # saved for the recomputation (reading it is not allowed inside a
-        # CUDA graph capture, ``train.make_multi_step``).
+        # The layer bodies draw random numbers only from the threefry keys
+        # they are given (``dropout``), never from torch's generator, so
+        # the recomputation draws the same masks without the generator's
+        # state being saved (reading it is not allowed inside a CUDA graph
+        # capture, ``train.make_multi_step``).
         return checkpoint(body, *args, use_reentrant=False,
                           preserve_rng_state=False, **kwargs)
 
@@ -118,6 +122,21 @@ def layernorm_apply(params, x, *, eps: float = 1e-6):
 def gelu(x):
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(rng, x, rate: float):
+    """Inverted dropout, as ``cloud_tpu/models/layers.py``'s: the identity
+    when ``rng`` is None or ``rate`` is 0 (the eval and deterministic
+    path), else ``where(mask, x / keep, 0)`` with ``mask =
+    bernoulli(rng, keep, x.shape)`` drawn as ``jax.random`` draws it
+    (``cloud_tpu_torch.random``), ``keep = 1 - rate``."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = random_lib.bernoulli(rng, keep, x.shape)
+    scale = torch.full((), keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
 
 def rmsnorm_apply(params, x, *, eps: float = 1e-6):

@@ -3,9 +3,13 @@
 Every kernel library is one ``.cu`` file under ``ops/csrc/`` with a plain
 C interface (it may include the ``.cuh`` headers beside it).  At first
 use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``cloud_tpu_torch/build/`` (named by a hash of the source, the headers
-and the flags, so an edited source or header rebuilds and an unchanged
-one is reused) and loaded with ``ctypes``.  Pointers and the
+``cloud_tpu_torch/build/`` (named by a hash of the source, the headers,
+the flags and the ``nvcc`` version, so an edited source or header, or
+another toolkit, rebuilds and an unchanged one is reused) and loaded with
+``ctypes``.  ``training.compile_cache.maybe_enable_persistent_cache``
+moves the build directory to ``CLOUD_TPU_COMPILE_CACHE``'s
+(:func:`set_build_dir`), so that a fresh process or container finds its
+libraries built.  Pointers and the
 stream cross the boundary as ``c_void_p``; every C entry point returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into
 an exception.
@@ -69,6 +73,9 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+#: Where libraries are built and loaded from (:func:`set_build_dir`).
+_build_dir = BUILD_DIR
+_nvcc_version: Optional[str] = None
 _libs: Dict[str, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
 #: Seconds each library took to build (0.0 when reused from the cache).
@@ -87,6 +94,33 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its release and build), or
+    ``"none"`` on a host without ``nvcc``; read once a process."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        try:
+            proc = subprocess.run([nvcc_path(), "--version"],
+                                  capture_output=True, text=True, timeout=60)
+            lines = proc.stdout.strip().splitlines()
+            _nvcc_version = lines[-1].strip() if lines else "unknown"
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            _nvcc_version = "none"
+    return _nvcc_version
+
+
+def build_dir() -> str:
+    """The directory libraries are built into and loaded from."""
+    return _build_dir
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Build and load libraries under ``path`` from now on (``None``: the
+    package's own ``build/``).  A library already loaded stays loaded."""
+    global _build_dir
+    _build_dir = BUILD_DIR if path is None else os.path.abspath(path)
+
+
 def library_path(name: str) -> str:
     """Where library ``name`` is (or will be) built."""
     digest = hashlib.sha256()
@@ -95,7 +129,9 @@ def library_path(name: str) -> str:
         with open(os.path.join(CSRC_DIR, source), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    digest.update(nvcc_version().encode())
+    return os.path.join(_build_dir,
+                        f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def _build(name: str) -> str:
@@ -103,7 +139,7 @@ def _build(name: str) -> str:
     if os.path.exists(out):
         build_seconds[name] = 0.0
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
            os.path.join(CSRC_DIR, SOURCES[name])]

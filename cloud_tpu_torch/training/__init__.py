@@ -1,8 +1,10 @@
-"""Training of the port: the train state, step and window, its
-optimizers, the Keras-fit-parity Trainer with its callbacks, the prefetch
-pipeline, and checkpoints with durable resume (port of
-``cloud_tpu/training``; ``param_shardings`` and ``compile_cache`` wait
-for ROADMAP.md A.6)."""
+"""Training of the port: the train state, step and window (stochastic
+steps included), its optimizers, the Keras-fit-parity Trainer with its
+callbacks, compile-ahead and the persistent kernel cache
+(``compile_cache``), the prefetch and record pipelines (``pipeline_io``,
+``records``), and checkpoints with durable resume (port of
+``cloud_tpu/training``; ``param_shardings`` waits for ``parallel/*``,
+ROADMAP.md A.6)."""
 
 from cloud_tpu_torch.training.train import (
     TrainState,
@@ -11,7 +13,8 @@ from cloud_tpu_torch.training.train import (
     make_multi_step,
     make_train_step,
 )
-from cloud_tpu_torch.training import optimizers, pipeline_io
+from cloud_tpu_torch.training import (compile_cache, optimizers,
+                                      pipeline_io, records)
 from cloud_tpu_torch.training.pipeline_io import prefetch_to_device
 from cloud_tpu_torch.training.trainer import (
     Callback,
@@ -39,4 +42,6 @@ __all__ = [
     "make_eval_step",
     "pipeline_io",
     "prefetch_to_device",
+    "compile_cache",
+    "records",
 ]

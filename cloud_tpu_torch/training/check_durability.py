@@ -7,9 +7,11 @@ port's counterpart of the JAX package's ``scripts/check_durability.py``).
 
 It drives the whole composition in fresh processes:
 
-1. **control** — an uninterrupted run (shuffled data; the port's step is
-   not stochastic yet, so no dropout) records its per-step losses and a
-   digest of its final params.
+1. **control** — an uninterrupted stochastic run (shuffled data and
+   input-noise dropout drawn from the step's rng chain, so the chain
+   shapes the gradients and a resume matches only if it restores
+   bit-exactly) records its per-step losses and a digest of its final
+   params.
 2. **crash** — the same run with ``CheckpointCallback(resume_data=True)``
    is ``kill -9``'d mid-fit: no drain save, no manifest finalize for the
    newest step.
@@ -20,8 +22,8 @@ It drives the whole composition in fresh processes:
 4. **resume** — a fresh process re-runs the same script.  The walk-back
    restore must quarantine both damaged steps, land on the older intact
    checkpoint, fast-forward the data stream to its recorded position,
-   and finish with per-step losses and final params IDENTICAL to the
-   control run.
+   restore the rng chain with the state, and finish with per-step losses
+   and final params IDENTICAL to the control run.
 
 Models: ``mnist`` (hidden 16, batch 4; seconds on the CPU) and
 ``resnet50_cifar`` (ResNet-50 CIFAR in f32 at batch 8 through the
@@ -70,9 +72,25 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 MODELS = {"mnist": (4, (784,), 10), "resnet50_cifar": (8, (32, 32, 3), 10)}
 
 
+def _noisy(loss_fn):
+    """``loss_fn`` behind input-noise dropout drawn from the step key:
+    ``image * bernoulli(rng, 0.9) / 0.9``, as the JAX package's drill."""
+
+    def noisy_loss(params, batch, *, rng=None):
+        from cloud_tpu_torch import random as random_lib
+
+        images = batch["image"]
+        if rng is not None:
+            keep = random_lib.bernoulli(rng, 0.9, images.shape)
+            images = images * keep.to(images.dtype) / 0.9
+        return loss_fn(params, {"image": images, "label": batch["label"]})
+
+    return noisy_loss
+
+
 def _build(model: str, device: str, ckpt_dir=None):
     """The shared workload: ``model`` in f32 over a shuffled in-memory
-    dataset from a numpy seed, ``sgd(0.1)``."""
+    dataset from a numpy seed, ``sgd(0.1)``, stochastic (``_noisy``)."""
     import functools
 
     import numpy as np
@@ -109,7 +127,8 @@ def _build(model: str, device: str, ckpt_dir=None):
         def init(gen):
             return bridge.init_resnet(cfg, gen, device=device)
 
-    trainer = Trainer(loss, optimizers.sgd(0.1), init_fn=init, device=device)
+    trainer = Trainer(_noisy(loss), optimizers.sgd(0.1), init_fn=init,
+                      stochastic=True, device=device)
     trainer.init_state(torch.Generator(device=device).manual_seed(0))
     batch, shape, classes = MODELS[model]
     rng = np.random.default_rng(0)

@@ -738,20 +738,6 @@ class CheckpointManager:
             logger.debug("meta prune failed", exc_info=True)
 
 
-def _restore_matching_rng(manager: CheckpointManager, step: int, current):
-    """Restore ``step`` into the current TrainState's structure.  The
-    port's states carry no rng chain yet (stochastic steps wait for
-    ROADMAP.md A.6): the template has none and the current one's, None,
-    is carried forward."""
-    template = current
-    if isinstance(current, TrainState):
-        template = dataclasses.replace(current, rng=None)
-    restored = manager.restore(step, template=template)
-    if isinstance(restored, TrainState):
-        restored = dataclasses.replace(restored, rng=current.rng)
-    return restored
-
-
 def _note_fallback(step: int, reason: str) -> None:
     metrics.counter_inc("checkpoint/fallbacks")
     now = time.perf_counter()
@@ -836,7 +822,7 @@ def resume_trainer_state(trainer, manager: CheckpointManager, *,
                 manager.quarantine(step)
             continue
         try:
-            restored = _restore_matching_rng(manager, step, current)
+            restored = manager.restore(step, template=current)
         except Exception:  # noqa: BLE001 — walk back instead of dying
             logger.exception(
                 "could not restore checkpoint step %d (%s); walking back",

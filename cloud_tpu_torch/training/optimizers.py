@@ -53,8 +53,9 @@ def sgd(learning_rate: float, momentum: Optional[float] = None) -> SGD:
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
-    """optax's ``scale_by_adam``, then ``add_decayed_weights`` (every
-    leaf, no mask), then ``-learning_rate``:
+    """optax's ``scale_by_adam``, then ``add_decayed_weights`` (on the
+    leaves ``mask`` selects, every leaf without one), then
+    ``-learning_rate``:
     ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2) g^2``, both
     bias-corrected with the incremented count, ``u = mu_hat /
     (sqrt(nu_hat) + eps) + weight_decay p``, ``p -= learning_rate u``.
@@ -72,11 +73,37 @@ class Adam:
     eps: float = 1e-8
     weight_decay: float = 0.0
     mu_dtype: Optional[torch.dtype] = torch.bfloat16
+    #: optax's ``add_decayed_weights`` mask: a tree of bools shaped like
+    #: the parameters, or a callable of the parameter tree returning one;
+    #: leaves marked False get no weight decay.  Resolved by :meth:`init`,
+    #: which sees the parameter tree (``update_`` sees its leaves only).
+    mask: Any = None
+
+    def _resolve_mask(self, params) -> None:
+        tree = self.mask(params) if callable(self.mask) else self.mask
+        flags = tuple(bool(flag) for flag in leaves(tree))
+        if len(flags) != len(leaves(params)):
+            raise ValueError(
+                f"adamw mask has {len(flags)} leaves, the parameters "
+                f"{len(leaves(params))}")
+        object.__setattr__(self, "_decay_flags", flags)
+
+    def _decayed(self, p):
+        """The parameters ``add_decayed_weights`` decays."""
+        if self.mask is None:
+            return p
+        flags = getattr(self, "_decay_flags", None)
+        if flags is None or len(flags) != len(p):
+            raise ValueError("adamw(mask=...): init() must see the "
+                             "parameter tree before update_()")
+        return [t for t, flag in zip(p, flags) if flag]
 
     def init(self, params) -> Dict[str, Any]:
         def zeros(p, dtype=None):
             return torch.zeros_like(p, dtype=dtype, requires_grad=False)
 
+        if self.mask is not None:
+            self._resolve_mask(params)
         first = leaves(params)
         device = first[0].device if first else None
         return {"count": torch.zeros((), dtype=torch.int32, device=device),
@@ -119,10 +146,17 @@ class Adam:
         torch._foreach_add_(tmp, self.eps)
         update = torch._foreach_div(new_mu, bc1)
         torch._foreach_div_(update, tmp)
-        if self.weight_decay:
-            torch._foreach_copy_(tmp, p)
-            torch._foreach_mul_(tmp, self.weight_decay)
-            torch._foreach_add_(update, tmp)
+        decayed = self._decayed(p) if self.weight_decay else []
+        if decayed:
+            if len(decayed) == len(p):
+                torch._foreach_copy_(tmp, p)
+                torch._foreach_mul_(tmp, self.weight_decay)
+                torch._foreach_add_(update, tmp)
+            else:
+                flags = self._decay_flags
+                torch._foreach_add_(
+                    [u for u, flag in zip(update, flags) if flag],
+                    torch._foreach_mul(decayed, self.weight_decay))
         torch._foreach_mul_(update, -self.learning_rate)
         torch._foreach_add_(p, update)
         if low:
@@ -134,12 +168,13 @@ def adamw(learning_rate: float, *, b1: float = 0.9, b2: float = 0.999,
           mu_dtype: Optional[torch.dtype] = torch.bfloat16,
           mask=None) -> Adam:
     """AdamW with the first moment stored in ``mu_dtype`` (default bf16;
-    ``None`` keeps it in the parameter's type, as ``optax.adamw``)."""
-    if mask is not None:
-        raise NotImplementedError(
-            "adamw(mask=...) is not ported yet (ROADMAP.md A.6)")
+    ``None`` keeps it in the parameter's type, as ``optax.adamw``).
+    ``mask`` selects the leaves that get weight decay, with optax's
+    semantics: a tree of bools shaped like the parameters, or a callable
+    of the parameters returning one (BERT fine-tunes leave biases and
+    LayerNorm scales undecayed)."""
     return Adam(learning_rate, b1=b1, b2=b2, eps=eps,
-                weight_decay=weight_decay, mu_dtype=mu_dtype)
+                weight_decay=weight_decay, mu_dtype=mu_dtype, mask=mask)
 
 
 def adam(learning_rate: float, *, b1: float = 0.9, b2: float = 0.999,

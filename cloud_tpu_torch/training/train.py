@@ -11,32 +11,37 @@ so, as with donation, the state passed in must not be used again.
 dispatch, as the JAX package's ``lax.scan`` window does: on the card the
 K step bodies are captured once as one CUDA graph and every call replays
 it (see :func:`make_multi_step`).  ``make_eval_step`` is the forward
-only.
+only.  ``training.compile_cache`` captures a step, a window or an eval
+step ahead of its first call through the same capture path
+(:class:`_Graphed`).
 
-Both take gradient accumulation (``accum_steps``) and the on-device
-non-finite guard (``skip_nonfinite``).  Meshes (``mesh``,
-``logical_axes``, ``rules``) wait for ``parallel/*`` and stochastic steps
-for the step's rng chain with BERT dropout (ROADMAP.md A.6): they raise
-``NotImplementedError`` naming that.
+All take gradient accumulation (``accum_steps``), the on-device
+non-finite guard (``skip_nonfinite``) and stochastic steps
+(``stochastic``): the state's ``rng`` is a threefry key
+(``cloud_tpu_torch.random``) that every step splits as JAX does,
+``next_rng, step_rng = split(state.rng)``, handing ``rng=step_rng`` to
+the loss.  Meshes (``mesh``, ``logical_axes``, ``rules``) wait for
+``parallel/*`` (ROADMAP.md A.6) and raise ``NotImplementedError`` naming
+that.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import leaves, map_leaves
 from cloud_tpu_torch.ops import dispatch
 
-#: Why a mesh option raises, and why a stochastic one does.
+#: Why a mesh option raises.
 _MESH_LATER = ("needs parallel/* (several cards), which is not ported yet "
               "(ROADMAP.md A.6)")
-_RNG_LATER = ("needs the step's rng chain, which comes with BERT dropout "
-             "(ROADMAP.md A.6)")
 
 
 @dataclasses.dataclass
@@ -44,21 +49,18 @@ class TrainState:
     step: torch.Tensor
     params: Any
     opt_state: Any
-    #: PRNG state of stochastic steps; always None in the port so far.
+    #: Threefry key (int64 ``[2]``, ``cloud_tpu_torch.random``) of
+    #: stochastic steps, a leaf like any other; None for deterministic
+    #: training.  Each step consumes a fresh split.
     rng: Any = None
 
 
-def refuse_unported(*, mesh=None, logical_axes=None, rules=None,
-                    stochastic: bool = False, train_rng=None) -> None:
-    """Raise ``NotImplementedError`` for an option of a later item."""
+def refuse_unported(*, mesh=None, logical_axes=None, rules=None) -> None:
+    """Raise ``NotImplementedError`` for a mesh option (a later item)."""
     for name, value in (("mesh", mesh), ("logical_axes", logical_axes),
                         ("rules", rules)):
         if value is not None:
             raise NotImplementedError(f"{name} {_MESH_LATER}")
-    if stochastic:
-        raise NotImplementedError(f"stochastic {_RNG_LATER}")
-    if train_rng is not None:
-        raise NotImplementedError(f"train_rng {_RNG_LATER}")
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -71,31 +73,37 @@ def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
                          mesh=None, logical_axes=None, rules=None,
                          train_rng=None, *, device=None) -> TrainState:
     """``init_fn(rng) -> params`` on ``device`` (``cuda`` by default),
-    made trainable, with the optimizer's state and a step count of 0."""
-    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
-                    train_rng=train_rng)
+    made trainable, with the optimizer's state, a step count of 0 and
+    ``train_rng`` (a key's uint32 words, or None) as the state's key."""
+    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules)
     device = resolve_device(device)
     params = map_leaves(init_fn(rng),
                         lambda t: t.detach().to(device).requires_grad_(True))
+    key = None if train_rng is None else random_lib.as_key(train_rng,
+                                                            device=device)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
-                      params=params, opt_state=optimizer.init(params))
+                      params=params, opt_state=optimizer.init(params),
+                      rng=key)
 
 
-def _grads(loss_fn, params, batch):
+def _grads(loss_fn, params, batch, rng=None):
     """The loss function's metrics (detached) and the gradients of its
-    loss with respect to every leaf of ``params``."""
+    loss with respect to every leaf of ``params``; ``rng`` goes to the
+    loss when given."""
+    kwargs = {} if rng is None else {"rng": rng}
     with torch.enable_grad():
-        loss, metrics = loss_fn(params, batch)
+        loss, metrics = loss_fn(params, batch, **kwargs)
         # A leaf the loss does not read gets a zero gradient, as in JAX.
         grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
                                     materialize_grads=True)
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
-def _accumulated_grads(loss_fn, params, batch, accum_steps: int):
+def _accumulated_grads(loss_fn, params, batch, accum_steps: int, rng=None):
     """Mean metrics and gradients over ``accum_steps`` equal micro-batches
     (batch dim 0 must divide), summed in f32 and the mean gradient cast to
-    each parameter's dtype, as the JAX step's ``lax.scan`` does."""
+    each parameter's dtype, as the JAX step's ``lax.scan`` does.  A step
+    key is split ``accum_steps`` ways, one key a micro-batch."""
 
     def to_micro(x):
         if x.shape[0] % accum_steps:
@@ -107,11 +115,13 @@ def _accumulated_grads(loss_fn, params, batch, accum_steps: int):
                          + tuple(x.shape[1:]))
 
     micro = map_leaves(batch, to_micro)
+    keys = None if rng is None else random_lib.split(rng, accum_steps)
     sum_g = [torch.zeros_like(p, dtype=torch.float32)
              for p in leaves(params)]
     sum_m: Dict[str, torch.Tensor] = {}
     for i in range(accum_steps):
-        metrics, grads = _grads(loss_fn, params, _slot(micro, i))
+        metrics, grads = _grads(loss_fn, params, _slot(micro, i),
+                                None if keys is None else keys[i])
         torch._foreach_add_(sum_g, [g.float() for g in grads])
         for key, value in metrics.items():
             value = value.float()
@@ -140,11 +150,16 @@ def _guarded_update(optimizer, params, grads, opt_state,
 
 def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
                accum_steps, skip_nonfinite):
-    """The step's work, shared by the step and the window: gradients
-    (accumulated over micro-batches when ``accum_steps`` > 1), the metrics,
-    and the optimizer's in-place update of the parameters and its state,
-    behind the non-finite guard when ``skip_nonfinite``.  Returns
-    ``body(state, batch) -> metrics``; the step count is the caller's.
+    """The step's work, shared by the step and the window: the rng split
+    (stochastic steps), gradients (accumulated over micro-batches when
+    ``accum_steps`` > 1), the metrics, and the optimizer's in-place update
+    of the parameters and its state, behind the non-finite guard when
+    ``skip_nonfinite``.  Returns ``body(state, batch) -> metrics``; the
+    step count is the caller's.
+
+    A stochastic body advances ``state.rng`` in place to ``next_rng``
+    before the update, so the chain moves on also when the guard skips
+    the update, as the JAX step's does.
 
     ``skip_nonfinite=True`` skips the update on the device when the grad
     norm or the ``loss`` metric is not finite: the parameters and every
@@ -153,15 +168,26 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
     No host sync is added."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
-                    stochastic=stochastic)
+    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules)
+
+    def split_rng(state: TrainState):
+        if not stochastic:
+            return None
+        if state.rng is None:
+            raise ValueError(
+                "stochastic=True needs a state built with train_rng")
+        keys = random_lib.split(state.rng)
+        with torch.no_grad():
+            state.rng.copy_(keys[0])
+        return keys[1]
 
     def body(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        step_rng = split_rng(state)
         if accum_steps > 1:
             metrics, grads = _accumulated_grads(loss_fn, state.params, batch,
-                                                accum_steps)
+                                                accum_steps, step_rng)
         else:
-            metrics, grads = _grads(loss_fn, state.params, batch)
+            metrics, grads = _grads(loss_fn, state.params, batch, step_rng)
         metrics["grad_norm"] = global_norm(grads)
         params = leaves(state.params)
         if not skip_nonfinite:
@@ -178,34 +204,10 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
     return body
 
 
-def make_train_step(
-    loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
-    optimizer,
-    *,
-    logical_axes=None,
-    rules=None,
-    mesh=None,
-    stochastic: bool = False,
-    accum_steps: int = 1,
-    skip_nonfinite: bool = False,
-):
-    """Build ``step(state, batch) -> (state, metrics)``;
-    ``loss_fn(params, batch) -> (loss, metrics)``.  Metrics stay on the
-    device (no host sync inside the step)."""
-    body = _step_body(loss_fn, optimizer, logical_axes=logical_axes,
-                      rules=rules, mesh=mesh, stochastic=stochastic,
-                      accum_steps=accum_steps, skip_nonfinite=skip_nonfinite)
-
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        metrics = body(state, batch)
-        return TrainState(step=state.step + 1, params=state.params,
-                          opt_state=state.opt_state, rng=state.rng), metrics
-
-    return step
-
-
 def _state_leaves(state: TrainState):
-    return [state.step, *leaves(state.params), *leaves(state.opt_state)]
+    rng = [] if state.rng is None else [state.rng]
+    return [state.step, *leaves(state.params), *leaves(state.opt_state),
+            *rng]
 
 
 def _slot(super_batch, i: int):
@@ -228,6 +230,235 @@ def _window(body, state: TrainState, super_batch, run) -> Dict:
     return sums
 
 
+def _one_step(body, state: TrainState, batch, _key=None) -> Dict:
+    """One step body with the step count advanced in place (the captured
+    form of :func:`make_train_step`)."""
+    metrics = body(state, batch)
+    with torch.no_grad():
+        state.step.add_(1)
+    return metrics
+
+
+def _eval_metrics(loss_fn, state: TrainState, batch, _key=None) -> Dict:
+    with torch.no_grad():
+        _, metrics = loss_fn(state.params, batch)
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def _same_specs(what: str, static, given) -> None:
+    if len(static) != len(given) or any(
+            a.shape != b.shape or a.dtype != b.dtype
+            for a, b in zip(static, given)):
+        raise ValueError(f"{what} differ from the ones its CUDA graphs were "
+                         "captured on")
+
+
+class _Graphed:
+    """The port's one CUDA-graph capture path: the window
+    (:func:`make_multi_step`), and the step and eval step that
+    ``training.compile_cache`` captures ahead.
+
+    ``fn(state, batch, key) -> outputs`` runs the work on ``state`` in
+    place.  The first state :meth:`prepare` or :meth:`run` sees becomes
+    the graphs' static state (its tensors are the graphs' buffers); a
+    later state that is not it is copied into it, leaf by leaf, and every
+    batch is copied into a static batch.  Each ``key`` gets one graph,
+    captured at its first use (or ahead, by :meth:`capture`): a window's
+    key is its set of valid slots.  Before the first capture, one
+    warm-up runs eagerly on the capture stream (``warm_key(key)``; on a
+    copy of the state when ``fn`` mutates it), so nothing is built,
+    loaded or set up inside a capture.  ``captures``, ``replays`` and
+    ``warmup_steps`` count the work; kernel launch counts
+    (``ops.dispatch``) gain the captured launches on every replay and
+    nothing at capture."""
+
+    def __init__(self, fn, *, what: str, mutates: bool = True,
+                 warm_key=lambda key: key):
+        self._fn = fn
+        self._what = what
+        self._mutates = mutates
+        self._warm_key = warm_key
+        #: key -> (graph, outputs, launches a replay).
+        self._graphs: Dict[Any, tuple] = {}
+        self.state: Optional[TrainState] = None
+        self._batch = None
+        self._stream = None
+        self.captures = 0
+        self.replays = 0
+        self.warmup_steps = 0
+
+    def prepare(self, state: TrainState, batch) -> None:
+        """Take ``state`` as the static state and allocate the static
+        batch (zeros) with ``batch``'s shapes and dtypes (tensors or
+        ``compile_cache.TensorSpec`` leaves), unless already prepared."""
+        if self.state is not None:
+            return
+        device = state.step.device
+        self.state = state
+        self._stream = torch.cuda.Stream(device)
+        self._batch = map_leaves(batch, lambda x: torch.zeros(
+            tuple(x.shape), dtype=x.dtype, device=device))
+
+    def bind(self, state: TrainState, batch) -> None:
+        """Make ``state``'s values and ``batch`` the graphs' inputs."""
+        self.prepare(state, batch)
+        static, given = _state_leaves(self.state), _state_leaves(state)
+        if state is not self.state:
+            _same_specs(f"{self._what}: the state's shapes", static, given)
+            with torch.no_grad():
+                for a, b in zip(static, given):
+                    if a is not b:
+                        a.copy_(b)
+        dst, src = leaves(self._batch), leaves(batch)
+        _same_specs(f"{self._what}: the batch's shapes", dst, src)
+        for a, b in zip(dst, src):
+            if a is not b:
+                a.copy_(b, non_blocking=True)
+
+    def warm_up(self, key) -> None:
+        """One eager run of the work on the capture stream (libraries
+        built and loaded, cuBLAS and cuDNN set up), once."""
+        if self.warmup_steps:
+            return
+        device = self.state.step.device
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            warm = self.state
+            if self._mutates:
+                warm = TrainState(
+                    step=self.state.step.clone(),
+                    params=map_leaves(self.state.params, lambda p: p.detach(
+                    ).clone().requires_grad_(p.requires_grad)),
+                    opt_state=map_leaves(self.state.opt_state, torch.clone),
+                    rng=None if self.state.rng is None
+                    else self.state.rng.clone())
+            self._fn(warm, self._batch, self._warm_key(key))
+            del warm
+        self.warmup_steps += 1
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+
+    def capture(self, key) -> tuple:
+        """Capture the work for ``key`` on the static state as one graph.
+
+        The capture is ``thread_local``: other threads of the process keep
+        working on the card while it runs (the Trainer's prefetch thread
+        allocates pinned memory and copies on its own stream, a checkpoint
+        writer waits on its snapshot's event, the compile-ahead worker
+        captures while the main thread replays), and under the default
+        global mode any such call from any thread invalidates the capture.
+        Autograd's backward thread launches onto the capture stream and is
+        captured as before."""
+        self.warm_up(key)
+        device = self.state.step.device
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with dispatch.capturing_launches(
+                    self._stream.cuda_stream) as launches:
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = self._fn(self.state, self._batch, key)
+        except Exception as exc:
+            raise RuntimeError(
+                f"{self._what}: capturing {key!r} as a CUDA graph failed: "
+                f"{exc}") from exc
+        self.captures += 1
+        entry = self._graphs[key] = (graph, outputs, launches)
+        return entry
+
+    def run(self, state: TrainState, batch, key):
+        """Bind, capture ``key`` at its first use, replay; the graph's
+        outputs (overwritten by its next replay)."""
+        self.bind(state, batch)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self.capture(key)
+        graph, outputs, launches = entry
+        graph.replay()
+        dispatch.replay_launches(launches)
+        self.replays += 1
+        return outputs
+
+
+class _GraphedStep:
+    """A step or eval step replayed from its :class:`_Graphed` (what
+    ``compile_cache.aot_compile`` returns on the card).  Metrics come
+    back as copies, so a caller may hold them past the next replay."""
+
+    def __init__(self, graphed: _Graphed, *, train: bool):
+        self.graphed = graphed
+        self._train = train
+
+    @property
+    def static_state(self):
+        return self.graphed.state
+
+    def __call__(self, state: TrainState, batch):
+        out = self.graphed.run(state, batch, None)
+        metrics = {k: v.clone() for k, v in out.items()}
+        if self._train:
+            return self.graphed.state, metrics
+        return metrics
+
+
+class _TrainStep:
+    """The step ``make_train_step`` returns (see there)."""
+
+    def __init__(self, body):
+        self._body = body
+
+    def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        metrics = self._body(state, batch)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state, rng=state.rng), metrics
+
+    def graph_artifact(self):
+        """``(artifact, graphed, key)`` for a capture ahead of use."""
+        graphed = _Graphed(functools.partial(_one_step, self._body),
+                           what="make_train_step")
+        return _GraphedStep(graphed, train=True), graphed, None
+
+
+class _EvalStep:
+    """The eval step ``make_eval_step`` returns (see there)."""
+
+    def __init__(self, loss_fn):
+        self._loss_fn = loss_fn
+
+    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        return _eval_metrics(self._loss_fn, state, batch)
+
+    def graph_artifact(self):
+        graphed = _Graphed(functools.partial(_eval_metrics, self._loss_fn),
+                           what="make_eval_step", mutates=False)
+        return _GraphedStep(graphed, train=False), graphed, None
+
+
+def make_train_step(
+    loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+    optimizer,
+    *,
+    logical_axes=None,
+    rules=None,
+    mesh=None,
+    stochastic: bool = False,
+    accum_steps: int = 1,
+    skip_nonfinite: bool = False,
+):
+    """Build ``step(state, batch) -> (state, metrics)``;
+    ``loss_fn(params, batch) -> (loss, metrics)``.  Metrics stay on the
+    device (no host sync inside the step).
+
+    ``stochastic=True`` threads the state's key through the loss:
+    ``loss_fn(params, batch, rng=...)`` gets a fresh split every step
+    (dropout), and the state must have been created with a ``train_rng``
+    (``create_sharded_state(..., train_rng=key)``)."""
+    return _TrainStep(_step_body(
+        loss_fn, optimizer, logical_axes=logical_axes, rules=rules,
+        mesh=mesh, stochastic=stochastic, accum_steps=accum_steps,
+        skip_nonfinite=skip_nonfinite))
+
+
 class _MultiStep:
     """The window ``make_multi_step`` returns (see there).  ``captures``,
     ``replays`` and ``warmup_steps`` count its graph work on the card."""
@@ -238,17 +469,25 @@ class _MultiStep:
         self._loss_fn = loss_fn
         self._guarded = guarded
         self.steps_per_dispatch = steps_per_dispatch
-        #: Slots run (a tuple of indices) -> (graph, metric sums, launches).
-        self._graphs: Dict[tuple, tuple] = {}
-        #: The state whose tensors are the graphs' static buffers, and the
-        #: static super-batch the graphs read.
-        self._state: Optional[TrainState] = None
-        self._batch = None
-        self._stream = None
+        self._graphed = _Graphed(functools.partial(_window, body),
+                                 what="make_multi_step",
+                                 warm_key=lambda run: run[:1])
         self._metric_shapes: Optional[Dict[str, torch.Size]] = None
-        self.captures = 0
-        self.replays = 0
-        self.warmup_steps = 0
+
+    captures = property(lambda self: self._graphed.captures)
+    replays = property(lambda self: self._graphed.replays)
+    warmup_steps = property(lambda self: self._graphed.warmup_steps)
+
+    @property
+    def static_state(self):
+        return self._graphed.state
+
+    def graph_artifact(self):
+        """``(artifact, graphed, key)`` for a capture ahead of use: a
+        window of its own (fresh graphs) and its full set of slots."""
+        window = _MultiStep(self._body, self._loss_fn,
+                            self.steps_per_dispatch, self._guarded)
+        return window, window._graphed, tuple(range(self.steps_per_dispatch))
 
     def __call__(self, state: TrainState, super_batch, valid=None):
         k = self.steps_per_dispatch
@@ -271,7 +510,8 @@ class _MultiStep:
         if not run:  # every slot padded: nothing runs, the state passes
             return state, self._zero_metrics(state, super_batch)
         if state.step.device.type == "cuda":
-            state, sums = self._replay(state, super_batch, run)
+            sums = self._graphed.run(state, super_batch, run)
+            state = self._graphed.state
         elif state.step.device.type == "cpu":
             sums = _window(self._body, state, super_batch, run)
         else:
@@ -293,92 +533,6 @@ class _MultiStep:
                                  device=state.step.device)
                 for key, shape in self._metric_shapes.items()}
 
-    # -- the card ----------------------------------------------------------
-
-    def _bind(self, state: TrainState, super_batch) -> None:
-        """Make ``state``'s values and ``super_batch`` the graphs' inputs:
-        the first state becomes the static buffers; a later one that is
-        not it is copied into them, and so is every super-batch."""
-        if self._state is None:
-            self._state = state
-            self._stream = torch.cuda.Stream(state.step.device)
-            self._batch = map_leaves(super_batch, lambda x: torch.empty_like(
-                x, device=state.step.device))
-        static, given = _state_leaves(self._state), _state_leaves(state)
-        if any(a is not b for a, b in zip(static, given)) or (
-                len(static) != len(given)):
-            if len(static) != len(given) or any(
-                    a.shape != b.shape or a.dtype != b.dtype
-                    for a, b in zip(static, given)):
-                raise ValueError(
-                    "make_multi_step: the state's structure differs from "
-                    "the one its CUDA graphs were captured on")
-            with torch.no_grad():
-                for a, b in zip(static, given):
-                    a.copy_(b)
-        dst, src = leaves(self._batch), leaves(super_batch)
-        if len(dst) != len(src) or any(
-                a.shape != b.shape or a.dtype != b.dtype
-                for a, b in zip(dst, src)):
-            raise ValueError(
-                "make_multi_step: the super-batch's shapes differ from the "
-                "ones its CUDA graphs were captured on")
-        for a, b in zip(dst, src):
-            if a is not b:
-                a.copy_(b, non_blocking=True)
-
-    def _capture(self, run) -> tuple:
-        """Warm up once on a copy of the state (libraries built and loaded,
-        cuBLAS and cuDNN set up on the capture stream), then capture the
-        window's step bodies on the static state as one graph.
-
-        The capture is ``thread_local``: other threads of the process keep
-        working on the card while it runs (the Trainer's prefetch thread
-        allocates pinned memory and copies on its own stream, a checkpoint
-        writer waits on its snapshot's event), and under the default
-        global mode any such call from any thread invalidates the capture.
-        Autograd's backward thread launches onto the capture stream and
-        is captured as before."""
-        device = self._state.step.device
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(device))
-        if not self.warmup_steps:
-            with torch.cuda.stream(stream):
-                warm = TrainState(
-                    step=self._state.step.clone(),
-                    params=map_leaves(self._state.params, lambda p: p.detach(
-                    ).clone().requires_grad_(p.requires_grad)),
-                    opt_state=map_leaves(self._state.opt_state, torch.clone))
-                _window(self._body, warm, self._batch, run[:1])
-                del warm
-            self.warmup_steps += 1
-        torch.cuda.current_stream(device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with dispatch.capturing_launches(stream.cuda_stream) as launches:
-                with torch.cuda.graph(graph, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    sums = _window(self._body, self._state, self._batch, run)
-        except Exception as exc:
-            raise RuntimeError(
-                f"make_multi_step: capturing the {len(run)}-step window as "
-                f"a CUDA graph failed: {exc}") from exc
-        self.captures += 1
-        return graph, sums, launches
-
-    def _replay(self, state: TrainState, super_batch, run):
-        self._bind(state, super_batch)
-        entry = self._graphs.get(run)
-        if entry is None:
-            entry = self._graphs[run] = self._capture(run)
-        graph, sums, launches = entry
-        graph.replay()
-        dispatch.replay_launches(launches)
-        self.replays += 1
-        out = self._state
-        return TrainState(step=out.step, params=out.params,
-                          opt_state=out.opt_state, rng=state.rng), sums
-
 
 def make_multi_step(
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
@@ -397,31 +551,28 @@ def make_multi_step(
     ``multi_step(state, super_batch, valid=None) -> (state, metrics)``:
     ``super_batch`` stacks K batches on a new leading axis; the K steps
     run the step body of :func:`make_train_step` in order, so the
-    parameter trajectory is K sequential steps'; ``metrics`` are the
-    window's f32 means (per-step values are not returned), as in JAX.
-    ``valid``, JAX's float ``[K]`` mask for a zero-padded tail, skips the
-    slots where it is 0: no step body runs there, the state (parameters,
-    optimizer state, step count) passes through, and the metrics are sums
-    over the valid slots divided by ``max(sum(valid), 1)``.
+    parameter trajectory (and a stochastic step's rng chain) is K
+    sequential steps'; ``metrics`` are the window's f32 means (per-step
+    values are not returned), as in JAX.  ``valid``, JAX's float ``[K]``
+    mask for a zero-padded tail, skips the slots where it is 0: no step
+    body runs there, the state (parameters, optimizer state, step count,
+    key) passes through, and the metrics are sums over the valid slots
+    divided by ``max(sum(valid), 1)``.
 
     The state's tensors are updated in place (the counterpart of JAX's
     donation): the state passed in must not be used again.
 
     On the card (a CUDA state) the window's step bodies are captured once
     as one ``torch.cuda.CUDAGraph`` and each call replays it: one launch
-    from the host for K steps.  The first state passed becomes the
-    graph's static buffers; a call with another state copies its values
-    in, and every call copies ``super_batch`` into the static batch.
-    Before the first capture one step runs on a copy of the state, on the
-    capture stream, so nothing is built, loaded or set up inside the
-    capture.  A failed capture raises ``RuntimeError``: there is no eager
-    fallback on the card.  Since a graph cannot branch on the device,
-    ``valid`` is read on the host once a call, and each set of valid
-    slots gets its own graph, captured at its first use (a full window
-    and a dataset's tail: two graphs).  Kernel launch counts
-    (``ops.dispatch``) gain the captured launches on every replay and
-    nothing for the capture.  On a CPU state the same step bodies run
-    eagerly.
+    from the host for K steps (:class:`_Graphed`).  The first state
+    passed becomes the graph's static buffers and is what every call
+    returns; a call with another state copies its values in, and every
+    call copies ``super_batch`` into the static batch.  A failed capture
+    raises ``RuntimeError``: there is no eager fallback on the card.
+    Since a graph cannot branch on the device, ``valid`` is read on the
+    host once a call, and each set of valid slots gets its own graph,
+    captured at its first use (a full window and a dataset's tail: two
+    graphs).  On a CPU state the same step bodies run eagerly.
     """
     if steps_per_dispatch < 1:
         raise ValueError(
@@ -435,11 +586,6 @@ def make_multi_step(
 
 def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]]):
     """``eval_step(state, batch) -> metrics``: the loss function's metrics
-    on ``state.params``, forward only (no gradients)."""
-
-    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            _, metrics = loss_fn(state.params, batch)
-        return {k: v.detach() for k, v in metrics.items()}
-
-    return eval_step
+    on ``state.params``, forward only (no gradients, no rng: eval is
+    deterministic)."""
+    return _EvalStep(loss_fn)

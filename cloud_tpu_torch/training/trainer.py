@@ -6,12 +6,14 @@ hooks over the port's step (``train.make_train_step``) or its K-step
 window (``train.make_multi_step``, a CUDA graph on the card), fed by the
 prefetch pipeline (``pipeline_io``), with the preemption drain, the
 exactly-once data position and the non-finite guard of the JAX
-package's trainer.  Its entry points run on the card unless the Trainer
-is built with ``device="cpu"``.
+package's trainer, stochastic steps (dropout from the state's rng
+chain) and ``fit(compile_ahead=True)`` (the steps captured as CUDA
+graphs on a worker thread while the prefetch thread warms,
+``training.compile_cache``).  Its entry points run on the card unless
+the Trainer is built with ``device="cpu"``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its item):
-meshes and stochastic steps (the step's, ROADMAP.md A.6), and
-``fit(compile_ahead=True)`` / ``batch_spec=`` (the compile cache, A.6).
+Not ported yet: meshes (``mesh``, ``logical_axes``, ``rules``) raise
+``NotImplementedError`` naming ``parallel/*`` (ROADMAP.md A.6).
 """
 
 from __future__ import annotations
@@ -24,19 +26,50 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import map_leaves
 from cloud_tpu_torch.monitoring import metrics as metrics_lib
 from cloud_tpu_torch.monitoring import tracing
-from cloud_tpu_torch.training import pipeline_io, preemption
+from cloud_tpu_torch.training import compile_cache, pipeline_io, preemption
 from cloud_tpu_torch.training import train as train_lib
 from cloud_tpu_torch.utils import faults
 
 logger = logging.getLogger(__name__)
 
-_COMPILE_CACHE_LATER = (
-    "needs the compile cache (the PyTorch counterpart of the JAX package's "
-    "ahead-of-time registry), which is not ported yet (ROADMAP.md A.6)")
+
+
+class _PeekedIterator:
+    """An iterator with its first item already pulled (compile-ahead peeks
+    one batch to derive its specs, then the epoch loop must still consume
+    it).  Delegates ``close`` so prefetch workers are joined."""
+
+    _EMPTY = object()  # the peek found the source already exhausted
+
+    def __init__(self, first, rest):
+        self._first = first if first is not None else self._EMPTY
+        self._rest = rest
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        first = self._first
+        if first is self._EMPTY:
+            # Never re-pull an exhausted source (a drained prefetch queue
+            # has no more DONE sentinels to deliver).
+            raise StopIteration
+        if first is not None:
+            # Hand the peeked item over WITHOUT keeping a reference: for
+            # K>1 it is a whole placed super-batch.
+            self._first = None
+            return first
+        return next(self._rest)
+
+    def close(self):
+        close = getattr(self._rest, "close", None)
+        if close is not None:
+            close()
 
 
 class Callback:
@@ -123,7 +156,8 @@ def _copy_state(state: train_lib.TrainState, device) -> train_lib.TrainState:
 
     return train_lib.TrainState(
         step=copy(state.step), params=map_leaves(state.params, copy),
-        opt_state=map_leaves(state.opt_state, copy), rng=state.rng)
+        opt_state=map_leaves(state.opt_state, copy),
+        rng=None if state.rng is None else copy(state.rng))
 
 
 class EarlyStopping(Callback):
@@ -245,7 +279,11 @@ class Trainer:
       loss_fn: ``loss_fn(params, batch) -> (loss, metrics_dict)``.
       optimizer: an optimizer of ``training.optimizers``.
       init_fn: ``init_fn(generator) -> params`` (used by ``init_state``).
-      mesh, logical_axes, rules, stochastic: not ported yet (raise).
+      mesh, logical_axes, rules: not ported yet (raise).
+      stochastic: thread the state's threefry key through every train
+        step: ``loss_fn(params, batch, rng=...)`` (dropout).  Eval steps
+        stay deterministic (no rng passed).  ``init_state`` derives the
+        training key from its generator's seed.
       accum_steps: gradient accumulation — each train step splits its
         batch into this many micro-batches and applies ONE optimizer
         update with the mean gradient (``train.make_train_step``).
@@ -276,14 +314,18 @@ class Trainer:
         device=None,
     ):
         train_lib.refuse_unported(mesh=mesh, logical_axes=logical_axes,
-                                  rules=rules, stochastic=stochastic)
+                                  rules=rules)
         self.device = resolve_device(device)
+        self.stochastic = stochastic
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.init_fn = init_fn
         self.accum_steps = accum_steps
         self.nonfinite_guard = nonfinite_guard
         self.state: Optional[train_lib.TrainState] = None
+        #: The last fit's compile-ahead plan (``compile_cache.CompileAhead``:
+        #: its AotStep wrappers and ``error``), or None.
+        self.compile_plan = None
         self.stop_training = False
         #: True when the last fit() ended by preemption drain (the
         #: process-wide stop event, ``training.preemption``) rather than
@@ -299,8 +341,8 @@ class Trainer:
         self._resume_data_state: Optional[Dict[str, int]] = None
         self._data_seed: Optional[int] = None
         self._train_step = train_lib.make_train_step(
-            loss_fn, optimizer, accum_steps=accum_steps,
-            skip_nonfinite=nonfinite_guard,
+            loss_fn, optimizer, stochastic=stochastic,
+            accum_steps=accum_steps, skip_nonfinite=nonfinite_guard,
         )
         self._eval_step = train_lib.make_eval_step(loss_fn)
         # Fused K-step windows, built lazily per K: a window keeps its
@@ -501,7 +543,7 @@ class Trainer:
             fn = train_lib.make_multi_step(
                 self.loss_fn, self.optimizer,
                 steps_per_dispatch=steps_per_dispatch,
-                accum_steps=self.accum_steps,
+                stochastic=self.stochastic, accum_steps=self.accum_steps,
                 skip_nonfinite=self.nonfinite_guard,
             )
             self._multi_steps[steps_per_dispatch] = fn
@@ -529,11 +571,22 @@ class Trainer:
 
     def init_state(self, rng) -> train_lib.TrainState:
         """A fresh state from ``init_fn(rng)`` (``rng``: a
-        ``torch.Generator``) on the Trainer's device."""
+        ``torch.Generator``) on the Trainer's device.  A stochastic
+        Trainer's key is derived as the JAX package's ``init_state``
+        derives it from ``PRNGKey(seed)``: the second half of its split,
+        with ``seed`` the generator's seed."""
         if self.init_fn is None:
             raise ValueError("Trainer needs init_fn to create state")
+        train_rng = None
+        if self.stochastic:
+            if not isinstance(rng, torch.Generator):
+                raise ValueError("a stochastic Trainer's init_state needs a "
+                                 "seeded torch.Generator")
+            train_rng = random_lib.split(
+                random_lib.PRNGKey(rng.initial_seed()))[1]
         self.state = train_lib.create_sharded_state(
-            rng, self.init_fn, self.optimizer, device=self.device,
+            rng, self.init_fn, self.optimizer, train_rng=train_rng,
+            device=self.device,
         )
         return self.state
 
@@ -577,8 +630,20 @@ class Trainer:
         set gets a graph of its own, captured at its first use).  ``K=1``
         preserves exact per-step semantics.
 
-        ``compile_ahead`` and ``batch_spec`` need the compile cache and
-        raise ``NotImplementedError`` (ROADMAP.md A.6).
+        ``compile_ahead=True`` captures this fit's steps (the train step
+        or the K-step window, plus the eval step when ``validation_data``
+        is given) as CUDA graphs on a background thread WHILE the
+        prefetcher warms (``training.compile_cache``), so the first
+        dispatch replays a ready graph instead of building and setting
+        up synchronously; first-step latency still lands in the
+        ``run/submit_to_first_step_seconds`` gauge.  The specs come from
+        the first prefetched batch, or from ``batch_spec`` (a tree like
+        one HOST batch, of anything with ``.shape``/``.dtype``) when the
+        pipeline is slow to produce its first batch.  Artifacts are
+        memoized in ``compile_cache``'s registry, and a failure to compile
+        ahead degrades to the plain step, never an error.  On the CPU
+        nothing is captured (the plain steps run, through the same
+        wrappers).
 
         ``rollback_after_nonfinite=K`` (requires a Trainer built with
         ``nonfinite_guard=True``): after K CONSECUTIVE dispatch windows
@@ -599,12 +664,6 @@ class Trainer:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}"
             )
-        if compile_ahead:
-            raise NotImplementedError(
-                f"fit(compile_ahead=True) {_COMPILE_CACHE_LATER}")
-        if batch_spec is not None:
-            raise NotImplementedError(
-                f"fit(batch_spec=...) {_COMPILE_CACHE_LATER}")
         if rollback_after_nonfinite is not None:
             if rollback_after_nonfinite < 1:
                 raise ValueError(
@@ -617,6 +676,9 @@ class Trainer:
                     "nonfinite_guard=True (the on-device skip supplies the "
                     "signal the rollback trigger counts)"
                 )
+        # Env-gated persistent kernel cache (CLOUD_TPU_COMPILE_CACHE): a
+        # once-per-process probe + enable, a cheap no-op when unset.
+        compile_cache.maybe_enable_persistent_cache()
         if state is not None:
             self.state = state
         if self.state is None:
@@ -684,7 +746,32 @@ class Trainer:
         else:
             first_source = source
         multi_step = self._multi_step_for(k) if k > 1 else None
+
+        # Compile-ahead: start the background capture (against specs from
+        # batch_spec or a peeked first batch) BEFORE the epoch loop, so it
+        # overlaps the prefetcher warming.  The step callables are swapped
+        # for AotStep wrappers that dispatch through the ready graphs.
         train_step = self._train_step
+        eval_step = None
+        aot_plan = None
+        peeked_iter = None
+        # Captured BEFORE the compile-ahead peek creates the first
+        # epoch's iterator (which advances the dataset's counter).
+        peeked_abs_epoch = self._dataset_epoch(
+            train_data, base_epoch + start_epoch,
+        )
+        if compile_ahead:
+            aot_plan, peeked_iter = self._launch_compile_ahead(
+                k, first_source, batch_spec,
+                validation_data=validation_data, multi_step=multi_step,
+            )
+            if aot_plan is not None:
+                if k == 1:
+                    train_step = aot_plan.steps["train_step"]
+                else:
+                    multi_step = aot_plan.steps["multi_step"]
+                eval_step = aot_plan.steps.get("eval_step")
+        self.compile_plan = aot_plan
 
         step = int(self.state.step)
         # The first dispatch of this fit() is spanned separately (the
@@ -702,12 +789,18 @@ class Trainer:
             epoch_sums: Dict[str, Any] = {}
             epoch_steps = 0
             epoch_start = time.perf_counter()
-            # Dataset-absolute epoch of the iterator about to be created
-            # (read before __call__ advances the counter).
-            abs_epoch = self._dataset_epoch(train_data, epoch)
-            data_iter = iter(
-                (first_source if epoch == start_epoch else source)()
-            )
+            if peeked_iter is not None:
+                # First epoch with compile-ahead: the specs' peek already
+                # started this epoch's iterator (prefetch warm underneath).
+                data_iter, peeked_iter = peeked_iter, None
+                abs_epoch = peeked_abs_epoch
+            else:
+                # Dataset-absolute epoch of the iterator about to be
+                # created (read before __call__ advances the counter).
+                abs_epoch = self._dataset_epoch(train_data, epoch)
+                data_iter = iter(
+                    (first_source if epoch == start_epoch else source)()
+                )
             # A resumed first epoch starts mid-stream: the consumed-batch
             # counter picks up at the restored position (the dataset's
             # fast-forward already skipped those batches).
@@ -724,6 +817,11 @@ class Trainer:
                             )
                         if batch is None:
                             break
+                        if first_dispatch and aot_plan is not None:
+                            # Wait for the TRAIN graph only: its capture
+                            # has been overlapping prefetch warm-up, and
+                            # the eval capture keeps going behind it.
+                            aot_plan.wait("train_step")
                         compute_span = (
                             "step/first_compile" if first_dispatch
                             else "step/compute"
@@ -792,6 +890,11 @@ class Trainer:
                                     for key, value in ragged.items()
                                 }
                         else:
+                            if first_dispatch and aot_plan is not None:
+                                # Only a fused dispatch replays the
+                                # window's graph; a ragged first window
+                                # must not stall on it.
+                                aot_plan.wait("multi_step")
                             compute_span = (
                                 "step/first_compile" if first_dispatch
                                 else "step/fused_compute"
@@ -840,17 +943,23 @@ class Trainer:
             # A drain is racing a preemption grace window: skip the
             # epoch's validation pass and get to the checkpoint save.
             if validation_data is not None and not self.drained:
-                val = self.evaluate(validation_data, prefetch=prefetch)
+                val = self.evaluate(validation_data, prefetch=prefetch,
+                                    step_fn=eval_step)
                 logs.update({f"val_{k_}": v for k_, v in val.items()})
             for cb in callbacks:
                 cb.on_epoch_end(epoch, logs, self)
+        if peeked_iter is not None:
+            # The epoch loop never ran (a resumed position past the epochs
+            # budget): the peek's iterator still owns a prefetch worker.
+            peeked_iter.close()
         for cb in callbacks:
             cb.on_train_end(self)
         return history
 
     def evaluate(self, data: Callable[[], Iterable], *,
                  prefetch: int = 2, step_fn=None) -> Dict[str, float]:
-        """Mean metrics of ``step_fn`` (the eval step by default) over one
+        """Mean metrics of ``step_fn`` (the eval step by default; fit passes
+        the compile-ahead :class:`compile_cache.AotStep` wrapper) over one
         pass of ``data``."""
         step_fn = step_fn if step_fn is not None else self._eval_step
         source = data
@@ -871,6 +980,90 @@ class Trainer:
             if close is not None:
                 close()
         return self._host_means(sums, count)
+
+    def _launch_compile_ahead(self, k, source, batch_spec, *,
+                              validation_data, multi_step):
+        """Derive the specs and start the background capture.
+
+        Returns ``(plan, peeked_iter)``.  ``peeked_iter`` is non-None when
+        the first batch/window of the first epoch was pulled to derive
+        specs: the epoch loop must consume it (the prefetcher keeps
+        warming meanwhile, which is the window the capture overlaps).
+        The eval step's specs come from a peek at ``validation_data``'s
+        own first batch, deferred onto the compile worker after the train
+        job.  The train and eval graphs take the trainer's state as their
+        static state.  Any failure here degrades to the plain steps."""
+        peeked = None
+        try:
+            state = self.state
+            if batch_spec is not None:
+                if k > 1:
+                    batch_spec = compile_cache._map(
+                        batch_spec, lambda x: compile_cache.TensorSpec(
+                            (k,) + tuple(x.shape),
+                            compile_cache._torch_dtype(x.dtype)))
+                batch_specs = compile_cache.abstract_batch(
+                    batch_spec, stacked=k > 1, device=self.device)
+            else:
+                it = iter(source())
+                first = next(it, None)
+                peeked = _PeekedIterator(first, it)
+                if first is None:
+                    return None, peeked  # empty dataset: nothing to compile
+                if k == 1:
+                    batch_specs = compile_cache.abstract_batch(
+                        first, device=self.device)
+                else:
+                    _, payload, first_valid = first
+                    if first_valid is None:
+                        # Ragged first window: no stacked specs.
+                        return None, peeked
+                    batch_specs = compile_cache.abstract_batch(
+                        payload, stacked=True, device=self.device)
+            ctx = compile_cache.context_key(donation=(0,),
+                                            steps_per_dispatch=k)
+            if k == 1:
+                jobs = [(compile_cache.AotStep(self._train_step, "train_step"),
+                         (state, batch_specs), ctx)]
+            else:
+                valid = compile_cache.TensorSpec((k,), torch.float32)
+                jobs = [(compile_cache.AotStep(multi_step, "multi_step"),
+                         (state, batch_specs, valid), ctx)]
+            if validation_data is not None:
+                eval_ctx = compile_cache.context_key(steps_per_dispatch=1)
+
+                def eval_args():
+                    # On the compile worker, after the train job.
+                    val_batch = self._peek_one_batch(validation_data)
+                    if val_batch is None:
+                        return None
+                    return (state, compile_cache.abstract_batch(
+                        val_batch, device=self.device))
+
+                jobs.append((compile_cache.AotStep(self._eval_step,
+                                                   "eval_step"),
+                             eval_args, eval_ctx))
+            return (compile_cache.start_compile_ahead(jobs,
+                                                      device=self.device),
+                    peeked)
+        except Exception:  # noqa: BLE001 — compile-ahead is advisory
+            logger.warning(
+                "compile-ahead setup failed; falling back to the plain "
+                "steps", exc_info=True,
+            )
+            return None, peeked
+
+    @staticmethod
+    def _peek_one_batch(dataset):
+        """One batch from a fresh iterator of a re-iterable dataset (the
+        fit() data contract), closing any worker it spawned."""
+        it = iter(dataset())
+        try:
+            return next(it, None)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
     @staticmethod
     def _with_runtime_metrics(callbacks: List[Callback]) -> List[Callback]:

@@ -5,8 +5,8 @@ every gradient of ``bert.loss_fn`` against ``jax.value_and_grad`` of the
 JAX ``bert.loss_fn``, with an attention mask (padded tails, no sample
 fully masked) and segment ids, and without either; logits at 1e-4,
 loss at 1e-5 relative, gradients at 1e-5 of the largest magnitude.  The
-weight bridge round-trips, the CPU path launches no kernel, and the
-options the port does not have raise.
+weight bridge round-trips, the CPU path launches no kernel, and dropout
+equals JAX's for the same key.
 """
 
 import dataclasses
@@ -107,9 +107,22 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_dropout_is_not_ported():
-    _, _, cfg, port_params = bert_tiny_models(seed=2)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(False).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bert.loss_fn(port_params, batch,
-                     dataclasses.replace(cfg, dropout_rate=0.1),
-                     rng=torch.Generator(), device="cpu")
+    """BERT dropout is ported: at ``dropout_rate=0.1`` with the same key,
+    the loss equals JAX's within 1e-5 (the masks are JAX's bit for bit,
+    ``test_torch_stochastic.py``), and a second key gives another loss."""
+    jax_cfg, params, cfg, port_params = bert_tiny_models(seed=2)
+    jax_cfg = dataclasses.replace(jax_cfg, dropout_rate=0.1)
+    cfg = dataclasses.replace(cfg, dropout_rate=0.1)
+    batch = _batch(False)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    losses = []
+    for seed in (1, 2):
+        key = jax.random.PRNGKey(seed)
+        want, _ = jax_bert.loss_fn(params, batch, jax_cfg, rng=key)
+        got, _ = bert.loss_fn(port_params, tbatch, cfg,
+                              rng=torch.from_numpy(
+                                  np.asarray(key).astype(np.int64)),
+                              device="cpu")
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+        losses.append(float(got))
+    assert losses[0] != losses[1]

@@ -5,9 +5,11 @@ the port, nor ``chip_smoke.py``, ``flash_ab.py`` or ``gn_ab.py``, imports
 ``jax``, ``optax``, ``orbax``, ``flax`` or the JAX package; the port's
 copies of framework-free reference modules (``monitoring`` with
 ``report.py``, ``serving/qos.py``, ``serving/prefix_cache.py``,
-``utils/faults.py``, ``utils/retries.py``, ``training/preemption.py`` and
-the fleet's ``disagg.py``, ``router.py``, ``replica.py`` and
-``autoscaler.py``) import only the standard library and the port; and an
+``utils/faults.py``, ``utils/retries.py``, ``utils/native.py``,
+``training/preemption.py`` and the fleet's ``disagg.py``, ``router.py``,
+``replica.py`` and ``autoscaler.py``) import only the standard library and
+the port (the new ``random.py``, ``training/compile_cache.py`` and
+``training/records.py`` are scanned with every module); and an
 entry point called without ``device="cpu"`` on a host with no card raises
 instead of quietly running on the CPU.
 """
@@ -92,6 +94,7 @@ STDLIB_COPIES = {
     "serving/prefix_cache.py": "cloud_tpu_torch.monitoring",
     "utils/faults.py": "cloud_tpu_torch.monitoring",
     "utils/retries.py": "cloud_tpu_torch.monitoring",
+    "utils/native.py": None,
     "training/preemption.py": "cloud_tpu_torch.monitoring",
     "fleet/disagg.py": None,
     "fleet/autoscaler.py": None,
@@ -119,8 +122,8 @@ def test_entry_points_refuse_missing_cuda():
                                         transformer)
     from cloud_tpu_torch.serving import ServingEngine
     from cloud_tpu_torch.training import (check_durability, checkpoint,
-                                          optimizers, pipeline_io, train,
-                                          trainer)
+                                          compile_cache, optimizers,
+                                          pipeline_io, train, trainer)
     from cloud_tpu_torch.utils import benchmarking
 
     cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)
@@ -166,6 +169,7 @@ def test_entry_points_refuse_missing_cuda():
         lambda: pipeline_io.iter_windows(list, 2),
         lambda: pipeline_io.place_batch({"x": np.zeros(2)}),
         lambda: check_durability.main([]),
+        lambda: compile_cache.abstract_batch({"x": np.zeros(2)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -5,7 +5,8 @@ same start: ``optimizers.adamw(lr, mu_dtype=None)`` against
 ``optax.adamw(lr)``, and the presets with bf16 mu
 (``optimizers.adamw``/``adam`` against
 ``cloud_tpu.training.optimizers.adamw``/``adam``), parameters and both
-moments at atol 1e-6.
+moments at atol 1e-6; ``adamw(mask=...)`` (a tree of bools, and a
+callable of the parameters) against ``optax.adamw(mask=...)``.
 """
 
 import jax
@@ -28,6 +29,17 @@ def _tree(rng):
                       np.float32)}}
 
 
+#: Weight decay on ``a`` and ``b/d`` only.
+MASK = {"a": True, "b": {"c": False, "d": True}}
+
+
+def _decay_matrices(params):
+    """Decay the 2-d leaves (works on JAX and torch trees alike)."""
+    if isinstance(params, dict):
+        return {k: _decay_matrices(v) for k, v in params.items()}
+    return len(params.shape) > 1
+
+
 CASES = {
     "optax.adamw": (lambda: optax.adamw(3e-2),
                     lambda: optimizers.adamw(3e-2, mu_dtype=None)),
@@ -35,6 +47,14 @@ CASES = {
                       lambda: optimizers.adamw(3e-2, weight_decay=0.1)),
     "adam bf16 mu": (lambda: jax_opt.adam(3e-2, eps=1e-6),
                      lambda: optimizers.adam(3e-2, eps=1e-6)),
+    "adamw mask tree": (
+        lambda: optax.adamw(3e-2, weight_decay=0.1, mask=MASK),
+        lambda: optimizers.adamw(3e-2, weight_decay=0.1, mu_dtype=None,
+                                 mask=MASK)),
+    "adamw mask callable": (
+        lambda: jax_opt.adamw(3e-2, weight_decay=0.1, mask=_decay_matrices),
+        lambda: optimizers.adamw(3e-2, weight_decay=0.1,
+                                 mask=_decay_matrices)),
 }
 
 
@@ -55,6 +75,8 @@ def test_three_updates_match(case):
         port.update_(tp, bridge.map_leaves(g, torch.from_numpy), tstate)
     assert tstate["count"] == 3
     adam_state = jstate[0]
+    if not hasattr(adam_state, "mu"):  # a mask adds a level to the chain
+        adam_state = adam_state[0]
     for got, want in ((tp, jp), (tstate["mu"], adam_state.mu),
                       (tstate["nu"], adam_state.nu)):
         got = bridge.leaves(got)
@@ -70,5 +92,13 @@ def test_three_updates_match(case):
 
 
 def test_adamw_mask_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.adamw(1e-3, mask=lambda p: p)
+    """``adamw(mask=...)`` is ported (held to optax in
+    ``test_three_updates_match``); a mask whose leaves do not match the
+    parameters' raises, and so does an update before ``init``."""
+    params = {"a": torch.zeros(2), "b": torch.zeros(3)}
+    with pytest.raises(ValueError, match="mask has 1 leaves"):
+        optimizers.adamw(1e-3, mask={"a": True}).init(params)
+    with pytest.raises(ValueError, match="init"):
+        optimizers.adamw(1e-3, mask={"a": True, "b": False}).update_(
+            params, params, {"count": torch.zeros((), dtype=torch.int32),
+                             "mu": params, "nu": params})

@@ -21,7 +21,8 @@ The same weights (JAX's init, through ``bridge``) and the same shuffled
   run that never saw the batch, 1e-6 of JAX's), and a skipped step
   leaving params and every optimizer slot bit for bit;
 * every option of a later item raising ``NotImplementedError`` that
-  names it.
+  names it, and the options of the ported A.6 items (stochastic steps,
+  ``train_rng``, compile-ahead, ``batch_spec``) held to JAX.
 """
 
 import functools
@@ -451,21 +452,90 @@ def _fit_with(**kw):
     tr.fit(data.ArrayDataset(arrays, 4), epochs=1, **kw)
 
 
+def _jax_noisy_linear(params, batch, *, rng=None):
+    x = batch["x"]
+    if rng is not None:
+        x = x * jax.random.bernoulli(rng, 0.9, x.shape).astype(x.dtype) / 0.9
+    return _jax_linear(params, {"x": x, "y": batch["y"]})
+
+
+def _port_noisy_linear(params, batch, *, rng=None):
+    from cloud_tpu_torch import random as random_lib
+
+    x = batch["x"]
+    if rng is not None:
+        x = x * random_lib.bernoulli(rng, 0.9, x.shape).to(x.dtype) / 0.9
+    return _port_linear(params, {"x": x, "y": batch["y"]})
+
+
+def _stochastic_trainer_key():
+    """Trainer(stochastic=True).init_state derives the key JAX's does
+    (from PRNGKey(seed); the port from a generator of that seed)."""
+    jtr = jax_trainer.Trainer(_jax_linear, optax.sgd(0.1),
+                              init_fn=lambda _: {"w": jnp.zeros((4, 2))},
+                              stochastic=True)
+    jtr.init_state(jax.random.PRNGKey(3))
+    tr = _tiny_trainer(stochastic=True)
+    tr.init_state(torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(tr.state.rng.numpy(),
+                                  np.asarray(jtr.state.rng))
+
+
+def _stochastic_step():
+    """One stochastic step (input-noise dropout from the step's key) on
+    both sides: loss and params within 1e-5, the key advanced alike."""
+    arrays, params = _linear()
+    batch = {k: v[:4] for k, v in arrays.items()}
+    jstate = jax_train.create_sharded_state(
+        None, lambda _: {"w": jnp.asarray(params["w"])}, optax.sgd(0.1),
+        mesh=None, train_rng=jax.random.PRNGKey(7))
+    jstate, jm = jax_train.make_train_step(
+        _jax_noisy_linear, optax.sgd(0.1), stochastic=True)(jstate, batch)
+    state = train.create_sharded_state(
+        None, lambda _: {"w": torch.from_numpy(params["w"])},
+        optimizers.sgd(0.1), train_rng=np.asarray(jax.random.PRNGKey(7)),
+        device="cpu")
+    state, m = train.make_train_step(_port_noisy_linear, optimizers.sgd(0.1),
+                                     stochastic=True)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(state.params["w"].detach().numpy(),
+                               np.asarray(jstate.params["w"]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(state.rng.numpy(), np.asarray(jstate.rng))
+
+
+def _state_with_train_rng():
+    key = jax.random.PRNGKey(11)
+    state = train.create_sharded_state(
+        None, lambda _: {"w": torch.zeros(2)}, optimizers.sgd(0.1),
+        train_rng=np.asarray(key), device="cpu")
+    np.testing.assert_array_equal(state.rng.numpy(), np.asarray(key))
+
+
+def _fit_ahead_equals_plain(**kw):
+    """fit with compile-ahead (the CPU binds the plain step) logs what
+    the plain fit logs, and its plan attached with no error."""
+    arrays, _ = _linear()
+    logs = []
+    for ahead in (False, True):
+        tr = _tiny_trainer()
+        tr.init_state(None)
+        hist = tr.fit(data.ArrayDataset(arrays, 4), epochs=1,
+                      compile_ahead=ahead, **(kw if ahead else {}))
+        logs.append(hist.history["loss"])
+        if ahead:
+            assert tr.compile_plan.error is None
+            assert tr.compile_plan.steps["train_step"].compiled is not None
+    assert logs[0] == logs[1]
+
+
 REFUSED = {
     "Trainer(mesh)": (lambda: _tiny_trainer(mesh=object()), "parallel"),
     "Trainer(logical_axes)": (lambda: _tiny_trainer(logical_axes={}),
                               "parallel"),
     "Trainer(rules)": (lambda: _tiny_trainer(rules=object()), "parallel"),
-    "Trainer(stochastic)": (lambda: _tiny_trainer(stochastic=True),
-                            "rng chain"),
-    "make_train_step(stochastic)": (lambda: train.make_train_step(
-        _port_linear, optimizers.sgd(0.1), stochastic=True), "BERT dropout"),
-    "create_sharded_state(train_rng)": (lambda: train.create_sharded_state(
-        None, dict, optimizers.sgd(0.1), train_rng=object(), device="cpu"),
-        "rng chain"),
-    "fit(compile_ahead)": (lambda: _fit_with(compile_ahead=True),
-                           "compile cache"),
-    "fit(batch_spec)": (lambda: _fit_with(batch_spec={}), "compile cache"),
     "prefetch_to_device(mesh)": (lambda: pipeline_io.prefetch_to_device(
         list, mesh=object(), device="cpu"), "parallel"),
     "prefetch_windows(rules)": (lambda: pipeline_io.prefetch_windows(
@@ -474,9 +544,27 @@ REFUSED = {
         "gs://bucket/ckpt", device="cpu"), "gs://"),
 }
 
+#: Options that raised until their A.6 items were ported; each now runs
+#: and is held to the JAX package (more in test_torch_stochastic.py and
+#: test_torch_compile_cache.py).
+PORTED = {
+    "Trainer(stochastic)": _stochastic_trainer_key,
+    "make_train_step(stochastic)": _stochastic_step,
+    "create_sharded_state(train_rng)": _state_with_train_rng,
+    "fit(compile_ahead)": _fit_ahead_equals_plain,
+    "fit(batch_spec)": lambda: _fit_ahead_equals_plain(batch_spec={
+        "x": np.zeros((4, 4), np.float32),
+        "y": np.zeros((4, 2), np.float32)}),
+}
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
+
+@pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
 def test_refused_options_name_their_item(name):
+    """A mesh option or a gs:// directory raises naming its item; the
+    options of the single-card A.6 items (``PORTED``) run, held to JAX."""
+    if name in PORTED:
+        PORTED[name]()
+        return
     call, words = REFUSED[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.6") as got:
         call()
