@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, and the fleet with disaggregated prefill/decode), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout) once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, the fleet with disaggregated prefill/decode, and an MoE CloudLM with its pretrained bundle), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout, MoE, remat "dots" and ViT-B/16) once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -44,7 +44,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    kernels take; bf16 K6 and K7 also against their f32 kernels where
    causal rows have no valid key (the plain version's answer differs
    there by design), then K5, K6 and K7 timed at the LM (B=4, T=1024,
-   causal) and BERT (B=32, T=128) shapes against
+   causal), BERT (B=32, T=128) and ViT-B/16 (B=128, T=196, non-causal;
+   the plain versions there in event time only) shapes against
    ``scaled_dot_product_attention``'s forward and backward, in event and
    device time;
 3. serves 16 staggered requests of mixed lengths through
@@ -116,7 +117,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    1 prefill / 2 decode with the KV handoff through the host pool; bf16
    tokens equal across the arms, one handoff a request, none failed
    over, the pool deduplicating; four f32 requests through the
-   disaggregated fleet one at a time equal to ``generate()``);
+   disaggregated fleet one at a time equal to ``generate()``); then an
+   MoE CloudLM (3m: SMALL with the default ``MoeConfig``, 8 experts, top
+   2, on the continuous scheduler, bucket 128, 16 staggered requests of
+   up to 32 new tokens in bf16 and again with int8 weights and an int8
+   grid, K5 and K8 or K8q held to the engine's stats; f32 tokens equal
+   ``generate()`` on four prompts padded to the bucket (the same T, so
+   the same expert capacity) whose greedy path keeps its top-2 gap, 1e-3,
+   or 1e-2 under int8 + kv_quant; the served bf16 params through
+   ``save_pretrained``/``load_pretrained`` come back bit for bit and
+   serve the same tokens);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -172,7 +182,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    K6, K7, matrix products, idle; it fails if the profiler's rows of K5,
    K6 or K7 do not hold the step's launches); holds f32 gradients of SMALL at 2
    layers (b2 x T256) on the card against the CPU, and one AdamW update
-   on identical gradients;
+   on identical gradients; then the MoE LM (6m: the same step with the
+   default ``MoeConfig``, 3 + 5 steps, 24/12/12 launches a step, a finite
+   positive aux, one step's device time split into attention, the expert
+   products, dispatch and combine, and the rest; one f32 SGD step at 2
+   layers, b2 x T128, card against CPU: loss 1e-4 relative, params
+   TOL_F32, aux 1e-5) and remat "dots" (6d: the dense step under "none",
+   "full" and "dots": f32 loss and grad norm equal across the three; in
+   bf16 steps/s, peak memory, device ms and K5 launches, 12 or 24 a
+   step, per policy; a K=2 "dots" window as a CUDA graph against 2 eager
+   steps within 1e-6);
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does; then the stochastic step (7s: dropout
@@ -180,8 +199,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    steps with the same launches, steps/s and dropout's device share
    beside phase 7's; one f32 step at b2 on the card against the CPU,
    masks included; a window of 4 stochastic steps against 4 eager ones);
-8. prints one JSON line describing every kernel (a serving kernel's
-   launches summed over the serving phases and 7s, K6/K7's over 6 and 7s,
+8. trains ViT-B/16 (8v: 224 px, T=196, GAP, b128 bf16, remat "full",
+   ``adamw(3e-4)``) for 3 + 10 steps with 24/12/12 launches a step and
+   splits one step's device time as phase 6 does; holds K5, K6 and K7 to
+   their plain versions at (128, 196, 12, 64) and (128, 197, 12, 64)
+   non-causal, bf16 and f32, off the kernels' 64-row tiles (phase 2c
+   times them at T=196 beside SDPA and the bound); one f32 SGD step at
+   2 layers, 56 px, patch 8 (T=49), card against CPU;
+9. prints one JSON line describing every kernel (a serving kernel's
+   launches summed over the serving phases (3m included) and 7s, and
+   K5's also over 6m, 6d and 8v, K6/K7's over 6, 7s, 6m, 6d and 8v,
    K1-K4's over phases 4, 4t, 4r, 4a and 4p, each counted from 0 just
    before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
@@ -1192,16 +1219,20 @@ def _attn_bound(kernel, b, t, causal):
     return bound_ms(6 * elems * 2 + 2 * rows, 4 * per_product, "bfloat16")
 
 
-def _time_attention(fa, path, card, gen):
+def _time_attention(fa, path, card, gen, shape=None, plain_device=True):
     """Kernel, plain and library times of K5, K6 and K7 (bf16, no mask) at
-    one training path's shape, with their bounds, each in event and device
-    time (:func:`event_and_device_ms`).  The library yardstick is
+    one training path's shape (``TRAIN_SHAPES[path]``, or ``shape``),
+    with their bounds, each in event and device time
+    (:func:`event_and_device_ms`); the plain versions in event time alone
+    without ``plain_device`` (at ViT's B=128 the profiler's sessions of
+    the plain forward lost records of its copy kernel in five sessions
+    running).  The library yardstick is
     ``F.scaled_dot_product_attention``: its forward for K5, its backward
     (forward plus backward, less the forward) for K6 and K7."""
     import torch
     import torch.nn.functional as F
 
-    b, t, causal = TRAIN_SHAPES[path]
+    b, t, causal = shape or TRAIN_SHAPES[path]
     q, k, v, do, _ = _attn_inputs(b, t, torch.bfloat16, gen, mask_kind=None)
     with torch.no_grad():
         out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=None)
@@ -1215,10 +1246,16 @@ def _time_attention(fa, path, card, gen):
                 "flash_bwd_dkv", q, k, v, None, do, lse, row, causal=causal),
         }
         times = {name: event_and_device_ms(fn) for name, fn in calls.items()}
-        plain_fwd = event_and_device_ms(lambda: fa._reference_with_lse(
-            q, k, v, causal=causal, mask=None), iters=5)
-        plain_bwd = event_and_device_ms(lambda: fa._bwd_reference(
-            q, k, v, None, do, out, lse, causal=causal), iters=5)
+
+        def plain_ms(fn):
+            if plain_device:
+                return event_and_device_ms(fn, iters=5)
+            return time_ms(fn, iters=5), None
+
+        plain_fwd = plain_ms(lambda: fa._reference_with_lse(
+            q, k, v, causal=causal, mask=None))
+        plain_bwd = plain_ms(lambda: fa._bwd_reference(
+            q, k, v, None, do, out, lse, causal=causal))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -1243,9 +1280,11 @@ def _time_attention(fa, path, card, gen):
             "plain_ms": plain, "plain_device_ms": plain_dev,
             "library_ms": library, "library_device_ms": library_dev,
             "bound_ms": b_ms, "bound_by": b_by}
+        plain_dev_s = ("device not measured" if plain_dev is None
+                       else f"{plain_dev:.4f}")
         print(f"  {name} {path} {entries[name]['shape']}: kernel "
               f"{kernel:.4f} ms (device {kernel_dev:.4f}), plain "
-              f"{plain:.4f} ({plain_dev:.4f})"
+              f"{plain:.4f} ({plain_dev_s})"
               f"{'' if fwd else ' (dq, dk, dv together)'}, sdpa "
               f"{'forward' if fwd else 'backward'} {library:.4f} "
               f"({library_dev:.4f}), bound {b_ms:.5f} ms ({b_by}) [{card}]")
@@ -1260,7 +1299,9 @@ def check_flash_bwd(device, card):
     causal with a mask, and non-causal with a sample whose keys are all
     masked; in bf16 also at every head dim the kernels take (H=4, T=200
     causal with a mask, T=130 non-causal).  Then times K5, K6 and K7 at
-    both shapes.  Returns the K6/K7 entries, K5's timings at both shapes
+    both shapes and at ViT-B/16's (B=128, T=196, non-causal; 8v checks
+    them there), early in the run, where the profiler's sessions have
+    held.  Returns the K6/K7 entries, K5's timings at the three shapes
     and K5's worst errors here."""
     import torch
 
@@ -1306,6 +1347,9 @@ def check_flash_bwd(device, card):
           f"dk/dv {no_valid['flash_bwd_dkv']:.3e} ok [{card}]")
     timed = {path: _time_attention(fa, path, card, gen)
              for path in TRAIN_SHAPES}
+    timed["ViT"] = _time_attention(fa, "ViT", card, gen,
+                                   shape=(VIT_BATCH, 196, False),
+                                   plain_device=False)
     entries = []
     for name in FLASH_BWD_KERNELS:
         lm = timed["LM"][name]
@@ -1317,9 +1361,10 @@ def check_flash_bwd(device, card):
             "max_abs_err_f32": worst[name]["float32"],
             "max_abs_err_no_valid_key": no_valid[name],
             **lm,
-            "at_bert": timed["BERT"][name]})
+            "at_bert": timed["BERT"][name],
+            "at_vit": timed["ViT"][name]})
     print(f"  flash: {cases} cases checked")
-    return (entries, {path: timed[path]["flash_fwd"] for path in TRAIN_SHAPES},
+    return (entries, {path: timed[path]["flash_fwd"] for path in timed},
             worst["flash_fwd"])
 
 
@@ -1743,14 +1788,9 @@ ATTN_ROWS = {"flash_fwd": "flash_fwd_kernel",
              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
 
-def profile_attn_step(card, what, per_step, step, state, batch):
-    """Where one transformer training step's device time goes:
-    torch.profiler's kernel rows split into K5, K6, K7, matrix products
-    and the rest, and the idle share against the wall time of an
-    unprofiled step.  Fails if, in ``PROFILE_SESSIONS`` profiled steps,
-    the rows of K5, K6 or K7 never hold exactly the step's ``per_step``
-    launches with nonzero time: a kernel whose symbol no longer matches
-    ``ATTN_ROWS`` would move its time into "rest" unseen."""
+def _attn_complaint(what, per_step):
+    """A :func:`_profile_checked` complaint: the rows of K5, K6 and K7 must
+    hold exactly the step's ``per_step`` launches, with nonzero time."""
     def complaint(rows):
         for name, key in ATTN_ROWS.items():
             mine = [r for r in rows if key in r[2]]
@@ -1761,8 +1801,19 @@ def profile_attn_step(card, what, per_step, step, state, batch):
                         f"{per_step[name]}")
         return None
 
-    wall_ms, enqueue_ms, _, rows = _profile_checked(step, state, batch,
-                                                    complaint)
+    return complaint
+
+
+def profile_attn_step(card, what, per_step, step, state, batch):
+    """Where one transformer training step's device time goes:
+    torch.profiler's kernel rows split into K5, K6, K7, matrix products
+    and the rest, and the idle share against the wall time of an
+    unprofiled step.  Fails if, in ``PROFILE_SESSIONS`` profiled steps,
+    the rows of K5, K6 or K7 never hold exactly the step's ``per_step``
+    launches with nonzero time: a kernel whose symbol no longer matches
+    ``ATTN_ROWS`` would move its time into "rest" unseen."""
+    wall_ms, enqueue_ms, _, rows = _profile_checked(
+        step, state, batch, _attn_complaint(what, per_step))
     busy = sum(r[0] for r in rows) / 1e3
     split = {name: sum(r[0] for r in rows if key in r[2]) / 1e3
              for name, key in ATTN_ROWS.items()}
@@ -1974,17 +2025,26 @@ def _grid_bytes(cache) -> int:
     return sum(leaf.numel() * leaf.element_size() for leaf in cache.values())
 
 
+def _padded(prompt, width):
+    """``prompt`` as a ``[1, width]`` row, zeros after it (an engine
+    bucket's layout)."""
+    row = np.zeros((1, max(width, len(prompt))), np.int32)
+    row[0, :len(prompt)] = prompt
+    return row
+
+
 def _greedy_gaps(generation, params, prompt, budget, cfg, device, *,
-                 kv_quant):
+                 kv_quant, width=0):
     """Top-2 logit gap at each greedy step of ``generate(kv_quant=...)``,
     read off its own path (``_prefill`` and ``_decode_step``, on an int8
-    cache with ``kv_quant``), and the tokens of that path."""
+    cache with ``kv_quant``), and the tokens of that path; the prompt
+    padded to ``width`` (an MoE model routes by the prefill's width)."""
     import torch
 
-    tokens = torch.from_numpy(prompt)[None].to(device)
+    tokens = torch.from_numpy(_padded(prompt, width)).to(device)
     lens = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
     cache, logits = generation._prefill(params, tokens, lens, cfg,
-                                        len(prompt) + budget,
+                                        tokens.shape[1] + budget,
                                         kv_quant=kv_quant)
     gaps, out = [], []
     cur_len = lens
@@ -5492,6 +5552,540 @@ def run_stochastic_bert(device, card, plain):
 
 #: Kernels whose bf16 instantiations must run on the tensor cores, by
 #: library.
+# ---------------------------------------------------------------------------
+# The rest of the model zoo: MoE CloudLM served (3m) and trained (6m),
+# remat "dots" (6d) and ViT-B/16 trained (8v)
+# ---------------------------------------------------------------------------
+
+#: 3m: CloudLM SMALL with the repo's default MoE (8 experts, top 2,
+#: capacity 1.25, expert hidden 3072) on the continuous scheduler.
+MOE_SERVE = {"requests": 16, "bucket": 128, "new": 32, "parity": 4}
+#: 8v: ViT-B/16 at 224 px (T=196, GAP), remat "full".
+VIT_BATCH = 128
+VIT_PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+VIT_SHAPES = ((VIT_BATCH, 196), (VIT_BATCH, 197))
+
+
+def _moe_small(**kw):
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.models.moe import MoeConfig
+
+    return transformer.SMALL.scaled(moe=MoeConfig(), **kw)
+
+
+def _moe_requests(vocab: int, n: int, seed: int):
+    """``n`` prompts no longer than the bucket, with budgets up to
+    ``MOE_SERVE["new"]``."""
+    rng = np.random.default_rng(seed)
+    lengths = [5, 20, 31, 48, 90, 128]
+    return [(rng.integers(1, vocab, lengths[i % len(lengths)]).astype(
+        np.int32), int(rng.choice([8, 16, 24, MOE_SERVE["new"]])))
+        for i in range(n)]
+
+
+def _moe_picks(generation, params, cfg, device, candidates, *, kv_quant):
+    """The first ``MOE_SERVE["parity"]`` candidates whose greedy path,
+    prefilled at the bucket's width, keeps its top-2 gap (1e-3, or
+    ``QUANT_TIE_GAP`` under ``kv_quant``) at every step."""
+    limit = QUANT_TIE_GAP if kv_quant else 1e-3
+    picks = []
+    for prompt, budget in candidates:
+        gaps, _ = _greedy_gaps(generation, params, prompt, budget, cfg,
+                               device, kv_quant=kv_quant,
+                               width=MOE_SERVE["bucket"])
+        if min(gaps) >= limit:
+            picks.append((prompt, budget))
+        if len(picks) == MOE_SERVE["parity"]:
+            return picks
+    raise AssertionError(f"only {len(picks)} of {len(candidates)} prompts "
+                         f"are tie-free at {limit} (MoE, bucket width)")
+
+
+def _moe_parity(what, generation, params, cfg, device, engine_params, serve,
+                picks, *, kv_quant):
+    """``picks`` served one at a time equal ``generate()`` on each prompt
+    padded to the bucket (the same T, so the same expert capacity)."""
+    import torch
+
+    from cloud_tpu_torch.serving import ServingEngine
+
+    with ServingEngine(engine_params, cfg, serve, device=device) as engine:
+        served = [engine.submit(p, max_new_tokens=b).result(timeout=600)
+                  for p, b in picks]
+    for (prompt, budget), res in zip(picks, served):
+        want = generation.generate(
+            params, torch.from_numpy(_padded(prompt, MOE_SERVE["bucket"])),
+            torch.tensor([len(prompt)]), cfg, max_new_tokens=budget,
+            kv_quant=kv_quant, device=device)["tokens"][0].cpu().numpy()
+        if not np.array_equal(want, res.tokens):
+            first = int(np.flatnonzero(want != res.tokens)[0])
+            raise AssertionError(f"{what}: engine != generate() for a "
+                                 f"{len(prompt)}-token prompt at token "
+                                 f"{first}")
+
+
+def _moe_measured(engine, requests, kernels):
+    """One measured run of ``requests`` (staggered), launches counted from
+    0 just before and read just after; returns (results, wall, launches,
+    stats before, stats after)."""
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+
+    engine.submit(requests[0][0], max_new_tokens=4).result(timeout=600)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    stats0 = engine.stats()
+    start = time.perf_counter()
+    futures = []
+    for prompt, budget in requests:
+        futures.append(engine.submit(prompt, max_new_tokens=budget))
+        time.sleep(0.002)
+    results = [f.result(timeout=600) for f in futures]
+    wall = time.perf_counter() - start
+    return (results, wall, dispatch.launch_counts(kernels), stats0,
+            engine.stats())
+
+
+def run_moe_engine(device, card):
+    """3m: CloudLM SMALL with the default MoE through ``ServingEngine`` on
+    the continuous scheduler: 16 staggered requests (bucket 128, up to 32
+    new tokens) in bf16 and again with int8 weights and an int8 grid, K5
+    and K8 (or K8q) launches held to the engine's stats; f32 tokens equal
+    ``generate()`` on tie-free prompts padded to the bucket, with and
+    without int8 + kv_quant; the served bf16 params through
+    ``save_pretrained``/``load_pretrained`` come back bit for bit and
+    serve the same tokens."""
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import export, generation, quantization
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.utils.benchmarking import decode_setup
+
+    cfg, params, _, _ = decode_setup(config=_moe_small(), device=device,
+                                     seed=0)
+    pparams = generation.prepare_params(params, cfg)
+    serve = ServeConfig(max_new_tokens=MOE_SERVE["new"],
+                        prompt_buckets=(MOE_SERVE["bucket"],),
+                        num_slots=NUM_SLOTS, chunk_tokens=CHUNK)
+    qserve = ServeConfig(max_new_tokens=MOE_SERVE["new"],
+                         prompt_buckets=(MOE_SERVE["bucket"],),
+                         num_slots=NUM_SLOTS, chunk_tokens=CHUNK,
+                         kv_quant=True)
+    requests = _moe_requests(cfg.vocab_size, MOE_SERVE["requests"], seed=1)
+    layers_n = cfg.num_layers
+    out = {"param_bytes": quantization.param_bytes(pparams)}
+    launches = {}
+    for arm, engine_params, arm_serve in (
+            ("bf16", pparams, serve),
+            ("int8_kv_quant", quantization.quantize_params(params), qserve)):
+        with ServingEngine(engine_params, cfg, arm_serve,
+                           device=device) as engine:
+            results, wall, got, d0, d1 = _moe_measured(
+                engine, requests, QUANT_SERVING_KERNELS)
+        _check_launches(f"3m {arm}", got, layers_n, d0, d1,
+                        quantized=arm_serve.kv_quant)
+        for (prompt, budget), res in zip(requests, results):
+            if (res.tokens.shape != (budget,) or res.tokens.min() < 0
+                    or res.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"3m {arm}: bad result {res.tokens} "
+                                     f"for budget {budget}")
+        tokens = sum(r.num_generated for r in results)
+        tpot = [(r.latency_seconds - r.ttft_seconds)
+                / max(r.num_generated - 1, 1) for r in results]
+        ttft = [r.ttft_seconds for r in results]
+        row = {"tokens_per_s": tokens / wall, "tpot_p50_s": _pct(tpot, 50),
+               "ttft_p50_s": _pct(ttft, 50),
+               "param_bytes": quantization.param_bytes(engine_params),
+               "launches": got}
+        out[arm] = row
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"  3m MoE SMALL ({cfg.moe.num_experts} experts, top "
+              f"{cfg.moe.top_k}) {arm}: {len(results)} requests, {tokens} "
+              f"tokens in {wall:.3f} s = {row['tokens_per_s']:.1f} tok/s; "
+              f"TPOT p50 {row['tpot_p50_s'] * 1e3:.3f} ms, TTFT p50 "
+              f"{row['ttft_p50_s'] * 1e3:.3f} ms; param_bytes "
+              f"{row['param_bytes']}; launches {got} ok [{card}]")
+        del engine_params
+
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    candidates = _moe_requests(cfg.vocab_size, 24, seed=3)
+    picks = _moe_picks(generation, params, cfg32, device, candidates,
+                       kv_quant=False)
+    _moe_parity("3m f32", generation, params, cfg32, device, params, serve,
+                picks, kv_quant=False)
+    qparams = quantization.quantize_params(params)
+    qpicks = _moe_picks(generation, qparams, cfg32, device, candidates,
+                        kv_quant=True)
+    _moe_parity("3m f32 int8 + kv_quant", generation, qparams, cfg32,
+                device, qparams, qserve, qpicks, kv_quant=True)
+    del qparams
+    print(f"  3m f32: engine == generate() at the bucket's width on "
+          f"{len(picks)} tie-free prompts (gap 1e-3), and with int8 weights "
+          f"+ kv_quant on {len(qpicks)} (gap {QUANT_TIE_GAP}) ok [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        export.save_pretrained(tmp, pparams, cfg)
+        save_s = time.perf_counter() - start
+        loaded, cfg2 = export.load_pretrained(tmp, device=device)
+        load_s = time.perf_counter() - start - save_s
+    if cfg2 != cfg:
+        raise AssertionError(f"3m export: config {cfg2} != {cfg}")
+    for a, b in zip(bridge.leaves(loaded), bridge.leaves(pparams)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("3m export: a loaded leaf differs")
+    served = []
+    for engine_params in (pparams, loaded):
+        with ServingEngine(engine_params, cfg, serve,
+                           device=device) as engine:
+            served.append([engine.submit(p, max_new_tokens=b).result(
+                timeout=600).tokens for p, b in requests[:4]])
+    if not all(np.array_equal(a, b) for a, b in zip(*served)):
+        raise AssertionError("3m export: the loaded bundle serves other "
+                             "tokens")
+    out["export"] = {"save_s": save_s, "load_s": load_s}
+    print(f"  3m export: bf16 bundle of {out['param_bytes']} bytes saved in "
+          f"{save_s:.2f} s, loaded in {load_s:.2f} s, bit for bit; 4 "
+          f"requests one at a time serve the same tokens ok [{card}]")
+    del loaded, pparams, params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def _bmm_split(events, experts: int, batch: int):
+    """Device ms of the measured step's batched products (``aten::bmm``,
+    read through ``record_shapes``) by their batch dimension: the expert
+    products batch over experts, dispatch and combine over the batch."""
+    from torch.autograd import DeviceType
+
+    if experts == batch:
+        raise ValueError("the split needs experts != batch")
+    split = {"experts": 0.0, "dispatch_combine": 0.0}
+    for evt in events:
+        if evt.device_type != DeviceType.CPU or evt.name != "aten::bmm":
+            continue
+        lead = evt.input_shapes[0][0] if evt.input_shapes else None
+        key = {experts: "experts", batch: "dispatch_combine"}.get(lead)
+        if key is not None:
+            split[key] += sum(k.duration for k in evt.kernels) / 1e3
+    return split
+
+
+def profile_moe_step(card, what, step, state, batch, cfg):
+    """One MoE LM step after a lead step, its device time by family:
+    attention kernels (K5, K6, K7), expert products, dispatch and combine,
+    the rest; and the idle share."""
+    wall_ms, enqueue_ms, events, rows = _profile_checked(
+        step, state, batch, _attn_complaint(what, LM_PER_STEP),
+        record_shapes=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    split = {"attention": sum(r[0] for r in rows if any(
+        k in r[2] for k in ATTN_ROWS.values())) / 1e3}
+    split.update(_bmm_split(events, cfg.moe.num_experts, LM_BATCH))
+    split["rest"] = busy - sum(split.values())
+    if not split["experts"] > 0 or not split["dispatch_combine"] > 0:
+        raise AssertionError(f"{what}: no expert or dispatch products in "
+                             f"the profile: {split}")
+    print(f"  {what} step: wall {wall_ms:.3f} ms, host enqueue "
+          f"{enqueue_ms:.3f} ms, device kernels {busy:.3f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; " + ", ".join(
+              f"{k} {v:.3f} ms ({v / busy:.3f})" for k, v in split.items())
+          + f" [{card}]")
+    return {"step_wall_ms": wall_ms, "step_enqueue_ms": enqueue_ms,
+            "step_device_busy_ms": busy,
+            "step_idle_share": 1 - busy / wall_ms, "device_ms": split}
+
+
+def _f32_step_on_both(what, device, card, cfg, params, loss_fn, batch,
+                      per_step):
+    """One SGD(0.1) step of ``loss_fn`` in f32 on the CPU and on the card
+    from the same params and batch: loss within 1e-4 relative, every
+    parameter within TOL_F32 of max(1, max |p|); the card's launches
+    exactly ``per_step``.  Returns (errors, card metrics, CPU metrics)."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import optimizers, train
+
+    res = {}
+    for dev in ("cpu", device):
+        tx = optimizers.sgd(0.1)
+        state = train.create_sharded_state(
+            None, lambda _: bridge.map_leaves(params, torch.clone), tx,
+            device=dev)
+        step = train.make_train_step(
+            functools.partial(loss_fn, device=dev), tx)
+        dispatch.reset_launch_counts()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        res[str(dev)] = (state, {k: float(v) for k, v in m.items()},
+                         dispatch.launch_counts(per_step))
+    (cpu_state, cpu_m, _), (gpu_state, gpu_m, launches) = (
+        res["cpu"], res[str(device)])
+    if launches != per_step:
+        raise AssertionError(f"{what}: launches {launches} != {per_step}")
+    errs = {"loss_rel": abs(gpu_m["loss"] - cpu_m["loss"])
+            / abs(cpu_m["loss"])}
+    if not errs["loss_rel"] <= 1e-4:
+        raise AssertionError(f"{what} loss: card {gpu_m['loss']} vs CPU "
+                             f"{cpu_m['loss']}")
+    errs["params"] = _hold(f"{what} params",
+                           [p.cpu() for p in bridge.leaves(gpu_state.params)],
+                           bridge.leaves(cpu_state.params), TOL_F32)
+    print(f"  {what}, card vs CPU: loss {gpu_m['loss']:.6f} vs "
+          f"{cpu_m['loss']:.6f}, params max_abs_err {errs['params']:.3e} "
+          f"(tol 1e-4 x max(1, max|p|)); launches {launches} ok [{card}]")
+    return errs, gpu_m, cpu_m
+
+
+def run_moe_training(device, card):
+    """6m: CloudLM SMALL-MoE b4 x T1024, bf16 on f32 masters, remat
+    "full", ``adamw(1e-4)``, 3 + 5 chained steps with 24/12/12 K5/K6/K7
+    launches a step and a finite positive aux; a profiled step by family;
+    then one f32 step at 2 layers, b2 x T128, on the card against the
+    CPU (aux within 1e-5)."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.utils import benchmarking
+
+    cfg = _moe_small(tied_embeddings=True)
+    result, (step, state, batch) = run_steps(
+        card, f"MoE SMALL b{LM_BATCH}xT{LM_SEQ} bf16",
+        lambda: benchmarking.lm_train_setup(
+            batch_size=LM_BATCH, seq_len=LM_SEQ, config=cfg, device=device),
+        LM_PER_STEP, LM_BATCH * LM_SEQ, "tokens", warmup=3, iters=5)
+    state, metrics = step(state, batch)
+    aux = float(metrics["aux"])
+    if not (np.isfinite(aux) and aux > 0):
+        raise AssertionError(f"6m: aux {aux} is not finite and positive")
+    result["aux"] = aux
+    result.update(profile_moe_step(card, "MoE SMALL b4xT1024", step, state,
+                                   batch, cfg))
+    del step, state, batch
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.scaled(num_layers=2, dtype=torch.float32)
+    params = bridge.init(cfg32, torch.Generator().manual_seed(3),
+                         device="cpu")
+    tokens = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 128))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    errs, gpu_m, cpu_m = _f32_step_on_both(
+        "6m f32 MoE SMALL 2 layers b2xT128", device, card, cfg32, params,
+        functools.partial(transformer.loss_fn, config=cfg32), batch,
+        LM2_PER_STEP)
+    errs["aux_abs"] = abs(gpu_m["aux"] - cpu_m["aux"])
+    if not errs["aux_abs"] <= 1e-5:
+        raise AssertionError(f"6m f32 aux: card {gpu_m['aux']} vs CPU "
+                             f"{cpu_m['aux']}")
+    print(f"  6m f32 aux: card {gpu_m['aux']:.7f} vs CPU {cpu_m['aux']:.7f}"
+          f" (tol 1e-5) ok [{card}]")
+    result["f32_step_parity"] = errs
+    return result
+
+
+REMAT_POLICIES = (("none", False, "full"), ("full", True, "full"),
+                  ("dots", True, "dots"))
+
+
+def run_remat_dots(device, card):
+    """6d: the dense SMALL LM step of phase 6 (b4 x T1024) under remat
+    "none", "full" and "dots": in f32 (TF32 off, cuDNN deterministic)
+    loss and grad norm equal across the three; in bf16 each policy's
+    steps/s, peak memory, device ms and K5 launches (12 a step without
+    remat, 24 with it: "dots" recomputes the flash forward as JAX
+    recomputes the ``pallas_call``); then a K=2 window of "dots" steps
+    (CUDA graph) against 2 eager "dots" steps."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import optimizers, train
+    from cloud_tpu_torch.utils import benchmarking
+
+    base = transformer.SMALL.scaled(tied_embeddings=True)
+    cfg32 = base.scaled(dtype=torch.float32)
+    params = bridge.init(cfg32, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    tokens = np.random.default_rng(0).integers(1, base.vocab_size,
+                                               (LM_BATCH, LM_SEQ))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    f32 = {}
+    for name, remat, policy in REMAT_POLICIES:
+        cfg = cfg32.scaled(remat=remat, remat_policy=policy)
+        leaves = bridge.map_leaves(params,
+                                   lambda t: t.detach().requires_grad_(True))
+        dispatch.reset_launch_counts()
+        loss, _ = transformer.loss_fn(leaves, batch, cfg, device=device)
+        grads = torch.autograd.grad(loss, bridge.leaves(leaves))
+        f32[name] = (float(loss.detach()), float(train.global_norm(grads)),
+                     dispatch.launch_counts(("flash_fwd",))["flash_fwd"])
+        del leaves, loss, grads
+    torch.backends.cudnn.deterministic = deterministic
+    want_k5 = {name: base.num_layers * (2 if remat else 1)
+               for name, remat, _ in REMAT_POLICIES}
+    if {n: v[2] for n, v in f32.items()} != want_k5:
+        raise AssertionError(f"6d f32: K5 launches "
+                             f"{ {n: v[2] for n, v in f32.items()} } != "
+                             f"{want_k5}")
+    if len({v[:2] for v in f32.values()}) != 1:
+        raise AssertionError(f"6d f32: loss and grad norm differ across "
+                             f"policies: {f32}")
+    print(f"  6d f32 SMALL b{LM_BATCH}xT{LM_SEQ}: loss "
+          f"{f32['none'][0]!r}, grad_norm {f32['none'][1]!r}, equal under "
+          f"none, full and dots; K5 launches {want_k5} ok [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    out = {"f32_loss": f32["none"][0], "f32_grad_norm": f32["none"][1]}
+    for name, remat, policy in REMAT_POLICIES:
+        per_step = dict(LM_PER_STEP, flash_fwd=want_k5[name])
+        cfg = base.scaled(remat=remat, remat_policy=policy)
+        row, run = run_steps(
+            card, f"6d SMALL b{LM_BATCH}xT{LM_SEQ} bf16 remat {name}",
+            lambda: benchmarking.lm_train_setup(
+                batch_size=LM_BATCH, seq_len=LM_SEQ, config=cfg,
+                device=device),
+            per_step, LM_BATCH * LM_SEQ, "tokens", warmup=2, iters=5)
+        wall_ms, _, _, rows = _profile_checked(
+            *run, _attn_complaint(f"6d remat {name}", per_step))
+        row["step_device_busy_ms"] = sum(r[0] for r in rows) / 1e3
+        row["step_wall_ms"] = wall_ms
+        print(f"    remat {name}: device {row['step_device_busy_ms']:.3f} "
+              f"ms a step, peak memory "
+              f"{row['max_memory_allocated'] / 2**30:.3f} GiB [{card}]")
+        out[name] = row
+        del run
+        torch.cuda.empty_cache()
+
+    k = 2
+    cfg = base.scaled(num_layers=2, dtype=torch.float32, remat_policy="dots")
+    lm_params = bridge.init(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    tokens = np.random.default_rng(4).integers(1, cfg.vocab_size, (k, 2, 256))
+    win_batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(
+        device)}
+    adamw = optimizers.adamw(1e-4, mu_dtype=None)
+    loss_fn = functools.partial(transformer.loss_fn, config=cfg,
+                                device=device)
+
+    def fresh():
+        return train.create_sharded_state(
+            None, lambda _: bridge.map_leaves(lm_params, torch.clone), adamw,
+            device=device)
+
+    window = train.make_multi_step(loss_fn, adamw, steps_per_dispatch=k)
+    dispatch.reset_launch_counts()
+    got, _ = window(fresh(), win_batch)
+    torch.cuda.synchronize()
+    _window_launches("6d dots window", dispatch.launch_counts(
+        TRAIN_ATTN_KERNELS), window, (0, 0), LM2_PER_STEP, k)
+    want = fresh()
+    step = train.make_train_step(loss_fn, adamw)
+    for i in range(k):
+        want, _ = step(want, {"tokens": win_batch["tokens"][i]})
+    errs = {name: _hold(f"6d dots window {name}", bridge.leaves(a),
+                        bridge.leaves(b), 1e-6)
+            for name, a, b in (("params", got.params, want.params),
+                               ("mu", got.opt_state["mu"],
+                                want.opt_state["mu"]),
+                               ("nu", got.opt_state["nu"],
+                                want.opt_state["nu"]))}
+    print(f"  6d f32 SMALL 2 layers b2xT256, remat dots: window of {k} "
+          f"(CUDA graph) vs {k} eager steps: params {errs['params']:.3e}, "
+          f"mu {errs['mu']:.3e}, nu {errs['nu']:.3e} (tol 1e-6 x max(1, "
+          f"max|p|)) ok [{card}]")
+    out["window"] = errs
+    out["launches"] = {n: sum(out[p]["launches"][n] for p, _, _ in
+                              REMAT_POLICIES) for n in TRAIN_ATTN_KERNELS}
+    del window, step, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_at_vit(device, card):
+    """K5 against its plain version, and K6/K7 against theirs on K5's out
+    and lse, at ViT-B/16's (128, 196, 12, 64) and (128, 197, 12, 64)
+    (CLS) non-causal, bf16 and f32 (phase 2c times them at T=196).
+    Returns the worst errors by kernel and type."""
+    import torch
+
+    from cloud_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in TRAIN_ATTN_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for b, t in VIT_SHAPES:
+            errs = _bwd_case(fa, b, t, False, dtype, gen, mask_kind=None,
+                             glse=False)
+            for name in TRAIN_ATTN_KERNELS:
+                worst[name][dname] = max(worst[name][dname], errs[name])
+        torch.cuda.empty_cache()
+    print(f"  K5/K6/K7 at ViT's B={VIT_BATCH} T=196/197 non-causal, bf16 and "
+          f"f32: max_abs_err " + ", ".join(
+              f"{n} {w['bfloat16']:.3e}/{w['float32']:.3e}"
+              for n, w in worst.items()) + f" ok [{card}]")
+    return worst
+
+
+def run_vit_training(device, card):
+    """8v: ViT-B/16 at 224 px (T=196, GAP), b128 bf16 on f32 masters,
+    remat "full", ``adamw(3e-4)``, 3 + 10 chained steps with 24/12/12
+    K5/K6/K7 launches a step, a profiled step by family, the flash kernels
+    at ViT's shapes, and one f32 step at 2 layers, 56 px, patch 8 (T=49),
+    on the card against the CPU."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import vit
+    from cloud_tpu_torch.utils import benchmarking
+
+    result, run = run_steps(
+        card, f"ViT-B/16 224 b{VIT_BATCH} bf16",
+        lambda: benchmarking.vit_train_setup(batch_size=VIT_BATCH,
+                                             device=device),
+        VIT_PER_STEP, VIT_BATCH, "images", warmup=3, iters=10)
+    result.update(profile_attn_step(card, f"ViT-B/16 b{VIT_BATCH}",
+                                    VIT_PER_STEP, *run))
+    del run
+    torch.cuda.empty_cache()
+    worst = check_flash_at_vit(device, card)
+    cfg = vit.VIT_BASE_16.scaled(num_layers=2, image_size=56, patch_size=8,
+                                 dtype=torch.float32)
+    params = bridge.init_vit(cfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+    rng = np.random.default_rng(4)
+    label = rng.integers(0, cfg.num_classes, 4)
+    image = rng.normal(size=(4, 56, 56, 3)).astype(np.float32)
+    batch = {"image": torch.from_numpy(image),
+             "label": torch.from_numpy(label)}
+    errs, _, _ = _f32_step_on_both(
+        "8v f32 ViT 2 layers 56 px patch 8 (T=49) b4", device, card, cfg,
+        params, functools.partial(vit.loss_fn, cfg=cfg), batch,
+        {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2})
+    result.update({"f32_step_parity": errs, "flash_worst": worst})
+    return result
+
+
 TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
                        "flash_bwd": ["flash_bwd_dq_kernel_tc",
                                      "flash_bwd_dkv_kernel_tc"]}
@@ -5633,6 +6227,10 @@ def main() -> int:
         ("phase 3x: colocated against disaggregated prefill/decode with the "
          "KV handoff, bench.py's fleet_disagg config", "fleet disagg",
          lambda: run_fleet_disagg(device, card), True),
+        ("phase 3m: ServingEngine, CloudLM SMALL with MoE (8 experts, top "
+         "2), 16 requests in bf16 and in int8 + kv_quant, f32 parity, a "
+         "pretrained bundle", "moe engine",
+         lambda: run_moe_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -5748,6 +6346,19 @@ def main() -> int:
         title = "phase 6b: f32 gradients of SMALL (2 layers), card against CPU"
         print(title)
         lm_parity = check_lm_grad_parity(device, card)
+        title = (f"phase 6m: train CloudLM SMALL with MoE b{LM_BATCH}xT"
+                 f"{LM_SEQ} bf16, 3 + 5 steps, one profiled; an f32 step "
+                 "card against CPU")
+        print(title)
+        start = time.perf_counter()
+        moe_lm = run_moe_training(device, card)
+        print(f"  (MoE LM: {time.perf_counter() - start:.1f} s wall)")
+        title = (f"phase 6d: SMALL b{LM_BATCH}xT{LM_SEQ} under remat none, "
+                 "full and dots; a dots window against eager steps")
+        print(title)
+        start = time.perf_counter()
+        dots = run_remat_dots(device, card)
+        print(f"  (remat dots: {time.perf_counter() - start:.1f} s wall)")
         title = (f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
                  f"3 + 10 steps, then one step under torch.profiler")
         print(title)
@@ -5767,6 +6378,13 @@ def main() -> int:
         stoch = run_stochastic_bert(device, card, bert_run)
         print(f"  (stochastic BERT: {time.perf_counter() - start:.1f} s "
               "wall)")
+        title = (f"phase 8v: train ViT-B/16 224 b{VIT_BATCH} bf16, 3 + 10 "
+                 "steps, one profiled; K5-K7 at T=196/197; an f32 step card "
+                 "against CPU")
+        print(title)
+        start = time.perf_counter()
+        vit_run = run_vit_training(device, card)
+        print(f"  (ViT: {time.perf_counter() - start:.1f} s wall)")
     except Exception as exc:  # noqa: BLE001
         return fail(f"transformer training: {exc!r}", title)
 
@@ -5778,6 +6396,13 @@ def main() -> int:
     k5 = next(e for e in kernels if e["name"] == "flash_fwd")
     k5["max_abs_err"] = max(k5["max_abs_err"], k5_worst["bfloat16"])
     k5["max_abs_err_f32"] = max(k5["max_abs_err_f32"], k5_worst["float32"])
+    for entry in kernels:
+        vit_worst = vit_run["flash_worst"].get(entry["name"])
+        if vit_worst is not None:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       vit_worst["bfloat16"])
+            entry["max_abs_err_f32"] = max(entry["max_abs_err_f32"],
+                                           vit_worst["float32"])
     engine_q = results["quantized engine"]
     chunks = results["paged chunk check"]
     verify = results["paged verify check"]
@@ -5800,19 +6425,27 @@ def main() -> int:
                "qos engine": results["qos engine"],
                "fleet": results["fleet"],
                "fleet sweep": results["fleet sweep"],
-               "fleet disagg": results["fleet disagg"]}
+               "fleet disagg": results["fleet disagg"],
+               "moe engine": results["moe engine"]}
+    # K5-K7 also run in the training phases of the model zoo: 6m, 6d, 8v.
+    zoo_training = (moe_lm, dots, vit_run)
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
     for entry in kernels:
         name = entry["name"]
         if name in by_phase:
-            # K5 also runs in 7s's stochastic BERT steps.
+            # K5 also runs in 7s's stochastic BERT steps and the zoo's
+            # training phases.
             entry["launches"] = (sum(by_phase[name].values())
-                                 + stoch["launches"].get(name, 0))
+                                 + stoch["launches"].get(name, 0)
+                                 + sum(r["launches"].get(name, 0)
+                                       for r in zoo_training))
         elif name in FLASH_BWD_KERNELS:
             entry["launches"] = (lm["launches"][name]
-                                 + stoch["launches"][name])
+                                 + stoch["launches"][name]
+                                 + sum(r["launches"][name]
+                                       for r in zoo_training))
         else:
             # K1-K4: the bare loop (4), Trainer.fit (4t), the
             # exactly-once fits (4r), compile-ahead (4a) and the records
@@ -5887,6 +6520,13 @@ def main() -> int:
         "flash_fwd_at_training": k5_training,
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},
         "lm_f32_grad_parity": lm_parity,
+        "moe_engine": {k: v for k, v in results["moe engine"].items()
+                       if k != "launches"},
+        "moe_lm_b4xT1024": moe_lm,
+        "remat_dots": dots,
+        "vit_b16_b128": {k: v for k, v in vit_run.items()
+                         if k != "flash_worst"},
+        "flash_bwd_at_vit": {e["name"]: e["at_vit"] for e in flash_bwd},
         "bert_base_b32xT128": bert_run,
         "tensor_core_sass": sass}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ sides (HWIO conv kernels, ``{"scale", "bias"}`` GroupNorm leaves, a dense
 ``head``): :func:`resnet_to_torch`, :func:`resnet_to_numpy` and
 :func:`init_resnet` are their counterparts.  BERT's are stacked on ``L``
 like CloudLM's: :func:`bert_to_torch`, :func:`bert_to_numpy` and
-:func:`init_bert`.  MNIST's (``{"hidden", "out"}`` dense layers) are
+:func:`init_bert`; ViT's too: :func:`vit_to_torch`, :func:`vit_to_numpy`
+and :func:`init_vit`.  An MoE CloudLM's expert leaves (``[L, E, in,
+out]``, int8 ``[L, E, 1, out]`` scales) and router split and restack on
+``L`` like any other layer leaf.  MNIST's (``{"hidden", "out"}`` dense layers) are
 :func:`mnist_to_torch`, :func:`mnist_to_numpy` and :func:`init_mnist`.
 """
 
@@ -38,7 +41,8 @@ from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.models.bert import BertConfig
 from cloud_tpu_torch.models.mnist import MnistConfig
 from cloud_tpu_torch.models.resnet import ResNetConfig
-from cloud_tpu_torch.models.transformer import TransformerConfig, check_supported
+from cloud_tpu_torch.models.transformer import TransformerConfig
+from cloud_tpu_torch.models.vit import ViTConfig
 
 
 def map_leaves(tree, fn):
@@ -98,7 +102,6 @@ def _split_layers(params, num_layers: int, device) -> Dict[str, Any]:
 def to_torch(params, config: TransformerConfig, *, device=None
              ) -> Dict[str, Any]:
     """JAX-layout params (layers stacked on axis 0) -> the port's params."""
-    check_supported(config)
     return _split_layers(params, config.num_layers, device)
 
 
@@ -121,12 +124,25 @@ def _dense(gen, in_dim: int, out_dim: int):
     return layers.dense_init(gen, in_dim, out_dim, use_bias=False)
 
 
+def _moe_mlp(gen, d: int, hidden: int, moe):
+    """``moe_mlp_init``'s tree: a bias-free router ``[D, E]`` and the
+    stacked experts ``[E, in, out]``, each expert's matrix drawn as
+    ``layers.dense_init``'s kernel."""
+    def stack(i, o):
+        return torch.stack([_dense(gen, i, o)["kernel"]
+                            for _ in range(moe.num_experts)])
+
+    return {"router": _dense(gen, d, moe.num_experts),
+            "wi": stack(d, hidden), "wg": stack(d, hidden),
+            "wo": stack(hidden, d)}
+
+
 def init(config: TransformerConfig, generator: torch.Generator, *,
          device=None) -> Dict[str, Any]:
     """Random f32 params with the JAX package's distributions: dense
-    kernels truncated-normal in [-2, 2] scaled by 1/sqrt(fan_in), the
-    embedding N(0, 0.02^2), norm scales one."""
-    check_supported(config)
+    kernels (MoE router and experts too) truncated-normal in [-2, 2]
+    scaled by 1/sqrt(fan_in), the embedding N(0, 0.02^2), norm scales
+    one."""
     device = resolve_device(device)
     gen = generator
     d, hd = config.dim, config.num_heads * config.head_dim
@@ -144,9 +160,11 @@ def init(config: TransformerConfig, generator: torch.Generator, *,
             "att": {"q": _dense(gen, d, hd), "k": _dense(gen, d, hd),
                     "v": _dense(gen, d, hd), "out": _dense(gen, hd, d)},
             "ln1": ones(d),
-            "mlp": {"wi": _dense(gen, d, config.mlp_hidden),
-                    "wg": _dense(gen, d, config.mlp_hidden),
-                    "wo": _dense(gen, config.mlp_hidden, d)},
+            "mlp": ({"wi": _dense(gen, d, config.mlp_hidden),
+                     "wg": _dense(gen, d, config.mlp_hidden),
+                     "wo": _dense(gen, config.mlp_hidden, d)}
+                    if config.moe is None else
+                    _moe_mlp(gen, d, config.mlp_hidden, config.moe)),
             "ln2": ones(d),
         })
     if not config.tied_embeddings:
@@ -287,4 +305,59 @@ def init_mnist(config: MnistConfig, generator: torch.Generator, *,
         "out": layers.dense_init(generator, config.hidden_dim,
                                  config.num_classes),
     }
+    return map_leaves(params, lambda t: t.to(device))
+
+
+def vit_to_torch(params, config: ViTConfig, *, device=None) -> Dict[str, Any]:
+    """JAX ViT params (layers stacked on axis 0) -> the port's params."""
+    return _split_layers(params, config.num_layers, device)
+
+
+def vit_to_numpy(params) -> Dict[str, Any]:
+    """The port's ViT params -> the JAX layout (layers restacked)."""
+    return to_numpy(params)
+
+
+def init_vit(config: ViTConfig, generator: torch.Generator, *,
+             device=None) -> Dict[str, Any]:
+    """Random f32 ViT params with the JAX package's distributions and
+    tree: the patch projection and head with a zero bias, attention
+    projections without bias, ``wi``/``wo`` with a zero bias, all kernels
+    truncated-normal in [-2, 2] scaled by 1/sqrt(fan_in); positions
+    N(0, 0.02^2); LayerNorm scale one, bias zero; a zero class token for
+    ``pooling="cls"``."""
+    if config.image_size % config.patch_size:
+        raise ValueError(
+            f"image_size {config.image_size} not divisible by patch_size "
+            f"{config.patch_size}")
+    if config.pooling not in ("gap", "cls"):
+        raise ValueError(
+            f'pooling must be "gap" or "cls", got {config.pooling!r}')
+    device = resolve_device(device)
+    gen = generator
+    d, f = config.dim, config.mlp_hidden
+    hd = config.num_heads * config.head_dim
+    patch_dim = config.patch_size * config.patch_size * config.channels
+    seq = config.num_patches + (1 if config.pooling == "cls" else 0)
+    pos = torch.empty((seq, d), dtype=torch.float32, device=gen.device)
+    pos.normal_(0.0, 1.0, generator=gen)
+    params: Dict[str, Any] = {
+        "patch": layers.dense_init(gen, patch_dim, d),
+        "pos": pos * 0.02,
+        "layers": [],
+        "ln_f": _ln_init(d, gen.device),
+    }
+    for _ in range(config.num_layers):
+        params["layers"].append({
+            "att": {"q": _dense(gen, d, hd), "k": _dense(gen, d, hd),
+                    "v": _dense(gen, d, hd), "out": _dense(gen, hd, d)},
+            "ln1": _ln_init(d, gen.device),
+            "wi": layers.dense_init(gen, d, f),
+            "wo": layers.dense_init(gen, f, d),
+            "ln2": _ln_init(d, gen.device),
+        })
+    params["head"] = layers.dense_init(gen, d, config.num_classes)
+    if config.pooling == "cls":
+        params["cls"] = torch.zeros((d,), dtype=torch.float32,
+                                    device=gen.device)
     return map_leaves(params, lambda t: t.to(device))

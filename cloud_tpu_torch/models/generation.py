@@ -28,6 +28,9 @@ scales (``k_scale``/``v_scale`` ``[L, B, S, H, 1]``), quantized where it is
 written; every reader folds the scales in with the post-scale algebra
 (the int8 kernel K8q on the card).  Weight-only int8 params
 (``models/quantization.py``) run through every entry point as they are.
+An MoE CloudLM routes each program's tokens at that program's ``T`` (the
+bucket, the chunk, the verify window, 1 in decode), as the JAX package's
+programs do.
 
 Randomness comes from an explicit ``torch.Generator``; the JAX package's
 ``jax.random`` bits are not reproduced, so sampled runs agree with it in
@@ -44,6 +47,7 @@ import torch
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers, quantization, transformer
+from cloud_tpu_torch.models import moe as moe_lib
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops import paged_attention as paged_lib
 
@@ -188,21 +192,27 @@ def _cache_attention(q, cache_l, cur_len, *, chunk_causal: bool = False):
 
 def prepare_params(params, config):
     """The params with every layer matrix stored once in the compute dtype
-    (``dense_apply`` would cast it on every call; the numbers are the
-    same).  int8 ``*_q`` leaves stay int8.  Norm scales, the embedding and
-    the head keep their type."""
-    def cast(dense):
-        return {k: v if k.endswith("_q") else v.to(config.dtype)
-                for k, v in dense.items()}
+    (``dense_apply`` and ``materialize_matrix`` would cast it on every
+    call; the numbers are the same).  int8 ``*_q`` leaves stay int8.  Norm
+    scales, the embedding, the head and an MoE router (applied in f32)
+    keep their type."""
+    def cast(tree):
+        return {k: v if k.endswith("_q") or k == "router"
+                else cast(v) if isinstance(v, dict) else v.to(config.dtype)
+                for k, v in tree.items()}
 
     out = dict(params)
-    out["layers"] = [
-        dict(layer,
-             att={k: cast(v) for k, v in layer["att"].items()},
-             mlp={k: cast(v) for k, v in layer["mlp"].items()})
-        for layer in params["layers"]
-    ]
+    out["layers"] = [dict(layer, att=cast(layer["att"]), mlp=cast(layer["mlp"]))
+                     for layer in params["layers"]]
     return out
+
+
+def _mlp(layer_params, y, config):
+    """The layer's MLP: dense SwiGLU, or the MoE MLP (its auxiliary loss
+    dropped), routed at the call's ``T`` as the JAX package routes it."""
+    if config.moe is not None:
+        return moe_lib.moe_mlp_apply(layer_params["mlp"], y, config.moe)[0]
+    return layers.mlp_block_apply(layer_params["mlp"], y)
 
 
 def _write_rows(leaf, rows, write_pos, values):
@@ -244,7 +254,7 @@ def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
     x = x + layers.dense_apply(layer_params["att"]["out"],
                                attended.reshape(b, 1, -1))
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
-    return x + layers.mlp_block_apply(layer_params["mlp"], y)
+    return x + _mlp(layer_params, y, config)
 
 
 def _prefill_layer(layer_params, x, positions, prompt_mask, config):
@@ -259,7 +269,7 @@ def _prefill_layer(layer_params, x, positions, prompt_mask, config):
     x = x + layers.dense_apply(layer_params["att"]["out"],
                                attended.reshape(b, t, -1))
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
-    return x + layers.mlp_block_apply(layer_params["mlp"], y), k, v
+    return x + _mlp(layer_params, y, config), k, v
 
 
 def _final_logits(params, x, config):
@@ -387,7 +397,6 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
     true length) and ``num_generated [B]`` (eos included), as int32
     tensors on ``device``.
     """
-    transformer.check_supported(config)
     device = resolve_device(device)
     if sample.temperature != 0.0 and generator is None:
         raise ValueError("non-greedy sampling needs a torch.Generator")
@@ -797,7 +806,7 @@ def prefill_chunk_program(params, cache, chunk_tokens, start: int,
             x = x + layers.dense_apply(layer_params["att"]["out"],
                                        attended.reshape(1, c, -1))
             y = layers.rmsnorm_apply(layer_params["ln2"], x)
-            x = x + layers.mlp_block_apply(layer_params["mlp"], y)
+            x = x + _mlp(layer_params, y, config)
         last = min(max(int(chunk_len) - 1, 0), c - 1)
         logits = _final_logits(params, x[:, last:last + 1], config)[:, 0]
     return cache, logits
@@ -927,7 +936,7 @@ def verify_chunk_program(params, cache, state, window, config, *,
             x = x + layers.dense_apply(layer_params["att"]["out"],
                                        attended.reshape(num_slots, k, -1))
             y = layers.rmsnorm_apply(layer_params["ln2"], x)
-            x = x + layers.mlp_block_apply(layer_params["mlp"], y)
+            x = x + _mlp(layer_params, y, config)
         logits = _final_logits(params, x, config)  # [slots, k, V]
 
         # Greedy emission per window position, with the sequential path's
@@ -1023,7 +1032,6 @@ def beam_search(params, prompt_tokens, prompt_lens, config, *,
     eos), ``scores [B]`` (its length-penalized log-prob) and
     ``num_generated [B]`` (eos included), on ``device``.
     """
-    transformer.check_supported(config)
     device = resolve_device(device)
     if num_beams < 1:
         raise ValueError(f"num_beams must be >= 1, got {num_beams}")

@@ -12,37 +12,57 @@ per-channel scale applies to its small output.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from cloud_tpu_torch import random as random_lib
 
-#: Remat policies of the JAX package's layer stacks; "dots" (save the
-#: matmul outputs) has no port yet.
+#: Remat policies of the JAX package's layer stacks.
 REMAT_POLICIES = ("none", "full", "dots")
+
+#: The products "dots" saves: matrix products with no batch dimension,
+#: ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.  A dense
+#: projection of ``[B, T, D]`` reaches the dispatcher as ``aten.mm`` (or
+#: ``addmm``); batched products (``aten.bmm``: attention's plain version,
+#: the MoE dispatch, expert and combine einsums) are recomputed, as are
+#: the elementwise ops and the flash kernels, as JAX recomputes the
+#: ``pallas_call``.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_wrap(body, enabled: bool = True, policy: str = "full"):
     """Wrap a layer body with the named remat policy, as
     ``cloud_tpu/models/layers.py``'s ``remat_wrap``: "full" keeps only the
     layer's inputs and recomputes the layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant); "none" (or ``enabled``
-    False) keeps every activation.  Numbers are the same either way.
-    Without autograd (serving, ``torch.no_grad()``) the body runs plain."""
+    (``torch.utils.checkpoint``, non-reentrant); "dots" also keeps the
+    outputs of the matrix products with no batch dimension and recomputes
+    the rest (selective checkpointing, :data:`_DOTS_SAVED`); "none" (or
+    ``enabled`` False) keeps every activation.  Numbers are the same under
+    every policy.  Without autograd (serving, ``torch.no_grad()``) the body
+    runs plain."""
     if not enabled or policy == "none":
         return body
-    if policy == "dots":
-        raise NotImplementedError(
-            "remat policy 'dots' (save matmul outputs) is not ported yet "
-            "(ROADMAP.md A.3)"
-        )
-    if policy != "full":
+    if policy not in ("full", "dots"):
         raise ValueError(
             f"remat policy must be one of {REMAT_POLICIES}, got {policy!r}"
         )
+    extra = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+        if policy == "dots" else {})
 
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
@@ -53,7 +73,7 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
         # state being saved (reading it is not allowed inside a CUDA graph
         # capture, ``train.make_multi_step``).
         return checkpoint(body, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kwargs)
+                          preserve_rng_state=False, **extra, **kwargs)
 
     return wrapped
 

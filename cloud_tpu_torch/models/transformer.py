@@ -11,8 +11,12 @@ cross-entropy of training, with the plain and the fused (chunked-vocab)
 branch.
 
 The port serves one card: the JAX package's mesh layouts (tp/sp/pp,
-zig-zag and Ulysses sequence parallelism) have no counterpart here, and
-MoE layers come with a later slice.
+zig-zag and Ulysses sequence parallelism) have no counterpart here:
+``num_microbatches``, ``zigzag_sp`` and ``ulysses_sp`` are carried (so a
+config and its bundle's ``config.json`` read alike in both packages) and
+act only under a mesh, as in the JAX package.  With ``moe`` set, each
+layer's MLP is :func:`cloud_tpu_torch.models.moe.moe_mlp_apply` and the
+forward pass returns the layers' summed auxiliary loss beside the logits.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.models.moe import MoeConfig, moe_mlp_apply
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops.fused_cross_entropy import fused_linear_cross_entropy
 
@@ -39,15 +44,22 @@ class TransformerConfig:
     head_dim: int = 64
     mlp_hidden: int = 3072
     max_seq_len: int = 2048
-    #: Mixture-of-experts MLP; only ``None`` (dense SwiGLU) in this slice.
-    moe: Optional[Any] = None
+    #: Mixture-of-experts MLP; ``None`` is the dense SwiGLU MLP.
+    moe: Optional[MoeConfig] = None
     dtype: torch.dtype = torch.bfloat16
-    rope_base: float = 10000.0
-    #: Tie the LM head to the token embedding (logits = x @ table^T).
-    tied_embeddings: bool = False
-    #: Recompute each layer in the backward pass (``layers.remat_wrap``).
+    #: Recompute each layer in the backward pass (``layers.remat_wrap``):
+    #: policy "full" or "dots".
     remat: bool = True
     remat_policy: str = "full"
+    rope_base: float = 10000.0
+    #: Pipeline microbatches; acts only under a mesh with pp > 1.
+    num_microbatches: Optional[int] = None
+    #: Tie the LM head to the token embedding (logits = x @ table^T).
+    tied_embeddings: bool = False
+    #: Sequence-parallel attention layouts; act only under a mesh with
+    #: sp > 1.
+    zigzag_sp: bool = False
+    ulysses_sp: bool = False
     #: Training loss through ``ops.fused_cross_entropy``: the [B, T, V]
     #: logits are never materialized.
     fused_ce: bool = False
@@ -69,13 +81,6 @@ SMALL = TransformerConfig(
 )
 
 
-def check_supported(config: TransformerConfig) -> None:
-    if config.moe is not None:
-        raise NotImplementedError(
-            "MoE layers come with a later slice of the port (ROADMAP.md)"
-        )
-
-
 def qkv_project(att_params, x, positions, config: TransformerConfig):
     """RoPE'd q/k and v projections ``[B, T, H, hd]``, shared by the
     forward pass and generation's prefill/decode."""
@@ -93,7 +98,9 @@ def qkv_project(att_params, x, positions, config: TransformerConfig):
     return q, k, v
 
 
-def _layer_compute(layer_params, x, *, config, positions):
+def _layer_compute(layer_params, x, aux, *, config, positions):
+    """One block on ``(x [B, T, D], aux)``; an MoE MLP adds its
+    auxiliary loss to ``aux``."""
     b, t, _ = x.shape
     y = layers.rmsnorm_apply(layer_params["ln1"], x)
     q, k, v = qkv_project(layer_params["att"], y, positions, config)
@@ -101,13 +108,19 @@ def _layer_compute(layer_params, x, *, config, positions):
     x = x + layers.dense_apply(layer_params["att"]["out"],
                                attended.reshape(b, t, -1))
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
-    return x + layers.mlp_block_apply(layer_params["mlp"], y)
+    if config.moe is not None:
+        mlp_out, layer_aux = moe_mlp_apply(layer_params["mlp"], y,
+                                           config.moe)
+        aux = aux + layer_aux
+    else:
+        mlp_out = layers.mlp_block_apply(layer_params["mlp"], y)
+    return x + mlp_out, aux
 
 
 def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
-    """Forward pass up to the final norm: tokens ``[B, T]`` -> hidden
-    ``[B, T, D]``."""
-    check_supported(config)
+    """Forward pass up to the final norm: tokens ``[B, T]`` ->
+    ``(hidden [B, T, D], aux)``, ``aux`` the f32 sum of the MoE layers'
+    auxiliary losses (zero for the dense MLP)."""
     device = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=device)
     b, t = tokens.shape
@@ -116,16 +129,18 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
     positions = torch.arange(t, device=device).expand(b, t)
     body = layers.remat_wrap(_layer_compute, config.remat,
                              config.remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=device)
     for layer_params in params["layers"]:
-        x = body(layer_params, x, config=config, positions=positions)
-    return layers.rmsnorm_apply(params["ln_f"], x)
+        x, aux = body(layer_params, x, aux, config=config,
+                      positions=positions)
+    return layers.rmsnorm_apply(params["ln_f"], x), aux
 
 
 def apply(params, tokens, config: TransformerConfig, *, device=None):
     """Forward pass: tokens ``[B, T]`` -> ``(logits [B, T, V] f32, aux)``;
     ``aux`` is the MoE auxiliary loss, zero for the dense MLP."""
-    x = apply_hidden(params, tokens, config, device=device)
-    return lm_logits(params, x, config), torch.zeros((), device=x.device)
+    x, aux = apply_hidden(params, tokens, config, device=device)
+    return lm_logits(params, x, config), aux
 
 
 def head_table(params, config: TransformerConfig):
@@ -182,8 +197,7 @@ def loss_fn(params, batch: Dict[str, Any], config: TransformerConfig, *,
     device = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=device)
     if config.fused_ce:
-        hidden = apply_hidden(params, tokens, config, device=device)
-        aux = torch.zeros((), device=device)
+        hidden, aux = apply_hidden(params, tokens, config, device=device)
     else:
         logits, aux = apply(params, tokens, config, device=device)
     t = tokens.shape[1]

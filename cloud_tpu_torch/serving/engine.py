@@ -116,7 +116,7 @@ import torch
 
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import generation, transformer
+from cloud_tpu_torch.models import generation
 from cloud_tpu_torch.monitoring import metrics, tracing
 from cloud_tpu_torch.ops import dispatch
 from cloud_tpu_torch.serving import qos as qos_lib
@@ -621,7 +621,6 @@ class ServingEngine:
         if rules is not None or mesh is not None:
             raise _later("rules=/mesh= (sharded serving)", "6")
         self.device = resolve_device(device)
-        transformer.check_supported(config)
         _check_quantized_leaves(params)
         self.config = config
         self.serve_config = cfg = serve_config or ServeConfig()
@@ -781,7 +780,6 @@ class ServingEngine:
                 "compares token ids, so the two models must share a "
                 "vocabulary"
             )
-        transformer.check_supported(dcfg)
         _check_quantized_leaves(cfg.draft.params, "draft.params")
         self._draft_params = generation.prepare_params(
             bridge.map_leaves(cfg.draft.params,

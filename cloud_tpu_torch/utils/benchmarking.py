@@ -10,18 +10,18 @@ import torch
 
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import bert, generation, resnet, transformer
+from cloud_tpu_torch.models import bert, generation, resnet, transformer, vit
 from cloud_tpu_torch.training import optimizers, train
 
 
 def decode_setup(*, batch_size: int = 4, prompt_len: int = 128, params=None,
-                 device=None, seed: int = 0):
-    """The generation-decode workload: CloudLM SMALL with params on the
-    device (random, from ``seed``, unless given) and full-length prompts
-    from a numpy generator seeded with 0.  Returns ``(config, params,
-    prompts, lens)``."""
+                 config=None, device=None, seed: int = 0):
+    """The generation-decode workload: CloudLM SMALL (or ``config``) with
+    params on the device (random, from ``seed``, unless given) and
+    full-length prompts from a numpy generator seeded with 0.  Returns
+    ``(config, params, prompts, lens)``."""
     device = resolve_device(device)
-    cfg = transformer.SMALL
+    cfg = config or transformer.SMALL
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -167,4 +167,29 @@ def bert_train_setup(*, batch_size: int = 32, seq_len: int = 128,
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device),
              "label": torch.from_numpy(label.astype(np.int64)).to(device)}
     loss = functools.partial(bert.loss_fn, cfg=cfg, device=device)
+    return train.make_train_step(loss, tx), state, batch
+
+
+def vit_train_setup(*, batch_size: int = 128, config=None, device=None,
+                    seed: int = 0):
+    """The ViT training workload: ``VIT_BASE_16`` (or ``config``) in its
+    compute type with f32 master weights random from ``seed``,
+    ``adamw(3e-4)`` with f32 moments, and one batch of NHWC images and
+    labels from a numpy generator seeded with 0 (labels drawn first).
+    Returns ``(step, state, batch)``."""
+    device = resolve_device(device)
+    cfg = config or vit.VIT_BASE_16
+    tx = optimizers.adamw(3e-4, mu_dtype=None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = train.create_sharded_state(
+        gen, lambda g: bridge.init_vit(cfg, g, device=device), tx,
+        device=device)
+    rng = np.random.default_rng(0)
+    label = rng.integers(0, cfg.num_classes, batch_size)
+    image = rng.normal(size=(batch_size, cfg.image_size, cfg.image_size,
+                             cfg.channels))
+    batch = {"image": torch.from_numpy(image.astype(np.float32)).to(device),
+             "label": torch.from_numpy(label).to(device)}
+    loss = functools.partial(vit.loss_fn, cfg=cfg, device=device)
     return train.make_train_step(loss, tx), state, batch

@@ -22,11 +22,12 @@ import torch
 from cloud_tpu.models import bert as jax_bert
 from cloud_tpu.models import generation as jax_gen
 from cloud_tpu.models import mnist as jax_mnist
+from cloud_tpu.models import moe as jax_moe
 from cloud_tpu.models import quantization as jax_quant
 from cloud_tpu.models import resnet as jax_resnet
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu_torch import bridge
-from cloud_tpu_torch.models import bert, mnist, resnet, transformer
+from cloud_tpu_torch.models import bert, mnist, moe, resnet, transformer
 
 #: Smallest top-2 logit gap along a greedy path for it to count as
 #: tie-free: below it, f32 summation order alone could flip an argmax.
@@ -37,18 +38,32 @@ TIE_GAP = 1e-3
 QUANT_TIE_GAP = 1e-2
 
 
+def port_moe(jax_moe_cfg):
+    """The port's ``MoeConfig`` of a JAX one (None stays None)."""
+    if jax_moe_cfg is None:
+        return None
+    return moe.MoeConfig(**dataclasses.asdict(jax_moe_cfg))
+
+
 def port_config(jax_cfg, dtype=torch.float32):
     fields = ("vocab_size", "num_layers", "dim", "num_heads", "head_dim",
               "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings",
               "remat", "remat_policy", "fused_ce")
     return transformer.TransformerConfig(
-        dtype=dtype, **{f: getattr(jax_cfg, f) for f in fields})
+        dtype=dtype, moe=port_moe(jax_cfg.moe),
+        **{f: getattr(jax_cfg, f) for f in fields})
 
 
-def tiny_models(seed=0, num_layers=2, quantized=False):
-    """(jax_cfg, jax_params, port_cfg, port_params): TINY in f32; with
+#: The MoE layer of the MoE TINY models: 4 experts, top 2.
+TINY_MOE = jax_moe.MoeConfig(num_experts=4, top_k=2)
+
+
+def tiny_models(seed=0, num_layers=2, quantized=False, moe_cfg=None):
+    """(jax_cfg, jax_params, port_cfg, port_params): TINY in f32 (with
+    the MoE MLP ``moe_cfg``, a JAX ``MoeConfig``, when given); with
     ``quantized``, the JAX ``quantize_params`` tree on both sides."""
-    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=num_layers)
+    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=num_layers,
+                                 moe=moe_cfg)
     params = jax_tf.init(jax.random.PRNGKey(seed), jax_cfg)
     if quantized:
         params = jax_quant.quantize_params(params)
@@ -59,7 +74,12 @@ def tiny_models(seed=0, num_layers=2, quantized=False):
 def greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
     """Each row's smallest top-2 logit gap along the greedy path of JAX
     ``generate`` on these prompts (re-scored by a full forward pass), and
-    the tokens of that path."""
+    the tokens of that path.  An MoE model routes by the call's length, so
+    a full forward pass is another computation: its gaps are read off the
+    decode path itself (:func:`decode_path_gaps`)."""
+    if jax_cfg.moe is not None:
+        return decode_path_gaps(jax_cfg, params, prompts, lens,
+                                max_new_tokens)
     out = jax_gen.generate(params, jnp.asarray(prompts), jnp.asarray(lens),
                            jax_cfg, max_new_tokens=max_new_tokens)
     seqs = np.asarray(out["sequences"])
@@ -80,18 +100,18 @@ def min_greedy_gap(jax_cfg, params, prompts, lens, max_new_tokens):
     return float(gaps.min()), tokens
 
 
-def quantized_greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
+def decode_path_gaps(jax_cfg, params, prompts, lens, max_new_tokens, *,
+                     kv_quant=False):
     """Each row's smallest top-2 logit gap at every greedy step of JAX
-    ``generate(..., kv_quant=True)``, read off its own decode path (the
-    int8 cache changes the logits, so a full forward pass cannot re-score
-    it): its ``_prefill`` and ``_decode_step``, step by step; and the
-    tokens."""
+    ``generate`` (with an int8 cache for ``kv_quant``), read off its own
+    decode path: its ``_prefill`` and ``_decode_step``, step by step; and
+    the tokens."""
     from cloud_tpu.parallel.sharding import DEFAULT_RULES
 
     cache, logits = jax_gen._prefill(
         params, jnp.asarray(prompts), jnp.asarray(lens), jax_cfg,
         prompts.shape[1] + max_new_tokens, DEFAULT_RULES, None,
-        kv_quant=True)
+        kv_quant=kv_quant)
     cur_len = jnp.asarray(lens)
     gaps, tokens = [], []
     for step in range(max_new_tokens):
@@ -104,6 +124,13 @@ def quantized_greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
                 params, cache, token, cur_len, jax_cfg, DEFAULT_RULES, None)
             cur_len = cur_len + 1
     return np.min(np.stack(gaps, axis=1), axis=1), np.stack(tokens, axis=1)
+
+
+def quantized_greedy_gaps(jax_cfg, params, prompts, lens, max_new_tokens):
+    """:func:`decode_path_gaps` with an int8 KV cache (which changes the
+    logits, so a full forward pass cannot re-score the path)."""
+    return decode_path_gaps(jax_cfg, params, prompts, lens, max_new_tokens,
+                            kv_quant=True)
 
 
 def min_quantized_greedy_gap(jax_cfg, params, prompts, lens,
@@ -252,6 +279,10 @@ def tree(prefix):
 
 def port_model(prefix="params", dtype=torch.float32):
     fields = json.loads(str(IN[prefix + ".config"]))
+    if fields.get("moe") is not None:
+        from cloud_tpu_torch.models.moe import MoeConfig
+
+        fields["moe"] = MoeConfig(**fields["moe"])
     cfg = transformer.TransformerConfig(dtype=dtype, **fields)
     return cfg, bridge.to_torch(tree(prefix), cfg, device="cpu")
 """
@@ -272,6 +303,8 @@ def model_inputs(jax_cfg, params, prefix="params"):
     fields = {f: getattr(jax_cfg, f) for f in (
         "vocab_size", "num_layers", "dim", "num_heads", "head_dim",
         "mlp_hidden", "max_seq_len", "rope_base", "tied_embeddings")}
+    if jax_cfg.moe is not None:
+        fields["moe"] = dataclasses.asdict(jax_cfg.moe)
     out = _flatten(jax.tree_util.tree_map(np.asarray, params), prefix, {})
     out[prefix + ".config"] = np.asarray(json.dumps(fields))
     return out

@@ -126,3 +126,24 @@ def test_dropout_is_not_ported():
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
         losses.append(float(got))
     assert losses[0] != losses[1]
+
+
+def test_remat_policies_bit_identical():
+    """``remat`` "none", "full" and "dots" give the same loss and
+    gradients bit for bit (``cloud_tpu/models/bert.py``'s knob)."""
+    _, params, cfg, _ = bert_tiny_models(seed=2)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(True).items()}
+    runs = []
+    for policy in ("none", "full", "dots"):
+        c = dataclasses.replace(cfg, remat=policy)
+        tparams = bridge.map_leaves(
+            bridge.bert_to_torch(params, c, device="cpu"),
+            lambda t: t.requires_grad_(True))
+        loss, _ = bert.loss_fn(tparams, batch, c, device="cpu")
+        loss.backward()
+        runs.append((float(loss.detach()), bridge.leaves(
+            bridge.map_leaves(tparams, lambda t: t.grad))))
+    for loss, grads in runs[1:]:
+        assert loss == runs[0][0]
+        for a, b in zip(grads, runs[0][1]):
+            assert torch.equal(a, b)

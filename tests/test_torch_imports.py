@@ -9,7 +9,9 @@ copies of framework-free reference modules (``monitoring`` with
 ``training/preemption.py`` and the fleet's ``disagg.py``, ``router.py``,
 ``replica.py`` and ``autoscaler.py``) import only the standard library and
 the port (the new ``random.py``, ``training/compile_cache.py`` and
-``training/records.py`` are scanned with every module); and an
+``training/records.py`` are scanned with every module, as are the
+model zoo's ``models/moe.py``, ``models/vit.py`` and ``models/export.py``,
+named in :data:`ZOO_MODULES`); and an
 entry point called without ``device="cpu"`` on a host with no card raises
 instead of quietly running on the CPU.
 """
@@ -104,6 +106,18 @@ STDLIB_COPIES = {
 }
 
 
+#: The model zoo's modules of the last slice: scanned with every module
+#: above; named here so a move or rename cannot drop them from the scan.
+ZOO_MODULES = ("models/moe.py", "models/vit.py", "models/export.py")
+
+
+@pytest.mark.parametrize("rel", ZOO_MODULES)
+def test_zoo_modules_are_jax_free(rel):
+    path = PORT / rel
+    assert path in set(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+
+
 @pytest.mark.parametrize("rel", sorted(STDLIB_COPIES))
 def test_reference_copies_import_only_the_standard_library(rel):
     path = PORT / rel
@@ -118,8 +132,9 @@ def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device resolves")
     from cloud_tpu_torch import bridge
-    from cloud_tpu_torch.models import (bert, generation, mnist, resnet,
-                                        transformer)
+    from cloud_tpu_torch.models import moe
+    from cloud_tpu_torch.models import (bert, export, generation, mnist,
+                                        resnet, transformer, vit)
     from cloud_tpu_torch.serving import ServingEngine
     from cloud_tpu_torch.training import (check_durability, checkpoint,
                                           compile_cache, optimizers,
@@ -170,6 +185,17 @@ def test_entry_points_refuse_missing_cuda():
         lambda: pipeline_io.place_batch({"x": np.zeros(2)}),
         lambda: check_durability.main([]),
         lambda: compile_cache.abstract_batch({"x": np.zeros(2)}),
+        lambda: bridge.init(cfg.scaled(moe=moe.MoeConfig()),
+                            torch.Generator()),
+        lambda: bridge.init_vit(vit.VIT_TINY_CIFAR, torch.Generator()),
+        lambda: vit.apply({}, torch.zeros((1, 32, 32, 3)),
+                          vit.VIT_TINY_CIFAR),
+        lambda: vit.loss_fn({}, {"image": torch.zeros((1, 32, 32, 3)),
+                                 "label": torch.zeros(1)},
+                            vit.VIT_TINY_CIFAR),
+        lambda: benchmarking.vit_train_setup(batch_size=1,
+                                             config=vit.VIT_TINY_CIFAR),
+        lambda: export.load_pretrained("unused"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -5,7 +5,10 @@ weights: ``transformer.loss_fn``'s loss and every gradient against
 ``jax.value_and_grad(transformer.loss_fn)``, in both head layouts (tied
 ``"vd"`` and dense ``"dv"``), both CE branches (plain and ``fused_ce``)
 and with and without ``loss_mask``, with remat on, at 1e-5 of the largest
-gradient magnitude; remat on and off give identical gradients.  The
+gradient magnitude; remat on and off give identical gradients; remat
+"dots" gives "full"'s and "none"'s loss and gradients bit for bit and
+JAX's "dots" within the same tolerances, and its backward recomputes no
+dense product (counted at the dispatcher: "full" recomputes them all).  The
 fused CE op alone is held against JAX's at a chunk that does not divide
 V, and three ``make_train_step`` steps with ``adamw`` against the JAX
 step with ``optax.adamw`` follow the same loss trajectory within 1e-4.
@@ -19,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu.ops import fused_cross_entropy as jax_fce
@@ -107,12 +111,91 @@ def test_remat_on_and_off_give_identical_grads(fused_ce):
 
 
 def test_remat_dots_is_not_ported():
-    cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1,
-                                  remat=True, remat_policy="dots")
-    params = bridge.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.loss_fn(params, {"tokens": torch.ones((1, 4))}, cfg,
-                            device="cpu")
+    """Remat "dots" is ported (the name is the one of the refusal it
+    replaced): its loss and every gradient are bit-identical to "full"
+    and "none" in the port, and equal JAX's "dots" within the LM
+    tolerances."""
+    params = _jax_params(True)
+    batch = _batch(True)
+    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=2,
+                                 tied_embeddings=True, remat=True,
+                                 remat_policy="dots")
+    cfg = port_config(jax_cfg)
+    assert cfg.remat_policy == "dots"
+    runs = {name: _port_loss_and_grads(params, c, batch) for name, c in (
+        ("dots", cfg), ("full", cfg.scaled(remat_policy="full")),
+        ("none", cfg.scaled(remat=False)))}
+    for name in ("full", "none"):
+        assert runs[name][0] == runs["dots"][0], name
+        for a, b in zip(jax.tree_util.tree_leaves(runs[name][2]),
+                        jax.tree_util.tree_leaves(runs["dots"][2])):
+            np.testing.assert_array_equal(a, b)
+    (want_loss, _), want = jax.jit(jax.value_and_grad(
+        functools.partial(jax_tf.loss_fn, config=jax_cfg), has_aux=True))(
+            params, batch)
+    np.testing.assert_allclose(runs["dots"][0], float(want_loss), rtol=1e-5)
+    want_leaves = jax.tree_util.tree_leaves(want)
+    scale = max(np.abs(np.asarray(w)).max() for w in want_leaves)
+    for a, b in zip(jax.tree_util.tree_leaves(runs["dots"][2]), want_leaves):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0,
+                                   atol=1e-5 * scale)
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the dense products (``aten.mm``/``addmm``) dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _products(cfg, params_np, batch):
+    """Dense products in the forward pass and in the backward pass."""
+    params = bridge.map_leaves(bridge.to_torch(params_np, cfg, device="cpu"),
+                               lambda t: t.requires_grad_(True))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with _CountProducts() as fwd:
+        loss, _ = transformer.loss_fn(params, tbatch, cfg, device="cpu")
+    with _CountProducts() as bwd:
+        loss.backward()
+    return fwd.n, bwd.n
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_dots_recomputes_no_dense_product(moe):
+    """The backward under "dots" runs exactly the products "none" runs
+    (each layer's projections come from the saved outputs); under "full"
+    it runs them plus the layers' forward products again.  The dense
+    projections reach the dispatcher as ``aten.mm``."""
+    from helpers.torch_port import TINY_MOE
+
+    jax_cfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=2,
+                                 tied_embeddings=True,
+                                 moe=TINY_MOE if moe else None)
+    params = jax.tree_util.tree_map(np.asarray, jax_tf.init(
+        jax.random.PRNGKey(4), jax_cfg))
+    cfg = port_config(jax_cfg)
+    batch = _batch(False)
+    fwd_none, bwd_none = _products(cfg.scaled(remat=False), params, batch)
+    _, bwd_dots = _products(cfg.scaled(remat=True, remat_policy="dots"),
+                            params, batch)
+    _, bwd_full = _products(cfg.scaled(remat=True, remat_policy="full"),
+                            params, batch)
+    # q, k, v, out and the MLP's three (the router alone under MoE: its
+    # experts are batched products), and the head outside the layers.
+    per_layer = 5 if moe else 7
+    assert fwd_none == 2 * per_layer + 1
+    assert bwd_dots == bwd_none
+    # "full" recomputes up to the last saved value the backward reads: the
+    # dense MLP's ``wo`` output feeds only the residual add, so its
+    # product is not run again.
+    recomputed = per_layer if moe else per_layer - 1
+    assert bwd_full == bwd_none + 2 * recomputed
 
 
 @pytest.mark.parametrize("layout", ["vd", "dv"])

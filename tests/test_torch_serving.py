@@ -44,7 +44,7 @@ from cloud_tpu_torch.serving import (
     ServingEngine,
     TokenStream,
 )
-from helpers.torch_port import tie_free_prompts, tiny_models
+from helpers.torch_port import TINY_MOE, tie_free_prompts, tiny_models
 
 torch.set_num_threads(1)
 
@@ -243,7 +243,10 @@ def test_out_of_slice_options_raise(kw, models, prompts):
 
 def test_int8_params_and_moe_raise(models):
     """An int8 leaf without its scale, or not int8, fails at construction
-    (not in the scheduler thread); MoE layers are not ported."""
+    (not in the scheduler thread).  MoE layers are ported (the name is
+    the one of the refusal this replaced): an MoE CloudLM serves, its
+    tokens those of ``generate`` on the prompt padded to its bucket (the
+    same T, so the same expert capacity)."""
     _, _, cfg, tparams = models
     no_scale = dict(tparams, head={"kernel_q": torch.zeros(
         (cfg.dim, cfg.vocab_size), dtype=torch.int8)})
@@ -254,9 +257,17 @@ def test_int8_params_and_moe_raise(models):
         with pytest.raises(ValueError, match="int8"):
             ServingEngine(params, cfg, ServeConfig(), device="cpu",
                           start=False)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServingEngine(tparams, cfg.scaled(moe=object()), ServeConfig(),
-                      device="cpu", start=False)
+    _, _, mcfg, mparams = tiny_models(seed=1, num_layers=2,
+                                      moe_cfg=TINY_MOE)
+    prompt = np.arange(1, 12, dtype=np.int32)  # bucket 16
+    with _engine(mparams, mcfg) as engine:
+        res = engine.submit(prompt).result(timeout=120)
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :11] = prompt
+    want = generation.generate(mparams, torch.from_numpy(padded),
+                               torch.tensor([11]), mcfg,
+                               max_new_tokens=MAX_NEW, device="cpu")
+    np.testing.assert_array_equal(res.tokens, want["tokens"][0].numpy())
 
 
 @pytest.fixture(scope="module")
