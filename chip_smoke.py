@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, the fleet with disaggregated prefill/decode, and an MoE CloudLM with its pretrained bundle), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout, MoE, remat "dots" and ViT-B/16) once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, the fleet with disaggregated prefill/decode, an MoE CloudLM with its pretrained bundle, and tensor-parallel serving over two ranks), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout, MoE, remat "dots" and ViT-B/16) once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,10 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    with and without a pool, Tq 1 and 4, q in bf16 and f32, slot rows of
    S=576 and 4096 with lengths from 1 to S) timed at B=8 with S=576 and
    S=4096 (K8q beside K8 on bf16 K/V at the same lengths and SDPA on K/V
-   dequantized beforehand), in event and device time, K8 and K8q at
+   dequantized beforehand), in event and device time, K5, K8 and K8q at
+   a tp-2 rank's 6 heads (phase 2 (tp): q/k/v a strided view of a
+   full-width projection, a grid born at 6 heads), timed the same way,
+   K8 and K8q at
    prefill-chunk query counts (Tq 32, 128 and 512, several query tiles,
    chunk-causal, pool pages or not, three chunk starts), each Tq timed
    beside its bound and SDPA over the gathered K/V, K8 and K8q at the
@@ -43,7 +46,10 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    shapes plus ragged T (200, 1000), and in bf16 at every head dim the
    kernels take; bf16 K6 and K7 also against their f32 kernels where
    causal rows have no valid key (the plain version's answer differs
-   there by design), then K5, K6 and K7 timed at the LM (B=4, T=1024,
+   there by design), and against the plain version there under the
+   ring's contract (out's and lse's cotangents 0 on those rows: dq
+   exactly 0 there, dk/dv within the limits; C1), then K5, K6 and K7
+   timed at the LM (B=4, T=1024,
    causal), BERT (B=32, T=128) and ViT-B/16 (B=128, T=196, non-causal;
    the plain versions there in event time only) shapes against
    ``scaled_dot_product_attention``'s forward and backward, in event and
@@ -126,7 +132,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    the same expert capacity) whose greedy path keeps its top-2 gap, 1e-3,
    or 1e-2 under int8 + kv_quant; the served bf16 params through
    ``save_pretrained``/``load_pretrained`` come back bit for bit and
-   serve the same tokens);
+   serve the same tokens); then tensor-parallel serving (3tp: the mesh
+   path at tp 1 token for token as the plain engine,
+   ``mesh_shape=(2, 1)`` on one card refused with the JAX engine's
+   device-count error; then SMALL at tp 2, rank 0 here and rank 1 in a
+   spawned child, both on the one card over gloo: bf16 tokens/s beside
+   the one-process engine's, and in f32, on bf16-valued weights, 8
+   tie-free requests plain and with kv_quant equal to ``generate()`` and
+   the one-process engine, a cold prompt in two prefill chunks and a
+   prefix hit equal to ``generate()``; each rank's K5, K8 and K8q
+   launches held to rank 0's stats);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -1201,6 +1216,48 @@ def _no_valid_key_case(fa, gen, *, h, d):
             for name in FLASH_BWD_KERNELS}
 
 
+def _ring_contract_case(fa, gen, dtype, *, h, d):
+    """C1 under the ring's contract: causal rows with no valid key (left
+    padding: sample 0's first 37 rows, sample 1's first 150) reach the
+    backward with out's cotangent 0 and the lse's 0 (merge weight 0,
+    ``cloud_tpu/parallel/ring_attention.py``).  K6/K7 against the plain
+    version on K5's out and lse, and dq exactly 0 on those rows from
+    both: what the kernels' tiles give such rows then adds nothing.
+    Returns {kernel: max_abs_err}."""
+    import torch
+
+    b, t = 2, 200
+    q, k, v, do, _ = _attn_inputs(b, t, dtype, gen, mask_kind=None, h=h, d=d)
+    mask = torch.ones((b, t), dtype=torch.int32, device=gen.device)
+    mask[0, :37] = 0
+    mask[1, :150] = 0
+    empty = (torch.arange(t, device=gen.device)[None]
+             < torch.tensor([37, 150], device=gen.device)[:, None])
+    do = do.masked_fill(empty[:, :, None, None], 0)
+    g_lse = torch.randn((b, h, t), generator=gen, device=gen.device
+                        ).masked_fill(empty[:, None, :], 0)
+    out, lse = fa._flash_kernel(q, k, v, causal=True, mask=mask)
+    got = fa._bwd_kernels(q, k, v, mask, do, out, lse, causal=True,
+                          g_lse=g_lse)
+    ref = fa._bwd_reference(q, k, v, mask, do, out, lse, causal=True,
+                            g_lse=g_lse)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[1]
+    what = (f"{name} B={b} T={t} H={h} D={d} causal, rows with no valid "
+            f"key under the ring's contract")
+    for label, dq in (("K6", got[0]), ("plain", ref[0])):
+        if not bool((dq[empty] == 0).all()):
+            raise AssertionError(f"{label} dq of rows with no valid key is "
+                                 f"not exactly 0 ({what})")
+    return {"flash_bwd_dq": check_close(f"K6 dq {what}", got[0], ref[0],
+                                        name, scaled=True),
+            "flash_bwd_dkv": max(
+                check_close(f"K7 dk {what}", got[1], ref[1], name,
+                            scaled=True),
+                check_close(f"K7 dv {what}", got[2], ref[2], name,
+                            scaled=True))}
+
+
 def _attn_bound(kernel, b, t, causal):
     """(bound_ms, bound_by) of one bf16 call at [b, t, 12, 64]: each input
     read once and each output written once; 2 B*H*D operations per
@@ -1345,6 +1402,18 @@ def check_flash_bwd(device, card):
     print(f"  K6/K7 bf16 against f32 kernels, causal rows with no valid key, "
           f"every head dim: max_abs_err dq {no_valid['flash_bwd_dq']:.3e}, "
           f"dk/dv {no_valid['flash_bwd_dkv']:.3e} ok [{card}]")
+    ring = {name: 0.0 for name in FLASH_BWD_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fa.KERNEL_HEAD_DIMS:
+            for name, e in _ring_contract_case(fa, gen, dtype, h=4,
+                                               d=d).items():
+                ring[name] = max(ring[name], e)
+            cases += 1
+    print(f"  C1: K6/K7 against the plain version where causal rows have no "
+          f"valid key, out's and lse's cotangents 0 there (the ring's "
+          f"contract), bf16 and f32, every head dim: dq exactly 0 on those "
+          f"rows, max_abs_err dq {ring['flash_bwd_dq']:.3e}, dk/dv "
+          f"{ring['flash_bwd_dkv']:.3e} ok [{card}]")
     timed = {path: _time_attention(fa, path, card, gen)
              for path in TRAIN_SHAPES}
     timed["ViT"] = _time_attention(fa, "ViT", card, gen,
@@ -1360,6 +1429,7 @@ def check_flash_bwd(device, card):
             "max_abs_err": worst[name]["bfloat16"],
             "max_abs_err_f32": worst[name]["float32"],
             "max_abs_err_no_valid_key": no_valid[name],
+            "max_abs_err_ring_contract": ring[name],
             **lm,
             "at_bert": timed["BERT"][name],
             "at_vit": timed["ViT"][name]})
@@ -6091,6 +6161,479 @@ TENSOR_CORE_KERNELS = {"flash_fwd": ["flash_fwd_kernel_tc"],
                                      "flash_bwd_dkv_kernel_tc"]}
 
 
+# ---------------------------------------------------------------------------
+# Phases 2 (tp) and 3tp: tensor-parallel serving, two ranks on the card
+# ---------------------------------------------------------------------------
+
+#: The slice of phase 3tp: SMALL at tp 2 (6 of its 12 heads a rank), both
+#: ranks on the one card over gloo (NCCL refuses two ranks on a device).
+TP = 2
+TP_HEADS = HEADS // TP
+#: Its requests: 8 prompts of 5..128 tokens, 12 new tokens each.  Token
+#: identity is held in f32 (as phase 3 holds it) on the same bf16-valued
+#: weights: on prompts whose f32 greedy path keeps a top-2 gap of 1e-3
+#: (QUANT_TIE_GAP with an int8 KV cache) at every step.  In bf16 the two
+#: ranks' sums of a row-split product round apart from one card's product
+#: (a CPU run of SMALL moved logits by up to 0.05, about what bf16 against
+#: f32 moves them), so the bf16 arm's matches are counted, not asserted.
+TP_REQUESTS, TP_BUDGET = 8, 12
+TP_SERVE = {"max_new_tokens": 16, "prompt_buckets": (32, 128),
+            "num_slots": NUM_SLOTS, "chunk_tokens": CHUNK}
+#: The prefix arm: 16-token blocks, 32-token prefill chunks, pages
+#: attached through K8's block table.
+TP_PREFIX = {"prefix_cache_blocks": 16, "prefix_block_tokens": 16,
+             "prefill_chunk_tokens": 32, "decode_kernel": "auto"}
+#: How long rank 0 waits for its follower to start, join and report.
+TP_TIMEOUT_S = 180
+#: Model of the TP phases (SMALL, or a narrower config in a CPU rehearsal).
+TP_MODEL = None
+
+
+def _split_heads(full, rank):
+    """Rank ``rank``'s heads of a full-width ``[..., H, D]`` projection: a
+    strided view, as a column-split of the full projection gives them."""
+    return full[..., rank * TP_HEADS:(rank + 1) * TP_HEADS, :]
+
+
+def check_tp_kernels(device, card):
+    """K5, K8 and K8q at a tp-2 rank's head count: q/k/v (or q) from a
+    column-split of a full-width SMALL projection (``[B, T, 768] @ [768,
+    768]``, rank 1's 6 heads as a strided view), K8/K8q over a grid born
+    at 6 heads.  Each held against its plain version (``check_close``),
+    then timed beside the plain version, SDPA and the bound, in event and
+    device time.  Returns one row per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from cloud_tpu_torch.ops import flash_attention as fa
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(26)
+    dim = HEADS * HEAD_DIM
+
+    def projected(b, t, dtype):
+        x = torch.randn((b, t, dim), generator=gen, device=device).to(dtype)
+        out = []
+        for _ in range(3):
+            w = (torch.randn((dim, dim), generator=gen, device=device)
+                 / dim ** 0.5).to(dtype)
+            out.append(_split_heads((x @ w).reshape(b, t, HEADS, HEAD_DIM),
+                                    1))
+        return out
+
+    rows, errs = {}, {}
+    t = 128
+    mask = (torch.arange(t, device=device) < 100).to(torch.int32)[None]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        q, k, v = projected(1, t, dtype)
+        if q.is_contiguous():
+            raise AssertionError("the split heads are not a strided view")
+        out, lse = fa._flash_kernel(q, k, v, causal=True, mask=mask)
+        ref_out, ref_lse = fa._reference_with_lse(q, k, v, causal=True,
+                                                  mask=mask)
+        torch.cuda.synchronize()
+        what = f"K5 flash_fwd {name} T={t} H={TP_HEADS} (strided heads)"
+        errs[f"flash_fwd {name}"] = max(
+            check_close(what, out, ref_out, name),
+            check_close(what + " lse", lse, ref_lse, name))
+        print(f"  {what}: max_abs_err={errs[f'flash_fwd {name}']:.3e} ok")
+        if dtype == torch.bfloat16:
+            kernel, kernel_dev = event_and_device_ms(
+                lambda: fa._flash_kernel(q, k, v, causal=True, mask=mask))
+            plain, plain_dev = event_and_device_ms(
+                lambda: fa._reference_with_lse(q, k, v, causal=True,
+                                               mask=mask))
+            allowed = (torch.ones((t, t), dtype=torch.bool,
+                                  device=device).tril()
+                       & (mask[:, None, None, :] != 0))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library, library_dev = event_and_device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=allowed))
+            nbytes = (4 * q.numel() * 2 + mask.numel() * 4
+                      + TP_HEADS * t * 4)
+            flops = 4 * TP_HEADS * HEAD_DIM * t * (t + 1) / 2
+            b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+            rows["flash_fwd"] = {
+                "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+                "plain_device_ms": plain_dev, "library_ms": library,
+                "library_device_ms": library_dev, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "shape": f"B=1 T={t} H={TP_HEADS} D={HEAD_DIM} bf16 masked, "
+                         f"heads a strided view"}
+
+    s = PAGED_LENGTHS[0]
+    lens = np.random.default_rng(1).integers(33, s + 1, NUM_SLOTS)
+    cur_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    keys = int(lens.sum())
+    table = torch.full((NUM_SLOTS, -(-s // 16)), -1, dtype=torch.int32,
+                       device=device)
+    pool_table = table.clone()
+    pool_table[:, :2] = torch.arange(2 * NUM_SLOTS, dtype=torch.int32,
+                                     device=device).reshape(NUM_SLOTS, 2)
+    for quantized, kname in ((False, "paged_attention"),
+                             (True, "paged_attention_int8")):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            slot = {n: torch.randn((NUM_SLOTS, s, TP_HEADS, HEAD_DIM),
+                                   generator=gen, device=device).to(dtype)
+                    for n in ("k", "v")}
+            pool_l = {n: torch.randn((2 * NUM_SLOTS, 16, TP_HEADS, HEAD_DIM),
+                                     generator=gen, device=device).to(dtype)
+                      for n in ("k", "v")}
+            if quantized:
+                slot, pool_l = _quantize_leaves(slot), _quantize_leaves(pool_l)
+            worst = 0.0
+            for tq in (1, 4):
+                q = _split_heads(torch.randn(
+                    (NUM_SLOTS, tq, HEADS, HEAD_DIM), generator=gen,
+                    device=device).to(dtype), 1)
+                for pool in (False, True):
+                    args = ((q, slot, cur_len, pool_l, pool_table) if pool
+                            else (q, slot, cur_len, None, table))
+                    out = pa._paged_kernel(*args)
+                    ref = pa._reference(*args)
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_close(
+                        f"{kname} {name} H={TP_HEADS} Tq={tq} pool={pool}",
+                        out, ref, name))
+            errs[f"{kname} {name}"] = worst
+            print(f"  {kname} {name} B={NUM_SLOTS} S={s} H={TP_HEADS} (q a "
+                  f"strided view), Tq 1 and 4, pool or not: max_abs_err="
+                  f"{worst:.3e} ok")
+            if dtype != torch.bfloat16:
+                continue
+            q = _split_heads(torch.randn((NUM_SLOTS, 1, HEADS, HEAD_DIM),
+                                         generator=gen, device=device).to(
+                                             dtype), 1)
+            kernel, kernel_dev = event_and_device_ms(
+                lambda: pa._paged_kernel(q, slot, cur_len, None, table),
+                iters=50)
+            plain, plain_dev = event_and_device_ms(
+                lambda: pa._reference(q, slot, cur_len, None, table))
+            if quantized:
+                kv = {n: (slot[n].float() * slot[f"{n}_scale"]).to(dtype)
+                      for n in ("k", "v")}
+                per_key = TP_HEADS * (2 * HEAD_DIM + 8)
+            else:
+                kv = slot
+                per_key = 2 * TP_HEADS * HEAD_DIM * 2
+            library, library_dev = event_and_device_ms(
+                _sdpa_decode(q.contiguous(), kv["k"], kv["v"], cur_len),
+                iters=50)
+            nbytes = (keys * per_key + 2 * q.numel() * 2 + NUM_SLOTS * 4
+                      + table.numel() * 4)
+            b_ms, b_by = bound_ms(nbytes, 4 * keys * TP_HEADS * HEAD_DIM,
+                                  "bfloat16")
+            rows[kname] = {
+                "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+                "plain_device_ms": plain_dev, "library_ms": library,
+                "library_device_ms": library_dev, "bound_ms": b_ms,
+                "bound_by": b_by, "live_keys": keys,
+                "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={TP_HEADS} "
+                         f"D={HEAD_DIM} {'int8' if quantized else 'bf16'} "
+                         f"K/V, q a strided view"}
+    for kname, row in rows.items():
+        print(f"  {kname} at H={TP_HEADS} ({row['shape']}): kernel "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ({row['plain_device_ms']:.4f}), sdpa "
+              f"{row['library_ms']:.4f} ({row['library_device_ms']:.4f}), "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) [{card}]")
+    return {"rows": rows, "max_abs_err": errs}
+
+
+def _tp_model(device, model=None):
+    """Phase 3tp's model on ``device``: SMALL (or ``model``) with
+    random weights from seed 0 rounded to bf16 values (f32 leaves), made
+    alike in every rank's process.  Returns ``(cfg, params)``, ``cfg`` in
+    bf16."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import transformer
+
+    cfg = model or transformer.SMALL
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = bridge.init(cfg, gen, device=device)
+    return cfg, bridge.map_leaves(
+        params, lambda t: t.to(torch.bfloat16).float())
+
+
+#: Phase 3tp's engines, in the order every rank builds them: (name,
+#: compute dtype, ServeConfig fields).
+TP_ARMS = (("bf16", "bfloat16", {}),
+           ("f32", "float32", {}),
+           ("f32 kv_quant", "float32", {"kv_quant": True}),
+           ("f32 prefix", "float32", TP_PREFIX))
+
+
+def _tp_config(cfg, dtype_name):
+    import torch
+
+    return cfg.scaled(dtype=getattr(torch, dtype_name))
+
+
+def _tp_follower(port, device_name, model, queue):
+    """Rank 1 of phase 3tp's slice, in a child process: the same weights,
+    the same engines in the same order as rank 0, each running
+    ``follow()`` until rank 0 closes it; after each, its own launch
+    counts on ``queue`` (an error's repr if it fails)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.parallel import MeshSpec
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", port, TP, False,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=1, world_size=TP,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = MeshSpec({"tp": TP}).build(devices=[device] * TP,
+                                          backend="gloo")
+        cfg, params = _tp_model(device, model)
+        for _, dtype_name, fields in TP_ARMS:
+            dispatch.reset_launch_counts()
+            engine = ServingEngine(params, _tp_config(cfg, dtype_name),
+                                   ServeConfig(**TP_SERVE, **fields),
+                                   mesh=mesh, device=device)
+            engine.follow()
+            queue.put(dispatch.launch_counts(QUANT_SERVING_KERNELS))
+    except BaseException as exc:  # noqa: BLE001 — reported to rank 0
+        queue.put(repr(exc))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_prompts(generation, params, cfg32, device):
+    """TP_REQUESTS prompts of 5..128 tokens whose f32 greedy paths keep a
+    top-2 gap of 1e-3 (and QUANT_TIE_GAP with an int8 KV cache) for
+    TP_BUDGET tokens, and the prefix arm's pair: a cold 40-token prompt
+    and one sharing its first 32 tokens, tie-free the same way."""
+    def tie_free(prompt):
+        return all(
+            min(_greedy_gaps(generation, params, prompt, TP_BUDGET, cfg32,
+                             device, kv_quant=kv_quant)[0]) >= gap
+            for kv_quant, gap in ((False, 1e-3), (True, QUANT_TIE_GAP)))
+
+    picks = [p for p, _ in _requests(cfg32.vocab_size, 40, seed=21)
+             if len(p) <= TP_SERVE["prompt_buckets"][-1]]
+    picks = [p for p in picks if tie_free(p)][:TP_REQUESTS]
+    if len(picks) < TP_REQUESTS:
+        raise AssertionError(f"only {len(picks)} tie-free prompts")
+    rng = np.random.default_rng(22)
+    for _ in range(40):
+        head = rng.integers(1, cfg32.vocab_size, 32).astype(np.int32)
+        pair = [np.concatenate([head, rng.integers(
+            1, cfg32.vocab_size, 8).astype(np.int32)]) for _ in range(2)]
+        if all(tie_free(p) for p in pair):
+            return picks, pair
+    raise AssertionError("no tie-free prefix pair in 40 tries")
+
+
+def _serve_tp_arm(engine, prompts):
+    """One warm-up request, then ``prompts`` submitted at once; returns
+    (results, wall seconds of the measured ones)."""
+    engine.submit(prompts[0], max_new_tokens=4).result(timeout=600)
+    start = time.perf_counter()
+    futures = [engine.submit(p, max_new_tokens=TP_BUDGET) for p in prompts]
+    results = [f.result(timeout=600) for f in futures]
+    return results, time.perf_counter() - start
+
+
+def _tp_counts_check(what, counts, layers_n, stats, quantized):
+    """A rank's launches against rank 0's engine record (counted from the
+    engine's construction)."""
+    import collections
+
+    _check_launches(what, counts, layers_n, collections.defaultdict(int),
+                    stats, quantized=quantized)
+
+
+def run_tp_engine(device, card):
+    """3tp: the tensor-parallel engine at tp 2, rank 0 here and rank 1 in a
+    spawned child, both on ``device`` over gloo (``mesh=`` a MeshSpec
+    built over ``[device, device]``).  First, without the slice: the
+    mesh path at tp 1 (``mesh=`` a one-rank mesh) serves 8 requests token
+    for token as the plain engine in bf16, and ``mesh_shape=(2, 1)`` on
+    the one card raises the JAX engine's device-count error.  Then four
+    engines on both ranks, SMALL on bf16-valued weights: in bf16 (8
+    requests at once after a warm-up one: tokens/s beside the
+    single-process engine's, matches with it counted), and in f32 the
+    same 8 (tie-free) requests plain and with ``kv_quant``, each request
+    equal to the single-process engine's and ``generate``'s tokens, and
+    the prefix cache with chunked prefill (a cold 40-token prompt in two
+    chunks, then one sharing its first 32 tokens: one hit), equal to
+    ``generate``.  Each rank's K5, K8 and K8q launches equal what rank 0's
+    ``stats()`` implies."""
+    import datetime
+    import multiprocessing
+    import queue as queue_lib
+
+    import torch
+    import torch.distributed as dist
+
+    from cloud_tpu_torch.models import generation
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.parallel import MeshSpec
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+
+    cfg, params = _tp_model(device, TP_MODEL)
+    cfg32 = _tp_config(cfg, "float32")
+    prompts, pair = _tp_prompts(generation, params, cfg32, device)
+    out = {}
+
+    # Without the slice: the one-process engines, the tp-1 mesh path
+    # against the plain engine, and the device-count error on one card.
+    single = {}
+    for what, dtype_name, fields in TP_ARMS[:3]:
+        with ServingEngine(params, _tp_config(cfg, dtype_name),
+                           ServeConfig(**TP_SERVE, **fields),
+                           device=device) as engine:
+            results, wall = _serve_tp_arm(engine, prompts)
+        single[what] = results
+        out[f"single {what} tokens_per_s"] = (
+            sum(r.num_generated for r in results) / wall)
+    one_rank = MeshSpec({"tp": 1}).build(devices=[device])
+    with ServingEngine(params, cfg, ServeConfig(**TP_SERVE), mesh=one_rank,
+                       device=device) as engine:
+        results, _ = _serve_tp_arm(engine, prompts)
+    for prompt, got, want in zip(prompts, results, single["bf16"]):
+        if not np.array_equal(got.tokens, want.tokens):
+            raise AssertionError(f"the tp-1 mesh engine != the plain engine "
+                                 f"for a {len(prompt)}-token prompt")
+    print(f"  mesh path at tp 1: {len(prompts)}/{len(prompts)} requests "
+          f"token-identical to the plain engine (SMALL bf16)")
+    try:
+        ServingEngine(params, cfg, ServeConfig(**TP_SERVE, mesh_shape=(TP, 1)),
+                      device=device, start=False)
+    except ValueError as exc:
+        if "device(s); only" not in str(exc):
+            raise
+        print(f"  ServeConfig(mesh_shape=(2, 1)) on one card: {exc}")
+    else:
+        raise AssertionError("mesh_shape=(2, 1) on one card did not raise")
+
+    # The slice: rank 1 in a spawned child.
+    store = dist.TCPStore("127.0.0.1", 0, TP, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    ctx = multiprocessing.get_context("spawn")
+    reports = ctx.Queue()
+    child = ctx.Process(target=_tp_follower,
+                        args=(store.port, str(device), TP_MODEL, reports),
+                        daemon=True)
+    child.start()
+    launches = {}
+    try:
+        dist.init_process_group(
+            "gloo", store=store, rank=0, world_size=TP,
+            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        mesh = MeshSpec({"tp": TP}).build(devices=[device] * TP,
+                                          backend="gloo")
+        for what, dtype_name, fields in TP_ARMS:
+            quantized = bool(fields.get("kv_quant"))
+            arm_cfg = _tp_config(cfg, dtype_name)
+            dispatch.reset_launch_counts()
+            with ServingEngine(params, arm_cfg,
+                               ServeConfig(**TP_SERVE, **fields), mesh=mesh,
+                               device=device) as engine:
+                health = engine.health()
+                if what == "f32 prefix":
+                    served = pair
+                    results = [engine.submit(p, max_new_tokens=TP_BUDGET
+                                             ).result(timeout=600)
+                               for p in pair]
+                else:
+                    served = prompts
+                    results, wall = _serve_tp_arm(engine, prompts)
+                    out[f"tp2 {what} tokens_per_s"] = (
+                        sum(r.num_generated for r in results) / wall)
+            stats = engine.stats()
+            mine = dispatch.launch_counts(QUANT_SERVING_KERNELS)
+            try:
+                theirs = reports.get(timeout=TP_TIMEOUT_S)
+            except queue_lib.Empty:
+                raise AssertionError(f"rank 1 sent no launch counts for "
+                                     f"{what} in {TP_TIMEOUT_S} s") from None
+            if isinstance(theirs, str):
+                raise AssertionError(f"rank 1 failed in {what}: {theirs}")
+            for rank, counts in ((0, mine), (1, theirs)):
+                _tp_counts_check(f"3tp {what} rank {rank}", counts,
+                                 cfg.num_layers, stats, quantized)
+            launches[what] = {n: mine[n] + theirs[n] for n in mine}
+            if health["slice_shape"] != (TP, 1) or stats["slice_chips"] != TP:
+                raise AssertionError(f"{what}: slice {health['slice_shape']}"
+                                     f" / {stats['slice_chips']} chips")
+            for res in results:
+                if (res.tokens.min() < 0
+                        or res.tokens.max() >= cfg.vocab_size):
+                    raise AssertionError("token id outside the vocabulary")
+            if what == "bf16":
+                same = sum(np.array_equal(r.tokens, w.tokens) for r, w in
+                           zip(results, single["bf16"]))
+                out["bf16 matches"] = int(same)
+                print(f"  tp 2 bf16: {same}/{len(prompts)} requests "
+                      f"token-identical to the single-process engine "
+                      f"(counted, not held: bf16 rounding); launches per "
+                      f"rank {mine} (rank 1 {theirs}) as rank 0's stats "
+                      f"imply")
+                continue
+            if what == "f32 prefix" and (stats["prefix_hits"] != 1
+                                         or stats["prefill_chunks"] != 3):
+                raise AssertionError(
+                    f"prefix arm: {stats['prefix_hits']} hits, "
+                    f"{stats['prefill_chunks']} prefill chunks (1 and 3 "
+                    f"expected)")
+            for i, (prompt, res) in enumerate(zip(served, results)):
+                want = generation.generate(
+                    params, torch.from_numpy(prompt)[None], [len(prompt)],
+                    arm_cfg, max_new_tokens=TP_BUDGET, kv_quant=quantized,
+                    device=device)["tokens"][0].cpu().numpy()
+                if not np.array_equal(res.tokens, want):
+                    raise AssertionError(
+                        f"3tp {what}: the tp-2 engine != generate() for a "
+                        f"{len(prompt)}-token prompt")
+                if what in single and not np.array_equal(
+                        res.tokens, single[what][i].tokens):
+                    raise AssertionError(
+                        f"3tp {what}: the tp-2 engine != the single-process "
+                        f"engine for a {len(prompt)}-token prompt")
+            print(f"  tp 2 {what}: {len(served)}/{len(served)} requests "
+                  f"token-identical to generate()"
+                  + (" and the single-process engine" if what in single
+                     else f" ({stats['prefix_hits']} prefix hit, "
+                          f"{stats['prefill_chunks']} prefill chunks)")
+                  + f"; launches per rank {mine} (rank 1 {theirs}) as rank "
+                  f"0's stats imply; slice {health['slice_shape']}")
+        child.join(TP_TIMEOUT_S)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if child.is_alive():
+            child.kill()
+            child.join(10)
+    if child.exitcode != 0:
+        raise AssertionError(f"rank 1 exited with code {child.exitcode}")
+    for what in ("bf16", "f32"):
+        print(f"  {what}: tp 2 (two ranks on one card, gloo) "
+              f"{out[f'tp2 {what} tokens_per_s']:.1f} tok/s against one "
+              f"process {out[f'single {what} tokens_per_s']:.1f} tok/s "
+              f"({TP_REQUESTS} requests x {TP_BUDGET} tokens) [{card}]")
+    out["launches_by_arm"] = launches
+    out["launches"] = {n: sum(arm[n] for arm in launches.values())
+                       for n in QUANT_SERVING_KERNELS}
+    return out
+
+
 def tensor_core_sass(dispatch):
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     flash libraries, read from ``cuobjdump -sass``; raises unless every
@@ -6177,6 +6720,9 @@ def main() -> int:
         ("phase 2 (verify): K8 and K8q at the speculative verify shape "
          "(B=8, Tq=4)", "paged verify check",
          lambda: check_paged_verify(device, card), True),
+        ("phase 2 (tp): K5, K8 and K8q at a tp-2 rank's head count (6 of "
+         "SMALL's 12, heads a strided view of a full-width projection)",
+         "tp kernel check", lambda: check_tp_kernels(device, card), True),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -6231,6 +6777,10 @@ def main() -> int:
          "2), 16 requests in bf16 and in int8 + kv_quant, f32 parity, a "
          "pretrained bundle", "moe engine",
          lambda: run_moe_engine(device, card), True),
+        ("phase 3tp: tensor-parallel serving at tp 2, two ranks on the card "
+         "over gloo (SMALL bf16 and f32, kv_quant, prefix hit and chunked "
+         "prefill); the mesh path at tp 1", "tp engine",
+         lambda: run_tp_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -6406,10 +6956,12 @@ def main() -> int:
     engine_q = results["quantized engine"]
     chunks = results["paged chunk check"]
     verify = results["paged verify check"]
+    tp_kernels = results["tp kernel check"]
     for entry in kernels:
         for dname, key in (("bfloat16", "max_abs_err"),
                            ("float32", "max_abs_err_f32")):
-            for errs in (chunks["max_abs_err"], verify["max_abs_err"]):
+            for errs in (chunks["max_abs_err"], verify["max_abs_err"],
+                         tp_kernels["max_abs_err"]):
                 err = errs.get(f"{entry['name']} {dname}")
                 if err is not None:
                     entry[key] = max(entry[key], err)
@@ -6426,7 +6978,9 @@ def main() -> int:
                "fleet": results["fleet"],
                "fleet sweep": results["fleet sweep"],
                "fleet disagg": results["fleet disagg"],
-               "moe engine": results["moe engine"]}
+               "moe engine": results["moe engine"],
+               # Both ranks of the tp-2 slice.
+               "tp engine": results["tp engine"]}
     # K5-K7 also run in the training phases of the model zoo: 6m, 6d, 8v.
     zoo_training = (moe_lm, dots, vit_run)
     by_phase = {name: {what: phase["launches"].get(name, 0)
@@ -6521,6 +7075,9 @@ def main() -> int:
         "lm_b4xT1024": {"plain": lm, "fused_ce": lm_fused},
         "lm_f32_grad_parity": lm_parity,
         "moe_engine": {k: v for k, v in results["moe engine"].items()
+                       if k != "launches"},
+        "tp_rank_kernels": tp_kernels["rows"],
+        "engine_tp2": {k: v for k, v in results["tp engine"].items()
                        if k != "launches"},
         "moe_lm_b4xT1024": moe_lm,
         "remat_dots": dots,

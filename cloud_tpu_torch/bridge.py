@@ -8,6 +8,8 @@ forward pass walks in a loop.
 
 - :func:`to_torch` turns the JAX pytree (numpy leaves, or anything
   ``numpy.asarray`` accepts) into the port's params on a device;
+- :func:`to_torch_shard` gives one rank's tensor-parallel shard of them
+  (``parallel/tensor_parallel.py``);
 - :func:`to_numpy` goes back, restacking the layers;
 - :func:`init` makes fresh random params with the JAX package's
   distributions from a ``torch.Generator`` (for runs that need weights of
@@ -103,6 +105,23 @@ def to_torch(params, config: TransformerConfig, *, device=None
              ) -> Dict[str, Any]:
     """JAX-layout params (layers stacked on axis 0) -> the port's params."""
     return _split_layers(params, config.num_layers, device)
+
+
+def to_torch_shard(params, config: TransformerConfig, mesh, rules=None, *,
+                   device=None) -> Dict[str, Any]:
+    """JAX-layout params -> this rank's tensor-parallel shard of the
+    port's params on ``device`` (``parallel.tensor_parallel.shard_lm``:
+    cut on the host, so only the shard reaches the device)."""
+    from cloud_tpu_torch.parallel import sharding, tensor_parallel
+
+    device = resolve_device(device)
+    shard = tensor_parallel.shard_lm(
+        to_torch(params, config, device="cpu"), config, mesh,
+        rules or sharding.DEFAULT_RULES)
+    tp = shard.pop("tp")
+    shard = map_leaves(shard, lambda t: t.to(device))
+    shard["tp"] = tp
+    return shard
 
 
 def to_numpy(params) -> Dict[str, Any]:

@@ -1255,7 +1255,10 @@ class Fleet:
         with self._stats_lock:
             self._stats["restarts"] += 1
 
-    def _new_replica(self) -> Replica:
+    def _new_replica(self, counter: Optional[str] = None) -> Replica:
+        """A replica added to the routing set; ``counter`` names the
+        stat that counts it, bumped in the same critical section, so a
+        reader who sees the replica sees it counted."""
         with self._cond:
             rid = self._next_replica_id
             self._next_replica_id += 1
@@ -1267,6 +1270,9 @@ class Fleet:
         replica = Replica(rid, self._factory, role=role)
         with self._cond:
             self._replicas.append(replica)
+            if counter is not None:
+                with self._stats_lock:
+                    self._stats[counter] += 1
             self._cond.notify_all()
         return replica
 
@@ -1281,7 +1287,7 @@ class Fleet:
                 return
         start = time.perf_counter()
         try:
-            replica = self._new_replica()
+            replica = self._new_replica(counter="scale_ups")
         except Exception:  # noqa: BLE001 — a failed scale-up is a missed
             # opportunity, not a fleet failure; the window re-fires.
             logger.exception("fleet scale-up failed")
@@ -1293,8 +1299,6 @@ class Fleet:
         )
         metrics.counter_inc("fleet/scale_up")
         metrics.gauge_set("fleet/replicas", count)
-        with self._stats_lock:
-            self._stats["scale_ups"] += 1
         logger.info("fleet: scaled up to %d replicas", count)
 
     def _scale_down(self) -> None:
@@ -1324,6 +1328,10 @@ class Fleet:
             ):
                 return
             self._replicas.remove(victim)
+            # Counted with the removal: a reader who sees the smaller
+            # set sees the scale-down.
+            with self._stats_lock:
+                self._stats["scale_downs"] += 1
         start = time.perf_counter()
 
         def drain_victim():
@@ -1343,8 +1351,6 @@ class Fleet:
         count = len(self.replicas())
         metrics.counter_inc("fleet/scale_down")
         metrics.gauge_set("fleet/replicas", count)
-        with self._stats_lock:
-            self._stats["scale_downs"] += 1
         logger.info(
             "fleet: draining replica %d out, %d remain", victim.id, count
         )

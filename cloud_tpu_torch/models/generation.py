@@ -32,6 +32,13 @@ An MoE CloudLM routes each program's tokens at that program's ``T`` (the
 bucket, the chunk, the verify window, 1 in decode), as the JAX package's
 programs do.
 
+Tensor parallelism: params cut to one rank's shard
+(``parallel/tensor_parallel.py``) carry their ``TensorParallel`` under
+``params["tp"]``, and every program then runs the rank's heads (a cache
+of ``H / tp`` heads, ``init_slot_cache(..., tp=)``), sums the row-split
+layers over ``tp`` and gathers the logits before sampling, so every rank
+samples the same tokens from the same logits.
+
 Randomness comes from an explicit ``torch.Generator``; the JAX package's
 ``jax.random`` bits are not reproduced, so sampled runs agree with it in
 distribution (the same filtered support), not draw for draw.
@@ -115,11 +122,15 @@ def sample_logits(logits, sample: SampleConfig, *, generator=None, seen=None,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _init_cache(config, b: int, s: int, device, kv_quant: bool = False):
+def _init_cache(config, b: int, s: int, device, kv_quant: bool = False,
+                tp=None):
     """Zeroed KV cache ``{"k", "v"}`` of ``[L, B, S, H, hd]``; with
     ``kv_quant`` the K/V are int8 and ``k_scale``/``v_scale`` (ones, f32)
-    ``[L, B, S, H, 1]`` ride beside them."""
-    shape = (config.num_layers, b, s, config.num_heads, config.head_dim)
+    ``[L, B, S, H, 1]`` ride beside them.  Under ``tp`` (a
+    ``TensorParallel``) ``H`` is the rank's share of the heads."""
+    heads = config.num_heads if tp is None else tp.local_heads(
+        config.num_heads)
+    shape = (config.num_layers, b, s, heads, config.head_dim)
     if not kv_quant:
         return {"k": torch.zeros(shape, dtype=config.dtype, device=device),
                 "v": torch.zeros(shape, dtype=config.dtype, device=device)}
@@ -207,12 +218,13 @@ def prepare_params(params, config):
     return out
 
 
-def _mlp(layer_params, y, config):
-    """The layer's MLP: dense SwiGLU, or the MoE MLP (its auxiliary loss
-    dropped), routed at the call's ``T`` as the JAX package routes it."""
+def _mlp(layer_params, y, config, tp=None):
+    """The layer's MLP: dense SwiGLU (hidden units split under ``tp``),
+    or the MoE MLP (its auxiliary loss dropped), routed at the call's
+    ``T`` as the JAX package routes it."""
     if config.moe is not None:
         return moe_lib.moe_mlp_apply(layer_params["mlp"], y, config.moe)[0]
-    return layers.mlp_block_apply(layer_params["mlp"], y)
+    return layers.mlp_block_apply(layer_params["mlp"], y, tp=tp)
 
 
 def _write_rows(leaf, rows, write_pos, values):
@@ -229,7 +241,7 @@ def _write_rows(leaf, rows, write_pos, values):
 
 
 def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
-                  paged=None):
+                  paged=None, tp=None):
     """One block on a single-token slice ``x [B, 1, D]``: writes this
     step's k/v (int8 and scales for a quantized cache) at ``cur_len`` (or
     ``write_pos``; out-of-range suppresses the row's write) into the cache
@@ -251,13 +263,13 @@ def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
         q, cache_l, cur_len + 1, pool_l=paged.get("pool_l"),
         block_table=paged.get("block_table"),
     )
-    x = x + layers.dense_apply(layer_params["att"]["out"],
-                               attended.reshape(b, 1, -1))
+    x = x + layers.row_parallel_dense(layer_params["att"]["out"],
+                                      attended.reshape(b, 1, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
-    return x + _mlp(layer_params, y, config)
+    return x + _mlp(layer_params, y, config, tp)
 
 
-def _prefill_layer(layer_params, x, positions, prompt_mask, config):
+def _prefill_layer(layer_params, x, positions, prompt_mask, config, tp=None):
     """One block on the prompt buffer ``[B, T, D]``: causal flash
     attention with the padding mask key-side; returns the block's k/v."""
     b, t, _ = x.shape
@@ -266,10 +278,10 @@ def _prefill_layer(layer_params, x, positions, prompt_mask, config):
                                       config)
     attended = flash_lib.flash_attention(q, k, v, causal=True,
                                          mask=prompt_mask)
-    x = x + layers.dense_apply(layer_params["att"]["out"],
-                               attended.reshape(b, t, -1))
+    x = x + layers.row_parallel_dense(layer_params["att"]["out"],
+                                      attended.reshape(b, t, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
-    return x + _mlp(layer_params, y, config), k, v
+    return x + _mlp(layer_params, y, config, tp), k, v
 
 
 def _final_logits(params, x, config):
@@ -285,13 +297,14 @@ def _prefill_forward(params, prompt_tokens, prompt_lens, config):
     device = prompt_tokens.device
     positions = torch.arange(t_prompt, device=device).expand(b, t_prompt)
     prompt_mask = (positions < prompt_lens[:, None]).to(torch.int32)
+    tp = params.get("tp")
     x = layers.embedding_apply(params["embed"], prompt_tokens,
-                               dtype=config.dtype)
+                               dtype=config.dtype, tp=tp)
     x = x * math.sqrt(config.dim)
     ks, vs = [], []
     for layer_params in params["layers"]:
         x, k, v = _prefill_layer(layer_params, x, positions, prompt_mask,
-                                 config)
+                                 config, tp)
         ks.append(k)
         vs.append(v)
     last_x = x[torch.arange(b, device=device), prompt_lens.long() - 1]
@@ -314,7 +327,8 @@ def _write_prefill(cache, k_pref, v_pref, row0: int, config):
 def _prefill(params, prompt_tokens, prompt_lens, config, s,
              kv_quant: bool = False):
     b = prompt_tokens.shape[0]
-    cache = _init_cache(config, b, s, prompt_tokens.device, kv_quant=kv_quant)
+    cache = _init_cache(config, b, s, prompt_tokens.device, kv_quant=kv_quant,
+                        tp=params.get("tp"))
     k_pref, v_pref, logits0 = _prefill_forward(params, prompt_tokens,
                                                prompt_lens, config)
     return _write_prefill(cache, k_pref, v_pref, 0, config), logits0
@@ -325,8 +339,9 @@ def _decode_step(params, cache, token, cur_len, config, write_pos=None,
     """One single-token step for every row: embed ``token [B]``, run the
     layers against the cache (k/v written in place), return the cache and
     the next-token logits ``[B, V]``."""
+    tp = params.get("tp")
     x = layers.embedding_apply(params["embed"], token[:, None],
-                               dtype=config.dtype)
+                               dtype=config.dtype, tp=tp)
     x = x * math.sqrt(config.dim)
     for layer, layer_params in enumerate(params["layers"]):
         cache_l = {name: leaf[layer] for name, leaf in cache.items()}
@@ -335,7 +350,7 @@ def _decode_step(params, cache, token, cur_len, config, write_pos=None,
             paged["pool_l"] = {name: leaf[layer]
                                for name, leaf in pool.items()}
         x = _decode_layer(layer_params, x, cache_l, cur_len, config,
-                          write_pos=write_pos, paged=paged)
+                          write_pos=write_pos, paged=paged, tp=tp)
     return cache, _final_logits(params, x, config)[:, 0]
 
 
@@ -477,12 +492,13 @@ def decode_program(params, cache, logits0, prompt_lens, config, *,
 
 
 def init_slot_cache(config, num_slots: int, max_len: int, *, device=None,
-                    kv_quant: bool = False):
+                    kv_quant: bool = False, tp=None):
     """The persistent decode grid: zeroed ``[L, num_slots, max_len, H,
     hd]`` K/V (int8 plus scales with ``kv_quant``), allocated once and
-    updated in place by every program; the programs follow its type."""
+    updated in place by every program; the programs follow its type.
+    Under ``tp`` the grid holds the rank's heads."""
     return _init_cache(config, num_slots, max_len, resolve_device(device),
-                       kv_quant=kv_quant)
+                       kv_quant=kv_quant, tp=tp)
 
 
 def init_slot_state(config, num_slots: int, *,
@@ -641,12 +657,12 @@ def decode_chunk_program(params, cache, state, config, *, chunk_size: int,
 
 
 def init_prefix_pool(config, num_blocks: int, block_tokens: int, *,
-                     device=None, kv_quant: bool = False):
+                     device=None, kv_quant: bool = False, tp=None):
     """The shared-prefix block pool: a zeroed cache of ``[L, num_blocks,
     block_tokens, H, hd]`` leaves, the slot cache's structure (int8 plus
-    scales with ``kv_quant``)."""
+    scales with ``kv_quant``; the rank's heads under ``tp``)."""
     return _init_cache(config, num_blocks, block_tokens,
-                       resolve_device(device), kv_quant=kv_quant)
+                       resolve_device(device), kv_quant=kv_quant, tp=tp)
 
 
 def copy_prefix_program(cache, pool, block_ids, slot: int):
@@ -787,8 +803,9 @@ def prefill_chunk_program(params, cache, chunk_tokens, start: int,
         table_row = (None if block_table is None
                      else block_table[slot:slot + 1])
         quantized = "k_scale" in cache
+        tp = params.get("tp")
         x = layers.embedding_apply(params["embed"], chunk_tokens,
-                                   dtype=config.dtype)
+                                   dtype=config.dtype, tp=tp)
         x = x * math.sqrt(config.dim)
         for layer, layer_params in enumerate(params["layers"]):
             y = layers.rmsnorm_apply(layer_params["ln1"], x)
@@ -803,10 +820,10 @@ def prefill_chunk_program(params, cache, chunk_tokens, start: int,
                       else {name: leaf[layer] for name, leaf in pool.items()})
             attended = paged_lib.paged_chunk_attention(
                 q, row, cur_len, pool_l=pool_l, block_table=table_row)
-            x = x + layers.dense_apply(layer_params["att"]["out"],
-                                       attended.reshape(1, c, -1))
+            x = x + layers.row_parallel_dense(layer_params["att"]["out"],
+                                              attended.reshape(1, c, -1), tp)
             y = layers.rmsnorm_apply(layer_params["ln2"], x)
-            x = x + _mlp(layer_params, y, config)
+            x = x + _mlp(layer_params, y, config, tp)
         last = min(max(int(chunk_len) - 1, 0), c - 1)
         logits = _final_logits(params, x[:, last:last + 1], config)[:, 0]
     return cache, logits
@@ -919,7 +936,9 @@ def verify_chunk_program(params, cache, state, window, config, *,
         steps = torch.arange(k, device=device)
         positions = pos[:, None] + steps[None, :]  # [slots, k]
         quantized = "k_scale" in cache
-        x = layers.embedding_apply(params["embed"], window, dtype=config.dtype)
+        tp = params.get("tp")
+        x = layers.embedding_apply(params["embed"], window, dtype=config.dtype,
+                                   tp=tp)
         x = x * math.sqrt(config.dim)
         for layer, layer_params in enumerate(params["layers"]):
             y = layers.rmsnorm_apply(layer_params["ln1"], x)
@@ -933,10 +952,11 @@ def verify_chunk_program(params, cache, state, window, config, *,
                       else {name: leaf[layer] for name, leaf in pool.items()})
             attended = paged_lib.paged_verify_attention(
                 q, cache_l, pos + 1, pool_l=pool_l, block_table=block_table)
-            x = x + layers.dense_apply(layer_params["att"]["out"],
-                                       attended.reshape(num_slots, k, -1))
+            x = x + layers.row_parallel_dense(
+                layer_params["att"]["out"],
+                attended.reshape(num_slots, k, -1), tp)
             y = layers.rmsnorm_apply(layer_params["ln2"], x)
-            x = x + _mlp(layer_params, y, config)
+            x = x + _mlp(layer_params, y, config, tp)
         logits = _final_logits(params, x, config)  # [slots, k, V]
 
         # Greedy emission per window position, with the sequential path's

@@ -8,6 +8,12 @@ dtype give the same numbers.  Weight-only int8 leaves (``kernel_q`` /
 ``table_q`` with their ``*_scale``, ``models/quantization.py``) take the
 JAX package's post-scale route: the int8 matrix feeds the product and the
 per-channel scale applies to its small output.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) the params are
+one rank's shard: :func:`row_parallel_dense` sums a row-split layer's
+partial products over ``tp``, :func:`embedding_apply` assembles a
+vocab-split lookup, and every other function runs on the shard as it
+runs on the full params.
 """
 
 from __future__ import annotations
@@ -118,11 +124,45 @@ def dense_apply(params, x, *, dtype=None):
     return y
 
 
-def embedding_apply(params, token_ids, *, dtype=torch.float32):
+def row_parallel_dense(params, x, tp=None):
+    """A dense layer whose input dim is split over ``tp`` (``att.out``,
+    ``mlp.wo``): the local product's partial sums are summed over ``tp``
+    in f32 and rounded to x's type once (one card's product accumulates
+    in f32 and rounds once too); an int8 kernel's scale and any bias
+    apply once, after the sum.  With ``tp=None`` (or a ``tp`` of one
+    rank), :func:`dense_apply`."""
+    if tp is None or tp.size == 1:
+        return dense_apply(params, x)
+    name = "kernel_q" if "kernel_q" in params else "kernel"
+    y = tp.reduce(torch.matmul(x.float(), params[name].float()))
+    if name == "kernel_q":
+        y = y * params["kernel_scale"].squeeze(-2).float()
+    y = y.to(x.dtype)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
+def embedding_apply(params, token_ids, *, dtype=torch.float32, tp=None):
     """Table lookup; rows are gathered first and cast after (the same
     numbers as casting the whole table, without touching all of it).  An
-    int8 table gathers int8 rows and scales them by their per-row scale."""
+    int8 table gathers int8 rows and scales them by their per-row scale.
+    With ``tp`` (a ``parallel.tensor_parallel.TensorParallel``) splitting
+    the vocabulary, the table is this rank's rows: ids outside them look
+    up zeros, and one sum over ``tp`` assembles every row (adding zeros
+    is exact)."""
     ids = token_ids.long()
+    if tp is None or not tp.vocab_split:
+        return _lookup(params, ids, dtype)
+    local = ids - tp.vocab_start
+    inside = (local >= 0) & (local < tp.vocab_sizes[tp.index])
+    rows = _lookup(params, torch.where(inside, local, 0), dtype)
+    # Summed in f32 (exact: one rank contributes each row).
+    rows = torch.where(inside[..., None], rows, 0).float()
+    return tp.reduce(rows).to(dtype)
+
+
+def _lookup(params, ids, dtype):
     if "table_q" in params:
         rows = params["table_q"][ids].to(dtype)
         return rows * params["table_scale"][ids].to(dtype)
@@ -180,7 +220,8 @@ def rotary_embedding(x, positions, *, base: float = 10000.0):
     return out.to(x.dtype)
 
 
-def mlp_block_apply(params, x):
-    """Gated (SwiGLU) MLP."""
+def mlp_block_apply(params, x, *, tp=None):
+    """Gated (SwiGLU) MLP; under ``tp`` the hidden units are split
+    (``wi``/``wg`` column-split, ``wo`` row-split)."""
     h = F.silu(dense_apply(params["wi"], x)) * dense_apply(params["wg"], x)
-    return dense_apply(params["wo"], h)
+    return row_parallel_dense(params["wo"], h, tp)

@@ -10,8 +10,12 @@ through the flash backward kernels.  :func:`loss_fn` is the next-token
 cross-entropy of training, with the plain and the fused (chunked-vocab)
 branch.
 
-The port serves one card: the JAX package's mesh layouts (tp/sp/pp,
-zig-zag and Ulysses sequence parallelism) have no counterpart here:
+Tensor parallelism: params cut to one rank's shard
+(``parallel/tensor_parallel.py``, :func:`param_logical_axes`) carry their
+``TensorParallel`` under ``params["tp"]``; the forward pass then runs a
+rank's heads and hidden units and calls the collectives where the JAX
+package's GSPMD inserts them.  The other mesh layouts (sp/pp, zig-zag and
+Ulysses sequence parallelism) have no counterpart yet:
 ``num_microbatches``, ``zigzag_sp`` and ``ulysses_sp`` are carried (so a
 config and its bundle's ``config.json`` read alike in both packages) and
 act only under a mesh, as in the JAX package.  With ``moe`` set, each
@@ -83,12 +87,14 @@ SMALL = TransformerConfig(
 
 def qkv_project(att_params, x, positions, config: TransformerConfig):
     """RoPE'd q/k and v projections ``[B, T, H, hd]``, shared by the
-    forward pass and generation's prefill/decode."""
+    forward pass and generation's prefill/decode.  ``H`` is the heads the
+    projection holds: ``config.num_heads``, or a tensor-parallel rank's
+    share of them."""
     b, t, _ = x.shape
-    h, hd = config.num_heads, config.head_dim
+    hd = config.head_dim
 
     def proj(p):
-        return layers.dense_apply(p, x).reshape(b, t, h, hd)
+        return layers.dense_apply(p, x).reshape(b, t, -1, hd)
 
     q = layers.rotary_embedding(proj(att_params["q"]), positions,
                                 base=config.rope_base)
@@ -98,22 +104,23 @@ def qkv_project(att_params, x, positions, config: TransformerConfig):
     return q, k, v
 
 
-def _layer_compute(layer_params, x, aux, *, config, positions):
+def _layer_compute(layer_params, x, aux, *, config, positions, tp=None):
     """One block on ``(x [B, T, D], aux)``; an MoE MLP adds its
-    auxiliary loss to ``aux``."""
+    auxiliary loss to ``aux``.  ``tp``: the params are a tensor-parallel
+    shard."""
     b, t, _ = x.shape
     y = layers.rmsnorm_apply(layer_params["ln1"], x)
     q, k, v = qkv_project(layer_params["att"], y, positions, config)
     attended = flash_lib.flash_attention(q, k, v, causal=True)
-    x = x + layers.dense_apply(layer_params["att"]["out"],
-                               attended.reshape(b, t, -1))
+    x = x + layers.row_parallel_dense(layer_params["att"]["out"],
+                                      attended.reshape(b, t, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
     if config.moe is not None:
         mlp_out, layer_aux = moe_mlp_apply(layer_params["mlp"], y,
                                            config.moe)
         aux = aux + layer_aux
     else:
-        mlp_out = layers.mlp_block_apply(layer_params["mlp"], y)
+        mlp_out = layers.mlp_block_apply(layer_params["mlp"], y, tp=tp)
     return x + mlp_out, aux
 
 
@@ -124,7 +131,9 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
     device = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=device)
     b, t = tokens.shape
-    x = layers.embedding_apply(params["embed"], tokens, dtype=config.dtype)
+    tp = params.get("tp")
+    x = layers.embedding_apply(params["embed"], tokens, dtype=config.dtype,
+                               tp=tp)
     x = x * math.sqrt(config.dim)  # stays in config.dtype, as in JAX
     positions = torch.arange(t, device=device).expand(b, t)
     body = layers.remat_wrap(_layer_compute, config.remat,
@@ -132,7 +141,7 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
     aux = torch.zeros((), dtype=torch.float32, device=device)
     for layer_params in params["layers"]:
         x, aux = body(layer_params, x, aux, config=config,
-                      positions=positions)
+                      positions=positions, tp=tp)
     return layers.rmsnorm_apply(params["ln_f"], x), aux
 
 
@@ -167,7 +176,18 @@ def head_table(params, config: TransformerConfig):
 
 def lm_logits(params, x, config: TransformerConfig):
     """Final vocabulary projection in f32.  An int8 head or tied table
-    takes the post-scale route, ``(x @ q) * scale``, in f32."""
+    takes the post-scale route, ``(x @ q) * scale``, in f32.  A
+    tensor-parallel shard (``params["tp"]``) with a split vocabulary
+    computes its own columns and gathers every rank's, in order: the one
+    reshard of a forward pass, at the sampling boundary."""
+    tp = params.get("tp")
+    logits = _local_logits(params, x, config)
+    if tp is not None and tp.vocab_split:
+        return tp.gather_vocab(logits)
+    return logits
+
+
+def _local_logits(params, x, config: TransformerConfig):
     x = x.float()
     if config.tied_embeddings and "table_q" in params["embed"]:
         embed = params["embed"]
@@ -187,6 +207,29 @@ def lm_logits(params, x, config: TransformerConfig):
     if layout == "vd":
         return torch.matmul(x, table.t())
     return torch.matmul(x, table)
+
+
+def param_logical_axes(config: TransformerConfig):
+    """The logical axes of every leaf of :func:`cloud_tpu_torch.bridge.
+    init`'s params, in the port's layout (a list of per-layer dicts; the
+    JAX package's stacked ``layers`` axis is not there): the table
+    ``cloud_tpu/models/transformer.py`` ``param_logical_axes`` keeps.
+    The dense MLP only (an MoE layer has no tensor-parallel split)."""
+    att = {name: {"kernel": ("embed", "heads")} for name in ("q", "k", "v")}
+    att["out"] = {"kernel": ("heads", "embed")}
+    mlp = {"wi": {"kernel": ("embed", "mlp")},
+           "wg": {"kernel": ("embed", "mlp")},
+           "wo": {"kernel": ("mlp", "embed")}}
+    layer = {"att": att, "ln1": {"scale": (None,)}, "mlp": mlp,
+             "ln2": {"scale": (None,)}}
+    axes = {
+        "embed": {"table": ("vocab", "embed")},
+        "layers": [layer] * config.num_layers,
+        "ln_f": {"scale": (None,)},
+    }
+    if not config.tied_embeddings:
+        axes["head"] = {"kernel": ("embed", "vocab")}
+    return axes
 
 
 def loss_fn(params, batch: Dict[str, Any], config: TransformerConfig, *,

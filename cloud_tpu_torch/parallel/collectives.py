@@ -1,0 +1,218 @@
+"""Named-axis collectives (port of the group-based half of
+``cloud_tpu/parallel/collectives.py``).
+
+The JAX package's wrappers run inside ``shard_map`` over ``lax``
+collectives.  Here every rank is a process: each function takes a mesh
+axis name and runs the ``torch.distributed`` collective on this rank's
+group for that axis (``Mesh.group``), on the global mesh unless
+``mesh=`` is given.  An axis of size 1 needs no communication: the value
+comes back as it is (a copy where the JAX function returns a new array).
+A tuple of axes reduces over each in turn.
+
+The route of each collective depends only on the mesh's backend and the
+tensor's device, never on a failure.  gloo takes CUDA tensors in
+``all_reduce``, ``broadcast``, ``all_gather``, ``reduce_scatter`` and
+``barrier`` (checked on an H100 host with torch 2.11, two ranks sharing
+the card); its point-to-point sends of CUDA tensors are not relied on, so
+on gloo with CUDA tensors ``ring_permute`` is an ``all_reduce`` of a
+zero-padded buffer (each rank's block at its own offset; adding zeros is
+exact).
+
+Every collective with a payload runs under a ``collective/<name>`` span
+carrying its payload bytes and axis (``monitoring/tracing.py``); the
+walk is skipped when tracing is off.  ``hierarchical_all_reduce_sum``,
+``grad_sync`` and ``all_to_all_seq_heads`` come with training under a
+mesh (ROADMAP.md, section A).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+from cloud_tpu_torch.monitoring import tracing
+from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+AxisNames = Union[str, Sequence[str]]
+
+
+def _payload_bytes(x) -> int:
+    """Stored bytes of a tensor or a nested dict/list of them."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(_payload_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_payload_bytes(v) for v in x)
+    return 0
+
+
+def _span(name: str, x, axis):
+    """Collective span carrying payload size and axis."""
+    if not tracing.enabled():
+        return tracing.span(name)
+    return tracing.span(name, payload_bytes=_payload_bytes(x), axis=str(axis))
+
+
+def _mesh(mesh):
+    mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+    if mesh is None:
+        raise ValueError(
+            "no mesh: pass mesh= or install one (parallel.use_mesh)")
+    return mesh
+
+
+def _axes(axis: AxisNames):
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _zero_padded_route(mesh, x: torch.Tensor) -> bool:
+    """True where ``ring_permute`` goes through an all-reduce: gloo and a
+    CUDA tensor."""
+    return mesh.backend == "gloo" and x.device.type == "cuda"
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM):
+    group = mesh.group(axis)
+    out = x.clone()
+    if group is not None:
+        dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, axis: AxisNames, *, mesh=None):
+    mesh = _mesh(mesh)
+    with _span("collective/all_reduce_sum", x, axis):
+        for name in _axes(axis):
+            x = _all_reduce(x, mesh, name)
+        return x
+
+
+def all_reduce_mean(x: torch.Tensor, axis: AxisNames, *, mesh=None):
+    mesh = _mesh(mesh)
+    with _span("collective/all_reduce_mean", x, axis):
+        n = 1
+        for name in _axes(axis):
+            x = _all_reduce(x, mesh, name)
+            n *= mesh.axis_size(name)
+        return x / n
+
+
+def all_gather(x: torch.Tensor, axis: str, *, gather_dim: int = 0,
+               tiled: bool = True, sizes: Sequence[int] = None, mesh=None):
+    """Every member's ``x`` along ``gather_dim``, in axis order
+    (``tiled=False``: stacked along a new ``gather_dim``).
+    ``sizes`` gives each member's extent along ``gather_dim`` when the
+    blocks are uneven (a vocabulary ``tp`` does not divide); by default
+    every member holds ``x.shape[gather_dim]``."""
+    mesh = _mesh(mesh)
+    with _span("collective/all_gather", x, axis):
+        if not tiled:
+            x = x.unsqueeze(gather_dim)
+        n = mesh.axis_size(axis)
+        group = mesh.group(axis)
+        if group is None:
+            return x.clone()
+        dim = gather_dim % x.dim()
+        sizes = list(sizes) if sizes is not None else [x.shape[dim]] * n
+        width = max(sizes)
+        if x.shape[dim] < width:  # equal blocks on the wire, cut after
+            pad = list(x.shape)
+            pad[dim] = width - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
+                         dim=dim)
+
+
+def reduce_scatter_sum(x: torch.Tensor, axis: str, *, scatter_dim: int = 0,
+                       mesh=None):
+    """The sum over ``axis``, cut into equal blocks along
+    ``scatter_dim``; this member keeps its own block."""
+    mesh = _mesh(mesh)
+    with _span("collective/reduce_scatter_sum", x, axis):
+        n = mesh.axis_size(axis)
+        if x.shape[scatter_dim] % n:
+            raise ValueError(
+                f"reduce_scatter dim {scatter_dim} (size "
+                f"{x.shape[scatter_dim]}) must divide by axis {axis!r} "
+                f"size {n}")
+        group = mesh.group(axis)
+        if group is None:
+            return x.clone()
+        block = x.shape[scatter_dim] // n
+        parts = [p.contiguous() for p in torch.split(x, block, scatter_dim)]
+        out = torch.empty_like(parts[mesh.axis_index(axis)])
+        dist.reduce_scatter(out, parts, group=group)
+        return out
+
+
+def ring_permute(x: torch.Tensor, axis: str, *, shift: int = 1, mesh=None):
+    """Send this member's ``x`` to the member ``shift`` places on along
+    ``axis`` (cyclically); returns what arrived from ``shift`` places
+    back."""
+    mesh = _mesh(mesh)
+    with _span("collective/ring_permute", x, axis):
+        n = mesh.axis_size(axis)
+        group = mesh.group(axis)
+        if group is None or shift % n == 0:
+            return x.clone()
+        index = mesh.axis_index(axis)
+        src = (index - shift) % n
+        if _zero_padded_route(mesh, x):
+            buf = x.new_zeros((n,) + tuple(x.shape))
+            buf[index] = x
+            dist.all_reduce(buf, group=group)
+            return buf[src].clone()
+        ranks = mesh.group_ranks[axis]
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x.contiguous(),
+                          ranks[(index + shift) % n], group=group),
+               dist.P2POp(dist.irecv, out, ranks[src], group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+
+def axis_index(axis: str, *, mesh=None) -> int:
+    return _mesh(mesh).axis_index(axis)
+
+
+def axis_size(axis: str, *, mesh=None) -> int:
+    return _mesh(mesh).axis_size(axis)
+
+
+def barrier(axis: AxisNames, *, mesh=None):
+    """Synchronization point over ``axis`` (a psum of a zero, as in the
+    JAX package)."""
+    mesh = _mesh(mesh)
+    zero = torch.zeros((), dtype=torch.int32, device=mesh.device)
+    for name in _axes(axis):
+        zero = _all_reduce(zero, mesh, name)
+    return zero
+
+
+def broadcast_from(x: torch.Tensor, axis: str, *, root: int = 0, mesh=None):
+    """Every member of ``axis`` gets member ``root``'s value."""
+    mesh = _mesh(mesh)
+    with _span("collective/broadcast_from", x, axis):
+        out = x.clone()
+        group = mesh.group(axis)
+        if group is not None:
+            dist.broadcast(out, src=mesh.group_ranks[axis][root],
+                           group=group)
+        return out
+
+
+def host_local_mean(tree):
+    """The mean of every tensor leaf of a nested dict/list (this rank's
+    values; the JAX package's is jit-level over the global arrays)."""
+    if isinstance(tree, dict):
+        return {k: host_local_mean(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_local_mean(v) for v in tree)
+    x = torch.as_tensor(tree)
+    return x.mean() if x.is_floating_point() else x.float().mean()

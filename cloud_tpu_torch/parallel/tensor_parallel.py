@@ -1,0 +1,144 @@
+"""Tensor parallelism for CloudLM: one rank's shard of the params and the
+collectives its layers call.
+
+The JAX package shards CloudLM's params by the rules table and lets GSPMD
+insert the collectives; here each rank holds its shard (:func:`shard_lm`)
+and the layers call the collectives where GSPMD puts them:
+
+- ``q``/``k``/``v`` and the MLP's ``wi``/``wg`` are column-split (heads
+  and hidden units over ``tp``): each rank projects its own, no
+  communication;
+- ``att.out`` and ``mlp.wo`` are row-split: a local product, then one
+  sum over ``tp`` (:meth:`TensorParallel.reduce`), the bias added once
+  after it (``layers.row_parallel_dense``);
+- the embedding table is vocab-split: a masked local lookup, then the
+  same sum (rows outside the shard add zeros, which is exact);
+- the head (or the tied table) is vocab-split: local logits, then one
+  gather along the vocabulary (:meth:`TensorParallel.gather_vocab`), the
+  sampling boundary.
+
+Weight-only int8 leaves split as their float kernels do; a row-split
+kernel's per-output-column scale stays whole on every rank.  The shard
+carries its :class:`TensorParallel` under the params' ``"tp"`` key, which
+every program reads; a params tree without the key runs the one-card
+code unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from cloud_tpu_torch.parallel import collectives
+from cloud_tpu_torch.parallel import mesh as mesh_lib
+from cloud_tpu_torch.parallel import sharding
+
+#: The logical axes CloudLM's params carry, and what the layers need of
+#: each under a mesh: split over ``tp`` or not split at all.
+_MUST_SPLIT = ("heads", "mlp")
+_MAY_SPLIT = ("vocab",)
+_MUST_NOT_SPLIT = ("embed",)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorParallel:
+    """What a rank's layers need of the mesh: its ``tp`` group and, when
+    the vocabulary is split, every member's vocabulary extent in axis
+    order (uneven when ``tp`` does not divide it)."""
+
+    mesh: object
+    vocab_sizes: Optional[Tuple[int, ...]] = None
+
+    axis = mesh_lib.AXIS_TP
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index(self.axis)
+
+    @property
+    def vocab_split(self) -> bool:
+        return self.vocab_sizes is not None
+
+    @property
+    def vocab_start(self) -> int:
+        return sum(self.vocab_sizes[:self.index])
+
+    def local_heads(self, num_heads: int) -> int:
+        return num_heads // self.size
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every member's ``x`` (a row-split product's partial
+        sums, a masked lookup)."""
+        return collectives.all_reduce_sum(x, self.axis, mesh=self.mesh)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Vocab-split logits ``[..., V_local]`` -> replicated ``[..., V]``."""
+        return collectives.all_gather(logits, self.axis,
+                                      gather_dim=logits.dim() - 1,
+                                      sizes=self.vocab_sizes, mesh=self.mesh)
+
+    def __repr__(self):
+        return (f"TensorParallel(tp={self.size}, index={self.index}, "
+                f"vocab_sizes={self.vocab_sizes})")
+
+
+def check_rules(mesh, rules: sharding.ShardingRules) -> bool:
+    """Whether ``rules`` splits the vocabulary over ``tp``; raises
+    ``ValueError`` for a table the tensor-parallel layers cannot run:
+    heads and mlp must be split over ``tp`` (the KV cache shards by head),
+    embed must not be, and no axis may use another nontrivial mesh axis."""
+    def split_axes(logical):
+        return tuple(a for a in sharding.mesh_axes(rules.assignment(logical))
+                     if mesh.axis_size(a) > 1)
+
+    for logical in _MUST_SPLIT + _MAY_SPLIT + _MUST_NOT_SPLIT:
+        axes = split_axes(logical)
+        if any(a != mesh_lib.AXIS_TP for a in axes) or (
+                logical in _MUST_NOT_SPLIT and axes) or (
+                logical in _MUST_SPLIT and not axes
+                and mesh.axis_size(mesh_lib.AXIS_TP) > 1):
+            raise ValueError(
+                f"rules map {logical!r} to {rules.assignment(logical)!r} on "
+                f"a mesh of shape {mesh.shape}: the tensor-parallel layers "
+                "split heads and mlp over tp, vocab over tp or not at all, "
+                "and embed not at all")
+    return bool(split_axes("vocab"))
+
+
+def context(mesh, config, rules=sharding.DEFAULT_RULES) -> TensorParallel:
+    """The :class:`TensorParallel` of CloudLM ``config`` on ``mesh``:
+    ``tp`` must divide the head count (the KV cache shards by head); the
+    vocabulary and the MLP may split unevenly."""
+    tp = mesh.axis_size(mesh_lib.AXIS_TP)
+    if config.num_heads % tp:
+        raise ValueError(
+            f"mesh tp={tp} does not divide num_heads={config.num_heads}: "
+            "the KV cache shards by attention head")
+    if config.moe is not None:
+        raise ValueError("an MoE CloudLM has no tensor-parallel layers here")
+    sizes = None
+    if check_rules(mesh, rules):
+        sizes = tuple(
+            stop - start for start, stop in
+            (sharding.shard_bounds(config.vocab_size, tp, i)
+             for i in range(tp)))
+    return TensorParallel(mesh=mesh, vocab_sizes=sizes)
+
+
+def shard_lm(params, config, mesh, rules=sharding.DEFAULT_RULES):
+    """This rank's shard of full CloudLM params (the port's layout), with
+    its :func:`context` under ``"tp"``."""
+    from cloud_tpu_torch.models import transformer
+
+    ctx = context(mesh, config, rules)
+    shard = sharding.shard_tree(
+        {k: v for k, v in params.items() if k != "tp"},
+        transformer.param_logical_axes(config), mesh, rules)
+    shard["tp"] = ctx
+    return shard

@@ -95,9 +95,25 @@ first token), once per decode chunk, speculative round or batch (its
 emissions) and once per demotion burst, never per token.  Greedy outputs
 are token-identical to a direct ``generation.generate`` call per request.
 
+Tensor-parallel serving (``ServeConfig(mesh_shape=(tp, 1))``,
+``layout="auto"``, or ``mesh=`` a ``parallel.mesh.Mesh`` with a ``tp``
+axis; ``serving/slice.py``): one process per rank, rank 0 the caller's
+engine.  Each rank holds its shard of the params
+(``parallel/tensor_parallel.py``: heads, MLP hidden units and the
+vocabulary over ``tp``) and a grid and pool of its own heads; before each
+device dispatch rank 0 broadcasts the program and its host arguments, and
+the followers (spawned by rank 0, or the caller's other ranks running
+:meth:`ServingEngine.follow`) run the same program on their shards.  The
+one reshard a forward pass makes is the logits' gather before sampling;
+rank 0's host pull of the sampled tokens is spanned as ``serve/reshard``.
+Greedy outputs stay token-identical to ``generation.generate``.
+
 The engine takes every field, keyword and method of the JAX engine; each
-value whose feature the port does not have yet (multi-card serving)
-raises ``NotImplementedError`` naming the ROADMAP.md item that brings it.
+value whose feature the port does not have yet raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it: under
+a serving mesh of more than one rank, ``sp > 1``, ``draft=``, an MoE
+model, the prefix cache's host tier, the KV handoff and
+``pipeline_depth=2``.
 """
 
 from __future__ import annotations
@@ -116,10 +132,14 @@ import torch
 
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch._device import resolve_device
-from cloud_tpu_torch.models import generation
+from cloud_tpu_torch.models import generation, quantization
 from cloud_tpu_torch.monitoring import metrics, tracing
 from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.parallel import distributed as dist_lib
+from cloud_tpu_torch.parallel import mesh as mesh_lib
+from cloud_tpu_torch.parallel import planner, sharding, tensor_parallel
 from cloud_tpu_torch.serving import qos as qos_lib
+from cloud_tpu_torch.serving import slice as slice_lib
 from cloud_tpu_torch.serving.prefix_cache import (
     SKIP_BLOCK,
     PrefixCacheManager,
@@ -139,9 +159,9 @@ SERVE_WARMUP_THREAD_NAME = SERVE_SCHEDULER_THREAD_NAME + "-warmup"
 SERVE_DISPATCH_THREAD_NAME = "cloud-tpu-torch-serve-dispatch"
 #: The kernel libraries the serving path launches (K5, K8/K8q).
 SERVING_LIBRARIES = ("flash_fwd", "paged_attention")
-#: The serving slice of one engine: one card (``health()``'s
-#: ``slice_shape``/``slice_chips``, what the JAX engine reports without a
-#: mesh).
+#: The serving slice of an engine without a serving mesh: one card
+#: (``health()``'s ``slice_shape``/``slice_chips``, what the JAX engine
+#: reports without a mesh).
 SLICE_SHAPE, SLICE_CHIPS = (1, 1), 1
 #: The KV handoff counters of ``stats()`` and ``health()``.
 HANDOFF_KEYS = ("handoff_exports", "handoff_export_blocks",
@@ -419,21 +439,20 @@ class ServeConfig:
             raise ValueError(
                 f"layout must be 'explicit' or 'auto', got {self.layout!r}"
             )
+        if self.mesh_shape is not None:
+            shape = tuple(int(v) for v in self.mesh_shape)
+            if len(shape) != 2 or any(v < 1 for v in shape):
+                raise ValueError(
+                    f"mesh_shape must be a (tp, sp) pair of positive "
+                    f"ints, got {self.mesh_shape!r}"
+                )
+            object.__setattr__(self, "mesh_shape", shape)
         if (self.hbm_bytes_per_chip is not None
                 and self.hbm_bytes_per_chip < 1):
             raise ValueError(
                 f"hbm_bytes_per_chip must be >= 1 or None, got "
                 f"{self.hbm_bytes_per_chip}"
             )
-        self._refuse_later_features()
-
-    def _refuse_later_features(self):
-        if self.layout == "auto" or (
-                self.mesh_shape is not None
-                and tuple(self.mesh_shape) != (1, 1)):
-            raise _later("mesh_shape/layout='auto' (multi-card serving)", "6")
-        if self.hbm_bytes_per_chip is not None:
-            raise _later("hbm_bytes_per_chip (multi-card serving)", "6")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -613,23 +632,50 @@ class ServingEngine:
     """In-process serving over ``generation``: the continuous scheduler,
     or the batch scheduler with ``scheduler="batch"``.  Construct,
     ``submit()`` from any thread, ``close()`` when done (or use as a
-    context manager).  Runs on ``device`` (default ``cuda``).  ``rules``
-    and ``mesh`` (sharded serving) take ``None`` only."""
+    context manager).  Runs on ``device`` (default ``cuda``).
+
+    Under a serving mesh (``ServeConfig.mesh_shape``/``layout="auto"``, or
+    ``mesh=`` a ``parallel.mesh.Mesh`` whose nontrivial axes are ``tp``)
+    the engine is one rank of a tensor-parallel slice (``serving/
+    slice.py``) on the mesh's device.  ``params`` are the full params
+    (each rank cuts its shard by ``rules``, default
+    ``parallel.sharding.DEFAULT_RULES``) or a shard that carries its
+    ``"tp"`` context (``bridge.to_torch_shard``).  Rank 0 serves; on every
+    other rank of a caller's mesh, construct the engine the same way and
+    call :meth:`follow`."""
 
     def __init__(self, params, config, serve_config: Optional[ServeConfig] = None,
                  *, rules=None, mesh=None, device=None, start: bool = True):
-        if rules is not None or mesh is not None:
-            raise _later("rules=/mesh= (sharded serving)", "6")
-        self.device = resolve_device(device)
         _check_quantized_leaves(params)
         self.config = config
         self.serve_config = cfg = serve_config or ServeConfig()
-        self.params = generation.prepare_params(
-            bridge.map_leaves(params, lambda t: t.to(self.device)), config)
+        self.rules = rules if rules is not None else sharding.DEFAULT_RULES
+        self.mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+        #: The tensor-parallel context of the programs (None: one card).
+        self._tp = None
+        #: The slice's plan channel (a slice of more than one rank).
+        self._link: Optional[slice_lib.ControlLink] = None
+        #: Followers this engine spawned (``mesh_shape``/``layout``).
+        self._spawned: Optional[slice_lib.SpawnedSlice] = None
+        #: A rank of a slice other than 0: it runs ``follow()``.
+        self._follower = False
+        self._slice_shape, self._slice_chips = self._resolve_serving_mesh(
+            params, device)
+        if self._slice_chips > 1:
+            self._refuse_unported_under_mesh()
+        self.params = generation.prepare_params(self._place_params(params),
+                                                config)
+        if self._slice_chips > 1:
+            self._link = slice_lib.ControlLink(self.mesh,
+                                               leader=not self._follower)
         self._params_signature = _signature(self.params)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(cfg.seed)
-        metrics.gauge_set("serve/slice_chips", 1)
+        metrics.gauge_set("serve/slice_chips", self._slice_chips)
+        #: Logits of the last prefill chunk (what its finalize samples).
+        self._chunk_logits = None
+        #: The batch scheduler's prefilled batch, awaiting its decode.
+        self._batch_prefilled = None
 
         self._cond = threading.Condition()
         #: bucket_len -> FIFO of waiting requests (guarded by _cond).
@@ -734,7 +780,7 @@ class ServingEngine:
             # engine donates it through each dispatch to the same effect).
             self._grid_cache = generation.init_slot_cache(
                 config, cfg.num_slots, self._max_len, device=self.device,
-                kv_quant=cfg.kv_quant)
+                kv_quant=cfg.kv_quant, tp=self._tp)
             self._slot_state = generation.init_slot_state(
                 config, cfg.num_slots, sample=cfg.sample, device=self.device)
             #: Page p of slot b reads pool block ``table[b, p]`` (>= 0) or
@@ -755,17 +801,250 @@ class ServingEngine:
                     summary_ttl_s=cfg.prefix_summary_ttl_s)
                 self._prefix_pool = generation.init_prefix_pool(
                     config, cfg.prefix_cache_blocks, cfg.prefix_block_tokens,
-                    device=self.device, kv_quant=cfg.kv_quant)
+                    device=self.device, kv_quant=cfg.kv_quant, tp=self._tp)
             if self._spec:
                 self._init_draft()
         self._warmup_thread: Optional[threading.Thread] = None
-        if cfg.warmup:
+        #: A slice's warmup runs on its scheduler thread, first, in
+        #: lockstep with the followers; set when it has run.
+        self._warmup_done = threading.Event()
+        self._slice_warmup = cfg.warmup and self._link is not None
+        if cfg.warmup and self._link is None:
             self._warmup_thread = threading.Thread(
                 target=self._warmup, daemon=True,
                 name=SERVE_WARMUP_THREAD_NAME)
             self._warmup_thread.start()
         if start:
             self.start()
+
+    # -- the serving slice -------------------------------------------------
+
+    def _resolve_serving_mesh(self, params, device
+                              ) -> Tuple[Tuple[int, int], int]:
+        """The replica's slice ``((tp, sp), chips)`` and its device, as the
+        JAX engine resolves it: without ``mesh_shape``/``layout="auto"`` a
+        caller's mesh is honoured (its ``tp x sp`` extent; a mesh with
+        other axes is no serving slice), and no mesh is the one-card
+        engine; with them, the slice spans the first ``tp * sp`` visible
+        devices (``parallel.mesh.visible_devices``: the cards, or one
+        rank per core on the CPU), the layout planned by
+        ``parallel.planner.plan_serve_layout`` for ``layout="auto"``."""
+        cfg = self.serve_config
+        wants = cfg.layout == "auto" or (
+            cfg.mesh_shape is not None and cfg.mesh_shape != (1, 1))
+        self._spawn_devices = None
+        #: The programs run on a tensor-parallel shard.
+        self._sharded = False
+        if not wants:
+            if self.mesh is None:
+                self.device = resolve_device(device)
+                return SLICE_SHAPE, SLICE_CHIPS
+            if not isinstance(self.mesh, mesh_lib.Mesh):
+                raise TypeError(
+                    f"mesh= takes a cloud_tpu_torch.parallel.mesh.Mesh "
+                    f"(MeshSpec.build), got {type(self.mesh).__name__}")
+            axes = set(self.mesh.spec.nontrivial_axes())
+            serving = {mesh_lib.AXIS_TP, mesh_lib.AXIS_SP}
+            if axes - serving:
+                if axes & serving:
+                    raise ValueError(
+                        f"a serving mesh spans tp (and sp) only; got axes "
+                        f"{sorted(axes)}")
+                # A training mesh reaching the engine is no slice.
+                self.device = resolve_device(device)
+                return SLICE_SHAPE, SLICE_CHIPS
+            if device is not None and resolve_device(device) != (
+                    self.mesh.device):
+                raise ValueError(
+                    f"device={device} disagrees with the mesh's device "
+                    f"{self.mesh.device} for rank {self.mesh.rank}")
+            self.device = resolve_device(self.mesh.device)
+            tp = self.mesh.axis_size(mesh_lib.AXIS_TP)
+            sp = self.mesh.axis_size(mesh_lib.AXIS_SP)
+            self._follower = self.mesh.axis_index(mesh_lib.AXIS_TP) != 0
+            self._sharded = True
+            return (tp, sp), tp * sp
+        if self.mesh is not None:
+            raise ValueError(
+                "pass either an explicit mesh= or "
+                "ServeConfig.mesh_shape/layout='auto', not both — the "
+                "engine builds its own serving mesh from the config"
+            )
+        self.device = resolve_device(device)
+        devices = mesh_lib.visible_devices(self.device.type)
+        bound = len(devices)
+        if cfg.mesh_shape is not None:
+            want = cfg.mesh_shape[0] * cfg.mesh_shape[1]
+            if want > bound:
+                raise ValueError(
+                    f"mesh_shape={cfg.mesh_shape} needs {want} "
+                    f"device(s); only {bound} visible"
+                )
+        num_heads = int(self.config.num_heads)
+        if cfg.layout == "auto":
+            draft_bytes = 0
+            if cfg.draft is not None:
+                draft_bytes = quantization.param_bytes(cfg.draft.params) + (
+                    self._kv_bytes_estimate(cfg.draft.config,
+                                            include_prefix=False))
+            plan = planner.plan_serve_layout(
+                num_heads=num_heads,
+                num_devices=(
+                    cfg.mesh_shape[0] * cfg.mesh_shape[1]
+                    if cfg.mesh_shape is not None else bound
+                ),
+                param_bytes=quantization.param_bytes(params),
+                kv_bytes=self._kv_bytes_estimate(),
+                draft_bytes=draft_bytes,
+                hbm_bytes_per_chip=cfg.hbm_bytes_per_chip,
+            )
+            tp, sp = plan.tp, plan.sp
+            logger.info("serving layout auto-picked: %s", plan.description)
+        else:
+            tp, sp = cfg.mesh_shape
+            if num_heads % tp:
+                raise ValueError(
+                    f"mesh_shape tp={tp} does not divide "
+                    f"num_heads={num_heads}: the slot KV cache shards "
+                    "by attention head, so the tensor-parallel degree "
+                    "must divide the model's head count"
+                )
+        chips = tp * sp
+        if chips <= 1:
+            return SLICE_SHAPE, SLICE_CHIPS
+        if self.device.type == "cuda":
+            devices = [torch.device("cuda", i) for i in range(chips)]
+            self.device = devices[0]
+        self._spawn_devices = devices[:chips]
+        self._sharded = True
+        return (tp, sp), chips
+
+    def _kv_bytes_estimate(self, model_config=None,
+                           include_prefix: bool = True) -> int:
+        """Total KV bytes the engine will allocate (slot grid + prefix
+        pool for the continuous scheduler, the largest batch cell
+        otherwise): the planner's auto-layout input, an estimate, not an
+        allocator.  ``model_config`` sizes another model's cache over the
+        same grid (the speculative draft, no prefix pool)."""
+        cfg = self.serve_config
+        c = model_config if model_config is not None else self.config
+        itemsize = 1 if cfg.kv_quant else torch.empty(
+            (), dtype=c.dtype).element_size()
+        per_pos = 2 * c.num_layers * c.num_heads * (
+            c.head_dim * itemsize + (4 if cfg.kv_quant else 0))
+        max_len = cfg.prompt_buckets[-1] + cfg.max_new_tokens
+        if cfg.scheduler == "continuous":
+            positions = cfg.num_slots * max_len
+            if include_prefix:
+                positions += cfg.prefix_cache_blocks * cfg.prefix_block_tokens
+        else:
+            positions = cfg.batch_buckets[-1] * max_len
+        return per_pos * positions
+
+    def _refuse_unported_under_mesh(self) -> None:
+        """What a slice of more than one rank does not run yet, each
+        naming its ROADMAP.md item."""
+        cfg = self.serve_config
+        if self._slice_shape[1] > 1:
+            raise _later("a serving mesh with sp > 1 (sequence-parallel "
+                         "serving, which needs the ring attention of A.2)",
+                         "6")
+        if cfg.draft is not None:
+            raise _later("draft= (speculative decoding) under a serving "
+                         "mesh", "6")
+        if self.config.moe is not None:
+            raise _later("an MoE model under a serving mesh", "6")
+        if cfg.prefix_dram_blocks:
+            raise _later("prefix_dram_blocks (the prefix cache's host "
+                         "tier) under a serving mesh", "6")
+        if cfg.role != "both":
+            raise _later("role= (the KV handoff) under a serving mesh", "6")
+        if cfg.pipeline_depth > 1:
+            raise _later("pipeline_depth=2 under a serving mesh", "6")
+
+    def _place_params(self, params):
+        """The params this rank serves, on its device: the caller's, or
+        under a serving mesh this rank's shard with its ``"tp"`` context
+        (cut here from full params, or given as a shard).  A
+        ``mesh_shape``/``layout`` slice cuts every rank's shard on the
+        host and spawns the followers with theirs."""
+        def to_device(tree):
+            return bridge.map_leaves(tree, lambda t: t.to(self.device))
+
+        if not self._sharded:
+            return to_device(params)
+        full = {k: v for k, v in params.items() if k != "tp"}
+        if self._spawn_devices is not None:
+            spec = mesh_lib.MeshSpec({mesh_lib.AXIS_TP: self._slice_chips})
+            backend = dist_lib.backend_for(self.device)
+            host = bridge.map_leaves(full, lambda t: t.detach().cpu())
+            shards = [
+                {k: v for k, v in tensor_parallel.shard_lm(
+                    host, self.config, view, self.rules).items() if k != "tp"}
+                for view in slice_lib.shard_views(spec, self._spawn_devices,
+                                                  backend)]
+            follower_cfg = dataclasses.replace(
+                self.serve_config, mesh_shape=None, layout="explicit",
+                hbm_bytes_per_chip=None)
+            self.mesh, self._spawned = slice_lib.spawn_slice(
+                shards, self.config, follower_cfg, self.rules,
+                self._spawn_devices, backend)
+            own = shards[0]
+        elif "tp" in params:
+            own = full
+        else:
+            own = {k: v for k, v in tensor_parallel.shard_lm(
+                full, self.config, self.mesh, self.rules).items()
+                if k != "tp"}
+        self._tp = tensor_parallel.context(self.mesh, self.config, self.rules)
+        own = to_device(own)
+        own["tp"] = self._tp
+        return own
+
+    def _lockstep(self, op: str, **args):
+        """Run device program ``op`` (``_op_<op>``) on ``args`` (host
+        values); on a slice's rank 0, tell the followers to run it first.
+        On a slice any failure leaves the ranks out of step: it raises
+        :class:`~cloud_tpu_torch.serving.slice.SliceError`."""
+        fn = getattr(self, "_op_" + op)
+        if self._link is None:
+            return fn(**args)
+        try:
+            self._link.send(op, args)
+            return fn(**args)
+        except Exception as exc:
+            dead = self._spawned.dead() if self._spawned is not None else None
+            raise slice_lib.SliceError(
+                f"serving slice failed in {op!r}"
+                + (f" ({dead})" if dead else "") + f": {exc!r}") from exc
+
+    def follow(self) -> None:
+        """Serve rank 0's plans on this rank until rank 0 closes the
+        slice: the whole life of a rank other than 0 of a caller's mesh
+        (spawned followers run it themselves).  Raises when rank 0's
+        connection breaks."""
+        if not self._follower:
+            raise RuntimeError(
+                "follow() runs on the ranks of a serving slice other than 0")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            with torch.no_grad():
+                while True:
+                    op, args = self._link.recv()
+                    if op == "stop":
+                        return
+                    getattr(self, "_op_" + op)(**args)
+        finally:
+            self._closed = True
+
+    def _reshard(self, what: str):
+        """The span of a slice's host pull of sampled tokens (the
+        sampling boundary's reshard); nothing on one card."""
+        if self._slice_chips > 1:
+            return tracing.span("serve/reshard", what=what,
+                                chips=self._slice_chips)
+        return contextlib.nullcontext()
 
     def _init_draft(self) -> None:
         """Arm draft-and-verify: check the draft against the target, put
@@ -791,7 +1070,10 @@ class ServingEngine:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "ServingEngine":
-        """Launch the scheduler thread (idempotent)."""
+        """Launch the scheduler thread (idempotent; a follower has none:
+        it runs :meth:`follow`)."""
+        if self._follower:
+            return self
         with self._cond:
             if self._closed:
                 raise EngineClosedError("engine already closed")
@@ -817,75 +1099,80 @@ class ServingEngine:
         largest prompt bucket.  A failure is logged; the programs then run
         cold."""
         try:
-            if self.device.type == "cuda":
-                torch.cuda.set_device(self.device)
-                dispatch.build_all(SERVING_LIBRARIES)
-            cfg = self.serve_config
-            generator = torch.Generator(device=self.device)
-            with torch.no_grad():
-                if not self._continuous:
-                    bucket_len = cfg.prompt_buckets[-1]
-                    for batch_size in cfg.batch_buckets:
-                        tokens = torch.ones((batch_size, bucket_len),
-                                            dtype=torch.int32,
-                                            device=self.device)
-                        lens = torch.full((batch_size,), bucket_len,
-                                          dtype=torch.int32,
-                                          device=self.device)
-                        cache, logits0 = generation.prefill_program(
-                            self.params, tokens, lens, self.config,
-                            max_new_tokens=cfg.max_new_tokens,
-                            kv_quant=cfg.kv_quant)
-                        generation.decode_program(
-                            self.params, cache, logits0, lens, self.config,
-                            max_new_tokens=cfg.max_new_tokens,
-                            sample=cfg.sample, generator=generator,
-                        )["tokens"].cpu()
-                    return
-                cache = generation.init_slot_cache(
-                    self.config, cfg.num_slots, self._max_len,
-                    device=self.device, kv_quant=cfg.kv_quant)
-                state = generation.init_slot_state(
-                    self.config, cfg.num_slots, sample=cfg.sample,
-                    device=self.device)
-                table = torch.full_like(self._block_table, -1)
-                if cfg.prefill_chunk_tokens is None:
-                    for bucket_len in cfg.prompt_buckets:
-                        tokens = torch.ones((1, bucket_len),
-                                            dtype=torch.int32)
-                        cache, state, _ = generation.insert_slot_program(
-                            self.params, cache, state, tokens, bucket_len,
-                            0, cfg.max_new_tokens, self.config,
-                            sample=cfg.sample, generator=generator)
-                for width in self._chunk_widths():
-                    tokens = torch.ones((1, width), dtype=torch.int32)
-                    cache, logits = generation.prefill_chunk_program(
-                        self.params, cache, tokens, 0, width, 0,
-                        self.config, block_table=table)
-                    state, _ = generation.finalize_slot_program(
-                        state, logits, width, 0, cfg.max_new_tokens,
-                        self.config, sample=cfg.sample, generator=generator)
-                if self._spec:
-                    dcfg = cfg.draft.config
-                    draft_cache = generation.init_slot_cache(
-                        dcfg, cfg.num_slots, self._max_len,
-                        device=self.device, kv_quant=cfg.kv_quant)
-                    for bucket_len in cfg.prompt_buckets:
-                        generation.draft_prefill_slot_program(
-                            self._draft_params, draft_cache,
-                            torch.ones((1, bucket_len), dtype=torch.int32),
-                            bucket_len, 0, dcfg)
-                    _, window = generation.draft_chunk_program(
-                        self._draft_params, draft_cache, state, dcfg,
-                        spec_k=cfg.draft.spec_k)
-                    toks = self._verify_program(cache, state, window,
-                                                table)[2]
-                else:
-                    toks = self._chunk_program(cache, state, generator,
-                                               table)[2]
-                toks.cpu()  # the card has run it
+            self._op_warmup()
         except Exception:  # noqa: BLE001 — logged; serving still works
             logger.exception("serving warmup failed; programs run cold")
+
+    def _op_warmup(self) -> None:
+        """The warmup's device work (:meth:`_warmup`), on every rank of a
+        slice in lockstep."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+            dispatch.build_all(SERVING_LIBRARIES)
+        cfg = self.serve_config
+        generator = torch.Generator(device=self.device)
+        with torch.no_grad():
+            if not self._continuous:
+                bucket_len = cfg.prompt_buckets[-1]
+                for batch_size in cfg.batch_buckets:
+                    tokens = torch.ones((batch_size, bucket_len),
+                                        dtype=torch.int32,
+                                        device=self.device)
+                    lens = torch.full((batch_size,), bucket_len,
+                                      dtype=torch.int32,
+                                      device=self.device)
+                    cache, logits0 = generation.prefill_program(
+                        self.params, tokens, lens, self.config,
+                        max_new_tokens=cfg.max_new_tokens,
+                        kv_quant=cfg.kv_quant)
+                    generation.decode_program(
+                        self.params, cache, logits0, lens, self.config,
+                        max_new_tokens=cfg.max_new_tokens,
+                        sample=cfg.sample, generator=generator,
+                    )["tokens"].cpu()
+                return
+            cache = generation.init_slot_cache(
+                self.config, cfg.num_slots, self._max_len,
+                device=self.device, kv_quant=cfg.kv_quant, tp=self._tp)
+            state = generation.init_slot_state(
+                self.config, cfg.num_slots, sample=cfg.sample,
+                device=self.device)
+            table = torch.full_like(self._block_table, -1)
+            if cfg.prefill_chunk_tokens is None:
+                for bucket_len in cfg.prompt_buckets:
+                    tokens = torch.ones((1, bucket_len),
+                                        dtype=torch.int32)
+                    cache, state, _ = generation.insert_slot_program(
+                        self.params, cache, state, tokens, bucket_len,
+                        0, cfg.max_new_tokens, self.config,
+                        sample=cfg.sample, generator=generator)
+            for width in self._chunk_widths():
+                tokens = torch.ones((1, width), dtype=torch.int32)
+                cache, logits = generation.prefill_chunk_program(
+                    self.params, cache, tokens, 0, width, 0,
+                    self.config, block_table=table)
+                state, _ = generation.finalize_slot_program(
+                    state, logits, width, 0, cfg.max_new_tokens,
+                    self.config, sample=cfg.sample, generator=generator)
+            if self._spec:
+                dcfg = cfg.draft.config
+                draft_cache = generation.init_slot_cache(
+                    dcfg, cfg.num_slots, self._max_len,
+                    device=self.device, kv_quant=cfg.kv_quant)
+                for bucket_len in cfg.prompt_buckets:
+                    generation.draft_prefill_slot_program(
+                        self._draft_params, draft_cache,
+                        torch.ones((1, bucket_len), dtype=torch.int32),
+                        bucket_len, 0, dcfg)
+                _, window = generation.draft_chunk_program(
+                    self._draft_params, draft_cache, state, dcfg,
+                    spec_k=cfg.draft.spec_k)
+                toks = self._verify_program(cache, state, window,
+                                            table)[2]
+            else:
+                toks = self._chunk_program(cache, state, generator,
+                                           table)[2]
+            toks.cpu()  # the card has run it
 
     def _chunk_widths(self) -> Tuple[int, ...]:
         """The prefill-chunk widths this engine dispatches: the chunk
@@ -901,6 +1188,8 @@ class ServingEngine:
         ``warmup=True``)."""
         if self._warmup_thread is not None:
             self._warmup_thread.join(timeout)
+        elif self._slice_warmup and not self._follower:
+            self._warmup_done.wait(timeout)
 
     def set_trace_lane(self, lane: Optional[int]) -> None:
         """Adopt a timeline lane (``tracing.register_lane``): the
@@ -917,6 +1206,8 @@ class ServingEngine:
             raise ValueError(
                 f"role must be 'prefill', 'decode' or 'both', got {role!r}"
             )
+        if role != "both" and self._slice_chips > 1:
+            raise _later("role= (the KV handoff) under a serving mesh", "6")
         if role != "both" and (not self._continuous
                                or not self.serve_config.prefix_cache_blocks):
             raise ValueError(
@@ -964,9 +1255,26 @@ class ServingEngine:
             orphan.join(timeout if timeout is not None else 60.0)
         self._orphan_dispatches = [
             t for t in self._orphan_dispatches if t.is_alive()]
+        self._close_slice(thread is None or not thread.is_alive())
         now = time.perf_counter()
         self._qps.flush(now)
         self._tokens_rate.flush(now)
+
+    def _close_slice(self, quiet: bool) -> None:
+        """Rank 0 of a slice: tell the followers to stop (once, and only
+        when no dispatch of ours can still be running: ``quiet``), then
+        join the followers it spawned and drop its process group."""
+        link, self._link = self._link, None
+        if link is None or self._follower:
+            self._link = link
+            return
+        if quiet and not self._orphan_dispatches:
+            try:
+                link.send("stop", {})
+            except Exception:  # noqa: BLE001 — a dead follower: logged
+                logger.exception("could not stop the serving slice")
+        if self._spawned is not None:
+            self._spawned.close()
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -1005,6 +1313,12 @@ class ServingEngine:
         lookup, which then sees an ordinary hit.  Both need the continuous
         scheduler and the prefix cache."""
         cfg = self.serve_config
+        if self._follower:
+            raise RuntimeError(
+                "this rank follows rank 0 of its serving slice: submit to "
+                "rank 0's engine")
+        if self._slice_chips > 1 and (handoff_export or handoff is not None):
+            raise _later("the KV handoff under a serving mesh", "6")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         if (handoff_export or handoff is not None) and self._prefix is None:
@@ -1302,6 +1616,11 @@ class ServingEngine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             with torch.no_grad():
+                if self._slice_warmup:
+                    try:
+                        self._lockstep("warmup")
+                    finally:
+                        self._warmup_done.set()
                 if self._continuous:
                     self._continuous_loop()
                 else:
@@ -1350,8 +1669,10 @@ class ServingEngine:
                         request.future.set_exception(exc)
                     except InvalidStateError:  # pragma: no cover
                         pass
-                if isinstance(exc, DispatchTimeoutError):
-                    # The next dispatch would hang the same way.
+                if isinstance(exc, (DispatchTimeoutError,
+                                    slice_lib.SliceError)):
+                    # The next dispatch would hang the same way, or the
+                    # slice's ranks are out of step.
                     raise
             finally:
                 self._inflight_rows = 0
@@ -1376,29 +1697,24 @@ class ServingEngine:
             for i, request in enumerate(batch):
                 tokens[i, :request.prompt_len] = request.prompt
                 lens[i] = request.prompt_len
-        lens_t = torch.from_numpy(lens).to(self.device)
 
         def prefill():
             faults.fault_point("serve.prefill")
-            return generation.prefill_program(
-                self.params, torch.from_numpy(tokens).to(self.device),
-                lens_t, self.config, max_new_tokens=cfg.max_new_tokens,
-                kv_quant=cfg.kv_quant)
+            self._lockstep("batch_prefill", tokens=tokens, lens=lens)
 
         with tracing.span("serve/prefill", bucket=bucket_len,
                           batch=batch_size):
-            cache, logits0 = self._supervised("serve/prefill", prefill)
+            self._supervised("serve/prefill", prefill)
 
         def decode():
             faults.fault_point("serve.decode")
-            out = generation.decode_program(
-                self.params, cache, logits0, lens_t, self.config,
-                max_new_tokens=cfg.max_new_tokens, sample=cfg.sample,
-                generator=self._generator)
+            out = self._lockstep("batch_decode")
             # The batch's one host sync: tokens and counts in one copy (a
             # wedged prefill shows here too: it runs before on the stream).
-            return torch.cat([out["tokens"], out["num_generated"][:, None]],
-                             dim=1).to(torch.int32).cpu().numpy()
+            with self._reshard("batch_tokens"):
+                return torch.cat(
+                    [out["tokens"], out["num_generated"][:, None]],
+                    dim=1).to(torch.int32).cpu().numpy()
 
         with tracing.span("serve/decode", bucket=bucket_len,
                           batch=batch_size):
@@ -1449,6 +1765,28 @@ class ServingEngine:
                 request.future.set_result(result)
             except InvalidStateError:  # pragma: no cover - cancelled
                 pass
+
+    def _op_batch_prefill(self, tokens: np.ndarray, lens: np.ndarray
+                          ) -> None:
+        """Prefill a padded batch (``prefill_program``) and keep its cache
+        and first logits for :meth:`_op_batch_decode`."""
+        lens_t = torch.from_numpy(lens).to(self.device)
+        cache, logits0 = generation.prefill_program(
+            self.params, torch.from_numpy(tokens).to(self.device), lens_t,
+            self.config, max_new_tokens=self.serve_config.max_new_tokens,
+            kv_quant=self.serve_config.kv_quant)
+        self._batch_prefilled = (cache, logits0, lens_t)
+
+    def _op_batch_decode(self):
+        """Decode the prefilled batch to ``max_new_tokens``
+        (``decode_program``)."""
+        cfg = self.serve_config
+        (cache, logits0, lens_t), self._batch_prefilled = (
+            self._batch_prefilled, None)
+        return generation.decode_program(
+            self.params, cache, logits0, lens_t, self.config,
+            max_new_tokens=cfg.max_new_tokens, sample=cfg.sample,
+            generator=self._generator)
 
     def _continuous_loop(self) -> None:
         """Fill free slots from the queue, advance at most one prefill
@@ -1609,8 +1947,12 @@ class ServingEngine:
         """Point the leading pages of ``slot`` at pool ``blocks``, the
         rest at the slot row (stream-ordered after every dispatch that
         read the old row)."""
+        self._lockstep("table_row", slot=slot,
+                       blocks=[int(b) for b in blocks])
+
+    def _op_table_row(self, slot: int, blocks: List[int]) -> None:
         row = np.full((self._n_pages,), -1, np.int32)
-        row[:len(blocks)] = list(blocks)
+        row[:len(blocks)] = blocks
         self._block_table[slot] = self._to_device(row)
 
     def _attach_prefix(self, request: _Request, slot: int,
@@ -1636,15 +1978,17 @@ class ServingEngine:
         ids[:len(blocks)] = blocks
 
         def copy():
-            return generation.copy_prefix_program(
-                self._grid_cache, self._prefix_pool, self._to_device(ids),
-                slot)
+            self._lockstep("copy", slot=slot, ids=ids)
 
         with tracing.span("serve/prefix_copy",
                           **_trace_attrs(request, slot=slot,
                                          blocks=len(blocks),
                                          tokens=hit.tokens)):
-            self._grid_cache = self._supervised("serve/prefix_copy", copy)
+            self._supervised("serve/prefix_copy", copy)
+
+    def _op_copy(self, slot: int, ids: np.ndarray) -> None:
+        self._grid_cache = generation.copy_prefix_program(
+            self._grid_cache, self._prefix_pool, self._to_device(ids), slot)
 
     def _paged_kwargs(self) -> dict:
         """The block table, and the pool where hits attach through it."""
@@ -1665,16 +2009,14 @@ class ServingEngine:
 
         def prefill():
             faults.fault_point("serve.prefill")
-            return generation.prefill_chunk_program(
-                self.params, self._grid_cache, self._to_device(tokens),
-                start, clen, task.slot, self.config, **self._paged_kwargs())
+            self._lockstep("prefill_chunk", tokens=tokens, start=start,
+                           clen=clen, slot=task.slot)
 
         with tracing.span("serve/prefill_chunk",
                           **_trace_attrs(request, bucket=request.bucket_len,
                                          slot=task.slot, start=start,
                                          tokens=clen)):
-            self._grid_cache, logits = self._supervised(
-                "serve/prefill_chunk", prefill)
+            self._supervised("serve/prefill_chunk", prefill)
         task.next_pos = start + clen
         metrics.counter_inc("serve/prefill_chunks")
         with self._stats_lock:
@@ -1683,24 +2025,32 @@ class ServingEngine:
             widths[width] = widths.get(width, 0) + 1
         if task.next_pos >= request.prompt_len:
             self._prefill_tasks.popleft()
-            self._finalize_insert(task, logits)
+            self._finalize_insert(task)
 
-    def _finalize_insert(self, task: _PrefillTask, logits) -> None:
+    def _op_prefill_chunk(self, tokens: np.ndarray, start: int, clen: int,
+                          slot: int) -> None:
+        """One prefill chunk into ``slot``; its logits wait for the
+        finalize of the prompt's last chunk."""
+        self._grid_cache, self._chunk_logits = (
+            generation.prefill_chunk_program(
+                self.params, self._grid_cache, self._to_device(tokens),
+                start, clen, slot, self.config, **self._paged_kwargs()))
+
+    def _finalize_insert(self, task: _PrefillTask) -> None:
         """Arm a fully prefilled slot from its last chunk's logits, save
         the prompt's new prefix blocks, activate or retire it."""
         request, slot = task.request, task.slot
 
         def finalize():
-            state, tok0 = generation.finalize_slot_program(
-                self._slot_state, logits, request.prompt_len, slot,
-                request.max_new_tokens, self.config,
-                sample=self.serve_config.sample, generator=self._generator)
-            return state, int(tok0)  # the finalize's one host sync
+            tok0 = self._lockstep(
+                "finalize", prompt_len=request.prompt_len, slot=slot,
+                max_new_tokens=request.max_new_tokens)
+            with self._reshard("finalize_tok0"):
+                return int(tok0)  # the finalize's one host sync
 
         with tracing.span("serve/prefill_finalize",
                           **_trace_attrs(request, slot=slot)):
-            self._slot_state, tok0 = self._supervised(
-                "serve/prefill_finalize", finalize)
+            tok0 = self._supervised("serve/prefill_finalize", finalize)
         entry = self._slot_table[slot]
         entry.tokens = [tok0]
         entry.first_token_ts = time.perf_counter()
@@ -1708,6 +2058,14 @@ class ServingEngine:
         self._save_prefix_blocks(request, slot, already=task.hit)
         self._export_handoff(request, slot)
         self._activate_or_retire(slot, request, tok0)
+
+    def _op_finalize(self, prompt_len: int, slot: int, max_new_tokens: int):
+        self._slot_state, tok0 = generation.finalize_slot_program(
+            self._slot_state, self._chunk_logits, prompt_len, slot,
+            max_new_tokens, self.config, sample=self.serve_config.sample,
+            generator=self._generator)
+        self._chunk_logits = None
+        return tok0
 
     def _insert_request(self, request: _Request, slot: int) -> None:
         tracing.record_span(
@@ -1718,19 +2076,16 @@ class ServingEngine:
 
         def insert():
             faults.fault_point("serve.prefill")
-            cache, state, tok0 = generation.insert_slot_program(
-                self.params, self._grid_cache, self._slot_state,
-                self._to_device(tokens), request.prompt_len, slot,
-                request.max_new_tokens, self.config,
-                sample=self.serve_config.sample, generator=self._generator,
-            )
-            return cache, state, int(tok0)  # the insert's one host sync
+            tok0 = self._lockstep(
+                "insert", tokens=tokens, prompt_len=request.prompt_len,
+                slot=slot, max_new_tokens=request.max_new_tokens)
+            with self._reshard("insert_tok0"):
+                return int(tok0)  # the insert's one host sync
 
         with tracing.span("serve/prefill",
                           **_trace_attrs(request, bucket=request.bucket_len,
                                          slot=slot)):
-            self._grid_cache, self._slot_state, tok0 = self._supervised(
-                "serve/prefill", insert)
+            tok0 = self._supervised("serve/prefill", insert)
         entry = _Slot(request=request, tokens=[tok0],
                       first_token_ts=time.perf_counter())
         self._slot_table[slot] = entry
@@ -1740,6 +2095,17 @@ class ServingEngine:
         self._save_prefix_blocks(request, slot)
         self._export_handoff(request, slot)
         self._activate_or_retire(slot, request, tok0)
+
+    def _op_insert(self, tokens: np.ndarray, prompt_len: int, slot: int,
+                   max_new_tokens: int):
+        """The one-shot insert (``insert_slot_program``) into ``slot``."""
+        self._grid_cache, self._slot_state, tok0 = (
+            generation.insert_slot_program(
+                self.params, self._grid_cache, self._slot_state,
+                self._to_device(tokens), prompt_len, slot, max_new_tokens,
+                self.config, sample=self.serve_config.sample,
+                generator=self._generator))
+        return tok0
 
     def _activate_or_retire(self, slot: int, request: _Request,
                             tok0: int) -> None:
@@ -1792,13 +2158,16 @@ class ServingEngine:
                 ids[base + i] = node.block
 
         def save():
-            return generation.save_prefix_program(
-                self._prefix_pool, self._grid_cache, slot, ids)
+            self._lockstep("save", slot=slot, ids=ids)
 
         with tracing.span("serve/prefix_save", slot=slot,
                           blocks=len(created)):
-            self._prefix_pool = self._supervised("serve/prefix_save", save)
+            self._supervised("serve/prefix_save", save)
         metrics.counter_inc("serve/prefix_saved_blocks", len(created))
+
+    def _op_save(self, slot: int, ids: np.ndarray) -> None:
+        self._prefix_pool = generation.save_prefix_program(
+            self._prefix_pool, self._grid_cache, slot, ids)
 
     # -- the KV handoff (disaggregated serving) ----------------------------
 
@@ -2076,20 +2445,22 @@ class ServingEngine:
         num_slots, chunk = cfg.num_slots, cfg.chunk_tokens
         span_attrs = self._span_attrs(slots=num_slots, chunk=chunk,
                                       active=len(self._active_slots))
+        if self._slice_chips > 1:
+            span_attrs["slice"] = (
+                f"{self._slice_shape[0]}x{self._slice_shape[1]}")
+            span_attrs["slice_chips"] = self._slice_chips
         start = time.perf_counter()
         self._note_dispatch_gap(start)
 
         def decode():
             faults.fault_point("serve.chunk")
-            cache, state, toks, valid = self._chunk_program(
-                self._grid_cache, self._slot_state, self._generator,
-                self._block_table)
+            toks, valid = self._lockstep("chunk")
             self._last_chunk_dispatch_end = time.perf_counter()
-            return (cache, state) + self._emissions_to_host(toks, valid)
+            with self._reshard("chunk_tokens"):
+                return self._emissions_to_host(toks, valid)
 
         with tracing.span("serve/chunk", **span_attrs) as chunk_span:
-            self._grid_cache, self._slot_state, toks, valid = (
-                self._supervised("serve/chunk", decode))
+            toks, valid = self._supervised("serve/chunk", decode)
             emitted = int(valid.sum())
             occupancy = emitted / float(num_slots * chunk)
             chunk_span.set_attribute("tokens", emitted)
@@ -2102,6 +2473,14 @@ class ServingEngine:
             self._stats["decode_slot_steps"] += num_slots * chunk
             self._stats["useful_decode_tokens"] += emitted
         self._commit_emissions(toks, valid, chunk)
+
+    def _op_chunk(self):
+        """One decode chunk of the grid: ``(tokens, valid)`` on the
+        device."""
+        self._grid_cache, self._slot_state, toks, valid = self._chunk_program(
+            self._grid_cache, self._slot_state, self._generator,
+            self._block_table)
+        return toks, valid
 
     def _feed_entry(self, entry: _Slot) -> None:
         """Deliver a slot's not yet streamed tokens to its request's stream
@@ -2494,6 +2873,8 @@ class ServingEngine:
             class_backlog = self._class_backlog_locked()
         live = thread is not None and thread.is_alive()
         reason = self._unhealthy_reason
+        if reason is None and self._spawned is not None:
+            reason = self._spawned.dead()
         last = self._last_dispatch_ts
         snap = {
             "healthy": reason is None,
@@ -2506,9 +2887,9 @@ class ServingEngine:
             "active_slots": (self.serve_config.num_slots - free_slots
                              if self._continuous else self._inflight_rows),
             "num_slots": self.serve_config.num_slots,
-            # The slice this replica spans: one card, (1, 1).
-            "slice_shape": SLICE_SHAPE,
-            "slice_chips": SLICE_CHIPS,
+            # The slice this replica spans: (tp, sp) and its cards.
+            "slice_shape": self._slice_shape,
+            "slice_chips": self._slice_chips,
             "orphaned_dispatches": len(self._orphan_dispatches),
             "last_dispatch_age_s": (
                 None if last is None else time.perf_counter() - last),
@@ -2574,8 +2955,8 @@ class ServingEngine:
             snap["class_shed"] = dict(self._class_shed)
             gaps = list(self._dispatch_gaps)
         snap["role"] = self._role
-        snap["slice_shape"] = SLICE_SHAPE
-        snap["slice_chips"] = SLICE_CHIPS
+        snap["slice_shape"] = self._slice_shape
+        snap["slice_chips"] = self._slice_chips
         with self._cond:
             snap["class_backlog"] = self._class_backlog_locked()
         snap["mean_batch_occupancy"] = (

@@ -208,3 +208,38 @@ def test_cpu_path_launches_no_kernel_and_no_grad_builds_no_graph():
     with torch.no_grad():
         assert not port_flash.flash_attention(*leaves).requires_grad
     assert all(n == 0 for n in dispatch.launch_counts().values())
+
+
+def test_rows_with_no_valid_key_add_no_gradient_under_the_ring_contract():
+    """Causal attention with left padding empties the first rows of each
+    sample (no key at or before them is valid).  The ring's contract
+    (``cloud_tpu/parallel/ring_attention.py``): such rows reach the
+    backward with out's cotangent 0 and the lse's 0 (merge weight 0).
+    Then ``_bwd_reference`` (which gives them p = 1 from every key, where
+    the kernels use the keys of their tiles) adds exactly nothing from
+    them, dq is exactly 0 there, and dq/dk/dv equal ``jax.vjp`` of the JAX
+    reference forward at the same cotangents."""
+    q, k, v, do, _, g_lse = _inputs(17, mask_kind=None)
+    mask = np.ones((B, T), np.int32)
+    mask[0, :5] = 0
+    mask[1, :40] = 0
+    empty = np.arange(T)[None, :] < np.asarray([5, 40])[:, None]  # [B, T]
+    do[empty] = 0.0
+    g_lse[np.broadcast_to(empty[:, None, :], g_lse.shape)] = 0.0
+    t = {n: torch.from_numpy(x) for n, x in
+         (("q", q), ("k", k), ("v", v), ("do", do), ("g_lse", g_lse),
+          ("mask", mask))}
+    out, lse = port_flash._reference_with_lse(t["q"], t["k"], t["v"],
+                                              causal=True, mask=t["mask"])
+    assert bool((lse.transpose(1, 2)[torch.from_numpy(empty)]
+                 <= port_flash.NEG_INF).all())
+    dq, dk, dv = port_flash._bwd_reference(
+        t["q"], t["k"], t["v"], t["mask"], t["do"], out, lse, causal=True,
+        g_lse=t["g_lse"])
+    assert bool((dq[torch.from_numpy(empty)] == 0).all())
+    _, vjp = jax.vjp(
+        lambda q, k, v: jax_flash._reference_with_lse(
+            q, k, v, causal=True, mask=jnp.asarray(mask)), q, k, v)
+    want = vjp((jnp.asarray(do), jnp.asarray(g_lse)))
+    for label, got, ref in zip("qkv", (dq, dk, dv), want):
+        _close(got, ref, f"d{label}")

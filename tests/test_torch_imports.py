@@ -11,7 +11,8 @@ copies of framework-free reference modules (``monitoring`` with
 the port (the new ``random.py``, ``training/compile_cache.py`` and
 ``training/records.py`` are scanned with every module, as are the
 model zoo's ``models/moe.py``, ``models/vit.py`` and ``models/export.py``,
-named in :data:`ZOO_MODULES`); and an
+named in :data:`ZOO_MODULES`, and the parallel layer with the serving
+slice's follower entry point, :data:`PARALLEL_MODULES`); and an
 entry point called without ``device="cpu"`` on a host with no card raises
 instead of quietly running on the CPU.
 """
@@ -111,6 +112,44 @@ STDLIB_COPIES = {
 ZOO_MODULES = ("models/moe.py", "models/vit.py", "models/export.py")
 
 
+#: The parallel layer and the serving slice's follower entry point
+#: (``serving/slice.py`` ``_follower_main``, the target a spawned follower
+#: runs): scanned with every module above; named here so a move or
+#: rename cannot drop them from the scan.
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/distributed.py", "parallel/sharding.py",
+                    "parallel/planner.py", "parallel/collectives.py",
+                    "parallel/tensor_parallel.py", "serving/slice.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_are_jax_free(rel):
+    path = PORT / rel
+    assert path in set(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+
+
+def test_follower_entry_point_runs_with_jax_blocked():
+    """What a spawned follower imports (its target and the modules the
+    target imports) loads in a process where JAX cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from cloud_tpu_torch.serving.slice import _follower_main\n"
+        "from cloud_tpu_torch.parallel import tensor_parallel\n"
+        "from cloud_tpu_torch.serving.engine import ServingEngine\n"
+        "bad = [m for m in sys.modules if m == 'cloud_tpu' "
+        "or m.startswith('cloud_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("rel", ZOO_MODULES)
 def test_zoo_modules_are_jax_free(rel):
     path = PORT / rel
@@ -135,7 +174,8 @@ def test_entry_points_refuse_missing_cuda():
     from cloud_tpu_torch.models import moe
     from cloud_tpu_torch.models import (bert, export, generation, mnist,
                                         resnet, transformer, vit)
-    from cloud_tpu_torch.serving import ServingEngine
+    from cloud_tpu_torch.parallel import MeshSpec, distributed
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
     from cloud_tpu_torch.training import (check_durability, checkpoint,
                                           compile_cache, optimizers,
                                           pipeline_io, train, trainer)
@@ -196,6 +236,10 @@ def test_entry_points_refuse_missing_cuda():
         lambda: benchmarking.vit_train_setup(batch_size=1,
                                              config=vit.VIT_TINY_CIFAR),
         lambda: export.load_pretrained("unused"),
+        lambda: MeshSpec({"tp": 2}).build(),
+        lambda: distributed.backend_for(),
+        lambda: ServingEngine(params, cfg, ServeConfig(mesh_shape=(2, 1)),
+                              start=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -8,9 +8,9 @@ admission errors, a clean close, one served request for each option the
 port took over from a refusal (the batch scheduler, the prefix cache and
 its host tier, chunked prefill, a speculative draft, QoS, pipelined
 scheduling, the dispatch watchdog, streaming and request tracing,
-disaggregated roles with the KV handoff), and
-``NotImplementedError`` for every ``ServeConfig`` feature the port does not
-have yet.  ``kv_quant`` with
+disaggregated roles with the KV handoff, tensor-parallel serving over
+``mesh_shape``, ``layout="auto"``, ``hbm_bytes_per_chip``, ``mesh=`` and
+``rules=``).  ``kv_quant`` with
 int8 weights is held against the quantized JAX ``generate``.  The engine's
 surface (``ServeConfig`` fields, constructor and ``submit`` keywords,
 public methods) includes the JAX engine's, ``DraftConfig`` has the
@@ -200,6 +200,10 @@ SERVED_OPTIONS = {
     "qos": "completed",
     "pipeline_depth": "chunks",
     "role": "prefix_misses",
+    # Tensor-parallel serving: a slice of two CPU ranks, or the widest the
+    # planner picks over this host's cores.
+    "mesh_shape": "slice_chips",
+    "layout": "slice_chips",
 }
 
 
@@ -539,21 +543,48 @@ def _verify_traces(e):
     assert served.verify_traces == 1 and served.chunk_traces == 0
 
 
+def _hbm_budget(e):
+    """A budget the one-card layout fits: the planner keeps one rank."""
+    serve = ServeConfig(max_new_tokens=2, prompt_buckets=(8,),
+                        layout="auto", mesh_shape=(1, 1),
+                        hbm_bytes_per_chip=2**30)
+    with ServingEngine(e.params, e.config, serve, device="cpu") as served:
+        assert served.health()["slice_shape"] == (1, 1)
+        served.submit([1, 2, 3]).result(timeout=120)
+
+
+def _one_rank_mesh(e):
+    """``mesh=`` a one-rank tp mesh: the sharded programs at tp 1."""
+    from cloud_tpu_torch.parallel import MeshSpec
+
+    mesh = MeshSpec({"tp": 1}).build(devices=["cpu"])
+    with ServingEngine(e.params, e.config, e.serve_config, mesh=mesh,
+                       device="cpu") as served:
+        assert served.params["tp"].size == 1
+        served.submit([1, 2, 3]).result(timeout=120)
+    with pytest.raises(TypeError, match="MeshSpec.build"):
+        ServingEngine(e.params, e.config, e.serve_config, mesh=object(),
+                      device="cpu", start=False)
+
+
+def _default_rules(e):
+    from cloud_tpu_torch.parallel import DEFAULT_RULES
+
+    with ServingEngine(e.params, e.config, e.serve_config,
+                       rules=DEFAULT_RULES, device="cpu") as served:
+        served.submit([1, 2, 3]).result(timeout=120)
+
+
 #: Each value of the JAX engine's surface, with the ROADMAP.md item its
 #: NotImplementedError names while the port lacks the feature, or None and
 #: a check that the ported feature works.
 UNPORTED = {
     "ServeConfig-dispatch_timeout_s": (None, _serve_watched),
-    "ServeConfig-hbm_bytes_per_chip": (
-        "6", lambda e: ServeConfig(hbm_bytes_per_chip=2**30)),
+    "ServeConfig-hbm_bytes_per_chip": (None, _hbm_budget),
     "ServeConfig-prefix_summary_ttl_s": (None, _summary_ttl),
     "ServeConfig-flush_deadline_s-batch": (None, _serve_batch),
-    "engine-mesh": ("6", lambda e: ServingEngine(
-        e.params, e.config, e.serve_config, mesh=object(), device="cpu",
-        start=False)),
-    "engine-rules": ("6", lambda e: ServingEngine(
-        e.params, e.config, e.serve_config, rules=object(), device="cpu",
-        start=False)),
+    "engine-mesh": (None, _one_rank_mesh),
+    "engine-rules": (None, _default_rules),
     "submit-priority": (None, _priority),
     "submit-stream": (None, _stream),
     "submit-on_token": (None, _on_token),
