@@ -29,7 +29,13 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    dequantized beforehand), in event and device time, K5, K8 and K8q at
    a tp-2 rank's 6 heads (phase 2 (tp): q/k/v a strided view of a
    full-width projection, a grid born at 6 heads), timed the same way,
-   K8 and K8q at
+   the ring's K5 folds and K6/K7 hops for every rank driven in one
+   process (phase 2 (ring): B=2 T=1024 at 12 and 6 heads, bf16 and f32,
+   contiguous causal at n=2 and 4 with a left padding that empties whole
+   blocks' rows, non-causal at n=2, zig-zag at n=2 and 4), assembled and
+   held against one whole-sequence K5 + K6/K7 call and the plain version,
+   each rank's launches exact, then K5-K7 timed at the ring's block
+   shapes (T=512 causal and not, zig-zag chunks 256 and 128), K8 and K8q at
    prefill-chunk query counts (Tq 32, 128 and 512, several query tiles,
    chunk-causal, pool pages or not, three chunk starts), each Tq timed
    beside its bound and SDPA over the gathered K/V, K8 and K8q at the
@@ -206,7 +212,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    "full" and "dots": f32 loss and grad norm equal across the three; in
    bf16 steps/s, peak memory, device ms and K5 launches, 12 or 24 a
    step, per policy; a K=2 "dots" window as a CUDA graph against 2 eager
-   steps within 1e-6);
+   steps within 1e-6); then training under a mesh (6mesh: SMALL at full
+   width and depth, b2 x T1024, ``adamw(1e-4)``, remat "full", two ranks
+   on the card over gloo, rank 1 a spawned child: ``{sp: 2}`` zig-zag,
+   ``{sp: 2}`` Ulysses, ``{tp: 2}`` and ``{fsdp: 2}`` in f32 against one
+   process on the same weights and batch (step 1's loss and grad norm
+   and step 2's loss within 1e-4 relative, step 1's gradient gathered
+   whole within 1e-4 of its largest magnitude), the zig-zag arm in bf16
+   on f32 masters within 2e-2 of one process; steps/s of both printed;
+   each rank's K5/K6/K7 launches exactly ``mesh_launches_per_layer`` x
+   12 layers x steps);
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does; then the stochastic step (7s: dropout
@@ -223,7 +238,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    2 layers, 56 px, patch 8 (T=49), card against CPU;
 9. prints one JSON line describing every kernel (a serving kernel's
    launches summed over the serving phases (3m included) and 7s, and
-   K5's also over 6m, 6d and 8v, K6/K7's over 6, 7s, 6m, 6d and 8v,
+   K5's also over 6m, 6d, 6mesh and 8v, K6/K7's over 6, 7s, 6m, 6d,
+   6mesh and 8v,
    K1-K4's over phases 4, 4t, 4r, 4a and 4p, each counted from 0 just
    before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
@@ -6634,6 +6650,467 @@ def run_tp_engine(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 2 (ring) and 6mesh: training under a mesh
+# ---------------------------------------------------------------------------
+
+#: Phase 2 (ring): B=2, T=1024 at SMALL's 12 heads and a tp-2 rank's 6,
+#: head dim 64.  The contiguous causal cases pad sample 0's first
+#: RING_PAD keys: at n=4 (256-token blocks) block 0 has no valid key for
+#: any of its rows, and block 1's first 44 rows have none either.
+RING_B, RING_T, RING_PAD = 2, 1024, 300
+#: (name, n, causal, zigzag, masked)
+RING_CASES = (("causal", 2, True, False, True),
+              ("causal", 4, True, False, True),
+              ("non-causal", 2, False, False, False),
+              ("zigzag", 2, True, True, False),
+              ("zigzag", 4, True, True, False))
+#: The ring's per-block shapes timed: (B, T, causal) of one call.  T=512
+#: is a block at sp 2 (past blocks non-causal, the diagonal causal); 256
+#: and 128 the zig-zag chunk c = T/(2 sp) at sp 2 and 4.
+RING_TIMED = ((2, 512, False), (2, 512, True), (2, 256, False),
+              (2, 128, False))
+
+
+def ring_launches(n: int, rank: int, *, causal: bool, zigzag: bool) -> int:
+    """K5 launches of one ring forward on ``rank`` (and K6's, and K7's, in
+    its backward): every block of the causal contiguous ring up to the
+    diagonal, every block without causality, 2n+1 on the zig-zag
+    (three calls on the diagonal hop, two on every other)."""
+    if zigzag:
+        return 2 * n + 1
+    return rank + 1 if causal else n
+
+
+def _ring_case(fa, ring, dispatch, gen, dtype, h, case):
+    """One case of phase 2 (ring): every rank's hops driven in this
+    process through ``fold_hop`` and ``hop_grads``, the blocks assembled
+    and held against one whole-sequence K5 + K6/K7 call and against the
+    plain version; each rank's launches counted.  Returns the worst
+    errors by kernel."""
+    import torch
+
+    name, n, causal, zigzag, masked = case
+    dname = str(dtype).split(".")[1]
+    q, k, v, do = (torch.randn((RING_B, RING_T, h, HEAD_DIM), generator=gen,
+                               device=gen.device).to(dtype)
+                   for _ in range(4))
+    mask = None
+    valid = torch.ones((RING_B, RING_T), dtype=torch.bool, device=q.device)
+    if masked:
+        mask = torch.ones((RING_B, RING_T), dtype=torch.int32,
+                          device=q.device)
+        mask[0, :RING_PAD] = 0
+        if causal:  # rows with no valid key: the loss drops them (C1)
+            valid[0, :RING_PAD] = False
+    do = do * valid[..., None, None].to(dtype)
+    out_k, lse_k = fa._flash_kernel(q, k, v, causal=causal, mask=mask)
+    grads_k = fa._bwd_kernels(q, k, v, mask, do, out_k, lse_k, causal=causal)
+    out_p, lse_p = fa._reference_with_lse(q, k, v, causal=causal, mask=mask)
+    grads_p = fa._bwd_reference(q, k, v, mask, do, out_p, lse_p,
+                                causal=causal)
+    perm = (ring.zigzag_indices(RING_T, n, device=q.device) if zigzag
+            else torch.arange(RING_T, device=q.device))
+    qz, kz, vz, doz = (x[:, perm] for x in (q, k, v, do))
+    mz = None if mask is None else mask[:, perm]
+    tl = RING_T // n
+
+    def blk(x, r):
+        return None if x is None else x[:, r * tl:(r + 1) * tl]
+
+    outs, dqs = [], []
+    dk = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r in range(n):
+        dispatch.reset_launch_counts()
+        parts = ring.new_partials(blk(qz, r), zigzag=zigzag)
+        for i in range(n):
+            src = (r - i) % n
+            parts = ring.fold_hop(parts, blk(qz, r), blk(kz, src),
+                                  blk(vz, src), blk(mz, src), src, r,
+                                  causal=causal, zigzag=zigzag)
+        out, lse = ring.merged(parts)
+        dq = torch.zeros(blk(q, r).shape, dtype=torch.float32,
+                         device=q.device)
+        for i in range(n):
+            src = (r - i) % n
+            gk, gv = ring.hop_grads(dq, blk(qz, r), blk(kz, src),
+                                    blk(vz, src), blk(mz, src), blk(doz, r),
+                                    out, lse, src, r, causal=causal,
+                                    zigzag=zigzag)
+            dk[:, src * tl:(src + 1) * tl] += gk
+            dv[:, src * tl:(src + 1) * tl] += gv
+        counts = dispatch.launch_counts(TRAIN_ATTN_KERNELS)
+        want = ring_launches(n, r, causal=causal, zigzag=zigzag)
+        if any(c != want for c in counts.values()):
+            raise AssertionError(
+                f"ring {name} n={n} rank {r}: launches {counts}, want "
+                f"{want} of each of K5, K6 and K7")
+        outs.append(out.to(dtype))
+        dqs.append(dq)
+    inv = torch.argsort(perm)
+    got = (torch.cat(outs, 1)[:, inv], torch.cat(dqs, 1)[:, inv].to(dtype),
+           dk[:, inv].to(dtype), dv[:, inv].to(dtype))
+    rows = valid[..., None, None]
+    worst = {kname: 0.0 for kname in TRAIN_ATTN_KERNELS}
+    what = f"ring {name} n={n} H={h} {dname}"
+    for ref_name, ref_out, ref_grads in (("K5/K6/K7", out_k, grads_k),
+                                         ("plain", out_p, grads_p)):
+        worst["flash_fwd"] = max(worst["flash_fwd"], check_close(
+            f"{what} out against {ref_name}", got[0] * rows,
+            ref_out * rows, dname))
+        for i, gname in enumerate(("dq", "dk", "dv")):
+            kname = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
+            worst[kname] = max(worst[kname], check_close(
+                f"{what} {gname} against {ref_name}", got[1 + i],
+                ref_grads[i], dname, scaled=True))
+    if masked and causal and bool((got[1][~valid] != 0).any()):
+        raise AssertionError(f"{what}: dq not 0 on rows with no valid key")
+    return worst
+
+
+def check_ring(device, card):
+    """Phase 2 (ring): the ring's per-block K5 folds and K6/K7 hops
+    (``parallel/ring_attention.py``'s ``fold_hop`` and ``hop_grads``)
+    for every rank of the contiguous causal ring at n=2 and 4 with a
+    left padding that empties whole blocks' rows, the non-causal ring at
+    n=2 and the zig-zag ring at n=2 and 4, in bf16 and f32 at 12 and 6
+    heads: the assembled out, dq, dk and dv against one whole-sequence K5
+    + K6/K7 call and against the plain version (``check_close``; the
+    gradients' limits scaled), with each rank's exact launches.  Then K5,
+    K6 and K7 timed at the ring's block shapes beside the plain version,
+    SDPA and their bounds."""
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.ops import flash_attention as fa
+    from cloud_tpu_torch.parallel import ring_attention as ring
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for h in (HEADS, HEADS // 2):
+            for case in RING_CASES:
+                for kname, e in _ring_case(fa, ring, dispatch, gen, dtype, h,
+                                           case).items():
+                    key = f"{kname} {dname}"
+                    worst[key] = max(worst.get(key, 0.0), e)
+        print(f"  {dname}: {2 * len(RING_CASES)} ring cases (n=2/4, causal "
+              f"masked, non-causal, zig-zag; 12 and 6 heads) ok, launches "
+              f"exact; max_abs_err out {worst['flash_fwd ' + dname]:.3e}, dq "
+              f"{worst['flash_bwd_dq ' + dname]:.3e}, dk/dv "
+              f"{worst['flash_bwd_dkv ' + dname]:.3e} [{card}]")
+    dispatch.reset_launch_counts()
+    rows = {}
+    for b, t, causal in RING_TIMED:
+        label = f"B={b} T={t} {'causal' if causal else 'non-causal'}"
+        rows[label] = _time_attention(fa, "ring block", card, gen,
+                                      shape=(b, t, causal),
+                                      plain_device=False)
+    return {"max_abs_err": worst, "rows": rows}
+
+
+#: Phase 6mesh: CloudLM SMALL (12 layers, dim 768, 12 heads, tied head)
+#: trained under a 2-rank mesh, both ranks on the one card over gloo:
+#: b2 x T1024, adamw(1e-4) with f32 moments, remat "full".  Arms, in the
+#: order both ranks run them: (name, mesh sizes, config fields, dtype).
+MESH_ARMS = (("sp zigzag", {"sp": 2}, {"zigzag_sp": True}, "float32"),
+             ("sp ulysses", {"sp": 2}, {"ulysses_sp": True}, "float32"),
+             ("tp", {"tp": 2}, {}, "float32"),
+             ("fsdp", {"fsdp": 2}, {}, "float32"),
+             ("bf16 sp zigzag", {"sp": 2}, {"zigzag_sp": True},
+              "bfloat16"))
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 1024, 2
+#: The bf16 arm's steps: one warm-up, then the timed ones.
+MESH_BF16_STEPS = 4
+#: How long rank 0 waits for its follower to start, join and report.
+MESH_TIMEOUT_S = 300
+#: Model of phase 6mesh (SMALL, or a narrower config in a CPU rehearsal).
+MESH_MODEL = None
+
+
+def mesh_launches_per_layer(sizes, fields):
+    """K5, K6 and K7 launches of one rank a layer a step under remat
+    "full" (K5 runs again in the recompute): the zig-zag ring's 2n+1
+    calls each way, else one (Ulysses, tp, fsdp)."""
+    n = sizes.get("sp", 1)
+    calls = 2 * n + 1 if fields.get("zigzag_sp") and n > 1 else 1
+    return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+            "flash_bwd_dkv": calls}
+
+
+def _mesh_setup(device, dtype_name, fields):
+    """The arm's config, f32 master weights from seed 0 (the same in every
+    rank's process) and the batch's tokens (numpy seed 0, in [1, V))."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import transformer
+
+    cfg = (MESH_MODEL or transformer.SMALL).scaled(
+        tied_embeddings=True, remat=True, remat_policy="full",
+        dtype=getattr(torch, dtype_name), **fields)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = bridge.init(cfg, gen, device=device)
+    tokens = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (MESH_BATCH, MESH_SEQ)).astype(np.int64)
+    return cfg, params, torch.from_numpy(tokens).to(device)
+
+
+def _mesh_reference(device, dtype_name, fields, steps):
+    """One process, no mesh: the arm's steps on the whole batch.  Returns
+    (per-step metrics, steps/s over the steps after the first, step 1's
+    gradient leaves (f32 arms), the final params' leaves)."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.training import optimizers, train
+
+    cfg, params, tokens = _mesh_setup(device, dtype_name, fields)
+    tx = optimizers.adamw(1e-4, mu_dtype=None)
+    state = train.create_sharded_state(None, lambda _: params, tx,
+                                       device=device)
+    loss = functools.partial(transformer.loss_fn, config=cfg, device=device)
+    grads = None
+    if dtype_name == "float32":
+        _, grads = train._grads(loss, state.params, {"tokens": tokens})
+    step = train.make_train_step(loss, tx)
+    metrics, start = [], None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        metrics.append({key: float(v) for key, v in m.items()})
+    torch.cuda.synchronize()
+    rate = (steps - 1) / (time.perf_counter() - start)
+    return metrics, rate, grads, [p.detach() for p in leaves(state.params)]
+
+
+def _mesh_arm(rank, device, arm, ref=None):
+    """One arm of phase 6mesh on this rank: the mesh built over the
+    default group, the state cut from the full weights, step 1's gradient
+    computed through the step's own gather and sync and gathered whole,
+    then the steps (launches counted from 0 before them), and the final
+    params gathered whole.  Every rank runs the same collectives; rank 0
+    holds the results to ``ref`` (:func:`_mesh_reference`).  Returns the
+    rank's report."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves, map_leaves
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.parallel import MeshSpec, sharding
+    from cloud_tpu_torch.training import optimizers, train
+
+    name, sizes, fields, dtype_name = arm
+    mesh = MeshSpec(sizes).build(devices=[device] * 2, backend="gloo")
+    cfg, params, tokens = _mesh_setup(device, dtype_name, fields)
+    axes = transformer.param_logical_axes(cfg)
+    tx = optimizers.adamw(1e-4, mu_dtype=None)
+    state = train.create_sharded_state(
+        None, lambda _: map_leaves(params, torch.clone), tx, mesh=mesh,
+        logical_axes=axes)
+    del params
+    loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh)
+    data = (mesh.axis_index("dp") * mesh.axis_size("fsdp")
+            + mesh.axis_index("fsdp"))
+    per = MESH_BATCH // (mesh.axis_size("dp") * mesh.axis_size("fsdp"))
+    batch = train.shard_batch({"tokens": tokens[data * per:(data + 1) * per]},
+                              mesh)
+    report = {"arm": name}
+    f32 = dtype_name == "float32"
+    if f32:
+        layout = train._MeshLayout(mesh, None, axes, state.params)
+        _, grads = train._grads(loss, layout.gather(state.params), batch)
+        whole = sharding.gather_tree(
+            train._with_leaves(state.params, iter(layout.sync(grads))),
+            axes, mesh)
+        if ref is not None:
+            want = ref[2]
+            scale = max(float(g.abs().max()) for g in want)
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(leaves(whole), want))
+            report["grad_err_rel"] = err / scale
+            if err > TOL_F32 * scale:
+                raise AssertionError(
+                    f"6mesh {name}: step 1's gradient differs from one "
+                    f"process's by {err:.3e} (> 1e-4 of {scale:.3e})")
+        del whole, grads
+    step = train.make_train_step(loss, tx, mesh=mesh, logical_axes=axes)
+    steps = MESH_STEPS if f32 else MESH_BF16_STEPS
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    metrics, start = [], None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({key: float(v) for key, v in m.items()})
+    torch.cuda.synchronize()
+    report["steps_per_s"] = (steps - 1) / (time.perf_counter() - start)
+    report["launches"] = dispatch.launch_counts(TRAIN_ATTN_KERNELS)
+    report["metrics"] = metrics
+    per_layer = mesh_launches_per_layer(sizes, fields)
+    want = {k: v * cfg.num_layers * steps for k, v in per_layer.items()}
+    if report["launches"] != want:
+        raise AssertionError(f"6mesh {name} rank {rank}: launches "
+                             f"{report['launches']}, want {want}")
+    final = sharding.gather_tree(state.params, axes, mesh)
+    if ref is not None:
+        ref_metrics = ref[0]
+        if f32:
+            checks = (("step 1 loss", metrics[0]["loss"],
+                       ref_metrics[0]["loss"]),
+                      ("step 1 grad_norm", metrics[0]["grad_norm"],
+                       ref_metrics[0]["grad_norm"]),
+                      ("step 2 loss", metrics[1]["loss"],
+                       ref_metrics[1]["loss"]))
+            rel = TOL_F32
+        else:
+            checks = tuple((f"step {i + 1} loss", m["loss"], r["loss"])
+                           for i, (m, r) in enumerate(zip(metrics,
+                                                          ref_metrics)))
+            rel = 2e-2
+        for what, got, want_v in checks:
+            if not np.isfinite(got) or abs(got - want_v) > rel * abs(want_v):
+                raise AssertionError(
+                    f"6mesh {name}: {what} {got!r} against one process's "
+                    f"{want_v!r} (limit {rel} relative)")
+        report["param_diff"] = max(float((a.detach() - b).abs().max())
+                                   for a, b in zip(leaves(final), ref[3]))
+        report["one_process_steps_per_s"] = ref[1]
+    del state, final
+    torch.cuda.empty_cache()
+    return report
+
+
+def _mesh_follower(port, device_name, model, queue, setup=None):
+    """Rank 1 of phase 6mesh, in a spawned child: every arm in order, as
+    rank 0 runs them; after each, its report on ``queue`` (an error's
+    repr if it fails).  ``setup``, a module-level function, runs first
+    (a CPU rehearsal patches the kernels with it)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    global MESH_MODEL
+    MESH_MODEL = model
+    if setup is not None:
+        setup()
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = dist.TCPStore("127.0.0.1", port, 2, False,
+                          timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=1, world_size=2,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        for arm in MESH_ARMS:
+            queue.put(_mesh_arm(1, device, arm))
+    except BaseException as exc:  # noqa: BLE001 — reported to rank 0
+        queue.put(repr(exc))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_training(device, card, setup=None):
+    """6mesh: CloudLM SMALL at full width and depth trained under a 2-rank
+    mesh, rank 0 here and rank 1 in a spawned child, both on ``device``
+    over gloo: ``{sp: 2}`` zig-zag, ``{sp: 2}`` Ulysses, ``{tp: 2}`` and
+    ``{fsdp: 2}`` in f32 (TF32 off), each held to one process running the
+    same steps on the same weights and batch (step 1's loss and
+    ``grad_norm`` and step 2's loss within 1e-4 relative; step 1's
+    gradient, gathered whole, within 1e-4 of its largest magnitude; the
+    largest param difference printed, not held: AdamW's first update is
+    about +-lr wherever a gradient is tiny), then the zig-zag arm in bf16
+    on f32 masters (finite, every step's loss within 2e-2 relative of one
+    process's; steps/s beside one process's, not held).  Each rank's K5,
+    K6 and K7 launches equal :func:`mesh_launches_per_layer` x 12 layers
+    x steps.  Two ranks over gloo on one card measure the lockstep's
+    overhead, not NCCL between cards."""
+    import datetime
+    import multiprocessing
+    import queue as queue_lib
+
+    import torch
+    import torch.distributed as dist
+
+    refs = {}
+    for arm in MESH_ARMS:
+        key = (arm[3], tuple(sorted(arm[2].items())))
+        if arm[3] == "float32":
+            key = ("float32", ())  # f32 arms share one reference
+        if key not in refs:
+            refs[key] = _mesh_reference(
+                device, arm[3], {} if arm[3] == "float32" else arm[2],
+                MESH_STEPS if arm[3] == "float32" else MESH_BF16_STEPS)
+    torch.cuda.empty_cache()
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    ctx = multiprocessing.get_context("spawn")
+    reports = ctx.Queue()
+    child = ctx.Process(target=_mesh_follower,
+                        args=(store.port, str(device), MESH_MODEL, reports,
+                              setup), daemon=True)
+    child.start()
+    out = {"arms": {}}
+    try:
+        dist.init_process_group(
+            "gloo", store=store, rank=0, world_size=2,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        for arm in MESH_ARMS:
+            key = (("float32", ()) if arm[3] == "float32"
+                   else (arm[3], tuple(sorted(arm[2].items()))))
+            mine = _mesh_arm(0, device, arm, refs[key])
+            try:
+                theirs = reports.get(timeout=MESH_TIMEOUT_S)
+            except queue_lib.Empty:
+                raise AssertionError(f"6mesh {arm[0]}: rank 1 did not report "
+                                     f"within {MESH_TIMEOUT_S} s") from None
+            if isinstance(theirs, str):
+                raise AssertionError(f"6mesh {arm[0]}: rank 1 failed: "
+                                     f"{theirs}")
+            m0, r0 = mine["metrics"], refs[key][0]
+            extra = (f"gradient within {mine['grad_err_rel']:.2e} of its "
+                     f"largest magnitude, " if "grad_err_rel" in mine else "")
+            print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
+                  f"{m0[1]['loss']:.6f} against one process's "
+                  f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
+                  f"{m0[0]['grad_norm']:.6f} ({r0[0]['grad_norm']:.6f}), "
+                  f"{extra}largest param difference "
+                  f"{mine['param_diff']:.3e}; {mine['steps_per_s']:.3f} "
+                  f"steps/s on 2 ranks against "
+                  f"{mine['one_process_steps_per_s']:.3f} in one process; "
+                  f"launches rank 0 {mine['launches']}, rank 1 "
+                  f"{theirs['launches']} [{card}]")
+            out["arms"][arm[0]] = {"rank0": mine, "rank1": theirs}
+        child.join(timeout=MESH_TIMEOUT_S)
+        if child.exitcode != 0:
+            raise AssertionError(f"6mesh: rank 1 exited {child.exitcode}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if child.is_alive():
+            child.kill()
+            child.join()
+    out["launches"] = {
+        k: sum(a["rank0"]["launches"][k] + a["rank1"]["launches"][k]
+               for a in out["arms"].values()) for k in TRAIN_ATTN_KERNELS}
+    return out
+
+
 def tensor_core_sass(dispatch):
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     flash libraries, read from ``cuobjdump -sass``; raises unless every
@@ -6723,6 +7200,10 @@ def main() -> int:
         ("phase 2 (tp): K5, K8 and K8q at a tp-2 rank's head count (6 of "
          "SMALL's 12, heads a strided view of a full-width projection)",
          "tp kernel check", lambda: check_tp_kernels(device, card), True),
+        ("phase 2 (ring): the ring's K5 folds and K6/K7 hops for every "
+         "rank (n=2/4: causal with empty blocks, non-causal, zig-zag), "
+         "assembled, against one whole-sequence call and the plain version",
+         "ring check", lambda: check_ring(device, card), False),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -6909,6 +7390,14 @@ def main() -> int:
         start = time.perf_counter()
         dots = run_remat_dots(device, card)
         print(f"  (remat dots: {time.perf_counter() - start:.1f} s wall)")
+        title = (f"phase 6mesh: train CloudLM SMALL b{MESH_BATCH}xT{MESH_SEQ} "
+                 "under 2-rank meshes on the card over gloo ({sp: 2} "
+                 "zig-zag and Ulysses, {tp: 2}, {fsdp: 2} in f32 against one "
+                 "process; zig-zag in bf16)")
+        print(title)
+        start = time.perf_counter()
+        mesh_run = run_mesh_training(device, card)
+        print(f"  (mesh training: {time.perf_counter() - start:.1f} s wall)")
         title = (f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
                  f"3 + 10 steps, then one step under torch.profiler")
         print(title)
@@ -6957,11 +7446,13 @@ def main() -> int:
     chunks = results["paged chunk check"]
     verify = results["paged verify check"]
     tp_kernels = results["tp kernel check"]
+    ring_check = results["ring check"]
     for entry in kernels:
         for dname, key in (("bfloat16", "max_abs_err"),
                            ("float32", "max_abs_err_f32")):
             for errs in (chunks["max_abs_err"], verify["max_abs_err"],
-                         tp_kernels["max_abs_err"]):
+                         tp_kernels["max_abs_err"],
+                         ring_check["max_abs_err"]):
                 err = errs.get(f"{entry['name']} {dname}")
                 if err is not None:
                     entry[key] = max(entry[key], err)
@@ -6981,8 +7472,9 @@ def main() -> int:
                "moe engine": results["moe engine"],
                # Both ranks of the tp-2 slice.
                "tp engine": results["tp engine"]}
-    # K5-K7 also run in the training phases of the model zoo: 6m, 6d, 8v.
-    zoo_training = (moe_lm, dots, vit_run)
+    # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v)
+    # and under a mesh (6mesh, both ranks).
+    zoo_training = (moe_lm, dots, vit_run, mesh_run)
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -7077,6 +7569,11 @@ def main() -> int:
         "moe_engine": {k: v for k, v in results["moe engine"].items()
                        if k != "launches"},
         "tp_rank_kernels": tp_kernels["rows"],
+        "ring_block_kernels": ring_check["rows"],
+        "mesh_training": {name: {rank: {k: v for k, v in r.items()
+                                        if k != "metrics"}
+                                 for rank, r in arm.items()}
+                          for name, arm in mesh_run["arms"].items()},
         "engine_tp2": {k: v for k, v in results["tp engine"].items()
                        if k != "launches"},
         "moe_lm_b4xT1024": moe_lm,

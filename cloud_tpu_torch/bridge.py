@@ -124,6 +124,64 @@ def to_torch_shard(params, config: TransformerConfig, mesh, rules=None, *,
     return shard
 
 
+def _adam_moments(opt_state):
+    """The ``(count, mu, nu)`` of an optax adam/adamw state (a tuple
+    holding a ``ScaleByAdamState``), read by its field names."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (list, tuple)):
+        for part in opt_state:
+            found = _adam_moments(part)
+            if found is not None:
+                return found
+    return None
+
+
+def to_train_shard(params, config: TransformerConfig, mesh, rules=None, *,
+                   opt_state=None, device=None):
+    """JAX-layout params (numpy leaves) -> ``(params, opt_state)``, this
+    rank's training shard as ``train.create_sharded_state(mesh=...,
+    logical_axes=transformer.param_logical_axes(config), rules=...)``
+    lays it out, trainable, on ``device`` (the mesh's device by default).
+    ``opt_state``, an optax adam/adamw state, becomes the port's
+    ``{"count", "mu", "nu"}`` cut the same way (None without one)."""
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.parallel import sharding
+
+    rules = rules or sharding.DEFAULT_RULES
+    device = resolve_device(device if device is not None else mesh.device)
+    axes = transformer.param_logical_axes(config)
+
+    def cut(tree):
+        shard = sharding.shard_tree(to_torch(tree, config, device="cpu"),
+                                    axes, mesh, rules)
+        return map_leaves(shard, lambda t: t.to(device))
+
+    shard = map_leaves(cut(params), lambda t: t.requires_grad_(True))
+    if opt_state is None:
+        return shard, None
+    count, mu, nu = _adam_moments(opt_state)
+    return shard, {"count": torch.tensor(int(np.asarray(count)),
+                                         dtype=torch.int32, device=device),
+                   "mu": cut(mu), "nu": cut(nu)}
+
+
+def from_train_shard(shard, config: TransformerConfig, mesh, rules=None
+                     ) -> Dict[str, Any]:
+    """The inverse of :func:`to_train_shard` for a params-shaped tree
+    (params, or a moment): every rank's shards gathered whole and laid
+    out as the JAX package's numpy tree.  A collective call on every
+    rank."""
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.parallel import sharding
+
+    full = sharding.gather_tree(
+        map_leaves(shard, lambda t: t.detach()),
+        transformer.param_logical_axes(config), mesh,
+        rules or sharding.DEFAULT_RULES)
+    return to_numpy(full)
+
+
 def to_numpy(params) -> Dict[str, Any]:
     """The port's params -> JAX-layout numpy pytree (layers restacked)."""
     out = {k: map_leaves(v, _to_numpy) for k, v in params.items()

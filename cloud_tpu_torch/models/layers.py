@@ -13,7 +13,10 @@ Under tensor parallelism (``parallel/tensor_parallel.py``) the params are
 one rank's shard: :func:`row_parallel_dense` sums a row-split layer's
 partial products over ``tp``, :func:`embedding_apply` assembles a
 vocab-split lookup, and every other function runs on the shard as it
-runs on the full params.
+runs on the full params.  In training (a ``TrainContext``) those sums
+and the column-split inputs (``tp.copy``) are differentiable, and
+:func:`sharded_attention` routes attention over the ``sp`` axis: Ulysses'
+all-to-all or the ring (``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -222,6 +225,83 @@ def rotary_embedding(x, positions, *, base: float = 10000.0):
 
 def mlp_block_apply(params, x, *, tp=None):
     """Gated (SwiGLU) MLP; under ``tp`` the hidden units are split
-    (``wi``/``wg`` column-split, ``wo`` row-split)."""
+    (``wi``/``wg`` column-split behind one ``tp.copy``, ``wo``
+    row-split)."""
+    if tp is not None:
+        x = tp.copy(x)
     h = F.silu(dense_apply(params["wi"], x)) * dense_apply(params["wg"], x)
     return row_parallel_dense(params["wo"], h, tp)
+
+
+def ulysses_eligible(num_heads: int, mesh, rules=None) -> bool:
+    """Whether Ulysses' seq<->head all-to-all exists on ``mesh``: the
+    local head group (``num_heads`` over the ``heads`` axes' shards) must
+    divide by the ``sp`` size (as ``cloud_tpu/models/layers.py``'s)."""
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+    if mesh is None:
+        return False
+    sp = mesh.axis_size(mesh_lib.AXIS_SP)
+    if sp <= 1:
+        return False
+    return (num_heads // _heads_shards(mesh, rules)) % sp == 0
+
+
+def _heads_shards(mesh, rules) -> int:
+    """How many shards the ``heads`` axis is cut into on ``mesh``."""
+    from cloud_tpu_torch.parallel import sharding
+
+    count = 1
+    for axis in sharding.mesh_axes(
+            (rules or sharding.DEFAULT_RULES).assignment("heads")):
+        count *= mesh.axis_size(axis)
+    return count
+
+
+def sharded_attention(q, k, v, *, causal: bool, mask=None, rules=None,
+                      mesh=None, zigzag: bool = False,
+                      ulysses: bool = False):
+    """Mesh-aware attention over a rank's ``[B, T_local, H_local, D]``
+    blocks (``cloud_tpu/models/layers.py``'s routing):
+
+    - ``sp`` > 1 and ``ulysses`` with a head group that divides by
+      ``sp``: one all-to-all of q, k and v stacked to ``[B, T, H/sp, D]``,
+      K5-K7 over the whole sequence, one all-to-all back; an ineligible
+      head group falls through to the ring, as in the JAX package;
+    - ``sp`` > 1 otherwise: the zig-zag ring when ``zigzag`` and
+      ``causal`` (a padding mask raises: the permuted layout has no mask
+      plumbing), else the contiguous ring with the key mask riding it;
+    - otherwise (no mesh, or ``sp`` 1): ``flash_attention`` directly.
+
+    ``mask`` is this rank's ``[B, T_local]`` slice of the key-padding
+    mask (Ulysses gathers it whole over ``sp``)."""
+    from cloud_tpu_torch.ops import flash_attention as flash_lib
+    from cloud_tpu_torch.parallel import autograd as autograd_lib
+    from cloud_tpu_torch.parallel import collectives
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+    from cloud_tpu_torch.parallel import ring_attention as ring_lib
+
+    mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+    sp = mesh.axis_size(mesh_lib.AXIS_SP) if mesh is not None else 1
+    if sp > 1 and ulysses and ulysses_eligible(
+            q.shape[2] * _heads_shards(mesh, rules), mesh, rules):
+        qkv = autograd_lib.seq_to_heads(torch.stack([q, k, v]), mesh,
+                                        seq_dim=2, heads_dim=3)
+        if mask is not None:
+            mask = collectives.all_gather(mask, mesh_lib.AXIS_SP,
+                                          gather_dim=1, mesh=mesh)
+        out = flash_lib.flash_attention(qkv[0], qkv[1], qkv[2],
+                                        causal=causal, mask=mask)
+        return autograd_lib.heads_to_seq(out, mesh)
+    if sp > 1:
+        if zigzag and mask is not None:
+            raise ValueError(
+                "padding masks are unsupported with zigzag_sp (the "
+                "zig-zag layout is for unpadded pretraining batches); "
+                "disable config.zigzag_sp for masked data"
+            )
+        if zigzag and causal:
+            return ring_lib.ring_attention_balanced(q, k, v, mesh=mesh)
+        return ring_lib.ring_attention(q, k, v, causal=causal, mask=mask,
+                                       mesh=mesh)
+    return flash_lib.flash_attention(q, k, v, causal=causal, mask=mask)

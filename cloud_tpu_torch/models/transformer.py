@@ -14,13 +14,22 @@ Tensor parallelism: params cut to one rank's shard
 (``parallel/tensor_parallel.py``, :func:`param_logical_axes`) carry their
 ``TensorParallel`` under ``params["tp"]``; the forward pass then runs a
 rank's heads and hidden units and calls the collectives where the JAX
-package's GSPMD inserts them.  The other mesh layouts (sp/pp, zig-zag and
-Ulysses sequence parallelism) have no counterpart yet:
-``num_microbatches``, ``zigzag_sp`` and ``ulysses_sp`` are carried (so a
-config and its bundle's ``config.json`` read alike in both packages) and
-act only under a mesh, as in the JAX package.  With ``moe`` set, each
-layer's MLP is :func:`cloud_tpu_torch.models.moe.moe_mlp_apply` and the
-forward pass returns the layers' summed auxiliary loss beside the logits.
+package's GSPMD inserts them.
+
+Training under a mesh: :func:`apply`, :func:`apply_hidden` and
+:func:`loss_fn` take ``mesh=`` and ``rules=`` as the JAX package's do
+(the installed global mesh when ``mesh`` is None) and build a
+``parallel.tensor_parallel.TrainContext``.  Each rank runs its heads and
+hidden units (``tp``) on its rows (``dp``, ``fsdp``) and its block of
+the sequence (``sp``): ``apply_hidden`` permutes tokens and positions
+for ``zigzag_sp`` and keeps the rank's block, attention goes through
+``layers.sharded_attention`` (the ring, or Ulysses with ``ulysses_sp``),
+and ``loss_fn`` returns this rank's share of the GLOBAL loss (its
+numerator over the weight total of every rank) with the global value in
+its metrics.  ``num_microbatches`` (pp) and the MoE MLP under a mesh
+are queued under ROADMAP.md A.3.  With ``moe`` set, each layer's
+MLP is :func:`cloud_tpu_torch.models.moe.moe_mlp_apply` and the forward
+pass returns the layers' summed auxiliary loss beside the logits.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.models.moe import MoeConfig, moe_mlp_apply
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops.fused_cross_entropy import fused_linear_cross_entropy
+from cloud_tpu_torch.parallel import mesh as mesh_lib
+from cloud_tpu_torch.parallel import tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +121,15 @@ def _layer_compute(layer_params, x, aux, *, config, positions, tp=None):
     shard."""
     b, t, _ = x.shape
     y = layers.rmsnorm_apply(layer_params["ln1"], x)
+    if tp is not None:
+        y = tp.copy(y)
     q, k, v = qkv_project(layer_params["att"], y, positions, config)
-    attended = flash_lib.flash_attention(q, k, v, causal=True)
+    if isinstance(tp, tensor_parallel.TrainContext):
+        attended = layers.sharded_attention(
+            q, k, v, causal=True, rules=tp.rules, mesh=tp.mesh,
+            zigzag=config.zigzag_sp, ulysses=config.ulysses_sp)
+    else:
+        attended = flash_lib.flash_attention(q, k, v, causal=True)
     x = x + layers.row_parallel_dense(layer_params["att"]["out"],
                                       attended.reshape(b, t, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
@@ -124,18 +142,71 @@ def _layer_compute(layer_params, x, aux, *, config, positions, tp=None):
     return x + mlp_out, aux
 
 
-def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
+def _context(params, config: TransformerConfig, mesh, rules):
+    """The params' own ``TensorParallel`` (a serving shard), else the
+    :class:`TrainContext` of ``mesh`` (or the installed global mesh),
+    else None (one card)."""
+    if config.zigzag_sp and config.ulysses_sp:
+        raise ValueError(
+            "zigzag_sp and ulysses_sp are mutually exclusive sp strategies"
+        )
+    tp = params.get("tp")
+    if tp is not None:
+        return tp
+    mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+    if mesh is None:
+        return None
+    from cloud_tpu_torch.parallel import sharding
+
+    return tensor_parallel.train_context(mesh, config,
+                                         rules or sharding.DEFAULT_RULES)
+
+
+def _device(ctx, device):
+    if device is None and isinstance(ctx, tensor_parallel.TrainContext):
+        return ctx.mesh.device
+    return resolve_device(device)
+
+
+def _positions(ctx, t: int, config: TransformerConfig, device):
+    """Global positions of the slots this rank computes: ``arange(t)``,
+    permuted by the zig-zag layout when it is active, cut to the rank's
+    ``sp`` block."""
+    pos = torch.arange(t, device=device)
+    if not isinstance(ctx, tensor_parallel.TrainContext) or ctx.sp_size == 1:
+        return pos
+    from cloud_tpu_torch.parallel import ring_attention
+
+    sp = ctx.sp_size
+    if config.zigzag_sp:
+        pos = ring_attention.zigzag_indices(t, sp, device=device)
+    elif t % sp:
+        raise ValueError(f"seq_len {t} does not divide by sp={sp}")
+    block = t // sp
+    return pos[ctx.sp_index * block:(ctx.sp_index + 1) * block]
+
+
+def apply_hidden(params, tokens, config: TransformerConfig, *, device=None,
+                 mesh=None, rules=None):
     """Forward pass up to the final norm: tokens ``[B, T]`` ->
     ``(hidden [B, T, D], aux)``, ``aux`` the f32 sum of the MoE layers'
-    auxiliary losses (zero for the dense MLP)."""
-    device = resolve_device(device)
+    auxiliary losses (zero for the dense MLP).  Under a training mesh the
+    hidden states are the rank's ``sp`` block of the sequence, in the
+    zig-zag order when ``zigzag_sp`` is active."""
+    tp = _context(params, config, mesh, rules)
+    return _apply_hidden(params, tokens, config, tp, _device(tp, device))
+
+
+def _apply_hidden(params, tokens, config: TransformerConfig, tp, device):
     tokens = torch.as_tensor(tokens, device=device)
     b, t = tokens.shape
-    tp = params.get("tp")
+    pos = _positions(tp, t, config, device)
+    if pos.shape[0] != t:
+        tokens = tokens[:, pos]
     x = layers.embedding_apply(params["embed"], tokens, dtype=config.dtype,
                                tp=tp)
     x = x * math.sqrt(config.dim)  # stays in config.dtype, as in JAX
-    positions = torch.arange(t, device=device).expand(b, t)
+    positions = pos.expand(b, pos.shape[0])
     body = layers.remat_wrap(_layer_compute, config.remat,
                              config.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=device)
@@ -145,11 +216,15 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None):
     return layers.rmsnorm_apply(params["ln_f"], x), aux
 
 
-def apply(params, tokens, config: TransformerConfig, *, device=None):
+def apply(params, tokens, config: TransformerConfig, *, device=None,
+          mesh=None, rules=None):
     """Forward pass: tokens ``[B, T]`` -> ``(logits [B, T, V] f32, aux)``;
-    ``aux`` is the MoE auxiliary loss, zero for the dense MLP."""
-    x, aux = apply_hidden(params, tokens, config, device=device)
-    return lm_logits(params, x, config), aux
+    ``aux`` is the MoE auxiliary loss, zero for the dense MLP.  Under a
+    training mesh, the logits of the rank's ``sp`` block (zig-zag order
+    with ``zigzag_sp``), every vocabulary column."""
+    tp = _context(params, config, mesh, rules)
+    x, aux = _apply_hidden(params, tokens, config, tp, _device(tp, device))
+    return lm_logits(params, x, config, tp=tp), aux
 
 
 def head_table(params, config: TransformerConfig):
@@ -174,17 +249,16 @@ def head_table(params, config: TransformerConfig):
     return head["kernel"], "dv"
 
 
-def lm_logits(params, x, config: TransformerConfig):
+def lm_logits(params, x, config: TransformerConfig, *, tp=None):
     """Final vocabulary projection in f32.  An int8 head or tied table
     takes the post-scale route, ``(x @ q) * scale``, in f32.  A
-    tensor-parallel shard (``params["tp"]``) with a split vocabulary
-    computes its own columns and gathers every rank's, in order: the one
-    reshard of a forward pass, at the sampling boundary."""
-    tp = params.get("tp")
-    logits = _local_logits(params, x, config)
+    tensor-parallel shard (``params["tp"]``, or ``tp`` in training) with a
+    split vocabulary computes its own columns and gathers every rank's, in
+    order: the one reshard of a forward pass, at the sampling boundary."""
+    tp = tp if tp is not None else params.get("tp")
     if tp is not None and tp.vocab_split:
-        return tp.gather_vocab(logits)
-    return logits
+        return tp.gather_vocab(_local_logits(params, tp.copy(x), config))
+    return _local_logits(params, x, config)
 
 
 def _local_logits(params, x, config: TransformerConfig):
@@ -232,11 +306,60 @@ def param_logical_axes(config: TransformerConfig):
     return axes
 
 
+def _mesh_loss(params, batch, config, tp, device):
+    """:func:`loss_fn` under a training mesh.  The loss is JAX's global
+    ``sum(nll * w) / max(sum(w), 1)`` over every rank's rows and
+    positions: this rank returns its numerator over the global weight
+    total (a constant), so the step's sum of the ranks' gradients over
+    the data axes is the global loss's gradient; the metrics carry the
+    global value, the same on every rank."""
+    if config.fused_ce and tp.vocab_split:
+        raise NotImplementedError(
+            "fused_ce with a vocabulary split over tp is not in the PyTorch "
+            "port yet: it is queued under ROADMAP.md A.2")
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    t = tokens.shape[1]
+    # Slot j predicts global position pos[j] + 1, from the rank's whole
+    # row, so the shift crosses sp blocks; then the rank's block.
+    pos = _positions(tp, t, config, device)
+    target_idx = torch.clamp(pos + 1, max=t - 1)
+    targets = tokens[:, target_idx].long()
+    weights = (pos < t - 1).float()[None, :].expand(tokens.shape[0],
+                                                    pos.shape[0])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).float()
+        weights = weights * mask[:, target_idx]
+    w_local = weights.sum()
+    hidden, aux = _apply_hidden(params, tokens, config, tp, device)
+    if config.fused_ce:
+        table, layout = head_table(params, config)
+        mean = fused_linear_cross_entropy(hidden, table, targets,
+                                          table_layout=layout,
+                                          weights=weights)
+        num = mean * torch.clamp(w_local, min=1.0)
+    else:
+        logits = lm_logits(params, hidden, config, tp=tp)
+        log_probs = F.log_softmax(logits, dim=-1)
+        nll = -log_probs.gather(-1, targets[..., None])[..., 0]
+        num = (nll * weights).sum()
+    total = torch.clamp(tp.sum_over_data(w_local.detach()), min=1.0)
+    ce = tp.sum_over_data(num.detach()) / total
+    loss = ce + aux
+    return num / total + aux, {"loss": loss, "ce": ce, "aux": aux}
+
+
 def loss_fn(params, batch: Dict[str, Any], config: TransformerConfig, *,
-            device=None):
+            device=None, mesh=None, rules=None):
     """Next-token cross-entropy; ``batch = {"tokens": [B, T]}``, optionally
     ``"loss_mask"`` [B, T] gating the loss at each target position.
-    Returns ``(loss, {"loss", "ce", "aux"})``."""
+    Returns ``(loss, {"loss", "ce", "aux"})``.  Under a training mesh
+    (``mesh``, or the installed global mesh) ``batch`` is this rank's rows
+    (whole sequences) and the returned loss is its share of the global
+    loss (see :func:`_mesh_loss`)."""
+    tp = _context(params, config, mesh, rules)
+    if isinstance(tp, tensor_parallel.TrainContext):
+        return _mesh_loss(params, batch, config, tp, _device(tp, device))
     device = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=device)
     if config.fused_ce:
@@ -263,3 +386,9 @@ def loss_fn(params, batch: Dict[str, Any], config: TransformerConfig, *,
         ce = (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+#: Under a mesh, :func:`loss_fn` returns its rank's share of the global
+#: loss: the only kind ``training.train``'s step under a mesh takes
+#: (``train.mesh_loss``).
+loss_fn.mesh_loss = True

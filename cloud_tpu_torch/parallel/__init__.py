@@ -8,6 +8,10 @@ machine config or a device count to a layout; sharding rules map logical
 tensor axes to mesh axes, which decides each rank's slice of a tensor.
 The JAX package's ``named_sharding`` (a GSPMD placement) has no
 counterpart: ``sharding.shard_tensor`` cuts a rank's slice instead.
+Training under a mesh adds ``ring_attention.py`` (the ring and the
+zig-zag ring over the flash kernels), ``autograd.py`` (the collectives
+a backward pass runs) and ``collectives``' two-level sum, ``grad_sync``
+and Ulysses' all-to-all.
 """
 
 from cloud_tpu_torch.parallel.mesh import (

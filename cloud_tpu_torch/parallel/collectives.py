@@ -16,13 +16,14 @@ tensor's device, never on a failure.  gloo takes CUDA tensors in
 the card); its point-to-point sends of CUDA tensors are not relied on, so
 on gloo with CUDA tensors ``ring_permute`` is an ``all_reduce`` of a
 zero-padded buffer (each rank's block at its own offset; adding zeros is
-exact).
+exact).  ``all_to_all_seq_heads`` uses ``all_to_all_single`` on every
+backend.
 
 Every collective with a payload runs under a ``collective/<name>`` span
 carrying its payload bytes and axis (``monitoring/tracing.py``); the
-walk is skipped when tracing is off.  ``hierarchical_all_reduce_sum``,
-``grad_sync`` and ``all_to_all_seq_heads`` come with training under a
-mesh (ROADMAP.md, section A).
+walk is skipped when tracing is off.  None of these functions is
+differentiable; ``parallel/autograd.py`` wraps the ones a training
+step's backward needs.
 """
 
 from __future__ import annotations
@@ -175,6 +176,98 @@ def ring_permute(x: torch.Tensor, axis: str, *, shift: int = 1, mesh=None):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out
+
+
+def hierarchical_all_reduce_sum(x: torch.Tensor, *, ici_axis: str,
+                                dcn_axis: str, scatter_dim: int = 0,
+                                mesh=None):
+    """Two-level all-reduce for a mesh split over slow links: a
+    reduce-scatter over ``ici_axis`` (the fast links), an all-reduce of
+    the ``1/ici``-sized shard over ``dcn_axis``, then an all-gather over
+    ``ici_axis``; only the shard crosses the slow links.  Where
+    ``scatter_dim`` does not divide by the ``ici_axis`` size, a flat sum
+    over both axes (the JAX package's indivisible route)."""
+    mesh = _mesh(mesh)
+    with _span("collective/hierarchical_all_reduce_sum", x,
+               (ici_axis, dcn_axis)):
+        n = mesh.axis_size(ici_axis)
+        if x.dim() == 0 or x.shape[scatter_dim] % n:
+            out = x
+            for name in (ici_axis, dcn_axis):
+                out = _all_reduce(out, mesh, name)
+            return out
+        shard = reduce_scatter_sum(x, ici_axis, scatter_dim=scatter_dim,
+                                   mesh=mesh)
+        shard = _all_reduce(shard, mesh, dcn_axis)
+        return all_gather(shard, ici_axis, gather_dim=scatter_dim,
+                          mesh=mesh)
+
+
+def grad_sync(grads, axis: AxisNames, *, mean: bool = True,
+              accum_dtype=torch.float32, mesh=None):
+    """Sum (``mean=False``) or mean of a gradient tree (nested dicts and
+    lists of tensors) over ``axis``: floating leaves narrower than
+    ``accum_dtype`` are reduced in it and cast back (a bf16 sum on the
+    wire loses low-order bits at every add).  Leaves are reduced one by
+    one in the tree's order (dict keys sorted), the same on every rank."""
+    mesh = _mesh(mesh)
+    axes = _axes(axis)
+    width = torch.finfo(accum_dtype).bits
+
+    def sync(g):
+        dtype = g.dtype
+        if dtype.is_floating_point and torch.finfo(dtype).bits < width:
+            g = g.to(accum_dtype)
+        n = 1
+        for name in axes:
+            g = _all_reduce(g, mesh, name)
+            n *= mesh.axis_size(name)
+        if mean:
+            g = g / n
+        return g.to(dtype)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return sync(tree)
+
+    with _span("collective/grad_sync", grads, axis):
+        return walk(grads)
+
+
+def all_to_all_seq_heads(x: torch.Tensor, axis: str, *, seq_dim: int = 1,
+                         heads_dim: int = 2, to_heads: bool = True,
+                         mesh=None):
+    """Re-shard attention activations between the sequence-parallel and
+    the head-parallel layout with one all-to-all (Ulysses): with
+    ``to_heads`` a ``[B, T/n, H, D]`` block becomes ``[B, T, H/n, D]``
+    (every position of this member's head group, blocks in axis order),
+    and ``to_heads=False`` inverts it.  The split dim must divide by the
+    axis size (``ValueError`` as in the JAX package)."""
+    split, concat = ((heads_dim, seq_dim) if to_heads
+                     else (seq_dim, heads_dim))
+    mesh = _mesh(mesh)
+    n = mesh.axis_size(axis)
+    if x.shape[split] % n:
+        raise ValueError(
+            f"all_to_all split dim {split} (size {x.shape[split]}) must "
+            f"divide by axis {axis!r} size {n}"
+        )
+    with _span("collective/all_to_all_seq_heads", x, axis):
+        group = mesh.group(axis)
+        if group is None:
+            return x.clone()
+        # Chunk j of the split dim goes to member j: move the chunks to a
+        # leading dim, exchange, and lay what arrived along ``concat`` in
+        # member order.
+        parts = x.unflatten(split, (n, x.shape[split] // n))
+        send = parts.movedim(split, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        # recv[j] is member j's chunk, shaped as x with split cut to 1/n.
+        return torch.cat(list(recv.unbind(0)), dim=concat)
 
 
 def axis_index(axis: str, *, mesh=None) -> int:

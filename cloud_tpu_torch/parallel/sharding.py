@@ -140,6 +140,50 @@ def shard_tensor(x: torch.Tensor, logical_axes: Tuple[Optional[str], ...],
     return out.contiguous().clone() if cut else out
 
 
+def split_dims(mesh, logical_axes: Tuple[Optional[str], ...],
+               rules: ShardingRules = DEFAULT_RULES
+               ) -> Dict[int, Tuple[str, ...]]:
+    """Each cut dim of a tensor with ``logical_axes`` -> the nontrivial
+    mesh axes it is cut over (first axis major)."""
+    out = {}
+    for dim, axis in enumerate(logical_axes):
+        axes = tuple(a for a in mesh_axes(rules.assignment(axis))
+                     if mesh.axis_size(a) > 1)
+        if axes:
+            out[dim] = axes
+    return out
+
+
+def gather_tensor(x: torch.Tensor, logical_axes: Tuple[Optional[str], ...],
+                  mesh, rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+    """The inverse of :func:`shard_tensor`: the full tensor from every
+    rank's slice, each cut dim all-gathered over its axes (the minor axis
+    first; uneven extents exchanged first).  A collective call on every
+    rank of the cut axes."""
+    from cloud_tpu_torch.parallel import collectives
+
+    for dim, axes in split_dims(mesh, logical_axes, rules).items():
+        for axis in reversed(axes):
+            extent = torch.tensor([x.shape[dim]], dtype=torch.int64,
+                                  device=x.device)
+            sizes = collectives.all_gather(extent, axis, mesh=mesh).tolist()
+            x = collectives.all_gather(x, axis, gather_dim=dim, sizes=sizes,
+                                       mesh=mesh)
+    return x
+
+
+def gather_tree(shard, axes, mesh, rules: ShardingRules = DEFAULT_RULES):
+    """:func:`gather_tensor` over a tree of tensors, ``axes`` congruent
+    with it (a leaf's axes a tuple); leaves in sorted-key order."""
+    if isinstance(shard, (list, tuple)):
+        return [gather_tree(p, a, mesh, rules) for p, a in zip(shard, axes)]
+    return {name: (gather_tree(shard[name], axes[name], mesh, rules)
+                   if isinstance(shard[name], (dict, list, tuple))
+                   else gather_tensor(shard[name], tuple(axes[name]), mesh,
+                                      rules))
+            for name in sorted(shard)}
+
+
 def shard_tree(params, axes, mesh, rules: ShardingRules = DEFAULT_RULES):
     """:func:`shard_tensor` over a params tree, ``axes`` congruent with it
     (dicts and lists; a leaf's axes a tuple).  Weight-only int8 leaves

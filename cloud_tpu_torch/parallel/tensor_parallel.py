@@ -22,6 +22,15 @@ kernel's per-output-column scale stays whole on every rank.  The shard
 carries its :class:`TensorParallel` under the params' ``"tp"`` key, which
 every program reads; a params tree without the key runs the one-card
 code unchanged.
+
+Training under a mesh uses :class:`TrainContext` (:func:`train_context`),
+a :class:`TensorParallel` that also knows the data axes (``dp``,
+``fsdp``) and ``sp``, and whose collectives are differentiable
+(``parallel/autograd.py``): Megatron's conjugate pair ``copy`` /
+``reduce`` and the vocabulary gather with a slice for its transpose.
+CloudLM's ``loss_fn`` builds it from ``mesh=`` and ``rules=``; under
+training rules ``embed`` may split over ``fsdp`` (the step gathers those
+leaves whole before the forward pass, ``training/train.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from cloud_tpu_torch.parallel import autograd as autograd_lib
 from cloud_tpu_torch.parallel import collectives
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.parallel import sharding
@@ -77,6 +87,11 @@ class TensorParallel:
         sums, a masked lookup)."""
         return collectives.all_reduce_sum(x, self.axis, mesh=self.mesh)
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of column-split projections: ``x`` itself (serving
+        runs no backward; :class:`TrainContext` sums its cotangent)."""
+        return x
+
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """Vocab-split logits ``[..., V_local]`` -> replicated ``[..., V]``."""
         return collectives.all_gather(logits, self.axis,
@@ -88,26 +103,71 @@ class TensorParallel:
                 f"vocab_sizes={self.vocab_sizes})")
 
 
-def check_rules(mesh, rules: sharding.ShardingRules) -> bool:
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrainContext(TensorParallel):
+    """A training rank's view of the mesh: :class:`TensorParallel`'s
+    ``tp`` split with differentiable collectives, plus the axes the data
+    differ on (``dp``, ``fsdp``, ``sp``) for the global loss."""
+
+    rules: sharding.ShardingRules = sharding.DEFAULT_RULES
+
+    #: The axes over which ranks hold different rows or positions.
+    loss_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SP)
+
+    @property
+    def sp_size(self) -> int:
+        return self.mesh.axis_size(mesh_lib.AXIS_SP)
+
+    @property
+    def sp_index(self) -> int:
+        return self.mesh.axis_index(mesh_lib.AXIS_SP)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd_lib.reduce_from_tp(x, self.mesh)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return autograd_lib.copy_to_tp(x, self.mesh)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        return autograd_lib.gather_vocab(logits, self.mesh,
+                                         self.vocab_sizes)
+
+    def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over every axis the data differ on (not
+        differentiable: a loss's weight total or its reported value)."""
+        return collectives.all_reduce_sum(x, self.loss_axes, mesh=self.mesh)
+
+    def __repr__(self):
+        return (f"TrainContext(mesh={self.mesh.shape}, "
+                f"vocab_sizes={self.vocab_sizes})")
+
+
+def check_rules(mesh, rules: sharding.ShardingRules, *,
+                training: bool = False) -> bool:
     """Whether ``rules`` splits the vocabulary over ``tp``; raises
     ``ValueError`` for a table the tensor-parallel layers cannot run:
     heads and mlp must be split over ``tp`` (the KV cache shards by head),
-    embed must not be, and no axis may use another nontrivial mesh axis."""
+    vocab over ``tp`` or not at all, and embed not at all; ``training``
+    lets embed split over ``fsdp`` (or not at all).  No axis may use
+    another nontrivial mesh axis."""
     def split_axes(logical):
         return tuple(a for a in sharding.mesh_axes(rules.assignment(logical))
                      if mesh.axis_size(a) > 1)
 
+    embed_ok = (mesh_lib.AXIS_FSDP,) if training else ()
     for logical in _MUST_SPLIT + _MAY_SPLIT + _MUST_NOT_SPLIT:
         axes = split_axes(logical)
-        if any(a != mesh_lib.AXIS_TP for a in axes) or (
-                logical in _MUST_NOT_SPLIT and axes) or (
+        allowed = (embed_ok if logical in _MUST_NOT_SPLIT
+                   else (mesh_lib.AXIS_TP,))
+        if any(a not in allowed for a in axes) or len(axes) > 1 or (
                 logical in _MUST_SPLIT and not axes
                 and mesh.axis_size(mesh_lib.AXIS_TP) > 1):
             raise ValueError(
                 f"rules map {logical!r} to {rules.assignment(logical)!r} on "
                 f"a mesh of shape {mesh.shape}: the tensor-parallel layers "
                 "split heads and mlp over tp, vocab over tp or not at all, "
-                "and embed not at all")
+                "and embed " + ("over fsdp or not at all" if training
+                                else "not at all"))
     return bool(split_axes("vocab"))
 
 
@@ -122,13 +182,41 @@ def context(mesh, config, rules=sharding.DEFAULT_RULES) -> TensorParallel:
             "the KV cache shards by attention head")
     if config.moe is not None:
         raise ValueError("an MoE CloudLM has no tensor-parallel layers here")
-    sizes = None
-    if check_rules(mesh, rules):
-        sizes = tuple(
-            stop - start for start, stop in
-            (sharding.shard_bounds(config.vocab_size, tp, i)
-             for i in range(tp)))
-    return TensorParallel(mesh=mesh, vocab_sizes=sizes)
+    return TensorParallel(mesh=mesh, vocab_sizes=_vocab_sizes(
+        mesh, config, check_rules(mesh, rules)))
+
+
+def _vocab_sizes(mesh, config, split: bool):
+    if not split:
+        return None
+    tp = mesh.axis_size(mesh_lib.AXIS_TP)
+    return tuple(stop - start for start, stop in
+                 (sharding.shard_bounds(config.vocab_size, tp, i)
+                  for i in range(tp)))
+
+
+def train_context(mesh, config, rules=sharding.DEFAULT_RULES
+                  ) -> TrainContext:
+    """The :class:`TrainContext` of CloudLM ``config`` on ``mesh``:
+    ``tp`` must divide the head count; pipeline and expert parallelism
+    and the MoE MLP under a mesh are queued under ROADMAP.md A.3
+    (``NotImplementedError``)."""
+    for axis in (mesh_lib.AXIS_PP, mesh_lib.AXIS_EP):
+        if mesh.axis_size(axis) > 1:
+            raise NotImplementedError(
+                f"training on a mesh with {axis} > 1 is not in the PyTorch "
+                "port yet: it is queued under ROADMAP.md A.3")
+    if config.moe is not None:
+        raise NotImplementedError(
+            "an MoE CloudLM under a training mesh is not in the PyTorch "
+            "port yet: it is queued under ROADMAP.md A.3")
+    tp = mesh.axis_size(mesh_lib.AXIS_TP)
+    if config.num_heads % tp:
+        raise ValueError(
+            f"mesh tp={tp} does not divide num_heads={config.num_heads}")
+    split = check_rules(mesh, rules, training=True)
+    return TrainContext(mesh=mesh, rules=rules,
+                        vocab_sizes=_vocab_sizes(mesh, config, split))
 
 
 def shard_lm(params, config, mesh, rules=sharding.DEFAULT_RULES):

@@ -292,6 +292,21 @@ def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = ""):
     raise ValueError(f"unknown node {kind!r} in a checkpoint index")
 
 
+def _refuse_sharded(what: str) -> None:
+    """A state sharded over a mesh of several ranks (the installed global
+    mesh) is not saved or restored yet: each rank would write its own
+    shards over the others'."""
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.get_global_mesh()
+    if mesh is not None and mesh.spec.num_devices > 1:
+        raise NotImplementedError(
+            f"CheckpointManager.{what} under a mesh of several ranks (a "
+            "sharded layout, saved per rank and restored straight into "
+            "its shards) is not in the PyTorch port yet: it is queued "
+            "under ROADMAP.md A.2")
+
+
 class CheckpointManager:
     """Asynchronous saves of a state tree into numbered step directories,
     with the durability contract on top: integrity manifests with a
@@ -369,6 +384,7 @@ class CheckpointManager:
         interval to finish in the background) plus this save's snapshot
         — exactly the cost a training step pays at a save boundary.
         """
+        _refuse_sharded("save")
         step = int(step)
         with tracing.span("checkpoint/save", step=step):
             # Chaos seam: a crashed/hung save surfaces here — the same
@@ -448,6 +464,7 @@ class CheckpointManager:
         structure, shape or dtype raises ``ValueError``.  Without one,
         the saved tree comes back with its tensors on the manager's
         device.  A step whose files are damaged raises too."""
+        _refuse_sharded("restore")
         self._join_write(raise_error=False)
         step = self.latest_step() if step is None else step
         if step is None:

@@ -154,9 +154,11 @@ def abstract_batch(batch, mesh=None, rules=None, *, stacked: bool = False,
     ``batch_spec`` of anything with ``.shape``/``.dtype``) get ``device``
     (``cuda`` by default), where the trainer places them.  ``stacked``
     and ``batch_axis`` describe a mesh layout and change nothing on one
-    card; ``mesh``/``rules`` wait for ``parallel/*``."""
+    card; compile-ahead under a mesh (``mesh``/``rules``) is queued
+    (ROADMAP.md A.2) and raises."""
     del stacked, batch_axis  # the layout of a mesh; one card has none
-    train_lib.refuse_unported(mesh=mesh, rules=rules)
+    train_lib.refuse_unported(mesh=mesh, rules=rules,
+                              feature="compile-ahead (abstract_batch)")
     device = resolve_device(device)
 
     def spec(x):
@@ -179,7 +181,8 @@ def context_key(*, mesh=None, rules=None, donation: Tuple[int, ...] = (),
                 steps_per_dispatch: int = 1) -> Tuple:
     """The non-spec half of a registry key: the donation signature (the
     arguments a step updates in place) and K (the window's width)."""
-    train_lib.refuse_unported(mesh=mesh, rules=rules)
+    train_lib.refuse_unported(mesh=mesh, rules=rules,
+                              feature="compile-ahead (context_key)")
     return (tuple(donation), int(steps_per_dispatch))
 
 

@@ -248,9 +248,9 @@ def prefetch_to_device(
     ``limit`` caps batches per iterator: the trainer threads
     ``steps_per_epoch`` through so the worker never decodes and transfers
     batches past the epoch budget only to have them discarded.
-    ``mesh``/``rules`` wait for ``parallel/*`` and raise.
+    ``mesh``/``rules`` (a mesh) are queued (ROADMAP.md A.2) and raise.
     """
-    refuse_unported(mesh=mesh, rules=rules)
+    refuse_unported(mesh=mesh, rules=rules, feature="prefetch_to_device")
     device = resolve_device(device)
 
     def factory():
@@ -425,7 +425,7 @@ def prefetch_windows(
     :func:`_window_item`), padded on the worker thread, off the dispatch
     path.
     """
-    refuse_unported(mesh=mesh, rules=rules)
+    refuse_unported(mesh=mesh, rules=rules, feature="prefetch_windows")
     device = resolve_device(device)
 
     def factory():
@@ -451,7 +451,7 @@ def iter_windows(
     """Synchronous sibling of :func:`prefetch_windows` (``prefetch=0``):
     the same ``(n_steps, payload, valid)`` stream, no background thread,
     copies in the caller's stream order."""
-    refuse_unported(mesh=mesh, rules=rules)
+    refuse_unported(mesh=mesh, rules=rules, feature="iter_windows")
     device = resolve_device(device)
 
     def factory():

@@ -512,10 +512,22 @@ def decode_example(payload: bytes) -> Dict[str, object]:
 
 
 def _process_shard():
-    """(rank, world size) of ``torch.distributed`` when it is
-    initialized, else (0, 1)."""
+    """This process's (index, count) of the data: under an installed mesh
+    (``parallel.use_mesh``), its data coordinate over ``dp`` x ``fsdp``
+    and their product (ranks that differ only in ``tp`` or ``sp`` read
+    the same files); else the rank and world size of ``torch.distributed``
+    when it is initialized; else (0, 1)."""
     import torch.distributed as dist
 
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.get_global_mesh()
+    if mesh is not None:
+        index, count = 0, 1
+        for axis in (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP):
+            index = index * mesh.axis_size(axis) + mesh.axis_index(axis)
+            count *= mesh.axis_size(axis)
+        return index, count
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -541,9 +553,11 @@ def _list_files(patterns: Sequence[str]) -> List[str]:
 class RecordDataset:
     """Re-iterable batched dataset streaming from record files.
 
-    Sharding: with N hosts (``torch.distributed``'s world size when it is
-    initialized, else 1; or ``process_index``/``process_count``), host i
-    reads files
+    Sharding: with N hosts (under an installed mesh, ``parallel.use_mesh``,
+    the data coordinate over ``dp`` x ``fsdp`` and their product, so ranks
+    that differ only in ``tp`` or ``sp`` read the same files; else
+    ``torch.distributed``'s rank and world size when it is initialized,
+    else 1; or ``process_index``/``process_count``), host i reads files
     ``files[i::N]`` — disjoint shards, no coordination (the tf.data
     ``shard(num_shards, index)`` pattern the reference's input pipelines
     relied on).  When there are fewer files than hosts, records are strided

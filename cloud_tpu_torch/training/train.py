@@ -1,4 +1,4 @@
-"""Train state, step and multi-step window (port of ``cloud_tpu/training/train.py``, one card).
+"""Train state, step and multi-step window (port of ``cloud_tpu/training/train.py``).
 
 ``make_train_step(loss_fn, optimizer)`` returns ``step(state, batch) ->
 (state, metrics)`` with the JAX package's metrics (the loss function's,
@@ -20,16 +20,31 @@ non-finite guard (``skip_nonfinite``) and stochastic steps
 (``stochastic``): the state's ``rng`` is a threefry key
 (``cloud_tpu_torch.random``) that every step splits as JAX does,
 ``next_rng, step_rng = split(state.rng)``, handing ``rng=step_rng`` to
-the loss.  Meshes (``mesh``, ``logical_axes``, ``rules``) wait for
-``parallel/*`` (ROADMAP.md A.6) and raise ``NotImplementedError`` naming
-that.
+the loss.
+
+Under a mesh (``mesh``, ``logical_axes``, ``rules``), one process per
+rank (``parallel/``): :func:`create_sharded_state` cuts the parameters
+(and so the optimizer's moments) by the rules, and the step writes out
+what GSPMD inserts in the JAX package, in an order fixed by the program
+(:class:`_MeshLayout`): leaves split over ``fsdp`` are all-gathered
+before the forward pass; after ``backward()`` each gradient is
+reduce-scattered over ``fsdp`` (or summed over it, for a replicated
+leaf) and summed over ``dp`` and ``sp`` in f32 (``grad_sync``), nothing
+over ``tp``; ``grad_norm`` sums each leaf's squares over the axes that
+split it.  The loss must return its rank's share of the global loss
+(CloudLM's ``loss_fn`` does, marked ``mesh_loss``), so the summed
+gradients are the global loss's.  :func:`make_hybrid_dp_train_step` is
+the JAX package's replicated data-parallel step with the two-level
+gradient sum.  The window, ``Trainer.fit``, compile-ahead and the
+prefetch pipelines under a mesh are queued (ROADMAP.md A.2): their CUDA
+graphs cannot capture gloo's host-side collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +53,14 @@ from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import leaves, map_leaves
 from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.parallel import collectives, sharding
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 
-#: Why a mesh option raises.
-_MESH_LATER = ("needs parallel/* (several cards), which is not ported yet "
-              "(ROADMAP.md A.6)")
+#: Why the window, fit, compile-ahead and the pipelines refuse a mesh.
+_MESH_LATER = ("is queued under ROADMAP.md A.2: a step under a mesh runs "
+               "its collectives from the host (gloo, or NCCL between "
+               "cards), and the one-step and window CUDA graphs of this "
+               "path cannot capture gloo's host-side collectives")
 
 
 @dataclasses.dataclass
@@ -55,12 +74,82 @@ class TrainState:
     rng: Any = None
 
 
-def refuse_unported(*, mesh=None, logical_axes=None, rules=None) -> None:
-    """Raise ``NotImplementedError`` for a mesh option (a later item)."""
+def refuse_unported(*, mesh=None, logical_axes=None, rules=None,
+                    feature: str = "this entry point") -> None:
+    """Raise ``NotImplementedError`` for a mesh option of an entry point
+    that does not run under a mesh yet, naming its queued item."""
     for name, value in (("mesh", mesh), ("logical_axes", logical_axes),
                         ("rules", rules)):
         if value is not None:
-            raise NotImplementedError(f"{name} {_MESH_LATER}")
+            raise NotImplementedError(
+                f"{feature} with {name}= (under a mesh) {_MESH_LATER}")
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(
+            "mesh= takes a parallel.mesh.Mesh (MeshSpec(...).build()), got "
+            f"{type(mesh).__name__}")
+
+
+def mesh_loss(fn):
+    """Mark ``fn`` as a loss that, under a mesh, returns its rank's share
+    of the global loss (its numerator over the weight total of every
+    rank): the only kind a step under a mesh takes."""
+    fn.mesh_loss = True
+    return fn
+
+
+def _is_mesh_loss(fn) -> bool:
+    while True:
+        if getattr(fn, "mesh_loss", False):
+            return True
+        if not isinstance(fn, functools.partial):
+            return False
+        fn = fn.func
+
+
+def param_shardings(mesh, logical_axes, rules=None):
+    """Each leaf's ``PartitionSpec`` under ``rules``, a tree congruent
+    with ``logical_axes`` (a leaf's axes a tuple): the JAX package's
+    ``NamedSharding`` tree without the placement, which the port makes by
+    cutting (``parallel.sharding.shard_tree``).  ``sharding.split_dims``
+    names the mesh axes a leaf is cut over on ``mesh``."""
+    _check_mesh(mesh)
+    rules = rules or sharding.DEFAULT_RULES
+
+    def walk(axes):
+        if isinstance(axes, dict):
+            return {k: walk(v) for k, v in axes.items()}
+        if isinstance(axes, list):
+            return [walk(v) for v in axes]
+        return rules.spec(*axes)
+
+    return walk(logical_axes)
+
+
+def shard_batch(batch, mesh, rules=None, batch_axis: str = "batch", *,
+                stacked: bool = False, pad_to: Optional[int] = None):
+    """A batch as the step under ``mesh`` takes it.  As in the JAX
+    package's multi-process contract, ``batch`` is THIS process's rows:
+    those of its data coordinate (``dp`` x ``fsdp``); ranks that differ
+    only in ``tp`` or ``sp`` are given equal rows (each takes its ``sp``
+    block of the sequence itself).  Leaves become tensors on the rank's
+    device.  ``pad_to=N`` zero-pads the batch dim (dim 1 of a
+    ``stacked`` super-batch) to N first and returns ``(batch, valid)``,
+    ``valid`` a float32 ``[N]`` mask of real rows.  Without a mesh the
+    batch comes back as it is."""
+    del rules, batch_axis  # the rows are already this rank's
+    if pad_to is not None:
+        batch, valid = sharding.pad_batch(batch, pad_to,
+                                          axis=1 if stacked else 0)
+        return shard_batch(batch, mesh, stacked=stacked), valid
+    if mesh is None:
+        return batch
+    _check_mesh(mesh)
+    return map_leaves(batch, lambda x: torch.as_tensor(
+        np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+        device=mesh.device))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -72,13 +161,30 @@ def global_norm(tensors) -> torch.Tensor:
 def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
                          mesh=None, logical_axes=None, rules=None,
                          train_rng=None, *, device=None) -> TrainState:
-    """``init_fn(rng) -> params`` on ``device`` (``cuda`` by default),
-    made trainable, with the optimizer's state, a step count of 0 and
-    ``train_rng`` (a key's uint32 words, or None) as the state's key."""
-    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules)
+    """``init_fn(rng) -> params`` on ``device`` (``cuda`` by default; the
+    mesh's device for this rank under a mesh), made trainable, with the
+    optimizer's state, a step count of 0 and ``train_rng`` (a key's
+    uint32 words, or None) as the state's key.
+
+    Under ``mesh`` with ``logical_axes``, the parameters are this rank's
+    shards as ``rules`` cut them (``parallel.sharding.shard_tree``), so
+    the optimizer's moments are born as shards too.  The full tree is
+    initialized first (from ``rng``, the same on every rank) and then
+    cut: a 124M-parameter CloudLM fits one card whole; models that do
+    not would need a sharded init, which the port has not.  A mesh with
+    ``tp`` > 1 needs ``logical_axes`` (the layers take shards)."""
+    _check_mesh(mesh)
+    if mesh is not None:
+        if logical_axes is None and mesh.axis_size(mesh_lib.AXIS_TP) > 1:
+            raise ValueError("a mesh with tp > 1 needs logical_axes= (each "
+                             "rank holds its shard of the heads)")
+        device = mesh.device if device is None else device
     device = resolve_device(device)
-    params = map_leaves(init_fn(rng),
-                        lambda t: t.detach().to(device).requires_grad_(True))
+    params = map_leaves(init_fn(rng), lambda t: t.detach().to(device))
+    if mesh is not None and logical_axes is not None:
+        params = sharding.shard_tree(params, logical_axes, mesh,
+                                     rules or sharding.DEFAULT_RULES)
+    params = map_leaves(params, lambda t: t.requires_grad_(True))
     key = None if train_rng is None else random_lib.as_key(train_rng,
                                                             device=device)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
@@ -148,6 +254,133 @@ def _guarded_update(optimizer, params, grads, opt_state,
             new.copy_(torch.where(finite, new, prev))
 
 
+def _axes_leaves(params, axes) -> List[tuple]:
+    """The logical axes of each leaf of ``params`` in :func:`leaves`'
+    order (``axes`` congruent with ``params``, a leaf's axes a tuple)."""
+    if isinstance(params, dict):
+        return [a for k in sorted(params)
+                for a in _axes_leaves(params[k], axes[k])]
+    if isinstance(params, (list, tuple)):
+        return [a for p, ax in zip(params, axes)
+                for a in _axes_leaves(p, ax)]
+    return [tuple(axes)]
+
+
+def _with_leaves(tree, flat):
+    """``tree`` with its leaves replaced, in :func:`leaves`' order, by
+    the items of the iterator ``flat``."""
+    if isinstance(tree, dict):
+        new = {k: _with_leaves(tree[k], flat) for k in sorted(tree)}
+        return {k: new[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_with_leaves(v, flat) for v in tree]
+    return next(flat)
+
+
+class _MeshLayout:
+    """How each parameter leaf lies on the mesh, and the collectives of a
+    step under it, every one issued in leaf order (the same on every
+    rank; never from inside autograd):
+
+    - :meth:`gather`: a leaf split over ``fsdp`` all-gathered whole
+      (uneven extents as ``shard_bounds`` cut them);
+    - :meth:`sync`: each full gradient reduce-scattered over ``fsdp``
+      back to the leaf's shard (an all-reduce and this rank's slice where
+      the dim does not divide), or summed over ``fsdp`` for a leaf it
+      does not split, then summed over ``dp`` and ``sp``, all in f32;
+      nothing over ``tp``, whose ranks hold their own shards;
+    - :meth:`global_norm`: each leaf's squared norm summed over the axes
+      that split it (one all-reduce of a small vector per axis).
+
+    A leaf dim may be cut over ``fsdp`` or ``tp`` alone."""
+
+    def __init__(self, mesh, rules, logical_axes, params):
+        self.mesh = mesh
+        fsdp, tp = mesh_lib.AXIS_FSDP, mesh_lib.AXIS_TP
+        flat = leaves(params)
+        axes = (_axes_leaves(params, logical_axes)
+                if logical_axes is not None else [()] * len(flat))
+        rules = rules or sharding.DEFAULT_RULES
+        self.fsdp_dims: List[Optional[int]] = []
+        self.split: List[frozenset] = []
+        for leaf, leaf_axes in zip(flat, axes):
+            dims = sharding.split_dims(mesh, leaf_axes, rules)
+            for dim, cut in dims.items():
+                if len(cut) > 1 or cut[0] not in (fsdp, tp):
+                    raise ValueError(
+                        f"a param dim with logical axes {leaf_axes} is cut "
+                        f"over {cut}: the port's step cuts a param dim "
+                        "over fsdp or tp alone")
+            self.fsdp_dims.append(next((d for d, cut in dims.items()
+                                        if cut == (fsdp,)), None))
+            self.split.append(frozenset(c[0] for c in dims.values()))
+        data = [a for a in (mesh_lib.AXIS_DP, fsdp, mesh_lib.AXIS_SP)
+                if mesh.axis_size(a) > 1]
+        self.sync_axes = [tuple(a for a in data if not (a == fsdp and d is
+                                                        not None))
+                          for d in self.fsdp_dims]
+        # Every member's extent of each fsdp-cut dim, exchanged once.
+        cut = [(i, leaf.shape[d]) for i, (leaf, d) in
+               enumerate(zip(flat, self.fsdp_dims)) if d is not None]
+        self.sizes: Dict[int, List[int]] = {}
+        if cut:
+            extents = torch.tensor([e for _, e in cut], dtype=torch.int64,
+                                   device=flat[0].device)
+            table = collectives.all_gather(extents, fsdp, tiled=False,
+                                           mesh=mesh).tolist()
+            for j, (i, _) in enumerate(cut):
+                self.sizes[i] = [row[j] for row in table]
+        self.fsdp = fsdp
+        self.norm_axes = [a for a in (fsdp, tp) if mesh.axis_size(a) > 1]
+
+    def gather(self, params):
+        """``params`` with every fsdp-cut leaf whole (a new trainable
+        tensor; the other leaves as they are)."""
+        def leaf(i, p):
+            d = self.fsdp_dims[i]
+            if d is None:
+                return p
+            return collectives.all_gather(
+                p.detach(), self.fsdp, gather_dim=d, sizes=self.sizes[i],
+                mesh=self.mesh).requires_grad_(True)
+
+        return _with_leaves(params, iter(
+            [leaf(i, p) for i, p in enumerate(leaves(params))]))
+
+    def sync(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Full gradients -> this rank's shards, summed over the data."""
+        mesh, out = self.mesh, []
+        for i, g in enumerate(grads):
+            dtype, g = g.dtype, g.float()
+            d = self.fsdp_dims[i]
+            if d is not None:
+                sizes = self.sizes[i]
+                if len(set(sizes)) == 1:
+                    g = collectives.reduce_scatter_sum(
+                        g, self.fsdp, scatter_dim=d, mesh=mesh)
+                else:
+                    index = mesh.axis_index(self.fsdp)
+                    g = collectives.all_reduce_sum(
+                        g, self.fsdp, mesh=mesh).narrow(
+                            d, sum(sizes[:index]), sizes[index])
+            if self.sync_axes[i]:
+                g = collectives.grad_sync(g, self.sync_axes[i], mean=False,
+                                          mesh=mesh)
+            out.append(g.to(dtype))
+        return out
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole logical gradient, on every rank."""
+        sq = torch.stack([g.float().square().sum() for g in grads])
+        for axis in self.norm_axes:
+            cut = torch.tensor([axis in s for s in self.split],
+                               device=sq.device)
+            total = collectives.all_reduce_sum(torch.where(cut, sq, 0.0), axis,
+                                           mesh=self.mesh)
+            sq = torch.where(cut, total, sq)
+        return torch.sqrt(sq.sum())
+
+
 def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
                accum_steps, skip_nonfinite):
     """The step's work, shared by the step and the window: the rng split
@@ -165,10 +398,29 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
     norm or the ``loss`` metric is not finite: the parameters and every
     optimizer slot keep their values (the step count still advances, the
     batch was consumed) and ``metrics["nonfinite"]`` is ``1.0 - finite``.
-    No host sync is added."""
+    No host sync is added.
+
+    Under ``mesh`` the gradients come from parameters gathered over
+    ``fsdp`` and are synced to shards after the backward
+    (:class:`_MeshLayout`, built at the first call); ``accum_steps``
+    micro-batches accumulate locally and sync once."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules)
+    _check_mesh(mesh)
+    if mesh is not None and not _is_mesh_loss(loss_fn):
+        raise NotImplementedError(
+            "under a mesh the step takes a loss marked train.mesh_loss (one "
+            "that returns its rank's share of the global loss, as CloudLM's "
+            "transformer.loss_fn does); BERT, ViT, ResNet and MNIST under a "
+            "mesh are queued under ROADMAP.md A.2")
+    layouts: List[_MeshLayout] = []
+
+    def layout_of(params) -> Optional[_MeshLayout]:
+        if mesh is None:
+            return None
+        if not layouts:
+            layouts.append(_MeshLayout(mesh, rules, logical_axes, params))
+        return layouts[0]
 
     def split_rng(state: TrainState):
         if not stochastic:
@@ -183,12 +435,19 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
 
     def body(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         step_rng = split_rng(state)
+        layout = layout_of(state.params)
+        params = state.params if layout is None else layout.gather(
+            state.params)
         if accum_steps > 1:
-            metrics, grads = _accumulated_grads(loss_fn, state.params, batch,
+            metrics, grads = _accumulated_grads(loss_fn, params, batch,
                                                 accum_steps, step_rng)
         else:
-            metrics, grads = _grads(loss_fn, state.params, batch, step_rng)
-        metrics["grad_norm"] = global_norm(grads)
+            metrics, grads = _grads(loss_fn, params, batch, step_rng)
+        if layout is None:
+            metrics["grad_norm"] = global_norm(grads)
+        else:
+            grads = layout.sync(grads)
+            metrics["grad_norm"] = layout.global_norm(grads)
         params = leaves(state.params)
         if not skip_nonfinite:
             optimizer.update_(params, grads, state.opt_state)
@@ -404,8 +663,9 @@ class _GraphedStep:
 class _TrainStep:
     """The step ``make_train_step`` returns (see there)."""
 
-    def __init__(self, body):
+    def __init__(self, body, mesh=None):
         self._body = body
+        self.mesh = mesh
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         metrics = self._body(state, batch)
@@ -414,6 +674,7 @@ class _TrainStep:
 
     def graph_artifact(self):
         """``(artifact, graphed, key)`` for a capture ahead of use."""
+        refuse_unported(mesh=self.mesh, feature="compile-ahead of a step")
         graphed = _Graphed(functools.partial(_one_step, self._body),
                            what="make_train_step")
         return _GraphedStep(graphed, train=True), graphed, None
@@ -422,13 +683,25 @@ class _TrainStep:
 class _EvalStep:
     """The eval step ``make_eval_step`` returns (see there)."""
 
-    def __init__(self, loss_fn):
+    def __init__(self, loss_fn, mesh=None, logical_axes=None, rules=None):
         self._loss_fn = loss_fn
+        self.mesh = mesh
+        self._layout = (mesh, rules, logical_axes)
+        self._layouts: List[_MeshLayout] = []
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        return _eval_metrics(self._loss_fn, state, batch)
+        if self.mesh is None:
+            return _eval_metrics(self._loss_fn, state, batch)
+        if not self._layouts:
+            self._layouts.append(_MeshLayout(*self._layout, state.params))
+        with torch.no_grad():
+            _, metrics = self._loss_fn(
+                self._layouts[0].gather(state.params), batch)
+        return {k: v.detach() for k, v in metrics.items()}
 
     def graph_artifact(self):
+        refuse_unported(mesh=self.mesh, feature="compile-ahead of an "
+                        "eval step")
         graphed = _Graphed(functools.partial(_eval_metrics, self._loss_fn),
                            what="make_eval_step", mutates=False)
         return _GraphedStep(graphed, train=False), graphed, None
@@ -452,11 +725,18 @@ def make_train_step(
     ``stochastic=True`` threads the state's key through the loss:
     ``loss_fn(params, batch, rng=...)`` gets a fresh split every step
     (dropout), and the state must have been created with a ``train_rng``
-    (``create_sharded_state(..., train_rng=key)``)."""
+    (``create_sharded_state(..., train_rng=key)``).
+
+    Under ``mesh`` (a ``parallel.mesh.Mesh``; this process is one rank),
+    ``state`` is :func:`create_sharded_state`'s with the same ``mesh``,
+    ``logical_axes`` and ``rules``, ``batch`` this rank's rows
+    (:func:`shard_batch`), and ``loss_fn`` a ``mesh_loss`` (CloudLM's
+    ``loss_fn`` with ``mesh=``, ``rules=``); see :class:`_MeshLayout` for
+    the collectives.  Every rank's metrics are the global values."""
     return _TrainStep(_step_body(
         loss_fn, optimizer, logical_axes=logical_axes, rules=rules,
         mesh=mesh, stochastic=stochastic, accum_steps=accum_steps,
-        skip_nonfinite=skip_nonfinite))
+        skip_nonfinite=skip_nonfinite), mesh)
 
 
 class _MultiStep:
@@ -578,14 +858,51 @@ def make_multi_step(
         raise ValueError(
             f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}"
         )
+    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
+                    feature="make_multi_step (the window)")
     body = _step_body(loss_fn, optimizer, logical_axes=logical_axes,
                       rules=rules, mesh=mesh, stochastic=stochastic,
                       accum_steps=accum_steps, skip_nonfinite=skip_nonfinite)
     return _MultiStep(body, loss_fn, steps_per_dispatch, skip_nonfinite)
 
 
-def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]]):
+def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]], *,
+                   mesh=None, logical_axes=None, rules=None):
     """``eval_step(state, batch) -> metrics``: the loss function's metrics
     on ``state.params``, forward only (no gradients, no rng: eval is
-    deterministic)."""
-    return _EvalStep(loss_fn)
+    deterministic).  Under ``mesh`` (the port's addition: the JAX step
+    reads the layout off its arrays), the parameters cut over ``fsdp``
+    are gathered whole first, as the train step does."""
+    _check_mesh(mesh)
+    return _EvalStep(loss_fn, mesh, logical_axes, rules)
+
+
+def make_hybrid_dp_train_step(loss_fn, optimizer, *, mesh,
+                              dcn_axis: str = "dp", ici_axis: str = "fsdp"):
+    """Data-parallel step with the explicit two-level gradient sum of a
+    mesh split over slow links (the JAX package's, ``shard_map`` there):
+    parameters are REPLICATED; each rank computes its local loss (a mean
+    over its own rows, ``batch`` being them) and gradients, sums the
+    gradients with ``hierarchical_all_reduce_sum`` (reduce-scatter over
+    ``ici_axis``, all-reduce over ``dcn_axis``, all-gather) and divides
+    by the data-parallel size, then applies the same update on every
+    rank.  Metrics (the loss's and ``"loss"``) are averaged over the
+    ranks the same way; there is no ``grad_norm``, as in JAX."""
+    _check_mesh(mesh)
+    n_data = mesh.axis_size(dcn_axis) * mesh.axis_size(ici_axis)
+
+    def body(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        params = leaves(state.params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(state.params, batch)
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
+        grads = [collectives.hierarchical_all_reduce_sum(
+            g, ici_axis=ici_axis, dcn_axis=dcn_axis, mesh=mesh) / n_data
+            for g in grads]
+        optimizer.update_(params, grads, state.opt_state)
+        return {key: collectives.all_reduce_sum(
+            value.detach(), (ici_axis, dcn_axis), mesh=mesh) / n_data
+            for key, value in {"loss": loss, **metrics}.items()}
+
+    return _TrainStep(body, mesh)

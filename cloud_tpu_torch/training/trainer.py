@@ -12,8 +12,9 @@ graphs on a worker thread while the prefetch thread warms,
 ``training.compile_cache``).  Its entry points run on the card unless
 the Trainer is built with ``device="cpu"``.
 
-Not ported yet: meshes (``mesh``, ``logical_axes``, ``rules``) raise
-``NotImplementedError`` naming ``parallel/*`` (ROADMAP.md A.6).
+Queued: ``fit`` under a mesh (``mesh``, ``logical_axes``, ``rules``)
+raises ``NotImplementedError`` naming ROADMAP.md A.2 (a step under a
+mesh runs from ``train.make_train_step(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -279,7 +280,7 @@ class Trainer:
       loss_fn: ``loss_fn(params, batch) -> (loss, metrics_dict)``.
       optimizer: an optimizer of ``training.optimizers``.
       init_fn: ``init_fn(generator) -> params`` (used by ``init_state``).
-      mesh, logical_axes, rules: not ported yet (raise).
+      mesh, logical_axes, rules: queued (ROADMAP.md A.2; raise).
       stochastic: thread the state's threefry key through every train
         step: ``loss_fn(params, batch, rng=...)`` (dropout).  Eval steps
         stay deterministic (no rng passed).  ``init_state`` derives the
@@ -314,7 +315,7 @@ class Trainer:
         device=None,
     ):
         train_lib.refuse_unported(mesh=mesh, logical_axes=logical_axes,
-                                  rules=rules)
+                                  rules=rules, feature="Trainer (fit)")
         self.device = resolve_device(device)
         self.stochastic = stochastic
         self.loss_fn = loss_fn

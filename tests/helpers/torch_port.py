@@ -11,6 +11,7 @@ import functools
 import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 
@@ -325,3 +326,72 @@ def run_port_side(script, inputs, workdir, *, timeout=600):
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(workdir / "out.npz") as out:
         return dict(out)
+
+
+#: What every gloo rank of :func:`run_ranks` runs before its script: JAX
+#: blocked, one thread, the default process group from the CLOUD_TPU_*
+#: variables.
+RANK_PRELUDE = """
+import json
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cloud_tpu_torch.parallel import MeshSpec, collectives as c, distributed
+assert distributed.initialize_from_env(300, device="cpu")
+RANK, WORLD = distributed.process_index(), distributed.process_count()
+OUT = {"chief": distributed.is_chief()}
+"""
+
+
+def run_ranks(script, world, *, timeout=400, files=None):
+    """``script`` on ``world`` gloo ranks, one JAX-free process each;
+    returns each rank's ``OUT`` (a dict of JSON values).  ``files``
+    (a dict of numpy arrays) reaches every rank as ``IN``.  A rank that
+    has not finished within ``timeout`` seconds fails the test (every
+    rank is killed) instead of hanging it."""
+    import pytest
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    prelude = RANK_PRELUDE
+    args = []
+    if files is not None:
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="ranks-")
+        path = os.path.join(tmp, "in.npz")
+        np.savez(path, **files)
+        args = [path]
+        prelude += "IN = dict(np.load(sys.argv[1], allow_pickle=False))\n"
+    code = (prelude + script
+            + "\ntorch.distributed.destroy_process_group()\n"
+            "print('OUT=' + json.dumps(OUT))\n")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *args], cwd=str(REPO),
+        env=dict(os.environ, PYTHONPATH=str(REPO),
+                 CLOUD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                 CLOUD_TPU_NUM_PROCESSES=str(world),
+                 CLOUD_TPU_PROCESS_ID=str(rank)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)]
+    done = []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                done.append(proc.communicate(timeout=timeout))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"rank {rank} of {world} did not finish within "
+                            f"{timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, (_, stderr)) in enumerate(zip(procs, done)):
+        assert proc.returncode == 0, f"rank {rank}: {stderr[-3000:]}"
+    return [json.loads([l for l in stdout.splitlines()
+                        if l.startswith("OUT=")][-1][4:])
+            for stdout, _ in done]

@@ -104,7 +104,7 @@ def test_specs_keep_shape_dtype_device_and_grad():
     assert batch["x"] == compile_cache.TensorSpec((2, 4), torch.float64,
                                                   torch.device("cpu"))
     assert batch["t"].dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
         compile_cache.abstract_batch({}, mesh=object(), device="cpu")
 
 

@@ -112,14 +112,17 @@ STDLIB_COPIES = {
 ZOO_MODULES = ("models/moe.py", "models/vit.py", "models/export.py")
 
 
-#: The parallel layer and the serving slice's follower entry point
+#: The parallel layer (with the ring and the differentiable collectives
+#: of training under a mesh) and the serving slice's follower entry point
 #: (``serving/slice.py`` ``_follower_main``, the target a spawned follower
 #: runs): scanned with every module above; named here so a move or
 #: rename cannot drop them from the scan.
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                     "parallel/distributed.py", "parallel/sharding.py",
                     "parallel/planner.py", "parallel/collectives.py",
-                    "parallel/tensor_parallel.py", "serving/slice.py")
+                    "parallel/tensor_parallel.py",
+                    "parallel/ring_attention.py", "parallel/autograd.py",
+                    "serving/slice.py")
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)
@@ -138,6 +141,46 @@ def test_follower_entry_point_runs_with_jax_blocked():
         "from cloud_tpu_torch.serving.slice import _follower_main\n"
         "from cloud_tpu_torch.parallel import tensor_parallel\n"
         "from cloud_tpu_torch.serving.engine import ServingEngine\n"
+        "bad = [m for m in sys.modules if m == 'cloud_tpu' "
+        "or m.startswith('cloud_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_mesh_training_entry_points_run_with_jax_blocked():
+    """The entry points of training under a mesh (a one-rank CPU mesh, no
+    process group) run in a process where JAX cannot be imported."""
+    code = (
+        "import sys, functools\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from cloud_tpu_torch import bridge\n"
+        "from cloud_tpu_torch.models import transformer\n"
+        "from cloud_tpu_torch.parallel import MeshSpec, ring_attention\n"
+        "from cloud_tpu_torch.parallel import autograd\n"
+        "from cloud_tpu_torch.training import (make_hybrid_dp_train_step,\n"
+        "    param_shardings, shard_batch, train, optimizers)\n"
+        "cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)\n"
+        "mesh = MeshSpec({}).build(devices=['cpu'])\n"
+        "axes = transformer.param_logical_axes(cfg)\n"
+        "init = lambda g: bridge.init(cfg, g, device='cpu')\n"
+        "st = train.create_sharded_state(torch.Generator(), init,\n"
+        "    optimizers.sgd(0.1), mesh=mesh, logical_axes=axes)\n"
+        "loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh)\n"
+        "step = train.make_train_step(loss, optimizers.sgd(0.1), mesh=mesh,\n"
+        "    logical_axes=axes)\n"
+        "batch = shard_batch({'tokens': np.ones((2, 8), np.int64)}, mesh)\n"
+        "st, m = step(st, batch)\n"
+        "hy = make_hybrid_dp_train_step(loss, optimizers.sgd(0.1), mesh=mesh)\n"
+        "st, m = hy(st, batch)\n"
+        "spec = param_shardings(mesh, axes)['embed']['table']\n"
+        "assert tuple(spec) == ('tp', 'fsdp'), spec\n"
         "bad = [m for m in sys.modules if m == 'cloud_tpu' "
         "or m.startswith('cloud_tpu.')]\n"
         "assert not bad, bad\n"

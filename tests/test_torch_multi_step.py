@@ -209,7 +209,7 @@ def test_unported_window_options_raise_as_the_step(option):
         assert int(state.step) == 2
         assert all(torch.isfinite(v) for v in metrics.values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
                               steps_per_dispatch=2, **option)
 

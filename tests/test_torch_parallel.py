@@ -18,11 +18,7 @@
 
 import dataclasses
 import json
-import os
 import pathlib
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -35,6 +31,7 @@ from cloud_tpu.parallel import sharding as jax_sharding
 from cloud_tpu_torch import parallel
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.parallel import planner, sharding
+from helpers.torch_port import run_ranks
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -302,54 +299,6 @@ def test_lm_shards_reassemble_the_params_int8_scales_included():
 # ---------------------------------------------------------------------------
 # Collectives on gloo ranks (JAX-free processes)
 
-#: What every rank runs before its script: JAX blocked, one thread, the
-#: default process group from the CLOUD_TPU_* variables.
-_RANK_PRELUDE = """
-import json
-import sys
-sys.modules["jax"] = None
-import numpy as np
-import torch
-torch.set_num_threads(1)
-from cloud_tpu_torch.parallel import MeshSpec, collectives as c, distributed
-assert distributed.initialize_from_env(300, device="cpu")
-RANK, WORLD = distributed.process_index(), distributed.process_count()
-OUT = {"chief": distributed.is_chief()}
-"""
-
-
-def run_ranks(script, world, *, timeout=400):
-    """``script`` on ``world`` gloo ranks, one process each; returns each
-    rank's ``OUT`` (a dict of JSON values)."""
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    code = (_RANK_PRELUDE + script
-            + "\ntorch.distributed.destroy_process_group()\n"
-            "print('OUT=' + json.dumps(OUT))\n")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code], cwd=str(REPO),
-        env=dict(os.environ, PYTHONPATH=str(REPO),
-                 CLOUD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                 CLOUD_TPU_NUM_PROCESSES=str(world),
-                 CLOUD_TPU_PROCESS_ID=str(rank)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for rank in range(world)]
-    done = []
-    try:
-        for proc in procs:
-            done.append(proc.communicate(timeout=timeout))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-    for rank, (proc, (_, stderr)) in enumerate(zip(procs, done)):
-        assert proc.returncode == 0, f"rank {rank}: {stderr[-3000:]}"
-    return [json.loads([l for l in stdout.splitlines()
-                        if l.startswith("OUT=")][-1][4:])
-            for stdout, _ in done]
-
-
 _TWO_RANKS = """
 mesh = MeshSpec({"tp": 2}).build(devices=["cpu", "cpu"])
 x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * RANK
@@ -457,3 +406,112 @@ def test_initialize_from_env_single_process_and_missing_fields(monkeypatch):
         distributed.initialize_from_env(device="cpu")
     assert distributed.backend_for("cpu") == "gloo"
     assert mesh_lib.visible_devices("cpu")
+
+
+# ---------------------------------------------------------------------------
+# Training collectives: the hierarchical sum, grad_sync, the all-to-all
+# and the differentiable collectives of parallel/autograd.py
+
+
+_TRAINING_COLLECTIVES = """
+from cloud_tpu_torch.parallel import autograd as ag
+hybrid = MeshSpec({"dp": 2, "fsdp": 2}, {"dp": 2}).build(devices=["cpu"] * 4)
+x = torch.arange(24, dtype=torch.float32).reshape(8, 3) * (RANK + 1)
+OUT["hier"] = c.hierarchical_all_reduce_sum(
+    x, ici_axis="fsdp", dcn_axis="dp", mesh=hybrid).tolist()
+odd = torch.arange(6, dtype=torch.float32).reshape(3, 2) + RANK
+OUT["hier_odd"] = c.hierarchical_all_reduce_sum(
+    odd, ici_axis="fsdp", dcn_axis="dp", mesh=hybrid).tolist()
+OUT["hier_dim1"] = c.hierarchical_all_reduce_sum(
+    x.t().contiguous(), ici_axis="fsdp", dcn_axis="dp", scatter_dim=1,
+    mesh=hybrid).tolist()
+# bf16 leaves reduce in f32 (sums of 1 + k 2^-7 round in a bf16 add).
+g = {"b": torch.full((4,), 1.0 + 2.0 ** -7 * (RANK + 1),
+                     dtype=torch.float32).to(torch.bfloat16),
+     "a": [torch.full((2,), float(RANK))]}
+synced = c.grad_sync(g, ("dp", "fsdp"), mean=False, mesh=hybrid)
+OUT["sync_dtype"] = str(synced["b"].dtype)
+OUT["sync_b"] = synced["b"].float().tolist()
+OUT["sync_a"] = synced["a"][0].tolist()
+OUT["sync_mean"] = c.grad_sync(g, "dp", mesh=hybrid)["a"][0].tolist()
+
+sp = MeshSpec({"sp": 4}).build(devices=["cpu"] * 4)
+seq = (torch.arange(2 * 3 * 8 * 2, dtype=torch.float32)
+       .reshape(2, 3, 8, 2) + 1000 * RANK)
+heads = c.all_to_all_seq_heads(seq, "sp", mesh=sp)
+OUT["heads"] = heads.tolist()
+OUT["round"] = bool(torch.equal(
+    c.all_to_all_seq_heads(heads, "sp", to_heads=False, mesh=sp), seq))
+try:
+    c.all_to_all_seq_heads(seq[:, :, :6], "sp", mesh=sp)
+except ValueError as exc:
+    OUT["a2a_error"] = str(exc)
+
+# Backward of each differentiable collective against its transpose.
+tp = MeshSpec({"dp": 2, "tp": 2}).build(devices=["cpu"] * 4)
+x = torch.arange(6, dtype=torch.float32).reshape(2, 3).requires_grad_()
+cot = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (RANK + 1)
+OUT["copy_fwd"] = ag.copy_to_tp(x, tp).tolist()
+OUT["copy_bwd"] = torch.autograd.grad(ag.copy_to_tp(x, tp), x, cot)[0].tolist()
+OUT["reduce_fwd"] = ag.reduce_from_tp(x * (RANK + 1), tp).tolist()
+OUT["reduce_bwd"] = torch.autograd.grad(
+    ag.reduce_from_tp(x, tp), x, cot)[0].tolist()
+ti = tp.axis_index("tp")
+local = (torch.arange(2 * (3 - ti), dtype=torch.float32).reshape(2, 3 - ti)
+         + 10 * ti).requires_grad_()
+full = ag.gather_vocab(local, tp, sizes=(3, 2))
+OUT["gather_fwd"] = full.tolist()
+big = torch.arange(10, dtype=torch.float32).reshape(2, 5)
+OUT["gather_bwd"] = torch.autograd.grad(full, local, big)[0].tolist()
+s = seq.clone().requires_grad_()
+out = ag.seq_to_heads(s, sp)
+OUT["a2a_bwd"] = bool(torch.equal(
+    torch.autograd.grad(out, s, heads)[0],
+    c.all_to_all_seq_heads(heads, "sp", to_heads=False, mesh=sp)))
+back = ag.heads_to_seq(heads.clone().requires_grad_(), sp)
+OUT["a2a_inv"] = bool(torch.equal(back, seq))
+"""
+
+
+def test_training_collectives_on_four_gloo_ranks():
+    """Mirrors ``tests/unit/test_parallel.py``'s hierarchical-sum,
+    grad_sync and all-to-all cases on gloo ranks: the two-level sum
+    equals the flat sum (the scatter route and the indivisible one),
+    bf16 leaves are summed in f32, the all-to-all moves heads for
+    positions and back, and each autograd collective's backward is its
+    hand transpose."""
+    outs = run_ranks(_TRAINING_COLLECTIVES, 4)
+    x = np.arange(24, dtype=np.float32).reshape(8, 3)
+    odd = np.arange(6, dtype=np.float32).reshape(3, 2)
+    seqs = [np.arange(96, dtype=np.float32).reshape(2, 3, 8, 2) + 1000 * r
+            for r in range(4)]
+    for rank, out in enumerate(outs):
+        np.testing.assert_array_equal(out["hier"], x * 10)
+        np.testing.assert_array_equal(out["hier_odd"], odd * 4 + 6)
+        np.testing.assert_array_equal(out["hier_dim1"], (x * 10).T)
+        assert out["sync_dtype"] == "torch.bfloat16"
+        want_b = np.float32(sum(1.0 + 2.0 ** -7 * (r + 1) for r in range(4)))
+        want_b = torch.tensor(want_b).to(torch.bfloat16).float().item()
+        assert out["sync_b"] == [want_b] * 4
+        assert want_b != 4.0  # the f32 sum keeps what bf16 adds would lose
+        assert out["sync_a"] == [6.0, 6.0]
+        dp, tpi = divmod(rank, 2)
+        assert out["sync_mean"] == [float(tpi + 1)] * 2  # (t + (2 + t)) / 2
+        np.testing.assert_array_equal(
+            out["heads"], np.concatenate(
+                [s[:, :, 2 * rank:2 * rank + 2] for s in seqs], axis=1))
+        assert out["round"] and out["a2a_bwd"] and out["a2a_inv"]
+        assert "must divide by axis 'sp' size 4" in out["a2a_error"]
+        base = np.arange(6, dtype=np.float32).reshape(2, 3)
+        np.testing.assert_array_equal(out["copy_fwd"], base)
+        # copy's transpose: the tp group's cotangents summed.
+        np.testing.assert_array_equal(
+            out["copy_bwd"], base * ((2 * dp + 1) + (2 * dp + 2)))
+        np.testing.assert_array_equal(
+            out["reduce_fwd"], base * ((2 * dp + 1) + (2 * dp + 2)))
+        np.testing.assert_array_equal(out["reduce_bwd"], base * (rank + 1))
+        np.testing.assert_array_equal(out["gather_fwd"], [
+            [0, 1, 2, 10, 11], [3, 4, 5, 12, 13]])
+        big = np.arange(10, dtype=np.float32).reshape(2, 5)
+        np.testing.assert_array_equal(
+            out["gather_bwd"], big[:, :3] if tpi == 0 else big[:, 3:])

@@ -531,17 +531,20 @@ def _fit_ahead_equals_plain(**kw):
     assert logs[0] == logs[1]
 
 
+#: name -> (call, words of its message, the ROADMAP item it names).
 REFUSED = {
-    "Trainer(mesh)": (lambda: _tiny_trainer(mesh=object()), "parallel"),
+    "Trainer(mesh)": (lambda: _tiny_trainer(mesh=object()), "gloo",
+                      "ROADMAP.md A.2"),
     "Trainer(logical_axes)": (lambda: _tiny_trainer(logical_axes={}),
-                              "parallel"),
-    "Trainer(rules)": (lambda: _tiny_trainer(rules=object()), "parallel"),
+                              "gloo", "ROADMAP.md A.2"),
+    "Trainer(rules)": (lambda: _tiny_trainer(rules=object()), "gloo",
+                       "ROADMAP.md A.2"),
     "prefetch_to_device(mesh)": (lambda: pipeline_io.prefetch_to_device(
-        list, mesh=object(), device="cpu"), "parallel"),
+        list, mesh=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
     "prefetch_windows(rules)": (lambda: pipeline_io.prefetch_windows(
-        list, 2, rules=object(), device="cpu"), "parallel"),
+        list, 2, rules=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
     "CheckpointManager(gs://)": (lambda: checkpoint.CheckpointManager(
-        "gs://bucket/ckpt", device="cpu"), "gs://"),
+        "gs://bucket/ckpt", device="cpu"), "gs://", "ROADMAP.md A.6"),
 }
 
 #: Options that raised until their A.6 items were ported; each now runs
@@ -565,7 +568,7 @@ def test_refused_options_name_their_item(name):
     if name in PORTED:
         PORTED[name]()
         return
-    call, words = REFUSED[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6") as got:
+    call, words, item = REFUSED[name]
+    with pytest.raises(NotImplementedError, match=item) as got:
         call()
     assert words in str(got.value)

@@ -114,11 +114,14 @@ def test_resnet_train_setup_and_chained_throughput_on_cpu():
     {"skip_nonfinite": True}, {"logical_axes": {}},
 ])
 def test_unsupported_step_options_raise(option):
-    """Options of a later item raise naming it; ``accum_steps``,
-    ``skip_nonfinite`` and ``stochastic`` are ported (held to JAX in
-    ``tests/test_torch_trainer.py`` and ``test_torch_stochastic.py``) and
-    build a step that runs."""
-    if next(iter(option)) in ("accum_steps", "skip_nonfinite", "stochastic"):
+    """``accum_steps``, ``skip_nonfinite`` and ``stochastic`` are ported
+    (held to JAX in ``tests/test_torch_trainer.py`` and
+    ``test_torch_stochastic.py``) and build a step that runs, as does
+    ``logical_axes`` without a mesh (JAX ignores it there); meshes are
+    ported (``tests/test_torch_train_mesh.py``), and a ``mesh`` that is
+    not a ``parallel.mesh.Mesh`` raises ``TypeError``."""
+    if next(iter(option)) in ("accum_steps", "skip_nonfinite", "stochastic",
+                              "logical_axes"):
         state = train.create_sharded_state(
             None, lambda _: {"w": torch.ones(3)}, optimizers.sgd(0.1),
             train_rng=[0, 7], device="cpu")
@@ -129,7 +132,7 @@ def test_unsupported_step_options_raise(option):
         assert int(state.step) == 1
         assert all(torch.isfinite(v) for v in metrics.values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.make_train_step(lambda p, b: None, optimizers.sgd(0.1),
                               **option)
 
@@ -141,9 +144,9 @@ def test_other_unsupported_entry_points_raise():
     # make_multi_step and resnet_train_setup(steps_per_dispatch > 1) are
     # ported (tests/test_torch_multi_step.py); the window refuses what the
     # step refuses.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
                               steps_per_dispatch=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.create_sharded_state(None, dict, optimizers.sgd(0.1),
                                    mesh=object(), device="cpu")
