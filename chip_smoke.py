@@ -35,7 +35,9 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    blocks' rows, non-causal at n=2, zig-zag at n=2 and 4), assembled and
    held against one whole-sequence K5 + K6/K7 call and the plain version,
    each rank's launches exact, then K5-K7 timed at the ring's block
-   shapes (T=512 causal and not, zig-zag chunks 256 and 128), K8 and K8q at
+   shapes (T=512 causal and not, zig-zag chunks 256 and 128), K5-K7 at
+   phase 6pp's call shape (phase 2 (pp): B=2 T=1024 causal, bf16 and
+   f32, against the plain version, then timed), K8 and K8q at
    prefill-chunk query counts (Tq 32, 128 and 512, several query tiles,
    chunk-causal, pool pages or not, three chunk starts), each Tq timed
    beside its bound and SDPA over the gathered K/V, K8 and K8q at the
@@ -221,7 +223,15 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    whole within 1e-4 of its largest magnitude), the zig-zag arm in bf16
    on f32 masters within 2e-2 of one process; steps/s of both printed;
    each rank's K5/K6/K7 launches exactly ``mesh_launches_per_layer`` x
-   12 layers x steps);
+   12 layers x steps); then the GPipe pipeline and expert parallelism
+   (6pp: the same machinery; ``{pp: 2}`` at b4 x T1024 with M = 2,
+   untied and tied head, and the default MoE under ``{ep: 2}`` at b2, in
+   f32 against one process with 6mesh's limits (the ep arm's aux within
+   1e-5); the MoE under ``{pp: 2}`` with step 1's CE and its gradient's
+   norm within 1e-4 relative, its aux (the microbatches' mean) printed
+   beside one process's; ``{pp: 2}`` in bf16 within 2e-2; each rank's
+   launches exactly ``mesh_launches_per_layer`` x its layers
+   (``mesh_layers_held``) x steps);
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does; then the stochastic step (7s: dropout
@@ -238,8 +248,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    2 layers, 56 px, patch 8 (T=49), card against CPU;
 9. prints one JSON line describing every kernel (a serving kernel's
    launches summed over the serving phases (3m included) and 7s, and
-   K5's also over 6m, 6d, 6mesh and 8v, K6/K7's over 6, 7s, 6m, 6d,
-   6mesh and 8v,
+   K5's also over 6m, 6d, 6mesh, 6pp and 8v, K6/K7's over 6, 7s, 6m,
+   6d, 6mesh, 6pp and 8v,
    K1-K4's over phases 4, 4t, 4r, 4a and 4p, each counted from 0 just
    before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
@@ -285,6 +295,13 @@ PROFILE_SESSIONS = 5
 PROFILE_SETTLE_S = 0.05
 
 
+def _profile_pause(attempt: int) -> None:
+    """The wait after a session that recorded no kernel: 1, 2, 4 and 8 s
+    (a silent profiler has been seen to stay silent for several sessions
+    in a row)."""
+    time.sleep(2.0 ** attempt)
+
+
 def fail(msg: str, phase: str = "") -> int:
     """Report a failed check on stderr and, with the phase it stopped in
     and the traceback of the exception being handled, on stdout."""
@@ -321,7 +338,10 @@ def device_ms(fn, iters: int = 10) -> float:
     launches a call (its records over ``iters``, rounded): now and then a
     session loses a record, which a plain sum over ``iters`` would read
     as a faster call.  A session that lost more than a fifth of some
-    kernel's records is run again, ``PROFILE_SESSIONS`` in all."""
+    kernel's records is run again, ``PROFILE_SESSIONS`` in all.  Where the
+    profiler records no kernel in all of :func:`profiled`'s sessions, the
+    call is timed with CUDA events instead (:func:`time_ms`), and a line
+    says so."""
     import torch
 
     fn()
@@ -333,7 +353,14 @@ def device_ms(fn, iters: int = 10) -> float:
         torch.cuda.synchronize()
 
     for attempt in range(PROFILE_SESSIONS):
-        _, rows = profiled(run)
+        try:
+            _, rows = profiled(run)
+        except ProfilerSilent:
+            ms = time_ms(fn, iters=iters)
+            print(f"  (torch.profiler recorded no kernel in "
+                  f"{PROFILE_SESSIONS} sessions: device time read by CUDA "
+                  f"events instead, {ms:.4f} ms)")
+            return ms
         calls = [max(1, round(count / iters)) for _, count, _ in rows]
         if all(abs(count - k * iters) <= iters // 5
                for (_, count, _), k in zip(rows, calls)):
@@ -351,8 +378,8 @@ def profiled(run, *, cpu=False, record_shapes=False):
     kernel still running when the session stops leaves no record);
     returns ``(prof, kernel rows)``.  Now and then a session records no
     kernel at all, sometimes several in a row: such a session is run
-    again after a second's pause, ``PROFILE_SESSIONS`` in all, before
-    :func:`_kernel_rows` raises."""
+    again after a pause (:func:`_profile_pause`), ``PROFILE_SESSIONS`` in
+    all, before :func:`_kernel_rows` raises :class:`ProfilerSilent`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,10 +394,10 @@ def profiled(run, *, cpu=False, record_shapes=False):
             torch.cuda.synchronize()
         try:
             return prof, _kernel_rows(prof)
-        except AssertionError:
+        except ProfilerSilent:
             if attempt == PROFILE_SESSIONS - 1:
                 raise
-            time.sleep(1.0)
+            _profile_pause(attempt)
 
 
 def event_and_device_ms(fn, iters: int = 20):
@@ -1573,6 +1600,10 @@ def check_train_parity(device, card):
     return errs
 
 
+class ProfilerSilent(AssertionError):
+    """A torch.profiler session recorded no kernel at all."""
+
+
 def _kernel_rows(prof):
     from torch.autograd import DeviceType
 
@@ -1583,7 +1614,7 @@ def _kernel_rows(prof):
         if dev_us > 0 and evt.device_type == DeviceType.CUDA:
             rows.append((dev_us, evt.count, evt.key))
     if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
+        raise ProfilerSilent("torch.profiler recorded no device time")
     return sorted(rows, reverse=True)
 
 
@@ -3386,7 +3417,8 @@ def _chunk_idle_share(engine, prompts):
     marked by a ``CHUNK_WINDOW`` range under torch.profiler and clipped to
     it (no synchronisation inside, so the engine's pipeline keeps
     running).  A session that recorded no kernel is run again on a fresh
-    grid of requests, ``PROFILE_SESSIONS`` in all."""
+    grid of requests, ``PROFILE_SESSIONS`` in all; if none did, the wall
+    is returned with the device numbers "not measured" (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3421,10 +3453,14 @@ def _chunk_idle_share(engine, prompts):
         torch.cuda.synchronize()
         try:
             kernels = {key for _, _, key in _kernel_rows(prof)}
-        except AssertionError:  # a session that recorded no kernel
+        except ProfilerSilent:
             if attempt == PROFILE_SESSIONS - 1:
-                raise
-            time.sleep(1.0)
+                print(f"  (torch.profiler recorded no kernel in "
+                      f"{PROFILE_SESSIONS} sessions: the chunk's device "
+                      "time and idle share not measured)")
+                return {"chunk_wall_ms": wall_ms, "device_busy_ms": None,
+                        "profiled_window_ms": None, "idle_share": None}
+            _profile_pause(attempt)
             continue
         events = prof.events()
         window = next(e for e in events if e.name == CHUNK_WINDOW
@@ -3512,11 +3548,15 @@ def run_pipeline_engine(device, card):
             engine.submit(prompts[0]).result(timeout=300)
             share = _chunk_idle_share(engine, prompts)
         out["idle_share"][depth] = share
+        measured = share["idle_share"] is not None
         print(f"  depth {depth}: one decode chunk of 8 active slots, wall "
-              f"{share['chunk_wall_ms']:.3f} ms, device kernels "
-              f"{share['device_busy_ms']:.3f} ms (over a profiled chunk "
-              f"interval of {share['profiled_window_ms']:.3f} ms), idle "
-              f"share {share['idle_share']:.3f} [{card}]")
+              f"{share['chunk_wall_ms']:.3f} ms, " + (
+                  f"device kernels {share['device_busy_ms']:.3f} ms (over "
+                  f"a profiled chunk interval of "
+                  f"{share['profiled_window_ms']:.3f} ms), idle share "
+                  f"{share['idle_share']:.3f}" if measured else
+                  "device kernels and idle share not measured")
+              + f" [{card}]")
 
     cfg32 = cfg.scaled(dtype=torch.float32)
     dcfg32 = dcfg.scaled(dtype=torch.float32)
@@ -6826,21 +6866,79 @@ MESH_BATCH, MESH_SEQ, MESH_STEPS = 2, 1024, 2
 MESH_BF16_STEPS = 4
 #: How long rank 0 waits for its follower to start, join and report.
 MESH_TIMEOUT_S = 300
-#: Model of phase 6mesh (SMALL, or a narrower config in a CPU rehearsal).
+#: Model of phases 6mesh and 6pp (SMALL, or a narrower config in a CPU
+#: rehearsal).
 MESH_MODEL = None
 
+#: Phase 6pp: SMALL at full width and depth (12 layers; the pp arms'
+#: stages hold 6 each) under the pipeline and expert parallelism, two
+#: ranks on the card over gloo, as 6mesh: b4 x T1024 with M = 2
+#: microbatches under pp (rules ``layers`` -> ``pp``), b2 under ep, the
+#: default ``MoeConfig()`` (8 experts, top 2; ``"moe"`` holds its
+#: keywords).  Arms: (name, mesh sizes, config fields, dtype, batch
+#: rows).
+PP_ARMS = (("pp", {"pp": 2}, {"tied_embeddings": False}, "float32", 4),
+           ("pp tied", {"pp": 2}, {"tied_embeddings": True}, "float32", 4),
+           ("ep moe", {"ep": 2}, {"tied_embeddings": False, "moe": {}},
+            "float32", 2),
+           ("pp moe", {"pp": 2}, {"tied_embeddings": False, "moe": {}},
+            "float32", 4),
+           ("bf16 pp", {"pp": 2}, {"tied_embeddings": False}, "bfloat16", 4))
+#: The MoE arms' aux limit against one process (absolute).
+PP_AUX_TOL = 1e-5
 
-def mesh_launches_per_layer(sizes, fields):
-    """K5, K6 and K7 launches of one rank a layer a step under remat
-    "full" (K5 runs again in the recompute): the zig-zag ring's 2n+1
-    calls each way, else one (Ulysses, tp, fsdp)."""
+
+def _arm_parts(arm):
+    """(name, sizes, fields, dtype name, batch rows, pipelined) of a 6mesh
+    (batch MESH_BATCH) or 6pp arm; ``fields["moe"]`` holds
+    ``MoeConfig``'s keywords."""
+    name, sizes, fields, dtype_name, *rest = arm
+    if "moe" in fields:
+        from cloud_tpu_torch.models.moe import MoeConfig
+
+        fields = dict(fields, moe=MoeConfig(**fields["moe"]))
+    return (name, sizes, fields, dtype_name, rest[0] if rest else MESH_BATCH,
+            sizes.get("pp", 1) > 1)
+
+
+def _arm_rules(pipelined: bool):
+    from cloud_tpu_torch.parallel import sharding
+
+    return (sharding.DEFAULT_RULES.extended(layers="pp") if pipelined
+            else sharding.DEFAULT_RULES)
+
+
+def _ref_key(arm):
+    """Arms whose one-process steps are the same share a reference: the
+    sequence-parallel layouts change no number."""
+    _, _, fields, dtype_name, batch, _ = _arm_parts(arm)
+    return (dtype_name, batch, tuple(sorted(
+        (k, repr(v)) for k, v in fields.items()
+        if k not in ("zigzag_sp", "ulysses_sp"))))
+
+
+def mesh_launches_per_layer(sizes, fields, pipelined=False):
+    """K5, K6 and K7 launches of one rank a layer it holds a step under
+    remat "full" (K5 runs again in the recompute): the zig-zag ring's
+    2n+1 calls each way, else one (Ulysses, tp, fsdp, ep), each once a
+    microbatch under a pipeline (``num_microbatches``, default the pp
+    size).  A pipeline stage holds ``num_layers / pp`` layers
+    (:func:`mesh_layers_held`)."""
     n = sizes.get("sp", 1)
     calls = 2 * n + 1 if fields.get("zigzag_sp") and n > 1 else 1
+    if pipelined:
+        calls *= fields.get("num_microbatches") or sizes["pp"]
     return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
             "flash_bwd_dkv": calls}
 
 
-def _mesh_setup(device, dtype_name, fields):
+def mesh_layers_held(num_layers, sizes, pipelined=False):
+    """The layers one rank runs: its stage's block under a pipeline, else
+    every layer (an ep rank runs every layer on its rows)."""
+    return num_layers // sizes["pp"] if pipelined else num_layers
+
+
+def _mesh_setup(device, dtype_name, fields, batch=MESH_BATCH):
     """The arm's config, f32 master weights from seed 0 (the same in every
     rank's process) and the batch's tokens (numpy seed 0, in [1, V))."""
     import torch
@@ -6848,20 +6946,33 @@ def _mesh_setup(device, dtype_name, fields):
     from cloud_tpu_torch import bridge
     from cloud_tpu_torch.models import transformer
 
-    cfg = (MESH_MODEL or transformer.SMALL).scaled(
-        tied_embeddings=True, remat=True, remat_policy="full",
-        dtype=getattr(torch, dtype_name), **fields)
+    cfg = (MESH_MODEL or transformer.SMALL).scaled(**{
+        "tied_embeddings": True, "remat": True, "remat_policy": "full",
+        "dtype": getattr(torch, dtype_name), **fields})
     gen = torch.Generator(device=device).manual_seed(0)
     params = bridge.init(cfg, gen, device=device)
     tokens = np.random.default_rng(0).integers(
-        1, cfg.vocab_size, (MESH_BATCH, MESH_SEQ)).astype(np.int64)
+        1, cfg.vocab_size, (batch, MESH_SEQ)).astype(np.int64)
     return cfg, params, torch.from_numpy(tokens).to(device)
 
 
-def _mesh_reference(device, dtype_name, fields, steps):
+def _ce_only(loss):
+    """``loss`` with the MoE aux taken out of what it differentiates (the
+    metrics are the loss's own)."""
+    from cloud_tpu_torch.training import train
+
+    def wrapped(params, batch):
+        value, metrics = loss(params, batch)
+        return value - metrics["aux"], metrics
+
+    return train.mesh_loss(wrapped)
+
+
+def _mesh_reference(device, dtype_name, fields, steps, batch=MESH_BATCH):
     """One process, no mesh: the arm's steps on the whole batch.  Returns
     (per-step metrics, steps/s over the steps after the first, step 1's
-    gradient leaves (f32 arms), the final params' leaves)."""
+    gradient leaves (f32 arms), the final params' leaves, the norm of
+    step 1's CE-only gradient (f32 MoE arms))."""
     import functools
 
     import torch
@@ -6870,14 +6981,19 @@ def _mesh_reference(device, dtype_name, fields, steps):
     from cloud_tpu_torch.models import transformer
     from cloud_tpu_torch.training import optimizers, train
 
-    cfg, params, tokens = _mesh_setup(device, dtype_name, fields)
+    cfg, params, tokens = _mesh_setup(device, dtype_name, fields, batch)
     tx = optimizers.adamw(1e-4, mu_dtype=None)
     state = train.create_sharded_state(None, lambda _: params, tx,
                                        device=device)
     loss = functools.partial(transformer.loss_fn, config=cfg, device=device)
-    grads = None
+    grads, ce_norm = None, None
     if dtype_name == "float32":
         _, grads = train._grads(loss, state.params, {"tokens": tokens})
+        if cfg.moe is not None:
+            _, ce_grads = train._grads(_ce_only(loss), state.params,
+                                       {"tokens": tokens})
+            ce_norm = float(train.global_norm(ce_grads))
+            del ce_grads
     step = train.make_train_step(loss, tx)
     metrics, start = [], None
     for i in range(steps):
@@ -6888,16 +7004,21 @@ def _mesh_reference(device, dtype_name, fields, steps):
         metrics.append({key: float(v) for key, v in m.items()})
     torch.cuda.synchronize()
     rate = (steps - 1) / (time.perf_counter() - start)
-    return metrics, rate, grads, [p.detach() for p in leaves(state.params)]
+    return (metrics, rate, grads, [p.detach() for p in leaves(state.params)],
+            ce_norm)
 
 
-def _mesh_arm(rank, device, arm, ref=None):
-    """One arm of phase 6mesh on this rank: the mesh built over the
+def _mesh_arm(rank, device, arm, ref=None, phase="6mesh"):
+    """One arm of phase 6mesh or 6pp on this rank: the mesh built over the
     default group, the state cut from the full weights, step 1's gradient
     computed through the step's own gather and sync and gathered whole,
     then the steps (launches counted from 0 before them), and the final
-    params gathered whole.  Every rank runs the same collectives; rank 0
-    holds the results to ``ref`` (:func:`_mesh_reference`).  Returns the
+    params gathered whole.  The rank's rows are its data slice, or under
+    a pipeline its share of every global microbatch.  Every rank runs the
+    same collectives; rank 0 holds the results to ``ref``
+    (:func:`_mesh_reference`).  An f32 MoE arm under a pipeline holds
+    step 1's CE and its gradient's norm (its aux is the microbatches'
+    mean, by design); other f32 MoE arms hold the aux too.  Returns the
     rank's report."""
     import functools
 
@@ -6906,33 +7027,45 @@ def _mesh_arm(rank, device, arm, ref=None):
     from cloud_tpu_torch.bridge import leaves, map_leaves
     from cloud_tpu_torch.models import transformer
     from cloud_tpu_torch.ops import dispatch
-    from cloud_tpu_torch.parallel import MeshSpec, sharding
+    from cloud_tpu_torch.parallel import MeshSpec, pipeline, sharding
     from cloud_tpu_torch.training import optimizers, train
 
-    name, sizes, fields, dtype_name = arm
+    name, sizes, fields, dtype_name, batch_n, pipelined = _arm_parts(arm)
+    rules = _arm_rules(pipelined)
     mesh = MeshSpec(sizes).build(devices=[device] * 2, backend="gloo")
-    cfg, params, tokens = _mesh_setup(device, dtype_name, fields)
+    cfg, params, tokens = _mesh_setup(device, dtype_name, fields, batch_n)
     axes = transformer.param_logical_axes(cfg)
     tx = optimizers.adamw(1e-4, mu_dtype=None)
     state = train.create_sharded_state(
         None, lambda _: map_leaves(params, torch.clone), tx, mesh=mesh,
-        logical_axes=axes)
+        logical_axes=axes, rules=rules)
     del params
-    loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh)
-    data = (mesh.axis_index("dp") * mesh.axis_size("fsdp")
-            + mesh.axis_index("fsdp"))
-    per = MESH_BATCH // (mesh.axis_size("dp") * mesh.axis_size("fsdp"))
-    batch = train.shard_batch({"tokens": tokens[data * per:(data + 1) * per]},
-                              mesh)
+    loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh,
+                             rules=rules)
+    rows = pipeline.microbatch_rows(
+        mesh, batch_n,
+        transformer.num_microbatches(cfg, mesh) if pipelined else 1)
+    batch = train.shard_batch(
+        {"tokens": tokens[torch.as_tensor(rows, device=tokens.device)]},
+        mesh)
     report = {"arm": name}
     f32 = dtype_name == "float32"
+    moe_pp = cfg.moe is not None and pipelined
     if f32:
-        layout = train._MeshLayout(mesh, None, axes, state.params)
-        _, grads = train._grads(loss, layout.gather(state.params), batch)
+        layout = train._MeshLayout(mesh, rules, axes, state.params)
+        _, grads = train._grads(_ce_only(loss) if moe_pp else loss,
+                                layout.gather(state.params), batch)
         whole = sharding.gather_tree(
             train._with_leaves(state.params, iter(layout.sync(grads))),
-            axes, mesh)
-        if ref is not None:
+            axes, mesh, rules)
+        if ref is not None and moe_pp:
+            got = float(train.global_norm(leaves(whole)))
+            report["ce_grad_norm"] = [got, ref[4]]
+            if abs(got - ref[4]) > TOL_F32 * ref[4]:
+                raise AssertionError(
+                    f"{phase} {name}: step 1's CE gradient norm {got!r} "
+                    f"against one process's {ref[4]!r}")
+        elif ref is not None:
             want = ref[2]
             scale = max(float(g.abs().max()) for g in want)
             err = max(float((a - b).abs().max())
@@ -6940,10 +7073,11 @@ def _mesh_arm(rank, device, arm, ref=None):
             report["grad_err_rel"] = err / scale
             if err > TOL_F32 * scale:
                 raise AssertionError(
-                    f"6mesh {name}: step 1's gradient differs from one "
+                    f"{phase} {name}: step 1's gradient differs from one "
                     f"process's by {err:.3e} (> 1e-4 of {scale:.3e})")
         del whole, grads
-    step = train.make_train_step(loss, tx, mesh=mesh, logical_axes=axes)
+    step = train.make_train_step(loss, tx, mesh=mesh, logical_axes=axes,
+                                 rules=rules)
     steps = MESH_STEPS if f32 else MESH_BF16_STEPS
     torch.cuda.synchronize()
     dispatch.reset_launch_counts()
@@ -6958,15 +7092,19 @@ def _mesh_arm(rank, device, arm, ref=None):
     report["steps_per_s"] = (steps - 1) / (time.perf_counter() - start)
     report["launches"] = dispatch.launch_counts(TRAIN_ATTN_KERNELS)
     report["metrics"] = metrics
-    per_layer = mesh_launches_per_layer(sizes, fields)
-    want = {k: v * cfg.num_layers * steps for k, v in per_layer.items()}
+    per_layer = mesh_launches_per_layer(sizes, fields, pipelined)
+    held = mesh_layers_held(cfg.num_layers, sizes, pipelined)
+    want = {k: v * held * steps for k, v in per_layer.items()}
     if report["launches"] != want:
-        raise AssertionError(f"6mesh {name} rank {rank}: launches "
+        raise AssertionError(f"{phase} {name} rank {rank}: launches "
                              f"{report['launches']}, want {want}")
-    final = sharding.gather_tree(state.params, axes, mesh)
+    final = sharding.gather_tree(state.params, axes, mesh, rules)
     if ref is not None:
         ref_metrics = ref[0]
-        if f32:
+        if f32 and moe_pp:
+            checks = (("step 1 ce", metrics[0]["ce"], ref_metrics[0]["ce"]),)
+            rel = TOL_F32
+        elif f32:
             checks = (("step 1 loss", metrics[0]["loss"],
                        ref_metrics[0]["loss"]),
                       ("step 1 grad_norm", metrics[0]["grad_norm"],
@@ -6982,8 +7120,15 @@ def _mesh_arm(rank, device, arm, ref=None):
         for what, got, want_v in checks:
             if not np.isfinite(got) or abs(got - want_v) > rel * abs(want_v):
                 raise AssertionError(
-                    f"6mesh {name}: {what} {got!r} against one process's "
+                    f"{phase} {name}: {what} {got!r} against one process's "
                     f"{want_v!r} (limit {rel} relative)")
+        if cfg.moe is not None:
+            report["aux"] = [metrics[0]["aux"], ref_metrics[0]["aux"]]
+            if not moe_pp and abs(metrics[0]["aux"] - ref_metrics[0]["aux"]
+                                  ) > PP_AUX_TOL:
+                raise AssertionError(
+                    f"{phase} {name}: aux {metrics[0]['aux']!r} against one "
+                    f"process's {ref_metrics[0]['aux']!r}")
         report["param_diff"] = max(float((a.detach() - b).abs().max())
                                    for a, b in zip(leaves(final), ref[3]))
         report["one_process_steps_per_s"] = ref[1]
@@ -6992,11 +7137,12 @@ def _mesh_arm(rank, device, arm, ref=None):
     return report
 
 
-def _mesh_follower(port, device_name, model, queue, setup=None):
-    """Rank 1 of phase 6mesh, in a spawned child: every arm in order, as
-    rank 0 runs them; after each, its report on ``queue`` (an error's
-    repr if it fails).  ``setup``, a module-level function, runs first
-    (a CPU rehearsal patches the kernels with it)."""
+def _mesh_follower(port, device_name, model, queue, setup=None,
+                   arms=MESH_ARMS, phase="6mesh"):
+    """Rank 1 of phase 6mesh or 6pp, in a spawned child: every arm in
+    order, as rank 0 runs them; after each, its report on ``queue`` (an
+    error's repr if it fails).  ``setup``, a module-level function, runs
+    first (a CPU rehearsal patches the kernels with it)."""
     import datetime
 
     import torch
@@ -7016,13 +7162,97 @@ def _mesh_follower(port, device_name, model, queue, setup=None):
     dist.init_process_group("gloo", store=store, rank=1, world_size=2,
                             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
-        for arm in MESH_ARMS:
-            queue.put(_mesh_arm(1, device, arm))
+        for arm in arms:
+            queue.put(_mesh_arm(1, device, arm, phase=phase))
     except BaseException as exc:  # noqa: BLE001 — reported to rank 0
         queue.put(repr(exc))
         raise
     finally:
         dist.destroy_process_group()
+
+
+def _run_mesh_arms(device, card, phase, arms, setup=None):
+    """Rank 0 here and rank 1 in a spawned child, both on ``device`` over
+    gloo, run ``arms`` in order (:func:`_mesh_arm`), each held to one
+    process's steps (:func:`_mesh_reference`, one a :func:`_ref_key`),
+    which run first.  Returns {"arms": {name: {"rank0", "rank1"}},
+    "launches": K5-K7 summed over both ranks and every arm}."""
+    import datetime
+    import multiprocessing
+    import queue as queue_lib
+
+    import torch
+    import torch.distributed as dist
+
+    refs = {}
+    for arm in arms:
+        key = _ref_key(arm)
+        if key not in refs:
+            _, _, fields, dtype_name, batch_n, _ = _arm_parts(arm)
+            refs[key] = _mesh_reference(
+                device, dtype_name, fields,
+                MESH_STEPS if dtype_name == "float32" else MESH_BF16_STEPS,
+                batch_n)
+            torch.cuda.empty_cache()
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    ctx = multiprocessing.get_context("spawn")
+    reports = ctx.Queue()
+    child = ctx.Process(target=_mesh_follower,
+                        args=(store.port, str(device), MESH_MODEL, reports,
+                              setup, arms, phase), daemon=True)
+    child.start()
+    out = {"arms": {}}
+    try:
+        dist.init_process_group(
+            "gloo", store=store, rank=0, world_size=2,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        for arm in arms:
+            ref = refs[_ref_key(arm)]
+            mine = _mesh_arm(0, device, arm, ref, phase=phase)
+            try:
+                theirs = reports.get(timeout=MESH_TIMEOUT_S)
+            except queue_lib.Empty:
+                raise AssertionError(f"{phase} {arm[0]}: rank 1 did not "
+                                     f"report within {MESH_TIMEOUT_S} s"
+                                     ) from None
+            if isinstance(theirs, str):
+                raise AssertionError(f"{phase} {arm[0]}: rank 1 failed: "
+                                     f"{theirs}")
+            m0, r0 = mine["metrics"], ref[0]
+            extra = (f"gradient within {mine['grad_err_rel']:.2e} of its "
+                     f"largest magnitude, " if "grad_err_rel" in mine else "")
+            if "ce_grad_norm" in mine:
+                extra += ("CE {:.6f} ({:.6f}), CE gradient norm {:.6f} "
+                          "({:.6f}), ").format(
+                              m0[0]["ce"], r0[0]["ce"],
+                              *mine["ce_grad_norm"])
+            if "aux" in mine:
+                extra += "aux {:.6e} ({:.6e}), ".format(*mine["aux"])
+            print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
+                  f"{m0[1]['loss']:.6f} against one process's "
+                  f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
+                  f"{m0[0]['grad_norm']:.6f} ({r0[0]['grad_norm']:.6f}), "
+                  f"{extra}largest param difference "
+                  f"{mine['param_diff']:.3e}; {mine['steps_per_s']:.3f} "
+                  f"steps/s on 2 ranks against "
+                  f"{mine['one_process_steps_per_s']:.3f} in one process; "
+                  f"launches rank 0 {mine['launches']}, rank 1 "
+                  f"{theirs['launches']} [{card}]")
+            out["arms"][arm[0]] = {"rank0": mine, "rank1": theirs}
+        child.join(timeout=MESH_TIMEOUT_S)
+        if child.exitcode != 0:
+            raise AssertionError(f"{phase}: rank 1 exited {child.exitcode}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if child.is_alive():
+            child.kill()
+            child.join()
+    out["launches"] = {
+        k: sum(a["rank0"]["launches"][k] + a["rank1"]["launches"][k]
+               for a in out["arms"].values()) for k in TRAIN_ATTN_KERNELS}
+    return out
 
 
 def run_mesh_training(device, card, setup=None):
@@ -7040,75 +7270,62 @@ def run_mesh_training(device, card, setup=None):
     K6 and K7 launches equal :func:`mesh_launches_per_layer` x 12 layers
     x steps.  Two ranks over gloo on one card measure the lockstep's
     overhead, not NCCL between cards."""
-    import datetime
-    import multiprocessing
-    import queue as queue_lib
+    return _run_mesh_arms(device, card, "6mesh", MESH_ARMS, setup)
 
+
+#: The batch of 6pp's one K5-K7 call shape ([2, MESH_SEQ, 12, 64],
+#: causal): a pipeline microbatch (b4 / M = 2) and an ep rank's rows
+#: (b2), every head.
+PP_KERNEL_BATCH = 2
+
+
+def check_pp_kernels(device, card):
+    """K5, K6 and K7 at 6pp's call shape, bf16 and f32 causal, against
+    their plain versions (:func:`_bwd_case`); then timed in bf16 beside
+    the plain version, SDPA and the bound (:func:`_time_attention`).
+    Returns {"max_abs_err": {"<kernel> <dtype>": err}, "rows": {...}}."""
     import torch
-    import torch.distributed as dist
 
-    refs = {}
-    for arm in MESH_ARMS:
-        key = (arm[3], tuple(sorted(arm[2].items())))
-        if arm[3] == "float32":
-            key = ("float32", ())  # f32 arms share one reference
-        if key not in refs:
-            refs[key] = _mesh_reference(
-                device, arm[3], {} if arm[3] == "float32" else arm[2],
-                MESH_STEPS if arm[3] == "float32" else MESH_BF16_STEPS)
-    torch.cuda.empty_cache()
-    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-    ctx = multiprocessing.get_context("spawn")
-    reports = ctx.Queue()
-    child = ctx.Process(target=_mesh_follower,
-                        args=(store.port, str(device), MESH_MODEL, reports,
-                              setup), daemon=True)
-    child.start()
-    out = {"arms": {}}
-    try:
-        dist.init_process_group(
-            "gloo", store=store, rank=0, world_size=2,
-            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-        for arm in MESH_ARMS:
-            key = (("float32", ()) if arm[3] == "float32"
-                   else (arm[3], tuple(sorted(arm[2].items()))))
-            mine = _mesh_arm(0, device, arm, refs[key])
-            try:
-                theirs = reports.get(timeout=MESH_TIMEOUT_S)
-            except queue_lib.Empty:
-                raise AssertionError(f"6mesh {arm[0]}: rank 1 did not report "
-                                     f"within {MESH_TIMEOUT_S} s") from None
-            if isinstance(theirs, str):
-                raise AssertionError(f"6mesh {arm[0]}: rank 1 failed: "
-                                     f"{theirs}")
-            m0, r0 = mine["metrics"], refs[key][0]
-            extra = (f"gradient within {mine['grad_err_rel']:.2e} of its "
-                     f"largest magnitude, " if "grad_err_rel" in mine else "")
-            print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
-                  f"{m0[1]['loss']:.6f} against one process's "
-                  f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
-                  f"{m0[0]['grad_norm']:.6f} ({r0[0]['grad_norm']:.6f}), "
-                  f"{extra}largest param difference "
-                  f"{mine['param_diff']:.3e}; {mine['steps_per_s']:.3f} "
-                  f"steps/s on 2 ranks against "
-                  f"{mine['one_process_steps_per_s']:.3f} in one process; "
-                  f"launches rank 0 {mine['launches']}, rank 1 "
-                  f"{theirs['launches']} [{card}]")
-            out["arms"][arm[0]] = {"rank0": mine, "rank1": theirs}
-        child.join(timeout=MESH_TIMEOUT_S)
-        if child.exitcode != 0:
-            raise AssertionError(f"6mesh: rank 1 exited {child.exitcode}")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        if child.is_alive():
-            child.kill()
-            child.join()
-    out["launches"] = {
-        k: sum(a["rank0"]["launches"][k] + a["rank1"]["launches"][k]
-               for a in out["arms"].values()) for k in TRAIN_ATTN_KERNELS}
-    return out
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    b, t, causal = PP_KERNEL_BATCH, MESH_SEQ, True
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        errs = _bwd_case(fa, b, t, causal, dtype, gen, mask_kind=None,
+                         glse=False)
+        for kname in TRAIN_ATTN_KERNELS:
+            worst[f"{kname} {dname}"] = errs[kname]
+        print(f"  K5/K6/K7 at B={b} T={t} H={HEADS} {dname} causal: "
+              f"max_abs_err out {errs['flash_fwd']:.3e}, dq "
+              f"{errs['flash_bwd_dq']:.3e}, dk/dv "
+              f"{errs['flash_bwd_dkv']:.3e} [{card}]")
+    rows = _time_attention(fa, "pp microbatch", card, gen,
+                           shape=(b, t, causal), plain_device=False)
+    dispatch.reset_launch_counts()
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def run_pipeline_training(device, card, setup=None):
+    """6pp: CloudLM SMALL at full width and depth under the GPipe pipeline
+    and expert parallelism, two ranks on ``device`` over gloo as 6mesh
+    (:data:`PP_ARMS`), in f32 (TF32 off) against one process on the same
+    weights and batch: ``{pp: 2}`` (b4, M = 2) with an untied and a tied
+    head (6mesh's limits: a tied table's gradient summed over pp would
+    count its head part twice); the default MoE under ``{ep: 2}`` (b2;
+    the same limits, aux within 1e-5); the MoE under ``{pp: 2}`` (step
+    1's CE and its gradient's norm within 1e-4 relative; aux printed
+    beside one process's whole-batch aux, not held: it is the
+    microbatches' mean by design); then ``{pp: 2}`` in bf16 on f32
+    masters (every step's loss within 2e-2 relative; steps/s printed
+    beside one process's).  Each rank's K5/K6/K7 launches equal
+    :func:`mesh_launches_per_layer` x :func:`mesh_layers_held` x steps:
+    a stage runs its 6 layers once a microbatch, an ep rank all 12
+    (phase 2 (pp), :func:`check_pp_kernels`, holds K5-K7 at the arms'
+    call shape)."""
+    return _run_mesh_arms(device, card, "6pp", PP_ARMS, setup)
 
 
 def tensor_core_sass(dispatch):
@@ -7204,6 +7421,10 @@ def main() -> int:
          "rank (n=2/4: causal with empty blocks, non-causal, zig-zag), "
          "assembled, against one whole-sequence call and the plain version",
          "ring check", lambda: check_ring(device, card), False),
+        ("phase 2 (pp): K5, K6 and K7 at phase 6pp's call shape (a "
+         "pipeline microbatch and an ep rank's rows, B=2 T=1024, 12 heads) "
+         "against their plain versions, then timed", "pp kernel check",
+         lambda: check_pp_kernels(device, card), False),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -7398,6 +7619,16 @@ def main() -> int:
         start = time.perf_counter()
         mesh_run = run_mesh_training(device, card)
         print(f"  (mesh training: {time.perf_counter() - start:.1f} s wall)")
+        title = (f"phase 6pp: train CloudLM SMALL under the GPipe pipeline "
+                 "and expert parallelism, 2 ranks on the card over gloo "
+                 "({pp: 2} b4 M=2 untied and tied, the default MoE under "
+                 "{ep: 2} b2 and {pp: 2} b4, in f32 against one process; "
+                 "{pp: 2} in bf16)")
+        print(title)
+        start = time.perf_counter()
+        pp_run = run_pipeline_training(device, card)
+        print(f"  (pipeline training: {time.perf_counter() - start:.1f} s "
+              "wall)")
         title = (f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
                  f"3 + 10 steps, then one step under torch.profiler")
         print(title)
@@ -7447,12 +7678,14 @@ def main() -> int:
     verify = results["paged verify check"]
     tp_kernels = results["tp kernel check"]
     ring_check = results["ring check"]
+    pp_kernels = results["pp kernel check"]
     for entry in kernels:
         for dname, key in (("bfloat16", "max_abs_err"),
                            ("float32", "max_abs_err_f32")):
             for errs in (chunks["max_abs_err"], verify["max_abs_err"],
                          tp_kernels["max_abs_err"],
-                         ring_check["max_abs_err"]):
+                         ring_check["max_abs_err"],
+                         pp_kernels["max_abs_err"]):
                 err = errs.get(f"{entry['name']} {dname}")
                 if err is not None:
                     entry[key] = max(entry[key], err)
@@ -7473,8 +7706,8 @@ def main() -> int:
                # Both ranks of the tp-2 slice.
                "tp engine": results["tp engine"]}
     # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v)
-    # and under a mesh (6mesh, both ranks).
-    zoo_training = (moe_lm, dots, vit_run, mesh_run)
+    # and under a mesh (6mesh and 6pp, both ranks).
+    zoo_training = (moe_lm, dots, vit_run, mesh_run, pp_run)
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -7570,10 +7803,15 @@ def main() -> int:
                        if k != "launches"},
         "tp_rank_kernels": tp_kernels["rows"],
         "ring_block_kernels": ring_check["rows"],
+        "pp_microbatch_kernels": pp_kernels["rows"],
         "mesh_training": {name: {rank: {k: v for k, v in r.items()
                                         if k != "metrics"}
                                  for rank, r in arm.items()}
                           for name, arm in mesh_run["arms"].items()},
+        "pipeline_training": {name: {rank: {k: v for k, v in r.items()
+                                            if k != "metrics"}
+                                     for rank, r in arm.items()}
+                              for name, arm in pp_run["arms"].items()},
         "engine_tp2": {k: v for k, v in results["tp engine"].items()
                        if k != "launches"},
         "moe_lm_b4xT1024": moe_lm,

@@ -142,7 +142,9 @@ def to_train_shard(params, config: TransformerConfig, mesh, rules=None, *,
     """JAX-layout params (numpy leaves) -> ``(params, opt_state)``, this
     rank's training shard as ``train.create_sharded_state(mesh=...,
     logical_axes=transformer.param_logical_axes(config), rules=...)``
-    lays it out, trainable, on ``device`` (the mesh's device by default).
+    lays it out, trainable, on ``device`` (the mesh's device by default):
+    a pipeline stage's block of layers under ``layers`` -> ``pp``, a
+    rank's experts under ``expert`` -> ``ep``, fsdp and tp slices.
     ``opt_state``, an optax adam/adamw state, becomes the port's
     ``{"count", "mu", "nu"}`` cut the same way (None without one)."""
     from cloud_tpu_torch.models import transformer
@@ -169,9 +171,9 @@ def to_train_shard(params, config: TransformerConfig, mesh, rules=None, *,
 def from_train_shard(shard, config: TransformerConfig, mesh, rules=None
                      ) -> Dict[str, Any]:
     """The inverse of :func:`to_train_shard` for a params-shaped tree
-    (params, or a moment): every rank's shards gathered whole and laid
-    out as the JAX package's numpy tree.  A collective call on every
-    rank."""
+    (params, or a moment): every rank's shards gathered whole (every
+    stage's layers, every rank's experts) and laid out as the JAX
+    package's numpy tree.  A collective call on every rank."""
     from cloud_tpu_torch.models import transformer
     from cloud_tpu_torch.parallel import sharding
 

@@ -397,11 +397,29 @@ def _decode_tokens(params, cache, logits0, prompt_lens, config, *,
     return torch.stack(emitted, dim=1), final_len - prompt_lens.to(torch.int32)
 
 
+def _check_inference_supported(config, rules, mesh, what: str):
+    """The inference entry points' guard, as the JAX package's: a
+    pipelined (pp) or zig-zag layout is training-only.  ``mesh`` None
+    reads the installed global mesh."""
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+    if transformer._is_pipelined(config, rules, mesh):
+        raise ValueError(
+            f"{what} runs the scanned layer stack; pp pipelining is "
+            "training-only (drop the layers->pp rule for inference)"
+        )
+    if (mesh is not None and config.zigzag_sp
+            and mesh.axis_size(mesh_lib.AXIS_SP) > 1):
+        raise ValueError(f"zigzag_sp is training-only; disable it for {what}")
+
+
 def generate(params, prompt_tokens, prompt_lens, config, *,
              max_new_tokens: int,
              sample: SampleConfig = SampleConfig(temperature=0.0),
              generator: Optional[torch.Generator] = None,
-             kv_quant: bool = False, device=None) -> Dict[str, Any]:
+             kv_quant: bool = False, device=None, rules=None,
+             mesh=None) -> Dict[str, Any]:
     """Generate ``max_new_tokens`` continuations for a batch of prompts.
 
     ``prompt_tokens`` ``[B, T_prompt]`` left-aligned ids, ``prompt_lens``
@@ -410,8 +428,11 @@ def generate(params, prompt_tokens, prompt_lens, config, *,
     Returns ``tokens [B, N]``, ``sequences
     [B, T_prompt + N]`` (prompt and generation stitched at each row's
     true length) and ``num_generated [B]`` (eos included), as int32
-    tensors on ``device``.
+    tensors on ``device``.  ``rules`` and ``mesh`` (default: the
+    installed global mesh) are checked as the JAX package checks them: a
+    pipelined or zig-zag layout raises ``ValueError``.
     """
+    _check_inference_supported(config, rules, mesh, "generation")
     device = resolve_device(device)
     if sample.temperature != 0.0 and generator is None:
         raise ValueError("non-greedy sampling needs a torch.Generator")
@@ -1035,7 +1056,7 @@ def beam_search(params, prompt_tokens, prompt_lens, config, *,
                 num_beams: int, max_new_tokens: int,
                 length_penalty: float = 1.0, eos_id: Optional[int] = None,
                 pad_id: int = 0, kv_quant: bool = False,
-                device=None) -> Dict[str, Any]:
+                device=None, rules=None, mesh=None) -> Dict[str, Any]:
     """Beam decoding: the highest-scoring continuation per prompt.
 
     Prefill runs once per prompt; the cache is tiled to ``B * K`` rows
@@ -1050,8 +1071,10 @@ def beam_search(params, prompt_tokens, prompt_lens, config, *,
 
     Returns ``tokens [B, max_new_tokens]`` (the best hypothesis, pad after
     eos), ``scores [B]`` (its length-penalized log-prob) and
-    ``num_generated [B]`` (eos included), on ``device``.
+    ``num_generated [B]`` (eos included), on ``device``.  ``rules`` and
+    ``mesh`` are checked as in :func:`generate`.
     """
+    _check_inference_supported(config, rules, mesh, "beam_search")
     device = resolve_device(device)
     if num_beams < 1:
         raise ValueError(f"num_beams must be >= 1, got {num_beams}")

@@ -10,6 +10,9 @@ stacked SwiGLU experts and the combine are plain products
 (``torch.einsum``), as the JAX package computes them outside any Pallas
 kernel.
 
+On a training mesh (``ctx``) the experts split over ``ep`` and the
+auxiliary loss is the global batch's (:func:`moe_mlp_apply`).
+
 ``C`` is set by the call's ``T`` (:func:`_capacity`), so a prompt routed
 through a prefill at a bucket's width, a prefill chunk or a speculative
 verify window can drop different choices: the port matches JAX program
@@ -43,9 +46,9 @@ class MoeConfig:
 
 
 def moe_mlp_axes():
-    """Logical axes of the MoE params, the JAX package's table (the port
-    runs on one card and shards nothing; kept so the trees stay named
-    alike for the weight bridge and the parallel slice)."""
+    """Logical axes of the MoE params, the JAX package's table: the
+    stacked experts' dim 0 is ``expert`` (``ep`` under the default
+    rules), their hidden dim ``mlp`` (``tp``)."""
     return {
         "router": {"kernel": ("embed", None)},
         "wi": ("expert", "embed", "mlp"),
@@ -68,10 +71,26 @@ def _top_k(gates, k: int):
     return values[..., :k], idx[..., :k]
 
 
-def moe_mlp_apply(params, x, cfg: MoeConfig) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE MLP to ``x [B, T, D]``; returns ``(out [B, T, D],
-    aux)``, ``aux`` the f32 load-balancing loss (plus the z-loss)."""
+    aux)``, ``aux`` the f32 load-balancing loss (plus the z-loss).
+
+    ``ctx``, a ``parallel.tensor_parallel.TrainContext``, runs the layer
+    on a training mesh as the JAX package's GSPMD runs it (``expert`` ->
+    ``ep``, ``batch`` -> ``dp`` x ``fsdp``): the router, top-k, capacity
+    (from this call's ``T``), dispatch and combine run alike on every
+    rank that holds these rows; the rank's experts (``ctx.expert_bounds``,
+    cut as ``sharding.shard_bounds`` cuts them) see ``x`` and the combine
+    weights through ``ctx.copy_experts`` (their cotangents summed over
+    ``ep``), their hidden units split over ``tp`` behind the TP pair, and
+    the experts' partial outputs are summed over ``ep`` in f32.  The
+    auxiliary loss's statistics (the top-1 share and the mean gate per
+    expert) are means over the GLOBAL batch's rows: sums over the data
+    axes in the forward pass with an identity backward
+    (``ctx.sum_rows``), so each rank's gradient is its own rows' share
+    and the step's sum over the data axes makes it whole.  With ``ctx``
+    None, the one-card layer."""
     b, t, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
     c = _capacity(t, cfg)
@@ -97,24 +116,56 @@ def moe_mlp_apply(params, x, cfg: MoeConfig) -> Tuple[torch.Tensor,
     slots = torch.arange(c, device=x.device, dtype=slot_te.dtype)
     combine = torch.where(slot_te[..., None] == slots, gate_te[..., None],
                           torch.zeros((), device=x.device))
-    dispatch = (combine > 0.0).to(x.dtype)  # [B, T, E, C]
+    out = _experts(params, x, combine, ctx)
 
+    # Load-balancing loss (Switch/GShard form) on the top-1 choice, over
+    # every row and position, padding included.
+    if ctx is None:
+        fraction_routed = choice_mask[..., 0, :].mean(dim=(0, 1))
+        mean_gate = gates.mean(dim=(0, 1))
+    else:
+        rows = b * t * ctx.data_size
+        fraction_routed = ctx.sum_rows(
+            choice_mask[..., 0, :].sum(dim=(0, 1))) / rows
+        mean_gate = ctx.sum_rows(gates.sum(dim=(0, 1))) / rows
+    aux = (fraction_routed * mean_gate).sum() * e * cfg.aux_loss_weight
+    if cfg.z_loss_weight:
+        z = torch.logsumexp(router_logits, dim=-1)  # [B, T]
+        z2 = ((z * z).mean() if ctx is None
+              else ctx.sum_rows((z * z).sum()) / (b * t * ctx.data_size))
+        aux = aux + cfg.z_loss_weight * z2
+    return out, aux
+
+
+def _experts(params, x, combine, ctx=None):
+    """Dispatch, the stacked SwiGLU experts and the combine.  With a
+    training mesh's ``ctx``, this rank's experts (``params``' expert
+    leaves are its shard); see :func:`moe_mlp_apply`."""
+    if ctx is not None:
+        start, stop = ctx.expert_bounds(combine.shape[2])
+        x = ctx.copy_experts(x)
+        combine = ctx.copy_experts(combine)[:, :, start:stop]
+    dispatch = (combine > 0.0).to(x.dtype)  # [B, T, E, C]
     expert_in = torch.einsum("btec,btd->becd", dispatch, x)
+    # The TP pair around the expert products, as the dense MLP's: the
+    # input copied, the row-split output summed over tp in f32.
+    split_tp = ctx is not None and ctx.size > 1
+    if split_tp:
+        expert_in = ctx.copy(expert_in)
     # int8-aware: wi/wg/wo may be stored int8 with per-(expert, out) scales.
     wi = layers.materialize_matrix(params, "wi", x.dtype)
     wg = layers.materialize_matrix(params, "wg", x.dtype)
     wo = layers.materialize_matrix(params, "wo", x.dtype)
     h = (F.silu(torch.einsum("becd,edh->bech", expert_in, wi))
          * torch.einsum("becd,edh->bech", expert_in, wg))
-    expert_out = torch.einsum("bech,ehd->becd", h, wo)
-    out = torch.einsum("btec,becd->btd", combine.to(x.dtype), expert_out)
-
-    # Load-balancing loss (Switch/GShard form) on the top-1 choice, over
-    # every row and position, padding included.
-    fraction_routed = choice_mask[..., 0, :].mean(dim=(0, 1))
-    mean_gate = gates.mean(dim=(0, 1))
-    aux = (fraction_routed * mean_gate).sum() * e * cfg.aux_loss_weight
-    if cfg.z_loss_weight:
-        z = torch.logsumexp(router_logits, dim=-1)  # [B, T]
-        aux = aux + cfg.z_loss_weight * (z * z).mean()
-    return out, aux
+    if split_tp:
+        expert_out = ctx.reduce(torch.einsum(
+            "bech,ehd->becd", h.float(), wo.float())).to(x.dtype)
+    else:
+        expert_out = torch.einsum("bech,ehd->becd", h, wo)
+    if ctx is None or not ctx.experts_split:
+        return torch.einsum("btec,becd->btd", combine.to(x.dtype),
+                            expert_out)
+    # The experts' partial outputs, summed over ep in f32.
+    partial = torch.einsum("btec,becd->btd", combine, expert_out.float())
+    return ctx.reduce_experts(partial).to(x.dtype)

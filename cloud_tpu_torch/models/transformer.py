@@ -26,10 +26,16 @@ for ``zigzag_sp`` and keeps the rank's block, attention goes through
 ``layers.sharded_attention`` (the ring, or Ulysses with ``ulysses_sp``),
 and ``loss_fn`` returns this rank's share of the GLOBAL loss (its
 numerator over the weight total of every rank) with the global value in
-its metrics.  ``num_microbatches`` (pp) and the MoE MLP under a mesh
-are queued under ROADMAP.md A.3.  With ``moe`` set, each layer's
-MLP is :func:`cloud_tpu_torch.models.moe.moe_mlp_apply` and the forward
-pass returns the layers' summed auxiliary loss beside the logits.
+its metrics.  With ``pp`` > 1 and rules that map ``layers`` to ``pp``
+(``_is_pipelined``, the JAX package's test) the rank holds its stage's
+block of layers and the stack runs as a GPipe pipeline of
+``num_microbatches`` microbatches (``parallel/pipeline.py``); the rank's
+rows are then ``pipeline.microbatch_rows`` of the global batch.  With
+``moe`` set, each layer's MLP is
+:func:`cloud_tpu_torch.models.moe.moe_mlp_apply` (under a mesh its
+experts split over ``ep`` and its auxiliary loss is the global batch's)
+and the forward pass returns the layers' summed auxiliary loss beside
+the logits; under a pipeline, the mean of the microbatches' as in JAX.
 """
 
 from __future__ import annotations
@@ -43,11 +49,12 @@ import torch.nn.functional as F
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
-from cloud_tpu_torch.models.moe import MoeConfig, moe_mlp_apply
+from cloud_tpu_torch.models.moe import MoeConfig, moe_mlp_apply, moe_mlp_axes
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops.fused_cross_entropy import fused_linear_cross_entropy
 from cloud_tpu_torch.parallel import mesh as mesh_lib
-from cloud_tpu_torch.parallel import tensor_parallel
+from cloud_tpu_torch.parallel import pipeline as pipeline_lib
+from cloud_tpu_torch.parallel import sharding, tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +74,8 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "full"
     rope_base: float = 10000.0
-    #: Pipeline microbatches; acts only under a mesh with pp > 1.
+    #: Pipeline microbatches (pp > 1); None -> the pp size.  The bubble
+    #: is (pp-1)/(M+pp-1) of the step.
     num_microbatches: Optional[int] = None
     #: Tie the LM head to the token embedding (logits = x @ table^T).
     tied_embeddings: bool = False
@@ -134,8 +142,9 @@ def _layer_compute(layer_params, x, aux, *, config, positions, tp=None):
                                       attended.reshape(b, t, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
     if config.moe is not None:
-        mlp_out, layer_aux = moe_mlp_apply(layer_params["mlp"], y,
-                                           config.moe)
+        mlp_out, layer_aux = moe_mlp_apply(
+            layer_params["mlp"], y, config.moe,
+            ctx=tp if isinstance(tp, tensor_parallel.TrainContext) else None)
         aux = aux + layer_aux
     else:
         mlp_out = layers.mlp_block_apply(layer_params["mlp"], y, tp=tp)
@@ -156,10 +165,68 @@ def _context(params, config: TransformerConfig, mesh, rules):
     mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
     if mesh is None:
         return None
-    from cloud_tpu_torch.parallel import sharding
-
     return tensor_parallel.train_context(mesh, config,
                                          rules or sharding.DEFAULT_RULES)
+
+
+def _is_pipelined(config: TransformerConfig, rules, mesh) -> bool:
+    """pp > 1 and the rules map ``layers`` to ``pp`` (read with ``.get``:
+    a table without a ``layers`` entry keeps the plain stack), as the
+    JAX package decides."""
+    if mesh is None:
+        return False
+    if mesh.axis_size(mesh_lib.AXIS_PP) <= 1:
+        return False
+    assignment = (rules or sharding.DEFAULT_RULES).rules.get("layers")
+    return mesh_lib.AXIS_PP in sharding.mesh_axes(assignment)
+
+
+def num_microbatches(config: TransformerConfig, mesh) -> int:
+    """The pipeline's microbatch count: ``config.num_microbatches``, else
+    the ``pp`` size."""
+    return config.num_microbatches or mesh.axis_size(mesh_lib.AXIS_PP)
+
+
+def _check_microbatches(config: TransformerConfig, tp, rows: int) -> int:
+    """The microbatch count, checked against this rank's ``rows``: the
+    global batch (every data rank's rows) must divide by it, with the
+    JAX package's message, and so must the rank's share."""
+    m = num_microbatches(config, tp.mesh)
+    total = rows * tp.data_size
+    if total % m:
+        raise ValueError(
+            f"Global batch {total} not divisible by num_microbatches={m} "
+            f"(pp={tp.pp_size}); set config.num_microbatches accordingly.")
+    if rows % m:
+        raise ValueError(
+            f"this rank's {rows} rows (global batch {total} over "
+            f"{tp.data_size} data ranks) do not split into "
+            f"num_microbatches={m}: a global microbatch must divide over "
+            "dp x fsdp")
+    return m
+
+
+def _pipelined_stack(params, x, aux, config: TransformerConfig, tp,
+                     positions, m: int):
+    """The stage's layers as a GPipe pipeline over ``pp``
+    (``parallel/pipeline.py``) on ``m`` microbatches of this rank's rows
+    (its share of each global microbatch, ``pipeline.microbatch_rows``).
+    Returns the hidden states and the mean of the microbatches' summed
+    auxiliary losses (JAX's gradient-accumulation scale)."""
+    b, t, d = x.shape
+    body = layers.remat_wrap(_layer_compute, config.remat,
+                             config.remat_policy)
+    positions = positions[: b // m]
+
+    def pipe_layer(layer_params, carry):
+        xc, aux_c = carry
+        return body(layer_params, xc, aux_c, config=config,
+                    positions=positions, tp=tp)
+
+    x_mbs, aux_mbs = pipeline_lib.pipeline(
+        pipe_layer, params["layers"],
+        (x.reshape(m, b // m, t, d), aux.expand(m).clone()), mesh=tp.mesh)
+    return x_mbs.reshape(b, t, d), aux_mbs.sum() / m
 
 
 def _device(ctx, device):
@@ -200,6 +267,12 @@ def apply_hidden(params, tokens, config: TransformerConfig, *, device=None,
 def _apply_hidden(params, tokens, config: TransformerConfig, tp, device):
     tokens = torch.as_tensor(tokens, device=device)
     b, t = tokens.shape
+    pipelined = (isinstance(tp, tensor_parallel.TrainContext)
+                 and _is_pipelined(config, tp.rules, tp.mesh))
+    if pipelined:
+        if config.zigzag_sp and tp.sp_size > 1:
+            raise ValueError("zigzag_sp is incompatible with pp pipelining")
+        m = _check_microbatches(config, tp, b)
     pos = _positions(tp, t, config, device)
     if pos.shape[0] != t:
         tokens = tokens[:, pos]
@@ -207,9 +280,12 @@ def _apply_hidden(params, tokens, config: TransformerConfig, tp, device):
                                tp=tp)
     x = x * math.sqrt(config.dim)  # stays in config.dtype, as in JAX
     positions = pos.expand(b, pos.shape[0])
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    if pipelined:
+        x, aux = _pipelined_stack(params, x, aux, config, tp, positions, m)
+        return layers.rmsnorm_apply(params["ln_f"], x), aux
     body = layers.remat_wrap(_layer_compute, config.remat,
                              config.remat_policy)
-    aux = torch.zeros((), dtype=torch.float32, device=device)
     for layer_params in params["layers"]:
         x, aux = body(layer_params, x, aux, config=config,
                       positions=positions, tp=tp)
@@ -285,20 +361,23 @@ def _local_logits(params, x, config: TransformerConfig):
 
 def param_logical_axes(config: TransformerConfig):
     """The logical axes of every leaf of :func:`cloud_tpu_torch.bridge.
-    init`'s params, in the port's layout (a list of per-layer dicts; the
-    JAX package's stacked ``layers`` axis is not there): the table
-    ``cloud_tpu/models/transformer.py`` ``param_logical_axes`` keeps.
-    The dense MLP only (an MoE layer has no tensor-parallel split)."""
+    init`'s params, in the port's layout: the table
+    ``cloud_tpu/models/transformer.py`` ``param_logical_axes`` keeps,
+    with the stacked ``layers`` axis as a ``sharding.LayerStack`` of
+    per-layer trees (cut over ``pp`` where the rules say so)."""
     att = {name: {"kernel": ("embed", "heads")} for name in ("q", "k", "v")}
     att["out"] = {"kernel": ("heads", "embed")}
-    mlp = {"wi": {"kernel": ("embed", "mlp")},
-           "wg": {"kernel": ("embed", "mlp")},
-           "wo": {"kernel": ("mlp", "embed")}}
+    if config.moe is not None:
+        mlp = moe_mlp_axes()
+    else:
+        mlp = {"wi": {"kernel": ("embed", "mlp")},
+               "wg": {"kernel": ("embed", "mlp")},
+               "wo": {"kernel": ("mlp", "embed")}}
     layer = {"att": att, "ln1": {"scale": (None,)}, "mlp": mlp,
              "ln2": {"scale": (None,)}}
     axes = {
         "embed": {"table": ("vocab", "embed")},
-        "layers": [layer] * config.num_layers,
+        "layers": sharding.LayerStack([layer] * config.num_layers),
         "ln_f": {"scale": (None,)},
     }
     if not config.tied_embeddings:

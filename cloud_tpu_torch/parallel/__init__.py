@@ -10,8 +10,11 @@ The JAX package's ``named_sharding`` (a GSPMD placement) has no
 counterpart: ``sharding.shard_tensor`` cuts a rank's slice instead.
 Training under a mesh adds ``ring_attention.py`` (the ring and the
 zig-zag ring over the flash kernels), ``autograd.py`` (the collectives
-a backward pass runs) and ``collectives``' two-level sum, ``grad_sync``
-and Ulysses' all-to-all.
+a backward pass runs), ``collectives``' two-level sum, ``grad_sync``,
+Ulysses' all-to-all and the pipeline's point-to-point ``exchange``,
+``pipeline.py`` (GPipe over ``pp``) and ``selfcheck.py`` (``python -m
+cloud_tpu_torch.parallel.selfcheck``, the per-host check that a job is
+wired).  The exports are the JAX package's.
 """
 
 from cloud_tpu_torch.parallel.mesh import (

@@ -4,13 +4,17 @@ own: the JAX package's transposes are implicit in GSPMD and ``shard_map``).
 Each is a ``torch.autograd.Function`` whose backward is the transpose of
 its forward, written out:
 
-- :func:`copy_to_tp`: the identity forward, a sum over ``tp`` backward.
-  It stands once before a block's column-split projections (q/k/v
-  together, wi/wg together, a vocab-split head): each rank's projections
-  see the replicated input, and the input's cotangent is the sum of every
-  rank's partial one.
-- :func:`reduce_from_tp`: a sum over ``tp`` forward (a row-split product,
-  a vocab-split lookup), the identity backward.
+- :func:`copy_to`: the identity forward, a sum over the axis backward.
+  Over ``tp`` (:func:`copy_to_tp`) it stands once before a block's
+  column-split projections (q/k/v together, wi/wg together, a
+  vocab-split head): each rank's projections see the replicated input,
+  and the input's cotangent is the sum of every rank's partial one.
+  Over ``ep`` it stands before an MoE layer takes its rank's experts.
+- :func:`reduce_from`: a sum over the axis forward, the identity
+  backward: over ``tp`` (:func:`reduce_from_tp`) a row-split product or
+  a vocab-split lookup, over ``ep`` the experts' partial outputs, over
+  the data axes an MoE layer's routing statistics (each rank's gradient
+  is then its own rows' share).
 - :func:`gather_vocab`: an all-gather along the last dim forward; the
   backward is this rank's own slice of the (replicated) cotangent.
 - :func:`seq_to_heads` / :func:`heads_to_seq`: Ulysses' all-to-all and
@@ -24,7 +28,7 @@ stacked), so every rank issues them in the same order.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -32,26 +36,27 @@ from cloud_tpu_torch.parallel import collectives
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, axes, mesh):
+        ctx.args = (axes, mesh)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return collectives.all_reduce_sum(g.contiguous(), mesh_lib.AXIS_TP,
-                                          mesh=ctx.mesh), None
+        axes, mesh = ctx.args
+        return collectives.all_reduce_sum(g.contiguous(), axes,
+                                          mesh=mesh), None, None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return collectives.all_reduce_sum(x, mesh_lib.AXIS_TP, mesh=mesh)
+    def forward(ctx, x, axes, mesh):
+        return collectives.all_reduce_sum(x, axes, mesh=mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherVocab(torch.autograd.Function):
@@ -85,19 +90,39 @@ class _AllToAll(torch.autograd.Function):
             mesh=mesh), None, None, None, None
 
 
-def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` forward; its cotangent summed over ``tp`` backward."""
-    if mesh.axis_size(mesh_lib.AXIS_TP) == 1:
+def _nontrivial(axis: collectives.AxisNames, mesh) -> Tuple[str, ...]:
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    return tuple(a for a in names if mesh.axis_size(a) > 1)
+
+
+def copy_to(x: torch.Tensor, axis: collectives.AxisNames, mesh
+            ) -> torch.Tensor:
+    """``x`` forward; its cotangent summed over ``axis`` (a name or a
+    tuple of names) backward."""
+    axes = _nontrivial(axis, mesh)
+    if not axes:
         return x
-    return _CopyToTP.apply(x, mesh)
+    return _CopyTo.apply(x, axes, mesh)
+
+
+def reduce_from(x: torch.Tensor, axis: collectives.AxisNames, mesh
+                ) -> torch.Tensor:
+    """The sum of every ``axis`` member's ``x`` forward; the cotangent as
+    it is backward."""
+    axes = _nontrivial(axis, mesh)
+    if not axes:
+        return x
+    return _ReduceFrom.apply(x, axes, mesh)
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`copy_to` over ``tp``."""
+    return copy_to(x, mesh_lib.AXIS_TP, mesh)
 
 
 def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of every ``tp`` member's ``x`` forward; the cotangent as it
-    is backward."""
-    if mesh.axis_size(mesh_lib.AXIS_TP) == 1:
-        return x
-    return _ReduceFromTP.apply(x, mesh)
+    """:func:`reduce_from` over ``tp``."""
+    return reduce_from(x, mesh_lib.AXIS_TP, mesh)
 
 
 def gather_vocab(x: torch.Tensor, mesh,

@@ -16,8 +16,11 @@ tensor's device, never on a failure.  gloo takes CUDA tensors in
 the card); its point-to-point sends of CUDA tensors are not relied on, so
 on gloo with CUDA tensors ``ring_permute`` is an ``all_reduce`` of a
 zero-padded buffer (each rank's block at its own offset; adding zeros is
-exact).  ``all_to_all_seq_heads`` uses ``all_to_all_single`` on every
-backend.
+exact) and the pipeline's :func:`exchange` stages its tensors through
+host memory.  ``all_to_all_seq_heads`` uses ``all_to_all_single`` on
+every backend.  :func:`exchange` and :func:`broadcast_from` move
+sub-f32 floats as f32 (the JAX package's ``_psum_f32``; exact both
+ways).
 
 Every collective with a payload runs under a ``collective/<name>`` span
 carrying its payload bytes and axis (``monitoring/tracing.py``); the
@@ -28,7 +31,7 @@ step's backward needs.
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -73,6 +76,19 @@ def _zero_padded_route(mesh, x: torch.Tensor) -> bool:
     """True where ``ring_permute`` goes through an all-reduce: gloo and a
     CUDA tensor."""
     return mesh.backend == "gloo" and x.device.type == "cuda"
+
+
+def _host_staged_route(mesh, x: torch.Tensor) -> bool:
+    """True where :func:`exchange` sends and receives through host
+    memory: gloo and a CUDA tensor."""
+    return mesh.backend == "gloo" and x.device.type == "cuda"
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as f32 when it is a float narrower than f32, else ``x``."""
+    if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
+        return x.float()
+    return x
 
 
 def _all_reduce(x: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM):
@@ -289,15 +305,55 @@ def barrier(axis: AxisNames, *, mesh=None):
 
 
 def broadcast_from(x: torch.Tensor, axis: str, *, root: int = 0, mesh=None):
-    """Every member of ``axis`` gets member ``root``'s value."""
+    """Every member of ``axis`` gets member ``root``'s value (a float
+    narrower than f32 travels as f32)."""
     mesh = _mesh(mesh)
     with _span("collective/broadcast_from", x, axis):
-        out = x.clone()
         group = mesh.group(axis)
-        if group is not None:
-            dist.broadcast(out, src=mesh.group_ranks[axis][root],
-                           group=group)
-        return out
+        if group is None:
+            return x.clone()
+        out = _wide(x).clone()
+        dist.broadcast(out, src=mesh.group_ranks[axis][root], group=group)
+        return out.to(x.dtype)
+
+
+def exchange(send: Sequence[torch.Tensor], axis: str, *,
+             send_to: Optional[int] = None,
+             recv_like: Sequence[torch.Tensor] = (),
+             recv_from: Optional[int] = None, mesh=None):
+    """One step of a point-to-point schedule on ``axis``: the tensors of
+    ``send`` go to the member at axis index ``send_to`` while tensors
+    shaped and typed like those of ``recv_like`` arrive from
+    ``recv_from``.  Every send and receive is posted before any is waited
+    on (a rank blocked in a send to a neighbour that is itself blocked in
+    a send to it would deadlock on gloo).  Either half may be empty.
+    Floats narrower than f32 travel as f32; on gloo with CUDA tensors
+    both halves go through host memory.  Returns the received tensors, in
+    ``recv_like``'s order, on its devices."""
+    mesh = _mesh(mesh)
+    send, recv_like = list(send), list(recv_like)
+    if not send and not recv_like:
+        return []
+    with _span("collective/exchange", send + recv_like, axis):
+        group = mesh.group(axis)
+        if group is None:
+            raise ValueError(f"exchange over axis {axis!r} of size 1")
+        ranks = mesh.group_ranks[axis]
+        staged = _host_staged_route(mesh, (send + recv_like)[0])
+        where = torch.device("cpu") if staged else None
+        outgoing = [_wide(x).to(where or x.device).contiguous()
+                    for x in send]
+        incoming = [torch.empty(tuple(x.shape), dtype=_wide(x).dtype,
+                                device=where or x.device)
+                    for x in recv_like]
+        ops = ([dist.P2POp(dist.isend, x, ranks[send_to], group=group)
+                for x in outgoing]
+               + [dist.P2POp(dist.irecv, x, ranks[recv_from], group=group)
+                  for x in incoming])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [got.to(device=like.device, dtype=like.dtype)
+                for got, like in zip(incoming, recv_like)]
 
 
 def host_local_mean(tree):

@@ -40,13 +40,15 @@ def backend_for(device: DeviceLike = None) -> str:
 
 
 def initialize_from_env(timeout_seconds: Optional[int] = None, *,
-                        device: DeviceLike = None) -> bool:
+                        device: DeviceLike = None,
+                        backend: Optional[str] = None) -> bool:
     """Initialize the default process group if this is a multi-process job.
 
     Returns True when the group exists (initialized here or before),
     False for a single-process job (no ``CLOUD_TPU_COORDINATOR``).
-    Idempotent.  The backend is the one ``device`` implies
-    (:func:`backend_for`).
+    Idempotent.  The backend is ``backend``, else the one ``device``
+    implies (:func:`backend_for`; ranks that share a card name ``gloo``:
+    NCCL refuses two ranks on one device).
     """
     if dist.is_initialized():
         return True
@@ -62,7 +64,7 @@ def initialize_from_env(timeout_seconds: Optional[int] = None, *,
             f"{ENV_PROCESS_ID} must be too (no metadata service supplies "
             "them off a TPU VM)"
         )
-    kwargs = dict(backend=backend_for(device),
+    kwargs = dict(backend=backend or backend_for(device),
                   init_method=f"tcp://{coordinator}",
                   world_size=int(num_processes), rank=int(process_id))
     if timeout_seconds is not None:

@@ -140,6 +140,35 @@ def shard_tensor(x: torch.Tensor, logical_axes: Tuple[Optional[str], ...],
     return out.contiguous().clone() if cut else out
 
 
+class LayerStack(list):
+    """The logical axes of a model's layer list, one tree per layer: the
+    port's form of the JAX package's stacked leading dim, whose logical
+    axis is ``layers``.  Where the rules map ``layers`` to a mesh axis
+    (``pp``: a pipeline stage's layers), :func:`shard_tree` keeps this
+    rank's contiguous block of the list and :func:`gather_tree` assembles
+    the list whole; elsewhere the list is replicated."""
+
+
+def layer_stack_cut(mesh, rules: ShardingRules, num_layers: int
+                    ) -> Tuple[Tuple[str, ...], int, int]:
+    """``(axes, start, stop)``: the nontrivial mesh axes a layer list of
+    ``num_layers`` is cut over under ``rules`` (``rules.rules.get
+    ("layers")``, as the JAX package reads it: a table with no
+    ``layers`` entry keeps the list whole), and this rank's block
+    ``[start, stop)``.  The count must divide (``ValueError``, the JAX
+    pipeline's message); the list may be cut over one axis."""
+    from cloud_tpu_torch.parallel import pipeline
+
+    axes = tuple(a for a in mesh_axes(rules.rules.get("layers"))
+                 if mesh.axis_size(a) > 1)
+    if not axes:
+        return (), 0, num_layers
+    if len(axes) > 1:
+        raise ValueError(f"rules map 'layers' to {axes}: a layer list is "
+                         "cut over one mesh axis (pp)")
+    return (axes, *pipeline.stage_bounds(num_layers, mesh, axes[0]))
+
+
 def split_dims(mesh, logical_axes: Tuple[Optional[str], ...],
                rules: ShardingRules = DEFAULT_RULES
                ) -> Dict[int, Tuple[str, ...]]:
@@ -174,7 +203,19 @@ def gather_tensor(x: torch.Tensor, logical_axes: Tuple[Optional[str], ...],
 
 def gather_tree(shard, axes, mesh, rules: ShardingRules = DEFAULT_RULES):
     """:func:`gather_tensor` over a tree of tensors, ``axes`` congruent
-    with it (a leaf's axes a tuple); leaves in sorted-key order."""
+    with it (a leaf's axes a tuple); leaves in sorted-key order.  A layer
+    list cut by its :class:`LayerStack` (this rank's block) comes back
+    whole: each rank first gathers its own block, then every layer is
+    broadcast from the member that holds it."""
+    if isinstance(axes, LayerStack):
+        cut, start, stop = layer_stack_cut(mesh, rules, len(axes))
+        if not cut:
+            return [gather_tree(p, a, mesh, rules)
+                    for p, a in zip(shard, axes)]
+        own = [gather_tree(p, a, mesh, rules)
+               for p, a in zip(shard, axes[start:stop])]
+        return [_broadcast_tree(own[j % len(own)], cut[0], j // len(own),
+                                mesh) for j in range(len(axes))]
     if isinstance(shard, (list, tuple)):
         return [gather_tree(p, a, mesh, rules) for p, a in zip(shard, axes)]
     return {name: (gather_tree(shard[name], axes[name], mesh, rules)
@@ -184,12 +225,29 @@ def gather_tree(shard, axes, mesh, rules: ShardingRules = DEFAULT_RULES):
             for name in sorted(shard)}
 
 
+def _broadcast_tree(tree, axis: str, root: int, mesh):
+    """Every member of ``axis`` gets member ``root``'s tree (the members'
+    trees alike in structure, shapes and types); leaves in sorted-key
+    order."""
+    from cloud_tpu_torch.parallel import collectives
+
+    if isinstance(tree, dict):
+        return {k: _broadcast_tree(tree[k], axis, root, mesh)
+                for k in sorted(tree)}
+    return collectives.broadcast_from(tree, axis, root=root, mesh=mesh)
+
+
 def shard_tree(params, axes, mesh, rules: ShardingRules = DEFAULT_RULES):
     """:func:`shard_tensor` over a params tree, ``axes`` congruent with it
-    (dicts and lists; a leaf's axes a tuple).  Weight-only int8 leaves
-    follow their float leaf's axes: ``X_q`` takes ``X``'s, and ``X_scale``
-    takes them with ``None`` on its size-1 dims (a row-split kernel's
+    (dicts and lists; a leaf's axes a tuple).  A layer list whose axes
+    are a :class:`LayerStack` keeps this rank's block of layers
+    (:func:`layer_stack_cut`).  Weight-only int8 leaves follow their
+    float leaf's axes: ``X_q`` takes ``X``'s, and ``X_scale`` takes them
+    with ``None`` on its size-1 dims (a row-split kernel's
     per-output-column scale stays whole on every rank)."""
+    if isinstance(axes, LayerStack):
+        _, start, stop = layer_stack_cut(mesh, rules, len(params))
+        params, axes = params[start:stop], axes[start:stop]
     if isinstance(params, (list, tuple)):
         return [shard_tree(p, a, mesh, rules) for p, a in zip(params, axes)]
     out = {}

@@ -25,12 +25,15 @@ code unchanged.
 
 Training under a mesh uses :class:`TrainContext` (:func:`train_context`),
 a :class:`TensorParallel` that also knows the data axes (``dp``,
-``fsdp``) and ``sp``, and whose collectives are differentiable
-(``parallel/autograd.py``): Megatron's conjugate pair ``copy`` /
-``reduce`` and the vocabulary gather with a slice for its transpose.
-CloudLM's ``loss_fn`` builds it from ``mesh=`` and ``rules=``; under
-training rules ``embed`` may split over ``fsdp`` (the step gathers those
-leaves whole before the forward pass, ``training/train.py``).
+``fsdp``), ``sp``, the pipeline's ``pp`` and the experts' ``ep``, and
+whose collectives are differentiable (``parallel/autograd.py``):
+Megatron's conjugate pair ``copy`` / ``reduce``, the vocabulary gather
+with a slice for its transpose, and an MoE layer's expert exchange and
+routing-statistics sum.  CloudLM's ``loss_fn`` builds it from ``mesh=``
+and ``rules=``; under training rules ``embed`` may split over ``fsdp``
+(the step gathers those leaves whole before the forward pass,
+``training/train.py``), ``layers`` over ``pp`` (a stage's block of the
+layer list, ``parallel/pipeline.py``) and ``expert`` over ``ep``.
 """
 
 from __future__ import annotations
@@ -107,12 +110,16 @@ class TensorParallel:
 class TrainContext(TensorParallel):
     """A training rank's view of the mesh: :class:`TensorParallel`'s
     ``tp`` split with differentiable collectives, plus the axes the data
-    differ on (``dp``, ``fsdp``, ``sp``) for the global loss."""
+    differ on (``dp``, ``fsdp``, ``sp``) for the global loss, the
+    pipeline's ``pp`` coordinate and the experts' ``ep`` split.  Ranks
+    that differ only in ``pp`` or ``ep`` hold the same rows."""
 
     rules: sharding.ShardingRules = sharding.DEFAULT_RULES
 
     #: The axes over which ranks hold different rows or positions.
     loss_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SP)
+    #: The axes over which ranks hold different rows.
+    row_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP)
 
     @property
     def sp_size(self) -> int:
@@ -121,6 +128,51 @@ class TrainContext(TensorParallel):
     @property
     def sp_index(self) -> int:
         return self.mesh.axis_index(mesh_lib.AXIS_SP)
+
+    @property
+    def pp_size(self) -> int:
+        return self.mesh.axis_size(mesh_lib.AXIS_PP)
+
+    @property
+    def data_size(self) -> int:
+        """How many ranks hold different rows (``dp`` x ``fsdp``)."""
+        return (self.mesh.axis_size(mesh_lib.AXIS_DP)
+                * self.mesh.axis_size(mesh_lib.AXIS_FSDP))
+
+    @property
+    def expert_axes(self) -> Tuple[str, ...]:
+        """The nontrivial mesh axes the experts are cut over (``ep``)."""
+        return tuple(a for a in sharding.mesh_axes(
+            self.rules.rules.get("expert")) if self.mesh.axis_size(a) > 1)
+
+    @property
+    def experts_split(self) -> bool:
+        return bool(self.expert_axes)
+
+    def expert_bounds(self, num_experts: int) -> Tuple[int, int]:
+        """``[start, stop)`` of this rank's experts, cut as
+        ``sharding.shard_bounds`` cuts them (an uneven count too)."""
+        count, index = sharding.shard_count_and_index(
+            self.mesh, self.expert_axes)
+        return sharding.shard_bounds(num_experts, count, index)
+
+    def copy_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """An MoE layer's input to this rank's experts: ``x`` forward, its
+        cotangent summed over the expert axes backward."""
+        return autograd_lib.copy_to(x, self.expert_axes, self.mesh)
+
+    def reduce_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every expert shard's partial output forward, the
+        cotangent as it is backward."""
+        return autograd_lib.reduce_from(x, self.expert_axes, self.mesh)
+
+    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks that hold different rows forward, the
+        identity backward (an MoE layer's routing statistics).  Under
+        remat "full" the layer's recompute issues it again inside the
+        backward pass; that keeps one order because every data rank walks
+        the same layers in the same reverse order."""
+        return autograd_lib.reduce_from(x, self.row_axes, self.mesh)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return autograd_lib.reduce_from_tp(x, self.mesh)
@@ -148,13 +200,24 @@ def check_rules(mesh, rules: sharding.ShardingRules, *,
     ``ValueError`` for a table the tensor-parallel layers cannot run:
     heads and mlp must be split over ``tp`` (the KV cache shards by head),
     vocab over ``tp`` or not at all, and embed not at all; ``training``
-    lets embed split over ``fsdp`` (or not at all).  No axis may use
-    another nontrivial mesh axis."""
+    lets embed split over ``fsdp``, layers over ``pp`` and expert over
+    ``ep`` (each or not at all).  No axis may use another nontrivial mesh
+    axis."""
     def split_axes(logical):
         return tuple(a for a in sharding.mesh_axes(rules.assignment(logical))
                      if mesh.axis_size(a) > 1)
 
     embed_ok = (mesh_lib.AXIS_FSDP,) if training else ()
+    if training:
+        for logical, allowed in (("layers", mesh_lib.AXIS_PP),
+                                 ("expert", mesh_lib.AXIS_EP)):
+            axes = tuple(a for a in sharding.mesh_axes(
+                rules.rules.get(logical)) if mesh.axis_size(a) > 1)
+            if axes and axes != (allowed,):
+                raise ValueError(
+                    f"rules map {logical!r} to {rules.rules.get(logical)!r} "
+                    f"on a mesh of shape {mesh.shape}: training splits "
+                    f"{logical} over {allowed} or not at all")
     for logical in _MUST_SPLIT + _MAY_SPLIT + _MUST_NOT_SPLIT:
         axes = split_axes(logical)
         allowed = (embed_ok if logical in _MUST_NOT_SPLIT
@@ -198,25 +261,30 @@ def _vocab_sizes(mesh, config, split: bool):
 def train_context(mesh, config, rules=sharding.DEFAULT_RULES
                   ) -> TrainContext:
     """The :class:`TrainContext` of CloudLM ``config`` on ``mesh``:
-    ``tp`` must divide the head count; pipeline and expert parallelism
-    and the MoE MLP under a mesh are queued under ROADMAP.md A.3
-    (``NotImplementedError``)."""
-    for axis in (mesh_lib.AXIS_PP, mesh_lib.AXIS_EP):
-        if mesh.axis_size(axis) > 1:
-            raise NotImplementedError(
-                f"training on a mesh with {axis} > 1 is not in the PyTorch "
-                "port yet: it is queued under ROADMAP.md A.3")
-    if config.moe is not None:
+    ``tp`` must divide the head count, and an MoE model's expert shards
+    may not outnumber its experts.  An MoE model under ``sp`` > 1 is
+    queued under ROADMAP.md A.3 (``NotImplementedError``): its capacity
+    and slot cumsum run over the whole sequence."""
+    if config.moe is not None and mesh.axis_size(mesh_lib.AXIS_SP) > 1:
         raise NotImplementedError(
-            "an MoE CloudLM under a training mesh is not in the PyTorch "
-            "port yet: it is queued under ROADMAP.md A.3")
+            "an MoE CloudLM under sp > 1 is not in the PyTorch port yet: "
+            "capacity and the slot cumsum run over the whole sequence "
+            "(cloud_tpu/models/moe.py:91-101); it is queued under "
+            "ROADMAP.md A.3 (MoE under sp)")
     tp = mesh.axis_size(mesh_lib.AXIS_TP)
     if config.num_heads % tp:
         raise ValueError(
             f"mesh tp={tp} does not divide num_heads={config.num_heads}")
     split = check_rules(mesh, rules, training=True)
-    return TrainContext(mesh=mesh, rules=rules,
-                        vocab_sizes=_vocab_sizes(mesh, config, split))
+    ctx = TrainContext(mesh=mesh, rules=rules,
+                       vocab_sizes=_vocab_sizes(mesh, config, split))
+    if config.moe is not None:
+        count, _ = sharding.shard_count_and_index(mesh, ctx.expert_axes)
+        if count > config.moe.num_experts:
+            raise ValueError(
+                f"{count} expert shards for {config.moe.num_experts} "
+                "experts: every shard needs one")
+    return ctx
 
 
 def shard_lm(params, config, mesh, rules=sharding.DEFAULT_RULES):

@@ -953,7 +953,8 @@ class ServingEngine:
             raise _later("draft= (speculative decoding) under a serving "
                          "mesh", "6")
         if self.config.moe is not None:
-            raise _later("an MoE model under a serving mesh", "6")
+            raise _later("an MoE model under a serving mesh (its experts "
+                         "over the slice's ranks)", "3")
         if cfg.prefix_dram_blocks:
             raise _later("prefix_dram_blocks (the prefix cache's host "
                          "tier) under a serving mesh", "6")

@@ -30,8 +30,10 @@ what GSPMD inserts in the JAX package, in an order fixed by the program
 before the forward pass; after ``backward()`` each gradient is
 reduce-scattered over ``fsdp`` (or summed over it, for a replicated
 leaf) and summed over ``dp`` and ``sp`` in f32 (``grad_sync``), nothing
-over ``tp``; ``grad_norm`` sums each leaf's squares over the axes that
-split it.  The loss must return its rank's share of the global loss
+over ``tp``, ``pp`` or ``ep``; ``grad_norm`` sums each leaf's squares
+over the axes that split it.  Under ``pp`` each rank holds its pipeline
+stage's layers (``parallel/pipeline.py``), under ``ep`` its experts.
+The loss must return its rank's share of the global loss
 (CloudLM's ``loss_fn`` does, marked ``mesh_loss``), so the summed
 gradients are the global loss's.  :func:`make_hybrid_dp_train_step` is
 the JAX package's replicated data-parallel step with the two-level
@@ -113,16 +115,23 @@ def param_shardings(mesh, logical_axes, rules=None):
     """Each leaf's ``PartitionSpec`` under ``rules``, a tree congruent
     with ``logical_axes`` (a leaf's axes a tuple): the JAX package's
     ``NamedSharding`` tree without the placement, which the port makes by
-    cutting (``parallel.sharding.shard_tree``).  ``sharding.split_dims``
-    names the mesh axes a leaf is cut over on ``mesh``."""
+    cutting (``parallel.sharding.shard_tree``).  A layer's leaf under a
+    ``sharding.LayerStack`` gets its stacked leaf's spec, the ``layers``
+    assignment (``pp`` under pipeline rules) first.
+    ``sharding.split_dims`` names the mesh axes a leaf is cut over on
+    ``mesh``."""
     _check_mesh(mesh)
     rules = rules or sharding.DEFAULT_RULES
 
-    def walk(axes):
+    def walk(axes, stacked=False):
         if isinstance(axes, dict):
-            return {k: walk(v) for k, v in axes.items()}
+            return {k: walk(v, stacked) for k, v in axes.items()}
         if isinstance(axes, list):
-            return [walk(v) for v in axes]
+            stacked = stacked or isinstance(axes, sharding.LayerStack)
+            return [walk(v, stacked) for v in axes]
+        if stacked:  # the stacked leaf's spec, its layer dim first
+            return sharding.PartitionSpec(rules.rules.get("layers"),
+                                          *rules.spec(*axes))
         return rules.spec(*axes)
 
     return walk(logical_axes)
@@ -133,9 +142,14 @@ def shard_batch(batch, mesh, rules=None, batch_axis: str = "batch", *,
     """A batch as the step under ``mesh`` takes it.  As in the JAX
     package's multi-process contract, ``batch`` is THIS process's rows:
     those of its data coordinate (``dp`` x ``fsdp``); ranks that differ
-    only in ``tp`` or ``sp`` are given equal rows (each takes its ``sp``
-    block of the sequence itself).  Leaves become tensors on the rank's
-    device.  ``pad_to=N`` zero-pads the batch dim (dim 1 of a
+    only in ``tp``, ``sp``, ``pp`` or ``ep`` are given equal rows (each
+    takes its ``sp`` block of the sequence itself).  Under a pipeline
+    (``pp`` > 1, ``layers`` -> ``pp``) a rank's rows are
+    ``parallel.pipeline.microbatch_rows(mesh, global_batch, M)``: its
+    share of every global microbatch, as the JAX package groups them (a
+    dense loss is indifferent to the grouping; an MoE model's auxiliary
+    loss is not).  Leaves become tensors on the rank's device.
+    ``pad_to=N`` zero-pads the batch dim (dim 1 of a
     ``stacked`` super-batch) to N first and returns ``(batch, valid)``,
     ``valid`` a float32 ``[N]`` mask of real rows.  Without a mesh the
     batch comes back as it is."""
@@ -168,7 +182,9 @@ def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
 
     Under ``mesh`` with ``logical_axes``, the parameters are this rank's
     shards as ``rules`` cut them (``parallel.sharding.shard_tree``), so
-    the optimizer's moments are born as shards too.  The full tree is
+    the optimizer's moments are born as shards too: a pipeline stage's
+    block of layers (``layers`` -> ``pp``), a rank's experts (``expert``
+    -> ``ep``), fsdp and tp slices.  The full tree is
     initialized first (from ``rng``, the same on every rank) and then
     cut: a 124M-parameter CloudLM fits one card whole; models that do
     not would need a sharded init, which the port has not.  A mesh with
@@ -254,16 +270,33 @@ def _guarded_update(optimizer, params, grads, opt_state,
             new.copy_(torch.where(finite, new, prev))
 
 
-def _axes_leaves(params, axes) -> List[tuple]:
-    """The logical axes of each leaf of ``params`` in :func:`leaves`'
-    order (``axes`` congruent with ``params``, a leaf's axes a tuple)."""
+def _axes_leaves(params, axes, mesh, rules) -> List[tuple]:
+    """``(logical axes, stack axes)`` of each leaf of ``params`` in
+    :func:`leaves`' order (``axes`` congruent with the full params, a
+    leaf's axes a tuple).  A layer list whose axes are a
+    ``sharding.LayerStack`` cut over ``pp`` on ``mesh`` holds this rank's
+    block of layers: its leaves' stack axes are the axes it is cut over
+    (``()`` elsewhere)."""
     if isinstance(params, dict):
         return [a for k in sorted(params)
-                for a in _axes_leaves(params[k], axes[k])]
+                for a in _axes_leaves(params[k], axes[k], mesh, rules)]
     if isinstance(params, (list, tuple)):
-        return [a for p, ax in zip(params, axes)
-                for a in _axes_leaves(p, ax)]
-    return [tuple(axes)]
+        stack: tuple = ()
+        if isinstance(axes, sharding.LayerStack):
+            stack, start, stop = sharding.layer_stack_cut(mesh, rules,
+                                                          len(axes))
+            if stack and stack != (mesh_lib.AXIS_PP,):
+                raise ValueError(
+                    f"the layer list is cut over {stack}: the port's step "
+                    "cuts it over pp alone")
+            axes = axes[start:stop]
+        if len(params) != len(axes):
+            raise ValueError(f"{len(params)} params for {len(axes)} "
+                             "logical axes trees")
+        return [(leaf_axes, stack or leaf_stack) for p, ax in
+                zip(params, axes) for leaf_axes, leaf_stack in
+                _axes_leaves(p, ax, mesh, rules)]
+    return [(tuple(axes), ())]
 
 
 def _with_leaves(tree, flat):
@@ -292,28 +325,38 @@ class _MeshLayout:
     - :meth:`global_norm`: each leaf's squared norm summed over the axes
       that split it (one all-reduce of a small vector per axis).
 
-    A leaf dim may be cut over ``fsdp`` or ``tp`` alone."""
+    A leaf dim may be cut over ``fsdp``, ``tp`` or ``ep`` (an expert
+    leaf's dim 0) alone; a pipeline stage's layers are a block of the
+    layer list (``pp``), not a dim cut.  ``pp`` and ``ep`` are not summed
+    over: their ranks hold the same rows and different params, and the
+    layers' own collectives give each replicated leaf its whole gradient
+    (``parallel/pipeline.py``, ``models/moe.py``); both count in
+    ``grad_norm`` for the leaves they split, so the norm and the
+    non-finite flag are the same on every rank.  The optimizer's update
+    of a stage's layers and a rank's experts is elementwise, as for fsdp
+    shards."""
 
     def __init__(self, mesh, rules, logical_axes, params):
         self.mesh = mesh
-        fsdp, tp = mesh_lib.AXIS_FSDP, mesh_lib.AXIS_TP
+        fsdp, tp, ep = mesh_lib.AXIS_FSDP, mesh_lib.AXIS_TP, mesh_lib.AXIS_EP
         flat = leaves(params)
-        axes = (_axes_leaves(params, logical_axes)
-                if logical_axes is not None else [()] * len(flat))
         rules = rules or sharding.DEFAULT_RULES
+        axes = (_axes_leaves(params, logical_axes, mesh, rules)
+                if logical_axes is not None else [((), ())] * len(flat))
         self.fsdp_dims: List[Optional[int]] = []
         self.split: List[frozenset] = []
-        for leaf, leaf_axes in zip(flat, axes):
+        for leaf, (leaf_axes, stack) in zip(flat, axes):
             dims = sharding.split_dims(mesh, leaf_axes, rules)
             for dim, cut in dims.items():
-                if len(cut) > 1 or cut[0] not in (fsdp, tp):
+                if len(cut) > 1 or cut[0] not in (fsdp, tp, ep):
                     raise ValueError(
                         f"a param dim with logical axes {leaf_axes} is cut "
                         f"over {cut}: the port's step cuts a param dim "
-                        "over fsdp or tp alone")
+                        "over fsdp, tp or ep alone")
             self.fsdp_dims.append(next((d for d, cut in dims.items()
                                         if cut == (fsdp,)), None))
-            self.split.append(frozenset(c[0] for c in dims.values()))
+            self.split.append(frozenset(c[0] for c in dims.values())
+                              | frozenset(stack))
         data = [a for a in (mesh_lib.AXIS_DP, fsdp, mesh_lib.AXIS_SP)
                 if mesh.axis_size(a) > 1]
         self.sync_axes = [tuple(a for a in data if not (a == fsdp and d is
@@ -331,7 +374,8 @@ class _MeshLayout:
             for j, (i, _) in enumerate(cut):
                 self.sizes[i] = [row[j] for row in table]
         self.fsdp = fsdp
-        self.norm_axes = [a for a in (fsdp, tp) if mesh.axis_size(a) > 1]
+        self.norm_axes = [a for a in (mesh_lib.AXIS_PP, fsdp, ep, tp)
+                          if mesh.axis_size(a) > 1]
 
     def gather(self, params):
         """``params`` with every fsdp-cut leaf whole (a new trainable

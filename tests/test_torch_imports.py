@@ -113,7 +113,8 @@ ZOO_MODULES = ("models/moe.py", "models/vit.py", "models/export.py")
 
 
 #: The parallel layer (with the ring and the differentiable collectives
-#: of training under a mesh) and the serving slice's follower entry point
+#: of training under a mesh, the pipeline and the self-check CLI) and the
+#: serving slice's follower entry point
 #: (``serving/slice.py`` ``_follower_main``, the target a spawned follower
 #: runs): scanned with every module above; named here so a move or
 #: rename cannot drop them from the scan.
@@ -122,6 +123,7 @@ PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                     "parallel/planner.py", "parallel/collectives.py",
                     "parallel/tensor_parallel.py",
                     "parallel/ring_attention.py", "parallel/autograd.py",
+                    "parallel/pipeline.py", "parallel/selfcheck.py",
                     "serving/slice.py")
 
 

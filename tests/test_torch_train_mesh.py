@@ -7,9 +7,10 @@ from JAX's ``init`` through ``bridge.to_train_shard``; each rank's
 updated shards are gathered back whole (``bridge.from_train_shard``).
 
 * **The dryrun's configs** (``__graft_entry__.dryrun_multichip``): A,
-  fsdp 2 x sp 2 x tp 2 with the zig-zag ring (8 ranks); C, the same
-  mesh with Ulysses; D, ``plan_mesh(num_devices=4, worker_count=1)`` (dp
-  2 over DCN x fsdp 2) through ``make_hybrid_dp_train_step``.  Each on
+  fsdp 2 x sp 2 x tp 2 with the zig-zag ring (8 ranks); B, dp 2 x pp 2
+  x ep 2 over MoE TINY (4 experts, top 2; 8 ranks); C, the same mesh as
+  A with Ulysses; D, ``plan_mesh(num_devices=4, worker_count=1)`` (dp 2
+  over DCN x fsdp 2) through ``make_hybrid_dp_train_step``.  Each on
   TINY from ``PRNGKey(0)`` (D: ``PRNGKey(1)``) and the dryrun's zero
   batches, one ``sgd(1.0)`` step: the loss on every rank within 1e-5 of
   JAX's unsharded ``loss_fn``, the gradient (the step's update) within
@@ -24,7 +25,15 @@ updated shards are gathered back whole (``bridge.from_train_shard``).
   ``grad_norm``; ``accum_steps=2`` under dp; ``skip_nonfinite`` with a
   NaN in one rank's rows (every rank skips); AdamW under fsdp held by its
   moments (mu and nu reassembled within 1e-5 relative of optax's);
-  ``shard_batch(pad_to=)``.
+  ``shard_batch(pad_to=)``; the pipeline (pp 2, a dense and a tied
+  head) and the MoE (4 experts, top 2) under ep (and 3 experts, cut
+  unevenly), dp, fsdp and tp, with random tokens so the aux is the
+  global batch's.
+* **The pipeline on 4 ranks**: {pp: 2, tp: 2} and {pp: 2, dp: 2}
+  against JAX's unsharded step; the MoE under {pp: 2, dp: 2} with M = 2
+  against JAX's own pipelined step on 4 virtual devices (the microbatch
+  aux couples each global microbatch's rows); ``skip_nonfinite`` with a
+  NaN in one data rank's rows.
 * **MNIST through the hybrid step** against the plain step and JAX's
   (``tests/unit/test_parallel.py``'s ``TestHybridDpTrainStep``).
 * **What stays refused under a mesh**, each naming its queued ROADMAP
@@ -83,6 +92,9 @@ def tree(prefix):
 
 def model(prefix="params"):
     fields = json.loads(str(IN[prefix + ".config"]))
+    if fields.get("moe") is not None:
+        from cloud_tpu_torch.models.moe import MoeConfig
+        fields["moe"] = MoeConfig(**fields["moe"])
     return transformer.TransformerConfig(dtype=torch.float32, remat=False,
                                          **fields), tree(prefix)
 
@@ -92,6 +104,19 @@ def data_rows(mesh, n):
         mesh.axis_index("fsdp")
     per = n // (mesh.axis_size("dp") * mesh.axis_size("fsdp"))
     return slice(index * per, (index + 1) * per)
+
+
+def batch_rows(mesh, cfg, rules, n):
+    \"\"\"The rank's rows: its data slice, or under a pipeline its share of
+    every global microbatch.\"\"\"
+    if transformer._is_pipelined(cfg, rules, mesh):
+        from cloud_tpu_torch.parallel import pipeline
+        return pipeline.microbatch_rows(
+            mesh, n, transformer.num_microbatches(cfg, mesh))
+    return data_rows(mesh, n)
+
+
+PP_RULES = sharding.DEFAULT_RULES.extended(layers="pp")
 
 
 def one_step(name, cfg, params, mesh, batch, tx, rules=None, **kw):
@@ -106,7 +131,7 @@ def one_step(name, cfg, params, mesh, batch, tx, rules=None, **kw):
         functools.partial(transformer.loss_fn, config=cfg, mesh=mesh,
                           rules=rules), tx,
         mesh=mesh, logical_axes=axes, rules=rules, **kw)
-    rows = data_rows(mesh, batch["tokens"].shape[0])
+    rows = batch_rows(mesh, cfg, rules, batch["tokens"].shape[0])
     local = train.shard_batch({k: v[rows] for k, v in batch.items()}, mesh)
     state, metrics = step(state, local)
     OUT[name] = {k: float(v) for k, v in metrics.items()}
@@ -161,6 +186,9 @@ def _hold(what, got, want_params, start_params, want_metrics, metrics,
     its largest magnitude, params within rtol 1e-4 / atol 1e-6."""
     assert abs(metrics["loss"] - want_metrics["loss"]) <= 1e-5, (
         what, metrics["loss"], want_metrics["loss"])
+    if "aux" in metrics:
+        assert abs(metrics["aux"] - want_metrics["aux"]) <= 1e-5, (
+            what, metrics["aux"], want_metrics["aux"])
     if grad_norm:
         assert abs(metrics["grad_norm"] - want_metrics["grad_norm"]) <= \
             1e-5 * want_metrics["grad_norm"], what
@@ -316,6 +344,43 @@ def _jax_step_generic(loss, params, batch):
             jax.tree_util.tree_map(np.asarray, state.params), None)
 
 
+_CONFIG_B = """
+cfg, params = model()
+mesh = MeshSpec({"dp": 2, "pp": 2, "ep": 2}).build(devices=["cpu"] * 8)
+OUT["mesh"] = {a: mesh.axis_size(a) for a in ("dp", "pp", "ep")}
+OUT["layers"] = len(bridge.to_train_shard(params, cfg, mesh, PP_RULES)[0][
+    "layers"])
+one_step("B", cfg, params, mesh, {"tokens": IN["tokens"]},
+         optimizers.sgd(1.0), PP_RULES)
+"""
+
+
+def test_dryrun_config_b_on_eight_ranks(tmp_path):
+    """Config B: dp 2 x pp 2 x ep 2, MoE TINY (4 experts, top 2), rules
+    ``layers`` -> ``pp``, the dryrun's zero batch of 8 x 32: one
+    ``sgd(1.0)`` step held to JAX's unsharded step (on zero tokens every
+    row routes alike, so the microbatches' aux is the whole batch's)."""
+    from cloud_tpu.models import moe as jax_moe
+
+    cfg = jax_tf.TINY.scaled(dtype=jnp.float32, moe=jax_moe.MoeConfig(
+        num_experts=4, top_k=2))
+    np_params = jax.tree_util.tree_map(
+        np.asarray, jax_tf.init(jax.random.PRNGKey(0), cfg))
+    batch = {"tokens": np.zeros((8, 32), np.int32)}
+    want_m, want_p, _ = _jax_step(cfg, np_params, batch, optax.sgd(1.0))
+    outs = run_ranks(
+        "import dataclasses\n" + f"OUTDIR = {str(tmp_path)!r}\n"
+        + _RANK_MODEL + _CONFIG_B, 8,
+        files={**model_inputs(cfg, np_params), **batch})
+    got = _saved(tmp_path, "B")
+    for out in outs:
+        assert out["mesh"] == {"dp": 2, "pp": 2, "ep": 2}
+        assert out["layers"] == 2  # a stage's block of the 4 layers
+        _hold("config B", got, want_p, np_params, want_m, out["B"])
+    print(f"config B: port {outs[0]['B']['loss']:.6f}, JAX unsharded f32 "
+          f"{want_m['loss']:.6f}, recorded (bf16 AdamW) {RECORDED['B']}")
+
+
 # ---------------------------------------------------------------------------
 # Each axis alone on two ranks
 
@@ -336,6 +401,18 @@ for name, sizes, kw, rules in (
     mesh = MeshSpec(sizes).build(devices=["cpu"] * 2)
     one_step(name, dataclasses.replace(cfg, **kw), params, mesh, batch, sgd,
              rules)
+# The pipeline and the MoE, each on its own model (ARM_MODELS).
+for name, sizes, prefix, rules in (
+        ("pp", {"pp": 2}, "params", PP_RULES),
+        ("pp tied", {"pp": 2}, "tied", PP_RULES),
+        ("moe ep", {"ep": 2}, "moe", None),
+        ("moe ep uneven", {"ep": 2}, "moe3", None),
+        ("moe dp", {"dp": 2}, "moe", None),
+        ("moe fsdp", {"fsdp": 2}, "moe", None),
+        ("moe tp", {"tp": 2}, "moe", None)):
+    mcfg, mparams = model(prefix)
+    mesh = MeshSpec(sizes).build(devices=["cpu"] * 2)
+    one_step(name, mcfg, mparams, mesh, batch, sgd, rules)
 
 dp = MeshSpec({"dp": 2}).build(devices=["cpu"] * 2)
 # accum_steps=2: micro-batch i is every data rank's local micro-batch i.
@@ -382,26 +459,60 @@ OUT["pad"] = [list(local["tokens"].shape), str(local["tokens"].device),
 
 #: The arms of ``_AXES`` held to JAX's plain step.
 AXIS_ARMS = ("dp", "fsdp", "tp", "tp remat", "sp", "sp zigzag",
-             "sp ulysses", "fsdp fused_ce", "tp fused_ce")
+             "sp ulysses", "fsdp fused_ce", "tp fused_ce", "pp", "pp tied",
+             "moe ep", "moe ep uneven", "moe dp", "moe fsdp", "moe tp")
+#: The model of each arm that does not train the 2-layer TINY.
+ARM_MODELS = {"pp tied": "tied", "moe ep": "moe", "moe ep uneven": "moe3",
+              "moe dp": "moe", "moe fsdp": "moe", "moe tp": "moe"}
 
 
-@pytest.fixture(scope="module")
-def axis_runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("axes")
-    jcfg = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=2)
-    params = jax.tree_util.tree_map(
-        np.asarray, jax_tf.init(jax.random.PRNGKey(0), jcfg))
+@functools.lru_cache(maxsize=None)
+def _axis_models():
+    """Prefix -> (JAX config, numpy params): the 2-layer TINY, its tied
+    head, and MoE TINY with 4 and 3 experts (top 2), each from
+    PRNGKey(0)."""
+    from cloud_tpu.models import moe as jax_moe
+
+    base = jax_tf.TINY.scaled(dtype=jnp.float32, num_layers=2)
+    cfgs = {"params": base, "tied": base.scaled(tied_embeddings=True),
+            "moe": base.scaled(moe=jax_moe.MoeConfig(num_experts=4,
+                                                     top_k=2)),
+            "moe3": base.scaled(moe=jax_moe.MoeConfig(num_experts=3,
+                                                      top_k=2))}
+    return {name: (cfg, jax.tree_util.tree_map(
+        np.asarray, jax_tf.init(jax.random.PRNGKey(0), cfg)))
+        for name, cfg in cfgs.items()}
+
+
+def _axis_batch():
+    """The axis arms' batch (random tokens; the data ranks' mask counts
+    differ) and its NaN twin."""
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, jcfg.vocab_size, (4, 32)).astype(np.int32)
+    tokens = rng.integers(0, 256, (4, 32)).astype(np.int32)
     # Rank 0's rows keep ~90% of their targets, rank 1's ~40%.
     loss_mask = (rng.random((4, 32)) < np.array([[.9], [.9], [.4], [.4]])
                  ).astype(np.float32)
     nan_mask = loss_mask.copy()
     nan_mask[3, 5] = np.nan
-    batch = {"tokens": tokens, "loss_mask": loss_mask}
+    return {"tokens": tokens, "loss_mask": loss_mask}, nan_mask
+
+
+def _model_files(names):
+    files = {}
+    for name in names:
+        cfg, params = _axis_models()[name]
+        files.update(model_inputs(cfg, params, prefix=name))
+    return files
+
+
+@pytest.fixture(scope="module")
+def axis_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("axes")
+    jcfg, params = _axis_models()["params"]
+    batch, nan_mask = _axis_batch()
     outs = run_ranks(
         "import dataclasses\n" + f"OUTDIR = {str(tmp)!r}\n" + _RANK_MODEL
-        + _AXES, 2, files={**model_inputs(jcfg, params), **batch,
+        + _AXES, 2, files={**_model_files(_axis_models()), **batch,
                            "nan_mask": nan_mask,
                            "key": np.asarray(jax.random.PRNGKey(7))})
     return tmp, jcfg, params, batch, outs
@@ -410,8 +521,14 @@ def axis_runs(tmp_path_factory):
 @pytest.mark.parametrize("arm", AXIS_ARMS)
 def test_each_axis_alone_matches_the_unsharded_step(axis_runs, arm):
     """One sgd(1.0) step under the arm's mesh: JAX's global loss (the
-    data ranks' mask counts differ), grad_norm, gradient and params."""
-    tmp, jcfg, params, batch, outs = axis_runs
+    data ranks' mask counts differ), aux, grad_norm, gradient and params.
+    The MoE arms route random tokens, so their aux is the global batch's
+    (under dp and fsdp its statistics span both ranks' rows); under pp
+    the dense output does not depend on the microbatching; "pp tied"
+    would count the table's head gradient twice if it were summed over
+    pp."""
+    tmp, _, _, batch, outs = axis_runs
+    jcfg, params = _axis_models()[ARM_MODELS.get(arm, "params")]
     want_m, want_p, _ = _jax_step(jcfg, params, batch, optax.sgd(1.0))
     local_means = [
         float(jax_tf.loss_fn(params, {k: v[r:r + 2] for k, v in
@@ -489,6 +606,112 @@ def test_shard_batch_pads_this_ranks_rows(axis_runs):
 
 
 # ---------------------------------------------------------------------------
+# The pipeline on four ranks
+
+_PP4 = """
+cfg, params = model()
+mcfg, mparams = model("moe")
+batch = {"tokens": IN["tokens"], "loss_mask": IN["loss_mask"]}
+sgd = optimizers.sgd(1.0)
+for name, sizes, c, p in (("pp tp", {"pp": 2, "tp": 2}, cfg, params),
+                          ("pp dp", {"pp": 2, "dp": 2}, cfg, params),
+                          ("moe pp dp", {"pp": 2, "dp": 2}, mcfg, mparams)):
+    mesh = MeshSpec(sizes).build(devices=["cpu"] * 4)
+    one_step(name, c, p, mesh, batch, sgd, PP_RULES)
+# A NaN in data rank 1's rows: every rank of both stages skips.
+one_step("pp nonfinite", cfg, params, mesh,
+         dict(batch, loss_mask=IN["nan_mask"]), sgd, PP_RULES,
+         skip_nonfinite=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def pp_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pp")
+    batch, nan_mask = _axis_batch()
+    outs = run_ranks(
+        "import dataclasses\n" + f"OUTDIR = {str(tmp)!r}\n" + _RANK_MODEL
+        + _PP4, 4, files={**_model_files(("params", "moe")), **batch,
+                          "nan_mask": nan_mask})
+    return tmp, batch, outs
+
+
+@pytest.mark.parametrize("arm", ["pp tp", "pp dp"])
+def test_pipeline_meshes_match_the_unsharded_step(pp_runs, arm):
+    """{pp: 2, tp: 2} (the self-check's pp mesh) and {pp: 2, dp: 2} with
+    M = 2: JAX's unsharded step (a dense loss does not depend on the
+    microbatching)."""
+    tmp, batch, outs = pp_runs
+    jcfg, params = _axis_models()["params"]
+    want_m, want_p, _ = _jax_step(jcfg, params, batch, optax.sgd(1.0))
+    for out in outs:
+        _hold(arm, _saved(tmp, arm), want_p, params, want_m, out[arm])
+
+
+def _jax_aux(cfg, params, tokens, groups):
+    """The mean over microbatches of JAX's unsharded aux, microbatch k
+    being the rows ``groups[k]``."""
+    return float(np.mean([float(jax_tf.apply(params, tokens[g], cfg)[1])
+                          for g in groups]))
+
+
+def test_moe_under_pp_dp_matches_jax_pipelined_step(pp_runs):
+    """MoE TINY under {pp: 2, dp: 2}, M = 2, random tokens: JAX's own
+    pipelined step on the same mesh of virtual devices (loss, aux,
+    grad_norm, gradient, params).  Global microbatch k is rows [2k,
+    2k+1], one on each data rank (``pipeline.microbatch_rows``); a port
+    that cut each rank's rows into microbatches locally (microbatches
+    {0, 2} and {1, 3}), or took the whole batch's aux, or a mean of the
+    ranks' local auxes, would miss JAX's aux by more than the limit."""
+    from cloud_tpu import parallel as jax_parallel
+
+    tmp, batch, outs = pp_runs
+    jcfg, params = _axis_models()["moe"]
+    mesh = jax_parallel.MeshSpec({"pp": 2, "dp": 2}).build(
+        jax.devices()[:4])
+    rules = jax_parallel.DEFAULT_RULES.extended(layers="pp")
+    axes = jax_tf.param_logical_axes(jcfg)
+    tx = optax.sgd(1.0)
+    with jax_parallel.use_mesh(mesh):
+        state = jax_train.create_sharded_state(
+            jax.random.PRNGKey(0),
+            lambda _: jax.tree_util.tree_map(jnp.asarray, params), tx,
+            mesh, logical_axes=axes, rules=rules)
+        step = jax_train.make_train_step(
+            functools.partial(jax_tf.loss_fn, config=jcfg, rules=rules,
+                              mesh=mesh), tx, logical_axes=axes,
+            rules=rules, mesh=mesh)
+        state, metrics = step(state, jax_train.shard_batch(
+            {k: jnp.asarray(v) for k, v in batch.items()}, mesh, rules))
+    want_m = {k: float(v) for k, v in metrics.items()}
+    want_p = jax.tree_util.tree_map(np.asarray, state.params)
+    tokens = batch["tokens"]
+    right = _jax_aux(jcfg, params, tokens, ([0, 1], [2, 3]))
+    assert abs(right - want_m["aux"]) <= 1e-6
+    for wrong in (_jax_aux(jcfg, params, tokens, ([0, 2], [1, 3])),
+                  _jax_aux(jcfg, params, tokens, ([0, 1, 2, 3],)),
+                  _jax_aux(jcfg, params, tokens, ([0], [1], [2], [3]))):
+        assert abs(wrong - right) > 1e-5, (wrong, right)
+    for out in outs:
+        _hold("moe pp dp", _saved(tmp, "moe pp dp"), want_p, params,
+              want_m, out["moe pp dp"])
+
+
+def test_skip_nonfinite_under_a_pipeline(pp_runs):
+    """A NaN in one data rank's rows under {pp: 2, dp: 2}: the loss and
+    ``grad_norm`` are NaN on every rank of both stages, every rank skips,
+    and the params come back unchanged."""
+    tmp, _, outs = pp_runs
+    _, params = _axis_models()["params"]
+    for out in outs:
+        assert out["pp nonfinite"]["nonfinite"] == 1.0
+        assert not np.isfinite(out["pp nonfinite"]["grad_norm"])
+    got = _saved(tmp, "pp nonfinite")
+    for key, want in _flat(params, "params").items():
+        np.testing.assert_array_equal(got[key], want)
+
+
+# ---------------------------------------------------------------------------
 # What stays refused, and the records' shard
 
 
@@ -530,19 +753,17 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
         "fused_ce": lambda: transformer.loss_fn(
             {}, {"tokens": np.zeros((1, 8), np.int64)},
             cfg.scaled(fused_ce=True), mesh=mesh),
-        "MoE": lambda: transformer.loss_fn(
+        "MoE under sp": lambda: transformer.loss_fn(
             {}, {"tokens": np.zeros((1, 8), np.int64)},
             cfg.scaled(moe=__import__(
                 "cloud_tpu_torch.models.moe", fromlist=["MoeConfig"]
-            ).MoeConfig(num_experts=4, top_k=2)), mesh=mesh),
-        "pp": lambda: transformer.loss_fn(
-            {}, {"tokens": np.zeros((1, 8), np.int64)}, cfg,
-            mesh=_fake_mesh({"pp": 2})),
+            ).MoeConfig(num_experts=4, top_k=2)),
+            mesh=_fake_mesh({"sp": 2})),
     }
     for what, call in calls.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md A") as got:
             call()
-        item = "A.3" if what in ("MoE", "pp") else "A.2"
+        item = "A.3" if what == "MoE under sp" else "A.2"
         assert item in str(got.value), (what, str(got.value))
     state = train.create_sharded_state(None, lambda _: {"w": torch.ones(2)},
                                        sgd, device="cpu")
