@@ -194,7 +194,27 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    record pipeline (4p: CIFAR b256 as tensor records in 2 files,
    ``fit`` over ``RecordDataset`` with exact launches, records/s decoded,
    and a resumed run consuming exactly the uninterrupted stream's next
-   batches);
+   batches); then the front door (9r: ``cloud_tpu_torch.run(dry_run=True)``
+   of ``tests/helpers/torch_resnet_cifar_fit.py`` on ``TPU_V5E_1``, its
+   build context made by ``containerize``, and the node request's startup
+   script executed by ``utils.local_rig.launch_emulated_slice`` with bash,
+   a shimmed ``curl`` (worker 0, no project) and a shimmed ``docker`` that
+   runs the Dockerfile's own ENTRYPOINT in the context with the ``-e``
+   variables, the coordinator's VM name resolving to this host and
+   ``CLOUD_TPU_COMPILE_CACHE`` the directory phase 1 built into: the
+   container trains ResNet-50 CIFAR b256 bf16 through ``Trainer.fit``
+   under the bootstrap's one-rank mesh on the card, with exact K1-K4
+   launches, finite losses, parameters that moved and
+   ``run/submit_to_first_step_seconds`` > 0 printed), the profiler (9p:
+   ``ProfilerCallback`` over 2 steps of a ResNet ``fit`` whose trace
+   holds K1-K4, the mirrored ``step/*`` ranges and one ``ProfilerStep``
+   marker a traced step; a device-memory snapshot; one capture through
+   the profiler server during a step loop holding kernel rows; silent
+   sessions retried with back-off) and the exporter (9m: the native
+   library built with ``make`` and live (``metrics.backend()`` native),
+   its C tests, and ``bootstrap.main`` in-process with monitoring on,
+   the Python wire and a recording session, training the MNIST workload
+   on the card: ``train/steps`` and ``train/step_time_ms`` exported);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -250,8 +270,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    launches summed over the serving phases (3m included) and 7s, and
    K5's also over 6m, 6d, 6mesh, 6pp and 8v, K6/K7's over 6, 7s, 6m,
    6d, 6mesh, 6pp and 8v,
-   K1-K4's over phases 4, 4t, 4r, 4a and 4p, each counted from 0 just
-   before its run), then, as its last
+   K1-K4's over phases 4, 4t, 4r, 4a, 4p and 9r's container, each
+   counted from 0 just before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Any failed phase ends the run with a
@@ -7328,6 +7348,360 @@ def run_pipeline_training(device, card, setup=None):
     return _run_mesh_arms(device, card, "6pp", PP_ARMS, setup)
 
 
+# Phases 9r, 9p, 9m: the front door (run, the container bootstrap), the
+# profiler and the exporter.
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+#: The container workload of 9r: ResNet-50 CIFAR through Trainer.fit.
+FRONT_DOOR_ENTRY = os.path.join(REPO_ROOT, "tests", "helpers",
+                                "torch_resnet_cifar_fit.py")
+FRONT_DOOR_TIMEOUT_S = 300
+#: 9p: the traced window of the ResNet fit and the on-demand capture.
+PROFILE_FIT = {"batches": 6, "start_step": 3, "num_steps": 2,
+               "capture_ms": 400}
+#: 9m: the MNIST workload the bootstrap runs with monitoring on.
+MONITORED_ENTRY = os.path.join(REPO_ROOT, "tests", "helpers",
+                               "torch_mnist_example.py")
+
+
+def _front_door_workload():
+    """The module of :data:`FRONT_DOOR_ENTRY` (its STEPS and BATCH)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_resnet_cifar_fit",
+                                                  FRONT_DOOR_ENTRY)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_front_door(device, card):
+    """9r: submit to first step through deploy's real startup script."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cloud_tpu_torch
+    from cloud_tpu_torch.core import containerize
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils import local_rig
+
+    del device  # the container's bootstrap takes the card by default
+    workload = _front_door_workload()
+    root = tempfile.mkdtemp(prefix="chip_smoke_front_door_")
+    saved = os.environ.get("CLOUD_TPU_COMPILE_CACHE")
+    try:
+        # deploy forwards the submitting process's cache directory.
+        os.environ["CLOUD_TPU_COMPILE_CACHE"] = dispatch.build_dir()
+        start = time.perf_counter()
+        report = cloud_tpu_torch.run(
+            entry_point=FRONT_DOOR_ENTRY,
+            chief_config=cloud_tpu_torch.COMMON_MACHINE_CONFIGS["TPU_V5E_1"],
+            docker_config=containerize.DockerConfig(
+                image="gcr.io/chip-smoke/resnet50-cifar-fit:0"),
+            entry_point_args=[],
+            dry_run=True)
+        submit_s = time.perf_counter() - start
+        context = containerize.build_context(
+            report.dockerfile, FRONT_DOOR_ENTRY, None,
+            dst_dir=os.path.join(root, "context"))
+        (node,) = report.node_requests.values()
+        script = node["metadata"]["startup-script"]
+        if f"CLOUD_TPU_COMPILE_CACHE={dispatch.build_dir()}" not in script:
+            raise AssertionError("the startup script does not forward "
+                                 "CLOUD_TPU_COMPILE_CACHE")
+        start = time.perf_counter()
+        (proc,) = local_rig.launch_emulated_slice(
+            1, device="cuda", startup_script=script,
+            entrypoint=containerize.entrypoint_argv(report.dockerfile),
+            context_dir=context, timeout=FRONT_DOOR_TIMEOUT_S)
+        wall = time.perf_counter() - start
+    finally:
+        if saved is None:
+            os.environ.pop("CLOUD_TPU_COMPILE_CACHE", None)
+        else:
+            os.environ["CLOUD_TPU_COMPILE_CACHE"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"the container exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+            f"\n{proc.stderr[-5000:]}")
+    out = json.loads([line for line in proc.stdout.splitlines()
+                      if line.startswith("{")][-1])
+    steps = workload.STEPS
+    want = _gn_times(GN_PER_STEP, steps)
+    gauge = out["submit_to_first_step_seconds"]
+    if out["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the container ran on {out['device']}")
+    if out["steps"] != steps or out["launches"] != want:
+        raise AssertionError(f"{out['steps']} steps, launches "
+                             f"{out['launches']} != {want}")
+    if len(out["losses"]) != steps or not all(
+            np.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"losses {out['losses']}")
+    if not (np.isfinite(out["param_change"]) and out["param_change"] > 0):
+        raise AssertionError(f"the fit did not move the parameters: "
+                             f"relative change {out['param_change']}")
+    if gauge is None or not gauge > 0:
+        raise AssertionError(f"run/submit_to_first_step_seconds {gauge}")
+    out.update(container_wall_s=wall, run_dry_s=submit_s)
+    print(f"  run/submit_to_first_step_seconds {gauge:.3f} (run() to the "
+          f"container's first step, the startup script, the bootstrap's "
+          f"cache probe, the native metrics library's build and the "
+          f"Trainer's set-up included); fit {out['steps_per_s']:.3f} "
+          f"steps/s over {steps} steps of {workload.BATCH} (the first "
+          f"included); losses {[round(v, 4) for v in out['losses']]}; "
+          f"parameters moved {out['param_change']:.3e} of their norm; "
+          f"launches {out['launches']}; container wall {wall:.1f} s "
+          f"[{card}]")
+    return out
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _gn_trace_names(events):
+    """The K1-K4 kernels a trace's kernel rows hold, by the residual flag
+    of their template (``gn_fwd_kernel<T, V, RES, RELU>``)."""
+    found = set()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        m = re.search(r"gn_(fwd|bwd)_kernel<[^,]*,\s*\d+,\s*([^,>]+)",
+                      e.get("name", ""))
+        if m:
+            res = m.group(2).strip() in ("true", "1", "(bool)1")
+            found.add(f"gn_{m.group(1)}" + ("_res" if res else ""))
+    return found
+
+
+def run_profiler_phase(device, card):
+    """9p: ProfilerCallback over a window of a ResNet fit, a device-memory
+    snapshot, and one capture through the profiler server."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from cloud_tpu_torch.monitoring import profiler, tracing
+    from cloud_tpu_torch.training import data
+    from cloud_tpu_torch.utils import benchmarking
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_profiler_")
+    out = {}
+    try:
+        tr = _cifar_trainer(device)
+        arrays = _cifar_arrays(PROFILE_FIT["batches"] * CIFAR_BATCH, 0)
+        want_steps = list(range(
+            PROFILE_FIT["start_step"],
+            PROFILE_FIT["start_step"] + PROFILE_FIT["num_steps"]))
+        problem = None
+        for attempt in range(PROFILE_SESSIONS):
+            cb = profiler.ProfilerCallback(
+                os.path.join(root, f"fit{attempt}"),
+                start_step=PROFILE_FIT["start_step"] + int(tr.state.step),
+                num_steps=PROFILE_FIT["num_steps"])
+            start = time.perf_counter()
+            with tracing.collecting():
+                tr.fit(data.ArrayDataset(arrays, CIFAR_BATCH, shuffle=True),
+                       epochs=1, callbacks=[cb])
+            fit_s = time.perf_counter() - start
+            events = _trace_events(cb.trace_path)
+            names = [e.get("name", "") for e in events]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            # A range shows on the host's and the card's timelines.
+            markers = sorted({int(n.split("#")[1]) - int(tr.state.step)
+                              + PROFILE_FIT["batches"] for n in names
+                              if n.startswith("ProfilerStep#")})
+            spans = sorted({n for n in names if n.startswith("step/")})
+            gn = _gn_trace_names(events)
+            problem = None
+            if not kernels:
+                problem = "the trace holds no kernel"
+            elif gn != set(GN_KERNELS):
+                problem = f"the trace's GroupNorm kernels {sorted(gn)}"
+            elif markers != want_steps:
+                problem = f"step markers {markers} != {want_steps}"
+            elif "step/compute" not in spans:
+                problem = f"the trace's step ranges {spans}"
+            if problem is None:
+                break
+            _profile_pause(attempt)
+        if problem is not None:
+            raise AssertionError(f"ProfilerCallback: {problem} after "
+                                 f"{PROFILE_SESSIONS} sessions")
+        out["callback"] = {"trace_mb": os.path.getsize(cb.trace_path) / 2**20,
+                           "kernel_rows": len(kernels), "markers": markers,
+                           "step_ranges": spans, "fit_s": fit_s,
+                           "sessions": attempt + 1}
+        mem = profiler.save_device_memory_profile(
+            os.path.join(root, "memory.pickle"))
+        if os.path.getsize(mem) <= 0:
+            raise AssertionError("empty device-memory snapshot")
+        out["memory_snapshot_bytes"] = os.path.getsize(mem)
+        del tr
+        torch.cuda.empty_cache()
+
+        step, state, batch = benchmarking.resnet_train_setup(
+            imagenet_shape=False, batch_size=CIFAR_BATCH, device=device)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        saved = os.environ.get(profiler.ENV_PROFILER_LOGDIR)
+        os.environ[profiler.ENV_PROFILER_LOGDIR] = os.path.join(root, "srv")
+        _, port = profiler.start_server(0)
+        try:
+            for attempt in range(PROFILE_SESSIONS):
+                answer = {}
+                thread = threading.Thread(target=lambda: answer.update(
+                    profiler.request_capture(port,
+                                             PROFILE_FIT["capture_ms"])))
+                thread.start()
+                steps = 0
+                while thread.is_alive():
+                    state, metrics = step(state, batch)
+                    steps += 1
+                    if steps % 4 == 0:
+                        torch.cuda.synchronize()
+                thread.join()
+                kernels = [e for e in _trace_events(answer["trace"])
+                           if e.get("cat") == "kernel"]
+                if kernels:
+                    break
+                _profile_pause(attempt)
+        finally:
+            profiler.stop_server()
+            if saved is None:
+                os.environ.pop(profiler.ENV_PROFILER_LOGDIR, None)
+            else:
+                os.environ[profiler.ENV_PROFILER_LOGDIR] = saved
+        if not kernels:
+            raise AssertionError(
+                f"the server's capture held no kernel in {PROFILE_SESSIONS} "
+                "sessions")
+        out["server_capture"] = {"kernel_rows": len(kernels),
+                                 "steps_during": steps,
+                                 "sessions": attempt + 1,
+                                 "gn_kernels": sorted(_gn_trace_names(
+                                     _trace_events(answer["trace"])))}
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  ProfilerCallback: {out['callback']['kernel_rows']} kernel rows, "
+          f"markers {out['callback']['markers']}, ranges "
+          f"{out['callback']['step_ranges']}, trace "
+          f"{out['callback']['trace_mb']:.1f} MiB; memory snapshot "
+          f"{out['memory_snapshot_bytes']} bytes; server capture of "
+          f"{PROFILE_FIT['capture_ms']} ms: "
+          f"{out['server_capture']['kernel_rows']} kernel rows over "
+          f"{out['server_capture']['steps_during']} steps [{card}]")
+    return out
+
+
+class RecordingSession:
+    """A stand-in for the Cloud Monitoring REST session (the exporter only
+    posts): records each request, sends nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def post(self, url, body=None, params=None):
+        self.calls.append(("POST", url, body, params))
+        return {}
+
+
+def run_exporter_phase(device, card):
+    """9m: the native library on this machine, its C tests, and the
+    bootstrap exporting a training run's time series."""
+    import shutil
+    import tempfile
+
+    from cloud_tpu_torch import monitoring
+    from cloud_tpu_torch.core import bootstrap
+    from cloud_tpu_torch.monitoring import metrics
+    from cloud_tpu_torch.utils import api_client
+
+    del device  # the bootstrap runs on the card by default
+    cpp = os.path.join(REPO_ROOT, "cloud_tpu_torch", "monitoring", "cpp")
+    root = tempfile.mkdtemp(prefix="chip_smoke_exporter_")
+    try:
+        start = time.perf_counter()
+        built = subprocess.run(
+            ["make", "-j4", "-C", cpp, metrics.LIB_NAME],
+            capture_output=True, text=True, timeout=300)
+        if built.returncode != 0:
+            raise AssertionError(f"make: {built.stdout[-2000:]}"
+                                 f"{built.stderr[-2000:]}")
+        if metrics.backend() != "native":
+            raise AssertionError(f"metrics.backend() is {metrics.backend()}")
+        # A copy without build outputs, as the build context vendors it:
+        # the library's build there is what a container pays at first use.
+        tests_dir = os.path.join(root, "cpp")
+        shutil.copytree(cpp, tests_dir, ignore=shutil.ignore_patterns(
+            "*.so", "*_test"))
+        lib_start = time.perf_counter()
+        clean = subprocess.run(
+            ["make", "-C", tests_dir, metrics.LIB_NAME],
+            capture_output=True, text=True, timeout=300)
+        lib_s = time.perf_counter() - lib_start
+        if clean.returncode != 0:
+            raise AssertionError(f"make (clean copy): {clean.stderr[-2000:]}")
+        ctests = subprocess.run(
+            ["make", "-j4", "-C", tests_dir, "test"],
+            capture_output=True, text=True, timeout=300)
+        if ctests.returncode != 0 or "all tests passed" not in ctests.stdout:
+            raise AssertionError(f"C tests: {ctests.stdout[-2000:]}"
+                                 f"{ctests.stderr[-2000:]}")
+        build_s = time.perf_counter() - start
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    session = RecordingSession()
+    env = {"CLOUD_TPU_MONITORING_ENABLED": "1",
+           "CLOUD_TPU_MONITORING_PROJECT_ID": "chip-smoke-proj",
+           "CLOUD_TPU_MONITORING_WIRE": "python",
+           "CLOUD_TPU_MONITORING_INTERVAL": "3600",
+           "MNIST_EXAMPLE_EPOCHS": "2", "MNIST_EXAMPLE_STEPS": "4"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    saved_argv, saved_session = list(sys.argv), api_client.default_session
+    os.environ.update(env)
+    api_client.default_session = lambda: session
+    start = time.perf_counter()
+    try:
+        bootstrap.main([f"--entry-point={MONITORED_ENTRY}"])
+    finally:
+        monitoring.stop_exporter()
+        api_client.default_session = saved_session
+        sys.argv[:] = saved_argv
+        os.environ.pop(bootstrap.ENV_RUNNING_REMOTELY, None)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    run_s = time.perf_counter() - start
+    posted = [body for method, url, body, _ in session.calls
+              if url.endswith("/projects/chip-smoke-proj/timeSeries")]
+    types = {s["metric"]["type"] for body in posted
+             for s in body["timeSeries"]}
+    for name in ("train/steps", "train/step_time_ms"):
+        if f"custom.googleapis.com/cloud_tpu/{name}" not in types:
+            raise AssertionError(f"no {name} time series: {sorted(types)}")
+    print(f"  native library: make of a clean copy {lib_s:.2f} s (9r's "
+          f"container builds it so before its first step); with its C "
+          f"tests {build_s:.1f} s;"
+          f" metrics.backend() {metrics.backend()}; bootstrapped MNIST "
+          f"exported {len(types)} time series in {len(posted)} posts "
+          f"({run_s:.1f} s) [{card}]")
+    return {"backend": metrics.backend(), "lib_make_s": lib_s,
+            "build_and_ctests_s": build_s,
+            "run_s": run_s, "series": sorted(types), "posts": len(posted)}
+
+
 def tensor_core_sass(dispatch):
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     flash libraries, read from ``cuobjdump -sass``; raises unless every
@@ -7564,6 +7938,26 @@ def main() -> int:
         start = time.perf_counter()
         recs = run_records_fit(device, card, fit)
         print(f"  (records: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 9r: cloud_tpu_torch.run() -> the build context -> "
+                 "deploy's startup script -> the image's ENTRYPOINT (the "
+                 "bootstrap) -> Trainer.fit of ResNet-50 CIFAR b256 bf16 "
+                 "on the card")
+        print(title)
+        start = time.perf_counter()
+        front_door = run_front_door(device, card)
+        print(f"  (front door: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 9p: the profiler: ProfilerCallback over a ResNet "
+                 "fit, a memory snapshot, one on-demand server capture")
+        print(title)
+        start = time.perf_counter()
+        prof_run = run_profiler_phase(device, card)
+        print(f"  (profiler: {time.perf_counter() - start:.1f} s wall)")
+        title = ("phase 9m: the exporter: the native library and its C "
+                 "tests, the bootstrap exporting a training run")
+        print(title)
+        start = time.perf_counter()
+        exporter_run = run_exporter_phase(device, card)
+        print(f"  (exporter: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
                  "one step under torch.profiler")
         print(title)
@@ -7727,13 +8121,15 @@ def main() -> int:
                                        for r in zoo_training))
         else:
             # K1-K4: the bare loop (4), Trainer.fit (4t), the
-            # exactly-once fits (4r), compile-ahead (4a) and the records
-            # fits (4p), each counted from 0.
+            # exactly-once fits (4r), compile-ahead (4a), the records
+            # fits (4p) and the container of the front door (9r), each
+            # counted from 0.
             entry["launches"] = (cifar["launches"][name]
                                  + fit["launches"][name]
                                  + exact["launches"][name]
                                  + ahead["launches"][name]
-                                 + recs["launches"][name])
+                                 + recs["launches"][name]
+                                 + front_door["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")
@@ -7794,6 +8190,9 @@ def main() -> int:
         "compile_ahead": ahead,
         "cold_start": cold,
         "records_fit": recs,
+        "front_door": front_door,
+        "profiler": prof_run,
+        "exporter": exporter_run,
         "stochastic_bert_b32xT128": stoch,
         "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
         "flash_fwd_at_training": k5_training,

@@ -5,20 +5,58 @@ attention kernels are hand-written CUDA C++ for ``sm_90a`` under
 ``ops/csrc/``, built with ``nvcc`` at first use; plain PyTorch versions
 of the same functions serve tensors that lie on the CPU (the tests).
 
-Submodules load lazily so ``import cloud_tpu_torch`` stays cheap.
+The root re-exports the reference root's public surface
+(``cloud_tpu/__init__.py``): the machine configs eagerly, ``run``,
+``remote`` and ``RunReport`` lazily.  ``CloudTuner``, ``CloudOracle`` and
+``cloud_fit`` are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP.md items.  Submodules load lazily so ``import
+cloud_tpu_torch`` stays cheap.
 """
 
 from __future__ import annotations
 
 import importlib
 
-__version__ = "0.1.0"
+from cloud_tpu_torch.version import __version__
+from cloud_tpu_torch.core.machine_config import (
+    AcceleratorType,
+    COMMON_MACHINE_CONFIGS,
+    MachineConfig,
+    TpuTopology,
+    TPU_SLICE_CATALOG,
+    is_tpu_config,
+)
 
-_SUBMODULES = ("bridge", "fleet", "models", "monitoring", "ops", "random",
-               "serving", "training", "utils")
+__all__ = [
+    "__version__",
+    "AcceleratorType",
+    "COMMON_MACHINE_CONFIGS",
+    "MachineConfig",
+    "TpuTopology",
+    "TPU_SLICE_CATALOG",
+    "is_tpu_config",
+]
+
+_SUBMODULES = ("bridge", "core", "fleet", "models", "monitoring", "ops",
+               "parallel", "random", "serving", "training", "utils")
+
+#: Names of the reference root that are features still to port.
+_UNPORTED = {
+    "CloudTuner": "section A, item 6 (order of work step 6: tuner/)",
+    "CloudOracle": "section A, item 6 (order of work step 6: tuner/)",
+    "cloud_fit": "section A, item 6 (order of work step 7: cloud_fit/)",
+}
 
 
 def __getattr__(name):
+    if name in ("run", "remote", "RunReport"):
+        from cloud_tpu_torch.core import run as _run
+
+        return getattr(_run, name)
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"cloud_tpu_torch.{name} is not ported yet: it is queued under "
+            f"ROADMAP.md {_UNPORTED[name]}")
     if name in _SUBMODULES:
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module 'cloud_tpu_torch' has no attribute {name!r}")

@@ -233,6 +233,30 @@ def mlp_block_apply(params, x, *, tp=None):
     return row_parallel_dense(params["wo"], h, tp)
 
 
+def classification_loss(logits, labels, mesh):
+    """Softmax cross-entropy and accuracy of ``logits`` ``[B, classes]``
+    against ``labels`` ``[B]`` (MNIST's and ResNet's loss): the batch
+    means without ``mesh``; under a data-parallel ``mesh`` the loss is
+    this rank's summed NLL over the global row count and the metrics are
+    the global means."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    log_probs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.take_along_dim(log_probs, labels[:, None], dim=-1)
+    correct = (torch.argmax(logits, -1) == labels).float()
+    if mesh is None:
+        loss = torch.mean(nll)
+        return loss, {"loss": loss.detach(), "accuracy": torch.mean(correct)}
+    from cloud_tpu_torch.parallel import collectives
+
+    total = collectives.sum_over_rows(
+        torch.tensor(float(labels.shape[0]), device=logits.device), mesh)
+    num = nll.sum()
+    return num / total, {
+        "loss": collectives.sum_over_rows(num.detach(), mesh) / total,
+        "accuracy": collectives.sum_over_rows(correct.sum(), mesh) / total,
+    }
+
+
 def ulysses_eligible(num_heads: int, mesh, rules=None) -> bool:
     """Whether Ulysses' seq<->head all-to-all exists on ``mesh``: the
     local head group (``num_heads`` over the ``heads`` axes' shards) must

@@ -2,6 +2,11 @@
 of ``cloud_tpu/models/mnist.py``): flattened 28x28 images, a 512-unit
 relu layer and a 10-way head.  It runs no kernel of the port; its params
 come from ``bridge.init_mnist`` or, from JAX's, ``bridge.mnist_to_torch``.
+
+Under a training mesh of more than one rank (``mesh=``, or the installed
+global mesh) :func:`loss_fn` returns this rank's share of the global loss
+(``train.mesh_loss``): the rows are split over ``dp`` and ``fsdp``; other
+axes raise (``parallel.collectives.data_parallel_mesh``).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch
 
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,15 +39,27 @@ def apply(params, images, config: MnistConfig = MnistConfig(), *,
     return layers.dense_apply(params["out"], x)
 
 
+def param_logical_axes(config: MnistConfig = MnistConfig()):
+    """The JAX package's logical axes (``cloud_tpu/models/mnist.py``)."""
+    return {
+        "hidden": {"kernel": (None, "mlp"), "bias": ("mlp",)},
+        "out": {"kernel": ("mlp", None), "bias": (None,)},
+    }
+
+
 def loss_fn(params, batch: Dict[str, Any],
             config: MnistConfig = MnistConfig(), *,
-            device=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            device=None, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean softmax cross-entropy and accuracy over ``batch["image"]``,
-    ``batch["label"]``; the metrics are detached from the graph."""
+    ``batch["label"]``; the metrics are detached from the graph.  Under a
+    mesh of more than one rank ``batch`` is this rank's rows, the device
+    the mesh's, and the loss this rank's share of the global loss."""
+    mesh, device = collectives.data_parallel_mesh(mesh, "MNIST", device)
     logits = apply(params, batch["image"], config, device=device)
-    labels = torch.as_tensor(batch["label"], device=logits.device).long()
-    log_probs = torch.log_softmax(logits, dim=-1)
-    loss = -torch.mean(torch.take_along_dim(log_probs, labels[:, None],
-                                            dim=-1))
-    accuracy = torch.mean((torch.argmax(logits, -1) == labels).float())
-    return loss, {"loss": loss.detach(), "accuracy": accuracy}
+    return layers.classification_loss(logits, batch["label"], mesh)
+
+
+#: Under a mesh, :func:`loss_fn` returns its rank's share of the global
+#: loss: the kind ``training.train``'s step under a mesh takes.
+loss_fn.mesh_loss = True

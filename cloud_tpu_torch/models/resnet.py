@@ -13,6 +13,12 @@ JAX's ``SAME`` padding puts the odd pixel of a strided window at the end
 (``lo = total // 2``); PyTorch's ``padding=`` is symmetric.  Where the two
 differ (the stride-2 stem, stride-2 3x3 convs and the max-pool at even
 sizes) the input is padded explicitly, with ``-inf`` for the pool.
+
+ResNet scales by data parallelism: under a training mesh of more than
+one rank :func:`loss_fn` returns this rank's share of the global loss
+(``train.mesh_loss``, rows over ``dp`` and ``fsdp``); every parameter is
+replicated (:func:`param_logical_axes`).  GroupNorm's statistics are per
+sample, so a rank's rows need no collective in the forward pass.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.models import layers
 from cloud_tpu_torch.ops.group_norm import group_norm
+from cloud_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,14 +126,44 @@ def apply(params, images, config: ResNetConfig = RESNET50, *, device=None):
     return layers.dense_apply(params["head"], x, dtype=torch.float32)
 
 
+def param_logical_axes(config: ResNetConfig = RESNET50):
+    """Every parameter replicated (sharded only if the user extends the
+    rules), in the tree ``bridge.init_resnet`` makes: the JAX package's
+    axes."""
+    def conv():
+        return {"kernel": (None,) * 4}
+
+    def gn():
+        return {"scale": (None,), "bias": (None,)}
+
+    axes: Dict[str, Any] = {"stem": conv(), "gn_stem": gn()}
+    cin = config.width
+    for stage, num_blocks in enumerate(config.stage_sizes):
+        cout = config.width * (2 ** stage) * 4
+        for block in range(num_blocks):
+            stride = 2 if (block == 0 and stage > 0) else 1
+            blk = {"conv1": conv(), "gn1": gn(), "conv2": conv(),
+                   "gn2": gn(), "conv3": conv(), "gn3": gn()}
+            if stride != 1 or cin != cout:
+                blk.update(proj=conv(), gn_proj=gn())
+            axes[f"stage{stage}_block{block}"] = blk
+            cin = cout
+    axes["head"] = {"kernel": (None, None), "bias": (None,)}
+    return axes
+
+
 def loss_fn(params, batch: Dict[str, Any], config: ResNetConfig = RESNET50,
-            *, device=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            *, device=None, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean softmax cross-entropy and accuracy over ``batch["image"]``,
-    ``batch["label"]``; the metrics are detached from the graph."""
+    ``batch["label"]``; the metrics are detached from the graph.  Under a
+    mesh of more than one rank ``batch`` is this rank's rows, the device
+    the mesh's, and the loss this rank's share of the global loss."""
+    mesh, device = collectives.data_parallel_mesh(mesh, "ResNet", device)
     logits = apply(params, batch["image"], config, device=device)
-    labels = torch.as_tensor(batch["label"], device=logits.device).long()
-    log_probs = torch.log_softmax(logits, dim=-1)
-    loss = -torch.mean(torch.take_along_dim(log_probs, labels[:, None],
-                                            dim=-1))
-    accuracy = torch.mean((torch.argmax(logits, -1) == labels).float())
-    return loss, {"loss": loss.detach(), "accuracy": accuracy}
+    return layers.classification_loss(logits, batch["label"], mesh)
+
+
+#: Under a mesh, :func:`loss_fn` returns its rank's share of the global
+#: loss: the kind ``training.train``'s step under a mesh takes.
+loss_fn.mesh_loss = True

@@ -1,8 +1,10 @@
-"""Metrics, host-side span tracing and the timeline report (port of
-``cloud_tpu/monitoring``'s ``metrics``, ``tracing`` and ``report``): what
-the serving engine, the fleet and the trainer record, and how a timeline
-reads back.  The exporter and the profiler are not ported yet (ROADMAP.md
-section A, item 6).
+"""Metrics, host-side span tracing, the timeline report, the Cloud
+Monitoring exporter and the profiler (port of ``cloud_tpu/monitoring``).
+
+The registry is the port's native C++ library (``cpp/``, ctypes-bound,
+with the pure-Python fallback), the exporter ships its snapshots to Cloud
+Monitoring (``exporter.py``: the native wire client or the REST session),
+and ``profiler`` captures ``torch.profiler`` traces (loaded lazily).
 
 Also the Trainer integration: :class:`MetricsCallback` records steps/sec
 and the loss into the registry (``Trainer.fit`` installs one).
@@ -20,6 +22,23 @@ from cloud_tpu_torch.monitoring.metrics import (
     reset,
     snapshot,
 )
+from cloud_tpu_torch.monitoring.exporter import (
+    CloudMonitoringExporter,
+    start_exporter,
+    stop_exporter,
+)
+
+
+def __getattr__(name):
+    # Lazy, as in the reference: ``monitoring.profiler`` resolves on first
+    # use.  importlib, not ``from ... import``: the from-import form asks
+    # the package for the attribute first, which re-enters this
+    # __getattr__.
+    if name == "profiler":
+        import importlib
+
+        return importlib.import_module("cloud_tpu_torch.monitoring.profiler")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class MetricsCallback:
@@ -124,6 +143,7 @@ class MetricsCallback:
 
 
 __all__ = [
+    "CloudMonitoringExporter",
     "MetricsCallback",
     "WindowedRate",
     "backend",
@@ -132,5 +152,7 @@ __all__ = [
     "gauge_set",
     "reset",
     "snapshot",
+    "start_exporter",
+    "stop_exporter",
     "tracing",
 ]

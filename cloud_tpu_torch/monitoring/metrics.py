@@ -1,18 +1,25 @@
 """The metrics registry (port of ``cloud_tpu/monitoring/metrics.py``).
 
 Counters, gauges and distributions recorded from any thread and read as
-one snapshot.  The reference has two registries with one surface: a
-native C++ one, loaded through ctypes when its library builds, and a
-pure-Python one.  The port carries the pure-Python registry only (the
-native one is a host library, not a kernel; ROADMAP.md section A, item 6),
-so :func:`backend` answers ``"python"``.
+one snapshot.  As in the reference there are two registries with one
+surface: the native C++ one (the port's copy of the reference's library,
+``monitoring/cpp/``, bound through ctypes), built with ``make`` at first
+use, and a pure-Python one that takes over when the library cannot be
+built or loaded.  :func:`backend` says which is live.  Both are host
+bookkeeping, not device code.
 """
 
 from __future__ import annotations
 
+import ctypes
+import json
 import math
+import os
 import threading
 from typing import Dict, Optional
+
+_CPP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp")
+LIB_NAME = "libcloud_tpu_torch_monitoring.so"
 
 _NUM_BUCKETS = 24
 
@@ -87,12 +94,68 @@ class _PurePythonRegistry:
             self._dists.clear()
 
 
-_registry = _PurePythonRegistry()
+class _NativeRegistry:
+    """The C++ registry through its C API (``cpp/metrics_registry.h``)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        lib.ctpu_counter_inc.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+        lib.ctpu_gauge_set.argtypes = [ctypes.c_char_p, ctypes.c_double]
+        lib.ctpu_distribution_record.argtypes = [
+            ctypes.c_char_p, ctypes.c_double,
+        ]
+        lib.ctpu_metrics_snapshot_json.restype = ctypes.c_void_p
+        lib.ctpu_free.argtypes = [ctypes.c_void_p]
+
+    def counter_inc(self, name, delta=1):
+        self._lib.ctpu_counter_inc(name.encode(), int(delta))
+
+    def gauge_set(self, name, value):
+        self._lib.ctpu_gauge_set(name.encode(), float(value))
+
+    def distribution_record(self, name, value):
+        self._lib.ctpu_distribution_record(name.encode(), float(value))
+
+    def snapshot(self):
+        ptr = self._lib.ctpu_metrics_snapshot_json()
+        try:
+            return json.loads(ctypes.string_at(ptr).decode())
+        finally:
+            self._lib.ctpu_free(ptr)
+
+    def reset(self):
+        self._lib.ctpu_registry_reset()
+
+
+_registry = None
+_registry_lock = threading.Lock()
+
+
+def _build_native() -> Optional[ctypes.CDLL]:
+    from cloud_tpu_torch.utils.native import load_native_lib
+
+    return load_native_lib(_CPP_DIR, LIB_NAME,
+                           what="native metrics registry")
+
+
+def _get_registry():
+    global _registry
+    registry = _registry
+    if registry is not None:
+        return registry
+    with _registry_lock:
+        if _registry is None:
+            lib = _build_native()
+            _registry = (_NativeRegistry(lib) if lib is not None
+                         else _PurePythonRegistry())
+        return _registry
 
 
 def backend() -> str:
-    """Which registry records: always ``"python"`` in the port."""
-    return "python"
+    """Which registry records: ``"native"`` when the C++ library loaded,
+    else ``"python"``."""
+    return ("native" if isinstance(_get_registry(), _NativeRegistry)
+            else "python")
 
 
 class WindowedRate:
@@ -127,20 +190,20 @@ class WindowedRate:
 
 
 def counter_inc(name: str, delta: int = 1) -> None:
-    _registry.counter_inc(name, delta)
+    _get_registry().counter_inc(name, delta)
 
 
 def gauge_set(name: str, value: float) -> None:
-    _registry.gauge_set(name, value)
+    _get_registry().gauge_set(name, value)
 
 
 def distribution_record(name: str, value: float) -> None:
-    _registry.distribution_record(name, value)
+    _get_registry().distribution_record(name, value)
 
 
 def snapshot() -> dict:
-    return _registry.snapshot()
+    return _get_registry().snapshot()
 
 
 def reset() -> None:
-    _registry.reset()
+    _get_registry().reset()

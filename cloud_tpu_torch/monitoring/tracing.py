@@ -16,9 +16,12 @@ Disabled is the default and costs one function call: without an active
 collector :func:`span` returns a shared no-op context manager.  Enable
 with :func:`enable` or the :func:`collecting` context manager.
 
-The reference also mirrors spans into ``jax.profiler`` annotations while a
-TPU profiler trace runs (its ``xprof_*`` hooks); the port leaves that out
-(ROADMAP.md section A, item 6).
+While a trace of the port's profiler runs (``monitoring.profiler``, which
+calls :func:`xprof_trace_started` / :func:`xprof_trace_stopped`, a depth
+count as in the reference), every span also enters a
+``torch.profiler.record_function`` range of its name, so the trace shows
+``step/compute`` and the rest beside the kernels.  Outside a trace a span
+costs nothing more.
 """
 
 from __future__ import annotations
@@ -216,12 +219,16 @@ _collector_lock = threading.Lock()
 _submit_perf: Optional[float] = None
 _submit_consumed = False
 
+# Incremented/decremented by monitoring.profiler around its traces;
+# nonzero => spans mirror themselves as torch.profiler ranges.
+_xprof_depth = 0
+
 
 class Span:
     """A live span: times itself, records on exit.  Not reentrant."""
 
     __slots__ = ("name", "attributes", "span_id", "parent_id",
-                 "_collector", "_start")
+                 "_collector", "_start", "_annotation")
 
     def __init__(self, name: str, collector: TimelineCollector,
                  attributes: Optional[Dict[str, Any]]):
@@ -231,6 +238,7 @@ class Span:
         self.span_id = collector.next_span_id()
         self.parent_id = 0
         self._start = 0.0
+        self._annotation = None
 
     def set_attribute(self, key: str, value: Any) -> None:
         if self.attributes is None:
@@ -242,11 +250,25 @@ class Span:
         if stack:
             self.parent_id = stack[-1].span_id
         stack.append(self)
+        if _xprof_depth:
+            try:
+                import torch.profiler
+
+                self._annotation = torch.profiler.record_function(self.name)
+                self._annotation.__enter__()
+            except Exception:  # noqa: BLE001 — tracing never kills the job
+                self._annotation = None
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         end = time.perf_counter()
+        if self._annotation is not None:
+            try:
+                self._annotation.__exit__(exc_type, exc, tb)
+            except Exception:  # noqa: BLE001 — tracing never kills the job
+                pass
+            self._annotation = None
         stack = _stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -580,3 +602,16 @@ def clear_submit() -> None:
 
 def _reset_submit_state_for_tests() -> None:
     clear_submit()
+
+
+# --- profiler mirroring (driven by monitoring.profiler) -------------------
+
+
+def xprof_trace_started() -> None:
+    global _xprof_depth
+    _xprof_depth += 1
+
+
+def xprof_trace_stopped() -> None:
+    global _xprof_depth
+    _xprof_depth = max(0, _xprof_depth - 1)

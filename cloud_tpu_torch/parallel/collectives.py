@@ -365,3 +365,41 @@ def host_local_mean(tree):
         return type(tree)(host_local_mean(v) for v in tree)
     x = torch.as_tensor(tree)
     return x.mean() if x.is_floating_point() else x.float().mean()
+
+
+# --- the losses of data-parallel models (MNIST, ResNet) --------------------
+
+#: The axes over which ranks hold different rows.
+ROW_AXES = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP)
+
+
+def data_parallel_mesh(mesh, model: str, device=None):
+    """``(mesh, device)`` of a data-parallel model's loss.  The mesh is
+    ``mesh``, else the installed global mesh, and comes back None when
+    there is none or when it has one rank (every collective over it is
+    the identity, so the loss is the single-card one); ``device`` defaults
+    to the mesh's.  Such a model splits only its rows: ``tp``, ``sp``,
+    ``pp`` or ``ep`` > 1 raises ``NotImplementedError`` (its layers have
+    no split yet; queued under ROADMAP.md A.2)."""
+    mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
+    if mesh is not None and device is None:
+        device = mesh.device
+    mesh = mesh_lib.effective_mesh(mesh)
+    if mesh is None:
+        return None, device
+    split = [a for a in (mesh_lib.AXIS_TP, mesh_lib.AXIS_SP,
+                         mesh_lib.AXIS_PP, mesh_lib.AXIS_EP)
+             if mesh.axis_size(a) > 1]
+    if split:
+        raise NotImplementedError(
+            f"{model} under a mesh with {', '.join(split)} > 1 is not in the "
+            "PyTorch port yet: its layers have no such split; it is queued "
+            "under ROADMAP.md A.2 (dp and fsdp run)")
+    return mesh, device
+
+
+def sum_over_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the ranks that hold different rows (``dp`` x
+    ``fsdp``): a loss's row count or its reported value (not
+    differentiable)."""
+    return all_reduce_sum(x, ROW_AXES, mesh=mesh)

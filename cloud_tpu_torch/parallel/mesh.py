@@ -238,6 +238,23 @@ class Mesh:
         return self.groups.get(axis)
 
 
+def check_mesh(mesh) -> None:
+    """Raise ``TypeError`` unless ``mesh`` is None or a :class:`Mesh`."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            "mesh= takes a parallel.mesh.Mesh (MeshSpec(...).build()), got "
+            f"{type(mesh).__name__}")
+
+
+def effective_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` as a training step sees it (:func:`check_mesh` first):
+    None when there is none or when it has one rank, since every
+    collective over such a mesh is the identity and the step is the
+    single-process one."""
+    check_mesh(mesh)
+    return mesh if mesh is not None and mesh.spec.num_devices > 1 else None
+
+
 # --- global mesh registry -------------------------------------------------
 
 _GLOBAL_MESH: Optional[Mesh] = None

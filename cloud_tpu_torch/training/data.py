@@ -1,8 +1,8 @@
 """Minimal input pipelines: in-memory arrays and synthetic data (the port's
 copy of ``cloud_tpu/training/data.py``; numpy only).
 
-The record pipeline (``records.py``) is not ported yet (ROADMAP.md A.6);
-this module covers the in-memory workloads.
+The streaming record pipeline is ``records.py``; this module covers the
+in-memory workloads.
 
 This pipeline speaks the **exactly-once resume contract**: each epoch's
 shuffle order is a pure function of ``(seed, epoch)``, and

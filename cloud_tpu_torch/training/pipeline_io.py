@@ -228,6 +228,16 @@ def _placer(device: torch.device, window: Optional[int]):
     return place, _deliver
 
 
+def _refuse_multi_rank(mesh, rules, feature: str) -> None:
+    """The windows feed the window's CUDA graphs: under a mesh of more
+    than one rank they are queued (ROADMAP.md A.2) and raise; a mesh of
+    one rank is one card."""
+    from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+    refuse_unported(mesh=mesh_lib.effective_mesh(mesh), rules=rules,
+                    feature=feature)
+
+
 def prefetch_to_device(
     dataset: Callable[[], Iterator],
     *,
@@ -248,9 +258,18 @@ def prefetch_to_device(
     ``limit`` caps batches per iterator: the trainer threads
     ``steps_per_epoch`` through so the worker never decodes and transfers
     batches past the epoch budget only to have them discarded.
-    ``mesh``/``rules`` (a mesh) are queued (ROADMAP.md A.2) and raise.
+    Under ``mesh`` (a ``parallel.mesh.Mesh``; this process is one rank)
+    the batches are this rank's rows, as ``train.shard_batch`` takes them,
+    placed on the mesh's device; ``rules`` changes nothing (the rows are
+    already the rank's).
     """
-    refuse_unported(mesh=mesh, rules=rules, feature="prefetch_to_device")
+    del rules  # the rows are already this rank's (train.shard_batch)
+    if mesh is not None:
+        from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh_lib.check_mesh(mesh)
+        if device is None:
+            device = mesh.device
     device = resolve_device(device)
 
     def factory():
@@ -425,8 +444,9 @@ def prefetch_windows(
     :func:`_window_item`), padded on the worker thread, off the dispatch
     path.
     """
-    refuse_unported(mesh=mesh, rules=rules, feature="prefetch_windows")
-    device = resolve_device(device)
+    _refuse_multi_rank(mesh, rules, "prefetch_windows")
+    device = resolve_device(device if mesh is None or device is not None
+                            else mesh.device)
 
     def factory():
         place, deliver = _placer(device, steps_per_dispatch)
@@ -451,8 +471,9 @@ def iter_windows(
     """Synchronous sibling of :func:`prefetch_windows` (``prefetch=0``):
     the same ``(n_steps, payload, valid)`` stream, no background thread,
     copies in the caller's stream order."""
-    refuse_unported(mesh=mesh, rules=rules, feature="iter_windows")
-    device = resolve_device(device)
+    _refuse_multi_rank(mesh, rules, "iter_windows")
+    device = resolve_device(device if mesh is None or device is not None
+                            else mesh.device)
 
     def factory():
         for window in windowed(iter(dataset()), steps_per_dispatch, limit):

@@ -34,12 +34,14 @@ over ``tp``, ``pp`` or ``ep``; ``grad_norm`` sums each leaf's squares
 over the axes that split it.  Under ``pp`` each rank holds its pipeline
 stage's layers (``parallel/pipeline.py``), under ``ep`` its experts.
 The loss must return its rank's share of the global loss
-(CloudLM's ``loss_fn`` does, marked ``mesh_loss``), so the summed
-gradients are the global loss's.  :func:`make_hybrid_dp_train_step` is
-the JAX package's replicated data-parallel step with the two-level
-gradient sum.  The window, ``Trainer.fit``, compile-ahead and the
-prefetch pipelines under a mesh are queued (ROADMAP.md A.2): their CUDA
-graphs cannot capture gloo's host-side collectives.
+(the ``loss_fn`` of CloudLM, MNIST and ResNet does, marked
+``mesh_loss``), so the summed gradients are the global loss's.
+:func:`make_hybrid_dp_train_step` is the JAX package's replicated
+data-parallel step with the two-level gradient sum.  ``Trainer.fit``
+under a mesh runs these steps eagerly; the window, compile-ahead and the
+windowed pipelines under a mesh of more than one rank are queued
+(ROADMAP.md A.2): their CUDA graphs cannot capture gloo's host-side
+collectives.
 """
 
 from __future__ import annotations
@@ -87,13 +89,6 @@ def refuse_unported(*, mesh=None, logical_axes=None, rules=None,
                 f"{feature} with {name}= (under a mesh) {_MESH_LATER}")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
-        raise TypeError(
-            "mesh= takes a parallel.mesh.Mesh (MeshSpec(...).build()), got "
-            f"{type(mesh).__name__}")
-
-
 def mesh_loss(fn):
     """Mark ``fn`` as a loss that, under a mesh, returns its rank's share
     of the global loss (its numerator over the weight total of every
@@ -120,7 +115,7 @@ def param_shardings(mesh, logical_axes, rules=None):
     assignment (``pp`` under pipeline rules) first.
     ``sharding.split_dims`` names the mesh axes a leaf is cut over on
     ``mesh``."""
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     rules = rules or sharding.DEFAULT_RULES
 
     def walk(axes, stacked=False):
@@ -160,7 +155,7 @@ def shard_batch(batch, mesh, rules=None, batch_axis: str = "batch", *,
         return shard_batch(batch, mesh, stacked=stacked), valid
     if mesh is None:
         return batch
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     return map_leaves(batch, lambda x: torch.as_tensor(
         np.asarray(x) if not isinstance(x, torch.Tensor) else x,
         device=mesh.device))
@@ -189,7 +184,7 @@ def create_sharded_state(rng, init_fn: Callable[[Any], Any], optimizer,
     cut: a 124M-parameter CloudLM fits one card whole; models that do
     not would need a sharded init, which the port has not.  A mesh with
     ``tp`` > 1 needs ``logical_axes`` (the layers take shards)."""
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     if mesh is not None:
         if logical_axes is None and mesh.axis_size(mesh_lib.AXIS_TP) > 1:
             raise ValueError("a mesh with tp > 1 needs logical_axes= (each "
@@ -450,13 +445,13 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
     micro-batches accumulate locally and sync once."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     if mesh is not None and not _is_mesh_loss(loss_fn):
         raise NotImplementedError(
             "under a mesh the step takes a loss marked train.mesh_loss (one "
-            "that returns its rank's share of the global loss, as CloudLM's "
-            "transformer.loss_fn does); BERT, ViT, ResNet and MNIST under a "
-            "mesh are queued under ROADMAP.md A.2")
+            "that returns its rank's share of the global loss, as the "
+            "loss_fn of CloudLM, MNIST and ResNet does); BERT and ViT under "
+            "a mesh are queued under ROADMAP.md A.2")
     layouts: List[_MeshLayout] = []
 
     def layout_of(params) -> Optional[_MeshLayout]:
@@ -917,7 +912,7 @@ def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]], *,
     deterministic).  Under ``mesh`` (the port's addition: the JAX step
     reads the layout off its arrays), the parameters cut over ``fsdp``
     are gathered whole first, as the train step does."""
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     return _EvalStep(loss_fn, mesh, logical_axes, rules)
 
 
@@ -932,7 +927,7 @@ def make_hybrid_dp_train_step(loss_fn, optimizer, *, mesh,
     by the data-parallel size, then applies the same update on every
     rank.  Metrics (the loss's and ``"loss"``) are averaged over the
     ranks the same way; there is no ``grad_norm``, as in JAX."""
-    _check_mesh(mesh)
+    mesh_lib.check_mesh(mesh)
     n_data = mesh.axis_size(dcn_axis) * mesh.axis_size(ici_axis)
 
     def body(state: TrainState, batch) -> Dict[str, torch.Tensor]:

@@ -12,9 +12,19 @@ graphs on a worker thread while the prefetch thread warms,
 ``training.compile_cache``).  Its entry points run on the card unless
 the Trainer is built with ``device="cpu"``.
 
-Queued: ``fit`` under a mesh (``mesh``, ``logical_axes``, ``rules``)
-raises ``NotImplementedError`` naming ROADMAP.md A.2 (a step under a
-mesh runs from ``train.make_train_step(mesh=...)``).
+Under a mesh (``mesh``, ``logical_axes``, ``rules``; one process per
+rank, ``parallel/``), ``fit`` runs eager steps through the step under a
+mesh (``train.make_train_step(mesh=...)``): each rank's dataset yields its
+own rows (the JAX package's multi-process contract: ``train.shard_batch``),
+prefetched to the rank's device, with validation, callbacks and
+accumulation as on one card (``CheckpointCallback``'s sharded saves stay
+queued under A.2).  The loss must be a ``train.mesh_loss``
+(CloudLM's, MNIST's and ResNet's are).  Windows (``steps_per_dispatch`` >
+1) and compile-ahead under a mesh of more than one rank raise
+``NotImplementedError`` naming ROADMAP.md A.2: their CUDA graphs cannot
+capture gloo's host-side collectives.  A mesh whose every axis has size 1
+is the single-process step (each collective over it is the identity), so
+``fit`` takes that whole path, windows and compile-ahead included.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import map_leaves
 from cloud_tpu_torch.monitoring import metrics as metrics_lib
 from cloud_tpu_torch.monitoring import tracing
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.training import compile_cache, pipeline_io, preemption
 from cloud_tpu_torch.training import train as train_lib
 from cloud_tpu_torch.utils import faults
@@ -280,7 +291,12 @@ class Trainer:
       loss_fn: ``loss_fn(params, batch) -> (loss, metrics_dict)``.
       optimizer: an optimizer of ``training.optimizers``.
       init_fn: ``init_fn(generator) -> params`` (used by ``init_state``).
-      mesh, logical_axes, rules: queued (ROADMAP.md A.2; raise).
+      mesh: a ``parallel.mesh.Mesh`` (this process is one rank), or None
+        for one card; the state lives on the mesh's device.
+      logical_axes: params-congruent tree of logical axis tuples (how the
+        rules cut each leaf over the mesh); unused without a mesh of more
+        than one rank.
+      rules: logical->mesh axis table (default ``DEFAULT_RULES``).
       stochastic: thread the state's threefry key through every train
         step: ``loss_fn(params, batch, rng=...)`` (dropout).  Eval steps
         stay deterministic (no rng passed).  ``init_state`` derives the
@@ -314,8 +330,16 @@ class Trainer:
         nonfinite_guard: bool = False,
         device=None,
     ):
-        train_lib.refuse_unported(mesh=mesh, logical_axes=logical_axes,
-                                  rules=rules, feature="Trainer (fit)")
+        self._mesh = mesh_lib.effective_mesh(mesh)
+        self.mesh = mesh
+        self.logical_axes = logical_axes
+        self.rules = rules
+        if mesh is not None:
+            if (device is not None
+                    and torch.device(device).type != mesh.device.type):
+                raise ValueError(
+                    f"device={device} is not the mesh's device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.stochastic = stochastic
         self.loss_fn = loss_fn
@@ -341,11 +365,14 @@ class Trainer:
         self.data_state: Dict[str, int] = {"epoch": 0, "batches_consumed": 0}
         self._resume_data_state: Optional[Dict[str, int]] = None
         self._data_seed: Optional[int] = None
+        layout = dict(mesh=self._mesh, rules=rules, logical_axes=(
+            logical_axes if self._mesh is not None else None))
         self._train_step = train_lib.make_train_step(
             loss_fn, optimizer, stochastic=stochastic,
             accum_steps=accum_steps, skip_nonfinite=nonfinite_guard,
+            **layout,
         )
-        self._eval_step = train_lib.make_eval_step(loss_fn)
+        self._eval_step = train_lib.make_eval_step(loss_fn, **layout)
         # Fused K-step windows, built lazily per K: a window keeps its
         # CUDA graphs, so reusing it across epochs and fits captures once.
         self._multi_steps: Dict[int, Any] = {}
@@ -586,8 +613,10 @@ class Trainer:
             train_rng = random_lib.split(
                 random_lib.PRNGKey(rng.initial_seed()))[1]
         self.state = train_lib.create_sharded_state(
-            rng, self.init_fn, self.optimizer, train_rng=train_rng,
-            device=self.device,
+            rng, self.init_fn, self.optimizer, mesh=self._mesh,
+            logical_axes=(self.logical_axes if self._mesh is not None
+                          else None),
+            rules=self.rules, train_rng=train_rng, device=self.device,
         )
         return self.state
 
@@ -609,7 +638,9 @@ class Trainer:
         batch_spec=None,
         rollback_after_nonfinite: Optional[int] = None,
     ) -> History:
-        """Run the training loop.
+        """Run the training loop (under the Trainer's mesh, installed as the
+        global mesh for the loss, as the JAX trainer runs its steps in its
+        mesh's context).
 
         ``train_data``/``validation_data`` are zero-arg callables returning a
         fresh batch iterator per epoch (re-iterable datasets).
@@ -661,6 +692,26 @@ class Trainer:
         epochs budget from there: the trajectory is the uninterrupted
         run's.
         """
+        with self._mesh_context():
+            return self._fit(
+                train_data, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                validation_data=validation_data, callbacks=callbacks,
+                state=state, steps_per_dispatch=steps_per_dispatch,
+                prefetch=prefetch, compile_ahead=compile_ahead,
+                batch_spec=batch_spec,
+                rollback_after_nonfinite=rollback_after_nonfinite)
+
+    def _mesh_context(self):
+        """The Trainer's mesh installed as the global mesh, or nothing."""
+        import contextlib
+
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_lib.use_mesh(self.mesh)
+
+    def _fit(self, train_data, *, epochs, steps_per_epoch, validation_data,
+             callbacks, state, steps_per_dispatch, prefetch, compile_ahead,
+             batch_spec, rollback_after_nonfinite) -> History:
         if steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}"
@@ -677,6 +728,15 @@ class Trainer:
                     "nonfinite_guard=True (the on-device skip supplies the "
                     "signal the rollback trigger counts)"
                 )
+        if self._mesh is not None:
+            # Refused before any state or data is touched.
+            if steps_per_dispatch > 1:
+                train_lib.refuse_unported(
+                    mesh=self._mesh,
+                    feature="fit(steps_per_dispatch > 1) (the window)")
+            if compile_ahead or batch_spec is not None:
+                train_lib.refuse_unported(
+                    mesh=self._mesh, feature="fit(compile_ahead=True)")
         # Env-gated persistent kernel cache (CLOUD_TPU_COMPILE_CACHE): a
         # once-per-process probe + enable, a cheap no-op when unset.
         compile_cache.maybe_enable_persistent_cache()
@@ -962,6 +1022,10 @@ class Trainer:
         """Mean metrics of ``step_fn`` (the eval step by default; fit passes
         the compile-ahead :class:`compile_cache.AotStep` wrapper) over one
         pass of ``data``."""
+        with self._mesh_context():
+            return self._evaluate(data, prefetch=prefetch, step_fn=step_fn)
+
+    def _evaluate(self, data, *, prefetch, step_fn) -> Dict[str, float]:
         step_fn = step_fn if step_fn is not None else self._eval_step
         source = data
         if prefetch > 0 and not pipeline_io.is_prefetched(data):

@@ -32,9 +32,10 @@ counters are per process.  With no plan installed a seam costs one
 ``is None`` check.
 
 The port's copy keeps the reference's plan format, triggers and modes;
-the reference's API error classes live in its HTTP client, which the port
-does not have, so ``"transient"`` and ``"api"`` raise the two classes
-below, with the same ``status``.
+``"transient"`` and ``"api"`` raise the two classes below, with the
+``status`` of the API session's errors (``utils/api_client.py``), and the
+retry layer classifies them as it classifies those
+(``retries.default_classify``).
 """
 
 from __future__ import annotations

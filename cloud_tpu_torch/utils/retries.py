@@ -8,12 +8,12 @@ budgets, honoring ``retry_after`` hints -- live in one :class:`RetryPolicy`:
     policy = RetryPolicy(max_attempts=4, initial_backoff_s=0.5)
     node = policy.call(lambda: session.get(url), name="node_poll")
 
-Classification is typed, not string-matched.  The reference's default
-also retries its API session's ``ApiTransientError``; the port has no API
-session yet (ROADMAP.md section A, item 6), so its default retries raw
-``TimeoutError`` / ``ConnectionError`` and fails fast on anything else.
-Override with ``classify=`` for seams with their own notion of transient
-(the fleet's ``route_transient``).
+Classification is typed, not string-matched: an
+:class:`~cloud_tpu_torch.utils.api_client.ApiTransientError` (429/5xx,
+connection resets, timeouts) retries, as do raw ``TimeoutError`` /
+``ConnectionError``; a permanent ``ApiError`` (4xx) or any other exception
+fails fast.  Override with ``classify=`` for seams with their own notion
+of transient (the fleet's ``route_transient``).
 
 Observability: every retried call lands a ``retry/<name>`` span carrying
 ``attempts`` and ``outcome`` attributes, plus ``retry/attempts`` /
@@ -41,9 +41,18 @@ T = TypeVar("T")
 
 
 def default_classify(exc: BaseException) -> bool:
-    """Transient iff a raw ``TimeoutError`` / ``ConnectionError`` (the
-    reference also retries its API session's typed transient errors; the
-    port has no API session)."""
+    """Transient iff typed so: ``api_client.ApiTransientError`` (the
+    session wraps 429/5xx and transport failures into it) or an injected
+    one (``faults.InjectedTransientError``), plus raw ``TimeoutError`` /
+    ``ConnectionError`` from callers below the session layer; a permanent
+    ``ApiError`` (or ``faults.InjectedApiError``) fails fast."""
+    from cloud_tpu_torch.utils import api_client, faults
+
+    if isinstance(exc, (api_client.ApiTransientError,
+                        faults.InjectedTransientError)):
+        return True
+    if isinstance(exc, (api_client.ApiError, faults.InjectedApiError)):
+        return False
     return isinstance(exc, (ConnectionError, TimeoutError))
 
 

@@ -6,9 +6,11 @@ the port, nor ``chip_smoke.py``, ``flash_ab.py`` or ``gn_ab.py``, imports
 copies of framework-free reference modules (``monitoring`` with
 ``report.py``, ``serving/qos.py``, ``serving/prefix_cache.py``,
 ``utils/faults.py``, ``utils/retries.py``, ``utils/native.py``,
-``training/preemption.py`` and the fleet's ``disagg.py``, ``router.py``,
-``replica.py`` and ``autoscaler.py``) import only the standard library and
-the port (the new ``random.py``, ``training/compile_cache.py`` and
+``training/preemption.py``, the fleet's ``disagg.py``, ``router.py``,
+``replica.py`` and ``autoscaler.py``, and the front door: ``version.py``,
+``core/*``, ``utils/api_client.py``, ``utils/local_rig.py`` and
+``monitoring/exporter.py``) import only the standard library, the port
+and the reference's own deferred third-party imports (the ``random.py``, ``training/compile_cache.py`` and
 ``training/records.py`` are scanned with every module, as are the
 model zoo's ``models/moe.py``, ``models/vit.py`` and ``models/export.py``,
 named in :data:`ZOO_MODULES`, and the parallel layer with the serving
@@ -90,13 +92,20 @@ def test_no_jax_or_reference_imports(path):
 #: the port it may import besides.
 STDLIB_COPIES = {
     "monitoring/__init__.py": "cloud_tpu_torch.monitoring",
-    "monitoring/metrics.py": "cloud_tpu_torch.monitoring",
-    "monitoring/tracing.py": "cloud_tpu_torch.monitoring",
+    # The native library's loader, as the reference's metrics.py imports
+    # its utils/native.py.
+    "monitoring/metrics.py": ("cloud_tpu_torch.monitoring",
+                              "cloud_tpu_torch.utils"),
+    # The profiler ranges spans mirror into (the reference imports
+    # jax.profiler at the same place).
+    "monitoring/tracing.py": ("cloud_tpu_torch.monitoring", "torch"),
     "monitoring/report.py": None,
     "serving/qos.py": "cloud_tpu_torch.monitoring",
     "serving/prefix_cache.py": "cloud_tpu_torch.monitoring",
     "utils/faults.py": "cloud_tpu_torch.monitoring",
-    "utils/retries.py": "cloud_tpu_torch.monitoring",
+    # The API session's typed errors, as the reference's retries.py.
+    "utils/retries.py": ("cloud_tpu_torch.monitoring",
+                         "cloud_tpu_torch.utils"),
     "utils/native.py": None,
     "training/preemption.py": "cloud_tpu_torch.monitoring",
     "fleet/disagg.py": None,
@@ -104,6 +113,26 @@ STDLIB_COPIES = {
     "fleet/router.py": "cloud_tpu_torch.fleet",
     "fleet/replica.py": ("cloud_tpu_torch.fleet", "cloud_tpu_torch.monitoring",
                          "cloud_tpu_torch.utils"),
+    # The front door: framework-free copies whose only third-party
+    # imports are the reference's own deferred ones (the card machine has
+    # neither requests nor google.auth, nbconvert or IPython).
+    "version.py": None,
+    "monitoring/exporter.py": ("cloud_tpu_torch.monitoring",
+                               "cloud_tpu_torch.utils"),
+    "utils/api_client.py": ("cloud_tpu_torch.utils", "cloud_tpu_torch.version",
+                            "requests", "google.auth"),
+    "core/machine_config.py": None,
+    "core/gcp.py": ("cloud_tpu_torch.core", "google.auth"),
+    "core/validate.py": "cloud_tpu_torch.core",
+    "core/notebook.py": ("IPython", "nbconvert", "google.colab"),
+    "core/containerize.py": ("cloud_tpu_torch.utils", "google.cloud",
+                             "torch"),
+    "core/deploy.py": ("cloud_tpu_torch.core", "cloud_tpu_torch.fleet",
+                       "cloud_tpu_torch.parallel", "cloud_tpu_torch.utils"),
+    "core/run.py": ("cloud_tpu_torch.core", "cloud_tpu_torch.monitoring",
+                    "cloud_tpu_torch.parallel"),
+    "core/bootstrap.py": "cloud_tpu_torch",
+    "utils/local_rig.py": ("cloud_tpu_torch.core", "torch"),
 }
 
 
@@ -224,6 +253,8 @@ def test_entry_points_refuse_missing_cuda():
     from cloud_tpu_torch.training import (check_durability, checkpoint,
                                           compile_cache, optimizers,
                                           pipeline_io, train, trainer)
+    from cloud_tpu_torch.core import bootstrap
+    from cloud_tpu_torch.monitoring import profiler
     from cloud_tpu_torch.utils import benchmarking
 
     cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)
@@ -285,6 +316,10 @@ def test_entry_points_refuse_missing_cuda():
         lambda: distributed.backend_for(),
         lambda: ServingEngine(params, cfg, ServeConfig(mesh_shape=(2, 1)),
                               start=False),
+        lambda: bootstrap.main(["--entry-point=unused.py"]),
+        lambda: profiler.save_device_memory_profile("unused"),
+        lambda: trainer.Trainer(lambda p, b: None, optimizers.sgd(0.1),
+                                mesh=None, logical_axes={}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -130,23 +130,25 @@ def test_tracing_and_metrics_copies_answer_as_the_reference(tmp_path):
     for key in want:
         assert got[key] == want[key], key
     assert got["ctx"][1] == f"{os.getpid():x}"
-    assert port_metrics.backend() == "python"
+    # Both packages record through their native libraries when those
+    # build (g++ on this host), each with its pure-Python fallback.
+    assert port_metrics.backend() == jax_metrics.backend()
 
 
 def test_tracing_copy_keeps_the_reference_surface():
     """Every name the port lists exists in the reference with the same
-    signature; the profiler hooks are left out."""
+    signature, the profiler hooks included."""
     import inspect
 
     names = ("TraceContext", "new_trace_context", "register_lane",
              "set_thread_lane", "span", "record_span", "TimelineCollector",
              "collecting", "enable", "disable", "enabled",
              "timeline_events", "aggregates", "dump_timeline",
-             "merge_timelines")
+             "merge_timelines", "xprof_trace_started",
+             "xprof_trace_stopped")
     for name in names:
         assert (str(inspect.signature(getattr(port_tracing, name)))
                 == str(inspect.signature(getattr(jax_tracing, name)))), name
-    assert not hasattr(port_tracing, "xprof_trace_started")
     for name in ("WindowedRate", "counter_inc", "gauge_set",
                  "distribution_record", "snapshot", "reset", "backend"):
         assert (str(inspect.signature(getattr(port_metrics, name)))

@@ -743,11 +743,12 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
         "window": lambda: train.make_multi_step(
             lm_loss, sgd, steps_per_dispatch=2, mesh=mesh),
         "fit": lambda: trainer.Trainer(lm_loss, sgd, mesh=mesh,
-                                       device="cpu"),
+                                       device="cpu").fit(
+                                           list, steps_per_dispatch=2),
         "compile-ahead": lambda: compile_cache.abstract_batch(
             {}, mesh=mesh, device="cpu"),
-        "pipeline_io": lambda: pipeline_io.prefetch_to_device(
-            list, mesh=mesh, device="cpu"),
+        "pipeline_io": lambda: pipeline_io.prefetch_windows(
+            list, 2, mesh=mesh, device="cpu"),
         "BERT": lambda: train.make_train_step(
             functools.partial(bert.loss_fn, cfg=bert.TINY), sgd, mesh=mesh),
         "fused_ce": lambda: transformer.loss_fn(

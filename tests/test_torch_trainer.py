@@ -21,8 +21,9 @@ The same weights (JAX's init, through ``bridge``) and the same shuffled
   run that never saw the batch, 1e-6 of JAX's), and a skipped step
   leaving params and every optimizer slot bit for bit;
 * every option of a later item raising ``NotImplementedError`` that
-  names it, and the options of the ported A.6 items (stochastic steps,
-  ``train_rng``, compile-ahead, ``batch_spec``) held to JAX.
+  names it, and the options of the ported items (stochastic steps,
+  ``train_rng``, compile-ahead, ``batch_spec``, a one-rank mesh) held to
+  JAX or to the run without them.
 """
 
 import functools
@@ -531,26 +532,61 @@ def _fit_ahead_equals_plain(**kw):
     assert logs[0] == logs[1]
 
 
+def _one_rank_mesh():
+    from cloud_tpu_torch.parallel import MeshSpec
+
+    return MeshSpec({}).build(devices=["cpu"])
+
+
+def _fit_as_without(**kw):
+    """A Trainer given a one-rank mesh (the single-process step), or
+    logical axes or rules without a mesh of several ranks, fits exactly as
+    without them; a mesh that is not a ``parallel.mesh.Mesh`` raises
+    ``TypeError``.  Trainers under a mesh of several ranks are held to JAX
+    in ``tests/test_torch_fit_mesh.py``."""
+    arrays, _ = _linear()
+    got = []
+    for opts in ({}, kw):
+        tr = _tiny_trainer(**opts)
+        tr.init_state(None)
+        hist = tr.fit(data.ArrayDataset(arrays, 4), epochs=1)
+        got.append((hist.history["loss"],
+                    tr.state.params["w"].detach().numpy()))
+    assert got[0][0] == got[1][0]
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            _tiny_trainer(mesh=object())
+
+
+def _prefetch_under_mesh():
+    """Under a mesh the prefetcher places this rank's rows on the mesh's
+    device (a mesh that is not a ``parallel.mesh.Mesh`` raises)."""
+    batches = list(pipeline_io.prefetch_to_device(
+        lambda: iter([{"x": np.ones(2, np.float32)}]),
+        mesh=_one_rank_mesh())())
+    assert batches[0]["x"].device == torch.device("cpu")
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        pipeline_io.prefetch_to_device(list, mesh=object(), device="cpu")
+
+
 #: name -> (call, words of its message, the ROADMAP item it names).
 REFUSED = {
-    "Trainer(mesh)": (lambda: _tiny_trainer(mesh=object()), "gloo",
-                      "ROADMAP.md A.2"),
-    "Trainer(logical_axes)": (lambda: _tiny_trainer(logical_axes={}),
-                              "gloo", "ROADMAP.md A.2"),
-    "Trainer(rules)": (lambda: _tiny_trainer(rules=object()), "gloo",
-                       "ROADMAP.md A.2"),
-    "prefetch_to_device(mesh)": (lambda: pipeline_io.prefetch_to_device(
-        list, mesh=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
     "prefetch_windows(rules)": (lambda: pipeline_io.prefetch_windows(
         list, 2, rules=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
     "CheckpointManager(gs://)": (lambda: checkpoint.CheckpointManager(
         "gs://bucket/ckpt", device="cpu"), "gs://", "ROADMAP.md A.6"),
 }
 
-#: Options that raised until their A.6 items were ported; each now runs
-#: and is held to the JAX package (more in test_torch_stochastic.py and
-#: test_torch_compile_cache.py).
+#: Options that raised until their items were ported; each now runs and
+#: is held to the JAX package or to the run without it (more in
+#: test_torch_stochastic.py, test_torch_compile_cache.py and
+#: test_torch_fit_mesh.py).
 PORTED = {
+    "Trainer(mesh)": lambda: _fit_as_without(mesh=_one_rank_mesh()),
+    "Trainer(logical_axes)": lambda: _fit_as_without(logical_axes={}),
+    "Trainer(rules)": lambda: _fit_as_without(rules=object()),
+    "prefetch_to_device(mesh)": _prefetch_under_mesh,
     "Trainer(stochastic)": _stochastic_trainer_key,
     "make_train_step(stochastic)": _stochastic_step,
     "create_sharded_state(train_rng)": _state_with_train_rng,
@@ -563,8 +599,9 @@ PORTED = {
 
 @pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
 def test_refused_options_name_their_item(name):
-    """A mesh option or a gs:// directory raises naming its item; the
-    options of the single-card A.6 items (``PORTED``) run, held to JAX."""
+    """A queued option or a gs:// directory raises naming its item; the
+    ported options (``PORTED``) run, held to JAX or to the run without
+    them."""
     if name in PORTED:
         PORTED[name]()
         return
