@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, the fleet with disaggregated prefill/decode, an MoE CloudLM with its pretrained bundle, and tensor-parallel serving over two ranks), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline) and transformer training paths (with dropout, MoE, remat "dots" and ViT-B/16) once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (both schedulers, the prefix cache, speculative decoding, pipelined scheduling, QoS and streaming, full precision and int8, the fleet with disaggregated prefill/decode, an MoE CloudLM with its pretrained bundle, and tensor-parallel serving over two ranks), ResNet (eager, in CUDA-graph windows, through the Trainer with checkpoints and durable resume, compile-ahead, the persistent kernel cache and the record pipeline, through run()'s container, a hyperparameter search over two workers and cloud_fit on two ranks with a sharded checkpoint) and transformer training paths (with dropout, MoE, remat "dots" and ViT-B/16) once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    buckets (64, 128), up to 64 new tokens, 8 slots, chunk 8, waves of 4):
    ``decode_kernel`` "xla" against "auto" (3k: tokens equal, TTFT and TPOT
    printed), ``pipeline_depth`` 1 against 2, plain, with the 3-layer draft
-   and with ``kv_quant`` (3w: tokens equal between depths, dispatch gaps,
+   and with ``kv_quant`` (3w, on the first 12 of the 24 requests: tokens
+   equal between depths, dispatch gaps,
    host bubble and a chunk's idle share printed; f32 depth 2 against
    ``generate()``), the spans of 3w's arms against the engines' counts
    (3n; the plain depth-2 timeline goes to
@@ -214,7 +215,30 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    library built with ``make`` and live (``metrics.backend()`` native),
    its C tests, and ``bootstrap.main`` in-process with monitoring on,
    the Python wire and a recording session, training the MNIST workload
-   on the card: ``train/steps`` and ``train/step_time_ms`` exported);
+   on the card: ``train/steps`` and ``train/step_time_ms`` exported),
+   the tuner (9t: ``tuner.dispatch_search`` of 2 workers of
+   ``tests/helpers/torch_tuner_resnet_example.py`` (a dry run), each job's
+   context and startup script booted as 9r boots its one, both at once on
+   the card; the workers share one ``LocalStudyService`` directory (its
+   median stopping off, so every trial runs its epochs): 4
+   trials of ResNet-50 CIFAR b256 bf16, learning rate and momentum, 2
+   epochs of 3 steps each, all COMPLETED with 2 measurements and finite
+   losses, K1-K4 launches exactly the workers' steps x 37/16/37/16;
+   trials per worker, the best trial, submit-to-first-step, wall times
+   and peak memory printed) and ``cloud_fit`` (9f: a dry run of
+   ``cloud_tpu_torch.cloud_fit`` of ResNet-50 CIFAR b256 bf16 for 6
+   steps on a job of two one-chip hosts, its kernels' output channels on
+   ``embed``; the assets, the bootstrap as ENTRYPOINT and the report's
+   shim importing the port's ``remote`` checked; the report's startup
+   script and ENTRYPOINT as generated (plan ``{dp: 2}``) on two emulated
+   hosts, gloo on the one card: both ranks exit 0, ``history.json``,
+   a checkpoint written by rank 0 alone that verifies; then two ranks
+   under the bootstrap's own plan over them, ``{fsdp: 2}``, restore it
+   into their shards bit-equal, train 6 steps and save a sharded
+   checkpoint whose manifest covers both ranks' files and verifies; a
+   one-process ``remote.run`` restores that bit-equal to the ranks'
+   gathered parameters; exact K1-K4 launches on every rank and in the
+   restoring run);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -270,19 +294,25 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    launches summed over the serving phases (3m included) and 7s, and
    K5's also over 6m, 6d, 6mesh, 6pp and 8v, K6/K7's over 6, 7s, 6m,
    6d, 6mesh, 6pp and 8v,
-   K1-K4's over phases 4, 4t, 4r, 4a, 4p and 9r's container, each
+   K1-K4's over phases 4, 4t, 4r, 4a, 4p, 9r's container, 9t's workers
+   and 9f's ranks and restoring run, each
    counted from 0 just before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
-Each phase prints its wall time.  Any failed phase ends the run with a
-nonzero exit and no result line; the phase it stopped in and the
-traceback go to stdout.
+Each phase prints its wall time.  Once the kernels are timed (after
+phase 2c), phases 3tp, 4r, 4k, 9r, 9m, 9t, 9f, 6mesh and 6pp run in a
+second process (``python3 chip_smoke.py --side <dir>``, ``SIDE_PHASES``)
+beside phases 3 to 8v; each counts its launches from 0 in its own
+process, and its output is printed after phase 8v.  Any failed phase
+ends the run with a nonzero exit and no result line; the phase it
+stopped in and the traceback go to stdout.
 Without a CUDA card, or without the rest of the repository beside it, it
 exits nonzero before doing any work.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -3284,6 +3314,10 @@ def run_spec_engine(device, card):
 #: chunk 8, in waves of 4 with 20 ms between.
 CHURN_SERVE = {"requests": 24, "bucket": 128, "new": 64, "wave": 4,
                "pause": 0.02}
+#: Phase 3w serves the first 12 of the churn requests in each of its six
+#: arms (half of them, to keep the whole run within its time limit; every
+#: pair is still held token for token, depth 1 against depth 2).
+PIPELINE_REQUESTS = 12
 #: Where phase 3n leaves the depth-2 arm's timeline (Chrome trace JSON).
 PIPELINE_TIMELINE = os.path.join("chiprun_out",
                                  "serving_pipeline_timeline.json")
@@ -3496,8 +3530,9 @@ def _chunk_idle_share(engine, prompts):
 
 
 def run_pipeline_engine(device, card):
-    """3w, bench.py's ``serving_pipeline``: the churn requests of
-    ``default_rng(11)`` at ``pipeline_depth`` 1 and 2, plain, with phase
+    """3w, bench.py's ``serving_pipeline``: the first
+    :data:`PIPELINE_REQUESTS` churn requests of ``default_rng(11)`` at
+    ``pipeline_depth`` 1 and 2, plain, with phase
     3s's 3-layer draft (spec_k 4) and with ``kv_quant`` (K8q), SMALL bf16,
     warmed, each arm under a span collector: depth 2 token-identical to
     depth 1 in every pair, launches held to each engine's record;
@@ -3518,6 +3553,8 @@ def run_pipeline_engine(device, card):
     sp = SPEC_SERVE
     cfg, params, _, _ = decode_setup(device=device, seed=0)
     rng, prompts, budgets = _churn_workload(cfg.vocab_size, seed=11)
+    served_prompts = prompts[:PIPELINE_REQUESTS]
+    served_budgets = budgets[:PIPELINE_REQUESTS]
     dcfg = cfg.scaled(num_layers=sp["draft_layers"])
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
@@ -3535,13 +3572,14 @@ def run_pipeline_engine(device, card):
             runs[depth], row = _churn_arm(
                 f"pipeline ({name})", params, cfg,
                 _churn_config(pipeline_depth=depth, warmup=True, **kw),
-                prompts, budgets, device, draft_layers=draft_layers,
+                served_prompts, served_budgets, device,
+                draft_layers=draft_layers,
                 timeline=(PIPELINE_TIMELINE if (label, depth) == ("plain", 2)
                           else None))
             out["arms"][name] = row
             for kernel, n in row["launches"].items():
                 out["launches"][kernel] = out["launches"].get(kernel, 0) + n
-            print(f"  {name} SMALL bf16: {len(prompts)} requests, "
+            print(f"  {name} SMALL bf16: {len(served_prompts)} requests, "
                   f"{row['tokens_per_s']:.1f} tok/s; dispatch gap p50 "
                   f"{row['dispatch_gap_ms_p50']:.3f} ms p99 "
                   f"{row['dispatch_gap_ms_p99']:.3f} ms; host bubble "
@@ -3557,7 +3595,7 @@ def run_pipeline_engine(device, card):
                  / out["arms"][f"{label}, depth 1"]["tokens_per_s"])
         out[f"{label}_depth2_vs_depth1"] = ratio
         print(f"  {label}: depth 2 / depth 1 tokens/s {ratio:.3f}; tokens "
-              f"equal in all {len(prompts)} requests [{card}]")
+              f"equal in all {len(served_prompts)} requests [{card}]")
 
     out["idle_share"] = {}
     for depth in (1, 2):
@@ -7702,6 +7740,527 @@ def run_exporter_phase(device, card):
             "run_s": run_s, "series": sorted(types), "posts": len(posted)}
 
 
+# Phases 9t and 9f: trials of a search dispatched onto workers, and
+# cloud_fit through the front door with a sharded checkpoint.
+
+#: 9t: the tuner worker the dispatched jobs run, its study and its trials.
+TUNER_ENTRY = os.path.join(REPO_ROOT, "tests", "helpers",
+                           "torch_tuner_resnet_example.py")
+TUNER_SEARCH = {"workers": 2, "max_trials": 4, "epochs": 2, "steps": 3}
+#: 9f: the steps of the two-rank fit (one epoch) and of the one-process
+#: run that restores its checkpoint.
+CLOUD_FIT = {"steps": 6, "restore_steps": 1, "ranks": 2}
+PHASE_9_TIMEOUT_S = 420
+
+
+def _resnet_fsdp_axes(config):
+    """ResNet's logical axes with every kernel's output channels (the head's
+    input features) on ``embed``, which the default rules cut over fsdp:
+    under ``{fsdp: 2}`` each rank holds half of every kernel and of its
+    momentum, where the model's own axes replicate every parameter."""
+    from cloud_tpu_torch.models import resnet
+
+    def cut(node, name=""):
+        if isinstance(node, dict):
+            return {k: cut(v, k) for k, v in node.items()}
+        if name == "kernel" and len(node) == 4:
+            return (None, None, None, "embed")
+        if name == "kernel" and len(node) == 2:
+            return ("embed", None)
+        return node
+
+    return cut(resnet.param_logical_axes(config))
+
+
+def _resnet_on(config, generator):
+    """ResNet's init on the generator's device (cloud_fit's init_fn)."""
+    from cloud_tpu_torch import bridge
+
+    return bridge.init_resnet(config, generator, device=generator.device)
+
+
+class FitProbe:
+    """A cloud_fit callback (cloudpickled with the spec): at train begin
+    (``"begin"`` in ``modes``) and end (``"end"``) it writes this rank's
+    report (``rank<r>.json``: the mesh, steps, per-step losses, K1-K4
+    launches, the device) and, from every rank's gathered state, rank 0's
+    parameters (``params-<mode>.npz``, bf16 leaves as their int16 bits)
+    into ``out_dir``."""
+
+    def __init__(self, out_dir, modes):
+        self.out_dir = out_dir
+        self.modes = tuple(modes)
+        self.losses = []
+
+    def on_train_begin(self, trainer):
+        if "begin" in self.modes:
+            self._dump(trainer, "begin")
+
+    def on_epoch_begin(self, epoch, trainer): ...
+
+    def on_epoch_end(self, epoch, logs, trainer): ...
+
+    def on_step_end(self, step, logs, trainer):
+        self.losses.append(float(logs["loss"]))
+
+    def on_train_end(self, trainer):
+        if "end" in self.modes:
+            self._dump(trainer, "end")
+
+    def _dump(self, trainer, mode):
+        import torch
+
+        from cloud_tpu_torch import bridge
+        from cloud_tpu_torch.ops import dispatch
+        from cloud_tpu_torch.parallel import distributed, sharding
+
+        rank = distributed.process_index()
+        params = trainer.state.params
+        if trainer._mesh is not None:
+            params = sharding.gather_tree(params, trainer.logical_axes,
+                                          trainer._mesh, trainer.rules)
+        os.makedirs(self.out_dir, exist_ok=True)
+        mesh = trainer.mesh
+        with open(os.path.join(self.out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({
+                "rank": rank,
+                "mesh": None if mesh is None else {
+                    k: v for k, v in mesh.shape.items() if v > 1},
+                "steps": int(trainer.state.step), "losses": self.losses,
+                "launches": dispatch.launch_counts(GN_KERNELS),
+                "local_bytes": sum(t.numel() * t.element_size() for t in
+                                   bridge.leaves(trainer.state.params)),
+                "device": (torch.cuda.get_device_name(trainer.device)
+                           if trainer.device.type == "cuda" else "cpu"),
+            }, f)
+        if rank == 0:
+            flat = {}
+            for i, t in enumerate(bridge.leaves(params)):
+                t = t.detach().cpu()
+                flat[str(i)] = (t.view(torch.int16) if t.dtype ==
+                                torch.bfloat16 else t).numpy()
+            np.savez(os.path.join(self.out_dir, f"params-{mode}.npz"),
+                     **flat)
+
+
+def run_tuner_phase(device, card, *, batch=CIFAR_BATCH, rig="cuda",
+                    worker_args=()):
+    """9t: ``tuner.dispatch_search`` of two workers, each job's context
+    and startup script booted on the card at once; the workers share one
+    local study of ResNet-50 CIFAR b256 bf16 trials.  ``batch``,
+    ``rig="cpu"`` and ``worker_args`` (``--config tiny``) rehearse it on
+    the CPU."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import cloud_tpu_torch
+    from cloud_tpu_torch import tuner
+    from cloud_tpu_torch.core import containerize
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils import local_rig
+
+    del device  # each container's bootstrap takes the card by default
+    search = TUNER_SEARCH
+    root = tempfile.mkdtemp(prefix="chip_smoke_tuner_")
+    study_dir = os.path.join(root, "study")
+    saved = os.environ.get("CLOUD_TPU_COMPILE_CACHE")
+    runs = {}
+    try:
+        os.environ["CLOUD_TPU_COMPILE_CACHE"] = dispatch.build_dir()
+        start = time.perf_counter()
+        study_id, reports = tuner.dispatch_search(
+            search["workers"], entry_point=TUNER_ENTRY,
+            entry_point_args=["--study-dir", study_dir,
+                              "--max-trials", str(search["max_trials"]),
+                              "--epochs", str(search["epochs"]),
+                              "--steps", str(search["steps"]),
+                              "--batch", str(batch), *worker_args],
+            chief_config=cloud_tpu_torch.COMMON_MACHINE_CONFIGS["TPU_V5E_1"],
+            docker_config=containerize.DockerConfig(
+                image="gcr.io/chip-smoke/resnet50-cifar-tuner:0"),
+            dry_run=True)
+        dispatch_s = time.perf_counter() - start
+
+        def boot(i, report):
+            context = containerize.build_context(
+                report.dockerfile, TUNER_ENTRY, None,
+                dst_dir=os.path.join(root, f"context{i}"))
+            (node,) = report.node_requests.values()
+            argv = containerize.entrypoint_argv(report.dockerfile)
+            if rig == "cpu":
+                argv.insert(argv.index("--"), "--device=cpu")
+            begin = time.perf_counter()
+            (proc,) = local_rig.launch_emulated_slice(
+                1, device=rig,
+                startup_script=node["metadata"]["startup-script"],
+                entrypoint=argv, context_dir=context,
+                timeout=PHASE_9_TIMEOUT_S)
+            runs[i] = (proc, time.perf_counter() - begin)
+
+        threads = [threading.Thread(target=boot, args=(i, r))
+                   for i, r in enumerate(reports)]
+        start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        wall = time.perf_counter() - start
+        trials = tuner.LocalStudyService(study_id, study_dir).list_trials()
+    finally:
+        if saved is None:
+            os.environ.pop("CLOUD_TPU_COMPILE_CACHE", None)
+        else:
+            os.environ["CLOUD_TPU_COMPILE_CACHE"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    outs = []
+    for i in range(search["workers"]):
+        if i not in runs:
+            raise AssertionError(f"worker {i} was not booted")
+        proc, worker_wall = runs[i]
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"worker {i} exited {proc.returncode}:\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+        out = json.loads([line for line in proc.stdout.splitlines()
+                          if line.startswith("{")][-1])
+        out["container_wall_s"] = worker_wall
+        outs.append(out)
+    statuses = sorted(t["status"] for t in trials)
+    if statuses != ["COMPLETED"] * search["max_trials"]:
+        raise AssertionError(f"the study's trials ended {statuses}")
+    for t in trials:
+        if len(t["measurements"]) != search["epochs"] or not all(
+                np.isfinite(m["value"]) for m in t["measurements"]):
+            raise AssertionError(f"trial {t['id']}: measurements "
+                                 f"{t['measurements']}")
+        if t["final"] is None or not np.isfinite(t["final"]):
+            raise AssertionError(f"trial {t['id']}: final {t['final']}")
+    steps = 0
+    for out in outs:
+        if out["devices"] != [torch.cuda.get_device_name(0)
+                              if rig == "cuda" else "cpu"]:
+            raise AssertionError(f"{out['tuner_id']}'s trials ran on "
+                                 f"{out['devices']}")
+        if any(t["status"] != "COMPLETED" for t in out["trials"]):
+            raise AssertionError(f"{out['tuner_id']}: {out['trials']}")
+        for fit in out["fits"]:
+            if not all(np.isfinite(v) for v in fit["losses"]):
+                raise AssertionError(f"{out['tuner_id']}: losses "
+                                     f"{fit['losses']}")
+        steps += out["steps"]
+    want_steps = (search["max_trials"] * search["epochs"]
+                  * search["steps"])
+    launches = _gn_sum(*(out["launches"] for out in outs))
+    if steps != want_steps or (rig == "cuda" and launches
+                               != _gn_times(GN_PER_STEP, steps)):
+        raise AssertionError(f"{steps} steps (want {want_steps}), launches "
+                             f"{launches} != {_gn_times(GN_PER_STEP, steps)}")
+    best = min(trials, key=lambda t: t["final"])
+    per_worker = {out["tuner_id"]: len(out["trials"]) for out in outs}
+    print(f"  study {study_id!r}: {len(trials)} trials COMPLETED, "
+          f"{search['epochs']} measurements each; trials per worker "
+          f"{per_worker}; best {best['params']} (loss {best['final']:.4f}); "
+          f"dispatch_search dry run {dispatch_s:.3f} s; both containers "
+          f"{wall:.1f} s of wall [{card}]")
+    for out in outs:
+        gauge = out["submit_to_first_step_seconds"]
+        print(f"  {out['tuner_id']}: submit-to-first-step "
+              f"{'not measured' if gauge is None else f'{gauge:.3f} s'}, "
+              f"search {out['wall_s']:.2f} s, container "
+              f"{out['container_wall_s']:.1f} s; per trial: "
+              + "; ".join(
+                  f"{fit['wall_s']:.2f} s, max memory "
+                  f"{(fit['max_memory_allocated'] or 0) / 2**30:.3f} GiB, "
+                  f"losses "
+                  f"{[round(v, 4) for v in fit['losses']]}"
+                  for fit in out["fits"]))
+    return {"study_id": study_id, "trials": trials, "workers": outs,
+            "trials_per_worker": per_worker, "best": best,
+            "dispatch_s": dispatch_s, "wall_s": wall, "steps": steps,
+            "launches": launches}
+
+
+def _ranks_reports(probe, ranks):
+    """Every rank's ``FitProbe`` report from ``probe``."""
+    outs = []
+    for rank in range(ranks):
+        with open(os.path.join(probe, f"rank{rank}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _same_params(path_a, path_b):
+    """Whether two ``FitProbe`` parameter dumps are equal bit for bit."""
+    with np.load(path_a) as a, np.load(path_b) as b:
+        return sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def _checked_checkpoint(ckpt_dir, step, ranks):
+    """The checkpoint in ``ckpt_dir`` holds ``step`` alone and verifies;
+    returns (its manifest's files by writing rank, its bytes)."""
+    from cloud_tpu_torch.training import checkpoint
+
+    manager = checkpoint.CheckpointManager(ckpt_dir, device="cpu")
+    if manager.steps() != [step] or manager.verify(step) != "verified":
+        raise AssertionError(f"{ckpt_dir}: steps {manager.steps()}, verify "
+                             f"{manager.verify(step)}")
+    with open(os.path.join(ckpt_dir, str(step),
+                           checkpoint.MANIFEST_NAME)) as f:
+        files = json.load(f)["entries"]
+    by_rank = {r: sum(1 for name in files if name.endswith(f".r{r}.bin"))
+               for r in range(ranks)}
+    return by_rank, sum(e["bytes"] for e in files.values())
+
+
+def run_cloud_fit_phase(device, card, *, config=None, batch=CIFAR_BATCH,
+                        rig="cuda"):
+    """9f: ``cloud_tpu_torch.cloud_fit`` of ResNet-50 CIFAR b256 bf16 (a
+    dry run) for a job of two one-chip hosts, then the image's ENTRYPOINT
+    as ``run()`` generated it (its plan ``{dp: 2}``) on two emulated hosts
+    over gloo: every leaf replicated, so rank 0 alone writes the
+    checkpoint.  That checkpoint is the ``state/`` of a second two-rank
+    run booted through the bootstrap's own plan over its processes,
+    ``{fsdp: 2}`` (no catalog job of two hosts plans fsdp: ROADMAP C10),
+    which restores it straight into the shards and saves them per rank;
+    a one-process ``remote.run`` in this process restores that sharded
+    checkpoint.  Each restore is bit-equal to the parameters saved.
+    ``config``, ``batch`` and ``rig="cpu"`` rehearse it on the CPU."""
+    import shutil
+    import sys as sys_lib
+    import tempfile
+
+    import cloudpickle
+    import torch
+
+    import cloud_tpu_torch
+    from cloud_tpu_torch.cloud_fit import client, remote, serialization
+    from cloud_tpu_torch.core import containerize
+    from cloud_tpu_torch.core import run as run_lib
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import checkpoint, optimizers
+    from cloud_tpu_torch.utils import local_rig
+
+    config = config or resnet.RESNET50_CIFAR
+    if __name__ != "__main__":
+        # A rehearsal imports this file: its callback travels by value.
+        cloudpickle.register_pickle_by_value(sys_lib.modules[__name__])
+    workload = _front_door_workload()
+    steps, ranks = CLOUD_FIT["steps"], CLOUD_FIT["ranks"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_cloud_fit_")
+    remote_dir = os.path.join(root, "remote")
+    probes = {k: os.path.join(root, f"probe-{k}")
+              for k in ("dp", "fsdp", "one")}
+    arrays = workload.cifar_arrays(steps * batch, config.num_classes)
+    loss_device = None if rig == "cuda" else "cpu"
+    spec = serialization.TrainerSpec(
+        loss_fn=functools.partial(resnet.loss_fn, config=config,
+                                  device=loss_device),
+        optimizer=optimizers.sgd(workload.LEARNING_RATE, momentum=0.9),
+        init_fn=functools.partial(_resnet_on, config),
+        logical_axes=_resnet_fsdp_axes(config))
+
+    def assets(name, state, modes, fit_kwargs):
+        """A remote dir whose ``state/`` is the checkpoint ``state``."""
+        where = os.path.join(root, name)
+        serialization.serialize_assets(
+            where, spec, arrays, callbacks=[FitProbe(probes[name], modes)],
+            fit_kwargs={"batch_size": batch, **fit_kwargs})
+        shutil.copytree(state, os.path.join(where, "state"))
+        return where
+
+    def output(where):
+        return os.path.join(where, remote.OUTPUT_DIR, "checkpoint")
+
+    saved = os.environ.get("CLOUD_TPU_COMPILE_CACHE")
+    root_dirs = [root]
+    # What cloud_fit hands run(): the shim it generated, the hints.
+    submitted, real_run = {}, run_lib.run
+
+    def recording_run(**kw):
+        submitted.update(kw)
+        return real_run(**kw)
+
+    try:
+        os.environ["CLOUD_TPU_COMPILE_CACHE"] = dispatch.build_dir()
+        run_lib.run = recording_run
+        start = time.perf_counter()
+        report = cloud_tpu_torch.cloud_fit(
+            spec, remote_dir, train_data=arrays, batch_size=batch, epochs=1,
+            callbacks=[FitProbe(probes["dp"], ("end",))],
+            chief_config=cloud_tpu_torch.COMMON_MACHINE_CONFIGS["TPU_V5E_1"],
+            worker_count=ranks - 1,
+            docker_config=containerize.DockerConfig(
+                image="gcr.io/chip-smoke/resnet50-cifar-cloud-fit:0"),
+            dry_run=True)
+        client_s = time.perf_counter() - start
+        run_lib.run = real_run
+        shim = submitted["entry_point"]
+        root_dirs.append(os.path.dirname(shim))
+        assets_written = sorted(os.listdir(os.path.join(
+            remote_dir, serialization.ASSET_DIR)))
+        if assets_written != ["callbacks.pkl", "fit_kwargs.json",
+                              "train_data.npz", "trainer.pkl"]:
+            raise AssertionError(f"assets {assets_written}")
+        plan = {k: v for k, v in report.mesh_plan.spec.sizes.items()
+                if v > 1}
+        argv = containerize.entrypoint_argv(report.dockerfile)
+        if argv[:3] != ["python", "-m", "cloud_tpu_torch.core.bootstrap"]:
+            raise AssertionError(f"ENTRYPOINT {argv}")
+        if submitted["parallelism_hints"] is not spec.parallelism_hints:
+            raise AssertionError("cloud_fit did not pass the spec's "
+                                 "parallelism_hints to run()")
+        if (os.path.basename(shim) != "cloud_fit_entry.py"
+                or os.path.basename(shim) not in report.dockerfile):
+            raise AssertionError(f"the Dockerfile does not run {shim}")
+        with open(shim) as f:
+            if "from cloud_tpu_torch.cloud_fit import remote" not in f.read():
+                raise AssertionError("the shim does not import the port's "
+                                     "remote")
+        context = containerize.build_context(
+            report.dockerfile, shim, None,
+            dst_dir=os.path.join(root, "context"))
+        (node,) = [n for n in report.node_requests.values()
+                   if "CLOUD_TPU_PROCESS_ID=$((0 + LOCAL_ID))"
+                   in n["metadata"]["startup-script"]]
+        # The ENTRYPOINT as generated, its mesh plan included; the two
+        # ranks share the one card, so over gloo.
+        argv = argv + ["--backend=gloo"]
+        if rig == "cpu":
+            argv.append("--device=cpu")
+        start = time.perf_counter()
+        procs = local_rig.launch_emulated_slice(
+            ranks, device=rig,
+            startup_script=node["metadata"]["startup-script"],
+            entrypoint=argv, context_dir=context,
+            timeout=PHASE_9_TIMEOUT_S)
+        dp_wall = time.perf_counter() - start
+        for rank, proc in enumerate(procs):
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"rank {rank} exited {proc.returncode}:\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+        dp_outs = _ranks_reports(probes["dp"], ranks)
+        out_dir = os.path.join(remote_dir, remote.OUTPUT_DIR)
+        if sorted(os.listdir(out_dir)) != ["checkpoint", "history.json"]:
+            raise AssertionError(f"output {sorted(os.listdir(out_dir))}")
+        with open(os.path.join(out_dir, "history.json")) as f:
+            history = json.load(f)
+        dp_files, dp_bytes = _checked_checkpoint(output(remote_dir), steps,
+                                                 ranks)
+
+        # Two ranks under the bootstrap's own plan restore it into shards.
+        fsdp_dir = assets("fsdp", output(remote_dir), ("begin", "end"),
+                          {"epochs": 1})
+        fsdp_shim = client.write_entry_shim(fsdp_dir)
+        root_dirs.append(os.path.dirname(fsdp_shim))
+        start = time.perf_counter()
+        proc = local_rig.run_bootstrap(
+            fsdp_shim, device=rig,
+            num_processes=ranks, timeout=PHASE_9_TIMEOUT_S)
+        fsdp_wall = time.perf_counter() - start
+        for rank, one in enumerate(proc.ranks):
+            if one.returncode != 0:
+                raise AssertionError(
+                    f"{{fsdp: 2}} rank {rank} exited {one.returncode}:\n"
+                    f"{one.stdout[-3000:]}\n{one.stderr[-5000:]}")
+        fsdp_outs = _ranks_reports(probes["fsdp"], ranks)
+        if not _same_params(os.path.join(probes["dp"], "params-end.npz"),
+                            os.path.join(probes["fsdp"],
+                                         "params-begin.npz")):
+            raise AssertionError("the {fsdp: 2} ranks' restored parameters "
+                                 "differ from the {dp: 2} run's")
+        fsdp_files, fsdp_bytes = _checked_checkpoint(output(fsdp_dir),
+                                                     2 * steps, ranks)
+
+        # One process restores the two ranks' sharded checkpoint.
+        one_dir = assets("one", output(fsdp_dir), ("begin",),
+                         {"epochs": 1,
+                          "steps_per_epoch": CLOUD_FIT["restore_steps"]})
+        dispatch.reset_launch_counts()
+        start = time.perf_counter()
+        remote.run(one_dir, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        restore_run_s = time.perf_counter() - start
+        one_launches = dispatch.launch_counts(GN_KERNELS)
+        (one,) = _ranks_reports(probes["one"], 1)
+        if not _same_params(os.path.join(probes["fsdp"], "params-end.npz"),
+                            os.path.join(probes["one"], "params-begin.npz")):
+            raise AssertionError("the restored parameters differ from the "
+                                 "{fsdp: 2} ranks' gathered parameters")
+        restored = checkpoint.CheckpointManager(output(one_dir),
+                                                device="cpu").steps()
+    finally:
+        if saved is None:
+            os.environ.pop("CLOUD_TPU_COMPILE_CACHE", None)
+        else:
+            os.environ["CLOUD_TPU_COMPILE_CACHE"] = saved
+        run_lib.run = real_run
+        for d in root_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    if plan != {"dp": ranks}:
+        raise AssertionError(f"run() planned {plan}")
+    if dp_files[0] == 0 or any(dp_files[r] for r in range(1, ranks)):
+        raise AssertionError(f"{{dp: 2}} checkpoint files by rank {dp_files}")
+    if not all(fsdp_files.values()):
+        raise AssertionError(f"{{fsdp: 2}} checkpoint files by rank "
+                             f"{fsdp_files}")
+    for mesh, outs, first in ((plan, dp_outs, 0),
+                              ({"fsdp": ranks}, fsdp_outs, steps)):
+        for out in outs:
+            if out["mesh"] != mesh:
+                raise AssertionError(f"rank {out['rank']} ran under "
+                                     f"{out['mesh']}, not {mesh}")
+            if (out["steps"] != first + steps
+                    or len(out["losses"]) != steps
+                    or not all(np.isfinite(out["losses"]))):
+                raise AssertionError(f"rank {out['rank']}: {out['steps']} "
+                                     f"steps, losses {out['losses']}")
+            if rig == "cuda" and (
+                    out["device"] != torch.cuda.get_device_name(0)
+                    or out["launches"] != _gn_times(GN_PER_STEP, steps)):
+                raise AssertionError(f"rank {out['rank']} on "
+                                     f"{out['device']}: launches "
+                                     f"{out['launches']}")
+    if fsdp_outs[0]["local_bytes"] >= dp_outs[0]["local_bytes"]:
+        raise AssertionError("the {fsdp: 2} ranks hold whole parameters")
+    if one["steps"] != 2 * steps or restored != [
+            2 * steps + CLOUD_FIT["restore_steps"]]:
+        raise AssertionError(f"the restoring run began at {one['steps']} and "
+                             f"saved {restored}")
+    if rig == "cuda" and one_launches != _gn_times(
+            GN_PER_STEP, CLOUD_FIT["restore_steps"]):
+        raise AssertionError(f"restoring run launches {one_launches}")
+    launches = _gn_sum(*(out["launches"] for out in dp_outs + fsdp_outs),
+                       one_launches)
+    print(f"  cloud_fit dry run {client_s:.3f} s, plan {plan}; the "
+          f"ENTRYPOINT on two hosts: {dp_wall:.1f} s of wall for {steps} "
+          f"steps of {batch} rows (each rank {batch // ranks}), losses "
+          f"{[round(v, 4) for v in dp_outs[0]['losses']]}; history.json "
+          f"{sorted(history)}; checkpoint {dp_bytes / 2**20:.1f} MiB, files "
+          f"by rank {dp_files}, verified [{card}]")
+    print(f"  {{fsdp: 2}} from the bootstrap's plan: restored it into the "
+          f"shards bit-equal, {fsdp_wall:.1f} s of wall for {steps} steps, "
+          f"losses {[round(v, 4) for v in fsdp_outs[0]['losses']]}; each "
+          f"rank holds {fsdp_outs[0]['local_bytes'] / 2**20:.1f} MiB of "
+          f"parameters ({dp_outs[0]['local_bytes'] / 2**20:.1f} under dp); "
+          f"sharded checkpoint {fsdp_bytes / 2**20:.1f} MiB, files by rank "
+          f"{fsdp_files}, verified; a one-process remote.run restored it "
+          f"bit-equal and took {CLOUD_FIT['restore_steps']} step in "
+          f"{restore_run_s:.2f} s (its set-up and save included) [{card}]")
+    return {"plan": plan, "dp_ranks": dp_outs, "fsdp_ranks": fsdp_outs,
+            "client_s": client_s, "dp_wall_s": dp_wall,
+            "fsdp_wall_s": fsdp_wall, "dp_checkpoint_bytes": dp_bytes,
+            "fsdp_checkpoint_bytes": fsdp_bytes, "dp_files_by_rank": dp_files,
+            "fsdp_files_by_rank": fsdp_files, "restore_run_s": restore_run_s,
+            "history": history, "launches": launches}
+
+
 def tensor_core_sass(dispatch):
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     flash libraries, read from ``cuobjdump -sass``; raises unless every
@@ -7729,7 +8288,185 @@ def tensor_core_sass(dispatch):
     return counts
 
 
+#: Phases run in a second process, started once the kernels are built and
+#: timed (after phase 2c), beside the main process's phases 3 to 8v: each
+#: drives its path through processes of its own (gloo ranks, containers,
+#: workers, cold and warm children) or counts its launches from 0 in this
+#: process, so neither process reads the other's counts.  (title, name,
+#: function of (device, card), run under no_grad)
+SIDE_PHASES = (
+    ("phase 3tp: tensor-parallel serving at tp 2, two ranks on the card "
+     "over gloo (SMALL bf16 and f32, kv_quant, prefix hit and chunked "
+     "prefill); the mesh path at tp 1", "tp engine", "run_tp_engine", True),
+    ("phase 4r: exactly-once resume, the kill -9 drill and the non-finite "
+     "guard, f32 ResNet-50 CIFAR b8", "exactly-once", "check_exactly_once",
+     False),
+    ("phase 4k: a cold and a warm process through one "
+     "CLOUD_TPU_COMPILE_CACHE directory", "cold start", "run_cold_start",
+     False),
+    ("phase 9r: cloud_tpu_torch.run() -> the build context -> deploy's "
+     "startup script -> the image's ENTRYPOINT (the bootstrap) -> "
+     "Trainer.fit of ResNet-50 CIFAR b256 bf16 on the card", "front door",
+     "run_front_door", False),
+    ("phase 9m: the exporter: the native library and its C tests, the "
+     "bootstrap exporting a training run", "exporter", "run_exporter_phase",
+     False),
+    ("phase 9t: tuner.dispatch_search of 2 workers -> each job's build "
+     "context and startup script, booted together on the card -> one local "
+     "study of 4 ResNet-50 CIFAR b256 bf16 trials (2 epochs x 3 steps)",
+     "tuner", "run_tuner_phase", False),
+    ("phase 9f: cloud_tpu_torch.cloud_fit of ResNet-50 CIFAR b256 bf16 -> "
+     "its ENTRYPOINT on two emulated hosts under run()'s {dp: 2} over gloo "
+     "-> that checkpoint restored into {fsdp: 2} shards -> the sharded "
+     "checkpoint restored by a one-process remote.run", "cloud_fit",
+     "run_cloud_fit_phase", False),
+    (f"phase 6mesh: train CloudLM SMALL b{MESH_BATCH}xT{MESH_SEQ} under "
+     "2-rank meshes on the card over gloo ({sp: 2} zig-zag and Ulysses, "
+     "{tp: 2}, {fsdp: 2} in f32 against one process; zig-zag in bf16)",
+     "mesh training", "run_mesh_training", False),
+    ("phase 6pp: train CloudLM SMALL under the GPipe pipeline and expert "
+     "parallelism, 2 ranks on the card over gloo ({pp: 2} b4 M=2 untied "
+     "and tied, the default MoE under {ep: 2} b2 and {pp: 2} b4, in f32 "
+     "against one process; {pp: 2} in bf16)", "pipeline training",
+     "run_pipeline_training", False),
+)
+
+#: The second process must have ended this many seconds after the script
+#: started (the whole run's limit is 1200 s).
+SIDE_DEADLINE_S = 1080
+
+
+def _on_host(obj):
+    """``obj`` with every tensor in it moved to the CPU (for the pickle the
+    second process hands back)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _on_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_on_host(v) for v in obj)
+    return obj
+
+
+def side_main(out_dir: str) -> int:
+    """The second process: run ``SIDE_PHASES`` in order on the card and
+    pickle their results to ``out_dir/results.pkl``."""
+    import contextlib
+    import pickle
+
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0]
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dispatch.build_all()  # built by the main process: loaded, not rebuilt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for title, what, name, no_grad in SIDE_PHASES:
+        print(title, flush=True)
+        start = time.perf_counter()
+        try:
+            with torch.no_grad() if no_grad else contextlib.nullcontext():
+                results[what] = globals()[name](device, card)
+        except Exception as exc:  # noqa: BLE001 — reported, exit nonzero
+            return fail(f"{what}: {exc!r}", title)
+        torch.cuda.empty_cache()
+        print(f"  ({what}: {time.perf_counter() - start:.1f} s wall)",
+              flush=True)
+    with open(os.path.join(out_dir, "results.pkl"), "wb") as f:
+        pickle.dump(_on_host(results), f)
+    return 0
+
+
+class SidePhases:
+    """The second process of ``SIDE_PHASES``: started beside the main
+    phases, waited for at the end, its output printed then; stopped, with
+    every process of its session, if the main process ends first."""
+
+    def __init__(self):
+        self.proc = None
+        self.dir = None
+        self.log = None
+
+    def start(self) -> None:
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        self.log = open(os.path.join(self.dir, "side.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", self.dir],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO_ROOT,
+            start_new_session=True)
+        print(f"  (phases {', '.join(t.split(':')[0][6:] for t, *_ in SIDE_PHASES)}"
+              f" run in a second process beside phases 3-8v, pid "
+              f"{self.proc.pid})", flush=True)
+
+    def _print_log(self, heading: str) -> None:
+        self.log.flush()
+        with open(self.log.name) as f:
+            text = f.read()
+        print(heading)
+        print(text, end="" if text.endswith("\n") else "\n", flush=True)
+
+    def finish(self, deadline: float) -> dict:
+        """Wait for the process until ``deadline`` (``time.perf_counter``),
+        print its output and return its phases' results."""
+        import pickle
+
+        start = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(1.0, deadline - start))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(
+                f"the second process had not ended {SIDE_DEADLINE_S} s "
+                "after the start") from None
+        self._print_log(f"second process (phases run beside 3-8v; waited "
+                        f"{time.perf_counter() - start:.1f} s for it at the "
+                        "end):")
+        if rc != 0:
+            raise AssertionError(f"the second process exited {rc}")
+        with open(os.path.join(self.dir, "results.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    def stop(self) -> None:
+        import shutil
+        import signal
+
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+            self._print_log("second process stopped; its output:")
+        self.proc = None
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+_SIDE = SidePhases()
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        _SIDE.stop()
+
+
+def _main() -> int:
+    script_start = time.perf_counter()
     try:
         import torch
     except ImportError as exc:
@@ -7805,6 +8542,8 @@ def main() -> int:
          "versions; K5, K6, K7 timed at the training shapes",
          "flash_bwd check",
          lambda: check_flash_bwd(device, card), False),
+        # The kernels are timed: the second process starts here.
+        (None, None, _SIDE.start, False),
         ("phase 3: ServingEngine, CloudLM SMALL, 16 requests", "engine",
          lambda: run_engine(device, card), False),
         ("phase 3b: one decode chunk under torch.profiler",
@@ -7853,10 +8592,6 @@ def main() -> int:
          "2), 16 requests in bf16 and in int8 + kv_quant, f32 parity, a "
          "pretrained bundle", "moe engine",
          lambda: run_moe_engine(device, card), True),
-        ("phase 3tp: tensor-parallel serving at tp 2, two ranks on the card "
-         "over gloo (SMALL bf16 and f32, kv_quant, prefix hit and chunked "
-         "prefill); the mesh path at tp 1", "tp engine",
-         lambda: run_tp_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -7865,6 +8600,9 @@ def main() -> int:
     ]
     results = {}
     for title, what, fn, no_grad in phases:
+        if title is None:
+            fn()
+            continue
         print(title)
         start = time.perf_counter()
         try:
@@ -7912,12 +8650,6 @@ def main() -> int:
         start = time.perf_counter()
         durability = run_durability_probe(device, card)
         print(f"  (durability: {time.perf_counter() - start:.1f} s wall)")
-        title = ("phase 4r: exactly-once resume, the kill -9 drill and the "
-                 "non-finite guard, f32 ResNet-50 CIFAR b8")
-        print(title)
-        start = time.perf_counter()
-        exact = check_exactly_once(device, card)
-        print(f"  (exactly-once: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 4a: Trainer.fit(compile_ahead=True), ResNet-50 "
                  "CIFAR b256 bf16: one step a dispatch, windows of "
                  f"{FUSED_K}, a registry hit, batch_spec=; then a one-step "
@@ -7926,38 +8658,18 @@ def main() -> int:
         start = time.perf_counter()
         ahead = run_compile_ahead(device, card, fit)
         print(f"  (compile-ahead: {time.perf_counter() - start:.1f} s wall)")
-        title = ("phase 4k: a cold and a warm process through one "
-                 "CLOUD_TPU_COMPILE_CACHE directory")
-        print(title)
-        start = time.perf_counter()
-        cold = run_cold_start(device, card)
-        print(f"  (cold start: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 4p: the record pipeline: CIFAR b256 as tensor "
                  "records, fit over RecordDataset, exactly-once resume")
         print(title)
         start = time.perf_counter()
         recs = run_records_fit(device, card, fit)
         print(f"  (records: {time.perf_counter() - start:.1f} s wall)")
-        title = ("phase 9r: cloud_tpu_torch.run() -> the build context -> "
-                 "deploy's startup script -> the image's ENTRYPOINT (the "
-                 "bootstrap) -> Trainer.fit of ResNet-50 CIFAR b256 bf16 "
-                 "on the card")
-        print(title)
-        start = time.perf_counter()
-        front_door = run_front_door(device, card)
-        print(f"  (front door: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 9p: the profiler: ProfilerCallback over a ResNet "
                  "fit, a memory snapshot, one on-demand server capture")
         print(title)
         start = time.perf_counter()
         prof_run = run_profiler_phase(device, card)
         print(f"  (profiler: {time.perf_counter() - start:.1f} s wall)")
-        title = ("phase 9m: the exporter: the native library and its C "
-                 "tests, the bootstrap exporting a training run")
-        print(title)
-        start = time.perf_counter()
-        exporter_run = run_exporter_phase(device, card)
-        print(f"  (exporter: {time.perf_counter() - start:.1f} s wall)")
         title = ("phase 5: train ResNet-50 224 b128 bf16, 3 + 5 steps, then "
                  "one step under torch.profiler")
         print(title)
@@ -8005,24 +8717,6 @@ def main() -> int:
         start = time.perf_counter()
         dots = run_remat_dots(device, card)
         print(f"  (remat dots: {time.perf_counter() - start:.1f} s wall)")
-        title = (f"phase 6mesh: train CloudLM SMALL b{MESH_BATCH}xT{MESH_SEQ} "
-                 "under 2-rank meshes on the card over gloo ({sp: 2} "
-                 "zig-zag and Ulysses, {tp: 2}, {fsdp: 2} in f32 against one "
-                 "process; zig-zag in bf16)")
-        print(title)
-        start = time.perf_counter()
-        mesh_run = run_mesh_training(device, card)
-        print(f"  (mesh training: {time.perf_counter() - start:.1f} s wall)")
-        title = (f"phase 6pp: train CloudLM SMALL under the GPipe pipeline "
-                 "and expert parallelism, 2 ranks on the card over gloo "
-                 "({pp: 2} b4 M=2 untied and tied, the default MoE under "
-                 "{ep: 2} b2 and {pp: 2} b4, in f32 against one process; "
-                 "{pp: 2} in bf16)")
-        print(title)
-        start = time.perf_counter()
-        pp_run = run_pipeline_training(device, card)
-        print(f"  (pipeline training: {time.perf_counter() - start:.1f} s "
-              "wall)")
         title = (f"phase 7: train BERT-base b{BERT_BATCH}xT{BERT_SEQ} bf16, "
                  f"3 + 10 steps, then one step under torch.profiler")
         print(title)
@@ -8051,6 +8745,15 @@ def main() -> int:
         print(f"  (ViT: {time.perf_counter() - start:.1f} s wall)")
     except Exception as exc:  # noqa: BLE001
         return fail(f"transformer training: {exc!r}", title)
+    try:
+        side = _SIDE.finish(script_start + SIDE_DEADLINE_S)
+    except Exception as exc:  # noqa: BLE001
+        return fail(f"second process: {exc!r}", "the second process")
+    results["tp engine"] = side["tp engine"]
+    exact, cold = side["exactly-once"], side["cold start"]
+    front_door, exporter_run = side["front door"], side["exporter"]
+    tuner_run, fit_run = side["tuner"], side["cloud_fit"]
+    mesh_run, pp_run = side["mesh training"], side["pipeline training"]
 
     engine = results["engine"]
     engine.update(results["decode breakdown"])
@@ -8122,14 +8825,17 @@ def main() -> int:
         else:
             # K1-K4: the bare loop (4), Trainer.fit (4t), the
             # exactly-once fits (4r), compile-ahead (4a), the records
-            # fits (4p) and the container of the front door (9r), each
-            # counted from 0.
+            # fits (4p), the container of the front door (9r), the
+            # tuner's workers (9t) and cloud_fit's ranks and restoring
+            # run (9f), each counted from 0.
             entry["launches"] = (cifar["launches"][name]
                                  + fit["launches"][name]
                                  + exact["launches"][name]
                                  + ahead["launches"][name]
                                  + recs["launches"][name]
-                                 + front_door["launches"][name])
+                                 + front_door["launches"][name]
+                                 + tuner_run["launches"][name]
+                                 + fit_run["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")
@@ -8193,6 +8899,8 @@ def main() -> int:
         "front_door": front_door,
         "profiler": prof_run,
         "exporter": exporter_run,
+        "tuner": {k: v for k, v in tuner_run.items() if k != "launches"},
+        "cloud_fit": {k: v for k, v in fit_run.items() if k != "launches"},
         "stochastic_bert_b32xT128": stoch,
         "flash_bwd_at_bert": {e["name"]: e["at_bert"] for e in flash_bwd},
         "flash_fwd_at_training": k5_training,
@@ -8227,4 +8935,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--side"]:
+        sys.exit(side_main(sys.argv[2]))
     sys.exit(main())

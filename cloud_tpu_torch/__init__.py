@@ -7,9 +7,8 @@ of the same functions serve tensors that lie on the CPU (the tests).
 
 The root re-exports the reference root's public surface
 (``cloud_tpu/__init__.py``): the machine configs eagerly, ``run``,
-``remote`` and ``RunReport`` lazily.  ``CloudTuner``, ``CloudOracle`` and
-``cloud_fit`` are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP.md items.  Submodules load lazily so ``import
+``remote``, ``RunReport``, ``CloudTuner``, ``CloudOracle`` and
+``cloud_fit`` lazily.  Submodules load lazily so ``import
 cloud_tpu_torch`` stays cheap.
 """
 
@@ -38,14 +37,7 @@ __all__ = [
 ]
 
 _SUBMODULES = ("bridge", "core", "fleet", "models", "monitoring", "ops",
-               "parallel", "random", "serving", "training", "utils")
-
-#: Names of the reference root that are features still to port.
-_UNPORTED = {
-    "CloudTuner": "section A, item 6 (order of work step 6: tuner/)",
-    "CloudOracle": "section A, item 6 (order of work step 6: tuner/)",
-    "cloud_fit": "section A, item 6 (order of work step 7: cloud_fit/)",
-}
+               "parallel", "random", "serving", "training", "tuner", "utils")
 
 
 def __getattr__(name):
@@ -53,10 +45,14 @@ def __getattr__(name):
         from cloud_tpu_torch.core import run as _run
 
         return getattr(_run, name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"cloud_tpu_torch.{name} is not ported yet: it is queued under "
-            f"ROADMAP.md {_UNPORTED[name]}")
+    if name in ("CloudTuner", "CloudOracle"):
+        from cloud_tpu_torch import tuner as _tuner
+
+        return getattr(_tuner, name)
+    if name == "cloud_fit":
+        from cloud_tpu_torch.cloud_fit import client as _client
+
+        return _client.cloud_fit
     if name in _SUBMODULES:
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module 'cloud_tpu_torch' has no attribute {name!r}")

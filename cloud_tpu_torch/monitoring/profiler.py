@@ -32,6 +32,18 @@ endpoint, ``GET /capture?duration_ms=N``, that profiles the whole process
 for N ms into :func:`default_logdir` and answers ``{"trace": <path>}``
 (:func:`request_capture` is its client).  It listens on ``localhost`` by
 default; a remote capture goes through a tunnel to the host.
+
+**Where a capture starts and stops.**  ``torch.profiler`` must be
+started and stopped on one thread, and not beside a thread that runs
+ops: stopping it from the server's thread during a backward pass aborts
+the process, and stopping it on another thread than the one that
+started it crashes.  So a capture is handed to the thread that runs the
+steps: every step of ``training.train`` calls :func:`safe_point` before
+its work, and while such calls keep coming, the capture starts at one
+and stops at the first one ``duration_ms`` later (or at the end of
+``Trainer.fit``, which calls ``safe_point(last=True)``).  A process that
+runs no step loop (none seen for :data:`SAFE_POINT_QUIET_S`) is captured
+on the server's thread.
 """
 
 from __future__ import annotations
@@ -64,10 +76,17 @@ ENV_PROFILER_LOGDIR = "CLOUD_TPU_PROFILER_LOGDIR"
 #: The longest on-demand capture the server takes.
 MAX_CAPTURE_MS = 60_000
 
+#: A step loop that has not reached :func:`safe_point` for this long is
+#: taken to have stopped: the server then captures on its own thread.
+SAFE_POINT_QUIET_S = 10.0
+
 _lock = threading.Lock()
 _active = None  # (torch.profiler.profile, logdir) of the running trace
 _last_trace: Optional[str] = None
 _server = None  # (ThreadingHTTPServer, thread)
+_capture_lock = threading.Lock()
+_pending = None  # the _Capture handed to the step loop, until it is done
+_safe_seen = float("-inf")  # time.monotonic() of the last safe_point()
 
 
 def default_logdir() -> str:
@@ -249,15 +268,93 @@ class ProfilerCallback:
 # --- the on-demand capture server -----------------------------------------
 
 
-def capture(duration_ms: float, logdir: Optional[str] = None) -> str:
-    """Trace the whole process for ``duration_ms`` and return the trace
-    file's path (what the server runs per request)."""
+class _Capture:
+    """A capture the server hands to the step loop's thread."""
+
+    def __init__(self, duration_s: float, logdir: Optional[str]):
+        self.duration_s = duration_s
+        self.logdir = logdir
+        self.started: Optional[float] = None  # when the loop started it
+        self.path: Optional[str] = None
+        self.error: Optional[RuntimeError] = None
+        self.done = threading.Event()
+
+
+def safe_point(*, last: bool = False) -> None:
+    """Mark a point between two steps on the thread that runs them: a
+    pending server capture starts or stops its trace here (see the
+    module's docstring).  ``last``: the loop ends here, so a capture it
+    started stops now, short of its duration.  Costs a clock read when
+    nothing is pending."""
+    global _pending, _safe_seen
+    _safe_seen = time.monotonic()
+    req = _pending
+    if req is None:
+        return
+    with _capture_lock:
+        if _pending is not req:  # withdrawn by the server meanwhile
+            return
+        try:
+            if req.started is None:
+                if last:
+                    return
+                start_trace(req.logdir)
+                req.started = time.monotonic()
+                return
+            if (not last and time.monotonic() - req.started
+                    < req.duration_s):
+                return
+            req.path = stop_trace()
+        except RuntimeError as exc:  # a trace of the caller's is running
+            req.error = exc
+        _pending = None
+        req.done.set()
+
+
+def _capture_here(duration_s: float, logdir: Optional[str]) -> str:
     start_trace(logdir)
     try:
-        time.sleep(max(0.0, duration_ms) / 1e3)
+        time.sleep(duration_s)
     finally:
         path = stop_trace()
     return path
+
+
+def _loop_is_live() -> bool:
+    return time.monotonic() - _safe_seen < SAFE_POINT_QUIET_S
+
+
+def capture(duration_ms: float, logdir: Optional[str] = None) -> str:
+    """Trace the whole process for ``duration_ms`` and return the trace
+    file's path (what the server runs per request): on the step loop's
+    thread while one reaches :func:`safe_point`, else on this thread.
+    Raises ``RuntimeError`` if another trace runs, or if the loop went
+    quiet inside the capture it started (that trace then stops at the
+    loop's next safe point)."""
+    global _pending
+    duration_s = max(0.0, duration_ms) / 1e3
+    if not _loop_is_live():
+        return _capture_here(duration_s, logdir)
+    req = _Capture(duration_s, logdir)
+    with _capture_lock:
+        if _pending is not None:
+            raise RuntimeError("a profiler capture is already pending")
+        _pending = req
+    while not req.done.wait(0.05):
+        if _loop_is_live():
+            continue
+        with _capture_lock:
+            if req.done.is_set():
+                break
+            if req.started is not None:  # only the loop's thread may stop
+                raise RuntimeError(
+                    "the step loop went quiet inside its capture; the "
+                    "trace stops at its next step")
+            _pending = None  # the loop stopped before it started: here
+        return _capture_here(duration_s, logdir)
+    if req.error is not None:
+        raise req.error
+    return req.path
 
 
 def _handler_class():

@@ -21,9 +21,10 @@ bounds the distributed init (default 60 s), and
 ``CLOUD_TPU_SELFCHECK_MODE`` picks the check:
 
 - ``basic`` (default): a ``dp`` mesh over every rank, a cross-process
-  sum and one data-parallel MNIST step on per-process rows (the
-  replicated step, ``train.make_hybrid_dp_train_step``; MNIST under the
-  sharded step is queued, ROADMAP.md A.2).
+  sum and one sharded MNIST train step on per-process rows (the JAX
+  package's: ``train.create_sharded_state`` and
+  ``train.make_train_step(mesh=, logical_axes=mnist.param_logical_axes
+  (cfg))``).
 - ``transformer``: ``{fsdp: n/2, tp: 2}``, two CloudLM TINY steps.
 - ``pp``: ``{pp: n/2, tp: 2}`` with ``layers`` -> ``pp``: the GPipe
   pipeline's sends cross processes.
@@ -143,7 +144,7 @@ def _check_records(report) -> None:
 
 def _check_basic(report, device, backend) -> None:
     """A cross-process sum over a ``dp`` mesh of every rank, then one
-    data-parallel MNIST step on per-process rows."""
+    sharded MNIST train step on per-process rows."""
     import functools
 
     import numpy as np
@@ -166,21 +167,24 @@ def _check_basic(report, device, backend) -> None:
         local.sum(), "dp", mesh=mesh))
     report["expected_sum"] = float(sum((r + 1) * 4 for r in range(world)))
 
-    # Phase 2: one data-parallel step on per-process rows.
+    # Phase 2: one real sharded train step on per-process rows.
     report["phase"] = "train_step"
     cfg = mnist.MnistConfig(hidden_dim=16)
+    logical_axes = mnist.param_logical_axes(cfg)
     sgd = optimizers.sgd(0.1)
     gen = torch.Generator(device=device).manual_seed(0)
-    state = train.create_sharded_state(
-        gen, lambda g: bridge.init_mnist(cfg, g, device=device), sgd,
-        device=device)
-    step = train.make_hybrid_dp_train_step(
-        functools.partial(mnist.loss_fn, config=cfg, device=device), sgd,
-        mesh=mesh)
-    rng = np.random.default_rng(rank)
-    batch = {"image": rng.normal(size=(2, 784)).astype(np.float32),
-             "label": rng.integers(0, 10, 2)}
-    state, metrics = step(state, batch)
+    with parallel.use_mesh(mesh):
+        state = train.create_sharded_state(
+            gen, lambda g: bridge.init_mnist(cfg, g, device=device), sgd,
+            mesh, logical_axes=logical_axes)
+        step = train.make_train_step(
+            functools.partial(mnist.loss_fn, config=cfg), sgd,
+            logical_axes=logical_axes, mesh=mesh)
+        rng = np.random.default_rng(rank)
+        local_batch = {"image": rng.normal(size=(2, 784)).astype(np.float32),
+                       "label": rng.integers(0, 10, 2)}
+        batch = train.shard_batch(local_batch, mesh)
+        state, metrics = step(state, batch)
     report["loss"] = float(metrics["loss"])
     report["phase"] = "done"
     report["ok"] = bool(

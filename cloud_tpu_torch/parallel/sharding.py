@@ -96,16 +96,19 @@ def mesh_axes(assignment: MeshAxisAssignment) -> Tuple[str, ...]:
     return assignment if isinstance(assignment, tuple) else (assignment,)
 
 
-def shard_count_and_index(mesh, assignment: MeshAxisAssignment
+def shard_count_and_index(mesh, assignment: MeshAxisAssignment,
+                          coords: Optional[Dict[str, int]] = None
                           ) -> Tuple[int, int]:
     """How many shards a dim assigned to ``assignment`` is cut into, and
-    which of them this rank keeps: the axes' sizes multiply, the first
-    axis major (``NamedSharding``'s order)."""
+    which of them this rank keeps (or the rank at ``coords``, a mesh
+    axis -> coordinate dict): the axes' sizes multiply, the first axis
+    major (``NamedSharding``'s order)."""
     count, index = 1, 0
     for axis in mesh_axes(assignment):
         size = mesh.axis_size(axis)
         count *= size
-        index = index * size + mesh.axis_index(axis)
+        index = index * size + (mesh.axis_index(axis) if coords is None
+                                else coords.get(axis, 0))
     return count, index
 
 

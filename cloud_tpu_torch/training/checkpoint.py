@@ -16,11 +16,12 @@ keeps the Orbax policies the reference relies on:
   mid-write leaves nothing that ``steps()`` lists.
 
 **The format.** A step directory ``<root>/<step>/`` holds one raw file
-per tensor leaf (``<n>.bin``, the leaf's bytes in C order) and
-``index.json`` with the tree: every dict, list, ``TrainState`` and None,
-and for each leaf its key path, shape, dtype and file.  Nothing is
-pickled, so a restore runs no code from the checkpoint; bf16 leaves
-round-trip bit for bit.
+per piece of a tensor leaf (``<n>.r<rank>.bin``, the piece's bytes in C
+order; in one process a leaf is one piece) and ``index.json`` with the
+tree: every dict, list, ``TrainState`` and None, and for each leaf its
+key path, global shape, dtype, logical axes and its pieces (file and
+bounds).  Nothing is pickled, so a restore runs no code from the
+checkpoint; bf16 leaves round-trip bit for bit.
 
 **Saving a state that is mutated in place.**  A JAX state is immutable,
 so Orbax may read it after ``save`` returns.  The port's optimizer and a
@@ -51,6 +52,30 @@ resume"):
   :func:`resume_trainer_state` **walks back** latest→older until an
   intact step restores, quarantining corrupt/partial step dirs.
 
+**A state sharded over a mesh of several ranks** (one process per rank,
+``parallel/``; :class:`StateLayout` says how each leaf lies: the mesh,
+the parameters' logical axes and the rules) is saved per rank: each rank
+writes the pieces of the leaves it holds, and a leaf replicated over
+some mesh axes is written once, by the rank at coordinate 0 on those
+axes.  In a job of several processes with no mesh every leaf is
+replicated and process 0 writes it.  A manager given no layout under a
+global mesh with a nontrivial axis other than ``dp`` refuses to save or
+restore (it cannot tell a shard from a replica).  The ranks write into
+one temporary directory, then meet (at the next ``save``, ``wait`` or
+``close``); only the chief (``parallel.distributed.is_chief()``) writes
+the index, renames the directory to its step, and writes the manifest,
+which covers every rank's files, and the extras sidecar.  One process is
+the case of one rank whose writer thread commits the step itself.  The index
+records each leaf's global shape and dtype, its logical axes, the mesh
+and the bounds of every piece in the global tensor
+(``parallel.sharding.shard_bounds``).  A restore reads, on each rank,
+only the pieces that cover that rank's slice, straight into it: the
+same mesh, a one-process checkpoint restored into a mesh, and a mesh
+checkpoint restored into one process are one mechanism.  Under several
+ranks :func:`resume_trainer_state` lets the chief verify and pick the
+step and broadcasts the choice, and a restore that fails on any rank
+walks every rank back together.
+
 Directories on ``gs://`` wait for the cloud layers and raise
 ``NotImplementedError`` (ROADMAP.md A.6).
 """
@@ -70,8 +95,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.monitoring import metrics, tracing
+from cloud_tpu_torch.parallel import distributed, sharding
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.training.train import TrainState
 from cloud_tpu_torch.utils import faults
 
@@ -109,8 +138,53 @@ _GCS_LATER = ("checkpoints on gs:// are not ported yet: they come with the "
 
 
 def _is_chief() -> bool:
-    """One process until ``parallel/*`` is ported (ROADMAP.md A.6)."""
-    return True
+    """Process 0 of the job writes what is written once (the index, the
+    manifest, the extras), as the JAX package's checkpoints do."""
+    return distributed.is_chief()
+
+
+def _several_ranks() -> bool:
+    """Whether this process is one of several in a ``torch.distributed``
+    job: then saves and resumes are collective calls on every rank."""
+    return distributed.process_count() > 1
+
+
+def _gather(obj) -> list:
+    """Every rank's ``obj``, in rank order (a collective call)."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _from_chief(obj):
+    """The chief's ``obj`` on every rank (a collective call)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class StateLayout:
+    """How a state's leaves lie on a mesh of several ranks: ``mesh`` (a
+    ``parallel.mesh.Mesh``, or None), ``logical_axes`` (a tree congruent
+    with the parameters, a leaf's axes a tuple, or None: every leaf
+    replicated) and ``rules`` (``DEFAULT_RULES`` when None).  A leaf of
+    the optimizer's state whose key path ends in a parameter's path and
+    whose shape is that parameter's lies as the parameter does (SGD's
+    ``trace``, Adam's ``mu`` and ``nu``); every other leaf is replicated.
+    """
+
+    mesh: Any = None
+    logical_axes: Any = None
+    rules: Any = None
+
+
+def layout_of(trainer) -> StateLayout:
+    """The layout of ``trainer``'s state: its mesh of more than one rank
+    (None otherwise), logical axes and rules."""
+    return StateLayout(mesh=getattr(trainer, "_mesh", None),
+                       logical_axes=getattr(trainer, "logical_axes", None),
+                       rules=getattr(trainer, "rules", None))
 
 
 #: Streaming-read granularity for manifest hashing: bounds peak memory
@@ -171,16 +245,187 @@ def _dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def _snapshot(state) -> Tuple[Dict, List[Dict], List[torch.Tensor], list]:
-    """The blocking half of a save: the tree spec, each leaf's index entry,
-    a host copy of each leaf (pinned, copied ``non_blocking`` in the
-    current stream's order for a CUDA leaf; a clone for a CPU leaf), and
-    the events recorded after the copies, one per device."""
+def _read_piece(step_dir: str, key: str, name: str, shape, dtype: torch.dtype,
+                *, pin: bool) -> torch.Tensor:
+    """One piece of a leaf from its file, into pinned memory when ``pin``
+    (bound for the card); its size must be the index's."""
+    shape = tuple(int(n) for n in shape)
+    numel = int(np.prod(shape, dtype=np.int64))
+    nbytes = numel * torch.empty((), dtype=dtype).element_size()
+    path = os.path.join(step_dir, name)
+    size = os.path.getsize(path)
+    if size != nbytes:
+        raise ValueError(f"checkpoint leaf {key!r}: {path} holds "
+                         f"{size} bytes, its index says {nbytes}")
+    raw = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=pin)
+    if nbytes:
+        with open(path, "rb") as f:
+            if f.readinto(memoryview(raw.numpy())) != nbytes:
+                raise ValueError(f"checkpoint leaf {key!r}: short read")
+    return raw.view(dtype).reshape(shape)
+
+
+def _read_box(step_dir: str, entry: Dict, box, *, pin: bool) -> torch.Tensor:
+    """The part ``box`` (``[start, stop)`` per dim) of a leaf's global
+    tensor, from the pieces that overlap it and no others."""
+    dtype = _dtype(entry["dtype"])
+    key = entry["key"]
+    want = [e - b for b, e in box]
+    if not all(want):
+        return torch.empty(want, dtype=dtype, pin_memory=pin)
+    out = None
+    covered = 0
+    for piece in entry["pieces"]:
+        bounds = piece["bounds"]
+        lo = [max(b, pb) for (b, _), (pb, _) in zip(box, bounds)]
+        hi = [min(e, pe) for (_, e), (_, pe) in zip(box, bounds)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        value = _read_piece(step_dir, key, piece["file"],
+                            [pe - pb for pb, pe in bounds], dtype, pin=pin)
+        if [list(b) for b in bounds] == [list(b) for b in box]:
+            return value
+        if out is None:
+            out = torch.empty(want, dtype=dtype, pin_memory=pin)
+        src = tuple(slice(l - pb, h - pb)
+                    for l, h, (pb, _) in zip(lo, hi, bounds))
+        dst = tuple(slice(l - b, h - b) for l, h, (b, _) in zip(lo, hi, box))
+        out[dst] = value[src]
+        covered += int(np.prod([h - l for l, h in zip(lo, hi)],
+                               dtype=np.int64))
+    if out is None or covered != int(np.prod(want, dtype=np.int64)):
+        raise ValueError(f"checkpoint leaf {key!r}: its pieces do not cover "
+                         f"{box} of its global shape {entry['shape']}")
+    return out
+
+
+def _leaf_axes(name: str, value, axes):
+    """A parameter leaf's logical axes, as ``sharding.shard_tree`` reads
+    them (a weight-only int8 leaf follows its float leaf's)."""
+    if name in axes:
+        return tuple(axes[name])
+    if name.endswith("_q"):
+        return tuple(axes[name[:-2]])
+    if name.endswith("_scale"):
+        return tuple(None if n == 1 else a
+                     for n, a in zip(value.shape, axes[name[:-6]]))
+    raise KeyError(f"no logical axes for param leaf {name!r}")
+
+
+def _param_axes(params, axes, key: str, out: Dict, layout: StateLayout):
+    """Each parameter leaf's key path (``_flatten``'s, under ``params/``)
+    -> its logical axes."""
+    if isinstance(axes, sharding.LayerStack):
+        cut, _, _ = sharding.layer_stack_cut(
+            layout.mesh, layout.rules or sharding.DEFAULT_RULES, len(axes))
+        if cut:
+            raise NotImplementedError(
+                "a checkpoint of a state whose layer list is cut over "
+                f"{cut} (a pipeline stage's block of layers) is not in the "
+                "PyTorch port yet: it is queued under ROADMAP.md A.3")
+    if isinstance(params, (list, tuple)):
+        for i, (p, a) in enumerate(zip(params, axes)):
+            _param_axes(p, a, f"{key}{i}/", out, layout)
+        return out
+    for name, value in params.items():
+        if isinstance(value, (dict, list, tuple)):
+            _param_axes(value, axes[name], f"{key}{name}/", out, layout)
+        else:
+            out[f"{key}{name}"] = (_leaf_axes(name, value, axes),
+                                   tuple(_leaf_tensor(value).shape))
+    return out
+
+
+def _leaf_layouts(state, flat, layout: StateLayout) -> Dict[str, tuple]:
+    """Key path -> ``(logical axes, {dim: mesh axes it is cut over})`` for
+    each leaf of ``flat`` (``_flatten(state)``'s) that lies on the mesh
+    as a parameter does; leaves missing from the result are
+    replicated."""
+    if (layout.mesh is None or layout.logical_axes is None
+            or not isinstance(state, TrainState)):
+        return {}
+    rules = layout.rules or sharding.DEFAULT_RULES
+    params = _param_axes(state.params, layout.logical_axes, "params/", {},
+                         layout)
+    by_rel = {k[len("params/"):]: v for k, v in params.items()}
+    out = {}
+    for key, value in flat:
+        parts = key.split("/")
+        if parts[0] == "params":
+            found = params.get(key)
+        elif parts[0] == "opt_state":
+            shape = tuple(_leaf_tensor(value).shape)
+            found = next((by_rel["/".join(parts[i:])]
+                          for i in range(1, len(parts))
+                          if by_rel.get("/".join(parts[i:]), (0, None))[1]
+                          == shape), None)
+        else:
+            found = None
+        if found is not None:
+            cuts = sharding.split_dims(layout.mesh, found[0], rules)
+            if cuts:
+                out[key] = (found[0], cuts)
+    return out
+
+
+def _snapshot(state, layout: StateLayout):
+    """The blocking half of a save: the tree spec, each leaf's index entry
+    (global shape, dtype, logical axes and the bounds of every piece in
+    the global tensor), the pieces this rank writes (``[(leaf, file)]``),
+    a host copy of each (pinned, copied ``non_blocking`` in the current
+    stream's order for a CUDA leaf; a clone for a CPU leaf), and the
+    events recorded after the copies, one per device.
+
+    A leaf cut over mesh axes is one piece per rank; a leaf replicated
+    over some nontrivial axes is written by the ranks at coordinate 0 on
+    them, and with no mesh by process 0.  Under several ranks every
+    rank's local shapes are exchanged first (a collective call), so each
+    knows the global shapes and every piece's bounds."""
     flat: List[Tuple[str, Any]] = []
     spec = _flatten(state, "", flat)
-    entries, buffers, devices = [], [], {}
-    for i, (key, value) in enumerate(flat):
-        t = _leaf_tensor(value)
+    cut = _leaf_layouts(state, flat, layout)
+    mesh = layout.mesh
+    tensors = [_leaf_tensor(v) for _, v in flat]
+    me = {"coords": dict(mesh.coords) if mesh is not None else {},
+          "shapes": [list(t.shape) for t in tensors]}
+    everyone = _gather(me) if _several_ranks() else [me]
+    rank = distributed.process_index()
+    nontrivial = mesh.spec.nontrivial_axes() if mesh is not None else []
+    entries, mine = [], []
+    for i, ((key, _), t) in enumerate(zip(flat, tensors)):
+        axes, cuts = cut.get(key, (None, {}))
+        split = {a for c in cuts.values() for a in c}
+        replicated = [a for a in nontrivial if a not in split]
+        glob = list(t.shape)
+        extents: Dict[int, Dict[int, int]] = {}
+        for dim, c in cuts.items():
+            extents[dim] = {}
+            for other in everyone:
+                count, index = sharding.shard_count_and_index(
+                    mesh, c, coords=other["coords"])
+                extents[dim][index] = other["shapes"][i][dim]
+            glob[dim] = sum(extents[dim].get(j, 0) for j in range(count))
+        pieces = []
+        for r, other in enumerate(everyone):
+            if not (r == 0 if mesh is None else all(
+                    other["coords"].get(a, 0) == 0 for a in replicated)):
+                continue
+            bounds = [[0, n] for n in glob]
+            for dim, c in cuts.items():
+                _, index = sharding.shard_count_and_index(
+                    mesh, c, coords=other["coords"])
+                start = sum(extents[dim][j] for j in range(index))
+                bounds[dim] = [start, start + extents[dim][index]]
+            pieces.append({"file": f"{i}.r{r}.bin", "bounds": bounds})
+            if r == rank:
+                mine.append((i, f"{i}.r{r}.bin"))
+        entries.append({"key": key, "shape": glob,
+                        "dtype": _dtype_name(t.dtype),
+                        "axes": None if axes is None else list(axes),
+                        "pieces": pieces})
+    buffers, devices = [], {}
+    for i, _ in mine:
+        t = tensors[i]
         if t.device.type == "cuda":
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             buf.copy_(t, non_blocking=True)
@@ -188,53 +433,31 @@ def _snapshot(state) -> Tuple[Dict, List[Dict], List[torch.Tensor], list]:
         else:
             buf = t.clone(memory_format=torch.contiguous_format)
         buffers.append(buf)
-        entries.append({"key": key, "file": f"{i}.bin",
-                        "shape": list(t.shape), "dtype": _dtype_name(t.dtype)})
     events = []
     for device in devices:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
         events.append(event)
-    return spec, entries, buffers, events
+    return spec, entries, mine, buffers, events
 
 
-def _write_step(step_dir: str, tmp: str, step: int, spec, entries, buffers,
-                events) -> None:
-    """The writer thread's half: wait for the snapshot's copies, write
-    each leaf and the index into ``tmp``, then rename it to ``step_dir``
-    (the step appears whole or not at all)."""
-    for event in events:
-        event.synchronize()
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    for entry, buf in zip(entries, buffers):
-        with open(os.path.join(tmp, entry["file"]), "wb") as f:
-            if buf.numel():
-                f.write(buf.reshape(-1).view(torch.uint8).numpy().data)
-    with open(os.path.join(tmp, INDEX_NAME), "w", encoding="utf-8") as f:
-        json.dump({"step": int(step), "tree": spec, "leaves": entries}, f)
-    os.rename(tmp, step_dir)
-
-
-def _read_leaf(step_dir: str, entry: Dict, *, pin: bool) -> torch.Tensor:
-    """One leaf from its file, into pinned memory when ``pin`` (bound for
-    the card); its size must be the index's."""
-    shape = tuple(int(n) for n in entry["shape"])
-    dtype = _dtype(entry["dtype"])
-    numel = int(np.prod(shape, dtype=np.int64))
-    nbytes = numel * torch.empty((), dtype=dtype).element_size()
-    path = os.path.join(step_dir, entry["file"])
-    size = os.path.getsize(path)
-    if size != nbytes:
-        raise ValueError(f"checkpoint leaf {entry['key']!r}: {path} holds "
-                         f"{size} bytes, its index says {nbytes}")
-    raw = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=pin)
-    if nbytes:
-        with open(path, "rb") as f:
-            if f.readinto(memoryview(raw.numpy())) != nbytes:
-                raise ValueError(
-                    f"checkpoint leaf {entry['key']!r}: short read")
-    return raw.view(dtype).reshape(shape)
+def _target_box(entry: Dict, cuts, mesh, shape) -> list:
+    """``[start, stop)`` per dim of this rank's slice of a leaf of global
+    shape ``entry["shape"]``, cut as ``cuts`` says; raises if the
+    template's local ``shape`` is not that slice's."""
+    glob = [int(n) for n in entry["shape"]]
+    box = [[0, n] for n in glob]
+    for dim, axes in (cuts or {}).items():
+        if dim >= len(glob):
+            break
+        count, index = sharding.shard_count_and_index(mesh, axes)
+        box[dim] = list(sharding.shard_bounds(glob[dim], count, index))
+    if [e - b for b, e in box] != list(shape):
+        raise ValueError(
+            f"checkpoint leaf {entry['key']!r} is {entry['dtype']}{glob}, "
+            f"this rank's slice of it {[e - b for b, e in box]}, the "
+            f"template's {list(shape)}")
+    return box
 
 
 def _kind(tree) -> str:
@@ -250,11 +473,16 @@ def _kind(tree) -> str:
 #: ``_rebuild`` without a template.
 _NO_TEMPLATE = object()
 
+#: A template node whose saved subtree is not read (it comes back None).
+_SKIP = object()
+
 
 def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = ""):
     """The tree of ``spec`` with each leaf ``leaf_fn(index, template
     leaf)``; a template's structure must match the spec's, or it raises
     ``ValueError``."""
+    if template is _SKIP:
+        return None
     kind = spec.get("kind")
     where = key or "/"
     free = template is _NO_TEMPLATE
@@ -292,21 +520,6 @@ def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = ""):
     raise ValueError(f"unknown node {kind!r} in a checkpoint index")
 
 
-def _refuse_sharded(what: str) -> None:
-    """A state sharded over a mesh of several ranks (the installed global
-    mesh) is not saved or restored yet: each rank would write its own
-    shards over the others'."""
-    from cloud_tpu_torch.parallel import mesh as mesh_lib
-
-    mesh = mesh_lib.get_global_mesh()
-    if mesh is not None and mesh.spec.num_devices > 1:
-        raise NotImplementedError(
-            f"CheckpointManager.{what} under a mesh of several ranks (a "
-            "sharded layout, saved per rank and restored straight into "
-            "its shards) is not in the PyTorch port yet: it is queued "
-            "under ROADMAP.md A.2")
-
-
 class CheckpointManager:
     """Asynchronous saves of a state tree into numbered step directories,
     with the durability contract on top: integrity manifests with a
@@ -316,14 +529,28 @@ class CheckpointManager:
     ``device`` is where a restore without a template puts its tensors
     (``cuda`` by default, ``"cpu"`` when asked); a restore with a
     template puts each leaf where the template's is.
+
+    ``layout`` (a :class:`StateLayout`) is how a state sharded over a mesh
+    of several ranks lies; by default the installed global mesh with every
+    leaf replicated, which only a mesh over ``dp`` alone (or none) takes:
+    under any other nontrivial axis ``save`` and a templated ``restore``
+    without a layout raise ``ValueError``.  In a job of several processes every rank constructs
+    the manager and calls ``save``, ``wait`` and ``close`` together (they
+    are collective calls); a save becomes visible in :meth:`steps` at the
+    next of them.
     """
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1, device=None):
+                 save_interval_steps: int = 1, device=None,
+                 layout: Optional[StateLayout] = None):
         self._directory = os.fspath(directory)
         if self._directory.startswith("gs://"):
             raise NotImplementedError(_GCS_LATER)
         self._device = resolve_device(device)
+        self._layout = layout
+        #: The save in flight, not yet committed: ``(step, index,
+        #: temporary dir)``.
+        self._uncommitted: Optional[Tuple[int, Dict, str]] = None
         self._max_to_keep = max_to_keep
         self._save_interval_steps = max(1, int(save_interval_steps))
         #: Steps whose save was started but whose manifest has not been
@@ -348,6 +575,21 @@ class CheckpointManager:
 
     def _meta_path(self, step: int) -> str:
         return os.path.join(self._directory, META_DIRNAME, f"{int(step)}.json")
+
+    def _layout_for(self, layout: Optional[StateLayout]) -> StateLayout:
+        if layout is not None:
+            return layout
+        if self._layout is not None:
+            return self._layout
+        mesh = mesh_lib.effective_mesh(mesh_lib.get_global_mesh())
+        if mesh is not None and set(mesh.spec.nontrivial_axes()) - {"dp"}:
+            raise ValueError(
+                f"a checkpoint under the mesh {dict(mesh.spec.sizes)} needs "
+                "to know how the state lies on it: pass the manager (or "
+                "the call) layout=StateLayout(mesh, logical_axes, rules) "
+                "(checkpoint.layout_of(trainer) for a Trainer's state); "
+                "only under dp alone is every leaf replicated by default")
+        return StateLayout(mesh=mesh)
 
     def _should_save(self, step: int, force: bool) -> bool:
         latest = self.latest_step()
@@ -383,26 +625,28 @@ class CheckpointManager:
         (and joining its manifest hash, which had the whole inter-save
         interval to finish in the background) plus this save's snapshot
         — exactly the cost a training step pays at a save boundary.
+
+        In a job of several processes every rank calls ``save`` with its
+        own shards (laid out as the manager's ``layout`` says); the
+        decision to save is the chief's, and the step is committed at the
+        next ``save``, ``wait`` or ``close``.
         """
-        _refuse_sharded("save")
         step = int(step)
         with tracing.span("checkpoint/save", step=step):
             # Chaos seam: a crashed/hung save surfaces here — the same
             # place a full disk would.
             faults.fault_point("checkpoint.save")
-            # The previous write must be complete before a new one
+            layout = self._layout_for(None)
+            # The previous write must be committed before a new one
             # starts; waiting first means the steps handed to the
             # background finalize below have known-final files.
-            self._join_write()
+            self._commit()
             self._join_finalize()
             ready, self._pending_manifest = self._pending_manifest, []
-            latest = self.latest_step()
-            if force and latest is not None and step == latest:
-                force = False
             try:
-                saved = self._should_save(step, force)
+                saved = self._decide(step, force)
                 if saved:
-                    self._start_write(step, state)
+                    self._start_write(step, state, layout)
             except BaseException:
                 # This save failing must not drop the COMPLETED earlier
                 # steps' manifests with it: put them back so the next
@@ -411,7 +655,6 @@ class CheckpointManager:
                 raise
             if saved:
                 self._write_meta(step, extras)
-                self._pending_manifest.append(step)
             if ready:
                 # Hash + commit the completed earlier saves on a worker:
                 # the lineage read must overlap training, not extend this
@@ -419,34 +662,106 @@ class CheckpointManager:
                 self._start_finalize(ready)
             return saved
 
-    def _start_write(self, step: int, state: Any) -> None:
-        spec, entries, buffers, events = _snapshot(state)
-        os.makedirs(self._directory, exist_ok=True)
-        if not self._wrote:
-            # A write a kill interrupted left its temporary dir behind.
-            self._wrote = True
-            for name in os.listdir(self._directory):
-                if name.startswith(TMP_PREFIX):
-                    shutil.rmtree(os.path.join(self._directory, name),
-                                  ignore_errors=True)
-        step_dir = self._step_dir(step)
-        tmp = os.path.join(self._directory,
-                           f"{TMP_PREFIX}{step}-{os.getpid()}")
+    def _decide(self, step: int, force: bool) -> bool:
+        """Whether ``step`` is saved: the chief's decision, on every rank.
+        Before the manager's first save the chief clears the temporary
+        dirs a killed write left behind (no rank writes before the
+        decision)."""
+        decision = None
+        if _is_chief():
+            if not self._wrote:
+                self._wrote = True
+                for name in (os.listdir(self._directory)
+                             if os.path.isdir(self._directory) else ()):
+                    if name.startswith(TMP_PREFIX):
+                        shutil.rmtree(os.path.join(self._directory, name),
+                                      ignore_errors=True)
+            latest = self.latest_step()
+            decision = self._should_save(
+                step, force and not (latest is not None and step == latest))
+        return bool(_from_chief(decision) if _several_ranks() else decision)
+
+    def _start_write(self, step: int, state: Any, layout: StateLayout) -> None:
+        """Snapshot the pieces this rank writes (:func:`_snapshot`) and
+        write them on a thread into the step's temporary directory.  In
+        one process that thread then commits the step itself
+        (:meth:`_commit_dir`); under several ranks the chief commits it
+        when the ranks next meet (:meth:`_commit`)."""
+        spec, entries, mine, buffers, events = _snapshot(state, layout)
+        tmp = os.path.join(self._directory, f"{TMP_PREFIX}{step}")
+        index = {"step": step, "tree": spec, "leaves": entries,
+                 "mesh": (None if layout.mesh is None
+                          else dict(layout.mesh.spec.sizes)),
+                 "processes": distributed.process_count()}
+        alone = not _several_ranks()
+        self._uncommitted = (step, index, tmp)
         errors = self._write_error
 
         def write():
             try:
-                _write_step(step_dir, tmp, step, spec, entries, buffers,
-                            events)
-                self._gc_steps()
-            except BaseException as exc:  # noqa: BLE001 — raised at wait
-                shutil.rmtree(tmp, ignore_errors=True)
+                for event in events:
+                    event.synchronize()
+                os.makedirs(tmp, exist_ok=True)
+                for (_, name), buf in zip(mine, buffers):
+                    with open(os.path.join(tmp, name), "wb") as f:
+                        if buf.numel():
+                            f.write(buf.reshape(-1).view(torch.uint8)
+                                    .numpy().data)
+                if alone:
+                    self._commit_dir(step, index, tmp)
+            except BaseException as exc:  # noqa: BLE001 — raised at commit
+                if alone:
+                    shutil.rmtree(tmp, ignore_errors=True)
                 errors.append(exc)
 
         thread = threading.Thread(target=write, daemon=True,
                                   name="cloud-tpu-ckpt-write")
         self._write_thread = thread
         thread.start()
+
+    def _commit_dir(self, step: int, index: Dict, tmp: str) -> None:
+        """Write the step's index into its temporary directory, rename
+        that to the step (it appears whole or not at all) and keep the
+        newest ``max_to_keep`` steps."""
+        with open(os.path.join(tmp, INDEX_NAME), "w", encoding="utf-8") as f:
+            json.dump(index, f)
+        os.rename(tmp, self._step_dir(step))
+        self._gc_steps()
+
+    def _commit(self) -> None:
+        """Commit the pending save, if any, and raise the error of a
+        failed write.  In one process the writer thread committed it.
+        Under several ranks each rank joins its own write, then all meet:
+        the chief commits the step (:meth:`_commit_dir`), or removes it
+        if any rank's write failed, which raises on every rank."""
+        pending, self._uncommitted = self._uncommitted, None
+        if not _several_ranks():
+            self._join_write()
+            if pending is not None:
+                self._pending_manifest.append(pending[0])
+            return
+        error = None
+        try:
+            self._join_write()
+        except Exception as exc:  # noqa: BLE001 — agreed on below
+            error = f"rank {distributed.process_index()}: {exc!r}"
+        errors = _gather(error)
+        failure = None
+        if _is_chief():
+            failure = next((e for e in errors if e), None)
+            if pending is not None:
+                step, index, tmp = pending
+                try:
+                    if failure is not None:
+                        raise RuntimeError(failure)
+                    self._commit_dir(step, index, tmp)
+                    self._pending_manifest.append(step)
+                except Exception as exc:  # noqa: BLE001 — agreed on below
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    failure = failure or repr(exc)
+        failure = _from_chief(failure)
+        if failure is not None:
+            raise RuntimeError(f"a checkpoint write failed: {failure}")
 
     def _gc_steps(self) -> None:
         """Keep the newest ``max_to_keep`` steps on disk."""
@@ -455,16 +770,24 @@ class CheckpointManager:
         for stale in self.steps()[:-self._max_to_keep]:
             shutil.rmtree(self._step_dir(stale), ignore_errors=True)
 
-    def restore(self, step: Optional[int] = None, *, template: Any = None):
+    def restore(self, step: Optional[int] = None, *, template: Any = None,
+                layout: Optional[StateLayout] = None):
         """The state saved at ``step`` (the latest by default).
 
         With a ``template`` (a state of the same structure, e.g. the
         trainer's own), each leaf comes back with the template's shape,
         dtype and device (and ``requires_grad``), and any mismatch in
-        structure, shape or dtype raises ``ValueError``.  Without one,
-        the saved tree comes back with its tensors on the manager's
-        device.  A step whose files are damaged raises too."""
-        _refuse_sharded("restore")
+        structure, shape or dtype raises ``ValueError``.  Under a mesh of
+        several ranks (``layout``, by default the manager's) the template
+        holds this rank's shards, and each leaf is read from the pieces
+        that cover its slice of the global tensor, whatever mesh (or one
+        process) saved it.  Without a template the saved tree comes back
+        whole, its tensors on the manager's device.  A step whose files
+        are damaged raises too."""
+        cuts, mesh = {}, None
+        if template is not None:
+            layout = self._layout_for(layout)
+            mesh = layout.mesh
         self._join_write(raise_error=False)
         step = self.latest_step() if step is None else step
         if step is None:
@@ -476,18 +799,26 @@ class CheckpointManager:
                       encoding="utf-8") as f:
                 index = json.load(f)
             entries = index["leaves"]
+            if template is not None:
+                flat: List[Tuple[str, Any]] = []
+                _flatten(template, "", flat)
+                cuts = {k: c for k, (_, c) in
+                        _leaf_layouts(template, flat, layout).items()}
 
             def leaf(i, like):
+                entry = entries[i]
                 if like is None:
-                    return _read_leaf(step_dir, entries[i],
-                                      pin=False).to(self._device)
+                    full = [[0, int(n)] for n in entry["shape"]]
+                    return _read_box(step_dir, entry, full,
+                                     pin=False).to(self._device)
                 want = _leaf_tensor(like)
-                value = _read_leaf(step_dir, entries[i],
-                                   pin=want.device.type == "cuda")
-                if (tuple(value.shape) != tuple(want.shape)
-                        or value.dtype != want.dtype):
+                box = _target_box(entry, cuts.get(entry["key"]), mesh,
+                                  want.shape)
+                value = _read_box(step_dir, entry, box,
+                                  pin=want.device.type == "cuda")
+                if value.dtype != want.dtype:
                     raise ValueError(
-                        f"checkpoint leaf {entries[i]['key']!r} is "
+                        f"checkpoint leaf {entry['key']!r} is "
                         f"{value.dtype}{list(value.shape)}, the template's "
                         f"{want.dtype}{list(want.shape)}")
                 if not torch.is_tensor(like):
@@ -515,11 +846,15 @@ class CheckpointManager:
     def wait(self) -> None:
         """Wait for the write in flight, then commit every pending
         manifest: the durability barrier before a process may exit.
-        Raises the error of a failed write."""
+        Raises the error of a failed write.  In a job of several
+        processes a collective call: every rank's write is committed
+        (with its manifest) before any rank returns."""
         try:
-            self._join_write()
+            self._commit()
         finally:
             self._finalize_pending()
+            if _several_ranks():
+                _from_chief(None)
 
     def close(self) -> None:
         try:
@@ -573,6 +908,8 @@ class CheckpointManager:
         keep = frozenset(str(s) for s in steps) | frozenset(
             str(s) for s in self._pending_manifest
         )
+        if self._uncommitted is not None:
+            keep |= {str(self._uncommitted[0])}
         thread = threading.Thread(
             target=self._finalize_steps, args=(steps, keep), daemon=True,
             name="cloud-tpu-ckpt-manifest",
@@ -789,7 +1126,16 @@ def resume_trainer_state(trainer, manager: CheckpointManager, *,
 
     The restore template is the trainer's own state, so each leaf keeps
     its shape, dtype and device; a window's CUDA graph then copies the
-    restored values into its static buffers at its next call.
+    restored values into its static buffers at its next call.  Under a
+    mesh of several ranks (the trainer's layout, :func:`layout_of`) each
+    rank restores straight into its shards.  In
+    a job of several processes every rank calls this together: the
+    chief lists the candidates and verifies each (and quarantines), the
+    choice is broadcast, and a restore that fails on any rank walks every
+    rank back to the same older step.  A stochastic state's rng chain
+    restores bit-exactly when the checkpoint carries it; a checkpoint of
+    the other ``stochastic`` setting restores the rest, the trainer's key
+    carried forward (:func:`_restore_matching_rng`).
 
     ``only_if_ahead`` (the preemption-recovery default) skips checkpoints
     not ahead of the current state; False lets a state saved at step 0
@@ -808,45 +1154,61 @@ def resume_trainer_state(trainer, manager: CheckpointManager, *,
         return False
     current = trainer.state
     current_step = int(current.step)
-    try:
-        candidates = [
-            s for s in sorted(manager.steps(), reverse=True)
-            if not (only_if_ahead and s <= current_step)
-        ]
-    except Exception:  # noqa: BLE001 — unreadable dir: fresh start
-        logger.exception("could not list checkpoints in %r",
-                         manager.directory)
-        return False
+    layout = layout_of(trainer)
+    ranks = _several_ranks()
+    chief = _is_chief()
+    agree = _from_chief if ranks else (lambda value: value)
+    candidates = None
+    if chief:
+        try:
+            candidates = [
+                s for s in sorted(manager.steps(), reverse=True)
+                if not (only_if_ahead and s <= current_step)
+            ]
+        except Exception:  # noqa: BLE001 — unreadable dir: fresh start
+            logger.exception("could not list checkpoints in %r",
+                             manager.directory)
+    candidates = agree(candidates)
     if not candidates:
         return False
     for step in candidates:
-        try:
-            status = manager.verify(step)
-        except Exception:  # noqa: BLE001 — chaos or IO error in verify
-            logger.exception("checkpoint verify raised at step %d; "
-                             "skipping it", step)
-            _note_fallback(step, "verify_error")
-            if quarantine:
+        status = None
+        if chief:
+            try:
+                status = manager.verify(step)
+            except Exception:  # noqa: BLE001 — chaos or IO error in verify
+                logger.exception("checkpoint verify raised at step %d; "
+                                 "skipping it", step)
+                status = "verify_error"
+        status = agree(status)
+        if status in ("verify_error", _CORRUPT):
+            if status == _CORRUPT:
+                logger.error(
+                    "checkpoint step %d failed integrity verification; "
+                    "walking back", step,
+                )
+            _note_fallback(step, "corrupt" if status == _CORRUPT
+                           else status)
+            if quarantine and chief:
                 manager.quarantine(step)
             continue
-        if status == _CORRUPT:
-            logger.error(
-                "checkpoint step %d failed integrity verification; "
-                "walking back", step,
-            )
-            _note_fallback(step, "corrupt")
-            if quarantine:
-                manager.quarantine(step)
-            continue
+        error = None
         try:
-            restored = manager.restore(step, template=current)
-        except Exception:  # noqa: BLE001 — walk back instead of dying
+            restored = _restore_matching_rng(manager, step, current, layout)
+        except Exception as exc:  # noqa: BLE001 — walk back instead of dying
             logger.exception(
                 "could not restore checkpoint step %d (%s); walking back",
                 step, status,
             )
+            error = repr(exc)
+        failed = (any(e is not None for e in _gather(error)) if ranks
+                  else error is not None)
+        if failed:
+            if error is None:
+                logger.error("checkpoint step %d failed to restore on "
+                             "another rank; walking back", step)
             _note_fallback(step, "restore_failed")
-            if quarantine:
+            if quarantine and chief:
                 manager.quarantine(step)
             continue
         trainer.state = restored
@@ -870,6 +1232,29 @@ def resume_trainer_state(trainer, manager: CheckpointManager, *,
         "or restore); starting fresh", manager.directory, len(candidates),
     )
     return False
+
+
+def _restore_matching_rng(manager: CheckpointManager, step: int,
+                          current: TrainState, layout: StateLayout):
+    """Restore ``step`` into the current state's structure.
+
+    A stochastic state (``current.rng`` not None) first tries the full
+    template, so the saved rng chain comes back bit-exact; a checkpoint
+    written without the rng leaf (the other ``stochastic`` setting)
+    restores with the fresh state's key carried forward.  A deterministic
+    state skips a saved rng leaf.  The JAX package's contract."""
+    try:
+        return manager.restore(step, template=current, layout=layout)
+    except ValueError:
+        logger.info("checkpoint step %d restore with the full template "
+                    "failed; retrying without its rng leaf", step,
+                    exc_info=True)
+    restored = manager.restore(
+        step, template=dataclasses.replace(
+            current, rng=None if current.rng is not None else _SKIP),
+        layout=layout)
+    restored.rng = current.rng
+    return restored
 
 
 class CheckpointCallback:
@@ -909,11 +1294,14 @@ class CheckpointCallback:
 
     # Lazily create the manager so the callback object stays picklable
     # before/after training (managers hold threads).
-    def _get(self) -> CheckpointManager:
+    def _get(self, trainer=None) -> CheckpointManager:
+        """The manager, built at first use with ``trainer``'s layout (its
+        mesh, logical axes and rules: :func:`layout_of`)."""
         if self._manager is None:
             self._manager = CheckpointManager(
                 self.directory, max_to_keep=self.max_to_keep,
                 save_interval_steps=self.every_n_steps, device=self.device,
+                layout=None if trainer is None else layout_of(trainer),
             )
         return self._manager
 
@@ -943,7 +1331,7 @@ class CheckpointCallback:
 
     def on_train_begin(self, trainer):
         if self.resume and trainer.state is not None:
-            resume_trainer_state(trainer, self._get(),
+            resume_trainer_state(trainer, self._get(trainer),
                                  apply_data_state=self.resume_data)
         # Arm the interval-crossing detector AFTER a possible restore, so
         # a resumed run measures crossings from its restored step.
@@ -968,7 +1356,7 @@ class CheckpointCallback:
             try:
                 # force: an off-multiple crossing step would be skipped
                 # by the modulo interval policy.
-                self._get().save(step, trainer.state,
+                self._get(trainer).save(step, trainer.state,
                                  extras=self._extras(trainer),
                                  force=not on_multiple)
             except Exception:  # noqa: BLE001 — a periodic save is
@@ -992,7 +1380,7 @@ class CheckpointCallback:
         verified state (the data stream keeps its current position: the
         batches that diverged it are not replayed)."""
         try:
-            manager = self._get()
+            manager = self._get(trainer)
             manager.wait()  # an in-flight save must land first
             return resume_trainer_state(
                 trainer, manager, only_if_ahead=False, apply_data_state=False
@@ -1016,7 +1404,7 @@ class CheckpointCallback:
         # fresh manager before it is allowed to take the job down.
         extras = self._extras(trainer)
         try:
-            manager = self._get()
+            manager = self._get(trainer)
             # force: the drain/final step is rarely a multiple of
             # every_n_steps, and the modulo interval policy would skip it.
             manager.save(int(state.step), state, extras=extras, force=True)
@@ -1026,7 +1414,7 @@ class CheckpointCallback:
                 "fresh manager"
             )
             self._reset_manager_after_failure()
-            manager = self._get()
+            manager = self._get(trainer)
             manager.save(int(state.step), state, extras=extras, force=True)
         manager.wait()
         manager.close()

@@ -7,9 +7,9 @@ Python default tears the process down mid-step and up to
 ``every_n_steps`` of training is thrown away; with this module the
 signal becomes a cooperative drain:
 
-1. The launcher (the JAX package's ``core.bootstrap``; the port's is not
-   written yet, ROADMAP.md A.6) or the training script calls
-   :func:`install_sigterm_handler` before training starts.
+1. The launcher (the port's container bootstrap, ``core.bootstrap``) or
+   the training script calls :func:`install_sigterm_handler` before
+   training starts.
 2. The handler sets a process-wide stop event (signal-safe: no locks, no
    allocation beyond a flag and a log).
 3. ``Trainer.fit`` checks :func:`stop_requested` at every dispatch

@@ -56,6 +56,7 @@ import torch
 from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import leaves, map_leaves
+from cloud_tpu_torch.monitoring import profiler
 from cloud_tpu_torch.ops import dispatch
 from cloud_tpu_torch.parallel import collectives, sharding
 from cloud_tpu_torch.parallel import mesh as mesh_lib
@@ -692,6 +693,7 @@ class _GraphedStep:
         return self.graphed.state
 
     def __call__(self, state: TrainState, batch):
+        profiler.safe_point()
         out = self.graphed.run(state, batch, None)
         metrics = {k: v.clone() for k, v in out.items()}
         if self._train:
@@ -707,6 +709,7 @@ class _TrainStep:
         self.mesh = mesh
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        profiler.safe_point()
         metrics = self._body(state, batch)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=state.opt_state, rng=state.rng), metrics
@@ -729,6 +732,7 @@ class _EvalStep:
         self._layouts: List[_MeshLayout] = []
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        profiler.safe_point()
         if self.mesh is None:
             return _eval_metrics(self._loss_fn, state, batch)
         if not self._layouts:
@@ -809,6 +813,7 @@ class _MultiStep:
         return window, window._graphed, tuple(range(self.steps_per_dispatch))
 
     def __call__(self, state: TrainState, super_batch, valid=None):
+        profiler.safe_point()
         k = self.steps_per_dispatch
         batch_leaves = leaves(super_batch)
         if batch_leaves and batch_leaves[0].shape[0] != k:

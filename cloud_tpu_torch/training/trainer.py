@@ -17,8 +17,9 @@ rank, ``parallel/``), ``fit`` runs eager steps through the step under a
 mesh (``train.make_train_step(mesh=...)``): each rank's dataset yields its
 own rows (the JAX package's multi-process contract: ``train.shard_batch``),
 prefetched to the rank's device, with validation, callbacks and
-accumulation as on one card (``CheckpointCallback``'s sharded saves stay
-queued under A.2).  The loss must be a ``train.mesh_loss``
+accumulation as on one card; ``CheckpointCallback`` saves each rank's
+shards and restores straight into them (``training.checkpoint``).  The
+loss must be a ``train.mesh_loss``
 (CloudLM's, MNIST's and ResNet's are).  Windows (``steps_per_dispatch`` >
 1) and compile-ahead under a mesh of more than one rank raise
 ``NotImplementedError`` naming ROADMAP.md A.2: their CUDA graphs cannot
@@ -41,7 +42,7 @@ from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import map_leaves
 from cloud_tpu_torch.monitoring import metrics as metrics_lib
-from cloud_tpu_torch.monitoring import tracing
+from cloud_tpu_torch.monitoring import profiler, tracing
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.training import compile_cache, pipeline_io, preemption
 from cloud_tpu_torch.training import train as train_lib
@@ -1013,6 +1014,8 @@ class Trainer:
             # The epoch loop never ran (a resumed position past the epochs
             # budget): the peek's iterator still owns a prefetch worker.
             peeked_iter.close()
+        # A server capture this loop started stops here, on its thread.
+        profiler.safe_point(last=True)
         for cb in callbacks:
             cb.on_train_end(self)
         return history

@@ -43,14 +43,18 @@ def _norm(leaves):
     return float(torch.sqrt(sum(torch.sum(x.double() ** 2) for x in leaves)))
 
 
+def cifar_arrays(n, num_classes, seed=0):
+    """The synthetic CIFAR arrays: labels drawn first, then the images."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, n)
+    images = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+    return {"image": images, "label": labels}
+
+
 def main(config=resnet.RESNET50_CIFAR, steps=STEPS, batch=BATCH):
     mesh = parallel.get_global_mesh()
-    rng = np.random.default_rng(0)
-    n = steps * batch
-    labels = rng.integers(0, config.num_classes, n)
-    images = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
-    ds = data.ArrayDataset({"image": images, "label": labels}, batch,
-                           shuffle=True, seed=0)
+    ds = data.ArrayDataset(cifar_arrays(steps * batch, config.num_classes),
+                           batch, shuffle=True, seed=0)
     losses = []
     t = trainer.Trainer(
         functools.partial(resnet.loss_fn, config=config),

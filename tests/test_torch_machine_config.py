@@ -25,12 +25,21 @@ def test_root_exports_the_reference_surface():
         assert (as_data(getattr(cloud_tpu_torch, name, None)) is not None)
     for name in ("run", "remote", "RunReport"):
         assert callable(getattr(cloud_tpu_torch, name))
-    for name, step in (("CloudTuner", "step 6"), ("CloudOracle", "step 6"),
-                       ("cloud_fit", "step 7")):
+    from cloud_tpu_torch import tuner
+
+    for name, want in (("CloudTuner", tuner.CloudTuner),
+                       ("CloudOracle", tuner.CloudOracle)):
         assert hasattr(cloud_tpu, name)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as got:
-            getattr(cloud_tpu_torch, name)
-        assert step in str(got.value)
+        assert getattr(cloud_tpu_torch, name) is want
+    # The function, or once imported the package, which calls it.
+    assert hasattr(cloud_tpu, "cloud_fit")
+    assert callable(cloud_tpu_torch.cloud_fit)
+    from cloud_tpu_torch.cloud_fit import client
+
+    assert callable(cloud_tpu_torch.cloud_fit)
+    with pytest.raises(ValueError, match="TrainerSpec"):
+        cloud_tpu_torch.cloud_fit(object(), "unused", train_data={})
+    assert client.cloud_fit.__module__ == "cloud_tpu_torch.cloud_fit.client"
     with pytest.raises(AttributeError):
         cloud_tpu_torch.no_such_name  # noqa: B018
 

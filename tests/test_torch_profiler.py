@@ -10,13 +10,18 @@ the JAX package's.
   same ``start_step``/``num_steps`` (each JAX ``StepTraceAnnotation``
   against each ``ProfilerStep#<n>`` range of the port's trace);
 * ``save_device_memory_profile``; the server's env gate and one
-  on-demand capture over its HTTP endpoint on ``localhost``.
+  on-demand capture over its HTTP endpoint on ``localhost``;
+* a capture requested while a training loop runs starts and stops on the
+  loop's thread, at its steps (or the end of ``Trainer.fit``); with no
+  loop it runs on the server's thread.
 """
 
 import glob
 import json
 import os
 import pickle
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +33,7 @@ import torch
 from cloud_tpu.monitoring import profiler as jax_profiler
 from cloud_tpu.training import trainer as jax_trainer
 from cloud_tpu_torch.monitoring import profiler, tracing
-from cloud_tpu_torch.training import optimizers, trainer
+from cloud_tpu_torch.training import optimizers, train, trainer
 
 torch.set_num_threads(1)
 
@@ -117,6 +122,7 @@ def test_server_env_gate_and_one_capture(monkeypatch, tmp_path):
     assert profiler.maybe_start_server_from_env() is False
     assert jax_profiler.maybe_start_server_from_env() is False
     monkeypatch.setenv(profiler.ENV_PROFILER_LOGDIR, str(tmp_path))
+    monkeypatch.setattr(profiler, "_safe_seen", float("-inf"))  # no loop
     host, port = profiler.start_server(0)
     try:
         assert host == "127.0.0.1"
@@ -138,6 +144,76 @@ def test_server_env_gate_and_one_capture(monkeypatch, tmp_path):
         assert profiler.maybe_start_server_from_env() is True
     finally:
         profiler.stop_server()
+
+
+def _linear_loss(params, batch):
+    loss = torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+    return loss, {"loss": loss.detach()}
+
+
+def _threads_of_trace_calls(monkeypatch):
+    """Record the thread of every start_trace / stop_trace."""
+    seen = []
+    for name in ("start_trace", "stop_trace"):
+        def wrapped(*args, _real=getattr(profiler, name), _name=name, **kw):
+            seen.append((_name, threading.get_ident()))
+            return _real(*args, **kw)
+        monkeypatch.setattr(profiler, name, wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("loop", ["steps", "fit"])
+def test_server_capture_runs_at_the_loops_steps(loop, monkeypatch, tmp_path):
+    """While steps run, the capture starts and stops at their safe points on
+    the loop's thread: at the first step ``duration_ms`` after its start,
+    or, when the loop is a ``Trainer.fit`` that ends sooner, at its end."""
+    monkeypatch.setenv(profiler.ENV_PROFILER_LOGDIR, str(tmp_path))
+    seen = _threads_of_trace_calls(monkeypatch)
+    tr = trainer.Trainer(_linear_loss, optimizers.sgd(0.1),
+                         init_fn=lambda _: {"w": torch.zeros(4, 2)},
+                         device="cpu")
+    tr.init_state(None)
+    step = train.make_train_step(_linear_loss, optimizers.sgd(0.1))
+    batch = {k: torch.as_tensor(v) for k, v in next(_data(torch)()).items()}
+    state, _ = step(tr.state, batch)  # the loop is live
+    _, port = profiler.start_server(0)
+    try:
+        answer = {}
+        asker = threading.Thread(target=lambda: answer.update(
+            profiler.request_capture(port, 200 if loop == "steps" else 60e3)))
+        asker.start()
+        while asker.is_alive() and not seen:
+            time.sleep(0.01)
+            state, _ = step(state, batch)
+        if loop == "steps":
+            while asker.is_alive():
+                state, _ = step(state, batch)
+                time.sleep(0.01)
+        else:
+            tr.fit(_data(torch), epochs=1, prefetch=0)
+        asker.join(timeout=30)
+        assert not asker.is_alive()
+    finally:
+        profiler.stop_server()
+    assert answer["trace"] in _profile_files(str(tmp_path))
+    assert seen == [("start_trace", threading.get_ident()),
+                    ("stop_trace", threading.get_ident())]
+    assert profiler._pending is None and profiler._active is None
+    assert any(n and "mm" in n for n in _names(answer["trace"]))
+
+
+def test_server_captures_on_its_thread_without_a_loop(monkeypatch, tmp_path):
+    monkeypatch.setenv(profiler.ENV_PROFILER_LOGDIR, str(tmp_path))
+    monkeypatch.setattr(profiler, "_safe_seen", float("-inf"))
+    seen = _threads_of_trace_calls(monkeypatch)
+    _, port = profiler.start_server(0)
+    try:
+        answer = profiler.request_capture(port, 20)
+    finally:
+        profiler.stop_server()
+    assert answer["trace"] in _profile_files(str(tmp_path))
+    assert [name for name, _ in seen] == ["start_trace", "stop_trace"]
+    assert seen[0][1] == seen[1][1] != threading.get_ident()
 
 
 def _data(lib):

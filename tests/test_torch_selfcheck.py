@@ -7,7 +7,10 @@ device a rank), asserting what ``tests/unit/test_multiprocess.py``
 asserts of the JAX package's CLI in every mode:
 
 - ``basic`` on 2 ranks: the topology, ``global_sum == expected_sum``,
-  one finite loss on every rank;
+  one finite loss on every rank, and that loss the JAX package's sharded
+  MNIST step's (``create_sharded_state`` + ``make_train_step(mesh=,
+  logical_axes=)`` under a ``dp`` mesh of two devices) on the same
+  weights and the two ranks' rows, within 1e-4;
 - ``transformer``, ``pp``, ``tp``, ``sp`` and ``ulysses`` on 4 ranks:
   the mesh reported (sized from 4 ranks as the JAX CLI sizes it from the
   device count), ``ok`` and one finite loss on every rank;
@@ -84,6 +87,51 @@ def test_basic_topology_reduction_and_step(basic_fleet):
         assert rep["ok"] is True
     # Every process computes the same global loss.
     assert len({round(rep["loss"], 5) for rep in reports}) == 1
+
+
+def test_basic_step_is_the_jax_sharded_mnist_step(basic_fleet):
+    import functools
+
+    import jax
+    import optax
+    import torch
+
+    from cloud_tpu import parallel as jax_parallel
+    from cloud_tpu.models import mnist as jax_mnist
+    from cloud_tpu.training import train as jax_train
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import mnist
+
+    reports = _clean(basic_fleet)
+    # The ranks' weights (seed 0 on the CPU) and rows (rank r draws from
+    # default_rng(r): 2 images, then 2 labels).
+    params = bridge.mnist_to_numpy(bridge.init_mnist(
+        mnist.MnistConfig(hidden_dim=16), torch.Generator().manual_seed(0),
+        device="cpu"))
+    images, labels = [], []
+    for rank in range(2):
+        rng = np.random.default_rng(rank)
+        images.append(rng.normal(size=(2, 784)).astype(np.float32))
+        labels.append(rng.integers(0, 10, 2))
+    cfg = jax_mnist.MnistConfig(hidden_dim=16)
+    axes = jax_mnist.param_logical_axes(cfg)
+    mesh = jax_parallel.MeshSpec({"dp": 2}).build(jax.devices()[:2])
+    with jax_parallel.use_mesh(mesh):
+        state = jax_train.create_sharded_state(
+            jax.random.PRNGKey(0),
+            lambda _: jax.tree_util.tree_map(jax.numpy.asarray, params),
+            optax.sgd(0.1), mesh, logical_axes=axes)
+        step = jax_train.make_train_step(
+            functools.partial(jax_mnist.loss_fn, config=cfg),
+            optax.sgd(0.1), logical_axes=axes, mesh=mesh)
+        batch = jax_train.shard_batch(
+            {"image": np.concatenate(images),
+             "label": np.concatenate(labels)}, mesh)
+        _, metrics = step(state, batch)
+    want = float(metrics["loss"])
+    for rep in reports:
+        assert abs(rep["loss"] - want) <= 1e-4 * max(1.0, abs(want)), (
+            rep["loss"], want)
 
 
 @pytest.fixture(scope="module")

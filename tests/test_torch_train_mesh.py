@@ -766,14 +766,43 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
             call()
         item = "A.3" if what == "MoE under sp" else "A.2"
         assert item in str(got.value), (what, str(got.value))
+    # Checkpoints under a mesh are ported (tests/test_torch_checkpoint_
+    # sharded.py): under an installed {tp: 2} mesh a manager needs the
+    # state's layout (without one it cannot tell a shard from a replica
+    # and refuses), and with it saves and restores; a pipeline stage's
+    # block of layers stays refused.
     state = train.create_sharded_state(None, lambda _: {"w": torch.ones(2)},
                                        sgd, device="cpu")
-    manager = checkpoint.CheckpointManager(str(tmp_path), device="cpu")
+    bare = checkpoint.CheckpointManager(str(tmp_path / "bare"),
+                                        device="cpu")
+    manager = checkpoint.CheckpointManager(
+        str(tmp_path), device="cpu", layout=checkpoint.StateLayout(
+            mesh=mesh, logical_axes={"w": (None,)}))
     with use_mesh(mesh):
-        for call in (lambda: manager.save(0, state),
-                     lambda: manager.restore(0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+        for call in (lambda: bare.save(0, state),
+                     lambda: bare.restore(0, template=state)):
+            with pytest.raises(ValueError, match="layout=StateLayout"):
                 call()
+        manager.save(0, state)
+        manager.wait()
+        restored = manager.restore(0, template=state)
+        assert torch.equal(restored.params["w"], state.params["w"])
+    manager.close()
+    manager = checkpoint.CheckpointManager(str(tmp_path / "layers"),
+                                           device="cpu")
+    from cloud_tpu_torch.parallel import sharding
+
+    pp = _fake_mesh({"pp": 2})
+    layers = train.create_sharded_state(
+        None, lambda _: {"layers": [{"w": torch.ones(2)}] * 2}, sgd,
+        device="cpu")
+    manager.save(1, layers)
+    manager.wait()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
+        manager.restore(1, template=layers, layout=checkpoint.StateLayout(
+            mesh=pp, logical_axes={"layers": sharding.LayerStack(
+                [{"w": ("embed",)}] * 2)},
+            rules=sharding.DEFAULT_RULES.extended(layers="pp")))
     manager.close()
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.make_train_step(lm_loss, sgd, mesh=object())
