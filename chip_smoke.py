@@ -220,7 +220,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    ``tests/helpers/torch_tuner_resnet_example.py`` (a dry run), each job's
    context and startup script booted as 9r boots its one, both at once on
    the card; the workers share one ``LocalStudyService`` directory (its
-   median stopping off, so every trial runs its epochs): 4
+   median stopping off, so every trial runs its epochs; the workers meet
+   once each holds a trial, so each runs at least one): 4
    trials of ResNet-50 CIFAR b256 bf16, learning rate and momentum, 2
    epochs of 3 steps each, all COMPLETED with 2 measurements and finite
    losses, K1-K4 launches exactly the workers' steps x 37/16/37/16;
@@ -238,7 +239,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    checkpoint whose manifest covers both ranks' files and verifies; a
    one-process ``remote.run`` restores that bit-equal to the ranks'
    gathered parameters; exact K1-K4 launches on every rank and in the
-   restoring run);
+   restoring run), and the ``gs://`` paths (9g: a storage client backed by
+   one local directory (``tests/helpers/torch_gcs_fake.py``), CIFAR
+   records written to ``gs://`` in 4 objects, ResNet-50 CIFAR b256 bf16
+   ``fit`` for 6 steps from ``RecordDataset("gs://.../train-*.rec")``
+   checkpointing to ``gs://`` every 2 steps; a fresh process (no
+   ``google.cloud`` importable) lists steps 2, 4 and 6, reads
+   ``"unmanifested"`` and no extras and restores the latest step bit for
+   bit; two ranks under the bootstrap's ``{fsdp: 2}`` plan take a step and
+   save to the same bucket, each its pieces, and this process restores
+   that bit for bit; exact K1-K4 launches);
 5. trains ResNet-50 at 224x224 (batch 128, bf16) for 3 + 5 steps, with
    the same launch checks and breakdown;
 6. trains CloudLM ``SMALL.scaled(tied_embeddings=True)`` at b4 x T1024
@@ -275,7 +285,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    norm within 1e-4 relative, its aux (the microbatches' mean) printed
    beside one process's; ``{pp: 2}`` in bf16 within 2e-2; each rank's
    launches exactly ``mesh_launches_per_layer`` x its layers
-   (``mesh_layers_held``) x steps);
+   (``mesh_layers_held``) x steps); 6mesh's ``tp fused_ce`` arm runs the
+   fused CE over the vocabulary split by tp; then the encoders under a
+   mesh (6enc: BERT-base b32 x T128 with ragged padding and ViT-B/16 224
+   b8 at full width and depth under ``{tp: 2}``, ``{sp: 2}`` and ``{fsdp:
+   2}`` in f32 against one process (step 1's loss within 1e-4 relative,
+   its gradient gathered whole within 1e-5 of its largest magnitude),
+   ``{tp: 2}`` in bf16 for 3 steps within 2e-2; MNIST (hidden units over
+   tp) and ResNet-50 CIFAR (replicas) under ``{tp: 2}``; each rank's
+   K5-K7 and K1-K4 launches exact; phase 2 (enc) first holds K5-K7 at
+   its new call shapes to their plain versions and times them);
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does; then the stochastic step (7s: dropout
@@ -289,20 +308,27 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    their plain versions at (128, 196, 12, 64) and (128, 197, 12, 64)
    non-causal, bf16 and f32, off the kernels' 64-row tiles (phase 2c
    times them at T=196 beside SDPA and the bound); one f32 SGD step at
-   2 layers, 56 px, patch 8 (T=49), card against CPU;
+   2 layers, 56 px, patch 8 (T=49), card against CPU; then the golden
+   workloads (10g: the port's copy of ``examples/generate_text.py``
+   trains CloudLM TINY and decodes greedy, nucleus, with 4 beams, with
+   int8 weights and with int8 weights and KV cache, its K5-K7 and K8/K8q
+   launches exact (``generate_text_launches``); the long-context ring
+   example on 4 ranks over gloo under the bootstrap, ``{sp: 4}`` zig-zag
+   with the fused CE and remat "dots", each rank's launches exact; the
+   save-and-load and custom-loop MNIST workloads on 2 ranks);
 9. prints one JSON line describing every kernel (a serving kernel's
    launches summed over the serving phases (3m included) and 7s, and
-   K5's also over 6m, 6d, 6mesh, 6pp and 8v, K6/K7's over 6, 7s, 6m,
-   6d, 6mesh, 6pp and 8v,
-   K1-K4's over phases 4, 4t, 4r, 4a, 4p, 9r's container, 9t's workers
-   and 9f's ranks and restoring run, each
+   K5's also over 6m, 6d, 6mesh, 6pp, 6enc, 8v and 10g, K6/K7's over 6,
+   7s, 6m, 6d, 6mesh, 6pp, 6enc, 8v and 10g, K8/K8q's over 10g too,
+   K1-K4's over phases 4, 4t, 4r, 4a, 4p, 9r's container, 9t's workers,
+   9f's ranks and restoring run, 9g and 6enc, each
    counted from 0 just before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Once the kernels are timed (after
-phase 2c), phases 3tp, 4r, 4k, 9r, 9m, 9t, 9f, 6mesh and 6pp run in a
-second process (``python3 chip_smoke.py --side <dir>``, ``SIDE_PHASES``)
-beside phases 3 to 8v; each counts its launches from 0 in its own
+phase 2c), phases 3tp, 4r, 4k, 9r, 9m, 9t, 9f, 6mesh, 6pp, 6enc, 9g and
+10g run in a second process (``python3 chip_smoke.py --side <dir>``,
+``SIDE_PHASES``) beside phases 3 to 8v; each counts its launches from 0 in its own
 process, and its output is printed after phase 8v.  Any failed phase
 ends the run with a nonzero exit and no result line; the phase it
 stopped in and the traceback go to stdout.
@@ -1351,15 +1377,20 @@ def _ring_contract_case(fa, gen, dtype, *, h, d):
                             scaled=True))}
 
 
-def _attn_bound(kernel, b, t, causal):
-    """(bound_ms, bound_by) of one bf16 call at [b, t, 12, 64]: each input
-    read once and each output written once; 2 B*H*D operations per
-    (query, key) pair a product visits (the causal half only under the
-    causal skip), times the kernel's products: K5 2, K6 3, K7 4."""
-    elems = b * t * HEADS * HEAD_DIM
-    rows = b * HEADS * t * 4  # one [B, H, T] f32 vector
-    pairs = t * (t + 1) // 2 if causal else t * t
-    per_product = 2 * b * HEADS * HEAD_DIM * pairs
+def _attn_bound(kernel, b, t, causal, h=HEADS, valid_keys=None):
+    """(bound_ms, bound_by) of one bf16 call at [b, t, h, 64]: each input
+    read once and each output written once; 2 H*D operations per (query,
+    key) pair a product visits (the causal half only under the causal
+    skip; under a padding mask the valid keys alone, ``valid_keys`` their
+    count over the batch), times the kernel's products: K5 2, K6 3, K7
+    4."""
+    elems = b * t * h * HEAD_DIM
+    rows = b * h * t * 4  # one [B, H, T] f32 vector
+    if valid_keys is not None:
+        pairs = t * valid_keys
+    else:
+        pairs = b * (t * (t + 1) // 2 if causal else t * t)
+    per_product = 2 * h * HEAD_DIM * pairs
     if kernel == "flash_fwd":  # q, k, v -> out, lse
         return bound_ms(4 * elems * 2 + rows, 2 * per_product, "bfloat16")
     if kernel == "flash_bwd_dq":  # q, k, v, dO, lse, rowterm -> dq
@@ -1369,31 +1400,34 @@ def _attn_bound(kernel, b, t, causal):
     return bound_ms(6 * elems * 2 + 2 * rows, 4 * per_product, "bfloat16")
 
 
-def _time_attention(fa, path, card, gen, shape=None, plain_device=True):
-    """Kernel, plain and library times of K5, K6 and K7 (bf16, no mask) at
-    one training path's shape (``TRAIN_SHAPES[path]``, or ``shape``),
-    with their bounds, each in event and device time
-    (:func:`event_and_device_ms`); the plain versions in event time alone
-    without ``plain_device`` (at ViT's B=128 the profiler's sessions of
-    the plain forward lost records of its copy kernel in five sessions
-    running).  The library yardstick is
-    ``F.scaled_dot_product_attention``: its forward for K5, its backward
-    (forward plus backward, less the forward) for K6 and K7."""
+def _time_attention(fa, path, card, gen, shape=None, plain_device=True,
+                    h=HEADS, mask_kind=None):
+    """Kernel, plain and library times of K5, K6 and K7 (bf16) at one
+    training path's shape (``TRAIN_SHAPES[path]``, or ``shape``; ``h``
+    heads; a key-padding mask of ``mask_kind``), with their bounds, each
+    in event and device time (:func:`event_and_device_ms`); the plain
+    versions in event time alone without ``plain_device`` (at ViT's B=128
+    the profiler's sessions of the plain forward lost records of its copy
+    kernel in five sessions running).  The library yardstick is
+    ``F.scaled_dot_product_attention`` (the mask as a boolean
+    ``attn_mask``): its forward for K5, its backward (forward plus
+    backward, less the forward) for K6 and K7."""
     import torch
     import torch.nn.functional as F
 
     b, t, causal = shape or TRAIN_SHAPES[path]
-    q, k, v, do, _ = _attn_inputs(b, t, torch.bfloat16, gen, mask_kind=None)
+    q, k, v, do, mask = _attn_inputs(b, t, torch.bfloat16, gen,
+                                     mask_kind=mask_kind, h=h)
     with torch.no_grad():
-        out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=None)
+        out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=mask)
         row = fa._row_term(do, out, None)
         calls = {
             "flash_fwd": lambda: fa._flash_kernel(q, k, v, causal=causal,
-                                                  mask=None),
+                                                  mask=mask),
             "flash_bwd_dq": lambda: fa._bwd_launch(
-                "flash_bwd_dq", q, k, v, None, do, lse, row, causal=causal),
+                "flash_bwd_dq", q, k, v, mask, do, lse, row, causal=causal),
             "flash_bwd_dkv": lambda: fa._bwd_launch(
-                "flash_bwd_dkv", q, k, v, None, do, lse, row, causal=causal),
+                "flash_bwd_dkv", q, k, v, mask, do, lse, row, causal=causal),
         }
         times = {name: event_and_device_ms(fn) for name, fn in calls.items()}
 
@@ -1403,15 +1437,17 @@ def _time_attention(fa, path, card, gen, shape=None, plain_device=True):
             return time_ms(fn, iters=5), None
 
         plain_fwd = plain_ms(lambda: fa._reference_with_lse(
-            q, k, v, causal=causal, mask=None))
+            q, k, v, causal=causal, mask=mask))
         plain_bwd = plain_ms(lambda: fa._bwd_reference(
-            q, k, v, None, do, out, lse, causal=causal))
+            q, k, v, mask, do, out, lse, causal=causal))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    keep = None if mask is None else mask.bool()[:, None, None, :]
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                              is_causal=causal)
 
     sdpa_fwd = event_and_device_ms(sdpa)
     sdpa_both = event_and_device_ms(
@@ -1422,10 +1458,13 @@ def _time_attention(fa, path, card, gen, shape=None, plain_device=True):
         fwd = name == "flash_fwd"
         plain, plain_dev = plain_fwd if fwd else plain_bwd
         library, library_dev = sdpa_fwd if fwd else sdpa_bwd
-        b_ms, b_by = _attn_bound(name, b, t, causal)
+        b_ms, b_by = _attn_bound(
+            name, b, t, causal, h=h,
+            valid_keys=None if mask is None else int(mask.sum()))
         entries[name] = {
-            "shape": f"B={b} T={t} H={HEADS} D={HEAD_DIM} bf16 "
-                     f"{'causal' if causal else 'non-causal'}, no mask",
+            "shape": f"B={b} T={t} H={h} D={HEAD_DIM} bf16 "
+                     f"{'causal' if causal else 'non-causal'}, "
+                     f"{'no mask' if mask is None else mask_kind + ' mask'}",
             "ms": kernel, "device_ms": kernel_dev,
             "plain_ms": plain, "plain_device_ms": plain_dev,
             "library_ms": library, "library_device_ms": library_dev,
@@ -6916,6 +6955,8 @@ def check_ring(device, card):
 MESH_ARMS = (("sp zigzag", {"sp": 2}, {"zigzag_sp": True}, "float32"),
              ("sp ulysses", {"sp": 2}, {"ulysses_sp": True}, "float32"),
              ("tp", {"tp": 2}, {}, "float32"),
+             # The fused cross-entropy over the vocabulary split by tp.
+             ("tp fused_ce", {"tp": 2}, {"fused_ce": True}, "float32"),
              ("fsdp", {"fsdp": 2}, {}, "float32"),
              ("bf16 sp zigzag", {"sp": 2}, {"zigzag_sp": True},
               "bfloat16"))
@@ -7196,9 +7237,10 @@ def _mesh_arm(rank, device, arm, ref=None, phase="6mesh"):
 
 
 def _mesh_follower(port, device_name, model, queue, setup=None,
-                   arms=MESH_ARMS, phase="6mesh"):
-    """Rank 1 of phase 6mesh or 6pp, in a spawned child: every arm in
-    order, as rank 0 runs them; after each, its report on ``queue`` (an
+                   arms=MESH_ARMS, phase="6mesh", arm_fn=None, arm_kw=None):
+    """Rank 1 of phase 6mesh, 6pp or 6enc, in a spawned child: every arm
+    in order, as rank 0 runs them (``arm_fn``, :func:`_mesh_arm` by
+    default, with ``arm_kw``); after each, its report on ``queue`` (an
     error's repr if it fails).  ``setup``, a module-level function, runs
     first (a CPU rehearsal patches the kernels with it)."""
     import datetime
@@ -7221,7 +7263,8 @@ def _mesh_follower(port, device_name, model, queue, setup=None,
                             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
         for arm in arms:
-            queue.put(_mesh_arm(1, device, arm, phase=phase))
+            queue.put((arm_fn or _mesh_arm)(1, device, arm, phase=phase,
+                                            **(arm_kw or {})))
     except BaseException as exc:  # noqa: BLE001 — reported to rank 0
         queue.put(repr(exc))
         raise
@@ -7230,35 +7273,71 @@ def _mesh_follower(port, device_name, model, queue, setup=None,
 
 
 def _run_mesh_arms(device, card, phase, arms, setup=None):
-    """Rank 0 here and rank 1 in a spawned child, both on ``device`` over
-    gloo, run ``arms`` in order (:func:`_mesh_arm`), each held to one
-    process's steps (:func:`_mesh_reference`, one a :func:`_ref_key`),
-    which run first.  Returns {"arms": {name: {"rank0", "rank1"}},
-    "launches": K5-K7 summed over both ranks and every arm}."""
-    import datetime
-    import multiprocessing
-    import queue as queue_lib
-
+    """6mesh's and 6pp's arms (:func:`_mesh_arm`) on two ranks
+    (:func:`_two_rank_arms`), each held to one process's steps
+    (:func:`_mesh_reference`, one a :func:`_ref_key`), which run first."""
     import torch
-    import torch.distributed as dist
 
-    refs = {}
+    refs, by_key = {}, {}
     for arm in arms:
         key = _ref_key(arm)
-        if key not in refs:
+        if key not in by_key:
             _, _, fields, dtype_name, batch_n, _ = _arm_parts(arm)
-            refs[key] = _mesh_reference(
+            by_key[key] = _mesh_reference(
                 device, dtype_name, fields,
                 MESH_STEPS if dtype_name == "float32" else MESH_BF16_STEPS,
                 batch_n)
             torch.cuda.empty_cache()
+        refs[arm[0]] = by_key[key]
+
+    def describe(arm, mine, theirs, ref):
+        m0, r0 = mine["metrics"], ref[0]
+        extra = (f"gradient within {mine['grad_err_rel']:.2e} of its "
+                 f"largest magnitude, " if "grad_err_rel" in mine else "")
+        if "ce_grad_norm" in mine:
+            extra += ("CE {:.6f} ({:.6f}), CE gradient norm {:.6f} "
+                      "({:.6f}), ").format(m0[0]["ce"], r0[0]["ce"],
+                                           *mine["ce_grad_norm"])
+        if "aux" in mine:
+            extra += "aux {:.6e} ({:.6e}), ".format(*mine["aux"])
+        print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
+              f"{m0[1]['loss']:.6f} against one process's "
+              f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
+              f"{m0[0]['grad_norm']:.6f} ({r0[0]['grad_norm']:.6f}), "
+              f"{extra}largest param difference "
+              f"{mine['param_diff']:.3e}; {mine['steps_per_s']:.3f} "
+              f"steps/s on 2 ranks against "
+              f"{mine['one_process_steps_per_s']:.3f} in one process; "
+              f"launches rank 0 {mine['launches']}, rank 1 "
+              f"{theirs['launches']} [{card}]")
+
+    return _two_rank_arms(device, phase, arms, refs, _mesh_arm, describe,
+                          setup=setup, model=MESH_MODEL)
+
+
+def _two_rank_arms(device, phase, arms, refs, arm_fn, describe, *,
+                   setup=None, model=None, arm_kw=None):
+    """Rank 0 here and rank 1 in a spawned child (:func:`_mesh_follower`),
+    both on ``device`` over gloo, run ``arms`` in order:
+    ``arm_fn(rank, device, arm, ref, phase=, **arm_kw)``, rank 0 given
+    ``refs[arm[0]]`` to hold its results to; ``describe(arm, rank 0's
+    report, rank 1's, ref)`` prints each.  Returns {"arms": {name:
+    {"rank0", "rank1"}}, "launches": every kernel's launches summed over
+    both ranks and every arm}."""
+    import datetime
+    import multiprocessing
+    import queue as queue_lib
+
+    import torch.distributed as dist
+
     store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
                           timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     ctx = multiprocessing.get_context("spawn")
     reports = ctx.Queue()
     child = ctx.Process(target=_mesh_follower,
-                        args=(store.port, str(device), MESH_MODEL, reports,
-                              setup, arms, phase), daemon=True)
+                        args=(store.port, str(device), model, reports,
+                              setup, arms, phase, arm_fn, arm_kw),
+                        daemon=True)
     child.start()
     out = {"arms": {}}
     try:
@@ -7266,8 +7345,8 @@ def _run_mesh_arms(device, card, phase, arms, setup=None):
             "gloo", store=store, rank=0, world_size=2,
             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
         for arm in arms:
-            ref = refs[_ref_key(arm)]
-            mine = _mesh_arm(0, device, arm, ref, phase=phase)
+            ref = refs[arm[0]]
+            mine = arm_fn(0, device, arm, ref, phase=phase, **(arm_kw or {}))
             try:
                 theirs = reports.get(timeout=MESH_TIMEOUT_S)
             except queue_lib.Empty:
@@ -7277,26 +7356,7 @@ def _run_mesh_arms(device, card, phase, arms, setup=None):
             if isinstance(theirs, str):
                 raise AssertionError(f"{phase} {arm[0]}: rank 1 failed: "
                                      f"{theirs}")
-            m0, r0 = mine["metrics"], ref[0]
-            extra = (f"gradient within {mine['grad_err_rel']:.2e} of its "
-                     f"largest magnitude, " if "grad_err_rel" in mine else "")
-            if "ce_grad_norm" in mine:
-                extra += ("CE {:.6f} ({:.6f}), CE gradient norm {:.6f} "
-                          "({:.6f}), ").format(
-                              m0[0]["ce"], r0[0]["ce"],
-                              *mine["ce_grad_norm"])
-            if "aux" in mine:
-                extra += "aux {:.6e} ({:.6e}), ".format(*mine["aux"])
-            print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
-                  f"{m0[1]['loss']:.6f} against one process's "
-                  f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
-                  f"{m0[0]['grad_norm']:.6f} ({r0[0]['grad_norm']:.6f}), "
-                  f"{extra}largest param difference "
-                  f"{mine['param_diff']:.3e}; {mine['steps_per_s']:.3f} "
-                  f"steps/s on 2 ranks against "
-                  f"{mine['one_process_steps_per_s']:.3f} in one process; "
-                  f"launches rank 0 {mine['launches']}, rank 1 "
-                  f"{theirs['launches']} [{card}]")
+            describe(arm, mine, theirs, ref)
             out["arms"][arm[0]] = {"rank0": mine, "rank1": theirs}
         child.join(timeout=MESH_TIMEOUT_S)
         if child.exitcode != 0:
@@ -7307,16 +7367,20 @@ def _run_mesh_arms(device, card, phase, arms, setup=None):
         if child.is_alive():
             child.kill()
             child.join()
+    names = sorted({k for a in out["arms"].values()
+                    for k in a["rank0"]["launches"]})
     out["launches"] = {
-        k: sum(a["rank0"]["launches"][k] + a["rank1"]["launches"][k]
-               for a in out["arms"].values()) for k in TRAIN_ATTN_KERNELS}
+        k: sum(a["rank0"]["launches"].get(k, 0)
+               + a["rank1"]["launches"].get(k, 0)
+               for a in out["arms"].values()) for k in names}
     return out
 
 
 def run_mesh_training(device, card, setup=None):
     """6mesh: CloudLM SMALL at full width and depth trained under a 2-rank
     mesh, rank 0 here and rank 1 in a spawned child, both on ``device``
-    over gloo: ``{sp: 2}`` zig-zag, ``{sp: 2}`` Ulysses, ``{tp: 2}`` and
+    over gloo: ``{sp: 2}`` zig-zag, ``{sp: 2}`` Ulysses, ``{tp: 2}`` (with
+    the plain CE, and with the fused CE over the tp-split vocabulary) and
     ``{fsdp: 2}`` in f32 (TF32 off), each held to one process running the
     same steps on the same weights and batch (step 1's loss and
     ``grad_norm`` and step 2's loss within 1e-4 relative; step 1's
@@ -7874,6 +7938,8 @@ def run_tuner_phase(device, card, *, batch=CIFAR_BATCH, rig="cuda",
         study_id, reports = tuner.dispatch_search(
             search["workers"], entry_point=TUNER_ENTRY,
             entry_point_args=["--study-dir", study_dir,
+                              "--meet-dir", os.path.join(root, "meet"),
+                              "--workers", str(search["workers"]),
                               "--max-trials", str(search["max_trials"]),
                               "--epochs", str(search["epochs"]),
                               "--steps", str(search["steps"]),
@@ -8261,6 +8327,784 @@ def run_cloud_fit_phase(device, card, *, config=None, batch=CIFAR_BATCH,
             "history": history, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 2 (enc) and 6enc: BERT-base and ViT-B/16 trained under a mesh
+# ---------------------------------------------------------------------------
+
+#: 6enc's batches: BERT-base b32 x T128 with ragged padding (bench.py's
+#: BERT shape), ViT-B/16 at 224 px with a small batch, MNIST and ResNet-50
+#: CIFAR rows.
+ENC_VIT_BATCH, ENC_MNIST_BATCH, ENC_RESNET_BATCH = 8, 64, 32
+#: 6enc's arms, in the order both ranks run them: (name, model, mesh
+#: sizes, dtype name, steps).  The f32 arms hold step 1's loss, its
+#: gradient and the parameters after the steps to one process; the bf16
+#: arms take 3 steps.
+ENC_ARMS = (
+    ("bert tp", "bert", {"tp": 2}, "float32", 1),
+    ("bert sp", "bert", {"sp": 2}, "float32", 1),
+    ("bert fsdp", "bert", {"fsdp": 2}, "float32", 1),
+    ("bert tp bf16", "bert", {"tp": 2}, "bfloat16", 3),
+    ("vit tp", "vit", {"tp": 2}, "float32", 1),
+    ("vit sp", "vit", {"sp": 2}, "float32", 1),
+    ("vit fsdp", "vit", {"fsdp": 2}, "float32", 1),
+    ("vit tp bf16", "vit", {"tp": 2}, "bfloat16", 3),
+    ("mnist tp", "mnist", {"tp": 2}, "float32", 2),
+    ("resnet tp", "resnet", {"tp": 2}, "float32", 2),
+)
+#: 6enc's SGD learning rate, its gradient limit (a fraction of the
+#: gradient's largest magnitude) against one process, and its limit on
+#: the parameters after the steps (a fraction of one process's largest
+#: change of a parameter, plus two f32 ulps of the largest parameter).
+ENC_LR, ENC_GRAD_TOL, ENC_PARAM_TOL = 1e-3, 1e-5, 1e-3
+#: The K5-K7 shapes 6enc adds, timed by phase 2 (enc): (label, batch,
+#: T, heads, mask kind).
+ENC_KERNEL_SHAPES = (
+    ("BERT tp rank", BERT_BATCH, BERT_SEQ, HEADS // 2, "tail"),
+    ("BERT sp block", BERT_BATCH, BERT_SEQ // 2, HEADS, "tail"),
+    ("ViT tp rank", ENC_VIT_BATCH, 196, HEADS // 2, None),
+    ("ViT sp block", ENC_VIT_BATCH, 196 // 2, HEADS, None),
+)
+
+
+def check_enc_kernels(device, card):
+    """K5, K6 and K7 at 6enc's new call shapes (a BERT tp rank's 6 heads,
+    masked; a BERT sp block of 64 positions, masked; a ViT tp rank's 6
+    heads at T=196; a ViT sp block of 98 positions, off the 64-row
+    tiles), bf16 and f32, against their plain versions
+    (:func:`_bwd_case`); then each timed in bf16 beside the plain version,
+    SDPA and the bound (:func:`_time_attention`).  Returns {"max_abs_err":
+    {"<kernel> <dtype>": err}, "rows": {label: {kernel: entry}}}."""
+    import torch
+
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    worst, rows = {}, {}
+    for label, b, t, h, mask_kind in ENC_KERNEL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            errs = _bwd_case(fa, b, t, False, dtype, gen,
+                             mask_kind=mask_kind, glse=False, h=h)
+            for kname in TRAIN_ATTN_KERNELS:
+                key = f"{kname} {dname}"
+                worst[key] = max(worst.get(key, 0.0), errs[kname])
+            print(f"  K5/K6/K7 {label} B={b} T={t} H={h} {dname} "
+                  f"mask={mask_kind}: max_abs_err out "
+                  f"{errs['flash_fwd']:.3e}, dq {errs['flash_bwd_dq']:.3e}, "
+                  f"dk/dv {errs['flash_bwd_dkv']:.3e} [{card}]")
+        rows[label] = _time_attention(fa, label, card, gen,
+                                      shape=(b, t, False), h=h,
+                                      mask_kind=mask_kind)
+    dispatch.reset_launch_counts()
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def _enc_setup(device, model, dtype_name, configs=None):
+    """The arm's model at full width (``configs[model]`` overrides it in a
+    rehearsal): (config, full params from seed 0 on ``device``, the global
+    batch, logical axes, its loss_fn with the config bound, the
+    kernels' launches one step of one rank makes as a function of the mesh
+    sizes)."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import bert, mnist, resnet, vit
+
+    configs = configs or {}
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def attention(layers_n, remat):
+        def per_step(sizes):
+            calls = sizes.get("sp", 1)  # the non-causal ring's hops
+            return {"flash_fwd": calls * (2 if remat else 1) * layers_n,
+                    "flash_bwd_dq": calls * layers_n,
+                    "flash_bwd_dkv": calls * layers_n}
+        return per_step
+
+    def on(batch):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    if model == "bert":
+        cfg = dataclasses.replace(configs.get("bert", bert.BERT_BASE),
+                                  dtype=dtype)
+        b, t = BERT_BATCH, min(BERT_SEQ, cfg.max_seq_len)
+        lengths = rng.integers(t // 4, t + 1, b)
+        lengths[0] = t
+        batch = {"tokens": rng.integers(1, cfg.vocab_size, (b, t)),
+                 "attention_mask": (np.arange(t)[None] < lengths[:, None]
+                                    ).astype(np.int32),
+                 "label": rng.integers(0, cfg.num_classes, b)}
+        return (cfg, bridge.init_bert(cfg, gen, device=device), on(batch),
+                bert.param_logical_axes(cfg),
+                functools.partial(bert.loss_fn, cfg=cfg),
+                attention(cfg.num_layers, cfg.remat != "none"))
+    if model == "vit":
+        cfg = configs.get("vit", vit.VIT_BASE_16).scaled(dtype=dtype)
+        size = cfg.image_size
+        batch = {"image": rng.normal(size=(ENC_VIT_BATCH, size, size,
+                                           cfg.channels)).astype(np.float32),
+                 "label": rng.integers(0, cfg.num_classes, ENC_VIT_BATCH)}
+        return (cfg, bridge.init_vit(cfg, gen, device=device), on(batch),
+                vit.param_logical_axes(cfg),
+                functools.partial(vit.loss_fn, cfg=cfg),
+                attention(cfg.num_layers, cfg.remat))
+    if model == "mnist":
+        cfg = configs.get("mnist", mnist.MnistConfig())
+        batch = {"image": rng.normal(size=(ENC_MNIST_BATCH, 784)).astype(
+            np.float32), "label": rng.integers(0, 10, ENC_MNIST_BATCH)}
+        return (cfg, bridge.init_mnist(cfg, gen, device=device), on(batch),
+                mnist.param_logical_axes(cfg),
+                functools.partial(mnist.loss_fn, config=cfg),
+                lambda sizes: {})
+    cfg = dataclasses.replace(configs.get("resnet", resnet.RESNET50_CIFAR),
+                              dtype=dtype)
+    return (cfg, bridge.init_resnet(cfg, gen, device=device),
+            on(_cifar_arrays(ENC_RESNET_BATCH, 5)),
+            resnet.param_logical_axes(cfg),
+            functools.partial(resnet.loss_fn, config=cfg),
+            lambda sizes: dict(GN_PER_STEP))
+
+
+def _enc_reference(device, arm, configs=None):
+    """One process, no mesh, on the whole batch: (per-step metrics, steps/s
+    over the steps, and in f32 arms step 1's gradient leaves, the
+    parameter leaves after the steps and their largest change)."""
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves
+    from cloud_tpu_torch.training import optimizers, train
+
+    _, model, _, dtype_name, steps = arm
+    cfg, params, batch, _, loss, _ = _enc_setup(device, model, dtype_name,
+                                                configs)
+    initial = [p.detach().clone() for p in leaves(params)]
+    tx = optimizers.sgd(ENC_LR)
+    state = train.create_sharded_state(None, lambda _: params, tx,
+                                       device=device)
+    loss = functools.partial(loss, device=device)
+    grads = None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the arm's (C3)
+    try:
+        if dtype_name == "float32":
+            _, grads = train._grads(loss, state.params, batch)
+            grads = [g.detach() for g in grads]
+        step = train.make_train_step(loss, tx)
+        metrics = []
+        _sync(device)
+        start = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        _sync(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rate = steps / (time.perf_counter() - start)
+    if grads is None:
+        return metrics, rate, None
+    final = [p.detach().clone() for p in leaves(state.params)]
+    change = max(float((a - b).abs().max()) for a, b in zip(final, initial))
+    return metrics, rate, grads, final, change
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _enc_arm(rank, device, arm, ref=None, phase="6enc", configs=None):
+    """One arm of 6enc on this rank: the mesh over the default group, the
+    state cut from the full weights by the model's logical axes, this
+    rank's rows (its data coordinate's), step 1's gradient through the
+    step's own gather and sync gathered whole and held to one process's
+    (f32: within ``ENC_GRAD_TOL`` of its largest magnitude), then the
+    steps with the kernels' launches counted from 0 (exact on the card),
+    each step's loss held to one process's (f32: 1e-4, bf16: 2e-2
+    relative) and, in f32, the parameters after the steps gathered whole
+    and held to one process's (``ENC_PARAM_TOL``).  Returns the rank's
+    report."""
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves, map_leaves
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.parallel import MeshSpec, sharding
+    from cloud_tpu_torch.training import optimizers, train
+
+    name, model, sizes, dtype_name, steps = arm
+    mesh = MeshSpec(sizes).build(devices=[device] * 2, backend="gloo")
+    cfg, params, batch, axes, loss, per_step = _enc_setup(
+        device, model, dtype_name, configs)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # ResNet's convolutions (C3)
+    tx = optimizers.sgd(ENC_LR)
+    state = train.create_sharded_state(
+        None, lambda _: map_leaves(params, torch.clone), tx, mesh=mesh,
+        logical_axes=axes)
+    del params
+    loss = functools.partial(loss, mesh=mesh)
+    data = mesh.axis_size("dp") * mesh.axis_size("fsdp")
+    index = (mesh.axis_index("dp") * mesh.axis_size("fsdp")
+             + mesh.axis_index("fsdp"))
+    local = {k: v[index * len(v) // data:(index + 1) * len(v) // data]
+             for k, v in batch.items()}
+    f32 = dtype_name == "float32"
+    report = {"arm": name}
+    try:
+        if f32:
+            layout = train._MeshLayout(mesh, None, axes, state.params)
+            _, grads = train._grads(loss, layout.gather(state.params), local)
+            whole = leaves(sharding.gather_tree(
+                train._with_leaves(state.params, iter(layout.sync(grads))),
+                axes, mesh))
+            if ref is not None:
+                scale = max(float(g.abs().max()) for g in ref[2])
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(whole, ref[2]))
+                report["grad_err_rel"] = err / scale
+                if err > ENC_GRAD_TOL * scale:
+                    raise AssertionError(
+                        f"{phase} {name}: step 1's gradient differs from one "
+                        f"process's by {err:.3e} (> {ENC_GRAD_TOL} of "
+                        f"{scale:.3e})")
+            del whole, grads
+        step = train.make_train_step(loss, tx, mesh=mesh, logical_axes=axes)
+        _sync(device)
+        dispatch.reset_launch_counts()
+        metrics = []
+        start = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, local)
+            metrics.append({k: float(v) for k, v in m.items()})
+        _sync(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    report["steps_per_s"] = steps / (time.perf_counter() - start)
+    report["metrics"] = metrics
+    want = {k: v * steps for k, v in per_step(sizes).items()}
+    report["launches"] = dispatch.launch_counts(tuple(want))
+    if device.type == "cuda" and report["launches"] != want:
+        raise AssertionError(f"{phase} {name} rank {rank}: launches "
+                             f"{report['launches']}, want {want}")
+    if ref is not None:
+        rel = TOL_F32 if f32 else 2e-2
+        for i, (m, r) in enumerate(zip(metrics, ref[0])):
+            if not np.isfinite(m["loss"]) or abs(
+                    m["loss"] - r["loss"]) > rel * abs(r["loss"]):
+                raise AssertionError(
+                    f"{phase} {name}: step {i + 1}'s loss {m['loss']!r} "
+                    f"against one process's {r['loss']!r} (limit {rel} "
+                    "relative)")
+        report["one_process_steps_per_s"] = ref[1]
+    if f32:
+        final = leaves(sharding.gather_tree(state.params, axes, mesh))
+        if ref is not None:
+            err = max(float((a.detach() - b).abs().max())
+                      for a, b in zip(final, ref[3]))
+            top = max(float(b.abs().max()) for b in ref[3])
+            limit = (ENC_PARAM_TOL * ref[4]
+                     + 2 * float(torch.finfo(torch.float32).eps) * top)
+            report["param_err_rel"] = err / ref[4]
+            if not err <= limit:
+                raise AssertionError(
+                    f"{phase} {name}: the parameters after {steps} step(s) "
+                    f"differ from one process's by {err:.3e} (limit "
+                    f"{limit:.3e}; one process's largest change "
+                    f"{ref[4]:.3e})")
+        del final
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def run_encoder_mesh(device, card, configs=None):
+    """6enc: BERT-base (b32 x T128, ragged padding) and ViT-B/16 (224 px,
+    b8) at full width and depth trained under 2-rank meshes, rank 0 here
+    and rank 1 in a spawned child, both on ``device`` over gloo: ``{tp:
+    2}``, ``{sp: 2}`` and ``{fsdp: 2}`` in f32 (TF32 off), each held to one
+    process on the same weights and batch (step 1's loss within 1e-4
+    relative, its gradient gathered whole within 1e-5 of its largest
+    magnitude, the parameters after the step gathered whole within 1e-3
+    of one process's largest change of a parameter), then 3 steps under ``{tp: 2}`` in bf16 (each loss within
+    2e-2 relative of one process's); MNIST (hidden units split over tp)
+    and ResNet-50 CIFAR (replicas, deterministic cuDNN) under ``{tp: 2}``,
+    2 steps each held to one process.  Each rank's K5-K7 launches are the
+    ring's hops (``sp``, else 1) x layers (K5 twice under ViT's remat) x
+    steps, K1-K4 ResNet's 37/16/37/16 a step.  ``configs`` ({model:
+    config}) shrinks the models for a CPU rehearsal.  CloudLM SMALL's
+    fused CE over a tp-split vocabulary runs in 6mesh's ``tp fused_ce``
+    arm."""
+    import torch
+
+    refs = {}
+    for arm in ENC_ARMS:
+        refs[arm[0]] = _enc_reference(device, arm, configs)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def describe(arm, mine, theirs, ref):
+        got = [round(m["loss"], 6) for m in mine["metrics"]]
+        want = [round(r["loss"], 6) for r in ref[0]]
+        extra = (f", gradient within {mine['grad_err_rel']:.2e} of its "
+                 "largest magnitude, parameters after the steps within "
+                 f"{mine['param_err_rel']:.2e} of one process's largest "
+                 "change" if "grad_err_rel" in mine else "")
+        print(f"  {arm[0]} {arm[3]} {arm[2]}: losses {got} against one "
+              f"process's {want}{extra}; {mine['steps_per_s']:.3f} steps/s "
+              f"on 2 ranks against {mine['one_process_steps_per_s']:.3f} in "
+              f"one process; launches rank 0 {mine['launches']}, rank 1 "
+              f"{theirs['launches']} [{card}]")
+
+    return _two_rank_arms(device, "6enc", ENC_ARMS, refs, _enc_arm,
+                          describe, arm_kw={"configs": configs})
+
+
+# ---------------------------------------------------------------------------
+# Phase 9g: the gs:// paths on a directory-backed storage client
+# ---------------------------------------------------------------------------
+
+#: 9g: records in 4 shards, a fit of 6 steps checkpointing every 2, one
+#: step of the two {fsdp: 2} ranks before their save.
+GCS_FIT = {"steps": 6, "every": 2, "shards": 4, "ranks": 2}
+
+#: The {fsdp: 2} ranks of 9g (a bootstrap entry point; its argument is the
+#: phase's directory): one step of ResNet from seed 0 with the kernels'
+#: output channels on ``embed``, a sharded save to the bucket, rank 0's
+#: gathered parameters dumped; each rank's report a JSON file.
+GCS_RANK = """
+import json, os, pickle, sys
+import numpy as np
+import torch
+root = sys.argv[1]
+sys.path.insert(0, os.path.join(REPO_ROOT, "tests"))
+sys.path.insert(0, REPO_ROOT)
+import chip_smoke
+from helpers.torch_gcs_fake import DirectoryStorage
+from cloud_tpu_torch import bridge, parallel
+from cloud_tpu_torch.models import resnet
+from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.parallel import distributed, sharding
+from cloud_tpu_torch.training import checkpoint, optimizers, train
+import functools
+
+with open(os.path.join(root, "config.pkl"), "rb") as f:
+    config, batch = pickle.load(f)
+mesh = parallel.get_global_mesh()
+axes = chip_smoke._resnet_fsdp_axes(config)
+tx = optimizers.sgd(0.1, momentum=0.9)
+state = train.create_sharded_state(
+    None, lambda _: bridge.init_resnet(
+        config, torch.Generator(device=mesh.device).manual_seed(0),
+        device=mesh.device), tx, mesh=mesh, logical_axes=axes)
+rank = distributed.process_index()
+arrays = chip_smoke._cifar_arrays(batch, 13)
+half = batch // 2
+local = train.shard_batch({k: v[rank * half:(rank + 1) * half]
+                           for k, v in arrays.items()}, mesh)
+step = train.make_train_step(functools.partial(resnet.loss_fn, config=config,
+                                               mesh=mesh), tx, mesh=mesh,
+                             logical_axes=axes)
+dispatch.reset_launch_counts()
+state, metrics = step(state, local)
+if mesh.device.type == "cuda":
+    torch.cuda.synchronize()
+launches = dispatch.launch_counts(chip_smoke.GN_KERNELS)
+manager = checkpoint.CheckpointManager(
+    "gs://chip-smoke/fsdp", device=mesh.device,
+    storage_client=DirectoryStorage(os.path.join(root, "buckets")),
+    layout=checkpoint.StateLayout(mesh, axes))
+manager.save(1, state)
+manager.wait()
+manager.close()
+whole = sharding.gather_tree(state.params, axes, mesh)
+if rank == 0:
+    np.savez(os.path.join(root, "fsdp-params.npz"),
+             **chip_smoke._bits(bridge.leaves(whole)))
+with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+    json.dump({"mesh": {k: v for k, v in mesh.shape.items() if v > 1},
+               "loss": float(metrics["loss"]), "launches": launches,
+               "local_bytes": sum(t.numel() * t.element_size()
+                                  for t in bridge.leaves(state.params))}, f)
+"""
+
+#: 9g's fresh process: restores the fit's latest step from the bucket and
+#: dumps it (argument: the phase's directory).
+GCS_RESTORE = """
+import json, os, sys
+import numpy as np
+root = sys.argv[1]
+sys.path.insert(0, os.path.join(REPO_ROOT, "tests"))
+sys.path.insert(0, REPO_ROOT)
+sys.modules["google.cloud"] = None  # never imported with a client given
+import chip_smoke
+from helpers.torch_gcs_fake import DirectoryStorage
+from cloud_tpu_torch import bridge
+from cloud_tpu_torch.training import checkpoint
+manager = checkpoint.CheckpointManager(
+    "gs://chip-smoke/ckpt", device="cpu",
+    storage_client=DirectoryStorage(os.path.join(root, "buckets")))
+step = manager.latest_step()
+state = manager.restore(step)
+np.savez(os.path.join(root, "restored.npz"), **chip_smoke._bits(
+    [state.step] + bridge.leaves(state.params)
+    + bridge.leaves(state.opt_state)))
+print(json.dumps({"steps": manager.steps(), "verify": manager.verify(step),
+                  "extras": manager.read_extras(step)}))
+"""
+
+
+def _bits(tensors):
+    """``{str(i): array}`` of tensors, bf16 as their int16 bits."""
+    import torch
+
+    out = {}
+    for i, t in enumerate(tensors):
+        t = t.detach().cpu()
+        out[str(i)] = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                       else t).numpy()
+    return out
+
+
+def _same_bits(path, tensors):
+    """Whether an ``.npz`` of :func:`_bits` holds ``tensors`` bit for bit."""
+    want = _bits(tensors)
+    with np.load(path) as got:
+        return sorted(got.files) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want)
+
+
+def _script(root, name, code):
+    """``code`` as a script file under ``root`` (``REPO_ROOT`` defined)."""
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write(f"REPO_ROOT = {REPO_ROOT!r}\n" + code)
+    return path
+
+
+def run_gcs_phase(device, card, *, config=None, batch=CIFAR_BATCH,
+                  rig="cuda"):
+    """9g: the ``gs://`` paths through a storage client backed by a local
+    directory (``tests/helpers/torch_gcs_fake.py``; every process builds
+    one on the same directory, so they share the buckets).  CIFAR-shaped
+    records written to ``gs://`` by ``write_records`` in 4 shards, then
+    ResNet-50 CIFAR b256 bf16 ``Trainer.fit`` for 6 steps from
+    ``RecordDataset("gs://.../train-*.rec")`` with a ``gs://`` checkpoint
+    every 2 steps (K1-K4 37/16/37/16 a step); a fresh process (no
+    ``google.cloud`` importable) lists steps 2, 4 and 6, restores the
+    latest bit for bit, ``verify()`` reads ``"unmanifested"`` and there are
+    no extras; two ranks under the bootstrap's own ``{fsdp: 2}`` plan take
+    one step each (kernels' output channels on ``embed``) and save to the
+    same bucket, each rank its pieces, and this process restores that
+    checkpoint bit for bit.  ``config``, ``batch`` and ``rig="cpu"``
+    rehearse it on the CPU."""
+    import pickle
+    import shutil
+    import subprocess as subprocess_lib
+    import sys as sys_lib
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import checkpoint, records
+    from cloud_tpu_torch.utils import local_rig
+
+    # Every process of the phase builds this client on the same directory.
+    fake = _load_helper("torch_gcs_fake")
+    config = config or resnet.RESNET50_CIFAR
+    steps, every = GCS_FIT["steps"], GCS_FIT["every"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_gcs_")
+    storage = fake.DirectoryStorage(os.path.join(root, "buckets"))
+    try:
+        arrays = _cifar_arrays(steps * batch, 11)
+        start = time.perf_counter()
+        records.write_records(
+            "gs://chip-smoke/cifar/train-{shard}.rec",
+            ({k: v[i] for k, v in arrays.items()}
+             for i in range(len(arrays["label"]))),
+            num_shards=GCS_FIT["shards"], storage_client=storage)
+        write_s = time.perf_counter() - start
+        # A sidecar under the prefix the glob must not read.
+        storage.bucket("chip-smoke").blob(
+            "cifar/train-index.json").upload_from_string(b"{}")
+        dataset = records.RecordDataset(
+            "gs://chip-smoke/cifar/train-*.rec", batch_size=batch,
+            shuffle_buffer=512, seed=3, verify=True, storage_client=storage)
+        if len(dataset.files) != GCS_FIT["shards"]:
+            raise AssertionError(f"9g: the glob listed {dataset.files}")
+        _sync(device)
+        dispatch.reset_launch_counts()
+        tr = _cifar_trainer(device, cfg=config)
+        start = time.perf_counter()
+        tr.fit(dataset, epochs=1, prefetch=2, callbacks=[
+            checkpoint.CheckpointCallback(
+                "gs://chip-smoke/ckpt", every_n_steps=every, max_to_keep=3,
+                device=device, storage_client=storage)])
+        _sync(device)
+        fit_s = time.perf_counter() - start
+        launches = dispatch.launch_counts(GN_KERNELS)
+        if int(tr.state.step) != steps:
+            raise AssertionError(f"9g: the fit took {int(tr.state.step)} "
+                                 f"steps of {steps}")
+        want = [tr.state.step] + bridge.leaves(tr.state.params) + \
+            bridge.leaves(tr.state.opt_state)
+        start = time.perf_counter()
+        proc = subprocess_lib.run(
+            [sys_lib.executable, _script(root, "restore.py", GCS_RESTORE),
+             root], capture_output=True, text=True, cwd=REPO_ROOT,
+            timeout=PHASE_9_TIMEOUT_S)
+        restore_s = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"9g's restoring process exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        listed = json.loads(proc.stdout.strip().splitlines()[-1])
+        if listed != {"steps": list(range(every, steps + 1, every)),
+                      "verify": "unmanifested", "extras": None}:
+            raise AssertionError(f"9g: the fresh process read {listed}")
+        if not _same_bits(os.path.join(root, "restored.npz"), want):
+            raise AssertionError("9g: the restored state differs from the "
+                                 "fit's")
+        ckpt_bytes = sum(
+            len(storage.bucket("chip-smoke").blob(name).download_as_bytes())
+            for name in storage.objects("chip-smoke")
+            if name.startswith(f"ckpt/{steps}/"))
+        del tr, want
+
+        with open(os.path.join(root, "config.pkl"), "wb") as f:
+            pickle.dump((config, batch), f)
+        start = time.perf_counter()
+        result = local_rig.run_bootstrap(
+            _script(root, "fsdp_rank.py", GCS_RANK), device=rig,
+            num_processes=GCS_FIT["ranks"], args=[root],
+            timeout=PHASE_9_TIMEOUT_S)
+        ranks_s = time.perf_counter() - start
+        for rank, one in enumerate(result.ranks):
+            if one.returncode != 0:
+                raise AssertionError(
+                    f"9g {{fsdp: 2}} rank {rank} exited {one.returncode}:\n"
+                    f"{one.stdout[-2000:]}\n{one.stderr[-4000:]}")
+        outs = []
+        for rank in range(GCS_FIT["ranks"]):
+            with open(os.path.join(root, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        objects = storage.objects("chip-smoke")
+        by_rank = {r: sum(1 for o in objects if o.startswith("fsdp/1/")
+                          and o.endswith(f".r{r}.bin"))
+                   for r in range(GCS_FIT["ranks"])}
+        manager = checkpoint.CheckpointManager(
+            "gs://chip-smoke/fsdp", device="cpu", storage_client=storage)
+        restored = manager.restore(1)
+        if manager.steps() != [1] or not _same_bits(
+                os.path.join(root, "fsdp-params.npz"),
+                bridge.leaves(restored.params)):
+            raise AssertionError("9g: the one-process restore of the "
+                                 "{fsdp: 2} checkpoint differs from the "
+                                 "ranks' gathered parameters")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for out in outs:
+        if out["mesh"] != {"fsdp": GCS_FIT["ranks"]} or not np.isfinite(
+                out["loss"]):
+            raise AssertionError(f"9g {{fsdp: 2}} rank: {out}")
+    if not all(by_rank.values()):
+        raise AssertionError(f"9g: {{fsdp: 2}} pieces by rank {by_rank}")
+    launches = _gn_sum(launches, *(o["launches"] for o in outs))
+    want = _gn_times(GN_PER_STEP, steps + GCS_FIT["ranks"])
+    if rig == "cuda" and launches != want:
+        raise AssertionError(f"9g: launches {launches}, want {want}")
+    print(f"  {steps * batch} CIFAR records to gs:// in {GCS_FIT['shards']} "
+          f"objects in {write_s:.2f} s; fit from RecordDataset(gs://) with a "
+          f"gs:// checkpoint every {every} steps: {steps} steps in "
+          f"{fit_s:.2f} s; a fresh process listed steps {listed['steps']}, "
+          f"verify {listed['verify']!r}, restored step {steps} "
+          f"({ckpt_bytes / 2**20:.1f} MiB) bit-equal in {restore_s:.2f} s; "
+          f"{{fsdp: 2}} ranks: one step each, pieces by rank {by_rank}, "
+          f"{ranks_s:.1f} s of wall, one process restored them bit-equal; "
+          f"launches {launches} [{card}]")
+    return {"write_s": write_s, "fit_s": fit_s, "restore_s": restore_s,
+            "fsdp_wall_s": ranks_s, "checkpoint_bytes": ckpt_bytes,
+            "fsdp_pieces_by_rank": by_rank, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10g: the golden workloads on the card
+# ---------------------------------------------------------------------------
+
+HELPERS = os.path.join(REPO_ROOT, "tests", "helpers")
+#: 10g's ranks: the ring example over 4 (sp: 4), save_and_load and the
+#: custom loop over 2.
+GOLDEN_RANKS = {"ring": 4, "pair": 2}
+
+#: Runs the ring example's copy as a bootstrap entry point and writes the
+#: rank's launches (argument: the output directory).
+GOLDEN_RING = """
+import json, os, sys
+import torch
+from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.parallel import distributed
+sys.path.insert(0, os.path.join(REPO_ROOT, "tests", "helpers"))
+import torch_long_context_ring_attention as example
+dispatch.reset_launch_counts()
+trainer = example.main()
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+with open(os.path.join(sys.argv[1],
+                       f"ring{distributed.process_index()}.json"), "w") as f:
+    json.dump({"launches": dispatch.launch_counts(
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+               "losses": trainer.history.history["loss"],
+               "steps": int(trainer.state.step)}, f)
+"""
+
+
+def _load_helper(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HELPERS, name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def generate_text_launches(train_steps, layers_n, new_tokens):
+    """K5-K7 and K8/K8q launches of the generate_text copy: K5 once a
+    layer a training step (TINY runs no remat) and once a layer a prefill
+    (four ``generate`` calls and the beam search's one, every prompt in
+    one call), K6 and K7 once a layer a training step; K8 once a layer a
+    decode step (the first token comes from the prefill) of the greedy,
+    nucleus and int8-weights generations and of the beam search (every
+    beam in one call), K8q of the int8 + kv_quant generation."""
+    decode = new_tokens - 1
+    return {"flash_fwd": layers_n * (train_steps + 5),
+            "flash_bwd_dq": layers_n * train_steps,
+            "flash_bwd_dkv": layers_n * train_steps,
+            "paged_attention": layers_n * decode * 4,
+            "paged_attention_int8": layers_n * decode}
+
+
+def run_golden_phase(device, card, rig="cuda"):
+    """10g: the port's copies of the golden workloads on the card.  The
+    generate_text copy in this process (CloudLM TINY trained 3 epochs, then
+    greedy, nucleus, a 4-beam search, int8 weights, and int8 weights with
+    the int8 KV cache), its K5-K7 and K8/K8q launches exact
+    (:func:`generate_text_launches`); the long-context ring example on 4
+    ranks over gloo under the bootstrap (``{sp: 4}``, zig-zag, fused CE,
+    remat "dots": each rank's K5 launches 2 x (2n+1) a layer a step, K6
+    and K7 2n+1); ``torch_save_and_load.py`` and the custom loop
+    ``torch_mnist_example_using_ctl.py`` on 2 ranks (MNIST runs no kernel
+    of the port)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.utils import local_rig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_golden_")
+    out = {}
+    try:
+        example = _load_helper("torch_generate_text")
+        _sync(device)
+        dispatch.reset_launch_counts()
+        start = time.perf_counter()
+        trainer = example.main(device=device)
+        _sync(device)
+        out["generate_text_s"] = time.perf_counter() - start
+        names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "paged_attention", "paged_attention_int8")
+        gen_launches = dispatch.launch_counts(names)
+        want = generate_text_launches(int(trainer.state.step),
+                                      transformer.TINY.num_layers,
+                                      new_tokens=24)
+        if device.type == "cuda" and gen_launches != want:
+            raise AssertionError(f"10g generate_text: launches "
+                                 f"{gen_launches}, want {want}")
+        out["generate_text"] = {"texts": trainer.texts,
+                                "steps": int(trainer.state.step),
+                                "launches": gen_launches}
+        print(f"  generate_text: {int(trainer.state.step)} steps, greedy "
+              f"{trainer.texts['greedy'][0]!r}, int8+kv "
+              f"{trainer.texts['int8+kv'][0]!r}; launches {gen_launches} in "
+              f"{out['generate_text_s']:.1f} s [{card}]")
+        del trainer
+
+        start = time.perf_counter()
+        ranks = GOLDEN_RANKS["ring"]
+        result = local_rig.run_bootstrap(
+            _script(root, "ring.py", GOLDEN_RING), device=rig,
+            num_processes=ranks, args=[root], timeout=PHASE_9_TIMEOUT_S)
+        out["ring_s"] = time.perf_counter() - start
+        _ranks_ok("10g ring", result)
+        rings = []
+        for rank in range(ranks):
+            with open(os.path.join(root, f"ring{rank}.json")) as f:
+                rings.append(json.load(f))
+        calls = 2 * ranks + 1  # the zig-zag ring's hops, each way
+        per = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+               "flash_bwd_dkv": calls}
+        for rank, ring in enumerate(rings):
+            want_ring = {k: v * transformer.TINY.num_layers * ring["steps"]
+                         for k, v in per.items()}
+            if rig == "cuda" and ring["launches"] != want_ring:
+                raise AssertionError(f"10g ring rank {rank}: launches "
+                                     f"{ring['launches']}, want {want_ring}")
+        out["ring"] = rings
+        print(f"  long-context ring example on {ranks} ranks ({{sp: "
+              f"{ranks}}}): losses {[round(v, 4) for v in rings[0]['losses']]}"
+              f", {out['ring_s']:.1f} s of wall; launches a rank "
+              f"{rings[0]['launches']} [{card}]")
+
+        for name, env in (
+                ("torch_save_and_load",
+                 {"SAVE_AND_LOAD_DIR": os.path.join(root, "ckpt")}),
+                ("torch_mnist_example_using_ctl",
+                 {"MNIST_CTL_EPOCHS": "1",
+                  "MNIST_CTL_SAVE_DIR": os.path.join(root, "ctl")})):
+            start = time.perf_counter()
+            result = local_rig.run_bootstrap(
+                os.path.join(HELPERS, name + ".py"), device=rig,
+                num_processes=GOLDEN_RANKS["pair"], extra_env=env,
+                timeout=PHASE_9_TIMEOUT_S)
+            _ranks_ok(f"10g {name}", result)
+            out[name + "_s"] = time.perf_counter() - start
+            tail = result.stdout.strip().splitlines()[-1:]
+            print(f"  {name} on {GOLDEN_RANKS['pair']} ranks: {tail} "
+                  f"({out[name + '_s']:.1f} s of wall) [{card}]")
+        with np.load(os.path.join(root, "ctl", "params.npz")) as saved:
+            if sorted(saved.files) != ["hidden/bias", "hidden/kernel",
+                                       "out/bias", "out/kernel"]:
+                raise AssertionError(f"10g ctl saved {saved.files}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: gen_launches.get(k, 0) + sum(
+        r["launches"].get(k, 0) for r in rings)
+        for k in set(gen_launches) | set(rings[0]["launches"])}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ranks_ok(what, result):
+    for rank, one in enumerate(result.ranks):
+        if one.returncode != 0:
+            raise AssertionError(f"{what} rank {rank} exited "
+                                 f"{one.returncode}:\n{one.stdout[-2000:]}\n"
+                                 f"{one.stderr[-4000:]}")
+
+
 def tensor_core_sass(dispatch):
     """Tensor-core instructions (HMMA, HGMMA) per kernel in the built
     flash libraries, read from ``cuobjdump -sass``; raises unless every
@@ -8329,6 +9173,19 @@ SIDE_PHASES = (
      "and tied, the default MoE under {ep: 2} b2 and {pp: 2} b4, in f32 "
      "against one process; {pp: 2} in bf16)", "pipeline training",
      "run_pipeline_training", False),
+    ("phase 6enc: BERT-base b32xT128 (ragged padding) and ViT-B/16 224 b8 "
+     "under {tp: 2}, {sp: 2} and {fsdp: 2} in f32 against one process, "
+     "{tp: 2} in bf16; MNIST and ResNet-50 CIFAR under {tp: 2}; 2 ranks on "
+     "the card over gloo", "encoder mesh", "run_encoder_mesh", False),
+    ("phase 9g: the gs:// paths on a directory-backed storage client: "
+     "records written to gs://, ResNet-50 CIFAR b256 bf16 fit from "
+     "RecordDataset(gs://) checkpointing to gs:// every 2 steps, a fresh "
+     "process's restore, two {fsdp: 2} ranks saving to the same bucket",
+     "gcs", "run_gcs_phase", False),
+    ("phase 10g: the golden workloads on the card: the generate_text copy "
+     "(TINY trained, then greedy, nucleus, beam 4, int8, int8 + kv_quant), "
+     "the long-context ring example on 4 ranks ({sp: 4}), save_and_load and "
+     "the custom loop on 2 ranks", "golden", "run_golden_phase", False),
 )
 
 #: The second process must have ended this many seconds after the script
@@ -8536,6 +9393,11 @@ def _main() -> int:
          "pipeline microbatch and an ep rank's rows, B=2 T=1024, 12 heads) "
          "against their plain versions, then timed", "pp kernel check",
          lambda: check_pp_kernels(device, card), False),
+        ("phase 2 (enc): K5, K6 and K7 at phase 6enc's new call shapes (a "
+         "BERT-base tp rank's 6 heads and an sp block of 64 positions, both "
+         "masked; a ViT-B/16 tp rank's 6 heads at T=196) against their plain "
+         "versions, then timed", "enc kernel check",
+         lambda: check_enc_kernels(device, card), False),
         ("phase 2b: K1-K4 (GroupNorm) against their plain versions",
          "group_norm check", lambda: check_group_norm(device, card), False),
         ("phase 2c: K5 and K6/K7 (flash backward) against their plain "
@@ -8754,6 +9616,8 @@ def _main() -> int:
     front_door, exporter_run = side["front door"], side["exporter"]
     tuner_run, fit_run = side["tuner"], side["cloud_fit"]
     mesh_run, pp_run = side["mesh training"], side["pipeline training"]
+    enc_run, gcs_run, golden = (side["encoder mesh"], side["gcs"],
+                                side["golden"])
 
     engine = results["engine"]
     engine.update(results["decode breakdown"])
@@ -8776,13 +9640,15 @@ def _main() -> int:
     tp_kernels = results["tp kernel check"]
     ring_check = results["ring check"]
     pp_kernels = results["pp kernel check"]
+    enc_kernels = results["enc kernel check"]
     for entry in kernels:
         for dname, key in (("bfloat16", "max_abs_err"),
                            ("float32", "max_abs_err_f32")):
             for errs in (chunks["max_abs_err"], verify["max_abs_err"],
                          tp_kernels["max_abs_err"],
                          ring_check["max_abs_err"],
-                         pp_kernels["max_abs_err"]):
+                         pp_kernels["max_abs_err"],
+                         enc_kernels["max_abs_err"]):
                 err = errs.get(f"{entry['name']} {dname}")
                 if err is not None:
                     entry[key] = max(entry[key], err)
@@ -8802,9 +9668,12 @@ def _main() -> int:
                "moe engine": results["moe engine"],
                # Both ranks of the tp-2 slice.
                "tp engine": results["tp engine"]}
-    # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v)
-    # and under a mesh (6mesh and 6pp, both ranks).
-    zoo_training = (moe_lm, dots, vit_run, mesh_run, pp_run)
+    # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v),
+    # under a mesh (6mesh, 6pp and 6enc, both ranks) and in the golden
+    # workloads (10g: generate_text's training and decoding, K8 and K8q
+    # too, and the ring example's 4 ranks).
+    zoo_training = (moe_lm, dots, vit_run, mesh_run, pp_run, enc_run,
+                    golden)
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -8826,8 +9695,9 @@ def _main() -> int:
             # K1-K4: the bare loop (4), Trainer.fit (4t), the
             # exactly-once fits (4r), compile-ahead (4a), the records
             # fits (4p), the container of the front door (9r), the
-            # tuner's workers (9t) and cloud_fit's ranks and restoring
-            # run (9f), each counted from 0.
+            # tuner's workers (9t), cloud_fit's ranks and restoring run
+            # (9f), the gs:// fit and ranks (9g) and ResNet's tp arm
+            # (6enc), each counted from 0.
             entry["launches"] = (cifar["launches"][name]
                                  + fit["launches"][name]
                                  + exact["launches"][name]
@@ -8835,7 +9705,9 @@ def _main() -> int:
                                  + recs["launches"][name]
                                  + front_door["launches"][name]
                                  + tuner_run["launches"][name]
-                                 + fit_run["launches"][name])
+                                 + fit_run["launches"][name]
+                                 + gcs_run["launches"][name]
+                                 + enc_run["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")
@@ -8911,6 +9783,13 @@ def _main() -> int:
         "tp_rank_kernels": tp_kernels["rows"],
         "ring_block_kernels": ring_check["rows"],
         "pp_microbatch_kernels": pp_kernels["rows"],
+        "encoder_rank_kernels": enc_kernels["rows"],
+        "encoder_mesh_training": {
+            name: {rank: {k: v for k, v in r.items() if k != "metrics"}
+                   for rank, r in arm.items()}
+            for name, arm in enc_run["arms"].items()},
+        "gcs": gcs_run,
+        "golden": {k: v for k, v in golden.items() if k != "launches"},
         "mesh_training": {name: {rank: {k: v for k, v in r.items()
                                         if k != "metrics"}
                                  for rank, r in arm.items()}

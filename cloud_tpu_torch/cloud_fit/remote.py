@@ -23,6 +23,7 @@ from typing import Optional
 
 from cloud_tpu_torch.cloud_fit import serialization
 from cloud_tpu_torch.cloud_fit.serialization import _join
+from cloud_tpu_torch.utils import gcs
 
 logger = logging.getLogger(__name__)
 
@@ -100,7 +101,7 @@ def run(remote_dir: str, *, mesh=None, storage_client=None, device=None):
     )
     # Init first: the fresh state is the restore template.
     trainer.init_state(torch.Generator(device=trainer.device).manual_seed(0))
-    _maybe_restore(trainer, _join(remote_dir, "state"))
+    _maybe_restore(trainer, _join(remote_dir, "state"), storage_client)
     history = trainer.fit(
         train_ds,
         validation_data=val_ds,
@@ -112,7 +113,7 @@ def run(remote_dir: str, *, mesh=None, storage_client=None, device=None):
     output_dir = _join(remote_dir, OUTPUT_DIR)
     manager = checkpoint.CheckpointManager(
         _join(output_dir, "checkpoint"), device=trainer.device,
-        layout=checkpoint.layout_of(trainer))
+        layout=checkpoint.layout_of(trainer), storage_client=storage_client)
     manager.save(int(trainer.state.step), trainer.state)
     manager.wait()
     manager.close()
@@ -132,31 +133,29 @@ def _default_rules():
     return DEFAULT_RULES
 
 
-def _maybe_restore(trainer, state_dir: str) -> bool:
-    """Restore a user-uploaded ``state/`` into the fresh state.
+def _maybe_restore(trainer, state_dir: str, storage_client=None) -> bool:
+    """Restore a user-uploaded ``state/`` (local or ``gs://``, the latter
+    through ``storage_client``) into the fresh state.
 
     ``only_if_ahead=False``: a state saved at step 0 (pretrained weights)
     replaces the fresh init too.  ``quarantine=False``: the directory is
-    the user's upload, never moved.  An error of the restore logs and
-    starts fresh, as the JAX package's does, except the refusal of a
-    ``gs://`` checkpoint directory: that propagates, since starting fresh
-    would silently drop the user's weights.
+    the user's upload, never moved.  Any error of the restore logs and
+    starts fresh, as the JAX package's does.
     """
-    if not (state_dir.startswith("gs://") or os.path.isdir(state_dir)):
-        return False
-    from cloud_tpu_torch.training.checkpoint import (
-        CheckpointManager,
-        resume_trainer_state,
-    )
+    if gcs.is_gcs(state_dir) or os.path.isdir(state_dir):
+        try:
+            from cloud_tpu_torch.training.checkpoint import (
+                CheckpointManager,
+                resume_trainer_state,
+            )
 
-    # The gs:// refusal is raised here, outside the catch-all below.
-    manager = CheckpointManager(state_dir, device=trainer.device)
-    try:
-        return resume_trainer_state(trainer, manager, only_if_ahead=False,
-                                    quarantine=False)
-    except Exception:
-        logger.exception("could not restore from %s; starting fresh",
-                         state_dir)
+            return resume_trainer_state(
+                trainer, CheckpointManager(state_dir, device=trainer.device,
+                                           storage_client=storage_client),
+                only_if_ahead=False, quarantine=False)
+        except Exception:
+            logger.exception("could not restore from %s; starting fresh",
+                             state_dir)
     return False
 
 

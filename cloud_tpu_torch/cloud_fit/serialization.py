@@ -26,6 +26,8 @@ from typing import Any, Dict, List, Optional
 import cloudpickle
 import numpy as np
 
+from cloud_tpu_torch.utils import gcs
+
 ASSET_DIR = "training_assets"
 
 
@@ -47,23 +49,9 @@ class TrainerSpec:
     accum_steps: int = 1
 
 
-def _is_gcs(path: str) -> bool:
-    return path.startswith("gs://")
-
-
-def _split_gcs(path: str):
-    rest = path[len("gs://"):]
-    bucket, _, name = rest.partition("/")
-    return bucket, name
-
-
 def _write_bytes(path: str, data: bytes, storage_client=None) -> None:
-    if _is_gcs(path):
-        from google.cloud import storage
-
-        client = storage_client or storage.Client()
-        bucket, name = _split_gcs(path)
-        client.bucket(bucket).blob(name).upload_from_string(data)
+    if gcs.is_gcs(path):
+        gcs.write_bytes(path, data, storage_client)
     else:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
@@ -71,20 +59,15 @@ def _write_bytes(path: str, data: bytes, storage_client=None) -> None:
 
 
 def _read_bytes(path: str, storage_client=None) -> bytes:
-    if _is_gcs(path):
-        from google.cloud import storage
-
-        client = storage_client or storage.Client()
-        bucket, name = _split_gcs(path)
-        return client.bucket(bucket).blob(name).download_as_bytes()
+    if gcs.is_gcs(path):
+        return gcs.read_bytes(path, storage_client)
     with open(path, "rb") as f:
         return f.read()
 
 
 def _join(*parts: str) -> str:
-    if _is_gcs(parts[0]):
-        return "/".join(p.strip("/") if i else p.rstrip("/")
-                        for i, p in enumerate(parts))
+    if gcs.is_gcs(parts[0]):
+        return gcs.join(*parts)
     return os.path.join(*parts)
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +86,31 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
                           preserve_rng_state=False, **extra, **kwargs)
 
     return wrapped
+
+
+def dense_axes(in_axis: Optional[str], out_axis: Optional[str],
+               use_bias: bool = True):
+    """Logical axes of a dense layer's params (the JAX package's)."""
+    axes = {"kernel": (in_axis, out_axis)}
+    if use_bias:
+        axes["bias"] = (out_axis,)
+    return axes
+
+
+def encoder_block_axes():
+    """Logical axes of one BERT/ViT encoder block (the JAX package's
+    ``layers.encoder_block_axes``): q/k/v split by heads, ``out`` by its
+    input heads, ``wi`` by hidden units, ``wo`` by its input units."""
+    return {
+        "att": {"q": dense_axes("embed", "heads", use_bias=False),
+                "k": dense_axes("embed", "heads", use_bias=False),
+                "v": dense_axes("embed", "heads", use_bias=False),
+                "out": dense_axes("heads", "embed", use_bias=False)},
+        "ln1": {"scale": (None,), "bias": (None,)},
+        "wi": dense_axes("embed", "mlp"),
+        "wo": dense_axes("mlp", "embed"),
+        "ln2": {"scale": (None,), "bias": (None,)},
+    }
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
@@ -187,16 +213,18 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def dropout(rng, x, rate: float):
+def dropout(rng, x, rate: float, start=None, full=None):
     """Inverted dropout, as ``cloud_tpu/models/layers.py``'s: the identity
     when ``rng`` is None or ``rate`` is 0 (the eval and deterministic
     path), else ``where(mask, x / keep, 0)`` with ``mask =
     bernoulli(rng, keep, x.shape)`` drawn as ``jax.random`` draws it
-    (``cloud_tpu_torch.random``), ``keep = 1 - rate``."""
+    (``cloud_tpu_torch.random``), ``keep = 1 - rate``.  Under a mesh ``x``
+    is the block at ``start`` of a global activation of shape ``full``,
+    and its mask that block of the global mask."""
     if rng is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = random_lib.bernoulli(rng, keep, x.shape)
+    mask = random_lib.bernoulli(rng, keep, x.shape, start=start, full=full)
     scale = torch.full((), keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
@@ -233,12 +261,14 @@ def mlp_block_apply(params, x, *, tp=None):
     return row_parallel_dense(params["wo"], h, tp)
 
 
-def classification_loss(logits, labels, mesh):
+def classification_loss(logits, labels, mesh, *, replicas: int = 1):
     """Softmax cross-entropy and accuracy of ``logits`` ``[B, classes]``
-    against ``labels`` ``[B]`` (MNIST's and ResNet's loss): the batch
-    means without ``mesh``; under a data-parallel ``mesh`` the loss is
-    this rank's summed NLL over the global row count and the metrics are
-    the global means."""
+    against ``labels`` ``[B]`` (MNIST's, ResNet's, BERT's and ViT's loss):
+    the batch means without ``mesh``; under a ``mesh`` the loss is this
+    rank's summed NLL over the global row count (rows split over ``dp`` x
+    ``fsdp``) and over ``replicas``, the number of ranks whose gradients
+    the step sums over the same rows (the ``sp`` ranks), and the
+    metrics are the global means."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     log_probs = torch.log_softmax(logits, dim=-1)
     nll = -torch.take_along_dim(log_probs, labels[:, None], dim=-1)
@@ -251,7 +281,7 @@ def classification_loss(logits, labels, mesh):
     total = collectives.sum_over_rows(
         torch.tensor(float(labels.shape[0]), device=logits.device), mesh)
     num = nll.sum()
-    return num / total, {
+    return num / (total * replicas), {
         "loss": collectives.sum_over_rows(num.detach(), mesh) / total,
         "accuracy": collectives.sum_over_rows(correct.sum(), mesh) / total,
     }

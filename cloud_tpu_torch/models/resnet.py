@@ -17,8 +17,10 @@ sizes) the input is padded explicitly, with ``-inf`` for the pool.
 ResNet scales by data parallelism: under a training mesh of more than
 one rank :func:`loss_fn` returns this rank's share of the global loss
 (``train.mesh_loss``, rows over ``dp`` and ``fsdp``); every parameter is
-replicated (:func:`param_logical_axes`).  GroupNorm's statistics are per
-sample, so a rank's rows need no collective in the forward pass.
+replicated (:func:`param_logical_axes`), so ranks that differ only in
+``tp``, ``sp``, ``pp`` or ``ep`` compute the same rows, as GSPMD runs the
+JAX package's.  GroupNorm's statistics are per sample, so a rank's rows
+need no collective in the forward pass.
 """
 
 from __future__ import annotations
@@ -159,9 +161,11 @@ def loss_fn(params, batch: Dict[str, Any], config: ResNetConfig = RESNET50,
     ``batch["label"]``; the metrics are detached from the graph.  Under a
     mesh of more than one rank ``batch`` is this rank's rows, the device
     the mesh's, and the loss this rank's share of the global loss."""
-    mesh, device = collectives.data_parallel_mesh(mesh, "ResNet", device)
+    mesh, device = collectives.data_parallel_mesh(mesh, device)
     logits = apply(params, batch["image"], config, device=device)
-    return layers.classification_loss(logits, batch["label"], mesh)
+    sp = mesh.axis_size("sp") if mesh is not None else 1
+    return layers.classification_loss(logits, batch["label"], mesh,
+                                      replicas=sp)
 
 
 #: Under a mesh, :func:`loss_fn` returns its rank's share of the global

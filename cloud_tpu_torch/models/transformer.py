@@ -391,11 +391,9 @@ def _mesh_loss(params, batch, config, tp, device):
     positions: this rank returns its numerator over the global weight
     total (a constant), so the step's sum of the ranks' gradients over
     the data axes is the global loss's gradient; the metrics carry the
-    global value, the same on every rank."""
-    if config.fused_ce and tp.vocab_split:
-        raise NotImplementedError(
-            "fused_ce with a vocabulary split over tp is not in the PyTorch "
-            "port yet: it is queued under ROADMAP.md A.2")
+    global value, the same on every rank.  With ``fused_ce`` and the
+    vocabulary split over ``tp``, each rank scans its own shard
+    (``ops.fused_cross_entropy``'s ``tp=``)."""
     tokens = torch.as_tensor(batch["tokens"], device=device)
     t = tokens.shape[1]
     # Slot j predicts global position pos[j] + 1, from the rank's whole
@@ -415,7 +413,7 @@ def _mesh_loss(params, batch, config, tp, device):
         table, layout = head_table(params, config)
         mean = fused_linear_cross_entropy(hidden, table, targets,
                                           table_layout=layout,
-                                          weights=weights)
+                                          weights=weights, tp=tp)
         num = mean * torch.clamp(w_local, min=1.0)
     else:
         logits = lm_logits(params, hidden, config, tp=tp)

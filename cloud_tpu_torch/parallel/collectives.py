@@ -107,6 +107,14 @@ def all_reduce_sum(x: torch.Tensor, axis: AxisNames, *, mesh=None):
         return x
 
 
+def all_reduce_max(x: torch.Tensor, axis: AxisNames, *, mesh=None):
+    mesh = _mesh(mesh)
+    with _span("collective/all_reduce_max", x, axis):
+        for name in _axes(axis):
+            x = _all_reduce(x, mesh, name, op=dist.ReduceOp.MAX)
+        return x
+
+
 def all_reduce_mean(x: torch.Tensor, axis: AxisNames, *, mesh=None):
     mesh = _mesh(mesh)
     with _span("collective/all_reduce_mean", x, axis):
@@ -373,29 +381,20 @@ def host_local_mean(tree):
 ROW_AXES = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP)
 
 
-def data_parallel_mesh(mesh, model: str, device=None):
-    """``(mesh, device)`` of a data-parallel model's loss.  The mesh is
-    ``mesh``, else the installed global mesh, and comes back None when
-    there is none or when it has one rank (every collective over it is
-    the identity, so the loss is the single-card one); ``device`` defaults
-    to the mesh's.  Such a model splits only its rows: ``tp``, ``sp``,
-    ``pp`` or ``ep`` > 1 raises ``NotImplementedError`` (its layers have
-    no split yet; queued under ROADMAP.md A.2)."""
+def data_parallel_mesh(mesh, device=None):
+    """``(mesh, device)`` of a data-parallel model's loss (MNIST, ResNet).
+    The mesh is ``mesh``, else the installed global mesh, and comes back
+    None when there is none or when it has one rank (every collective over
+    it is the identity, so the loss is the single-card one); ``device``
+    defaults to the mesh's.  Such a model's rows split over ``dp`` x
+    ``fsdp``; ranks that differ only in ``tp``, ``sp``, ``pp`` or ``ep``
+    hold replicas and compute the same rows, as GSPMD runs the JAX
+    package's replicated parameters (the step sums the gradients over
+    ``sp`` too, so their loss divides by the ``sp`` size)."""
     mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
     if mesh is not None and device is None:
         device = mesh.device
-    mesh = mesh_lib.effective_mesh(mesh)
-    if mesh is None:
-        return None, device
-    split = [a for a in (mesh_lib.AXIS_TP, mesh_lib.AXIS_SP,
-                         mesh_lib.AXIS_PP, mesh_lib.AXIS_EP)
-             if mesh.axis_size(a) > 1]
-    if split:
-        raise NotImplementedError(
-            f"{model} under a mesh with {', '.join(split)} > 1 is not in the "
-            "PyTorch port yet: its layers have no such split; it is queued "
-            "under ROADMAP.md A.2 (dp and fsdp run)")
-    return mesh, device
+    return mesh_lib.effective_mesh(mesh), device
 
 
 def sum_over_rows(x: torch.Tensor, mesh) -> torch.Tensor:

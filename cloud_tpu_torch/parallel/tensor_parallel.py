@@ -1,5 +1,6 @@
-"""Tensor parallelism for CloudLM: one rank's shard of the params and the
-collectives its layers call.
+"""Tensor parallelism for CloudLM (and, in training, BERT's and ViT's
+encoder blocks, split the same way): one rank's shard of the params and
+the collectives its layers call.
 
 The JAX package shards CloudLM's params by the rules table and lets GSPMD
 insert the collectives; here each rank holds its shard (:func:`shard_lm`)
@@ -140,6 +141,33 @@ class TrainContext(TensorParallel):
                 * self.mesh.axis_size(mesh_lib.AXIS_FSDP))
 
     @property
+    def data_index(self) -> int:
+        """This rank's data coordinate over ``dp`` x ``fsdp`` (the block of
+        the global batch its rows are, ``train.shard_batch``)."""
+        return (self.mesh.axis_index(mesh_lib.AXIS_DP)
+                * self.mesh.axis_size(mesh_lib.AXIS_FSDP)
+                + self.mesh.axis_index(mesh_lib.AXIS_FSDP))
+
+    def seq_bounds(self, t: int) -> Tuple[int, int]:
+        """``[start, stop)`` of this rank's contiguous ``sp`` block of a
+        sequence of ``t`` positions; ``t`` must divide by ``sp``, as the
+        ring's blocks must."""
+        sp = self.sp_size
+        if t % sp:
+            raise ValueError(f"seq_len {t} does not divide by sp={sp}")
+        block = t // sp
+        return self.sp_index * block, (self.sp_index + 1) * block
+
+    def sum_over_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every ``sp`` member's ``x`` forward, and of every
+        member's cotangent backward: a value each member computes its part
+        of and every member then uses (a pooled sequence, the first
+        position's features)."""
+        return autograd_lib.copy_to(
+            autograd_lib.reduce_from(x, mesh_lib.AXIS_SP, self.mesh),
+            mesh_lib.AXIS_SP, self.mesh)
+
+    @property
     def expert_axes(self) -> Tuple[str, ...]:
         """The nontrivial mesh axes the experts are cut over (``ep``)."""
         return tuple(a for a in sharding.mesh_axes(
@@ -260,12 +288,15 @@ def _vocab_sizes(mesh, config, split: bool):
 
 def train_context(mesh, config, rules=sharding.DEFAULT_RULES
                   ) -> TrainContext:
-    """The :class:`TrainContext` of CloudLM ``config`` on ``mesh``:
+    """The :class:`TrainContext` of ``config`` on ``mesh`` (CloudLM's, or
+    an encoder's: BERT's and ViT's, whose heads and MLP split as
+    CloudLM's, BERT's token table over the vocabulary, ViT without one):
     ``tp`` must divide the head count, and an MoE model's expert shards
     may not outnumber its experts.  An MoE model under ``sp`` > 1 is
     queued under ROADMAP.md A.3 (``NotImplementedError``): its capacity
     and slot cumsum run over the whole sequence."""
-    if config.moe is not None and mesh.axis_size(mesh_lib.AXIS_SP) > 1:
+    moe = getattr(config, "moe", None)
+    if moe is not None and mesh.axis_size(mesh_lib.AXIS_SP) > 1:
         raise NotImplementedError(
             "an MoE CloudLM under sp > 1 is not in the PyTorch port yet: "
             "capacity and the slot cumsum run over the whole sequence "
@@ -276,15 +307,27 @@ def train_context(mesh, config, rules=sharding.DEFAULT_RULES
         raise ValueError(
             f"mesh tp={tp} does not divide num_heads={config.num_heads}")
     split = check_rules(mesh, rules, training=True)
+    vocab = split and getattr(config, "vocab_size", None) is not None
     ctx = TrainContext(mesh=mesh, rules=rules,
-                       vocab_sizes=_vocab_sizes(mesh, config, split))
-    if config.moe is not None:
+                       vocab_sizes=_vocab_sizes(mesh, config, vocab))
+    if moe is not None:
         count, _ = sharding.shard_count_and_index(mesh, ctx.expert_axes)
-        if count > config.moe.num_experts:
+        if count > moe.num_experts:
             raise ValueError(
-                f"{count} expert shards for {config.moe.num_experts} "
+                f"{count} expert shards for {moe.num_experts} "
                 "experts: every shard needs one")
     return ctx
+
+
+def mesh_context(config, mesh=None, rules=None) -> Optional[TrainContext]:
+    """The :func:`train_context` of ``mesh`` (or the installed global mesh)
+    when it has more than one rank, else None (an encoder's loss runs its
+    one-card path then)."""
+    mesh = mesh_lib.effective_mesh(
+        mesh if mesh is not None else mesh_lib.get_global_mesh())
+    if mesh is None:
+        return None
+    return train_context(mesh, config, rules or sharding.DEFAULT_RULES)
 
 
 def shard_lm(params, config, mesh, rules=sharding.DEFAULT_RULES):

@@ -87,11 +87,20 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def _counts(shape, device):
+def _counts(shape, device, start=None, full=None):
     """``iota_2x32_shape``: the row-major index of every element of
-    ``shape`` as (high, low) 32-bit words."""
-    n = int(np.prod(shape, dtype=np.int64))
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    ``shape`` as (high, low) 32-bit words; with ``start`` and ``full``,
+    the indices in ``full`` of the block of ``shape`` at ``start``."""
+    start = (0,) * len(shape) if start is None else start
+    full = shape if full is None else full
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        span = torch.arange(int(start[d]), int(start[d]) + shape[d],
+                            dtype=torch.int64, device=device) * stride
+        idx = idx + span.reshape([-1 if i == d else 1
+                                  for i in range(len(shape))])
+        stride *= int(full[d])
     return idx >> 32, idx & _MASK
 
 
@@ -109,29 +118,36 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([bits1, bits2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape: Shape, *, start=None,
+                full=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: 32 random bits an
-    element, as int64 values."""
-    hi, lo = _counts(_shape(shape), key.device)
+    element, as int64 values.  With ``start`` and ``full``, the block of
+    ``shape`` at ``start`` of ``jax.random.bits(key, full)`` (each
+    element's bits depend on its index alone, JAX's partitionable
+    threefry)."""
+    hi, lo = _counts(_shape(shape), key.device, start, full)
     bits1, bits2 = threefry2x32(key[0], key[1], hi, lo)
     return bits1.bitwise_xor_(bits2)
 
 
 def uniform(key: torch.Tensor, shape: Shape,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            dtype: torch.dtype = torch.float32, *, start=None,
+            full=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in [0, 1) for f32: the top 23
     bits as the mantissa of a float in [1, 2), minus one."""
     if dtype != torch.float32:
         raise NotImplementedError(
             f"uniform draws float32 only (JAX's layout for {dtype} has no "
             f"port yet), got {dtype}")
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, start=start, full=full)
     bits = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape: Shape, *, start=None,
+              full=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
-    ``uniform(key, shape) < float32(p)``, a bool tensor."""
-    u = uniform(key, shape)
+    ``uniform(key, shape) < float32(p)``, a bool tensor (the block of
+    ``shape`` at ``start`` of the draw of shape ``full``, when given)."""
+    u = uniform(key, shape, start=start, full=full)
     return u < torch.full((), p, dtype=torch.float32, device=u.device)

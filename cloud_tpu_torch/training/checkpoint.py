@@ -76,8 +76,16 @@ ranks :func:`resume_trainer_state` lets the chief verify and pick the
 step and broadcasts the choice, and a restore that fails on any rank
 walks every rank back together.
 
-Directories on ``gs://`` wait for the cloud layers and raise
-``NotImplementedError`` (ROADMAP.md A.6).
+**A ``gs://`` directory** (through the manager's ``storage_client``, else
+``google.cloud.storage``; ``utils/gcs.py``) holds the same objects under
+``<root>/<step>/``.  Object storage has no atomic rename, so every rank
+uploads its pieces straight under the step's prefix and the chief uploads
+``index.json`` last: a step whose index object is absent is never listed,
+and the first save of a manager clears the pieces of such steps.  As in
+the JAX package, a non-local directory gets no manifest (``verify()``
+reads ``"unmanifested"``), no extras sidecar (``read_extras()`` returns
+None, and ``CheckpointCallback(resume_data=True)`` warns) and no
+quarantine move.
 """
 
 from __future__ import annotations
@@ -102,7 +110,7 @@ from cloud_tpu_torch.monitoring import metrics, tracing
 from cloud_tpu_torch.parallel import distributed, sharding
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.training.train import TrainState
-from cloud_tpu_torch.utils import faults
+from cloud_tpu_torch.utils import faults, gcs
 
 logger = logging.getLogger(__name__)
 
@@ -132,9 +140,6 @@ TMP_PREFIX = ".tmp-"
 _VERIFIED = "verified"
 _CORRUPT = "corrupt"
 _UNMANIFESTED = "unmanifested"
-
-_GCS_LATER = ("checkpoints on gs:// are not ported yet: they come with the "
-              "cloud layers (ROADMAP.md A.6)")
 
 
 def _is_chief() -> bool:
@@ -245,27 +250,38 @@ def _dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def _join(directory: str, name: str) -> str:
+    return (gcs.join(directory, name) if gcs.is_gcs(directory)
+            else os.path.join(directory, name))
+
+
 def _read_piece(step_dir: str, key: str, name: str, shape, dtype: torch.dtype,
-                *, pin: bool) -> torch.Tensor:
-    """One piece of a leaf from its file, into pinned memory when ``pin``
-    (bound for the card); its size must be the index's."""
+                *, pin: bool, storage_client=None) -> torch.Tensor:
+    """One piece of a leaf from its file (or ``gs://`` object), into pinned
+    memory when ``pin`` (bound for the card); its size must be the
+    index's."""
     shape = tuple(int(n) for n in shape)
     numel = int(np.prod(shape, dtype=np.int64))
     nbytes = numel * torch.empty((), dtype=dtype).element_size()
-    path = os.path.join(step_dir, name)
-    size = os.path.getsize(path)
+    path = _join(step_dir, name)
+    data = (gcs.read_bytes(path, storage_client) if gcs.is_gcs(path)
+            else None)
+    size = len(data) if data is not None else os.path.getsize(path)
     if size != nbytes:
         raise ValueError(f"checkpoint leaf {key!r}: {path} holds "
                          f"{size} bytes, its index says {nbytes}")
     raw = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=pin)
-    if nbytes:
+    if data is not None:
+        raw.numpy()[:] = np.frombuffer(data, np.uint8)
+    elif nbytes:
         with open(path, "rb") as f:
             if f.readinto(memoryview(raw.numpy())) != nbytes:
                 raise ValueError(f"checkpoint leaf {key!r}: short read")
     return raw.view(dtype).reshape(shape)
 
 
-def _read_box(step_dir: str, entry: Dict, box, *, pin: bool) -> torch.Tensor:
+def _read_box(step_dir: str, entry: Dict, box, *, pin: bool,
+              storage_client=None) -> torch.Tensor:
     """The part ``box`` (``[start, stop)`` per dim) of a leaf's global
     tensor, from the pieces that overlap it and no others."""
     dtype = _dtype(entry["dtype"])
@@ -282,7 +298,8 @@ def _read_box(step_dir: str, entry: Dict, box, *, pin: bool) -> torch.Tensor:
         if any(h <= l for l, h in zip(lo, hi)):
             continue
         value = _read_piece(step_dir, key, piece["file"],
-                            [pe - pb for pb, pe in bounds], dtype, pin=pin)
+                            [pe - pb for pb, pe in bounds], dtype, pin=pin,
+                            storage_client=storage_client)
         if [list(b) for b in bounds] == [list(b) for b in box]:
             return value
         if out is None:
@@ -530,6 +547,10 @@ class CheckpointManager:
     (``cuda`` by default, ``"cpu"`` when asked); a restore with a
     template puts each leaf where the template's is.
 
+    ``directory`` may be ``gs://`` (see the module's notes), read and
+    written through ``storage_client`` (a ``google.cloud.storage.Client()``,
+    built at first use, by default).
+
     ``layout`` (a :class:`StateLayout`) is how a state sharded over a mesh
     of several ranks lies; by default the installed global mesh with every
     leaf replicated, which only a mesh over ``dp`` alone (or none) takes:
@@ -542,10 +563,10 @@ class CheckpointManager:
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
                  save_interval_steps: int = 1, device=None,
-                 layout: Optional[StateLayout] = None):
+                 layout: Optional[StateLayout] = None, storage_client=None):
         self._directory = os.fspath(directory)
-        if self._directory.startswith("gs://"):
-            raise NotImplementedError(_GCS_LATER)
+        self._gcs = gcs.is_gcs(self._directory)
+        self._storage_client = storage_client
         self._device = resolve_device(device)
         self._layout = layout
         #: The save in flight, not yet committed: ``(step, index,
@@ -570,8 +591,24 @@ class CheckpointManager:
     def directory(self) -> str:
         return self._directory
 
+    def _client(self):
+        if self._storage_client is None:
+            self._storage_client = gcs.client()
+        return self._storage_client
+
     def _step_dir(self, step: int) -> str:
-        return os.path.join(self._directory, str(int(step)))
+        return _join(self._directory, str(int(step)))
+
+    def _remove(self, path: str) -> None:
+        """Delete a step directory (or prefix: its index object first, so
+        the step stops being listed before its pieces go)."""
+        if not self._gcs:
+            shutil.rmtree(path, ignore_errors=True)
+            return
+        names = gcs.list_paths(path + "/", self._client())
+        index = _join(path, INDEX_NAME)
+        for name in sorted(names, key=lambda n: n != index):
+            gcs.delete(name, self._client())
 
     def _meta_path(self, step: int) -> str:
         return os.path.join(self._directory, META_DIRNAME, f"{int(step)}.json")
@@ -671,15 +708,29 @@ class CheckpointManager:
         if _is_chief():
             if not self._wrote:
                 self._wrote = True
-                for name in (os.listdir(self._directory)
-                             if os.path.isdir(self._directory) else ()):
-                    if name.startswith(TMP_PREFIX):
-                        shutil.rmtree(os.path.join(self._directory, name),
-                                      ignore_errors=True)
+                self._clear_uncommitted()
             latest = self.latest_step()
             decision = self._should_save(
                 step, force and not (latest is not None and step == latest))
         return bool(_from_chief(decision) if _several_ranks() else decision)
+
+    def _clear_uncommitted(self) -> None:
+        """Remove what killed writes left: the temporary directories, or
+        on ``gs://`` the pieces of steps whose index was never uploaded."""
+        if not self._gcs:
+            for name in (os.listdir(self._directory)
+                         if os.path.isdir(self._directory) else ()):
+                if name.startswith(TMP_PREFIX):
+                    shutil.rmtree(os.path.join(self._directory, name),
+                                  ignore_errors=True)
+            return
+        root = self._directory.rstrip("/") + "/"
+        listed = [p[len(root):] for p in gcs.list_paths(root, self._client())]
+        committed = {n.split("/")[0] for n in listed
+                     if n.count("/") == 1 and n.endswith("/" + INDEX_NAME)}
+        for stale in sorted({n.split("/")[0] for n in listed if "/" in n}):
+            if stale.isdigit() and stale not in committed:
+                self._remove(_join(self._directory, stale))
 
     def _start_write(self, step: int, state: Any, layout: StateLayout) -> None:
         """Snapshot the pieces this rank writes (:func:`_snapshot`) and
@@ -688,7 +739,11 @@ class CheckpointManager:
         (:meth:`_commit_dir`); under several ranks the chief commits it
         when the ranks next meet (:meth:`_commit`)."""
         spec, entries, mine, buffers, events = _snapshot(state, layout)
-        tmp = os.path.join(self._directory, f"{TMP_PREFIX}{step}")
+        # On gs:// the pieces go straight under the step's prefix: the
+        # index, uploaded last, is what makes the step appear.
+        tmp = (self._step_dir(step) if self._gcs
+               else os.path.join(self._directory, f"{TMP_PREFIX}{step}"))
+        client = self._client() if self._gcs else None
         index = {"step": step, "tree": spec, "leaves": entries,
                  "mesh": (None if layout.mesh is None
                           else dict(layout.mesh.spec.sizes)),
@@ -701,17 +756,21 @@ class CheckpointManager:
             try:
                 for event in events:
                     event.synchronize()
-                os.makedirs(tmp, exist_ok=True)
+                if client is None:
+                    os.makedirs(tmp, exist_ok=True)
                 for (_, name), buf in zip(mine, buffers):
+                    data = (buf.reshape(-1).view(torch.uint8).numpy().data
+                            if buf.numel() else b"")
+                    if client is not None:
+                        gcs.write_bytes(_join(tmp, name), data, client)
+                        continue
                     with open(os.path.join(tmp, name), "wb") as f:
-                        if buf.numel():
-                            f.write(buf.reshape(-1).view(torch.uint8)
-                                    .numpy().data)
+                        f.write(data)
                 if alone:
                     self._commit_dir(step, index, tmp)
             except BaseException as exc:  # noqa: BLE001 — raised at commit
                 if alone:
-                    shutil.rmtree(tmp, ignore_errors=True)
+                    self._remove(tmp)
                 errors.append(exc)
 
         thread = threading.Thread(target=write, daemon=True,
@@ -722,10 +781,16 @@ class CheckpointManager:
     def _commit_dir(self, step: int, index: Dict, tmp: str) -> None:
         """Write the step's index into its temporary directory, rename
         that to the step (it appears whole or not at all) and keep the
-        newest ``max_to_keep`` steps."""
-        with open(os.path.join(tmp, INDEX_NAME), "w", encoding="utf-8") as f:
-            json.dump(index, f)
-        os.rename(tmp, self._step_dir(step))
+        newest ``max_to_keep`` steps.  On ``gs://`` the pieces are already
+        under the step's prefix, and uploading the index commits it."""
+        if self._gcs:
+            gcs.write_bytes(_join(tmp, INDEX_NAME),
+                            json.dumps(index).encode(), self._client())
+        else:
+            with open(os.path.join(tmp, INDEX_NAME), "w",
+                      encoding="utf-8") as f:
+                json.dump(index, f)
+            os.rename(tmp, self._step_dir(step))
         self._gc_steps()
 
     def _commit(self) -> None:
@@ -757,7 +822,7 @@ class CheckpointManager:
                     self._commit_dir(step, index, tmp)
                     self._pending_manifest.append(step)
                 except Exception as exc:  # noqa: BLE001 — agreed on below
-                    shutil.rmtree(tmp, ignore_errors=True)
+                    self._remove(tmp)
                     failure = failure or repr(exc)
         failure = _from_chief(failure)
         if failure is not None:
@@ -768,7 +833,7 @@ class CheckpointManager:
         if not self._max_to_keep:
             return
         for stale in self.steps()[:-self._max_to_keep]:
-            shutil.rmtree(self._step_dir(stale), ignore_errors=True)
+            self._remove(self._step_dir(stale))
 
     def restore(self, step: Optional[int] = None, *, template: Any = None,
                 layout: Optional[StateLayout] = None):
@@ -795,9 +860,14 @@ class CheckpointManager:
         with tracing.span("checkpoint/restore", step=int(step)):
             faults.fault_point("checkpoint.restore")
             step_dir = self._step_dir(step)
-            with open(os.path.join(step_dir, INDEX_NAME),
-                      encoding="utf-8") as f:
-                index = json.load(f)
+            client = self._client() if self._gcs else None
+            if client is not None:
+                index = json.loads(gcs.read_bytes(_join(step_dir, INDEX_NAME),
+                                                  client))
+            else:
+                with open(os.path.join(step_dir, INDEX_NAME),
+                          encoding="utf-8") as f:
+                    index = json.load(f)
             entries = index["leaves"]
             if template is not None:
                 flat: List[Tuple[str, Any]] = []
@@ -809,13 +879,14 @@ class CheckpointManager:
                 entry = entries[i]
                 if like is None:
                     full = [[0, int(n)] for n in entry["shape"]]
-                    return _read_box(step_dir, entry, full,
-                                     pin=False).to(self._device)
+                    return _read_box(step_dir, entry, full, pin=False,
+                                     storage_client=client).to(self._device)
                 want = _leaf_tensor(like)
                 box = _target_box(entry, cuts.get(entry["key"]), mesh,
                                   want.shape)
                 value = _read_box(step_dir, entry, box,
-                                  pin=want.device.type == "cuda")
+                                  pin=want.device.type == "cuda",
+                                  storage_client=client)
                 if value.dtype != want.dtype:
                     raise ValueError(
                         f"checkpoint leaf {entry['key']!r} is "
@@ -835,7 +906,15 @@ class CheckpointManager:
 
     def steps(self) -> List[int]:
         """All completed step numbers on disk, ascending (re-read, so a
-        quarantine or an out-of-band delete is reflected)."""
+        quarantine or an out-of-band delete is reflected).  On ``gs://``
+        a step is listed once its index object exists."""
+        if self._gcs:
+            root = self._directory.rstrip("/") + "/"
+            names = [p[len(root):].split("/") for p in
+                     gcs.list_paths(root, self._client())]
+            return sorted(int(n[0]) for n in names
+                          if len(n) == 2 and n[0].isdigit()
+                          and n[1] == INDEX_NAME)
         try:
             names = os.listdir(self._directory)
         except FileNotFoundError:
@@ -868,7 +947,7 @@ class CheckpointManager:
         """Synchronous tiny sidecar: the composite extras must reflect
         the trainer's position AT the save call, and must survive a hard
         kill even if the manifest never commits."""
-        if not extras or not _is_chief():
+        if not extras or self._gcs or not _is_chief():
             return
         try:
             meta_dir = os.path.join(self._directory, META_DIRNAME)
@@ -883,6 +962,8 @@ class CheckpointManager:
 
     def read_extras(self, step: int) -> Optional[Dict]:
         """The composite extras saved with ``step`` (None if absent)."""
+        if self._gcs:
+            return None
         try:
             with open(self._meta_path(step), encoding="utf-8") as f:
                 return json.load(f)
@@ -928,9 +1009,10 @@ class CheckpointManager:
         """Write manifests for saves whose write has completed.
 
         A manifest that cannot be written leaves its step unmanifested
-        (restorable, unverified) — never kills training.
+        (restorable, unverified) — never kills training.  A ``gs://``
+        directory gets none (as in the JAX package).
         """
-        if not _is_chief():
+        if self._gcs or not _is_chief():
             return
         for step in pending:
             step_dir = self._step_dir(step)
@@ -971,13 +1053,16 @@ class CheckpointManager:
         Returns ``"verified"`` (manifest present, every entry's size and
         crc32 match), ``"corrupt"`` (manifest present but unreadable, an
         entry missing, or bytes changed), or ``"unmanifested"`` (no
-        manifest — a save whose commit a hard kill interrupted).
+        manifest — a save whose commit a hard kill interrupted, or a
+        ``gs://`` directory).
         """
         status = self._verify_on_disk(step)
         # Chaos seam: a corrupt-mode rule can force any verdict.
         return faults.fault_point("checkpoint.verify", status)
 
     def _verify_on_disk(self, step: int) -> str:
+        if self._gcs:
+            return _UNMANIFESTED
         path = self._manifest_path(step)
         if not os.path.exists(path):
             return _UNMANIFESTED
@@ -1018,10 +1103,11 @@ class CheckpointManager:
         step from the lineage is load-bearing, not hygiene: a save not
         ahead of ``latest_step`` is skipped, so a stale newer dir left in
         place would silently disable every checkpoint save of the resumed
-        job until it passed that step.
+        job until it passed that step.  A ``gs://`` step is never moved
+        (returns False), as in the JAX package.
         """
         step_dir = self._step_dir(step)
-        if not os.path.isdir(step_dir):
+        if self._gcs or not os.path.isdir(step_dir):
             return False
         qdir = os.path.join(self._directory, QUARANTINE_DIRNAME)
         try:
@@ -1274,18 +1360,21 @@ class CheckpointCallback:
     step, finishing the ORIGINAL epochs budget instead of running
     ``epochs`` fresh ones.
 
-    ``device`` is the manager's (see :class:`CheckpointManager`).
+    ``device`` and ``storage_client`` are the manager's (see
+    :class:`CheckpointManager`).
     """
 
     def __init__(self, directory: str, *, every_n_steps: int = 100,
                  max_to_keep: int = 3, resume: bool = True,
-                 resume_data: bool = False, device=None):
+                 resume_data: bool = False, device=None,
+                 storage_client=None):
         self.directory = directory
         self.every_n_steps = every_n_steps
         self.max_to_keep = max_to_keep
         self.resume = resume
         self.resume_data = resume_data
         self.device = device
+        self.storage_client = storage_client
         self._manager: Optional[CheckpointManager] = None
         #: Last step observed by on_step_end — fused dispatch (k>1)
         #: reports only window-boundary steps, so the periodic trigger
@@ -1302,6 +1391,7 @@ class CheckpointCallback:
                 self.directory, max_to_keep=self.max_to_keep,
                 save_interval_steps=self.every_n_steps, device=self.device,
                 layout=None if trainer is None else layout_of(trainer),
+                storage_client=self.storage_client,
             )
         return self._manager
 
@@ -1330,6 +1420,16 @@ class CheckpointCallback:
         return {"data_state": dict(data_state)}
 
     def on_train_begin(self, trainer):
+        if self.resume_data and gcs.is_gcs(self.directory):
+            # The meta/ sidecar carrying iterator state is local-fs only
+            # (like the manifests): on a non-local directory the composite
+            # resume silently loses its data half — say so loudly instead.
+            logger.warning(
+                "CheckpointCallback(resume_data=True) on non-local %r: "
+                "iterator state is NOT saved or restored there — a resumed "
+                "fit restarts the data stream (exactly-once resume needs a "
+                "local checkpoint directory)", self.directory,
+            )
         if self.resume and trainer.state is not None:
             resume_trainer_state(trainer, self._get(trainer),
                                  apply_data_state=self.resume_data)

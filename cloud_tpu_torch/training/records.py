@@ -23,13 +23,16 @@ Three layers, each usable alone:
   overlapping host decode + transfer with device compute — owned by
   ``training.pipeline_io``, re-exported here).
 
-Paths are local (glob patterns supported).  ``gs://`` paths raise
-``NotImplementedError``: they come with the cloud layers (ROADMAP.md
-A.6).
+Paths are local (glob patterns supported) or ``gs://`` (through an
+injected ``storage_client``, else ``google.cloud.storage``; see
+``utils/gcs.py``): a ``gs://`` file is written whole on close and read
+whole, and a ``gs://`` glob lists by the prefix before its first ``*``,
+then matches the full pattern.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import glob as glob_lib
 import io
 import itertools
@@ -40,6 +43,8 @@ import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
+
+from cloud_tpu_torch.utils import gcs
 
 logger = logging.getLogger(__name__)
 
@@ -141,25 +146,25 @@ def masked_crc32c(data: bytes) -> int:
 # ---------------------------------------------------------------------------
 
 
-_GCS_LATER = ("record files on gs:// are not ported yet: they come with the "
-              "cloud layers (ROADMAP.md A.6)")
-
-
-def _refuse_gcs(path: str) -> None:
-    if path.startswith("gs://"):
-        raise NotImplementedError(f"{path}: {_GCS_LATER}")
-
-
 class RecordWriter:
-    """Writes TFRecord-framed records to one local file."""
+    """Writes TFRecord-framed records to one local or ``gs://`` file.
 
-    def __init__(self, path: str):
-        _refuse_gcs(path)
+    GCS writes buffer in memory and upload on close (records files are
+    written shard-by-shard; one shard fits comfortably in host RAM).
+    """
+
+    def __init__(self, path: str, storage_client=None):
         self.path = path
-        parent = os.path.dirname(path)
-        if parent:
-            os.makedirs(parent, exist_ok=True)
-        self._file = open(path, "wb")
+        self._storage_client = storage_client
+        if gcs.is_gcs(path):
+            self._buf: Optional[io.BytesIO] = io.BytesIO()
+            self._file = self._buf
+        else:
+            parent = os.path.dirname(path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self._buf = None
+            self._file = open(path, "wb")
 
     def write(self, payload: bytes) -> None:
         header = struct.pack("<Q", len(payload))
@@ -169,7 +174,12 @@ class RecordWriter:
         self._file.write(struct.pack("<I", masked_crc32c(payload)))
 
     def close(self) -> None:
-        self._file.close()
+        if self._buf is not None:
+            gcs.write_bytes(self.path, self._buf.getvalue(),
+                            self._storage_client)
+            self._buf = None
+        else:
+            self._file.close()
 
     def __enter__(self):
         return self
@@ -254,7 +264,8 @@ def _scan_records_native(f, path: str, verify: bool):
             return
 
 
-def read_records(path: str, *, verify: bool = False) -> Iterator[bytes]:
+def read_records(path: str, *, verify: bool = False,
+                 storage_client=None) -> Iterator[bytes]:
     """Stream raw record payloads from one TFRecord-framed file.
 
     With the native library available, frames are parsed and
@@ -262,8 +273,10 @@ def read_records(path: str, *, verify: bool = False) -> Iterator[bytes]:
     (constant memory); the framing-loop fallback streams record by
     record in Python.
     """
-    _refuse_gcs(path)
-    f = open(path, "rb")
+    if gcs.is_gcs(path):
+        f = io.BytesIO(gcs.read_bytes(path, storage_client))
+    else:
+        f = open(path, "rb")
     if _native() is not None:
         try:
             yield from _scan_records_native(f, path, verify)
@@ -533,11 +546,18 @@ def _process_shard():
     return 0, 1
 
 
-def _list_files(patterns: Sequence[str]) -> List[str]:
+def _list_files(patterns: Sequence[str], storage_client=None) -> List[str]:
     files: List[str] = []
     for pattern in patterns:
-        _refuse_gcs(pattern)
-        if glob_lib.has_magic(pattern):
+        if gcs.is_gcs(pattern):
+            # list_blobs only prefixes; apply the full glob to each name so
+            # e.g. sidecar files under the same prefix don't stream as
+            # records.
+            prefix = pattern.split("*")[0]
+            files.extend(path for path in gcs.list_paths(prefix,
+                                                         storage_client)
+                         if fnmatch.fnmatch(path, pattern))
+        elif glob_lib.has_magic(pattern):
             files.extend(sorted(glob_lib.glob(pattern)))
         else:
             if not os.path.exists(pattern):
@@ -599,15 +619,17 @@ class RecordDataset:
         process_count: Optional[int] = None,
         verify: bool = False,
         decode_threads: int = 0,
+        storage_client=None,
     ):
         patterns = [files] if isinstance(files, str) else list(files)
-        self.files = _list_files(patterns)
+        self.files = _list_files(patterns, storage_client)
         self.batch_size = batch_size
         self.decode = decode or decode_tensor_record
         self.decode_threads = decode_threads
         self.shuffle_buffer = shuffle_buffer
         self.drop_remainder = drop_remainder
         self.verify = verify
+        self._storage_client = storage_client
         self.seed = int(seed)
         self._epoch = 0  # epochs issued so far (next __call__ uses this)
         self._skip = 0   # one-shot batch fast-forward for the next epoch
@@ -636,7 +658,9 @@ class RecordDataset:
             rng.shuffle(files)
         idx = 0
         for path in files:
-            for payload in read_records(path, verify=self.verify):
+            for payload in read_records(
+                path, verify=self.verify, storage_client=self._storage_client
+            ):
                 keep = (
                     not self._stride_records
                     or idx % self.process_count == self.process_index
@@ -795,6 +819,7 @@ def write_records(
     *,
     num_shards: int = 1,
     encode: Callable[[Dict[str, np.ndarray]], bytes] = encode_tensor_record,
+    storage_client=None,
 ) -> List[str]:
     """Write examples round-robin into ``num_shards`` TFRecord-framed files.
 
@@ -808,7 +833,7 @@ def write_records(
         else path_template
         for i in range(num_shards)
     ]
-    writers = [RecordWriter(p) for p in paths]
+    writers = [RecordWriter(p, storage_client) for p in paths]
     try:
         for i, example in enumerate(examples):
             writers[i % num_shards].write(encode(example))

@@ -33,8 +33,8 @@ leaf) and summed over ``dp`` and ``sp`` in f32 (``grad_sync``), nothing
 over ``tp``, ``pp`` or ``ep``; ``grad_norm`` sums each leaf's squares
 over the axes that split it.  Under ``pp`` each rank holds its pipeline
 stage's layers (``parallel/pipeline.py``), under ``ep`` its experts.
-The loss must return its rank's share of the global loss
-(the ``loss_fn`` of CloudLM, MNIST and ResNet does, marked
+The loss must return its rank's share of the global loss (the
+``loss_fn`` of CloudLM, BERT, ViT, MNIST and ResNet does, marked
 ``mesh_loss``), so the summed gradients are the global loss's.
 :func:`make_hybrid_dp_train_step` is the JAX package's replicated
 data-parallel step with the two-level gradient sum.  ``Trainer.fit``
@@ -448,11 +448,10 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     mesh_lib.check_mesh(mesh)
     if mesh is not None and not _is_mesh_loss(loss_fn):
-        raise NotImplementedError(
+        raise ValueError(
             "under a mesh the step takes a loss marked train.mesh_loss (one "
             "that returns its rank's share of the global loss, as the "
-            "loss_fn of CloudLM, MNIST and ResNet does); BERT and ViT under "
-            "a mesh are queued under ROADMAP.md A.2")
+            "loss_fn of CloudLM, BERT, ViT, MNIST and ResNet does)")
     layouts: List[_MeshLayout] = []
 
     def layout_of(params) -> Optional[_MeshLayout]:

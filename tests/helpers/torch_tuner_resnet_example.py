@@ -6,7 +6,9 @@ The worker builds a ``CloudTuner`` over a local study in the
 shared ``--study-dir`` (``--study-id`` and ``--tuner-id`` are appended by
 ``dispatch_search``), searching ``learning_rate`` (log-uniform in
 1e-4..1e-1) and ``momentum`` (0.0 or 0.9) for ``--max-trials`` trials
-between all workers.  Each trial is the port's ``Trainer`` (under the
+between all workers (with ``--meet-dir`` and ``--workers`` the workers
+meet once each holds its first trial, so each runs at least one).  Each
+trial is the port's ``Trainer`` (under the
 bootstrap's mesh) for ``--epochs`` epochs of ``--steps`` steps of
 ``--batch`` rows of the synthetic CIFAR arrays of
 ``torch_resnet_cifar_fit.py``, every trial for all its epochs (the
@@ -30,6 +32,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_resnet_cifar_fit import GN_KERNELS, cifar_arrays  # noqa: E402
+from torch_tuner_fakes import barrier_hypermodel  # noqa: E402
 
 from cloud_tpu_torch import bridge, parallel  # noqa: E402
 from cloud_tpu_torch import tuner as tuner_lib  # noqa: E402
@@ -97,6 +100,10 @@ def main(argv=None):
     parser.add_argument("--config", default="resnet50", choices=["resnet50",
                                                                  "tiny"])
     parser.add_argument("--device", default=None, choices=["cuda", "cpu"])
+    # Workers meet under --meet-dir once each holds its first trial, so a
+    # worker that boots late still finds trials left in the study.
+    parser.add_argument("--meet-dir", default=None)
+    parser.add_argument("--workers", type=int, default=1)
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     config = resnet.RESNET50_CIFAR if args.config == "resnet50" else TINY
     mesh = parallel.get_global_mesh()
@@ -116,6 +123,9 @@ def main(argv=None):
         t.init_state(torch.Generator(device=t.device).manual_seed(0))
         return t
 
+    if args.meet_dir:
+        hypermodel = barrier_hypermodel(args.meet_dir, args.tuner_id,
+                                        args.workers, hypermodel)
     service = FullTrials(args.study_id, args.study_dir,
                          max_trials=args.max_trials, seed=0)
     tuner = tuner_lib.CloudTuner(

@@ -367,9 +367,28 @@ def test_remote_run_restores_existing_state(tmp_path):
 
 
 def test_a_gcs_state_propagates_the_refusal(tmp_path):
-    server = _trainer(make_spec())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        remote._maybe_restore(server, "gs://bucket/run/state")
+    """A ``gs://`` ``state/`` restores through the run's storage client (a
+    directory-backed fake) into the fresh state, bit for bit, and is never
+    moved; an empty one starts fresh."""
+    from helpers.torch_gcs_fake import DirectoryStorage
+
+    storage = DirectoryStorage(str(tmp_path / "bucket"))
+    spec = make_spec()
+    uploaded = _trainer(spec, seed=42).state
+    manager = checkpoint.CheckpointManager(
+        "gs://bucket/run/state", device="cpu", storage_client=storage)
+    manager.save(3, uploaded)
+    manager.wait()
+    before = storage.objects("bucket")
+    server = _trainer(spec, seed=0)
+    assert remote._maybe_restore(server, "gs://bucket/run/state", storage)
+    for got, want in zip(bridge.leaves(server.state.params),
+                         bridge.leaves(uploaded.params)):
+        assert torch.equal(got, want)
+    assert storage.objects("bucket") == before
+    fresh = _trainer(spec, seed=0)
+    assert not remote._maybe_restore(fresh, "gs://bucket/other/state",
+                                     storage)
 
 
 def test_another_restore_error_starts_fresh(tmp_path, caplog):

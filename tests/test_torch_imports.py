@@ -149,12 +149,16 @@ STDLIB_COPIES = {
     "tuner/tuner.py": ("cloud_tpu_torch.monitoring", "cloud_tpu_torch.tuner"),
     "tuner/dispatch.py": ("cloud_tpu_torch.tuner", "cloud_tpu_torch.core"),
     "cloud_fit/__init__.py": "cloud_tpu_torch.cloud_fit",
-    "cloud_fit/serialization.py": ("cloudpickle", "numpy", "google.cloud"),
+    "cloud_fit/serialization.py": ("cloudpickle", "numpy",
+                                   "cloud_tpu_torch.utils"),
+    # gs:// paths: google.cloud only when no client is injected.
+    "utils/gcs.py": "google.cloud",
     "cloud_fit/client.py": ("cloud_tpu_torch.cloud_fit",
                             "cloud_tpu_torch.core", "numpy"),
     "cloud_fit/remote.py": ("cloud_tpu_torch.cloud_fit",
                             "cloud_tpu_torch.parallel",
-                            "cloud_tpu_torch.training", "torch"),
+                            "cloud_tpu_torch.training",
+                            "cloud_tpu_torch.utils", "torch"),
 }
 
 

@@ -20,7 +20,8 @@ updated shards are gathered back whole (``bridge.from_train_shard``).
 * **Each axis alone on 2 ranks**, one step against JAX's: dp, fsdp, tp
   (vocabulary split, remat on and off), sp contiguous, zig-zag and
   Ulysses, and the fused CE under fsdp and under tp with the vocabulary
-  whole (JAX's plain CE the reference), on a batch whose ``loss_mask`` counts differ between the data
+  whole and split (JAX's plain CE the reference), on a batch whose
+  ``loss_mask`` counts differ between the data
   ranks (the loss is JAX's global value, not a mean of local means), with
   ``grad_norm``; ``accum_steps=2`` under dp; ``skip_nonfinite`` with a
   NaN in one rank's rows (every rank skips); AdamW under fsdp held by its
@@ -397,7 +398,8 @@ for name, sizes, kw, rules in (
         ("sp zigzag", {"sp": 2}, {"zigzag_sp": True}, None),
         ("sp ulysses", {"sp": 2}, {"ulysses_sp": True}, None),
         ("fsdp fused_ce", {"fsdp": 2}, {"fused_ce": True}, None),
-        ("tp fused_ce", {"tp": 2}, {"fused_ce": True}, whole_vocab)):
+        ("tp fused_ce", {"tp": 2}, {"fused_ce": True}, whole_vocab),
+        ("tp fused_ce split", {"tp": 2}, {"fused_ce": True}, None)):
     mesh = MeshSpec(sizes).build(devices=["cpu"] * 2)
     one_step(name, dataclasses.replace(cfg, **kw), params, mesh, batch, sgd,
              rules)
@@ -459,7 +461,8 @@ OUT["pad"] = [list(local["tokens"].shape), str(local["tokens"].device),
 
 #: The arms of ``_AXES`` held to JAX's plain step.
 AXIS_ARMS = ("dp", "fsdp", "tp", "tp remat", "sp", "sp zigzag",
-             "sp ulysses", "fsdp fused_ce", "tp fused_ce", "pp", "pp tied",
+             "sp ulysses", "fsdp fused_ce", "tp fused_ce",
+             "tp fused_ce split", "pp", "pp tied",
              "moe ep", "moe ep uneven", "moe dp", "moe fsdp", "moe tp")
 #: The model of each arm that does not train the 2-layer TINY.
 ARM_MODELS = {"pp tied": "tied", "moe ep": "moe", "moe ep uneven": "moe3",
@@ -729,7 +732,7 @@ def _fake_mesh(sizes, coords=None):
 
 
 def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
-    from cloud_tpu_torch.models import bert, transformer
+    from cloud_tpu_torch.models import transformer
     from cloud_tpu_torch.parallel import use_mesh
     from cloud_tpu_torch.training import (checkpoint, compile_cache,
                                           optimizers, pipeline_io, train,
@@ -749,11 +752,6 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
             {}, mesh=mesh, device="cpu"),
         "pipeline_io": lambda: pipeline_io.prefetch_windows(
             list, 2, mesh=mesh, device="cpu"),
-        "BERT": lambda: train.make_train_step(
-            functools.partial(bert.loss_fn, cfg=bert.TINY), sgd, mesh=mesh),
-        "fused_ce": lambda: transformer.loss_fn(
-            {}, {"tokens": np.zeros((1, 8), np.int64)},
-            cfg.scaled(fused_ce=True), mesh=mesh),
         "MoE under sp": lambda: transformer.loss_fn(
             {}, {"tokens": np.zeros((1, 8), np.int64)},
             cfg.scaled(moe=__import__(

@@ -570,12 +570,42 @@ def _prefetch_under_mesh():
         pipeline_io.prefetch_to_device(list, mesh=object(), device="cpu")
 
 
+def _gcs_checkpoints_resume():
+    """A fit checkpointing to ``gs://`` (a directory-backed fake client)
+    every 2 steps keeps ``max_to_keep`` steps, and a fresh trainer resumes
+    from the latest bit for bit."""
+    import tempfile
+
+    from helpers.torch_gcs_fake import DirectoryStorage
+
+    storage = DirectoryStorage(tempfile.mkdtemp(prefix="fake-gcs-"))
+    arrays, _ = _linear()
+
+    def fit(epochs):
+        tr = _tiny_trainer()
+        tr.init_state(None)
+        tr.fit(data.ArrayDataset(arrays, 4), epochs=epochs, callbacks=[
+            checkpoint.CheckpointCallback(
+                "gs://b/ckpt", every_n_steps=2, max_to_keep=2,
+                device="cpu", storage_client=storage)])
+        return tr
+
+    first = fit(1)
+    steps = int(first.state.step)
+    manager = checkpoint.CheckpointManager("gs://b/ckpt", device="cpu",
+                                           storage_client=storage)
+    assert manager.steps()[-1] == steps and len(manager.steps()) == 2
+    resumed = _tiny_trainer()
+    resumed.init_state(None)
+    assert checkpoint.resume_trainer_state(resumed, manager)
+    assert int(resumed.state.step) == steps
+    assert torch.equal(resumed.state.params["w"], first.state.params["w"])
+
+
 #: name -> (call, words of its message, the ROADMAP item it names).
 REFUSED = {
     "prefetch_windows(rules)": (lambda: pipeline_io.prefetch_windows(
         list, 2, rules=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
-    "CheckpointManager(gs://)": (lambda: checkpoint.CheckpointManager(
-        "gs://bucket/ckpt", device="cpu"), "gs://", "ROADMAP.md A.6"),
 }
 
 #: Options that raised until their items were ported; each now runs and
@@ -594,14 +624,15 @@ PORTED = {
     "fit(batch_spec)": lambda: _fit_ahead_equals_plain(batch_spec={
         "x": np.zeros((4, 4), np.float32),
         "y": np.zeros((4, 2), np.float32)}),
+    "CheckpointManager(gs://)": _gcs_checkpoints_resume,
 }
 
 
 @pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
 def test_refused_options_name_their_item(name):
-    """A queued option or a gs:// directory raises naming its item; the
-    ported options (``PORTED``) run, held to JAX or to the run without
-    them."""
+    """A queued option raises naming its item; the ported options
+    (``PORTED``, a gs:// checkpoint directory among them) run, held to JAX
+    or to the run without them."""
     if name in PORTED:
         PORTED[name]()
         return
