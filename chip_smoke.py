@@ -326,10 +326,11 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Once the kernels are timed (after
-phase 2c), phases 3tp, 4r, 4k, 9r, 9m, 9t, 9f, 6mesh, 6pp, 6enc, 9g and
-10g run in a second process (``python3 chip_smoke.py --side <dir>``,
-``SIDE_PHASES``) beside phases 3 to 8v; each counts its launches from 0 in its own
-process, and its output is printed after phase 8v.  Any failed phase
+phase 2c), phases 3f, 3v, 3x, 3m, 3tp, 6mesh, 6pp and 6enc run in side
+process 1 and 4r, 4k, 9r, 9m, 9t, 9f, 9g and 10g in side process 2
+(``python3 chip_smoke.py --side <dir> <process>``, ``SIDE_PHASES``)
+beside phases 3 to 8v; each counts its launches from 0 in its own
+process, and their output is printed after phase 8v.  Any failed phase
 ends the run with a nonzero exit and no result line; the phase it
 stopped in and the traceback go to stdout.
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -6340,6 +6341,26 @@ TP_PREFIX = {"prefix_cache_blocks": 16, "prefix_block_tokens": 16,
 TP_TIMEOUT_S = 180
 #: Model of the TP phases (SMALL, or a narrower config in a CPU rehearsal).
 TP_MODEL = None
+#: The slice's later arms serve this many of the prompts.
+TP_ARM_REQUESTS = 4
+#: The draft arms: spec_k (the verify's Tq) and the drafts, from seed 7:
+#: a 2-layer SMALL (12 heads: head-sharded as the target), and a 2-layer
+#: 3-head one (tp 2 does not divide it: replicated on both ranks).
+TP_SPEC_K = 4
+TP_DRAFTS = {"sharded": {"num_layers": 2},
+             "replicated": {"num_layers": 2, "num_heads": 3}}
+#: The host-tier arm: a 6-block pool over 16-token blocks with a 16-block
+#: host tier, pages attached through K8's block table; its requests
+#: served one at a time demote blocks and swap them back in.
+TP_TIER = {"prefix_cache_blocks": 6, "prefix_block_tokens": 16,
+           "prefix_dram_blocks": 16, "decode_kernel": "auto"}
+#: The handoff arms: the prefix cache the KV handoff moves blocks of.
+TP_HANDOFF = {"prefix_cache_blocks": 16, "prefix_block_tokens": 16,
+              "prefill_chunk_tokens": 32, "decode_kernel": "auto"}
+#: The arms whose requests are the first TP_ARM_REQUESTS prompts, served
+#: at once, each token-identical to the single-process f32 engine's.
+TP_SAME_AS_F32 = ("f32 draft", "f32 draft replicated", "f32 depth 2",
+                  "f32 fleet")
 
 
 def _split_heads(full, rank):
@@ -6438,7 +6459,7 @@ def check_tp_kernels(device, card):
             if quantized:
                 slot, pool_l = _quantize_leaves(slot), _quantize_leaves(pool_l)
             worst = 0.0
-            for tq in (1, 4):
+            for tq in (1, TP_SPEC_K):
                 q = _split_heads(torch.randn(
                     (NUM_SLOTS, tq, HEADS, HEAD_DIM), generator=gen,
                     device=device).to(dtype), 1)
@@ -6487,6 +6508,8 @@ def check_tp_kernels(device, card):
                 "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={TP_HEADS} "
                          f"D={HEAD_DIM} {'int8' if quantized else 'bf16'} "
                          f"K/V, q a strided view"}
+            rows[kname + " verify"] = _tp_verify_row(
+                pa, gen, slot, kv, cur_len, table, lens, quantized)
     for kname, row in rows.items():
         print(f"  {kname} at H={TP_HEADS} ({row['shape']}): kernel "
               f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
@@ -6494,6 +6517,46 @@ def check_tp_kernels(device, card):
               f"{row['library_ms']:.4f} ({row['library_device_ms']:.4f}), "
               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) [{card}]")
     return {"rows": rows, "max_abs_err": errs}
+
+
+def _tp_verify_row(pa, gen, slot, kv, cur_len, table, lens, quantized):
+    """K8 (or K8q) timed at the verify shape of 3tp's draft arms on a
+    rank's heads (Tq = TP_SPEC_K, query t of a row seeing cur_len + t
+    keys; its plain version held above at the same Tq): kernel, plain
+    version and SDPA under the same mask over ``kv`` (K8q's dequantized),
+    event and device time, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, tq = NUM_SLOTS, slot["k"].shape[1], TP_SPEC_K
+    dtype = kv["k"].dtype
+    q = _split_heads(torch.randn((b, tq, HEADS, HEAD_DIM), generator=gen,
+                                 device=gen.device).to(dtype), 1)
+    kernel, kernel_dev = event_and_device_ms(
+        lambda: pa._paged_kernel(q, slot, cur_len, None, table), iters=50)
+    plain, plain_dev = event_and_device_ms(
+        lambda: pa._reference(q, slot, cur_len, None, table))
+    valid = (torch.arange(s, device=q.device)[None, None, :]
+             < cur_len[:, None, None]
+             + torch.arange(tq, device=q.device)[None, :, None])[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q.contiguous(), kv["k"],
+                                              kv["v"]))
+    library, library_dev = event_and_device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid),
+        iters=50)
+    keys = int(sum(min(int(n) + tq - 1, s) for n in lens))
+    pairs = int(sum(min(int(n) + t, s) for n in lens for t in range(tq)))
+    per_key = 2 * HEAD_DIM + 8 if quantized else 4 * HEAD_DIM
+    nbytes = (keys * TP_HEADS * per_key + 2 * q.numel() * 2 + table.numel() * 4
+              + 4 * b)
+    b_ms, b_by = bound_ms(nbytes, 4 * pairs * TP_HEADS * HEAD_DIM, "bfloat16")
+    return {"ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "library_ms": library,
+            "library_device_ms": library_dev, "bound_ms": b_ms,
+            "bound_by": b_by, "live_keys": keys,
+            "shape": f"verify B={b} S={s} Tq={tq} H={TP_HEADS} D={HEAD_DIM} "
+                     f"{'int8' if quantized else 'bf16'} K/V, q a strided "
+                     f"view"}
 
 
 def _tp_model(device, model=None):
@@ -6518,13 +6581,56 @@ def _tp_model(device, model=None):
 TP_ARMS = (("bf16", "bfloat16", {}),
            ("f32", "float32", {}),
            ("f32 kv_quant", "float32", {"kv_quant": True}),
-           ("f32 prefix", "float32", TP_PREFIX))
+           ("f32 prefix", "float32", TP_PREFIX),
+           ("f32 draft", "float32", {"draft": "sharded"}),
+           ("f32 draft replicated", "float32", {"draft": "replicated"}),
+           ("f32 host tier", "float32", TP_TIER),
+           ("f32 depth 2", "float32", {"pipeline_depth": 2}),
+           ("f32 handoff prefill", "float32", dict(TP_HANDOFF,
+                                                   role="prefill")),
+           ("f32 handoff decode", "float32", dict(TP_HANDOFF,
+                                                  role="decode")),
+           # The fleet of one slice replica: rank 0's engine is the
+           # fleet's, rank 1's the same engine following it.
+           ("f32 fleet", "float32", {}))
 
 
 def _tp_config(cfg, dtype_name):
     import torch
 
     return cfg.scaled(dtype=getattr(torch, dtype_name))
+
+
+def _tp_draft(cfg, kind, device):
+    """A 3tp draft arm's model (``TP_DRAFTS[kind]``), weights from seed 7
+    rounded to bf16 values, in ``cfg``'s dtype."""
+    import torch
+
+    from cloud_tpu_torch import bridge
+
+    fields = dict(TP_DRAFTS[kind])
+    if "num_heads" in fields:
+        fields["dim"] = fields["num_heads"] * cfg.head_dim
+        fields["mlp_hidden"] = 4 * fields["dim"]
+    dcfg = cfg.scaled(**fields)
+    gen = torch.Generator(device=device).manual_seed(7)
+    params = bridge.init(dcfg, gen, device=device)
+    return dcfg, bridge.map_leaves(
+        params, lambda t: t.to(torch.bfloat16).float())
+
+
+def _tp_serve(cfg, fields, device):
+    """An arm's ServeConfig (``fields["draft"]`` names a ``TP_DRAFTS``
+    model) on the slice's requests."""
+    from cloud_tpu_torch.serving import DraftConfig, ServeConfig
+
+    fields = dict(fields)
+    kind = fields.pop("draft", None)
+    if kind is not None:
+        dcfg, dparams = _tp_draft(cfg, kind, device)
+        fields["draft"] = DraftConfig(config=dcfg, params=dparams,
+                                      spec_k=TP_SPEC_K)
+    return ServeConfig(**TP_SERVE, **fields)
 
 
 def _tp_follower(port, device_name, model, queue):
@@ -6539,7 +6645,7 @@ def _tp_follower(port, device_name, model, queue):
 
     from cloud_tpu_torch.ops import dispatch
     from cloud_tpu_torch.parallel import MeshSpec
-    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+    from cloud_tpu_torch.serving import ServingEngine
 
     device = torch.device(device_name)
     if device.type == "cuda":
@@ -6555,8 +6661,9 @@ def _tp_follower(port, device_name, model, queue):
         cfg, params = _tp_model(device, model)
         for _, dtype_name, fields in TP_ARMS:
             dispatch.reset_launch_counts()
-            engine = ServingEngine(params, _tp_config(cfg, dtype_name),
-                                   ServeConfig(**TP_SERVE, **fields),
+            arm_cfg = _tp_config(cfg, dtype_name)
+            engine = ServingEngine(params, arm_cfg,
+                                   _tp_serve(arm_cfg, fields, device),
                                    mesh=mesh, device=device)
             engine.follow()
             queue.put(dispatch.launch_counts(QUANT_SERVING_KERNELS))
@@ -6603,13 +6710,167 @@ def _serve_tp_arm(engine, prompts):
     return results, time.perf_counter() - start
 
 
-def _tp_counts_check(what, counts, layers_n, stats, quantized):
+def _tp_counts_check(what, counts, layers_n, stats, quantized, *,
+                     draft_layers=0, spec_k=0):
     """A rank's launches against rank 0's engine record (counted from the
     engine's construction)."""
     import collections
 
     _check_launches(what, counts, layers_n, collections.defaultdict(int),
-                    stats, quantized=quantized)
+                    stats, quantized=quantized, draft_layers=draft_layers,
+                    spec_k=spec_k)
+
+
+#: The counters a later 3tp arm reports.
+TP_STATS_KEYS = ("spec_chunks", "spec_proposed", "spec_accepted",
+                 "draft_prefills", "prefix_hits", "prefix_dram_hits",
+                 "prefix_dram_demotions", "handoff_exports",
+                 "handoff_export_blocks", "handoff_imports",
+                 "handoff_import_blocks", "chunks", "pipeline_depth")
+
+
+def _tp_later_checks(what, stats, extra, serve, pair, prompts):
+    """What a later 3tp arm must show in rank 0's record: draft rounds and
+    one verify signature, the host tier's counters equal a replay of its
+    manager (a demotion and a swap-in among them), the handoffs' exports
+    and imports, depth 2."""
+    if serve.draft is not None:
+        sharded = what == "f32 draft"
+        if (not stats["spec_chunks"] or extra["verify_traces"] != 1
+                or extra["draft_sharded"] != sharded
+                or stats["draft_prefills"] != TP_ARM_REQUESTS):
+            raise AssertionError(
+                f"3tp {what}: {stats['spec_chunks']} rounds, "
+                f"{stats['draft_prefills']} draft prefills, verify_traces "
+                f"{extra['verify_traces']}, draft sharded "
+                f"{extra['draft_sharded']} (expected rounds, "
+                f"{TP_ARM_REQUESTS} prefills, 1, {sharded})")
+    if what == "f32 host tier":
+        replay = _replay_prefix(serve, [pair[0]] + list(
+            prompts[:TP_ARM_REQUESTS]) + [pair[1]])
+        got = (stats["prefix_hits"], stats["prefix_dram_demotions"],
+               stats["prefix_dram_hits"])
+        want = (replay["hits"], replay["demotions"], replay["dram_hits"])
+        if got != want or not want[1] or not want[2]:
+            raise AssertionError(
+                f"3tp {what}: hits, demotions, swap-ins {got}, the "
+                f"manager's replay {want} (a demotion and a swap-in "
+                f"expected)")
+    if what == "f32 handoff prefill" and (
+            stats["handoff_exports"] != 2 or not stats["handoff_export_blocks"]):
+        raise AssertionError(f"3tp {what}: {stats['handoff_exports']} exports")
+    if what == "f32 handoff decode" and (
+            stats["handoff_imports"] != 2 or stats["prefix_hits"] != 2):
+        raise AssertionError(f"3tp {what}: {stats['handoff_imports']} imports"
+                             f", {stats['prefix_hits']} hits (2 and 2)")
+    if what == "f32 depth 2" and stats["pipeline_depth"] != 2:
+        raise AssertionError(f"3tp {what}: depth {stats['pipeline_depth']}")
+
+
+def _tp_later_note(what, stats, extra, handoffs):
+    """The printed summary of a later 3tp arm."""
+    if what in ("bf16", "f32", "f32 kv_quant", "f32 prefix"):
+        return ""
+    if what.startswith("f32 draft"):
+        return (f" ({stats['spec_chunks']} rounds, "
+                f"{stats['spec_accepted']}/{stats['spec_proposed']} "
+                f"accepted, draft {'sharded' if extra['draft_sharded'] else 'replicated'})")
+    if what == "f32 host tier":
+        return (f" ({stats['prefix_hits']} hits, "
+                f"{stats['prefix_dram_demotions']} demotions, "
+                f"{stats['prefix_dram_hits']} swap-ins, as the manager's "
+                f"replay)")
+    if what == "f32 handoff prefill":
+        return (f" ({stats['handoff_export_blocks']} blocks exported, every "
+                f"head; within {handoffs['err slice a']:.2e} / "
+                f"{handoffs['err slice b']:.2e} of one card's payloads)")
+    if what == "f32 handoff decode":
+        return (f" (one card's payload and the slice's imported: "
+                f"{stats['handoff_import_blocks']} blocks)")
+    if what == "f32 fleet":
+        return (f" (through a Fleet of one slice replica, "
+                f"{extra['fleet_total_chips']} chips)")
+    return f" (depth {stats['pipeline_depth']}, {stats['chunks']} chunks)"
+
+
+def _tp_handoff_prompts(prompts):
+    """The handoff arms' two prompts: the first two of at least 32 tokens
+    (two full 16-token blocks)."""
+    picks = [p for p in prompts if len(p) >= 32][:2]
+    if len(picks) < 2:
+        raise AssertionError("fewer than two prompts of 32 tokens or more")
+    return picks
+
+
+def _tp_payload_err(what, got, want):
+    """The largest difference between two handoff payloads of the same
+    blocks (keys equal, every leaf within 1e-4, the f32 kernels' limit)."""
+    if got["keys"] != want["keys"] or not got["payloads"]:
+        raise AssertionError(f"{what}: the payloads' blocks differ")
+    err = max(float((a[n].float() - b[n].float()).abs().max())
+              for a, b in zip(got["payloads"], want["payloads"]) for n in a)
+    if err > TOL_F32:
+        raise AssertionError(f"{what}: payloads differ by {err:.3e}")
+    return err
+
+
+def _tp_later_arm(what, engine, prompts, pair, handoffs):
+    """Rank 0's requests of a later 3tp arm on ``engine``: returns (served
+    prompts, results, the budget each was served with)."""
+    n = TP_ARM_REQUESTS
+    if what in TP_SAME_AS_F32:
+        futures = [engine.submit(p, max_new_tokens=TP_BUDGET)
+                   for p in prompts[:n]]
+        return prompts[:n], [f.result(timeout=600) for f in futures], \
+            TP_BUDGET
+    if what == "f32 host tier":
+        # One at a time: the pair's blocks are demoted by the long
+        # prompts between them, and swapped back in by the second.
+        served = [pair[0]] + list(prompts[:n]) + [pair[1]]
+        return served, _serve_in_turn(engine, served, TP_BUDGET), TP_BUDGET
+    a, b = _tp_handoff_prompts(prompts)
+    if what == "f32 handoff prefill":
+        results = [engine.submit(p, max_new_tokens=1, handoff_export=True
+                                 ).result(timeout=600) for p in (a, b)]
+        for key, res, one in zip(("slice a", "slice b"), results,
+                                 (handoffs["one a"], handoffs["one b"])):
+            handoffs[key] = res.handoff
+            handoffs["err " + key] = _tp_payload_err(
+                f"3tp {what}: the slice's payload", res.handoff, one)
+        return [a, b], results, 1
+    # The decode slice imports one card's payload and the slice's own.
+    results = [engine.submit(a, max_new_tokens=TP_BUDGET,
+                             handoff=handoffs["one a"]).result(timeout=600),
+               engine.submit(b, max_new_tokens=TP_BUDGET,
+                             handoff=handoffs["slice b"]).result(timeout=600)]
+    return [a, b], results, TP_BUDGET
+
+
+def _tp_fleet_arm(params, cfg, serve, mesh, device, prompts):
+    """A Fleet of one replica, rank 0's engine of the slice: the prompts
+    at once through the router.  Returns (results, the engine's stats and
+    health, the fleet's health), read before the fleet closes."""
+    from cloud_tpu_torch.fleet import Fleet, FleetConfig
+    from cloud_tpu_torch.serving import ServingEngine
+
+    fleet = Fleet(lambda: ServingEngine(params, cfg, serve, mesh=mesh,
+                                        device=device),
+                  FleetConfig(min_replicas=1, max_replicas=1))
+    try:
+        futures = [fleet.submit(p, max_new_tokens=TP_BUDGET)
+                   for p in prompts]
+        results = [f.result(timeout=600) for f in futures]
+        fleet_health = fleet.health()
+        engine = fleet._replicas[0].engine
+        stats, health = engine.stats(), engine.health()
+    finally:
+        fleet.close()
+    if (fleet_health["total_chips"] != TP
+            or fleet_health["num_replicas"] != 1):
+        raise AssertionError(f"3tp f32 fleet: {fleet_health['total_chips']} "
+                             f"chips over {fleet_health['num_replicas']} "
+                             f"replicas ({TP} and 1 expected)")
+    return results, stats, health, fleet_health
 
 
 def run_tp_engine(device, card):
@@ -6656,6 +6917,16 @@ def run_tp_engine(device, card):
         single[what] = results
         out[f"single {what} tokens_per_s"] = (
             sum(r.num_generated for r in results) / wall)
+    # One card's handoff payloads, for the slice's to equal and import.
+    handoffs = {}
+    handoff_prompts = _tp_handoff_prompts(prompts)
+    with ServingEngine(params, cfg32, ServeConfig(
+            **TP_SERVE, **dict(TP_HANDOFF, role="prefill")),
+            device=device) as engine:
+        for key, p in zip(("one a", "one b"), handoff_prompts):
+            handoffs[key] = engine.submit(
+                p, max_new_tokens=1, handoff_export=True).result(
+                    timeout=600).handoff
     one_rank = MeshSpec({"tp": 1}).build(devices=[device])
     with ServingEngine(params, cfg, ServeConfig(**TP_SERVE), mesh=one_rank,
                        device=device) as engine:
@@ -6692,25 +6963,38 @@ def run_tp_engine(device, card):
             timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
         mesh = MeshSpec({"tp": TP}).build(devices=[device] * TP,
                                           backend="gloo")
+        greedy = {}
         for what, dtype_name, fields in TP_ARMS:
             quantized = bool(fields.get("kv_quant"))
             arm_cfg = _tp_config(cfg, dtype_name)
+            serve = _tp_serve(arm_cfg, fields, device)
+            budget = TP_BUDGET
             dispatch.reset_launch_counts()
-            with ServingEngine(params, arm_cfg,
-                               ServeConfig(**TP_SERVE, **fields), mesh=mesh,
-                               device=device) as engine:
-                health = engine.health()
-                if what == "f32 prefix":
-                    served = pair
-                    results = [engine.submit(p, max_new_tokens=TP_BUDGET
-                                             ).result(timeout=600)
-                               for p in pair]
-                else:
-                    served = prompts
-                    results, wall = _serve_tp_arm(engine, prompts)
-                    out[f"tp2 {what} tokens_per_s"] = (
-                        sum(r.num_generated for r in results) / wall)
-            stats = engine.stats()
+            if what == "f32 fleet":
+                served = prompts[:TP_ARM_REQUESTS]
+                results, stats, health, fleet_health = _tp_fleet_arm(
+                    params, arm_cfg, serve, mesh, device, served)
+                extra = {"fleet_total_chips": fleet_health["total_chips"]}
+            else:
+                with ServingEngine(params, arm_cfg, serve, mesh=mesh,
+                                   device=device) as engine:
+                    health = engine.health()
+                    if what == "f32 prefix":
+                        served = pair
+                        results = [engine.submit(p, max_new_tokens=TP_BUDGET
+                                                 ).result(timeout=600)
+                                   for p in pair]
+                    elif what in ("bf16", "f32", "f32 kv_quant"):
+                        served = prompts
+                        results, wall = _serve_tp_arm(engine, prompts)
+                        out[f"tp2 {what} tokens_per_s"] = (
+                            sum(r.num_generated for r in results) / wall)
+                    else:
+                        served, results, budget = _tp_later_arm(
+                            what, engine, prompts, pair, handoffs)
+                stats = engine.stats()
+                extra = {"verify_traces": engine.verify_traces,
+                         "draft_sharded": engine._draft_sharded}
             mine = dispatch.launch_counts(QUANT_SERVING_KERNELS)
             try:
                 theirs = reports.get(timeout=TP_TIMEOUT_S)
@@ -6719,10 +7003,17 @@ def run_tp_engine(device, card):
                                      f"{what} in {TP_TIMEOUT_S} s") from None
             if isinstance(theirs, str):
                 raise AssertionError(f"rank 1 failed in {what}: {theirs}")
+            draft = serve.draft
             for rank, counts in ((0, mine), (1, theirs)):
-                _tp_counts_check(f"3tp {what} rank {rank}", counts,
-                                 cfg.num_layers, stats, quantized)
+                _tp_counts_check(
+                    f"3tp {what} rank {rank}", counts, cfg.num_layers, stats,
+                    quantized,
+                    draft_layers=draft.config.num_layers if draft else 0,
+                    spec_k=draft.spec_k if draft else 0)
             launches[what] = {n: mine[n] + theirs[n] for n in mine}
+            if what not in ("bf16", "f32", "f32 kv_quant", "f32 prefix"):
+                _tp_later_checks(what, stats, extra, serve, pair, prompts)
+                out[f"{what} stats"] = {k: stats[k] for k in TP_STATS_KEYS}
             if health["slice_shape"] != (TP, 1) or stats["slice_chips"] != TP:
                 raise AssertionError(f"{what}: slice {health['slice_shape']}"
                                      f" / {stats['slice_chips']} chips")
@@ -6746,25 +7037,33 @@ def run_tp_engine(device, card):
                     f"prefix arm: {stats['prefix_hits']} hits, "
                     f"{stats['prefill_chunks']} prefill chunks (1 and 3 "
                     f"expected)")
+            same = single.get("f32" if what in TP_SAME_AS_F32 else what)
             for i, (prompt, res) in enumerate(zip(served, results)):
-                want = generation.generate(
-                    params, torch.from_numpy(prompt)[None], [len(prompt)],
-                    arm_cfg, max_new_tokens=TP_BUDGET, kv_quant=quantized,
-                    device=device)["tokens"][0].cpu().numpy()
+                key = (prompt.tobytes(), dtype_name, quantized)
+                if key not in greedy:  # one generate() a prompt and arm kind
+                    greedy[key] = generation.generate(
+                        params, torch.from_numpy(prompt)[None],
+                        [len(prompt)], arm_cfg, max_new_tokens=TP_BUDGET,
+                        kv_quant=quantized,
+                        device=device)["tokens"][0].cpu().numpy()
+                want = greedy[key][:budget]
                 if not np.array_equal(res.tokens, want):
                     raise AssertionError(
                         f"3tp {what}: the tp-2 engine != generate() for a "
                         f"{len(prompt)}-token prompt")
-                if what in single and not np.array_equal(
-                        res.tokens, single[what][i].tokens):
+                if same is not None and not np.array_equal(
+                        res.tokens, same[i].tokens):
                     raise AssertionError(
                         f"3tp {what}: the tp-2 engine != the single-process "
                         f"engine for a {len(prompt)}-token prompt")
             print(f"  tp 2 {what}: {len(served)}/{len(served)} requests "
                   f"token-identical to generate()"
-                  + (" and the single-process engine" if what in single
-                     else f" ({stats['prefix_hits']} prefix hit, "
-                          f"{stats['prefill_chunks']} prefill chunks)")
+                  + (" and the single-process engine" if same is not None
+                     else "")
+                  + (f" ({stats['prefix_hits']} prefix hit, "
+                     f"{stats['prefill_chunks']} prefill chunks)"
+                     if what == "f32 prefix" else "")
+                  + _tp_later_note(what, stats, extra, handoffs)
                   + f"; launches per rank {mine} (rank 1 {theirs}) as rank "
                   f"0's stats imply; slice {health['slice_shape']}")
         child.join(TP_TIMEOUT_S)
@@ -6776,6 +7075,21 @@ def run_tp_engine(device, card):
             child.join(10)
     if child.exitcode != 0:
         raise AssertionError(f"rank 1 exited with code {child.exitcode}")
+    # A slice's payload imported on one card.
+    with ServingEngine(params, cfg32, ServeConfig(
+            **TP_SERVE, **dict(TP_HANDOFF, role="decode")),
+            device=device) as engine:
+        a = handoff_prompts[0]
+        res = engine.submit(a, max_new_tokens=TP_BUDGET,
+                            handoff=handoffs["slice a"]).result(timeout=600)
+        imports = engine.stats()["handoff_import_blocks"]
+    _parity("3tp slice-to-one-card handoff", generation, params, cfg32,
+            device, [a], [res], TP_BUDGET)
+    print(f"  a slice's payload imported on one card: {imports} blocks, "
+          f"tokens equal generate(); payload differences slice - one card "
+          f"{handoffs['err slice a']:.3e} / {handoffs['err slice b']:.3e}")
+    out["handoff_payload_err"] = max(handoffs["err slice a"],
+                                     handoffs["err slice b"])
     for what in ("bf16", "f32"):
         print(f"  {what}: tp 2 (two ranks on one card, gloo) "
               f"{out[f'tp2 {what} tokens_per_s']:.1f} tok/s against one "
@@ -6980,6 +7294,10 @@ PP_ARMS = (("pp", {"pp": 2}, {"tied_embeddings": False}, "float32", 4),
            ("pp tied", {"pp": 2}, {"tied_embeddings": True}, "float32", 4),
            ("ep moe", {"ep": 2}, {"tied_embeddings": False, "moe": {}},
             "float32", 2),
+           # The MoE under sp on the zig-zag ring: each rank routes its two
+           # chunks of the sequence as one process routes the whole.
+           ("sp moe", {"sp": 2}, {"tied_embeddings": False, "moe": {},
+                                  "zigzag_sp": True}, "float32", 2),
            ("pp moe", {"pp": 2}, {"tied_embeddings": False, "moe": {}},
             "float32", 4),
            ("bf16 pp", {"pp": 2}, {"tied_embeddings": False}, "bfloat16", 4))
@@ -7107,7 +7425,69 @@ def _mesh_reference(device, dtype_name, fields, steps, batch=MESH_BATCH):
             ce_norm)
 
 
-def _mesh_arm(rank, device, arm, ref=None, phase="6mesh"):
+def _pp_checkpoint(device, state, axes, mesh, rules, root):
+    """6pp's checkpoint of a pipeline stage's layers, on both ranks: the
+    ``{pp: 2}`` state saved under its layers' global indices, then four
+    restores held bit for bit: into pp 2, into one process (no template),
+    into ``{fsdp: 2}`` shards, and a one-process save (rank 0 writes it)
+    into pp 2.  Returns the seconds it took."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves, map_leaves
+    from cloud_tpu_torch.parallel import MeshSpec, sharding
+    from cloud_tpu_torch.training import checkpoint, train
+
+    start = time.perf_counter()
+
+    def tree_map(st, fn):
+        return train.TrainState(
+            step=st.step, params=fn(st.params),
+            opt_state={k: fn(v) if isinstance(v, dict) else v
+                       for k, v in st.opt_state.items()}, rng=st.rng)
+
+    def zeros(st):
+        out = tree_map(st, lambda t: map_leaves(t, torch.zeros_like))
+        return dataclasses.replace(out, step=torch.zeros_like(st.step))
+
+    def check(what, got, want):
+        pairs = list(zip([got.step] + leaves(got.params)
+                         + leaves(got.opt_state),
+                         [want.step] + leaves(want.params)
+                         + leaves(want.opt_state)))
+        if not pairs or not all(a.dtype == b.dtype and torch.equal(a, b)
+                                for a, b in pairs):
+            raise AssertionError(f"6pp checkpoint: {what} is not bit for "
+                                 "bit the state saved")
+
+    layout = checkpoint.StateLayout(mesh=mesh, logical_axes=axes,
+                                    rules=rules)
+    saved = checkpoint.CheckpointManager(os.path.join(root, "pp"),
+                                         device=device, layout=layout)
+    saved.save(1, state)
+    saved.wait()
+    check("pp 2 into pp 2", saved.restore(1, template=zeros(state)), state)
+    whole = tree_map(state, lambda t: sharding.gather_tree(t, axes, mesh,
+                                                           rules))
+    check("pp 2 into one process", saved.restore(1), whole)
+    fsdp = MeshSpec({"fsdp": 2}).build(devices=[device] * 2, backend="gloo")
+    shard = tree_map(whole, lambda t: sharding.shard_tree(t, axes, fsdp))
+    check("pp 2 into {fsdp: 2}", saved.restore(
+        1, template=zeros(shard),
+        layout=checkpoint.StateLayout(mesh=fsdp, logical_axes=axes)), shard)
+    one = checkpoint.CheckpointManager(os.path.join(root, "one"),
+                                       device=device)
+    one.save(1, whole)
+    one.wait()
+    check("one process into pp 2", one.restore(1, template=zeros(state),
+                                               layout=layout), state)
+    saved.close()
+    one.close()
+    return time.perf_counter() - start
+
+
+def _mesh_arm(rank, device, arm, ref=None, phase="6mesh", ckpt_root=None):
     """One arm of phase 6mesh or 6pp on this rank: the mesh built over the
     default group, the state cut from the full weights, step 1's gradient
     computed through the step's own gather and sync and gathered whole,
@@ -7191,6 +7571,9 @@ def _mesh_arm(rank, device, arm, ref=None, phase="6mesh"):
     report["steps_per_s"] = (steps - 1) / (time.perf_counter() - start)
     report["launches"] = dispatch.launch_counts(TRAIN_ATTN_KERNELS)
     report["metrics"] = metrics
+    if ckpt_root is not None and name == "pp":
+        report["checkpoint_s"] = _pp_checkpoint(device, state, axes, mesh,
+                                                rules, ckpt_root)
     per_layer = mesh_launches_per_layer(sizes, fields, pipelined)
     held = mesh_layers_held(cfg.num_layers, sizes, pipelined)
     want = {k: v * held * steps for k, v in per_layer.items()}
@@ -7272,7 +7655,7 @@ def _mesh_follower(port, device_name, model, queue, setup=None,
         dist.destroy_process_group()
 
 
-def _run_mesh_arms(device, card, phase, arms, setup=None):
+def _run_mesh_arms(device, card, phase, arms, setup=None, arm_kw=None):
     """6mesh's and 6pp's arms (:func:`_mesh_arm`) on two ranks
     (:func:`_two_rank_arms`), each held to one process's steps
     (:func:`_mesh_reference`, one a :func:`_ref_key`), which run first."""
@@ -7300,6 +7683,10 @@ def _run_mesh_arms(device, card, phase, arms, setup=None):
                                            *mine["ce_grad_norm"])
         if "aux" in mine:
             extra += "aux {:.6e} ({:.6e}), ".format(*mine["aux"])
+        if "checkpoint_s" in mine:
+            extra += (f"its pp-cut checkpoint restored bit for bit into pp 2, "
+                      f"one process, {{fsdp: 2}} and from one process "
+                      f"({mine['checkpoint_s']:.1f} s), ")
         print(f"  {arm[0]} {arm[3]}: loss {m0[0]['loss']:.6f} / "
               f"{m0[1]['loss']:.6f} against one process's "
               f"{r0[0]['loss']:.6f} / {r0[1]['loss']:.6f}, grad_norm "
@@ -7312,7 +7699,7 @@ def _run_mesh_arms(device, card, phase, arms, setup=None):
               f"{theirs['launches']} [{card}]")
 
     return _two_rank_arms(device, phase, arms, refs, _mesh_arm, describe,
-                          setup=setup, model=MESH_MODEL)
+                          setup=setup, model=MESH_MODEL, arm_kw=arm_kw)
 
 
 def _two_rank_arms(device, phase, arms, refs, arm_fn, describe, *,
@@ -7440,14 +7827,26 @@ def run_pipeline_training(device, card, setup=None):
     the same limits, aux within 1e-5); the MoE under ``{pp: 2}`` (step
     1's CE and its gradient's norm within 1e-4 relative; aux printed
     beside one process's whole-batch aux, not held: it is the
-    microbatches' mean by design); then ``{pp: 2}`` in bf16 on f32
+    microbatches' mean by design); the MoE under ``{sp: 2}`` on the
+    zig-zag ring (b2; the ep arm's limits and reference: each rank routes
+    its chunks by the global slot prefix); then ``{pp: 2}`` in bf16 on f32
     masters (every step's loss within 2e-2 relative; steps/s printed
-    beside one process's).  Each rank's K5/K6/K7 launches equal
-    :func:`mesh_launches_per_layer` x :func:`mesh_layers_held` x steps:
-    a stage runs its 6 layers once a microbatch, an ep rank all 12
-    (phase 2 (pp), :func:`check_pp_kernels`, holds K5-K7 at the arms'
-    call shape)."""
-    return _run_mesh_arms(device, card, "6pp", PP_ARMS, setup)
+    beside one process's).  The untied ``{pp: 2}`` arm's state is then
+    checkpointed under its layers' global indices and restored bit for
+    bit four ways (:func:`_pp_checkpoint`).  Each rank's K5/K6/K7
+    launches equal :func:`mesh_launches_per_layer` x
+    :func:`mesh_layers_held` x steps: a stage runs its 6 layers once a
+    microbatch, an ep or sp rank all 12 (phase 2 (pp),
+    :func:`check_pp_kernels`, holds K5-K7 at the arms' call shape)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pp_ckpt_")
+    try:
+        return _run_mesh_arms(device, card, "6pp", PP_ARMS, setup,
+                              arm_kw={"ckpt_root": root})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # Phases 9r, 9p, 9m: the front door (run, the container bootstrap), the
@@ -9132,65 +9531,80 @@ def tensor_core_sass(dispatch):
     return counts
 
 
-#: Phases run in a second process, started once the kernels are built and
-#: timed (after phase 2c), beside the main process's phases 3 to 8v: each
-#: drives its path through processes of its own (gloo ranks, containers,
-#: workers, cold and warm children) or counts its launches from 0 in this
-#: process, so neither process reads the other's counts.  (title, name,
-#: function of (device, card), run under no_grad)
+#: Phases run in two side processes, started once the kernels are built
+#: and timed (after phase 2c), beside the main process's phases 3 to 8v:
+#: each drives its path through processes of its own (gloo ranks,
+#: containers, workers, cold and warm children) or counts its launches
+#: from 0 in its process, so no process reads another's counts.  (title,
+#: name, function of (device, card), run under no_grad, side process:
+#: 1 the two-rank phases and the fleet and MoE serving phases, 2 the jobs
+#: and their children)
 SIDE_PHASES = (
+    ("phase 3f: a 2-replica Fleet on the churn workload, bench.py's "
+     "fleet config", "fleet", "run_fleet", True, 1),
+    ("phase 3v: open-loop QPS sweep through a 2-replica QoS Fleet, "
+     "bench.py's fleet_qps_sweep config", "fleet sweep",
+     "run_fleet_qps_sweep", True, 1),
+    ("phase 3x: colocated against disaggregated prefill/decode with the "
+     "KV handoff, bench.py's fleet_disagg config", "fleet disagg",
+     "run_fleet_disagg", True, 1),
+    ("phase 3m: ServingEngine, CloudLM SMALL with MoE (8 experts, top "
+     "2), 16 requests in bf16 and in int8 + kv_quant, f32 parity, a "
+     "pretrained bundle", "moe engine", "run_moe_engine", True, 1),
     ("phase 3tp: tensor-parallel serving at tp 2, two ranks on the card "
      "over gloo (SMALL bf16 and f32, kv_quant, prefix hit and chunked "
-     "prefill); the mesh path at tp 1", "tp engine", "run_tp_engine", True),
+     "prefill, a head-sharded and a replicated draft, the host tier, "
+     "depth 2, the KV handoff each way, a fleet of one slice); the mesh "
+     "path at tp 1", "tp engine", "run_tp_engine", True, 1),
     ("phase 4r: exactly-once resume, the kill -9 drill and the non-finite "
-     "guard, f32 ResNet-50 CIFAR b8", "exactly-once", "check_exactly_once",
-     False),
+     "guard, f32 ResNet-50 CIFAR b8", "exactly-once", "check_exactly_once", False, 2),
     ("phase 4k: a cold and a warm process through one "
-     "CLOUD_TPU_COMPILE_CACHE directory", "cold start", "run_cold_start",
-     False),
+     "CLOUD_TPU_COMPILE_CACHE directory", "cold start", "run_cold_start", False, 2),
     ("phase 9r: cloud_tpu_torch.run() -> the build context -> deploy's "
      "startup script -> the image's ENTRYPOINT (the bootstrap) -> "
      "Trainer.fit of ResNet-50 CIFAR b256 bf16 on the card", "front door",
-     "run_front_door", False),
+     "run_front_door", False, 2),
     ("phase 9m: the exporter: the native library and its C tests, the "
-     "bootstrap exporting a training run", "exporter", "run_exporter_phase",
-     False),
+     "bootstrap exporting a training run", "exporter", "run_exporter_phase", False, 2),
     ("phase 9t: tuner.dispatch_search of 2 workers -> each job's build "
      "context and startup script, booted together on the card -> one local "
      "study of 4 ResNet-50 CIFAR b256 bf16 trials (2 epochs x 3 steps)",
-     "tuner", "run_tuner_phase", False),
+     "tuner", "run_tuner_phase", False, 2),
     ("phase 9f: cloud_tpu_torch.cloud_fit of ResNet-50 CIFAR b256 bf16 -> "
      "its ENTRYPOINT on two emulated hosts under run()'s {dp: 2} over gloo "
      "-> that checkpoint restored into {fsdp: 2} shards -> the sharded "
      "checkpoint restored by a one-process remote.run", "cloud_fit",
-     "run_cloud_fit_phase", False),
+     "run_cloud_fit_phase", False, 2),
     (f"phase 6mesh: train CloudLM SMALL b{MESH_BATCH}xT{MESH_SEQ} under "
      "2-rank meshes on the card over gloo ({sp: 2} zig-zag and Ulysses, "
      "{tp: 2}, {fsdp: 2} in f32 against one process; zig-zag in bf16)",
-     "mesh training", "run_mesh_training", False),
+     "mesh training", "run_mesh_training", False, 1),
     ("phase 6pp: train CloudLM SMALL under the GPipe pipeline and expert "
      "parallelism, 2 ranks on the card over gloo ({pp: 2} b4 M=2 untied "
-     "and tied, the default MoE under {ep: 2} b2 and {pp: 2} b4, in f32 "
-     "against one process; {pp: 2} in bf16)", "pipeline training",
-     "run_pipeline_training", False),
+     "and tied, the default MoE under {ep: 2} b2, {sp: 2} zig-zag b2 and "
+     "{pp: 2} b4, in f32 against one process; {pp: 2} in bf16; the pp "
+     "state's checkpoint restored four ways)", "pipeline training",
+     "run_pipeline_training", False, 1),
     ("phase 6enc: BERT-base b32xT128 (ragged padding) and ViT-B/16 224 b8 "
      "under {tp: 2}, {sp: 2} and {fsdp: 2} in f32 against one process, "
      "{tp: 2} in bf16; MNIST and ResNet-50 CIFAR under {tp: 2}; 2 ranks on "
-     "the card over gloo", "encoder mesh", "run_encoder_mesh", False),
+     "the card over gloo", "encoder mesh", "run_encoder_mesh", False, 1),
     ("phase 9g: the gs:// paths on a directory-backed storage client: "
      "records written to gs://, ResNet-50 CIFAR b256 bf16 fit from "
      "RecordDataset(gs://) checkpointing to gs:// every 2 steps, a fresh "
      "process's restore, two {fsdp: 2} ranks saving to the same bucket",
-     "gcs", "run_gcs_phase", False),
+     "gcs", "run_gcs_phase", False, 2),
     ("phase 10g: the golden workloads on the card: the generate_text copy "
      "(TINY trained, then greedy, nucleus, beam 4, int8, int8 + kv_quant), "
      "the long-context ring example on 4 ranks ({sp: 4}), save_and_load and "
-     "the custom loop on 2 ranks", "golden", "run_golden_phase", False),
+     "the custom loop on 2 ranks", "golden", "run_golden_phase", False, 2),
 )
 
-#: The second process must have ended this many seconds after the script
+#: The side processes must have ended this many seconds after the script
 #: started (the whole run's limit is 1200 s).
 SIDE_DEADLINE_S = 1080
+#: OpenMP threads of a side process and of the processes it starts.
+SIDE_THREADS = 2
 
 
 def _on_host(obj):
@@ -9207,9 +9621,10 @@ def _on_host(obj):
     return obj
 
 
-def side_main(out_dir: str) -> int:
-    """The second process: run ``SIDE_PHASES`` in order on the card and
-    pickle their results to ``out_dir/results.pkl``."""
+def side_main(out_dir: str, group: int) -> int:
+    """A side process: run the ``SIDE_PHASES`` of process ``group`` in
+    order on the card and pickle their results to
+    ``out_dir/results.pkl``."""
     import contextlib
     import pickle
 
@@ -9227,7 +9642,7 @@ def side_main(out_dir: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    for title, what, name, no_grad in SIDE_PHASES:
+    for title, what, name, no_grad, _ in _side_group(group):
         print(title, flush=True)
         start = time.perf_counter()
         try:
@@ -9243,73 +9658,91 @@ def side_main(out_dir: str) -> int:
     return 0
 
 
+def _side_group(group: int):
+    """The ``SIDE_PHASES`` of side process ``group``, in order."""
+    return [entry for entry in SIDE_PHASES if entry[4] == group]
+
+
 class SidePhases:
-    """The second process of ``SIDE_PHASES``: started beside the main
-    phases, waited for at the end, its output printed then; stopped, with
-    every process of its session, if the main process ends first."""
+    """The side processes of ``SIDE_PHASES``, one a group: started beside
+    the main phases, waited for at the end, their output printed then;
+    stopped, with every process of their sessions, if the main process
+    ends first."""
 
     def __init__(self):
-        self.proc = None
-        self.dir = None
-        self.log = None
+        #: group -> (process, its directory, its log file)
+        self.procs = {}
 
     def start(self) -> None:
         import tempfile
 
-        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
-        self.log = open(os.path.join(self.dir, "side.log"), "w")
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--side", self.dir],
-            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO_ROOT,
-            start_new_session=True)
-        print(f"  (phases {', '.join(t.split(':')[0][6:] for t, *_ in SIDE_PHASES)}"
-              f" run in a second process beside phases 3-8v, pid "
-              f"{self.proc.pid})", flush=True)
+        for group in sorted({entry[4] for entry in SIDE_PHASES}):
+            out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_side{group}_")
+            log = open(os.path.join(out_dir, "side.log"), "w")
+            # Their phases compute on the card; on the host they wait. Two
+            # OpenMP threads a process (its ranks and workers inherit
+            # them) keep their host work off the main process's cores.
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--side",
+                 out_dir, str(group)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO_ROOT,
+                start_new_session=True,
+                env=dict(os.environ, OMP_NUM_THREADS=str(SIDE_THREADS)))
+            self.procs[group] = (proc, out_dir, log)
+            names = ", ".join(title.split(":")[0][6:]
+                              for title, *_ in _side_group(group))
+            print(f"  (phases {names} run in side process {group} beside "
+                  f"phases 3-8v, pid {proc.pid})", flush=True)
 
-    def _print_log(self, heading: str) -> None:
-        self.log.flush()
-        with open(self.log.name) as f:
+    @staticmethod
+    def _print_log(log, heading: str) -> None:
+        log.flush()
+        with open(log.name) as f:
             text = f.read()
         print(heading)
         print(text, end="" if text.endswith("\n") else "\n", flush=True)
 
     def finish(self, deadline: float) -> dict:
-        """Wait for the process until ``deadline`` (``time.perf_counter``),
-        print its output and return its phases' results."""
+        """Wait for every side process until ``deadline``
+        (``time.perf_counter``), print their output and return their
+        phases' results."""
         import pickle
 
         start = time.perf_counter()
-        try:
-            rc = self.proc.wait(timeout=max(1.0, deadline - start))
-        except subprocess.TimeoutExpired:
-            self.stop()
-            raise AssertionError(
-                f"the second process had not ended {SIDE_DEADLINE_S} s "
-                "after the start") from None
-        self._print_log(f"second process (phases run beside 3-8v; waited "
-                        f"{time.perf_counter() - start:.1f} s for it at the "
-                        "end):")
-        if rc != 0:
-            raise AssertionError(f"the second process exited {rc}")
-        with open(os.path.join(self.dir, "results.pkl"), "rb") as f:
-            return pickle.load(f)
+        results = {}
+        for group, (proc, out_dir, log) in sorted(self.procs.items()):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise AssertionError(
+                    f"side process {group} had not ended {SIDE_DEADLINE_S} "
+                    "s after the start") from None
+            self._print_log(log, f"side process {group} (phases run beside "
+                            f"3-8v; waited {time.perf_counter() - start:.1f}"
+                            " s for the side processes at the end):")
+            if rc != 0:
+                raise AssertionError(f"side process {group} exited {rc}")
+            with open(os.path.join(out_dir, "results.pkl"), "rb") as f:
+                results.update(pickle.load(f))
+        return results
 
     def stop(self) -> None:
         import shutil
         import signal
 
-        if self.proc is None:
-            return
-        if self.proc.poll() is None:
-            try:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            self.proc.wait()
-            self._print_log("second process stopped; its output:")
-        self.proc = None
-        self.log.close()
-        shutil.rmtree(self.dir, ignore_errors=True)
+        for group, (proc, out_dir, log) in sorted(self.procs.items()):
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+                self._print_log(log, f"side process {group} stopped; its "
+                                "output:")
+            log.close()
+            shutil.rmtree(out_dir, ignore_errors=True)
+        self.procs = {}
 
 
 _SIDE = SidePhases()
@@ -9404,7 +9837,7 @@ def _main() -> int:
          "versions; K5, K6, K7 timed at the training shapes",
          "flash_bwd check",
          lambda: check_flash_bwd(device, card), False),
-        # The kernels are timed: the second process starts here.
+        # The kernels are timed: the side processes start here.
         (None, None, _SIDE.start, False),
         ("phase 3: ServingEngine, CloudLM SMALL, 16 requests", "engine",
          lambda: run_engine(device, card), False),
@@ -9442,18 +9875,6 @@ def _main() -> int:
          True),
         ("phase 3o: QoS classes with streaming and on_token hooks",
          "qos engine", lambda: run_qos_engine(device, card), True),
-        ("phase 3f: a 2-replica Fleet on the churn workload, bench.py's "
-         "fleet config", "fleet", lambda: run_fleet(device, card), True),
-        ("phase 3v: open-loop QPS sweep through a 2-replica QoS Fleet, "
-         "bench.py's fleet_qps_sweep config", "fleet sweep",
-         lambda: run_fleet_qps_sweep(device, card), True),
-        ("phase 3x: colocated against disaggregated prefill/decode with the "
-         "KV handoff, bench.py's fleet_disagg config", "fleet disagg",
-         lambda: run_fleet_disagg(device, card), True),
-        ("phase 3m: ServingEngine, CloudLM SMALL with MoE (8 experts, top "
-         "2), 16 requests in bf16 and in int8 + kv_quant, f32 parity, a "
-         "pretrained bundle", "moe engine",
-         lambda: run_moe_engine(device, card), True),
         ("phase 4: train ResNet-50 CIFAR b256 bf16, 3 + 20 steps",
          "CIFAR training", lambda: run_training(
              device, card, imagenet=False, warmup=3, iters=20), False),
@@ -9610,8 +10031,10 @@ def _main() -> int:
     try:
         side = _SIDE.finish(script_start + SIDE_DEADLINE_S)
     except Exception as exc:  # noqa: BLE001
-        return fail(f"second process: {exc!r}", "the second process")
-    results["tp engine"] = side["tp engine"]
+        return fail(f"side processes: {exc!r}", "the side processes")
+    for what in ("tp engine", "fleet", "fleet sweep", "fleet disagg",
+                 "moe engine"):
+        results[what] = side[what]
     exact, cold = side["exactly-once"], side["cold start"]
     front_door, exporter_run = side["front door"], side["exporter"]
     tuner_run, fit_run = side["tuner"], side["cloud_fit"]
@@ -9815,5 +10238,5 @@ def _main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--side"]:
-        sys.exit(side_main(sys.argv[2]))
+        sys.exit(side_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

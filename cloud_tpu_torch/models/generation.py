@@ -57,6 +57,7 @@ from cloud_tpu_torch.models import layers, quantization, transformer
 from cloud_tpu_torch.models import moe as moe_lib
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops import paged_attention as paged_lib
+from cloud_tpu_torch.parallel import collectives
 
 NEG_INF = -1e30
 
@@ -741,19 +742,24 @@ def _device_ids(ids: torch.Tensor, device) -> torch.Tensor:
     return ids
 
 
-def download_prefix_blocks(pool, blocks):
+def download_prefix_blocks(pool, blocks, *, tp=None):
     """Pool rows ``blocks [N]`` as host tensors ``[N, L, bt, H, hd]`` per
     leaf (scales too for an int8 pool), copied on the current stream into
     pinned memory: the caller synchronises before it reads them.  Ids
     out of range are clipped.  Exactly the rows asked for are gathered
     (the reference pads a batch to one compiled shape; eager PyTorch has
-    no such need)."""
+    no such need).  Under ``tp`` (a pool of the rank's heads) every
+    member's heads are gathered in head order first (a collective call):
+    the rows hold every head, as one card's do."""
     with torch.no_grad():
         out = {}
         for name, leaf in pool.items():
             ids = _device_ids(torch.as_tensor(blocks, dtype=torch.long).clamp(
                 0, leaf.shape[1] - 1), leaf.device)
             rows = leaf.index_select(1, ids).transpose(0, 1)
+            if tp is not None and tp.size > 1:
+                rows = collectives.all_gather(rows, tp.axis, gather_dim=3,
+                                              mesh=tp.mesh)
             host = _host_buffer(leaf, rows.shape)
             host.copy_(rows, non_blocking=host.is_pinned())
             out[name] = host
@@ -768,11 +774,12 @@ def download_prefix_block(pool, block: int):
             download_prefix_blocks(pool, [int(block)]).items()}
 
 
-def upload_prefix_blocks(pool, payloads, blocks):
+def upload_prefix_blocks(pool, payloads, blocks, *, tp=None):
     """Write host payloads (leaves ``[N, L, bt, H, hd]``) into pool rows
     ``blocks [N]``, on the current stream; an id out of range is dropped.
     Rows in pinned memory (when every id is kept) reach the card in
-    stream order.  Returns the pool."""
+    stream order.  Under ``tp`` the payloads hold every head and the
+    rank writes its own.  Returns the pool."""
     with torch.no_grad():
         ids = torch.as_tensor(blocks, dtype=torch.long)
         for name, leaf in pool.items():
@@ -780,6 +787,9 @@ def upload_prefix_blocks(pool, payloads, blocks):
             if keep.numel() == 0:
                 continue
             rows = torch.as_tensor(payloads[name])
+            if tp is not None and tp.size > 1:
+                heads = leaf.shape[3]
+                rows = rows[:, :, :, tp.index * heads:(tp.index + 1) * heads]
             if keep.numel() != ids.numel():
                 rows = rows[keep]
             rows = rows.to(leaf.device, non_blocking=True)

@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from cloud_tpu_torch.models import layers
+from cloud_tpu_torch.parallel import collectives, ring_attention
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,22 +80,28 @@ def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
 
     ``ctx``, a ``parallel.tensor_parallel.TrainContext``, runs the layer
     on a training mesh as the JAX package's GSPMD runs it (``expert`` ->
-    ``ep``, ``batch`` -> ``dp`` x ``fsdp``): the router, top-k, capacity
-    (from this call's ``T``), dispatch and combine run alike on every
-    rank that holds these rows; the rank's experts (``ctx.expert_bounds``,
-    cut as ``sharding.shard_bounds`` cuts them) see ``x`` and the combine
-    weights through ``ctx.copy_experts`` (their cotangents summed over
-    ``ep``), their hidden units split over ``tp`` behind the TP pair, and
-    the experts' partial outputs are summed over ``ep`` in f32.  The
-    auxiliary loss's statistics (the top-1 share and the mean gate per
-    expert) are means over the GLOBAL batch's rows: sums over the data
-    axes in the forward pass with an identity backward
-    (``ctx.sum_rows``), so each rank's gradient is its own rows' share
-    and the step's sum over the data axes makes it whole.  With ``ctx``
+    ``ep``, ``batch`` -> ``dp`` x ``fsdp``, the sequence -> ``sp``): the
+    router, top-k, dispatch and combine run alike on every rank that holds
+    these tokens; the rank's experts (``ctx.expert_bounds``, cut as
+    ``sharding.shard_bounds`` cuts them) see ``x`` and the combine weights
+    through ``ctx.copy_experts`` (their cotangents summed over ``ep``),
+    their hidden units split over ``tp`` behind the TP pair, and the
+    experts' partial outputs are summed over ``ep`` in f32.  Under ``sp``
+    the rank routes its block of the sequence as the JAX layer routes the
+    whole: capacity from the global ``T``, and each choice's slot offset
+    by the choices of the chunks before it in sequence order
+    (:func:`_slot_positions`); the expert products are row-wise, so each
+    rank fills and reads only its own tokens' slots.  The auxiliary
+    loss's statistics (the top-1 share and the mean gate per expert, the
+    z-loss) are means over the GLOBAL batch's tokens: sums over the data
+    axes and ``sp`` in the forward pass with an identity backward
+    (``ctx.sum_tokens``), so each rank's gradient is its own tokens' share
+    and the step's sum over those axes makes it whole.  With ``ctx``
     None, the one-card layer."""
     b, t, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    c = _capacity(t, cfg)
+    sp = ctx.sp_size if ctx is not None else 1
+    c = _capacity(t * sp, cfg)
 
     router_logits = layers.dense_apply(params["router"], x,
                                        dtype=torch.float32)
@@ -106,8 +114,8 @@ def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
     # over the flattened (T * K) routing sequence of each batch row.
     choice_mask = F.one_hot(top_idx, e).float()  # [B, T, K, E]
     flat_mask = choice_mask.reshape(b, t * k, e)
-    pos_in_expert = (torch.cumsum(flat_mask, dim=1) - flat_mask).reshape(
-        b, t, k, e)
+    pos_in_expert = _slot_positions(flat_mask, ctx if sp > 1 else None
+                                    ).reshape(b, t, k, e)
     keep = choice_mask * (pos_in_expert < c).float()
 
     # combine[b, t, e, c]: the gate of token t's slot c in expert e.
@@ -124,17 +132,46 @@ def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
         fraction_routed = choice_mask[..., 0, :].mean(dim=(0, 1))
         mean_gate = gates.mean(dim=(0, 1))
     else:
-        rows = b * t * ctx.data_size
-        fraction_routed = ctx.sum_rows(
-            choice_mask[..., 0, :].sum(dim=(0, 1))) / rows
-        mean_gate = ctx.sum_rows(gates.sum(dim=(0, 1))) / rows
+        tokens = b * t * ctx.data_size * sp
+        fraction_routed = ctx.sum_tokens(
+            choice_mask[..., 0, :].sum(dim=(0, 1))) / tokens
+        mean_gate = ctx.sum_tokens(gates.sum(dim=(0, 1))) / tokens
     aux = (fraction_routed * mean_gate).sum() * e * cfg.aux_loss_weight
     if cfg.z_loss_weight:
         z = torch.logsumexp(router_logits, dim=-1)  # [B, T]
         z2 = ((z * z).mean() if ctx is None
-              else ctx.sum_rows((z * z).sum()) / (b * t * ctx.data_size))
+              else ctx.sum_tokens((z * z).sum()) / tokens)
         aux = aux + cfg.z_loss_weight * z2
     return out, aux
+
+
+def _slot_positions(flat_mask, ctx=None):
+    """Each (token, choice)'s position in its expert's buffer: the
+    exclusive cumsum of ``flat_mask`` ``[B, T * K, E]`` over the routing
+    sequence of each batch row.  Under ``sp`` (``ctx``) the rank's tokens
+    are chunks of the global sequence (one, or the zig-zag pair,
+    ``ring_attention.block_chunks``): the cumsum runs within each chunk,
+    offset by the choices of every chunk before it in sequence order,
+    whichever rank holds it (each rank's ``[B, chunks, E]`` counts,
+    gathered over ``sp``)."""
+    if ctx is None:
+        return torch.cumsum(flat_mask, dim=1) - flat_mask
+    b, n, e = flat_mask.shape
+    sp = ctx.sp_size
+    ids, count = ring_attention.block_chunks(sp, ctx.sp_index,
+                                             zigzag=ctx.zigzag)
+    per = flat_mask.reshape(b, len(ids), n // len(ids), e)
+    within = torch.cumsum(per, dim=2) - per
+    counts = collectives.all_gather(  # [B, sp * chunks, E]
+        per.sum(dim=2), mesh_lib.AXIS_SP, gather_dim=1, mesh=ctx.mesh)
+    order = [i for rank in range(sp)
+             for i in ring_attention.block_chunks(sp, rank,
+                                                  zigzag=ctx.zigzag)[0]]
+    by_chunk = torch.zeros(b, count, e, dtype=counts.dtype,
+                           device=counts.device)
+    by_chunk[:, order] = counts
+    before = torch.cumsum(by_chunk, dim=1) - by_chunk
+    return (within + before[:, list(ids), None, :]).reshape(b, n, e)
 
 
 def _experts(params, x, combine, ctx=None):

@@ -84,6 +84,18 @@ def zigzag_indices(seq_len: int, n: int, *, inverse: bool = False,
     return inv
 
 
+def block_chunks(n: int, rank: int, *, zigzag: bool
+                 ) -> Tuple[Tuple[int, ...], int]:
+    """``(ids, count)``: the sequence splits into ``count`` equal chunks
+    and rank ``rank`` of ``n`` holds chunks ``ids``, in the order its block
+    lays them out: chunk ``rank`` of ``n``, or under the zig-zag layout
+    (:func:`zigzag_indices`) chunks ``rank`` and ``2n - 1 - rank`` of
+    ``2n``."""
+    if zigzag:
+        return (rank, 2 * n - 1 - rank), 2 * n
+    return (rank,), n
+
+
 def hop_calls(src_idx: int, my_idx: int, *, causal: bool,
               zigzag: bool) -> List[Tuple[int, int, bool]]:
     """The attention calls of one hop: ``(q segment, k/v segment,

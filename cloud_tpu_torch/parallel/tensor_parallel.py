@@ -116,11 +116,12 @@ class TrainContext(TensorParallel):
     that differ only in ``pp`` or ``ep`` hold the same rows."""
 
     rules: sharding.ShardingRules = sharding.DEFAULT_RULES
+    #: Whether an ``sp`` block is laid out in the zig-zag order
+    #: (``zigzag_sp``): two chunks of the sequence, not one.
+    zigzag: bool = False
 
     #: The axes over which ranks hold different rows or positions.
     loss_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SP)
-    #: The axes over which ranks hold different rows.
-    row_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP)
 
     @property
     def sp_size(self) -> int:
@@ -194,13 +195,14 @@ class TrainContext(TensorParallel):
         cotangent as it is backward."""
         return autograd_lib.reduce_from(x, self.expert_axes, self.mesh)
 
-    def sum_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks that hold different rows forward, the
-        identity backward (an MoE layer's routing statistics).  Under
-        remat "full" the layer's recompute issues it again inside the
-        backward pass; that keeps one order because every data rank walks
-        the same layers in the same reverse order."""
-        return autograd_lib.reduce_from(x, self.row_axes, self.mesh)
+    def sum_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks that hold different tokens (rows over
+        ``dp`` x ``fsdp``, positions over ``sp``) forward, the identity
+        backward (an MoE layer's routing statistics).  Under remat "full"
+        the layer's recompute issues it again inside the backward pass;
+        that keeps one order because every rank walks the same layers in
+        the same reverse order."""
+        return autograd_lib.reduce_from(x, self.loss_axes, self.mesh)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return autograd_lib.reduce_from_tp(x, self.mesh)
@@ -292,16 +294,8 @@ def train_context(mesh, config, rules=sharding.DEFAULT_RULES
     an encoder's: BERT's and ViT's, whose heads and MLP split as
     CloudLM's, BERT's token table over the vocabulary, ViT without one):
     ``tp`` must divide the head count, and an MoE model's expert shards
-    may not outnumber its experts.  An MoE model under ``sp`` > 1 is
-    queued under ROADMAP.md A.3 (``NotImplementedError``): its capacity
-    and slot cumsum run over the whole sequence."""
+    may not outnumber its experts."""
     moe = getattr(config, "moe", None)
-    if moe is not None and mesh.axis_size(mesh_lib.AXIS_SP) > 1:
-        raise NotImplementedError(
-            "an MoE CloudLM under sp > 1 is not in the PyTorch port yet: "
-            "capacity and the slot cumsum run over the whole sequence "
-            "(cloud_tpu/models/moe.py:91-101); it is queued under "
-            "ROADMAP.md A.3 (MoE under sp)")
     tp = mesh.axis_size(mesh_lib.AXIS_TP)
     if config.num_heads % tp:
         raise ValueError(
@@ -309,7 +303,8 @@ def train_context(mesh, config, rules=sharding.DEFAULT_RULES
     split = check_rules(mesh, rules, training=True)
     vocab = split and getattr(config, "vocab_size", None) is not None
     ctx = TrainContext(mesh=mesh, rules=rules,
-                       vocab_sizes=_vocab_sizes(mesh, config, vocab))
+                       vocab_sizes=_vocab_sizes(mesh, config, vocab),
+                       zigzag=bool(getattr(config, "zigzag_sp", False)))
     if moe is not None:
         count, _ = sharding.shard_count_and_index(mesh, ctx.expert_axes)
         if count > moe.num_experts:

@@ -108,12 +108,19 @@ one reshard a forward pass makes is the logits' gather before sampling;
 rank 0's host pull of the sampled tokens is spanned as ``serve/reshard``.
 Greedy outputs stay token-identical to ``generation.generate``.
 
+On a slice the followers also run the speculative draft (head-sharded
+as the target when ``tp`` divides its heads, else replicated on every
+rank), keep their heads' blocks of the prefix cache's host tier (rank 0's
+manager decides every demotion and swap-in; each plan carries the block
+ids), export their heads of a KV handoff payload to rank 0 (which
+gathers every head, in head order) and import theirs from one, and take
+a second decode chunk in flight (``pipeline_depth=2``) in dispatch order.
+
 The engine takes every field, keyword and method of the JAX engine; each
 value whose feature the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP.md item that brings it: under
-a serving mesh of more than one rank, ``sp > 1``, ``draft=``, an MoE
-model, the prefix cache's host tier, the KV handoff and
-``pipeline_depth=2``.
+a serving mesh of more than one rank, ``sp > 1`` (item 6) and an MoE
+model (item 3).
 """
 
 from __future__ import annotations
@@ -121,9 +128,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import logging
 import threading
 import time
+import weakref
 from concurrent.futures import Future, InvalidStateError
 from typing import Dict, List, Optional, Tuple
 
@@ -575,13 +584,16 @@ class _InflightChunk:
 
 class _DeferredPayload:
     """A demoted block's host bytes, downloaded when its burst ends
-    (``ServingEngine._demote_burst``)."""
+    (``ServingEngine._demote_burst``).  On a slice the bytes are each
+    rank's heads, kept by every rank under ``tag``
+    (``ServingEngine._tier``)."""
 
-    __slots__ = ("value", "filled")
+    __slots__ = ("value", "filled", "tag", "__weakref__")
 
-    def __init__(self):
+    def __init__(self, tag: Optional[int] = None):
         self.value = None
         self.filled = False
+        self.tag = tag
 
 
 def _resolve_payload(payload):
@@ -773,7 +785,16 @@ class ServingEngine:
         self._spec = cfg.draft is not None
         self._draft_params = None
         self._draft_cache = None
+        #: The last draft round's verify window (every rank of a slice).
+        self._window = None
         self._accept_window: collections.deque = collections.deque(maxlen=64)
+        #: A slice's host tier: every rank's host copy of its heads of each
+        #: demoted block, by the tag rank 0's placeholder carries; the tags
+        #: whose placeholder rank 0's manager has dropped since the last
+        #: plan (sent with the next one).
+        self._tier: Dict[int, dict] = {}
+        self._tier_tags = itertools.count()
+        self._tier_dropped: List[int] = []
         if self._continuous:
             self._max_len = cfg.prompt_buckets[-1] + cfg.max_new_tokens
             # The grid is updated in place by every program (the JAX
@@ -944,24 +965,13 @@ class ServingEngine:
     def _refuse_unported_under_mesh(self) -> None:
         """What a slice of more than one rank does not run yet, each
         naming its ROADMAP.md item."""
-        cfg = self.serve_config
         if self._slice_shape[1] > 1:
             raise _later("a serving mesh with sp > 1 (sequence-parallel "
-                         "serving, which needs the ring attention of A.2)",
+                         "serving, prefill over the ring attention of A.2)",
                          "6")
-        if cfg.draft is not None:
-            raise _later("draft= (speculative decoding) under a serving "
-                         "mesh", "6")
         if self.config.moe is not None:
             raise _later("an MoE model under a serving mesh (its experts "
                          "over the slice's ranks)", "3")
-        if cfg.prefix_dram_blocks:
-            raise _later("prefix_dram_blocks (the prefix cache's host "
-                         "tier) under a serving mesh", "6")
-        if cfg.role != "both":
-            raise _later("role= (the KV handoff) under a serving mesh", "6")
-        if cfg.pipeline_depth > 1:
-            raise _later("pipeline_depth=2 under a serving mesh", "6")
 
     def _place_params(self, params):
         """The params this rank serves, on its device: the caller's, or
@@ -987,6 +997,13 @@ class ServingEngine:
             follower_cfg = dataclasses.replace(
                 self.serve_config, mesh_shape=None, layout="explicit",
                 hbm_bytes_per_chip=None)
+            if follower_cfg.draft is not None:
+                # Each follower cuts (or copies) its own draft from these.
+                follower_cfg = dataclasses.replace(
+                    follower_cfg, draft=dataclasses.replace(
+                        follower_cfg.draft, params=bridge.map_leaves(
+                            {k: v for k, v in follower_cfg.draft.params.items()
+                             if k != "tp"}, lambda t: t.detach().cpu())))
             self.mesh, self._spawned = slice_lib.spawn_slice(
                 shards, self.config, follower_cfg, self.rules,
                 self._spawn_devices, backend)
@@ -1061,12 +1078,39 @@ class ServingEngine:
                 "vocabulary"
             )
         _check_quantized_leaves(cfg.draft.params, "draft.params")
-        self._draft_params = generation.prepare_params(
-            bridge.map_leaves(cfg.draft.params,
-                              lambda t: t.to(self.device)), dcfg)
-        self._draft_cache = generation.init_slot_cache(
-            dcfg, cfg.num_slots, self._max_len, device=self.device,
-            kv_quant=cfg.kv_quant)
+        tp = cfg.draft.params.get("tp")
+        full = {k: v for k, v in cfg.draft.params.items() if k != "tp"}
+        if self._draft_sharded and tp is None:
+            # Head-sharded as the target: this rank's shard of the draft
+            # (cut here from full params, or given as a shard), its grid
+            # of this rank's heads, the target's collectives.
+            full = tensor_parallel.shard_lm(
+                bridge.map_leaves(full, lambda t: t.detach().cpu()), dcfg,
+                self.mesh, self.rules)
+            tp = full.pop("tp")
+        params = bridge.map_leaves(full, lambda t: t.to(self.device))
+        if tp is not None:
+            params["tp"] = tp
+        self._draft_params = generation.prepare_params(params, dcfg)
+        self._draft_cache = self._new_draft_cache()
+
+    @property
+    def _draft_sharded(self) -> bool:
+        """On a slice, whether the draft is head-sharded as the target
+        (``tp`` divides its heads, as the JAX engine decides); otherwise
+        every rank holds the whole draft and runs it unsharded."""
+        return (self._slice_chips > 1 and self.serve_config.draft is not None
+                and int(self.serve_config.draft.config.num_heads)
+                % self._slice_shape[0] == 0)
+
+    def _new_draft_cache(self):
+        """A zeroed draft slot cache of the grid's shape (the rank's heads
+        when the draft is head-sharded)."""
+        cfg = self.serve_config
+        return generation.init_slot_cache(
+            cfg.draft.config, cfg.num_slots, self._max_len,
+            device=self.device, kv_quant=cfg.kv_quant,
+            tp=self._draft_params.get("tp"))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -1157,9 +1201,7 @@ class ServingEngine:
                     self.config, sample=cfg.sample, generator=generator)
             if self._spec:
                 dcfg = cfg.draft.config
-                draft_cache = generation.init_slot_cache(
-                    dcfg, cfg.num_slots, self._max_len,
-                    device=self.device, kv_quant=cfg.kv_quant)
+                draft_cache = self._new_draft_cache()
                 for bucket_len in cfg.prompt_buckets:
                     generation.draft_prefill_slot_program(
                         self._draft_params, draft_cache,
@@ -1207,8 +1249,6 @@ class ServingEngine:
             raise ValueError(
                 f"role must be 'prefill', 'decode' or 'both', got {role!r}"
             )
-        if role != "both" and self._slice_chips > 1:
-            raise _later("role= (the KV handoff) under a serving mesh", "6")
         if role != "both" and (not self._continuous
                                or not self.serve_config.prefix_cache_blocks):
             raise ValueError(
@@ -1318,8 +1358,6 @@ class ServingEngine:
             raise RuntimeError(
                 "this rank follows rank 0 of its serving slice: submit to "
                 "rank 0's engine")
-        if self._slice_chips > 1 and (handoff_export or handoff is not None):
-            raise _later("the KV handoff under a serving mesh", "6")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         if (handoff_export or handoff is not None) and self._prefix is None:
@@ -1947,9 +1985,16 @@ class ServingEngine:
     def _set_table_row(self, slot: int, blocks) -> None:
         """Point the leading pages of ``slot`` at pool ``blocks``, the
         rest at the slot row (stream-ordered after every dispatch that
-        read the old row)."""
-        self._lockstep("table_row", slot=slot,
-                       blocks=[int(b) for b in blocks])
+        read the old row).  On a slice the plan is sent under the
+        watchdog: a follower that hangs stalls it."""
+        def send():
+            self._lockstep("table_row", slot=slot,
+                           blocks=[int(b) for b in blocks])
+
+        if self._link is None:
+            send()
+        else:
+            self._supervised("serve/table_row", send)
 
     def _op_table_row(self, slot: int, blocks: List[int]) -> None:
         row = np.full((self._n_pages,), -1, np.int32)
@@ -2199,8 +2244,7 @@ class ServingEngine:
             blocks = [int(node.block) for node in nodes]
 
             def export():
-                host = generation.download_prefix_blocks(self._prefix_pool,
-                                                         blocks)
+                host = self._lockstep("export", blocks=blocks)
                 self._wait_enqueued()
                 return [{name: leaf[i].clone() for name, leaf in host.items()}
                         for i in range(len(blocks))]
@@ -2217,6 +2261,19 @@ class ServingEngine:
             self._stats["handoff_export_blocks"] += len(nodes)
         metrics.counter_inc("serve/handoff_exports")
         metrics.counter_inc("serve/handoff_export_blocks", len(nodes))
+
+    def _op_export(self, blocks: List[int]):
+        """Pool rows ``blocks`` as host tensors with every head: on a
+        slice each rank's heads are gathered over ``tp`` in head order
+        (every rank takes part; rank 0 keeps the payload)."""
+        return generation.download_prefix_blocks(self._prefix_pool, blocks,
+                                                 tp=self._tp)
+
+    def _op_import(self, blocks: List[int], payloads: dict) -> None:
+        """Host payloads with every head into pool rows ``blocks``: on a
+        slice each rank writes its heads."""
+        self._prefix_pool = generation.upload_prefix_blocks(
+            self._prefix_pool, payloads, blocks, tp=self._tp)
 
     def _import_handoff(self, request: _Request) -> List[object]:
         """Seed the prefix trie with a handoff payload's blocks, so the
@@ -2261,11 +2318,10 @@ class ServingEngine:
                     stacked = {
                         name: self._stack_host([p[name] for _, p in uploads])
                         for name in self._prefix_pool}
-                    return generation.upload_prefix_blocks(
-                        self._prefix_pool, stacked, [b for b, _ in uploads])
+                    self._lockstep("import", blocks=[b for b, _ in uploads],
+                                   payloads=stacked)
 
-                self._prefix_pool = self._supervised("serve/kv_handoff",
-                                                     upload)
+                self._supervised("serve/kv_handoff", upload)
         with self._stats_lock:
             self._stats["handoff_imports"] += 1
             self._stats["handoff_import_blocks"] += len(held)
@@ -2311,9 +2367,16 @@ class ServingEngine:
         outside one it runs and is synchronised here, under the
         watchdog."""
         metrics.counter_inc("serve/prefix_demotions")
-        if self._demote_batch is not None:
+        if self._demote_batch is not None or self._link is not None:
             deferred = _DeferredPayload()
-            self._demote_batch.append((int(block), deferred))
+            if self._link is not None:
+                deferred.tag = next(self._tier_tags)
+                weakref.finalize(deferred, self._tier_dropped.append,
+                                 deferred.tag)
+            if self._demote_batch is None:
+                self._flush_demotes([(int(block), deferred)])
+            else:
+                self._demote_batch.append((int(block), deferred))
             return deferred
 
         def download():
@@ -2344,15 +2407,47 @@ class ServingEngine:
 
     def _flush_demotes(self, batch: List[tuple]) -> None:
         def download():
-            for block, deferred in batch:
-                deferred.value = generation.download_prefix_block(
-                    self._prefix_pool, block)
-            self._sync_stream()
+            if self._link is not None:
+                self._lockstep("demote", blocks=[b for b, _ in batch],
+                               tags=[d.tag for _, d in batch],
+                               drop=self._take_dropped())
+            else:
+                for block, deferred in batch:
+                    deferred.value = generation.download_prefix_block(
+                        self._prefix_pool, block)
+                self._sync_stream()
             for _, deferred in batch:
                 deferred.filled = True
 
         with tracing.span("serve/prefix_demote", blocks=len(batch)):
             self._supervised("serve/prefix_demote", download)
+
+    def _take_dropped(self) -> List[int]:
+        """The host-tier tags dropped since the last slice plan."""
+        dropped, self._tier_dropped[:] = list(self._tier_dropped), []
+        return dropped
+
+    def _op_demote(self, blocks: List[int], tags: List[int],
+                   drop: List[int]) -> None:
+        """A slice's demotion burst: each rank copies its heads of pool
+        rows ``blocks`` to host memory under ``tags`` (after forgetting
+        the ``drop`` tags), synchronised once."""
+        for tag in drop:
+            self._tier.pop(tag, None)
+        for block, tag in zip(blocks, tags):
+            self._tier[tag] = generation.download_prefix_block(
+                self._prefix_pool, block)
+        self._sync_stream()
+
+    def _op_swapin(self, blocks: List[int], tags: List[int],
+                   drop: List[int]) -> None:
+        """A slice's swap-in: each rank uploads its heads of the tagged
+        host blocks into pool rows ``blocks``."""
+        for tag in drop:
+            self._tier.pop(tag, None)
+        for block, tag in zip(blocks, tags):
+            self._prefix_pool = generation.upload_prefix_block(
+                self._prefix_pool, self._tier.pop(tag), block)
 
     def _dispatch_swapin(self, slot: int, plan, request: _Request) -> None:
         """Upload a promotion plan's host payloads into their fresh pool
@@ -2361,6 +2456,11 @@ class ServingEngine:
         tokens = len(plan) * self.serve_config.prefix_block_tokens
 
         def upload():
+            if self._link is not None:
+                self._lockstep("swapin", blocks=[int(b) for _, b, _ in plan],
+                               tags=[p.tag for _, _, p in plan],
+                               drop=self._take_dropped())
+                return self._prefix_pool
             pool = self._prefix_pool
             for _node, block, payload in plan:
                 pool = generation.upload_prefix_block(
@@ -2476,12 +2576,12 @@ class ServingEngine:
         self._commit_emissions(toks, valid, chunk)
 
     def _op_chunk(self):
-        """One decode chunk of the grid: ``(tokens, valid)`` on the
-        device."""
-        self._grid_cache, self._slot_state, toks, valid = self._chunk_program(
-            self._grid_cache, self._slot_state, self._generator,
-            self._block_table)
-        return toks, valid
+        """One decode chunk of the grid: ``(tokens, valid)`` on the device,
+        and at depth 2 the chunk's summary."""
+        out = self._chunk_program(self._grid_cache, self._slot_state,
+                                  self._generator, self._block_table)
+        self._grid_cache, self._slot_state = out[:2]
+        return out[2:]
 
     def _feed_entry(self, entry: _Slot) -> None:
         """Deliver a slot's not yet streamed tokens to its request's stream
@@ -2522,23 +2622,35 @@ class ServingEngine:
             if hit_eos or len(entry.tokens) >= entry.request.max_new_tokens:
                 self._retire_slot(slot)
 
-    def _draft_round(self):
+    def _draft_round(self) -> None:
         """The draft's proposal for every slot (``serve/draft``), under
-        the watchdog: returns the verify window."""
+        the watchdog: the verify window, kept on every rank of a slice
+        for the verify that follows (``_op_verify``)."""
         cfg = self.serve_config
 
         def draft():
             faults.fault_point("serve.draft")
-            return generation.draft_chunk_program(
-                self._draft_params, self._draft_cache, self._slot_state,
-                cfg.draft.config, spec_k=cfg.draft.spec_k)
+            self._lockstep("draft")
 
         with tracing.span("serve/draft", slots=cfg.num_slots,
                           spec_k=cfg.draft.spec_k,
                           active=len(self._active_slots)):
-            self._draft_cache, window = self._supervised("serve/draft",
-                                                         draft)
-        return window
+            self._supervised("serve/draft", draft)
+
+    def _op_draft(self) -> None:
+        cfg = self.serve_config
+        self._draft_cache, self._window = generation.draft_chunk_program(
+            self._draft_params, self._draft_cache, self._slot_state,
+            cfg.draft.config, spec_k=cfg.draft.spec_k)
+
+    def _op_verify(self):
+        """The target's verify of the last draft window: ``(tokens,
+        valid)`` on the device, and at depth 2 the round's summary."""
+        out = self._verify_program(self._grid_cache, self._slot_state,
+                                   self._window, self._block_table)
+        self._grid_cache, self._slot_state = out[:2]
+        self._window = None
+        return out[2:]
 
     def _count_round(self, emitted: int, active_n: int) -> Tuple[int, int]:
         """Stats of one committed verify round: every active slot commits
@@ -2574,20 +2686,18 @@ class ServingEngine:
         active_n = len(self._active_slots)
         start = time.perf_counter()
         self._note_dispatch_gap(start)
-        window = self._draft_round()
+        self._draft_round()
 
         def verify():
             faults.fault_point("serve.verify")
-            cache, state, toks, valid = self._verify_program(
-                self._grid_cache, self._slot_state, window,
-                self._block_table)
+            toks, valid = self._lockstep("verify")
             self._last_chunk_dispatch_end = time.perf_counter()
-            return (cache, state) + self._emissions_to_host(toks, valid)
+            with self._reshard("verify_tokens"):
+                return self._emissions_to_host(toks, valid)
 
         with tracing.span("serve/verify", **self._span_attrs(
                 slots=num_slots, spec_k=k, active=active_n)) as verify_span:
-            self._grid_cache, self._slot_state, toks, valid = (
-                self._supervised("serve/verify", verify))
+            toks, valid = self._supervised("serve/verify", verify)
             emitted = int(valid.sum())
             accepted, proposed = self._count_round(emitted, active_n)
             verify_span.set_attribute("tokens", emitted)
@@ -2646,14 +2756,9 @@ class ServingEngine:
 
         def decode():
             faults.fault_point("serve.chunk")
-            cache, state, toks, valid, summary = self._chunk_program(
-                self._grid_cache, self._slot_state, self._generator,
-                self._block_table)
-            return (cache, state) + self._start_host_copy(toks, valid,
-                                                          summary)
+            return self._start_host_copy(*self._lockstep("chunk"))
 
-        self._grid_cache, self._slot_state, host, event = self._supervised(
-            "serve/chunk", decode)
+        host, event = self._supervised("serve/chunk", decode)
         end = time.perf_counter()
         self._last_chunk_dispatch_end = end
         self._inflight.append(_InflightChunk(
@@ -2669,21 +2774,16 @@ class ServingEngine:
         active_n = len(self._active_slots)
         start = time.perf_counter()
         self._note_dispatch_gap(start)
-        window = self._draft_round()
+        self._draft_round()
         span_attrs = self._span_attrs(slots=cfg.num_slots,
                                       spec_k=cfg.draft.spec_k,
                                       active=active_n)
 
         def verify():
             faults.fault_point("serve.verify")
-            cache, state, toks, valid, summary = self._verify_program(
-                self._grid_cache, self._slot_state, window,
-                self._block_table)
-            return (cache, state) + self._start_host_copy(toks, valid,
-                                                          summary)
+            return self._start_host_copy(*self._lockstep("verify"))
 
-        self._grid_cache, self._slot_state, host, event = self._supervised(
-            "serve/verify", verify)
+        host, event = self._supervised("serve/verify", verify)
         end = time.perf_counter()
         self._last_chunk_dispatch_end = end
         self._inflight.append(_InflightChunk(
@@ -2768,18 +2868,21 @@ class ServingEngine:
 
         def prefill():
             faults.fault_point("serve.draft_prefill")
-            return generation.draft_prefill_slot_program(
-                self._draft_params, self._draft_cache,
-                self._to_device(tokens), request.prompt_len, slot,
-                self.serve_config.draft.config)
+            self._lockstep("draft_prefill", tokens=tokens,
+                           prompt_len=request.prompt_len, slot=slot)
 
         with tracing.span("serve/draft_prefill", bucket=request.bucket_len,
                           slot=slot):
-            self._draft_cache = self._supervised("serve/draft_prefill",
-                                                 prefill)
+            self._supervised("serve/draft_prefill", prefill)
         metrics.counter_inc("serve/draft_prefills")
         with self._stats_lock:
             self._stats["draft_prefills"] += 1
+
+    def _op_draft_prefill(self, tokens: np.ndarray, prompt_len: int,
+                          slot: int) -> None:
+        self._draft_cache = generation.draft_prefill_slot_program(
+            self._draft_params, self._draft_cache, self._to_device(tokens),
+            prompt_len, slot, self.serve_config.draft.config)
 
     def _rolling_acceptance(self) -> float:
         """Acceptance over the last 64 rounds (``health()``; ``stats()``

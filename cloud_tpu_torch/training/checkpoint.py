@@ -329,60 +329,145 @@ def _leaf_axes(name: str, value, axes):
     raise KeyError(f"no logical axes for param leaf {name!r}")
 
 
-def _param_axes(params, axes, key: str, out: Dict, layout: StateLayout):
+def _param_axes(params, axes, key: str, out: Dict, layout: StateLayout,
+                lists: Dict):
     """Each parameter leaf's key path (``_flatten``'s, under ``params/``)
-    -> its logical axes."""
+    -> its logical axes and local shape.  A layer list cut over ``pp``
+    (a pipeline stage's block) goes into ``lists``: its key prefix ->
+    ``(start, stop, global length, mesh axes)`` of this rank's block."""
     if isinstance(axes, sharding.LayerStack):
-        cut, _, _ = sharding.layer_stack_cut(
+        cut, start, stop = sharding.layer_stack_cut(
             layout.mesh, layout.rules or sharding.DEFAULT_RULES, len(axes))
         if cut:
-            raise NotImplementedError(
-                "a checkpoint of a state whose layer list is cut over "
-                f"{cut} (a pipeline stage's block of layers) is not in the "
-                "PyTorch port yet: it is queued under ROADMAP.md A.3")
+            lists[key] = (start, stop, len(axes), cut)
+            axes = axes[start:stop]
     if isinstance(params, (list, tuple)):
         for i, (p, a) in enumerate(zip(params, axes)):
-            _param_axes(p, a, f"{key}{i}/", out, layout)
+            _param_axes(p, a, f"{key}{i}/", out, layout, lists)
         return out
     for name, value in params.items():
         if isinstance(value, (dict, list, tuple)):
-            _param_axes(value, axes[name], f"{key}{name}/", out, layout)
+            _param_axes(value, axes[name], f"{key}{name}/", out, layout,
+                        lists)
         else:
             out[f"{key}{name}"] = (_leaf_axes(name, value, axes),
                                    tuple(_leaf_tensor(value).shape))
     return out
 
 
-def _leaf_layouts(state, flat, layout: StateLayout) -> Dict[str, tuple]:
-    """Key path -> ``(logical axes, {dim: mesh axes it is cut over})`` for
-    each leaf of ``flat`` (``_flatten(state)``'s) that lies on the mesh
-    as a parameter does; leaves missing from the result are
-    replicated."""
+def _global_key(key: str, lists: Dict) -> str:
+    """``key`` with a stage's local layer index made global (its block's
+    start added) when it lies in a cut layer list of ``lists``."""
+    for prefix, (start, *_) in lists.items():
+        if key.startswith(prefix):
+            index, _, rest = key[len(prefix):].partition("/")
+            return f"{prefix}{start + int(index)}" + (f"/{rest}" if rest
+                                                      else "")
+    return key
+
+
+def _leaf_layouts(state, flat, layout: StateLayout):
+    """``(cut, lists)``.  ``cut``: global key path -> ``(logical axes,
+    {dim: mesh axes it is cut over})`` for each leaf of ``flat``
+    (``_flatten(state)``'s) that lies on the mesh as a parameter does;
+    leaves missing from it are replicated.  ``lists``: the key prefix of
+    each layer list cut over ``pp`` (the parameters' and the optimizer
+    state's lists that follow them) -> ``(start, stop, global length,
+    mesh axes)`` of this rank's block (:func:`_global_key`)."""
     if (layout.mesh is None or layout.logical_axes is None
             or not isinstance(state, TrainState)):
-        return {}
+        return {}, {}
     rules = layout.rules or sharding.DEFAULT_RULES
+    lists: Dict[str, tuple] = {}
     params = _param_axes(state.params, layout.logical_axes, "params/", {},
-                         layout)
+                         layout, lists)
     by_rel = {k[len("params/"):]: v for k, v in params.items()}
+    stage = {k[len("params/"):]: v for k, v in lists.items()}
     out = {}
     for key, value in flat:
         parts = key.split("/")
+        found = None
         if parts[0] == "params":
             found = params.get(key)
         elif parts[0] == "opt_state":
             shape = tuple(_leaf_tensor(value).shape)
-            found = next((by_rel["/".join(parts[i:])]
-                          for i in range(1, len(parts))
-                          if by_rel.get("/".join(parts[i:]), (0, None))[1]
-                          == shape), None)
-        else:
-            found = None
+            at = next((i for i in range(1, len(parts))
+                       if by_rel.get("/".join(parts[i:]), (0, None))[1]
+                       == shape), None)
+            if at is not None:
+                rel = "/".join(parts[at:])
+                found = by_rel[rel]
+                for prefix, bounds in stage.items():
+                    if rel.startswith(prefix):
+                        lists["/".join(parts[:at]) + "/" + prefix] = bounds
         if found is not None:
             cuts = sharding.split_dims(layout.mesh, found[0], rules)
             if cuts:
                 out[key] = (found[0], cuts)
-    return out
+    return {_global_key(k, lists): v for k, v in out.items()}, lists
+
+
+def _spec_node(spec: Dict, prefix: str) -> Dict:
+    """The node of a tree spec at key prefix ``prefix`` (``a/b/``)."""
+    for part in prefix.rstrip("/").split("/"):
+        kind = spec["kind"]
+        spec = (spec["fields"][part] if kind == "train_state"
+                else spec["items"][int(part) if kind == "list" else part])
+    return spec
+
+
+def _keyed(spec: Dict, keys: List[str]) -> Dict:
+    """``spec`` with each leaf's index replaced by its key in ``keys``."""
+    kind = spec["kind"]
+    if kind == "leaf":
+        return {"kind": "leaf", "key": keys[spec["index"]]}
+    if kind == "list":
+        return {"kind": "list", "items": [_keyed(s, keys)
+                                          for s in spec["items"]]}
+    if kind in ("dict", "train_state"):
+        field = "fields" if kind == "train_state" else "items"
+        return {"kind": kind, field: {k: _keyed(v, keys)
+                                      for k, v in spec[field].items()}}
+    return spec
+
+
+def _indexed(spec: Dict, keys: List[str]) -> Dict:
+    """The inverse of :func:`_keyed`: leaves numbered in tree order, their
+    keys appended to ``keys``."""
+    kind = spec["kind"]
+    if kind == "leaf":
+        keys.append(spec["key"])
+        return {"kind": "leaf", "index": len(keys) - 1}
+    if kind == "list":
+        return {"kind": "list", "items": [_indexed(s, keys)
+                                          for s in spec["items"]]}
+    if kind in ("dict", "train_state"):
+        field = "fields" if kind == "train_state" else "items"
+        return {"kind": kind, field: {k: _indexed(v, keys)
+                                      for k, v in spec[field].items()}}
+    return spec
+
+
+def _global_spec(everyone: List[Dict]) -> Tuple[Dict, List[str]]:
+    """The tree spec and leaf keys of the whole state when a layer list
+    is cut over ``pp``: each rank's spec, its leaves keyed globally, with
+    every cut list made of the stages' blocks in order.  Equal to one
+    process's ``_flatten`` of the gathered state."""
+    spec = _keyed(everyone[0]["spec"], everyone[0]["keys"])
+    for prefix, (_, _, total, _) in everyone[0]["lists"].items():
+        blocks = {}
+        for other in everyone:
+            start = other["lists"][prefix][0]
+            if start not in blocks:
+                blocks[start] = _spec_node(
+                    _keyed(other["spec"], other["keys"]), prefix)["items"]
+        items = [item for start in sorted(blocks) for item in blocks[start]]
+        if len(items) != total:
+            raise ValueError(f"checkpoint: the stages hold {len(items)} of "
+                             f"the {total} layers at {prefix!r}")
+        _spec_node(spec, prefix)["items"] = items
+    keys: List[str] = []
+    return _indexed(spec, keys), keys
 
 
 def _snapshot(state, layout: StateLayout):
@@ -396,34 +481,55 @@ def _snapshot(state, layout: StateLayout):
     A leaf cut over mesh axes is one piece per rank; a leaf replicated
     over some nontrivial axes is written by the ranks at coordinate 0 on
     them, and with no mesh by process 0.  Under several ranks every
-    rank's local shapes are exchanged first (a collective call), so each
-    knows the global shapes and every piece's bounds."""
+    rank's keys, local shapes and cuts are exchanged first (a collective
+    call), so each knows the global shapes and every piece's bounds.  A
+    layer list cut over ``pp`` is saved under its layers' global indices:
+    each stage's ranks write their block's leaves, and the index lists
+    the keys, shapes and dtypes of one process's checkpoint."""
     flat: List[Tuple[str, Any]] = []
     spec = _flatten(state, "", flat)
-    cut = _leaf_layouts(state, flat, layout)
+    cut, lists = _leaf_layouts(state, flat, layout)
     mesh = layout.mesh
     tensors = [_leaf_tensor(v) for _, v in flat]
+    keys = [_global_key(k, lists) for k, _ in flat]
     me = {"coords": dict(mesh.coords) if mesh is not None else {},
-          "shapes": [list(t.shape) for t in tensors]}
+          "shapes": [list(t.shape) for t in tensors], "keys": keys,
+          "dtypes": [_dtype_name(t.dtype) for t in tensors],
+          "cut": {k: cut[k] for k in keys if k in cut},
+          "lists": lists, "spec": spec if lists else None}
     everyone = _gather(me) if _several_ranks() else [me]
+    if lists:
+        spec, order = _global_spec(everyone)
+    else:
+        order = keys
     rank = distributed.process_index()
     nontrivial = mesh.spec.nontrivial_axes() if mesh is not None else []
+    # Global key -> [(rank, its local leaf index)] of the ranks holding it.
+    holders: Dict[str, List[Tuple[int, int]]] = {k: [] for k in order}
+    for r, other in enumerate(everyone):
+        for j, k in enumerate(other["keys"]):
+            holders[k].append((r, j))
     entries, mine = [], []
-    for i, ((key, _), t) in enumerate(zip(flat, tensors)):
-        axes, cuts = cut.get(key, (None, {}))
+    for i, key in enumerate(order):
+        r0, j0 = holders[key][0]
+        axes, cuts = everyone[r0]["cut"].get(key, (None, {}))
         split = {a for c in cuts.values() for a in c}
+        for prefix, (*_, stage) in lists.items():
+            if key.startswith(prefix):
+                split |= set(stage)
         replicated = [a for a in nontrivial if a not in split]
-        glob = list(t.shape)
+        glob = list(everyone[r0]["shapes"][j0])
         extents: Dict[int, Dict[int, int]] = {}
         for dim, c in cuts.items():
             extents[dim] = {}
-            for other in everyone:
+            for r, j in holders[key]:
                 count, index = sharding.shard_count_and_index(
-                    mesh, c, coords=other["coords"])
-                extents[dim][index] = other["shapes"][i][dim]
-            glob[dim] = sum(extents[dim].get(j, 0) for j in range(count))
+                    mesh, c, coords=everyone[r]["coords"])
+                extents[dim][index] = everyone[r]["shapes"][j][dim]
+            glob[dim] = sum(extents[dim].get(n, 0) for n in range(count))
         pieces = []
-        for r, other in enumerate(everyone):
+        for r, j in holders[key]:
+            other = everyone[r]
             if not (r == 0 if mesh is None else all(
                     other["coords"].get(a, 0) == 0 for a in replicated)):
                 continue
@@ -431,13 +537,13 @@ def _snapshot(state, layout: StateLayout):
             for dim, c in cuts.items():
                 _, index = sharding.shard_count_and_index(
                     mesh, c, coords=other["coords"])
-                start = sum(extents[dim][j] for j in range(index))
+                start = sum(extents[dim][n] for n in range(index))
                 bounds[dim] = [start, start + extents[dim][index]]
             pieces.append({"file": f"{i}.r{r}.bin", "bounds": bounds})
             if r == rank:
-                mine.append((i, f"{i}.r{r}.bin"))
+                mine.append((j, f"{i}.r{r}.bin"))
         entries.append({"key": key, "shape": glob,
-                        "dtype": _dtype_name(t.dtype),
+                        "dtype": everyone[r0]["dtypes"][j0],
                         "axes": None if axes is None else list(axes),
                         "pieces": pieces})
     buffers, devices = [], {}
@@ -494,10 +600,14 @@ _NO_TEMPLATE = object()
 _SKIP = object()
 
 
-def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = ""):
+def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = "",
+             lists: Optional[Dict] = None):
     """The tree of ``spec`` with each leaf ``leaf_fn(index, template
     leaf)``; a template's structure must match the spec's, or it raises
-    ``ValueError``."""
+    ``ValueError``.  A list whose key prefix is in ``lists`` (a template's
+    stage block of a layer list cut over ``pp``, :func:`_leaf_layouts`)
+    rebuilds only the block's layers."""
+    lists = lists or {}
     if template is _SKIP:
         return None
     kind = spec.get("kind")
@@ -512,27 +622,37 @@ def _rebuild(spec, leaf_fn, template=_NO_TEMPLATE, key: str = ""):
         return leaf_fn(spec["index"], None if free else template)
     if kind == "list":
         items = spec["items"]
+        start = 0
+        if not free and key in lists:
+            start, stop, total, _ = lists[key]
+            if len(items) != total:
+                raise ValueError(f"checkpoint list at {where!r} has "
+                                 f"{len(items)} layers, the template's "
+                                 f"stage cuts {total}")
+            items = items[start:stop]
         if not free and len(template) != len(items):
             raise ValueError(f"checkpoint list at {where!r} has "
                              f"{len(items)} items, the template's "
                              f"{len(template)}")
         return [_rebuild(s, leaf_fn, template if free else template[i],
-                         f"{key}{i}/") for i, s in enumerate(items)]
+                         f"{key}{start + i}/", lists)
+                for i, s in enumerate(items)]
     if kind == "dict":
         items = spec["items"]
         if free:
-            return {k: _rebuild(s, leaf_fn, template, f"{key}{k}/")
+            return {k: _rebuild(s, leaf_fn, template, f"{key}{k}/", lists)
                     for k, s in items.items()}
         if sorted(map(str, template)) != sorted(items):
             raise ValueError(f"checkpoint dict at {where!r} has keys "
                              f"{sorted(items)}, the template's "
                              f"{sorted(map(str, template))}")
-        return {k: _rebuild(items[str(k)], leaf_fn, v, f"{key}{k}/")
+        return {k: _rebuild(items[str(k)], leaf_fn, v, f"{key}{k}/", lists)
                 for k, v in template.items()}
     if kind == "train_state":
         return TrainState(**{
             name: _rebuild(s, leaf_fn, template if free
-                           else getattr(template, name), f"{key}{name}/")
+                           else getattr(template, name), f"{key}{name}/",
+                           lists)
             for name, s in spec["fields"].items()})
     raise ValueError(f"unknown node {kind!r} in a checkpoint index")
 
@@ -849,7 +969,7 @@ class CheckpointManager:
         process) saved it.  Without a template the saved tree comes back
         whole, its tensors on the manager's device.  A step whose files
         are damaged raises too."""
-        cuts, mesh = {}, None
+        cuts, lists, mesh = {}, {}, None
         if template is not None:
             layout = self._layout_for(layout)
             mesh = layout.mesh
@@ -872,8 +992,8 @@ class CheckpointManager:
             if template is not None:
                 flat: List[Tuple[str, Any]] = []
                 _flatten(template, "", flat)
-                cuts = {k: c for k, (_, c) in
-                        _leaf_layouts(template, flat, layout).items()}
+                layouts, lists = _leaf_layouts(template, flat, layout)
+                cuts = {k: c for k, (_, c) in layouts.items()}
 
             def leaf(i, like):
                 entry = entries[i]
@@ -898,7 +1018,8 @@ class CheckpointManager:
                 return value.requires_grad_(like.requires_grad)
 
             return _rebuild(index["tree"], leaf,
-                            _NO_TEMPLATE if template is None else template)
+                            _NO_TEMPLATE if template is None else template,
+                            lists=lists)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

@@ -11,7 +11,6 @@ import functools
 import json
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 
@@ -328,10 +327,20 @@ def run_port_side(script, inputs, workdir, *, timeout=600):
         return dict(out)
 
 
+#: Seconds a rank's process group waits for its peers (the rendezvous
+#: and every collective): well below a call's deadline, so a rank stuck
+#: in a collective fails with its own traceback before the call is killed.
+RANK_PG_TIMEOUT_S = 90
+
 #: What every gloo rank of :func:`run_ranks` runs before its script: JAX
-#: blocked, one thread, the default process group from the CLOUD_TPU_*
-#: variables.
-RANK_PRELUDE = """
+#: blocked, one thread, the default process group.  Its rendezvous is a
+#: file in the call's own directory, which no other call can meet (a
+#: ``tcp://`` port picked by binding port 0 and releasing it can be taken
+#: by another worker's call in between, and two calls' ranks then pair
+#: up); the CLOUD_TPU_* variables are set too, so
+#: ``initialize_from_env`` finds the group made.
+RANK_PRELUDE = f"""
+import datetime
 import json
 import sys
 sys.modules["jax"] = None
@@ -339,59 +348,101 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 from cloud_tpu_torch.parallel import MeshSpec, collectives as c, distributed
-assert distributed.initialize_from_env(300, device="cpu")
+torch.distributed.init_process_group(
+    "gloo", init_method="file://" + sys.argv[1],
+    world_size=int(sys.argv[2]), rank=int(sys.argv[3]),
+    timeout=datetime.timedelta(seconds={RANK_PG_TIMEOUT_S}))
+assert distributed.initialize_from_env({RANK_PG_TIMEOUT_S}, device="cpu")
 RANK, WORLD = distributed.process_index(), distributed.process_count()
-OUT = {"chief": distributed.is_chief()}
+OUT = {{"chief": distributed.is_chief()}}
 """
 
 
-def run_ranks(script, world, *, timeout=400, files=None):
-    """``script`` on ``world`` gloo ranks, one JAX-free process each;
-    returns each rank's ``OUT`` (a dict of JSON values).  ``files``
-    (a dict of numpy arrays) reaches every rank as ``IN``.  A rank that
-    has not finished within ``timeout`` seconds fails the test (every
-    rank is killed) instead of hanging it."""
+def launch_ranks(code, world, argv, *, timeout, env=None):
+    """``python -c code *argv(rank)`` for each of ``world`` ranks, their
+    output in files (a full pipe cannot stall a rank), one deadline for
+    the whole call: past ``timeout`` seconds from its start every rank is
+    killed and the test fails with every rank's last stderr.  Returns
+    ``[(returncode, stdout, stderr)]`` in rank order."""
+    import shutil
+    import tempfile
+    import time
+
     import pytest
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    prelude = RANK_PRELUDE
-    args = []
-    if files is not None:
-        import tempfile
-
-        tmp = tempfile.mkdtemp(prefix="ranks-")
-        path = os.path.join(tmp, "in.npz")
-        np.savez(path, **files)
-        args = [path]
-        prelude += "IN = dict(np.load(sys.argv[1], allow_pickle=False))\n"
-    code = (prelude + script
-            + "\ntorch.distributed.destroy_process_group()\n"
-            "print('OUT=' + json.dumps(OUT))\n")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, *args], cwd=str(REPO),
-        env=dict(os.environ, PYTHONPATH=str(REPO),
-                 CLOUD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                 CLOUD_TPU_NUM_PROCESSES=str(world),
-                 CLOUD_TPU_PROCESS_ID=str(rank)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for rank in range(world)]
-    done = []
+    logs = tempfile.mkdtemp(prefix="ranks-logs-")
+    procs, files = [], []
     try:
-        for rank, proc in enumerate(procs):
-            try:
-                done.append(proc.communicate(timeout=timeout))
-            except subprocess.TimeoutExpired:
-                pytest.fail(f"rank {rank} of {world} did not finish within "
-                            f"{timeout} s")
+        deadline = time.monotonic() + timeout
+        try:
+            for rank in range(world):
+                out = open(os.path.join(logs, f"{rank}.out"), "w+")
+                err = open(os.path.join(logs, f"{rank}.err"), "w+")
+                files.append((out, err))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, *argv(rank)], cwd=str(REPO),
+                    env=dict(os.environ, PYTHONPATH=str(REPO),
+                             CLOUD_TPU_NUM_PROCESSES=str(world),
+                             CLOUD_TPU_PROCESS_ID=str(rank), **(env or {})),
+                    stdout=out, stderr=err, text=True))
+            late = []
+            for rank, proc in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    late.append(rank)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        done = []
+        for proc, (out, err) in zip(procs, files):
+            out.seek(0)
+            err.seek(0)
+            done.append((proc.returncode, out.read(), err.read()))
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    for rank, (proc, (_, stderr)) in enumerate(zip(procs, done)):
-        assert proc.returncode == 0, f"rank {rank}: {stderr[-3000:]}"
+        for out, err in files:
+            out.close()
+            err.close()
+        shutil.rmtree(logs, ignore_errors=True)
+    if late:
+        pytest.fail(
+            f"ranks {late} of {world} not done {timeout} s after the call "
+            "began; every rank's last stderr:\n" + "\n".join(
+                f"--- rank {rank} (rc {rc}):\n{err[-2000:]}"
+                for rank, (rc, _, err) in enumerate(done)))
+    return done
+
+
+def run_ranks(script, world, *, timeout=180, files=None):
+    """``script`` on ``world`` gloo ranks, one JAX-free process each
+    (:func:`launch_ranks`: one deadline, ``timeout`` seconds, for the
+    whole call); returns each rank's ``OUT`` (a dict of JSON values).
+    ``files`` (a dict of numpy arrays) reaches every rank as ``IN``.  The
+    call's directory (rendezvous file, inputs) is removed afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    try:
+        prelude = RANK_PRELUDE
+        if files is not None:
+            np.savez(os.path.join(tmp, "in.npz"), **files)
+            prelude += ("IN = dict(np.load(sys.argv[4], "
+                        "allow_pickle=False))\n")
+        code = (prelude + script
+                + "\ntorch.distributed.destroy_process_group()\n"
+                "print('OUT=' + json.dumps(OUT))\n")
+        rdv = os.path.join(tmp, "rendezvous")
+        done = launch_ranks(
+            code, world, lambda rank: [rdv, str(world), str(rank),
+                                       os.path.join(tmp, "in.npz")],
+            timeout=timeout, env={"CLOUD_TPU_COORDINATOR": "127.0.0.1:0"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rank, (rc, _, stderr) in enumerate(done):
+        assert rc == 0, f"rank {rank}: {stderr[-3000:]}"
     return [json.loads([l for l in stdout.splitlines()
                         if l.startswith("OUT=")][-1][4:])
-            for stdout, _ in done]
+            for _, stdout, _ in done]

@@ -47,6 +47,7 @@ from cloud_tpu_torch.training import checkpoint, data, optimizers, trainer
 from cloud_tpu_torch.training.train import TrainState
 from cloud_tpu_torch.utils import faults
 from tests.helpers.torch_port import mnist_models
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -264,7 +264,7 @@ def ranks(tmp_path_factory):
     tokens = np.random.default_rng(0).integers(
         0, CFG.vocab_size, (8, 16)).astype(np.int64)
     outs = run_ranks(_RANKS, 2, files={"root": np.asarray(str(root)),
-                                       "tokens": tokens}, timeout=400)
+                                       "tokens": tokens})
     return root, outs
 
 

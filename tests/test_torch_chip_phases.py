@@ -33,6 +33,7 @@ import torch
 
 import chip_smoke
 from helpers import torch_tuner_resnet_example as worker
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

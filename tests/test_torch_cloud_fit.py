@@ -45,6 +45,7 @@ from cloud_tpu_torch.training import Trainer, checkpoint, optimizers
 from cloud_tpu_torch.training import data as data_lib
 from cloud_tpu_torch.training.trainer import Callback
 from helpers.torch_port import mnist_models, run_ranks
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -480,8 +481,7 @@ def two_ranks(tmp_path_factory):
             str(root / name), make_spec(), make_data(),
             validation_data=make_data(16, seed=3),
             fit_kwargs={"epochs": 2, "batch_size": 8})
-    outs = run_ranks(_RANKS, 2, files={"root": np.asarray(str(root))},
-                     timeout=300)
+    outs = run_ranks(_RANKS, 2, files={"root": np.asarray(str(root))})
     one = remote.run(str(root / "one"), device="cpu").history
     return root, outs, one
 

@@ -42,6 +42,7 @@ from cloud_tpu_torch.ops import dispatch
 from cloud_tpu_torch.training import (compile_cache, data, optimizers, train,
                                       trainer)
 from tests.helpers.torch_port import mnist_models
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -42,6 +42,7 @@ from cloud_tpu_torch.training import (data, optimizers, pipeline_io,
                                       preemption, trainer)
 from cloud_tpu_torch.training.checkpoint import CheckpointCallback
 from tests.helpers.torch_port import REPO, mnist_models
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

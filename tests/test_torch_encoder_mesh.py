@@ -38,6 +38,7 @@ from cloud_tpu.models import bert as jax_bert
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu.models import vit as jax_vit
 from helpers.torch_port import model_inputs, port_config, run_ranks
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -358,7 +359,7 @@ def test_training_under_a_mesh_matches(jax_side, tmp_path, name):
     outs = run_ranks(
         f"OUTDIR = {str(tmp_path)!r}\nSIZES = {sizes!r}\n"
         f"CASES = {cases!r}\n" + _RANK, world, files=jax_side["files"],
-        timeout=600)
+        timeout=120)
     for model in ("bert", "vit", "fused_ce"):
         if model not in cases:
             continue

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from cloud_tpu_torch.utils import local_rig
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -83,7 +84,7 @@ class TestGoldenWorkloads:
             _helper("torch_mnist_example_using_ctl.py"), device="cpu",
             num_processes=2, extra_env={
                 "MNIST_CTL_EPOCHS": "1",
-                "MNIST_CTL_SAVE_DIR": str(tmp_path)}))
+                "MNIST_CTL_SAVE_DIR": str(tmp_path)}, timeout=180))
         assert "epoch 0: loss=" in result.stdout
         saved = np.load(tmp_path / "params.npz")
         assert sorted(saved.files) == ["hidden/bias", "hidden/kernel",
@@ -99,7 +100,8 @@ class TestGoldenWorkloads:
         result = _ok(local_rig.run_bootstrap(
             _helper("torch_save_and_load.py"), device="cpu",
             num_processes=2,
-            extra_env={"SAVE_AND_LOAD_DIR": str(tmp_path / "ckpt")}))
+            extra_env={"SAVE_AND_LOAD_DIR": str(tmp_path / "ckpt")},
+            timeout=180))
         assert "resumed from step 4 -> 8" in result.stdout
         index = json.loads((tmp_path / "ckpt" / "4" / "index.json")
                            .read_text())

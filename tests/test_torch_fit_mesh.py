@@ -35,6 +35,7 @@ from cloud_tpu_torch.parallel import MeshSpec
 from cloud_tpu_torch.parallel.mesh import CANONICAL_AXES, Mesh
 from cloud_tpu_torch.training import data, optimizers, trainer
 from helpers.torch_port import mnist_models, resnet8_models, run_ranks
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -187,7 +188,7 @@ def ranks():
                 files[f"{name}.{prefix}{key}"] = value
     script = (f"MNIST_BATCH, RESNET_BATCH = {MNIST_BATCH}, {RESNET_BATCH}\n"
               + _RANKS)
-    return run_ranks(script, 2, files=files, timeout=400)
+    return run_ranks(script, 2, files=files)
 
 
 @pytest.mark.parametrize("arm", [("mnist", "dp", 1), ("mnist", "fsdp", 2),

@@ -34,6 +34,7 @@ from cloud_tpu_torch.training import (Trainer, checkpoint, data, optimizers,
 from cloud_tpu_torch.training.train import TrainState
 from helpers.torch_gcs_fake import DirectoryStorage
 from helpers.torch_port import run_ranks
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

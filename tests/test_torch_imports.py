@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "cloud_tpu_torch"

@@ -23,6 +23,7 @@ import torch
 
 from helpers.torch_launcher import (JAX, PORT, SIDES, as_data,
                                     dockerfile_as_data, error_of, mc)
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 from unit.fakes import RecordingSession
 
 torch.set_num_threads(1)

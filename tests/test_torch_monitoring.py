@@ -32,6 +32,7 @@ from cloud_tpu_torch import monitoring
 from cloud_tpu_torch.monitoring import exporter, metrics
 from cloud_tpu_torch.utils import api_client
 from unit.fakes import RecordingSession
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -249,7 +249,7 @@ def test_capture_records_launches_for_replays(monkeypatch):
         dispatch.count_launch("gn_fwd")
         thread = threading.Thread(target=worker)
         thread.start()
-        thread.join()
+        thread.join(timeout=60)
         streams.current = 0
         dispatch.count_launch("flash_fwd")
     assert record == {"gn_fwd": 2, "gn_bwd": 1}

@@ -34,6 +34,7 @@ from cloud_tpu.monitoring import profiler as jax_profiler
 from cloud_tpu.training import trainer as jax_trainer
 from cloud_tpu_torch.monitoring import profiler, tracing
 from cloud_tpu_torch.training import optimizers, train, trainer
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

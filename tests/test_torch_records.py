@@ -27,6 +27,7 @@ from cloud_tpu_torch.models import mnist
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch.training import (checkpoint, optimizers, records,
                                       trainer)
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,12 +38,17 @@ from cloud_tpu_torch.models import resnet
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.parallel import planner
 from cloud_tpu_torch.utils import local_rig
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(local_rig.REPO_ROOT)
 HELPERS = REPO / "tests" / "helpers"
 MNIST = str(HELPERS / "torch_mnist_example.py")
+#: Seconds each bootstrapped job may take (its ranks are killed after):
+#: a few times a loaded run's, and their sum over this file well under
+#: the whole suite's limit.
+RIG_TIMEOUT_S = 150
 JAX_MNIST = str(REPO / "tests" / "testdata" / "mnist_example_using_fit.py")
 
 #: History keys compared (epoch_seconds is a wall clock).
@@ -88,12 +93,14 @@ def test_submit_artifacts_then_bootstrap_trains_as_jax(tmp_path):
     # The JAX package's bootstrapped script on a 2-device plan (its rig:
     # 2 virtual CPU devices, the plan made over them).
     jax_result = jax_rig.run_bootstrap(
-        JAX_MNIST, n_devices=2, extra_env=_mnist_env(tmp_path / "jax"))
+        JAX_MNIST, n_devices=2, extra_env=_mnist_env(tmp_path / "jax"),
+        timeout=RIG_TIMEOUT_S)
     assert jax_result.returncode == 0, jax_result.stderr[-3000:]
     # The port's: 2 gloo ranks, the plan made over the job's processes.
     _ok(local_rig.run_bootstrap(
         MNIST, device="cpu", num_processes=2,
-        extra_env=_mnist_env(tmp_path / "port", params)))
+        extra_env=_mnist_env(tmp_path / "port", params),
+        timeout=RIG_TIMEOUT_S))
     want = json.loads((tmp_path / "jax" / "history.json").read_text())
     got = json.loads((tmp_path / "port" / "history.json").read_text())
     assert set(got) == set(want)
@@ -108,7 +115,8 @@ def test_bootstrap_monitoring_enabled_without_project_exits_cleanly(
     env = _mnist_env(tmp_path)
     env["CLOUD_TPU_MONITORING_ENABLED"] = "1"
     env.pop("CLOUD_TPU_MONITORING_PROJECT_ID", None)
-    result = local_rig.run_bootstrap(MNIST, device="cpu", extra_env=env)
+    result = local_rig.run_bootstrap(MNIST, device="cpu", extra_env=env,
+                                     timeout=RIG_TIMEOUT_S)
     _ok(result)
     assert "metrics exporter failed to start" in result.stderr
     assert np.isfinite(json.loads(
@@ -134,7 +142,8 @@ def test_notebook_entry_point_bootstrap(tmp_path):
     path = tmp_path / "mnist_example_using_fit.ipynb"
     path.write_text(json.dumps(nb))
     result = local_rig.run_bootstrap(
-        str(path), device="cpu", extra_env=_mnist_env(tmp_path / "out"))
+        str(path), device="cpu", extra_env=_mnist_env(tmp_path / "out"),
+        timeout=RIG_TIMEOUT_S)
     _ok(result)
     assert "NOTEBOOK DONE" in result.stdout
 
@@ -151,7 +160,8 @@ def test_records_streaming_workload_through_bootstrap(tmp_path):
     _ok(local_rig.run_bootstrap(
         entry, device="cpu", num_processes=2,
         extra_env={"RECORDS_EXAMPLE_DIR": str(tmp_path / "data"),
-                   "RECORDS_EXAMPLE_SAVE": str(tmp_path)}))
+                   "RECORDS_EXAMPLE_SAVE": str(tmp_path)},
+        timeout=RIG_TIMEOUT_S))
     history = json.loads((tmp_path / "history.json").read_text())
     assert history["loss"][-1] < history["loss"][0]
 
@@ -167,7 +177,8 @@ def test_within_script_contract_remote_half(tmp_path):
         ")\n"
         "print('TRAINED')\n"
     )
-    result = local_rig.run_bootstrap(str(script), device="cpu")
+    result = local_rig.run_bootstrap(str(script), device="cpu",
+                                     timeout=RIG_TIMEOUT_S)
     _ok(result)
     assert "TRAINED" in result.stdout
 

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 from cloud_tpu.utils import local_rig
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 MODULE = "cloud_tpu_torch.parallel.selfcheck"
 #: Each model-parallel mode's mesh on 4 ranks (size-1 axes left out).

@@ -12,7 +12,8 @@ gloo; several scenarios share a child:
   KV cache; prefix hits (copy and attach routes); chunked prefill; the
   batch scheduler; bench.py's ``serving_tp`` workload replayed (0 parity
   mismatches); a 6-head TINY at tp 3 (the vocabulary split unevenly);
-  the refusals that need a live slice; a follower killed mid-life failing
+  the KV handoff on a slice without a prefix cache refused with the
+  one-card engine's ``ValueError``; a follower killed mid-life failing
   the next request instead of hanging;
 * a caller's mesh over two gloo processes (rank 1 runs ``follow()``): the
   sharded forward's logits within 1e-4 of JAX ``apply``, the engine's
@@ -20,14 +21,14 @@ gloo; several scenarios share a child:
   ``dp`` mesh that is no serving slice.
 
 In-process: ``mesh_shape`` errors with the JAX engine's messages (heads,
-devices, ``mesh=`` with ``mesh_shape``), the refusals under a mesh, and
-``mesh_shape=(1, 1)`` as the one-card engine.
+devices, ``mesh=`` with ``mesh_shape``), the refusals under a mesh (``sp >
+1`` and an MoE model; the draft, the host tier, ``role=`` and depth 2
+reach the followers' spawn), and ``mesh_shape=(1, 1)`` as the one-card
+engine.
 """
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import jax
@@ -45,8 +46,8 @@ from cloud_tpu_torch.parallel import MeshSpec
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.serving import DraftConfig, ServeConfig, ServingEngine
 from helpers.torch_port import (
-    REPO,
     _PRELUDE,
+    launch_ranks,
     model_inputs,
     run_port_side,
     tie_free_rows,
@@ -168,14 +169,16 @@ with tracing.collecting() as col:
         res = [f.result(120) for f in futs]
         stats = eng.stats()
         traces = eng.chunk_traces
+        # The KV handoff runs on a slice (tests/test_torch_serving_slice_
+        # kv.py); without a prefix cache it is refused as on one card.
         refusals = []
         for call in (lambda: eng.submit(prompts("churn")[0],
                                         handoff_export=True),
                      lambda: eng.set_role("decode")):
             try:
                 call()
-            except NotImplementedError as exc:
-                refusals.append(str(exc))
+            except Exception as exc:  # noqa: BLE001 — recorded
+                refusals.append(f"{type(exc).__name__}: {exc}")
     report = TraceReport(col.events())
 for i, r in enumerate(res):
     OUT[f"churn/tokens/{i}"] = r.tokens
@@ -276,7 +279,8 @@ def test_spawned_slices_match_jax_generate(models, scenario, tmp_path):
     assert json.loads(str(out["churn/report"])) == ["2x1", 2, True]
     refusals = json.loads(str(out["churn/refusals"]))
     assert len(refusals) == 2 and all(
-        r.endswith("section A, item 6") for r in refusals)
+        r.startswith("ValueError: ") and "prefix_cache_blocks > 0" in r
+        for r in refusals), refusals
     assert out["prefix_xla/hits"].tolist() == [2, 0]
     assert out["prefix_pallas/hits"].tolist() == [2, 2]
     assert int(out["chunked/prefill_chunks"]) >= 8
@@ -296,7 +300,12 @@ from cloud_tpu_torch import bridge
 from cloud_tpu_torch.parallel import MeshSpec, distributed
 from cloud_tpu_torch.serving import ServeConfig, ServingEngine
 
-assert distributed.initialize_from_env(300, device="cpu")
+import datetime
+dist.init_process_group("gloo", init_method="file://" + sys.argv[3],
+                        world_size=2, rank=int(os.environ[
+                            "CLOUD_TPU_PROCESS_ID"]),
+                        timeout=datetime.timedelta(seconds=90))
+assert distributed.initialize_from_env(90, device="cpu")
 rank = distributed.process_index()
 cfg, params = port_model()
 mesh = MeshSpec({"tp": 2}).build(devices=["cpu", "cpu"])
@@ -328,12 +337,6 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def test_caller_mesh_two_processes_logits_tokens_and_follower_state(
         models, scenario, tmp_path):
     jax_cfg, params, _, _ = models
@@ -345,25 +348,16 @@ def test_caller_mesh_two_processes_logits_tokens_and_follower_state(
     for i, p in enumerate(prompts):
         inputs[f"prompt/{i}"] = p
     np.savez(tmp_path / "in.npz", **inputs)
-    code = _PRELUDE + _CALLER_RANK + "\nnp.savez(sys.argv[2], **OUT)\n"
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(tmp_path / "in.npz"),
-         str(tmp_path / f"out{rank}.npz")], cwd=str(REPO),
-        env=dict(os.environ, PYTHONPATH=str(REPO),
-                 CLOUD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                 CLOUD_TPU_NUM_PROCESSES="2",
-                 CLOUD_TPU_PROCESS_ID=str(rank)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for rank in range(2)]
-    try:
-        for proc in procs:
-            _, stderr = proc.communicate(timeout=400)
-            assert proc.returncode == 0, stderr[-3000:]
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
+    code = ("import os\n" + _PRELUDE + _CALLER_RANK
+            + "\nnp.savez(sys.argv[2], **OUT)\n")
+    # A rendezvous file of this call's own: no other call can meet it.
+    done = launch_ranks(
+        code, 2, lambda rank: [str(tmp_path / "in.npz"),
+                               str(tmp_path / f"out{rank}.npz"),
+                               str(tmp_path / "rendezvous")],
+        timeout=180, env={"CLOUD_TPU_COORDINATOR": "127.0.0.1:0"})
+    for rc, _, stderr in done:
+        assert rc == 0, stderr[-3000:]
     outs = [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(2)]
     want, _ = jax_tf.apply(params, jnp.asarray(tokens), jax_cfg)
     np.testing.assert_allclose(outs[0]["logits"], np.asarray(want),
@@ -427,12 +421,26 @@ def test_mesh_with_mesh_shape_is_the_jax_error(models, eight_cpu_devices):
         device="cpu", start=False)) == want
 
 
+class _Spawned(Exception):
+    """Raised in place of spawning a slice's followers."""
+
+
 @pytest.mark.parametrize("case", ["sp", "draft", "moe", "host tier",
                                   "role", "pipeline_depth"])
-def test_refusals_under_a_serving_mesh(models, eight_cpu_devices, case):
-    """What a slice of more than one rank does not run yet raises before
-    any follower starts, naming its ROADMAP.md item."""
+def test_refusals_under_a_serving_mesh(models, eight_cpu_devices,
+                                       monkeypatch, case):
+    """What a slice of more than one rank does not run yet (``sp > 1``,
+    item 6; an MoE model, item 3) raises before any follower starts,
+    naming its ROADMAP.md item; what it runs (a draft, the host tier,
+    ``role=``, depth 2; tests/test_torch_serving_slice*.py) gets as far
+    as spawning the followers."""
     _, _, cfg, tparams = models
+    from cloud_tpu_torch.serving import slice as slice_lib
+
+    def spawn(*args, **kwargs):
+        raise _Spawned
+
+    monkeypatch.setattr(slice_lib, "spawn_slice", spawn)
     kw = dict(mesh_shape=(2, 1), prompt_buckets=(8,))
     if case == "sp":
         kw["mesh_shape"] = (1, 2)
@@ -446,6 +454,11 @@ def test_refusals_under_a_serving_mesh(models, eight_cpu_devices, case):
         kw.update(prefix_cache_blocks=4, role="decode")
     else:
         kw["pipeline_depth"] = 2
+    if case not in ("sp", "moe"):
+        with pytest.raises(_Spawned):
+            ServingEngine(tparams, cfg, ServeConfig(**kw), device="cpu",
+                          start=False)
+        return
     item = "3" if case == "moe" else "6"
     with pytest.raises(NotImplementedError,
                        match=f"section A, item {item}$"):

@@ -42,6 +42,7 @@ from cloud_tpu_torch.models import bert, layers
 from cloud_tpu_torch.training import (check_durability, checkpoint, data,
                                       optimizers, pipeline_io, train, trainer)
 from tests.helpers.torch_port import bert_tiny_models
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

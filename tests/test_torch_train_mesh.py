@@ -58,6 +58,7 @@ from cloud_tpu.models import mnist as jax_mnist
 from cloud_tpu.models import transformer as jax_tf
 from cloud_tpu.training import train as jax_train
 from helpers.torch_port import model_inputs, run_ranks
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -752,23 +753,25 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
             {}, mesh=mesh, device="cpu"),
         "pipeline_io": lambda: pipeline_io.prefetch_windows(
             list, 2, mesh=mesh, device="cpu"),
-        "MoE under sp": lambda: transformer.loss_fn(
-            {}, {"tokens": np.zeros((1, 8), np.int64)},
-            cfg.scaled(moe=__import__(
-                "cloud_tpu_torch.models.moe", fromlist=["MoeConfig"]
-            ).MoeConfig(num_experts=4, top_k=2)),
-            mesh=_fake_mesh({"sp": 2})),
     }
     for what, call in calls.items():
         with pytest.raises(NotImplementedError, match="ROADMAP.md A") as got:
             call()
-        item = "A.3" if what == "MoE under sp" else "A.2"
-        assert item in str(got.value), (what, str(got.value))
+        assert "A.2" in str(got.value), (what, str(got.value))
+    # The MoE under sp is ported (tests/test_torch_moe_sp.py): its
+    # training context is made, with the sp block's layout.
+    from cloud_tpu_torch.models import moe
+    from cloud_tpu_torch.parallel import tensor_parallel
+    ctx = tensor_parallel.train_context(
+        _fake_mesh({"sp": 2}), cfg.scaled(
+            moe=moe.MoeConfig(num_experts=4, top_k=2), zigzag_sp=True))
+    assert ctx.zigzag and ctx.sp_size == 2
     # Checkpoints under a mesh are ported (tests/test_torch_checkpoint_
-    # sharded.py): under an installed {tp: 2} mesh a manager needs the
-    # state's layout (without one it cannot tell a shard from a replica
-    # and refuses), and with it saves and restores; a pipeline stage's
-    # block of layers stays refused.
+    # sharded.py, test_torch_checkpoint_pp.py): under an installed {tp: 2}
+    # mesh a manager needs the state's layout (without one it cannot tell
+    # a shard from a replica and refuses), and with it saves and
+    # restores; a pipeline stage's block of layers restores from a
+    # one-process save.
     state = train.create_sharded_state(None, lambda _: {"w": torch.ones(2)},
                                        sgd, device="cpu")
     bare = checkpoint.CheckpointManager(str(tmp_path / "bare"),
@@ -796,11 +799,14 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
         device="cpu")
     manager.save(1, layers)
     manager.wait()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        manager.restore(1, template=layers, layout=checkpoint.StateLayout(
-            mesh=pp, logical_axes={"layers": sharding.LayerStack(
-                [{"w": ("embed",)}] * 2)},
-            rules=sharding.DEFAULT_RULES.extended(layers="pp")))
+    stage = train.create_sharded_state(
+        None, lambda _: {"layers": [{"w": torch.zeros(2)}]}, sgd,
+        device="cpu")
+    restored = manager.restore(1, template=stage, layout=checkpoint.StateLayout(
+        mesh=pp, logical_axes={"layers": sharding.LayerStack(
+            [{"w": ("embed",)}] * 2)},
+        rules=sharding.DEFAULT_RULES.extended(layers="pp")))
+    assert torch.equal(restored.params["layers"][0]["w"], torch.ones(2))
     manager.close()
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.make_train_step(lm_loss, sgd, mesh=object())

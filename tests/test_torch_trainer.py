@@ -46,6 +46,7 @@ from cloud_tpu_torch.monitoring import metrics, tracing
 from cloud_tpu_torch.training import (checkpoint, data, optimizers,
                                       pipeline_io, train, trainer)
 from tests.helpers.torch_port import mnist_models, resnet8_models
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -59,6 +59,7 @@ from cloud_tpu_torch.utils.api_client import ApiError
 from helpers.torch_launcher import dockerfile_as_data
 from helpers.torch_port import mnist_models
 from helpers.torch_tuner_fakes import FakeSession, FakeTrainer
+from helpers.torch_sigterm import sigterm_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
