@@ -29,7 +29,10 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    dequantized beforehand), in event and device time, K5, K8 and K8q at
    a tp-2 rank's 6 heads (phase 2 (tp): q/k/v a strided view of a
    full-width projection, a grid born at 6 heads), timed the same way,
-   the ring's K5 folds and K6/K7 hops for every rank driven in one
+   K5 at the hop shapes of a prefill split over sp (phase 2 (sp): a
+   64-position block, diagonal causal and past, key-masked, 12 and 6
+   heads) and K8 at a (2, 2) rank's 6 heads on 3sp's grid, the ring's
+   K5 folds and K6/K7 hops for every rank driven in one
    process (phase 2 (ring): B=2 T=1024 at 12 and 6 heads, bf16 and f32,
    contiguous causal at n=2 and 4 with a left padding that empties whole
    blocks' rows, non-causal at n=2, zig-zag at n=2 and 4), assembled and
@@ -150,7 +153,14 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    tie-free requests plain and with kv_quant equal to ``generate()`` and
    the one-process engine, a cold prompt in two prefill chunks and a
    prefix hit equal to ``generate()``; each rank's K5, K8 and K8q
-   launches held to rank 0's stats);
+   launches held to rank 0's stats); then sequence-parallel serving and
+   an MoE on a slice (3sp: SMALL at (tp, sp) = (1, 2), bucket 128, each
+   prefill split into two 64-position blocks through the ring, in bf16
+   (matches counted) and f32 (equal to the one-process engine and
+   ``generate()``); the default MoE SMALL at (2, 1) and (1, 2) in f32
+   equal to the one-process MoE engine; SMALL at (2, 2) on four ranks;
+   each rank's K5 launches ``ring_launches`` a layer per split prefill
+   and its K8 launches held to rank 0's stats);
 4. trains ResNet-50 (CIFAR, batch 256, bf16) for 3 + 20 chained steps
    with SGD momentum, checks finite loss and grad norm and exactly 37 K1,
    16 K2, 37 K3 and 16 K4 launches per step; holds one f32 step on the
@@ -326,8 +336,8 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Once the kernels are timed (after
-phase 2c), phases 3f, 3v, 3x, 3m, 3tp, 6mesh, 6pp and 6enc run in side
-process 1 and 4r, 4k, 9r, 9m, 9t, 9f, 9g and 10g in side process 2
+phase 2c), phases 3f, 3v, 3x, 3m, 3tp, 3sp, 6mesh, 6pp and 6enc run in
+side process 1 and 4r, 4k, 9r, 9m, 9t, 9f, 9g and 10g in side process 2
 (``python3 chip_smoke.py --side <dir> <process>``, ``SIDE_PHASES``)
 beside phases 3 to 8v; each counts its launches from 0 in its own
 process, and their output is printed after phase 8v.  Any failed phase
@@ -7102,6 +7112,453 @@ def run_tp_engine(device, card):
 
 
 # ---------------------------------------------------------------------------
+# Phases 2 (sp) and 3sp: sequence-parallel serving and an MoE on a slice
+# ---------------------------------------------------------------------------
+
+#: Phase 3sp's slices: SMALL at (tp, sp) = (1, 2) with bucket 128 (the
+#: split prefill's blocks are 64 positions), the default MoE SMALL at
+#: (2, 1) and (1, 2), and SMALL at (2, 2) (four ranks); every rank on the
+#: one card over gloo.  Their requests: SP_REQUESTS prompts of 5..128
+#: tokens, SP_BUDGET new tokens each, tie-free in f32 (top-2 gap 1e-3);
+#: the MoE arms' MOE_SERVE["parity"] prompts tie-free at the bucket's
+#: width (an MoE layer routes by the prefill's width), the (2, 2) arm's
+#: first SP_WIDE_REQUESTS.  The bf16 arm's matches are counted, not held
+#: (bf16 rounding, as 3tp's).
+SP_REQUESTS, SP_BUDGET, SP_WIDE_REQUESTS = 8, 12, 2
+SP_BUCKET = 128
+SP_SERVE = {"max_new_tokens": 16, "prompt_buckets": (SP_BUCKET,),
+            "num_slots": NUM_SLOTS, "chunk_tokens": CHUNK}
+#: How long rank 0 waits for a follower's report.
+SP_TIMEOUT_S = 180
+#: Model of the sp phases (SMALL, or a narrower config in a CPU rehearsal).
+SP_MODEL = None
+#: Phase 3sp's arms, in the order every rank builds them: (name, (tp,
+#: sp), compute dtype, MoE).  The first four run on two ranks, the last
+#: on four.
+SP_ARMS = (("bf16 1x2", (1, 2), "bfloat16", False),
+           ("f32 1x2", (1, 2), "float32", False),
+           ("moe f32 2x1", (2, 1), "float32", True),
+           ("moe f32 1x2", (1, 2), "float32", True),
+           ("f32 2x2", (2, 2), "float32", False))
+
+
+def check_sp_kernels(device, card):
+    """K5 at the hop shapes of 3sp's split prefill (B=1, a 64-position
+    block at bucket 128 and sp 2, D=64): the diagonal hop (causal, the
+    block's key mask) and a past block (not causal, its key mask with
+    keys masked, as a prompt shorter than the block leaves it), at a
+    (1, 2) rank's 12 heads and a (2, 2) rank's 6; and K8 on 3sp's grid
+    (B=8, S=144, Tq=1) at a (2, 2) rank's 6 heads.  Each held against its
+    plain version (``check_close``, out and lse), the 12-head hops and
+    K8 then timed beside the plain version, SDPA and the bound, in event
+    and device time.  Returns one row per timed shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from cloud_tpu_torch.ops import flash_attention as fa
+    from cloud_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=device).manual_seed(27)
+    block = SP_BUCKET // 2
+    rows, errs = {}, {}
+    # The last block of a 100-token prompt: 36 valid keys; a past block of
+    # a 40-token prompt: 40.
+    masks = {"diagonal": (True, 36), "past": (False, 40)}
+    for heads in (HEADS, HEADS // 2):
+        for hop, (causal, valid) in masks.items():
+            mask = (torch.arange(block, device=device) < valid).to(
+                torch.int32)[None]
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[1]
+                q, k, v = (torch.randn((1, block, heads, HEAD_DIM),
+                                       generator=gen, device=device).to(dtype)
+                           for _ in range(3))
+                out, lse = fa._flash_kernel(q, k, v, causal=causal, mask=mask)
+                ref_out, ref_lse = fa._reference_with_lse(
+                    q, k, v, causal=causal, mask=mask)
+                torch.cuda.synchronize()
+                what = (f"K5 flash_fwd {name} {hop} hop T={block} "
+                        f"H={heads}")
+                err = max(check_close(what, out, ref_out, name),
+                          check_close(what + " lse", lse, ref_lse, name))
+                errs[f"flash_fwd {name}"] = max(
+                    errs.get(f"flash_fwd {name}", 0.0), err)
+                print(f"  {what}: max_abs_err={err:.3e} ok")
+                if dtype != torch.bfloat16 or heads != HEADS:
+                    continue
+                kernel, kernel_dev = event_and_device_ms(
+                    lambda: fa._flash_kernel(q, k, v, causal=causal,
+                                             mask=mask))
+                plain, plain_dev = event_and_device_ms(
+                    lambda: fa._reference_with_lse(q, k, v, causal=causal,
+                                                   mask=mask))
+                allowed = mask[:, None, None, :] != 0
+                if causal:
+                    allowed = allowed & torch.ones(
+                        (block, block), dtype=torch.bool,
+                        device=device).tril()
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                library, library_dev = event_and_device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=allowed))
+                nbytes = (4 * q.numel() * 2 + mask.numel() * 4
+                          + heads * block * 4)
+                pairs = (sum(min(i + 1, valid) for i in range(block))
+                         if causal else block * valid)
+                b_ms, b_by = bound_ms(nbytes, 4 * heads * HEAD_DIM * pairs,
+                                      "bfloat16")
+                rows[f"flash_fwd {hop}"] = {
+                    "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+                    "plain_device_ms": plain_dev, "library_ms": library,
+                    "library_device_ms": library_dev, "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "shape": f"{hop} hop B=1 T={block} H={heads} "
+                             f"D={HEAD_DIM} bf16, {valid} valid keys"}
+    heads = HEADS // 2
+    s = SP_BUCKET + SP_SERVE["max_new_tokens"]
+    lens = np.random.default_rng(2).integers(6, s + 1, NUM_SLOTS)
+    cur_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    keys = int(lens.sum())
+    table = torch.full((NUM_SLOTS, -(-s // 16)), -1, dtype=torch.int32,
+                       device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        slot = {n: torch.randn((NUM_SLOTS, s, heads, HEAD_DIM), generator=gen,
+                               device=device).to(dtype) for n in ("k", "v")}
+        q = torch.randn((NUM_SLOTS, 1, heads, HEAD_DIM), generator=gen,
+                        device=device).to(dtype)
+        out = pa._paged_kernel(q, slot, cur_len, None, table)
+        ref = pa._reference(q, slot, cur_len, None, table)
+        torch.cuda.synchronize()
+        err = check_close(f"K8 paged_attention {name} B={NUM_SLOTS} S={s} "
+                          f"H={heads}", out, ref, name)
+        errs[f"paged_attention {name}"] = err
+        print(f"  K8 paged_attention {name} B={NUM_SLOTS} S={s} H={heads}: "
+              f"max_abs_err={err:.3e} ok")
+        if dtype != torch.bfloat16:
+            continue
+        kernel, kernel_dev = event_and_device_ms(
+            lambda: pa._paged_kernel(q, slot, cur_len, None, table), iters=50)
+        plain, plain_dev = event_and_device_ms(
+            lambda: pa._reference(q, slot, cur_len, None, table))
+        library, library_dev = event_and_device_ms(
+            _sdpa_decode(q, slot["k"], slot["v"], cur_len), iters=50)
+        nbytes = (keys * 2 * heads * HEAD_DIM * 2 + 2 * q.numel() * 2
+                  + NUM_SLOTS * 4 + table.numel() * 4)
+        b_ms, b_by = bound_ms(nbytes, 4 * keys * heads * HEAD_DIM,
+                              "bfloat16")
+        rows["paged_attention"] = {
+            "ms": kernel, "device_ms": kernel_dev, "plain_ms": plain,
+            "plain_device_ms": plain_dev, "library_ms": library,
+            "library_device_ms": library_dev, "bound_ms": b_ms,
+            "bound_by": b_by, "live_keys": keys,
+            "shape": f"B={NUM_SLOTS} S={s} Tq=1 H={heads} D={HEAD_DIM} bf16 "
+                     f"K/V, {keys} live keys"}
+    for kname, row in rows.items():
+        print(f"  {kname} ({row['shape']}): kernel {row['ms']:.4f} ms "
+              f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+              f"({row['plain_device_ms']:.4f}), sdpa "
+              f"{row['library_ms']:.4f} ({row['library_device_ms']:.4f}), "
+              f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) [{card}]")
+    return {"rows": rows, "max_abs_err": errs}
+
+
+def _sp_models(device):
+    """3sp's dense and MoE models (``(cfg, params)`` each, cfg in bf16),
+    weights from seed 0 rounded to bf16 values, made alike in every
+    rank's process."""
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.models.moe import MoeConfig
+
+    dense = SP_MODEL or transformer.SMALL
+    return {False: _tp_model(device, dense),
+            True: _tp_model(device, dense.scaled(moe=MoeConfig()))}
+
+
+def _sp_engine(models, arm, device, mesh):
+    """Arm ``arm``'s engine over ``mesh`` (every rank builds it alike)."""
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+
+    _, _, dtype_name, moe = arm
+    cfg, params = models[moe]
+    return ServingEngine(params, _tp_config(cfg, dtype_name),
+                         ServeConfig(**SP_SERVE), mesh=mesh, device=device)
+
+
+def _sp_mesh(arm, device, world):
+    from cloud_tpu_torch.parallel import MeshSpec
+
+    tp, sp = arm[1]
+    return MeshSpec({"sp": sp, "tp": tp}).build(devices=[device] * world,
+                                                backend="gloo")
+
+
+def _sp_follower(port, rank, world, device_name, model, arms, queue,
+                 setup=None):
+    """A follower of phase 3sp's slices, in a child process: the same
+    weights, the engines of ``arms`` in the same order as rank 0, each
+    running ``follow()`` until rank 0 closes it; after each, its own
+    launch counts on ``queue`` (an error's repr if it fails).  ``setup``
+    (an importable function, a CPU rehearsal's patches) runs first."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from cloud_tpu_torch.ops import dispatch
+
+    global SP_MODEL
+    if setup is not None:
+        setup()
+    SP_MODEL = model
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    timeout = datetime.timedelta(seconds=SP_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, world, False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        models = _sp_models(device)
+        for arm in arms:
+            mesh = _sp_mesh(arm, device, world)
+            dispatch.reset_launch_counts()
+            _sp_engine(models, arm, device, mesh).follow()
+            queue.put(dispatch.launch_counts(QUANT_SERVING_KERNELS))
+    except BaseException as exc:  # noqa: BLE001 — reported to rank 0
+        queue.put(repr(exc))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_counts_check(what, counts, layers_n, stats, sp, sp_index):
+    """A rank's launches against rank 0's engine record (counted from the
+    engine's construction): K5 once a layer per one-shot prefill run whole
+    and ``ring_launches`` times a layer per prefill split over sp (1 on
+    the first block's rank, 2 on the second's at sp 2); K8 as on one card
+    (every sp member decodes the whole cache)."""
+    split = stats["sp_prefills"]
+    flash = layers_n * (stats["oneshot_inserts"] + stats["batches"] - split
+                        + ring_launches(sp, sp_index, causal=True,
+                                        zigzag=False) * split)
+    paged = layers_n * (stats["prefill_chunks"] + CHUNK * stats["chunks"]
+                        + stats["batch_decode_steps"])
+    want = {"flash_fwd": flash, "paged_attention": paged,
+            "paged_attention_int8": 0}
+    if counts != want or not flash or not paged:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"from the engine's stats")
+
+
+def _sp_prompts(generation, models, device):
+    """The dense arms' SP_REQUESTS tie-free prompts and the MoE arms'."""
+    cfg, params = models[False]
+    cfg32 = _tp_config(cfg, "float32")
+    picks = []
+    for prompt, _ in _requests(cfg32.vocab_size, 40, seed=41):
+        if len(prompt) > SP_BUCKET:
+            continue
+        gaps, _ = _greedy_gaps(generation, params, prompt, SP_BUDGET, cfg32,
+                               device, kv_quant=False)
+        if min(gaps) >= 1e-3:
+            picks.append(prompt)
+        if len(picks) == SP_REQUESTS:
+            break
+    else:
+        raise AssertionError(f"only {len(picks)} tie-free prompts")
+    mcfg, mparams = models[True]
+    moe_picks = _moe_picks(
+        generation, mparams, _tp_config(mcfg, "float32"), device,
+        [(p, SP_BUDGET) for p, _ in _moe_requests(mcfg.vocab_size, 24,
+                                                  seed=42)],
+        kv_quant=False)
+    return picks, [p for p, _ in moe_picks]
+
+
+def _sp_references(generation, models, device, prompts, moe_prompts):
+    """One process's tokens for every arm's prompts: the plain engine in
+    bf16 and f32 (f32 also held to ``generate()``), the MoE engine in f32
+    (one request at a time, each prompt at the bucket's width)."""
+    import torch
+
+    from cloud_tpu_torch.serving import ServeConfig, ServingEngine
+
+    refs = {}
+    cfg, params = models[False]
+    for dtype_name in ("bfloat16", "float32"):
+        with ServingEngine(params, _tp_config(cfg, dtype_name),
+                           ServeConfig(**SP_SERVE), device=device) as engine:
+            results, wall = _serve_tp_arm(engine, prompts)
+        refs[dtype_name] = ([r.tokens for r in results],
+                            sum(r.num_generated for r in results) / wall)
+    cfg32 = _tp_config(cfg, "float32")
+    for prompt, got in zip(prompts, refs["float32"][0]):
+        want = generation.generate(
+            params, torch.from_numpy(prompt)[None], [len(prompt)], cfg32,
+            max_new_tokens=SP_BUDGET, device=device)["tokens"][0]
+        if not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(f"3sp: the one-process f32 engine != "
+                                 f"generate() for a {len(prompt)}-token "
+                                 f"prompt")
+    mcfg, mparams = models[True]
+    with ServingEngine(mparams, _tp_config(mcfg, "float32"),
+                       ServeConfig(**SP_SERVE), device=device) as engine:
+        refs["moe"] = [r.tokens for r in _serve_in_turn(
+            engine, moe_prompts, SP_BUDGET)]
+    return refs
+
+
+def _sp_arm(engine, arm, prompts, moe_prompts):
+    """Rank 0's requests of an arm: returns (results, tokens/s or None)."""
+    name = arm[0]
+    if name.startswith("moe"):
+        return _serve_in_turn(engine, moe_prompts, SP_BUDGET), None
+    if name == "f32 2x2":
+        futures = [engine.submit(p, max_new_tokens=SP_BUDGET)
+                   for p in prompts[:SP_WIDE_REQUESTS]]
+        return [f.result(timeout=600) for f in futures], None
+    results, wall = _serve_tp_arm(engine, prompts)
+    return results, sum(r.num_generated for r in results) / wall
+
+
+def _sp_group(device, world, arms, models, prompts, moe_prompts, refs, out,
+              setup=None):
+    """One process group of ``world`` ranks on the card: rank 0 here,
+    ranks 1.. spawned children (``_sp_follower``); every arm of ``arms``
+    served by rank 0, its tokens held (bf16 counted), every rank's
+    launches held to rank 0's stats.  Fills ``out``."""
+    import datetime
+    import multiprocessing
+    import queue as queue_lib
+
+    import torch.distributed as dist
+
+    from cloud_tpu_torch.ops import dispatch
+
+    timeout = datetime.timedelta(seconds=SP_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", 0, world, True, wait_for_workers=False,
+                          timeout=timeout)
+    ctx = multiprocessing.get_context("spawn")
+    reports = [ctx.Queue() for _ in range(world)]
+    children = [ctx.Process(target=_sp_follower, daemon=True,
+                            args=(store.port, rank, world, str(device),
+                                  SP_MODEL, arms, reports[rank], setup))
+                for rank in range(1, world)]
+    for child in children:
+        child.start()
+    try:
+        dist.init_process_group("gloo", store=store, rank=0, world_size=world,
+                                timeout=timeout)
+        for arm in arms:
+            name, (tp, sp), dtype_name, moe = arm
+            mesh = _sp_mesh(arm, device, world)
+            dispatch.reset_launch_counts()
+            with _sp_engine(models, arm, device, mesh) as engine:
+                results, rate = _sp_arm(engine, arm, prompts, moe_prompts)
+                stats, health = engine.stats(), engine.health()
+            counts = [dispatch.launch_counts(QUANT_SERVING_KERNELS)]
+            for rank in range(1, world):
+                try:
+                    theirs = reports[rank].get(timeout=SP_TIMEOUT_S)
+                except queue_lib.Empty:
+                    raise AssertionError(
+                        f"rank {rank} sent no launch counts for {name} in "
+                        f"{SP_TIMEOUT_S} s") from None
+                if isinstance(theirs, str):
+                    raise AssertionError(f"rank {rank} failed in {name}: "
+                                         f"{theirs}")
+                counts.append(theirs)
+            layers_n = models[moe][0].num_layers
+            for rank, got in enumerate(counts):
+                _sp_counts_check(f"3sp {name} rank {rank}", got, layers_n,
+                                 stats, sp, rank // tp)
+            if (health["slice_shape"] != (tp, sp)
+                    or stats["slice_chips"] != tp * sp):
+                raise AssertionError(f"{name}: slice {health['slice_shape']}"
+                                     f" / {stats['slice_chips']} chips")
+            split = stats["sp_prefills"]
+            if split != (stats["oneshot_inserts"] if sp > 1 else 0) or (
+                    stats["sp_whole_prefills"]):
+                raise AssertionError(
+                    f"3sp {name}: {split} split and "
+                    f"{stats['sp_whole_prefills']} whole prefills of "
+                    f"{stats['oneshot_inserts']} inserts")
+            want = (refs["moe"] if moe else
+                    refs[dtype_name][0][:len(results)])
+            same = sum(np.array_equal(r.tokens, w)
+                       for r, w in zip(results, want))
+            out["launches_by_arm"][name] = {
+                n: sum(c[n] for c in counts) for n in QUANT_SERVING_KERNELS}
+            out["arms"][name] = {
+                "requests": len(results), "same_as_one_process": int(same),
+                "sp_prefills": split, "tokens_per_s": rate,
+                "launches_per_rank": counts}
+            if dtype_name == "float32" and same != len(results):
+                raise AssertionError(
+                    f"3sp {name}: {same}/{len(results)} requests "
+                    f"token-identical to the one-process engine")
+            print(f"  {name}: {same}/{len(results)} requests token-identical "
+                  f"to the one-process engine"
+                  + (" (counted, not held: bf16 rounding)"
+                     if dtype_name == "bfloat16" else
+                     " and generate()" if not moe else
+                     " (MoE, prompts at the bucket's width)")
+                  + f"; {split} prefills split over sp; launches per rank "
+                  f"{counts} as rank 0's stats imply; slice "
+                  f"{health['slice_shape']}"
+                  + (f"; {rate:.1f} tok/s against one process "
+                     f"{refs[dtype_name][1]:.1f}" if rate else ""))
+        for child in children:
+            child.join(SP_TIMEOUT_S)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for child in children:
+            if child.is_alive():
+                child.kill()
+                child.join(10)
+    for rank, child in enumerate(children, start=1):
+        if child.exitcode != 0:
+            raise AssertionError(f"rank {rank} exited with code "
+                                 f"{child.exitcode}")
+
+
+def run_sp_engine(device, card, setup=None):
+    """3sp: sequence-parallel serving and an MoE on a serving slice, rank 0
+    here and the other ranks spawned children, all on ``device`` over gloo
+    (``mesh=`` a MeshSpec over ``{sp, tp}``).  SMALL at (1, 2): the 8
+    prompts (bucket 128, each one-shot prefill split into two 64-position
+    blocks through the ring) in bf16 (matches with one process counted,
+    tokens/s) and f32 (each request equal to the one-process engine's and
+    ``generate()``'s); the default MoE SMALL at (2, 1) and (1, 2) in f32
+    (4 prompts one at a time, equal to the one-process MoE engine's at the
+    bucket's width); SMALL at (2, 2) on four ranks in f32 (2 requests).
+    Each rank's K5 and K8 launches equal what rank 0's ``stats()``
+    implies: K5 ``ring_launches`` times a layer per split prefill on the
+    rank's sp block.  ``setup`` (an importable function) runs first in
+    every spawned rank (a CPU rehearsal's patches)."""
+    from cloud_tpu_torch.models import generation
+
+    models = _sp_models(device)
+    prompts, moe_prompts = _sp_prompts(generation, models, device)
+    refs = _sp_references(generation, models, device, prompts, moe_prompts)
+    out = {"arms": {}, "launches_by_arm": {}}
+    for world in (2, 4):
+        _sp_group(device, world, [a for a in SP_ARMS
+                                  if a[1][0] * a[1][1] == world],
+                  models, prompts, moe_prompts, refs, out, setup)
+    by_arm = out["launches_by_arm"].values()
+    out["launches"] = {n: sum(arm[n] for arm in by_arm)
+                       for n in QUANT_SERVING_KERNELS}
+    out["one_process_tokens_per_s"] = {k: refs[k][1]
+                                       for k in ("bfloat16", "float32")}
+    print(f"  3sp launches over every rank: {out['launches']} [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 2 (ring) and 6mesh: training under a mesh
 # ---------------------------------------------------------------------------
 
@@ -9556,6 +10013,11 @@ SIDE_PHASES = (
      "prefill, a head-sharded and a replicated draft, the host tier, "
      "depth 2, the KV handoff each way, a fleet of one slice); the mesh "
      "path at tp 1", "tp engine", "run_tp_engine", True, 1),
+    ("phase 3sp: sequence-parallel serving and an MoE on a slice, ranks on "
+     "the card over gloo (SMALL at (1, 2) in bf16 and f32, bucket 128 split "
+     "into two blocks through the ring; the default MoE SMALL at (2, 1) and "
+     "(1, 2) in f32; SMALL at (2, 2) on four ranks in f32)", "sp engine",
+     "run_sp_engine", True, 1),
     ("phase 4r: exactly-once resume, the kill -9 drill and the non-finite "
      "guard, f32 ResNet-50 CIFAR b8", "exactly-once", "check_exactly_once", False, 2),
     ("phase 4k: a cold and a warm process through one "
@@ -9818,6 +10280,10 @@ def _main() -> int:
         ("phase 2 (tp): K5, K8 and K8q at a tp-2 rank's head count (6 of "
          "SMALL's 12, heads a strided view of a full-width projection)",
          "tp kernel check", lambda: check_tp_kernels(device, card), True),
+        ("phase 2 (sp): K5 at the split prefill's hop shapes (a 64-position "
+         "block, diagonal causal and past, key-masked; 12 and 6 heads) and "
+         "K8 at a (2, 2) rank's 6 heads on 3sp's grid",
+         "sp kernel check", lambda: check_sp_kernels(device, card), True),
         ("phase 2 (ring): the ring's K5 folds and K6/K7 hops for every "
          "rank (n=2/4: causal with empty blocks, non-causal, zig-zag), "
          "assembled, against one whole-sequence call and the plain version",
@@ -10032,8 +10498,8 @@ def _main() -> int:
         side = _SIDE.finish(script_start + SIDE_DEADLINE_S)
     except Exception as exc:  # noqa: BLE001
         return fail(f"side processes: {exc!r}", "the side processes")
-    for what in ("tp engine", "fleet", "fleet sweep", "fleet disagg",
-                 "moe engine"):
+    for what in ("tp engine", "sp engine", "fleet", "fleet sweep",
+                 "fleet disagg", "moe engine"):
         results[what] = side[what]
     exact, cold = side["exactly-once"], side["cold start"]
     front_door, exporter_run = side["front door"], side["exporter"]
@@ -10061,6 +10527,7 @@ def _main() -> int:
     chunks = results["paged chunk check"]
     verify = results["paged verify check"]
     tp_kernels = results["tp kernel check"]
+    sp_kernels = results["sp kernel check"]
     ring_check = results["ring check"]
     pp_kernels = results["pp kernel check"]
     enc_kernels = results["enc kernel check"]
@@ -10069,6 +10536,7 @@ def _main() -> int:
                            ("float32", "max_abs_err_f32")):
             for errs in (chunks["max_abs_err"], verify["max_abs_err"],
                          tp_kernels["max_abs_err"],
+                         sp_kernels["max_abs_err"],
                          ring_check["max_abs_err"],
                          pp_kernels["max_abs_err"],
                          enc_kernels["max_abs_err"]):
@@ -10089,8 +10557,9 @@ def _main() -> int:
                "fleet sweep": results["fleet sweep"],
                "fleet disagg": results["fleet disagg"],
                "moe engine": results["moe engine"],
-               # Both ranks of the tp-2 slice.
-               "tp engine": results["tp engine"]}
+               # Both ranks of the tp-2 slice; every rank of 3sp's.
+               "tp engine": results["tp engine"],
+               "sp engine": results["sp engine"]}
     # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v),
     # under a mesh (6mesh, 6pp and 6enc, both ranks) and in the golden
     # workloads (10g: generate_text's training and decoding, K8 and K8q
@@ -10223,6 +10692,9 @@ def _main() -> int:
                               for name, arm in pp_run["arms"].items()},
         "engine_tp2": {k: v for k, v in results["tp engine"].items()
                        if k != "launches"},
+        "sp_rank_kernels": sp_kernels["rows"],
+        "engine_sp": {k: v for k, v in results["sp engine"].items()
+                      if k != "launches"},
         "moe_lm_b4xT1024": moe_lm,
         "remat_dots": dots,
         "vit_b16_b128": {k: v for k, v in vit_run.items()

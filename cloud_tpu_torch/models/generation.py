@@ -37,7 +37,17 @@ Tensor parallelism: params cut to one rank's shard
 ``params["tp"]``, and every program then runs the rank's heads (a cache
 of ``H / tp`` heads, ``init_slot_cache(..., tp=)``), sums the row-split
 layers over ``tp`` and gathers the logits before sampling, so every rank
-samples the same tokens from the same logits.
+samples the same tokens from the same logits.  A slice that also spans
+``sp`` (``TensorParallel.sp_size`` > 1) holds the same shard and the
+whole cache on every ``sp`` member and runs every program whole there,
+except a one-shot prefill (:func:`_prefill_forward`: an insert, a batch,
+a draft's prefill) of a width ``sp`` divides: each member embeds,
+projects and runs the MLP on its contiguous block of the prompt, attends
+through ``parallel.ring_attention`` (K5 once per hop that has work) and
+gathers every layer's K/V over ``sp`` before they are written, and the
+next-token logits come from the member holding the last prompt position
+(a sum with zeros).  Other widths run whole on every member; no program
+pads the sequence (an MoE layer's capacity follows the width).
 
 Randomness comes from an explicit ``torch.Generator``; the JAX package's
 ``jax.random`` bits are not reproduced, so sampled runs agree with it in
@@ -57,7 +67,8 @@ from cloud_tpu_torch.models import layers, quantization, transformer
 from cloud_tpu_torch.models import moe as moe_lib
 from cloud_tpu_torch.ops import flash_attention as flash_lib
 from cloud_tpu_torch.ops import paged_attention as paged_lib
-from cloud_tpu_torch.parallel import collectives
+from cloud_tpu_torch.parallel import collectives, ring_attention
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = -1e30
 
@@ -221,10 +232,13 @@ def prepare_params(params, config):
 
 def _mlp(layer_params, y, config, tp=None):
     """The layer's MLP: dense SwiGLU (hidden units split under ``tp``),
-    or the MoE MLP (its auxiliary loss dropped), routed at the call's
-    ``T`` as the JAX package routes it."""
+    or the MoE MLP (its auxiliary loss dropped; each expert's hidden
+    units split under ``tp``), routed at the call's ``T`` as the JAX
+    package routes it (a split prefill's block as part of the whole
+    width)."""
     if config.moe is not None:
-        return moe_lib.moe_mlp_apply(layer_params["mlp"], y, config.moe)[0]
+        return moe_lib.moe_mlp_apply(layer_params["mlp"], y, config.moe,
+                                     ctx=tp, aux=False)[0]
     return layers.mlp_block_apply(layer_params["mlp"], y, tp=tp)
 
 
@@ -272,13 +286,19 @@ def _decode_layer(layer_params, x, cache_l, cur_len, config, write_pos=None,
 
 def _prefill_layer(layer_params, x, positions, prompt_mask, config, tp=None):
     """One block on the prompt buffer ``[B, T, D]``: causal flash
-    attention with the padding mask key-side; returns the block's k/v."""
+    attention with the padding mask key-side; returns the block's k/v.
+    Under a split prefill (``tp.seq_split``) ``x`` is the rank's ``sp``
+    block and attention runs the causal ring over the blocks."""
     b, t, _ = x.shape
     y = layers.rmsnorm_apply(layer_params["ln1"], x)
     q, k, v = transformer.qkv_project(layer_params["att"], y, positions,
                                       config)
-    attended = flash_lib.flash_attention(q, k, v, causal=True,
-                                         mask=prompt_mask)
+    if tp is not None and tp.seq_split:
+        attended = ring_attention.ring_attention(
+            q, k, v, causal=True, mask=prompt_mask, mesh=tp.mesh)
+    else:
+        attended = flash_lib.flash_attention(q, k, v, causal=True,
+                                             mask=prompt_mask)
     x = x + layers.row_parallel_dense(layer_params["att"]["out"],
                                       attended.reshape(b, t, -1), tp)
     y = layers.rmsnorm_apply(layer_params["ln2"], x)
@@ -293,12 +313,16 @@ def _final_logits(params, x, config):
 def _prefill_forward(params, prompt_tokens, prompt_lens, config):
     """The prompt forward pass: per-layer k/v lists (each ``[B, T, H,
     hd]``) and the next-token logits ``[B, V]`` at each row's last real
-    prompt position."""
+    prompt position.  On a slice whose ``sp`` divides ``T`` the pass runs
+    split over ``sp`` (:func:`_split_prefill_forward`)."""
     b, t_prompt = prompt_tokens.shape
     device = prompt_tokens.device
     positions = torch.arange(t_prompt, device=device).expand(b, t_prompt)
     prompt_mask = (positions < prompt_lens[:, None]).to(torch.int32)
     tp = params.get("tp")
+    if tp is not None and tp.splits_seq(t_prompt):
+        return _split_prefill_forward(params, prompt_tokens, prompt_lens,
+                                      positions, prompt_mask, config, tp)
     x = layers.embedding_apply(params["embed"], prompt_tokens,
                                dtype=config.dtype, tp=tp)
     x = x * math.sqrt(config.dim)
@@ -311,6 +335,43 @@ def _prefill_forward(params, prompt_tokens, prompt_lens, config):
     last_x = x[torch.arange(b, device=device), prompt_lens.long() - 1]
     logits0 = _final_logits(params, last_x[:, None], config)[:, 0]
     return ks, vs, logits0
+
+
+def _split_prefill_forward(params, prompt_tokens, prompt_lens, positions,
+                           prompt_mask, config, tp):
+    """:func:`_prefill_forward` split over ``sp``: this rank runs its
+    contiguous block ``tp.seq_bounds(T)`` of the prompt through every
+    layer (the ring over the blocks, an MoE layer routing the block as
+    part of the whole width), then gathers every layer's K/V over ``sp``
+    (the cache is replicated over ``sp``) and sums each row's last
+    position's activation over ``sp`` (the rank holding it gives the row,
+    the others zeros: exact) before the logits.  Every rank issues the
+    same collectives in the same order, whatever its block."""
+    b, t_prompt = prompt_tokens.shape
+    start, stop = tp.seq_bounds(t_prompt)
+    block = dataclasses.replace(tp, seq_split=True)
+    x = layers.embedding_apply(params["embed"], prompt_tokens[:, start:stop],
+                               dtype=config.dtype, tp=tp)
+    x = x * math.sqrt(config.dim)
+    ks, vs = [], []
+    for layer_params in params["layers"]:
+        x, k, v = _prefill_layer(layer_params, x, positions[:, start:stop],
+                                 prompt_mask[:, start:stop], config, block)
+        ks.append(k)
+        vs.append(v)
+    kv = collectives.all_gather(  # [2, L, B, T, H, hd]
+        torch.stack([torch.stack(ks), torch.stack(vs)]), mesh_lib.AXIS_SP,
+        gather_dim=3, mesh=tp.mesh)
+    last = prompt_lens.long() - 1
+    mine = (last >= start) & (last < stop)
+    rows = torch.arange(b, device=x.device)
+    last_x = torch.where(mine[:, None],
+                         x[rows, (last - start).clamp(0, stop - start - 1)],
+                         torch.zeros((), dtype=x.dtype, device=x.device))
+    last_x = collectives.all_reduce_sum(last_x, mesh_lib.AXIS_SP,
+                                        mesh=tp.mesh)
+    logits0 = _final_logits(params, last_x[:, None], config)[:, 0]
+    return list(kv[0]), list(kv[1]), logits0
 
 
 def _write_prefill(cache, k_pref, v_pref, row0: int, config):
@@ -402,8 +463,6 @@ def _check_inference_supported(config, rules, mesh, what: str):
     """The inference entry points' guard, as the JAX package's: a
     pipelined (pp) or zig-zag layout is training-only.  ``mesh`` None
     reads the installed global mesh."""
-    from cloud_tpu_torch.parallel import mesh as mesh_lib
-
     mesh = mesh if mesh is not None else mesh_lib.get_global_mesh()
     if transformer._is_pipelined(config, rules, mesh):
         raise ValueError(
@@ -554,7 +613,9 @@ def insert_slot_program(params, cache, state, prompt_tokens, prompt_len,
     """Prefill one request (``prompt_tokens [1, bucket_len]``) into row
     ``slot`` of the grid: its k/v land in the slot's cache row (in place),
     its first token is sampled from the prefill logits, and the slot state
-    is armed.  Returns ``(cache, state, first_token)``."""
+    is armed.  On a slice whose ``sp`` divides ``bucket_len`` the prefill
+    runs split over ``sp`` (:func:`_split_prefill_forward`), else whole on
+    every ``sp`` member.  Returns ``(cache, state, first_token)``."""
     with torch.no_grad():
         t_prompt = prompt_tokens.shape[1]
         prompt_len = max(1, min(int(prompt_len), t_prompt))
@@ -1038,8 +1099,9 @@ def draft_prefill_slot_program(params, cache, prompt_tokens, prompt_len,
     """Prefill one request's prompt (``[1, bucket_len]``) into row ``slot``
     of the draft model's cache: :func:`insert_slot_program` without the
     sampling (the first token comes from the target).  Always a one-shot
-    flash-attention prefill of the whole prompt, whatever the target side
-    did (a prefix hit, chunks).  Returns the cache."""
+    flash-attention prefill of the whole prompt (split over ``sp`` as
+    :func:`insert_slot_program`'s, for a head-sharded draft), whatever the
+    target side did (a prefix hit, chunks).  Returns the cache."""
     with torch.no_grad():
         t_prompt = prompt_tokens.shape[1]
         prompt_len = max(1, min(int(prompt_len), t_prompt))

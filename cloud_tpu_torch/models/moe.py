@@ -11,7 +11,10 @@ stacked SwiGLU experts and the combine are plain products
 kernel.
 
 On a training mesh (``ctx``) the experts split over ``ep`` and the
-auxiliary loss is the global batch's (:func:`moe_mlp_apply`).
+auxiliary loss is the global batch's (:func:`moe_mlp_apply`); on a
+serving slice (a ``TensorParallel`` ``ctx``) each expert's hidden units
+split over ``tp``, a split prefill routes its ``sp`` block as part of
+the whole sequence, and the auxiliary loss is not computed.
 
 ``C`` is set by the call's ``T`` (:func:`_capacity`), so a prompt routed
 through a prefill at a bucket's width, a prefill chunk or a speculative
@@ -27,7 +30,7 @@ the two give the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,10 +76,11 @@ def _top_k(gates, k: int):
     return values[..., :k], idx[..., :k]
 
 
-def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None, aux: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Apply the MoE MLP to ``x [B, T, D]``; returns ``(out [B, T, D],
-    aux)``, ``aux`` the f32 load-balancing loss (plus the z-loss).
+    aux)``, ``aux`` the f32 load-balancing loss (plus the z-loss), or None
+    with ``aux=False`` (serving drops it).
 
     ``ctx``, a ``parallel.tensor_parallel.TrainContext``, runs the layer
     on a training mesh as the JAX package's GSPMD runs it (``expert`` ->
@@ -96,11 +100,14 @@ def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
     z-loss) are means over the GLOBAL batch's tokens: sums over the data
     axes and ``sp`` in the forward pass with an identity backward
     (``ctx.sum_tokens``), so each rank's gradient is its own tokens' share
-    and the step's sum over those axes makes it whole.  With ``ctx``
+    and the step's sum over those axes makes it whole.  A serving slice's
+    ``parallel.tensor_parallel.TensorParallel`` (with ``aux=False``) runs
+    the TP pair alone, and the ``sp`` routing only when its ``seq_split``
+    says ``x`` is the rank's block of a split prefill.  With ``ctx``
     None, the one-card layer."""
     b, t, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    sp = ctx.sp_size if ctx is not None else 1
+    sp = ctx.sp_size if ctx is not None and ctx.seq_split else 1
     c = _capacity(t * sp, cfg)
 
     router_logits = layers.dense_apply(params["router"], x,
@@ -125,6 +132,8 @@ def moe_mlp_apply(params, x, cfg: MoeConfig, *, ctx=None
     combine = torch.where(slot_te[..., None] == slots, gate_te[..., None],
                           torch.zeros((), device=x.device))
     out = _experts(params, x, combine, ctx)
+    if not aux:
+        return out, None
 
     # Load-balancing loss (Switch/GShard form) on the top-1 choice, over
     # every row and position, padding included.
@@ -176,9 +185,9 @@ def _slot_positions(flat_mask, ctx=None):
 
 def _experts(params, x, combine, ctx=None):
     """Dispatch, the stacked SwiGLU experts and the combine.  With a
-    training mesh's ``ctx``, this rank's experts (``params``' expert
-    leaves are its shard); see :func:`moe_mlp_apply`."""
-    if ctx is not None:
+    mesh's ``ctx``, this rank's experts (``params``' expert leaves are its
+    shard); see :func:`moe_mlp_apply`."""
+    if ctx is not None and ctx.experts_split:
         start, stop = ctx.expert_bounds(combine.shape[2])
         x = ctx.copy_experts(x)
         combine = ctx.copy_experts(combine)[:, :, start:stop]

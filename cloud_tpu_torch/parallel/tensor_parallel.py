@@ -19,10 +19,19 @@ and the layers call the collectives where GSPMD puts them:
   sampling boundary.
 
 Weight-only int8 leaves split as their float kernels do; a row-split
-kernel's per-output-column scale stays whole on every rank.  The shard
-carries its :class:`TensorParallel` under the params' ``"tp"`` key, which
-every program reads; a params tree without the key runs the one-card
-code unchanged.
+kernel's per-output-column scale stays whole on every rank.  An MoE
+layer's experts split their hidden units the same way (``wi``/``wg`` by
+column, ``wo`` by row, the router whole; ``expert`` is not split on a
+serving slice).  The shard carries its :class:`TensorParallel` under the
+params' ``"tp"`` key, which every program reads; a params tree without
+the key runs the one-card code unchanged.
+
+A serving slice may also span ``sp`` (``mesh_shape=(tp, sp)``): every
+``sp`` member holds the same ``tp`` shard and the whole KV cache, and
+runs every program whole except a one-shot prefill, whose sequence it
+splits into contiguous blocks (``models/generation.py``).  The context
+of such a prefill says so (``seq_split``), which tells an MoE layer to
+route its block as part of the whole sequence.
 
 Training under a mesh uses :class:`TrainContext` (:func:`train_context`),
 a :class:`TensorParallel` that also knows the data axes (``dp``,
@@ -64,8 +73,16 @@ class TensorParallel:
 
     mesh: object
     vocab_sizes: Optional[Tuple[int, ...]] = None
+    #: Whether the activations are this rank's ``sp`` block of the
+    #: sequence (a split prefill) rather than the whole of it.
+    seq_split: bool = False
+    #: Whether an ``sp`` block is laid out in the zig-zag order
+    #: (``zigzag_sp``, training only): two chunks of the sequence, not one.
+    zigzag: bool = False
 
     axis = mesh_lib.AXIS_TP
+    #: A serving slice never splits an MoE layer's experts.
+    experts_split = False
 
     @property
     def size(self) -> int:
@@ -86,6 +103,30 @@ class TensorParallel:
     def local_heads(self, num_heads: int) -> int:
         return num_heads // self.size
 
+    @property
+    def sp_size(self) -> int:
+        return self.mesh.axis_size(mesh_lib.AXIS_SP)
+
+    @property
+    def sp_index(self) -> int:
+        return self.mesh.axis_index(mesh_lib.AXIS_SP)
+
+    def seq_bounds(self, t: int) -> Tuple[int, int]:
+        """``[start, stop)`` of this rank's contiguous ``sp`` block of a
+        sequence of ``t`` positions; ``t`` must divide by ``sp``, as the
+        ring's blocks must."""
+        sp = self.sp_size
+        if t % sp:
+            raise ValueError(f"seq_len {t} does not divide by sp={sp}")
+        block = t // sp
+        return self.sp_index * block, (self.sp_index + 1) * block
+
+    def splits_seq(self, t: int) -> bool:
+        """Whether a serving prefill of width ``t`` runs split over ``sp``:
+        ``sp`` > 1 divides it (other widths run whole on every member,
+        never padded)."""
+        return self.sp_size > 1 and t % self.sp_size == 0
+
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every member's ``x`` (a row-split product's partial
         sums, a masked lookup)."""
@@ -104,6 +145,7 @@ class TensorParallel:
 
     def __repr__(self):
         return (f"TensorParallel(tp={self.size}, index={self.index}, "
+                f"sp={self.sp_size}, seq_split={self.seq_split}, "
                 f"vocab_sizes={self.vocab_sizes})")
 
 
@@ -116,20 +158,11 @@ class TrainContext(TensorParallel):
     that differ only in ``pp`` or ``ep`` hold the same rows."""
 
     rules: sharding.ShardingRules = sharding.DEFAULT_RULES
-    #: Whether an ``sp`` block is laid out in the zig-zag order
-    #: (``zigzag_sp``): two chunks of the sequence, not one.
-    zigzag: bool = False
+    #: A training rank always holds its ``sp`` block of the sequence.
+    seq_split: bool = True
 
     #: The axes over which ranks hold different rows or positions.
     loss_axes = (mesh_lib.AXIS_DP, mesh_lib.AXIS_FSDP, mesh_lib.AXIS_SP)
-
-    @property
-    def sp_size(self) -> int:
-        return self.mesh.axis_size(mesh_lib.AXIS_SP)
-
-    @property
-    def sp_index(self) -> int:
-        return self.mesh.axis_index(mesh_lib.AXIS_SP)
 
     @property
     def pp_size(self) -> int:
@@ -148,16 +181,6 @@ class TrainContext(TensorParallel):
         return (self.mesh.axis_index(mesh_lib.AXIS_DP)
                 * self.mesh.axis_size(mesh_lib.AXIS_FSDP)
                 + self.mesh.axis_index(mesh_lib.AXIS_FSDP))
-
-    def seq_bounds(self, t: int) -> Tuple[int, int]:
-        """``[start, stop)`` of this rank's contiguous ``sp`` block of a
-        sequence of ``t`` positions; ``t`` must divide by ``sp``, as the
-        ring's blocks must."""
-        sp = self.sp_size
-        if t % sp:
-            raise ValueError(f"seq_len {t} does not divide by sp={sp}")
-        block = t // sp
-        return self.sp_index * block, (self.sp_index + 1) * block
 
     def sum_over_seq(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every ``sp`` member's ``x`` forward, and of every
@@ -229,15 +252,20 @@ def check_rules(mesh, rules: sharding.ShardingRules, *,
     """Whether ``rules`` splits the vocabulary over ``tp``; raises
     ``ValueError`` for a table the tensor-parallel layers cannot run:
     heads and mlp must be split over ``tp`` (the KV cache shards by head),
-    vocab over ``tp`` or not at all, and embed not at all; ``training``
-    lets embed split over ``fsdp``, layers over ``pp`` and expert over
-    ``ep`` (each or not at all).  No axis may use another nontrivial mesh
-    axis."""
+    vocab over ``tp`` or not at all, and embed and expert not at all;
+    ``training`` lets embed split over ``fsdp``, layers over ``pp`` and
+    expert over ``ep`` (each or not at all).  No axis may use another
+    nontrivial mesh axis."""
     def split_axes(logical):
         return tuple(a for a in sharding.mesh_axes(rules.assignment(logical))
                      if mesh.axis_size(a) > 1)
 
     embed_ok = (mesh_lib.AXIS_FSDP,) if training else ()
+    if not training and split_axes("expert"):
+        raise ValueError(
+            f"rules map 'expert' to {rules.assignment('expert')!r} on a "
+            f"mesh of shape {mesh.shape}: a serving slice splits an MoE "
+            "layer's hidden units over tp, never its experts")
     if training:
         for logical, allowed in (("layers", mesh_lib.AXIS_PP),
                                  ("expert", mesh_lib.AXIS_EP)):
@@ -265,16 +293,16 @@ def check_rules(mesh, rules: sharding.ShardingRules, *,
 
 
 def context(mesh, config, rules=sharding.DEFAULT_RULES) -> TensorParallel:
-    """The :class:`TensorParallel` of CloudLM ``config`` on ``mesh``:
+    """The :class:`TensorParallel` of CloudLM ``config`` on a serving
+    ``mesh`` (``tp``, and ``sp`` over which ranks hold the same shard):
     ``tp`` must divide the head count (the KV cache shards by head); the
-    vocabulary and the MLP may split unevenly."""
+    vocabulary, the MLP and an MoE layer's experts' hidden units may
+    split unevenly."""
     tp = mesh.axis_size(mesh_lib.AXIS_TP)
     if config.num_heads % tp:
         raise ValueError(
             f"mesh tp={tp} does not divide num_heads={config.num_heads}: "
             "the KV cache shards by attention head")
-    if config.moe is not None:
-        raise ValueError("an MoE CloudLM has no tensor-parallel layers here")
     return TensorParallel(mesh=mesh, vocab_sizes=_vocab_sizes(
         mesh, config, check_rules(mesh, rules)))
 
@@ -327,7 +355,9 @@ def mesh_context(config, mesh=None, rules=None) -> Optional[TrainContext]:
 
 def shard_lm(params, config, mesh, rules=sharding.DEFAULT_RULES):
     """This rank's shard of full CloudLM params (the port's layout), with
-    its :func:`context` under ``"tp"``."""
+    its :func:`context` under ``"tp"``: heads, MLP hidden units (an MoE
+    layer's per expert; int8 scales with their columns) and the
+    vocabulary cut over ``tp``, the same on every ``sp`` member."""
     from cloud_tpu_torch.models import transformer
 
     ctx = context(mesh, config, rules)

@@ -95,18 +95,25 @@ first token), once per decode chunk, speculative round or batch (its
 emissions) and once per demotion burst, never per token.  Greedy outputs
 are token-identical to a direct ``generation.generate`` call per request.
 
-Tensor-parallel serving (``ServeConfig(mesh_shape=(tp, 1))``,
-``layout="auto"``, or ``mesh=`` a ``parallel.mesh.Mesh`` with a ``tp``
-axis; ``serving/slice.py``): one process per rank, rank 0 the caller's
-engine.  Each rank holds its shard of the params
-(``parallel/tensor_parallel.py``: heads, MLP hidden units and the
-vocabulary over ``tp``) and a grid and pool of its own heads; before each
-device dispatch rank 0 broadcasts the program and its host arguments, and
-the followers (spawned by rank 0, or the caller's other ranks running
-:meth:`ServingEngine.follow`) run the same program on their shards.  The
-one reshard a forward pass makes is the logits' gather before sampling;
-rank 0's host pull of the sampled tokens is spanned as ``serve/reshard``.
-Greedy outputs stay token-identical to ``generation.generate``.
+Serving on a slice (``ServeConfig(mesh_shape=(tp, sp))``,
+``layout="auto"``, or ``mesh=`` a ``parallel.mesh.Mesh`` with ``tp`` and
+``sp`` axes; ``serving/slice.py``): one process per rank, rank 0 the
+caller's engine.  Each rank holds its shard of the params
+(``parallel/tensor_parallel.py``: heads, MLP hidden units, an MoE
+layer's experts' hidden units and the vocabulary over ``tp``; the same
+shard on every ``sp`` member) and a grid and pool of its own heads
+(whole over ``sp``, as the JAX engine replicates the cache there);
+before each device dispatch rank 0 broadcasts the program and its host
+arguments, and the followers (spawned by rank 0, or the caller's other
+ranks running :meth:`ServingEngine.follow`) run the same program on
+their shards.  A one-shot prefill whose width ``sp`` divides runs split
+over ``sp`` (the causal ring over the prompt's blocks, the K/V gathered
+over ``sp``; ``stats()["sp_prefills"]``), any other width whole on every
+member (``sp_whole_prefills``), and every other program whole on every
+member.  The one reshard a forward pass makes is the logits' gather
+before sampling; rank 0's host pull of the sampled tokens is spanned as
+``serve/reshard``.  Greedy outputs stay token-identical to
+``generation.generate``.
 
 On a slice the followers also run the speculative draft (head-sharded
 as the target when ``tp`` divides its heads, else replicated on every
@@ -116,11 +123,7 @@ ids), export their heads of a KV handoff payload to rank 0 (which
 gathers every head, in head order) and import theirs from one, and take
 a second decode chunk in flight (``pipeline_depth=2``) in dispatch order.
 
-The engine takes every field, keyword and method of the JAX engine; each
-value whose feature the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it: under
-a serving mesh of more than one rank, ``sp > 1`` (item 6) and an MoE
-model (item 3).
+The engine takes every field, keyword and method of the JAX engine.
 """
 
 from __future__ import annotations
@@ -194,13 +197,6 @@ class DispatchTimeoutError(RuntimeError):
     """A device dispatch, with the host wait for its results, exceeded
     ``dispatch_timeout_s``: the watchdog failed the in-flight requests and
     marked the engine unhealthy instead of wedging the scheduler."""
-
-
-def _later(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not in the PyTorch port yet: it comes with "
-        f"ROADMAP.md section A, item {item}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -647,8 +643,8 @@ class ServingEngine:
     context manager).  Runs on ``device`` (default ``cuda``).
 
     Under a serving mesh (``ServeConfig.mesh_shape``/``layout="auto"``, or
-    ``mesh=`` a ``parallel.mesh.Mesh`` whose nontrivial axes are ``tp``)
-    the engine is one rank of a tensor-parallel slice (``serving/
+    ``mesh=`` a ``parallel.mesh.Mesh`` whose nontrivial axes are ``tp``
+    and ``sp``) the engine is one rank of a serving slice (``serving/
     slice.py``) on the mesh's device.  ``params`` are the full params
     (each rank cuts its shard by ``rules``, default
     ``parallel.sharding.DEFAULT_RULES``) or a shard that carries its
@@ -673,8 +669,6 @@ class ServingEngine:
         self._follower = False
         self._slice_shape, self._slice_chips = self._resolve_serving_mesh(
             params, device)
-        if self._slice_chips > 1:
-            self._refuse_unported_under_mesh()
         self.params = generation.prepare_params(self._place_params(params),
                                                 config)
         if self._slice_chips > 1:
@@ -724,8 +718,11 @@ class ServingEngine:
             # other inserts are armed by a chunked prefill's finalize),
             # the decode steps the batch scheduler ran, the prefill chunks
             # by width, and the whole-stream synchronisations of the host
-            # tier (one per demotion burst).
+            # tier (one per demotion burst).  On a slice spanning sp, the
+            # one-shot prefills (inserts and batches) split over sp and
+            # those of a width sp does not divide, run whole.
             "chunk_seconds": 0.0, "oneshot_inserts": 0,
+            "sp_prefills": 0, "sp_whole_prefills": 0,
             "batch_decode_steps": 0,
             "prefill_chunk_widths": {},
             "stream_syncs": 0,
@@ -882,7 +879,7 @@ class ServingEngine:
             self.device = resolve_device(self.mesh.device)
             tp = self.mesh.axis_size(mesh_lib.AXIS_TP)
             sp = self.mesh.axis_size(mesh_lib.AXIS_SP)
-            self._follower = self.mesh.axis_index(mesh_lib.AXIS_TP) != 0
+            self._follower = self.mesh.rank != 0
             self._sharded = True
             return (tp, sp), tp * sp
         if self.mesh is not None:
@@ -962,23 +959,13 @@ class ServingEngine:
             positions = cfg.batch_buckets[-1] * max_len
         return per_pos * positions
 
-    def _refuse_unported_under_mesh(self) -> None:
-        """What a slice of more than one rank does not run yet, each
-        naming its ROADMAP.md item."""
-        if self._slice_shape[1] > 1:
-            raise _later("a serving mesh with sp > 1 (sequence-parallel "
-                         "serving, prefill over the ring attention of A.2)",
-                         "6")
-        if self.config.moe is not None:
-            raise _later("an MoE model under a serving mesh (its experts "
-                         "over the slice's ranks)", "3")
-
     def _place_params(self, params):
         """The params this rank serves, on its device: the caller's, or
         under a serving mesh this rank's shard with its ``"tp"`` context
         (cut here from full params, or given as a shard).  A
         ``mesh_shape``/``layout`` slice cuts every rank's shard on the
-        host and spawns the followers with theirs."""
+        host over the mesh ``{sp, tp}`` and spawns the followers with
+        theirs."""
         def to_device(tree):
             return bridge.map_leaves(tree, lambda t: t.to(self.device))
 
@@ -986,7 +973,9 @@ class ServingEngine:
             return to_device(params)
         full = {k: v for k, v in params.items() if k != "tp"}
         if self._spawn_devices is not None:
-            spec = mesh_lib.MeshSpec({mesh_lib.AXIS_TP: self._slice_chips})
+            tp, sp = self._slice_shape
+            spec = mesh_lib.MeshSpec({mesh_lib.AXIS_SP: sp,
+                                      mesh_lib.AXIS_TP: tp})
             backend = dist_lib.backend_for(self.device)
             host = bridge.map_leaves(full, lambda t: t.detach().cpu())
             shards = [
@@ -1006,7 +995,7 @@ class ServingEngine:
                              if k != "tp"}, lambda t: t.detach().cpu())))
             self.mesh, self._spawned = slice_lib.spawn_slice(
                 shards, self.config, follower_cfg, self.rules,
-                self._spawn_devices, backend)
+                self._spawn_devices, backend, spec)
             own = shards[0]
         elif "tp" in params:
             own = full
@@ -1799,6 +1788,7 @@ class ServingEngine:
             self._stats["decode_slot_steps"] += batch_size * cfg.max_new_tokens
             self._stats["useful_decode_tokens"] += generated
             self._stats["batch_decode_steps"] += cfg.max_new_tokens - 1
+            self._count_sp_prefill(bucket_len)
         for request, result in zip(batch, results):
             try:
                 request.future.set_result(result)
@@ -2137,10 +2127,19 @@ class ServingEngine:
         self._slot_table[slot] = entry
         with self._stats_lock:
             self._stats["oneshot_inserts"] += 1
+            self._count_sp_prefill(request.bucket_len)
         self._feed_entry(entry)
         self._save_prefix_blocks(request, slot)
         self._export_handoff(request, slot)
         self._activate_or_retire(slot, request, tok0)
+
+    def _count_sp_prefill(self, width: int) -> None:
+        """Count a one-shot prefill of ``width`` on a slice spanning
+        ``sp``: split over it, or whole (caller holds ``_stats_lock``)."""
+        if self._tp is not None and self._tp.sp_size > 1:
+            key = ("sp_prefills" if self._tp.splits_seq(width)
+                   else "sp_whole_prefills")
+            self._stats[key] += 1
 
     def _op_insert(self, tokens: np.ndarray, prompt_len: int, slot: int,
                    max_new_tokens: int):
@@ -2265,7 +2264,10 @@ class ServingEngine:
     def _op_export(self, blocks: List[int]):
         """Pool rows ``blocks`` as host tensors with every head: on a
         slice each rank's heads are gathered over ``tp`` in head order
-        (every rank takes part; rank 0 keeps the payload)."""
+        within ``sp`` index 0 (rank 0 keeps the payload; the other ``sp``
+        members hold the same rows and take no part)."""
+        if self._tp is not None and self._tp.sp_index != 0:
+            return None
         return generation.download_prefix_blocks(self._prefix_pool, blocks,
                                                  tp=self._tp)
 

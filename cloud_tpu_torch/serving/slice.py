@@ -1,4 +1,4 @@
-"""A tensor-parallel serving slice: rank 0 and its followers in lockstep.
+"""A serving slice (``tp`` x ``sp``): rank 0 and its followers in lockstep.
 
 The JAX engine serves a multi-chip slice from one controller; the port
 runs one process per rank.  Rank 0 is the caller's engine: it owns the
@@ -11,10 +11,12 @@ layers' collectives then meet in the same order on every rank, and every
 rank samples the same tokens from the same gathered logits, so the
 followers' state tracks rank 0's without a second broadcast.
 
-``ServeConfig(mesh_shape=(tp, 1))`` (or ``layout="auto"``) makes rank 0
-spawn ``tp - 1`` followers (:func:`spawn_slice`, start method ``spawn``,
-each given only its shard) and join them over a process group of its
-own; a caller's ``mesh=`` brings its ranks and group along instead.
+``ServeConfig(mesh_shape=(tp, sp))`` (or ``layout="auto"``) makes rank 0
+spawn ``tp * sp - 1`` followers (:func:`spawn_slice`, start method
+``spawn``, each given only its ``tp`` shard, the same on every ``sp``
+member) over the mesh ``{sp, tp}`` (``sp`` major, ``tp`` minor, as the
+JAX engine lays it out) and join them over a process group of its own;
+a caller's ``mesh=`` brings its ranks and group along instead.
 
 A follower that raises leaves its loop and exits, and a dead follower
 makes rank 0's next collective fail (gloo reports the closed connection
@@ -52,16 +54,15 @@ class SliceError(RuntimeError):
 
 
 class ControlLink:
-    """The plan channel: one gloo group over the slice's ranks, created
-    by every rank at the same point (a collective call).  Rank 0 sends
-    with the mesh's timeout; followers receive with no practical
+    """The plan channel: one gloo group over every rank of the slice,
+    created by every rank at the same point (a collective call).  Rank 0
+    sends with the mesh's timeout; followers receive with no practical
     timeout."""
 
     def __init__(self, mesh, *, leader: bool):
-        ranks = list(mesh.group_ranks[mesh_lib.AXIS_TP])
-        self.root = ranks[0]
+        self.root = 0
         self.group = dist.new_group(
-            ranks=ranks, backend="gloo",
+            ranks=list(range(mesh.spec.num_devices)), backend="gloo",
             timeout=(mesh_lib.DEFAULT_TIMEOUT if leader
                      else FOLLOWER_IDLE_TIMEOUT))
 
@@ -128,12 +129,14 @@ def _dtypes(tree):
     return tree.dtype
 
 
-def spawn_slice(shards, config, serve_config, rules, devices, backend: str):
+def spawn_slice(shards, config, serve_config, rules, devices, backend: str,
+                spec):
     """Spawn one follower per shard after the first (``shards[r]`` is rank
     ``r``'s params, without their ``"tp"`` context), join them in a new
-    default process group as rank 0, and build the slice's mesh.  Returns
-    ``(mesh, SpawnedSlice)``; raises if a follower does not join within
-    the mesh's timeout."""
+    default process group as rank 0, and build the slice's mesh of
+    ``spec`` (a ``MeshSpec`` over ``tp`` and ``sp``, one rank a shard).
+    Returns ``(mesh, SpawnedSlice)``; raises if a follower does not join
+    within the mesh's timeout."""
     if dist.is_initialized():
         raise ValueError(
             "mesh_shape/layout='auto' spawns its own process group, and "
@@ -151,7 +154,7 @@ def spawn_slice(shards, config, serve_config, rules, devices, backend: str):
             args=(rank, world, store.port, backend,
                   [str(d) for d in devices], _host_tree(shards[rank]),
                   _dtypes(shards[rank]), config, serve_config, rules,
-                  torch.get_num_threads()))
+                  torch.get_num_threads(), spec))
         for rank in range(1, world)
     ]
     for proc in procs:
@@ -161,8 +164,7 @@ def spawn_slice(shards, config, serve_config, rules, devices, backend: str):
         dist.init_process_group(backend, store=store, rank=0,
                                 world_size=world,
                                 timeout=mesh_lib.DEFAULT_TIMEOUT)
-        mesh = mesh_lib.MeshSpec({mesh_lib.AXIS_TP: world}).build(
-            devices, backend=backend)
+        mesh = spec.build(devices, backend=backend)
     except BaseException:
         for proc in procs:
             proc.kill()
@@ -172,7 +174,7 @@ def spawn_slice(shards, config, serve_config, rules, devices, backend: str):
 
 
 def _follower_main(rank, world, port, backend, devices, shard, dtypes,
-                   config, serve_config, rules, threads):
+                   config, serve_config, rules, threads, spec):
     """A spawned follower: join the group, rebuild its shard, serve
     rank 0's plans until ``stop``.  Imports the port only."""
     from cloud_tpu_torch.parallel import tensor_parallel
@@ -185,8 +187,7 @@ def _follower_main(rank, world, port, backend, devices, shard, dtypes,
                             world_size=world,
                             timeout=mesh_lib.DEFAULT_TIMEOUT)
     try:
-        mesh = mesh_lib.MeshSpec({mesh_lib.AXIS_TP: world}).build(
-            devices, backend=backend)
+        mesh = spec.build(devices, backend=backend)
         device = mesh.device
         if device.type == "cuda":
             torch.cuda.set_device(device)

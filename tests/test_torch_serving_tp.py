@@ -21,10 +21,9 @@ gloo; several scenarios share a child:
   ``dp`` mesh that is no serving slice.
 
 In-process: ``mesh_shape`` errors with the JAX engine's messages (heads,
-devices, ``mesh=`` with ``mesh_shape``), the refusals under a mesh (``sp >
-1`` and an MoE model; the draft, the host tier, ``role=`` and depth 2
-reach the followers' spawn), and ``mesh_shape=(1, 1)`` as the one-card
-engine.
+devices, ``mesh=`` with ``mesh_shape``), what a slice runs reaching the
+followers' spawn (``sp > 1``, an MoE model, the draft, the host tier,
+``role=`` and depth 2), and ``mesh_shape=(1, 1)`` as the one-card engine.
 """
 
 import json
@@ -429,15 +428,17 @@ class _Spawned(Exception):
                                   "role", "pipeline_depth"])
 def test_refusals_under_a_serving_mesh(models, eight_cpu_devices,
                                        monkeypatch, case):
-    """What a slice of more than one rank does not run yet (``sp > 1``,
-    item 6; an MoE model, item 3) raises before any follower starts,
-    naming its ROADMAP.md item; what it runs (a draft, the host tier,
-    ``role=``, depth 2; tests/test_torch_serving_slice*.py) gets as far
-    as spawning the followers."""
+    """Nothing a slice of more than one rank is given is refused any more:
+    ``sp > 1`` and an MoE model (tests/test_torch_serving_sp.py,
+    test_torch_serving_moe_slice.py), a draft, the host tier, ``role=``
+    and depth 2 (tests/test_torch_serving_slice*.py) each get as far as
+    spawning the followers, with every rank's shard cut."""
     _, _, cfg, tparams = models
+    from cloud_tpu_torch import bridge
     from cloud_tpu_torch.serving import slice as slice_lib
 
-    def spawn(*args, **kwargs):
+    def spawn(shards, *args, **kwargs):
+        assert len(shards) == kw["mesh_shape"][0] * kw["mesh_shape"][1]
         raise _Spawned
 
     monkeypatch.setattr(slice_lib, "spawn_slice", spawn)
@@ -448,20 +449,15 @@ def test_refusals_under_a_serving_mesh(models, eight_cpu_devices,
         kw["draft"] = DraftConfig(config=cfg, params=tparams, spec_k=2)
     elif case == "moe":
         cfg = cfg.scaled(moe=moe.MoeConfig(num_experts=4, top_k=2))
+        tparams = bridge.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
     elif case == "host tier":
         kw.update(prefix_cache_blocks=4, prefix_dram_blocks=4)
     elif case == "role":
         kw.update(prefix_cache_blocks=4, role="decode")
     else:
         kw["pipeline_depth"] = 2
-    if case not in ("sp", "moe"):
-        with pytest.raises(_Spawned):
-            ServingEngine(tparams, cfg, ServeConfig(**kw), device="cpu",
-                          start=False)
-        return
-    item = "3" if case == "moe" else "6"
-    with pytest.raises(NotImplementedError,
-                       match=f"section A, item {item}$"):
+    with pytest.raises(_Spawned):
         ServingEngine(tparams, cfg, ServeConfig(**kw), device="cpu",
                       start=False)
 
