@@ -304,7 +304,25 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    ``{tp: 2}`` in bf16 for 3 steps within 2e-2; MNIST (hidden units over
    tp) and ResNet-50 CIFAR (replicas) under ``{tp: 2}``; each rank's
    K5-K7 and K1-K4 launches exact; phase 2 (enc) first holds K5-K7 at
-   its new call shapes to their plain versions and times them);
+   its new call shapes to their plain versions and times them); then the
+   window, ``fit``'s windows and compile-ahead under a mesh (6win: the
+   same two-rank machinery, no CUDA graph; SMALL at full width and depth
+   in f32 under ``{fsdp: 2}``, ``{tp: 2}`` and ``{sp: 2}`` zig-zag: a
+   window of 2 against 2 eager steps under the mesh and a window with
+   ``valid=[1, 0]`` against 1, each parameter within 1e-6 of its leaf's
+   largest magnitude and the metrics within 1e-6 relative, ``captures ==
+   0``, each rank's K5-K7 launches exactly ``mesh_launches_per_layer`` x
+   12 x 7 steps, steps/s of the window and the eager steps printed; the
+   window's compile-ahead on its worker, over axis groups of its own,
+   beside 4 eval steps under the mesh on the main thread, each within
+   1e-6 of the eager steps' and the eval step's alone;
+   ResNet-50 CIFAR ``Trainer.fit`` under ``{dp: 2}``, b256 bf16 a rank,
+   after a first fit that takes the cold set-up (timed, not held),
+   10 batches in windows of 4 with validation, checkpoints every 4 steps
+   and compile-ahead (no ``CompileAhead.error``, the checkpointed steps
+   the window boundaries, K1-K4 exact with the warm-ups) beside the same
+   fit one step a dispatch; f32 b8 windows against the eager fit under
+   deterministic cuDNN within 1e-6);
 7. trains BERT-base at b32 x T128 (``adamw(2e-5)``) for 3 + 10 steps with
    exactly 12 K5, 12 K6 and 12 K7 launches per step, and splits one step's
    device time as phase 6 does; then the stochastic step (7s: dropout
@@ -328,16 +346,16 @@ and ``nvidia-smi``.  It imports only ``cloud_tpu_torch`` (never JAX) and:
    save-and-load and custom-loop MNIST workloads on 2 ranks);
 9. prints one JSON line describing every kernel (a serving kernel's
    launches summed over the serving phases (3m included) and 7s, and
-   K5's also over 6m, 6d, 6mesh, 6pp, 6enc, 8v and 10g, K6/K7's over 6,
-   7s, 6m, 6d, 6mesh, 6pp, 6enc, 8v and 10g, K8/K8q's over 10g too,
-   K1-K4's over phases 4, 4t, 4r, 4a, 4p, 9r's container, 9t's workers,
-   9f's ranks and restoring run, 9g and 6enc, each
+   K5's also over 6m, 6d, 6mesh, 6pp, 6enc, 6win, 8v and 10g, K6/K7's
+   over 6, 7s, 6m, 6d, 6mesh, 6pp, 6enc, 6win, 8v and 10g, K8/K8q's over
+   10g too, K1-K4's over phases 4, 4t, 4r, 4a, 4p, 9r's container, 9t's
+   workers, 9f's ranks and restoring run, 9g, 6enc and 6win, each
    counted from 0 just before its run), then, as its last
    line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall time.  Once the kernels are timed (after
-phase 2c), phases 3f, 3v, 3x, 3m, 3tp, 3sp, 6mesh, 6pp and 6enc run in
-side process 1 and 4r, 4k, 9r, 9m, 9t, 9f, 9g and 10g in side process 2
+phase 2c), phases 3f, 3v, 3x, 3m, 3tp, 3sp, 6mesh, 6pp, 6enc and 6win
+run in side process 1 and 4r, 4k, 9r, 9m, 9t, 9f, 9g and 10g in side process 2
 (``python3 chip_smoke.py --side <dir> <process>``, ``SIDE_PHASES``)
 beside phases 3 to 8v; each counts its launches from 0 in its own
 process, and their output is printed after phase 8v.  Any failed phase
@@ -8306,6 +8324,525 @@ def run_pipeline_training(device, card, setup=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 6win: the window, fit's windows and compile-ahead under a mesh of
+# two ranks (no CUDA graph: the K step bodies run from the host, with the
+# collectives between them).
+
+#: Phase 6win's CloudLM arms: SMALL at full width and depth (12 layers,
+#: tied head), f32 (TF32 off), b2 x T1024 (``MESH_BATCH``, ``MESH_SEQ``),
+#: adamw(1e-4) with f32 moments, remat "full", two ranks on the card over
+#: gloo.  Then ResNet-50 CIFAR ``Trainer.fit`` under ``{dp: 2}``: b256
+#: bf16 a rank with compile-ahead, validation and checkpoints, and f32 b8
+#: under cuDNN's deterministic algorithms.  (name, mesh sizes, config
+#: fields, dtype)
+WIN_ARMS = (("fsdp", {"fsdp": 2}, {}, "float32"),
+            ("tp", {"tp": 2}, {}, "float32"),
+            ("sp zigzag", {"sp": 2}, {"zigzag_sp": True}, "float32"),
+            ("resnet fit", {"dp": 2}, {"kind": "fit"}, "bfloat16"),
+            ("resnet f32", {"dp": 2}, {"kind": "f32"}, "float32"))
+#: The LM arms' window width and their steps a rank: two eager steps, the
+#: window of 2, two timed eager steps, the window with valid [1, 0].
+WIN_K, WIN_LM_STEPS = 2, 7
+#: The window against eager mesh steps: every parameter within this of
+#: its leaf's largest magnitude, the metrics within this relative.
+WIN_TOL = 1e-6
+#: The fits: batches an epoch (windows of 4: 4, 4 and a 2-of-4 tail), the
+#: window, the checkpoint cadence and the steps kept, the validation
+#: batches, the f32 arm's rows a rank.
+WIN_FIT_BATCHES, WIN_FIT_K, WIN_FIT_EVERY, WIN_FIT_KEEP = 10, 4, 4, 3
+WIN_FIT_VAL, WIN_F32_BATCH = 2, 8
+#: The LM arms' eval steps beside the window's compile-ahead.
+WIN_AHEAD_EVALS = 4
+
+
+class _RankRows:
+    """This rank's rows (its dp x fsdp coordinate's) of every global
+    batch of a dataset."""
+
+    def __init__(self, dataset, mesh):
+        self.dataset = dataset
+        self.count = mesh.axis_size("dp") * mesh.axis_size("fsdp")
+        self.index = (mesh.axis_index("dp") * mesh.axis_size("fsdp")
+                      + mesh.axis_index("fsdp"))
+
+    def __call__(self):
+        for batch in self.dataset():
+            n = len(batch["label"]) // self.count
+            yield {k: v[self.index * n:(self.index + 1) * n]
+                   for k, v in batch.items()}
+
+
+def _leaf_err(got, want) -> float:
+    """The largest difference of two lists of tensors, each over its
+    leaf's largest magnitude (0 where both are zero)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        err = float((a.detach().float() - b.detach().float()).abs().max())
+        top = float(b.detach().float().abs().max())
+        worst = max(worst, err / top if top > 0 else (0.0 if err == 0
+                                                      else float("inf")))
+    return worst
+
+
+def _win_lm_arm(rank, device, arm, phase, configs):
+    """An LM arm of 6win on this rank: from one state, two eager steps
+    under the mesh (a copy of the state after the first kept), the window
+    of 2 on a copy of the state (timed), two more eager steps (timed),
+    the window with ``valid=[1, 0]`` on a copy of the state.  The window's
+    parameters and optimizer state against the two eager steps', and the
+    tail's against the first's, each leaf within ``WIN_TOL`` of its
+    largest magnitude; the window's metrics against the eager steps' mean
+    (the tail's against step 1's) within ``WIN_TOL`` relative; no graph
+    captured; K5-K7 launches (counted from 0 before the first step)
+    exactly :func:`mesh_launches_per_layer` x layers x
+    ``WIN_LM_STEPS``.  Then, uncounted, the window's compile-ahead beside
+    eval steps (:func:`_win_ahead`): no error, the artifact's window
+    against the two eager steps and the eval steps against the same step
+    alone within ``WIN_TOL``."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.bridge import leaves
+    from cloud_tpu_torch.models import transformer
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.parallel import MeshSpec, pipeline
+    from cloud_tpu_torch.training import optimizers, train
+
+    name, sizes, fields, dtype_name = arm
+    seq = configs.get("seq", MESH_SEQ)
+    mesh = MeshSpec(sizes).build(devices=[device] * 2, backend="gloo")
+    cfg = (configs.get("lm") or MESH_MODEL or transformer.SMALL).scaled(**{
+        "tied_embeddings": True, "remat": True, "remat_policy": "full",
+        "dtype": getattr(torch, dtype_name), **fields})
+    axes = transformer.param_logical_axes(cfg)
+    tx = optimizers.adamw(1e-4, mu_dtype=None)
+    params = bridge.init(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    first = train.create_sharded_state(None, lambda _: params, tx, mesh=mesh,
+                                       logical_axes=axes)
+    del params
+    tokens = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (WIN_K, MESH_BATCH, seq)).astype(np.int64)
+    rows = pipeline.microbatch_rows(mesh, MESH_BATCH, 1)
+    super_batch = train.shard_batch({"tokens": tokens[:, rows]}, mesh,
+                                    stacked=True)
+    slot = [{"tokens": super_batch["tokens"][i]} for i in range(WIN_K)]
+    loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh)
+    opts = dict(mesh=mesh, logical_axes=axes)
+    step = train.make_train_step(loss, tx, **opts)
+    window = train.make_multi_step(loss, tx, steps_per_dispatch=WIN_K,
+                                   **opts)
+
+    def state_leaves(st):
+        return [st.step] + leaves(st.params) + leaves(st.opt_state)
+
+    _sync(device)
+    dispatch.reset_launch_counts()
+    eager, m1 = step(train._state_copy(first), slot[0])
+    after_one = train._state_copy(eager)
+    eager, m2 = step(eager, slot[1])
+    after_two = train._state_copy(eager)
+    _sync(device)
+    start = time.perf_counter()
+    got, wm = window(train._state_copy(first), super_batch)
+    _sync(device)
+    window_s = time.perf_counter() - start
+    report = {"arm": name, "captures": window.captures,
+              "param_err": _leaf_err(state_leaves(got), state_leaves(eager))}
+    mean = {k: (m1[k].float() + m2[k].float()) / 2 for k in m1}
+    report["metric_err"] = max(
+        abs(float(wm[k]) - float(mean[k])) / max(abs(float(mean[k])), 1e-30)
+        for k in mean)
+    report["metrics"] = {k: float(v) for k, v in wm.items()}
+    del got
+    start = time.perf_counter()
+    for batch in slot:
+        eager, _ = step(eager, batch)
+    _sync(device)
+    eager_s = time.perf_counter() - start
+    del eager
+    tail, tm = window(train._state_copy(first), super_batch,
+                      np.asarray([1, 0], np.float32))
+    report["tail_param_err"] = _leaf_err(state_leaves(tail),
+                                         state_leaves(after_one))
+    report["tail_metric_err"] = max(
+        abs(float(tm[k]) - float(m1[k])) / max(abs(float(m1[k])), 1e-30)
+        for k in m1)
+    _sync(device)
+    del tail, after_one
+    report["launches"] = dispatch.launch_counts(TRAIN_ATTN_KERNELS)
+    report["window_steps_per_s"] = WIN_K / window_s
+    report["eager_steps_per_s"] = WIN_K / eager_s
+    report.update(_win_ahead(window, first, super_batch, slot[0], loss, opts,
+                             device, mesh, after_two, state_leaves))
+    del first, after_two
+    for what in ("param_err", "metric_err", "tail_param_err",
+                 "tail_metric_err", "ahead_param_err", "ahead_eval_err"):
+        if not report[what] <= WIN_TOL:
+            raise AssertionError(f"{phase} {name} rank {rank}: the window's "
+                                 f"{what} {report[what]:.3e} > {WIN_TOL}")
+    if report["ahead_error"] != "None" or not report["ahead_served"]:
+        raise AssertionError(f"{phase} {name} rank {rank}: compile-ahead "
+                             f"error {report['ahead_error']}, served "
+                             f"{report['ahead_served']}")
+    if window.captures or not window.eager:
+        raise AssertionError(f"{phase} {name}: the window captured "
+                             f"{window.captures} graphs (eager: "
+                             f"{window.eager})")
+    per_layer = mesh_launches_per_layer(sizes, fields)
+    want = {k: v * cfg.num_layers * WIN_LM_STEPS
+            for k, v in per_layer.items()}
+    if device.type == "cuda" and report["launches"] != want:
+        raise AssertionError(f"{phase} {name} rank {rank}: launches "
+                             f"{report['launches']}, want {want}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def _win_ahead(window, first, super_batch, batch, loss, opts, device, mesh,
+               want, state_leaves):
+    """Compile-ahead of ``window`` under ``mesh`` beside eval steps: the
+    worker (``compile_cache.start_compile_ahead(mesh=)``) warms the window
+    up on a copy of ``first`` over axis groups of its own (on the card its
+    backward and remat's recompute run on autograd's device thread, over
+    the groups its forward used) while this thread runs
+    ``WIN_AHEAD_EVALS`` eval steps under the mesh over the mesh's own
+    groups.  This thread runs no backward beside the warm-up: on the card
+    the two would share autograd's one device thread, and ``fit`` waits
+    for the train warm-up before its first step.  Returns the error, the
+    artifact's window from ``first`` against ``want`` (each leaf over its
+    largest magnitude), the eval steps' metrics against the same step
+    alone (relative), and how many eval steps ended while the worker
+    ran."""
+    import threading
+
+    import torch
+
+    from cloud_tpu_torch.training import compile_cache, train
+
+    evaluate = train.make_eval_step(loss, **opts)
+    alone = evaluate(first, batch)
+    aot = compile_cache.AotStep(window, "multi_step")
+    started = threading.Event()
+
+    def args():  # on the worker, once this thread is evaluating
+        started.wait()
+        return (first, compile_cache.abstract_batch(super_batch, mesh=mesh,
+                                                    stacked=True),
+                compile_cache.TensorSpec((WIN_K,), torch.float32))
+
+    plan = compile_cache.start_compile_ahead(
+        [(aot, args, compile_cache.context_key(
+            mesh=mesh, donation=(0,), steps_per_dispatch=WIN_K))],
+        device=device, mesh=mesh)
+    started.set()
+    beside, eval_err = 0, 0.0
+    for _ in range(WIN_AHEAD_EVALS):  # the same count on every rank
+        got = evaluate(first, batch)
+        _sync(device)
+        beside += plan.steps["multi_step"].compiled is None
+        eval_err = max(eval_err, max(
+            abs(float(got[k]) - float(alone[k]))
+            / max(abs(float(alone[k])), 1e-30) for k in alone))
+    plan.wait()
+    state, _ = aot(train._state_copy(first), super_batch,
+                   np.ones((WIN_K,), np.float32))
+    _sync(device)
+    return {"ahead_error": repr(plan.error),
+            "ahead_served": aot.compiled is not None,
+            "ahead_param_err": _leaf_err(state_leaves(state),
+                                         state_leaves(want)),
+            "ahead_eval_err": eval_err, "ahead_evals_beside": beside}
+
+
+def _win_fit(device, mesh, cfg, batch, k, *, compile_ahead, root=None,
+             val_batches=0):
+    """One ``Trainer.fit`` of ResNet under ``mesh``: ``WIN_FIT_BATCHES``
+    global batches of ``batch`` rows a rank (numpy seed 0, shuffled),
+    ``steps_per_dispatch=k``; with ``val_batches`` validation batches and,
+    given ``root``, ``CheckpointCallback(every_n_steps=WIN_FIT_EVERY)``
+    there.  Returns (trainer, history, report) with K1-K4's launches
+    counted from 0 before the fit."""
+    import functools
+
+    import torch
+
+    from cloud_tpu_torch import bridge
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.monitoring import metrics, tracing
+    from cloud_tpu_torch.ops import dispatch
+    from cloud_tpu_torch.training import data, optimizers, trainer
+    from cloud_tpu_torch.training.checkpoint import (CheckpointCallback,
+                                                     CheckpointManager)
+
+    tr = trainer.Trainer(
+        functools.partial(resnet.loss_fn, config=cfg, device=device),
+        optimizers.sgd(0.1, momentum=0.9),
+        init_fn=lambda gen: bridge.init_resnet(cfg, gen, device=device),
+        mesh=mesh, logical_axes=resnet.param_logical_axes(cfg))
+    tr.init_state(torch.Generator(device=device).manual_seed(0))
+    ranks = mesh.axis_size("dp") * mesh.axis_size("fsdp")
+    arrays = _cifar_arrays(WIN_FIT_BATCHES * batch * ranks, 0)
+    ds = data.ArrayDataset(arrays, batch * ranks, shuffle=True, seed=0)
+    val = None
+    if val_batches:
+        val = _RankRows(data.ArrayDataset(
+            _cifar_arrays(val_batches * batch * ranks, 1), batch * ranks),
+            mesh)
+    callbacks = []
+    if root is not None:
+        callbacks.append(CheckpointCallback(
+            root, every_n_steps=WIN_FIT_EVERY, max_to_keep=WIN_FIT_KEEP,
+            device=device))
+    _sync(device)
+    dispatch.reset_launch_counts()
+    tracing.mark_submit()
+    with tracing.collecting() as collector:
+        history = tr.fit(_RankRows(ds, mesh), epochs=1, prefetch=2,
+                         steps_per_dispatch=k, validation_data=val,
+                         callbacks=callbacks, compile_ahead=compile_ahead)
+        _sync(device)
+    events = collector.events()
+    logs = {key: v[-1] for key, v in history.history.items()}
+    steps = int(tr.state.step)
+    first = _span_total(events, "step/first_compile")
+    report = {
+        "steps_per_dispatch": k, "steps": steps,
+        "steps_per_s": steps / logs["epoch_seconds"],
+        # Past the first dispatch (a cold process pays its set-up there).
+        "steady_steps_per_s": (steps - k) / (logs["epoch_seconds"] - first),
+        "first_dispatch_s": first,
+        "epoch_seconds": logs["epoch_seconds"], "history": logs,
+        "launches": dispatch.launch_counts(GN_KERNELS),
+        "ahead_wait_s": _span_total(events, "compile/ahead_wait"),
+        "lower_s": _span_total(events, "compile/lower"),
+        # The worker's warm-ups that the main thread did not wait for:
+        # what running them on the main thread would have added to it.
+        "off_main_s": (_span_total(events, "compile/lower")
+                       - _span_total(events, "compile/ahead_wait")),
+        "submit_to_first_step_seconds": metrics.snapshot()["gauges"].get(
+            tracing.SUBMIT_TO_FIRST_STEP_GAUGE)}
+    if root is not None:
+        report["checkpoints"] = CheckpointManager(root,
+                                                  device=device).steps()
+    return tr, history, report
+
+
+def _win_fit_arm(rank, device, arm, phase, configs, root):
+    """A ResNet arm of 6win on this rank.  ``fit``: ResNet-50 CIFAR b256
+    bf16 a rank under ``{dp: 2}``: after a first fit that takes the cold
+    set-up (one step a dispatch, no compile-ahead; timed, not held), one
+    epoch of ``WIN_FIT_BATCHES`` in windows of ``WIN_FIT_K`` with
+    validation, checkpoints every
+    ``WIN_FIT_EVERY`` steps and ``compile_ahead=True`` (no
+    ``CompileAhead.error``, both artifacts served, a finite History, the
+    window boundaries checkpointed, K1-K4 exact: (steps + the train
+    warm-up) x 37/16/37/16 and (eval steps + the eval warm-up) x 37/16),
+    then the same fit one step a dispatch.  ``f32``: f32 b8 under cuDNN's
+    deterministic algorithms, the fit in windows of 4 with compile-ahead
+    against the eager fit: parameters within ``WIN_TOL`` of their leaf's
+    largest magnitude."""
+    import dataclasses
+
+    import torch
+
+    from cloud_tpu_torch.bridge import leaves
+    from cloud_tpu_torch.models import resnet
+    from cloud_tpu_torch.parallel import MeshSpec
+
+    name, sizes, fields, dtype_name = arm
+    mesh = MeshSpec(sizes).build(devices=[device] * 2, backend="gloo")
+    cfg = dataclasses.replace(configs.get("resnet") or resnet.RESNET50_CIFAR,
+                              dtype=getattr(torch, dtype_name))
+    report = {"arm": name}
+    if fields["kind"] == "fit":
+        batch = configs.get("batch", CIFAR_BATCH)
+        # The pair's first ResNet fit (one step a dispatch, no
+        # compile-ahead) takes the card's cold set-up, so that the two
+        # fits compared after it are both warm.
+        tr, _, report["cold"] = _win_fit(device, mesh, cfg, batch, 1,
+                                         compile_ahead=False)
+        del tr
+        want = _gn_times(GN_PER_STEP, WIN_FIT_BATCHES)
+        if device.type == "cuda" and report["cold"]["launches"] != want:
+            raise AssertionError(f"{phase} {name} first fit rank {rank}: "
+                                 f"launches {report['cold']['launches']} "
+                                 f"!= {want}")
+        for k, key in ((WIN_FIT_K, "windows"), (1, "one step")):
+            ckpt = os.path.join(root, f"{name} {k}")
+            tr, _, got = _win_fit(device, mesh, cfg, batch, k,
+                                  compile_ahead=True, root=ckpt,
+                                  val_batches=WIN_FIT_VAL)
+            plan = tr.compile_plan
+            what = f"{phase} {name} K={k} rank {rank}"
+            served = sorted(label for label, s in plan.steps.items()
+                            if s.compiled is not None)
+            got["served"], got["error"] = served, repr(plan.error)
+            if plan.error is not None or len(served) != 2:
+                raise AssertionError(f"{what}: CompileAhead.error "
+                                     f"{plan.error!r}, served {served}")
+            if got["steps"] != WIN_FIT_BATCHES or not all(
+                    np.isfinite(v) for v in got["history"].values()):
+                raise AssertionError(f"{what}: {got['steps']} steps, "
+                                     f"History {got['history']}")
+            # A window that crosses a multiple of the cadence saves at
+            # its end; the train end saves too.
+            ends = list(range(k, WIN_FIT_BATCHES, k)) + [WIN_FIT_BATCHES]
+            want_ckpt = sorted({end for prev, end in zip([0] + ends, ends)
+                                if end // WIN_FIT_EVERY > prev //
+                                WIN_FIT_EVERY} | {WIN_FIT_BATCHES}
+                               )[-WIN_FIT_KEEP:]
+            if got["checkpoints"] != want_ckpt:
+                raise AssertionError(f"{what}: checkpoints "
+                                     f"{got['checkpoints']} != {want_ckpt}")
+            want = _gn_sum(_gn_times(GN_PER_STEP, WIN_FIT_BATCHES + 1),
+                           _gn_times(GN_EVAL_PER_STEP, WIN_FIT_VAL + 1))
+            if device.type == "cuda" and got["launches"] != want:
+                raise AssertionError(f"{what}: launches {got['launches']}"
+                                     f" != {want}")
+            report[key] = got
+            del tr
+        report["launches"] = _gn_sum(report["cold"]["launches"],
+                                     report["windows"]["launches"],
+                                     report["one step"]["launches"])
+    else:
+        batch = configs.get("f32_batch", WIN_F32_BATCH)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # C3
+        try:
+            fused, _, report["windows"] = _win_fit(
+                device, mesh, cfg, batch, WIN_FIT_K, compile_ahead=True)
+            plain, _, report["one step"] = _win_fit(
+                device, mesh, cfg, batch, 1, compile_ahead=False)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        report["param_err"] = _leaf_err(leaves(fused.state.params),
+                                        leaves(plain.state.params))
+        if not report["param_err"] <= WIN_TOL:
+            raise AssertionError(
+                f"{phase} {name} rank {rank}: windows of {WIN_FIT_K} "
+                f"against one step a dispatch: {report['param_err']:.3e} "
+                f"> {WIN_TOL} of a leaf's largest magnitude")
+        want = _gn_sum(_gn_times(GN_PER_STEP, 2 * WIN_FIT_BATCHES + 1))
+        report["launches"] = _gn_sum(report["windows"]["launches"],
+                                     report["one step"]["launches"])
+        if device.type == "cuda" and report["launches"] != want:
+            raise AssertionError(f"{phase} {name} rank {rank}: launches "
+                                 f"{report['launches']} != {want}")
+        del fused, plain
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def _win_arm(rank, device, arm, ref=None, phase="6win", configs=None,
+             root=None):
+    """One arm of 6win on this rank (:func:`_win_lm_arm` or
+    :func:`_win_fit_arm`); both ranks run every arm in order."""
+    del ref  # each arm holds the window to the eager path of its own run
+    configs = configs or {}
+    if "kind" in arm[2]:
+        return _win_fit_arm(rank, device, arm, phase, configs, root)
+    return _win_lm_arm(rank, device, arm, phase, configs)
+
+
+def run_window_training(device, card, setup=None, configs=None):
+    """6win: the window, ``fit``'s windows and compile-ahead under a
+    2-rank mesh, rank 0 here and rank 1 in a spawned child, both on
+    ``device`` over gloo.  CloudLM SMALL at full width and depth under
+    ``{fsdp: 2}``, ``{tp: 2}`` and ``{sp: 2}`` zig-zag (f32): the window of
+    2 against 2 eager steps under the mesh, and the window with ``valid
+    = [1, 0]`` against 1 (:func:`_win_lm_arm`); ResNet-50 CIFAR
+    ``Trainer.fit`` under ``{dp: 2}`` in windows of 4 with compile-ahead,
+    validation and checkpoints beside the same fit one step a dispatch,
+    and f32 b8 windows against the eager fit (:func:`_win_fit_arm`).
+    Steps/s, ``compile/ahead_wait`` and submit-to-first-step printed, not
+    held.  ``configs`` ({"lm", "seq", "resnet", "batch", "f32_batch"})
+    shrinks the models for a CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    def describe(arm, mine, theirs, ref):
+        del ref
+        if "param_err" in mine and "kind" not in arm[2]:
+            print(f"  {arm[0]} f32: the window of {WIN_K} against {WIN_K} "
+                  f"eager steps under the mesh: parameters within "
+                  f"{max(mine['param_err'], theirs['param_err']):.3e} of "
+                  f"their leaf's largest magnitude, metrics "
+                  f"{max(mine['metric_err'], theirs['metric_err']):.3e} "
+                  f"relative (loss {mine['metrics']['loss']:.6f}); valid "
+                  f"[1, 0] against one step "
+                  f"{max(mine['tail_param_err'], theirs['tail_param_err']):.3e}"
+                  f" / {max(mine['tail_metric_err'], theirs['tail_metric_err']):.3e}"
+                  f"; compile-ahead beside {WIN_AHEAD_EVALS} eval steps "
+                  f"({mine['ahead_evals_beside']} / "
+                  f"{theirs['ahead_evals_beside']} ended while the worker "
+                  f"ran): error {mine['ahead_error']}, the artifact's window"
+                  f" {max(mine['ahead_param_err'], theirs['ahead_param_err']):.3e}"
+                  f", the eval steps {max(mine['ahead_eval_err'], theirs['ahead_eval_err']):.3e}"
+                  f"; captures {mine['captures']}; window "
+                  f"{mine['window_steps_per_s']:.3f} steps/s against eager "
+                  f"{mine['eager_steps_per_s']:.3f} (rank 1: "
+                  f"{theirs['window_steps_per_s']:.3f} / "
+                  f"{theirs['eager_steps_per_s']:.3f}); launches rank 0 "
+                  f"{mine['launches']}, rank 1 {theirs['launches']} [{card}]")
+            return
+        win, one = mine["windows"], mine["one step"]
+        if arm[2]["kind"] == "fit":
+            cold = mine["cold"]
+            print(f"  {arm[0]} bf16 b{(configs or {}).get('batch', CIFAR_BATCH)}"
+                  f" a rank, {WIN_FIT_BATCHES} batches: the pair's first "
+                  f"fit (one step a dispatch, no compile-ahead) "
+                  f"{cold['steps_per_s']:.3f} steps/s "
+                  f"({cold['steady_steps_per_s']:.3f} past its first "
+                  f"dispatch of {cold['first_dispatch_s']:.3f} s); then "
+                  f"windows of "
+                  f"{WIN_FIT_K} {win['steps_per_s']:.3f} steps/s over the "
+                  f"epoch ({win['steady_steps_per_s']:.3f} past the first "
+                  f"dispatch of {win['first_dispatch_s']:.3f} s), one step "
+                  f"a dispatch {one['steps_per_s']:.3f} "
+                  f"({one['steady_steps_per_s']:.3f}; "
+                  f"{one['first_dispatch_s']:.3f} s) (rank 1: "
+                  f"{theirs['windows']['steps_per_s']:.3f} / "
+                  f"{theirs['one step']['steps_per_s']:.3f}); "
+                  f"compile/ahead_wait {win['ahead_wait_s']:.4f} / "
+                  f"{one['ahead_wait_s']:.4f} s, compile/lower "
+                  f"{win['lower_s']:.3f} / {one['lower_s']:.3f} s (off "
+                  f"the main thread {win['off_main_s']:.3f} / "
+                  f"{one['off_main_s']:.3f} s), submit "
+                  f"to first step {win['submit_to_first_step_seconds']:.3f}"
+                  f" / {one['submit_to_first_step_seconds']:.3f} s; "
+                  f"served {win['served']}, error {win['error']}; "
+                  f"checkpoints {win['checkpoints']} / "
+                  f"{one['checkpoints']}; loss "
+                  f"{win['history']['loss']:.4f}, val_loss "
+                  f"{win['history']['val_loss']:.4f}; launches rank 0 "
+                  f"{mine['launches']}, rank 1 {theirs['launches']} [{card}]")
+            return
+        print(f"  {arm[0]} b{(configs or {}).get('f32_batch', WIN_F32_BATCH)}"
+              f" a rank, deterministic cuDNN: windows of {WIN_FIT_K} "
+              f"against one step a dispatch: parameters within "
+              f"{max(mine['param_err'], theirs['param_err']):.3e} of their "
+              f"leaf's largest magnitude; {win['steps_per_s']:.3f} / "
+              f"{one['steps_per_s']:.3f} steps/s ("
+              f"{win['steady_steps_per_s']:.3f} / "
+              f"{one['steady_steps_per_s']:.3f} past the first "
+              f"dispatch); launches rank 0 "
+              f"{mine['launches']}, rank 1 {theirs['launches']} [{card}]")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_win_")
+    try:
+        return _two_rank_arms(device, "6win", WIN_ARMS,
+                              {arm[0]: None for arm in WIN_ARMS}, _win_arm,
+                              describe, setup=setup, model=MESH_MODEL,
+                              arm_kw={"configs": configs, "root": root})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # Phases 9r, 9p, 9m: the front door (run, the container bootstrap), the
 # profiler and the exporter.
 
@@ -10051,6 +10588,12 @@ SIDE_PHASES = (
      "under {tp: 2}, {sp: 2} and {fsdp: 2} in f32 against one process, "
      "{tp: 2} in bf16; MNIST and ResNet-50 CIFAR under {tp: 2}; 2 ranks on "
      "the card over gloo", "encoder mesh", "run_encoder_mesh", False, 1),
+    ("phase 6win: the window, fit's windows and compile-ahead under 2-rank "
+     "meshes on the card over gloo (CloudLM SMALL b2xT1024 f32 windows of 2 "
+     "under {fsdp: 2}, {tp: 2}, {sp: 2} zig-zag against eager steps; "
+     "ResNet-50 CIFAR fit under {dp: 2}, b256 bf16 in windows of 4 with "
+     "compile-ahead, validation and checkpoints; f32 b8 windows against the "
+     "eager fit)", "window training", "run_window_training", False, 1),
     ("phase 9g: the gs:// paths on a directory-backed storage client: "
      "records written to gs://, ResNet-50 CIFAR b256 bf16 fit from "
      "RecordDataset(gs://) checkpointing to gs:// every 2 steps, a fresh "
@@ -10505,6 +11048,7 @@ def _main() -> int:
     front_door, exporter_run = side["front door"], side["exporter"]
     tuner_run, fit_run = side["tuner"], side["cloud_fit"]
     mesh_run, pp_run = side["mesh training"], side["pipeline training"]
+    win_run = side["window training"]
     enc_run, gcs_run, golden = (side["encoder mesh"], side["gcs"],
                                 side["golden"])
 
@@ -10561,11 +11105,11 @@ def _main() -> int:
                "tp engine": results["tp engine"],
                "sp engine": results["sp engine"]}
     # K5-K7 also run in the training phases of the model zoo (6m, 6d, 8v),
-    # under a mesh (6mesh, 6pp and 6enc, both ranks) and in the golden
+    # under a mesh (6mesh, 6pp, 6enc and 6win, both ranks) and in the golden
     # workloads (10g: generate_text's training and decoding, K8 and K8q
     # too, and the ring example's 4 ranks).
     zoo_training = (moe_lm, dots, vit_run, mesh_run, pp_run, enc_run,
-                    golden)
+                    win_run, golden)
     by_phase = {name: {what: phase["launches"].get(name, 0)
                        for what, phase in serving.items()}
                 for name in QUANT_SERVING_KERNELS}
@@ -10588,8 +11132,8 @@ def _main() -> int:
             # exactly-once fits (4r), compile-ahead (4a), the records
             # fits (4p), the container of the front door (9r), the
             # tuner's workers (9t), cloud_fit's ranks and restoring run
-            # (9f), the gs:// fit and ranks (9g) and ResNet's tp arm
-            # (6enc), each counted from 0.
+            # (9f), the gs:// fit and ranks (9g), ResNet's tp arm (6enc)
+            # and the fits under {dp: 2} (6win), each counted from 0.
             entry["launches"] = (cifar["launches"][name]
                                  + fit["launches"][name]
                                  + exact["launches"][name]
@@ -10599,7 +11143,8 @@ def _main() -> int:
                                  + tuner_run["launches"][name]
                                  + fit_run["launches"][name]
                                  + gcs_run["launches"][name]
-                                 + enc_run["launches"][name])
+                                 + enc_run["launches"][name]
+                                 + win_run["launches"][name])
         if entry["launches"] <= 0:
             return fail(f"kernel {name} was not launched on its path",
                         "kernel line")

@@ -82,8 +82,13 @@ def remat_wrap(body, enabled: bool = True, policy: str = "full"):
         # the recomputation draws the same masks without the generator's
         # state being saved (reading it is not allowed inside a CUDA graph
         # capture, ``train.make_multi_step``).
-        return checkpoint(body, *args, use_reentrant=False,
-                          preserve_rng_state=False, **extra, **kwargs)
+        from cloud_tpu_torch.parallel import mesh as mesh_lib
+
+        # The recomputation (on autograd's thread on the card) sends over
+        # the groups this thread's forward used (``mesh.keep_route``).
+        return checkpoint(mesh_lib.keep_route(body), *args,
+                          use_reentrant=False, preserve_rng_state=False,
+                          **extra, **kwargs)
 
     return wrapped
 

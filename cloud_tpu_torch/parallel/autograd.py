@@ -23,7 +23,9 @@ its forward, written out:
 The collectives run inside autograd's graph, so their order in the
 backward is autograd's.  Each layer makes them a chain (one copy before
 its attention, one before its MLP, one all-to-all for q, k and v
-stacked), so every rank issues them in the same order.
+stacked), so every rank issues them in the same order.  A backward
+that sends uses the groups its forward used (``mesh.routed``): autograd
+runs the backward of CUDA tensors on a thread of its own.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from cloud_tpu_torch.parallel import mesh as mesh_lib
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh):
-        ctx.args = (axes, mesh)
+        ctx.args = (axes, mesh_lib.routed(mesh))
         return x.view_as(x)
 
     @staticmethod
@@ -76,7 +78,7 @@ class _GatherVocab(torch.autograd.Function):
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, seq_dim, heads_dim, to_heads):
-        ctx.args = (mesh, seq_dim, heads_dim, to_heads)
+        ctx.args = (mesh_lib.routed(mesh), seq_dim, heads_dim, to_heads)
         return collectives.all_to_all_seq_heads(
             x, mesh_lib.AXIS_SP, seq_dim=seq_dim, heads_dim=heads_dim,
             to_heads=to_heads, mesh=mesh)

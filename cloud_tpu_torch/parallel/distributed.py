@@ -16,6 +16,7 @@ Env contract:
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import logging
 import os
@@ -71,7 +72,16 @@ def initialize_from_env(timeout_seconds: Optional[int] = None, *,
         kwargs["timeout"] = datetime.timedelta(seconds=timeout_seconds)
     logger.info("torch.distributed.init_process_group(%s)", kwargs)
     dist.init_process_group(**kwargs)
+    # A group still alive when the interpreter finalizes is destroyed with
+    # its worker threads running, and the process aborts ("terminate
+    # called without an active exception") instead of exiting.
+    atexit.register(_destroy_at_exit)
     return True
+
+
+def _destroy_at_exit() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:

@@ -22,6 +22,16 @@ neighbours.  Axis conventions:
 The canonical order sorts axes by collective latency tolerance, and the
 rank grid is a row-major reshape in that order, so ``tp`` neighbours are
 consecutive ranks (on one host: the cards NVLink joins all to all).
+
+A second thread that runs a step under a mesh beside the main thread
+(``Trainer.fit(compile_ahead=True)``'s worker, which warms the step up
+while the main thread restores shards, steps and validates) must not
+share the main thread's groups: two threads' collectives on one group
+pair in whatever order each rank issues them, which on two ranks can
+differ, and a collective then meets the wrong peer (a deadlock, or a sum
+of unrelated tensors).  :func:`worker_mesh` gives such a thread a second
+set of axis groups, and :func:`route` sends that thread's collectives
+over any of the mesh's axes through them (see there).
 """
 
 from __future__ import annotations
@@ -29,8 +39,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import json
 import math
+import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,6 +164,16 @@ class MeshSpec:
             rank = dist.get_rank()
         coords = dict(zip(CANONICAL_AXES,
                           (int(c) for c in np.argwhere(grid == rank)[0])))
+        groups, group_ranks = self._axis_groups(rank, backend)
+        return Mesh(spec=self, devices=tuple(devices), rank=rank,
+                    coords=coords, backend=backend, groups=groups,
+                    group_ranks=group_ranks)
+
+    def _axis_groups(self, rank: int, backend: str):
+        """``(groups, group_ranks)`` of ``rank``: one new process group per
+        row of every nontrivial axis of the grid, made in canonical order
+        (every rank makes every group, a collective call each)."""
+        grid = np.arange(self.num_devices).reshape(self.shape())
         groups, group_ranks = {}, {}
         for i, axis in enumerate(CANONICAL_AXES):
             if self.size(axis) == 1:
@@ -161,9 +184,7 @@ class MeshSpec:
                                        timeout=DEFAULT_TIMEOUT)
                 if rank in row:
                     groups[axis], group_ranks[axis] = group, tuple(row)
-        return Mesh(spec=self, devices=tuple(devices), rank=rank,
-                    coords=coords, backend=backend, groups=groups,
-                    group_ranks=group_ranks)
+        return groups, group_ranks
 
     # --- wire format (job specs carry the plan into the container) ---
 
@@ -234,8 +255,9 @@ class Mesh:
 
     def group(self, axis: str):
         """The process group of this rank's ``axis`` neighbours (None on
-        an axis of size 1)."""
-        return self.groups.get(axis)
+        an axis of size 1): on a thread that :func:`route` routes this
+        mesh, the worker mesh's group of the same neighbours."""
+        return routed(self).groups.get(axis)
 
 
 def check_mesh(mesh) -> None:
@@ -255,6 +277,85 @@ def effective_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.spec.num_devices > 1 else None
 
 
+# --- a second thread's groups ----------------------------------------------
+
+#: Per thread: ``routes`` (id of a mesh -> its worker mesh) and ``mesh``
+#: (the global mesh as this thread sees it), set by :func:`route`.
+_THREAD = threading.local()
+_WORKER_MESHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_WORKER_LOCK = threading.Lock()
+
+
+def worker_mesh(mesh: Mesh) -> Mesh:
+    """``mesh``'s coordinates, devices and members with a second set of
+    axis groups of their own, made once per mesh (later calls return the
+    same one).  A collective call: every rank calls it for the same mesh,
+    in the same order, before the thread that uses it starts."""
+    check_mesh(mesh)
+    with _WORKER_LOCK:
+        side = _WORKER_MESHES.get(mesh)
+        if side is None:
+            groups, group_ranks = mesh.spec._axis_groups(mesh.rank,
+                                                         mesh.backend)
+            side = dataclasses.replace(mesh, groups=groups,
+                                       group_ranks=group_ranks)
+            _WORKER_MESHES[mesh] = side
+    return side
+
+
+@contextlib.contextmanager
+def route(mesh: Mesh, side: Mesh):
+    """On this thread, for the duration of the block: ``mesh.group(axis)``
+    is ``side``'s group (so every collective over ``mesh`` from this
+    thread goes through ``side``'s groups, whoever holds the mesh: the
+    step, its loss, the layers) and :func:`get_global_mesh` is ``mesh``.
+    Autograd runs the backward of CUDA tensors on a thread of its own,
+    which does not see the route: a differentiable collective keeps
+    :func:`routed` of its mesh, taken in its forward, for its backward,
+    and a remat body takes the route along (:func:`keep_route`)."""
+    routes = dict(getattr(_THREAD, "routes", None) or {})
+    routes[id(mesh)] = side
+    with _thread_routes(routes, mesh):
+        yield side
+
+
+@contextlib.contextmanager
+def _thread_routes(routes, mesh):
+    prev = (getattr(_THREAD, "routes", None), getattr(_THREAD, "mesh", None))
+    _THREAD.routes, _THREAD.mesh = routes, mesh
+    try:
+        yield
+    finally:
+        _THREAD.routes, _THREAD.mesh = prev
+
+
+def keep_route(fn):
+    """``fn``, run under this thread's routes wherever it is called later
+    (a remat body that autograd's backward thread recomputes); ``fn``
+    itself on a thread without routes."""
+    routes = getattr(_THREAD, "routes", None)
+    if not routes:
+        return fn
+    mesh = getattr(_THREAD, "mesh", None)
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _thread_routes(routes, mesh):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def routed(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh whose groups this thread's collectives over ``mesh`` use:
+    its worker mesh on a thread that :func:`route` routes it, else
+    ``mesh``."""
+    routes = getattr(_THREAD, "routes", None)
+    if mesh is not None and routes and id(mesh) in routes:
+        return routes[id(mesh)]
+    return mesh
+
+
 # --- global mesh registry -------------------------------------------------
 
 _GLOBAL_MESH: Optional[Mesh] = None
@@ -266,7 +367,10 @@ def set_global_mesh(mesh: Optional[Mesh]) -> None:
 
 
 def get_global_mesh() -> Optional[Mesh]:
-    return _GLOBAL_MESH
+    """The installed global mesh (:func:`use_mesh`); on a thread that
+    :func:`route` routes, the routed mesh."""
+    local = getattr(_THREAD, "mesh", None)
+    return local if local is not None else _GLOBAL_MESH
 
 
 @contextlib.contextmanager

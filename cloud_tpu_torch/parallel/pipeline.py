@@ -309,7 +309,9 @@ def pipeline(layer_fn: Callable[[Any, Any], Any], stage_params,
     pp = num_stages(mesh, axis)
     if pp <= 1:
         return _sequential(layer_fn, stage_params, microbatches)
-    run = _Schedule(layer_fn, stage_params, microbatches, mesh, axis)
+    # The backward (autograd's thread) sends over the forward's groups.
+    run = _Schedule(layer_fn, stage_params, microbatches,
+                    mesh_lib.routed(mesh), axis)
     mbs, params = _leaves(microbatches), _leaves(stage_params)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in mbs + params):

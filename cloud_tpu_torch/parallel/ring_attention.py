@@ -205,7 +205,8 @@ class _Ring(torch.autograd.Function):
                 kv, m = _rotate(kv, axis, mesh), _rotate(m, axis, mesh)
         out, lse = merged(partials)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.args = (mesh, axis, causal, zigzag)
+        # The backward's thread sends over the groups the forward used.
+        ctx.args = (mesh_lib.routed(mesh), axis, causal, zigzag)
         return out.to(q.dtype)
 
     @staticmethod

@@ -37,7 +37,14 @@ the capture path the windows use (``train._Graphed``):
 
 On a CPU state nothing is captured: the artifact is the eager step bound
 to its specs, so the registry, the spec check and the worker behave as on
-the card.
+the card.  Under a mesh of more than one rank (one process per rank) the
+artifact is the eager step bound to its specs too (a CUDA graph cannot
+capture gloo's host-side collectives): ``compile/lower`` runs it once on
+a copy of the state and a zero batch of the specs (``train._Warm``), on
+the card or the CPU, which pays the first step's set-up ahead and leaves
+its result unchanged.  The worker of :func:`start_compile_ahead` then
+sends its collectives over axis groups of its own
+(``parallel.mesh.worker_mesh``), never the main thread's.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ import torch
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.monitoring import metrics, tracing
 from cloud_tpu_torch.ops import dispatch
+from cloud_tpu_torch.parallel import mesh as mesh_lib
 from cloud_tpu_torch.training import train as train_lib
 
 logger = logging.getLogger(__name__)
@@ -152,13 +160,20 @@ def abstract_batch(batch, mesh=None, rules=None, *, stacked: bool = False,
     """The batch's tree of :class:`TensorSpec` AS THE STEP WILL SEE IT:
     tensors keep their devices, host leaves (a concrete batch or a
     ``batch_spec`` of anything with ``.shape``/``.dtype``) get ``device``
-    (``cuda`` by default), where the trainer places them.  ``stacked``
-    and ``batch_axis`` describe a mesh layout and change nothing on one
-    card; compile-ahead under a mesh (``mesh``/``rules``) is queued
-    (ROADMAP.md A.2) and raises."""
-    del stacked, batch_axis  # the layout of a mesh; one card has none
-    train_lib.refuse_unported(mesh=mesh, rules=rules,
-                              feature="compile-ahead (abstract_batch)")
+    (``cuda`` by default; the mesh's device for this rank under
+    ``mesh``), where the trainer places them.
+
+    Under ``mesh`` the batch is this rank's rows, as ``train.shard_batch``
+    takes them (the JAX package's multi-process contract: each rank's
+    dataset yields its own rows), so the specs are the rows' shapes;
+    ``stacked=True`` marks a window's super-batch, its leading axis the K
+    steps (``shard_batch(..., stacked=True)``), whose rows are the rank's
+    in every slot.  ``rules`` and ``batch_axis`` name how the global batch
+    was cut into rows and change no spec."""
+    del rules, stacked, batch_axis  # the rows are already this rank's
+    mesh_lib.check_mesh(mesh)
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device)
 
     def spec(x):
@@ -179,11 +194,19 @@ def _args_key(args) -> Tuple:
 
 def context_key(*, mesh=None, rules=None, donation: Tuple[int, ...] = (),
                 steps_per_dispatch: int = 1) -> Tuple:
-    """The non-spec half of a registry key: the donation signature (the
-    arguments a step updates in place) and K (the window's width)."""
-    train_lib.refuse_unported(mesh=mesh, rules=rules,
-                              feature="compile-ahead (context_key)")
-    return (tuple(donation), int(steps_per_dispatch))
+    """The non-spec half of a registry key: the mesh (its axis sizes, this
+    rank's coordinates and its backend), the sharding rules, the
+    donation signature (the arguments a step updates in place) and K
+    (the window's width)."""
+    mesh_lib.check_mesh(mesh)
+    mesh_key = None
+    if mesh is not None:
+        mesh_key = (tuple(mesh.shape.items()), tuple(sorted(
+            mesh.coords.items())), mesh.backend)
+    rules_key = None
+    if rules is not None:
+        rules_key = tuple(sorted(rules.rules.items()))
+    return (mesh_key, rules_key, tuple(donation), int(steps_per_dispatch))
 
 
 def _materialize(tree):
@@ -203,18 +226,6 @@ def _materialize(tree):
 # Artifacts and the registry
 
 
-class _Bound:
-    """The artifact on the CPU: the eager step, bound to its specs."""
-
-    static_state = None
-
-    def __init__(self, step):
-        self._step = step
-
-    def __call__(self, *args):
-        return self._step(*args)
-
-
 def aot_compile(step, *args, label: str = "step"):
     """The step's artifact for inputs like ``args`` (concrete tensors,
     :class:`TensorSpec` trees, or a mix), spanned ``compile/lower`` and
@@ -227,16 +238,20 @@ def aot_compile(step, *args, label: str = "step"):
     tree gives zeros, and the batch gets static buffers of its own.  A
     K-step window is captured for its full set of slots (a tail's slots
     get their graph at first use).  On a CPU state the step is bound as
-    it is.  The artifact is called like the step, with inputs matching
-    ``args``' specs (:class:`AotStep` checks them)."""
+    it is.  Under a mesh of more than one rank (``step.eager``) the step
+    is bound as it is after one warm-up on a copy of the state (a
+    collective: every rank compiles the same steps in the same order).
+    The artifact is called like the step, with inputs matching ``args``'
+    specs (:class:`AotStep` checks them)."""
     first = _flat(args[0])
     device = getattr(first[0], "device", None) if first else None
     arg_keys = tuple(_args_key((a,)) for a in args)
-    if device is None or torch.device(device).type != "cuda":
+    eager = getattr(step, "eager", False)
+    if not eager and (device is None or torch.device(device).type != "cuda"):
         with tracing.span("compile/lower", fn=label):
             pass
         with tracing.span("compile/backend_compile", fn=label):
-            artifact = _Bound(step)
+            artifact = train_lib._Bound(step)
         artifact.arg_keys = arg_keys
         return artifact
     if not hasattr(step, "graph_artifact"):
@@ -368,11 +383,22 @@ class CompileAhead:
         self._thread: Optional[threading.Thread] = None
         self._done = {label: threading.Event() for label in steps}
 
-    def _launch(self, jobs, device) -> None:
+    def _launch(self, jobs, device, mesh=None) -> None:
+        # Under a mesh the worker's collectives go through groups of its
+        # own, made here on every rank, in order, before it starts.
+        side = None if mesh is None else mesh_lib.worker_mesh(mesh)
+
         def worker():
             if device is not None and device.type == "cuda":
                 # The device is a property of the thread.
                 torch.cuda.set_device(device)
+            if side is None:
+                run_jobs()
+            else:
+                with mesh_lib.route(mesh, side):
+                    run_jobs()
+
+        def run_jobs():
             for aot_step, args, ctx in jobs:
                 try:
                     if callable(args):
@@ -416,7 +442,7 @@ class CompileAhead:
             thread.join(timeout)
 
 
-def start_compile_ahead(jobs, *, device=None) -> CompileAhead:
+def start_compile_ahead(jobs, *, device=None, mesh=None) -> CompileAhead:
     """Launch a background compile of ``jobs``.
 
     ``jobs`` is a list of ``(AotStep, args, context_key)`` triples,
@@ -424,10 +450,24 @@ def start_compile_ahead(jobs, *, device=None) -> CompileAhead:
     given, is made the worker's current card).  ``args`` may instead be
     a zero-arg callable, resolved on the worker right before that job
     (return None to skip the job), for specs that themselves cost a
-    blocking peek, like the eval step's validation batch."""
+    blocking peek, like the eval step's validation batch.
+
+    Under ``mesh`` (a mesh of more than one rank; this process is one
+    rank, and every rank starts the same jobs) each job's warm-up runs
+    a step under the mesh on the worker while the main thread goes on
+    (restoring shards, stepping, validating, each with collectives).  On
+    one set of groups two threads' collectives could pair differently on
+    different ranks, so the worker's go through a second set of axis
+    groups (``parallel.mesh.worker_mesh``, made here, on every rank in
+    the same order, before the worker starts; ``parallel.mesh.route``
+    sends every collective over ``mesh`` from the worker's thread
+    through them).  A failed job is logged and kept in
+    :attr:`CompileAhead.error`; the other ranks' workers then wait out
+    their groups' timeout on its collectives."""
     steps = {job[0].label: job[0] for job in jobs}
     plan = CompileAhead(steps)
-    plan._launch(jobs, None if device is None else torch.device(device))
+    plan._launch(jobs, None if device is None else torch.device(device),
+                 mesh_lib.effective_mesh(mesh))
     return plan
 
 
@@ -534,9 +574,13 @@ def maybe_enable_persistent_cache(cache_dir: Optional[str] = None, *,
             )
             metrics.counter_inc("compile/cache_probe_failed")
             return _decide(False, cache_dir)
+        # Several ranks of one host may probe into one directory at once:
+        # the marker lands whole by a rename, as the libraries do.
+        tmp = f"{marker}.tmp-{os.getpid()}-{threading.get_ident()}"
         try:
-            with open(marker, "w", encoding="utf-8") as f:
+            with open(tmp, "w", encoding="utf-8") as f:
                 f.write(out.strip()[-200:] + "\n")
+            os.replace(tmp, marker)
         except OSError:
             pass  # the marker is an optimization; the next process probes
     dispatch.set_build_dir(cache_dir)

@@ -43,7 +43,8 @@ import torch
 from cloud_tpu_torch._device import resolve_device
 from cloud_tpu_torch.bridge import leaves, map_leaves
 from cloud_tpu_torch.monitoring import metrics, tracing
-from cloud_tpu_torch.training.train import refuse_unported
+from cloud_tpu_torch.parallel import mesh as mesh_lib
+from cloud_tpu_torch.parallel import sharding
 
 #: Thread-name prefix for every background prefetch worker, so tests (and
 #: operators reading py-spy dumps) can find — and assert the absence of —
@@ -228,14 +229,12 @@ def _placer(device: torch.device, window: Optional[int]):
     return place, _deliver
 
 
-def _refuse_multi_rank(mesh, rules, feature: str) -> None:
-    """The windows feed the window's CUDA graphs: under a mesh of more
-    than one rank they are queued (ROADMAP.md A.2) and raise; a mesh of
-    one rank is one card."""
-    from cloud_tpu_torch.parallel import mesh as mesh_lib
-
-    refuse_unported(mesh=mesh_lib.effective_mesh(mesh), rules=rules,
-                    feature=feature)
+def _device_of(mesh, device) -> torch.device:
+    """``device``, else the mesh's device for this rank, else ``cuda``."""
+    mesh_lib.check_mesh(mesh)
+    if mesh is not None and device is None:
+        device = mesh.device
+    return resolve_device(device)
 
 
 def prefetch_to_device(
@@ -264,13 +263,7 @@ def prefetch_to_device(
     already the rank's).
     """
     del rules  # the rows are already this rank's (train.shard_batch)
-    if mesh is not None:
-        from cloud_tpu_torch.parallel import mesh as mesh_lib
-
-        mesh_lib.check_mesh(mesh)
-        if device is None:
-            device = mesh.device
-    device = resolve_device(device)
+    device = _device_of(mesh, device)
 
     def factory():
         source = iter(dataset())
@@ -339,32 +332,6 @@ def stack_batches(batches: Sequence[dict]):
     return np.stack([np.asarray(x) for x in batches])
 
 
-def _pad_steps(stacked, k: int):
-    """Zero-pad every leaf of a stacked host super-batch along its step
-    axis to ``k``; returns ``(padded, valid)`` with ``valid`` a float32
-    ``[k]`` mask of real steps (``sharding.pad_batch`` on axis 0)."""
-    lengths = {int(np.shape(leaf)[0]) for leaf in leaves(stacked)
-               if np.ndim(leaf) > 0}
-    if len(lengths) != 1:
-        raise ValueError(f"pad: leaves disagree on the step axis "
-                         f"({sorted(lengths)})")
-    n = lengths.pop()
-    if n > k:
-        raise ValueError(f"step axis has {n} rows, more than pad_to={k}")
-    valid = np.zeros((k,), np.float32)
-    valid[:n] = 1.0
-    if n == k:
-        return stacked, valid
-
-    def pad(x):
-        x = np.asarray(x)
-        if x.ndim == 0:
-            return x
-        return np.pad(x, [(0, k - n)] + [(0, 0)] * (x.ndim - 1))
-
-    return map_leaves(stacked, pad), valid
-
-
 def windowed(source: Iterator, k: int, limit: Optional[int] = None) -> Iterator[List]:
     """Group ``source`` into lists of up to ``k`` consecutive batches.
 
@@ -420,7 +387,7 @@ def _window_item(window: List, k: int) -> Tuple[int, object, object]:
     first_sig = signature(window[0])
     if any(signature(b) != first_sig for b in window[1:]):
         return n, list(window), None
-    stacked, valid = _pad_steps(stack_batches(window), k)
+    stacked, valid = sharding.pad_batch(stack_batches(window), k)
     return n, stacked, valid
 
 
@@ -443,10 +410,18 @@ def prefetch_windows(
     to the full window shape with ``valid`` marking its real steps (see
     :func:`_window_item`), padded on the worker thread, off the dispatch
     path.
+
+    Under ``mesh`` (this process is one rank) the dataset yields this
+    rank's rows, as ``train.shard_batch`` takes them, and the payload
+    stacks them in ``shard_batch(..., stacked=True)``'s layout (the K
+    steps first), placed on the mesh's device unless ``device`` is
+    given; ``rules`` changes nothing (the rows are already the rank's).
+    Every rank's dataset must yield as many batches, so that the ranks'
+    windows, and their tails' masks, agree (``train.make_multi_step``
+    checks the masks).
     """
-    _refuse_multi_rank(mesh, rules, "prefetch_windows")
-    device = resolve_device(device if mesh is None or device is not None
-                            else mesh.device)
+    del rules  # the rows are already this rank's (train.shard_batch)
+    device = _device_of(mesh, device)
 
     def factory():
         place, deliver = _placer(device, steps_per_dispatch)
@@ -470,10 +445,9 @@ def iter_windows(
 ) -> Callable[[], Iterator]:
     """Synchronous sibling of :func:`prefetch_windows` (``prefetch=0``):
     the same ``(n_steps, payload, valid)`` stream, no background thread,
-    copies in the caller's stream order."""
-    _refuse_multi_rank(mesh, rules, "iter_windows")
-    device = resolve_device(device if mesh is None or device is not None
-                            else mesh.device)
+    copies in the caller's stream order (under ``mesh`` as there)."""
+    del rules  # the rows are already this rank's (train.shard_batch)
+    device = _device_of(mesh, device)
 
     def factory():
         for window in windowed(iter(dataset()), steps_per_dispatch, limit):

@@ -10,10 +10,12 @@ so, as with donation, the state passed in must not be used again.
 ``make_multi_step(..., steps_per_dispatch=K)`` fuses K steps into one
 dispatch, as the JAX package's ``lax.scan`` window does: on the card the
 K step bodies are captured once as one CUDA graph and every call replays
-it (see :func:`make_multi_step`).  ``make_eval_step`` is the forward
-only.  ``training.compile_cache`` captures a step, a window or an eval
-step ahead of its first call through the same capture path
-(:class:`_Graphed`).
+it; under a mesh of more than one rank the K bodies are launched from the
+host in one call (see :func:`make_multi_step`).  ``make_eval_step`` is
+the forward only.  ``training.compile_cache`` captures a step, a window
+or an eval step ahead of its first call through the same capture path
+(:class:`_Graphed`), or, under a mesh of more than one rank, warms it up
+once (:class:`_Warm`).
 
 All take gradient accumulation (``accum_steps``), the on-device
 non-finite guard (``skip_nonfinite``) and stochastic steps
@@ -37,11 +39,13 @@ The loss must return its rank's share of the global loss (the
 ``loss_fn`` of CloudLM, BERT, ViT, MNIST and ResNet does, marked
 ``mesh_loss``), so the summed gradients are the global loss's.
 :func:`make_hybrid_dp_train_step` is the JAX package's replicated
-data-parallel step with the two-level gradient sum.  ``Trainer.fit``
-under a mesh runs these steps eagerly; the window, compile-ahead and the
-windowed pipelines under a mesh of more than one rank are queued
-(ROADMAP.md A.2): their CUDA graphs cannot capture gloo's host-side
-collectives.
+data-parallel step with the two-level gradient sum.  Under a mesh of
+more than one rank nothing is captured as a CUDA graph (a graph cannot
+capture gloo's host-side collectives): the window runs its K step bodies
+in order from the host, with the collectives between them, and
+compile-ahead's artifact is the eager step bound to its specs, warmed up
+once ahead of its first call.  A mesh of one rank is the single-process
+step (every collective over it is the identity) and keeps the graphs.
 """
 
 from __future__ import annotations
@@ -61,13 +65,6 @@ from cloud_tpu_torch.ops import dispatch
 from cloud_tpu_torch.parallel import collectives, sharding
 from cloud_tpu_torch.parallel import mesh as mesh_lib
 
-#: Why the window, fit, compile-ahead and the pipelines refuse a mesh.
-_MESH_LATER = ("is queued under ROADMAP.md A.2: a step under a mesh runs "
-               "its collectives from the host (gloo, or NCCL between "
-               "cards), and the one-step and window CUDA graphs of this "
-               "path cannot capture gloo's host-side collectives")
-
-
 @dataclasses.dataclass
 class TrainState:
     step: torch.Tensor
@@ -77,17 +74,6 @@ class TrainState:
     #: stochastic steps, a leaf like any other; None for deterministic
     #: training.  Each step consumes a fresh split.
     rng: Any = None
-
-
-def refuse_unported(*, mesh=None, logical_axes=None, rules=None,
-                    feature: str = "this entry point") -> None:
-    """Raise ``NotImplementedError`` for a mesh option of an entry point
-    that does not run under a mesh yet, naming its queued item."""
-    for name, value in (("mesh", mesh), ("logical_axes", logical_axes),
-                        ("rules", rules)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{feature} with {name}= (under a mesh) {_MESH_LATER}")
 
 
 def mesh_loss(fn):
@@ -421,6 +407,30 @@ class _MeshLayout:
         return torch.sqrt(sq.sum())
 
 
+def _layout_cache(mesh, rules, logical_axes):
+    """``layout_of(params)``: a step's :class:`_MeshLayout` under ``mesh``
+    (None without one), built at its first use on each set of groups
+    (``mesh_lib.routed``).  The compile-ahead worker, whose collectives go
+    over groups of its own, builds its own layout and the main thread
+    another: a layout's extents exchange is a collective, and a layout
+    shared by both threads would be exchanged by whichever thread came
+    first, which may differ between ranks (one rank's exchange then meets
+    another rank's next collective)."""
+    layouts: Dict[int, _MeshLayout] = {}
+
+    def layout_of(params) -> Optional[_MeshLayout]:
+        if mesh is None:
+            return None
+        key = id(mesh_lib.routed(mesh))
+        layout = layouts.get(key)
+        if layout is None:
+            layout = layouts[key] = _MeshLayout(mesh, rules, logical_axes,
+                                                params)
+        return layout
+
+    return layout_of
+
+
 def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
                accum_steps, skip_nonfinite):
     """The step's work, shared by the step and the window: the rng split
@@ -442,8 +452,11 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
 
     Under ``mesh`` the gradients come from parameters gathered over
     ``fsdp`` and are synced to shards after the backward
-    (:class:`_MeshLayout`, built at the first call); ``accum_steps``
-    micro-batches accumulate locally and sync once."""
+    (:class:`_MeshLayout`, built at the first call on each thread's
+    groups, :func:`_layout_cache`); ``accum_steps``
+    micro-batches accumulate locally and sync once.  ``body.gather(params)``
+    is the parameters as the loss takes them (gathered over ``fsdp``
+    under a mesh, a collective)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     mesh_lib.check_mesh(mesh)
@@ -452,14 +465,7 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
             "under a mesh the step takes a loss marked train.mesh_loss (one "
             "that returns its rank's share of the global loss, as the "
             "loss_fn of CloudLM, BERT, ViT, MNIST and ResNet does)")
-    layouts: List[_MeshLayout] = []
-
-    def layout_of(params) -> Optional[_MeshLayout]:
-        if mesh is None:
-            return None
-        if not layouts:
-            layouts.append(_MeshLayout(mesh, rules, logical_axes, params))
-        return layouts[0]
+    layout_of = _layout_cache(mesh, rules, logical_axes)
 
     def split_rng(state: TrainState):
         if not stochastic:
@@ -499,6 +505,11 @@ def _step_body(loss_fn, optimizer, *, logical_axes, rules, mesh, stochastic,
         metrics["nonfinite"] = 1.0 - finite.float()
         return metrics
 
+    def gather(params):
+        layout = layout_of(params)
+        return params if layout is None else layout.gather(params)
+
+    body.gather = gather
     return body
 
 
@@ -541,6 +552,24 @@ def _eval_metrics(loss_fn, state: TrainState, batch, _key=None) -> Dict:
     with torch.no_grad():
         _, metrics = loss_fn(state.params, batch)
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def _state_copy(state: TrainState) -> TrainState:
+    """A copy of ``state`` on its device (a warm-up's, which must leave
+    the state it was given as it was)."""
+    return TrainState(
+        step=state.step.clone(),
+        params=map_leaves(state.params, lambda p: p.detach().clone(
+        ).requires_grad_(p.requires_grad)),
+        opt_state=map_leaves(state.opt_state, torch.clone),
+        rng=None if state.rng is None else state.rng.clone())
+
+
+def _zero_batch(batch, device):
+    """Zeros of ``batch``'s shapes and dtypes (tensors or
+    ``compile_cache.TensorSpec`` leaves) on ``device``."""
+    return map_leaves(batch, lambda x: torch.zeros(
+        tuple(x.shape), dtype=x.dtype, device=device))
 
 
 def _same_specs(what: str, static, given) -> None:
@@ -594,8 +623,7 @@ class _Graphed:
         device = state.step.device
         self.state = state
         self._stream = torch.cuda.Stream(device)
-        self._batch = map_leaves(batch, lambda x: torch.zeros(
-            tuple(x.shape), dtype=x.dtype, device=device))
+        self._batch = _zero_batch(batch, device)
 
     def bind(self, state: TrainState, batch) -> None:
         """Make ``state``'s values and ``batch`` the graphs' inputs."""
@@ -621,15 +649,7 @@ class _Graphed:
         device = self.state.step.device
         self._stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self._stream):
-            warm = self.state
-            if self._mutates:
-                warm = TrainState(
-                    step=self.state.step.clone(),
-                    params=map_leaves(self.state.params, lambda p: p.detach(
-                    ).clone().requires_grad_(p.requires_grad)),
-                    opt_state=map_leaves(self.state.opt_state, torch.clone),
-                    rng=None if self.state.rng is None
-                    else self.state.rng.clone())
+            warm = _state_copy(self.state) if self._mutates else self.state
             self._fn(warm, self._batch, self._warm_key(key))
             del warm
         self.warmup_steps += 1
@@ -678,6 +698,50 @@ class _Graphed:
         return outputs
 
 
+class _Warm:
+    """:class:`_Graphed`'s counterpart for a step under a mesh of more
+    than one rank, where nothing is captured: :meth:`warm_up` runs the
+    work once, eagerly, on a copy of the state (when ``fn`` mutates it)
+    and a zero batch, which pays what a first step pays ahead of it (the
+    kernel libraries built and loaded, cuBLAS and cuDNN set up, the
+    allocator's first segments, the first collectives over the thread's
+    groups), and then lets both go.
+    :meth:`capture` has nothing to do."""
+
+    def __init__(self, fn, *, mutates: bool = True,
+                 warm_key=lambda key: key):
+        self._fn = fn
+        self._mutates = mutates
+        self._warm_key = warm_key
+        self._state: Optional[TrainState] = None
+        self._batch = None
+
+    def prepare(self, state: TrainState, batch) -> None:
+        self._state = state
+        self._batch = _zero_batch(batch, state.step.device)
+
+    def warm_up(self, key) -> None:
+        warm = _state_copy(self._state) if self._mutates else self._state
+        self._fn(warm, self._batch, self._warm_key(key))
+        self._state = self._batch = None
+
+    def capture(self, key) -> None:
+        del key  # a step under a mesh is not captured
+
+
+class _Bound:
+    """An artifact that is the eager step bound to its specs (on the CPU,
+    and under a mesh of more than one rank): called as the step."""
+
+    static_state = None
+
+    def __init__(self, step):
+        self._step = step
+
+    def __call__(self, *args):
+        return self._step(*args)
+
+
 class _GraphedStep:
     """A step or eval step replayed from its :class:`_Graphed` (what
     ``compile_cache.aot_compile`` returns on the card).  Metrics come
@@ -706,6 +770,8 @@ class _TrainStep:
     def __init__(self, body, mesh=None):
         self._body = body
         self.mesh = mesh
+        #: Under a mesh of more than one rank: no graphs (see the module).
+        self.eager = mesh_lib.effective_mesh(mesh) is not None
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         profiler.safe_point()
@@ -714,10 +780,12 @@ class _TrainStep:
                           opt_state=state.opt_state, rng=state.rng), metrics
 
     def graph_artifact(self):
-        """``(artifact, graphed, key)`` for a capture ahead of use."""
-        refuse_unported(mesh=self.mesh, feature="compile-ahead of a step")
-        graphed = _Graphed(functools.partial(_one_step, self._body),
-                           what="make_train_step")
+        """``(artifact, graphed, key)`` for a capture ahead of use; under a
+        mesh of more than one rank the eager step and its warm-up."""
+        fn = functools.partial(_one_step, self._body)
+        if self.eager:
+            return _Bound(self), _Warm(fn), None
+        graphed = _Graphed(fn, what="make_train_step")
         return _GraphedStep(graphed, train=True), graphed, None
 
 
@@ -727,23 +795,24 @@ class _EvalStep:
     def __init__(self, loss_fn, mesh=None, logical_axes=None, rules=None):
         self._loss_fn = loss_fn
         self.mesh = mesh
-        self._layout = (mesh, rules, logical_axes)
-        self._layouts: List[_MeshLayout] = []
+        self.eager = mesh_lib.effective_mesh(mesh) is not None
+        self._layout_of = _layout_cache(mesh, rules, logical_axes)
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         profiler.safe_point()
+        return self._metrics(state, batch)
+
+    def _metrics(self, state: TrainState, batch, _key=None):
         if self.mesh is None:
             return _eval_metrics(self._loss_fn, state, batch)
-        if not self._layouts:
-            self._layouts.append(_MeshLayout(*self._layout, state.params))
         with torch.no_grad():
             _, metrics = self._loss_fn(
-                self._layouts[0].gather(state.params), batch)
+                self._layout_of(state.params).gather(state.params), batch)
         return {k: v.detach() for k, v in metrics.items()}
 
     def graph_artifact(self):
-        refuse_unported(mesh=self.mesh, feature="compile-ahead of an "
-                        "eval step")
+        if self.eager:
+            return _Bound(self), _Warm(self._metrics, mutates=False), None
         graphed = _Graphed(functools.partial(_eval_metrics, self._loss_fn),
                            what="make_eval_step", mutates=False)
         return _GraphedStep(graphed, train=False), graphed, None
@@ -783,14 +852,20 @@ def make_train_step(
 
 class _MultiStep:
     """The window ``make_multi_step`` returns (see there).  ``captures``,
-    ``replays`` and ``warmup_steps`` count its graph work on the card."""
+    ``replays`` and ``warmup_steps`` count its graph work on the card;
+    they stay 0 under a mesh of more than one rank (``eager``), where
+    nothing is captured."""
 
     def __init__(self, body, loss_fn, steps_per_dispatch: int,
-                 guarded: bool):
+                 guarded: bool, mesh=None):
         self._body = body
         self._loss_fn = loss_fn
         self._guarded = guarded
         self.steps_per_dispatch = steps_per_dispatch
+        self.mesh = mesh
+        #: The route, fixed here by the mesh's rank count (never by a
+        #: failure): the step bodies launched from the host.
+        self.eager = mesh_lib.effective_mesh(mesh) is not None
         self._graphed = _Graphed(functools.partial(_window, body),
                                  what="make_multi_step",
                                  warm_key=lambda run: run[:1])
@@ -806,10 +881,17 @@ class _MultiStep:
 
     def graph_artifact(self):
         """``(artifact, graphed, key)`` for a capture ahead of use: a
-        window of its own (fresh graphs) and its full set of slots."""
+        window of its own (fresh graphs) and its full set of slots; under
+        a mesh of more than one rank this window and its warm-up (one
+        step body)."""
+        key = tuple(range(self.steps_per_dispatch))
+        if self.eager:
+            return _Bound(self), _Warm(functools.partial(_window, self._body),
+                                       warm_key=lambda run: run[:1]), key
         window = _MultiStep(self._body, self._loss_fn,
-                            self.steps_per_dispatch, self._guarded)
-        return window, window._graphed, tuple(range(self.steps_per_dispatch))
+                            self.steps_per_dispatch, self._guarded,
+                            self.mesh)
+        return window, window._graphed, key
 
     def __call__(self, state: TrainState, super_batch, valid=None):
         profiler.safe_point()
@@ -820,33 +902,55 @@ class _MultiStep:
                 f"super_batch leading axis {batch_leaves[0].shape[0]} != "
                 f"steps_per_dispatch={k}"
             )
-        if valid is None:
-            run, n_valid = tuple(range(k)), float(k)
-        else:
-            # The window's one host read of the mask (a [K] vector).
-            v = np.asarray(valid.detach().cpu() if torch.is_tensor(valid)
-                           else valid, np.float32).reshape(-1)
-            if v.shape != (k,):
-                raise ValueError(f"valid must be [{k}], got {v.shape}")
-            run = tuple(int(i) for i in np.flatnonzero(v > 0))
-            n_valid = float(max(np.float32(v.sum()), np.float32(1.0)))
+        # The window's one host read of the mask (a [K] vector).
+        v = np.ones((k,), np.float32) if valid is None else np.asarray(
+            valid.detach().cpu() if torch.is_tensor(valid) else valid,
+            np.float32).reshape(-1)
+        if v.shape != (k,):
+            raise ValueError(f"valid must be [{k}], got {v.shape}")
+        if self.eager:
+            self._same_mask(v)
+        run = tuple(int(i) for i in np.flatnonzero(v > 0))
+        n_valid = float(max(np.float32(v.sum()), np.float32(1.0)))
         if not run:  # every slot padded: nothing runs, the state passes
             return state, self._zero_metrics(state, super_batch)
-        if state.step.device.type == "cuda":
+        device = state.step.device.type
+        if self.eager or device == "cpu":
+            sums = _window(self._body, state, super_batch, run)
+        elif device == "cuda":
             sums = self._graphed.run(state, super_batch, run)
             state = self._graphed.state
-        elif state.step.device.type == "cpu":
-            sums = _window(self._body, state, super_batch, run)
         else:
             raise ValueError(f"make_multi_step: unsupported device "
                              f"{state.step.device}")
         self._metric_shapes = {key: s.shape for key, s in sums.items()}
         return state, {key: s / n_valid for key, s in sums.items()}
 
+    def _same_mask(self, v: np.ndarray) -> None:
+        """Raise ``ValueError`` unless every rank of the mesh was given
+        this mask: a slot run on one rank and skipped on another would
+        pair the step bodies' collectives wrongly.  One all-reduce (the
+        max of ``v`` and of ``-v``) over every axis of the mesh."""
+        mesh = self.mesh
+        axes = tuple(a for a in mesh_lib.CANONICAL_AXES
+                     if mesh.axis_size(a) > 1)
+        both = torch.from_numpy(np.concatenate([v, -v])).to(mesh.device)
+        both = collectives.all_reduce_max(both, axes, mesh=mesh).cpu().numpy()
+        k = len(v)
+        hi, lo = both[:k], -both[k:]
+        if not (np.array_equal(hi, v) and np.array_equal(lo, v)):
+            raise ValueError(
+                f"make_multi_step under a mesh: valid differs between the "
+                f"ranks (this rank's {v.tolist()}; over the mesh the "
+                f"elementwise min {lo.tolist()} and max {hi.tolist()}): "
+                "every rank must run and skip the same slots")
+
     def _zero_metrics(self, state, super_batch):
         if self._metric_shapes is None:
+            # Under a mesh every rank gets here together (the masks
+            # agree), so the loss's collectives pair.
             with torch.no_grad():
-                _, metrics = self._loss_fn(state.params,
+                _, metrics = self._loss_fn(self._body.gather(state.params),
                                            _slot(super_batch, 0))
             self._metric_shapes = {key: v.shape for key, v in metrics.items()}
             self._metric_shapes["grad_norm"] = torch.Size(())
@@ -896,17 +1000,30 @@ def make_multi_step(
     host once a call, and each set of valid slots gets its own graph,
     captured at its first use (a full window and a dataset's tail: two
     graphs).  On a CPU state the same step bodies run eagerly.
+
+    Under ``mesh`` (with ``logical_axes`` and ``rules``, as
+    :func:`make_train_step` takes them; ``super_batch`` stacks this
+    rank's rows, ``shard_batch(..., stacked=True)``) the window runs the
+    step under the mesh's body.  On a mesh of more than one rank its K
+    bodies are launched from the host in order, with their collectives
+    between them (a CUDA graph cannot capture gloo's host-side
+    collectives), on the card and on the CPU alike; the route follows the
+    mesh's rank count, and ``captures``, ``replays`` and ``warmup_steps``
+    stay 0.  ``valid`` is then this rank's mask: the window compares the
+    masks over the mesh once a call (one all-reduce of ``[2K]`` values)
+    and raises ``ValueError`` when they differ, since a slot run on one
+    rank and skipped on another would pair the collectives wrongly.  A
+    mesh of one rank takes the route without a mesh.
     """
     if steps_per_dispatch < 1:
         raise ValueError(
             f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}"
         )
-    refuse_unported(mesh=mesh, logical_axes=logical_axes, rules=rules,
-                    feature="make_multi_step (the window)")
     body = _step_body(loss_fn, optimizer, logical_axes=logical_axes,
                       rules=rules, mesh=mesh, stochastic=stochastic,
                       accum_steps=accum_steps, skip_nonfinite=skip_nonfinite)
-    return _MultiStep(body, loss_fn, steps_per_dispatch, skip_nonfinite)
+    return _MultiStep(body, loss_fn, steps_per_dispatch, skip_nonfinite,
+                      mesh)
 
 
 def make_eval_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict]], *,

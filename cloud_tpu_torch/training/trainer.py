@@ -3,7 +3,7 @@ of ``cloud_tpu/training/trainer.py``).
 
 ``Trainer.fit`` runs epochs, steps, validation, History and Callback
 hooks over the port's step (``train.make_train_step``) or its K-step
-window (``train.make_multi_step``, a CUDA graph on the card), fed by the
+window (``train.make_multi_step``, a CUDA graph on one card), fed by the
 prefetch pipeline (``pipeline_io``), with the preemption drain, the
 exactly-once data position and the non-finite guard of the JAX
 package's trainer, stochastic steps (dropout from the state's rng
@@ -13,19 +13,24 @@ graphs on a worker thread while the prefetch thread warms,
 the Trainer is built with ``device="cpu"``.
 
 Under a mesh (``mesh``, ``logical_axes``, ``rules``; one process per
-rank, ``parallel/``), ``fit`` runs eager steps through the step under a
-mesh (``train.make_train_step(mesh=...)``): each rank's dataset yields its
+rank, ``parallel/``), ``fit`` runs the step under a mesh
+(``train.make_train_step(mesh=...)``): each rank's dataset yields its
 own rows (the JAX package's multi-process contract: ``train.shard_batch``),
 prefetched to the rank's device, with validation, callbacks and
 accumulation as on one card; ``CheckpointCallback`` saves each rank's
 shards and restores straight into them (``training.checkpoint``).  The
-loss must be a ``train.mesh_loss``
-(CloudLM's, MNIST's and ResNet's are).  Windows (``steps_per_dispatch`` >
-1) and compile-ahead under a mesh of more than one rank raise
-``NotImplementedError`` naming ROADMAP.md A.2: their CUDA graphs cannot
-capture gloo's host-side collectives.  A mesh whose every axis has size 1
-is the single-process step (each collective over it is the identity), so
-``fit`` takes that whole path, windows and compile-ahead included.
+loss must be a ``train.mesh_loss`` (CloudLM's, BERT's, ViT's, MNIST's and
+ResNet's are).  Windows (``steps_per_dispatch`` > 1) stack the rank's
+rows of K batches (``pipeline_io.prefetch_windows`` under the mesh) into
+the window under the mesh, whose K step bodies run from the host with
+their collectives between them (no CUDA graph: one cannot capture gloo's
+host-side collectives); the callbacks, the drain, the data position and
+the non-finite guard keep one card's window cadence.  Compile-ahead
+warms the step under the mesh up once on a worker whose collectives go
+through axis groups of their own (``training.compile_cache``).  A mesh
+whose every axis has size 1 is the single-process step (each collective
+over it is the identity), so ``fit`` takes that whole path, its CUDA
+graphs included.
 """
 
 from __future__ import annotations
@@ -366,14 +371,14 @@ class Trainer:
         self.data_state: Dict[str, int] = {"epoch": 0, "batches_consumed": 0}
         self._resume_data_state: Optional[Dict[str, int]] = None
         self._data_seed: Optional[int] = None
-        layout = dict(mesh=self._mesh, rules=rules, logical_axes=(
+        self._layout = dict(mesh=self._mesh, rules=rules, logical_axes=(
             logical_axes if self._mesh is not None else None))
         self._train_step = train_lib.make_train_step(
             loss_fn, optimizer, stochastic=stochastic,
             accum_steps=accum_steps, skip_nonfinite=nonfinite_guard,
-            **layout,
+            **self._layout,
         )
-        self._eval_step = train_lib.make_eval_step(loss_fn, **layout)
+        self._eval_step = train_lib.make_eval_step(loss_fn, **self._layout)
         # Fused K-step windows, built lazily per K: a window keeps its
         # CUDA graphs, so reusing it across epochs and fits captures once.
         self._multi_steps: Dict[int, Any] = {}
@@ -573,7 +578,7 @@ class Trainer:
                 self.loss_fn, self.optimizer,
                 steps_per_dispatch=steps_per_dispatch,
                 stochastic=self.stochastic, accum_steps=self.accum_steps,
-                skip_nonfinite=self.nonfinite_guard,
+                skip_nonfinite=self.nonfinite_guard, **self._layout,
             )
             self._multi_steps[steps_per_dispatch] = fn
         return fn
@@ -653,7 +658,8 @@ class Trainer:
         ``pipeline_io.prefetch_to_device`` are not wrapped twice.
 
         ``steps_per_dispatch=K`` > 1 fuses K train steps into ONE dispatch
-        (``train.make_multi_step``: on the card one CUDA-graph replay): K
+        (``train.make_multi_step``: on one card one CUDA-graph replay,
+        under a mesh of more than one rank K bodies from the host): K
         consecutive batches are stacked into a super-batch, so per-step
         host overhead (launches, callback fan-out) amortizes K-fold.  The
         parameter trajectory is unchanged; ``on_step_end`` fires once per
@@ -677,6 +683,13 @@ class Trainer:
         ahead degrades to the plain step, never an error.  On the CPU
         nothing is captured (the plain steps run, through the same
         wrappers).
+
+        Under a mesh of more than one rank nothing is captured: the
+        artifacts are the eager steps under the mesh, each warmed up once
+        on the worker (``compile/lower``) over axis groups of its own;
+        the first dispatch waits for the train step's warm-up, and fit
+        joins the worker before it returns.  Every rank must pass the
+        same ``compile_ahead`` and data shapes.
 
         ``rollback_after_nonfinite=K`` (requires a Trainer built with
         ``nonfinite_guard=True``): after K CONSECUTIVE dispatch windows
@@ -729,15 +742,6 @@ class Trainer:
                     "nonfinite_guard=True (the on-device skip supplies the "
                     "signal the rollback trigger counts)"
                 )
-        if self._mesh is not None:
-            # Refused before any state or data is touched.
-            if steps_per_dispatch > 1:
-                train_lib.refuse_unported(
-                    mesh=self._mesh,
-                    feature="fit(steps_per_dispatch > 1) (the window)")
-            if compile_ahead or batch_spec is not None:
-                train_lib.refuse_unported(
-                    mesh=self._mesh, feature="fit(compile_ahead=True)")
         # Env-gated persistent kernel cache (CLOUD_TPU_COMPILE_CACHE): a
         # once-per-process probe + enable, a cheap no-op when unset.
         compile_cache.maybe_enable_persistent_cache()
@@ -792,11 +796,12 @@ class Trainer:
                 return train_data
             if prefetch > 0:
                 return pipeline_io.prefetch_windows(
-                    train_data, k, size=prefetch, limit=limit,
-                    device=self.device,
+                    train_data, k, mesh=self._mesh, size=prefetch,
+                    limit=limit, device=self.device,
                 )
             return pipeline_io.iter_windows(
-                train_data, k, limit=limit, device=self.device,
+                train_data, k, mesh=self._mesh, limit=limit,
+                device=self.device,
             )
 
         source = build_source(steps_per_epoch)
@@ -935,6 +940,12 @@ class Trainer:
                         # (valid None: per-batch shapes differ, so no
                         # stacking is possible).
                         n, payload, valid = item
+                        if (first_dispatch and aot_plan is not None
+                                and self._mesh is not None):
+                            # Under a mesh no backward may run beside
+                            # the worker's warm-up step (on the card
+                            # autograd's one thread would serve both).
+                            aot_plan.wait("multi_step")
                         if valid is None:
                             compute_span = (
                                 "step/first_compile" if first_dispatch
@@ -1014,6 +1025,10 @@ class Trainer:
             # The epoch loop never ran (a resumed position past the epochs
             # budget): the peek's iterator still owns a prefetch worker.
             peeked_iter.close()
+        if aot_plan is not None and self._mesh is not None:
+            # The worker's collectives end before fit returns: a caller
+            # may tear the process group down after it.
+            aot_plan.wait()
         # A server capture this loop started stops here, on its thread.
         profiler.safe_point(last=True)
         for cb in callbacks:
@@ -1071,7 +1086,8 @@ class Trainer:
                             (k,) + tuple(x.shape),
                             compile_cache._torch_dtype(x.dtype)))
                 batch_specs = compile_cache.abstract_batch(
-                    batch_spec, stacked=k > 1, device=self.device)
+                    batch_spec, stacked=k > 1, device=self.device,
+                    **self._spec_layout())
             else:
                 it = iter(source())
                 first = next(it, None)
@@ -1080,16 +1096,18 @@ class Trainer:
                     return None, peeked  # empty dataset: nothing to compile
                 if k == 1:
                     batch_specs = compile_cache.abstract_batch(
-                        first, device=self.device)
+                        first, device=self.device, **self._spec_layout())
                 else:
                     _, payload, first_valid = first
                     if first_valid is None:
                         # Ragged first window: no stacked specs.
                         return None, peeked
                     batch_specs = compile_cache.abstract_batch(
-                        payload, stacked=True, device=self.device)
+                        payload, stacked=True, device=self.device,
+                        **self._spec_layout())
             ctx = compile_cache.context_key(donation=(0,),
-                                            steps_per_dispatch=k)
+                                            steps_per_dispatch=k,
+                                            **self._spec_layout())
             if k == 1:
                 jobs = [(compile_cache.AotStep(self._train_step, "train_step"),
                          (state, batch_specs), ctx)]
@@ -1098,7 +1116,8 @@ class Trainer:
                 jobs = [(compile_cache.AotStep(multi_step, "multi_step"),
                          (state, batch_specs, valid), ctx)]
             if validation_data is not None:
-                eval_ctx = compile_cache.context_key(steps_per_dispatch=1)
+                eval_ctx = compile_cache.context_key(steps_per_dispatch=1,
+                                                     **self._spec_layout())
 
                 def eval_args():
                     # On the compile worker, after the train job.
@@ -1106,20 +1125,27 @@ class Trainer:
                     if val_batch is None:
                         return None
                     return (state, compile_cache.abstract_batch(
-                        val_batch, device=self.device))
+                        val_batch, device=self.device,
+                        **self._spec_layout()))
 
                 jobs.append((compile_cache.AotStep(self._eval_step,
                                                    "eval_step"),
                              eval_args, eval_ctx))
-            return (compile_cache.start_compile_ahead(jobs,
-                                                      device=self.device),
-                    peeked)
+            return (compile_cache.start_compile_ahead(
+                jobs, device=self.device, mesh=self._mesh), peeked)
         except Exception:  # noqa: BLE001 — compile-ahead is advisory
             logger.warning(
                 "compile-ahead setup failed; falling back to the plain "
                 "steps", exc_info=True,
             )
             return None, peeked
+
+    def _spec_layout(self) -> Dict[str, Any]:
+        """The mesh and rules of compile-ahead's specs and keys (none on
+        one card)."""
+        if self._mesh is None:
+            return {}
+        return {"mesh": self._mesh, "rules": self.rules}
 
     @staticmethod
     def _peek_one_batch(dataset):

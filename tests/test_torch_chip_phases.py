@@ -25,6 +25,10 @@ launches).
   full-width models.
 * 10g: the golden copies (generate_text in this process, the ring
   example on 4 ranks, save_and_load and the custom loop on 2).
+* 6win: every arm on two gloo ranks, at CloudLM TINY (2 layers, T=32),
+  ResNet-8 with 4 rows a rank and 2 in the f32 arm: each window equals
+  the eager steps under the mesh, the fits' compile-ahead serves both
+  steps with no error and checkpoints the window boundaries.
 """
 
 import dataclasses
@@ -83,3 +87,27 @@ def test_golden_phase_on_the_cpu():
     assert out["generate_text"]["steps"] > 0
     assert len(out["ring"]) == chip_smoke.GOLDEN_RANKS["ring"]
     assert all(r["losses"][-1] < r["losses"][0] for r in out["ring"])
+
+
+def test_window_phase_on_the_cpu():
+    from cloud_tpu_torch.models import resnet, transformer
+
+    out = chip_smoke.run_window_training(CPU, "cpu", configs={
+        "lm": transformer.TINY.scaled(num_layers=2), "seq": 32,
+        "resnet": resnet.RESNET8_CIFAR, "batch": 4, "f32_batch": 2})
+    assert list(out["arms"]) == [arm[0] for arm in chip_smoke.WIN_ARMS]
+    for name, arm in out["arms"].items():
+        for rank in ("rank0", "rank1"):
+            got = arm[rank]
+            if "windows" in got:
+                assert got["windows"]["steps"] == chip_smoke.WIN_FIT_BATCHES
+            if name == "resnet fit":
+                assert got["windows"]["checkpoints"] == [4, 8, 10]
+                assert got["windows"]["served"] == ["eval_step",
+                                                    "multi_step"]
+            elif "captures" in got:
+                assert got["captures"] == 0
+                assert got["param_err"] <= chip_smoke.WIN_TOL
+                assert got["ahead_error"] == "None" and got["ahead_served"]
+                assert got["ahead_param_err"] <= chip_smoke.WIN_TOL
+                assert got["ahead_eval_err"] <= chip_smoke.WIN_TOL

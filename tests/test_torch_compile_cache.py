@@ -105,7 +105,16 @@ def test_specs_keep_shape_dtype_device_and_grad():
     assert batch["x"] == compile_cache.TensorSpec((2, 4), torch.float64,
                                                   torch.device("cpu"))
     assert batch["t"].dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+    # Under a mesh the specs are this rank's rows on the mesh's device
+    # (held on 2 ranks in tests/test_torch_window_mesh.py).
+    from cloud_tpu_torch.parallel import MeshSpec
+
+    one = MeshSpec({}).build(devices=["cpu"])
+    stacked = compile_cache.abstract_batch(
+        {"x": np.zeros((2, 3, 4), np.float32)}, mesh=one, stacked=True)
+    assert stacked["x"] == compile_cache.TensorSpec((2, 3, 4), torch.float32,
+                                                    torch.device("cpu"))
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         compile_cache.abstract_batch({}, mesh=object(), device="cpu")
 
 
@@ -319,6 +328,39 @@ class TestPersistentCache:
                               env=env)
         assert proc.returncode == 0, proc.stderr[-800:]
         assert proc.stdout.strip() == dispatch.library_path("group_norm")
+
+    def test_ranks_probing_one_directory_leave_one_whole_marker(
+            self, tmp_path, monkeypatch):
+        """Two ranks of one host probe into one directory at once (each a
+        process; here two threads, the decision reset between them): the
+        marker lands whole by a rename, and no partial file stays."""
+        import threading
+
+        cache = str(tmp_path / "cache")
+        both = threading.Barrier(2)
+
+        def probe(d, t):
+            both.wait(timeout=30)  # both probes run before either writes
+            return 0, compile_cache._PROBE_OK_MARKER
+
+        monkeypatch.setattr(compile_cache, "_run_probe_child", probe)
+        got = []
+
+        def rank():
+            got.append(compile_cache.maybe_enable_persistent_cache(cache))
+
+        threads = [threading.Thread(target=rank) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert got == [True, True]
+        files = [f for f in os.listdir(cache)
+                 if f.startswith(".cloud_tpu_torch_probe_ok")]
+        assert files == [os.path.basename(
+            compile_cache._probe_marker_path(cache))]
+        with open(os.path.join(cache, files[0])) as f:
+            assert f.read() == compile_cache._PROBE_OK_MARKER + "\n"
 
     def test_nvcc_version_names_the_library(self, monkeypatch):
         monkeypatch.setattr(dispatch, "_nvcc_version", "release 12.9")

@@ -194,11 +194,15 @@ def test_super_batch_leading_axis_raises_as_jax():
     {"skip_nonfinite": True}, {"logical_axes": {}}, {"rules": object()},
 ], ids=lambda o: next(iter(o)))
 def test_unported_window_options_raise_as_the_step(option):
-    """The window refuses what the step refuses; ``accum_steps``,
-    ``skip_nonfinite`` and ``stochastic`` are ported (held to JAX in
+    """The window refuses what the step refuses (``mesh=`` anything but a
+    ``parallel.mesh.Mesh``); ``accum_steps``, ``skip_nonfinite`` and
+    ``stochastic`` are ported (held to JAX in
     ``tests/test_torch_trainer.py`` and ``test_torch_stochastic.py``) and
-    build a window that runs."""
-    if next(iter(option)) in ("accum_steps", "skip_nonfinite", "stochastic"):
+    build a window that runs, as do ``logical_axes`` and ``rules`` without
+    a mesh (the window under a mesh is held to JAX in
+    ``tests/test_torch_window_mesh.py``)."""
+    if next(iter(option)) in ("accum_steps", "skip_nonfinite", "stochastic",
+                              "logical_axes", "rules"):
         state = train.create_sharded_state(
             None, lambda _: {"w": torch.ones(3)}, optimizers.sgd(0.1),
             train_rng=[0, 7], device="cpu")
@@ -209,7 +213,7 @@ def test_unported_window_options_raise_as_the_step(option):
         assert int(state.step) == 2
         assert all(torch.isfinite(v) for v in metrics.values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
                               steps_per_dispatch=2, **option)
 

@@ -408,6 +408,37 @@ def test_initialize_from_env_single_process_and_missing_fields(monkeypatch):
     assert mesh_lib.visible_devices("cpu")
 
 
+_EXIT_PROBE = """
+import atexit, sys
+sys.modules["jax"] = None
+import torch.distributed as dist
+# Registered first, so it runs after the handler initialize_from_env adds.
+atexit.register(lambda: print("at exit", dist.is_initialized(), flush=True))
+from cloud_tpu_torch.parallel import distributed
+assert distributed.initialize_from_env(60, device="cpu")
+"""
+
+
+def test_a_group_made_from_env_is_destroyed_before_the_interpreter_ends():
+    """A group still alive at interpreter finalization is torn down with
+    its threads running: under load such a rank now and then aborted
+    ("terminate called without an active exception", exit -6) after its
+    work was done.  ``initialize_from_env`` destroys the group it made at
+    exit, before finalization."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CLOUD_TPU_COORDINATOR="127.0.0.1:0",
+               CLOUD_TPU_NUM_PROCESSES="1", CLOUD_TPU_PROCESS_ID="0",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _EXIT_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "at exit False"
+
+
 # ---------------------------------------------------------------------------
 # Training collectives: the hierarchical sum, grad_sync, the all-to-all
 # and the differentiable collectives of parallel/autograd.py

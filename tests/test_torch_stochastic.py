@@ -39,6 +39,7 @@ from cloud_tpu.training import trainer as jax_trainer
 from cloud_tpu_torch import bridge
 from cloud_tpu_torch import random as random_lib
 from cloud_tpu_torch.models import bert, layers
+from cloud_tpu_torch.parallel import sharding
 from cloud_tpu_torch.training import (check_durability, checkpoint, data,
                                       optimizers, pipeline_io, train, trainer)
 from tests.helpers.torch_port import bert_tiny_models
@@ -230,7 +231,7 @@ def test_stochastic_tail_preserves_rng_chain():
     single = train.make_train_step(loss, tx, stochastic=True)
     for b in batches:
         seq, _ = single(seq, _tbatch(b))
-    stacked, valid = pipeline_io._pad_steps(
+    stacked, valid = sharding.pad_batch(
         pipeline_io.stack_batches(batches), 4)
     fused, _ = train.make_multi_step(loss, tx, steps_per_dispatch=4,
                                      stochastic=True)(

@@ -37,8 +37,10 @@ updated shards are gathered back whole (``bridge.from_train_shard``).
   NaN in one data rank's rows.
 * **MNIST through the hybrid step** against the plain step and JAX's
   (``tests/unit/test_parallel.py``'s ``TestHybridDpTrainStep``).
-* **What stays refused under a mesh**, each naming its queued ROADMAP
-  line, and the record pipeline's default shard by data coordinate.
+* **What a mesh of two ranks takes** (the window, fit's windows,
+  compile-ahead's specs, the windowed pipeline, the MoE under sp,
+  checkpoints with a layout), and the record pipeline's default shard by
+  data coordinate.
 """
 
 import dataclasses
@@ -716,7 +718,7 @@ def test_skip_nonfinite_under_a_pipeline(pp_runs):
 
 
 # ---------------------------------------------------------------------------
-# What stays refused, and the records' shard
+# What a mesh takes, and the records' shard
 
 
 def _fake_mesh(sizes, coords=None):
@@ -732,7 +734,7 @@ def _fake_mesh(sizes, coords=None):
                 group_ranks={})
 
 
-def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
+def test_a_mesh_takes_windows_the_moe_under_sp_and_checkpoints(tmp_path):
     from cloud_tpu_torch.models import transformer
     from cloud_tpu_torch.parallel import use_mesh
     from cloud_tpu_torch.training import (checkpoint, compile_cache,
@@ -743,21 +745,28 @@ def test_refusals_under_a_mesh_name_their_queued_line(tmp_path):
     sgd = optimizers.sgd(0.1)
     cfg = transformer.TINY.scaled(dtype=torch.float32, num_layers=1)
     lm_loss = functools.partial(transformer.loss_fn, config=cfg, mesh=mesh)
-    calls = {
-        "window": lambda: train.make_multi_step(
-            lm_loss, sgd, steps_per_dispatch=2, mesh=mesh),
-        "fit": lambda: trainer.Trainer(lm_loss, sgd, mesh=mesh,
-                                       device="cpu").fit(
-                                           list, steps_per_dispatch=2),
-        "compile-ahead": lambda: compile_cache.abstract_batch(
-            {}, mesh=mesh, device="cpu"),
-        "pipeline_io": lambda: pipeline_io.prefetch_windows(
-            list, 2, mesh=mesh, device="cpu"),
-    }
-    for what, call in calls.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A") as got:
-            call()
-        assert "A.2" in str(got.value), (what, str(got.value))
+    # The window, fit's windows, compile-ahead's specs and the windowed
+    # pipeline take a mesh of two ranks (held to JAX on gloo ranks in
+    # tests/test_torch_window_mesh.py): the window is built on the route
+    # without graphs, fit of an empty dataset runs no step, the specs are
+    # the rank's rows on the mesh's device, the pipeline yields nothing.
+    window = train.make_multi_step(lm_loss, sgd, steps_per_dispatch=2,
+                                   mesh=mesh)
+    assert window.eager and window.captures == 0
+    empty = train.TrainState(step=torch.zeros((), dtype=torch.int32),
+                             params={}, opt_state={})
+    fitted = trainer.Trainer(lm_loss, sgd, mesh=mesh, device="cpu")
+    hist = fitted.fit(list, steps_per_dispatch=2, compile_ahead=True,
+                      state=empty)
+    assert int(fitted.state.step) == 0 and set(hist.history) == {
+        "epoch_seconds"}
+    specs = compile_cache.abstract_batch(
+        {"tokens": np.zeros((2, 2, 8), np.int64)}, mesh=mesh, stacked=True)
+    assert specs["tokens"] == compile_cache.TensorSpec(
+        (2, 2, 8), torch.int64, torch.device("cpu"))
+    assert compile_cache.context_key(mesh=mesh, steps_per_dispatch=2) != \
+        compile_cache.context_key(steps_per_dispatch=2)
+    assert list(pipeline_io.prefetch_windows(list, 2, mesh=mesh)()) == []
     # The MoE under sp is ported (tests/test_torch_moe_sp.py): its
     # training context is made, with the sp block's layout.
     from cloud_tpu_torch.models import moe

@@ -571,6 +571,24 @@ def _prefetch_under_mesh():
         pipeline_io.prefetch_to_device(list, mesh=object(), device="cpu")
 
 
+def _windows_with_rules():
+    """The windowed pipeline takes ``rules`` (the rows are already the
+    rank's, so they change nothing) and ``mesh``: its windows are the ones
+    without them (a mesh that is not a ``parallel.mesh.Mesh`` raises)."""
+    batches = [{"x": np.full(2, i, np.float32)} for i in range(3)]
+    plain = list(pipeline_io.prefetch_windows(
+        lambda: iter(batches), 2, device="cpu")())
+    for kw in ({"rules": object()}, {"mesh": _one_rank_mesh()}):
+        got = list(pipeline_io.prefetch_windows(
+            lambda: iter(batches), 2, device="cpu", **kw)())
+        assert [n for n, _, _ in got] == [n for n, _, _ in plain] == [2, 1]
+        for (_, a, va), (_, b, vb) in zip(got, plain):
+            assert torch.equal(a["x"], b["x"])
+            np.testing.assert_array_equal(va, vb)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        pipeline_io.prefetch_windows(list, 2, mesh=object(), device="cpu")
+
+
 def _gcs_checkpoints_resume():
     """A fit checkpointing to ``gs://`` (a directory-backed fake client)
     every 2 steps keeps ``max_to_keep`` steps, and a fresh trainer resumes
@@ -603,17 +621,12 @@ def _gcs_checkpoints_resume():
     assert torch.equal(resumed.state.params["w"], first.state.params["w"])
 
 
-#: name -> (call, words of its message, the ROADMAP item it names).
-REFUSED = {
-    "prefetch_windows(rules)": (lambda: pipeline_io.prefetch_windows(
-        list, 2, rules=object(), device="cpu"), "gloo", "ROADMAP.md A.2"),
-}
-
 #: Options that raised until their items were ported; each now runs and
 #: is held to the JAX package or to the run without it (more in
-#: test_torch_stochastic.py, test_torch_compile_cache.py and
-#: test_torch_fit_mesh.py).
+#: test_torch_stochastic.py, test_torch_compile_cache.py,
+#: test_torch_fit_mesh.py and test_torch_window_mesh.py).
 PORTED = {
+    "prefetch_windows(rules)": _windows_with_rules,
     "Trainer(mesh)": lambda: _fit_as_without(mesh=_one_rank_mesh()),
     "Trainer(logical_axes)": lambda: _fit_as_without(logical_axes={}),
     "Trainer(rules)": lambda: _fit_as_without(rules=object()),
@@ -629,15 +642,9 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted({**REFUSED, **PORTED}))
-def test_refused_options_name_their_item(name):
-    """A queued option raises naming its item; the ported options
-    (``PORTED``, a gs:// checkpoint directory among them) run, held to JAX
-    or to the run without them."""
-    if name in PORTED:
-        PORTED[name]()
-        return
-    call, words, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=item) as got:
-        call()
-    assert words in str(got.value)
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_once_refused_options_run(name):
+    """Every option that raised until its item was ported (``PORTED``, a
+    gs:// checkpoint directory and the windowed pipeline's ``rules``
+    among them) runs, held to JAX or to the run without it."""
+    PORTED[name]()

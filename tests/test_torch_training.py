@@ -142,9 +142,10 @@ def test_other_unsupported_entry_points_raise():
         train.make_train_step(lambda p, b: None, optimizers.sgd(0.1),
                               accum_steps=0)
     # make_multi_step and resnet_train_setup(steps_per_dispatch > 1) are
-    # ported (tests/test_torch_multi_step.py); the window refuses what the
-    # step refuses.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
+    # ported (tests/test_torch_multi_step.py, under a mesh
+    # test_torch_window_mesh.py); the window refuses what the step
+    # refuses.
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         train.make_multi_step(lambda p, b: None, optimizers.sgd(0.1),
                               steps_per_dispatch=2, mesh=object())
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
